@@ -1,0 +1,15 @@
+from .engine import DecodeEngine, StreamEvent
+from .kv_cache import PageAllocator
+from .sampling import GREEDY, SamplingParams
+from .scheduler import ContinuousBatchingScheduler, Request, RequestState
+
+__all__ = [
+    "DecodeEngine",
+    "StreamEvent",
+    "PageAllocator",
+    "GREEDY",
+    "SamplingParams",
+    "ContinuousBatchingScheduler",
+    "Request",
+    "RequestState",
+]
