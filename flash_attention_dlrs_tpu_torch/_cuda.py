@@ -3,8 +3,9 @@
 Each source under ``csrc/`` compiles into a shared library with a plain C
 interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 -Xcompiler -fPIC``), loaded with ``ctypes``.  Libraries live in ``_build/``
-beside this file, named by a hash of their source and flags: an edited source
-rebuilds on its next use, an unchanged one loads at once.  Nothing is built
+beside this file, named by a hash of their source, the shared headers and
+the flags: an edited source rebuilds on its next use, an unchanged one loads
+at once.  Nothing is built
 or loaded when a module is imported: the CPU tests import every module and
 have no ``nvcc``.
 
@@ -62,10 +63,12 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives: named by a hash
+    of the source, the shared headers (``csrc/*.cuh``) and the flags."""
     src = CSRC_DIR / source
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 

@@ -38,140 +38,18 @@
 // Both paths skip KV tiles wholly above the causal diagonal or outside the
 // window band, and process the heaviest causal q tiles first.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int BM = 64;  // q rows per CTA
 constexpr int BN = 64;  // kv rows per tile
-// ops/fwd_kernel.py DEFAULT_MASK_VALUE: the lse of a row that sees no key.
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-struct TileRange {
-  int lo, hi;  // KV tiles [lo, hi) that q rows [m0, m0 + BM) can see
-};
-
-__device__ __forceinline__ TileRange kv_tiles(int m0, int Nq, int Nkv,
-                                              int causal, int window) {
-  const int q_off = Nkv - Nq;
-  const int row_hi = min(m0 + BM, Nq);  // exclusive
-  int col_hi = Nkv, col_lo = 0;
-  if (causal) {
-    col_hi = min(Nkv, row_hi + q_off);
-    if (window > 0) col_lo = max(0, m0 + q_off - window + 1);
-  }
-  return {col_lo / BN, col_hi > 0 ? (col_hi + BN - 1) / BN : 0};
-}
-
-// Whether every (row, col) of the tile pair is visible, so the mask can be
-// skipped.
-__device__ __forceinline__ bool tile_unmasked(int m0, int n0, int Nq, int Nkv,
-                                              int causal, int window) {
-  const int q_off = Nkv - Nq;
-  bool full = n0 + BN <= Nkv;
-  if (causal) {
-    full = full && n0 + BN - 1 <= m0 + q_off;
-    if (window > 0) full = full && (m0 + BM - 1 + q_off) - n0 < window;
-  }
-  return full;
-}
-
-__device__ __forceinline__ bool visible(int row, int col, int Nq, int Nkv,
-                                        int causal, int window) {
-  const int pos = row + Nkv - Nq;
-  bool ok = col < Nkv;
-  if (causal) {
-    ok = ok && col <= pos;
-    if (window > 0) ok = ok && (pos - col) < window;
-  }
-  return ok;
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core path (bf16 / fp16)
 // ---------------------------------------------------------------------------
 
 constexpr int TC_THREADS = 128;  // 4 warps x 16 q rows
-
-template <typename T> struct Mma;
-
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// rows [r0, r0 + 64) of a [N, D] matrix into a [64][S] shared tile, zero
-// beyond N, 16 bytes per load.
-template <typename T, int D, int S>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0, int N,
-                                           int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;  // 16-byte chunks per row
-  constexpr int ITERS = 64 * CPR / TC_THREADS;
-  uint4 buf[ITERS];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = tid + it * TC_THREADS;
-    const int r = idx / CPR, c = (idx % CPR) * VEC;
-    buf[it] = r0 + r < N
-                  ? *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + c)
-                  : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = tid + it * TC_THREADS;
-    const int r = idx / CPR, c = (idx % CPR) * VEC;
-    *reinterpret_cast<uint4*>(dst + r * S + c) = buf[it];
-  }
-}
 
 template <int D>
 constexpr size_t tc_smem_bytes() {
@@ -206,12 +84,12 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
   const T* vb = v + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
 
-  stage_tile<T, D, S>(sQ, qb, m0, Nq, tid);
+  stage_tile<T, D, S, BM, TC_THREADS>(sQ, qb, m0, Nq, tid);
   __syncthreads();
   uint32_t qf[KSTEPS][4];  // this warp's 16 q rows as A fragments
 #pragma unroll
   for (int ks = 0; ks < KSTEPS; ++ks)
-    ldsm_x4(qf[ks], sQ + (warp * 16 + lane % 16) * S + ks * 16 + (lane / 16) * 8);
+    ldsm_x4(qf[ks], a_frag<S>(sQ, warp * 16, ks * 16, lane));
 
   float acc[NT_O][4];
 #pragma unroll
@@ -219,12 +97,12 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float m_r[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
   float l_r[2] = {0.f, 0.f};              // this thread's share of the row sum
 
-  const TileRange tiles = kv_tiles(m0, Nq, Nkv, causal, window);
+  const TileRange tiles = kv_tiles<BM, BN>(m0, Nq, Nkv, causal, window);
   for (int kt = tiles.lo; kt < tiles.hi; ++kt) {
     const int n0 = kt * BN;
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<T, D, S>(sK, kb, n0, Nkv, tid);
-    stage_tile<T, D, S>(sV, vb, n0, Nkv, tid);
+    stage_tile<T, D, S, BN, TC_THREADS>(sK, kb, n0, Nkv, tid);
+    stage_tile<T, D, S, BN, TC_THREADS>(sV, vb, n0, Nkv, tid);
     __syncthreads();
 
     float s[NT_S][4];
@@ -235,15 +113,14 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < NT_S / 2; ++np) {
         uint32_t kf[4];
-        ldsm_x4(kf, sK + (np * 16 + lane % 8 + (lane / 16) * 8) * S + ks * 16 +
-                        ((lane / 8) % 2) * 8);
+        ldsm_x4(kf, b_frag<S>(sK, np * 16, ks * 16, lane));
         Mma<T>::run(s[2 * np], qf[ks], kf[0], kf[1]);
         Mma<T>::run(s[2 * np + 1], qf[ks], kf[2], kf[3]);
       }
     }
 
     // scale, softcap, mask; base-2 units from here on
-    const bool unmasked = tile_unmasked(m0, n0, Nq, Nkv, causal, window);
+    const bool unmasked = tile_unmasked<BM, BN>(m0, n0, Nq, Nkv, causal, window);
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
@@ -302,8 +179,7 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int np = 0; np < NT_O / 2; ++np) {
         uint32_t vf[4];
-        ldsm_x4_trans(vf, sV + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * S +
-                              np * 16 + (lane / 16) * 8);
+        ldsm_x4_trans(vf, bt_frag<S>(sV, kk * 16, np * 16, lane));
         Mma<T>::run(acc[2 * np], pa, vf[0], vf[1]);
         Mma<T>::run(acc[2 * np + 1], pa, vf[2], vf[3]);
       }
@@ -396,7 +272,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
 
-  const TileRange tiles = kv_tiles(m0, Nq, Nkv, causal, window);
+  const TileRange tiles = kv_tiles<BM, BN>(m0, Nq, Nkv, causal, window);
   for (int kt = tiles.lo; kt < tiles.hi; ++kt) {
     const int n0 = kt * BN;
     __syncthreads();  // the previous tile's P.V is done with sS / sV

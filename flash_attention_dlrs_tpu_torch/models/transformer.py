@@ -6,8 +6,9 @@ tied embeddings by default.  Parameters live in :class:`Transformer`, an
 ``[in, out]`` so projections are ``x @ W``); the functions below take it in
 place of the JAX params dict.  Plain projections are ``torch.matmul``, as
 the JAX package leaves them to XLA; attention goes through the port's
-kernel.  Variants the serving slice does not run raise when a
-:class:`ModelConfig` is built.
+kernels, forward and backward.  Parameters are trainable; the serving paths
+run under ``torch.inference_mode``.  Variants the port does not run yet
+raise when a :class:`ModelConfig` is built.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._cuda import resolve_device
 from ..ops.flash_attention import flash_attention
@@ -27,8 +29,12 @@ _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 1 of the PyTorch port)"
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Same fields as the JAX package's ModelConfig.  ``dtype`` is a torch
-    dtype.  The training-only fields (``remat*``, ``loss_chunk``) are kept
-    for parity and have no effect yet."""
+    dtype.  ``remat`` with ``remat_policy="block"`` recomputes each layer in
+    the backward (``torch.utils.checkpoint``), except the last
+    ``remat_skip`` layers; the policies that pin named outputs
+    (``save_flash``, ``save_dots``, ``save_matmuls``) raise
+    ``NotImplementedError``.  ``loss_chunk`` chunks the cross entropy of
+    :func:`loss_fn`."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -103,9 +109,7 @@ class ModelConfig:
 
 
 def _param(shape, dtype, device):
-    # Serving only: no gradients until the training slice of the port.
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class Block(nn.Module):
@@ -209,17 +213,38 @@ def mlp_block(layer: Block, x, eps: float = 1e-6, act: str = "silu"):
     return x + _proj(gated, layer.w_down)
 
 
+# remat policies of the JAX package that pin named outputs
+_UNPORTED_REMAT = ("save_flash", "save_dots", "save_matmuls")
+
+
+def _block(layer: Block, x, rope_cs, cfg: ModelConfig):
+    x = attention_block(layer, x, rope_cs, cfg)
+    return mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
+
+
 def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
                    positions=None):
-    """Token ids [B, N] → final-norm hidden states [B, N, d_model]."""
+    """Token ids [B, N] → final-norm hidden states [B, N, d_model].  With
+    ``cfg.remat`` and gradients on, each of the first ``n_layers −
+    remat_skip`` layers runs under ``torch.utils.checkpoint`` (the JAX
+    "block" policy): the backward recomputes it, attention kernel
+    included."""
+    if cfg.remat and cfg.remat_policy in _UNPORTED_REMAT:
+        raise NotImplementedError(
+            _NOT_YET.format(f"remat_policy={cfg.remat_policy!r}"))
     b, n = tokens.shape
     if positions is None:
         positions = torch.arange(n, device=tokens.device).expand(b, n)
     x = model.embed[tokens]
     rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    for layer in model.layers:
-        x = attention_block(layer, x, rope_cs, cfg)
-        x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
+    n_ckpt = 0
+    if cfg.remat and torch.is_grad_enabled():
+        n_ckpt = cfg.n_layers - max(0, cfg.remat_skip)
+    for i, layer in enumerate(model.layers):
+        if i < n_ckpt:
+            x = checkpoint(_block, layer, x, rope_cs, cfg, use_reentrant=False)
+        else:
+            x = _block(layer, x, rope_cs, cfg)
     return rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -240,3 +265,40 @@ def unembed_matrix(model: Transformer):
     """[V, d_model] output embedding: the separate ``unembed`` when the
     model unties it, the input embedding otherwise."""
     return getattr(model, "unembed", model.embed)
+
+
+def chunked_cross_entropy(x, embed, targets, chunk: int):
+    """Mean next-token NLL of hidden states x [B, N, d] against ``targets``
+    [B, N] without keeping the [B, N, vocab] fp32 logits: each chunk of
+    ``chunk`` positions computes its logits under ``torch.utils.checkpoint``,
+    so the backward recomputes them chunk by chunk.  N must divide by
+    ``chunk``."""
+    b, n, _ = x.shape
+    if n % chunk:
+        raise ValueError(f"seq len {n} not divisible by loss chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, n, chunk):
+        total = total + checkpoint(_chunk_nll, x[:, c0:c0 + chunk], embed,
+                                   targets[:, c0:c0 + chunk], use_reentrant=False)
+    return total / (b * n)
+
+
+def _chunk_nll(x_c, embed, t_c):
+    logits = torch.matmul(x_c.float(), embed.float().t())
+    return torch.nn.functional.cross_entropy(
+        logits.flatten(0, 1), t_c.flatten(), reduction="sum")
+
+
+def loss_fn(model: Transformer, tokens, cfg: ModelConfig):
+    """Next-token cross entropy over tokens[:, :-1] → tokens[:, 1:]: the
+    mean NLL from fp32 logits.  ``tokens`` [B, N+1] integer ids on the
+    model's device."""
+    tokens = tokens.long()
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    if cfg.loss_chunk:
+        x = forward_hidden(model, inputs, cfg)
+        return chunked_cross_entropy(x, unembed_matrix(model), targets,
+                                     cfg.loss_chunk)
+    logits = forward(model, inputs, cfg)
+    return torch.nn.functional.cross_entropy(
+        logits.flatten(0, 1), targets.flatten())

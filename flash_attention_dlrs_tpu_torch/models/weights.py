@@ -3,14 +3,15 @@
 :func:`params_from_jax` takes the JAX package's params dict
 (``models/transformer.py::init_params`` layout) with numpy arrays as leaves —
 convert with ``jax.tree.map(numpy.asarray, params)`` on the JAX side — and
-returns the port's :class:`~.transformer.Transformer` on a named device.
+returns the port's :class:`~.transformer.Transformer` on a named device;
+:func:`params_to_numpy` is its inverse, for weights and for gradients.
 :func:`init_params_numpy` builds a dict of that layout with numpy alone, so
 weights can be made from a seed where JAX is absent.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -103,3 +104,32 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, device="cuda") -> Transform
         for key in _LAYER_KEYS:
             _load(getattr(block, key), layer[key], f"layers[{i}].{key}")
     return model
+
+
+def params_to_numpy(
+    source: Union[Transformer, Mapping[str, torch.Tensor]],
+) -> Dict:
+    """The JAX params layout with numpy leaves, from the port's model or
+    from a mapping of its parameter names (``model.named_parameters()``
+    names, e.g. ``"layers.0.wq"``) to tensors — such as the gradients
+    ``{name: p.grad}``.  The inverse of :func:`params_from_jax`; bf16 leaves
+    come out as float32 (numpy has no bfloat16), which holds their values
+    exactly."""
+    if isinstance(source, torch.nn.Module):
+        source = dict(source.named_parameters())
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    tree = {"layers": []}
+    for name, t in source.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            i = int(parts[1])
+            while len(tree["layers"]) <= i:
+                tree["layers"].append({})
+            tree["layers"][i][parts[2]] = leaf(t)
+        else:
+            tree[name] = leaf(t)
+    return tree

@@ -2,14 +2,17 @@
 
 - :func:`flash_attention_forward` returns ``(O, L)`` with L the natural-base
   logsumexp, ``[B, Hq, Nq]`` fp32;
+- :func:`flash_attention_backward` returns ``(dQ, dK, dV)`` from the
+  forward's O and L;
 - :func:`flash_attention` is the differentiable op, a
-  ``torch.autograd.Function`` in place of the JAX ``custom_vjp``.  Its
-  backward belongs to the training slice of the port and raises until then.
+  ``torch.autograd.Function`` in place of the JAX ``custom_vjp``: its
+  forward saves (q, k, v, O, L) and its backward runs the backward kernels.
 
-The JAX package splits the forward over four TPU routes chosen by length;
-here one kernel (``csrc/attn_fwd.cu``) takes every length, so there is no
-dispatch.  Segments, ALiBi, dropout and fp8 V raise ``NotImplementedError``
-until their slice (ROADMAP.md).
+The JAX package splits the forward over four TPU routes and the backward
+over six, chosen by length; here one forward kernel (``csrc/attn_fwd.cu``)
+and one deterministic two-sweep backward family (``csrc/attn_bwd.cu``) take
+every length, so there is no dispatch.  Segments, ALiBi, dropout and fp8 V
+raise ``NotImplementedError`` until their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from .bwd_kernel import attn_bwd
 from .fwd_kernel import attn_fwd
 
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
@@ -115,19 +119,63 @@ def flash_attention_forward(
                     window=window, softcap=float(logit_softcap))
 
 
+def flash_attention_backward(
+    q,
+    k,
+    v,
+    o,
+    do,
+    lse,
+    *,
+    causal: bool = False,
+    sm_scale: Optional[float] = None,
+    segment_ids=None,
+    window: int = 0,
+    logit_softcap: float = 0.0,
+    alibi_slopes=None,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,
+    rederive_stats: Optional[bool] = None,
+):
+    """Backward pass returning (dQ, dK, dV) in the dtypes of q, k and v.
+    ``o`` and ``lse`` [B, Hq, Nq] come from the forward with the same
+    arguments; ``do`` is the gradient of O.  The PASSED lse is honoured, as
+    the JAX default does (a ring caller may pass a globally merged lse): P is
+    rebuilt as exp(S − lse).  ``rederive_stats=True``, which replays the
+    forward for its raw softmax statistics, is not ported.  Runs where the
+    inputs lie: the kernels on a CUDA device, the plain PyTorch version on
+    the CPU."""
+    if rederive_stats:
+        raise NotImplementedError(_NOT_YET.format("rederive_stats"))
+    window, sm_scale = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
+                                logit_softcap, alibi_slopes, dropout_rate)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(
+            f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q "
+            f"{tuple(q.shape)}")
+    if tuple(lse.shape) != tuple(q.shape[:3]):
+        raise ValueError(f"lse {tuple(lse.shape)} must be [B, Hq, Nq] = "
+                         f"{tuple(q.shape[:3])}")
+    return attn_bwd(q, k, v, o.contiguous(), lse.contiguous(), do.contiguous(),
+                    causal=bool(causal), sm_scale=sm_scale, window=window,
+                    softcap=float(logit_softcap))
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window, softcap):
-        o, _ = attn_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                        window=window, softcap=softcap)
+        o, lse = attn_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                          window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+                      softcap=softcap)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        raise NotImplementedError(
-            "the attention backward belongs to the training slice of the "
-            "PyTorch port (ROADMAP.md, queue 1) and is not ported yet"
-        )
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = attn_bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -145,9 +193,8 @@ def flash_attention(
     dropout_seed=None,
 ):
     """Differentiable fused attention O = softmax(scale·QKᵀ + mask)V, with
-    the conventions of :func:`flash_attention_forward`.  The forward runs
-    now; its backward raises ``NotImplementedError`` until the training
-    slice of the port."""
+    the conventions of :func:`flash_attention_forward`; gradients flow to q,
+    k and v through :func:`flash_attention_backward`'s kernels."""
     window, sm_scale = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                                 logit_softcap, alibi_slopes, dropout_rate)
     return _FlashAttention.apply(q, k, v, bool(causal), sm_scale, window,

@@ -85,3 +85,21 @@ def reference_attention(
     if with_lse:
         return o, lse
     return o
+
+
+def reference_attention_grads(
+    q, k, v, do, *, causal=False, sm_scale=1.0, segment_ids=None, window=0,
+    logit_softcap=0.0, alibi_slopes=None, dropout_rate=0.0,
+    dropout_seed=None,
+):
+    """Oracle gradients (dQ, dK, dV): torch autograd through
+    :func:`reference_attention` with output gradient ``do``."""
+    with torch.enable_grad():
+        q_, k_, v_ = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o = reference_attention(
+            q_, k_, v_, causal=causal, sm_scale=sm_scale,
+            segment_ids=segment_ids, window=window,
+            logit_softcap=logit_softcap, alibi_slopes=alibi_slopes,
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed,
+        )
+        return torch.autograd.grad(o, (q_, k_, v_), do)

@@ -98,13 +98,17 @@ def test_default_sm_scale_is_rsqrt_d():
 
 
 def test_flash_attention_op_forward_and_unported_backward():
+    """The op's forward equals the functional forward, and its backward
+    equals the functional backward on the forward's own (O, L)."""
     q, k, v = (torch.from_numpy(a) for a in _inputs(9, 1, 4, 2, 96, 96, 32))
-    o_fn, _ = tp.flash_attention_forward(q, k, v, causal=True)
-    qg = q.clone().requires_grad_(True)
-    o = flash_attention(qg, k, v, causal=True)
+    o_fn, lse = tp.flash_attention_forward(q, k, v, causal=True)
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = flash_attention(qg, kg, vg, causal=True)
     assert torch.equal(o.detach(), o_fn)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        o.sum().backward()
+    do = torch.ones_like(o)
+    o.backward(do)
+    want = tp.flash_attention_backward(q, k, v, o_fn, do, lse, causal=True)
+    assert all(torch.equal(g, w) for g, w in zip((qg.grad, kg.grad, vg.grad), want))
 
 
 def test_cpu_tensors_take_the_plain_version():

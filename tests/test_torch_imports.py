@@ -64,8 +64,8 @@ def _no_card():
 def test_default_device_entry_points_need_a_card():
     _no_card()
     from flash_attention_dlrs_tpu_torch.models import (
-        ModelConfig, Transformer, init_kv_pools, init_params_numpy,
-        params_from_jax,
+        ModelConfig, Transformer, fit, init_kv_pools, init_params_numpy,
+        make_train_state, params_from_jax,
     )
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
     from flash_attention_dlrs_tpu_torch.runtime.sampling import batch_params
@@ -78,6 +78,8 @@ def test_default_device_entry_points_need_a_card():
         lambda: init_kv_pools(cfg, num_pages=2),
         lambda: DecodeEngine(params_from_jax(tree, cfg, device="cpu"), cfg),
         lambda: batch_params([None]),
+        lambda: make_train_state(cfg),
+        lambda: fit(cfg, iter(()), steps=1),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -97,10 +99,21 @@ def test_kernel_launch_without_a_toolchain_raises():
 def test_library_names_follow_the_source_hash():
     from flash_attention_dlrs_tpu_torch import _cuda
 
-    assert _cuda.all_sources() == ["attn_fwd.cu", "paged_decode.cu"]
+    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_fwd.cu", "paged_decode.cu"]
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 2
+    assert len({p.name for p in paths}) == 3
+
+
+def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    from flash_attention_dlrs_tpu_torch import _cuda
+
+    monkeypatch.setattr(_cuda, "CSRC_DIR", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    before = _cuda.library_path("k.cu")
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    assert _cuda.library_path("k.cu") != before
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -103,8 +103,8 @@ def test_rope_matches_jax(theta):
 def test_dense_forward_matches_jax(jparams, model):
     toks = _tokens(0, 2, 24)
     lj = jforward(jparams, jnp.asarray(toks), JCFG)
-    lt = tforward(model, torch.from_numpy(toks).long(), TCFG)
-    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=ATOL, rtol=0)
+    lt = tforward(model, torch.from_numpy(toks).long(), TCFG)  # differentiable
+    np.testing.assert_allclose(lt.detach().numpy(), np.asarray(lj), atol=ATOL, rtol=0)
 
 
 def test_prefill_logits_and_kv_match_jax(jparams, model):
