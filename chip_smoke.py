@@ -9,6 +9,11 @@ against themselves, bit for bit).  Then drives both paths of the port:
   serving-bench model (scripts/bench_serving.py defaults: 16 layers,
   d_model 2048, 16 q / 8 kv heads, head_dim 128, d_ff 5504, vocab 32000,
   bf16, random weights from a seed);
+- quantized serving (serve_quant): the same model from int8 KV at the
+  serving bench's two batches (8 slots x 64 new tokens, 32 slots x 16) and
+  from int4 / e4m3 / e5m2 / bf16 KV at 8 slots x 16, 2048-token prompts;
+- chunked serving (serve_chunked): bf16 and int8 KV with prefill_chunk=256
+  and the prefix cache, 8 requests sharing a 1024-token system prompt;
 - training: make_train_state / make_train_step on the repo's training-bench
   model (scripts/bench_train.py:68-74: the b7 widths, d_model 4096, 32 q /
   8 kv heads, head_dim 128, d_ff 11008, vocab 32000, 8 layers, bf16, block
@@ -50,6 +55,12 @@ FWD_REPLACES = (
 )
 DECODE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode.cu"
 DECODE_REPLACES = "flash_attention_dlrs_tpu/ops/decode.py:44"
+VERIFY_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify.cu"
+VERIFY_REPLACES = ("flash_attention_dlrs_tpu/ops/decode.py:44 (multi-token mode, "
+                   "num_tokens > 1; via paged_verify_attention, decode.py:716)")
+QUANT_KINDS = ("int8", "int4", "e4m3", "e5m2")
+# stored bytes per K or V element, and per-token scale bytes (K and V)
+KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
 BWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd.cu"
 BWD_REPLACES = {
     "attn_bwd_preprocess": "flash_attention_dlrs_tpu/ops/bwd_kernel.py:59",
@@ -289,62 +300,152 @@ def phase_bwd(dev):
     return results
 
 
-def _decode_inputs(gen, dev, dtype, b, hq, hkv, d, page_size, pps, lengths,
-                   num_pages):
+def kv_kind(name):
+    """The port's KV dtype argument for a kind name."""
     import torch
 
-    q = _rand(gen, (b, hq, d), dtype, dev)
-    kp = _rand(gen, (hkv, num_pages, page_size, d), dtype, dev)
-    vp = _rand(gen, (hkv, num_pages, page_size, d), dtype, dev)
+    return {"bf16": torch.bfloat16, "fp32": torch.float32, "int8": torch.int8,
+            "int4": "int4", "e4m3": torch.float8_e4m3fn,
+            "e5m2": torch.float8_e5m2}[name]
+
+
+def _paged_inputs(gen, dev, q_dtype, kind, b, hq, hkv, d, page_size, pps,
+                  lengths, num_pages, t_new=0):
+    """q ([B, Hq, d], or [B, Hq, T, d] when ``t_new``), the K/V pools of
+    ``kind`` (value pools of q's dtype, or random pages quantized on the
+    card), lengths and a shuffled page table."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import quantize_kv_pages
+
+    q = _rand(gen, (b, hq, t_new, d) if t_new else (b, hq, d), q_dtype, dev)
+    quantized = kind in QUANT_KINDS
+    pool_dtype = torch.float32 if quantized else q_dtype
+    kp = _rand(gen, (hkv, num_pages, page_size, d), pool_dtype, dev)
+    vp = _rand(gen, (hkv, num_pages, page_size, d), pool_dtype, dev)
+    if quantized:
+        kp, vp = quantize_kv_pages(kp, kv_kind(kind)), quantize_kv_pages(vp, kv_kind(kind))
     perm = torch.randperm(num_pages, generator=gen, device=dev)
     table = perm[: b * pps].reshape(b, pps).to(torch.int32).contiguous()
     lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
     return q, kp, vp, lens, table
 
 
+def abs_v_pools(k, v):
+    """(K, |V|) holding the same logical values as (K, V), in a kind the
+    plain versions take: int4 becomes int8 payloads with the same scales."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.quantization import (
+        Int4QuantizedTensor, QuantizedTensor, unpack_int4_rows,
+    )
+
+    if torch.is_tensor(v):
+        return k, v.abs()
+    if isinstance(v, Int4QuantizedTensor):
+        k = QuantizedTensor(unpack_int4_rows(k.values).to(torch.int8), k.scales)
+        v = QuantizedTensor(unpack_int4_rows(v.values).to(torch.int8), v.scales)
+    return k, QuantizedTensor(v.values.float().abs().to(v.dtype), v.scales)
+
+
+def paged_errors(got, want, dtype, spread=None):
+    """Errors of a paged kernel's (O, lse or None) against its plain
+    version's, and whether they meet the tolerance for q's ``dtype``.
+
+    In bf16/fp16 each side rounds its fp32 O to q's dtype: per element they
+    may differ by 1e-4 + eps x |O|.  Where both sides also round P (times
+    the V scale) to q's dtype before P V -- quantized single-token pools and
+    the verify kernel's tensor cores -- the kernel does so relative to each
+    tile's running max and the plain version relative to the row's max, and
+    ``spread`` = P|V| (the plain version's output over |V|) adds
+    eps x P|V|.  On bf16 value pools the single-token kernel keeps P in
+    fp32 and its plain version is the fp32 oracle: no ``spread``.  fp32
+    computes in true fp32 on both sides: atol 1e-4."""
+    import torch
+
+    (o, lse), (o_ref, lse_ref) = got, want
+    diff = (o.float() - o_ref.float()).abs()
+    err_l = 0.0 if lse is None else float((lse - lse_ref).abs().max())
+    if dtype == torch.float32:
+        ok = float(diff.max()) <= 1e-4 and err_l <= 1e-4
+        tol = "O and lse: atol 1e-4"
+        slack = 0.0
+    else:
+        eps = torch.finfo(dtype).eps
+        limit = 1e-4 + eps * o_ref.float().abs()
+        if spread is not None:
+            limit = limit + eps * spread.float()
+        ok = bool((diff <= limit).all()) and err_l <= 1e-3
+        pv = "" if spread is None else " + P|V|"
+        tol = f"O: 1e-4 + {eps:g} x (|O|{pv}), lse: atol 1e-3"
+        slack = float((diff / limit).max())
+    ok &= bool(torch.isfinite(o).all())
+    return {"max_abs_err_o": float(diff.max()), "max_abs_err_lse": err_l,
+            "worst_err_over_limit": slack,
+            "frac_o_differs": float((diff > 0).float().mean()),
+            "tolerance": tol, "ok": ok}
+
+
+# B8 x 2176 tokens of page table; ragged lengths up to 2112, an empty one
+DECODE_B8_LENGTHS = [0, 1, 129, 700, 1337, 2047, 2048, 2112]
+
+
 def phase_decode(dev):
+    """Each paged kernel mode against its plain version on the same inputs:
+    the single-token kernel on value and quantized pools (int8 / int4 take
+    the integer score route), softcap, an empty sequence; the verify kernel
+    at T = 4 and T = 256 (a prefill chunk), bf16 on the tensor cores and
+    fp32 on the CUDA cores."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.decode import (
-        paged_decode_attention, paged_reference_attention,
+        paged_decode_attention, paged_decode_plain, paged_verify_attention,
+        paged_verify_plain,
     )
 
     gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    serve = (8, 16, 8, 128, 128, 17, DECODE_B8_LENGTHS)
     cases = [
-        # name, dtype, B, Hq, Hkv, d, page, pps, lengths, softcap
-        ("serve_decode", torch.bfloat16, 4, 16, 8, 128, 128, 16,
-         [2048, 1300, 777, 200], 0.0),
-        ("ragged_empty_softcap", torch.bfloat16, 4, 16, 8, 128, 128, 16,
-         [0, 1, 129, 2047], 30.0),
-        ("fp32_d64", torch.float32, 3, 8, 2, 64, 64, 8, [5, 300, 512], 0.0),
+        # name, q dtype, kv kind, (B, Hq, Hkv, d, page, pps, lengths), softcap, T
+        ("serve_decode", bf16, "bf16", (4, 16, 8, 128, 128, 16, [2048, 1300, 777, 200]), 0.0, 0),
+        ("ragged_empty_softcap", bf16, "bf16", (4, 16, 8, 128, 128, 16, [0, 1, 129, 2047]), 30.0, 0),
+        ("fp32_d64", f32, "fp32", (3, 8, 2, 64, 64, 8, [5, 300, 512]), 0.0, 0),
+        *[(f"{k}_B8", bf16, k, serve, 0.0, 0) for k in QUANT_KINDS],
+        ("int8_B8_softcap", bf16, "int8", serve, 30.0, 0),
+        ("fp32_int4_d64", f32, "int4", (3, 8, 2, 64, 64, 8, [0, 300, 512]), 0.0, 0),
+        ("verify_T4_bf16", bf16, "bf16", serve, 0.0, 4),
+        ("verify_T4_int8", bf16, "int8", serve, 0.0, 4),
+        ("verify_T256_bf16", bf16, "bf16", serve, 0.0, 256),
+        ("verify_T256_int8", bf16, "int8", serve, 0.0, 256),
+        ("verify_T4_int4_softcap", bf16, "int4", serve, 30.0, 4),
+        ("verify_T4_e4m3", bf16, "e4m3", serve, 0.0, 4),
+        ("verify_fp32_int8_d64", f32, "int8", (3, 8, 2, 64, 64, 8, [3, 300, 512]), 0.0, 5),
+        ("verify_fp32_values_T32", f32, "fp32", (2, 16, 8, 128, 128, 17, [40, 2100]), 0.0, 32),
     ]
     results = {}
-    for name, dt, b, hq, hkv, d, ps, pps, lengths, cap in cases:
-        q, kp, vp, lens, table = _decode_inputs(
-            gen, dev, dt, b, hq, hkv, d, ps, pps, lengths, num_pages=b * pps + 8)
-        o, lse = paged_decode_attention(q, kp, vp, lens, table,
-                                        logit_softcap=cap, return_lse=True)
-        o_ref, lse_ref = paged_reference_attention(
-            q, kp, vp, lens, table, logit_softcap=cap, return_lse=True)
-        torch.cuda.synchronize()
-        err_o = float((o.float() - o_ref.float()).abs().max())
-        err_l = float((lse - lse_ref).abs().max())
-        if dt == torch.float32:
-            ok = err_o <= 1e-4 and err_l <= 1e-4
-            tol = "O and lse: atol 1e-4"
+    for name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new in cases:
+        q, kp, vp, lens, table = _paged_inputs(
+            gen, dev, dt, kind, b, hq, hkv, d, ps, pps, lengths,
+            num_pages=b * pps + 8, t_new=t_new)
+        kw = dict(logit_softcap=cap, sm_scale=d ** -0.5)
+        if t_new:
+            got = (paged_verify_attention(q, kp, vp, lens, table, **kw), None)
+            want = (paged_verify_plain(q, kp, vp, lens, table, **kw), None)
+            spread = paged_verify_plain(q, *abs_v_pools(kp, vp), lens, table, **kw)
         else:
-            # |O| is ~0.04 at length 2048: an O limit of 2e-2 would pass
-            # nearly anything, so O is held to 1e-3 too
-            ok = err_o <= 1e-3 and err_l <= 1e-3
-            tol = "O and lse: atol 1e-3"
-        ok = ok and bool(torch.isfinite(o).all())
-        results[name] = {"max_abs_err_o": err_o, "max_abs_err_lse": err_l,
-                         "tolerance": tol, "ok": ok}
-        emit({"phase": "decode_check", "case": name, "dtype": str(dt),
-              "shape": [b, hq, hkv, d, ps, pps], "lengths": lengths,
-              "softcap": cap, **results[name]})
+            got = paged_decode_attention(q, kp, vp, lens, table, return_lse=True, **kw)
+            want = paged_decode_plain(q, kp, vp, lens, table, return_lse=True, **kw)
+            spread = (None if torch.is_tensor(vp) else
+                      paged_decode_plain(q, *abs_v_pools(kp, vp), lens, table, **kw))
+        torch.cuda.synchronize()
+        results[name] = paged_errors(got, want, dt, spread)
+        emit({"phase": "decode_check", "case": name, "kernel":
+              "paged_verify" if t_new else "paged_decode", "q_dtype": str(dt),
+              "kv": kind, "tokens": t_new or 1, "shape": [b, hq, hkv, d, ps, pps],
+              "lengths": lengths, "softcap": cap, **results[name]})
+        del q, kp, vp, got, want
+    torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
-        raise AssertionError(f"decode kernel disagrees with its plain version: {bad}")
+        raise AssertionError(f"paged kernels disagree with their plain versions: {bad}")
     return results
 
 
@@ -534,7 +635,7 @@ def phase_serve(dev):
     if failed:
         raise AssertionError(f"serving checks failed: {failed}")
     phase_decode_profile(engine, cfg)
-    return rec
+    return rec, model, cfg
 
 
 def profile_window(fn, steps):
@@ -621,6 +722,374 @@ def phase_decode_profile(engine, cfg):
         engine.scheduler.schedule()
         engine.step()
     return rec
+
+
+# Quantized serving: (kv kind, slots, new tokens).  int8 at the serving
+# bench's two batches (scripts/bench_serving.py:35-39: --kv bf16 int8 at
+# batches 8 and 32, 2048-token context, 64 new tokens), the other kinds at 8.
+SERVE_QUANT_RUNS = (("int8", 8, 64), ("int8", 32, 16), ("int4", 8, 16),
+                    ("e4m3", 8, 16), ("e5m2", 8, 16), ("bf16", 8, 16))
+SERVE_QUANT_PROMPT = 2048
+SERVE_PAGE, SERVE_PPS = 128, 17
+
+
+def _timed(fn, sink):
+    """``fn`` with its device-synchronized wall ms appended to ``sink``."""
+    import torch
+
+    def run(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sink.append((time.perf_counter() - t) * 1e3)
+        return out
+    return run
+
+
+class _Recorder:
+    """Swaps a module-level attention function of models/decoding.py for
+    one that records each call's arguments (kept for the latest engine step
+    only) and passes it on."""
+
+    def __init__(self, name):
+        from flash_attention_dlrs_tpu_torch.models import decoding
+
+        self.module, self.name = decoding, name
+        self.kernel = getattr(decoding, name)
+        self.calls = []
+
+    def __enter__(self):
+        def recording(*args, **kw):
+            self.calls.append((args, kw))
+            return self.kernel(*args, **kw)
+        setattr(self.module, self.name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.kernel)
+
+    def step(self, fn):
+        """``fn`` (an engine step) with the record cleared before each call."""
+        def run(*args):
+            self.calls.clear()
+            return fn(*args)
+        return run
+
+
+def check_layers(calls, verify):
+    """Every recorded layer call again through the kernel and the plain
+    version, on the engine's own q and pools: the worst errors and whether
+    each layer met the kernel's tolerance."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import (
+        paged_decode_attention, paged_decode_plain, paged_verify_attention,
+        paged_verify_plain,
+    )
+
+    worst, ok = {"max_abs_err_o": 0.0, "max_abs_err_lse": 0.0,
+                 "worst_err_over_limit": 0.0}, True
+    for (q, k, v, lens, tbl), kw in calls:
+        scale = kw["sm_scale"] or q.shape[-1] ** -0.5
+        if verify:
+            got = (paged_verify_attention(q, k, v, lens, tbl, sm_scale=scale), None)
+            want = (paged_verify_plain(q, k, v, lens, tbl, sm_scale=scale), None)
+            spread = paged_verify_plain(q, *abs_v_pools(k, v), lens, tbl, sm_scale=scale)
+        else:
+            got = paged_decode_attention(q, k, v, lens, tbl, sm_scale=scale,
+                                         return_lse=True)
+            want = paged_decode_plain(q, k, v, lens, tbl, sm_scale=scale,
+                                      return_lse=True)
+            spread = (None if torch.is_tensor(v) else paged_decode_plain(
+                q, *abs_v_pools(k, v), lens, tbl, sm_scale=scale))
+        rec = paged_errors(got, want, q.dtype, spread)
+        ok &= rec["ok"]
+        for key in worst:
+            worst[key] = max(worst[key], rec[key])
+    return {"layers_checked": len(calls), **worst, "ok": ok}
+
+
+def check_decode_fp32(dev, prompt, kinds):
+    """The serving model at 2 layers in fp32: one prompt's first decode step
+    from each KV kind, through the kernel and through the plain version
+    (swapped into models/decoding.py), on pools filled alike by the dense
+    prefill.  The fp32 kernels compute in true fp32, so the logits must
+    agree to summation order: diff / std <= FP32_LOGIT_LIMIT."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        ModelConfig, decoding, init_params_numpy, params_from_jax,
+    )
+    from flash_attention_dlrs_tpu_torch.ops.decode import paged_decode_plain
+
+    cfg = ModelConfig(**{**SERVE_CFG, "n_layers": 2}, dtype=torch.float32)
+    model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+    t = len(prompt)
+    toks = torch.zeros((1, 1 << (t - 1).bit_length()), dtype=torch.long, device=dev)
+    toks[0, :t] = torch.tensor(prompt, device=dev)
+    logits0, kvs = decoding.make_prefill(cfg)(
+        model, toks, torch.tensor([t], dtype=torch.int32, device=dev))
+    step = decoding.make_decode_step(cfg)
+    n_prompt = -(-t // SERVE_PAGE)
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (logits0.argmax(-1), torch.tensor([t], **i32),
+            torch.tensor([t // SERVE_PAGE], **i32), torch.tensor([t % SERVE_PAGE], **i32),
+            torch.arange(SERVE_PPS, **i32)[None], torch.tensor([t + 1], **i32))
+
+    def first_decode(kind):
+        pools = decoding.init_kv_pools(
+            cfg, num_pages=SERVE_PPS, page_size=SERVE_PAGE, dtype=kv_kind(kind),
+            quantized=kind in QUANT_KINDS, device=dev)
+        decoding.write_prompt_kv_all(pools, kvs, torch.arange(n_prompt, device=dev),
+                                     SERVE_PAGE)
+        return step(model, pools, *args)[0]
+
+    def plain(q, k, v, lens, tbl, *, sm_scale):
+        return paged_decode_plain(q, k, v, lens, tbl, sm_scale=sm_scale)
+
+    gaps = {}
+    for kind in kinds:
+        kernel = first_decode(kind)
+        kernel_fn, decoding.paged_decode_attention = decoding.paged_decode_attention, plain
+        try:
+            want = first_decode(kind)
+        finally:
+            decoding.paged_decode_attention = kernel_fn
+        gaps[kind] = float((kernel - want).abs().max() / want.std())
+    del model, kvs
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def phase_serve_quant(dev, model, cfg):
+    """DecodeEngine from each KV kind of SERVE_QUANT_RUNS: as many random
+    2048-token prompts (numpy seed 0) as slots, all admitted at once, then
+    decode to the budget.  Launch counts zeroed just before each run and
+    read just after; the last decode step's every layer checked kernel
+    against plain on the engine's own pools; a 2-layer fp32 copy's first
+    decode step through kernels and plain versions."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    runs, checks = {}, {}
+    for kind, slots, new_tokens in SERVE_QUANT_RUNS:
+        engine = DecodeEngine(
+            model, cfg, num_pages=slots * SERVE_PPS + 1, page_size=SERVE_PAGE,
+            num_slots=slots, pages_per_seq=SERVE_PPS, kv_dtype=kv_kind(kind),
+            quantized_kv=kind in QUANT_KINDS, device=dev)
+        engine.generate([[1] * SERVE_QUANT_PROMPT], max_new_tokens=2)  # warm-up
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, SERVE_QUANT_PROMPT).tolist()
+                   for _ in range(slots)]
+        prefill_ms, decode_ms = [], []
+        engine._prefill = _timed(engine._prefill, prefill_ms)
+        with _Recorder("paged_decode_attention") as rec:
+            engine._decode_step = rec.step(_timed(engine._decode_step, decode_ms))
+            steps_before = engine.scheduler.stats.steps
+            FWD_KERNEL.launches = DECODE_KERNEL.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = engine.generate(prompts, max_new_tokens=new_tokens)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {"attn_fwd": FWD_KERNEL.launches,
+                        "paged_decode": DECODE_KERNEL.launches}
+        steps = engine.scheduler.stats.steps - steps_before
+        layers = check_layers(rec.calls, verify=False)
+        n_tok = sum(len(o) for o in outs)
+        name = f"{kind}_B{slots}"
+        runs[name] = {
+            "kv": kind, "slots": slots, "new_tokens": new_tokens,
+            "decode_steps": steps, "launches": launches,
+            "prefill_ms_median": float(np.median(prefill_ms)),
+            "decode_ms_per_step_median": float(np.median(decode_ms)),
+            "decode_ms_per_step_mean": float(np.mean(decode_ms)),
+            "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "decode_tokens_per_s": slots / (np.median(decode_ms) / 1e3),
+            "last_step_layers": layers,
+        }
+        checks.update({
+            f"{name}_every_request_{new_tokens}_tokens":
+                all(len(o) == new_tokens for o in outs),
+            f"{name}_tokens_in_vocab":
+                all(0 <= x < cfg.vocab_size for o in outs for x in o),
+            f"{name}_fwd_launches_16_per_prefill":
+                launches["attn_fwd"] == cfg.n_layers * slots,
+            f"{name}_decode_launches_16_per_step":
+                launches["paged_decode"] == cfg.n_layers * steps > 0,
+            f"{name}_every_layer_kernel_vs_plain":
+                layers["ok"] and layers["layers_checked"] == cfg.n_layers,
+        })
+        emit({"phase": "serve_quant", "run": name, **runs[name]})
+        del engine
+        torch.cuda.empty_cache()
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, SERVE_QUANT_PROMPT)
+    fp32 = check_decode_fp32(dev, prompt.tolist(), QUANT_KINDS + ("fp32",))
+    for kind, gap in fp32.items():
+        checks[f"fp32_2layer_first_decode_{kind}_kernel_vs_plain"] = gap <= FP32_LOGIT_LIMIT
+    rec = {"phase": "serve_quant", "config": SERVE_CFG, "dtype": "bfloat16",
+           "page_size": SERVE_PAGE, "pages_per_seq": SERVE_PPS,
+           "prompt_tokens": SERVE_QUANT_PROMPT,
+           "decode_ms_per_step": {n: r["decode_ms_per_step_median"] for n, r in runs.items()},
+           "tokens_per_s": {n: r["tokens_per_s"] for n, r in runs.items()},
+           "fp32_2layer_first_decode_diff_over_std": fp32, "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"quantized serving checks failed: {failed}")
+    return runs
+
+
+# Chunked serving: 8 requests, each a shared 1024-token system prompt and
+# 1024 unique tokens, prefilled 256 tokens at a time with the prefix cache.
+CHUNK, SYSTEM_TOKENS, UNIQUE_TOKENS = 256, 1024, 1024
+CHUNKED_REQUESTS, CHUNKED_NEW_TOKENS = 8, 8
+
+
+def check_chunked_fp32(dev, prompts):
+    """The serving model at 2 layers in fp32, fp32 KV: the last-token
+    logits of chunked admission (a miss, then a prefix-cache hit) against
+    the dense prefill of the same prompt, both through the kernels."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        ModelConfig, init_params_numpy, make_prefill, params_from_jax,
+    )
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    cfg = ModelConfig(**{**SERVE_CFG, "n_layers": 2}, dtype=torch.float32)
+    model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+    engine = DecodeEngine(model, cfg, num_pages=3 * SERVE_PPS, page_size=SERVE_PAGE,
+                          num_slots=1, pages_per_seq=SERVE_PPS, kv_dtype=torch.float32,
+                          prefill_chunk=CHUNK, enable_prefix_cache=True, device=dev)
+    last = []
+    chunk_step = engine._chunk_prefill
+
+    def capture(*args):
+        out = chunk_step(*args)
+        last.append(out[0][:, -1])
+        return out
+
+    engine._chunk_prefill = capture
+    gaps = []
+    for prompt in prompts[:2]:
+        last.clear()
+        engine.generate([prompt], max_new_tokens=1)
+        t = len(prompt)
+        toks = torch.tensor([prompt], device=dev)
+        dense, _ = make_prefill(cfg)(model, toks, torch.tensor([t], dtype=torch.int32,
+                                                                 device=dev))
+        gaps.append(float((last[-1] - dense).abs().max() / dense.std()))
+    hits = engine.prefix_cache.hits
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"miss": gaps[0], "hit": gaps[1], "hits": hits}
+
+
+def phase_serve_chunked(dev, model, cfg):
+    """Chunked admission with the prefix cache from bf16 and int8 KV: the
+    first request prefills 2048 tokens in 8 chunks and registers its pages;
+    the next seven hit the cache for the 8 pages of the system prompt and
+    prefill 4 chunks each.  Launch counts zeroed just before each run and
+    read just after; the last chunk's every layer checked kernel against
+    plain; admission ms dense / chunked / chunked with a hit; a 2-layer fp32
+    copy's chunked logits against its dense prefill."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL, VERIFY_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS).tolist()
+    prompts = [system + rng.integers(0, cfg.vocab_size, UNIQUE_TOKENS).tolist()
+               for _ in range(CHUNKED_REQUESTS)]
+    total = SYSTEM_TOKENS + UNIQUE_TOKENS
+    want_chunks = total // CHUNK + (CHUNKED_REQUESTS - 1) * (UNIQUE_TOKENS // CHUNK)
+    shared_pages = SYSTEM_TOKENS // SERVE_PAGE
+    kw = dict(num_pages=CHUNKED_REQUESTS * SERVE_PPS + 1, page_size=SERVE_PAGE,
+              num_slots=CHUNKED_REQUESTS, pages_per_seq=SERVE_PPS, device=dev)
+
+    # dense admission of the same prompts, for the prefill comparison
+    dense = DecodeEngine(model, cfg, kv_dtype=torch.bfloat16, **kw)
+    dense.generate([[1] * total], max_new_tokens=1)  # warm-up
+    dense_ms = []
+    dense._admit_dense = _timed(dense._admit_dense, dense_ms)
+    FWD_KERNEL.launches = 0
+    dense.generate(prompts, max_new_tokens=1)
+    dense_fwd = FWD_KERNEL.launches
+    del dense
+    torch.cuda.empty_cache()
+
+    runs, checks = {}, {"dense_fwd_launches_16_per_prefill":
+                        dense_fwd == cfg.n_layers * CHUNKED_REQUESTS}
+    for kind in ("bf16", "int8"):
+        engine = DecodeEngine(model, cfg, kv_dtype=kv_kind(kind),
+                              quantized_kv=kind in QUANT_KINDS, prefill_chunk=CHUNK,
+                              enable_prefix_cache=True, **kw)
+        engine.generate([[2] * 1000], max_new_tokens=2)  # warm-up, shares nothing
+        admit_ms, decode_ms, chunks, matched = [], [], [], []
+        engine._admit_chunked = _timed(engine._admit_chunked, admit_ms)
+        match = engine.prefix_cache.match
+        engine.prefix_cache.match = lambda toks: matched.append(match(toks)) or matched[-1]
+        hits_before = engine.prefix_cache.hits
+        with _Recorder("paged_verify_attention") as rec:
+            chunk_step = rec.step(engine._chunk_prefill)
+            engine._chunk_prefill = lambda *a: chunks.append(1) or chunk_step(*a)
+            engine._decode_step = _timed(engine._decode_step, decode_ms)
+            steps_before = engine.scheduler.stats.steps
+            FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs = engine.generate(prompts, max_new_tokens=CHUNKED_NEW_TOKENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            launches = {"attn_fwd": FWD_KERNEL.launches,
+                        "paged_decode": DECODE_KERNEL.launches,
+                        "paged_verify": VERIFY_KERNEL.launches}
+        steps = engine.scheduler.stats.steps - steps_before
+        hits = engine.prefix_cache.hits - hits_before
+        layers = check_layers(rec.calls, verify=True)
+        n_tok = sum(len(o) for o in outs)
+        runs[kind] = {
+            "kv": kind, "requests": CHUNKED_REQUESTS, "chunks": len(chunks),
+            "prefix_hits": hits, "pages_reused": [len(p) for p, _ in matched],
+            "decode_steps": steps, "launches": launches,
+            "admit_ms_chunked_miss": admit_ms[0],
+            "admit_ms_chunked_hit_median": float(np.median(admit_ms[1:])),
+            "admit_ms_dense_median": float(np.median(dense_ms)),
+            "decode_ms_per_step_median": float(np.median(decode_ms)),
+            "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "last_chunk_layers": layers,
+        }
+        checks.update({
+            f"{kind}_every_request_{CHUNKED_NEW_TOKENS}_tokens":
+                all(len(o) == CHUNKED_NEW_TOKENS for o in outs),
+            f"{kind}_7_prefix_hits_of_8_pages":
+                hits == CHUNKED_REQUESTS - 1
+                and [len(p) for p, _ in matched] == [0] + [shared_pages] * hits,
+            f"{kind}_{want_chunks}_chunks": len(chunks) == want_chunks,
+            f"{kind}_verify_launches_16_per_chunk":
+                launches["paged_verify"] == cfg.n_layers * want_chunks,
+            f"{kind}_decode_launches_16_per_step":
+                launches["paged_decode"] == cfg.n_layers * steps > 0,
+            f"{kind}_no_dense_prefill": launches["attn_fwd"] == 0,
+            f"{kind}_every_layer_verify_kernel_vs_plain":
+                layers["ok"] and layers["layers_checked"] == cfg.n_layers,
+        })
+        emit({"phase": "serve_chunked", "run": kind, **runs[kind]})
+        del engine
+        torch.cuda.empty_cache()
+    fp32 = check_chunked_fp32(dev, prompts)
+    checks["fp32_2layer_chunked_vs_dense_miss"] = fp32["miss"] <= FP32_LOGIT_LIMIT
+    checks["fp32_2layer_chunked_vs_dense_hit"] = (fp32["hit"] <= FP32_LOGIT_LIMIT
+                                                  and fp32["hits"] == 1)
+    emit({"phase": "serve_chunked", "chunk": CHUNK, "system_tokens": SYSTEM_TOKENS,
+          "unique_tokens": UNIQUE_TOKENS, "dense_fwd_launches": dense_fwd,
+          "fp32_2layer_chunked_vs_dense_diff_over_std": fp32, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"chunked serving checks failed: {failed}")
+    return runs, dense_fwd
 
 
 TRAIN_CFG = dict(vocab_size=32000, d_model=4096, n_layers=8, n_q_heads=32,
@@ -977,9 +1446,6 @@ def time_bwd(dev, gen, b, hq, hkv, n, d):
 def phase_time(dev, train_rec):
     import torch
     import torch.nn.functional as F
-    from flash_attention_dlrs_tpu_torch.ops.decode import (
-        paged_decode_attention, paged_reference_attention,
-    )
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1034,55 +1500,125 @@ def phase_time(dev, train_rec):
 
     b, hq, hkv, d, ps, pps = 4, 16, 8, 128, 128, 17
     lengths = [n + SERVE_NEW_TOKENS for n in SERVE_PROMPTS[:4]]
-    q, kp, vp, lens, table = _decode_inputs(
-        gen, dev, torch.bfloat16, b, hq, hkv, d, ps, pps, lengths,
-        num_pages=80)
-    ms = median_ms(lambda: paged_decode_attention(q, kp, vp, lens, table))
-    plain_ms = median_ms(lambda: paged_reference_attention(q, kp, vp, lens, table))
-    total = sum(lengths)
-    nbytes = 2 * (2 * b * hq * d) + 2 * total * hkv * d * 2 + 4 * b * (1 + pps)
-    flops = 4 * total * hq * d
-    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    timings["decode_serve"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                               "bound_ms": bound_ms, "bound_by": bound_by,
-                               "gb_per_s": nbytes / ms / 1e6}
+    timings["decode_serve"] = time_paged(gen, dev, "bf16", b, lengths, 0)
     emit({"phase": "time", "kernel": "paged_decode", "case": "decode_serve",
-          "shape": [b, hq, hkv, d, ps, pps], "lengths": lengths,
-          "dtype": "bfloat16",
-          "library": "none: no single PyTorch call computes paged decode",
-          **timings["decode_serve"]})
+          "shape": [b, hq, hkv, d, ps, pps], "lengths": lengths, "kv": "bf16",
+          "library": PAGED_LIBRARY, **timings["decode_serve"]})
+    # the serving bench's context (2048 tokens) at its two batches
+    for kind in ("bf16",) + QUANT_KINDS:
+        for batch in (8, 32):
+            name = f"decode_{kind}_B{batch}_ctx2048"
+            timings[name] = time_paged(gen, dev, kind, batch, [2048] * batch, 0)
+            emit({"phase": "time", "kernel": "paged_decode", "case": name,
+                  "shape": [batch, hq, hkv, d, ps, pps], "kv": kind,
+                  "library": PAGED_LIBRARY, **timings[name]})
+    for kind in ("bf16", "int8"):
+        name = f"verify_{kind}_T256_ctx2048"
+        timings[name] = time_paged(gen, dev, kind, 1, [2048], CHUNK)
+        emit({"phase": "time", "kernel": "paged_verify", "case": name,
+              "shape": [1, hq, hkv, d, ps, pps], "tokens": CHUNK, "kv": kind,
+              "library": PAGED_LIBRARY, **timings[name]})
     return timings
 
 
-def emit_kernels(fwd_res, dec_res, serve_rec, train_rec, timings):
-    """The kernels line: every kernel of both paths.  Launches are the
-    counts of the path runs (serving, and the training run's timed steps);
-    times, bounds and errors are at the serving shape for attn_fwd and
-    paged_decode and at the training shape for the backward kernels."""
-    fwd_t, dec_t = timings["fwd_serve_prefill_2048"], timings["decode_serve"]
+PAGED_LIBRARY = "none: no single PyTorch call attends through a page table"
+
+
+def paged_work(kind, b, hq, hkv, d, lengths, t_new):
+    """Operations and bytes of one paged call: each live K/V row (and its
+    two fp32 scales, when quantized) read once, q read and O written once,
+    lengths and table read; the operations 4·d per visible (q row, key)
+    pair, row t of T seeing length − (T−1−t) keys."""
+    rows = max(t_new, 1)
+    pairs = sum(hq * max(0, n - (rows - 1) + t) for n in lengths for t in range(rows))
+    live = sum(lengths) * hkv
+    nbytes = (2 * 2 * b * hq * rows * d + 2 * live * d * KV_BYTES[kind]
+              + (8 * live if kind in QUANT_KINDS else 0) + 4 * b * (1 + SERVE_PPS))
+    return 4 * pairs * d, nbytes
+
+
+def time_paged(gen, dev, kind, b, lengths, t_new):
+    """One paged kernel (decode, or verify of ``t_new`` tokens) at the
+    serving model's heads from bf16 q and ``kind`` pools: its time, its
+    plain version's, its bound and its error against the plain version."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import (
+        paged_decode_attention, paged_decode_plain, paged_verify_attention,
+        paged_verify_plain,
+    )
+
+    hq, hkv, d = SERVE_CFG["n_q_heads"], SERVE_CFG["n_kv_heads"], SERVE_CFG["head_dim"]
+    q, kp, vp, lens, table = _paged_inputs(
+        gen, dev, torch.bfloat16, kind, b, hq, hkv, d, SERVE_PAGE, SERVE_PPS,
+        lengths, num_pages=b * SERVE_PPS + 8, t_new=t_new)
+    args = (q, kp, vp, lens, table)
+    if t_new:
+        kernel = lambda: paged_verify_attention(*args)  # noqa: E731
+        plain = lambda: paged_verify_plain(*args, sm_scale=d ** -0.5)  # noqa: E731
+    else:
+        kernel = lambda: paged_decode_attention(*args)  # noqa: E731
+        plain = lambda: paged_decode_plain(*args, sm_scale=d ** -0.5)  # noqa: E731
+    err = float((kernel().float() - plain().float()).abs().max())
+    ms = median_ms(kernel)
+    plain_ms = median_ms(plain, warmup=1, reps=3)
+    flops, nbytes = paged_work(kind, b, hq, hkv, d, lengths, t_new)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    del q, kp, vp, args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "flops": flops, "gb_per_s": nbytes / ms / 1e6,
+            "tflops": flops / ms / 1e9, "max_abs_err": err}
+
+
+def emit_kernels(fwd_res, dec_res, paths, timings):
+    """The kernels line: every kernel of every path, the paged kernels once
+    per pool kind they serve.  Launches are the counts of the path runs
+    (serving, quantized serving, chunked serving and the dense admissions
+    beside it, and the training run's timed steps); times, bounds and
+    errors are at the serving shapes for attn_fwd and the paged kernels
+    (decode at 8 sequences of 2048 tokens, verify a 256-token chunk at 2048)
+    and at the training shape for the backward kernels."""
+    serve, quant, chunked, dense_fwd, train = paths
+    fwd_t = timings["fwd_serve_prefill_2048"]
     kernels = [
         {"name": "attn_fwd", "route": "cuda", "source": FWD_SOURCE,
          "replaces": FWD_REPLACES,
-         "launches": serve_rec["launches"]["attn_fwd"]
-         + train_rec["launches"]["attn_fwd"],
+         "launches": serve["launches"]["attn_fwd"] + train["launches"]["attn_fwd"]
+         + sum(r["launches"]["attn_fwd"] for r in quant.values()) + dense_fwd,
          "max_abs_err": fwd_res["serve_prefill_2048"]["max_abs_err_o"],
          "ms": fwd_t["ms"], "plain_ms": fwd_t["plain_ms"],
          "bound_ms": fwd_t["bound_ms"], "bound_by": fwd_t["bound_by"],
          "library_ms": fwd_t["library_ms"]},
-        {"name": "paged_decode", "route": "cuda", "source": DECODE_SOURCE,
-         "replaces": DECODE_REPLACES,
-         "launches": serve_rec["launches"]["paged_decode"],
-         "max_abs_err": dec_res["serve_decode"]["max_abs_err_o"],
-         "ms": dec_t["ms"], "plain_ms": dec_t["plain_ms"],
-         "bound_ms": dec_t["bound_ms"], "bound_by": dec_t["bound_by"],
-         "library_ms": None},
     ]
+    for kind in ("bf16",) + QUANT_KINDS:
+        launches = sum(r["launches"]["paged_decode"] for r in quant.values()
+                       if r["kv"] == kind)
+        launches += chunked[kind]["launches"]["paged_decode"] if kind in chunked else 0
+        if kind == "bf16":
+            launches += serve["launches"]["paged_decode"]
+        t = timings[f"decode_{kind}_B8_ctx2048"]
+        err = dec_res["serve_decode" if kind == "bf16" else f"{kind}_B8"]["max_abs_err_o"]
+        kernels.append({
+            "name": f"paged_decode[{kind}]", "route": "cuda", "source": DECODE_SOURCE,
+            "replaces": DECODE_REPLACES, "launches": launches, "max_abs_err": err,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
+    for kind in ("bf16", "int8"):
+        t = timings[f"verify_{kind}_T256_ctx2048"]
+        kernels.append({
+            "name": f"paged_verify[{kind}]", "route": "cuda", "source": VERIFY_SOURCE,
+            "replaces": VERIFY_REPLACES,
+            "launches": chunked[kind]["launches"]["paged_verify"],
+            "max_abs_err": dec_res[f"verify_T256_{kind}"]["max_abs_err_o"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None})
     rows = timings["bwd_train_B8_H32_N2048"]
     for name, replaces in BWD_REPLACES.items():
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": BWD_SOURCE,
-            "replaces": replaces, "launches": train_rec["launches"][name],
+            "replaces": replaces, "launches": train["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -1110,10 +1646,15 @@ def main() -> int:
     fwd_res = phase_fwd(dev)
     phase_bwd(dev)
     dec_res = phase_decode(dev)
-    serve_rec = phase_serve(dev)
+    serve_rec, model, cfg = phase_serve(dev)
+    quant_runs = phase_serve_quant(dev, model, cfg)
+    chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg)
+    del model
+    torch.cuda.empty_cache()
     train_rec = phase_train(dev)
     timings = phase_time(dev, train_rec)
-    emit_kernels(fwd_res, dec_res, serve_rec, train_rec, timings)
+    emit_kernels(fwd_res, dec_res,
+                 (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec), timings)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,6 +3,8 @@ from .decoding import (
     init_kv_pools,
     make_decode_step,
     make_prefill,
+    make_verify_step,
+    write_prompt_kv,
     write_prompt_kv_all,
 )
 from .train import AdamW, make_train_state, make_train_step
@@ -34,8 +36,10 @@ __all__ = [
     "make_prefill",
     "make_train_state",
     "make_train_step",
+    "make_verify_step",
     "params_from_jax",
     "params_to_numpy",
     "unembed_matrix",
+    "write_prompt_kv",
     "write_prompt_kv_all",
 ]

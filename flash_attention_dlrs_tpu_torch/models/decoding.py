@@ -1,38 +1,70 @@
-"""Prefill and decode step, PyTorch port of ``flash_attention_dlrs_tpu/models/decoding.py``.
+"""Prefill, decode and verify steps, PyTorch port of ``flash_attention_dlrs_tpu/models/decoding.py``.
 
 Prefill runs the causal attention kernel over the prompt and returns each
 layer's K/V for the paged cache; the decode step embeds the batch's current
 tokens and, per layer, projects QKV, applies RoPE at the absolute position,
-writes the new K/V into the page pools in place and attends over the pages
-with :func:`..ops.decode.paged_decode_attention`.  PyTorch runs eagerly, so
+writes the new K/V into the page pools in place (quantizing on write for
+int8 / int4 / fp8 pools) and attends over the pages with
+:func:`..ops.decode.paged_decode_attention`; the verify step does the same
+for T tokens per sequence with :func:`..ops.decode.paged_verify_attention`
+(chunked prefill, speculative verification).  PyTorch runs eagerly, so
 there is no jit here; shapes stay static (slots × pages_per_seq) all the
 same.  Pools keep the model's head_dim: the JAX package pads it to 128 lanes
-for the TPU's DMA tiling, which this card does not need.
+for the TPU's DMA tiling, which this card does not need (a row's amax, and
+so its scale, is the same either way).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .._cuda import resolve_device
-from ..ops.decode import paged_decode_attention
+from ..ops.decode import paged_decode_attention, paged_verify_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.quantization import (
+    Int4QuantizedTensor,
+    QuantizedTensor,
+    quantize,
+    quantize_int4_values,
+)
 from .transformer import (
     ModelConfig, Transformer, _proj, apply_rope, logits_from_hidden,
     mlp_block, rms_norm, rope_tables,
 )
 
-_NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
+_VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_PAYLOAD_DTYPES = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 class KVPools(NamedTuple):
-    """Per-layer page pools (tuples of [Hkv, P, page_size, d] tensors);
-    unquantized only."""
+    """Per-layer page pools (tuples of [Hkv, P, page_size, d] tensors) and,
+    for quantized pools, per-token fp32 scales [Hkv, P, page_size, 1]."""
 
     k: Tuple[torch.Tensor, ...]
     v: Tuple[torch.Tensor, ...]
+    k_scales: Optional[Tuple[torch.Tensor, ...]] = None
+    v_scales: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
+    @property
+    def int4(self) -> bool:
+        """INT4-packed pools: payload rows are HALF the scale rows (two
+        tokens per byte; ops.quantization split-half packing)."""
+        return (self.k_scales is not None
+                and self.k[0].shape[-2] * 2 == self.k_scales[0].shape[-2])
+
+    def layer(self, li: int):
+        """Layer ``li``'s (K, V) as the paged attention ops take them."""
+        if not self.quantized:
+            return self.k[li], self.v[li]
+        kind = Int4QuantizedTensor if self.int4 else QuantizedTensor
+        return (kind(self.k[li], self.k_scales[li]),
+                kind(self.v[li], self.v_scales[li]))
 
 
 def init_kv_pools(
@@ -44,16 +76,96 @@ def init_kv_pools(
     quantized: bool = False,
     device="cuda",
 ) -> KVPools:
-    """Zeroed unquantized pools, one K and one V per layer."""
-    if quantized or isinstance(dtype, str):
-        raise NotImplementedError(_NOT_YET.format("quantized KV pools"))
+    """Zeroed pools, one K and one V per layer: value pools of ``dtype``,
+    or with ``quantized`` int8 / fp8 payloads (``dtype``) or, for
+    ``dtype="int4"``, packed int4 bytes [Hkv, P, page_size/2, d], with
+    scales of 1."""
+    int4 = isinstance(dtype, str) and dtype == "int4"
+    if int4:
+        if page_size % 2:
+            raise ValueError(f"int4 pools need an even page_size, got {page_size}")
+        quantized, dtype = True, torch.int8  # packed payload bytes
+    elif isinstance(dtype, str):
+        raise ValueError(f"unknown KV dtype {dtype!r}")
+    if quantized and dtype not in _PAYLOAD_DTYPES:
+        raise ValueError(f"quantized pools hold int8, int4 or fp8, not {dtype}")
+    if not quantized and dtype not in _VALUE_DTYPES:
+        raise ValueError(f"{dtype} pools need quantized=True")
     device = resolve_device(device)
-    shape = (cfg.n_kv_heads, num_pages, page_size, cfg.head_dim)
-    k = tuple(torch.zeros(shape, dtype=dtype, device=device)
-              for _ in range(cfg.n_layers))
-    v = tuple(torch.zeros(shape, dtype=dtype, device=device)
-              for _ in range(cfg.n_layers))
-    return KVPools(k, v)
+    store_ps = page_size // 2 if int4 else page_size
+    shape = (cfg.n_kv_heads, num_pages, store_ps, cfg.head_dim)
+
+    def pools(make):
+        return tuple(make() for _ in range(cfg.n_layers))
+
+    k = pools(lambda: torch.zeros(shape, dtype=dtype, device=device))
+    v = pools(lambda: torch.zeros(shape, dtype=dtype, device=device))
+    if not quantized:
+        return KVPools(k, v)
+    sshape = (cfg.n_kv_heads, num_pages, page_size, 1)
+    ks = pools(lambda: torch.ones(sshape, dtype=torch.float32, device=device))
+    vs = pools(lambda: torch.ones(sshape, dtype=torch.float32, device=device))
+    return KVPools(k, v, ks, vs)
+
+
+def _shift(x: torch.Tensor, k: int, dim: int, fill) -> torch.Tensor:
+    """y[..., j, ...] = x[..., j + k, ...] along ``dim``, ``fill`` outside."""
+    n = x.shape[dim]
+    out = torch.full_like(x, fill)
+    if abs(k) < n:
+        src = x.narrow(dim, max(k, 0), n - abs(k))
+        out.narrow(dim, max(-k, 0), n - abs(k)).copy_(src)
+    return out
+
+
+def _int4_insert(pool, rows, offs, vals_q) -> None:
+    """Write int4 values into a packed pool in place.
+
+    pool: [Hkv, P, page_size/2, d] int8 (split-half packed); rows/offs
+    [N, T]: page and in-page offset of each token, the T tokens of a row at
+    consecutive positions (a row's front padding may all go to one scratch
+    page); vals_q: [Hkv, N, T, d] int32 in [-8, 7].  Offset o lives in byte
+    row o (low nibble) when o < page_size/2, else in byte row
+    o - page_size/2 (high nibble).  Two tokens of one row share a byte when
+    their offsets differ by page_size/2, i.e. half a page apart in the row:
+    both then write the byte with both new nibbles, so no nibble is lost
+    whatever T is.  (The JAX package reads the old byte once per token and
+    loses one nibble of such a pair when T > page_size/2.)"""
+    half = pool.shape[-2]
+    is_low = offs < half
+    brow = torch.where(is_low, offs, offs - half)
+    raw = pool.view(torch.uint8)
+    old = raw[:, rows, brow].to(torch.int32)  # [Hkv, N, T, d]
+    nib = vals_q & 0xF
+    low_side = is_low[None, :, :, None]
+    step = torch.where(is_low, half, -half)
+    p_rows = torch.where(is_low, _shift(rows, half, -1, -1), _shift(rows, -half, -1, -1))
+    p_offs = torch.where(is_low, _shift(offs, half, -1, -1), _shift(offs, -half, -1, -1))
+    paired = ((p_rows == rows) & (p_offs == offs + step))[None, :, :, None]
+    p_nib = torch.where(low_side, _shift(nib, half, -2, 0), _shift(nib, -half, -2, 0))
+    low = torch.where(low_side, nib, torch.where(paired, p_nib, old & 0xF))
+    high = torch.where(low_side, torch.where(paired, p_nib, (old >> 4) & 0xF), nib)
+    raw[:, rows, brow] = (low | (high << 4)).to(torch.uint8)
+
+
+def _write_tokens(pools: KVPools, li: int, rows, offs, k, v) -> None:
+    """Layer ``li``'s K/V of new tokens into the pools in place, quantized
+    per token on write for quantized pools (the same payloads and scales as
+    :func:`..ops.quantization.quantize` / ``quantize_int4``): rows/offs
+    [N, T] (see :func:`_int4_insert`), k/v [Hkv, N, T, d]."""
+    scales = ((pools.k_scales[li], pools.v_scales[li]) if pools.quantized
+              else (None, None))
+    for pool, sc, x in zip((pools.k[li], pools.v[li]), scales, (k, v)):
+        if pools.int4:
+            xq, xs = quantize_int4_values(x)
+            _int4_insert(pool, rows, offs, xq)
+        elif pools.quantized:
+            xq = quantize(x, pool.dtype)
+            pool[:, rows, offs], xs = xq.values, xq.scales
+        else:
+            pool[:, rows, offs] = x.to(pool.dtype)
+            continue
+        sc[:, rows, offs] = xs
 
 
 # ---------------------------------------------------------------------------
@@ -117,7 +229,7 @@ def make_decode_step(cfg: ModelConfig):
     def decode_step(model: Transformer, pools: KVPools, tokens, positions,
                     page_rows, page_offs, page_tbl, lengths):
         b = tokens.shape[0]
-        rows, offs = page_rows.long(), page_offs.long()
+        rows, offs = page_rows.long()[:, None], page_offs.long()[:, None]
         x = model.embed[tokens]  # [B, dm]
         rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, 1, d/2]
         for li, layer in enumerate(model.layers):
@@ -127,11 +239,11 @@ def make_decode_step(cfg: ModelConfig):
             v = _proj(h, layer.wv).reshape(b, cfg.n_kv_heads, cfg.head_dim)
             q = apply_rope(q, *rope_cs)  # RoPE at each token's absolute position
             k = apply_rope(k, *rope_cs)
-            # this token's K/V into its (page, offset): [Hkv, B, d]
-            pools.k[li][:, rows, offs] = k.transpose(0, 1).to(pools.k[li].dtype)
-            pools.v[li][:, rows, offs] = v.transpose(0, 1).to(pools.v[li].dtype)
+            # this token's K/V into its (page, offset): [Hkv, B, 1, d]
+            _write_tokens(pools, li, rows, offs, k.transpose(0, 1)[:, :, None],
+                          v.transpose(0, 1)[:, :, None])
             o = paged_decode_attention(
-                q.contiguous(), pools.k[li], pools.v[li], lengths, page_tbl,
+                q.contiguous(), *pools.layer(li), lengths, page_tbl,
                 sm_scale=cfg.sm_scale,
             )  # [B, Hq, d]
             x = x + _proj(o.reshape(b, -1), layer.wo)
@@ -143,13 +255,64 @@ def make_decode_step(cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
+# Verify step: T tokens per sequence in one pass (chunked prefill)
+# ---------------------------------------------------------------------------
+
+
+def make_verify_step(cfg: ModelConfig, num_tokens: int):
+    """Multi-token step for chunked prefill and speculative verification,
+    pools written IN PLACE.
+
+    (model, pools, tokens [B, T], positions [B, T], page_rows [B, T],
+     page_offs [B, T], page_tbl [B, pages_per_seq], lengths [B])
+     -> (logits [B, T, V] fp32, pools)
+
+    Writes all T tokens' K/V into the pools, then scores every position
+    with :func:`..ops.decode.paged_verify_attention`: token t attends to
+    positions < lengths − (T−1−t).  ``lengths`` is the FINAL length (all T
+    counted).  The T tokens of a sequence sit at consecutive positions;
+    padding tokens may all write to one scratch page."""
+    t_new = num_tokens
+
+    @torch.inference_mode()
+    def verify_step(model: Transformer, pools: KVPools, tokens, positions,
+                    page_rows, page_offs, page_tbl, lengths):
+        b = tokens.shape[0]
+        rows, offs = page_rows.long(), page_offs.long()
+        x = model.embed[tokens]  # [B, T, dm]
+        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, T, 1, d/2]
+        for li, layer in enumerate(model.layers):
+            h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+            q = _proj(h, layer.wq).reshape(b, t_new, cfg.n_q_heads, cfg.head_dim)
+            k = _proj(h, layer.wk).reshape(b, t_new, cfg.n_kv_heads, cfg.head_dim)
+            v = _proj(h, layer.wv).reshape(b, t_new, cfg.n_kv_heads, cfg.head_dim)
+            q = apply_rope(q, *rope_cs)
+            k = apply_rope(k, *rope_cs)
+            # all B·T tokens' K/V: [Hkv, B, T, d]
+            _write_tokens(pools, li, rows, offs, k.permute(2, 0, 1, 3),
+                          v.permute(2, 0, 1, 3))
+            o = paged_verify_attention(
+                q.transpose(1, 2).contiguous(), *pools.layer(li), lengths,
+                page_tbl, sm_scale=cfg.sm_scale,
+            )  # [B, Hq, T, d]
+            x = x + _proj(o.transpose(1, 2).reshape(b, t_new, -1), layer.wo)
+            x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
+        x = rms_norm(x, model.final_norm, cfg.norm_eps)
+        return logits_from_hidden(x, model), pools
+
+    return verify_step
+
+
+# ---------------------------------------------------------------------------
 # Admission writes
 # ---------------------------------------------------------------------------
 
 
 def write_prompt_kv(pools: KVPools, layer: int, kv, pages, page_size: int) -> KVPools:
     """Write one sequence's prompt K/V ([Hkv, T, d] each) into its pages
-    (``pages`` [n_pages]), in place."""
+    (``pages`` [n_pages]), in place, quantized on write for quantized pools
+    (padding tokens get scale 1): each page is one row of
+    :func:`_write_tokens`."""
     k, v = kv
     hkv, t, d = k.shape
     n_pages = pages.shape[0]
@@ -157,11 +320,11 @@ def write_prompt_kv(pools: KVPools, layer: int, kv, pages, page_size: int) -> KV
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
-    idx = pages.to(pools.k[layer].device).long()
-    pools.k[layer][:, idx] = k.reshape(hkv, n_pages, page_size, d).to(
-        pools.k[layer].dtype)
-    pools.v[layer][:, idx] = v.reshape(hkv, n_pages, page_size, d).to(
-        pools.v[layer].dtype)
+    device = pools.k[layer].device
+    rows = pages.to(device).long()[:, None].expand(n_pages, page_size)
+    offs = torch.arange(page_size, device=device).expand(n_pages, page_size)
+    _write_tokens(pools, layer, rows, offs, k.reshape(hkv, n_pages, page_size, d),
+                  v.reshape(hkv, n_pages, page_size, d))
     return pools
 
 

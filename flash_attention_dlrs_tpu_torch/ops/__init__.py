@@ -1,7 +1,10 @@
 from .decode import (
     paged_decode_attention,
+    paged_decode_plain,
     paged_reference_attention,
     paged_verify_attention,
+    paged_verify_plain,
+    quantize_kv_pages,
 )
 from .flash_attention import (
     flash_attention,
@@ -20,8 +23,11 @@ __all__ = [
     "flash_attention_backward",
     "flash_attention_forward",
     "paged_decode_attention",
+    "paged_decode_plain",
     "paged_reference_attention",
     "paged_verify_attention",
+    "paged_verify_plain",
+    "quantize_kv_pages",
     "reference_attention",
     "reference_attention_grads",
 ]

@@ -1,13 +1,22 @@
-"""Paged decode attention, PyTorch port of ``flash_attention_dlrs_tpu/ops/decode.py``.
+"""Paged attention over a KV cache, PyTorch port of ``flash_attention_dlrs_tpu/ops/decode.py``.
 
-Single-token attention over a paged KV cache: pools are
-``[Hkv, P, page_size, d]``, a page table ``[B, pages_per_seq]`` maps each
+Pools are ``[Hkv, P, page_size, d]`` tensors (fp32 / bf16 / fp16), or
+quantized: a :class:`~.quantization.QuantizedTensor` (int8, fp8 e4m3fn or
+e5m2 payload) or an :class:`~.quantization.Int4QuantizedTensor` (two tokens
+per byte, ``[Hkv, P, page_size/2, d]``), each with per-token fp32 scales
+``[Hkv, P, page_size, 1]``.  A page table ``[B, pages_per_seq]`` maps each
 sequence's tokens to pool pages, and ``lengths`` ``[B]`` masks each
-sequence.  The kernel is ``csrc/paged_decode.cu`` (replaces the unquantized
-single-token path of the TPU kernel ``ops/decode.py::_decode_kernel``);
-:func:`paged_reference_attention` is its plain PyTorch version, which CPU
-tensors take.  Quantized pools, ALiBi and the multi-token verify mode raise
-``NotImplementedError`` until their slice (ROADMAP.md).
+sequence.  Two kernels replace the TPU kernel
+``ops/decode.py::_decode_kernel``: ``csrc/paged_decode.cu`` its single-token
+mode (:func:`paged_decode_attention`) and ``csrc/paged_verify.cu`` its
+multi-token verify mode (:func:`paged_verify_attention`).  CPU tensors take
+the plain versions, :func:`paged_decode_plain` and
+:func:`paged_verify_plain`: :func:`paged_reference_attention` for
+single-token value pools, and for every other mode the TPU kernel's own
+arithmetic (integer scores for int8/int4 decode, scales folded into S and
+P).  :func:`paged_reference_attention` is also the oracle: quantized pools
+are dequantized first.  ALiBi raises ``NotImplementedError`` until its
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,41 +27,140 @@ import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, stream_handle
 from .fwd_kernel import DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS
+from .quantization import (
+    Int4QuantizedTensor,
+    QuantizedTensor,
+    quantize,
+    quantize_int4,
+    unpack_int4_rows,
+)
 
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
+
+# Pool kinds of the C interfaces (csrc/paged.cuh PoolKind).
+POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+              torch.int8: 3, "int4": 4, torch.float8_e4m3fn: 5,
+              torch.float8_e5m2: 6}
+_PAYLOADS = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
+_INV_127 = 1.0 / 127.0
+
+_POOL_ARGS = [
+    ctypes.c_void_p, ctypes.c_int,  # q, q dtype
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # k/v pools, pool kind
+    ctypes.c_void_p, ctypes.c_void_p,  # k/v scales
+    ctypes.c_void_p, ctypes.c_void_p,  # lengths, page table
+]
 
 DECODE_KERNEL = CudaKernel(
     "paged_decode.cu",
     "paged_decode",
-    [ctypes.c_void_p, ctypes.c_int,  # q, q dtype
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # k/v pools, kv dtype
-     ctypes.c_void_p, ctypes.c_void_p,  # lengths, page table
-     ctypes.c_void_p, ctypes.c_void_p]  # o, lse
+    _POOL_ARGS + [ctypes.c_void_p, ctypes.c_void_p]  # o, lse
     + [ctypes.c_int] * 7  # B, Hq, Hkv, P, page_size, pages_per_seq, D
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # scale, cap, stream
 )
 
+VERIFY_KERNEL = CudaKernel(
+    "paged_verify.cu",
+    "paged_verify",
+    _POOL_ARGS + [ctypes.c_void_p]  # o
+    + [ctypes.c_int] * 8  # B, Hq, Hkv, T, P, page_size, pages_per_seq, D
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # scale_q, cap, stream
+)
 
-def _check_pools(k_pages, v_pages):
-    if not (torch.is_tensor(k_pages) and torch.is_tensor(v_pages)):
-        raise NotImplementedError(_NOT_YET.format("quantized KV pages"))
-    if k_pages.dtype not in DTYPE_CODES or v_pages.dtype != k_pages.dtype:
-        if k_pages.dtype in (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2):
-            raise NotImplementedError(_NOT_YET.format("quantized KV pages"))
+
+class _Pools:
+    """The two pools of one call, split into payloads, scales and kind."""
+
+    def __init__(self, k_pages, v_pages):
+        if type(k_pages) is not type(v_pages):
+            raise ValueError(
+                "k_pages and v_pages must be the same kind "
+                f"({type(k_pages).__name__} vs {type(v_pages).__name__})")
+        self.int4 = isinstance(k_pages, Int4QuantizedTensor)
+        self.quantized = self.int4 or isinstance(k_pages, QuantizedTensor)
+        if self.quantized:
+            self.k, self.v = k_pages.values, v_pages.values
+            self.k_sc, self.v_sc = k_pages.scales, v_pages.scales
+        else:
+            self.k, self.v = k_pages, v_pages
+            self.k_sc = self.v_sc = None
+        if self.k.dtype != self.v.dtype:
+            raise ValueError(
+                f"KV pools must share one dtype, got {self.k.dtype} and {self.v.dtype}")
+        allowed = (torch.int8,) if self.int4 else (
+            _PAYLOADS if self.quantized else tuple(DTYPE_CODES))
+        if self.k.dtype not in allowed:
+            raise ValueError(
+                f"{type(k_pages).__name__} pools hold {allowed}, not {self.k.dtype}")
+        if self.k.ndim != 4 or self.k.shape != self.v.shape:
+            raise ValueError(
+                "k_pages and v_pages must both be [Hkv, P, page_size, d]; got "
+                f"{tuple(self.k.shape)} and {tuple(self.v.shape)}")
+        hkv, num_pages, stored, _ = self.k.shape
+        self.page_size = 2 * stored if self.int4 else stored
+        if self.quantized:
+            want = (hkv, num_pages, self.page_size, 1)
+            for sc in (self.k_sc, self.v_sc):
+                if tuple(sc.shape) != want or sc.dtype != torch.float32:
+                    raise ValueError(
+                        f"scales must be {want} float32, got "
+                        f"{tuple(sc.shape)} {sc.dtype}")
+        self.kind = POOL_KINDS["int4" if self.int4 else self.k.dtype]
+
+    def tensors(self):
+        return [t for t in (self.k, self.v, self.k_sc, self.v_sc) if t is not None]
+
+
+def _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
+                logit_softcap):
+    num_kv_heads, d_pool = pools.k.shape[0], pools.k.shape[3]
+    if num_q_heads % num_kv_heads:
         raise ValueError(
-            f"KV pools must share one of fp32/bf16/fp16, got "
-            f"{k_pages.dtype} and {v_pages.dtype}"
-        )
-    if k_pages.ndim != 4 or k_pages.shape != v_pages.shape:
+            f"num_q_heads ({num_q_heads}) must divide by num_kv_heads "
+            f"({num_kv_heads})")
+    if d_pool != head_dim:
+        raise ValueError(f"q head_dim {head_dim} != pool head_dim {d_pool}")
+    batch = q.shape[0]
+    if lengths.shape != (batch,) or page_indices.ndim != 2 or (
+            page_indices.shape[0] != batch):
         raise ValueError(
-            "k_pages and v_pages must both be [Hkv, P, page_size, d]; got "
-            f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}"
-        )
+            f"lengths must be [B] and page_indices [B, pages_per_seq]; got "
+            f"{tuple(lengths.shape)} and {tuple(page_indices.shape)}")
+    if logit_softcap < 0:
+        raise ValueError(f"logit_softcap must be >= 0, got {logit_softcap}")
+
+
+def _check_cuda(q, pools, lengths, page_indices, head_dim, what):
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda, not {q.device}")
+    for name, t in [("q", q), ("lengths", lengths),
+                    ("page_indices", page_indices)] + [
+                        ("pools", t) for t in pools.tensors()]:
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for t in (q, pools.k, pools.v):
+        if t.data_ptr() % 16:  # the kernels stage rows with 16-byte loads
+            raise ValueError("q and the pools must start on a 16-byte boundary")
+    if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
+        raise ValueError("lengths and page_indices must be int32")
+    if q.dtype not in DTYPE_CODES:
+        raise ValueError(f"{what} kernel takes fp32/bf16/fp16 q, not {q.dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(
+            f"{what} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+
+
+def _scale_in(sm_scale: float, dtype) -> float:
+    """sm_scale rounded to ``dtype``: the JAX wrapper pre-scales q by
+    ``jnp.asarray(sm_scale, q.dtype)``."""
+    return float(torch.tensor(sm_scale, dtype=dtype))
 
 
 def paged_decode_attention(
     q,  # [B, Hq, d]
-    k_pages,  # [Hkv, P, page_size, d]
+    k_pages,  # [Hkv, P, page_size, d], or a (Int4)QuantizedTensor
     v_pages,
     lengths,  # [B] int32
     page_indices,  # [B, pages_per_seq] int32
@@ -67,99 +175,219 @@ def paged_decode_attention(
     V_pages, [B, Hq, d] in q's dtype; with ``return_lse`` also the
     natural-base logsumexp [B, Hq] fp32 (DEFAULT_MASK_VALUE for length 0).
 
-    GQA: q head h reads kv head h // (Hq / Hkv).  ``pages_per_block`` (a TPU
-    DMA tuning knob) is accepted and ignored.  The caller guarantees that
-    every page id a sequence's length reaches is a valid pool page.  CPU
-    tensors take :func:`paged_reference_attention`; CUDA tensors launch the
-    kernel or raise."""
+    GQA: q head h reads kv head h // (Hq / Hkv).  Quantized pools (both of
+    one kind) fold their scales into the scores and probabilities;
+    int8/int4 K scores through per-row int8 q, as the TPU kernel does.
+    ``pages_per_block`` (a TPU DMA tuning knob) is accepted and ignored.
+    The caller guarantees that every page id a sequence's length reaches is
+    a valid pool page.  CPU tensors take the plain versions; CUDA tensors
+    launch ``csrc/paged_decode.cu`` or raise."""
     del pages_per_block
     if alibi_slopes is not None:
         raise NotImplementedError(_NOT_YET.format("alibi_slopes in decode"))
-    _check_pools(k_pages, v_pages)
+    pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, head_dim = q.shape
-    num_kv_heads, num_pages, page_size, d_pool = k_pages.shape
-    if num_q_heads % num_kv_heads:
-        raise ValueError(
-            f"num_q_heads ({num_q_heads}) must divide by num_kv_heads "
-            f"({num_kv_heads})"
-        )
-    if d_pool != head_dim:
-        raise ValueError(f"q head_dim {head_dim} != pool head_dim {d_pool}")
-    if lengths.shape != (batch,) or page_indices.ndim != 2 or (
-            page_indices.shape[0] != batch):
-        raise ValueError(
-            f"lengths must be [B] and page_indices [B, pages_per_seq]; got "
-            f"{tuple(lengths.shape)} and {tuple(page_indices.shape)}"
-        )
-    if logit_softcap < 0:
-        raise ValueError(f"logit_softcap must be >= 0, got {logit_softcap}")
+    _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
+                logit_softcap)
     if sm_scale is None:
         sm_scale = float(head_dim) ** -0.5
     if q.device.type == "cpu":
-        o, lse = paged_reference_attention(
+        o, lse = paged_decode_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-            logit_softcap=logit_softcap, return_lse=True,
-        )
+            logit_softcap=logit_softcap, return_lse=True)
         return (o, lse) if return_lse else o
-    if q.device.type != "cuda":
-        raise ValueError(f"paged decode runs on cpu or cuda, not {q.device}")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("lengths", lengths), ("page_indices", page_indices)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:  # the kernel stages rows with 16-byte loads
-            raise ValueError(f"{name} must start on a 16-byte boundary")
-    if lengths.dtype != torch.int32 or page_indices.dtype != torch.int32:
-        raise ValueError("lengths and page_indices must be int32")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"paged decode kernel takes fp32/bf16/fp16 q, not {q.dtype}")
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"paged decode kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    _check_cuda(q, pools, lengths, page_indices, head_dim, "paged decode")
     o = torch.empty_like(q)
     lse = (torch.empty((batch, num_q_heads), dtype=torch.float32,
                        device=q.device) if return_lse else None)
+    scale = _scale_in(sm_scale, q.dtype) if pools.quantized else float(sm_scale)
     if batch:
         DECODE_KERNEL.launch(
-            ptr(q), DTYPE_CODES[q.dtype], ptr(k_pages), ptr(v_pages),
-            DTYPE_CODES[k_pages.dtype], ptr(lengths), ptr(page_indices),
-            ptr(o), ptr(lse), batch, num_q_heads, num_kv_heads, num_pages,
-            page_size, page_indices.shape[1], head_dim, float(sm_scale),
-            float(logit_softcap), stream_handle(q.device),
+            ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
+            pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
+            ptr(page_indices), ptr(o), ptr(lse), batch, num_q_heads,
+            pools.k.shape[0], pools.k.shape[1], pools.page_size,
+            page_indices.shape[1], head_dim, scale, float(logit_softcap),
+            stream_handle(q.device),
         )
     return (o, lse) if return_lse else o
 
 
-def paged_verify_attention(*args, **kwargs):
-    """Multi-token paged attention (speculative verify / chunked prefill)."""
-    raise NotImplementedError(_NOT_YET.format("paged_verify_attention"))
+def paged_verify_attention(
+    q,  # [B, Hq, T, d]: T new tokens per sequence
+    k_pages,
+    v_pages,
+    lengths,  # [B] int32: FINAL lengths (after the T tokens are appended)
+    page_indices,
+    *,
+    sm_scale=None,
+    pages_per_block=None,
+    alibi_slopes=None,
+    logit_softcap: float = 0.0,
+):
+    """Multi-token paged attention: token t of the T new tokens attends to
+    positions < lengths − (T−1−t).  The K/V of all T tokens must already be
+    in the pages.  This is the kernel of chunked prefill and of speculative
+    verification.  Returns [B, Hq, T, d] in q's dtype; a token that sees no
+    position (front padding of a partial chunk) gets zeros.
+
+    As on the TPU, verify always takes the dequantized score route (no int8
+    q), scales folded into S and P.  CPU tensors take
+    :func:`paged_verify_plain`; CUDA tensors launch
+    ``csrc/paged_verify.cu`` or raise.  bf16/fp16 q on the card needs
+    quantized pools or value pools of q's dtype."""
+    del pages_per_block
+    if alibi_slopes is not None:
+        raise NotImplementedError(_NOT_YET.format("alibi_slopes in verify"))
+    pools = _Pools(k_pages, v_pages)
+    batch, num_q_heads, num_tokens, head_dim = q.shape
+    _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
+                logit_softcap)
+    if sm_scale is None:
+        sm_scale = float(head_dim) ** -0.5
+    if q.device.type == "cpu":
+        return paged_verify_plain(
+            q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
+            logit_softcap=logit_softcap)
+    _check_cuda(q, pools, lengths, page_indices, head_dim, "paged verify")
+    if (q.dtype != torch.float32 and not pools.quantized
+            and pools.k.dtype != q.dtype):
+        raise ValueError(
+            f"paged verify kernel takes {q.dtype} q with quantized pools or "
+            f"{q.dtype} pools, not {pools.k.dtype}")
+    o = torch.empty_like(q)
+    if batch and num_tokens:
+        VERIFY_KERNEL.launch(
+            ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
+            pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
+            ptr(page_indices), ptr(o), batch, num_q_heads, pools.k.shape[0],
+            num_tokens, pools.k.shape[1], pools.page_size,
+            page_indices.shape[1], head_dim, _scale_in(sm_scale, q.dtype),
+            float(logit_softcap), stream_handle(q.device),
+        )
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Plain versions and the oracle
+# ---------------------------------------------------------------------------
+
+
+def _dense(pool, idx, int4: bool):
+    """[Hkv, P, rows, d] pool gathered through ``idx`` [B, pps] into
+    [B, Hkv, pps * page_size, d]; int4 bytes are unpacked per page."""
+    g = pool[:, idx]  # [Hkv, B, pps, rows, d]
+    if int4:
+        g = unpack_int4_rows(g)
+    hkv, b = g.shape[:2]
+    return g.movedim(1, 0).reshape(b, hkv, -1, g.shape[-1])
+
+
+def _paged_plain(
+    q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
+    logit_softcap: float = 0.0, s8_scores: bool = True,
+    return_lse: bool = False,
+):
+    """Plain version of the kernels' modes, q [B, Hq, T, d], with the TPU
+    kernel's arithmetic: q pre-scaled in its own dtype; payloads cast to
+    q's dtype unscaled; with ``s8_scores`` and int8/int4 pools each q row
+    quantized to int8 as round(q · (127 / max|q|)) and the score an exact
+    integer dot times max|q| · (1/127); the K scale times S; softcap; row
+    t masked to positions < lengths − (T−1−t); P · v_scale rounded to q's
+    dtype before P V.  A row that sees nothing gets O = 0 and lse
+    DEFAULT_MASK_VALUE.  Returns O [B, Hq, T, d] (and lse [B, Hq, T])."""
+    pools = _Pools(k_pages, v_pages)
+    b, hq, t, d = q.shape
+    if sm_scale is None:
+        sm_scale = float(d) ** -0.5
+    hkv = pools.k.shape[0]
+    g = hq // hkv
+    idx = page_indices.long()
+    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
+    rows = qs.reshape(b, hkv, g, t, d).transpose(2, 3).reshape(b, hkv, t * g, d)
+    k = _dense(pools.k, idx, pools.int4)
+    v = _dense(pools.v, idx, pools.int4)
+    if s8_scores and pools.kind in (POOL_KINDS[torch.int8], POOL_KINDS["int4"]):
+        qf = rows.float()
+        qa = qf.abs().amax(dim=-1, keepdim=True)
+        inv = torch.where(qa > 0, torch.full_like(qa, 127.0) / qa, 0.0)
+        # integers below 2^24 at every partial sum: the fp32 dot is exact
+        s = torch.matmul(torch.round(qf * inv), k.float().transpose(-1, -2))
+        s = s * (qa * _INV_127)
+    else:
+        s = torch.matmul(rows.float(), k.to(q.dtype).float().transpose(-1, -2))
+    if pools.quantized:
+        s = s * _dense(pools.k_sc, idx, False)[..., 0][:, :, None, :]
+    if logit_softcap:
+        s = logit_softcap * torch.tanh(s * (1.0 / logit_softcap))
+    pos = torch.arange(s.shape[-1], device=q.device)
+    row_t = torch.arange(t * g, device=q.device) // g
+    horizon = lengths.to(q.device).long()[:, None] - (t - 1) + row_t  # [B, TG]
+    s = s.masked_fill(pos >= horizon[:, None, :, None], float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    empty = torch.isneginf(m)
+    p = torch.exp(s - torch.where(empty, 0.0, m))
+    l = p.sum(dim=-1, keepdim=True)
+    if pools.quantized:
+        p = p * _dense(pools.v_sc, idx, False)[..., 0][:, :, None, :]
+    acc = torch.matmul(p.to(q.dtype).float(), v.to(q.dtype).float())
+    o = acc * torch.where(empty, 0.0, torch.full_like(l, 1.0) / l)
+    o = o.reshape(b, hkv, t, g, d).transpose(2, 3).reshape(b, hq, t, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.where(empty, DEFAULT_MASK_VALUE, m + torch.log(l))
+    return o, lse.reshape(b, hkv, t, g).transpose(2, 3).reshape(b, hq, t)
+
+
+def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
+                       sm_scale=None, logit_softcap: float = 0.0,
+                       return_lse: bool = False):
+    """Plain version of ``csrc/paged_decode.cu`` (q [B, Hq, d]): value pools
+    take :func:`paged_reference_attention`, quantized pools the TPU
+    kernel's single-token arithmetic (:func:`_paged_plain`,
+    integer scores for int8/int4)."""
+    if not _Pools(k_pages, v_pages).quantized:
+        return paged_reference_attention(
+            q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
+            logit_softcap=logit_softcap, return_lse=return_lse)
+    o, lse = _paged_plain(
+        q[:, :, None], k_pages, v_pages, lengths, page_indices,
+        sm_scale=sm_scale, logit_softcap=logit_softcap, s8_scores=True,
+        return_lse=True)
+    return (o[:, :, 0], lse[:, :, 0]) if return_lse else o[:, :, 0]
+
+
+def paged_verify_plain(q, k_pages, v_pages, lengths, page_indices, *,
+                       sm_scale=None, logit_softcap: float = 0.0):
+    """Plain version of ``csrc/paged_verify.cu`` (q [B, Hq, T, d]): the
+    TPU kernel's dequantized route."""
+    return _paged_plain(
+        q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
+        logit_softcap=logit_softcap, s8_scores=False)
 
 
 def paged_reference_attention(
     q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
     alibi_slopes=None, logit_softcap: float = 0.0, return_lse: bool = False,
 ):
-    """Plain version: gather pages into dense K/V, masked fp32 softmax
-    attention.  Lengths beyond the page table are clamped to it.  With
-    ``return_lse`` also the natural-base logsumexp (DEFAULT_MASK_VALUE for
-    an empty sequence)."""
+    """Oracle, and the plain version of the single-token kernel on value
+    pools: gather pages into dense K/V (quantized pools dequantized first),
+    masked fp32 softmax attention.  Lengths beyond the page table are
+    clamped to it.  With ``return_lse`` also the natural-base logsumexp
+    (DEFAULT_MASK_VALUE for an empty sequence)."""
     if alibi_slopes is not None:
         raise NotImplementedError(_NOT_YET.format("alibi_slopes in decode"))
-    _check_pools(k_pages, v_pages)
+    pools = _Pools(k_pages, v_pages)
+    if pools.quantized:
+        k_pages, v_pages = k_pages.dequantize(), v_pages.dequantize()
     batch, num_q_heads, head_dim = q.shape
     num_kv_heads, _, page_size, d_pool = k_pages.shape
     if sm_scale is None:
         sm_scale = float(head_dim) ** -0.5
     idx = page_indices.long()
     max_len = idx.shape[1] * page_size
-    # [Hkv, B, pps, ps, d] -> [B, Hkv, max_len, d]
-    k_dense = k_pages[:, idx].movedim(1, 0).reshape(
-        batch, num_kv_heads, max_len, d_pool).float()
-    v_dense = v_pages[:, idx].movedim(1, 0).reshape(
-        batch, num_kv_heads, max_len, d_pool).float()
+    k_dense = _dense(k_pages, idx, False).float()  # [B, Hkv, max_len, d]
+    v_dense = _dense(v_pages, idx, False).float()
     group = num_q_heads // num_kv_heads
     qg = q.float().reshape(batch, num_kv_heads, group, head_dim)
     s = torch.matmul(qg, k_dense.transpose(-1, -2)) * sm_scale  # [B,Hkv,G,L]
@@ -178,3 +406,14 @@ def paged_reference_attention(
         return o
     lse = torch.where(empty, DEFAULT_MASK_VALUE, m + torch.log(l))
     return o, lse.reshape(batch, num_q_heads)
+
+
+def quantize_kv_pages(pages: torch.Tensor, dtype=torch.int8):
+    """Per-token symmetric quantization of [Hkv, P, page_size, d] KV pages:
+    a :class:`QuantizedTensor` (int8 / fp8 payload), or with
+    ``dtype="int4"`` an :class:`Int4QuantizedTensor` (two tokens per byte
+    along the page axis).  The H100 converts fp8 natively, so fp8 needs no
+    warning here (the JAX package warns on TPUs without an fp8 datapath)."""
+    if isinstance(dtype, str) and dtype == "int4":
+        return quantize_int4(pages, axis=-1)
+    return quantize(pages, dtype=dtype, axis=-1)

@@ -1,6 +1,7 @@
 from .data import LoaderState, TokenDataset, batches
 from .engine import DecodeEngine, StreamEvent
-from .kv_cache import PageAllocator
+from .kv_cache import PageAllocator, PagedKVCache
+from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams
 from .scheduler import ContinuousBatchingScheduler, Request, RequestState
 
@@ -11,6 +12,8 @@ __all__ = [
     "batches",
     "StreamEvent",
     "PageAllocator",
+    "PagedKVCache",
+    "PrefixCache",
     "GREEDY",
     "SamplingParams",
     "ContinuousBatchingScheduler",

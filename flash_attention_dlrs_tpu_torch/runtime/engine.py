@@ -7,11 +7,13 @@ admitted prompt and one batched decode step per token) — greedy or seeded
 sampling, EOS/budget termination, slot backfill at step boundaries.
 
 Inactive slots decode against a reserved null page with length 0 (their
-output is ignored), so the decode batch never changes shape.  The engine
-runs on the card by default (``device="cuda"``) and on the CPU only when
-asked.  Ring modes, chunked prefill, the prefix cache, the mesh, speculative
-serving and device-side bursts raise ``NotImplementedError`` until their
-slice (ROADMAP.md).
+output is ignored), so the decode batch never changes shape.  KV pools may
+be quantized (int8, int4, fp8), prompts may be prefilled in fixed chunks
+through the multi-token verify step, and full-page prompt prefixes may be
+shared through the prefix cache.  The engine runs on the card by default
+(``device="cuda"``) and on the CPU only when asked.  Ring modes, the mesh,
+speculative serving and device-side bursts raise ``NotImplementedError``
+until their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ from ..models.decoding import (
     init_kv_pools,
     make_decode_step,
     make_prefill,
+    make_verify_step,
     write_prompt_kv_all,
 )
 from ..models.transformer import ModelConfig, Transformer
 from .kv_cache import PageAllocator
+from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams, batch_params, sample_tokens
 from .scheduler import ContinuousBatchingScheduler, Request
 
@@ -83,17 +87,29 @@ class DecodeEngine:
     ):
         """``params`` is the port's model (models.weights.params_from_jax);
         it is moved to ``device`` if it lies elsewhere.  Pages are accounted
-        by the Python PageAllocator."""
+        by the Python PageAllocator.
+
+        ``quantized_kv`` stores K/V as ``kv_dtype`` payloads with per-token
+        scales: ``torch.int8``, ``"int4"`` (two tokens per byte),
+        ``torch.float8_e4m3fn`` or ``torch.float8_e5m2``.  fp8 is taken as
+        asked: the H100 has an fp8 datapath, where the JAX package falls
+        back to int8 on TPUs without one.  ``prefill_chunk`` > 0 prefills
+        every prompt in chunks of that many tokens through the verify step;
+        ``enable_prefix_cache`` (which needs it) reuses the full-page
+        prompt prefixes of earlier requests."""
         unported = {
-            "prefill_chunk (chunked prefill)": prefill_chunk,
             "streaming_window / attention_sinks": streaming_window or attention_sinks,
-            "enable_prefix_cache": enable_prefix_cache,
             "mesh (tensor-parallel serving)": mesh is not None,
-            "quantized_kv": quantized_kv,
         }
         for name, used in unported.items():
             if used:
                 raise NotImplementedError(_NOT_YET.format(name))
+        if kv_dtype == "int4" and not quantized_kv:
+            raise ValueError("kv_dtype='int4' requires quantized_kv=True")
+        if enable_prefix_cache and not prefill_chunk:
+            raise ValueError(
+                "enable_prefix_cache requires prefill_chunk > 0 (the suffix "
+                "prefill runs through the chunked path)")
         self.device = resolve_device(device)
         self.params = params.to(self.device)
         self.cfg = cfg
@@ -105,7 +121,7 @@ class DecodeEngine:
 
         self.pools = init_kv_pools(cfg, num_pages=num_pages,
                                    page_size=page_size, dtype=kv_dtype,
-                                   device=self.device)
+                                   quantized=quantized_kv, device=self.device)
         self.allocator = PageAllocator(num_pages, page_size)
         self.allocator.allocate(_NULL_SEQ, 1)  # scratch page for idle slots
         self._null_page = self.allocator.page_tables[_NULL_SEQ][0]
@@ -128,6 +144,14 @@ class DecodeEngine:
         self._decode_step = make_decode_step(cfg)
         self._sample_cache_key = None
         self._sample_cache = None
+        self.prefill_chunk = prefill_chunk
+        if prefill_chunk:
+            self._chunk_prefill = make_verify_step(cfg, prefill_chunk)
+        self.prefix_cache = None
+        if enable_prefix_cache:
+            self.prefix_cache = PrefixCache(self.allocator, page_size)
+            # the admission gate may free pages by evicting cache entries
+            self.scheduler._can_allocate = self.prefix_cache.can_allocate
 
     # -- admission / retirement ------------------------------------------------
 
@@ -138,22 +162,41 @@ class DecodeEngine:
         raise NotImplementedError(_NOT_YET.format("speculative serving"))
 
     def _admit(self, req: Request, slot: int) -> None:
-        self._admit_dense(req, slot)
+        self._check_fits(req)
+        if self.prefill_chunk:
+            self._admit_chunked(req, slot)
+        else:
+            self._admit_dense(req, slot)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
 
-    def _admit_dense(self, req: Request, slot: int) -> None:
-        prompt = np.asarray(req.prompt_tokens, np.int64)
-        t = len(prompt)
-        need = -(-(t + req.max_new_tokens) // self.page_size)
+    def _check_fits(self, req: Request) -> None:
+        need = -(-(len(req.prompt_tokens) + req.max_new_tokens) // self.page_size)
         if need > self.pages_per_seq:
             raise ValueError(
                 f"request {req.request_id!r} needs {need} pages "
-                f"({t} prompt + {req.max_new_tokens} new tokens) but "
-                f"page tables hold pages_per_seq={self.pages_per_seq} — "
-                "raise pages_per_seq (or page_size)"
+                f"({len(req.prompt_tokens)} prompt + {req.max_new_tokens} new "
+                f"tokens) but page tables hold pages_per_seq="
+                f"{self.pages_per_seq} — raise pages_per_seq (or page_size)"
             )
+
+    def _first_token(self, req: Request, slot: int, logits, t: int) -> None:
+        """Sample the request's first token from its prefill logits [1, V]."""
+        temp, top_k, top_p, seeds = batch_params(
+            [req.sampling or GREEDY], device=self.device)
+        lengths = torch.tensor([t], dtype=torch.int32, device=self.device)
+        first = sample_tokens(logits, temp, top_k, top_p, seeds, lengths)
+        first_token = int(first[0])
+        req.output_tokens.append(first_token)
+        if req.want_logprobs:
+            req.output_logprobs.append(float(_token_logprobs(logits, first)[0]))
+        self.slot_request[slot] = req
+        self._slot_next_token[slot] = first_token
+
+    def _admit_dense(self, req: Request, slot: int) -> None:
+        prompt = np.asarray(req.prompt_tokens, np.int64)
+        t = len(prompt)
         self.allocator.allocate(req.request_id, t + req.max_new_tokens)
         pages = np.asarray(self.allocator.page_tables[req.request_id], np.int64)
 
@@ -167,16 +210,57 @@ class DecodeEngine:
                             self._to_device(pages[:n_pages_prompt]),
                             self.page_size)
         self.allocator.seq_lengths[req.request_id] = t
-        temp, top_k, top_p, seeds = batch_params(
-            [req.sampling or GREEDY], device=self.device)
-        first = sample_tokens(logits[:1], temp, top_k, top_p, seeds,
-                              self._to_device(lengths))
-        first_token = int(first[0])
-        req.output_tokens.append(first_token)
-        if req.want_logprobs:
-            req.output_logprobs.append(float(_token_logprobs(logits[:1], first)[0]))
-        self.slot_request[slot] = req
-        self._slot_next_token[slot] = first_token
+        self._first_token(req, slot, logits[:1], t)
+
+    def _admit_chunked(self, req: Request, slot: int) -> None:
+        """Prefill through the multi-token verify step in fixed chunks: one
+        step shape serves every prompt length, with bounded activation
+        memory.  Real tokens sit at the END of each chunk so the kernel's
+        per-row horizon (lengths − (C−1−t)) is exact for a partial chunk;
+        front-pad rows write their K/V to the null page and their outputs
+        are ignored.  With the prefix cache, the cached full pages of the
+        prompt's prefix are shared, not recomputed."""
+        c = self.prefill_chunk
+        prompt = np.asarray(req.prompt_tokens, np.int64)
+        t = len(prompt)
+        sid = req.request_id
+        cached_tokens = 0
+        if self.prefix_cache is not None:
+            shared_pages, cached_tokens = self.prefix_cache.match(req.prompt_tokens)
+            self.prefix_cache.allocate_mixed_with_eviction(
+                sid, shared_pages, t + req.max_new_tokens)
+        else:
+            self.allocator.allocate(sid, t + req.max_new_tokens)
+        table = self.allocator.page_tables[sid]
+        tbl = np.full((1, self.pages_per_seq), self._null_page, np.int32)
+        tbl[0, : len(table)] = table
+        tbl_d = self._to_device(tbl)
+
+        logits = None
+        done = cached_tokens  # cached prefix pages are already filled
+        while done < t:
+            r = min(c, t - done)  # real tokens in this chunk
+            tokens = np.zeros((1, c), np.int64)
+            positions = np.zeros((1, c), np.int64)
+            rows = np.full((1, c), self._null_page, np.int64)
+            offs = np.zeros((1, c), np.int64)
+            pos = np.arange(done, done + r)
+            tokens[0, c - r:] = prompt[done:done + r]
+            positions[0, c - r:] = pos
+            rows[0, c - r:] = np.asarray(table, np.int64)[pos // self.page_size]
+            offs[0, c - r:] = pos % self.page_size
+            lengths = np.asarray([done + r], np.int32)
+            logits, self.pools = self._chunk_prefill(
+                self.params, self.pools, self._to_device(tokens),
+                self._to_device(positions), self._to_device(rows),
+                self._to_device(offs), tbl_d, self._to_device(lengths),
+            )
+            done += r
+
+        self.allocator.seq_lengths[sid] = t
+        if self.prefix_cache is not None:
+            self.prefix_cache.register(req.prompt_tokens, table)
+        self._first_token(req, slot, logits[:1, -1], t)
 
     def _retire(self, req: Request, slot: int) -> None:
         self.allocator.free(req.request_id)

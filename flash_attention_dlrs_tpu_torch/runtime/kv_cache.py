@@ -1,14 +1,23 @@
-"""Host-side page accounting for the paged KV cache, PyTorch port of
-``flash_attention_dlrs_tpu/runtime/kv_cache.py`` (``PageAllocator`` only).
+"""The paged KV cache, PyTorch port of ``flash_attention_dlrs_tpu/runtime/kv_cache.py``.
 
-Plain Python on the host: a free list and per-sequence page tables, touched
-at admission and retirement and once per decode step for the batch's
-bookkeeping.  Every layer's pool is indexed with the same page ids.
+``PageAllocator`` is plain Python on the host: a free list and per-sequence
+page tables, touched at admission and retirement and once per decode step
+for the batch's bookkeeping.  Every layer's pool is indexed with the same
+page ids.  ``PagedKVCache`` holds one layer's device pools (value or int8 /
+fp8 quantized) with an allocator, and writes prompts and decode tokens into
+them in place.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import numpy as np
+import torch
+
+from .._cuda import resolve_device
+from ..models.decoding import KVPools, _write_tokens, write_prompt_kv
 
 
 class PageAllocator:
@@ -136,3 +145,127 @@ class PageAllocator:
             lens[i] = pos + 1
             self.seq_lengths[sid] = pos + 1
         return rows, offs, tbl, positions, lens
+
+
+@dataclasses.dataclass
+class PagedKVCache:
+    """Device page pools + host page accounting for one attention layer.
+    Pools keep ``head_dim`` (the JAX package pads it to 128 lanes for the
+    TPU's page DMA); writes update them in place."""
+
+    k_pages: torch.Tensor  # [Hkv, num_pages, page_size, d] (payload dtype)
+    v_pages: torch.Tensor
+    k_scales: Optional[torch.Tensor]  # [Hkv, num_pages, page_size, 1] fp32
+    v_scales: Optional[torch.Tensor]
+    page_size: int
+    allocator: PageAllocator
+    head_dim: int = 0
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def create(
+        cls,
+        *,
+        num_kv_heads: int,
+        head_dim: int,
+        num_pages: int,
+        page_size: int = 256,
+        dtype=torch.bfloat16,
+        quantized: bool = False,
+        device="cuda",
+    ) -> "PagedKVCache":
+        device = resolve_device(device)
+        shape = (num_kv_heads, num_pages, page_size, head_dim)
+        sshape = (num_kv_heads, num_pages, page_size, 1)
+
+        def scales():
+            return (torch.ones(sshape, dtype=torch.float32, device=device)
+                    if quantized else None)
+
+        return cls(
+            k_pages=torch.zeros(shape, dtype=dtype, device=device),
+            v_pages=torch.zeros(shape, dtype=dtype, device=device),
+            k_scales=scales(),
+            v_scales=scales(),
+            page_size=page_size,
+            allocator=PageAllocator(num_pages, page_size),
+            head_dim=head_dim,
+        )
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scales is not None
+
+    @property
+    def num_pages(self) -> int:
+        return self.k_pages.shape[1]
+
+    def _pools(self) -> KVPools:
+        """The pools as one layer of :class:`..models.decoding.KVPools`, so
+        that the pool format is written and read by that module alone."""
+        if self.quantized:
+            return KVPools((self.k_pages,), (self.v_pages,),
+                           (self.k_scales,), (self.v_scales,))
+        return KVPools((self.k_pages,), (self.v_pages,))
+
+    def kv_for_attention(self):
+        """Views consumable by ops.decode.paged_decode_attention."""
+        return self._pools().layer(0)
+
+    # -- host-side control plane (delegated to the allocator) ----------------
+
+    @property
+    def free_pages(self):
+        return self.allocator.free_pages
+
+    @property
+    def page_tables(self):
+        return self.allocator.page_tables
+
+    @property
+    def seq_lengths(self):
+        return self.allocator.seq_lengths
+
+    def allocate(self, seq_id, num_tokens: int) -> None:
+        self.allocator.allocate(seq_id, num_tokens)
+
+    def ensure_capacity(self, seq_id, new_len: int) -> None:
+        self.allocator.ensure_capacity(seq_id, new_len)
+
+    def free(self, seq_id) -> None:
+        self.allocator.free(seq_id)
+
+    def page_indices_for(self, seq_ids, pages_per_seq: int) -> np.ndarray:
+        return self.allocator.page_indices_for(seq_ids, pages_per_seq)
+
+    def lengths_for(self, seq_ids) -> np.ndarray:
+        return self.allocator.lengths_for(seq_ids)
+
+    # -- device-side data plane ---------------------------------------------
+
+    @torch.inference_mode()
+    def write_prompt(self, seq_id, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write a full prompt's K/V ([Hkv, T, d]) into the sequence's pages."""
+        t = k.shape[1]
+        self.ensure_capacity(seq_id, t)
+        n_pages = -(-t // self.page_size)
+        pages = torch.tensor(self.page_tables[seq_id][:n_pages],
+                             device=self.k_pages.device)
+        write_prompt_kv(self._pools(), 0, (k, v), pages, self.page_size)
+        self.seq_lengths[seq_id] = t
+
+    @torch.inference_mode()
+    def append_tokens(self, seq_ids, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """Append one token per sequence: k_new/v_new [B, Hkv, d]."""
+        rows, slots = [], []
+        for sid in seq_ids:
+            pos = self.seq_lengths[sid]
+            self.ensure_capacity(sid, pos + 1)
+            rows.append(self.page_tables[sid][pos // self.page_size])
+            slots.append(pos % self.page_size)
+            self.seq_lengths[sid] = pos + 1
+        dev = self.k_pages.device
+        _write_tokens(self._pools(), 0, torch.tensor(rows, device=dev)[:, None],
+                      torch.tensor(slots, device=dev)[:, None],
+                      k_new.transpose(0, 1)[:, :, None], v_new.transpose(0, 1)[:, :, None])

@@ -62,8 +62,9 @@ def jax_runs(jparams):
 
 
 def _port(model, **kw):
+    kw.setdefault("kv_dtype", torch.float32)
     return TEngine(model, TCFG, num_pages=32, page_size=128, pages_per_seq=4,
-                   kv_dtype=torch.float32, device="cpu", **kw)
+                   device="cpu", **kw)
 
 
 def test_greedy_tokens_identical_to_jax(model, jax_runs):
@@ -210,13 +211,23 @@ def test_stats_have_the_jax_keys(jparams, model):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(prefill_chunk=16), dict(streaming_window=128),
-    dict(enable_prefix_cache=True), dict(mesh=object()),
-    dict(quantized_kv=True),
+    dict(streaming_window=128), dict(attention_sinks=128), dict(mesh=object()),
+    dict(quantized_kv=True, kv_dtype=torch.int8, call="generate_speculative"),
+    dict(prefill_chunk=16, enable_prefix_cache=True,
+         call="generate_speculative_fused"),
 ])
 def test_unported_engine_options_raise(model, kwargs):
+    """Unported options raise at construction; with ``call``, the options
+    are ported and the unported speculative entry point raises."""
+    kwargs = dict(kwargs)
+    call = kwargs.pop("call", None)
+    if call is None:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _port(model, num_slots=1, **kwargs)
+        return
+    eng = _port(model, num_slots=1, **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port(model, num_slots=1, **kwargs)
+        getattr(eng, call)(PROMPTS)
 
 
 def test_unported_engine_modes_raise(model):
@@ -227,5 +238,7 @@ def test_unported_engine_modes_raise(model):
         eng.step_burst(4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.generate(PROMPTS, burst=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.generate_fused(PROMPTS)
     with pytest.raises(ValueError, match="pages_per_seq"):
         eng.generate([list(range(600))], max_new_tokens=1)

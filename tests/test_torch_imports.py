@@ -99,10 +99,11 @@ def test_kernel_launch_without_a_toolchain_raises():
 def test_library_names_follow_the_source_hash():
     from flash_attention_dlrs_tpu_torch import _cuda
 
-    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_fwd.cu", "paged_decode.cu"]
+    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_fwd.cu", "paged_decode.cu",
+                                   "paged_verify.cu"]
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 3
+    assert len({p.name for p in paths}) == 4
 
 
 def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):

@@ -193,5 +193,19 @@ def test_model_config_refuses_unported_variants(field, value):
 
 
 def test_quantized_pools_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Quantized pools are ported now: int8 / int4 / fp8 pools have the JAX
+    package's shapes (without its 128-lane head_dim padding) and scales of
+    1, and a value dtype with ``quantized=True`` is refused as it cannot be
+    quantized to."""
+    for jd, td in ((jnp.int8, torch.int8), ("int4", "int4"),
+                   (jnp.float8_e4m3fn, torch.float8_e4m3fn)):
+        want = jdecoding.init_kv_pools(JCFG, num_pages=2, page_size=16, dtype=jd,
+                                       quantized=True)
+        got = tdecoding.init_kv_pools(TCFG, num_pages=2, page_size=16, dtype=td,
+                                      quantized=True, device="cpu")
+        assert got.quantized and got.int4 == want.int4
+        assert got.k[0].shape[:3] == want.k[0].shape[:3]
+        assert got.k_scales[0].shape == want.k_scales[0].shape
+        assert (got.v_scales[-1] == 1).all() and (got.k[0] == 0).all()
+    with pytest.raises(ValueError, match="quantized"):
         tdecoding.init_kv_pools(TCFG, num_pages=2, quantized=True, device="cpu")
