@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port (flash_attention_dlrs_tpu_torch) on one NVIDIA card.
 
 Builds the port's CUDA kernels from csrc/ with nvcc and holds each kernel
-against its plain PyTorch version on the card (the backward kernels also
-against themselves, bit for bit).  Then drives both paths of the port:
+(and each ALiBi / dropout mode) against its plain PyTorch version on the
+card (the backward kernels also against themselves, bit for bit), and reads
+the forward kernel's dropout mask back against the plain mask.  Then drives
+both paths of the port:
 
 - serving: 8 requests through DecodeEngine at the full width of the repo's
   serving-bench model (scripts/bench_serving.py defaults: 16 layers,
@@ -14,11 +16,16 @@ against themselves, bit for bit).  Then drives both paths of the port:
   from int4 / e4m3 / e5m2 / bf16 KV at 8 slots x 16, 2048-token prompts;
 - chunked serving (serve_chunked): bf16 and int8 KV with prefill_chunk=256
   and the prefix cache, 8 requests sharing a 1024-token system prompt;
+- ALiBi serving (serve_alibi): the serving model with
+  position_encoding="alibi", bf16 KV at 4 slots x 32 new tokens, int8 KV at
+  8 x 16, and bf16 KV with prefill_chunk=256 and the prefix cache;
 - training: make_train_state / make_train_step on the repo's training-bench
   model (scripts/bench_train.py:68-74: the b7 widths, d_model 4096, 32 q /
   8 kv heads, head_dim 128, d_ff 11008, vocab 32000, 8 layers, bf16, block
   remat) at batch 8, sequence 2048, for 2 warm and 4 timed steps plus a
   profiled and a recorded one;
+- ALiBi training (train_alibi): the same model with
+  position_encoding="alibi" and attn_dropout=0.1, step i seeded with i;
 
 checks that each path went through its kernels (launch counts set to 0
 just before the path and read just after), and times each kernel beside its
@@ -174,28 +181,50 @@ def fwd_errors(got, want, dtype):
     return rec, ok
 
 
+def mods(hq, alibi=False, rate=0.0, seed=0):
+    """The kernels' ALiBi and dropout keyword arguments: the standard slopes
+    of ``hq`` heads when ``alibi``, dropout at ``rate`` with ``seed``."""
+    from flash_attention_dlrs_tpu_torch.ops.reference import alibi_slopes_for
+
+    return dict(alibi_slopes=alibi_slopes_for(hq) if alibi else None,
+                dropout_rate=rate, dropout_seed=seed)
+
+
 def phase_fwd(dev):
     import torch
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
 
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    alibi, drop, both = dict(alibi=True), dict(rate=0.1, seed=7), dict(alibi=True, rate=0.1,
+                                                                       seed=-5)
     cases = [
-        # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap
-        ("serve_prefill_2048", bf16, 1, 16, 8, 2048, 2048, 128, True, 0, 0.0),
-        ("train_B8_H32_N2048", bf16, 8, 32, 8, 2048, 2048, 128, True, 0, 0.0),
-        ("noncausal_tail", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0),
-        ("window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0),
-        ("fp32_256", f32, 2, 4, 2, 256, 256, 64, True, 0, 0.0),
-        ("fp16_bottom_right", f16, 1, 4, 1, 100, 700, 64, True, 0, 0.0),
-        ("bf16_empty_rows", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0),
+        # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, mods
+        ("serve_prefill_2048", bf16, 1, 16, 8, 2048, 2048, 128, True, 0, 0.0, {}),
+        ("train_B8_H32_N2048", bf16, 8, 32, 8, 2048, 2048, 128, True, 0, 0.0, {}),
+        ("noncausal_tail", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, {}),
+        ("window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, {}),
+        ("fp32_256", f32, 2, 4, 2, 256, 256, 64, True, 0, 0.0, {}),
+        ("fp16_bottom_right", f16, 1, 4, 1, 100, 700, 64, True, 0, 0.0, {}),
+        ("bf16_empty_rows", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, {}),
+        ("alibi_serve_prefill_2048", bf16, 1, 16, 8, 2048, 2048, 128, True, 0, 0.0, alibi),
+        ("alibi_fp32_gqa_tails", f32, 2, 8, 2, 300, 300, 128, True, 0, 0.0, alibi),
+        ("alibi_fp32_cross", f32, 1, 4, 2, 100, 700, 64, True, 0, 0.0, alibi),
+        ("alibi_bf16_cross_tails", bf16, 2, 4, 1, 333, 1000, 64, True, 0, 0.0, alibi),
+        ("alibi_fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, alibi),
+        ("alibi_window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, alibi),
+        ("dropout_fp32", f32, 2, 4, 2, 256, 256, 64, True, 0, 0.0, drop),
+        ("dropout_bf16", bf16, 2, 8, 2, 1024, 1024, 128, True, 0, 0.0, drop),
+        ("alibi_dropout_train_B8_H32_N2048", bf16, 8, 32, 8, 2048, 2048, 128, True, 0,
+         0.0, both),
     ]
     results = {}
-    for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap in cases:
+    for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod in cases:
         q = _rand(gen, (b, hq, nq, d), dt, dev)
         k = _rand(gen, (b, hkv, nkv, d), dt, dev)
         v = _rand(gen, (b, hkv, nkv, d), dt, dev)
-        kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap)
+        kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
+                  **mods(hq, **mod))
         got = attn_fwd(q, k, v, **kw)
         want = attn_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -204,13 +233,56 @@ def phase_fwd(dev):
         results[name] = rec
         emit({"phase": "fwd_check", "case": name, "dtype": str(dt),
               "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
-              "window": window, "softcap": cap, **rec})
+              "window": window, "softcap": cap, "alibi": bool(mod.get("alibi")),
+              "dropout_rate": mod.get("rate", 0.0), **rec})
         del q, k, v, got, want
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"forward kernel disagrees with its plain version: {bad}")
     return results
+
+
+def phase_mask(dev):
+    """The forward kernel's dropout mask read back directly: Nkv = d = 128,
+    V = I and one q row per key, non-causal, so O = diag(1/l)·(P∘M) with
+    every P > 0, and O is 0 exactly where the mask drops.  The zero pattern
+    of O must equal ops/fwd_kernel.py dropout_keep_mask (the plain mask) at
+    every element, in fp32 and bf16; the kept share must lie within 3σ of
+    1 − rate."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, dropout_keep_mask
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    b, hq, hkv, n, rate, seed = 4, 8, 2, 128, 0.1, 1299709 * 3
+    rows = torch.arange(n, device=dev)
+    want_drop = dropout_keep_mask(seed, torch.arange(b, device=dev)[:, None, None, None],
+                                  torch.arange(hq, device=dev)[None, :, None, None],
+                                  rows[None, None, :, None], rows[None, None, None, :],
+                                  rate) == 0
+    checks, rec = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        q = _rand(gen, (b, hq, n, n), dt, dev)
+        k = _rand(gen, (b, hkv, n, n), dt, dev)
+        v = torch.eye(n, device=dev, dtype=dt).expand(b, hkv, n, n).contiguous()
+        o, _ = attn_fwd(q, k, v, causal=False, sm_scale=n ** -0.5, dropout_rate=rate,
+                        dropout_seed=seed)
+        torch.cuda.synchronize()
+        got_drop = o == 0
+        mismatches = int((got_drop != want_drop).sum())
+        kept = 1.0 - float(got_drop.float().mean())
+        sigma = (rate * (1 - rate) / got_drop.numel()) ** 0.5
+        name = str(dt).split(".")[-1]
+        rec[name] = {"mismatches": mismatches, "elements": got_drop.numel(),
+                     "kept_share": kept, "sigma": sigma}
+        checks[f"{name}_zero_pattern_equals_mask"] = mismatches == 0
+        checks[f"{name}_keep_rate_within_3_sigma"] = abs(kept - (1 - rate)) <= 3 * sigma
+    emit({"phase": "mask_check", "rate": rate, "seed": seed,
+          "shape": [b, hq, hkv, n, n, n], **rec, "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"dropout mask check failed: {failed}")
+    return rec
 
 
 # The reference's fp32 gradient ladder (tests/test_backward.py:25).
@@ -257,29 +329,41 @@ def phase_bwd(dev):
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    alibi, drop, both = dict(alibi=True), dict(rate=0.1, seed=11), dict(alibi=True, rate=0.1,
+                                                                        seed=2 ** 31 - 1)
     cases = [
-        # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, sm_scale
-        ("train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None),
-        ("fp32_golden_causal", f32, 2, 2, 2, 256, 256, 128, True, 0, 0.0, 1.0),
-        ("fp32_golden_noncausal", f32, 2, 2, 2, 256, 256, 128, False, 0, 0.0, 1.0),
+        # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, sm_scale, mods
+        ("train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None, {}),
+        ("fp32_golden_causal", f32, 2, 2, 2, 256, 256, 128, True, 0, 0.0, 1.0, {}),
+        ("fp32_golden_noncausal", f32, 2, 2, 2, 256, 256, 128, False, 0, 0.0, 1.0, {}),
         # fp32 twins of the masked bf16 cases: the fp32 kernels share the
         # tile ranges and masks, and the fp32 ladder sees a one-key slip
-        ("fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0),
-        ("fp32_cross_empty_rows", f32, 1, 4, 2, 300, 200, 128, True, 0, 0.0, 1.0),
-        ("window256_softcap30", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None),
-        ("noncausal_cross_300_1000", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None),
-        ("empty_rows_300_200", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, None),
-        ("fp16_mqa_bottom_right", f16, 1, 4, 1, 100, 700, 64, True, 0, 0.0, None),
-        ("causal_N16384", bf16, 1, 2, 2, 16384, 16384, 128, True, 0, 0.0, None),
+        ("fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0, {}),
+        ("fp32_cross_empty_rows", f32, 1, 4, 2, 300, 200, 128, True, 0, 0.0, 1.0, {}),
+        ("window256_softcap30", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None, {}),
+        ("noncausal_cross_300_1000", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None, {}),
+        ("empty_rows_300_200", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, None, {}),
+        ("fp16_mqa_bottom_right", f16, 1, 4, 1, 100, 700, 64, True, 0, 0.0, None, {}),
+        ("causal_N16384", bf16, 1, 2, 2, 16384, 16384, 128, True, 0, 0.0, None, {}),
+        ("alibi_train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None,
+         alibi),
+        ("dropout_bf16", bf16, 1, 8, 2, 1024, 1024, 128, True, 0, 0.0, None, drop),
+        ("alibi_dropout_train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0,
+         None, both),
+        ("fp32_alibi_dropout_gqa", f32, 2, 4, 2, 256, 256, 128, True, 0, 0.0, 1.0, both),
+        ("fp32_alibi_cross_window_softcap", f32, 1, 4, 2, 300, 500, 64, True, 100, 25.0,
+         1.0, alibi),
+        ("fp32_dropout_noncausal_tail", f32, 1, 4, 1, 100, 300, 64, False, 0, 0.0, 1.0,
+         drop),
     ]
     results = {}
-    for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, scale in cases:
+    for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, scale, mod in cases:
         q = _rand(gen, (b, hq, nq, d), dt, dev)
         k = _rand(gen, (b, hkv, nkv, d), dt, dev)
         v = _rand(gen, (b, hkv, nkv, d), dt, dev)
         do = _rand(gen, (b, hq, nq, d), dt, dev)
         kw = dict(causal=causal, sm_scale=d ** -0.5 if scale is None else scale,
-                  window=window, softcap=cap)
+                  window=window, softcap=cap, **mods(hq, **mod))
         o, lse = attn_fwd(q, k, v, **kw)
         got = attn_bwd(q, k, v, o, lse, do, **kw)
         again = attn_bwd(q, k, v, o, lse, do, **kw)
@@ -291,7 +375,9 @@ def phase_bwd(dev):
         results[name] = rec
         emit({"phase": "bwd_check", "case": name, "dtype": str(dt),
               "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
-              "window": window, "softcap": cap, "sm_scale": kw["sm_scale"], **rec})
+              "window": window, "softcap": cap, "sm_scale": kw["sm_scale"],
+              "alibi": bool(mod.get("alibi")), "dropout_rate": mod.get("rate", 0.0),
+              **rec})
         del q, k, v, do, o, lse, got, again, want
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
@@ -304,7 +390,8 @@ def kv_kind(name):
     """The port's KV dtype argument for a kind name."""
     import torch
 
-    return {"bf16": torch.bfloat16, "fp32": torch.float32, "int8": torch.int8,
+    return {"bf16": torch.bfloat16, "fp32": torch.float32, "fp16": torch.float16,
+            "int8": torch.int8,
             "int4": "int4", "e4m3": torch.float8_e4m3fn,
             "e5m2": torch.float8_e5m2}[name]
 
@@ -401,31 +488,43 @@ def phase_decode(dev):
     )
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     serve = (8, 16, 8, 128, 128, 17, DECODE_B8_LENGTHS)
+    small = (3, 8, 2, 64, 64, 8, [0, 300, 512])
     cases = [
-        # name, q dtype, kv kind, (B, Hq, Hkv, d, page, pps, lengths), softcap, T
-        ("serve_decode", bf16, "bf16", (4, 16, 8, 128, 128, 16, [2048, 1300, 777, 200]), 0.0, 0),
-        ("ragged_empty_softcap", bf16, "bf16", (4, 16, 8, 128, 128, 16, [0, 1, 129, 2047]), 30.0, 0),
-        ("fp32_d64", f32, "fp32", (3, 8, 2, 64, 64, 8, [5, 300, 512]), 0.0, 0),
-        *[(f"{k}_B8", bf16, k, serve, 0.0, 0) for k in QUANT_KINDS],
-        ("int8_B8_softcap", bf16, "int8", serve, 30.0, 0),
-        ("fp32_int4_d64", f32, "int4", (3, 8, 2, 64, 64, 8, [0, 300, 512]), 0.0, 0),
-        ("verify_T4_bf16", bf16, "bf16", serve, 0.0, 4),
-        ("verify_T4_int8", bf16, "int8", serve, 0.0, 4),
-        ("verify_T256_bf16", bf16, "bf16", serve, 0.0, 256),
-        ("verify_T256_int8", bf16, "int8", serve, 0.0, 256),
-        ("verify_T4_int4_softcap", bf16, "int4", serve, 30.0, 4),
-        ("verify_T4_e4m3", bf16, "e4m3", serve, 0.0, 4),
-        ("verify_fp32_int8_d64", f32, "int8", (3, 8, 2, 64, 64, 8, [3, 300, 512]), 0.0, 5),
-        ("verify_fp32_values_T32", f32, "fp32", (2, 16, 8, 128, 128, 17, [40, 2100]), 0.0, 32),
+        # name, q dtype, kv kind, (B, Hq, Hkv, d, page, pps, lengths), softcap, T, ALiBi
+        ("serve_decode", bf16, "bf16", (4, 16, 8, 128, 128, 16, [2048, 1300, 777, 200]), 0.0, 0, False),
+        ("ragged_empty_softcap", bf16, "bf16", (4, 16, 8, 128, 128, 16, [0, 1, 129, 2047]), 30.0, 0, False),
+        ("fp32_d64", f32, "fp32", (3, 8, 2, 64, 64, 8, [5, 300, 512]), 0.0, 0, False),
+        *[(f"{k}_B8", bf16, k, serve, 0.0, 0, False) for k in QUANT_KINDS],
+        ("int8_B8_softcap", bf16, "int8", serve, 30.0, 0, False),
+        ("fp32_int4_d64", f32, "int4", (3, 8, 2, 64, 64, 8, [0, 300, 512]), 0.0, 0, False),
+        ("verify_T4_bf16", bf16, "bf16", serve, 0.0, 4, False),
+        ("verify_T4_int8", bf16, "int8", serve, 0.0, 4, False),
+        ("verify_T256_bf16", bf16, "bf16", serve, 0.0, 256, False),
+        ("verify_T256_int8", bf16, "int8", serve, 0.0, 256, False),
+        ("verify_T4_int4_softcap", bf16, "int4", serve, 30.0, 4, False),
+        ("verify_T4_e4m3", bf16, "e4m3", serve, 0.0, 4, False),
+        ("verify_fp32_int8_d64", f32, "int8", (3, 8, 2, 64, 64, 8, [3, 300, 512]), 0.0, 5, False),
+        ("verify_fp32_values_T32", f32, "fp32", (2, 16, 8, 128, 128, 17, [40, 2100]), 0.0, 32, False),
+        # ALiBi on all seven pool kinds, and verify with ALiBi
+        *[(f"alibi_{k}_B8", bf16, k, serve, 0.0, 0, True) for k in ("bf16",) + QUANT_KINDS],
+        ("alibi_fp32_d64", f32, "fp32", small, 0.0, 0, True),
+        ("alibi_fp16_softcap_d64", f16, "fp16", small, 30.0, 0, True),
+        ("alibi_fp32_int8_d64", f32, "int8", small, 0.0, 0, True),
+        ("alibi_verify_T4_bf16", bf16, "bf16", serve, 0.0, 4, True),
+        ("alibi_verify_T4_int8", bf16, "int8", serve, 0.0, 4, True),
+        ("alibi_verify_T256_bf16", bf16, "bf16", serve, 0.0, 256, True),
+        ("alibi_verify_T256_int8", bf16, "int8", serve, 0.0, 256, True),
+        ("alibi_verify_fp32_int4_d64", f32, "int4", small, 0.0, 5, True),
     ]
     results = {}
-    for name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new in cases:
+    for name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi in cases:
         q, kp, vp, lens, table = _paged_inputs(
             gen, dev, dt, kind, b, hq, hkv, d, ps, pps, lengths,
             num_pages=b * pps + 8, t_new=t_new)
-        kw = dict(logit_softcap=cap, sm_scale=d ** -0.5)
+        kw = dict(logit_softcap=cap, sm_scale=d ** -0.5,
+                  alibi_slopes=mods(hq, alibi)["alibi_slopes"])
         if t_new:
             got = (paged_verify_attention(q, kp, vp, lens, table, **kw), None)
             want = (paged_verify_plain(q, kp, vp, lens, table, **kw), None)
@@ -440,7 +539,7 @@ def phase_decode(dev):
         emit({"phase": "decode_check", "case": name, "kernel":
               "paged_verify" if t_new else "paged_decode", "q_dtype": str(dt),
               "kv": kind, "tokens": t_new or 1, "shape": [b, hq, hkv, d, ps, pps],
-              "lengths": lengths, "softcap": cap, **results[name]})
+              "lengths": lengths, "softcap": cap, "alibi": alibi, **results[name]})
         del q, kp, vp, got, want
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
@@ -457,17 +556,21 @@ SERVE_NEW_TOKENS = 32
 # Limits of the prefill-logit checks, as multiples of the logits' std.  In
 # bf16 the 16 random layers amplify rounding: the plain path with its q·k
 # sums merely reversed moved the logits by 0.061 x std, and the kernel path
-# read 0.050 (fp32 P) and 0.068 (bf16 P) x std on H100 runs.  The bf16
-# limit sits above that noise; the fp32 limit, where the kernel computes in
-# true fp32, is what separates a right kernel from a wrong one.
-BF16_LOGIT_LIMIT = 0.1
+# read 0.050 (fp32 P) and 0.068 (bf16 P) x std on H100 runs (RoPE model).
+# The ALiBi model's logits are more sensitive: reversed sums moved them by
+# 0.079 x std and the kernel path read 0.112 x std.  Each bf16 limit sits
+# above its model's noise (the run reports the reversed-sum gap beside
+# it); the fp32 limit, where the kernel computes in true fp32, is what
+# separates a right kernel from a wrong one.
+BF16_LOGIT_LIMIT = {"rope": 0.1, "alibi": 0.15}
 FP32_LOGIT_LIMIT = 1e-3
 
 
 def _prefill_paths(cfg, model, toks, lens):
-    """Last-token logits of one prefill through the kernel path and through
-    the plain path, and the attention inputs of every layer on the kernel
-    path."""
+    """Last-token logits of one prefill through the kernel path, through the
+    plain path, and through the plain path with q and k reversed along
+    head_dim (the same function, its q·k sums in another order: the noise
+    floor), and the attention inputs of every layer on the kernel path."""
     from flash_attention_dlrs_tpu_torch.models import decoding, make_prefill
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
 
@@ -475,30 +578,39 @@ def _prefill_paths(cfg, model, toks, lens):
     kernel_attention = decoding.flash_attention
     inputs = []
 
-    def recording(q, k, v, *, causal, sm_scale=None):
-        inputs.append((q, k, v, causal, sm_scale))
-        return kernel_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    def recording(q, k, v, *, causal, sm_scale=None, alibi_slopes=None):
+        inputs.append((q, k, v, causal, sm_scale, alibi_slopes))
+        return kernel_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                                alibi_slopes=alibi_slopes)
 
-    def plain(q, k, v, *, causal, sm_scale=None):
+    def plain(q, k, v, *, causal, sm_scale=None, alibi_slopes=None):
         scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-        return attn_fwd_plain(q, k, v, causal=causal, sm_scale=scale)[0]
+        return attn_fwd_plain(q, k, v, causal=causal, sm_scale=scale,
+                              alibi_slopes=alibi_slopes)[0]
+
+    def reordered(q, k, v, **kw):
+        return plain(q.flip(-1), k.flip(-1), v, **kw)
 
     try:
         decoding.flash_attention = recording
         logits_k, _ = prefill(model, toks, lens)
         decoding.flash_attention = plain
         logits_p, _ = prefill(model, toks, lens)
+        decoding.flash_attention = reordered
+        logits_r, _ = prefill(model, toks, lens)
     finally:
         decoding.flash_attention = kernel_attention
-    return logits_k, logits_p, inputs
+    return logits_k, logits_p, logits_r, inputs
 
 
 def check_prefill(model, cfg, dev, prompt):
     """One prompt's prefill, kernel path against plain path, three ways:
-    the bf16 model's logits (within BF16_LOGIT_LIMIT x std); every layer's
+    the bf16 model's logits (within BF16_LOGIT_LIMIT x std, the reordered
+    plain path's gap reported beside it); every layer's
     attention on the bf16 kernel path's own inputs, at the kernel's
-    tolerances (O atol 2e-2, lse atol 1e-3); and the same model in fp32,
-    whose kernel path computes in true fp32 (within FP32_LOGIT_LIMIT x std)."""
+    tolerances (fwd_errors: O within max(2e-2, eps x |O|), lse atol 1e-3);
+    and the same model in fp32, whose kernel path computes in true fp32
+    (within FP32_LOGIT_LIMIT x std)."""
     import copy
     import dataclasses
 
@@ -511,20 +623,24 @@ def check_prefill(model, cfg, dev, prompt):
     toks[0, :t] = torch.tensor(prompt, device=dev)
     lens = torch.tensor([t], dtype=torch.int32, device=dev)
 
-    logits_k, logits_p, inputs = _prefill_paths(cfg, model, toks, lens)
+    logits_k, logits_p, logits_r, inputs = _prefill_paths(cfg, model, toks, lens)
     diff, std = float((logits_k - logits_p).abs().max()), float(logits_p.std())
+    floor = float((logits_r - logits_p).abs().max()) / std
+    limit = BF16_LOGIT_LIMIT[cfg.position_encoding]
 
-    err_o, err_l = [], []
-    for q, k, v, causal, sm_scale in inputs:
-        scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-        o, lse = attn_fwd(q, k, v, causal=causal, sm_scale=scale)
-        o_ref, lse_ref = attn_fwd_plain(q, k, v, causal=causal, sm_scale=scale)
-        err_o.append(float((o.float() - o_ref.float()).abs().max()))
-        err_l.append(float((lse - lse_ref).abs().max()))
+    err_o, err_l, layers_ok = [], [], True
+    for q, k, v, causal, sm_scale, slopes in inputs:
+        kw = dict(causal=causal, sm_scale=q.shape[-1] ** -0.5 if sm_scale is None
+                  else sm_scale, alibi_slopes=slopes)
+        rec, ok = fwd_errors(attn_fwd(q, k, v, **kw), attn_fwd_plain(q, k, v, **kw),
+                             q.dtype)
+        layers_ok &= ok
+        err_o.append(rec["max_abs_err_o"])
+        err_l.append(rec["max_abs_err_lse"])
 
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     model32 = copy.deepcopy(model).float()
-    logits_k32, logits_p32, _ = _prefill_paths(cfg32, model32, toks, lens)
+    logits_k32, logits_p32, _, _ = _prefill_paths(cfg32, model32, toks, lens)
     diff32, std32 = (float((logits_k32 - logits_p32).abs().max()),
                      float(logits_p32.std()))
     del model32
@@ -534,16 +650,16 @@ def check_prefill(model, cfg, dev, prompt):
     return {
         "prefill_check_prompt_len": t,
         "prefill_logit_diff_over_std_bf16": diff / std,
+        "prefill_logit_reordered_plain_over_std_bf16": floor,
+        "prefill_logit_limit_over_std_bf16": limit,
         "prefill_logit_diff_over_std_fp32": diff32 / std32,
         "prefill_attention_layers_checked": len(inputs),
         "prefill_attention_max_abs_err_o": max(err_o),
         "prefill_attention_max_abs_err_lse": max(err_l),
         "checks": {
-            "prefill_logits_bf16_kernel_vs_plain":
-                diff <= BF16_LOGIT_LIMIT * std and finite,
+            "prefill_logits_bf16_kernel_vs_plain": diff <= limit * std and finite,
             "prefill_attention_every_layer_kernel_vs_plain":
-                len(inputs) == cfg.n_layers
-                and max(err_o) <= 2e-2 and max(err_l) <= 1e-3,
+                len(inputs) == cfg.n_layers and layers_ok,
             "prefill_logits_fp32_kernel_vs_plain":
                 diff32 <= FP32_LOGIT_LIMIT * std32 and finite,
         },
@@ -575,19 +691,8 @@ def phase_serve(dev):
 
     prefill_ms, decode_ms = [], []
     orig_prefill, orig_decode = engine._prefill, engine._decode_step
-
-    def timed(fn, sink):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            sink.append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
-    engine._prefill = timed(orig_prefill, prefill_ms)
-    engine._decode_step = timed(orig_decode, decode_ms)
+    engine._prefill = _timed(orig_prefill, prefill_ms)
+    engine._decode_step = _timed(orig_decode, decode_ms)
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
@@ -790,18 +895,17 @@ def check_layers(calls, verify):
     worst, ok = {"max_abs_err_o": 0.0, "max_abs_err_lse": 0.0,
                  "worst_err_over_limit": 0.0}, True
     for (q, k, v, lens, tbl), kw in calls:
-        scale = kw["sm_scale"] or q.shape[-1] ** -0.5
+        kw = dict(sm_scale=kw["sm_scale"] or q.shape[-1] ** -0.5,
+                  alibi_slopes=kw.get("alibi_slopes"))
         if verify:
-            got = (paged_verify_attention(q, k, v, lens, tbl, sm_scale=scale), None)
-            want = (paged_verify_plain(q, k, v, lens, tbl, sm_scale=scale), None)
-            spread = paged_verify_plain(q, *abs_v_pools(k, v), lens, tbl, sm_scale=scale)
+            got = (paged_verify_attention(q, k, v, lens, tbl, **kw), None)
+            want = (paged_verify_plain(q, k, v, lens, tbl, **kw), None)
+            spread = paged_verify_plain(q, *abs_v_pools(k, v), lens, tbl, **kw)
         else:
-            got = paged_decode_attention(q, k, v, lens, tbl, sm_scale=scale,
-                                         return_lse=True)
-            want = paged_decode_plain(q, k, v, lens, tbl, sm_scale=scale,
-                                      return_lse=True)
+            got = paged_decode_attention(q, k, v, lens, tbl, return_lse=True, **kw)
+            want = paged_decode_plain(q, k, v, lens, tbl, return_lse=True, **kw)
             spread = (None if torch.is_tensor(v) else paged_decode_plain(
-                q, *abs_v_pools(k, v), lens, tbl, sm_scale=scale))
+                q, *abs_v_pools(k, v), lens, tbl, **kw))
         rec = paged_errors(got, want, q.dtype, spread)
         ok &= rec["ok"]
         for key in worst:
@@ -809,19 +913,56 @@ def check_layers(calls, verify):
     return {"layers_checked": len(calls), **worst, "ok": ok}
 
 
-def check_decode_fp32(dev, prompt, kinds):
-    """The serving model at 2 layers in fp32: one prompt's first decode step
-    from each KV kind, through the kernel and through the plain version
-    (swapped into models/decoding.py), on pools filled alike by the dense
-    prefill.  The fp32 kernels compute in true fp32, so the logits must
-    agree to summation order: diff / std <= FP32_LOGIT_LIMIT."""
+def _serve_run(engine, prompts, new_tokens, record):
+    """One ``engine.generate(prompts)``: the launch counts of the forward
+    and paged kernels zeroed just before and read just after, the
+    device-synchronized ms of every admission and decode step, the number
+    of prefill chunks, and the calls of ``record`` (a paged attention
+    function of models/decoding.py) of the last decode step, or of the last
+    chunk when ``record`` is the verify function."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL, VERIFY_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+
+    admit_ms, decode_ms, chunks = [], [], []
+    admit = "_admit_chunked" if engine.prefill_chunk else "_admit_dense"
+    setattr(engine, admit, _timed(getattr(engine, admit), admit_ms))
+    with _Recorder(record) as rec:
+        decode_step = _timed(engine._decode_step, decode_ms)
+        if record == "paged_verify_attention":
+            chunk_step = rec.step(engine._chunk_prefill)
+            engine._chunk_prefill = lambda *a: chunks.append(1) or chunk_step(*a)
+        else:
+            decode_step = rec.step(decode_step)
+        engine._decode_step = decode_step
+        steps_before = engine.scheduler.stats.steps
+        FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = engine.generate(prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches,
+                    "paged_verify": VERIFY_KERNEL.launches}
+    return {"outs": outs, "launches": launches, "wall": wall, "admit_ms": admit_ms,
+            "decode_ms": decode_ms, "chunks": len(chunks), "calls": rec.calls,
+            "steps": engine.scheduler.stats.steps - steps_before}
+
+
+def check_decode_fp32(dev, prompt, kinds, **variant):
+    """The serving model (with the config fields ``variant``) at 2 layers
+    in fp32: one prompt's first decode step from each KV kind, through the
+    kernel and through the plain version (swapped into models/decoding.py),
+    on pools filled alike by the dense prefill.  The fp32 kernels compute in
+    true fp32, so the logits must agree to summation order: diff / std <=
+    FP32_LOGIT_LIMIT."""
     import torch
     from flash_attention_dlrs_tpu_torch.models import (
         ModelConfig, decoding, init_params_numpy, params_from_jax,
     )
     from flash_attention_dlrs_tpu_torch.ops.decode import paged_decode_plain
 
-    cfg = ModelConfig(**{**SERVE_CFG, "n_layers": 2}, dtype=torch.float32)
+    cfg = ModelConfig(**{**SERVE_CFG, "n_layers": 2, **variant}, dtype=torch.float32)
     model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
     t = len(prompt)
     toks = torch.zeros((1, 1 << (t - 1).bit_length()), dtype=torch.long, device=dev)
@@ -843,8 +984,9 @@ def check_decode_fp32(dev, prompt, kinds):
                                      SERVE_PAGE)
         return step(model, pools, *args)[0]
 
-    def plain(q, k, v, lens, tbl, *, sm_scale):
-        return paged_decode_plain(q, k, v, lens, tbl, sm_scale=sm_scale)
+    def plain(q, k, v, lens, tbl, *, sm_scale, alibi_slopes=None):
+        return paged_decode_plain(q, k, v, lens, tbl, sm_scale=sm_scale,
+                                  alibi_slopes=alibi_slopes)
 
     gaps = {}
     for kind in kinds:
@@ -868,8 +1010,6 @@ def phase_serve_quant(dev, model, cfg):
     against plain on the engine's own pools; a 2-layer fp32 copy's first
     decode step through kernels and plain versions."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
     runs, checks = {}, {}
@@ -882,27 +1022,16 @@ def phase_serve_quant(dev, model, cfg):
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, cfg.vocab_size, SERVE_QUANT_PROMPT).tolist()
                    for _ in range(slots)]
-        prefill_ms, decode_ms = [], []
-        engine._prefill = _timed(engine._prefill, prefill_ms)
-        with _Recorder("paged_decode_attention") as rec:
-            engine._decode_step = rec.step(_timed(engine._decode_step, decode_ms))
-            steps_before = engine.scheduler.stats.steps
-            FWD_KERNEL.launches = DECODE_KERNEL.launches = 0
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            outs = engine.generate(prompts, max_new_tokens=new_tokens)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            launches = {"attn_fwd": FWD_KERNEL.launches,
-                        "paged_decode": DECODE_KERNEL.launches}
-        steps = engine.scheduler.stats.steps - steps_before
-        layers = check_layers(rec.calls, verify=False)
+        r = _serve_run(engine, prompts, new_tokens, "paged_decode_attention")
+        steps, launches, outs, wall = r["steps"], r["launches"], r["outs"], r["wall"]
+        decode_ms = r["decode_ms"]
+        layers = check_layers(r["calls"], verify=False)
         n_tok = sum(len(o) for o in outs)
         name = f"{kind}_B{slots}"
         runs[name] = {
             "kv": kind, "slots": slots, "new_tokens": new_tokens,
             "decode_steps": steps, "launches": launches,
-            "prefill_ms_median": float(np.median(prefill_ms)),
+            "admit_ms_median": float(np.median(r["admit_ms"])),
             "decode_ms_per_step_median": float(np.median(decode_ms)),
             "decode_ms_per_step_mean": float(np.mean(decode_ms)),
             "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
@@ -947,17 +1076,18 @@ CHUNK, SYSTEM_TOKENS, UNIQUE_TOKENS = 256, 1024, 1024
 CHUNKED_REQUESTS, CHUNKED_NEW_TOKENS = 8, 8
 
 
-def check_chunked_fp32(dev, prompts):
-    """The serving model at 2 layers in fp32, fp32 KV: the last-token
-    logits of chunked admission (a miss, then a prefix-cache hit) against
-    the dense prefill of the same prompt, both through the kernels."""
+def check_chunked_fp32(dev, prompts, **variant):
+    """The serving model (with the config fields ``variant``) at 2 layers
+    in fp32, fp32 KV: the last-token logits of chunked admission (a miss,
+    then a prefix-cache hit) against the dense prefill of the same prompt,
+    both through the kernels."""
     import torch
     from flash_attention_dlrs_tpu_torch.models import (
         ModelConfig, init_params_numpy, make_prefill, params_from_jax,
     )
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
-    cfg = ModelConfig(**{**SERVE_CFG, "n_layers": 2}, dtype=torch.float32)
+    cfg = ModelConfig(**{**SERVE_CFG, "n_layers": 2, **variant}, dtype=torch.float32)
     model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
     engine = DecodeEngine(model, cfg, num_pages=3 * SERVE_PPS, page_size=SERVE_PAGE,
                           num_slots=1, pages_per_seq=SERVE_PPS, kv_dtype=torch.float32,
@@ -995,7 +1125,6 @@ def phase_serve_chunked(dev, model, cfg):
     plain; admission ms dense / chunked / chunked with a hit; a 2-layer fp32
     copy's chunked logits against its dense prefill."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL, VERIFY_KERNEL
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
@@ -1027,31 +1156,18 @@ def phase_serve_chunked(dev, model, cfg):
                               quantized_kv=kind in QUANT_KINDS, prefill_chunk=CHUNK,
                               enable_prefix_cache=True, **kw)
         engine.generate([[2] * 1000], max_new_tokens=2)  # warm-up, shares nothing
-        admit_ms, decode_ms, chunks, matched = [], [], [], []
-        engine._admit_chunked = _timed(engine._admit_chunked, admit_ms)
+        matched = []
         match = engine.prefix_cache.match
         engine.prefix_cache.match = lambda toks: matched.append(match(toks)) or matched[-1]
         hits_before = engine.prefix_cache.hits
-        with _Recorder("paged_verify_attention") as rec:
-            chunk_step = rec.step(engine._chunk_prefill)
-            engine._chunk_prefill = lambda *a: chunks.append(1) or chunk_step(*a)
-            engine._decode_step = _timed(engine._decode_step, decode_ms)
-            steps_before = engine.scheduler.stats.steps
-            FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            outs = engine.generate(prompts, max_new_tokens=CHUNKED_NEW_TOKENS)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t
-            launches = {"attn_fwd": FWD_KERNEL.launches,
-                        "paged_decode": DECODE_KERNEL.launches,
-                        "paged_verify": VERIFY_KERNEL.launches}
-        steps = engine.scheduler.stats.steps - steps_before
+        r = _serve_run(engine, prompts, CHUNKED_NEW_TOKENS, "paged_verify_attention")
+        steps, launches, outs, wall = r["steps"], r["launches"], r["outs"], r["wall"]
+        admit_ms, decode_ms, chunks = r["admit_ms"], r["decode_ms"], r["chunks"]
         hits = engine.prefix_cache.hits - hits_before
-        layers = check_layers(rec.calls, verify=True)
+        layers = check_layers(r["calls"], verify=True)
         n_tok = sum(len(o) for o in outs)
         runs[kind] = {
-            "kv": kind, "requests": CHUNKED_REQUESTS, "chunks": len(chunks),
+            "kv": kind, "requests": CHUNKED_REQUESTS, "chunks": chunks,
             "prefix_hits": hits, "pages_reused": [len(p) for p, _ in matched],
             "decode_steps": steps, "launches": launches,
             "admit_ms_chunked_miss": admit_ms[0],
@@ -1067,7 +1183,7 @@ def phase_serve_chunked(dev, model, cfg):
             f"{kind}_7_prefix_hits_of_8_pages":
                 hits == CHUNKED_REQUESTS - 1
                 and [len(p) for p, _ in matched] == [0] + [shared_pages] * hits,
-            f"{kind}_{want_chunks}_chunks": len(chunks) == want_chunks,
+            f"{kind}_{want_chunks}_chunks": chunks == want_chunks,
             f"{kind}_verify_launches_16_per_chunk":
                 launches["paged_verify"] == cfg.n_layers * want_chunks,
             f"{kind}_decode_launches_16_per_step":
@@ -1092,10 +1208,117 @@ def phase_serve_chunked(dev, model, cfg):
     return runs, dense_fwd
 
 
+# ALiBi serving: the serving model with position_encoding="alibi" (the same
+# random weights: an ALiBi model has the same parameters), three ways:
+# name, kv kind, slots, new tokens, prefill chunk (with the prefix cache).
+SERVE_ALIBI_RUNS = (("bf16", "bf16", 4, SERVE_NEW_TOKENS, 0),
+                    ("int8", "int8", 8, 16, 0),
+                    ("bf16_chunked", "bf16", CHUNKED_REQUESTS, CHUNKED_NEW_TOKENS, CHUNK))
+
+
+def phase_serve_alibi(dev, model):
+    """The serving path of an ALiBi model (the serving config with
+    position_encoding="alibi", slopes alibi_slopes_for(16)) through
+    DecodeEngine, SERVE_ALIBI_RUNS: 8 requests of 200-2048 prompt tokens
+    (numpy seed 0) from bf16 KV at 4 slots and int8 KV at 8, and 8 requests
+    sharing a 1024-token system prompt (numpy seed 2) from bf16 KV with
+    prefill_chunk=256 and the prefix cache, which runs the verify kernel
+    with ALiBi.  Exact launch counts per run; the last decode step's (or
+    chunk's) every layer checked kernel against plain; one prompt's
+    prefill through kernels and plain versions, bf16 and a 2-layer fp32
+    copy; the fp32 copy's first decode step from fp32 and int8 KV and its
+    chunked admission against its dense prefill."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import ModelConfig
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    cfg = ModelConfig(**SERVE_CFG, dtype=torch.bfloat16, position_encoding="alibi")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS).tolist()
+    shared = [system + rng.integers(0, cfg.vocab_size, UNIQUE_TOKENS).tolist()
+              for _ in range(CHUNKED_REQUESTS)]
+    want_chunks = ((SYSTEM_TOKENS + UNIQUE_TOKENS) // CHUNK
+                   + (CHUNKED_REQUESTS - 1) * (UNIQUE_TOKENS // CHUNK))
+    runs, checks = {}, {}
+    for name, kind, slots, new_tokens, chunk in SERVE_ALIBI_RUNS:
+        engine = DecodeEngine(
+            model, cfg, num_pages=slots * SERVE_PPS + 1, page_size=SERVE_PAGE,
+            num_slots=slots, pages_per_seq=SERVE_PPS, kv_dtype=kv_kind(kind),
+            quantized_kv=kind in QUANT_KINDS, prefill_chunk=chunk,
+            enable_prefix_cache=bool(chunk), device=dev)
+        engine.generate([[2] * 1000], max_new_tokens=2)  # warm-up, shares nothing
+        hits_before = engine.prefix_cache.hits if chunk else 0
+        r = _serve_run(engine, shared if chunk else prompts, new_tokens,
+                       "paged_verify_attention" if chunk else "paged_decode_attention")
+        layers = check_layers(r["calls"], verify=bool(chunk))
+        n_req, launches, outs = len(r["outs"]), r["launches"], r["outs"]
+        n_tok = sum(len(o) for o in outs)
+        runs[name] = {
+            "kv": kind, "slots": slots, "requests": n_req, "new_tokens": new_tokens,
+            "prefill_chunk": chunk, "decode_steps": r["steps"], "launches": launches,
+            "admit_ms_median": float(np.median(r["admit_ms"])),
+            "decode_ms_per_step_median": float(np.median(r["decode_ms"])),
+            "decode_ms_per_step_mean": float(np.mean(r["decode_ms"])),
+            "wall_s": r["wall"], "tokens": n_tok, "tokens_per_s": n_tok / r["wall"],
+            "last_step_layers": layers,
+        }
+        checks.update({
+            f"{name}_every_request_{new_tokens}_tokens":
+                all(len(o) == new_tokens for o in outs),
+            f"{name}_tokens_in_vocab": all(0 <= x < cfg.vocab_size for o in outs for x in o),
+            f"{name}_decode_launches_16_per_step":
+                launches["paged_decode"] == cfg.n_layers * r["steps"] > 0,
+            f"{name}_every_layer_kernel_vs_plain":
+                layers["ok"] and layers["layers_checked"] == cfg.n_layers,
+        })
+        if chunk:
+            hits = engine.prefix_cache.hits - hits_before
+            runs[name].update(chunks=r["chunks"], prefix_hits=hits,
+                              admit_ms_chunked_miss=r["admit_ms"][0],
+                              admit_ms_chunked_hit_median=float(np.median(r["admit_ms"][1:])))
+            checks.update({
+                f"{name}_{want_chunks}_chunks": r["chunks"] == want_chunks,
+                f"{name}_7_prefix_hits": hits == CHUNKED_REQUESTS - 1,
+                f"{name}_verify_launches_16_per_chunk":
+                    launches["paged_verify"] == cfg.n_layers * want_chunks,
+                f"{name}_no_dense_prefill": launches["attn_fwd"] == 0,
+            })
+        else:
+            checks[f"{name}_fwd_launches_16_per_prefill"] = (
+                launches["attn_fwd"] == cfg.n_layers * n_req and launches["paged_verify"] == 0)
+        emit({"phase": "serve_alibi", "run": name, **runs[name]})
+        del engine
+        torch.cuda.empty_cache()
+    prefill_rec = check_prefill(model, cfg, dev, prompts[0])
+    checks.update(prefill_rec.pop("checks"))
+    fp32 = check_decode_fp32(dev, prompts[1], ("fp32", "int8"), position_encoding="alibi")
+    for kind, gap in fp32.items():
+        checks[f"fp32_2layer_first_decode_{kind}_kernel_vs_plain"] = gap <= FP32_LOGIT_LIMIT
+    chunked = check_chunked_fp32(dev, shared, position_encoding="alibi")
+    checks["fp32_2layer_chunked_vs_dense_miss"] = chunked["miss"] <= FP32_LOGIT_LIMIT
+    checks["fp32_2layer_chunked_vs_dense_hit"] = (chunked["hit"] <= FP32_LOGIT_LIMIT
+                                                  and chunked["hits"] == 1)
+    rec = {"phase": "serve_alibi", "config": {**SERVE_CFG, "position_encoding": "alibi"},
+           "dtype": "bfloat16", "page_size": SERVE_PAGE, "pages_per_seq": SERVE_PPS,
+           "decode_ms_per_step": {n: r["decode_ms_per_step_median"] for n, r in runs.items()},
+           "admit_ms": {n: r["admit_ms_median"] for n, r in runs.items()},
+           "tokens_per_s": {n: r["tokens_per_s"] for n, r in runs.items()},
+           **prefill_rec, "fp32_2layer_first_decode_diff_over_std": fp32,
+           "fp32_2layer_chunked_vs_dense_diff_over_std": chunked, "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"ALiBi serving checks failed: {failed}")
+    return runs
+
+
 TRAIN_CFG = dict(vocab_size=32000, d_model=4096, n_layers=8, n_q_heads=32,
                  n_kv_heads=8, head_dim=128, d_ff=11008)
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 TRAIN_WARM_STEPS, TRAIN_TIMED_STEPS = 2, 4
+TRAIN_ALIBI_DROPOUT = 0.1  # train_alibi: the ALiBi model with attention dropout
 # The fp32 copy of the training model: 2 layers at full width, batch 2.  Its
 # kernel path computes in true fp32, so its loss and gradients must match
 # the plain path's to summation order: 1e-3 x each gradient's std.
@@ -1142,12 +1365,13 @@ def _kernels():
             "attn_bwd_dq": bwd_kernel.DQ_KERNEL}
 
 
-def check_train_attention(model, opt_state, step, tokens):
-    """One more train step with every layer's attention backward inputs
-    recorded; then, on that step's own q/k/v/O/lse/dO, each layer's forward
-    kernel output (O, lse) against the plain forward at the fwd_check
-    tolerances, and its backward kernels against the plain backward at the
-    bwd_check tolerances."""
+def check_train_attention(model, opt_state, step, tokens, seed):
+    """One more train step (dropout seed ``seed``) with every layer's
+    attention backward inputs recorded; then, on that step's own
+    q/k/v/O/lse/dO and the same ALiBi and dropout arguments, each layer's
+    forward kernel output (O, lse) against the plain forward at the
+    fwd_check tolerances, and its backward kernels against the plain
+    backward at the bwd_check tolerances."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd, attn_bwd_plain
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
@@ -1162,7 +1386,7 @@ def check_train_attention(model, opt_state, step, tokens):
 
     try:
         fa_ops.attn_bwd = recording
-        loss = float(step(model, opt_state, tokens))
+        loss = float(step(model, opt_state, tokens, seed))
     finally:
         fa_ops.attn_bwd = kernel_bwd
     worst, ok = {}, True
@@ -1209,9 +1433,10 @@ def _grad_gaps(grads, ref, ids):
     }
 
 
-def check_train_fp32(tokens, dev):
-    """The training model in fp32 at 2 layers: loss and gradients of one
-    step through the kernels and through the plain versions.  A third run
+def check_train_fp32(tokens, dev, seed=None, **variant):
+    """The training model (with the config fields ``variant``) in fp32 at 2
+    layers: loss and gradients of one step (dropout seed ``seed``, the same
+    masks on both sides) through the kernels and through the plain versions.  A third run
     takes the plain path with the plain backward's q-row chunks cut to a
     quarter, which only reorders the fp32 sums of dK and dV: its gap to the
     plain run is the gradients' own sensitivity to summation order, against
@@ -1224,14 +1449,14 @@ def check_train_fp32(tokens, dev):
     from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd_plain
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
 
-    cfg = ModelConfig(**{**TRAIN_CFG, "n_layers": TRAIN_FP32_LAYERS},
+    cfg = ModelConfig(**{**TRAIN_CFG, "n_layers": TRAIN_FP32_LAYERS, **variant},
                       dtype=torch.float32)
     model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
     toks = tokens[:TRAIN_FP32_BATCH]
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(model, toks, cfg)
+        loss = loss_fn(model, toks, cfg, dropout_seed=seed)
         loss.backward()
         return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
 
@@ -1266,20 +1491,22 @@ def check_train_fp32(tokens, dev):
     }
 
 
-def phase_train(dev):
-    """The training path at the bench-train config, full width and depth:
-    make_train_state (weights from init_params_numpy, seed 0), AdamW
-    lr 3e-4 / wd 0.01, one batch of tokens [8, 2049] from numpy seed 1.
-    2 warm steps, 4 timed ones (synchronized at the edges, launch counts
-    zeroed just before and read just after), one profiled step, one step
-    whose attention backward inputs are recorded and checked layer by
-    layer, then the 2-layer fp32 comparison of kernel and plain paths."""
+def phase_train(dev, name="train", **variant):
+    """The training path at the bench-train config (with the config fields
+    ``variant``), full width and depth: make_train_state (weights from
+    init_params_numpy, seed 0), AdamW lr 3e-4 / wd 0.01, one batch of tokens
+    [8, 2049] from numpy seed 1, step i called with dropout seed i.  2 warm
+    steps, 4 timed ones (synchronized at the edges, launch counts zeroed
+    just before and read just after), one profiled step (the rope model
+    only), one step whose attention backward inputs are recorded and
+    checked layer by layer, then the 2-layer fp32 comparison of kernel and
+    plain paths."""
     import torch
     from flash_attention_dlrs_tpu_torch.models import (
         ModelConfig, make_train_state, make_train_step,
     )
 
-    cfg = ModelConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True,
+    cfg = ModelConfig(**TRAIN_CFG, **variant, dtype=torch.bfloat16, remat=True,
                       remat_policy="block")
     t0 = time.perf_counter()
     model, opt_state, optimizer = make_train_state(
@@ -1291,41 +1518,48 @@ def phase_train(dev):
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
 
-    losses = [float(step(model, opt_state, tokens)) for _ in range(TRAIN_WARM_STEPS)]
+    losses = [float(step(model, opt_state, tokens, i)) for i in range(TRAIN_WARM_STEPS)]
     torch.cuda.reset_peak_memory_stats()
     kernels = _kernels()
     for kern in kernels.values():
         kern.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
-    timed = [step(model, opt_state, tokens) for _ in range(TRAIN_TIMED_STEPS)]
+    timed = [step(model, opt_state, tokens, TRAIN_WARM_STEPS + i)
+             for i in range(TRAIN_TIMED_STEPS)]
     torch.cuda.synchronize()
     ms_per_step = (time.perf_counter() - t) * 1e3 / TRAIN_TIMED_STEPS
-    launches = {name: kern.launches for name, kern in kernels.items()}
+    launches = {kname: kern.launches for kname, kern in kernels.items()}
     losses += [float(x) for x in timed]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    prof_wall, prof_busy, prof_ops, prof_by_name = profile_window(
-        lambda: losses.append(float(step(model, opt_state, tokens))), 1)
-    by_group = {label: 0.0 for label, _ in TRAIN_PROFILE_GROUPS}
-    by_group["everything else"] = 0.0
-    for name, ms in prof_by_name.items():
-        label = next((label for label, marks in TRAIN_PROFILE_GROUPS
-                      if any(m in name for m in marks)), "everything else")
-        by_group[label] += ms
+    profiled = {}
+    if not variant:
+        prof_wall, prof_busy, prof_ops, prof_by_name = profile_window(
+            lambda: losses.append(float(step(model, opt_state, tokens, len(losses)))), 1)
+        by_group = {label: 0.0 for label, _ in TRAIN_PROFILE_GROUPS}
+        by_group["everything else"] = 0.0
+        for kname, ms in prof_by_name.items():
+            label = next((label for label, marks in TRAIN_PROFILE_GROUPS
+                          if any(m in kname for m in marks)), "everything else")
+            by_group[label] += ms
+        profiled = {"profiled_step": {
+            "wall_ms": prof_wall, "device_busy_ms": prof_busy,
+            "device_idle_share": 1.0 - prof_busy / prof_wall, "device_ops": prof_ops,
+            "device_ms_by_kind": by_group, "top_device_ms": top_kernels(prof_by_name, 8)}}
 
     loss, layers_checked, attn_err, attn_ok = check_train_attention(
-        model, opt_state, step, tokens)
+        model, opt_state, step, tokens, len(losses))
     losses.append(loss)
     del model, opt_state, optimizer
     torch.cuda.empty_cache()
-    fp32 = check_train_fp32(tokens, dev)
+    fp32 = check_train_fp32(tokens, dev, seed=3, **variant)
 
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (ms_per_step / 1e3)
     fpt = model_flops_per_token(cfg, TRAIN_SEQ)
     expected = {"attn_fwd": 2 * cfg.n_layers * TRAIN_TIMED_STEPS,
-                **{name: cfg.n_layers * TRAIN_TIMED_STEPS for name in kernels
-                   if name != "attn_fwd"}}
+                **{kname: cfg.n_layers * TRAIN_TIMED_STEPS for kname in kernels
+                   if kname != "attn_fwd"}}
     checks = {
         "loss_finite": all(np.isfinite(losses)),
         "loss_falls": losses[-1] < losses[0],
@@ -1335,7 +1569,7 @@ def phase_train(dev):
         "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
     }
     rec = {
-        "phase": "train", "config": TRAIN_CFG, "dtype": "bfloat16",
+        "phase": name, "config": {**TRAIN_CFG, **variant}, "dtype": "bfloat16",
         "remat_policy": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "params": n_params, "weights_setup_s": setup_s,
         "optimizer": "AdamW (optax.adamw semantics) lr 3e-4, wd 0.01",
@@ -1347,11 +1581,7 @@ def phase_train(dev):
                         "flops: projections, causal attention, LM head; "
                         "scripts/bench_train.py:26-36) / 989e12"),
         "peak_memory_gb": peak_gb, "launches": launches,
-        "launches_expected": expected,
-        "profiled_step": {"wall_ms": prof_wall, "device_busy_ms": prof_busy,
-                          "device_idle_share": 1.0 - prof_busy / prof_wall,
-                          "device_ops": prof_ops, "device_ms_by_kind": by_group,
-                          "top_device_ms": top_kernels(prof_by_name, 8)},
+        "launches_expected": expected, **profiled,
         "attention_layers_checked": layers_checked,
         **{f"attention_{k}": v for k, v in attn_err.items()},
         **fp32, "checks": checks,
@@ -1359,7 +1589,7 @@ def phase_train(dev):
     emit(rec)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"training checks failed: {failed}")
+        raise AssertionError(f"{name} checks failed: {failed}")
     return rec
 
 
@@ -1385,13 +1615,15 @@ def bwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize):
     }
 
 
-def time_bwd(dev, gen, b, hq, hkv, n, d):
+def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None):
     """The three backward kernels one by one and together at one causal
-    bf16 shape, each with its bound, its plain version's time and its
-    error against the plain version on the same inputs; SDPA's backward
+    bf16 shape (with the ALiBi and dropout arguments of :func:`mods`
+    ``mod``), each with its bound, its plain version's time and its error
+    against the plain version on the same inputs; SDPA's backward
     (torch.autograd.grad through scaled_dot_product_attention, graph kept)
     as the library time of the whole backward, torch.linalg.vecdot on the
-    fp32 casts of O and dO as that of the preprocess."""
+    fp32 casts of O and dO as that of the preprocess.  Dropout has no
+    library time: SDPA's dropout draws other bits."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
@@ -1401,7 +1633,7 @@ def time_bwd(dev, gen, b, hq, hkv, n, d):
     k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     do = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5)
+    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **(mod or {})))
     o, lse = attn_fwd(q, k, v, **kw)
     delta = bk.attn_bwd_preprocess(o, do)
     calls = {
@@ -1414,14 +1646,16 @@ def time_bwd(dev, gen, b, hq, hkv, n, d):
         "attn_bwd": (lambda: bk.attn_bwd(q, k, v, o, lse, do, **kw),
                      lambda: bk.attn_bwd_plain(q, k, v, o, lse, do, **kw)),
     }
+    lib_ms = {"attn_bwd_preprocess": median_ms(
+        lambda: torch.linalg.vecdot(o.float(), do.float()))}
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
-    lib_ms = {
-        "attn_bwd": median_ms(lambda: torch.autograd.grad(out, (qr, kr, vr), do,
-                                                          retain_graph=True)),
-        "attn_bwd_preprocess": median_ms(
-            lambda: torch.linalg.vecdot(o.float(), do.float())),
-    }
+    out = None
+    if not kw["dropout_rate"]:
+        out = F.scaled_dot_product_attention(
+            qr, kr, vr, attn_mask=sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev),
+            is_causal=kw["alibi_slopes"] is None, enable_gqa=True)
+        lib_ms["attn_bwd"] = median_ms(lambda: torch.autograd.grad(
+            out, (qr, kr, vr), do, retain_graph=True))
     work = bwd_work(b, hq, hkv, n, n, d, True, 2)
     rows = {}
     for name, (kernel, plain) in calls.items():
@@ -1443,34 +1677,74 @@ def time_bwd(dev, gen, b, hq, hkv, n, d):
     return rows
 
 
-def phase_time(dev, train_rec):
+def sdpa_bias(slopes, n, dtype, dev):
+    """The causal ALiBi bias −m_h·(i − j) (−inf above the diagonal) as a
+    float ``attn_mask`` [1, H, n, n] for scaled_dot_product_attention, the
+    library yardstick of the ALiBi kernels; None without slopes."""
+    import torch
+
+    if slopes is None:
+        return None
+    i = torch.arange(n, device=dev)
+    dist = (i[:, None] - i[None, :]).float()
+    m = torch.tensor(slopes, device=dev)[:, None, None]
+    return torch.where(dist >= 0, -m * dist, float("-inf"))[None].to(dtype)
+
+
+def time_fwd(gen, dev, b, hq, hkv, n, d, mod):
+    """The forward kernel at one causal bf16 shape with the ALiBi and
+    dropout arguments of :func:`mods` ``mod``: its time, its plain
+    version's, its bound (ALiBi and dropout add no bytes; their operations
+    are not counted), its error against the plain version, and SDPA's time
+    (with the ALiBi bias as a float mask) where no dropout is asked."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
 
+    q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
+    k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
+    v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
+    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **mod))
+    err = float((attn_fwd(q, k, v, **kw)[0].float()
+                 - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
+    ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
+    plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=1, reps=3)
+    lib_ms = None
+    if not kw["dropout_rate"]:
+        bias = sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, is_causal=bias is None, enable_gqa=True))
+    flops, nbytes = fwd_work(b, hq, hkv, n, n, d, True, 2)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "tflops": flops / ms / 1e9, "max_abs_err": err}
+
+
+def phase_time(dev, train_rec, train_alibi_rec):
+    import torch
+
     gen = torch.Generator(device=dev).manual_seed(3)
     timings = {}
-    for name, (b, hq, hkv, n, d) in {
-        "fwd_serve_prefill_2048": (1, 16, 8, 2048, 128),
-        "fwd_train_B8_H32_N2048": (8, 32, 8, 2048, 128),
-        "fwd_bench_B8_H16_N4096": (8, 16, 16, 4096, 128),
-    }.items():
-        q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
-        k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
-        v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
-        kw = dict(causal=True, sm_scale=d ** -0.5)
-        ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
-        plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=1, reps=3)
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-        flops, nbytes = fwd_work(b, hq, hkv, n, n, d, True, 2)
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        timings[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by,
-                         "tflops": flops / ms / 1e9}
-        emit({"phase": "time", "kernel": "attn_fwd", "case": name,
-              "shape": [b, hq, hkv, n, d], "dtype": "bfloat16", "causal": True,
-              "library": "torch.nn.functional.scaled_dot_product_attention",
+    serve, train = (1, 16, 8, 2048, 128), (8, 32, 8, 2048, 128)
+    alibi, both = dict(alibi=True), dict(alibi=True, rate=0.1, seed=1)
+    for name, shape, mod in (
+        ("fwd_serve_prefill_2048", serve, {}),
+        ("fwd_train_B8_H32_N2048", train, {}),
+        ("fwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128), {}),
+        ("fwd_alibi_serve_prefill_2048", serve, alibi),
+        ("fwd_alibi_train_B8_H32_N2048", train, alibi),
+        ("fwd_alibi_dropout_serve_prefill_2048", serve, both),
+        ("fwd_alibi_dropout_train_B8_H32_N2048", train, both),
+    ):
+        timings[name] = time_fwd(gen, dev, *shape, mod)
+        emit({"phase": "time", "kernel": "attn_fwd", "case": name, "shape": list(shape),
+              "dtype": "bfloat16", "causal": True, "alibi": bool(mod),
+              "dropout_rate": mod.get("rate", 0.0),
+              "library": ("none: SDPA's dropout draws other bits" if mod.get("rate") else
+                          "torch.nn.functional.scaled_dot_product_attention"
+                          + (" with the ALiBi bias as a float attn_mask" if mod else "")),
               **timings[name]})
 
     # launches per train step; one attn_bwd call launches each of its three
@@ -1478,9 +1752,13 @@ def phase_time(dev, train_rec):
     per_step = {name: n // TRAIN_TIMED_STEPS
                 for name, n in train_rec["launches"].items()}
     per_step["attn_bwd"] = per_step["attn_bwd_dq"]
-    for name, shape in {"bwd_train_B8_H32_N2048": (8, 32, 8, 2048, 128),
-                        "bwd_bench_B8_H16_N4096": (8, 16, 16, 4096, 128)}.items():
-        rows = time_bwd(dev, gen, *shape)
+    alibi_per_step = {name: n // TRAIN_TIMED_STEPS
+                      for name, n in train_alibi_rec["launches"].items()}
+    alibi_per_step["attn_bwd"] = alibi_per_step["attn_bwd_dq"]
+    for name, shape, mod in (("bwd_train_B8_H32_N2048", train, None),
+                             ("bwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128), None),
+                             ("bwd_alibi_dropout_train_B8_H32_N2048", train, both)):
+        rows = time_bwd(dev, gen, *shape, mod=mod)
         timings[name] = rows
         library = {
             "attn_bwd": ("backward of torch.nn.functional.scaled_dot_product_attention"
@@ -1488,10 +1766,13 @@ def phase_time(dev, train_rec):
             "attn_bwd_preprocess": ("torch.linalg.vecdot(o.float(), do.float()), "
                                     "the casts included"),
         }
+        if mod:
+            library["attn_bwd"] = "none: SDPA's dropout draws other bits"
         for kernel in ("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
             emit({"phase": "time", "kernel": kernel, "case": name, "shape": list(shape),
-                  "dtype": "bfloat16", "causal": True,
-                  "launches_per_train_step": per_step[kernel],
+                  "dtype": "bfloat16", "causal": True, "alibi": bool(mod),
+                  "dropout_rate": (mod or {}).get("rate", 0.0),
+                  "launches_per_train_step": (alibi_per_step if mod else per_step)[kernel],
                   "library": library.get(kernel, "none: SDPA's backward computes all "
                                          "three kernels' outputs at once (see attn_bwd)"),
                   **rows[kernel]})
@@ -1518,6 +1799,15 @@ def phase_time(dev, train_rec):
         emit({"phase": "time", "kernel": "paged_verify", "case": name,
               "shape": [1, hq, hkv, d, ps, pps], "tokens": CHUNK, "kv": kind,
               "library": PAGED_LIBRARY, **timings[name]})
+    # ALiBi: decode from bf16 and int8 KV (8 sequences of 2048), verify of a
+    # 256-token chunk from bf16 KV
+    for name, kind, batch, t_new in (("decode_bf16_B8_ctx2048_alibi", "bf16", 8, 0),
+                                     ("decode_int8_B8_ctx2048_alibi", "int8", 8, 0),
+                                     ("verify_bf16_T256_ctx2048_alibi", "bf16", 1, CHUNK)):
+        timings[name] = time_paged(gen, dev, kind, batch, [2048] * batch, t_new, alibi=True)
+        emit({"phase": "time", "kernel": "paged_verify" if t_new else "paged_decode",
+              "case": name, "shape": [batch, hq, hkv, d, ps, pps], "tokens": t_new or 1,
+              "kv": kind, "alibi": True, "library": PAGED_LIBRARY, **timings[name]})
     return timings
 
 
@@ -1537,10 +1827,11 @@ def paged_work(kind, b, hq, hkv, d, lengths, t_new):
     return 4 * pairs * d, nbytes
 
 
-def time_paged(gen, dev, kind, b, lengths, t_new):
+def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
     """One paged kernel (decode, or verify of ``t_new`` tokens) at the
-    serving model's heads from bf16 q and ``kind`` pools: its time, its
-    plain version's, its bound and its error against the plain version."""
+    serving model's heads from bf16 q and ``kind`` pools, with ALiBi when
+    ``alibi``: its time, its plain version's, its bound (the bias adds no
+    bytes) and its error against the plain version."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.decode import (
         paged_decode_attention, paged_decode_plain, paged_verify_attention,
@@ -1552,12 +1843,13 @@ def time_paged(gen, dev, kind, b, lengths, t_new):
         gen, dev, torch.bfloat16, kind, b, hq, hkv, d, SERVE_PAGE, SERVE_PPS,
         lengths, num_pages=b * SERVE_PPS + 8, t_new=t_new)
     args = (q, kp, vp, lens, table)
+    kw = dict(sm_scale=d ** -0.5, alibi_slopes=mods(hq, alibi)["alibi_slopes"])
     if t_new:
-        kernel = lambda: paged_verify_attention(*args)  # noqa: E731
-        plain = lambda: paged_verify_plain(*args, sm_scale=d ** -0.5)  # noqa: E731
+        kernel = lambda: paged_verify_attention(*args, **kw)  # noqa: E731
+        plain = lambda: paged_verify_plain(*args, **kw)  # noqa: E731
     else:
-        kernel = lambda: paged_decode_attention(*args)  # noqa: E731
-        plain = lambda: paged_decode_plain(*args, sm_scale=d ** -0.5)  # noqa: E731
+        kernel = lambda: paged_decode_attention(*args, **kw)  # noqa: E731
+        plain = lambda: paged_decode_plain(*args, **kw)  # noqa: E731
     err = float((kernel().float() - plain().float()).abs().max())
     ms = median_ms(kernel)
     plain_ms = median_ms(plain, warmup=1, reps=3)
@@ -1573,13 +1865,15 @@ def time_paged(gen, dev, kind, b, lengths, t_new):
 
 def emit_kernels(fwd_res, dec_res, paths, timings):
     """The kernels line: every kernel of every path, the paged kernels once
-    per pool kind they serve.  Launches are the counts of the path runs
-    (serving, quantized serving, chunked serving and the dense admissions
-    beside it, and the training run's timed steps); times, bounds and
-    errors are at the serving shapes for attn_fwd and the paged kernels
-    (decode at 8 sequences of 2048 tokens, verify a 256-token chunk at 2048)
-    and at the training shape for the backward kernels."""
-    serve, quant, chunked, dense_fwd, train = paths
+    per pool kind they serve, and one entry per ALiBi / dropout mode.
+    Launches are the counts of the path runs (serving, quantized serving,
+    chunked serving and the dense admissions beside it, the training run's
+    timed steps; the modes: ALiBi serving and the ALiBi + dropout training
+    run's timed steps); times, bounds and errors are at the serving shapes
+    for attn_fwd, attn_fwd[alibi] and the paged kernels (decode at 8
+    sequences of 2048 tokens, verify a 256-token chunk at 2048) and at the
+    training shape for attn_fwd[alibi+dropout] and the backward kernels."""
+    serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi = paths
     fwd_t = timings["fwd_serve_prefill_2048"]
     kernels = [
         {"name": "attn_fwd", "route": "cuda", "source": FWD_SOURCE,
@@ -1622,6 +1916,39 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+
+    def entry(name, source, replaces, launches, t, err=None):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": t["max_abs_err"] if err is None else err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+
+    alibi_fwd = sum(r["launches"]["attn_fwd"] for r in serve_alibi.values())
+    rows = timings["bwd_alibi_dropout_train_B8_H32_N2048"]
+    kernels += [
+        entry("attn_fwd[alibi]", FWD_SOURCE, FWD_REPLACES, alibi_fwd,
+              timings["fwd_alibi_serve_prefill_2048"]),
+        entry("attn_fwd[alibi+dropout]", FWD_SOURCE, FWD_REPLACES,
+              train_alibi["launches"]["attn_fwd"],
+              timings["fwd_alibi_dropout_train_B8_H32_N2048"]),
+        entry("attn_bwd_dkv[alibi+dropout]", BWD_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
+              train_alibi["launches"]["attn_bwd_dkv"], rows["attn_bwd_dkv"]),
+        entry("attn_bwd_dq[alibi+dropout]", BWD_SOURCE, BWD_REPLACES["attn_bwd_dq"],
+              train_alibi["launches"]["attn_bwd_dq"], rows["attn_bwd_dq"]),
+        entry("paged_decode[bf16+alibi]", DECODE_SOURCE, DECODE_REPLACES,
+              sum(r["launches"]["paged_decode"] for r in serve_alibi.values()
+                  if r["kv"] == "bf16"),
+              timings["decode_bf16_B8_ctx2048_alibi"],
+              dec_res["alibi_bf16_B8"]["max_abs_err_o"]),
+        entry("paged_decode[int8+alibi]", DECODE_SOURCE, DECODE_REPLACES,
+              serve_alibi["int8"]["launches"]["paged_decode"],
+              timings["decode_int8_B8_ctx2048_alibi"],
+              dec_res["alibi_int8_B8"]["max_abs_err_o"]),
+        entry("paged_verify[bf16+alibi]", VERIFY_SOURCE, VERIFY_REPLACES,
+              serve_alibi["bf16_chunked"]["launches"]["paged_verify"],
+              timings["verify_bf16_T256_ctx2048_alibi"],
+              dec_res["alibi_verify_T256_bf16"]["max_abs_err_o"]),
+    ]
     emit({"kernels": kernels})
 
 
@@ -1643,18 +1970,23 @@ def main() -> int:
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
+    phase_mask(dev)
     fwd_res = phase_fwd(dev)
     phase_bwd(dev)
     dec_res = phase_decode(dev)
     serve_rec, model, cfg = phase_serve(dev)
     quant_runs = phase_serve_quant(dev, model, cfg)
     chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg)
+    alibi_runs = phase_serve_alibi(dev, model)
     del model
     torch.cuda.empty_cache()
     train_rec = phase_train(dev)
-    timings = phase_time(dev, train_rec)
+    train_alibi_rec = phase_train(dev, "train_alibi", position_encoding="alibi",
+                                  attn_dropout=TRAIN_ALIBI_DROPOUT)
+    timings = phase_time(dev, train_rec, train_alibi_rec)
     emit_kernels(fwd_res, dec_res,
-                 (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec), timings)
+                 (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
+                  alibi_runs, train_alibi_rec), timings)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,10 @@
 // backward routes of the JAX package:
 //   flash_attention_dlrs_tpu/ops/fwd_small.py  _small_bwd_kernel  (one-shot, N <= 320)
 //   flash_attention_dlrs_tpu/ops/bwd_kernel.py _bwd_d_kernel      (D preprocess)
-//   flash_attention_dlrs_tpu/ops/bwd_kernel.py _bwd_dkv_kernel    (dK/dV sweep)
-//   flash_attention_dlrs_tpu/ops/bwd_kernel.py _bwd_dq_kernel     (dQ sweep)
-//   flash_attention_dlrs_tpu/ops/bwd_fused.py  _bwd_fused_kernel  (single sweep, pane dQ)
+//   flash_attention_dlrs_tpu/ops/bwd_kernel.py _bwd_dkv_kernel    (dK/dV sweep; ALiBi, dropout)
+//   flash_attention_dlrs_tpu/ops/bwd_kernel.py _bwd_dq_kernel     (dQ sweep; ALiBi, dropout)
+//   flash_attention_dlrs_tpu/ops/bwd_fused.py  _bwd_fused_kernel  (single sweep, pane dQ;
+//                                                                  ALiBi, dropout)
 //   flash_attention_dlrs_tpu/ops/bwd_mid.py    _bwd_mid_kernel    (causal pane, N <= 2048)
 // The TPU split the function by length for its grid-step overhead and the
 // VMEM ceiling of a pane-resident dQ (the fused route ran per Q segment
@@ -32,7 +33,18 @@
 //
 // Conventions are the forward's (attn_fwd.cu): q [B, Hq, Nq, d], k/v
 // [B, Hkv, Nkv, d], o/dO like q, lse the natural-base logsumexp [B, Hq, Nq]
-// fp32, causal aligned bottom-right, any Nq/Nkv.  A row that saw no key has
+// fp32, causal aligned bottom-right, any Nq/Nkv, ALiBi as the true bias
+// -m_h * (q_pos - col) after the softcap (the passed lse is the true one and
+// is taken as it is), dropout as the forward's counter-based mask.  With
+// dropout M (0 or 1 / (1 - rate)) the sweeps compute dV += (P o M)^T dO and
+// dS = P o (M o dP - D) (JAX bwd_kernel.py); D = rowsum(dO o O) needs no
+// mask, so the preprocess is unchanged.  The mask is regenerated from the
+// seed, the batch, the Q head (attn_bwd_dkv walks the q heads of its group
+// and hashes each), the local q row and the column, so it is the forward's
+// bit for bit; the hash is ~25 integer operations per score on the CUDA
+// cores in each sweep, and the bias one FMA.  Both modes are template flags
+// (common.cuh dispatch_mods): a call without them runs code compiled
+// without them.  A row that saw no key has
 // lse = kMaskValue; every score it has is masked, and its P is set to 0
 // before any exponent is taken, so no inf or NaN can arise.
 //
@@ -127,14 +139,14 @@ constexpr size_t dkv_mma_smem_bytes() {
   return size_t(2) * (2 * KV_TILE + 2 * Q_STEP) * (D + 8) + 2 * Q_STEP * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 attn_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv,
                         int Nq, int Nkv, float sm_scale, int causal, int window,
-                        float softcap) {
+                        float softcap, Mods md) {
   constexpr int S = D + 8;           // padded row stride: conflict-free ldmatrix
   constexpr int KSTEPS = D / 16;     // k-steps of the score products
   constexpr int NT_S = Q_STEP / 8;   // S^T n-tiles per warp
@@ -167,8 +179,12 @@ attn_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
 
   const TileRange steps = q_tiles<Q_STEP>(n0, Nq, Nkv, causal, window);
+  const int q_off = Nkv - Nq;
   for (int hh = 0; hh < group; ++hh) {
-    const size_t bh = size_t(b) * Hq + kvh * group + hh;
+    const int h = kvh * group + hh;  // the q head: its slope and dropout stream
+    const float slope = ALIBI ? md.slopes[h] : 0.f;
+    const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
+    const size_t bh = size_t(b) * Hq + h;
     const T* qb = q + bh * Nq * D;
     const T* dob = dout + bh * Nq * D;
     for (int it = steps.lo; it < steps.hi; ++it) {
@@ -216,13 +232,20 @@ attn_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = j * 8 + 2 * t + (e & 1);
+          const int row = m0 + r, col = n0 + warp * 16 + g + (e >= 2 ? 8 : 0);
           float dcap;
-          const float x = score(s[j][e], sm_scale, softcap, dcap);
-          const bool vis = unmasked || visible(m0 + r, n0 + warp * 16 + g + (e >= 2 ? 8 : 0),
-                                               Nq, Nkv, causal, window);
+          float x = score(s[j][e], sm_scale, softcap, dcap);
+          if (ALIBI) x -= slope * float(row + q_off - col);
+          const bool vis = unmasked || visible(row, col, Nq, Nkv, causal, window);
           const float p = vis ? exp2f(x * kLog2e - sLse[r]) : 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - sDelta[r]) * dcap;
+          if (DROP) {
+            const float keep = dropout_factor(stream, row, col, md);
+            s[j][e] = p * keep;
+            dp[j][e] = p * (dp[j][e] * keep - sDelta[r]) * dcap;
+          } else {
+            s[j][e] = p;
+            dp[j][e] = p * (dp[j][e] - sDelta[r]) * dcap;
+          }
         }
       }
 
@@ -276,13 +299,14 @@ constexpr size_t dq_mma_smem_bytes() {
   return size_t(2) * (2 * Q_TILE + 2 * KV_TILE) * (D + 8);  // sQ, sdO, sK, sV
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 attn_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, const T* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        T* __restrict__ dq, int Hq, int Hkv, int Nq, int Nkv,
-                       float sm_scale, int causal, int window, float softcap) {
+                       float sm_scale, int causal, int window, float softcap,
+                       Mods md) {
   constexpr int S = D + 8;
   constexpr int KSTEPS = D / 16;
   constexpr int NT_S = KV_TILE / 8;  // S n-tiles per warp
@@ -301,6 +325,9 @@ attn_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
   const int kvh = h / (Hq / Hkv);
   const size_t bh = size_t(b) * Hq + h;
+  const int q_off = Nkv - Nq;
+  const float slope = ALIBI ? md.slopes[h] : 0.f;
+  const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
 
   const T* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
   const T* vb = v + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
@@ -358,13 +385,14 @@ attn_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >= 2 ? 1 : 0;
+        const int row = m0 + warp * 16 + g + 8 * r, col = n0 + j * 8 + 2 * t + (e & 1);
         float dcap;
-        const float x = score(s[j][e], sm_scale, softcap, dcap);
-        const bool vis = unmasked || visible(m0 + warp * 16 + g + 8 * r,
-                                             n0 + j * 8 + 2 * t + (e & 1), Nq, Nkv,
-                                             causal, window);
+        float x = score(s[j][e], sm_scale, softcap, dcap);
+        if (ALIBI) x -= slope * float(row + q_off - col);
+        const bool vis = unmasked || visible(row, col, Nq, Nkv, causal, window);
         const float p = vis ? exp2f(x * kLog2e - lse2[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dlt[r]) * dcap;
+        const float dpk = DROP ? dp[j][e] * dropout_factor(stream, row, col, md) : dp[j][e];
+        s[j][e] = p * (dpk - dlt[r]) * dcap;
       }
     }
 
@@ -422,14 +450,14 @@ constexpr size_t dkv_f32_smem_bytes() {
   return sizeof(float) * (4 * 64 * size_t(D + 1) + 2 * 64 * 65 + 2 * 64);
 }
 
-template <int D>
+template <int D, bool ALIBI, bool DROP>
 __global__ void __launch_bounds__(F32_THREADS)
 attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv,
                         int Nq, int Nkv, float sm_scale, int causal, int window,
-                        float softcap) {
+                        float softcap, Mods md) {
   static_assert(KV_TILE == 64 && F32_Q_STEP == 64, "the fp32 tiles are 64 x 64");
   constexpr int PS = D + 1;   // padded strides: conflict-free column walks
   constexpr int SS = 64 + 1;
@@ -462,8 +490,12 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int j = 0; j < OJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   const TileRange steps = q_tiles<F32_Q_STEP>(n0, Nq, Nkv, causal, window);
+  const int q_off = Nkv - Nq;
   for (int hh = 0; hh < group; ++hh) {
-    const size_t bh = size_t(b) * Hq + kvh * group + hh;
+    const int h = kvh * group + hh;  // the q head: its slope and dropout stream
+    const float slope = ALIBI ? md.slopes[h] : 0.f;
+    const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
+    const size_t bh = size_t(b) * Hq + h;
     for (int it = steps.lo; it < steps.hi; ++it) {
       const int m0 = it * F32_Q_STEP;
       __syncthreads();
@@ -508,12 +540,20 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = tx + 16 * j;
+          const int row = m0 + r, col = n0 + ty * 4 + i;
           float dcap;
-          const float x = score(s[i][j], sm_scale, softcap, dcap);
-          const bool vis = visible(m0 + r, n0 + ty * 4 + i, Nq, Nkv, causal, window);
+          float x = score(s[i][j], sm_scale, softcap, dcap);
+          if (ALIBI) x -= slope * float(row + q_off - col);
+          const bool vis = visible(row, col, Nq, Nkv, causal, window);
           const float p = vis ? expf(x - sLse[r]) : 0.f;
-          sP[(ty * 4 + i) * SS + r] = p;
-          sDS[(ty * 4 + i) * SS + r] = p * (dp[i][j] - sDelta[r]) * dcap;
+          if (DROP) {
+            const float keep = dropout_factor(stream, row, col, md);
+            sP[(ty * 4 + i) * SS + r] = p * keep;
+            sDS[(ty * 4 + i) * SS + r] = p * (dp[i][j] * keep - sDelta[r]) * dcap;
+          } else {
+            sP[(ty * 4 + i) * SS + r] = p;
+            sDS[(ty * 4 + i) * SS + r] = p * (dp[i][j] - sDelta[r]) * dcap;
+          }
         }
       }
       __syncthreads();
@@ -561,13 +601,14 @@ constexpr size_t dq_f32_smem_bytes() {
   return sizeof(float) * (4 * 64 * size_t(D + 1) + 64 * 65 + 2 * 64);
 }
 
-template <int D>
+template <int D, bool ALIBI, bool DROP>
 __global__ void __launch_bounds__(F32_THREADS)
 attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, const float* __restrict__ dout,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        float* __restrict__ dq, int Hq, int Hkv, int Nq, int Nkv,
-                       float sm_scale, int causal, int window, float softcap) {
+                       float sm_scale, int causal, int window, float softcap,
+                       Mods md) {
   static_assert(Q_TILE == 64 && KV_TILE == 64, "the fp32 tiles are 64 x 64");
   constexpr int PS = D + 1;
   constexpr int SS = 64 + 1;
@@ -588,6 +629,9 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
   const int kvh = h / (Hq / Hkv);
   const size_t bh = size_t(b) * Hq + h;
+  const int q_off = Nkv - Nq;
+  const float slope = ALIBI ? md.slopes[h] : 0.f;
+  const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
   const float* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
   const float* vb = v + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
 
@@ -646,11 +690,14 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int r = ty * 4 + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        const int row = m0 + r, col = n0 + tx + 16 * j;
         float dcap;
-        const float x = score(s[i][j], sm_scale, softcap, dcap);
-        const bool vis = visible(m0 + r, n0 + tx + 16 * j, Nq, Nkv, causal, window);
+        float x = score(s[i][j], sm_scale, softcap, dcap);
+        if (ALIBI) x -= slope * float(row + q_off - col);
+        const bool vis = visible(row, col, Nq, Nkv, causal, window);
         const float p = vis ? expf(x - sLse[r]) : 0.f;
-        sDS[r * SS + tx + 16 * j] = p * (dp[i][j] - sDelta[r]) * dcap;
+        const float dpk = DROP ? dp[i][j] * dropout_factor(stream, row, col, md) : dp[i][j];
+        sDS[r * SS + tx + 16 * j] = p * (dpk - sDelta[r]) * dcap;
       }
     }
     __syncthreads();
@@ -690,6 +737,7 @@ struct Args {
   float sm_scale;
   int causal, window;
   float softcap;
+  Mods md;
   cudaStream_t stream;
 };
 
@@ -703,42 +751,42 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
   return int(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI, bool DROP>
 int launch_dkv(const Args& a, void* dk, void* dv) {
   const dim3 grid((a.Nkv + KV_TILE - 1) / KV_TILE, a.B * a.Hkv);
   if constexpr (sizeof(T) == 4) {
-    return launch(attn_bwd_dkv_f32_kernel<D>, dkv_f32_smem_bytes<D>(), grid,
+    return launch(attn_bwd_dkv_f32_kernel<D, ALIBI, DROP>, dkv_f32_smem_bytes<D>(), grid,
                   F32_THREADS, a.stream, static_cast<const float*>(a.q),
                   static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                   static_cast<const float*>(a.dout), a.lse, a.delta,
                   static_cast<float*>(dk), static_cast<float*>(dv), a.Hq, a.Hkv,
-                  a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap);
+                  a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
   } else {
-    return launch(attn_bwd_dkv_mma_kernel<T, D>, dkv_mma_smem_bytes<D>(), grid,
+    return launch(attn_bwd_dkv_mma_kernel<T, D, ALIBI, DROP>, dkv_mma_smem_bytes<D>(), grid,
                   TC_THREADS, a.stream, static_cast<const T*>(a.q),
                   static_cast<const T*>(a.k), static_cast<const T*>(a.v),
                   static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk),
                   static_cast<T*>(dv), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale,
-                  a.causal, a.window, a.softcap);
+                  a.causal, a.window, a.softcap, a.md);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI, bool DROP>
 int launch_dq(const Args& a, void* dq) {
   const dim3 grid((a.Nq + Q_TILE - 1) / Q_TILE, a.B * a.Hq);
   if constexpr (sizeof(T) == 4) {
-    return launch(attn_bwd_dq_f32_kernel<D>, dq_f32_smem_bytes<D>(), grid, F32_THREADS,
+    return launch(attn_bwd_dq_f32_kernel<D, ALIBI, DROP>, dq_f32_smem_bytes<D>(), grid, F32_THREADS,
                   a.stream, static_cast<const float*>(a.q),
                   static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                   static_cast<const float*>(a.dout), a.lse, a.delta,
                   static_cast<float*>(dq), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale,
-                  a.causal, a.window, a.softcap);
+                  a.causal, a.window, a.softcap, a.md);
   } else {
-    return launch(attn_bwd_dq_mma_kernel<T, D>, dq_mma_smem_bytes<D>(), grid, TC_THREADS,
+    return launch(attn_bwd_dq_mma_kernel<T, D, ALIBI, DROP>, dq_mma_smem_bytes<D>(), grid, TC_THREADS,
                   a.stream, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
                   static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
                   a.delta, static_cast<T*>(dq), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale,
-                  a.causal, a.window, a.softcap);
+                  a.causal, a.window, a.softcap, a.md);
   }
 }
 
@@ -760,21 +808,32 @@ int dispatch(int dtype, int D, P... params) {
 }
 
 template <typename T, int D> struct DkvFn {
-  static int run(const Args& a, void* dk, void* dv) { return launch_dkv<T, D>(a, dk, dv); }
+  static int run(const Args& a, void* dk, void* dv) {
+    return dispatch_mods(a.md, [&](auto alibi, auto drop) {
+      return launch_dkv<T, D, decltype(alibi)::value, decltype(drop)::value>(a, dk, dv);
+    });
+  }
 };
 template <typename T, int D> struct DqFn {
-  static int run(const Args& a, void* dq) { return launch_dq<T, D>(a, dq); }
+  static int run(const Args& a, void* dq) {
+    return dispatch_mods(a.md, [&](auto alibi, auto drop) {
+      return launch_dq<T, D, decltype(alibi)::value, decltype(drop)::value>(a, dq);
+    });
+  }
 };
 
-bool valid(int B, int Hq, int Hkv, int Nq, int Nkv) {
-  return B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Nq > 0 && Nkv > 0;
+bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
+  return B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Nq > 0 && Nkv > 0 &&
+         rate >= 0.f && rate < 1.f;
 }
 
 }  // namespace
 
 // All entry points: dtype 0 = float32, 1 = bfloat16, 2 = float16; tensors
-// contiguous, bf16/fp16 pointers 16-byte aligned.  Each returns
-// cudaGetLastError() after its launch (0 on success).
+// contiguous, bf16/fp16 pointers 16-byte aligned.  The sweeps take the
+// forward's ALiBi slopes ([Hq] fp32 on the device, or null) and dropout rate,
+// keep scale 1 / (1 - rate) and seed.  Each returns cudaGetLastError() after
+// its launch (0 on success).
 
 // delta[r] = sum_c o[r, c] * dout[r, c] in fp32, for `rows` rows of D.
 extern "C" int attn_bwd_preprocess(const void* o, const void* dout, float* delta,
@@ -807,10 +866,12 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             const float* lse, const float* delta, void* dk, void* dv,
                             int dtype, int B, int Hq, int Hkv, int Nq, int Nkv, int D,
                             float sm_scale, int causal, int window, float softcap,
+                            const float* slopes, float rate, float keep_scale, int seed,
                             void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv)) return int(cudaErrorInvalidValue);
+  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal,
-               window, softcap, static_cast<cudaStream_t>(stream)};
+               window, softcap, Mods{slopes, rate, keep_scale, uint32_t(seed)},
+               static_cast<cudaStream_t>(stream)};
   return dispatch<DkvFn>(dtype, D, a, dk, dv);
 }
 
@@ -818,10 +879,12 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const v
 extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                            const float* lse, const float* delta, void* dq, int dtype,
                            int B, int Hq, int Hkv, int Nq, int Nkv, int D, float sm_scale,
-                           int causal, int window, float softcap, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv)) return int(cudaErrorInvalidValue);
+                           int causal, int window, float softcap, const float* slopes,
+                           float rate, float keep_scale, int seed, void* stream) {
+  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal,
-               window, softcap, static_cast<cudaStream_t>(stream)};
+               window, softcap, Mods{slopes, rate, keep_scale, uint32_t(seed)},
+               static_cast<cudaStream_t>(stream)};
   return dispatch<DqFn>(dtype, D, a, dq);
 }
 

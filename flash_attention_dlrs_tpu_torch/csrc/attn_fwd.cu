@@ -1,19 +1,32 @@
 // Blocked attention forward (FlashAttention-2 style) for Hopper, sm_90a.
 //
-// Replaces the forward of four TPU kernels for the serving feature set:
-//   flash_attention_dlrs_tpu/ops/fwd_kernel.py  _fwd_kernel        (general tri/band grid)
+// Replaces the forward of four TPU kernels for the training and serving
+// feature set:
+//   flash_attention_dlrs_tpu/ops/fwd_kernel.py  _fwd_kernel        (general tri/band grid;
+//                                                                   ALiBi, dropout)
 //   flash_attention_dlrs_tpu/ops/fwd_mid.py     _mid_kernel        (causal pane, N <= 2048)
 //   flash_attention_dlrs_tpu/ops/fwd_mid.py     _mid_strip_kernel  (causal strip, N <= 8192)
 //   flash_attention_dlrs_tpu/ops/fwd_small.py   _small_kernel      (one-shot, N <= 512)
 // The TPU split that function by length to work around its grid-step
 // overhead and VMEM limits; one kernel here takes every length.
 //
-// Computes O = softmax(scale * Q K^T (+ softcap) + mask) V and the natural-base
-// logsumexp L per row, for q [B, Hq, Nq, d], k/v [B, Hkv, Nkv, d] (contiguous),
-// with causal masking aligned bottom-right (row i sits at kv position
-// i + Nkv - Nq), an optional sliding window on the causal band, an optional
-// logit softcap, any Nq/Nkv (ragged tails are masked here) and GQA
-// (kv head = h / (Hq / Hkv)).  A row that sees no key gets O = 0 and
+// Computes O = dropout(softmax(scale * Q K^T (+ softcap) + bias + mask)) V and
+// the natural-base logsumexp L per row, for q [B, Hq, Nq, d], k/v
+// [B, Hkv, Nkv, d] (contiguous), with causal masking aligned bottom-right (row
+// i sits at kv position i + Nkv - Nq), an optional sliding window on the
+// causal band, an optional logit softcap, any Nq/Nkv (ragged tails are masked
+// here) and GQA (kv head = h / (Hq / Hkv)).  ALiBi (common.cuh Mods) adds the
+// TRUE bias -m_h * (i + Nkv - Nq - col) after the softcap, so L is the true
+// logsumexp with no shift; the TPU kernel added the separable +m_h * col,
+// which here would cost precision (the term reaches ~1450 at col 2048, where
+// an fp32 ulp is ~1e-4) and save nothing: row and col are in registers for
+// the mask already, and the bias is one FMA per score.  Dropout multiplies P
+// by the counter-based mask of common.cuh (dropout_factor of batch, q head,
+// local row, column) after the row sum, so L stays undropped, and before P is
+// rounded for P V, as the plain version and the TPU kernel do; the hash is
+// ~25 integer operations per score on the CUDA cores.  Both modes are
+// template flags (common.cuh dispatch_mods): a call without them runs code
+// compiled without them.  A row that sees no key gets O = 0 and
 // L = DEFAULT_MASK_VALUE, the JAX package's stats_to_lse convention.
 // Inputs are fp32, bf16 or fp16 with d in {64, 128}.  The online softmax
 // keeps an exact running max (no static shift) and fp32 statistics.
@@ -56,12 +69,12 @@ constexpr size_t tc_smem_bytes() {
   return size_t(3) * BM * (D + 8) * 2;  // sQ, sK, sV of 16-bit elements
 }
 
-template <typename T, int D>
+template <typename T, int D, bool ALIBI, bool DROP>
 __global__ void __launch_bounds__(TC_THREADS)
 attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
                     float* __restrict__ lse, int Hq, int Hkv, int Nq, int Nkv,
-                    float sm_scale, int causal, int window, float softcap) {
+                    float sm_scale, int causal, int window, float softcap, Mods md) {
   constexpr int S = D + 8;          // padded row stride: conflict-free ldmatrix
   constexpr int KSTEPS = D / 16;    // k-steps of Q K^T
   constexpr int NT_S = BN / 8;      // score n-tiles per warp
@@ -79,6 +92,9 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
+  const int q_off = Nkv - Nq;
+  const float slope = ALIBI ? md.slopes[h] : 0.f;
+  const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
 
   const T* qb = q + (size_t(b) * Hq + h) * size_t(Nq) * D;
   const T* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
@@ -119,7 +135,7 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    // scale, softcap, mask; base-2 units from here on
+    // scale, softcap, ALiBi bias, mask; base-2 units from here on
     const bool unmasked = tile_unmasked<BM, BN>(m0, n0, Nq, Nkv, causal, window);
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) {
@@ -127,13 +143,13 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         float x = s[j][e] * sm_scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        x *= kLog2e;
-        if (!unmasked) {
+        if (ALIBI || !unmasked) {
           const int row = m0 + warp * 16 + g + (e >= 2 ? 8 : 0);
           const int col = n0 + j * 8 + 2 * t + (e & 1);
-          if (!visible(row, col, Nq, Nkv, causal, window)) x = -INFINITY;
+          if (ALIBI) x -= slope * float(row + q_off - col);
+          if (!unmasked && !visible(row, col, Nq, Nkv, causal, window)) x = -INFINITY;
         }
-        s[j][e] = x;
+        s[j][e] = x * kLog2e;
       }
     }
 
@@ -150,13 +166,15 @@ attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = exp2f(m_r[r] - m_use);  // 0 while the row saw nothing
       m_r[r] = m_new;
       float sum = 0.f;
+      const int row = m0 + warp * 16 + g + 8 * r;
 #pragma unroll
       for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
         for (int e = 2 * r; e < 2 * r + 2; ++e) {
           const float p = exp2f(s[j][e] - m_use);  // masked: exp2(-inf) = 0
-          s[j][e] = p;
-          sum += p;
+          sum += p;  // the row sum is undropped
+          s[j][e] = DROP ? p * dropout_factor(stream, row, n0 + j * 8 + 2 * t + (e & 1), md)
+                         : p;
         }
       }
       l_r[r] = l_r[r] * alpha + sum;
@@ -221,12 +239,12 @@ constexpr size_t f32_smem_bytes() {
           size_t(BM) * (BN + 1) + 3 * BM);
 }
 
-template <int D>
+template <int D, bool ALIBI, bool DROP>
 __global__ void __launch_bounds__(F32_THREADS)
 attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ o,
                     float* __restrict__ lse, int Hq, int Hkv, int Nq, int Nkv,
-                    float sm_scale, int causal, int window, float softcap) {
+                    float sm_scale, int causal, int window, float softcap, Mods md) {
   constexpr int QS = D + 1;   // padded row strides: conflict-free column walks
   constexpr int KS = D + 1;
   constexpr int SS = BN + 1;
@@ -249,6 +267,9 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bh / Hq;
   const int h = bh % Hq;
   const int kvh = h / (Hq / Hkv);
+  const int q_off = Nkv - Nq;
+  const float slope = ALIBI ? md.slopes[h] : 0.f;
+  const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
 
   const float* qb = q + (size_t(b) * Hq + h) * size_t(Nq) * D;
   const float* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
@@ -311,6 +332,7 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         const int col = n0 + tx + 16 * j;
         float x = s[i][j] * sm_scale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        if (ALIBI) x -= slope * float(row + q_off - col);
         sS[(ty * 4 + i) * SS + tx + 16 * j] =
             visible(row, col, Nq, Nkv, causal, window) ? x : -INFINITY;
       }
@@ -332,8 +354,8 @@ attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int c = spart; c < BN; c += 4) {
         const float p = expf(srow_p[c] - m_use);  // masked: exp(-inf) = 0
-        srow_p[c] = p;
-        sum += p;
+        sum += p;  // the row sum is undropped
+        srow_p[c] = DROP ? p * dropout_factor(stream, m0 + srow, n0 + c, md) : p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -402,52 +424,62 @@ struct Args {
   float sm_scale;
   int causal, window;
   float softcap;
+  Mods md;
   cudaStream_t stream;
 };
 
 template <typename T, int D>
 int launch_mma(const Args& a) {
-  auto kernel = attn_fwd_mma_kernel<T, D>;
-  constexpr size_t smem = tc_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
-  kernel<<<grid, TC_THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
-      a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap);
-  return int(cudaGetLastError());
+  return dispatch_mods(a.md, [&](auto alibi, auto drop) {
+    auto kernel = attn_fwd_mma_kernel<T, D, decltype(alibi)::value, decltype(drop)::value>;
+    constexpr size_t smem = tc_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
+    kernel<<<grid, TC_THREADS, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+        static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
+        a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
+    return int(cudaGetLastError());
+  });
 }
 
 template <int D>
 int launch_f32(const Args& a) {
-  auto kernel = attn_fwd_f32_kernel<D>;
-  constexpr size_t smem = f32_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
-  kernel<<<grid, F32_THREADS, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
-      a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap);
-  return int(cudaGetLastError());
+  return dispatch_mods(a.md, [&](auto alibi, auto drop) {
+    auto kernel = attn_fwd_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value>;
+    constexpr size_t smem = f32_smem_bytes<D>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
+    kernel<<<grid, F32_THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+        static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse, a.Hq,
+        a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
+    return int(cudaGetLastError());
+  });
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  bf16/fp16 pointers must be
-// 16-byte aligned.  Returns cudaGetLastError() after the launch (0 on
-// success); launches nothing for an empty problem.
+// 16-byte aligned.  slopes: [Hq] fp32 on the device, or null (no ALiBi);
+// rate 0 disables dropout, keep_scale = 1 / (1 - rate), seed the int32 seed.
+// Returns cudaGetLastError() after the launch (0 on success); launches
+// nothing for an empty problem.
 extern "C" int attn_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, int dtype, int B, int Hq, int Hkv, int Nq,
                         int Nkv, int D, float sm_scale, int causal, int window,
-                        float softcap, void* stream) {
+                        float softcap, const float* slopes, float rate,
+                        float keep_scale, int seed, void* stream) {
   if (B <= 0 || Hq <= 0 || Nq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Nkv < 0) return int(cudaErrorInvalidValue);
+  if (Hkv <= 0 || Hq % Hkv != 0 || Nkv < 0 || rate < 0.f || rate >= 1.f)
+    return int(cudaErrorInvalidValue);
   const Args a{q, k, v, o, lse, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
-               softcap, static_cast<cudaStream_t>(stream)};
+               softcap, Mods{slopes, rate, keep_scale, uint32_t(seed)},
+               static_cast<cudaStream_t>(stream)};
   if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
   switch (dtype) {
     case 0:

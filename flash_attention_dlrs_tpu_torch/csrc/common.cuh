@@ -1,7 +1,9 @@
-// Pieces shared by the attention kernels (attn_fwd.cu, attn_bwd.cu), sm_90a.
+// Pieces shared by the attention kernels (attn_fwd.cu, attn_bwd.cu,
+// paged_verify.cu), sm_90a.
 //
 // The masking rule of the JAX package (bottom-right causal alignment,
-// sliding window on the causal band, ragged KV tail), the tensor-core
+// sliding window on the causal band, ragged KV tail), the ALiBi and
+// attention-dropout arguments and the dropout mask, the tensor-core
 // fragment helpers (mma.sync.m16n8k16 with fp32 accumulate, ldmatrix) and
 // the 16-byte tile staging.  Each source that includes this file is its own
 // library (_cuda.py hashes the headers with it).
@@ -13,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,6 +49,55 @@ __device__ __forceinline__ bool tile_unmasked(int m0, int n0, int Nq, int Nkv,
     if (window > 0) full = full && (m0 + M - 1 + q_off) - n0 < window;
   }
   return full;
+}
+
+// ALiBi and attention dropout of one attention call (ops/fwd_kernel.py
+// mod_args).  The bias is the true -m_h * (q_pos - col), added after the
+// softcap and before the mask.
+struct Mods {
+  const float* slopes;  // [Hq] natural-base ALiBi slopes, or null
+  float rate;           // dropout rate; 0 = no dropout
+  float keep_scale;     // 1 / (1 - rate), rounded once from double
+  uint32_t seed;
+};
+
+// Wellons' lowbias32 mixer: the JAX package's int32 version bit for bit
+// (wrapping multiplies, logical shifts).
+__device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  return x ^ (x >> 16);
+}
+
+// The dropout stream of (batch b, q head h): lowbias32(seed ^ (b*65599 + h)).
+__device__ __forceinline__ uint32_t dropout_stream(uint32_t seed, int b, int h) {
+  return lowbias32(seed ^ uint32_t(b * 65599 + h));
+}
+
+// The keep/scale factor of element (local q row, kv column), as
+// ops/fwd_kernel.py dropout_keep_mask: keep_scale where the 24 low bits of
+// lowbias32(row ^ lowbias32(col + stream)), times 2^-24, reach the rate.
+__device__ __forceinline__ float dropout_factor(uint32_t stream, int row, int col,
+                                                const Mods& md) {
+  const uint32_t bits = lowbias32(uint32_t(row) ^ lowbias32(uint32_t(col) + stream));
+  return float(bits & 0xFFFFFFu) * 5.9604644775390625e-8f >= md.rate ? md.keep_scale
+                                                                     : 0.f;
+}
+
+// Calls fn(alibi, drop) with std::true_type / std::false_type for the
+// modes the call asks for: the kernels take ALiBi and dropout as template
+// flags, so a call without them runs code compiled without them (runtime
+// branches in the unrolled tile loops cost registers, and 14-40% of the
+// mode-free kernels' time on the H100).
+template <typename Fn>
+int dispatch_mods(const Mods& md, Fn&& fn) {
+  const bool alibi = md.slopes != nullptr, drop = md.rate > 0.f;
+  if (alibi && drop) return fn(std::true_type{}, std::true_type{});
+  if (alibi) return fn(std::true_type{}, std::false_type{});
+  if (drop) return fn(std::false_type{}, std::true_type{});
+  return fn(std::false_type{}, std::false_type{});
 }
 
 struct TileRange {

@@ -4,9 +4,8 @@
 //   flash_attention_dlrs_tpu/ops/decode.py  _decode_kernel  (via _paged_decode,
 //   paged_decode_attention)
 // for every pool kind of paged.cuh: float32 / bfloat16 / float16 values and
-// int8 / packed int4 / fp8 (e4m3fn, e5m2) payloads with per-token scales.
-// Its multi-token verify mode is paged_verify.cu; ALiBi is not here yet
-// (ROADMAP queue 2).
+// int8 / packed int4 / fp8 (e4m3fn, e5m2) payloads with per-token scales,
+// with ALiBi.  Its multi-token verify mode is paged_verify.cu.
 //
 // Computes, for each sequence b and q head h,
 //   O[b, h] = softmax(S[b, h, :len]) V[b, :len]
@@ -25,7 +24,12 @@
 //      first, as the TPU kernel orders it), the score is an exact __dp4a
 //      dot over d, times max|q| * (1/127), times the K scale;
 //    - fp8 K converts natively (cuda_fp8.h; exact in fp32) into an fp32 dot.
-//  Softcap applies after the scales and before the length mask.
+//  Softcap applies after the scales, then ALiBi's true bias
+//  -m_h * (len - 1 - pos) (the single query sits at len - 1), never inside
+//  the integer dot; the lse is then the true one (the wrapper publishes it
+//  shifted by +m_h * (len - 1), the JAX convention).  The TPU kernel added
+//  the separable +m_h * pos instead; the true form costs the same FMA here
+//  and keeps the scores small.
 //
 // Bound on this card.  Decode is bound by bytes: every step reads each live
 // K/V row once (2 * len * d * bytes per kv head, plus 8 bytes of scales per
@@ -103,7 +107,7 @@ paged_decode_kernel(const void* __restrict__ q, int q_dtype,
                     const int* __restrict__ page_table, void* __restrict__ o,
                     float* __restrict__ lse, int Hq, int Hkv, int P,
                     int page_size, int pages_per_seq, float sm_scale,
-                    float softcap) {
+                    float softcap, const float* __restrict__ slopes) {
   constexpr bool QUANT = is_quantized(KIND);
   constexpr bool INT_ROUTE = KIND == kI8 || KIND == kI4;
   constexpr int EB = stored_bytes(KIND);
@@ -251,6 +255,7 @@ paged_decode_kernel(const void* __restrict__ q, int q_dtype,
         x = QUANT ? dot * sKs[r] : dot * sm_scale;
       }
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      if (slopes != nullptr) x -= slopes[h0 + g] * float(len - 1 - (t0 + r));
       sS[g * TILE + r] = x;
     }
     __syncthreads();
@@ -323,6 +328,7 @@ struct Args {
   float* lse;
   int B, Hq, Hkv, P, page_size, pages_per_seq;
   float sm_scale, softcap;
+  const float* slopes;
   cudaStream_t stream;
 };
 
@@ -337,7 +343,7 @@ int launch(const Args& a) {
   kernel<<<grid, D, smem, a.stream>>>(
       a.q, a.q_dtype, a.k_pages, a.v_pages, a.k_scales, a.v_scales, a.lengths,
       a.page_table, a.o, a.lse, a.Hq, a.Hkv, a.P, a.page_size,
-      a.pages_per_seq, a.sm_scale, a.softcap);
+      a.pages_per_seq, a.sm_scale, a.softcap, a.slopes);
   return int(cudaGetLastError());
 }
 
@@ -353,7 +359,8 @@ int launch_d(int D, const Args& a) {
 // kv_kind: a PoolKind of paged.cuh.  page_size is the LOGICAL page size (an
 // int4 pool stores page_size/2 rows).  Quantized kinds need k_scales and
 // v_scales [Hkv, P, page_size] fp32 and take sm_scale rounded to q's dtype;
-// value kinds ignore the scale pointers.  lse may be null.  Pools must be
+// value kinds ignore the scale pointers.  lse may be null.  slopes: [Hq]
+// fp32 ALiBi slopes on the device, or null.  Pools must be
 // 16-byte aligned.  A GQA group too large for shared memory is refused by
 // cudaFuncSetAttribute and reported through the return code.  Returns
 // cudaGetLastError() after the launch (0 on success); launches nothing for
@@ -364,7 +371,8 @@ extern "C" int paged_decode(const void* q, int q_dtype, const void* k_pages,
                             const int* lengths, const int* page_table, void* o,
                             float* lse, int B, int Hq, int Hkv, int P,
                             int page_size, int pages_per_seq, int D,
-                            float sm_scale, float softcap, void* stream) {
+                            float sm_scale, float softcap, const float* slopes,
+                            void* stream) {
   if (B <= 0 || Hq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || page_size <= 0 || pages_per_seq <= 0 ||
       (kv_kind == kI4 && page_size % 2) ||
@@ -372,7 +380,7 @@ extern "C" int paged_decode(const void* q, int q_dtype, const void* k_pages,
     return int(cudaErrorInvalidValue);
   const Args a{q, q_dtype, k_pages, v_pages, k_scales, v_scales, lengths,
                page_table, o, lse, B, Hq, Hkv, P, page_size, pages_per_seq,
-               sm_scale, softcap, static_cast<cudaStream_t>(stream)};
+               sm_scale, softcap, slopes, static_cast<cudaStream_t>(stream)};
   switch (kv_kind) {
     case kF32: return launch_d<kF32>(D, a);
     case kBF16: return launch_d<kBF16>(D, a);

@@ -4,7 +4,7 @@
 // Replaces the multi-token mode of the TPU kernel
 //   flash_attention_dlrs_tpu/ops/decode.py  _decode_kernel  (num_tokens > 1,
 //   s8_scores=False; via _paged_decode, paged_verify_attention)
-// for every pool kind of paged.cuh.  ALiBi is not here yet (ROADMAP queue 2).
+// for every pool kind of paged.cuh, with ALiBi.
 //
 // q is [B, Hq, T, d]: T new tokens per sequence whose K/V are already in the
 // pages; lengths [B] int32 are the FINAL lengths (the T tokens counted,
@@ -15,9 +15,11 @@
 // arithmetic is the TPU kernel's dequantized route: q pre-scaled in its own
 // dtype (the caller passes sm_scale rounded to it), K and V payloads cast to
 // q's dtype unscaled (exact for every quantized kind), S = q . k in fp32
-// times the K scale (+ softcap), an online softmax with an exact running
-// max, and P * v_scale rounded to q's dtype before P V.  Value pools have
-// scale 1; in bf16/fp16 they must be of q's dtype.
+// times the K scale (+ softcap), ALiBi's true bias -m_h * (q_pos - pos) with
+// row t at q_pos = length - T + t (one below its horizon, the same
+// alignment as the mask; one FMA per score), an online softmax with an exact
+// running max, and P * v_scale rounded to q's dtype before P V.  Value pools
+// have scale 1; in bf16/fp16 they must be of q's dtype.
 //
 // Bound on this card.  A 256-token chunk against a 2048-token context is
 // bound by operations: 4 * (T*G rows) * ctx * d flops per kv head against
@@ -52,6 +54,7 @@ struct Args {
   void* o;
   int B, Hq, Hkv, T, P, page_size, pages_per_seq;
   float scale_q, softcap;
+  const float* slopes;  // [Hq] ALiBi slopes, or null
   cudaStream_t stream;
 };
 
@@ -196,11 +199,13 @@ paged_verify_mma_kernel(const Args a) {
   for (int ks = 0; ks < KSTEPS; ++ks)
     ldsm_x4(qf[ks], a_frag<S>(sQ, warp * 16, ks * 16, lane));
 
-  int horizon[2];  // positions < horizon visible, rows g and g + 8
+  int horizon[2];    // positions < horizon visible, rows g and g + 8
+  float slope[2];    // their ALiBi slopes (0 without ALiBi)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = m0 + warp * 16 + gq + 8 * r;
     horizon[r] = row < rows ? len - (a.T - 1 - row / G) : 0;
+    slope[r] = a.slopes != nullptr && row < rows ? a.slopes[kvh * G + row % G] : 0.f;
   }
 
   float acc[NT_O][4];
@@ -233,7 +238,8 @@ paged_verify_mma_kernel(const Args a) {
       }
     }
 
-    // K scale, softcap, horizon mask; base-2 units from here on
+    // K scale, softcap, ALiBi bias (q_pos = horizon - 1), horizon mask;
+    // base-2 units from here on
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
@@ -241,6 +247,7 @@ paged_verify_mma_kernel(const Args a) {
         const int c = j * 8 + 2 * tq + (e & 1);
         float x = s[j][e] * sKs[c];
         if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+        x -= slope[e >> 1] * float(horizon[e >> 1] - 1 - (n0 + c));
         s[j][e] = n0 + c < horizon[e >> 1] ? x * kLog2e : -INFINITY;
       }
     }
@@ -322,9 +329,10 @@ paged_verify_mma_kernel(const Args a) {
 template <int D>
 constexpr size_t f32_smem_bytes() {
   // sQ [VBM][D+1], sK [VBN][D+1], sV [VBN][D], sS [VBM][VBN+1], sAlpha [VBM],
-  // sKs / sVs [VBN], sHz [VBM] (ints); then sOff (size_t), sHi (int) [VBN]
+  // sHz [VBM] (ints), sSl [VBM], sKs / sVs [VBN]; then sOff (size_t), sHi
+  // (int) [VBN]
   const size_t f = size_t(VBM) * (D + 1) + size_t(VBN) * (D + 1) + size_t(VBN) * D +
-                   size_t(VBM) * (VBN + 1) + 2 * VBM + 2 * VBN;
+                   size_t(VBM) * (VBN + 1) + 3 * VBM + 2 * VBN;
   return ((f + 1) & ~size_t(1)) * sizeof(float) + VBN * (sizeof(size_t) + sizeof(int));
 }
 
@@ -336,7 +344,7 @@ paged_verify_f32_kernel(const Args a) {
   constexpr int SS = VBN + 1;
   constexpr int OJ = D / 16;  // output columns per thread
   constexpr size_t F = size_t(VBM) * QS + size_t(VBN) * KS + size_t(VBN) * D +
-                       size_t(VBM) * SS + 2 * VBM + 2 * VBN;
+                       size_t(VBM) * SS + 3 * VBM + 2 * VBN;
 
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -345,7 +353,8 @@ paged_verify_f32_kernel(const Args a) {
   float* sS = sV + VBN * D;
   float* sAlpha = sS + VBM * SS;
   int* sHz = reinterpret_cast<int*>(sAlpha + VBM);
-  float* sKs = reinterpret_cast<float*>(sHz + VBM);
+  float* sSl = reinterpret_cast<float*>(sHz + VBM);
+  float* sKs = sSl + VBM;
   float* sVs = sKs + VBN;
   size_t* sOff = reinterpret_cast<size_t*>(smem + ((F + 1) & ~size_t(1)));
   int* sHi = reinterpret_cast<int*>(sOff + VBN);
@@ -369,6 +378,7 @@ paged_verify_f32_kernel(const Args a) {
   for (int r = tid; r < VBM; r += F32_THREADS) {
     const int row = m0 + r;
     sHz[r] = row < rows ? len - (a.T - 1 - row / G) : 0;
+    sSl[r] = a.slopes != nullptr && row < rows ? a.slopes[kvh * G + row % G] : 0.f;
   }
 
   const int srow = tid / 4, spart = tid % 4;  // softmax: 4 threads per row
@@ -432,6 +442,7 @@ paged_verify_f32_kernel(const Args a) {
         const int c = tx + 16 * j;
         float x = s[i][j] * sKs[c];
         if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+        x -= sSl[r] * float(sHz[r] - 1 - (n0 + c));
         sS[r * SS + c] = n0 + c < sHz[r] ? x : -INFINITY;
       }
     }
@@ -534,15 +545,16 @@ int launch_f32(const Args& a) {
 // PoolKind of paged.cuh; a bf16/fp16 value pool must be q's dtype.
 // page_size is the LOGICAL page size.  Quantized kinds need k_scales and
 // v_scales [Hkv, P, page_size] fp32.  scale_q is sm_scale rounded to q's
-// dtype.  Pools and q must be 16-byte aligned.  Returns cudaGetLastError()
-// after the launch (0 on success); launches nothing for an empty problem.
+// dtype.  slopes: [Hq] fp32 ALiBi slopes on the device, or null.  Pools and
+// q must be 16-byte aligned.  Returns cudaGetLastError() after the launch (0
+// on success); launches nothing for an empty problem.
 extern "C" int paged_verify(const void* q, int q_dtype, const void* k_pages,
                             const void* v_pages, int kv_kind,
                             const float* k_scales, const float* v_scales,
                             const int* lengths, const int* page_table, void* o,
                             int B, int Hq, int Hkv, int T, int P, int page_size,
                             int pages_per_seq, int D, float scale_q,
-                            float softcap, void* stream) {
+                            float softcap, const float* slopes, void* stream) {
   if (B <= 0 || Hq <= 0 || T <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || page_size <= 0 || pages_per_seq <= 0 ||
       kv_kind < kF32 || kv_kind > kE5M2 || (kv_kind == kI4 && page_size % 2) ||
@@ -551,7 +563,7 @@ extern "C" int paged_verify(const void* q, int q_dtype, const void* k_pages,
     return int(cudaErrorInvalidValue);
   const Args a{q, kv_kind, k_pages, v_pages, k_scales, v_scales, lengths,
                page_table, o, B, Hq, Hkv, T, P, page_size, pages_per_seq,
-               scale_q, softcap, static_cast<cudaStream_t>(stream)};
+               scale_q, softcap, slopes, static_cast<cudaStream_t>(stream)};
   switch (q_dtype) {
     case 0:
       return D == 64 ? launch_f32<64>(a) : launch_f32<128>(a);

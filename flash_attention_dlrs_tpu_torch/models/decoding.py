@@ -2,7 +2,8 @@
 
 Prefill runs the causal attention kernel over the prompt and returns each
 layer's K/V for the paged cache; the decode step embeds the batch's current
-tokens and, per layer, projects QKV, applies RoPE at the absolute position,
+tokens and, per layer, projects QKV, applies RoPE at the absolute position
+(an ALiBi model rotates nothing: every attention call takes its slopes),
 writes the new K/V into the page pools in place (quantizing on write for
 int8 / int4 / fp8 pools) and attends over the pages with
 :func:`..ops.decode.paged_decode_attention`; the verify step does the same
@@ -30,8 +31,8 @@ from ..ops.quantization import (
     quantize_int4_values,
 )
 from .transformer import (
-    ModelConfig, Transformer, _proj, apply_rope, logits_from_hidden,
-    mlp_block, rms_norm, rope_tables,
+    ModelConfig, Transformer, _cfg_slopes, _proj, apply_rope,
+    logits_from_hidden, mlp_block, rms_norm, rope_tables,
 )
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -177,27 +178,31 @@ def make_prefill(cfg: ModelConfig):
     """(model, tokens [B, T], lengths [B]) -> (last-token logits [B, V] fp32,
     per-layer K/V [L] of ([B, Hkv, T, d], [B, Hkv, T, d])).  T may be
     padded: attention is causal, so padding rows only look back and are
-    discarded; ``lengths`` picks each row's last real token."""
+    discarded, and the ALiBi bias of a real row depends only on its own
+    position; ``lengths`` picks each row's last real token."""
+    slopes = _cfg_slopes(cfg)
 
     @torch.inference_mode()
     def prefill(model: Transformer, tokens, lengths):
         b, t = tokens.shape
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         x = model.embed[tokens]
-        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        if slopes is None:
+            rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
         kvs = []
         for layer in model.layers:
             h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
             q = _proj(h, layer.wq).reshape(b, t, cfg.n_q_heads, cfg.head_dim)
             k = _proj(h, layer.wk).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
             v = _proj(h, layer.wv).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-            q = apply_rope(q, *rope_cs)
-            k = apply_rope(k, *rope_cs)
+            if slopes is None:
+                q = apply_rope(q, *rope_cs)
+                k = apply_rope(k, *rope_cs)
             kvs.append((k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous()))
             o = flash_attention(
                 q.transpose(1, 2).contiguous(), kvs[-1][0], kvs[-1][1],
-                causal=True, sm_scale=cfg.sm_scale,
+                causal=True, sm_scale=cfg.sm_scale, alibi_slopes=slopes,
             )
             x = x + _proj(o.transpose(1, 2).reshape(b, t, -1), layer.wo)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
@@ -223,7 +228,8 @@ def make_decode_step(cfg: ModelConfig):
      -> (logits [B, V] fp32, pools)
 
     ``positions`` is the absolute index of the incoming token; ``lengths``
-    already counts it."""
+    already counts it (an ALiBi model's query sits at lengths − 1)."""
+    slopes = _cfg_slopes(cfg)
 
     @torch.inference_mode()
     def decode_step(model: Transformer, pools: KVPools, tokens, positions,
@@ -231,20 +237,22 @@ def make_decode_step(cfg: ModelConfig):
         b = tokens.shape[0]
         rows, offs = page_rows.long()[:, None], page_offs.long()[:, None]
         x = model.embed[tokens]  # [B, dm]
-        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, 1, d/2]
+        if slopes is None:
+            rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, 1, d/2]
         for li, layer in enumerate(model.layers):
             h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
             q = _proj(h, layer.wq).reshape(b, cfg.n_q_heads, cfg.head_dim)
             k = _proj(h, layer.wk).reshape(b, cfg.n_kv_heads, cfg.head_dim)
             v = _proj(h, layer.wv).reshape(b, cfg.n_kv_heads, cfg.head_dim)
-            q = apply_rope(q, *rope_cs)  # RoPE at each token's absolute position
-            k = apply_rope(k, *rope_cs)
+            if slopes is None:
+                q = apply_rope(q, *rope_cs)  # RoPE at each token's absolute position
+                k = apply_rope(k, *rope_cs)
             # this token's K/V into its (page, offset): [Hkv, B, 1, d]
             _write_tokens(pools, li, rows, offs, k.transpose(0, 1)[:, :, None],
                           v.transpose(0, 1)[:, :, None])
             o = paged_decode_attention(
                 q.contiguous(), *pools.layer(li), lengths, page_tbl,
-                sm_scale=cfg.sm_scale,
+                sm_scale=cfg.sm_scale, alibi_slopes=slopes,
             )  # [B, Hq, d]
             x = x + _proj(o.reshape(b, -1), layer.wo)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
@@ -270,9 +278,11 @@ def make_verify_step(cfg: ModelConfig, num_tokens: int):
     Writes all T tokens' K/V into the pools, then scores every position
     with :func:`..ops.decode.paged_verify_attention`: token t attends to
     positions < lengths − (T−1−t).  ``lengths`` is the FINAL length (all T
-    counted).  The T tokens of a sequence sit at consecutive positions;
-    padding tokens may all write to one scratch page."""
+    counted).  The T tokens of a sequence sit at consecutive positions
+    (an ALiBi model's token t at lengths − T + t); padding tokens may all
+    write to one scratch page."""
     t_new = num_tokens
+    slopes = _cfg_slopes(cfg)
 
     @torch.inference_mode()
     def verify_step(model: Transformer, pools: KVPools, tokens, positions,
@@ -280,20 +290,22 @@ def make_verify_step(cfg: ModelConfig, num_tokens: int):
         b = tokens.shape[0]
         rows, offs = page_rows.long(), page_offs.long()
         x = model.embed[tokens]  # [B, T, dm]
-        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, T, 1, d/2]
+        if slopes is None:
+            rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, T, 1, d/2]
         for li, layer in enumerate(model.layers):
             h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
             q = _proj(h, layer.wq).reshape(b, t_new, cfg.n_q_heads, cfg.head_dim)
             k = _proj(h, layer.wk).reshape(b, t_new, cfg.n_kv_heads, cfg.head_dim)
             v = _proj(h, layer.wv).reshape(b, t_new, cfg.n_kv_heads, cfg.head_dim)
-            q = apply_rope(q, *rope_cs)
-            k = apply_rope(k, *rope_cs)
+            if slopes is None:
+                q = apply_rope(q, *rope_cs)
+                k = apply_rope(k, *rope_cs)
             # all B·T tokens' K/V: [Hkv, B, T, d]
             _write_tokens(pools, li, rows, offs, k.permute(2, 0, 1, 3),
                           v.permute(2, 0, 1, 3))
             o = paged_verify_attention(
                 q.transpose(1, 2).contiguous(), *pools.layer(li), lengths,
-                page_tbl, sm_scale=cfg.sm_scale,
+                page_tbl, sm_scale=cfg.sm_scale, alibi_slopes=slopes,
             )  # [B, Hq, T, d]
             x = x + _proj(o.transpose(1, 2).reshape(b, t_new, -1), layer.wo)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)

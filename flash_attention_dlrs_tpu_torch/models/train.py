@@ -110,18 +110,34 @@ def make_train_state(
     return model, optimizer.init(model), optimizer
 
 
+def dropout_seed_of(cfg: ModelConfig, dropout_seed):
+    """The step's dropout seed: required (an int, e.g. the step index) when
+    ``cfg.attn_dropout``, ignored otherwise."""
+    if not cfg.attn_dropout:
+        return None
+    if dropout_seed is None:
+        raise ValueError(
+            "cfg.attn_dropout > 0: the train step takes a 4th argument, the "
+            "int dropout_seed (pass the step index)")
+    return int(dropout_seed)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: AdamW, mesh=None):
-    """``step(model, opt_state, tokens [B, N+1]) -> loss``: the loss and its
-    gradients (:func:`~.transformer.loss_fn`), then one optimizer update.
-    Unlike the JAX step, which is functional and donates its inputs, this
-    one updates ``model`` and ``opt_state`` IN PLACE.  ``tokens`` lie on the
-    model's device; the returned loss is a 0-d tensor there."""
+    """``step(model, opt_state, tokens [B, N+1], dropout_seed=None) ->
+    loss``: the loss and its gradients (:func:`~.transformer.loss_fn`), then
+    one optimizer update.  With ``cfg.attn_dropout`` the step needs the
+    ``dropout_seed`` (pass the step index): the masks are a pure function of
+    it, so training stays bitwise reproducible.  Unlike the JAX step, which
+    is functional and donates its inputs, this one updates ``model`` and
+    ``opt_state`` IN PLACE.  ``tokens`` lie on the model's device; the
+    returned loss is a 0-d tensor there."""
     if mesh is not None:
         raise NotImplementedError(_NOT_YET.format("mesh-sharded training"))
 
-    def step(model: Transformer, opt_state: OptState, tokens):
+    def step(model: Transformer, opt_state: OptState, tokens, dropout_seed=None):
+        seed = dropout_seed_of(cfg, dropout_seed)
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(model, tokens, cfg)
+        loss = loss_fn(model, tokens, cfg, dropout_seed=seed)
         loss.backward()
         optimizer.update(model, opt_state)
         return loss.detach()

@@ -26,7 +26,8 @@ from .._cuda import resolve_device
 from ..runtime.data import LoaderState
 from ..utils import checkpoint as ckpt_lib
 from ..utils.metrics import MetricsLogger, ThroughputMeter
-from .train import _NOT_YET, AdamW, OptState, make_train_step
+from ..ops.fwd_kernel import int32_seed
+from .train import _NOT_YET, AdamW, OptState, dropout_seed_of, make_train_step
 from .transformer import ModelConfig, Transformer, loss_fn
 from .weights import init_params_numpy, params_from_jax
 
@@ -114,15 +115,18 @@ def make_optimizer(spec: TrainSpec) -> AdamW:
 
 def make_accum_train_step(cfg: ModelConfig, optimizer: AdamW, mesh=None, *,
                           accum_steps: int):
-    """``step(model, opt_state, tokens [A·b, N+1]) -> loss``: the batch is
-    split into ``accum_steps`` microbatches of consecutive rows, their
-    gradients are averaged into an fp32 running mean (each g / A added in
-    turn, as the JAX scan does), then ONE optimizer update, in place.  Peak
+    """``step(model, opt_state, tokens [A·b, N+1], dropout_seed=None) ->
+    loss``: the batch is split into ``accum_steps`` microbatches of
+    consecutive rows, their gradients are averaged into an fp32 running mean
+    (each g / A added in turn, as the JAX scan does), then ONE optimizer
+    update, in place.  Microbatch i draws its dropout from the sub-seed
+    seed + 7368787·i in int32 wrap-around, as the JAX step does.  Peak
     memory is one microbatch's activations plus the fp32 mean."""
     if mesh is not None:
         raise NotImplementedError(_NOT_YET.format("mesh-sharded training"))
 
-    def step(model: Transformer, opt_state: OptState, tokens):
+    def step(model: Transformer, opt_state: OptState, tokens, dropout_seed=None):
+        seed = dropout_seed_of(cfg, dropout_seed)
         b_total, n = tokens.shape
         if b_total % accum_steps:
             raise ValueError(
@@ -130,9 +134,10 @@ def make_accum_train_step(cfg: ModelConfig, optimizer: AdamW, mesh=None, *,
         params = list(model.parameters())
         mean = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         loss_mean = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for micro in tokens.reshape(accum_steps, b_total // accum_steps, n):
+        for i, micro in enumerate(tokens.reshape(accum_steps, b_total // accum_steps, n)):
             model.zero_grad(set_to_none=True)
-            loss = loss_fn(model, micro, cfg)
+            sub = None if seed is None else int32_seed(seed + 7368787 * i)
+            loss = loss_fn(model, micro, cfg, dropout_seed=sub)
             loss.backward()
             for m, p in zip(mean, params):
                 m.add_(p.grad / accum_steps)
@@ -182,7 +187,9 @@ def fit(
     ``lambda state: iterator`` so a resumed run can rebuild the stream from
     the checkpointed cursor.  With ``checkpoint_dir`` set, an existing
     checkpoint resumes the step, the weights, the optimizer moments and
-    (for a callable ``batches``) the data cursor."""
+    (for a callable ``batches``) the data cursor.  With ``cfg.attn_dropout``
+    step i draws its dropout masks from seed i, so a resumed run stays
+    bitwise equal to the uninterrupted one."""
     if mesh is not None:
         raise NotImplementedError(_NOT_YET.format("mesh-sharded training"))
     device = resolve_device(device)
@@ -215,7 +222,7 @@ def fit(
     for step in range(start_step, steps):
         tokens, loader_state = next(batches)
         tokens = torch.from_numpy(np.asarray(tokens)).to(device)
-        loss = step_fn(model, opt_state, tokens)
+        loss = step_fn(model, opt_state, tokens, step if cfg.attn_dropout else None)
         meter.update(int(tokens.numel()))
         if logger and (step % log_every == 0 or step == steps - 1):
             logger.log(step, loss=float(loss), tokens_per_s=meter.rate)

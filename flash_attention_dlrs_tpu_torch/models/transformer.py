@@ -1,7 +1,7 @@
 """Decoder-only GQA transformer, PyTorch port of ``flash_attention_dlrs_tpu/models/transformer.py``.
 
-RMSNorm → (RoPE, GQA attention) → RMSNorm → SwiGLU, residual around both,
-tied embeddings by default.  Parameters live in :class:`Transformer`, an
+RMSNorm → (RoPE or ALiBi, GQA attention) → RMSNorm → SwiGLU, residual
+around both, tied embeddings by default.  Parameters live in :class:`Transformer`, an
 ``nn.Module`` with the JAX package's names and layouts (weights stored
 ``[in, out]`` so projections are ``x @ W``); the functions below take it in
 place of the JAX params dict.  Plain projections are ``torch.matmul``, as
@@ -9,6 +9,11 @@ the JAX package leaves them to XLA; attention goes through the port's
 kernels, forward and backward.  Parameters are trainable; the serving paths
 run under ``torch.inference_mode``.  Variants the port does not run yet
 raise when a :class:`ModelConfig` is built.
+
+Attention dropout runs only when a ``dropout_seed`` is passed (training):
+layer i draws its mask from the seed base + i·1299709, wrapped to int32 as
+the JAX package's int32 arithmetic wraps it, so a remat recompute and the
+backward see the forward's mask and training stays bitwise reproducible.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .._cuda import resolve_device
 from ..ops.flash_attention import flash_attention
+from ..ops.fwd_kernel import int32_seed
+from ..ops.reference import alibi_slopes_for
 
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 1 of the PyTorch port)"
 
@@ -34,7 +41,10 @@ class ModelConfig:
     ``remat_skip`` layers; the policies that pin named outputs
     (``save_flash``, ``save_dots``, ``save_matmuls``) raise
     ``NotImplementedError``.  ``loss_chunk`` chunks the cross entropy of
-    :func:`loss_fn`."""
+    :func:`loss_fn`.  ``position_encoding="alibi"`` replaces RoPE with the
+    per-head linear bias of :func:`alibi_slopes_for` (MPT/BLOOM);
+    ``attn_dropout`` is the attention-probability dropout rate of training
+    steps that pass a ``dropout_seed``."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -71,9 +81,7 @@ class ModelConfig:
             raise ValueError(f"unknown mlp_act {self.mlp_act!r}")
         unported = {
             "rope_scaling": self.rope_scaling is not None,
-            "position_encoding='alibi'": self.position_encoding == "alibi",
             "window": bool(self.window),
-            "attn_dropout": bool(self.attn_dropout),
             "mlp_act='gelu_tanh'": self.mlp_act == "gelu_tanh",
             "embed_scale": self.embed_scale,
             "attn_softcap": bool(self.attn_softcap),
@@ -178,26 +186,49 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
+def _cfg_slopes(cfg: ModelConfig):
+    """Per-head ALiBi slopes of an ALiBi config, else None (RoPE rotates
+    instead).  Every attention call of the model takes them."""
+    if cfg.position_encoding == "alibi":
+        return alibi_slopes_for(cfg.n_q_heads)
+    return None
+
+
+def layer_seed(dropout_seed, layer: int) -> int:
+    """Layer ``layer``'s dropout seed: base + layer·1299709 in int32
+    wrap-around (the JAX package's forward_hidden)."""
+    return int32_seed(int(dropout_seed) + layer * 1299709)
+
+
 def rope(x, positions, theta: float, scaling=None):
     """Rotary embedding on [..., N, H, d]; positions [..., N]."""
     return apply_rope(x, *rope_tables(positions, x.shape[-1], theta, scaling))
 
 
-def attention_block(layer: Block, x, rope_cs, cfg: ModelConfig):
-    """``rope_cs``: the (cos, sin) tables of the positions of x."""
+def attention_block(layer: Block, x, rope_cs, cfg: ModelConfig,
+                    dropout_seed: Optional[int] = None):
+    """``rope_cs``: the (cos, sin) tables of the positions of x, or None
+    under ALiBi (no rotation; the bias rides in the kernel).  With a
+    ``dropout_seed`` (this layer's) and ``cfg.attn_dropout``, attention
+    probabilities are dropped."""
     b, n, _ = x.shape
     h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
     q = _proj(h, layer.wq).reshape(b, n, cfg.n_q_heads, cfg.head_dim)
     k = _proj(h, layer.wk).reshape(b, n, cfg.n_kv_heads, cfg.head_dim)
     v = _proj(h, layer.wv).reshape(b, n, cfg.n_kv_heads, cfg.head_dim)
-    q = apply_rope(q, *rope_cs)
-    k = apply_rope(k, *rope_cs)
+    if rope_cs is not None:
+        q = apply_rope(q, *rope_cs)
+        k = apply_rope(k, *rope_cs)
+    rate = cfg.attn_dropout if dropout_seed is not None else 0.0
     o = flash_attention(
         q.transpose(1, 2).contiguous(),
         k.transpose(1, 2).contiguous(),
         v.transpose(1, 2).contiguous(),
         causal=True,
         sm_scale=cfg.sm_scale,
+        alibi_slopes=_cfg_slopes(cfg),
+        dropout_rate=rate,
+        dropout_seed=dropout_seed if rate else None,
     )
     o = o.transpose(1, 2).reshape(b, n, cfg.n_q_heads * cfg.head_dim)
     return x + _proj(o, layer.wo)
@@ -217,18 +248,20 @@ def mlp_block(layer: Block, x, eps: float = 1e-6, act: str = "silu"):
 _UNPORTED_REMAT = ("save_flash", "save_dots", "save_matmuls")
 
 
-def _block(layer: Block, x, rope_cs, cfg: ModelConfig):
-    x = attention_block(layer, x, rope_cs, cfg)
+def _block(layer: Block, x, rope_cs, cfg: ModelConfig, dropout_seed=None):
+    x = attention_block(layer, x, rope_cs, cfg, dropout_seed)
     return mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
 
 
 def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
-                   positions=None):
+                   positions=None, dropout_seed=None):
     """Token ids [B, N] → final-norm hidden states [B, N, d_model].  With
     ``cfg.remat`` and gradients on, each of the first ``n_layers −
     remat_skip`` layers runs under ``torch.utils.checkpoint`` (the JAX
     "block" policy): the backward recomputes it, attention kernel
-    included."""
+    included, with the layer's own dropout seed.  ALiBi assumes contiguous
+    positions: ``positions`` only feed RoPE.  ``dropout_seed`` (an int)
+    turns on ``cfg.attn_dropout``."""
     if cfg.remat and cfg.remat_policy in _UNPORTED_REMAT:
         raise NotImplementedError(
             _NOT_YET.format(f"remat_policy={cfg.remat_policy!r}"))
@@ -236,15 +269,19 @@ def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
     if positions is None:
         positions = torch.arange(n, device=tokens.device).expand(b, n)
     x = model.embed[tokens]
-    rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope_cs = None
+    if _cfg_slopes(cfg) is None:
+        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    dropping = dropout_seed is not None and bool(cfg.attn_dropout)
     n_ckpt = 0
     if cfg.remat and torch.is_grad_enabled():
         n_ckpt = cfg.n_layers - max(0, cfg.remat_skip)
     for i, layer in enumerate(model.layers):
+        seed = layer_seed(dropout_seed, i) if dropping else None
         if i < n_ckpt:
-            x = checkpoint(_block, layer, x, rope_cs, cfg, use_reentrant=False)
+            x = checkpoint(_block, layer, x, rope_cs, cfg, seed, use_reentrant=False)
         else:
-            x = _block(layer, x, rope_cs, cfg)
+            x = _block(layer, x, rope_cs, cfg, seed)
     return rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
@@ -254,11 +291,13 @@ def logits_from_hidden(x, model: Transformer):
     return torch.matmul(x.float(), unembed_matrix(model).float().t())
 
 
-def forward(model: Transformer, tokens, cfg: ModelConfig, *, positions=None):
+def forward(model: Transformer, tokens, cfg: ModelConfig, *, positions=None,
+            dropout_seed=None):
     """Token ids [B, N] → logits [B, N, vocab] fp32: the dense causal
     forward, which the tests use as the greedy oracle."""
     return logits_from_hidden(
-        forward_hidden(model, tokens, cfg, positions=positions), model)
+        forward_hidden(model, tokens, cfg, positions=positions,
+                       dropout_seed=dropout_seed), model)
 
 
 def unembed_matrix(model: Transformer):
@@ -289,16 +328,16 @@ def _chunk_nll(x_c, embed, t_c):
         logits.flatten(0, 1), t_c.flatten(), reduction="sum")
 
 
-def loss_fn(model: Transformer, tokens, cfg: ModelConfig):
+def loss_fn(model: Transformer, tokens, cfg: ModelConfig, *, dropout_seed=None):
     """Next-token cross entropy over tokens[:, :-1] → tokens[:, 1:]: the
     mean NLL from fp32 logits.  ``tokens`` [B, N+1] integer ids on the
-    model's device."""
+    model's device; ``dropout_seed`` as in :func:`forward_hidden`."""
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.loss_chunk:
-        x = forward_hidden(model, inputs, cfg)
+        x = forward_hidden(model, inputs, cfg, dropout_seed=dropout_seed)
         return chunked_cross_entropy(x, unembed_matrix(model), targets,
                                      cfg.loss_chunk)
-    logits = forward(model, inputs, cfg)
+    logits = forward(model, inputs, cfg, dropout_seed=dropout_seed)
     return torch.nn.functional.cross_entropy(
         logits.flatten(0, 1), targets.flatten())

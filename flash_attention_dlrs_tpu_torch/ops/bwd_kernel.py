@@ -7,7 +7,9 @@ replace the six backward TPU kernels of the JAX package —
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``,
 ``ops/bwd_fused.py::_bwd_fused_kernel`` and ``ops/bwd_mid.py::_bwd_mid_kernel``
 — for the forward's feature set (causal or not, GQA, ragged lengths, window,
-softcap).  The result is deterministic: every sum runs in a fixed order and
+softcap, ALiBi, attention dropout).  Dropout regenerates the forward's mask
+from the same seed: dV = (P∘M)ᵀdO and dS = P∘(M∘dP − D), with D =
+rowsum(dO∘O) unchanged.  The result is deterministic: every sum runs in a fixed order and
 no kernel uses atomics.  :func:`attn_bwd` sends CPU tensors to the plain
 PyTorch version :func:`attn_bwd_plain` and CUDA tensors to the kernels;
 each kernel's wrapper likewise has a plain version beside it.
@@ -20,7 +22,15 @@ import ctypes
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, stream_handle
-from .fwd_kernel import _PLAIN_CHUNK_ELEMS, KERNEL_HEAD_DIMS
+from .fwd_kernel import (
+    _PLAIN_CHUNK_ELEMS,
+    KERNEL_HEAD_DIMS,
+    MOD_ARGS,
+    _row_bias,
+    bias_and_mask,
+    dropout_rows,
+    mod_args,
+)
 
 PREPROCESS_KERNEL = CudaKernel(
     "attn_bwd.cu",
@@ -32,6 +42,7 @@ PREPROCESS_KERNEL = CudaKernel(
 _SWEEP_ARGS = (
     [ctypes.c_int] * 6  # dtype, B, Hq, Hkv, Nq, Nkv
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    + MOD_ARGS
     + [ctypes.c_void_p]  # stream
 )
 DKV_KERNEL = CudaKernel(
@@ -84,18 +95,28 @@ def attn_bwd_preprocess(o, do):
     return delta
 
 
-def _sweep_args(q, k, causal, sm_scale, window, softcap):
+def _sweep_args(q, k, causal, sm_scale, window, softcap, alibi_slopes,
+                dropout_rate, dropout_seed):
     b, hq, n_q, d = q.shape
     return (DTYPE_CODES[q.dtype], b, hq, k.shape[1], n_q, k.shape[2], d,
             float(sm_scale), int(bool(causal)), int(window), float(softcap),
+            *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
             stream_handle(q.device))
 
 
+def _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
+        dropout_seed):
+    return dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
+                alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
+                dropout_seed=dropout_seed)
+
+
 def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
-                 softcap=0.0):
+                 softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0):
     """(dK, dV) [B, Hkv, Nkv, d] in k's dtype: the dK/dV sweep kernel on a
     CUDA device, :func:`attn_bwd_dkv_plain` on the CPU."""
-    kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap)
+    kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
+             dropout_seed)
     if q.device.type == "cpu":
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -105,10 +126,11 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
 
 
 def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
-                softcap=0.0):
+                softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0):
     """dQ [B, Hq, Nq, d] in q's dtype: the dQ sweep kernel on a CUDA device,
     :func:`attn_bwd_dq_plain` on the CPU."""
-    kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap)
+    kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
+             dropout_seed)
     if q.device.type == "cpu":
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     dq = torch.empty_like(q)
@@ -118,15 +140,19 @@ def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
 
 
 def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
-             window: int = 0, softcap: float = 0.0):
-    """(dQ, dK, dV) of O = softmax(scale·QKᵀ (softcapped) + mask)V, given the
-    forward's O and natural-base lse [B, Hq, Nq] and the output gradient dO.
+             window: int = 0, softcap: float = 0.0, alibi_slopes=None,
+             dropout_rate: float = 0.0, dropout_seed: int = 0):
+    """(dQ, dK, dV) of O = dropout(softmax(scale·QKᵀ (softcapped) + ALiBi
+    bias + mask))V, given the forward's O and natural-base lse [B, Hq, Nq]
+    and the output gradient dO; ALiBi and dropout arguments as in
+    :func:`..fwd_kernel.attn_fwd`, matching the forward's.
 
     Arguments are validated by the caller (ops/flash_attention.py).  CPU
     tensors take :func:`attn_bwd_plain`; CUDA tensors launch the three
     kernels (preprocess, dK/dV sweep, dQ sweep), which take contiguous
     fp32/bf16/fp16 inputs with d in {64, 128}, or raise."""
-    kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap)
+    kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
+             dropout_seed)
     if q.device.type == "cpu":
         return attn_bwd_plain(q, k, v, o, lse, do, **kw)
     if q.device.type != "cuda":
@@ -150,51 +176,56 @@ def attn_bwd_preprocess_plain(o, do):
 
 
 def _plain_sweep(q, k, v, do, lse, delta, *, causal, sm_scale, window,
-                 softcap):
+                 softcap, alibi_slopes, dropout_rate, dropout_seed):
     """Per chunk of q rows (bounding the score matrix's memory): the row
-    slice, q and dO in fp32, P and dS, and K expanded to the q heads.  P is
-    rebuilt from the passed lse as exp(S − lse), exactly 0 where masked (so
-    a row that saw no key, whose lse is DEFAULT_MASK_VALUE, gives 0)."""
+    slice, q and dO in fp32, P∘M and dS, and K expanded to the q heads.  P
+    is rebuilt from the passed lse as exp(S − lse), exactly 0 where masked
+    (so a row that saw no key, whose lse is DEFAULT_MASK_VALUE, gives 0); M
+    is the dropout mask (1 without dropout)."""
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     kf, vf = k.float(), v.float()
     if hq != hkv:
         kf = kf.repeat_interleave(hq // hkv, dim=1)
         vf = vf.repeat_interleave(hq // hkv, dim=1)
-    col = torch.arange(n_kv, device=q.device)[None, :]
+    kt = kf.transpose(-1, -2)
+    bias = _row_bias(alibi_slopes, q.device)
     rows = max(1, _PLAIN_CHUNK_ELEMS // max(1, b * hq * n_kv))
     for r0 in range(0, n_q, rows):
         r1 = min(n_q, r0 + rows)
         qc, doc = q[:, :, r0:r1].float(), do[:, :, r0:r1].float()
-        x = torch.matmul(qc, kf.transpose(-1, -2)) * sm_scale
+        x = torch.matmul(qc, kt) * sm_scale
         if softcap:
             x = softcap * torch.tanh(x / softcap)
-        p = torch.exp(x - lse[:, :, r0:r1, None])
-        if causal:
-            pos = torch.arange(r0, r1, device=q.device)[:, None] + (n_kv - n_q)
-            seen = col <= pos
-            if window:
-                seen = seen & ((pos - col) < window)
-            p = torch.where(seen, p, 0.0)
-        ds = p * (torch.matmul(doc, vf.transpose(-1, -2))
-                  - delta[:, :, r0:r1, None])
+        s = bias_and_mask(x, r0, n_q, causal=causal, window=window, bias=bias)
+        p = torch.exp(s - lse[:, :, r0:r1, None])  # masked: exp(-inf) = 0
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        if dropout_rate:
+            keep = dropout_rows(q, r0, r1, n_kv, dropout_rate, dropout_seed)
+            dp = dp * keep
+            pd = p * keep
+        else:
+            pd = p
+        ds = p * (dp - delta[:, :, r0:r1, None])
         if softcap:
             ds = ds * (1.0 - (x / softcap) ** 2)
-        yield slice(r0, r1), qc, doc, p, ds, kf
+        yield slice(r0, r1), qc, doc, pd, ds, kf
 
 
 def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
-                       window=0, softcap=0.0):
+                       window=0, softcap=0.0, alibi_slopes=None,
+                       dropout_rate=0.0, dropout_seed=0):
     """Plain version of the dK/dV sweep kernel."""
     b, hq, _, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     dk = torch.zeros((b, hq, n_kv, d), dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    for _, qc, doc, p, ds, _ in _plain_sweep(
-            q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
-            window=window, softcap=softcap):
+    for _, qc, doc, pd, ds, _ in _plain_sweep(
+            q, k, v, do, lse, delta, **_kw(causal, sm_scale, window, softcap,
+                                           alibi_slopes, dropout_rate,
+                                           dropout_seed)):
         dk += torch.matmul(ds.transpose(-1, -2), qc)
-        dv += torch.matmul(p.transpose(-1, -2), doc)
+        dv += torch.matmul(pd.transpose(-1, -2), doc)
     dk *= sm_scale
     if hq != hkv:
         dk = dk.view(b, hkv, hq // hkv, n_kv, d).sum(dim=2)
@@ -203,21 +234,25 @@ def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
 
 
 def attn_bwd_dq_plain(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
-                      softcap=0.0):
+                      softcap=0.0, alibi_slopes=None, dropout_rate=0.0,
+                      dropout_seed=0):
     """Plain version of the dQ sweep kernel."""
     dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     for rows, _, _, _, ds, kf in _plain_sweep(
-            q, k, v, do, lse, delta, causal=causal, sm_scale=sm_scale,
-            window=window, softcap=softcap):
+            q, k, v, do, lse, delta, **_kw(causal, sm_scale, window, softcap,
+                                           alibi_slopes, dropout_rate,
+                                           dropout_seed)):
         dq[:, :, rows] = (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
     return dq
 
 
 def attn_bwd_plain(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
-                   window: int = 0, softcap: float = 0.0):
+                   window: int = 0, softcap: float = 0.0, alibi_slopes=None,
+                   dropout_rate: float = 0.0, dropout_seed: int = 0):
     """Plain PyTorch version of :func:`attn_bwd`: the three kernels' plain
     versions in turn, in fp32 on the inputs' device."""
-    kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap)
+    kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
+             dropout_seed)
     delta = attn_bwd_preprocess_plain(o, do)
     dk, dv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw), dk, dv

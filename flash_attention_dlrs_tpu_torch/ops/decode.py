@@ -15,8 +15,10 @@ the plain versions, :func:`paged_decode_plain` and
 single-token value pools, and for every other mode the TPU kernel's own
 arithmetic (integer scores for int8/int4 decode, scales folded into S and
 P).  :func:`paged_reference_attention` is also the oracle: quantized pools
-are dequantized first.  ALiBi raises ``NotImplementedError`` until its
-slice (ROADMAP.md).
+are dequantized first.  ``alibi_slopes`` adds the true ALiBi bias
+−m_h·(q_pos − col) after the scales and the softcap, q_pos = length − 1 in
+decode and length − T + t for verify row t; the lse that decode returns
+keeps the JAX package's convention, shifted by +m_h·(length − 1).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import ctypes
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, stream_handle
-from .fwd_kernel import DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS
+from .flash_attention import _normalize_alibi
+from .fwd_kernel import DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS, _slopes_on
 from .quantization import (
     Int4QuantizedTensor,
     QuantizedTensor,
@@ -34,8 +37,6 @@ from .quantization import (
     quantize_int4,
     unpack_int4_rows,
 )
-
-_NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
 
 # Pool kinds of the C interfaces (csrc/paged.cuh PoolKind).
 POOL_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
@@ -56,7 +57,8 @@ DECODE_KERNEL = CudaKernel(
     "paged_decode",
     _POOL_ARGS + [ctypes.c_void_p, ctypes.c_void_p]  # o, lse
     + [ctypes.c_int] * 7  # B, Hq, Hkv, P, page_size, pages_per_seq, D
-    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # scale, cap, stream
+    + [ctypes.c_float, ctypes.c_float]  # scale, cap
+    + [ctypes.c_void_p, ctypes.c_void_p],  # ALiBi slopes, stream
 )
 
 VERIFY_KERNEL = CudaKernel(
@@ -64,7 +66,8 @@ VERIFY_KERNEL = CudaKernel(
     "paged_verify",
     _POOL_ARGS + [ctypes.c_void_p]  # o
     + [ctypes.c_int] * 8  # B, Hq, Hkv, T, P, page_size, pages_per_seq, D
-    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],  # scale_q, cap, stream
+    + [ctypes.c_float, ctypes.c_float]  # scale_q, cap
+    + [ctypes.c_void_p, ctypes.c_void_p],  # ALiBi slopes, stream
 )
 
 
@@ -158,6 +161,21 @@ def _scale_in(sm_scale: float, dtype) -> float:
     return float(torch.tensor(sm_scale, dtype=dtype))
 
 
+def _clamped(lengths, max_len: int):
+    return lengths.long().clamp(0, max_len)
+
+
+def publish_lse(lse, slopes, lengths, max_len: int):
+    """The decode lse in the JAX convention: the true logsumexp shifted by
+    +m_h·(length − 1) under ALiBi (DEFAULT_MASK_VALUE stays for an empty
+    sequence); unchanged without ALiBi."""
+    if slopes is None:
+        return lse
+    n = _clamped(lengths.to(lse.device), max_len)[:, None]
+    m = torch.tensor(slopes, dtype=torch.float32, device=lse.device)[None, :]
+    return torch.where(n > 0, lse + m * (n - 1).float(), lse)
+
+
 def paged_decode_attention(
     q,  # [B, Hq, d]
     k_pages,  # [Hkv, P, page_size, d], or a (Int4)QuantizedTensor
@@ -179,22 +197,22 @@ def paged_decode_attention(
     one kind) fold their scales into the scores and probabilities;
     int8/int4 K scores through per-row int8 q, as the TPU kernel does.
     ``pages_per_block`` (a TPU DMA tuning knob) is accepted and ignored.
-    The caller guarantees that every page id a sequence's length reaches is
-    a valid pool page.  CPU tensors take the plain versions; CUDA tensors
-    launch ``csrc/paged_decode.cu`` or raise."""
+    ``alibi_slopes``: see the module docstring; the returned lse is then
+    shifted by +m_h·(length − 1).  The caller guarantees that every page id
+    a sequence's length reaches is a valid pool page.  CPU tensors take the
+    plain versions; CUDA tensors launch ``csrc/paged_decode.cu`` or raise."""
     del pages_per_block
-    if alibi_slopes is not None:
-        raise NotImplementedError(_NOT_YET.format("alibi_slopes in decode"))
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, head_dim = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
                 logit_softcap)
+    slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
     if sm_scale is None:
         sm_scale = float(head_dim) ** -0.5
     if q.device.type == "cpu":
         o, lse = paged_decode_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-            logit_softcap=logit_softcap, return_lse=True)
+            logit_softcap=logit_softcap, return_lse=True, alibi_slopes=slopes)
         return (o, lse) if return_lse else o
     _check_cuda(q, pools, lengths, page_indices, head_dim, "paged decode")
     o = torch.empty_like(q)
@@ -208,9 +226,12 @@ def paged_decode_attention(
             ptr(page_indices), ptr(o), ptr(lse), batch, num_q_heads,
             pools.k.shape[0], pools.k.shape[1], pools.page_size,
             page_indices.shape[1], head_dim, scale, float(logit_softcap),
+            ptr(None if slopes is None else _slopes_on(slopes, q.device)),
             stream_handle(q.device),
         )
-    return (o, lse) if return_lse else o
+    if not return_lse:
+        return o
+    return o, publish_lse(lse, slopes, lengths, page_indices.shape[1] * pools.page_size)
 
 
 def paged_verify_attention(
@@ -235,20 +256,20 @@ def paged_verify_attention(
     q), scales folded into S and P.  CPU tensors take
     :func:`paged_verify_plain`; CUDA tensors launch
     ``csrc/paged_verify.cu`` or raise.  bf16/fp16 q on the card needs
-    quantized pools or value pools of q's dtype."""
+    quantized pools or value pools of q's dtype.  ``alibi_slopes``: see the
+    module docstring."""
     del pages_per_block
-    if alibi_slopes is not None:
-        raise NotImplementedError(_NOT_YET.format("alibi_slopes in verify"))
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, num_tokens, head_dim = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
                 logit_softcap)
+    slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
     if sm_scale is None:
         sm_scale = float(head_dim) ** -0.5
     if q.device.type == "cpu":
         return paged_verify_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-            logit_softcap=logit_softcap)
+            logit_softcap=logit_softcap, alibi_slopes=slopes)
     _check_cuda(q, pools, lengths, page_indices, head_dim, "paged verify")
     if (q.dtype != torch.float32 and not pools.quantized
             and pools.k.dtype != q.dtype):
@@ -263,7 +284,9 @@ def paged_verify_attention(
             ptr(page_indices), ptr(o), batch, num_q_heads, pools.k.shape[0],
             num_tokens, pools.k.shape[1], pools.page_size,
             page_indices.shape[1], head_dim, _scale_in(sm_scale, q.dtype),
-            float(logit_softcap), stream_handle(q.device),
+            float(logit_softcap),
+            ptr(None if slopes is None else _slopes_on(slopes, q.device)),
+            stream_handle(q.device),
         )
     return o
 
@@ -286,16 +309,18 @@ def _dense(pool, idx, int4: bool):
 def _paged_plain(
     q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
     logit_softcap: float = 0.0, s8_scores: bool = True,
-    return_lse: bool = False,
+    return_lse: bool = False, alibi_slopes=None,
 ):
     """Plain version of the kernels' modes, q [B, Hq, T, d], with the TPU
     kernel's arithmetic: q pre-scaled in its own dtype; payloads cast to
     q's dtype unscaled; with ``s8_scores`` and int8/int4 pools each q row
     quantized to int8 as round(q · (127 / max|q|)) and the score an exact
-    integer dot times max|q| · (1/127); the K scale times S; softcap; row
-    t masked to positions < lengths − (T−1−t); P · v_scale rounded to q's
-    dtype before P V.  A row that sees nothing gets O = 0 and lse
-    DEFAULT_MASK_VALUE.  Returns O [B, Hq, T, d] (and lse [B, Hq, T])."""
+    integer dot times max|q| · (1/127); the K scale times S; softcap; the
+    ALiBi bias −m·(q_pos − pos) with q_pos = length − T + t (length clamped
+    to the table); row t masked to positions < lengths − (T−1−t); P ·
+    v_scale rounded to q's dtype before P V.  A row that sees nothing gets
+    O = 0 and lse DEFAULT_MASK_VALUE (the true lse).  Returns O [B, Hq, T,
+    d] (and lse [B, Hq, T])."""
     pools = _Pools(k_pages, v_pages)
     b, hq, t, d = q.shape
     if sm_scale is None:
@@ -323,6 +348,11 @@ def _paged_plain(
     pos = torch.arange(s.shape[-1], device=q.device)
     row_t = torch.arange(t * g, device=q.device) // g
     horizon = lengths.to(q.device).long()[:, None] - (t - 1) + row_t  # [B, TG]
+    if alibi_slopes is not None:
+        qpos = _clamped(lengths.to(q.device), s.shape[-1])[:, None] - t + row_t
+        m = torch.tensor(alibi_slopes, dtype=torch.float32, device=q.device)
+        m = m.reshape(hkv, 1, g).expand(hkv, t, g).reshape(hkv, t * g)
+        s = s - m[None, :, :, None] * (qpos[:, None, :, None] - pos).float()
     s = s.masked_fill(pos >= horizon[:, None, :, None], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     empty = torch.isneginf(m)
@@ -341,29 +371,37 @@ def _paged_plain(
 
 def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
                        sm_scale=None, logit_softcap: float = 0.0,
-                       return_lse: bool = False):
-    """Plain version of ``csrc/paged_decode.cu`` (q [B, Hq, d]): value pools
-    take :func:`paged_reference_attention`, quantized pools the TPU
-    kernel's single-token arithmetic (:func:`_paged_plain`,
-    integer scores for int8/int4)."""
-    if not _Pools(k_pages, v_pages).quantized:
-        return paged_reference_attention(
+                       return_lse: bool = False, alibi_slopes=None):
+    """Plain version of :func:`paged_decode_attention` (q [B, Hq, d]):
+    value pools take :func:`paged_reference_attention`, quantized pools the
+    TPU kernel's single-token arithmetic (:func:`_paged_plain`, integer
+    scores for int8/int4); the lse is published as the wrapper does."""
+    pools = _Pools(k_pages, v_pages)
+    slopes = _normalize_alibi(alibi_slopes, q.shape[1], causal=True)
+    if not pools.quantized:
+        o, lse = paged_reference_attention(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-            logit_softcap=logit_softcap, return_lse=return_lse)
-    o, lse = _paged_plain(
-        q[:, :, None], k_pages, v_pages, lengths, page_indices,
-        sm_scale=sm_scale, logit_softcap=logit_softcap, s8_scores=True,
-        return_lse=True)
-    return (o[:, :, 0], lse[:, :, 0]) if return_lse else o[:, :, 0]
+            logit_softcap=logit_softcap, return_lse=True, alibi_slopes=slopes)
+    else:
+        o, lse = _paged_plain(
+            q[:, :, None], k_pages, v_pages, lengths, page_indices,
+            sm_scale=sm_scale, logit_softcap=logit_softcap, s8_scores=True,
+            return_lse=True, alibi_slopes=slopes)
+        o, lse = o[:, :, 0], lse[:, :, 0]
+    if not return_lse:
+        return o
+    return o, publish_lse(lse, slopes, lengths, page_indices.shape[1] * pools.page_size)
 
 
 def paged_verify_plain(q, k_pages, v_pages, lengths, page_indices, *,
-                       sm_scale=None, logit_softcap: float = 0.0):
+                       sm_scale=None, logit_softcap: float = 0.0,
+                       alibi_slopes=None):
     """Plain version of ``csrc/paged_verify.cu`` (q [B, Hq, T, d]): the
     TPU kernel's dequantized route."""
     return _paged_plain(
         q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-        logit_softcap=logit_softcap, s8_scores=False)
+        logit_softcap=logit_softcap, s8_scores=False,
+        alibi_slopes=_normalize_alibi(alibi_slopes, q.shape[1], causal=True))
 
 
 def paged_reference_attention(
@@ -372,11 +410,11 @@ def paged_reference_attention(
 ):
     """Oracle, and the plain version of the single-token kernel on value
     pools: gather pages into dense K/V (quantized pools dequantized first),
-    masked fp32 softmax attention.  Lengths beyond the page table are
-    clamped to it.  With ``return_lse`` also the natural-base logsumexp
-    (DEFAULT_MASK_VALUE for an empty sequence)."""
-    if alibi_slopes is not None:
-        raise NotImplementedError(_NOT_YET.format("alibi_slopes in decode"))
+    masked fp32 softmax attention, with the true ALiBi bias −m·(q_pos − pos)
+    at q_pos = length − 1 when ``alibi_slopes`` are given.  Lengths beyond
+    the page table are clamped to it.  With ``return_lse`` also the
+    natural-base logsumexp, the true one (DEFAULT_MASK_VALUE for an empty
+    sequence)."""
     pools = _Pools(k_pages, v_pages)
     if pools.quantized:
         k_pages, v_pages = k_pages.dequantize(), v_pages.dequantize()
@@ -394,6 +432,12 @@ def paged_reference_attention(
     if logit_softcap:
         s = logit_softcap * torch.tanh(s / logit_softcap)
     pos = torch.arange(max_len, device=q.device)
+    slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
+    if slopes is not None:
+        qpos = _clamped(lengths.to(q.device), max_len) - 1  # [B]
+        m = torch.tensor(slopes, dtype=torch.float32, device=q.device)
+        m = m.reshape(1, num_kv_heads, group, 1)
+        s = s - m * (qpos[:, None, None, None] - pos).float()
     mask = pos[None, :] < lengths.to(q.device).long()[:, None]  # [B, L]
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)

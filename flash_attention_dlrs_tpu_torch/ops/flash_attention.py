@@ -3,7 +3,8 @@
 - :func:`flash_attention_forward` returns ``(O, L)`` with L the natural-base
   logsumexp, ``[B, Hq, Nq]`` fp32;
 - :func:`flash_attention_backward` returns ``(dQ, dK, dV)`` from the
-  forward's O and L;
+  forward's O and L (under ALiBi by default from the forward kernel's own
+  replayed L: ``rederive_stats``);
 - :func:`flash_attention` is the differentiable op, a
   ``torch.autograd.Function`` in place of the JAX ``custom_vjp``: its
   forward saves (q, k, v, O, L) and its backward runs the backward kernels.
@@ -11,18 +12,22 @@
 The JAX package splits the forward over four TPU routes and the backward
 over six, chosen by length; here one forward kernel (``csrc/attn_fwd.cu``)
 and one deterministic two-sweep backward family (``csrc/attn_bwd.cu``) take
-every length, so there is no dispatch.  Segments, ALiBi, dropout and fp8 V
-raise ``NotImplementedError`` until their slice (ROADMAP.md).
+every length, so there is no dispatch.  ALiBi is the true bias
+−m_h·(q_pos − col) in every kernel, so the public L is the kernels' own (the
+TPU kernels' separable form needed a shift).  Dropout is the counter-based
+mask of :func:`..fwd_kernel.dropout_keep_mask`.  Segments and fp8 V raise
+``NotImplementedError`` until their slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .bwd_kernel import attn_bwd
-from .fwd_kernel import attn_fwd
+from .fwd_kernel import attn_fwd, int32_seed
 
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -74,22 +79,56 @@ def _normalize_window(window: int, causal: bool, n_kv: int) -> int:
     return 0 if window >= n_kv else window
 
 
+def _normalize_alibi(alibi_slopes, num_q_heads: int, causal: bool):
+    """Per-head ALiBi slopes as a tuple of floats, one per q head (a single
+    slope broadcasts), or None.  Causal only, as in the JAX package: ALiBi
+    is defined on the causal distance q_pos − kv_pos."""
+    if alibi_slopes is None:
+        return None
+    if not causal:
+        raise ValueError("alibi_slopes requires causal=True (ALiBi is "
+                         "defined on the causal distance q_pos - kv_pos)")
+    slopes = tuple(float(x) for x in np.asarray(alibi_slopes).reshape(-1))
+    if len(slopes) == 1 and num_q_heads > 1:
+        slopes = slopes * num_q_heads
+    if len(slopes) != num_q_heads:
+        raise ValueError(
+            f"alibi_slopes must have one slope per q head ({num_q_heads}), "
+            f"got {len(slopes)}")
+    return slopes
+
+
+def _normalize_dropout(dropout_rate, dropout_seed):
+    """(rate, seed): rate in [0, 1), the seed an int32 (wrapping past 2^31)
+    required when rate > 0; (0.0, 0) without dropout."""
+    rate = float(dropout_rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    if rate == 0.0:
+        return 0.0, 0
+    if dropout_seed is None:
+        raise ValueError(
+            "dropout_rate > 0 requires dropout_seed (an int32; pass a fresh "
+            "value per training step, e.g. the step counter)")
+    return rate, int32_seed(dropout_seed)
+
+
 def _prepare(q, k, v, causal, sm_scale, segment_ids, window, logit_softcap,
-             alibi_slopes, dropout_rate):
-    """Validate a call; returns (window, sm_scale) normalized."""
+             alibi_slopes, dropout_rate, dropout_seed):
+    """Validate a call; returns the kernels' keyword arguments normalized."""
     _validate(q, k, v)
     if segment_ids is not None:
         raise NotImplementedError(_NOT_YET.format("segment_ids"))
-    if alibi_slopes is not None:
-        raise NotImplementedError(_NOT_YET.format("alibi_slopes"))
-    if dropout_rate:
-        raise NotImplementedError(_NOT_YET.format("attention dropout"))
     if logit_softcap < 0:
         raise ValueError(f"logit_softcap must be >= 0, got {logit_softcap}")
-    window = _normalize_window(window, causal, k.shape[2])
+    slopes = _normalize_alibi(alibi_slopes, q.shape[1], causal)
+    rate, seed = _normalize_dropout(dropout_rate, dropout_seed)
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5
-    return window, float(sm_scale)
+    return dict(causal=bool(causal), sm_scale=float(sm_scale),
+                window=_normalize_window(window, causal, k.shape[2]),
+                softcap=float(logit_softcap), alibi_slopes=slopes,
+                dropout_rate=rate, dropout_seed=seed)
 
 
 def flash_attention_forward(
@@ -109,14 +148,16 @@ def flash_attention_forward(
     """Forward pass returning (O, L).  q: [B, Hq, Nq, d]; k, v:
     [B, Hkv, Nkv, d] with Hq % Hkv == 0.  ``sm_scale`` defaults to d**-0.5.
     Causal masking is bottom-right aligned (q row i sits at kv position
-    i + Nkv − Nq).  L is the natural-base logsumexp of the scaled (and
-    softcapped) scores, [B, Hq, Nq] fp32; a row that sees no key gets O = 0
-    and L = DEFAULT_MASK_VALUE.  Runs where the inputs lie: the kernel on a
-    CUDA device, the plain PyTorch version on the CPU."""
-    window, sm_scale = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
-                                logit_softcap, alibi_slopes, dropout_rate)
-    return attn_fwd(q, k, v, causal=bool(causal), sm_scale=sm_scale,
-                    window=window, softcap=float(logit_softcap))
+    i + Nkv − Nq).  ``alibi_slopes`` (causal only; one per q head, or one
+    for all) adds −m_h·(q_pos − col); ``dropout_rate`` with an int
+    ``dropout_seed`` drops attention probabilities (flash-attn semantics).
+    L is the natural-base logsumexp of the scaled, softcapped and biased
+    scores (dropout-independent), [B, Hq, Nq] fp32; a row that sees no key
+    gets O = 0 and L = DEFAULT_MASK_VALUE.  Runs where the inputs lie: the
+    kernel on a CUDA device, the plain PyTorch version on the CPU."""
+    kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
+                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
+    return attn_fwd(q, k, v, **kw)
 
 
 def flash_attention_backward(
@@ -139,16 +180,16 @@ def flash_attention_backward(
 ):
     """Backward pass returning (dQ, dK, dV) in the dtypes of q, k and v.
     ``o`` and ``lse`` [B, Hq, Nq] come from the forward with the same
-    arguments; ``do`` is the gradient of O.  The PASSED lse is honoured, as
-    the JAX default does (a ring caller may pass a globally merged lse): P is
-    rebuilt as exp(S − lse).  ``rederive_stats=True``, which replays the
-    forward for its raw softmax statistics, is not ported.  Runs where the
-    inputs lie: the kernels on a CUDA device, the plain PyTorch version on
-    the CPU."""
-    if rederive_stats:
-        raise NotImplementedError(_NOT_YET.format("rederive_stats"))
-    window, sm_scale = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
-                                logit_softcap, alibi_slopes, dropout_rate)
+    arguments (dropout's rate and seed included: the kernels regenerate its
+    mask); ``do`` is the gradient of O.  P is rebuilt as exp(S − lse).
+    ``rederive_stats=True`` replays the forward kernel for its own lse and
+    ignores the passed one (a shape witness only); False honours the PASSED
+    lse, as a ring caller with a globally merged lse needs; None, the
+    default, rederives under ALiBi and honours the lse otherwise, as the JAX
+    package does.  Runs where the inputs lie: the kernels on a CUDA device,
+    the plain PyTorch version on the CPU."""
+    kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
+                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
             f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q "
@@ -156,26 +197,31 @@ def flash_attention_backward(
     if tuple(lse.shape) != tuple(q.shape[:3]):
         raise ValueError(f"lse {tuple(lse.shape)} must be [B, Hq, Nq] = "
                          f"{tuple(q.shape[:3])}")
+    if rederive_stats is None:
+        rederive_stats = kw["alibi_slopes"] is not None
+    if rederive_stats:
+        lse = attn_fwd(q, k, v, **kw)[1]
     return attn_bwd(q, k, v, o.contiguous(), lse.contiguous(), do.contiguous(),
-                    causal=bool(causal), sm_scale=sm_scale, window=window,
-                    softcap=float(logit_softcap))
+                    **kw)
 
 
 class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, its (O, L) saved, and the backward kernels on
+    them; ``kw`` holds the kernels' normalized keyword arguments (ALiBi
+    slopes and the dropout rate and seed among them)."""
+
     @staticmethod
-    def forward(ctx, q, k, v, causal, sm_scale, window, softcap):
-        o, lse = attn_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                          window=window, softcap=softcap)
+    def forward(ctx, q, k, v, kw):
+        o, lse = attn_fwd(q, k, v, **kw)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.kw = dict(causal=causal, sm_scale=sm_scale, window=window,
-                      softcap=softcap)
+        ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = attn_bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None
 
 
 def flash_attention(
@@ -192,10 +238,10 @@ def flash_attention(
     dropout_rate: float = 0.0,
     dropout_seed=None,
 ):
-    """Differentiable fused attention O = softmax(scale·QKᵀ + mask)V, with
-    the conventions of :func:`flash_attention_forward`; gradients flow to q,
-    k and v through :func:`flash_attention_backward`'s kernels."""
-    window, sm_scale = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
-                                logit_softcap, alibi_slopes, dropout_rate)
-    return _FlashAttention.apply(q, k, v, bool(causal), sm_scale, window,
-                                 float(logit_softcap))
+    """Differentiable fused attention O = softmax(scale·QKᵀ + bias + mask)V
+    (dropped out when asked), with the conventions of
+    :func:`flash_attention_forward`; gradients flow to q, k and v through
+    :func:`flash_attention_backward`'s kernels."""
+    kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
+                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
+    return _FlashAttention.apply(q, k, v, kw)

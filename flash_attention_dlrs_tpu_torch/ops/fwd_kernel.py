@@ -3,14 +3,21 @@
 The kernel is ``csrc/attn_fwd.cu``; it replaces the forward of the TPU
 kernels ``ops/fwd_kernel.py::_fwd_kernel``, ``ops/fwd_mid.py::_mid_kernel``,
 ``ops/fwd_mid.py::_mid_strip_kernel`` and ``ops/fwd_small.py::_small_kernel``
-of the JAX package for the serving feature set (causal or not, GQA, ragged
-lengths, window, softcap).  :func:`attn_fwd` sends CPU tensors to the plain
-PyTorch version :func:`attn_fwd_plain` and CUDA tensors to the kernel.
+of the JAX package for the training and serving feature set (causal or not,
+GQA, ragged lengths, window, softcap, ALiBi, attention dropout).
+:func:`attn_fwd` sends CPU tensors to the plain PyTorch version
+:func:`attn_fwd_plain` and CUDA tensors to the kernel.
+
+Attention dropout draws its mask from :func:`dropout_keep_mask`, a pure
+function of (seed, batch, q head, q row, kv column) that the kernels compute
+bit for bit alike (``csrc/common.cuh``), so the backward and a remat
+recompute regenerate the forward's mask.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -24,12 +31,17 @@ LN2 = 0.6931471805599453
 
 KERNEL_HEAD_DIMS = (64, 128)
 
+# ALiBi slopes and attention dropout of the C interfaces (csrc/common.cuh Mods)
+MOD_ARGS = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int]
+_M32 = 0xFFFFFFFF
+
 FWD_KERNEL = CudaKernel(
     "attn_fwd.cu",
     "attn_fwd",
     [ctypes.c_void_p] * 5  # q, k, v, o, lse
     + [ctypes.c_int] * 7  # dtype, B, Hq, Hkv, Nq, Nkv, D
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    + MOD_ARGS
     + [ctypes.c_void_p],  # stream
 )
 
@@ -37,17 +49,93 @@ FWD_KERNEL = CudaKernel(
 _PLAIN_CHUNK_ELEMS = 1 << 26
 
 
+def _mul32(x, c: int):
+    """(x · c) mod 2^32 for uint32 values held in int64, in 16-bit halves so
+    no product leaves int64."""
+    return ((x & 0xFFFF) * c + ((((x >> 16) * c) & 0xFFFF) << 16)) & _M32
+
+
+def lowbias32(x):
+    """Wellons' lowbias32 mixer on uint32 values held in an int64 tensor:
+    the bits of the JAX package's int32 version (wrapping multiplies,
+    logical shifts)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def dropout_keep_mask(seed, b, h, rows, cols, rate: float):
+    """Keep/scale factor M ∈ {0, 1/(1−rate)} (fp32) of attention dropout at
+    (seed, batch b, q head h, local q row, kv column), broadcast over its
+    integer arguments: the JAX package's ``fwd_kernel.dropout_keep_mask``
+    bit for bit.  seed_bh = lowbias32(seed ^ (b·65599 + h)); bits =
+    lowbias32(row ^ lowbias32(col + seed_bh)); kept where
+    (bits & 0xFFFFFF)·2^-24 >= rate (rate as fp32)."""
+    dev = next((x.device for x in (rows, cols, b, h, seed) if torch.is_tensor(x)),
+               None)
+
+    def u32(x):
+        return torch.as_tensor(x, dtype=torch.int64, device=dev) & _M32
+
+    seed_bh = lowbias32(u32(seed) ^ ((u32(b) * 65599 + u32(h)) & _M32))
+    bits = lowbias32(u32(rows) ^ lowbias32((u32(cols) + seed_bh) & _M32))
+    u = (bits & 0xFFFFFF).to(torch.float32) * (1.0 / (1 << 24))
+    keep = u >= torch.tensor(rate, dtype=torch.float32, device=dev)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32, device=dev)
+    return torch.where(keep, scale, torch.zeros((), dtype=torch.float32, device=dev))
+
+
+def int32_seed(seed) -> int:
+    """A dropout seed as the int32 the kernels take, wrapping past 2^31 as
+    the JAX package's int32 seeds do."""
+    return (int(seed) + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+@functools.lru_cache(maxsize=None)
+def _slopes_on(slopes: tuple, device: torch.device):
+    """ALiBi slopes as an fp32 tensor on ``device``, made once per slope set
+    and device (a model has one set), so a kernel call copies nothing from
+    the host.  Callers never write to it."""
+    return torch.tensor(slopes, dtype=torch.float32, device=device)
+
+
+def mod_args(alibi_slopes, dropout_rate: float, dropout_seed: int, device):
+    """The C interfaces' (slopes, rate, keep scale, seed): ALiBi slopes as a
+    cached fp32 tensor on ``device`` (null without ALiBi), the keep scale
+    1/(1−rate) rounded once from double."""
+    slopes = None if alibi_slopes is None else _slopes_on(tuple(alibi_slopes), device)
+    rate = float(dropout_rate)
+    return (ptr(slopes), rate, 1.0 / (1.0 - rate), int32_seed(dropout_seed or 0))
+
+
+def _row_bias(slopes, device):
+    """[1, H, 1, 1] fp32 slopes for the plain versions, or None."""
+    if slopes is None:
+        return None
+    return torch.tensor(slopes, dtype=torch.float32, device=device)[None, :, None, None]
+
+
+
 def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
-             softcap: float = 0.0):
+             softcap: float = 0.0, alibi_slopes=None, dropout_rate: float = 0.0,
+             dropout_seed: int = 0):
     """(O [B, Hq, Nq, d] in q's dtype, L [B, Hq, Nq] fp32 natural-base lse).
 
+    ``alibi_slopes`` (one float per q head, or None) adds the true ALiBi
+    bias −m_h·(q_pos − col) after the softcap, q_pos = row + Nkv − Nq, so L
+    is the true logsumexp.  ``dropout_rate`` > 0 drops P (after its row sum,
+    so L is undropped) with :func:`dropout_keep_mask` of ``dropout_seed``.
     Arguments are validated by the caller (ops/flash_attention.py).  CPU
     tensors take :func:`attn_fwd_plain`; CUDA tensors launch the kernel,
     which takes contiguous fp32/bf16/fp16 inputs with d in {64, 128}, or
     raise."""
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
+              alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
     if q.device.type == "cpu":
-        return attn_fwd_plain(q, k, v, causal=causal, sm_scale=sm_scale,
-                              window=window, softcap=softcap)
+        return attn_fwd_plain(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"attn_fwd runs on cpu or cuda, not {q.device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -75,13 +163,44 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
         DTYPE_CODES[q.dtype], b, hq, hkv, n_q, n_kv, d,
         float(sm_scale), int(bool(causal)), int(window), float(softcap),
+        *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
         stream_handle(q.device),
     )
     return o, lse
 
 
+def bias_and_mask(x, r0: int, n_q: int, *, causal, window, bias):
+    """Scores ``x`` (scaled and softcapped, q rows [r0, r0 + rows) against
+    every key) with the ALiBi bias −m_h·(q_pos − col) added (``bias`` from
+    :func:`_row_bias`, or None) and −inf where masked: the kernels' order."""
+    n_kv = x.shape[-1]
+    pos = torch.arange(r0, r0 + x.shape[-2], device=x.device)[:, None] + (n_kv - n_q)
+    col = torch.arange(n_kv, device=x.device)[None, :]
+    if bias is not None:
+        x = x - bias * (pos - col).float()
+    if causal:
+        visible = col <= pos
+        if window:
+            visible = visible & ((pos - col) < window)
+        x = x.masked_fill(~visible, float("-inf"))
+    return x
+
+
+def dropout_rows(q, r0, r1, n_kv, dropout_rate, dropout_seed):
+    """:func:`dropout_keep_mask` of q rows [r0, r1) of every (batch, head)
+    against all Nkv columns, [B, Hq, r1 − r0, Nkv]."""
+    b, hq = q.shape[:2]
+    dev = q.device
+    return dropout_keep_mask(
+        int32_seed(dropout_seed), torch.arange(b, device=dev)[:, None, None, None],
+        torch.arange(hq, device=dev)[None, :, None, None],
+        torch.arange(r0, r1, device=dev)[None, None, :, None],
+        torch.arange(n_kv, device=dev)[None, None, None, :], dropout_rate)
+
+
 def attn_fwd_plain(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
-                   softcap: float = 0.0):
+                   softcap: float = 0.0, alibi_slopes=None,
+                   dropout_rate: float = 0.0, dropout_seed: int = 0):
     """Plain PyTorch version of the kernel: the same function in fp32 on the
     inputs' device, in chunks of q rows so the score matrix stays bounded.
     Empty rows give O = 0 and L = DEFAULT_MASK_VALUE."""
@@ -92,25 +211,22 @@ def attn_fwd_plain(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
         kf = kf.repeat_interleave(hq // hkv, dim=1)
         vf = vf.repeat_interleave(hq // hkv, dim=1)
     kt = kf.transpose(-1, -2)
+    bias = _row_bias(alibi_slopes, q.device)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, n_q), dtype=torch.float32, device=q.device)
-    col = torch.arange(n_kv, device=q.device)[None, :]
     rows = max(1, _PLAIN_CHUNK_ELEMS // max(1, b * hq * n_kv))
     for r0 in range(0, n_q, rows):
         r1 = min(n_q, r0 + rows)
         s = torch.matmul(q[:, :, r0:r1].float(), kt) * sm_scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
-        if causal:
-            pos = torch.arange(r0, r1, device=q.device)[:, None] + (n_kv - n_q)
-            visible = col <= pos
-            if window:
-                visible = visible & ((pos - col) < window)
-            s = s.masked_fill(~visible, float("-inf"))
+        s = bias_and_mask(s, r0, n_q, causal=causal, window=window, bias=bias)
         m = s.amax(dim=-1, keepdim=True)
         empty = torch.isneginf(m)
         p = torch.exp(s - torch.where(empty, 0.0, m))
         l = p.sum(dim=-1, keepdim=True)
+        if dropout_rate:
+            p = p * dropout_rows(q, r0, r1, n_kv, dropout_rate, dropout_seed)
         o[:, :, r0:r1] = (
             torch.matmul(p, vf) / torch.where(empty, 1.0, l)
         ).to(q.dtype)

@@ -11,6 +11,8 @@ import math
 
 import torch
 
+from .fwd_kernel import dropout_rows
+
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
 
 
@@ -50,17 +52,23 @@ def reference_attention(
     q: [B, Hq, Nq, d]; k, v: [B, Hkv, Nkv, d] (GQA: Hq % Hkv == 0).  The
     causal mask is bottom-right aligned (q row i sits at kv position
     i + Nkv - Nq) and ``window`` (with ``causal``) keeps the last ``window``
-    positions including the row's own.  As in the JAX oracle, P is cast to
-    v's dtype before the P.V product, and a row that sees no key comes out
-    NaN.  Segments, ALiBi and dropout raise ``NotImplementedError``.
+    positions including the row's own.  ``alibi_slopes`` (one per q head)
+    adds the true bias −m_h·(q_pos − col) after the softcap, q_pos aligned
+    like the causal mask; ``dropout_rate`` multiplies the normalized P by
+    the kernels' :func:`..fwd_kernel.dropout_keep_mask` of ``dropout_seed``
+    (lse undropped).  As in the JAX oracle, P is cast to v's dtype before
+    the P.V product, and a row that sees no key comes out NaN.  Segments
+    raise ``NotImplementedError``; a slope count other than 1 or Hq, and a
+    dropout rate outside [0, 1) or without a seed, raise ``ValueError``.
     """
     if segment_ids is not None:
         raise NotImplementedError(_NOT_YET.format("segment_ids"))
-    if alibi_slopes is not None:
-        raise NotImplementedError(_NOT_YET.format("alibi_slopes"))
-    if dropout_rate:
-        raise NotImplementedError(_NOT_YET.format("attention dropout"))
     hq, n_q = q.shape[1], q.shape[2]
+    if alibi_slopes is not None and len(alibi_slopes) not in (1, hq):
+        raise ValueError(f"alibi_slopes must have one slope per q head ({hq}), "
+                         f"got {len(alibi_slopes)}")
+    if dropout_rate and not (0.0 < dropout_rate < 1.0 and dropout_seed is not None):
+        raise ValueError("dropout_rate must be in [0, 1) and needs a dropout_seed")
     hkv, n_kv = k.shape[1], k.shape[2]
     if hq != hkv:
         rep = hq // hkv
@@ -69,6 +77,11 @@ def reference_attention(
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if logit_softcap:
         s = logit_softcap * torch.tanh(s / logit_softcap)
+    if alibi_slopes is not None:
+        slopes = torch.tensor(alibi_slopes, dtype=torch.float32, device=q.device)
+        qpos = torch.arange(n_q, dtype=torch.float32, device=q.device) + float(n_kv - n_q)
+        dist = qpos[:, None] - torch.arange(n_kv, dtype=torch.float32, device=q.device)
+        s = s - slopes[None, :, None, None] * dist
     if causal:
         row = torch.arange(n_q, device=q.device)[:, None] + (n_kv - n_q)
         col = torch.arange(n_kv, device=q.device)[None, :]
@@ -81,6 +94,8 @@ def reference_attention(
     l = e.sum(dim=-1, keepdim=True)
     lse = (m + torch.log(l))[..., 0]
     p = e / l
+    if dropout_rate:
+        p = p * dropout_rows(q, 0, n_q, n_kv, float(dropout_rate), dropout_seed)
     o = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
     if with_lse:
         return o, lse

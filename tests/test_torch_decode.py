@@ -104,16 +104,21 @@ def test_bf16_pools_with_bf16_q():
 
 
 def test_unported_modes_raise():
+    """ALiBi is ported to every paged mode; a slope count other than Hq is
+    refused as in the JAX package (a single slope broadcasts)."""
     q, kp, vp, lens, tbl = _torch(*_inputs(3, 2, 4, 2, 16, 2, [3, 4]))
-    slopes = (0.5,) * 4
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    slopes = (0.5,) * 3
+    with pytest.raises(ValueError, match="per q head"):
         tdec.paged_decode_attention(q, kp, vp, lens, tbl, alibi_slopes=slopes)
     kq, vq = tdec.quantize_kv_pages(kp), tdec.quantize_kv_pages(vp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="per q head"):
         tdec.paged_decode_attention(q, kq, vq, lens, tbl, alibi_slopes=slopes)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="per q head"):
         tdec.paged_verify_attention(q[:, :, None], kp, vp, lens, tbl,
                                     alibi_slopes=slopes)
+    assert torch.equal(
+        tdec.paged_decode_attention(q, kp, vp, lens, tbl, alibi_slopes=(0.5,)),
+        tdec.paged_decode_attention(q, kp, vp, lens, tbl, alibi_slopes=(0.5,) * 4))
 
 
 def test_shape_errors():

@@ -71,15 +71,21 @@ def test_default_device_entry_points_need_a_card():
     from flash_attention_dlrs_tpu_torch.runtime.sampling import batch_params
 
     cfg = ModelConfig.tiny(dtype=torch.float32)
+    alibi_dropout = ModelConfig.tiny(dtype=torch.float32, position_encoding="alibi",
+                                     attn_dropout=0.1)
     tree = init_params_numpy(cfg, seed=0)
     for call in (
         lambda: Transformer(cfg),
         lambda: params_from_jax(tree, cfg),
         lambda: init_kv_pools(cfg, num_pages=2),
         lambda: DecodeEngine(params_from_jax(tree, cfg, device="cpu"), cfg),
+        lambda: DecodeEngine(params_from_jax(tree, alibi_dropout, device="cpu"),
+                             alibi_dropout),
         lambda: batch_params([None]),
         lambda: make_train_state(cfg),
+        lambda: make_train_state(alibi_dropout),
         lambda: fit(cfg, iter(()), steps=1),
+        lambda: fit(alibi_dropout, iter(()), steps=1),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -21,8 +21,10 @@ from flash_attention_dlrs_tpu.models import decoding as jdecoding
 from flash_attention_dlrs_tpu_torch.models import ModelConfig as TConfig
 from flash_attention_dlrs_tpu_torch.models import decoding as tdecoding
 from flash_attention_dlrs_tpu_torch.models import (
-    forward as tforward, init_params_numpy, params_from_jax,
+    forward as tforward, init_params_numpy, make_train_state, make_train_step,
+    params_from_jax,
 )
+from flash_attention_dlrs_tpu_torch.runtime.engine import DecodeEngine as TEngine
 
 ATOL = 1e-4
 JCFG = JConfig.tiny(dtype=jnp.float32, remat=False)
@@ -188,8 +190,26 @@ def test_write_prompt_kv_all_fills_the_pages(model):
     ("final_softcap", 30.0),
 ])
 def test_model_config_refuses_unported_variants(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TConfig.tiny(**{field: value})
+    """Variants not ported yet raise when the config is built.  ALiBi and
+    attention dropout are ported; what raises is their misuse, as in the
+    JAX package: an ALiBi model behind a rolling ring (a sliding window or
+    a streaming window, neither ported), and a dropout model's train step
+    called without its seed."""
+    if field == "position_encoding":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TConfig.tiny(position_encoding=value, window=64)
+        cfg = TConfig.tiny(position_encoding=value, dtype=torch.float32)
+        model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TEngine(model, cfg, streaming_window=64, device="cpu")
+    elif field == "attn_dropout":
+        cfg = TConfig.tiny(attn_dropout=value, dtype=torch.float32)
+        model, state, opt = make_train_state(cfg, device="cpu")
+        with pytest.raises(ValueError, match="dropout_seed"):
+            make_train_step(cfg, opt)(model, state, torch.zeros((1, 9), dtype=torch.long))
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TConfig.tiny(**{field: value})
 
 
 def test_quantized_pools_are_not_ported_yet():

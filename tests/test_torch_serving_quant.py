@@ -295,11 +295,11 @@ def test_int4_verify_step_with_a_long_chunk_against_the_oracle(model, jparams,
     pools = _prompt_pools("torch", "int4", model, jparams, prompt, page_size=ps)
     got, pools = step(model, pools, *targs)
 
-    def oracle(q, k_pages, v_pages, lengths, tbl, *, sm_scale):
+    def oracle(q, k_pages, v_pages, lengths, tbl, *, sm_scale, alibi_slopes):
         t = q.shape[2]
         return torch.stack([tdec.paged_reference_attention(
             q[:, :, i], k_pages, v_pages, lengths - (t - 1 - i), tbl,
-            sm_scale=sm_scale) for i in range(t)], dim=2)
+            sm_scale=sm_scale, alibi_slopes=alibi_slopes) for i in range(t)], dim=2)
 
     monkeypatch.setattr(tdecoding, "paged_verify_attention", oracle)
     pools2 = _prompt_pools("torch", "int4", model, jparams, prompt, page_size=ps)
