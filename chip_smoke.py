@@ -2,10 +2,10 @@
 """Smoke run of the PyTorch port (flash_attention_dlrs_tpu_torch) on one NVIDIA card.
 
 Builds the port's CUDA kernels from csrc/ with nvcc and holds each kernel
-(and each ALiBi / dropout mode) against its plain PyTorch version on the
-card (the backward kernels also against themselves, bit for bit), and reads
-the forward kernel's dropout mask back against the plain mask.  Then drives
-both paths of the port:
+(and each ALiBi / dropout / segment-id / fp8-V mode) against its plain
+PyTorch version on the card (the backward kernels also against themselves,
+bit for bit), and reads the forward kernel's dropout mask back against the
+plain mask.  Then drives every path of the port:
 
 - serving: 8 requests through DecodeEngine at the full width of the repo's
   serving-bench model (scripts/bench_serving.py defaults: 16 layers,
@@ -26,6 +26,11 @@ both paths of the port:
   profiled and a recorded one;
 - ALiBi training (train_alibi): the same model with
   position_encoding="alibi" and attn_dropout=0.1, step i seeded with i;
+- packed sequences (packed): the training-bench model's attention shape
+  (B8, N2048, 32 q / 8 kv heads, head_dim 128, bf16) through the op API
+  with a packed loader's segment ids and with SegmentIds(q, kv) of
+  different lengths, through nn.dot_product_attention on padded batches,
+  forward and backward, and fp8 V through the op API;
 
 checks that each path went through its kernels (launch counts set to 0
 just before the path and read just after), and times each kernel beside its
@@ -38,6 +43,12 @@ last line is {"ok": true, "device": {...}}.  Exits non-zero, printing no
 result, when no CUDA device is present.
 
 Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
+
+       python3 chip_smoke.py --pair PARENT_DIR
+           times the mode-free kernels from an unpacked earlier commit
+           (PARENT_DIR, its own chip_smoke.py and package) and from this
+           tree in turns, parent, change, change, parent, each run in its
+           own process on the same card, one JSON line per run.
 """
 
 from __future__ import annotations
@@ -54,6 +65,7 @@ PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16/fp16, H100 SXM
 PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
 
 FWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd.cu"
+FWD_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_seg.cu"
 FWD_REPLACES = (
     "flash_attention_dlrs_tpu/ops/fwd_kernel.py:197; "
     "flash_attention_dlrs_tpu/ops/fwd_mid.py:211; "
@@ -69,6 +81,7 @@ QUANT_KINDS = ("int8", "int4", "e4m3", "e5m2")
 # stored bytes per K or V element, and per-token scale bytes (K and V)
 KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
 BWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd.cu"
+BWD_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_seg.cu"
 BWD_REPLACES = {
     "attn_bwd_preprocess": "flash_attention_dlrs_tpu/ops/bwd_kernel.py:59",
     "attn_bwd_dkv": (
@@ -119,12 +132,20 @@ def bound(flops, nbytes, peak_flops):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize):
-    """Operations and bytes one forward needs: causal counts the visible
-    half of the score matrix (2·B·H·N²·d when Nq = Nkv)."""
-    pairs = nq * nkv / 2 if causal and nq == nkv else nq * nkv
-    flops = 4 * b * hq * pairs * d
-    nbytes = itemsize * (2 * b * hq * nq * d + 2 * b * hkv * nkv * d) + 4 * b * hq * nq
+def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, v_itemsize=None):
+    """Operations and bytes one forward needs: 4·d operations per visible
+    (row, key) pair and head, where ``pairs`` (one head, the whole batch)
+    counts them when the data decide them (segment ids, whose [B, N] int32
+    reads then count too); by default causal counts the visible half of the
+    score matrix (2·B·H·N²·d when Nq = Nkv).  ``v_itemsize``: V's bytes per
+    element when they differ from q's (fp8 V: 1)."""
+    seg_bytes = 0 if pairs is None else 4 * b * (nq + nkv)
+    if pairs is None:
+        pairs = b * (nq * nkv / 2 if causal and nq == nkv else nq * nkv)
+    v_itemsize = itemsize if v_itemsize is None else v_itemsize
+    flops = 4 * hq * pairs * d
+    nbytes = (itemsize * (2 * b * hq * nq * d + b * hkv * nkv * d)
+              + v_itemsize * b * hkv * nkv * d + 4 * b * hq * nq + seg_bytes)
     return flops, nbytes
 
 
@@ -190,16 +211,69 @@ def mods(hq, alibi=False, rate=0.0, seed=0):
                 dropout_rate=rate, dropout_seed=seed)
 
 
+def loader_layout(rng, b, n, lo=64, hi=2048, max_docs=8):
+    """[B, N] int32 segment ids as a packed pretraining loader fills its
+    rows: documents of lengths drawn uniformly from [lo, hi] laid end to
+    end, the last cut at the row's end, at most ``max_docs`` a row (the last
+    takes the rest)."""
+    ids = np.zeros((b, n), np.int32)
+    for row in ids:
+        pos = doc = 0
+        while pos < n:
+            length = n - pos if doc == max_docs - 1 else int(rng.integers(lo, hi + 1))
+            row[pos:pos + length] = doc
+            pos, doc = pos + length, doc + 1
+    return ids
+
+
+def segment_layout(kind, b, nq, nkv, dev, seed=0):
+    """The kernels' (q_seg, kv_seg) for a check: "packed" documents of
+    16..N/2 tokens (shorter and longer than a 64-key tile, boundaries inside
+    tiles and on their edges), "loader" the loader's 64..2048, "cross"
+    separate q and kv layouts (Nq != Nkv) whose last 40 q rows carry an id
+    no key has (rows that see nothing, mid-batch); {} for None."""
+    import torch
+
+    if kind is None:
+        return {}
+    rng = np.random.default_rng(seed)
+    if kind == "loader":
+        qs = loader_layout(rng, b, nq)
+    else:
+        qs = loader_layout(rng, b, nq, 16, max(17, nq // 2))
+    ks = qs
+    if kind == "cross":
+        ks = loader_layout(rng, b, nkv, 16, max(17, nkv // 2))
+        qs[:, -40:] = 1000
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return dict(q_seg=as_t(qs), kv_seg=as_t(ks))
+
+
+FP8_V = {"e4m3": "float8_e4m3fn", "e5m2": "float8_e5m2"}
+
+
+def case_kwargs(hq, b, nq, nkv, dev, mod):
+    """A check case's kernel keyword arguments from its mode dict: ALiBi
+    and dropout (:func:`mods`) and segment ids (``seg``: a
+    :func:`segment_layout` kind)."""
+    kw = mods(hq, **{k: v for k, v in mod.items() if k in ("alibi", "rate", "seed")})
+    return {**kw, **segment_layout(mod.get("seg"), b, nq, nkv, dev)}
+
+
 def phase_fwd(dev):
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
+        DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     alibi, drop, both = dict(alibi=True), dict(rate=0.1, seed=7), dict(alibi=True, rate=0.1,
                                                                        seed=-5)
+    seg, cross = dict(seg="packed"), dict(seg="cross")
     cases = [
         # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, mods
+        # (mods: ALiBi / dropout, seg = a segment_layout kind, v8 = fp8 V kind)
         ("serve_prefill_2048", bf16, 1, 16, 8, 2048, 2048, 128, True, 0, 0.0, {}),
         ("train_B8_H32_N2048", bf16, 8, 32, 8, 2048, 2048, 128, True, 0, 0.0, {}),
         ("noncausal_tail", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, {}),
@@ -217,24 +291,54 @@ def phase_fwd(dev):
         ("dropout_bf16", bf16, 2, 8, 2, 1024, 1024, 128, True, 0, 0.0, drop),
         ("alibi_dropout_train_B8_H32_N2048", bf16, 8, 32, 8, 2048, 2048, 128, True, 0,
          0.0, both),
+        # segment ids (packed sequences)
+        ("seg_fp32_causal_gqa_tails", f32, 2, 8, 2, 300, 300, 64, True, 0, 0.0, seg),
+        ("seg_bf16_causal_gqa_tails", bf16, 2, 8, 2, 333, 333, 128, True, 0, 0.0, seg),
+        ("seg_fp32_cross_empty_rows", f32, 2, 4, 2, 200, 500, 128, False, 0, 0.0, cross),
+        ("seg_bf16_cross_empty_rows", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, cross),
+        ("seg_fp16_cross_causal_d64", f16, 1, 4, 1, 300, 700, 64, True, 0, 0.0, cross),
+        ("seg_fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, seg),
+        ("seg_bf16_window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, seg),
+        ("seg_fp32_alibi_dropout", f32, 2, 4, 2, 256, 256, 64, True, 0, 0.0,
+         dict(both, seg="packed")),
+        ("seg_bf16_alibi_dropout", bf16, 2, 8, 2, 1024, 1024, 128, True, 0, 0.0,
+         dict(both, seg="packed")),
+        # fp8 V, dequantized as the kernel stages it
+        ("fp8v_e4m3_bf16_serve_prefill_2048", bf16, 1, 16, 8, 2048, 2048, 128, True, 0, 0.0,
+         dict(v8="e4m3")),
+        ("fp8v_e5m2_bf16_serve_prefill_2048", bf16, 1, 16, 8, 2048, 2048, 128, True, 0, 0.0,
+         dict(v8="e5m2")),
+        ("fp8v_e4m3_fp16_tail_d64", f16, 1, 4, 2, 300, 700, 64, True, 0, 0.0, dict(v8="e4m3")),
+        ("fp8v_e5m2_fp16_noncausal", f16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0,
+         dict(v8="e5m2")),
+        ("fp8v_e4m3_fp32", f32, 2, 4, 2, 256, 256, 64, True, 0, 0.0, dict(v8="e4m3")),
+        ("fp8v_e5m2_fp32_d128_tail", f32, 1, 4, 2, 300, 300, 128, True, 0, 0.0,
+         dict(v8="e5m2")),
+        ("fp8v_e4m3_bf16_seg_window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256,
+         30.0, dict(v8="e4m3", seg="packed")),
     ]
     results = {}
     for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod in cases:
         q = _rand(gen, (b, hq, nq, d), dt, dev)
         k = _rand(gen, (b, hkv, nkv, d), dt, dev)
         v = _rand(gen, (b, hkv, nkv, d), dt, dev)
+        if mod.get("v8"):
+            v = v.to(getattr(torch, FP8_V[mod["v8"]]))
         kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
-                  **mods(hq, **mod))
+                  **case_kwargs(hq, b, nq, nkv, dev, mod))
         got = attn_fwd(q, k, v, **kw)
         want = attn_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         rec, ok = fwd_errors(got, want, dt)
         rec["ok"] = ok
         results[name] = rec
+        if "q_seg" in kw:
+            rec["empty_rows"] = int((want[1] == DEFAULT_MASK_VALUE).sum())
         emit({"phase": "fwd_check", "case": name, "dtype": str(dt),
               "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
               "window": window, "softcap": cap, "alibi": bool(mod.get("alibi")),
-              "dropout_rate": mod.get("rate", 0.0), **rec})
+              "dropout_rate": mod.get("rate", 0.0), "segments": mod.get("seg"),
+              "fp8_v": mod.get("v8"), **rec})
         del q, k, v, got, want
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
@@ -355,6 +459,25 @@ def phase_bwd(dev):
          1.0, alibi),
         ("fp32_dropout_noncausal_tail", f32, 1, 4, 1, 100, 300, 64, False, 0, 0.0, 1.0,
          drop),
+        # segment ids (packed sequences), alone and with ALiBi + dropout
+        ("seg_train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None,
+         dict(seg="loader")),
+        ("seg_fp32_causal_gqa_tails", f32, 2, 4, 2, 300, 300, 128, True, 0, 0.0, 1.0,
+         dict(seg="packed")),
+        ("seg_fp32_cross_empty_rows", f32, 1, 4, 2, 200, 500, 64, False, 0, 0.0, 1.0,
+         dict(seg="cross")),
+        ("seg_bf16_cross_empty_rows", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None,
+         dict(seg="cross")),
+        ("seg_fp16_cross_causal_d64", f16, 1, 4, 1, 300, 700, 64, True, 0, 0.0, None,
+         dict(seg="cross")),
+        ("seg_fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0,
+         dict(seg="packed")),
+        ("seg_bf16_window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None,
+         dict(seg="packed")),
+        ("seg_alibi_dropout_bf16", bf16, 2, 8, 2, 1024, 1024, 128, True, 0, 0.0, None,
+         dict(both, seg="packed")),
+        ("seg_fp32_alibi_dropout_gqa", f32, 2, 4, 2, 256, 256, 128, True, 0, 0.0, 1.0,
+         dict(both, seg="packed")),
     ]
     results = {}
     for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, scale, mod in cases:
@@ -363,7 +486,7 @@ def phase_bwd(dev):
         v = _rand(gen, (b, hkv, nkv, d), dt, dev)
         do = _rand(gen, (b, hq, nq, d), dt, dev)
         kw = dict(causal=causal, sm_scale=d ** -0.5 if scale is None else scale,
-                  window=window, softcap=cap, **mods(hq, **mod))
+                  window=window, softcap=cap, **case_kwargs(hq, b, nq, nkv, dev, mod))
         o, lse = attn_fwd(q, k, v, **kw)
         got = attn_bwd(q, k, v, o, lse, do, **kw)
         again = attn_bwd(q, k, v, o, lse, do, **kw)
@@ -377,7 +500,7 @@ def phase_bwd(dev):
               "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
               "window": window, "softcap": cap, "sm_scale": kw["sm_scale"],
               "alibi": bool(mod.get("alibi")), "dropout_rate": mod.get("rate", 0.0),
-              **rec})
+              "segments": mod.get("seg"), **rec})
         del q, k, v, do, o, lse, got, again, want
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
@@ -1593,37 +1716,345 @@ def phase_train(dev, name="train", **variant):
     return rec
 
 
-def bwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize):
+# The packed-sequence slice: the training-bench model's attention
+# (scripts/bench_train.py:68-74: B=8, N=2048, 32 q / 8 kv heads, head_dim
+# 128, bf16) through the op API and the nn adapter, forward and backward.
+PACKED_B, PACKED_N, PACKED_HQ, PACKED_HKV, PACKED_D = 8, 2048, 32, 8, 128
+PACKED_CROSS_NQ = 1024
+PACKED_LENGTHS = [2048, 1900, 1536, 1024, 777, 512, 2048, 300]
+PACKED_WINDOW = (255, 0)
+PACKED_FP32_B = 2
+# fp8 V: the serving prefill shape (scripts/bench_serving.py:28-34) and the
+# training shape, as (B, Hq, Hkv, N)
+FP8_SHAPES = {"serve_prefill_2048": (1, 16, 8, 2048), "train_B8_H32_N2048": (8, 32, 8, 2048)}
+
+
+def _seg_kernels():
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_SEG_KERNEL
+
+    return {**_kernels(), "attn_fwd_seg": FWD_SEG_KERNEL,
+            "attn_bwd_dkv_seg": bwd_kernel.DKV_SEG_KERNEL,
+            "attn_bwd_dq_seg": bwd_kernel.DQ_SEG_KERNEL}
+
+
+def counted(fn):
+    """``fn()`` with every attention kernel's launch count set to 0 just
+    before and read just after (synchronized): (result, launches)."""
+    import torch
+
+    kernels = _seg_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {name: kern.launches for name, kern in kernels.items()}
+
+
+def launches_are(got, **want):
+    """Whether the counts ``got`` are exactly ``want`` (1 where named with
+    1, 0 for every kernel not named)."""
+    return all(got[name] == want.get(name, 0) for name in got)
+
+
+SEG_CALL = dict(attn_fwd_seg=1, attn_bwd_preprocess=1, attn_bwd_dkv_seg=1,
+                attn_bwd_dq_seg=1)
+
+
+def _packed_grads_check(q, k, v, do, kw, grads, o, lse):
+    """The op's output and gradients (kernel path) against the plain
+    versions on the same inputs: the forward kernel's (O, lse) against the
+    plain forward, and its gradients against the plain backward of the
+    kernel's O and lse (the bwd_check comparison)."""
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
+
+    fwd_rec, fwd_ok = fwd_errors((o, lse), attn_fwd_plain(q, k, v, **kw), q.dtype)
+    bwd_rec, bwd_ok = bwd_errors(grads, attn_bwd_plain(q, k, v, o, lse, do, **kw), q.dtype)
+    rec = {**fwd_rec, **bwd_rec, "tolerance": [fwd_rec["tolerance"], bwd_rec["tolerance"]]}
+    return rec, fwd_ok and bwd_ok
+
+
+def _op_packed(dev, gen, dtype, b, nq, seg, causal):
+    """One flash_attention call with ``seg`` (a SegmentIds or a [B, N]
+    tensor) and its .backward(), counted; then the kernels against their
+    plain versions on the same inputs."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import SegmentIds, flash_attention
+    from flash_attention_dlrs_tpu_torch.ops.flash_attention import flash_attention_forward
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import DEFAULT_MASK_VALUE
+
+    hq, hkv, n, d = PACKED_HQ, PACKED_HKV, PACKED_N, PACKED_D
+    q = _rand(gen, (b, hq, nq, d), dtype, dev).requires_grad_(True)
+    k = _rand(gen, (b, hkv, n, d), dtype, dev).requires_grad_(True)
+    v = _rand(gen, (b, hkv, n, d), dtype, dev).requires_grad_(True)
+    do = _rand(gen, (b, hq, nq, d), dtype, dev)
+
+    def call():
+        out = flash_attention(q, k, v, causal=causal, segment_ids=seg)
+        out.backward(do)
+        return out
+
+    o, launches = counted(call)
+    grads = (q.grad, k.grad, v.grad)
+    qs, ks = (seg.q, seg.kv) if isinstance(seg, SegmentIds) else (seg, seg)
+    kw = dict(causal=causal, sm_scale=d ** -0.5, q_seg=qs, kv_seg=ks)
+    with torch.no_grad():
+        o2, lse = flash_attention_forward(q, k, v, causal=causal, segment_ids=seg)
+        rec, ok = _packed_grads_check(q.detach(), k.detach(), v.detach(), do, kw, grads,
+                                      o2, lse)
+    rec["op_output_equals_forward"] = bool(torch.equal(o.detach(), o2))
+    rec["empty_rows"] = int((lse == DEFAULT_MASK_VALUE).sum())
+    rec["empty_rows_zero"] = bool((o2[lse == DEFAULT_MASK_VALUE] == 0).all())
+    ok &= rec["op_output_equals_forward"] and rec["empty_rows_zero"]
+    return rec, ok, launches
+
+
+def _nn_packed(dev, gen, lengths, window=None):
+    """nn.dot_product_attention on padded BTNH batches (per-batch lengths,
+    is_causal, optionally a window) and its .backward(), counted; padded
+    query rows must come out exactly 0; then the same call with the op's
+    kernels swapped for their plain versions, output and gradients held
+    against the kernel path's."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import nn as fnn
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
+
+    b, t, hq, hkv, d = PACKED_B, PACKED_N, PACKED_HQ, PACKED_HKV, PACKED_D
+    q = _rand(gen, (b, t, hq, d), torch.bfloat16, dev)
+    k = _rand(gen, (b, t, hkv, d), torch.bfloat16, dev)
+    v = _rand(gen, (b, t, hkv, d), torch.bfloat16, dev)
+    do = _rand(gen, (b, t, hq, d), torch.bfloat16, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+    def run():
+        qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        out = fnn.dot_product_attention(qr, kr, vr, is_causal=True, query_seq_lengths=lens,
+                                        key_value_seq_lengths=lens, local_window_size=window)
+        out.backward(do)
+        return out.detach(), (qr.grad, kr.grad, vr.grad)
+
+    (o, grads), launches = counted(run)
+    fa_ops = _attention_ops()
+    kernels = fa_ops.attn_fwd, fa_ops.attn_bwd
+    try:
+        fa_ops.attn_fwd, fa_ops.attn_bwd = attn_fwd_plain, attn_bwd_plain
+        o_p, grads_p = run()
+    finally:
+        fa_ops.attn_fwd, fa_ops.attn_bwd = kernels
+    torch.cuda.synchronize()
+    pad = torch.arange(t, device=dev)[None, :] >= lens[:, None]
+    fwd_rec, fwd_ok = fwd_errors((o, torch.zeros(1, device=dev)),
+                                 (o_p, torch.zeros(1, device=dev)), torch.bfloat16)
+    bwd_rec, bwd_ok = bwd_errors(grads, grads_p, torch.bfloat16)
+    rec = {"max_abs_err_o": fwd_rec["max_abs_err_o"], **bwd_rec,
+           "padded_rows": int(pad.sum()), "padded_rows_exactly_zero": bool((o[pad] == 0).all()),
+           "padded_rows_dq_zero": bool((grads[0][pad] == 0).all()),
+           "finite": bool(torch.isfinite(o).all())}
+    ok = fwd_ok and bwd_ok and rec["padded_rows_exactly_zero"] and rec["finite"]
+    return rec, ok, launches, (q, k, v, lens, o)
+
+
+def phase_packed(dev):
+    """The packed-sequence slice at the training-bench model's attention
+    shape (B8, N2048, 32 q / 8 kv heads, head_dim 128, bf16), through the
+    entry points a user calls, each call's kernel launches counted exactly:
+
+    1. the op API: flash_attention(causal=True, segment_ids=[B, N] ids of
+       a packed loader (numpy seed 0: 1-8 documents a row, 64-2048 tokens))
+       and .backward(); then SegmentIds(q, kv) with Nq 1024 against Nkv
+       2048, non-causal, some q ids absent from kv;
+    2. the nn adapter on padded batches (per-batch lengths), is_causal, then
+       with local_window_size=(255, 0), each with .backward(); a call with a
+       bias, which defers to the plain jax.nn semantics and launches
+       nothing (its output, with a zero bias, held against the kernel
+       path's); implementation="flash" with a bias, which raises;
+    3. fp8 V (e4m3, e5m2) through the op API, forward only, at the serving
+       prefill and training shapes and once with segments; .backward()
+       through fp8 V raises;
+    4. an fp32 copy of the packed call at B2, kernel against plain at the
+       fp32 ladder (O 1e-4; dQ/dK/dV 9e-4 / 7e-4 / 7e-5).
+    Every output is also held against the plain versions on the same inputs
+    (the bf16 limits of fwd_check / bwd_check)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import SegmentIds, flash_attention
+    from flash_attention_dlrs_tpu_torch import nn as fnn
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rng = np.random.default_rng(0)
+    b, n = PACKED_B, PACKED_N
+    layout = loader_layout(rng, b, n)
+    seg = torch.from_numpy(layout).to(dev)
+    calls, checks = {}, {}
+
+    def record(name, rec, ok, launches, want):
+        rec = {**rec, "launches": launches}
+        checks[f"{name}_kernel_vs_plain"] = ok
+        checks[f"{name}_launches_exact"] = launches_are(launches, **want)
+        calls[name] = rec
+        emit({"phase": "packed", "call": name, **rec})
+
+    rec, ok, launches = _op_packed(dev, gen, torch.bfloat16, b, n, seg, True)
+    rec["documents_per_row"] = [int(r.max()) + 1 for r in layout]
+    record("op_causal_packed", rec, ok, launches, SEG_CALL)
+
+    cross_q = loader_layout(rng, b, PACKED_CROSS_NQ)
+    cross_q[1::2, -64:] = 1000  # ids no key has: rows that see nothing
+    cross = SegmentIds(q=torch.from_numpy(cross_q).to(dev),
+                       kv=torch.from_numpy(loader_layout(rng, b, n)).to(dev))
+    rec, ok, launches = _op_packed(dev, gen, torch.bfloat16, b, PACKED_CROSS_NQ, cross, False)
+    record("op_cross_segment_ids", rec, ok, launches, SEG_CALL)
+    checks["op_cross_segment_ids_has_empty_rows"] = rec["empty_rows"] > 0
+
+    rec, ok, launches, (q, k, v, lens, o_kernel) = _nn_packed(dev, gen, PACKED_LENGTHS)
+    record("nn_padded_causal", rec, ok, launches, SEG_CALL)
+    rec, ok, launches, _ = _nn_packed(dev, gen, PACKED_LENGTHS, PACKED_WINDOW)
+    record("nn_padded_causal_window", rec, ok, launches, SEG_CALL)
+
+    bias = torch.zeros((1, 1, n, n), dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        o_def, launches = counted(lambda: fnn.dot_product_attention(
+            q, k, v, bias, is_causal=True, query_seq_lengths=lens,
+            key_value_seq_lengths=lens))
+    def_rec, def_ok = fwd_errors((o_def, torch.zeros(1, device=dev)),
+                                 (o_kernel, torch.zeros(1, device=dev)), torch.bfloat16)
+    record("nn_bias_deferred", {"max_abs_err_o_vs_kernel_path": def_rec["max_abs_err_o"],
+                                "tolerance": def_rec["tolerance"]}, def_ok, launches, {})
+    del o_def, bias
+
+    def flash_with_bias():
+        try:
+            fnn.dot_product_attention(q, k, v, torch.zeros((1, 1, n, n), dtype=torch.bfloat16,
+                                                           device=dev), implementation="flash")
+        except ValueError as err:
+            return "fallback" in str(err)
+        return False
+
+    checks["nn_flash_with_bias_raises"], launches = counted(flash_with_bias)
+    checks["nn_flash_with_bias_launches_nothing"] = launches_are(launches)
+    del q, k, v, o_kernel
+    torch.cuda.empty_cache()
+
+    fp8 = {}
+    for kind in FP8_V:
+        v_dtype = getattr(torch, FP8_V[kind])
+        for shape_name, (fb, fhq, fhkv, fn) in FP8_SHAPES.items():
+            for with_seg in (False, True) if shape_name.startswith("train") else (False,):
+                name = f"fp8v_{kind}_{shape_name}" + ("_packed" if with_seg else "")
+                q = _rand(gen, (fb, fhq, fn, PACKED_D), torch.bfloat16, dev)
+                k = _rand(gen, (fb, fhkv, fn, PACKED_D), torch.bfloat16, dev)
+                v8 = _rand(gen, (fb, fhkv, fn, PACKED_D), torch.bfloat16, dev).to(v_dtype)
+                sg = seg if with_seg else None
+                with torch.no_grad():
+                    o, launches = counted(lambda: flash_attention(q, k, v8, causal=True,
+                                                                  segment_ids=sg))
+                kw = dict(causal=True, sm_scale=PACKED_D ** -0.5,
+                          **({"q_seg": seg, "kv_seg": seg} if with_seg else {}))
+                want_o = attn_fwd_plain(q, k, v8, **kw)[0]
+                o_rec, o_ok = fwd_errors((o, torch.zeros(1, device=dev)),
+                                         (want_o, torch.zeros(1, device=dev)), torch.bfloat16)
+                rec = {"shape": [fb, fhq, fhkv, fn, PACKED_D], "v": FP8_V[kind],
+                       "segments": with_seg, "max_abs_err_o": o_rec["max_abs_err_o"],
+                       "tolerance": o_rec["tolerance"]}
+                record(name, rec, o_ok, launches,
+                       {"attn_fwd_seg" if with_seg else "attn_fwd": 1})
+                fp8.setdefault(kind, 0)
+                fp8[kind] += launches["attn_fwd_seg" if with_seg else "attn_fwd"]
+                del q, k, v8, o, want_o
+    q = _rand(gen, (1, 16, 256, PACKED_D), torch.bfloat16, dev).requires_grad_(True)
+    k = _rand(gen, (1, 8, 256, PACKED_D), torch.bfloat16, dev)
+    v8 = _rand(gen, (1, 8, 256, PACKED_D), torch.bfloat16, dev).to(torch.float8_e5m2)
+    try:
+        flash_attention(q, k, v8, causal=True).float().sum().backward()
+        checks["fp8v_backward_raises"] = False
+    except NotImplementedError as err:
+        checks["fp8v_backward_raises"] = "fp8 V" in str(err)
+    torch.cuda.empty_cache()
+
+    rec, ok, launches = _op_packed(dev, gen, torch.float32, PACKED_FP32_B, n,
+                                   seg[:PACKED_FP32_B].contiguous(), True)
+    record("fp32_op_causal_packed_B2", rec, ok, launches, SEG_CALL)
+    torch.cuda.empty_cache()
+
+    out = {"phase": "packed", "shape": [b, PACKED_HQ, PACKED_HKV, n, PACKED_D],
+           "dtype": "bfloat16", "layout_seed": 0, "lengths": PACKED_LENGTHS,
+           "window": list(PACKED_WINDOW), "fp8_launches": fp8, "checks": checks}
+    emit(out)
+    failed = [key for key, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"packed-sequence checks failed: {failed}")
+    return {"calls": calls, "layout": layout, "fp8_launches": fp8}
+
+
+def visible_pairs(q_ids, kv_ids, causal):
+    """Visible (q row, key) pairs of one head summed over the batch for
+    [B, Nq] / [B, Nkv] segment ids (numpy): per row, equal-id keys, and with
+    ``causal`` only those at or before the row (bottom-right aligned)."""
+    total = 0
+    nq, nkv = q_ids.shape[1], kv_ids.shape[1]
+    for qs, ks in zip(q_ids, kv_ids):
+        if causal and nq == nkv and np.array_equal(qs, ks):
+            _, counts = np.unique(qs, return_counts=True)
+            total += int((counts * (counts + 1) // 2).sum())  # documents are runs
+        else:
+            same = qs[:, None] == ks[None, :]
+            if causal:
+                same &= np.arange(nkv)[None, :] <= np.arange(nq)[:, None] + nkv - nq
+            total += int(same.sum())
+    return total
+
+
+def bwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None):
     """Operations and bytes each backward kernel needs, and the whole
     backward ("attn_bwd"), each input read once and each output written
     once.  With p visible (q, key) pairs: the dK/dV sweep computes S, dP,
     dV and dK (8·p·d flops per head), the dQ sweep S, dP and dQ (6·p·d);
     the backward as a whole needs the five products of the minimal
-    backward, 2.5 x the forward's 4·p·d."""
-    pairs = nq * nkv / 2 if causal and nq == nkv else nq * nkv
+    backward, 2.5 x the forward's 4·p·d.  ``pairs`` (one head, the whole
+    batch) counts p when the data decide it (segment ids, whose int32 reads
+    then count in each sweep)."""
+    seg_bytes = 0 if pairs is None else 4 * b * (nq + nkv)
+    if pairs is None:
+        pairs = b * (nq * nkv / 2 if causal and nq == nkv else nq * nkv)
     q_bytes = itemsize * b * hq * nq * d  # one of q, O, dO, dQ
     kv_bytes = itemsize * b * hkv * nkv * d  # one of K, V, dK, dV
     stat_bytes = 4 * b * hq * nq  # one of lse, D
     return {
         "attn_bwd_preprocess": (2 * b * hq * nq * d, 2 * q_bytes + stat_bytes),
-        "attn_bwd_dkv": (8 * b * hq * pairs * d,
-                         2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes),
-        "attn_bwd_dq": (6 * b * hq * pairs * d,
-                        3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes),
-        "attn_bwd": (10 * b * hq * pairs * d,
-                     4 * q_bytes + 4 * kv_bytes + stat_bytes),
+        "attn_bwd_dkv": (8 * hq * pairs * d,
+                         2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "attn_bwd_dq": (6 * hq * pairs * d,
+                        3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + seg_bytes),
+        "attn_bwd": (10 * hq * pairs * d,
+                     4 * q_bytes + 4 * kv_bytes + stat_bytes + seg_bytes),
     }
 
 
-def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None):
+def block_causal_mask(ids):
+    """The boolean ``attn_mask`` [B, 1, N, N] of causal attention within
+    equal segment ids, for scaled_dot_product_attention (True attends): the
+    library yardstick of the segmented kernels."""
+    import torch
+
+    n = ids.shape[1]
+    tril = torch.ones((n, n), dtype=torch.bool, device=ids.device).tril()
+    return ((ids[:, :, None] == ids[:, None, :]) & tril)[:, None]
+
+
+def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None):
     """The three backward kernels one by one and together at one causal
     bf16 shape (with the ALiBi and dropout arguments of :func:`mods`
-    ``mod``), each with its bound, its plain version's time and its error
-    against the plain version on the same inputs; SDPA's backward
-    (torch.autograd.grad through scaled_dot_product_attention, graph kept)
-    as the library time of the whole backward, torch.linalg.vecdot on the
-    fp32 casts of O and dO as that of the preprocess.  Dropout has no
-    library time: SDPA's dropout draws other bits."""
+    ``mod``, and the [B, N] segment ids ``seg`` (numpy) when given), each
+    with its bound (with segments, of the layout's visible pairs), its plain
+    version's time and its error against the plain version on the same
+    inputs; SDPA's backward (torch.autograd.grad through
+    scaled_dot_product_attention, graph kept; with segments on the
+    block-diagonal causal boolean mask) as the library time of the whole
+    backward, torch.linalg.vecdot on the fp32 casts of O and dO as that of
+    the preprocess.  Dropout has no library time: SDPA's dropout draws other
+    bits."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
@@ -1633,7 +2064,9 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None):
     k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     do = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **(mod or {})))
+    ids = None if seg is None else torch.from_numpy(seg).to(dev)
+    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **(mod or {})),
+              **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
     o, lse = attn_fwd(q, k, v, **kw)
     delta = bk.attn_bwd_preprocess(o, do)
     calls = {
@@ -1651,12 +2084,14 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None):
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     out = None
     if not kw["dropout_rate"]:
+        mask = (block_causal_mask(ids) if ids is not None
+                else sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev))
         out = F.scaled_dot_product_attention(
-            qr, kr, vr, attn_mask=sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev),
-            is_causal=kw["alibi_slopes"] is None, enable_gqa=True)
+            qr, kr, vr, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
         lib_ms["attn_bwd"] = median_ms(lambda: torch.autograd.grad(
             out, (qr, kr, vr), do, retain_graph=True))
-    work = bwd_work(b, hq, hkv, n, n, d, True, 2)
+    work = bwd_work(b, hq, hkv, n, n, d, True, 2,
+                    pairs=None if seg is None else visible_pairs(seg, seg, True))
     rows = {}
     for name, (kernel, plain) in calls.items():
         got, want = kernel(), plain()
@@ -1691,12 +2126,16 @@ def sdpa_bias(slopes, n, dtype, dev):
     return torch.where(dist >= 0, -m * dist, float("-inf"))[None].to(dtype)
 
 
-def time_fwd(gen, dev, b, hq, hkv, n, d, mod):
+def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
     """The forward kernel at one causal bf16 shape with the ALiBi and
-    dropout arguments of :func:`mods` ``mod``: its time, its plain
-    version's, its bound (ALiBi and dropout add no bytes; their operations
-    are not counted), its error against the plain version, and SDPA's time
-    (with the ALiBi bias as a float mask) where no dropout is asked."""
+    dropout arguments of :func:`mods` ``mod``, the [B, N] segment ids
+    ``seg`` (numpy) and V in the fp8 kind ``v8`` when given: its time, its
+    plain version's, its bound (ALiBi and dropout add no bytes and their
+    operations are not counted; segments count their layout's visible pairs
+    and their ids' bytes; fp8 V one byte per element), its error against the
+    plain version, and SDPA's time where no dropout is asked: with the ALiBi
+    bias as a float mask, with segments on the block-diagonal causal
+    boolean mask, with fp8 V on V upcast to bf16 (the upcast included)."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
@@ -1704,17 +2143,30 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod):
     q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
     k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **mod))
+    if v8:
+        v = v.to(getattr(torch, FP8_V[v8]))
+    ids = None if seg is None else torch.from_numpy(seg).to(dev)
+    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **mod),
+              **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
     err = float((attn_fwd(q, k, v, **kw)[0].float()
                  - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
     ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
     plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=1, reps=3)
     lib_ms = None
-    if not kw["dropout_rate"]:
+    if ids is not None:
+        mask = block_causal_mask(ids)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True))
+    elif v8:
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v.to(torch.bfloat16), is_causal=True, enable_gqa=True))
+    elif not kw["dropout_rate"]:
         bias = sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev)
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=bias, is_causal=bias is None, enable_gqa=True))
-    flops, nbytes = fwd_work(b, hq, hkv, n, n, d, True, 2)
+    flops, nbytes = fwd_work(b, hq, hkv, n, n, d, True, 2,
+                             pairs=None if seg is None else visible_pairs(seg, seg, True),
+                             v_itemsize=1 if v8 else 2)
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     del q, k, v
     torch.cuda.empty_cache()
@@ -1722,7 +2174,7 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod):
             "bound_by": bound_by, "tflops": flops / ms / 1e9, "max_abs_err": err}
 
 
-def phase_time(dev, train_rec, train_alibi_rec):
+def phase_time(dev, train_rec, train_alibi_rec, packed_rec):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1746,6 +2198,26 @@ def phase_time(dev, train_rec, train_alibi_rec):
                           "torch.nn.functional.scaled_dot_product_attention"
                           + (" with the ALiBi bias as a float attn_mask" if mod else "")),
               **timings[name]})
+    # the packed phase's layout (segments) and fp8 V
+    layout = packed_rec["layout"]
+    timings["fwd_seg_train_B8_H32_N2048"] = time_fwd(gen, dev, *train, {}, seg=layout)
+    emit({"phase": "time", "kernel": "attn_fwd[seg]", "case": "fwd_seg_train_B8_H32_N2048",
+          "shape": list(train), "dtype": "bfloat16", "causal": True, "segments": "packed",
+          "visible_pairs_per_head": visible_pairs(layout, layout, True),
+          "library": ("torch.nn.functional.scaled_dot_product_attention with the "
+                      "block-diagonal causal boolean attn_mask"),
+          **timings["fwd_seg_train_B8_H32_N2048"]})
+    for kind in FP8_V:
+        for shape_name, shape in (("serve_prefill_2048", serve),
+                                  ("train_B8_H32_N2048", train)):
+            name = f"fwd_fp8v_{kind}_{shape_name}"
+            timings[name] = time_fwd(gen, dev, *shape, {}, v8=kind)
+            emit({"phase": "time", "kernel": f"attn_fwd[fp8v-{kind}]", "case": name,
+                  "shape": list(shape), "dtype": "bfloat16 q/k, " + FP8_V[kind] + " V",
+                  "causal": True,
+                  "library": ("torch.nn.functional.scaled_dot_product_attention on V "
+                              "upcast to bf16, the upcast included"),
+                  **timings[name]})
 
     # launches per train step; one attn_bwd call launches each of its three
     # kernels once
@@ -1755,24 +2227,31 @@ def phase_time(dev, train_rec, train_alibi_rec):
     alibi_per_step = {name: n // TRAIN_TIMED_STEPS
                       for name, n in train_alibi_rec["launches"].items()}
     alibi_per_step["attn_bwd"] = alibi_per_step["attn_bwd_dq"]
-    for name, shape, mod in (("bwd_train_B8_H32_N2048", train, None),
-                             ("bwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128), None),
-                             ("bwd_alibi_dropout_train_B8_H32_N2048", train, both)):
-        rows = time_bwd(dev, gen, *shape, mod=mod)
+    for name, shape, mod, seg in (
+            ("bwd_train_B8_H32_N2048", train, None, None),
+            ("bwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128), None, None),
+            ("bwd_alibi_dropout_train_B8_H32_N2048", train, both, None),
+            ("bwd_seg_train_B8_H32_N2048", train, None, layout)):
+        rows = time_bwd(dev, gen, *shape, mod=mod, seg=seg)
         timings[name] = rows
         library = {
             "attn_bwd": ("backward of torch.nn.functional.scaled_dot_product_attention"
-                         " (enable_gqa), torch.autograd.grad on a kept graph"),
+                         " (enable_gqa), torch.autograd.grad on a kept graph"
+                         + ("" if seg is None else
+                            ", on the block-diagonal causal boolean attn_mask")),
             "attn_bwd_preprocess": ("torch.linalg.vecdot(o.float(), do.float()), "
                                     "the casts included"),
         }
         if mod:
             library["attn_bwd"] = "none: SDPA's dropout draws other bits"
+        launches = alibi_per_step if mod else per_step
         for kernel in ("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
-            emit({"phase": "time", "kernel": kernel, "case": name, "shape": list(shape),
+            emit({"phase": "time", "kernel": kernel + ("" if seg is None else "[seg]"),
+                  "case": name, "shape": list(shape),
                   "dtype": "bfloat16", "causal": True, "alibi": bool(mod),
                   "dropout_rate": (mod or {}).get("rate", 0.0),
-                  "launches_per_train_step": (alibi_per_step if mod else per_step)[kernel],
+                  "segments": None if seg is None else "packed",
+                  "launches_per_train_step": None if seg is not None else launches[kernel],
                   "library": library.get(kernel, "none: SDPA's backward computes all "
                                          "three kernels' outputs at once (see attn_bwd)"),
                   **rows[kernel]})
@@ -1873,7 +2352,7 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
     for attn_fwd, attn_fwd[alibi] and the paged kernels (decode at 8
     sequences of 2048 tokens, verify a 256-token chunk at 2048) and at the
     training shape for attn_fwd[alibi+dropout] and the backward kernels."""
-    serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi = paths
+    serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
     fwd_t = timings["fwd_serve_prefill_2048"]
     kernels = [
         {"name": "attn_fwd", "route": "cuda", "source": FWD_SOURCE,
@@ -1949,7 +2428,61 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
               timings["verify_bf16_T256_ctx2048_alibi"],
               dec_res["alibi_verify_T256_bf16"]["max_abs_err_o"]),
     ]
+    # segment ids and fp8 V: launches of the packed phase's calls
+    seg_launches = {name: sum(c["launches"][name] for c in packed["calls"].values())
+                    for name in ("attn_fwd_seg", "attn_bwd_dkv_seg", "attn_bwd_dq_seg")}
+    rows = timings["bwd_seg_train_B8_H32_N2048"]
+    kernels += [
+        entry("attn_fwd[seg]", FWD_SEG_SOURCE, FWD_REPLACES, seg_launches["attn_fwd_seg"],
+              timings["fwd_seg_train_B8_H32_N2048"]),
+        entry("attn_bwd_dkv[seg]", BWD_SEG_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
+              seg_launches["attn_bwd_dkv_seg"], rows["attn_bwd_dkv"]),
+        entry("attn_bwd_dq[seg]", BWD_SEG_SOURCE, BWD_REPLACES["attn_bwd_dq"],
+              seg_launches["attn_bwd_dq_seg"], rows["attn_bwd_dq"]),
+    ]
+    for kind in FP8_V:
+        kernels.append(entry(f"attn_fwd[fp8v-{kind}]", FWD_SOURCE, FWD_REPLACES,
+                             packed["fp8_launches"][kind],
+                             timings[f"fwd_fp8v_{kind}_serve_prefill_2048"]))
     emit({"kernels": kernels})
+
+
+# One run of --pair: the tree's own chip_smoke.py builds its kernels and
+# times the mode-free forward (serving prefill, training, bench shapes) and
+# backward family (training shape) with time_fwd / time_bwd.
+PAIR_RUN = """
+import json, torch
+import chip_smoke as c
+dev = torch.device("cuda", 0)
+c.phase_build()
+gen = torch.Generator(device=dev).manual_seed(3)
+out = {}
+for name, shape in (("attn_fwd_serve_prefill_2048", (1, 16, 8, 2048, 128)),
+                    ("attn_fwd_train_B8_H32_N2048", (8, 32, 8, 2048, 128)),
+                    ("attn_fwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128))):
+    out[name] = c.time_fwd(gen, dev, *shape, {})["ms"]
+rows = c.time_bwd(dev, gen, 8, 32, 8, 2048, 128)
+for k in ("attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
+    out[k + "_train_B8_H32_N2048"] = rows[k]["ms"]
+print("PAIR " + json.dumps(out), flush=True)
+"""
+
+
+def pair(parent_dir) -> None:
+    """The parent/change comparison of the mode-free kernels: PAIR_RUN from
+    ``parent_dir`` and from this tree in turns, parent, change, change,
+    parent, on one card; raises if a run fails."""
+    from pathlib import Path
+
+    trees = {"parent": Path(parent_dir).resolve(), "change": Path(__file__).resolve().parent}
+    print(card_line(), flush=True)
+    for i, name in enumerate(("parent", "change", "change", "parent")):
+        out = subprocess.run([sys.executable, "-c", PAIR_RUN], cwd=trees[name],
+                             capture_output=True, text=True, timeout=900)
+        if out.returncode:
+            raise RuntimeError(f"pair run {i + 1} ({name}) failed:\n{out.stderr[-4000:]}")
+        line = next(l for l in out.stdout.splitlines() if l.startswith("PAIR "))
+        emit({"phase": "pair", "run": i + 1, "tree": name, "ms": json.loads(line[5:])})
 
 
 def main() -> int:
@@ -1959,6 +2492,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import flash_attention_dlrs_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    if sys.argv[1:2] == ["--pair"]:
+        pair(sys.argv[2])
+        return 0
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1983,10 +2520,11 @@ def main() -> int:
     train_rec = phase_train(dev)
     train_alibi_rec = phase_train(dev, "train_alibi", position_encoding="alibi",
                                   attn_dropout=TRAIN_ALIBI_DROPOUT)
-    timings = phase_time(dev, train_rec, train_alibi_rec)
+    packed_rec = phase_packed(dev)
+    timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
-                  alibi_runs, train_alibi_rec), timings)
+                  alibi_runs, train_alibi_rec, packed_rec), timings)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,31 @@
+// The attention backward sweeps with segment ids (packed sequences): the
+// kernels of attn_bwd.cuh instantiated with SEG = true (attn_bwd.cu holds
+// the other half and the D preprocess, which segments do not change).
+
+#include "attn_bwd.cuh"
+
+extern "C" int attn_bwd_dkv_seg(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse, const float* delta,
+                                void* dk, void* dv, const int* q_seg, const int* kv_seg,
+                                int dtype, int B, int Hq, int Hkv, int Nq, int Nkv, int D,
+                                float sm_scale, int causal, int window, float softcap,
+                                const float* slopes, float rate, float keep_scale, int seed,
+                                void* stream) {
+  return attn_bwd_dkv_entry<true>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg, dtype,
+                                  B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap,
+                                  slopes, rate, keep_scale, seed, stream);
+}
+
+extern "C" int attn_bwd_dq_seg(const void* q, const void* k, const void* v, const void* dout,
+                               const float* lse, const float* delta, void* dq,
+                               const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
+                               int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
+                               int window, float softcap, const float* slopes, float rate,
+                               float keep_scale, int seed, void* stream) {
+  return attn_bwd_dq_entry<true>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg, dtype, B, Hq,
+                                 Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap, slopes,
+                                 rate, keep_scale, seed, stream);
+}
+
+extern "C" const char* attn_bwd_dkv_seg_error_string(int err) { return error_string(err); }
+extern "C" const char* attn_bwd_dq_seg_error_string(int err) { return error_string(err); }

@@ -1,17 +1,19 @@
-// Pieces shared by the attention kernels (attn_fwd.cu, attn_bwd.cu,
+// Pieces shared by the attention kernels (attn_fwd*.cu, attn_bwd*.cu,
 // paged_verify.cu), sm_90a.
 //
 // The masking rule of the JAX package (bottom-right causal alignment,
-// sliding window on the causal band, ragged KV tail), the ALiBi and
-// attention-dropout arguments and the dropout mask, the tensor-core
-// fragment helpers (mma.sync.m16n8k16 with fp32 accumulate, ldmatrix) and
-// the 16-byte tile staging.  Each source that includes this file is its own
-// library (_cuda.py hashes the headers with it).
+// sliding window on the causal band, ragged KV tail), the ALiBi,
+// attention-dropout and segment-id arguments and the dropout mask, the
+// tensor-core fragment helpers (mma.sync.m16n8k16 with fp32 accumulate,
+// ldmatrix) and the 16-byte tile staging, with its fp8 variant for V.  Each
+// source that includes this file is its own library (_cuda.py hashes the
+// headers with it).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -38,7 +40,9 @@ __device__ __forceinline__ bool visible(int row, int col, int Nq, int Nkv,
 }
 
 // Whether every (row, col) of the tile [m0, m0 + M) x [n0, n0 + N) is
-// visible, so the mask can be skipped.
+// visible, so the mask can be skipped.  Never true under segment ids, whose
+// test is per element (callers write `!SEG && tile_unmasked(...)`), as in
+// the JAX kernel ("with segments every block masks").
 template <int M, int N>
 __device__ __forceinline__ bool tile_unmasked(int m0, int n0, int Nq, int Nkv,
                                               int causal, int window) {
@@ -51,15 +55,25 @@ __device__ __forceinline__ bool tile_unmasked(int m0, int n0, int Nq, int Nkv,
   return full;
 }
 
-// ALiBi and attention dropout of one attention call (ops/fwd_kernel.py
-// mod_args).  The bias is the true -m_h * (q_pos - col), added after the
-// softcap and before the mask.
+// ALiBi, attention dropout and segment ids of one attention call
+// (ops/fwd_kernel.py mod_args).  The bias is the true -m_h * (q_pos - col),
+// added after the softcap and before the mask; with segment ids, q row i
+// sees key j only where q_seg[b, i] == kv_seg[b, j] (and the causal /
+// window rule holds).
 struct Mods {
   const float* slopes;  // [Hq] natural-base ALiBi slopes, or null
   float rate;           // dropout rate; 0 = no dropout
   float keep_scale;     // 1 / (1 - rate), rounded once from double
   uint32_t seed;
+  const int* q_seg;     // [B, Nq] int32 segment ids, or null
+  const int* kv_seg;    // [B, Nkv] int32 segment ids, or null
 };
+
+// The segment id of position i of batch row b of a [B, N] id array; 0 past
+// N (those positions are masked by bounds).
+__device__ __forceinline__ int seg_id(const int* ids, int b, int N, int i) {
+  return i < N ? ids[size_t(b) * N + i] : 0;
+}
 
 // Wellons' lowbias32 mixer: the JAX package's int32 version bit for bit
 // (wrapping multiplies, logical shifts).
@@ -86,18 +100,24 @@ __device__ __forceinline__ float dropout_factor(uint32_t stream, int row, int co
                                                                      : 0.f;
 }
 
-// Calls fn(alibi, drop) with std::true_type / std::false_type for the
-// modes the call asks for: the kernels take ALiBi and dropout as template
-// flags, so a call without them runs code compiled without them (runtime
-// branches in the unrolled tile loops cost registers, and 14-40% of the
-// mode-free kernels' time on the H100).
-template <typename Fn>
+// Calls fn(alibi, drop, seg) with std::true_type / std::false_type for the
+// modes the call asks for: the kernels take ALiBi, dropout and segment ids
+// as template flags, so a call without them runs code compiled without them
+// (runtime branches in the unrolled tile loops cost registers, and 14-40%
+// of the mode-free kernels' time on the H100).  SEG is fixed per source:
+// attn_fwd.cu / attn_bwd.cu instantiate the kernels without segments and
+// attn_fwd_seg.cu / attn_bwd_seg.cu with them, so the two halves compile
+// side by side; a call whose q ids disagree with SEG is refused (kv_seg is
+// read only where keys exist: it may be null when Nkv = 0).
+template <bool SEG, typename Fn>
 int dispatch_mods(const Mods& md, Fn&& fn) {
+  if ((md.q_seg != nullptr) != SEG) return int(cudaErrorInvalidValue);
+  const std::integral_constant<bool, SEG> seg{};
   const bool alibi = md.slopes != nullptr, drop = md.rate > 0.f;
-  if (alibi && drop) return fn(std::true_type{}, std::true_type{});
-  if (alibi) return fn(std::true_type{}, std::false_type{});
-  if (drop) return fn(std::false_type{}, std::true_type{});
-  return fn(std::false_type{}, std::false_type{});
+  if (alibi && drop) return fn(std::true_type{}, std::true_type{}, seg);
+  if (alibi) return fn(std::true_type{}, std::false_type{}, seg);
+  if (drop) return fn(std::false_type{}, std::true_type{}, seg);
+  return fn(std::false_type{}, std::false_type{}, seg);
 }
 
 struct TileRange {
@@ -216,6 +236,77 @@ __device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0, int N,
     const int idx = tid + it * THREADS;
     const int r = idx / CPR, c = (idx % CPR) * VEC;
     *reinterpret_cast<uint4*>(dst + r * S + c) = buf[it];
+  }
+}
+
+// V of the forward kernel in fp8 (ops/fwd_kernel.py V_KINDS): 0 = V has
+// q's type, 1 = float8_e4m3fn, 2 = float8_e5m2.  Both fp8 formats convert
+// exactly into fp16, bf16 and fp32; the payloads must be finite (the JAX
+// contract, fwd_kernel.py:70-73).
+constexpr int kVSame = 0, kVE4M3 = 1, kVE5M2 = 2;
+
+__device__ __forceinline__ __nv_fp8_interpretation_t fp8_format(int v_kind) {
+  return v_kind == kVE5M2 ? __NV_E5M2 : __NV_E4M3;
+}
+
+__device__ __forceinline__ float fp8_to_float(uint8_t x, int v_kind) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(x, fp8_format(v_kind))));
+}
+
+// Two fp8 values (the first in the low byte) as a packed pair of T, by the
+// paired hardware conversion to half.
+template <typename T>
+__device__ __forceinline__ uint32_t fp8x2_to(uint32_t x, int v_kind);
+
+template <>
+__device__ __forceinline__ uint32_t fp8x2_to<__half>(uint32_t x, int v_kind) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(x & 0xFFFFu), fp8_format(v_kind));
+  return uint32_t(h.x) | (uint32_t(h.y) << 16);
+}
+
+template <>
+__device__ __forceinline__ uint32_t fp8x2_to<__nv_bfloat16>(uint32_t x, int v_kind) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(x & 0xFFFFu), fp8_format(v_kind));
+  const float2 f = __half22float2(__half2(h));
+  __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<uint32_t*>(&b);
+}
+
+// stage_tile for an fp8 [N, D] matrix into a [ROWS][S] shared tile of T
+// (bf16 / fp16): 16 fp8 values per 16-byte load, converted exactly and
+// stored as 32 bytes; zero beyond N.  The device-memory read is half that
+// of a 16-bit V.
+template <typename T, int D, int S, int ROWS, int THREADS>
+__device__ __forceinline__ void stage_tile_fp8(T* dst, const uint8_t* src, int r0,
+                                               int N, int tid, int v_kind) {
+  constexpr int CPR = D / 16;  // 16-byte chunks per row
+  static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
+  constexpr int ITERS = ROWS * CPR / THREADS;
+  uint4 buf[ITERS];
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int idx = tid + it * THREADS;
+    const int r = idx / CPR, c = (idx % CPR) * 16;
+    buf[it] = r0 + r < N
+                  ? *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + c)
+                  : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int it = 0; it < ITERS; ++it) {
+    const int idx = tid + it * THREADS;
+    const int r = idx / CPR, c = (idx % CPR) * 16;
+    const uint32_t w[4] = {buf[it].x, buf[it].y, buf[it].z, buf[it].w};
+    uint32_t out[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      out[2 * i] = fp8x2_to<T>(w[i], v_kind);
+      out[2 * i + 1] = fp8x2_to<T>(w[i] >> 16, v_kind);
+    }
+    uint4* d = reinterpret_cast<uint4*>(dst + r * S + c);
+    d[0] = make_uint4(out[0], out[1], out[2], out[3]);
+    d[1] = make_uint4(out[4], out[5], out[6], out[7]);
   }
 }
 

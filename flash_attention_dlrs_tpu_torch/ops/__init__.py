@@ -7,6 +7,7 @@ from .decode import (
     quantize_kv_pages,
 )
 from .flash_attention import (
+    SegmentIds,
     flash_attention,
     flash_attention_backward,
     flash_attention_forward,
@@ -18,6 +19,7 @@ from .reference import (
 )
 
 __all__ = [
+    "SegmentIds",
     "alibi_slopes_for",
     "flash_attention",
     "flash_attention_backward",

@@ -1,13 +1,17 @@
 """Attention backward kernels: wrappers, plain version and launch counts.
 
-The kernels are ``csrc/attn_bwd.cu``: ``attn_bwd_preprocess``
-(D = rowsum(O ∘ dO)), ``attn_bwd_dkv`` and ``attn_bwd_dq``.  Together they
+The kernels are ``csrc/attn_bwd.cuh``: ``attn_bwd_preprocess``
+(D = rowsum(O ∘ dO)), ``attn_bwd_dkv`` and ``attn_bwd_dq``, the two sweeps
+built twice: ``csrc/attn_bwd.cu`` without segment ids and
+``csrc/attn_bwd_seg.cu`` with them (``attn_bwd_dkv_seg``,
+``attn_bwd_dq_seg``), each entry with its own launch count.  Together they
 replace the six backward TPU kernels of the JAX package —
 ``ops/fwd_small.py::_small_bwd_kernel``, ``ops/bwd_kernel.py::_bwd_d_kernel``,
 ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``,
 ``ops/bwd_fused.py::_bwd_fused_kernel`` and ``ops/bwd_mid.py::_bwd_mid_kernel``
 — for the forward's feature set (causal or not, GQA, ragged lengths, window,
-softcap, ALiBi, attention dropout).  Dropout regenerates the forward's mask
+softcap, ALiBi, attention dropout, segment ids; fp8 V has no backward, as in
+the JAX package).  Dropout regenerates the forward's mask
 from the same seed: dV = (P∘M)ᵀdO and dS = P∘(M∘dP − D), with D =
 rowsum(dO∘O) unchanged.  The result is deterministic: every sum runs in a fixed order and
 no kernel uses atomics.  :func:`attn_bwd` sends CPU tensors to the plain
@@ -28,6 +32,7 @@ from .fwd_kernel import (
     MOD_ARGS,
     _row_bias,
     bias_and_mask,
+    check_segments,
     dropout_rows,
     mod_args,
 )
@@ -45,18 +50,14 @@ _SWEEP_ARGS = (
     + MOD_ARGS
     + [ctypes.c_void_p]  # stream
 )
-DKV_KERNEL = CudaKernel(
-    "attn_bwd.cu",
-    "attn_bwd_dkv",
-    [ctypes.c_void_p] * 8  # q, k, v, dout, lse, delta, dk, dv
-    + _SWEEP_ARGS,
-)
-DQ_KERNEL = CudaKernel(
-    "attn_bwd.cu",
-    "attn_bwd_dq",
-    [ctypes.c_void_p] * 7  # q, k, v, dout, lse, delta, dq
-    + _SWEEP_ARGS,
-)
+# q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg
+_DKV_ARGS = [ctypes.c_void_p] * 10 + _SWEEP_ARGS
+# q, k, v, dout, lse, delta, dq, q_seg, kv_seg
+_DQ_ARGS = [ctypes.c_void_p] * 9 + _SWEEP_ARGS
+DKV_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dkv", _DKV_ARGS)
+DQ_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dq", _DQ_ARGS)
+DKV_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dkv_seg", _DKV_ARGS)
+DQ_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dq_seg", _DQ_ARGS)
 
 
 def _check_cuda(q, k, v, o, lse, do) -> None:
@@ -96,55 +97,62 @@ def attn_bwd_preprocess(o, do):
 
 
 def _sweep_args(q, k, causal, sm_scale, window, softcap, alibi_slopes,
-                dropout_rate, dropout_seed):
+                dropout_rate, dropout_seed, q_seg, kv_seg):
     b, hq, n_q, d = q.shape
-    return (DTYPE_CODES[q.dtype], b, hq, k.shape[1], n_q, k.shape[2], d,
-            float(sm_scale), int(bool(causal)), int(window), float(softcap),
-            *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
+    return (ptr(q_seg), ptr(kv_seg), DTYPE_CODES[q.dtype], b, hq, k.shape[1], n_q,
+            k.shape[2], d, float(sm_scale), int(bool(causal)), int(window),
+            float(softcap), *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
             stream_handle(q.device))
 
 
 def _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-        dropout_seed):
+        dropout_seed, q_seg, kv_seg):
     return dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
                 alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
-                dropout_seed=dropout_seed)
+                dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
 
 
 def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
-                 softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0):
+                 softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
+                 q_seg=None, kv_seg=None):
     """(dK, dV) [B, Hkv, Nkv, d] in k's dtype: the dK/dV sweep kernel on a
-    CUDA device, :func:`attn_bwd_dkv_plain` on the CPU."""
+    CUDA device (its segment build with ``q_seg`` / ``kv_seg``),
+    :func:`attn_bwd_dkv_plain` on the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed)
+             dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    DKV_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                      ptr(dk), ptr(dv), *_sweep_args(q, k, **kw))
+    kernel = DKV_KERNEL if q_seg is None else DKV_SEG_KERNEL
+    kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                  ptr(dk), ptr(dv), *_sweep_args(q, k, **kw))
     return dk, dv
 
 
 def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
-                softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0):
-    """dQ [B, Hq, Nq, d] in q's dtype: the dQ sweep kernel on a CUDA device,
+                softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
+                q_seg=None, kv_seg=None):
+    """dQ [B, Hq, Nq, d] in q's dtype: the dQ sweep kernel on a CUDA device
+    (its segment build with ``q_seg`` / ``kv_seg``),
     :func:`attn_bwd_dq_plain` on the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed)
+             dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     dq = torch.empty_like(q)
-    DQ_KERNEL.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                     ptr(dq), *_sweep_args(q, k, **kw))
+    kernel = DQ_KERNEL if q_seg is None else DQ_SEG_KERNEL
+    kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
+                  ptr(dq), *_sweep_args(q, k, **kw))
     return dq
 
 
 def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
              window: int = 0, softcap: float = 0.0, alibi_slopes=None,
-             dropout_rate: float = 0.0, dropout_seed: int = 0):
+             dropout_rate: float = 0.0, dropout_seed: int = 0, q_seg=None,
+             kv_seg=None):
     """(dQ, dK, dV) of O = dropout(softmax(scale·QKᵀ (softcapped) + ALiBi
     bias + mask))V, given the forward's O and natural-base lse [B, Hq, Nq]
-    and the output gradient dO; ALiBi and dropout arguments as in
+    and the output gradient dO; ALiBi, dropout and segment arguments as in
     :func:`..fwd_kernel.attn_fwd`, matching the forward's.
 
     Arguments are validated by the caller (ops/flash_attention.py).  CPU
@@ -152,12 +160,13 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     kernels (preprocess, dK/dV sweep, dQ sweep), which take contiguous
     fp32/bf16/fp16 inputs with d in {64, 128}, or raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed)
+             dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_plain(q, k, v, o, lse, do, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"attn_bwd runs on cpu or cuda, not {q.device}")
     _check_cuda(q, k, v, o, lse, do)
+    check_segments(q, k, q_seg, kv_seg)
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = attn_bwd_preprocess(o, do)
@@ -176,7 +185,7 @@ def attn_bwd_preprocess_plain(o, do):
 
 
 def _plain_sweep(q, k, v, do, lse, delta, *, causal, sm_scale, window,
-                 softcap, alibi_slopes, dropout_rate, dropout_seed):
+                 softcap, alibi_slopes, dropout_rate, dropout_seed, q_seg, kv_seg):
     """Per chunk of q rows (bounding the score matrix's memory): the row
     slice, q and dO in fp32, P∘M and dS, and K expanded to the q heads.  P
     is rebuilt from the passed lse as exp(S − lse), exactly 0 where masked
@@ -197,7 +206,8 @@ def _plain_sweep(q, k, v, do, lse, delta, *, causal, sm_scale, window,
         x = torch.matmul(qc, kt) * sm_scale
         if softcap:
             x = softcap * torch.tanh(x / softcap)
-        s = bias_and_mask(x, r0, n_q, causal=causal, window=window, bias=bias)
+        s = bias_and_mask(x, r0, n_q, causal=causal, window=window, bias=bias,
+                          q_seg=q_seg, kv_seg=kv_seg)
         p = torch.exp(s - lse[:, :, r0:r1, None])  # masked: exp(-inf) = 0
         dp = torch.matmul(doc, vf.transpose(-1, -2))
         if dropout_rate:
@@ -214,7 +224,7 @@ def _plain_sweep(q, k, v, do, lse, delta, *, causal, sm_scale, window,
 
 def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
                        window=0, softcap=0.0, alibi_slopes=None,
-                       dropout_rate=0.0, dropout_seed=0):
+                       dropout_rate=0.0, dropout_seed=0, q_seg=None, kv_seg=None):
     """Plain version of the dK/dV sweep kernel."""
     b, hq, _, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
@@ -223,7 +233,7 @@ def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
     for _, qc, doc, pd, ds, _ in _plain_sweep(
             q, k, v, do, lse, delta, **_kw(causal, sm_scale, window, softcap,
                                            alibi_slopes, dropout_rate,
-                                           dropout_seed)):
+                                           dropout_seed, q_seg, kv_seg)):
         dk += torch.matmul(ds.transpose(-1, -2), qc)
         dv += torch.matmul(pd.transpose(-1, -2), doc)
     dk *= sm_scale
@@ -235,24 +245,25 @@ def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
 
 def attn_bwd_dq_plain(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                       softcap=0.0, alibi_slopes=None, dropout_rate=0.0,
-                      dropout_seed=0):
+                      dropout_seed=0, q_seg=None, kv_seg=None):
     """Plain version of the dQ sweep kernel."""
     dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     for rows, _, _, _, ds, kf in _plain_sweep(
             q, k, v, do, lse, delta, **_kw(causal, sm_scale, window, softcap,
                                            alibi_slopes, dropout_rate,
-                                           dropout_seed)):
+                                           dropout_seed, q_seg, kv_seg)):
         dq[:, :, rows] = (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
     return dq
 
 
 def attn_bwd_plain(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
                    window: int = 0, softcap: float = 0.0, alibi_slopes=None,
-                   dropout_rate: float = 0.0, dropout_seed: int = 0):
+                   dropout_rate: float = 0.0, dropout_seed: int = 0, q_seg=None,
+                   kv_seg=None):
     """Plain PyTorch version of :func:`attn_bwd`: the three kernels' plain
     versions in turn, in fp32 on the inputs' device."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed)
+             dropout_seed, q_seg, kv_seg)
     delta = attn_bwd_preprocess_plain(o, do)
     dk, dv = attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw), dk, dv

@@ -7,31 +7,62 @@
   replayed L: ``rederive_stats``);
 - :func:`flash_attention` is the differentiable op, a
   ``torch.autograd.Function`` in place of the JAX ``custom_vjp``: its
-  forward saves (q, k, v, O, L) and its backward runs the backward kernels.
+  forward saves (q, k, v, O, L) and the segment ids, and its backward runs
+  the backward kernels.
 
 The JAX package splits the forward over four TPU routes and the backward
-over six, chosen by length; here one forward kernel (``csrc/attn_fwd.cu``)
-and one deterministic two-sweep backward family (``csrc/attn_bwd.cu``) take
+over six, chosen by length; here one forward kernel (``csrc/attn_fwd.cuh``)
+and one deterministic two-sweep backward family (``csrc/attn_bwd.cuh``) take
 every length, so there is no dispatch.  ALiBi is the true bias
 −m_h·(q_pos − col) in every kernel, so the public L is the kernels' own (the
 TPU kernels' separable form needed a shift).  Dropout is the counter-based
-mask of :func:`..fwd_kernel.dropout_keep_mask`.  Segments and fp8 V raise
-``NotImplementedError`` until their slice (ROADMAP.md).
+mask of :func:`..fwd_kernel.dropout_keep_mask`.  :class:`SegmentIds` packs
+sequences: a row sees only keys of its own id.  V may be fp8 (e4m3fn /
+e5m2) beside fp32/bf16/fp16 q and k, for the forward only: the backward
+through fp8 V raises ``NotImplementedError``, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .bwd_kernel import attn_bwd
-from .fwd_kernel import attn_fwd, int32_seed
+from .fwd_kernel import FP8_DTYPES, attn_fwd, int32_seed
 
-_NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-_FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+_FP8_BACKWARD = ("backward through fp8 V is not supported — use bf16 V for "
+                 "training, fp8 V for inference-only calls")
+
+
+class SegmentIds(NamedTuple):
+    """Packed-sequence segment ids: positions attend only within equal ids.
+
+    q: [B, Nq] integer; kv: [B, Nkv] integer (tensors, or anything
+    ``torch.as_tensor`` takes).  A single [B, N] tensor in their place
+    serves both sides."""
+
+    q: torch.Tensor
+    kv: torch.Tensor
+
+
+def _normalize_segments(segment_ids, q, k):
+    """(q ids, kv ids) as contiguous int32 tensors on q's device, cast once
+    per call, or (None, None); the JAX package's shape refusal.  No sentinel
+    padding is needed: the kernels mask tails by bounds."""
+    if segment_ids is None:
+        return None, None
+    if not isinstance(segment_ids, SegmentIds):
+        segment_ids = SegmentIds(q=segment_ids, kv=segment_ids)
+    qs, ks = torch.as_tensor(segment_ids.q), torch.as_tensor(segment_ids.kv)
+    if (tuple(qs.shape) != (q.shape[0], q.shape[2])
+            or tuple(ks.shape) != (k.shape[0], k.shape[2])):
+        raise ValueError(
+            f"segment_ids shapes {tuple(qs.shape)}/{tuple(ks.shape)} must be "
+            f"[B, Nq]={q.shape[0], q.shape[2]} / [B, Nkv]={k.shape[0], k.shape[2]}")
+    return tuple(t.to(device=q.device, dtype=torch.int32).contiguous() for t in (qs, ks))
 
 
 def _validate(q, k, v):
@@ -52,9 +83,10 @@ def _validate(q, k, v):
         )
     if q.dtype != k.dtype:
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
-    if v.dtype != q.dtype:
-        if v.dtype in _FP8_DTYPES:
-            raise NotImplementedError(_NOT_YET.format("fp8 V"))
+    if v.dtype != q.dtype and v.dtype not in FP8_DTYPES:
+        # fp8 V with higher-precision q/k is the one legal mixed case: the
+        # forward kernel dequantizes V exactly as it stages it.  Contract:
+        # fp8 V payloads are finite, as in the JAX package.
         raise ValueError(f"dtype mismatch: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype == torch.float64:
         # Same refusal as the JAX package: a silent downcast would betray
@@ -117,8 +149,7 @@ def _prepare(q, k, v, causal, sm_scale, segment_ids, window, logit_softcap,
              alibi_slopes, dropout_rate, dropout_seed):
     """Validate a call; returns the kernels' keyword arguments normalized."""
     _validate(q, k, v)
-    if segment_ids is not None:
-        raise NotImplementedError(_NOT_YET.format("segment_ids"))
+    q_seg, kv_seg = _normalize_segments(segment_ids, q, k)
     if logit_softcap < 0:
         raise ValueError(f"logit_softcap must be >= 0, got {logit_softcap}")
     slopes = _normalize_alibi(alibi_slopes, q.shape[1], causal)
@@ -128,7 +159,7 @@ def _prepare(q, k, v, causal, sm_scale, segment_ids, window, logit_softcap,
     return dict(causal=bool(causal), sm_scale=float(sm_scale),
                 window=_normalize_window(window, causal, k.shape[2]),
                 softcap=float(logit_softcap), alibi_slopes=slopes,
-                dropout_rate=rate, dropout_seed=seed)
+                dropout_rate=rate, dropout_seed=seed, q_seg=q_seg, kv_seg=kv_seg)
 
 
 def flash_attention_forward(
@@ -150,11 +181,13 @@ def flash_attention_forward(
     Causal masking is bottom-right aligned (q row i sits at kv position
     i + Nkv − Nq).  ``alibi_slopes`` (causal only; one per q head, or one
     for all) adds −m_h·(q_pos − col); ``dropout_rate`` with an int
-    ``dropout_seed`` drops attention probabilities (flash-attn semantics).
-    L is the natural-base logsumexp of the scaled, softcapped and biased
-    scores (dropout-independent), [B, Hq, Nq] fp32; a row that sees no key
-    gets O = 0 and L = DEFAULT_MASK_VALUE.  Runs where the inputs lie: the
-    kernel on a CUDA device, the plain PyTorch version on the CPU."""
+    ``dropout_seed`` drops attention probabilities (flash-attn semantics);
+    ``segment_ids`` (a :class:`SegmentIds` or one [B, N] integer tensor)
+    keeps each row to the keys of its own id.  V may be fp8.  L is the
+    natural-base logsumexp of the scaled, softcapped and biased scores
+    (dropout-independent), [B, Hq, Nq] fp32; a row that sees no key gets
+    O = 0 and L = DEFAULT_MASK_VALUE.  Runs where the inputs lie: the kernel
+    on a CUDA device, the plain PyTorch version on the CPU."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                   logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
     return attn_fwd(q, k, v, **kw)
@@ -186,10 +219,13 @@ def flash_attention_backward(
     ignores the passed one (a shape witness only); False honours the PASSED
     lse, as a ring caller with a globally merged lse needs; None, the
     default, rederives under ALiBi and honours the lse otherwise, as the JAX
-    package does.  Runs where the inputs lie: the kernels on a CUDA device,
-    the plain PyTorch version on the CPU."""
+    package does.  fp8 V raises ``NotImplementedError`` (no backward, as in
+    the JAX package).  Runs where the inputs lie: the kernels on a CUDA
+    device, the plain PyTorch version on the CPU."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                   logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
+    if v.dtype in FP8_DTYPES:
+        raise NotImplementedError(_FP8_BACKWARD)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
             f"o {tuple(o.shape)} and do {tuple(do.shape)} must match q "
@@ -206,22 +242,26 @@ def flash_attention_backward(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, its (O, L) saved, and the backward kernels on
-    them; ``kw`` holds the kernels' normalized keyword arguments (ALiBi
-    slopes and the dropout rate and seed among them)."""
+    """The forward kernel, its (O, L) and the segment ids saved, and the
+    backward kernels on them; ``kw`` holds the kernels' other normalized
+    keyword arguments (ALiBi slopes and the dropout rate and seed among
+    them).  The segment ids get no gradient; fp8 V has no backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kw):
-        o, lse = attn_fwd(q, k, v, **kw)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, q_seg, kv_seg, kw):
+        o, lse = attn_fwd(q, k, v, q_seg=q_seg, kv_seg=kv_seg, **kw)
+        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
         ctx.kw = kw
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = attn_bwd(q, k, v, o, lse, do.contiguous(), **ctx.kw)
-        return dq, dk, dv, None
+        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+        if v.dtype in FP8_DTYPES:
+            raise NotImplementedError(_FP8_BACKWARD)
+        dq, dk, dv = attn_bwd(q, k, v, o, lse, do.contiguous(), q_seg=q_seg,
+                              kv_seg=kv_seg, **ctx.kw)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -241,7 +281,9 @@ def flash_attention(
     """Differentiable fused attention O = softmax(scale·QKᵀ + bias + mask)V
     (dropped out when asked), with the conventions of
     :func:`flash_attention_forward`; gradients flow to q, k and v through
-    :func:`flash_attention_backward`'s kernels."""
+    :func:`flash_attention_backward`'s kernels (none through fp8 V, whose
+    backward raises ``NotImplementedError``)."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                   logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
-    return _FlashAttention.apply(q, k, v, kw)
+    q_seg, kv_seg = kw.pop("q_seg"), kw.pop("kv_seg")
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, kw)

@@ -1,12 +1,15 @@
-"""Attention forward kernel: wrapper, plain version and launch count.
+"""Attention forward kernel: wrapper, plain version and launch counts.
 
-The kernel is ``csrc/attn_fwd.cu``; it replaces the forward of the TPU
-kernels ``ops/fwd_kernel.py::_fwd_kernel``, ``ops/fwd_mid.py::_mid_kernel``,
-``ops/fwd_mid.py::_mid_strip_kernel`` and ``ops/fwd_small.py::_small_kernel``
-of the JAX package for the training and serving feature set (causal or not,
-GQA, ragged lengths, window, softcap, ALiBi, attention dropout).
-:func:`attn_fwd` sends CPU tensors to the plain PyTorch version
-:func:`attn_fwd_plain` and CUDA tensors to the kernel.
+The kernel is ``csrc/attn_fwd.cuh``, built twice: ``csrc/attn_fwd.cu``
+without segment ids (:data:`FWD_KERNEL`) and ``csrc/attn_fwd_seg.cu`` with
+them (:data:`FWD_SEG_KERNEL`), each with its own launch count.  It replaces
+the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
+``ops/fwd_mid.py::_mid_kernel``, ``ops/fwd_mid.py::_mid_strip_kernel`` and
+``ops/fwd_small.py::_small_kernel`` of the JAX package with their whole
+feature set (causal or not, GQA, ragged lengths, window, softcap, ALiBi,
+attention dropout, segment ids, fp8 V).  :func:`attn_fwd` sends CPU tensors
+to the plain PyTorch version :func:`attn_fwd_plain` and CUDA tensors to the
+kernel.
 
 Attention dropout draws its mask from :func:`dropout_keep_mask`, a pure
 function of (seed, batch, q head, q row, kv column) that the kernels compute
@@ -31,19 +34,25 @@ LN2 = 0.6931471805599453
 
 KERNEL_HEAD_DIMS = (64, 128)
 
+# V's kind code of the forward's C interface (csrc/common.cuh kVE4M3 /
+# kVE5M2; 0: V has q's dtype): fp8 V is dequantized to q's dtype as the
+# kernel stages it, forward only.
+V_KINDS = {torch.float8_e4m3fn: 1, torch.float8_e5m2: 2}
+FP8_DTYPES = tuple(V_KINDS)
+
 # ALiBi slopes and attention dropout of the C interfaces (csrc/common.cuh Mods)
 MOD_ARGS = [ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_int]
 _M32 = 0xFFFFFFFF
 
-FWD_KERNEL = CudaKernel(
-    "attn_fwd.cu",
-    "attn_fwd",
-    [ctypes.c_void_p] * 5  # q, k, v, o, lse
-    + [ctypes.c_int] * 7  # dtype, B, Hq, Hkv, Nq, Nkv, D
+_FWD_ARGS = (
+    [ctypes.c_void_p] * 7  # q, k, v, o, lse, q_seg, kv_seg
+    + [ctypes.c_int] * 8  # dtype, v_kind, B, Hq, Hkv, Nq, Nkv, D
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
     + MOD_ARGS
-    + [ctypes.c_void_p],  # stream
+    + [ctypes.c_void_p]  # stream
 )
+FWD_KERNEL = CudaKernel("attn_fwd.cu", "attn_fwd", _FWD_ARGS)
+FWD_SEG_KERNEL = CudaKernel("attn_fwd_seg.cu", "attn_fwd_seg", _FWD_ARGS)
 
 # Rows of scores the plain version materializes at once (bounds its memory).
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -117,23 +126,41 @@ def _row_bias(slopes, device):
     return torch.tensor(slopes, dtype=torch.float32, device=device)[None, :, None, None]
 
 
+def check_segments(q, k, q_seg, kv_seg) -> None:
+    """Raise unless the kernels can take (q_seg, kv_seg): both None, or
+    contiguous int32 [B, Nq] / [B, Nkv] on q's device (what
+    ops/flash_attention.py _normalize_segments makes)."""
+    if (q_seg is None) != (kv_seg is None):
+        raise ValueError("q_seg and kv_seg go together")
+    if q_seg is None:
+        return
+    for name, t, n in (("q_seg", q_seg, q.shape[2]), ("kv_seg", kv_seg, k.shape[2])):
+        if tuple(t.shape) != (q.shape[0], n):
+            raise ValueError(f"{name} {tuple(t.shape)} must be [B, N] = {(q.shape[0], n)}")
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be contiguous int32 on {q.device}")
+
+
 
 def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
              softcap: float = 0.0, alibi_slopes=None, dropout_rate: float = 0.0,
-             dropout_seed: int = 0):
+             dropout_seed: int = 0, q_seg=None, kv_seg=None):
     """(O [B, Hq, Nq, d] in q's dtype, L [B, Hq, Nq] fp32 natural-base lse).
 
     ``alibi_slopes`` (one float per q head, or None) adds the true ALiBi
     bias −m_h·(q_pos − col) after the softcap, q_pos = row + Nkv − Nq, so L
     is the true logsumexp.  ``dropout_rate`` > 0 drops P (after its row sum,
     so L is undropped) with :func:`dropout_keep_mask` of ``dropout_seed``.
-    Arguments are validated by the caller (ops/flash_attention.py).  CPU
-    tensors take :func:`attn_fwd_plain`; CUDA tensors launch the kernel,
-    which takes contiguous fp32/bf16/fp16 inputs with d in {64, 128}, or
-    raise."""
+    ``q_seg`` [B, Nq] / ``kv_seg`` [B, Nkv] (int32, or None) are segment
+    ids: row i sees key j only where q_seg[b, i] == kv_seg[b, j].  V may be
+    fp8 (e4m3fn / e5m2) beside fp32/bf16/fp16 q and k.  Arguments are
+    validated by the caller (ops/flash_attention.py).  CPU tensors take
+    :func:`attn_fwd_plain`; CUDA tensors launch the kernel (with segments
+    its ``attn_fwd_seg`` build), which takes contiguous inputs with d in
+    {64, 128}, or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
+              dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
     if q.device.type == "cpu":
         return attn_fwd_plain(q, k, v, **kw)
     if q.device.type != "cuda":
@@ -143,12 +170,13 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.dtype != q.dtype:
+        if t.dtype != q.dtype and not (name == "v" and t.dtype in V_KINDS):
             raise ValueError(f"{name} has dtype {t.dtype}, q {q.dtype}")
         if t.data_ptr() % 16:  # the kernel stages tiles with 16-byte loads
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {q.dtype}")
+    check_segments(q, k, q_seg, kv_seg)
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     if d not in KERNEL_HEAD_DIMS:
@@ -159,9 +187,10 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     if o.numel() == 0:
         lse.fill_(DEFAULT_MASK_VALUE)
         return o, lse
-    FWD_KERNEL.launch(
-        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse),
-        DTYPE_CODES[q.dtype], b, hq, hkv, n_q, n_kv, d,
+    kernel = FWD_KERNEL if q_seg is None else FWD_SEG_KERNEL
+    kernel.launch(
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(q_seg), ptr(kv_seg),
+        DTYPE_CODES[q.dtype], V_KINDS.get(v.dtype, 0), b, hq, hkv, n_q, n_kv, d,
         float(sm_scale), int(bool(causal)), int(window), float(softcap),
         *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
         stream_handle(q.device),
@@ -169,12 +198,16 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     return o, lse
 
 
-def bias_and_mask(x, r0: int, n_q: int, *, causal, window, bias):
+def bias_and_mask(x, r0: int, n_q: int, *, causal, window, bias, q_seg=None,
+                  kv_seg=None):
     """Scores ``x`` (scaled and softcapped, q rows [r0, r0 + rows) against
     every key) with the ALiBi bias −m_h·(q_pos − col) added (``bias`` from
-    :func:`_row_bias`, or None) and −inf where masked: the kernels' order."""
+    :func:`_row_bias`, or None) and −inf where masked (causal / window, then
+    unequal segment ids when ``q_seg`` / ``kv_seg`` are given): the kernels'
+    order."""
     n_kv = x.shape[-1]
-    pos = torch.arange(r0, r0 + x.shape[-2], device=x.device)[:, None] + (n_kv - n_q)
+    r1 = r0 + x.shape[-2]
+    pos = torch.arange(r0, r1, device=x.device)[:, None] + (n_kv - n_q)
     col = torch.arange(n_kv, device=x.device)[None, :]
     if bias is not None:
         x = x - bias * (pos - col).float()
@@ -183,6 +216,9 @@ def bias_and_mask(x, r0: int, n_q: int, *, causal, window, bias):
         if window:
             visible = visible & ((pos - col) < window)
         x = x.masked_fill(~visible, float("-inf"))
+    if q_seg is not None:
+        same = q_seg[:, None, r0:r1, None] == kv_seg[:, None, None, :]
+        x = x.masked_fill(~same, float("-inf"))
     return x
 
 
@@ -200,10 +236,11 @@ def dropout_rows(q, r0, r1, n_kv, dropout_rate, dropout_seed):
 
 def attn_fwd_plain(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
                    softcap: float = 0.0, alibi_slopes=None,
-                   dropout_rate: float = 0.0, dropout_seed: int = 0):
+                   dropout_rate: float = 0.0, dropout_seed: int = 0, q_seg=None,
+                   kv_seg=None):
     """Plain PyTorch version of the kernel: the same function in fp32 on the
-    inputs' device, in chunks of q rows so the score matrix stays bounded.
-    Empty rows give O = 0 and L = DEFAULT_MASK_VALUE."""
+    inputs' device (fp8 V upcast exactly), in chunks of q rows so the score
+    matrix stays bounded.  Empty rows give O = 0 and L = DEFAULT_MASK_VALUE."""
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     kf, vf = k.float(), v.float()
@@ -220,7 +257,8 @@ def attn_fwd_plain(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
         s = torch.matmul(q[:, :, r0:r1].float(), kt) * sm_scale
         if softcap:
             s = softcap * torch.tanh(s / softcap)
-        s = bias_and_mask(s, r0, n_q, causal=causal, window=window, bias=bias)
+        s = bias_and_mask(s, r0, n_q, causal=causal, window=window, bias=bias,
+                          q_seg=q_seg, kv_seg=kv_seg)
         m = s.amax(dim=-1, keepdim=True)
         empty = torch.isneginf(m)
         p = torch.exp(s - torch.where(empty, 0.0, m))

@@ -11,9 +11,7 @@ import math
 
 import torch
 
-from .fwd_kernel import dropout_rows
-
-_NOT_YET = "{} is not ported yet (ROADMAP.md, queue 2 of the PyTorch port)"
+from .fwd_kernel import FP8_DTYPES, dropout_rows
 
 
 def alibi_slopes_for(n_heads: int) -> tuple:
@@ -56,13 +54,15 @@ def reference_attention(
     adds the true bias −m_h·(q_pos − col) after the softcap, q_pos aligned
     like the causal mask; ``dropout_rate`` multiplies the normalized P by
     the kernels' :func:`..fwd_kernel.dropout_keep_mask` of ``dropout_seed``
-    (lse undropped).  As in the JAX oracle, P is cast to v's dtype before
-    the P.V product, and a row that sees no key comes out NaN.  Segments
-    raise ``NotImplementedError``; a slope count other than 1 or Hq, and a
-    dropout rate outside [0, 1) or without a seed, raise ``ValueError``.
+    (lse undropped).  ``segment_ids`` (``.q`` [B, Nq] / ``.kv`` [B, Nkv],
+    as :class:`..flash_attention.SegmentIds`, or one [B, N] tensor for both)
+    masks scores between unequal ids, after the causal mask.  As in the JAX
+    oracle, P is cast to v's dtype before the P.V product, and a row that
+    sees no key comes out NaN; fp8 V is first upcast (exactly) to q's dtype,
+    where the JAX oracle would round P to fp8.  A slope count other than 1
+    or Hq, a dropout rate outside [0, 1) or without a seed, and segment ids
+    of another shape raise ``ValueError``.
     """
-    if segment_ids is not None:
-        raise NotImplementedError(_NOT_YET.format("segment_ids"))
     hq, n_q = q.shape[1], q.shape[2]
     if alibi_slopes is not None and len(alibi_slopes) not in (1, hq):
         raise ValueError(f"alibi_slopes must have one slope per q head ({hq}), "
@@ -70,6 +70,14 @@ def reference_attention(
     if dropout_rate and not (0.0 < dropout_rate < 1.0 and dropout_seed is not None):
         raise ValueError("dropout_rate must be in [0, 1) and needs a dropout_seed")
     hkv, n_kv = k.shape[1], k.shape[2]
+    if segment_ids is not None:
+        qs = torch.as_tensor(getattr(segment_ids, "q", segment_ids), device=q.device)
+        ks = torch.as_tensor(getattr(segment_ids, "kv", segment_ids), device=q.device)
+        if tuple(qs.shape) != (q.shape[0], n_q) or tuple(ks.shape) != (k.shape[0], n_kv):
+            raise ValueError(f"segment_ids shapes {tuple(qs.shape)}/{tuple(ks.shape)} "
+                             f"must be [B, Nq] / [B, Nkv]")
+    if v.dtype in FP8_DTYPES:
+        v = v.to(q.dtype)
     if hq != hkv:
         rep = hq // hkv
         k = k.repeat_interleave(rep, dim=1)
@@ -89,6 +97,8 @@ def reference_attention(
         if window:
             mask = mask & ((row - col) < window)
         s = s.masked_fill(~mask, float("-inf"))
+    if segment_ids is not None:
+        s = s.masked_fill(qs[:, None, :, None] != ks[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)

@@ -133,7 +133,8 @@ def _t(shape, dtype=torch.float32):
       _t((1, 2, 8, 16), torch.bfloat16)), {}, ValueError),
     ((_t((1, 2, 8, 16), torch.float64), _t((1, 2, 8, 16), torch.float64),
       _t((1, 2, 8, 16), torch.float64)), {}, NotImplementedError),
-    ((_t((1, 2, 8, 16)), _t((1, 2, 8, 16)),
+    # fp8 V is ported: with fp64 q/k it meets the fp64 refusal, as in JAX.
+    ((_t((1, 2, 8, 16), torch.float64), _t((1, 2, 8, 16), torch.float64),
       _t((1, 2, 8, 16), torch.float8_e4m3fn)), {}, NotImplementedError),
     ((_t((1, 2, 8, 16)),) * 3, {"window": 4}, ValueError),
     ((_t((1, 2, 8, 16)),) * 3, {"causal": True, "window": -1}, ValueError),
@@ -144,8 +145,10 @@ def _t(shape, dtype=torch.float32):
                  id="args10-kwargs10-NotImplementedError"),
     pytest.param((_t((1, 2, 8, 16)),) * 3, {"dropout_rate": 1.0, "dropout_seed": 1},
                  ValueError, id="args11-kwargs11-NotImplementedError"),
-    ((_t((1, 2, 8, 16)),) * 3,
-     {"segment_ids": torch.zeros(1, 8, dtype=torch.int32)}, NotImplementedError),
+    # Segments are ported: ids of the wrong shape raise as in JAX.
+    pytest.param((_t((1, 2, 8, 16)),) * 3,
+                 {"segment_ids": torch.zeros(1, 7, dtype=torch.int32)}, ValueError,
+                 id="args12-kwargs12-NotImplementedError"),
 ])
 def test_validation_errors(args, kwargs, exc):
     with pytest.raises(exc):

@@ -164,20 +164,21 @@ def _t(shape, dtype=torch.float32):
 @pytest.mark.parametrize("kwargs", [
     {"alibi_slopes": (0.5, 0.25, 0.125)},
     {"dropout_rate": 0.1},
-    {"segment_ids": torch.zeros(1, 8, dtype=torch.int32)},
+    {"segment_ids": torch.zeros(1, 9, dtype=torch.int32)},
     {"rederive_stats": True, "dropout_rate": 1.0, "dropout_seed": 1},
     {"v_dtype": torch.float8_e4m3fn},
 ])
 def test_backward_refuses_unported_features(kwargs):
-    """Segments and fp8 V are not ported and raise NotImplementedError.
-    ALiBi, dropout and rederive_stats are ported, and their misuse raises
-    ValueError as in the JAX package: a slope count other than Hq, a rate
-    without a seed, a rate of 1."""
+    """Every feature is ported; the backward refuses what the JAX package
+    refuses.  ALiBi, dropout, rederive_stats and segments misused raise
+    ValueError: a slope count other than Hq, a rate without a seed, a rate
+    of 1, segment ids of the wrong shape.  fp8 V has no backward and raises
+    NotImplementedError, as in JAX."""
     kwargs = dict(kwargs)
     v = _t((1, 2, 8, 16), kwargs.pop("v_dtype", torch.float32))
     q = k = o = do = _t((1, 2, 8, 16))
-    unported = "segment_ids" in kwargs or v.dtype != q.dtype
-    exc, match = (NotImplementedError, "not ported") if unported else (ValueError, "")
+    fp8 = v.dtype != q.dtype
+    exc, match = (NotImplementedError, "fp8 V") if fp8 else (ValueError, "")
     with pytest.raises(exc, match=match):
         tp.flash_attention_backward(q, k, v, o, do, _t((1, 2, 8)), causal=True,
                                     **kwargs)

@@ -105,11 +105,12 @@ def test_kernel_launch_without_a_toolchain_raises():
 def test_library_names_follow_the_source_hash():
     from flash_attention_dlrs_tpu_torch import _cuda
 
-    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_fwd.cu", "paged_decode.cu",
+    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_bwd_seg.cu", "attn_fwd.cu",
+                                   "attn_fwd_seg.cu", "paged_decode.cu",
                                    "paged_verify.cu"]
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 4
+    assert len({p.name for p in paths}) == 6
 
 
 def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
@@ -139,6 +140,20 @@ def test_chip_smoke_alone_outside_the_repo_fails(tmp_path):
                          cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_exports_match_the_jax_package():
+    """The package exports what the JAX package's __init__ does of the
+    ported surface: SegmentIds and the nn adapter among them."""
+    import flash_attention_dlrs_tpu_torch as tp
+    from flash_attention_dlrs_tpu_torch import ops
+
+    for name in ("SegmentIds", "nn", "flash_attention", "flash_attention_forward",
+                 "flash_attention_backward", "reference_attention", "alibi_slopes_for"):
+        assert name in tp.__all__ and hasattr(tp, name), name
+    assert ops.SegmentIds is tp.SegmentIds
+    assert tp.nn.dot_product_attention.__module__ == "flash_attention_dlrs_tpu_torch.nn"
+    assert tp.SegmentIds._fields == ("q", "kv")
 
 
 def test_resolve_device_takes_the_cpu_only_when_asked():

@@ -68,17 +68,14 @@ def test_alibi_slopes_for_matches_jax(n_heads):
 
 
 @pytest.mark.parametrize("kwarg", [
-    dict(segment_ids=np.zeros((1, 8), np.int32)),
+    dict(segment_ids=np.zeros((1, 5), np.int32)),
     dict(alibi_slopes=(0.5, 0.25, 0.125)),
     dict(dropout_rate=0.1),
 ])
 def test_reference_unported_features_raise(kwarg):
-    """Segments are not ported; ALiBi with a slope count other than Hq and
-    dropout without a seed are misuse (ValueError)."""
+    """Every feature is ported; misuse raises ValueError: segment ids of
+    another shape than [B, N], ALiBi with a slope count other than Hq,
+    dropout without a seed."""
     x = torch.zeros(1, 2, 8, 16)
-    if "segment_ids" in kwarg:
-        exc, match = NotImplementedError, "ROADMAP"
-    else:
-        exc, match = ValueError, "slope|seed"
-    with pytest.raises(exc, match=match):
+    with pytest.raises(ValueError, match="segment_ids|slope|seed"):
         tref.reference_attention(x, x, x, causal=True, **kwarg)
