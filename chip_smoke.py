@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (flash_attention_dlrs_tpu_torch) on one NVIDIA card.
 
-Builds the port's CUDA kernels from csrc/ with nvcc and holds each kernel
-(and each ALiBi / dropout / segment-id / fp8-V mode) against its plain
-PyTorch version on the card (the backward kernels also against themselves,
+Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers
+and spills of the wgmma forward's instances) and holds each kernel (and
+each ALiBi / dropout / segment-id / fp8-V mode, and each route of the
+forward: wgmma, fp32) against its plain PyTorch version on the
+card (the backward kernels also against themselves,
 bit for bit), and reads the forward kernel's dropout mask back against the
 plain mask.  Then drives every path of the port:
 
@@ -32,10 +34,12 @@ plain mask.  Then drives every path of the port:
   different lengths, through nn.dot_product_attention on padded batches,
   forward and backward, and fp8 V through the op API;
 
-checks that each path went through its kernels (launch counts set to 0
-just before the path and read just after), and times each kernel beside its
-bound, its plain version and, where one exists, the PyTorch library call
-computing the same function.
+checks that each path went through its kernels (launch counts, and the
+forward's launches per route, set to 0 just before the path and read just
+after: every bf16 forward of the model paths on the wgmma route, the packed
+calls on the route ops/fwd_kernel.py fwd_route names), and times each
+kernel beside its bound, its plain version and, where one exists, the
+PyTorch library call computing the same function.
 
 Every phase prints one JSON line and raises on failure.  The line before
 the last is the card's name and power limit as nvidia-smi reports them; the
@@ -45,16 +49,18 @@ result, when no CUDA device is present.
 Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
 
        python3 chip_smoke.py --pair PARENT_DIR
-           times the mode-free kernels from an unpacked earlier commit
-           (PARENT_DIR, its own chip_smoke.py and package) and from this
-           tree in turns, parent, change, change, parent, each run in its
-           own process on the same card, one JSON line per run.
+           times the forward (mode-free, ALiBi, ALiBi + dropout), the
+           backward family, decode and verify from an unpacked earlier
+           commit (PARENT_DIR, its own chip_smoke.py and package) and from
+           this tree in turns, parent, change, change, parent, each run in
+           its own process on the same card, one JSON line per run.
 """
 
 from __future__ import annotations
 
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,8 +70,8 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16/fp16, H100 SXM
 PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
 
-FWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd.cu"
-FWD_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_seg.cu"
+# the forward's bf16 / fp16 kernel body (built into attn_fwd.cu, attn_fwd_seg.cu)
+FWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_sm90.cuh"
 FWD_REPLACES = (
     "flash_attention_dlrs_tpu/ops/fwd_kernel.py:197; "
     "flash_attention_dlrs_tpu/ops/fwd_mid.py:211; "
@@ -154,6 +160,41 @@ def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, v_itemsize=No
 # ---------------------------------------------------------------------------
 
 
+WGMMA_ENTRY = re.compile(r"attn_fwd_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)E"
+                         r"Lb([01])ELb([01])ELb([01])ELb([01])E")
+WGMMA_FLAGS = ("alibi", "dropout", "seg", "fp8v")
+
+
+def wgmma_instances(log):
+    """Registers and spills of each wgmma forward instance from nvcc's
+    ``--ptxas-options=-v`` log (one entry per (dtype, d, ALiBi, dropout,
+    segment ids, fp8 V)), and ptxas's performance warnings about them
+    (C7515: wgmmas serialized, which takes the overlap of products and
+    softmax away)."""
+    out, cur, warnings = {}, None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            w = WGMMA_ENTRY.search(m.group(1))
+            cur = None if w is None else "_".join(
+                ["bf16" if w.group(1) == "__nv_bfloat16" else "fp16", "d" + w.group(2)]
+                + [f for f, on in zip(WGMMA_FLAGS, w.groups()[2:]) if on == "1"])
+            if cur:
+                out[cur] = {}
+            continue
+        if "Performance Loss" in line and "attn_fwd_wgmma_kernel" in line:
+            warnings.append(line.strip())
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out, warnings
+
+
 def phase_build():
     from flash_attention_dlrs_tpu_torch import _cuda
 
@@ -164,8 +205,27 @@ def phase_build():
         ptxas = [l.strip() for l in rec["log"].splitlines()
                  if "registers" in l or "spill" in l or "smem" in l]
         info[src] = {"seconds": round(rec["seconds"], 3), "ptxas": ptxas}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": _cuda.all_sources(), "built": info})
+    rec = {"phase": "build", "seconds": time.perf_counter() - t0,
+           "sources": _cuda.all_sources(), "built": info}
+    if "attn_fwd.cu" in built and "attn_fwd_seg.cu" in built:
+        instances, warnings = {}, []
+        for src in ("attn_fwd.cu", "attn_fwd_seg.cu"):
+            inst, warn = wgmma_instances(built[src]["log"])
+            instances.update(inst)
+            warnings += warn
+        rec.update(wgmma_instances=instances, wgmma_ptxas_warnings=warnings,
+                   wgmma_spilling={k: v for k, v in instances.items()
+                                   if v.get("spill_stores") or v.get("spill_loads")})
+        if len(instances) != 64:  # 2 dtypes x 2 head dims x 2^4 modes
+            raise AssertionError(
+                f"expected 64 wgmma forward instances, found {sorted(instances)}")
+        # setmaxnreg splits the 384 x 168 registers a CTA is launched with
+        # (csrc/attn_fwd_sm90.cuh LAUNCH_REGS); fewer at launch would hang it
+        short = {k: v.get("registers") for k, v in instances.items()
+                 if v.get("registers") != 168}
+        if short:
+            raise AssertionError(f"wgmma forward instances not at 168 registers: {short}")
+    emit(rec)
 
 
 def _rand(gen, shape, dtype, device):
@@ -200,6 +260,23 @@ def fwd_errors(got, want, dtype):
            "max_abs_plain_o": float(o_ref.float().abs().max()),
            "frac_o_differs": float((o != o_ref).float().mean()), "tolerance": tol}
     return rec, ok
+
+
+def fwd_routes(zero=False):
+    """The forward's launches per route (ops/fwd_kernel.py ROUTE_LAUNCHES),
+    set to 0 when ``zero``."""
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import ROUTE_LAUNCHES
+
+    if zero:
+        for route in ROUTE_LAUNCHES:
+            ROUTE_LAUNCHES[route] = 0
+    return dict(ROUTE_LAUNCHES)
+
+
+def all_on(routes, route, n):
+    """Whether the per-route counts ``routes`` are exactly ``n`` launches,
+    every one on ``route``."""
+    return routes == {r: (n if r == route else 0) for r in routes}
 
 
 def mods(hq, alibi=False, rate=0.0, seed=0):
@@ -263,7 +340,7 @@ def case_kwargs(hq, b, nq, nkv, dev, mod):
 def phase_fwd(dev):
     import torch
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
-        DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain,
+        DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain, fwd_route,
     )
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -316,6 +393,29 @@ def phase_fwd(dev):
          dict(v8="e5m2")),
         ("fp8v_e4m3_bf16_seg_window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256,
          30.0, dict(v8="e4m3", seg="packed")),
+        # the wgmma route's tile edges (128-row q tiles, 128-key K/V tiles),
+        # each mode in bf16 and fp16 (tests/test_torch_fwd_route.py holds
+        # the plain version to JAX at these shapes)
+        ("wg_n127_bf16", bf16, 1, 4, 2, 127, 127, 128, True, 0, 0.0, {}),
+        ("wg_n128_fp16_d64", f16, 1, 4, 2, 128, 128, 64, True, 0, 0.0, {}),
+        ("wg_n129_alibi_bf16_d64", bf16, 2, 4, 1, 129, 129, 64, True, 0, 0.0, alibi),
+        ("wg_n257_dropout_fp16", f16, 1, 8, 2, 257, 257, 128, True, 0, 0.0, drop),
+        ("wg_cross_129_385_bf16", bf16, 1, 4, 2, 129, 385, 128, True, 0, 0.0, {}),
+        ("wg_cross_1_257_alibi_dropout_fp16_d64", f16, 1, 4, 2, 1, 257, 64, True, 0, 0.0,
+         both),
+        ("wg_window1_n300_bf16", bf16, 1, 4, 2, 300, 300, 128, True, 1, 0.0, {}),
+        ("wg_window127_n300_alibi_fp16_d64", f16, 1, 4, 2, 300, 300, 64, True, 127, 0.0,
+         alibi),
+        ("wg_window128_n300_dropout_bf16_d64", bf16, 1, 4, 2, 300, 300, 64, True, 128, 0.0,
+         drop),
+        ("wg_window129_n300_softcap_alibi_dropout_fp16", f16, 1, 4, 2, 300, 300, 128, True,
+         129, 30.0, both),
+        ("wg_gqa4_bf16_d64", bf16, 2, 8, 2, 130, 130, 64, True, 0, 0.0, {}),
+        ("wg_gqa8_noncausal_tail_fp16", f16, 1, 8, 1, 129, 1000, 128, False, 0, 0.0, {}),
+        ("wg_noncausal_tail_alibi_dropout_bf16", bf16, 2, 4, 2, 300, 1000, 128, False, 0,
+         0.0, both),
+        ("wg_empty_rows_alibi_fp16_d64", f16, 1, 4, 2, 300, 200, 64, True, 0, 0.0, alibi),
+        ("wg_empty_rows_dropout_bf16", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, drop),
     ]
     results = {}
     for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod in cases:
@@ -326,10 +426,16 @@ def phase_fwd(dev):
             v = v.to(getattr(torch, FP8_V[mod["v8"]]))
         kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
                   **case_kwargs(hq, b, nq, nkv, dev, mod))
+        route = fwd_route(dt, d, "q_seg" in kw, bool(mod.get("v8")))
+        fwd_routes(zero=True)
         got = attn_fwd(q, k, v, **kw)
+        routes = fwd_routes()
         want = attn_fwd_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         rec, ok = fwd_errors(got, want, dt)
+        rec["route"] = route
+        rec["on_its_route"] = all_on(routes, route, 1)
+        ok &= rec["on_its_route"]
         rec["ok"] = ok
         results[name] = rec
         if "q_seg" in kw:
@@ -822,12 +928,14 @@ def phase_serve(dev):
     steps_before = engine.scheduler.stats.steps
     FWD_KERNEL.launches = 0
     DECODE_KERNEL.launches = 0
+    fwd_routes(zero=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     outs = engine.generate(prompts, max_new_tokens=SERVE_NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches}
+    routes = fwd_routes()
     steps = engine.scheduler.stats.steps - steps_before
     engine._prefill, engine._decode_step = orig_prefill, orig_decode
 
@@ -836,6 +944,7 @@ def phase_serve(dev):
         "every_request_32_tokens": all(len(o) == SERVE_NEW_TOKENS for o in outs),
         "tokens_in_vocab": all(0 <= x < cfg.vocab_size for o in outs for x in o),
         "fwd_launches_16_per_prefill": launches["attn_fwd"] == cfg.n_layers * len(prompts),
+        "fwd_launches_all_wgmma": all_on(routes, "wgmma", launches["attn_fwd"]),
         "decode_launches_16_per_step": launches["paged_decode"] == cfg.n_layers * steps > 0,
     }
 
@@ -852,7 +961,7 @@ def phase_serve(dev):
         "requests": len(prompts), "prompt_lengths": list(SERVE_PROMPTS),
         "new_tokens": SERVE_NEW_TOKENS, "num_slots": 4, "page_size": 128,
         "pages_per_seq": 17, "decode_steps": steps, "launches": launches,
-        "prefill_ms_by_prompt_len": per_len,
+        "fwd_routes": routes, "prefill_ms_by_prompt_len": per_len,
         "decode_ms_per_step_median": float(np.median(decode_ms)),
         "decode_ms_per_step_mean": float(np.mean(decode_ms)),
         "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
@@ -1038,7 +1147,8 @@ def check_layers(calls, verify):
 
 def _serve_run(engine, prompts, new_tokens, record):
     """One ``engine.generate(prompts)``: the launch counts of the forward
-    and paged kernels zeroed just before and read just after, the
+    (in all and per route) and paged kernels zeroed just before and read
+    just after, the
     device-synchronized ms of every admission and decode step, the number
     of prefill chunks, and the calls of ``record`` (a paged attention
     function of models/decoding.py) of the last decode step, or of the last
@@ -1060,6 +1170,7 @@ def _serve_run(engine, prompts, new_tokens, record):
         engine._decode_step = decode_step
         steps_before = engine.scheduler.stats.steps
         FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
+        fwd_routes(zero=True)
         torch.cuda.synchronize()
         t = time.perf_counter()
         outs = engine.generate(prompts, max_new_tokens=new_tokens)
@@ -1067,7 +1178,9 @@ def _serve_run(engine, prompts, new_tokens, record):
         wall = time.perf_counter() - t
         launches = {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches,
                     "paged_verify": VERIFY_KERNEL.launches}
-    return {"outs": outs, "launches": launches, "wall": wall, "admit_ms": admit_ms,
+        routes = fwd_routes()
+    return {"outs": outs, "launches": launches, "fwd_routes": routes,
+            "wall": wall, "admit_ms": admit_ms,
             "decode_ms": decode_ms, "chunks": len(chunks), "calls": rec.calls,
             "steps": engine.scheduler.stats.steps - steps_before}
 
@@ -1153,7 +1266,7 @@ def phase_serve_quant(dev, model, cfg):
         name = f"{kind}_B{slots}"
         runs[name] = {
             "kv": kind, "slots": slots, "new_tokens": new_tokens,
-            "decode_steps": steps, "launches": launches,
+            "decode_steps": steps, "launches": launches, "fwd_routes": r["fwd_routes"],
             "admit_ms_median": float(np.median(r["admit_ms"])),
             "decode_ms_per_step_median": float(np.median(decode_ms)),
             "decode_ms_per_step_mean": float(np.mean(decode_ms)),
@@ -1168,6 +1281,8 @@ def phase_serve_quant(dev, model, cfg):
                 all(0 <= x < cfg.vocab_size for o in outs for x in o),
             f"{name}_fwd_launches_16_per_prefill":
                 launches["attn_fwd"] == cfg.n_layers * slots,
+            f"{name}_fwd_launches_all_wgmma":
+                all_on(r["fwd_routes"], "wgmma", launches["attn_fwd"]),
             f"{name}_decode_launches_16_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
             f"{name}_every_layer_kernel_vs_plain":
@@ -1267,13 +1382,17 @@ def phase_serve_chunked(dev, model, cfg):
     dense_ms = []
     dense._admit_dense = _timed(dense._admit_dense, dense_ms)
     FWD_KERNEL.launches = 0
+    fwd_routes(zero=True)
     dense.generate(prompts, max_new_tokens=1)
     dense_fwd = FWD_KERNEL.launches
+    dense_routes = fwd_routes()
     del dense
     torch.cuda.empty_cache()
 
     runs, checks = {}, {"dense_fwd_launches_16_per_prefill":
-                        dense_fwd == cfg.n_layers * CHUNKED_REQUESTS}
+                        dense_fwd == cfg.n_layers * CHUNKED_REQUESTS,
+                        "dense_fwd_launches_all_wgmma": all_on(dense_routes, "wgmma",
+                                                               dense_fwd)}
     for kind in ("bf16", "int8"):
         engine = DecodeEngine(model, cfg, kv_dtype=kv_kind(kind),
                               quantized_kv=kind in QUANT_KINDS, prefill_chunk=CHUNK,
@@ -1311,7 +1430,8 @@ def phase_serve_chunked(dev, model, cfg):
                 launches["paged_verify"] == cfg.n_layers * want_chunks,
             f"{kind}_decode_launches_16_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
-            f"{kind}_no_dense_prefill": launches["attn_fwd"] == 0,
+            f"{kind}_no_dense_prefill": (launches["attn_fwd"] == 0
+                                         and all_on(r["fwd_routes"], "wgmma", 0)),
             f"{kind}_every_layer_verify_kernel_vs_plain":
                 layers["ok"] and layers["layers_checked"] == cfg.n_layers,
         })
@@ -1324,6 +1444,7 @@ def phase_serve_chunked(dev, model, cfg):
                                                   and fp32["hits"] == 1)
     emit({"phase": "serve_chunked", "chunk": CHUNK, "system_tokens": SYSTEM_TOKENS,
           "unique_tokens": UNIQUE_TOKENS, "dense_fwd_launches": dense_fwd,
+          "dense_fwd_routes": dense_routes,
           "fp32_2layer_chunked_vs_dense_diff_over_std": fp32, "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
@@ -1381,6 +1502,7 @@ def phase_serve_alibi(dev, model):
         runs[name] = {
             "kv": kind, "slots": slots, "requests": n_req, "new_tokens": new_tokens,
             "prefill_chunk": chunk, "decode_steps": r["steps"], "launches": launches,
+            "fwd_routes": r["fwd_routes"],
             "admit_ms_median": float(np.median(r["admit_ms"])),
             "decode_ms_per_step_median": float(np.median(r["decode_ms"])),
             "decode_ms_per_step_mean": float(np.mean(r["decode_ms"])),
@@ -1406,11 +1528,14 @@ def phase_serve_alibi(dev, model):
                 f"{name}_7_prefix_hits": hits == CHUNKED_REQUESTS - 1,
                 f"{name}_verify_launches_16_per_chunk":
                     launches["paged_verify"] == cfg.n_layers * want_chunks,
-                f"{name}_no_dense_prefill": launches["attn_fwd"] == 0,
+                f"{name}_no_dense_prefill": (launches["attn_fwd"] == 0
+                                             and all_on(r["fwd_routes"], "wgmma", 0)),
             })
         else:
             checks[f"{name}_fwd_launches_16_per_prefill"] = (
                 launches["attn_fwd"] == cfg.n_layers * n_req and launches["paged_verify"] == 0)
+            checks[f"{name}_fwd_launches_all_wgmma"] = all_on(
+                r["fwd_routes"], "wgmma", launches["attn_fwd"])
         emit({"phase": "serve_alibi", "run": name, **runs[name]})
         del engine
         torch.cuda.empty_cache()
@@ -1646,6 +1771,7 @@ def phase_train(dev, name="train", **variant):
     kernels = _kernels()
     for kern in kernels.values():
         kern.launches = 0
+    fwd_routes(zero=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     timed = [step(model, opt_state, tokens, TRAIN_WARM_STEPS + i)
@@ -1653,6 +1779,7 @@ def phase_train(dev, name="train", **variant):
     torch.cuda.synchronize()
     ms_per_step = (time.perf_counter() - t) * 1e3 / TRAIN_TIMED_STEPS
     launches = {kname: kern.launches for kname, kern in kernels.items()}
+    routes = fwd_routes()
     losses += [float(x) for x in timed]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1687,6 +1814,7 @@ def phase_train(dev, name="train", **variant):
         "loss_finite": all(np.isfinite(losses)),
         "loss_falls": losses[-1] < losses[0],
         "launches_exact_per_step": launches == expected,
+        "fwd_launches_all_wgmma": all_on(routes, "wgmma", launches["attn_fwd"]),
         "attention_every_layer_fwd_and_bwd_kernel_vs_plain":
             layers_checked == cfg.n_layers and attn_ok,
         "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
@@ -1704,7 +1832,7 @@ def phase_train(dev, name="train", **variant):
                         "flops: projections, causal attention, LM head; "
                         "scripts/bench_train.py:26-36) / 989e12"),
         "peak_memory_gb": peak_gb, "launches": launches,
-        "launches_expected": expected, **profiled,
+        "launches_expected": expected, "fwd_routes": routes, **profiled,
         "attention_layers_checked": layers_checked,
         **{f"attention_{k}": v for k, v in attn_err.items()},
         **fp32, "checks": checks,
@@ -1739,16 +1867,19 @@ def _seg_kernels():
 
 
 def counted(fn):
-    """``fn()`` with every attention kernel's launch count set to 0 just
-    before and read just after (synchronized): (result, launches)."""
+    """``fn()`` with every attention kernel's launch count, and the
+    forward's per route ("attn_fwd@<route>"), set to 0 just before and read
+    just after (synchronized): (result, launches)."""
     import torch
 
     kernels = _seg_kernels()
     for kern in kernels.values():
         kern.launches = 0
+    fwd_routes(zero=True)
     out = fn()
     torch.cuda.synchronize()
-    return out, {name: kern.launches for name, kern in kernels.items()}
+    return out, {**{name: kern.launches for name, kern in kernels.items()},
+                 **{f"attn_fwd@{r}": n for r, n in fwd_routes().items()}}
 
 
 def launches_are(got, **want):
@@ -1759,6 +1890,14 @@ def launches_are(got, **want):
 
 SEG_CALL = dict(attn_fwd_seg=1, attn_bwd_preprocess=1, attn_bwd_dkv_seg=1,
                 attn_bwd_dq_seg=1)
+
+
+def on_route(dtype, segments=False, fp8_v=False, **want):
+    """``want`` with the forward's one launch on the route the static rule
+    (ops/fwd_kernel.py fwd_route) names for a call of these types."""
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import fwd_route
+
+    return {**want, f"attn_fwd@{fwd_route(dtype, PACKED_D, segments, fp8_v)}": 1}
 
 
 def _packed_grads_check(q, k, v, do, kw, grads, o, lse):
@@ -1898,20 +2037,22 @@ def phase_packed(dev):
 
     rec, ok, launches = _op_packed(dev, gen, torch.bfloat16, b, n, seg, True)
     rec["documents_per_row"] = [int(r.max()) + 1 for r in layout]
-    record("op_causal_packed", rec, ok, launches, SEG_CALL)
+    record("op_causal_packed", rec, ok, launches, on_route(torch.bfloat16, True, **SEG_CALL))
 
     cross_q = loader_layout(rng, b, PACKED_CROSS_NQ)
     cross_q[1::2, -64:] = 1000  # ids no key has: rows that see nothing
     cross = SegmentIds(q=torch.from_numpy(cross_q).to(dev),
                        kv=torch.from_numpy(loader_layout(rng, b, n)).to(dev))
     rec, ok, launches = _op_packed(dev, gen, torch.bfloat16, b, PACKED_CROSS_NQ, cross, False)
-    record("op_cross_segment_ids", rec, ok, launches, SEG_CALL)
+    record("op_cross_segment_ids", rec, ok, launches,
+           on_route(torch.bfloat16, True, **SEG_CALL))
     checks["op_cross_segment_ids_has_empty_rows"] = rec["empty_rows"] > 0
 
     rec, ok, launches, (q, k, v, lens, o_kernel) = _nn_packed(dev, gen, PACKED_LENGTHS)
-    record("nn_padded_causal", rec, ok, launches, SEG_CALL)
+    record("nn_padded_causal", rec, ok, launches, on_route(torch.bfloat16, True, **SEG_CALL))
     rec, ok, launches, _ = _nn_packed(dev, gen, PACKED_LENGTHS, PACKED_WINDOW)
-    record("nn_padded_causal_window", rec, ok, launches, SEG_CALL)
+    record("nn_padded_causal_window", rec, ok, launches,
+           on_route(torch.bfloat16, True, **SEG_CALL))
 
     bias = torch.zeros((1, 1, n, n), dtype=torch.bfloat16, device=dev)
     with torch.no_grad():
@@ -1959,7 +2100,8 @@ def phase_packed(dev):
                        "segments": with_seg, "max_abs_err_o": o_rec["max_abs_err_o"],
                        "tolerance": o_rec["tolerance"]}
                 record(name, rec, o_ok, launches,
-                       {"attn_fwd_seg" if with_seg else "attn_fwd": 1})
+                       on_route(torch.bfloat16, with_seg, True,
+                                **{"attn_fwd_seg" if with_seg else "attn_fwd": 1}))
                 fp8.setdefault(kind, 0)
                 fp8[kind] += launches["attn_fwd_seg" if with_seg else "attn_fwd"]
                 del q, k, v8, o, want_o
@@ -1975,7 +2117,8 @@ def phase_packed(dev):
 
     rec, ok, launches = _op_packed(dev, gen, torch.float32, PACKED_FP32_B, n,
                                    seg[:PACKED_FP32_B].contiguous(), True)
-    record("fp32_op_causal_packed_B2", rec, ok, launches, SEG_CALL)
+    record("fp32_op_causal_packed_B2", rec, ok, launches,
+           on_route(torch.float32, True, **SEG_CALL))
     torch.cuda.empty_cache()
 
     out = {"phase": "packed", "shape": [b, PACKED_HQ, PACKED_HKV, n, PACKED_D],
@@ -2138,7 +2281,9 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
     boolean mask, with fp8 V on V upcast to bf16 (the upcast included)."""
     import torch
     import torch.nn.functional as F
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
+        attn_fwd, attn_fwd_plain, fwd_route,
+    )
 
     q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
     k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
@@ -2151,6 +2296,7 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
     err = float((attn_fwd(q, k, v, **kw)[0].float()
                  - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
     ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
+    route = fwd_route(q.dtype, d, ids is not None, bool(v8))
     plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=1, reps=3)
     lib_ms = None
     if ids is not None:
@@ -2170,8 +2316,9 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     del q, k, v
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "tflops": flops / ms / 1e9, "max_abs_err": err}
+    return {"ms": ms, "route": route, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "tflops": flops / ms / 1e9, "max_abs_err": err}
 
 
 def phase_time(dev, train_rec, train_alibi_rec, packed_rec):
@@ -2355,8 +2502,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
     fwd_t = timings["fwd_serve_prefill_2048"]
     kernels = [
-        {"name": "attn_fwd", "route": "cuda", "source": FWD_SOURCE,
-         "replaces": FWD_REPLACES,
+        {"name": "attn_fwd", "route": "cuda", "source": FWD_SM90_SOURCE,
+         "fwd_route": fwd_t["route"], "replaces": FWD_REPLACES,
          "launches": serve["launches"]["attn_fwd"] + train["launches"]["attn_fwd"]
          + sum(r["launches"]["attn_fwd"] for r in quant.values()) + dense_fwd,
          "max_abs_err": fwd_res["serve_prefill_2048"]["max_abs_err_o"],
@@ -2397,17 +2544,20 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
 
     def entry(name, source, replaces, launches, t, err=None):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": t["max_abs_err"] if err is None else err,
-                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches, "max_abs_err": t["max_abs_err"] if err is None else err,
+               "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+               "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if "route" in t:  # the forward's kernel route (ops/fwd_kernel.py fwd_route)
+            rec["fwd_route"] = t["route"]
+        return rec
 
     alibi_fwd = sum(r["launches"]["attn_fwd"] for r in serve_alibi.values())
     rows = timings["bwd_alibi_dropout_train_B8_H32_N2048"]
     kernels += [
-        entry("attn_fwd[alibi]", FWD_SOURCE, FWD_REPLACES, alibi_fwd,
+        entry("attn_fwd[alibi]", FWD_SM90_SOURCE, FWD_REPLACES, alibi_fwd,
               timings["fwd_alibi_serve_prefill_2048"]),
-        entry("attn_fwd[alibi+dropout]", FWD_SOURCE, FWD_REPLACES,
+        entry("attn_fwd[alibi+dropout]", FWD_SM90_SOURCE, FWD_REPLACES,
               train_alibi["launches"]["attn_fwd"],
               timings["fwd_alibi_dropout_train_B8_H32_N2048"]),
         entry("attn_bwd_dkv[alibi+dropout]", BWD_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
@@ -2433,7 +2583,7 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
                     for name in ("attn_fwd_seg", "attn_bwd_dkv_seg", "attn_bwd_dq_seg")}
     rows = timings["bwd_seg_train_B8_H32_N2048"]
     kernels += [
-        entry("attn_fwd[seg]", FWD_SEG_SOURCE, FWD_REPLACES, seg_launches["attn_fwd_seg"],
+        entry("attn_fwd[seg]", FWD_SM90_SOURCE, FWD_REPLACES, seg_launches["attn_fwd_seg"],
               timings["fwd_seg_train_B8_H32_N2048"]),
         entry("attn_bwd_dkv[seg]", BWD_SEG_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
               seg_launches["attn_bwd_dkv_seg"], rows["attn_bwd_dkv"]),
@@ -2441,15 +2591,18 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
               seg_launches["attn_bwd_dq_seg"], rows["attn_bwd_dq"]),
     ]
     for kind in FP8_V:
-        kernels.append(entry(f"attn_fwd[fp8v-{kind}]", FWD_SOURCE, FWD_REPLACES,
+        kernels.append(entry(f"attn_fwd[fp8v-{kind}]", FWD_SM90_SOURCE, FWD_REPLACES,
                              packed["fp8_launches"][kind],
                              timings[f"fwd_fp8v_{kind}_serve_prefill_2048"]))
     emit({"kernels": kernels})
 
 
 # One run of --pair: the tree's own chip_smoke.py builds its kernels and
-# times the mode-free forward (serving prefill, training, bench shapes) and
-# backward family (training shape) with time_fwd / time_bwd.
+# times the forward (mode-free at the serving prefill, training and bench
+# shapes; ALiBi and ALiBi + dropout at the serving and training shapes),
+# the backward family (training shape), decode (bf16 KV, 8 x 2048 tokens)
+# and verify (a 256-token chunk at 2048, bf16 KV) with time_fwd / time_bwd
+# / time_paged.
 PAIR_RUN = """
 import json, torch
 import chip_smoke as c
@@ -2457,13 +2610,22 @@ dev = torch.device("cuda", 0)
 c.phase_build()
 gen = torch.Generator(device=dev).manual_seed(3)
 out = {}
-for name, shape in (("attn_fwd_serve_prefill_2048", (1, 16, 8, 2048, 128)),
-                    ("attn_fwd_train_B8_H32_N2048", (8, 32, 8, 2048, 128)),
-                    ("attn_fwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128))):
-    out[name] = c.time_fwd(gen, dev, *shape, {})["ms"]
+serve, train = (1, 16, 8, 2048, 128), (8, 32, 8, 2048, 128)
+alibi, both = dict(alibi=True), dict(alibi=True, rate=0.1, seed=1)
+for name, shape, mod in (("attn_fwd_serve_prefill_2048", serve, {}),
+                         ("attn_fwd_train_B8_H32_N2048", train, {}),
+                         ("attn_fwd_bench_B8_H16_N4096", (8, 16, 16, 4096, 128), {}),
+                         ("attn_fwd[alibi]_serve_prefill_2048", serve, alibi),
+                         ("attn_fwd[alibi]_train_B8_H32_N2048", train, alibi),
+                         ("attn_fwd[alibi+dropout]_serve_prefill_2048", serve, both),
+                         ("attn_fwd[alibi+dropout]_train_B8_H32_N2048", train, both)):
+    out[name] = c.time_fwd(gen, dev, *shape, mod)["ms"]
 rows = c.time_bwd(dev, gen, 8, 32, 8, 2048, 128)
 for k in ("attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
     out[k + "_train_B8_H32_N2048"] = rows[k]["ms"]
+out["paged_decode_bf16_B8_ctx2048"] = c.time_paged(gen, dev, "bf16", 8, [2048] * 8, 0)["ms"]
+out["paged_verify_bf16_T256_ctx2048"] = c.time_paged(gen, dev, "bf16", 1, [2048],
+                                                     c.CHUNK)["ms"]
 print("PAIR " + json.dumps(out), flush=True)
 """
 

@@ -1,6 +1,7 @@
-// Blocked attention forward (FlashAttention-2 style) for Hopper, sm_90a: the
-// kernel bodies and the C entry, included by attn_fwd.cu (no segment ids)
-// and attn_fwd_seg.cu (with them), which compile side by side.
+// Blocked attention forward for Hopper, sm_90a: the fp32 kernel, the launch
+// arguments and the C entry, included by attn_fwd.cu (no segment ids) and
+// attn_fwd_seg.cu (with them), which compile side by side; the bf16 / fp16
+// kernel is in attn_fwd_sm90.cuh.
 //
 // Replaces the forward of four TPU kernels, with their whole feature set:
 //   flash_attention_dlrs_tpu/ops/fwd_kernel.py  _fwd_kernel        (general tri/band grid;
@@ -24,56 +25,37 @@
 // TRUE bias -m_h * (i + Nkv - Nq - col) after the softcap, so L is the true
 // logsumexp with no shift; the TPU kernel added the separable +m_h * col,
 // which here would cost precision (the term reaches ~1450 at col 2048, where
-// an fp32 ulp is ~1e-4) and save nothing: row and col are in registers for
-// the mask already, and the bias is one FMA per score.  Dropout multiplies P
-// by the counter-based mask of common.cuh (dropout_factor of batch, q head,
-// local row, column) after the row sum, so L stays undropped, and before P is
-// rounded for P V, as the plain version and the TPU kernel do; the hash is
-// ~25 integer operations per score on the CUDA cores.  Both modes are
-// template flags (common.cuh dispatch_mods): a call without them runs code
-// compiled without them.  Segment ids (packed sequences; the third flag,
-// one translation unit each way) add q_seg[b, row] == kv_seg[b, col] to
-// the mask: each CTA loads its rows' ids once into registers and stages
-// each K tile's 64 ids in shared memory beside K.  Ids are arbitrary
-// integers, so no tile is skipped by segment, and with segments every tile
-// evaluates the mask (the interior-tile fast path, tile_unmasked, is off):
-// one compare and one shared load per score on the CUDA cores, and the
-// tiles of other documents are computed and masked whole: +6% over the
-// mode-free kernel at the training shape with a packed loader's layout (57%
-// of the causal pairs visible; H100, chip_smoke.py phase time), 11x the
-// visible-pair bound.  A row that sees
-// no key (above a cross-length causal diagonal, or whose segment id occurs
-// nowhere in its keys, mid-sequence) gets O = 0 and L = DEFAULT_MASK_VALUE,
-// the JAX package's stats_to_lse convention.  Inputs are fp32, bf16 or fp16
-// with d in {64, 128}; V may instead be fp8 (e4m3fn or e5m2, the JAX
-// package's v_payload): it is dequantized exactly to q's type while its
-// tile is staged into shared memory (common.cuh stage_tile_fp8), so the
-// device-memory read of V halves and nothing after staging changes (P is
-// still rounded to q's type before P V).  fp8 V is a fourth template flag
-// (V8; e4m3 or e5m2 is a CTA-uniform value): as a runtime branch at
-// staging it cost the mode-free bf16 instances 13 registers a thread and
-// +7% at the bench shape on the H100.  The online softmax keeps an exact
-// running max (no static shift) and fp32 statistics.
+// an fp32 ulp is ~1e-4) and save nothing.  Dropout multiplies P by the
+// counter-based mask of common.cuh (dropout_factor of batch, q head, local
+// row, column) after the row sum, so L stays undropped, and before P is
+// rounded for P V, as the plain version and the TPU kernel do.  Segment ids
+// (packed sequences) add q_seg[b, row] == kv_seg[b, col] to the mask; ids
+// are arbitrary integers, so no tile is skipped by segment and every tile
+// evaluates the mask.  ALiBi, dropout, segment ids and fp8 V are template
+// flags (common.cuh dispatch_mods, dispatch_v8): a call without a mode
+// runs code compiled without it.  A row that sees no key (above a
+// cross-length causal diagonal, or whose segment id occurs nowhere in its
+// keys, mid-sequence) gets O = 0 and L = DEFAULT_MASK_VALUE, the JAX
+// package's stats_to_lse convention.  Inputs are fp32, bf16 or fp16 with d
+// in {64, 128}; V may instead be fp8 (e4m3fn or e5m2, the JAX package's
+// v_payload), dequantized exactly to q's type before P V (P is still
+// rounded to q's type).  The online softmax keeps an exact running max (no
+// static shift) and fp32 statistics.
 //
 // Bound on this card.  Causal prefill at the serving shapes is bound by
 // operations: 4*Nq*Nkv*d/2 flops per head against ~(2*Nq + 2*Nkv)*d*2
-// bytes; the tensor cores' 989 TFLOP/s bf16 rate sets the floor.  What the
-// design does about it:
-//  * bf16/fp16 inputs run both products on the tensor cores with
-//    mma.sync.m16n8k16 (fp32 accumulate), fragments loaded with ldmatrix
-//    from padded (conflict-free) shared tiles.  A CTA of 4 warps owns 64 q
-//    rows (16 per warp) kept in registers; 64-row K/V tiles stream past them
-//    through shared memory, so device memory traffic is one K/V read per q
-//    tile; scores and P never leave registers (the S accumulator is re-packed
-//    as the A operand of P.V).  P is rounded to the input type before P.V,
-//    as the TPU kernel does.  No async copy, wgmma or TMA yet (ROADMAP
-//    queue 2): the loads stall the warps, which keeps this well above the
-//    floor.
-//  * fp32 inputs must compute in true fp32 (the fp32 gate is atol 1e-4), so
-//    they run on the CUDA cores: 256 threads, each owning a 4 x 4 patch of
-//    the score tile and a 4 x d/16 patch of the output.
-// Both paths skip KV tiles wholly above the causal diagonal or outside the
-// window band, and process the heaviest causal q tiles first.
+// bytes; the tensor cores' 989 TFLOP/s bf16 rate sets the floor.  The C
+// entry takes a route (ops/fwd_kernel.py fwd_route) and refuses one that
+// cannot carry the call:
+//  * "wgmma" (attn_fwd_sm90.cuh): every bf16 / fp16 call, on Hopper's
+//    warpgroup products fed by TMA through a ring of shared-memory stages;
+//    that header says what bounds it and what its design does about it.
+//  * "fp32" (this file): fp32 inputs must compute in true fp32 (the fp32
+//    gate is atol 1e-4), so they run on the CUDA cores: 256 threads, each
+//    owning a 4 x 4 patch of the score tile and a 4 x d/16 patch of the
+//    output; 64-row K/V tiles, V dequantized as it is staged when fp8.
+// Both skip KV tiles wholly above the causal diagonal or outside the window
+// band, and process the heaviest causal q tiles first.
 
 #pragma once
 
@@ -81,192 +63,8 @@
 
 namespace {
 
-constexpr int BM = 64;  // q rows per CTA
-constexpr int BN = 64;  // kv rows per tile
-
-// ---------------------------------------------------------------------------
-// Tensor-core path (bf16 / fp16)
-// ---------------------------------------------------------------------------
-
-constexpr int TC_THREADS = 128;  // 4 warps x 16 q rows
-
-template <int D, bool SEG>
-constexpr size_t tc_smem_bytes() {
-  // sQ, sK, sV of 16-bit elements; with segments the K tile's ids
-  return size_t(3) * BM * (D + 8) * 2 + (SEG ? BN * sizeof(int) : 0);
-}
-
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG, bool V8>
-__global__ void __launch_bounds__(TC_THREADS)
-attn_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const void* __restrict__ v, int v_kind, T* __restrict__ o,
-                    float* __restrict__ lse, int Hq, int Hkv, int Nq, int Nkv,
-                    float sm_scale, int causal, int window, float softcap, Mods md) {
-  constexpr int S = D + 8;          // padded row stride: conflict-free ldmatrix
-  constexpr int KSTEPS = D / 16;    // k-steps of Q K^T
-  constexpr int NT_S = BN / 8;      // score n-tiles per warp
-  constexpr int NT_O = D / 8;       // output n-tiles per warp
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sK = sQ + BM * S;
-  T* sV = sK + BM * S;
-  int* sKseg = reinterpret_cast<int*>(sV + BN * S);  // the K tile's ids (SEG)
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group / column pair
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * BM;  // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / Hq, h = bh % Hq;
-  const int kvh = h / (Hq / Hkv);
-  const int q_off = Nkv - Nq;
-  const float slope = ALIBI ? md.slopes[h] : 0.f;
-  const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
-
-  const T* qb = q + (size_t(b) * Hq + h) * size_t(Nq) * D;
-  const size_t kv_base = (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
-  const T* kb = k + kv_base;
-  const T* vb = static_cast<const T*>(v) + kv_base;          // V of q's type
-  const uint8_t* vb8 = static_cast<const uint8_t*>(v) + kv_base;  // fp8 V
-
-  int qseg[2] = {0, 0};  // segment ids of this thread's rows g and g + 8
-  if (SEG) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) qseg[r] = seg_id(md.q_seg, b, Nq, m0 + warp * 16 + g + 8 * r);
-  }
-
-  stage_tile<T, D, S, BM, TC_THREADS>(sQ, qb, m0, Nq, tid);
-  __syncthreads();
-  uint32_t qf[KSTEPS][4];  // this warp's 16 q rows as A fragments
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-    ldsm_x4(qf[ks], a_frag<S>(sQ, warp * 16, ks * 16, lane));
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m_r[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
-  float l_r[2] = {0.f, 0.f};              // this thread's share of the row sum
-
-  const TileRange tiles = kv_tiles<BM, BN>(m0, Nq, Nkv, causal, window);
-  for (int kt = tiles.lo; kt < tiles.hi; ++kt) {
-    const int n0 = kt * BN;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<T, D, S, BN, TC_THREADS>(sK, kb, n0, Nkv, tid);
-    if constexpr (V8) {
-      stage_tile_fp8<T, D, S, BN, TC_THREADS>(sV, vb8, n0, Nkv, tid, v_kind);
-    } else {
-      stage_tile<T, D, S, BN, TC_THREADS>(sV, vb, n0, Nkv, tid);
-    }
-    if (SEG && tid < BN) sKseg[tid] = seg_id(md.kv_seg, b, Nkv, n0 + tid);
-    __syncthreads();
-
-    float s[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        uint32_t kf[4];
-        ldsm_x4(kf, b_frag<S>(sK, np * 16, ks * 16, lane));
-        Mma<T>::run(s[2 * np], qf[ks], kf[0], kf[1]);
-        Mma<T>::run(s[2 * np + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
-
-    // scale, softcap, ALiBi bias, mask; base-2 units from here on
-    const bool unmasked = !SEG && tile_unmasked<BM, BN>(m0, n0, Nq, Nkv, causal, window);
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * sm_scale;
-        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        if (ALIBI || !unmasked) {
-          const int row = m0 + warp * 16 + g + (e >= 2 ? 8 : 0);
-          const int col = n0 + j * 8 + 2 * t + (e & 1);
-          if (ALIBI) x -= slope * float(row + q_off - col);
-          if (!unmasked && !(visible(row, col, Nq, Nkv, causal, window) &&
-                             (!SEG || qseg[e >> 1] == sKseg[col - n0])))
-            x = -INFINITY;
-        }
-        s[j][e] = x * kLog2e;
-      }
-    }
-
-    // online softmax for rows g (r = 0) and g + 8 (r = 1)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[r], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m_r[r] - m_use);  // 0 while the row saw nothing
-      m_r[r] = m_new;
-      float sum = 0.f;
-      const int row = m0 + warp * 16 + g + 8 * r;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float p = exp2f(s[j][e] - m_use);  // masked: exp2(-inf) = 0
-          sum += p;  // the row sum is undropped
-          s[j][e] = DROP ? p * dropout_factor(stream, row, n0 + j * 8 + 2 * t + (e & 1), md)
-                         : p;
-        }
-      }
-      l_r[r] = l_r[r] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < NT_O; ++j) {
-        acc[j][2 * r] *= alpha;
-        acc[j][2 * r + 1] *= alpha;
-      }
-    }
-
-    // O += P V: the score accumulators re-packed as A fragments
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t pa[4] = {
-          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int np = 0; np < NT_O / 2; ++np) {
-        uint32_t vf[4];
-        ldsm_x4_trans(vf, bt_frag<S>(sV, kk * 16, np * 16, lane));
-        Mma<T>::run(acc[2 * np], pa, vf[0], vf[1]);
-        Mma<T>::run(acc[2 * np + 1], pa, vf[2], vf[3]);
-      }
-    }
-  }
-
-  T* ob = o + (size_t(b) * Hq + h) * size_t(Nq) * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = l_r[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = m0 + warp * 16 + g + 8 * r;
-    if (row >= Nq) continue;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      *reinterpret_cast<uint32_t*>(ob + size_t(row) * D + j * 8 + 2 * t) =
-          Mma<T>::pack(acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
-    }
-    if (t == 0) {
-      lse[(size_t(b) * Hq + h) * Nq + row] =
-          l > 0.f ? (m_r[r] + log2f(l)) * kLn2 : kMaskValue;
-    }
-  }
-}
+constexpr int BM = 64;  // q rows per CTA of the fp32 kernel
+constexpr int BN = 64;  // kv rows per tile of the fp32 kernel
 
 // ---------------------------------------------------------------------------
 // fp32 path (CUDA cores, true fp32)
@@ -486,30 +284,17 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The routes of the C entry (ops/fwd_kernel.py ROUTE_CODES).
+constexpr int kRouteF32 = 0, kRouteWgmma = 1;
+
+// The "wgmma" route, defined in attn_fwd_sm90.cuh.
+template <bool SEG, typename T, int D>
+int launch_wgmma(const Args& a);
+
 // Calls fn(v8) with std::true_type for fp8 V, std::false_type otherwise.
 template <typename Fn>
 int dispatch_v8(int v_kind, Fn&& fn) {
   return v_kind == kVSame ? fn(std::false_type{}) : fn(std::true_type{});
-}
-
-template <bool SEG, typename T, int D>
-int launch_mma(const Args& a) {
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-    return dispatch_v8(a.v_kind, [&](auto v8) {
-      auto kernel = attn_fwd_mma_kernel<T, D, decltype(alibi)::value, decltype(drop)::value,
-                                        SEG, decltype(v8)::value>;
-      constexpr size_t smem = tc_smem_bytes<D, SEG>();
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (err != cudaSuccess) return int(err);
-      dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
-      kernel<<<grid, TC_THREADS, smem, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const T*>(a.k), a.v, a.v_kind,
-          static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv,
-          a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
-      return int(cudaGetLastError());
-    });
-  });
 }
 
 template <bool SEG, int D>
@@ -539,14 +324,16 @@ int launch_f32(const Args& a) {
 // segment ids on the device: set exactly when SEG (kv_seg is read only
 // where keys exist).  slopes: [Hq] fp32 on the device, or null (no ALiBi);
 // rate 0 disables dropout, keep_scale = 1 / (1 - rate), seed the int32
-// seed.  Returns cudaGetLastError() after the launch (0 on success);
+// seed.  route: kRouteF32 (dtype 0) or kRouteWgmma (dtype 1 or 2); a
+// route that cannot carry the call returns cudaErrorInvalidValue, never
+// another route.  Returns cudaGetLastError() after the launch (0 on success);
 // launches nothing for an empty problem.
 template <bool SEG>
 int attn_fwd_entry(const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* q_seg, const int* kv_seg, int dtype, int v_kind, int B,
                    int Hq, int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                    int window, float softcap, const float* slopes, float rate,
-                   float keep_scale, int seed, void* stream) {
+                   float keep_scale, int seed, int route, void* stream) {
   if (B <= 0 || Hq <= 0 || Nq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || Nkv < 0 || rate < 0.f || rate >= 1.f ||
       v_kind < kVSame || v_kind > kVE5M2)
@@ -555,17 +342,15 @@ int attn_fwd_entry(const void* q, const void* k, const void* v, void* o, float* 
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
   if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0:
-      return D == 64 ? launch_f32<SEG, 64>(a) : launch_f32<SEG, 128>(a);
-    case 1:
-      return D == 64 ? launch_mma<SEG, __nv_bfloat16, 64>(a)
-                     : launch_mma<SEG, __nv_bfloat16, 128>(a);
-    case 2:
-      return D == 64 ? launch_mma<SEG, __half, 64>(a) : launch_mma<SEG, __half, 128>(a);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (route == kRouteF32 && dtype == 0)
+    return D == 64 ? launch_f32<SEG, 64>(a) : launch_f32<SEG, 128>(a);
+  if (route == kRouteWgmma && dtype == 1)
+    return D == 64 ? launch_wgmma<SEG, __nv_bfloat16, 64>(a)
+                   : launch_wgmma<SEG, __nv_bfloat16, 128>(a);
+  if (route == kRouteWgmma && dtype == 2)
+    return D == 64 ? launch_wgmma<SEG, __half, 64>(a)
+                   : launch_wgmma<SEG, __half, 128>(a);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -5,7 +5,7 @@
 // sliding window on the causal band, ragged KV tail), the ALiBi,
 // attention-dropout and segment-id arguments and the dropout mask, the
 // tensor-core fragment helpers (mma.sync.m16n8k16 with fp32 accumulate,
-// ldmatrix) and the 16-byte tile staging, with its fp8 variant for V.  Each
+// ldmatrix), the 16-byte tile staging and the fp8-V conversions.  Each
 // source that includes this file is its own library (_cuda.py hashes the
 // headers with it).
 
@@ -272,42 +272,6 @@ __device__ __forceinline__ uint32_t fp8x2_to<__nv_bfloat16>(uint32_t x, int v_ki
   const float2 f = __half22float2(__half2(h));
   __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
   return *reinterpret_cast<uint32_t*>(&b);
-}
-
-// stage_tile for an fp8 [N, D] matrix into a [ROWS][S] shared tile of T
-// (bf16 / fp16): 16 fp8 values per 16-byte load, converted exactly and
-// stored as 32 bytes; zero beyond N.  The device-memory read is half that
-// of a 16-bit V.
-template <typename T, int D, int S, int ROWS, int THREADS>
-__device__ __forceinline__ void stage_tile_fp8(T* dst, const uint8_t* src, int r0,
-                                               int N, int tid, int v_kind) {
-  constexpr int CPR = D / 16;  // 16-byte chunks per row
-  static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
-  constexpr int ITERS = ROWS * CPR / THREADS;
-  uint4 buf[ITERS];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = tid + it * THREADS;
-    const int r = idx / CPR, c = (idx % CPR) * 16;
-    buf[it] = r0 + r < N
-                  ? *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + c)
-                  : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = tid + it * THREADS;
-    const int r = idx / CPR, c = (idx % CPR) * 16;
-    const uint32_t w[4] = {buf[it].x, buf[it].y, buf[it].z, buf[it].w};
-    uint32_t out[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      out[2 * i] = fp8x2_to<T>(w[i], v_kind);
-      out[2 * i + 1] = fp8x2_to<T>(w[i] >> 16, v_kind);
-    }
-    uint4* d = reinterpret_cast<uint4*>(dst + r * S + c);
-    d[0] = make_uint4(out[0], out[1], out[2], out[3]);
-    d[1] = make_uint4(out[4], out[5], out[6], out[7]);
-  }
 }
 
 }  // namespace

@@ -1,8 +1,15 @@
 """Attention forward kernel: wrapper, plain version and launch counts.
 
-The kernel is ``csrc/attn_fwd.cuh``, built twice: ``csrc/attn_fwd.cu``
+The kernels are ``csrc/attn_fwd.cuh`` (fp32, and the C entry) and
+``csrc/attn_fwd_sm90.cuh`` (bf16 / fp16), built twice: ``csrc/attn_fwd.cu``
 without segment ids (:data:`FWD_KERNEL`) and ``csrc/attn_fwd_seg.cu`` with
-them (:data:`FWD_SEG_KERNEL`), each with its own launch count.  It replaces
+them (:data:`FWD_SEG_KERNEL`), each with its own launch count.  Each call
+takes one of two routes, fixed by :func:`fwd_route` from the call's types
+alone and counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel
+of ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp
+specialisation; every bf16/fp16 call) or ``"fp32"`` (CUDA cores, true
+fp32).  The C entry refuses a route that cannot carry a call; nothing
+switches routes at run time.  It replaces
 the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
 ``ops/fwd_mid.py::_mid_kernel``, ``ops/fwd_mid.py::_mid_strip_kernel`` and
 ``ops/fwd_small.py::_small_kernel`` of the JAX package with their whole
@@ -49,10 +56,41 @@ _FWD_ARGS = (
     + [ctypes.c_int] * 8  # dtype, v_kind, B, Hq, Hkv, Nq, Nkv, D
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
     + MOD_ARGS
+    + [ctypes.c_int]  # route
     + [ctypes.c_void_p]  # stream
 )
 FWD_KERNEL = CudaKernel("attn_fwd.cu", "attn_fwd", _FWD_ARGS)
 FWD_SEG_KERNEL = CudaKernel("attn_fwd_seg.cu", "attn_fwd_seg", _FWD_ARGS)
+
+# The C entry's route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma)
+# and the launches of each route, over both builds; set to 0 by whoever
+# reads them.
+ROUTE_CODES = {"fp32": 0, "wgmma": 1}
+ROUTE_LAUNCHES = dict.fromkeys(ROUTE_CODES, 0)
+
+
+def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False) -> str:
+    """The kernel route of a forward call, from its types alone:
+
+    ========  ==========================================================
+    route     calls
+    ========  ==========================================================
+    fp32      q in float32 (CUDA cores, true fp32; any V kind, segments)
+    wgmma     bf16 / fp16 q, with or without segment ids, V of q's dtype
+              or fp8
+    ========  ==========================================================
+
+    Segment ids and fp8 V are modes of both routes and change neither.  d
+    must be 64 or 128 on every route; anything else raises."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attn_fwd kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {dtype}")
+    return "wgmma"
+
 
 # Rows of scores the plain version materializes at once (bounds its memory).
 _PLAIN_CHUNK_ELEMS = 1 << 26
@@ -155,9 +193,9 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     ids: row i sees key j only where q_seg[b, i] == kv_seg[b, j].  V may be
     fp8 (e4m3fn / e5m2) beside fp32/bf16/fp16 q and k.  Arguments are
     validated by the caller (ops/flash_attention.py).  CPU tensors take
-    :func:`attn_fwd_plain`; CUDA tensors launch the kernel (with segments
-    its ``attn_fwd_seg`` build), which takes contiguous inputs with d in
-    {64, 128}, or raise."""
+    :func:`attn_fwd_plain`; CUDA tensors launch the kernel on the route of
+    :func:`fwd_route` (with segments its ``attn_fwd_seg`` build), which
+    takes contiguous inputs with d in {64, 128}, or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
@@ -172,16 +210,12 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != q.dtype and not (name == "v" and t.dtype in V_KINDS):
             raise ValueError(f"{name} has dtype {t.dtype}, q {q.dtype}")
-        if t.data_ptr() % 16:  # the kernel stages tiles with 16-byte loads
+        if t.data_ptr() % 16:  # 16-byte loads and TMA tensor maps
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if q.dtype not in DTYPE_CODES:
-        raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {q.dtype}")
     check_segments(q, k, q_seg, kv_seg)
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"attn_fwd kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {d}")
+    route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -193,8 +227,9 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
         DTYPE_CODES[q.dtype], V_KINDS.get(v.dtype, 0), b, hq, hkv, n_q, n_kv, d,
         float(sm_scale), int(bool(causal)), int(window), float(softcap),
         *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
-        stream_handle(q.device),
+        ROUTE_CODES[route], stream_handle(q.device),
     )
+    ROUTE_LAUNCHES[route] += 1
     return o, lse
 
 
