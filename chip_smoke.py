@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (flash_attention_dlrs_tpu_torch) on one NVIDIA card.
 
-Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers
-and spills of the wgmma forward's instances) and holds each kernel (and
-each ALiBi / dropout / segment-id / fp8-V mode, and each route of the
-forward: wgmma, fp32) against its plain PyTorch version on the
-card (the backward kernels also against themselves,
-bit for bit), and reads the forward kernel's dropout mask back against the
+Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers,
+spills and serialization warnings of the wgmma instances of the forward and
+of the backward sweeps), and beside them two broken copies of the dK/dV
+sweep; holds each kernel (and each ALiBi / dropout / segment-id / fp8-V
+mode, and each route of the forward and of the backward sweeps: wgmma,
+fp32) against its plain PyTorch version on the card (the backward kernels
+also against themselves, bit for bit), checks that each broken copy fails
+that check, and reads the forward kernel's dropout mask back against the
 plain mask.  Then drives every path of the port:
 
 - serving: 8 requests through DecodeEngine at the full width of the repo's
@@ -35,11 +37,12 @@ plain mask.  Then drives every path of the port:
   forward and backward, and fp8 V through the op API;
 
 checks that each path went through its kernels (launch counts, and the
-forward's launches per route, set to 0 just before the path and read just
-after: every bf16 forward of the model paths on the wgmma route, the packed
-calls on the route ops/fwd_kernel.py fwd_route names), and times each
-kernel beside its bound, its plain version and, where one exists, the
-PyTorch library call computing the same function.
+forward's and each backward sweep's launches per route, set to 0 just
+before the path and read just after: every bf16 forward and backward sweep
+of the model paths on the wgmma route, the packed calls on the routes
+ops/fwd_kernel.py fwd_route and ops/bwd_kernel.py bwd_route name), and
+times each kernel beside its bound, its plain version and, where one
+exists, the PyTorch library call computing the same function.
 
 Every phase prints one JSON line and raises on failure.  The line before
 the last is the card's name and power limit as nvidia-smi reports them; the
@@ -50,7 +53,8 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
 
        python3 chip_smoke.py --pair PARENT_DIR
            times the forward (mode-free, ALiBi, ALiBi + dropout), the
-           backward family, decode and verify from an unpacked earlier
+           backward family (mode-free, ALiBi + dropout, with a packed
+           loader's segment ids), decode and verify from an unpacked earlier
            commit (PARENT_DIR, its own chip_smoke.py and package) and from
            this tree in turns, parent, change, change, parent, each run in
            its own process on the same card, one JSON line per run.
@@ -87,7 +91,8 @@ QUANT_KINDS = ("int8", "int4", "e4m3", "e5m2")
 # stored bytes per K or V element, and per-token scale bytes (K and V)
 KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
 BWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd.cu"
-BWD_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_seg.cu"
+# the sweeps' bf16 / fp16 kernel bodies (built into attn_bwd.cu, attn_bwd_seg.cu)
+BWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_sm90.cuh"
 BWD_REPLACES = {
     "attn_bwd_preprocess": "flash_attention_dlrs_tpu/ops/bwd_kernel.py:59",
     "attn_bwd_dkv": (
@@ -163,26 +168,37 @@ def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, v_itemsize=No
 WGMMA_ENTRY = re.compile(r"attn_fwd_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)E"
                          r"Lb([01])ELb([01])ELb([01])ELb([01])E")
 WGMMA_FLAGS = ("alibi", "dropout", "seg", "fp8v")
+# the backward sweeps' wgmma instances (csrc/attn_bwd_sm90.cuh)
+BWD_WGMMA_ENTRY = re.compile(r"attn_bwd_(dkv|dq)_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)E"
+                             r"Lb([01])ELb([01])ELb([01])E")
+BWD_WGMMA_FLAGS = ("alibi", "dropout", "seg")
+LAUNCH_REGS = 168  # csrc/sm90.cuh LAUNCH_REGS: 384 threads x 168 at launch
 
 
-def wgmma_instances(log):
-    """Registers and spills of each wgmma forward instance from nvcc's
-    ``--ptxas-options=-v`` log (one entry per (dtype, d, ALiBi, dropout,
-    segment ids, fp8 V)), and ptxas's performance warnings about them
-    (C7515: wgmmas serialized, which takes the overlap of products and
-    softmax away)."""
+def wgmma_instances(log, entry=WGMMA_ENTRY, flags=WGMMA_FLAGS, marker="attn_fwd_wgmma_kernel"):
+    """Registers and spills of each wgmma instance of one kernel family
+    (``entry``: its mangled name, the dtype and head dim groups first, then
+    the template flags ``flags``; a sweep name before them where the family
+    has two) from nvcc's ``--ptxas-options=-v`` log, and ptxas's
+    performance warnings about the family (``marker``; C7515: wgmmas
+    serialized, which takes the overlap of products and element work
+    away)."""
     out, cur, warnings = {}, None, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            w = WGMMA_ENTRY.search(m.group(1))
-            cur = None if w is None else "_".join(
-                ["bf16" if w.group(1) == "__nv_bfloat16" else "fp16", "d" + w.group(2)]
-                + [f for f, on in zip(WGMMA_FLAGS, w.groups()[2:]) if on == "1"])
-            if cur:
+            w = entry.search(m.group(1))
+            cur = None
+            if w is not None:
+                groups = w.groups()
+                sweep = [groups[0]] if len(groups) > len(flags) + 2 else []
+                dtype, d = groups[len(sweep)], groups[len(sweep) + 1]
+                cur = "_".join(
+                    sweep + ["bf16" if dtype == "__nv_bfloat16" else "fp16", "d" + d]
+                    + [f for f, on in zip(flags, groups[len(sweep) + 2:]) if on == "1"])
                 out[cur] = {}
             continue
-        if "Performance Loss" in line and "attn_fwd_wgmma_kernel" in line:
+        if "Performance Loss" in line and marker in line:
             warnings.append(line.strip())
         if cur is None:
             continue
@@ -195,10 +211,86 @@ def wgmma_instances(log):
     return out, warnings
 
 
-def phase_build():
+# Broken copies of the bf16 / fp16 dK/dV sweep, each built beside the tree
+# (flash_attention_dlrs_tpu_torch/_build/mutants/<name>/) from csrc/ with one
+# set of text edits: bwd_check must fail on each (phase mutants).
+BWD_SM90 = "attn_bwd_sm90.cuh"
+BWD_MUTANTS = {
+    # the causal diagonal's and the window's tiles run the unmasked loop
+    "dkv_diagonal_tile_unmasked": [(
+        "SEG || !tile_unmasked<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window);",
+        "SEG || nw + WG_ROWS > Nkv;")],
+    # the Q / dO stage (and its lse, D rows) released to the producer as soon
+    # as the score products are done, before dK's product has read Q
+    "dkv_stage_released_before_dk": [
+        ("        fence_regs(dp);\n        if (softcap > 0.f) {\n"
+         "          if (masked) grads(m0, st, slope, stream, yes, yes);",
+         "        fence_regs(dp);\n        release(empty(st));\n        if (softcap > 0.f) {\n"
+         "          if (masked) grads(m0, st, slope, stream, yes, yes);"),
+        ("      }\n      release(empty(st));  // dK's product has read Q, dV's dO",
+         "      } else {\n        release(empty(st));\n      }"),
+    ],
+}
+
+
+def start_mutant_builds():
+    """Writes each mutant's csrc/ copy and starts its nvcc on attn_bwd.cu
+    (the sweeps without segment ids): {name: (process, library path)}."""
+    import shutil
+    from flash_attention_dlrs_tpu_torch import _cuda
+
+    running = {}
+    for name, edits in BWD_MUTANTS.items():
+        root = _cuda.BUILD_DIR / "mutants" / name
+        if root.exists():
+            shutil.rmtree(root)
+        shutil.copytree(_cuda.CSRC_DIR, root / "csrc")
+        src = root / "csrc" / BWD_SM90
+        text = src.read_text()
+        for old, new in edits:
+            if text.count(old) != 1:
+                raise AssertionError(f"mutant {name}: edit target found "
+                                     f"{text.count(old)} times: {old!r}")
+            text = text.replace(old, new)
+        src.write_text(text)
+        lib = root / "attn_bwd.so"
+        proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
+                                 str(root / "csrc" / "attn_bwd.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        running[name] = (proc, lib)
+    return running
+
+
+def _check_instances(rec, built, sources, entry, flags, marker, count, key):
+    """Adds the registers, spills and ptxas warnings of one wgmma family
+    built from ``sources`` to ``rec`` (under ``key``); raises unless there
+    are ``count`` instances, each at the launch allocation."""
+    instances, warnings = {}, []
+    for src in sources:
+        inst, warn = wgmma_instances(built[src]["log"], entry, flags, marker)
+        instances.update(inst)
+        warnings += warn
+    rec.update({f"{key}_instances": instances, f"{key}_ptxas_warnings": warnings,
+                f"{key}_spilling": {k: v for k, v in instances.items()
+                                    if v.get("spill_stores") or v.get("spill_loads")}})
+    if len(instances) != count:
+        raise AssertionError(f"expected {count} {key} instances, found {sorted(instances)}")
+    # setmaxnreg splits the 384 x 168 registers a CTA is launched with;
+    # fewer at launch would hang it
+    short = {k: v.get("registers") for k, v in instances.items()
+             if v.get("registers") != LAUNCH_REGS}
+    if short:
+        raise AssertionError(f"{key} instances not at {LAUNCH_REGS} registers: {short}")
+    return warnings
+
+
+def phase_build(mutants=False):
+    """Builds every source (and, with ``mutants``, starts the mutant builds
+    first, so that they compile beside it: returns them)."""
     from flash_attention_dlrs_tpu_torch import _cuda
 
     t0 = time.perf_counter()
+    mutant_builds = start_mutant_builds() if mutants else {}
     built = _cuda.build()
     info = {}
     for src, rec in built.items():
@@ -207,25 +299,20 @@ def phase_build():
         info[src] = {"seconds": round(rec["seconds"], 3), "ptxas": ptxas}
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
            "sources": _cuda.all_sources(), "built": info}
+    bwd_warnings = []
     if "attn_fwd.cu" in built and "attn_fwd_seg.cu" in built:
-        instances, warnings = {}, []
-        for src in ("attn_fwd.cu", "attn_fwd_seg.cu"):
-            inst, warn = wgmma_instances(built[src]["log"])
-            instances.update(inst)
-            warnings += warn
-        rec.update(wgmma_instances=instances, wgmma_ptxas_warnings=warnings,
-                   wgmma_spilling={k: v for k, v in instances.items()
-                                   if v.get("spill_stores") or v.get("spill_loads")})
-        if len(instances) != 64:  # 2 dtypes x 2 head dims x 2^4 modes
-            raise AssertionError(
-                f"expected 64 wgmma forward instances, found {sorted(instances)}")
-        # setmaxnreg splits the 384 x 168 registers a CTA is launched with
-        # (csrc/attn_fwd_sm90.cuh LAUNCH_REGS); fewer at launch would hang it
-        short = {k: v.get("registers") for k, v in instances.items()
-                 if v.get("registers") != 168}
-        if short:
-            raise AssertionError(f"wgmma forward instances not at 168 registers: {short}")
+        # 2 dtypes x 2 head dims x 2^4 modes
+        _check_instances(rec, built, ("attn_fwd.cu", "attn_fwd_seg.cu"), WGMMA_ENTRY,
+                         WGMMA_FLAGS, "attn_fwd_wgmma_kernel", 64, "wgmma")
+    if "attn_bwd.cu" in built and "attn_bwd_seg.cu" in built:
+        # 2 sweeps x 2 dtypes x 2 head dims x 2^3 modes
+        bwd_warnings = _check_instances(rec, built, ("attn_bwd.cu", "attn_bwd_seg.cu"),
+                                        BWD_WGMMA_ENTRY, BWD_WGMMA_FLAGS,
+                                        "_wgmma_kernel", 64, "bwd_wgmma")
     emit(rec)
+    if bwd_warnings:
+        raise AssertionError(f"backward wgmma instances with serialized wgmmas: {bwd_warnings}")
+    return mutant_builds
 
 
 def _rand(gen, shape, dtype, device):
@@ -529,90 +616,209 @@ def bwd_errors(got, want, dtype):
     return rec, ok
 
 
-def phase_bwd(dev):
-    """Each case: the three backward kernels twice (dQ/dK/dV must be
-    bitwise equal) and the plain version once, on the same q/k/v/O/lse/dO;
-    O and lse come from the forward kernel."""
+BF16, F16, F32 = "bfloat16", "float16", "float32"
+_ALIBI, _DROP = dict(alibi=True), dict(rate=0.1, seed=11)
+_BOTH = dict(alibi=True, rate=0.1, seed=2 ** 31 - 1)
+BWD_CASES = [
+    # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, sm_scale, mods
+    ("train_B2_H32_N2048", BF16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None, {}),
+    ("fp32_golden_causal", F32, 2, 2, 2, 256, 256, 128, True, 0, 0.0, 1.0, {}),
+    ("fp32_golden_noncausal", F32, 2, 2, 2, 256, 256, 128, False, 0, 0.0, 1.0, {}),
+    # fp32 twins of the masked bf16 cases: the fp32 kernels share the
+    # tile ranges and masks, and the fp32 ladder sees a one-key slip
+    ("fp32_window_softcap", F32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0, {}),
+    ("fp32_cross_empty_rows", F32, 1, 4, 2, 300, 200, 128, True, 0, 0.0, 1.0, {}),
+    ("window256_softcap30", BF16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None, {}),
+    ("noncausal_cross_300_1000", BF16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None, {}),
+    ("empty_rows_300_200", BF16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, None, {}),
+    ("fp16_mqa_bottom_right", F16, 1, 4, 1, 100, 700, 64, True, 0, 0.0, None, {}),
+    ("causal_N16384", BF16, 1, 2, 2, 16384, 16384, 128, True, 0, 0.0, None, {}),
+    ("alibi_train_B2_H32_N2048", BF16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None,
+     _ALIBI),
+    ("dropout_bf16", BF16, 1, 8, 2, 1024, 1024, 128, True, 0, 0.0, None, _DROP),
+    ("alibi_dropout_train_B2_H32_N2048", BF16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0,
+     None, _BOTH),
+    ("fp32_alibi_dropout_gqa", F32, 2, 4, 2, 256, 256, 128, True, 0, 0.0, 1.0, _BOTH),
+    ("fp32_alibi_cross_window_softcap", F32, 1, 4, 2, 300, 500, 64, True, 100, 25.0,
+     1.0, _ALIBI),
+    ("fp32_dropout_noncausal_tail", F32, 1, 4, 1, 100, 300, 64, False, 0, 0.0, 1.0,
+     _DROP),
+    # segment ids (packed sequences), alone and with ALiBi + dropout
+    ("seg_train_B2_H32_N2048", BF16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None,
+     dict(seg="loader")),
+    ("seg_fp32_causal_gqa_tails", F32, 2, 4, 2, 300, 300, 128, True, 0, 0.0, 1.0,
+     dict(seg="packed")),
+    ("seg_fp32_cross_empty_rows", F32, 1, 4, 2, 200, 500, 64, False, 0, 0.0, 1.0,
+     dict(seg="cross")),
+    ("seg_bf16_cross_empty_rows", BF16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None,
+     dict(seg="cross")),
+    ("seg_fp16_cross_causal_d64", F16, 1, 4, 1, 300, 700, 64, True, 0, 0.0, None,
+     dict(seg="cross")),
+    ("seg_fp32_window_softcap", F32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0,
+     dict(seg="packed")),
+    ("seg_bf16_window_softcap", BF16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None,
+     dict(seg="packed")),
+    ("seg_alibi_dropout_bf16", BF16, 2, 8, 2, 1024, 1024, 128, True, 0, 0.0, None,
+     dict(_BOTH, seg="packed")),
+    ("seg_fp32_alibi_dropout_gqa", F32, 2, 4, 2, 256, 256, 128, True, 0, 0.0, 1.0,
+     dict(_BOTH, seg="packed")),
+    # the wgmma sweeps' tile edges (128-key / 128-row CTAs, 64-row steps):
+    # every edge in bf16 and fp16 and at d 64 and 128
+    # (tests/test_torch_bwd_route.py holds the plain version to JAX there)
+    ("wg_n63_bf16_d64", BF16, 1, 4, 2, 63, 63, 64, True, 0, 0.0, None, {}),
+    ("wg_n63_fp16", F16, 2, 4, 2, 63, 63, 128, True, 0, 0.0, None, {}),
+    ("wg_n64_bf16", BF16, 1, 4, 2, 64, 64, 128, True, 0, 0.0, None, {}),
+    ("wg_n64_fp16_d64", F16, 1, 4, 2, 64, 64, 64, True, 0, 0.0, None, {}),
+    ("wg_n65_bf16_d64", BF16, 2, 4, 2, 65, 65, 64, True, 0, 0.0, None, {}),
+    ("wg_n65_fp16", F16, 1, 4, 1, 65, 65, 128, False, 0, 0.0, None, {}),
+    ("wg_n127_bf16", BF16, 1, 4, 2, 127, 127, 128, True, 0, 0.0, None, {}),
+    ("wg_n127_fp16_d64", F16, 1, 4, 2, 127, 127, 64, True, 0, 0.0, None, {}),
+    ("wg_n128_bf16_d64", BF16, 1, 4, 2, 128, 128, 64, True, 0, 0.0, None, {}),
+    ("wg_n128_fp16", F16, 1, 4, 2, 128, 128, 128, True, 0, 0.0, None, {}),
+    ("wg_n129_bf16", BF16, 2, 4, 2, 129, 129, 128, True, 0, 0.0, None, {}),
+    ("wg_n129_fp16_d64", F16, 1, 4, 2, 129, 129, 64, False, 0, 0.0, None, {}),
+    ("wg_n257_bf16_d64", BF16, 1, 4, 2, 257, 257, 64, True, 0, 0.0, None, {}),
+    ("wg_n257_fp16", F16, 1, 4, 2, 257, 257, 128, True, 0, 0.0, None, {}),
+    # bottom-right causal across lengths (Nq > Nkv: rows that see no key)
+    ("wg_cross_63_257_bf16_d64", BF16, 1, 4, 2, 63, 257, 64, True, 0, 0.0, None, {}),
+    ("wg_cross_129_385_fp16", F16, 1, 4, 2, 129, 385, 128, True, 0, 0.0, None, {}),
+    ("wg_cross_257_129_bf16", BF16, 1, 4, 2, 257, 129, 128, True, 0, 0.0, None, {}),
+    ("wg_cross_1_257_fp16_d64", F16, 1, 4, 2, 1, 257, 64, True, 0, 0.0, None, {}),
+    # windows about one tile wide, with the softcap
+    ("wg_window64_softcap_n300_bf16_d64", BF16, 1, 4, 2, 300, 300, 64, True, 64, 30.0,
+     None, {}),
+    ("wg_window127_softcap_n300_fp16", F16, 1, 4, 2, 300, 300, 128, True, 127, 30.0,
+     None, {}),
+    ("wg_window128_softcap_n300_bf16", BF16, 1, 4, 2, 300, 300, 128, True, 128, 30.0,
+     None, {}),
+    ("wg_window129_softcap_n300_fp16_d64", F16, 1, 4, 2, 300, 300, 64, True, 129, 30.0,
+     None, {}),
+    # GQA 8:1
+    ("wg_gqa8_n129_bf16_d64", BF16, 1, 8, 1, 129, 129, 64, True, 0, 0.0, None, {}),
+    ("wg_gqa8_noncausal_tail_fp16", F16, 1, 8, 1, 129, 257, 128, False, 0, 0.0, None, {}),
+    # ALiBi + dropout, and segment ids, at an edge shape
+    ("wg_alibi_dropout_n129_fp16_d64", F16, 2, 4, 2, 129, 129, 64, True, 0, 0.0, None,
+     _BOTH),
+    ("wg_seg_n257_bf16", BF16, 2, 4, 2, 257, 257, 128, True, 0, 0.0, None,
+     dict(seg="packed")),
+]
+
+
+def bwd_routes(zero=False):
+    """Each sweep's launches per route (ops/bwd_kernel.py
+    BWD_ROUTE_LAUNCHES), set to 0 when ``zero``."""
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import BWD_ROUTE_LAUNCHES
+
+    if zero:
+        for routes in BWD_ROUTE_LAUNCHES.values():
+            for route in routes:
+                routes[route] = 0
+    return {sweep: dict(routes) for sweep, routes in BWD_ROUTE_LAUNCHES.items()}
+
+
+def bwd_case(dev, gen, case):
+    """One bwd_check case: the three backward kernels twice (dQ/dK/dV must
+    be bitwise equal, each sweep launched twice on the route bwd_route
+    names) and the plain version once, on the same q/k/v/O/lse/dO; O and
+    lse come from the forward kernel.  (record, ok)."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd, attn_bwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import (
+        attn_bwd, attn_bwd_plain, bwd_route,
+    )
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd
 
+    name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, scale, mod = case
+    dt = getattr(torch, dt)
+    q = _rand(gen, (b, hq, nq, d), dt, dev)
+    k = _rand(gen, (b, hkv, nkv, d), dt, dev)
+    v = _rand(gen, (b, hkv, nkv, d), dt, dev)
+    do = _rand(gen, (b, hq, nq, d), dt, dev)
+    kw = dict(causal=causal, sm_scale=d ** -0.5 if scale is None else scale,
+              window=window, softcap=cap, **case_kwargs(hq, b, nq, nkv, dev, mod))
+    o, lse = attn_fwd(q, k, v, **kw)
+    route = bwd_route(dt, d, "q_seg" in kw)
+    bwd_routes(zero=True)
+    got = attn_bwd(q, k, v, o, lse, do, **kw)
+    again = attn_bwd(q, k, v, o, lse, do, **kw)
+    routes = bwd_routes()
+    want = attn_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    rec, ok = bwd_errors(got, want, dt)
+    rec["bitwise_repeatable"] = all(torch.equal(a, c) for a, c in zip(got, again))
+    rec["route"] = route
+    rec["on_its_route"] = all(all_on(r, route, 2) for r in routes.values())
+    rec["ok"] = ok and rec["bitwise_repeatable"] and rec["on_its_route"]
+    rec = {"case": name, "dtype": str(dt), "shape": [b, hq, hkv, nq, nkv, d],
+           "causal": causal, "window": window, "softcap": cap, "sm_scale": kw["sm_scale"],
+           "alibi": bool(mod.get("alibi")), "dropout_rate": mod.get("rate", 0.0),
+           "segments": mod.get("seg"), **rec}
+    del q, k, v, do, o, lse, got, again, want
+    return rec, rec["ok"]
+
+
+def phase_bwd(dev):
+    """Every case of BWD_CASES (:func:`bwd_case`)."""
+    import torch
+
     gen = torch.Generator(device=dev).manual_seed(4)
-    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
-    alibi, drop, both = dict(alibi=True), dict(rate=0.1, seed=11), dict(alibi=True, rate=0.1,
-                                                                        seed=2 ** 31 - 1)
-    cases = [
-        # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, sm_scale, mods
-        ("train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None, {}),
-        ("fp32_golden_causal", f32, 2, 2, 2, 256, 256, 128, True, 0, 0.0, 1.0, {}),
-        ("fp32_golden_noncausal", f32, 2, 2, 2, 256, 256, 128, False, 0, 0.0, 1.0, {}),
-        # fp32 twins of the masked bf16 cases: the fp32 kernels share the
-        # tile ranges and masks, and the fp32 ladder sees a one-key slip
-        ("fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0, {}),
-        ("fp32_cross_empty_rows", f32, 1, 4, 2, 300, 200, 128, True, 0, 0.0, 1.0, {}),
-        ("window256_softcap30", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None, {}),
-        ("noncausal_cross_300_1000", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None, {}),
-        ("empty_rows_300_200", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, None, {}),
-        ("fp16_mqa_bottom_right", f16, 1, 4, 1, 100, 700, 64, True, 0, 0.0, None, {}),
-        ("causal_N16384", bf16, 1, 2, 2, 16384, 16384, 128, True, 0, 0.0, None, {}),
-        ("alibi_train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None,
-         alibi),
-        ("dropout_bf16", bf16, 1, 8, 2, 1024, 1024, 128, True, 0, 0.0, None, drop),
-        ("alibi_dropout_train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0,
-         None, both),
-        ("fp32_alibi_dropout_gqa", f32, 2, 4, 2, 256, 256, 128, True, 0, 0.0, 1.0, both),
-        ("fp32_alibi_cross_window_softcap", f32, 1, 4, 2, 300, 500, 64, True, 100, 25.0,
-         1.0, alibi),
-        ("fp32_dropout_noncausal_tail", f32, 1, 4, 1, 100, 300, 64, False, 0, 0.0, 1.0,
-         drop),
-        # segment ids (packed sequences), alone and with ALiBi + dropout
-        ("seg_train_B2_H32_N2048", bf16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0, None,
-         dict(seg="loader")),
-        ("seg_fp32_causal_gqa_tails", f32, 2, 4, 2, 300, 300, 128, True, 0, 0.0, 1.0,
-         dict(seg="packed")),
-        ("seg_fp32_cross_empty_rows", f32, 1, 4, 2, 200, 500, 64, False, 0, 0.0, 1.0,
-         dict(seg="cross")),
-        ("seg_bf16_cross_empty_rows", bf16, 2, 4, 2, 300, 1000, 128, False, 0, 0.0, None,
-         dict(seg="cross")),
-        ("seg_fp16_cross_causal_d64", f16, 1, 4, 1, 300, 700, 64, True, 0, 0.0, None,
-         dict(seg="cross")),
-        ("seg_fp32_window_softcap", f32, 1, 4, 2, 512, 512, 64, True, 100, 25.0, 1.0,
-         dict(seg="packed")),
-        ("seg_bf16_window_softcap", bf16, 1, 16, 8, 1024, 1024, 128, True, 256, 30.0, None,
-         dict(seg="packed")),
-        ("seg_alibi_dropout_bf16", bf16, 2, 8, 2, 1024, 1024, 128, True, 0, 0.0, None,
-         dict(both, seg="packed")),
-        ("seg_fp32_alibi_dropout_gqa", f32, 2, 4, 2, 256, 256, 128, True, 0, 0.0, 1.0,
-         dict(both, seg="packed")),
-    ]
     results = {}
-    for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, scale, mod in cases:
-        q = _rand(gen, (b, hq, nq, d), dt, dev)
-        k = _rand(gen, (b, hkv, nkv, d), dt, dev)
-        v = _rand(gen, (b, hkv, nkv, d), dt, dev)
-        do = _rand(gen, (b, hq, nq, d), dt, dev)
-        kw = dict(causal=causal, sm_scale=d ** -0.5 if scale is None else scale,
-                  window=window, softcap=cap, **case_kwargs(hq, b, nq, nkv, dev, mod))
-        o, lse = attn_fwd(q, k, v, **kw)
-        got = attn_bwd(q, k, v, o, lse, do, **kw)
-        again = attn_bwd(q, k, v, o, lse, do, **kw)
-        want = attn_bwd_plain(q, k, v, o, lse, do, **kw)
-        torch.cuda.synchronize()
-        rec, ok = bwd_errors(got, want, dt)
-        rec["bitwise_repeatable"] = all(torch.equal(a, c) for a, c in zip(got, again))
-        rec["ok"] = ok and rec["bitwise_repeatable"]
-        results[name] = rec
-        emit({"phase": "bwd_check", "case": name, "dtype": str(dt),
-              "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
-              "window": window, "softcap": cap, "sm_scale": kw["sm_scale"],
-              "alibi": bool(mod.get("alibi")), "dropout_rate": mod.get("rate", 0.0),
-              "segments": mod.get("seg"), **rec})
-        del q, k, v, do, o, lse, got, again, want
+    for case in BWD_CASES:
+        rec, _ = bwd_case(dev, gen, case)
+        results[case[0]] = rec
+        emit({"phase": "bwd_check", **rec})
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"backward kernels disagree with their plain version: {bad}")
     return results
+
+
+# The bwd_check cases each mutant runs: the training shape (many q steps a
+# CTA, so the producer refills stages the consumers still read), the tile
+# edges, a window, ALiBi + dropout.
+MUTANT_CASES = ("train_B2_H32_N2048", "alibi_dropout_train_B2_H32_N2048",
+                "wg_n129_bf16", "wg_n257_bf16_d64", "wg_cross_129_385_fp16",
+                "wg_window128_softcap_n300_bf16")
+
+
+def phase_mutants(dev, builds):
+    """Each broken copy of BWD_MUTANTS (built by :func:`start_mutant_builds`)
+    in place of the dK/dV sweep without segment ids, on MUTANT_CASES: every
+    mutant must fail at least one case."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+
+    cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES]
+    checks, out = {}, {}
+    real = bk.DKV_KERNEL
+    for name, (proc, lib) in builds.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
+        gen = torch.Generator(device=dev).manual_seed(4)
+        failed = []
+        try:
+            bk.DKV_KERNEL = _cuda.CudaKernel("attn_bwd.cu", "attn_bwd_dkv", bk._DKV_ARGS,
+                                             library=lib)
+            for case in cases:
+                rec, ok = bwd_case(dev, gen, case)
+                if not ok:
+                    failed.append(case[0])
+                out.setdefault(name, {})[case[0]] = {
+                    k: rec[k] for k in ("rel_err_dq", "rel_err_dk", "rel_err_dv",
+                                        "bitwise_repeatable", "ok")}
+        finally:
+            bk.DKV_KERNEL = real
+        checks[f"{name}_fails_bwd_check"] = bool(failed)
+        emit({"phase": "mutants", "mutant": name, "edits": BWD_MUTANTS[name],
+              "failed_cases": failed, "cases": out[name]})
+    torch.cuda.empty_cache()
+    emit({"phase": "mutants", "checks": checks})
+    survived = [k for k, ok in checks.items() if not ok]
+    if survived:
+        raise AssertionError(f"mutants passed bwd_check: {survived}")
+    return checks
 
 
 def kv_kind(name):
@@ -1772,6 +1978,7 @@ def phase_train(dev, name="train", **variant):
     for kern in kernels.values():
         kern.launches = 0
     fwd_routes(zero=True)
+    bwd_routes(zero=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     timed = [step(model, opt_state, tokens, TRAIN_WARM_STEPS + i)
@@ -1780,6 +1987,7 @@ def phase_train(dev, name="train", **variant):
     ms_per_step = (time.perf_counter() - t) * 1e3 / TRAIN_TIMED_STEPS
     launches = {kname: kern.launches for kname, kern in kernels.items()}
     routes = fwd_routes()
+    sweep_routes = bwd_routes()
     losses += [float(x) for x in timed]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -1815,6 +2023,8 @@ def phase_train(dev, name="train", **variant):
         "loss_falls": losses[-1] < losses[0],
         "launches_exact_per_step": launches == expected,
         "fwd_launches_all_wgmma": all_on(routes, "wgmma", launches["attn_fwd"]),
+        "bwd_sweep_launches_all_wgmma": all(
+            all_on(sweep_routes[sweep], "wgmma", launches[sweep]) for sweep in sweep_routes),
         "attention_every_layer_fwd_and_bwd_kernel_vs_plain":
             layers_checked == cfg.n_layers and attn_ok,
         "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
@@ -1832,7 +2042,8 @@ def phase_train(dev, name="train", **variant):
                         "flops: projections, causal attention, LM head; "
                         "scripts/bench_train.py:26-36) / 989e12"),
         "peak_memory_gb": peak_gb, "launches": launches,
-        "launches_expected": expected, "fwd_routes": routes, **profiled,
+        "launches_expected": expected, "fwd_routes": routes,
+        "bwd_routes": sweep_routes, **profiled,
         "attention_layers_checked": layers_checked,
         **{f"attention_{k}": v for k, v in attn_err.items()},
         **fp32, "checks": checks,
@@ -1868,18 +2079,23 @@ def _seg_kernels():
 
 def counted(fn):
     """``fn()`` with every attention kernel's launch count, and the
-    forward's per route ("attn_fwd@<route>"), set to 0 just before and read
-    just after (synchronized): (result, launches)."""
+    forward's and each backward sweep's per route ("attn_fwd@<route>",
+    "attn_bwd_dkv@<route>", "attn_bwd_dq@<route>", over both builds), set
+    to 0 just before and read just after (synchronized): (result,
+    launches)."""
     import torch
 
     kernels = _seg_kernels()
     for kern in kernels.values():
         kern.launches = 0
     fwd_routes(zero=True)
+    bwd_routes(zero=True)
     out = fn()
     torch.cuda.synchronize()
     return out, {**{name: kern.launches for name, kern in kernels.items()},
-                 **{f"attn_fwd@{r}": n for r, n in fwd_routes().items()}}
+                 **{f"attn_fwd@{r}": n for r, n in fwd_routes().items()},
+                 **{f"{sweep}@{r}": n for sweep, routes in bwd_routes().items()
+                    for r, n in routes.items()}}
 
 
 def launches_are(got, **want):
@@ -1894,10 +2110,17 @@ SEG_CALL = dict(attn_fwd_seg=1, attn_bwd_preprocess=1, attn_bwd_dkv_seg=1,
 
 def on_route(dtype, segments=False, fp8_v=False, **want):
     """``want`` with the forward's one launch on the route the static rule
-    (ops/fwd_kernel.py fwd_route) names for a call of these types."""
+    (ops/fwd_kernel.py fwd_route) names for a call of these types, and,
+    where ``want`` has a backward, each sweep's one launch on the route of
+    ops/bwd_kernel.py bwd_route."""
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import bwd_route
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import fwd_route
 
-    return {**want, f"attn_fwd@{fwd_route(dtype, PACKED_D, segments, fp8_v)}": 1}
+    want = {**want, f"attn_fwd@{fwd_route(dtype, PACKED_D, segments, fp8_v)}": 1}
+    if want.get("attn_bwd_preprocess"):
+        route = bwd_route(dtype, PACKED_D, segments)
+        want.update({f"attn_bwd_dkv@{route}": 1, f"attn_bwd_dq@{route}": 1})
+    return want
 
 
 def _packed_grads_check(q, k, v, do, kw, grads, o, lse):
@@ -2203,6 +2426,7 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None):
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd
 
+    route = bk.bwd_route(torch.bfloat16, d, seg is not None)
     q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
     k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
@@ -2247,6 +2471,7 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None):
         bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         rows[name] = {"ms": ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms.get(name),
+                      **({} if name == "attn_bwd_preprocess" else {"route": route}),
                       "bound_ms": bound_ms, "bound_by": bound_by,
                       "tflops": flops / ms / 1e9, "max_abs_err": err}
     rows["sum_of_three"] = sum(rows[name]["ms"] for name in calls if name != "attn_bwd")
@@ -2533,24 +2758,19 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
             "max_abs_err": dec_res[f"verify_T256_{kind}"]["max_abs_err_o"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None})
-    rows = timings["bwd_train_B8_H32_N2048"]
-    for name, replaces in BWD_REPLACES.items():
-        row = rows[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": BWD_SOURCE,
-            "replaces": replaces, "launches": train["launches"][name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-
     def entry(name, source, replaces, launches, t, err=None):
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches, "max_abs_err": t["max_abs_err"] if err is None else err,
                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if "route" in t:  # the forward's kernel route (ops/fwd_kernel.py fwd_route)
-            rec["fwd_route"] = t["route"]
+        if "route" in t:  # the kernel route (ops/fwd_kernel.py fwd_route, bwd_kernel.py bwd_route)
+            rec["bwd_route" if name.startswith("attn_bwd") else "fwd_route"] = t["route"]
         return rec
+
+    rows = timings["bwd_train_B8_H32_N2048"]
+    for name, replaces in BWD_REPLACES.items():
+        source = BWD_SOURCE if name == "attn_bwd_preprocess" else BWD_SM90_SOURCE
+        kernels.append(entry(name, source, replaces, train["launches"][name], rows[name]))
 
     alibi_fwd = sum(r["launches"]["attn_fwd"] for r in serve_alibi.values())
     rows = timings["bwd_alibi_dropout_train_B8_H32_N2048"]
@@ -2560,9 +2780,9 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
         entry("attn_fwd[alibi+dropout]", FWD_SM90_SOURCE, FWD_REPLACES,
               train_alibi["launches"]["attn_fwd"],
               timings["fwd_alibi_dropout_train_B8_H32_N2048"]),
-        entry("attn_bwd_dkv[alibi+dropout]", BWD_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
+        entry("attn_bwd_dkv[alibi+dropout]", BWD_SM90_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
               train_alibi["launches"]["attn_bwd_dkv"], rows["attn_bwd_dkv"]),
-        entry("attn_bwd_dq[alibi+dropout]", BWD_SOURCE, BWD_REPLACES["attn_bwd_dq"],
+        entry("attn_bwd_dq[alibi+dropout]", BWD_SM90_SOURCE, BWD_REPLACES["attn_bwd_dq"],
               train_alibi["launches"]["attn_bwd_dq"], rows["attn_bwd_dq"]),
         entry("paged_decode[bf16+alibi]", DECODE_SOURCE, DECODE_REPLACES,
               sum(r["launches"]["paged_decode"] for r in serve_alibi.values()
@@ -2585,9 +2805,9 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
     kernels += [
         entry("attn_fwd[seg]", FWD_SM90_SOURCE, FWD_REPLACES, seg_launches["attn_fwd_seg"],
               timings["fwd_seg_train_B8_H32_N2048"]),
-        entry("attn_bwd_dkv[seg]", BWD_SEG_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
+        entry("attn_bwd_dkv[seg]", BWD_SM90_SOURCE, BWD_REPLACES["attn_bwd_dkv"],
               seg_launches["attn_bwd_dkv_seg"], rows["attn_bwd_dkv"]),
-        entry("attn_bwd_dq[seg]", BWD_SEG_SOURCE, BWD_REPLACES["attn_bwd_dq"],
+        entry("attn_bwd_dq[seg]", BWD_SM90_SOURCE, BWD_REPLACES["attn_bwd_dq"],
               seg_launches["attn_bwd_dq_seg"], rows["attn_bwd_dq"]),
     ]
     for kind in FP8_V:
@@ -2600,11 +2820,12 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
 # One run of --pair: the tree's own chip_smoke.py builds its kernels and
 # times the forward (mode-free at the serving prefill, training and bench
 # shapes; ALiBi and ALiBi + dropout at the serving and training shapes),
-# the backward family (training shape), decode (bf16 KV, 8 x 2048 tokens)
-# and verify (a 256-token chunk at 2048, bf16 KV) with time_fwd / time_bwd
-# / time_paged.
+# the backward family at the training shape (mode-free, ALiBi + dropout,
+# and with the packed loader's segment ids of phase packed), decode (bf16
+# KV, 8 x 2048 tokens) and verify (a 256-token chunk at 2048, bf16 KV) with
+# time_fwd / time_bwd / time_paged.
 PAIR_RUN = """
-import json, torch
+import json, numpy as np, torch
 import chip_smoke as c
 dev = torch.device("cuda", 0)
 c.phase_build()
@@ -2620,9 +2841,12 @@ for name, shape, mod in (("attn_fwd_serve_prefill_2048", serve, {}),
                          ("attn_fwd[alibi+dropout]_serve_prefill_2048", serve, both),
                          ("attn_fwd[alibi+dropout]_train_B8_H32_N2048", train, both)):
     out[name] = c.time_fwd(gen, dev, *shape, mod)["ms"]
-rows = c.time_bwd(dev, gen, 8, 32, 8, 2048, 128)
-for k in ("attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
-    out[k + "_train_B8_H32_N2048"] = rows[k]["ms"]
+layout = c.loader_layout(np.random.default_rng(0), 8, 2048)
+for tag, mod, seg in (("", None, None), ("[alibi+dropout]", both, None),
+                      ("[seg]", None, layout)):
+    rows = c.time_bwd(dev, gen, 8, 32, 8, 2048, 128, mod=mod, seg=seg)
+    for k in ("attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
+        out[k + tag + "_train_B8_H32_N2048"] = rows[k]["ms"]
 out["paged_decode_bf16_B8_ctx2048"] = c.time_paged(gen, dev, "bf16", 8, [2048] * 8, 0)["ms"]
 out["paged_verify_bf16_T256_ctx2048"] = c.time_paged(gen, dev, "bf16", 1, [2048],
                                                      c.CHUNK)["ms"]
@@ -2668,10 +2892,11 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    phase_build()
+    mutant_builds = phase_build(mutants=True)
     phase_mask(dev)
     fwd_res = phase_fwd(dev)
     phase_bwd(dev)
+    phase_mutants(dev, mutant_builds)
     dec_res = phase_decode(dev)
     serve_rec, model, cfg = phase_serve(dev)
     quant_runs = phase_serve_quant(dev, model, cfg)

@@ -114,12 +114,14 @@ class CudaKernel:
 
     :meth:`launch` builds and loads the library on first use, calls the
     entry point (which returns ``cudaGetLastError()`` after its launch),
-    raises on a non-zero code, and adds one to :attr:`launches`."""
+    raises on a non-zero code, and adds one to :attr:`launches`.  With
+    ``library`` (a path) it loads that library, built elsewhere, instead."""
 
-    def __init__(self, source: str, symbol: str, argtypes):
+    def __init__(self, source: str, symbol: str, argtypes, library=None):
         self.source = source
         self.symbol = symbol
         self.argtypes = list(argtypes)
+        self.library = library
         self.launches = 0
         self._fn = None
         self._lib = None
@@ -128,8 +130,11 @@ class CudaKernel:
     def _load(self):
         with self._lock:
             if self._fn is None:
-                build([self.source])
-                lib = ctypes.CDLL(str(library_path(self.source)))
+                path = self.library
+                if path is None:
+                    build([self.source])
+                    path = library_path(self.source)
+                lib = ctypes.CDLL(str(path))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int

@@ -1,8 +1,10 @@
 // The attention backward without segment ids: the D preprocess, and the
-// sweeps of attn_bwd.cuh instantiated with SEG = false (attn_bwd_seg.cu
-// holds the other half, so the two compile side by side).
+// sweeps of attn_bwd.cuh (fp32) and attn_bwd_sm90.cuh (bf16 / fp16)
+// instantiated with SEG = false (attn_bwd_seg.cu holds the other half, so
+// the two compile side by side).
 
 #include "attn_bwd.cuh"
+#include "attn_bwd_sm90.cuh"
 
 namespace {
 
@@ -61,10 +63,10 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
                             int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                             int window, float softcap, const float* slopes, float rate,
-                            float keep_scale, int seed, void* stream) {
+                            float keep_scale, int seed, int route, void* stream) {
   return attn_bwd_dkv_entry<false>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg, dtype,
                                    B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap,
-                                   slopes, rate, keep_scale, seed, stream);
+                                   slopes, rate, keep_scale, seed, route, stream);
 }
 
 extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -72,10 +74,10 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq,
                            int Nkv, int D, float sm_scale, int causal, int window,
                            float softcap, const float* slopes, float rate, float keep_scale,
-                           int seed, void* stream) {
+                           int seed, int route, void* stream) {
   return attn_bwd_dq_entry<false>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg, dtype, B, Hq,
                                   Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap, slopes,
-                                  rate, keep_scale, seed, stream);
+                                  rate, keep_scale, seed, route, stream);
 }
 
 extern "C" const char* attn_bwd_preprocess_error_string(int err) { return error_string(err); }

@@ -22,20 +22,26 @@
 //
 //   attn_bwd_preprocess: D = rowsum(O * dO) in fp32, [B, Hq, Nq], from the
 //     stored O (as bwd_fused.py does).
-//   attn_bwd_dkv: one CTA per (batch, KV head, 64-key tile).  It walks the
-//     q heads of its GQA group and, in a fixed order, the q tiles that see
+//   attn_bwd_dkv: one CTA per (batch, KV head, key tile).  It walks the q
+//     heads of its GQA group and, in a fixed order, the q tiles that see
 //     the tile (from the causal diagonal on, only inside the window band),
 //     recomputes P = exp(scale * S (softcapped) - lse) and
 //     dS = P * (dP - D) (* the softcap's 1 - (S_c / cap)^2), and keeps
 //     dV += P^T dO and dK += dS^T Q in fp32 registers.  dK (times sm_scale)
 //     and dV are written once per KV head: no per-q-head fp32 intermediate
 //     and no group-sum pass.
-//   attn_bwd_dq: one CTA per (batch, q head, 64-row tile), walking the KV
+//   attn_bwd_dq: one CTA per (batch, q head, row tile), walking the KV
 //     tiles it sees in order; dQ += dS K in fp32 registers, times sm_scale
 //     at the end.
 // Every sum runs in a fixed order and every output element has one owner,
 // so the result is bitwise reproducible: there is no atomicAdd anywhere
 // (the reference's first-call dQ race lived in its atomic/lock reduction).
+//
+// Each sweep's C entry takes one of two routes (ops/bwd_kernel.py
+// bwd_route, from the call's types alone): "wgmma", the Hopper kernels of
+// attn_bwd_sm90.cuh (warpgroup products, TMA, a producer warpgroup; every
+// bf16 / fp16 call, 128-key / 128-row CTAs, 64-row steps), or "fp32", the
+// CUDA-core kernels below (true fp32; 64-key / 64-row CTAs).
 //
 // Conventions are the forward's (attn_fwd.cu): q [B, Hq, Nq, d], k/v
 // [B, Hkv, Nkv, d], o/dO like q, lse the natural-base logsumexp [B, Hq, Nq]
@@ -47,42 +53,27 @@
 // mask, so the preprocess is unchanged.  The mask is regenerated from the
 // seed, the batch, the Q head (attn_bwd_dkv walks the q heads of its group
 // and hashes each), the local q row and the column, so it is the forward's
-// bit for bit; the hash is ~25 integer operations per score on the CUDA
-// cores in each sweep, and the bias one FMA.  Segment ids add
-// q_seg[b, row] == kv_seg[b, col] to the mask (D needs none): attn_bwd_dq
-// holds its rows' ids in registers and stages each K tile's 64 ids in
-// shared memory beside K; attn_bwd_dkv, which owns a key tile, holds the
-// keys' ids in registers and stages the ids of each q step.  With segments
-// every tile evaluates the mask (tile_unmasked is off) and no tile is
-// skipped by segment (ids are arbitrary integers): one compare and one
-// shared load per score in each sweep, and a few spilled registers in the
-// segmented instances (ptxas: up to 36 bytes).  At the training shape with
-// a packed loader's layout that costs +46% in attn_bwd_dkv and +67% in
-// attn_bwd_dq over the mode-free sweeps (H100, chip_smoke.py phase time),
-// 20x the visible-pair bound.  The three modes are template flags
-// (common.cuh dispatch_mods): a call without them runs code compiled
-// without them.  A row that saw no key (a cross-length causal top, or a
-// segment id absent from the keys, mid-sequence) has lse = kMaskValue
-// (-inf in base-2 units); every score it has is masked, and its P is set to
-// 0 before any exponent is taken, so no inf or NaN can arise.
+// bit for bit.  Segment ids add q_seg[b, row] == kv_seg[b, col] to the mask
+// (D needs none).  With segments every tile evaluates the mask
+// (tile_unmasked is off) and no tile is skipped by segment (ids are
+// arbitrary integers).  The three modes are template flags (common.cuh
+// dispatch_mods): a call without them runs code compiled without them.  A
+// row that saw no key (a cross-length causal top, or a segment id absent
+// from the keys, mid-sequence) has lse = kMaskValue (-inf in base-2 units);
+// every score it has is masked, and its P is set to 0 before any exponent
+// is taken, so no inf or NaN can arise.
 //
 // Bound on this card.  At the training shape (causal, N = 2048, d = 128)
 // the backward is bound by operations: the five products of the minimal
 // backward, 10 * N^2 * d / 2 flops per head, against ~(6 N d) * 2 bytes.
 // These kernels do seven products (S and dP are computed in both sweeps),
 // the price of having no atomics and no fp32 dQ round trip through device
-// memory.  What the design does about the bound:
-//  * bf16/fp16 run every product on the tensor cores with mma.sync.m16n8k16
-//    (fp32 accumulate), fragments loaded with ldmatrix from padded
-//    (conflict-free) shared tiles; P and dS are rounded to the input type
-//    before they enter a product, as the TPU kernels do.  No async copy,
-//    wgmma or TMA yet: the synchronous tile loads keep this well above the
-//    floor (ROADMAP queue 2).
-//  * fp32 inputs compute in true fp32 on the CUDA cores (the fp32 gradient
-//    ladder is atol 9e-4 / 7e-4 / 7e-5), with 256 threads each owning a
-//    4 x 4 patch of the score tile and a 4 x d/16 patch of the output.
-//  * causal and window tile ranges skip tiles that see nothing, and only
-//    tiles that cross an edge evaluate the mask.
+// memory.  bf16 / fp16 run every product on the tensor cores
+// (attn_bwd_sm90.cuh); fp32 inputs compute in true fp32 on the CUDA cores
+// (the fp32 gradient ladder is atol 9e-4 / 7e-4 / 7e-5), with 256 threads
+// each owning a 4 x 4 patch of the score tile and a 4 x d/16 patch of the
+// output.  Causal and window tile ranges skip tiles that see nothing, and
+// only tiles that cross an edge evaluate the mask.
 
 #pragma once
 
@@ -90,22 +81,22 @@
 
 namespace {
 
+// The fp32 sweeps' tiles (the bf16 / fp16 sweeps' are attn_bwd_sm90.cuh's).
 constexpr int KV_TILE = 64;  // dkv: keys per CTA; dq: keys per step
 constexpr int Q_TILE = 64;   // dq: q rows per CTA
-constexpr int Q_STEP = 32;   // dkv (tensor cores): q rows per step
-constexpr int F32_Q_STEP = 64;  // dkv (fp32): q rows per step
+constexpr int F32_Q_STEP = 64;  // dkv: q rows per step
 
-// q tiles of STEP rows that see keys [n0, n0 + KV_TILE): the transpose of
+// q tiles of STEP rows that see keys [n0, n0 + KEYS): the transpose of
 // kv_tiles.  Causal: rows from the diagonal on (row + Nkv - Nq >= n0);
 // window: rows whose band still reaches the tile's last key.
-template <int STEP>
+template <int STEP, int KEYS>
 __device__ __forceinline__ TileRange q_tiles(int n0, int Nq, int Nkv, int causal,
                                              int window) {
   const int q_off = Nkv - Nq;
   int row_lo = 0, row_hi = Nq;
   if (causal) {
     row_lo = max(0, n0 - q_off);
-    if (window > 0) row_hi = min(Nq, n0 + KV_TILE - 1 - q_off + window);
+    if (window > 0) row_hi = min(Nq, n0 + KEYS - 1 - q_off + window);
   }
   if (row_lo >= row_hi) return {0, 0};
   return {row_lo / STEP, (row_hi + STEP - 1) / STEP};
@@ -123,325 +114,6 @@ __device__ __forceinline__ float score(float s, float sm_scale, float softcap,
     dcap = 1.f - r * r;
   }
   return x;
-}
-
-// ---------------------------------------------------------------------------
-// Tensor-core path (bf16 / fp16)
-// ---------------------------------------------------------------------------
-
-constexpr int TC_THREADS = 128;  // 4 warps x 16 rows
-
-template <int D, bool SEG>
-constexpr size_t dkv_mma_smem_bytes() {
-  // sK, sV [KV_TILE][D+8], sQ, sdO [Q_STEP][D+8] of 16-bit elements; lse, D;
-  // with segments the q step's ids
-  return size_t(2) * (2 * KV_TILE + 2 * Q_STEP) * (D + 8) + 2 * Q_STEP * sizeof(float) +
-         (SEG ? Q_STEP * sizeof(int) : 0);
-}
-
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
-__global__ void __launch_bounds__(TC_THREADS)
-attn_bwd_dkv_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv,
-                        int Nq, int Nkv, float sm_scale, int causal, int window,
-                        float softcap, Mods md) {
-  constexpr int S = D + 8;           // padded row stride: conflict-free ldmatrix
-  constexpr int KSTEPS = D / 16;     // k-steps of the score products
-  constexpr int NT_S = Q_STEP / 8;   // S^T n-tiles per warp
-  constexpr int NT_O = D / 8;        // dK / dV n-tiles per warp
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);
-  T* sV = sK + KV_TILE * S;
-  T* sQ = sV + KV_TILE * S;
-  T* sdO = sQ + Q_STEP * S;
-  float* sLse = reinterpret_cast<float*>(sdO + Q_STEP * S);  // base-2 units
-  float* sDelta = sLse + Q_STEP;
-  int* sQseg = reinterpret_cast<int*>(sDelta + Q_STEP);  // the q step's ids (SEG)
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;  // mma fragment row group / column pair
-  const int n0 = blockIdx.x * KV_TILE;   // causal: the first key tiles carry the most work
-  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
-  const int group = Hq / Hkv;
-  int kseg[2] = {0, 0};  // segment ids of this thread's keys g and g + 8
-  if (SEG) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) kseg[r] = seg_id(md.kv_seg, b, Nkv, n0 + warp * 16 + g + 8 * r);
-  }
-
-  const T* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
-  const T* vb = v + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
-  stage_tile<T, D, S, KV_TILE, TC_THREADS>(sK, kb, n0, Nkv, tid);
-  stage_tile<T, D, S, KV_TILE, TC_THREADS>(sV, vb, n0, Nkv, tid);
-
-  float dk_acc[NT_O][4], dv_acc[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-
-  const TileRange steps = q_tiles<Q_STEP>(n0, Nq, Nkv, causal, window);
-  const int q_off = Nkv - Nq;
-  for (int hh = 0; hh < group; ++hh) {
-    const int h = kvh * group + hh;  // the q head: its slope and dropout stream
-    const float slope = ALIBI ? md.slopes[h] : 0.f;
-    const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
-    const size_t bh = size_t(b) * Hq + h;
-    const T* qb = q + bh * Nq * D;
-    const T* dob = dout + bh * Nq * D;
-    for (int it = steps.lo; it < steps.hi; ++it) {
-      const int m0 = it * Q_STEP;
-      __syncthreads();  // every warp is done with the previous q tile
-      stage_tile<T, D, S, Q_STEP, TC_THREADS>(sQ, qb, m0, Nq, tid);
-      stage_tile<T, D, S, Q_STEP, TC_THREADS>(sdO, dob, m0, Nq, tid);
-      if (tid < Q_STEP) {
-        // rows past Nq: Q = dO = 0 and lse = D = 0, so P is finite and
-        // both products they enter are 0
-        const int row = m0 + tid;
-        sLse[tid] = row < Nq ? lse[bh * Nq + row] * kLog2e : 0.f;
-        sDelta[tid] = row < Nq ? delta[bh * Nq + row] : 0.f;
-        if (SEG) sQseg[tid] = seg_id(md.q_seg, b, Nq, row);
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x Q_STEP rows
-      float s[NT_S][4], dp[NT_S][4];
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        uint32_t ka[4], va[4];
-        ldsm_x4(ka, a_frag<S>(sK, warp * 16, ks * 16, lane));
-        ldsm_x4(va, a_frag<S>(sV, warp * 16, ks * 16, lane));
-#pragma unroll
-        for (int np = 0; np < NT_S / 2; ++np) {
-          uint32_t qf[4], of[4];
-          ldsm_x4(qf, b_frag<S>(sQ, np * 16, ks * 16, lane));
-          ldsm_x4(of, b_frag<S>(sdO, np * 16, ks * 16, lane));
-          Mma<T>::run(s[2 * np], ka, qf[0], qf[1]);
-          Mma<T>::run(s[2 * np + 1], ka, qf[2], qf[3]);
-          Mma<T>::run(dp[2 * np], va, of[0], of[1]);
-          Mma<T>::run(dp[2 * np + 1], va, of[2], of[3]);
-        }
-      }
-
-      // P^T and dS^T: element e of n-tile j is key warp*16 + g (+8 for
-      // e >= 2), q row j*8 + 2t + (e & 1)
-      const bool unmasked =
-          !SEG && tile_unmasked<Q_STEP, KV_TILE>(m0, n0, Nq, Nkv, causal, window);
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = j * 8 + 2 * t + (e & 1);
-          const int row = m0 + r, col = n0 + warp * 16 + g + (e >= 2 ? 8 : 0);
-          float dcap;
-          float x = score(s[j][e], sm_scale, softcap, dcap);
-          if (ALIBI) x -= slope * float(row + q_off - col);
-          const bool vis = unmasked || (visible(row, col, Nq, Nkv, causal, window) &&
-                                        (!SEG || kseg[e >> 1] == sQseg[r]));
-          const float p = vis ? exp2f(x * kLog2e - sLse[r]) : 0.f;
-          if (DROP) {
-            const float keep = dropout_factor(stream, row, col, md);
-            s[j][e] = p * keep;
-            dp[j][e] = p * (dp[j][e] * keep - sDelta[r]) * dcap;
-          } else {
-            s[j][e] = p;
-            dp[j][e] = p * (dp[j][e] - sDelta[r]) * dcap;
-          }
-        }
-      }
-
-      // dV += P^T dO, dK += dS^T Q over the step's q rows
-#pragma unroll
-      for (int kk = 0; kk < Q_STEP / 16; ++kk) {
-        const uint32_t pa[4] = {
-            Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-            Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-            Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-        };
-        const uint32_t da[4] = {
-            Mma<T>::pack(dp[2 * kk][0], dp[2 * kk][1]),
-            Mma<T>::pack(dp[2 * kk][2], dp[2 * kk][3]),
-            Mma<T>::pack(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-            Mma<T>::pack(dp[2 * kk + 1][2], dp[2 * kk + 1][3]),
-        };
-#pragma unroll
-        for (int np = 0; np < NT_O / 2; ++np) {
-          uint32_t of[4], qf[4];
-          ldsm_x4_trans(of, bt_frag<S>(sdO, kk * 16, np * 16, lane));
-          ldsm_x4_trans(qf, bt_frag<S>(sQ, kk * 16, np * 16, lane));
-          Mma<T>::run(dv_acc[2 * np], pa, of[0], of[1]);
-          Mma<T>::run(dv_acc[2 * np + 1], pa, of[2], of[3]);
-          Mma<T>::run(dk_acc[2 * np], da, qf[0], qf[1]);
-          Mma<T>::run(dk_acc[2 * np + 1], da, qf[2], qf[3]);
-        }
-      }
-    }
-  }
-
-  const size_t base = (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = n0 + warp * 16 + g + 8 * r;
-    if (row >= Nkv) continue;
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      const size_t at = base + size_t(row) * D + j * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          Mma<T>::pack(dk_acc[j][2 * r] * sm_scale, dk_acc[j][2 * r + 1] * sm_scale);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          Mma<T>::pack(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
-    }
-  }
-}
-
-template <int D, bool SEG>
-constexpr size_t dq_mma_smem_bytes() {
-  // sQ, sdO, sK, sV; with segments the K tile's ids
-  return size_t(2) * (2 * Q_TILE + 2 * KV_TILE) * (D + 8) + (SEG ? KV_TILE * sizeof(int) : 0);
-}
-
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
-__global__ void __launch_bounds__(TC_THREADS)
-attn_bwd_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       T* __restrict__ dq, int Hq, int Hkv, int Nq, int Nkv,
-                       float sm_scale, int causal, int window, float softcap,
-                       Mods md) {
-  constexpr int S = D + 8;
-  constexpr int KSTEPS = D / 16;
-  constexpr int NT_S = KV_TILE / 8;  // S n-tiles per warp
-  constexpr int NT_O = D / 8;        // dQ n-tiles per warp
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);
-  T* sdO = sQ + Q_TILE * S;
-  T* sK = sdO + Q_TILE * S;
-  T* sV = sK + KV_TILE * S;
-  int* sKseg = reinterpret_cast<int*>(sV + KV_TILE * S);  // the K tile's ids (SEG)
-
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = (gridDim.x - 1 - blockIdx.x) * Q_TILE;  // heaviest causal tiles first
-  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq;
-  const int kvh = h / (Hq / Hkv);
-  const size_t bh = size_t(b) * Hq + h;
-  const int q_off = Nkv - Nq;
-  const float slope = ALIBI ? md.slopes[h] : 0.f;
-  const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
-
-  const T* kb = k + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
-  const T* vb = v + (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
-  stage_tile<T, D, S, Q_TILE, TC_THREADS>(sQ, q + bh * Nq * D, m0, Nq, tid);
-  stage_tile<T, D, S, Q_TILE, TC_THREADS>(sdO, dout + bh * Nq * D, m0, Nq, tid);
-
-  float lse2[2], dlt[2];  // this thread's rows g and g + 8 (0 past Nq)
-  int qseg[2] = {0, 0};  // and their segment ids
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    lse2[r] = row < Nq ? lse[bh * Nq + row] * kLog2e : 0.f;
-    dlt[r] = row < Nq ? delta[bh * Nq + row] : 0.f;
-    if (SEG) qseg[r] = seg_id(md.q_seg, b, Nq, row);
-  }
-
-  float acc[NT_O][4];
-#pragma unroll
-  for (int j = 0; j < NT_O; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const TileRange tiles = kv_tiles<Q_TILE, KV_TILE>(m0, Nq, Nkv, causal, window);
-  for (int kt = tiles.lo; kt < tiles.hi; ++kt) {
-    const int n0 = kt * KV_TILE;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<T, D, S, KV_TILE, TC_THREADS>(sK, kb, n0, Nkv, tid);
-    stage_tile<T, D, S, KV_TILE, TC_THREADS>(sV, vb, n0, Nkv, tid);
-    if (SEG && tid < KV_TILE) sKseg[tid] = seg_id(md.kv_seg, b, Nkv, n0 + tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x KV_TILE keys
-    float s[NT_S][4], dp[NT_S][4];
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t qa[4], oa[4];
-      ldsm_x4(qa, a_frag<S>(sQ, warp * 16, ks * 16, lane));
-      ldsm_x4(oa, a_frag<S>(sdO, warp * 16, ks * 16, lane));
-#pragma unroll
-      for (int np = 0; np < NT_S / 2; ++np) {
-        uint32_t kf[4], vf[4];
-        ldsm_x4(kf, b_frag<S>(sK, np * 16, ks * 16, lane));
-        ldsm_x4(vf, b_frag<S>(sV, np * 16, ks * 16, lane));
-        Mma<T>::run(s[2 * np], qa, kf[0], kf[1]);
-        Mma<T>::run(s[2 * np + 1], qa, kf[2], kf[3]);
-        Mma<T>::run(dp[2 * np], oa, vf[0], vf[1]);
-        Mma<T>::run(dp[2 * np + 1], oa, vf[2], vf[3]);
-      }
-    }
-
-    // dS: element e of n-tile j is row warp*16 + g (+8 for e >= 2), key
-    // n0 + j*8 + 2t + (e & 1)
-    const bool unmasked =
-        !SEG && tile_unmasked<Q_TILE, KV_TILE>(m0, n0, Nq, Nkv, causal, window);
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >= 2 ? 1 : 0;
-        const int row = m0 + warp * 16 + g + 8 * r, col = n0 + j * 8 + 2 * t + (e & 1);
-        float dcap;
-        float x = score(s[j][e], sm_scale, softcap, dcap);
-        if (ALIBI) x -= slope * float(row + q_off - col);
-        const bool vis = unmasked || (visible(row, col, Nq, Nkv, causal, window) &&
-                                      (!SEG || qseg[r] == sKseg[col - n0]));
-        const float p = vis ? exp2f(x * kLog2e - lse2[r]) : 0.f;
-        const float dpk = DROP ? dp[j][e] * dropout_factor(stream, row, col, md) : dp[j][e];
-        s[j][e] = p * (dpk - dlt[r]) * dcap;
-      }
-    }
-
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < KV_TILE / 16; ++kk) {
-      const uint32_t da[4] = {
-          Mma<T>::pack(s[2 * kk][0], s[2 * kk][1]),
-          Mma<T>::pack(s[2 * kk][2], s[2 * kk][3]),
-          Mma<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          Mma<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int np = 0; np < NT_O / 2; ++np) {
-        uint32_t kf[4];
-        ldsm_x4_trans(kf, bt_frag<S>(sK, kk * 16, np * 16, lane));
-        Mma<T>::run(acc[2 * np], da, kf[0], kf[1]);
-        Mma<T>::run(acc[2 * np + 1], da, kf[2], kf[3]);
-      }
-    }
-  }
-
-  T* dqb = dq + bh * Nq * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + warp * 16 + g + 8 * r;
-    if (row >= Nq) continue;
-#pragma unroll
-    for (int j = 0; j < NT_O; ++j) {
-      *reinterpret_cast<uint32_t*>(dqb + size_t(row) * D + j * 8 + 2 * t) =
-          Mma<T>::pack(acc[j][2 * r] * sm_scale, acc[j][2 * r + 1] * sm_scale);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -513,7 +185,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int j = 0; j < OJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const TileRange steps = q_tiles<F32_Q_STEP>(n0, Nq, Nkv, causal, window);
+  const TileRange steps = q_tiles<F32_Q_STEP, KV_TILE>(n0, Nq, Nkv, causal, window);
   const int q_off = Nkv - Nq;
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;  // the q head: its slope and dropout stream
@@ -787,80 +459,43 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
   return int(cudaGetLastError());
 }
 
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
-int launch_dkv(const Args& a, void* dk, void* dv) {
-  const dim3 grid((a.Nkv + KV_TILE - 1) / KV_TILE, a.B * a.Hkv);
-  if constexpr (sizeof(T) == 4) {
-    return launch(attn_bwd_dkv_f32_kernel<D, ALIBI, DROP, SEG>, dkv_f32_smem_bytes<D, SEG>(), grid,
+// The routes of the sweeps' C entries (ops/bwd_kernel.py ROUTE_CODES).
+constexpr int kRouteF32 = 0, kRouteWgmma = 1;
+
+// The "wgmma" route, defined in attn_bwd_sm90.cuh.
+template <bool SEG, typename T, int D>
+int launch_dkv_wgmma(const Args& a, void* dk, void* dv);
+template <bool SEG, typename T, int D>
+int launch_dq_wgmma(const Args& a, void* dq);
+
+template <bool SEG, int D>
+int launch_dkv_f32(const Args& a, void* dk, void* dv) {
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+    return launch(attn_bwd_dkv_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
+                                          SEG>,
+                  dkv_f32_smem_bytes<D, SEG>(), dim3((a.Nkv + KV_TILE - 1) / KV_TILE,
+                                                     a.B * a.Hkv),
                   F32_THREADS, a.stream, static_cast<const float*>(a.q),
                   static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                   static_cast<const float*>(a.dout), a.lse, a.delta,
-                  static_cast<float*>(dk), static_cast<float*>(dv), a.Hq, a.Hkv,
-                  a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
-  } else {
-    return launch(attn_bwd_dkv_mma_kernel<T, D, ALIBI, DROP, SEG>, dkv_mma_smem_bytes<D, SEG>(), grid,
-                  TC_THREADS, a.stream, static_cast<const T*>(a.q),
-                  static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-                  static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(dk),
-                  static_cast<T*>(dv), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale,
-                  a.causal, a.window, a.softcap, a.md);
-  }
+                  static_cast<float*>(dk), static_cast<float*>(dv), a.Hq, a.Hkv, a.Nq,
+                  a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
+  });
 }
 
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
-int launch_dq(const Args& a, void* dq) {
-  const dim3 grid((a.Nq + Q_TILE - 1) / Q_TILE, a.B * a.Hq);
-  if constexpr (sizeof(T) == 4) {
-    return launch(attn_bwd_dq_f32_kernel<D, ALIBI, DROP, SEG>, dq_f32_smem_bytes<D, SEG>(), grid,
-                  F32_THREADS,
-                  a.stream, static_cast<const float*>(a.q),
+template <bool SEG, int D>
+int launch_dq_f32(const Args& a, void* dq) {
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+    return launch(attn_bwd_dq_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
+                                         SEG>,
+                  dq_f32_smem_bytes<D, SEG>(), dim3((a.Nq + Q_TILE - 1) / Q_TILE, a.B * a.Hq),
+                  F32_THREADS, a.stream, static_cast<const float*>(a.q),
                   static_cast<const float*>(a.k), static_cast<const float*>(a.v),
                   static_cast<const float*>(a.dout), a.lse, a.delta,
-                  static_cast<float*>(dq), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale,
-                  a.causal, a.window, a.softcap, a.md);
-  } else {
-    return launch(attn_bwd_dq_mma_kernel<T, D, ALIBI, DROP, SEG>, dq_mma_smem_bytes<D, SEG>(), grid,
-                  TC_THREADS,
-                  a.stream, static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-                  static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-                  a.delta, static_cast<T*>(dq), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale,
-                  a.causal, a.window, a.softcap, a.md);
-  }
+                  static_cast<float*>(dq), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal,
+                  a.window, a.softcap, a.md);
+  });
 }
-
-// dtype x head_dim dispatch: 0 = float32, 1 = bfloat16, 2 = float16; d in {64, 128}
-template <template <typename, int> class Fn, typename... P>
-int dispatch(int dtype, int D, P... params) {
-  if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
-  switch (dtype) {
-    case 0:
-      return D == 64 ? Fn<float, 64>::run(params...) : Fn<float, 128>::run(params...);
-    case 1:
-      return D == 64 ? Fn<__nv_bfloat16, 64>::run(params...)
-                     : Fn<__nv_bfloat16, 128>::run(params...);
-    case 2:
-      return D == 64 ? Fn<__half, 64>::run(params...) : Fn<__half, 128>::run(params...);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
-}
-
-template <bool SEG> struct Sweeps {
-  template <typename T, int D> struct Dkv {
-    static int run(const Args& a, void* dk, void* dv) {
-      return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-        return launch_dkv<T, D, decltype(alibi)::value, decltype(drop)::value, SEG>(a, dk, dv);
-      });
-    }
-  };
-  template <typename T, int D> struct Dq {
-    static int run(const Args& a, void* dq) {
-      return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-        return launch_dq<T, D, decltype(alibi)::value, decltype(drop)::value, SEG>(a, dq);
-      });
-    }
-  };
-};
 
 bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
   return B > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 && Nq > 0 && Nkv > 0 &&
@@ -869,11 +504,13 @@ bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
 
 // The sweeps' C entries of attn_bwd.cu (SEG false) and attn_bwd_seg.cu (SEG
 // true).  dtype 0 = float32, 1 = bfloat16, 2 = float16; tensors contiguous,
-// bf16/fp16 pointers 16-byte aligned.  The sweeps take the forward's ALiBi
-// slopes ([Hq] fp32 on the device, or null), dropout rate, keep scale
-// 1 / (1 - rate) and seed, and its q_seg [B, Nq] / kv_seg [B, Nkv] int32
-// segment ids (set exactly when SEG).  Each returns cudaGetLastError() after
-// its launch (0 on success).
+// bf16/fp16 pointers 16-byte aligned; d 64 or 128.  The sweeps take the
+// forward's ALiBi slopes ([Hq] fp32 on the device, or null), dropout rate,
+// keep scale 1 / (1 - rate) and seed, and its q_seg [B, Nq] / kv_seg
+// [B, Nkv] int32 segment ids (set exactly when SEG).  route: kRouteF32
+// (dtype 0) or kRouteWgmma (dtype 1 or 2); a route that cannot carry the
+// call returns cudaErrorInvalidValue, never another route.  Each returns
+// cudaGetLastError() after its launch (0 on success).
 
 // dK, dV [B, Hkv, Nkv, d] from q, k, v, dout, lse and delta.
 template <bool SEG>
@@ -882,12 +519,21 @@ int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* 
                        const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
                        int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                        int window, float softcap, const float* slopes, float rate,
-                       float keep_scale, int seed, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
+                       float keep_scale, int seed, int route, void* stream) {
+  if (!valid(B, Hq, Hkv, Nq, Nkv, rate) || (D != 64 && D != 128))
+    return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Sweeps<SEG>::template Dkv>(dtype, D, a, dk, dv);
+  if (route == kRouteF32 && dtype == 0)
+    return D == 64 ? launch_dkv_f32<SEG, 64>(a, dk, dv) : launch_dkv_f32<SEG, 128>(a, dk, dv);
+  if (route == kRouteWgmma && dtype == 1)
+    return D == 64 ? launch_dkv_wgmma<SEG, __nv_bfloat16, 64>(a, dk, dv)
+                   : launch_dkv_wgmma<SEG, __nv_bfloat16, 128>(a, dk, dv);
+  if (route == kRouteWgmma && dtype == 2)
+    return D == 64 ? launch_dkv_wgmma<SEG, __half, 64>(a, dk, dv)
+                   : launch_dkv_wgmma<SEG, __half, 128>(a, dk, dv);
+  return int(cudaErrorInvalidValue);
 }
 
 // dQ [B, Hq, Nq, d] from q, k, v, dout, lse and delta.
@@ -897,12 +543,21 @@ int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* d
                       const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq,
                       int Nkv, int D, float sm_scale, int causal, int window,
                       float softcap, const float* slopes, float rate, float keep_scale,
-                      int seed, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
+                      int seed, int route, void* stream) {
+  if (!valid(B, Hq, Hkv, Nq, Nkv, rate) || (D != 64 && D != 128))
+    return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  return dispatch<Sweeps<SEG>::template Dq>(dtype, D, a, dq);
+  if (route == kRouteF32 && dtype == 0)
+    return D == 64 ? launch_dq_f32<SEG, 64>(a, dq) : launch_dq_f32<SEG, 128>(a, dq);
+  if (route == kRouteWgmma && dtype == 1)
+    return D == 64 ? launch_dq_wgmma<SEG, __nv_bfloat16, 64>(a, dq)
+                   : launch_dq_wgmma<SEG, __nv_bfloat16, 128>(a, dq);
+  if (route == kRouteWgmma && dtype == 2)
+    return D == 64 ? launch_dq_wgmma<SEG, __half, 64>(a, dq)
+                   : launch_dq_wgmma<SEG, __half, 128>(a, dq);
+  return int(cudaErrorInvalidValue);
 }
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -1,8 +1,10 @@
 // The attention backward sweeps with segment ids (packed sequences): the
-// kernels of attn_bwd.cuh instantiated with SEG = true (attn_bwd.cu holds
-// the other half and the D preprocess, which segments do not change).
+// kernels of attn_bwd.cuh (fp32) and attn_bwd_sm90.cuh (bf16 / fp16)
+// instantiated with SEG = true (attn_bwd.cu holds the other half and the D
+// preprocess, which segments do not change).
 
 #include "attn_bwd.cuh"
+#include "attn_bwd_sm90.cuh"
 
 extern "C" int attn_bwd_dkv_seg(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse, const float* delta,
@@ -10,10 +12,10 @@ extern "C" int attn_bwd_dkv_seg(const void* q, const void* k, const void* v,
                                 int dtype, int B, int Hq, int Hkv, int Nq, int Nkv, int D,
                                 float sm_scale, int causal, int window, float softcap,
                                 const float* slopes, float rate, float keep_scale, int seed,
-                                void* stream) {
+                                int route, void* stream) {
   return attn_bwd_dkv_entry<true>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg, dtype,
                                   B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap,
-                                  slopes, rate, keep_scale, seed, stream);
+                                  slopes, rate, keep_scale, seed, route, stream);
 }
 
 extern "C" int attn_bwd_dq_seg(const void* q, const void* k, const void* v, const void* dout,
@@ -21,10 +23,10 @@ extern "C" int attn_bwd_dq_seg(const void* q, const void* k, const void* v, cons
                                const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
                                int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                                int window, float softcap, const float* slopes, float rate,
-                               float keep_scale, int seed, void* stream) {
+                               float keep_scale, int seed, int route, void* stream) {
   return attn_bwd_dq_entry<true>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg, dtype, B, Hq,
                                  Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap, slopes,
-                                 rate, keep_scale, seed, stream);
+                                 rate, keep_scale, seed, route, stream);
 }
 
 extern "C" const char* attn_bwd_dkv_seg_error_string(int err) { return error_string(err); }

@@ -5,9 +5,9 @@
 // sliding window on the causal band, ragged KV tail), the ALiBi,
 // attention-dropout and segment-id arguments and the dropout mask, the
 // tensor-core fragment helpers (mma.sync.m16n8k16 with fp32 accumulate,
-// ldmatrix), the 16-byte tile staging and the fp8-V conversions.  Each
-// source that includes this file is its own library (_cuda.py hashes the
-// headers with it).
+// ldmatrix; the pack to a 16-bit pair the wgmma kernels share) and the
+// fp8-V conversions.  Each source that includes this file is its own
+// library (_cuda.py hashes the headers with it).
 
 #pragma once
 
@@ -211,32 +211,6 @@ __device__ __forceinline__ const T* b_frag(const T* tile, int n0, int c0, int la
 template <int S, typename T>
 __device__ __forceinline__ const T* bt_frag(const T* tile, int k0, int n0, int lane) {
   return tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * S + n0 + (lane / 16) * 8;
-}
-
-// Rows [r0, r0 + ROWS) of a [N, D] matrix into a [ROWS][S] shared tile, zero
-// beyond N, 16 bytes per load, all loads issued before the first store.
-template <typename T, int D, int S, int ROWS, int THREADS>
-__device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0, int N,
-                                           int tid) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int CPR = D / VEC;  // 16-byte chunks per row
-  static_assert(ROWS * CPR % THREADS == 0, "tile must split evenly");
-  constexpr int ITERS = ROWS * CPR / THREADS;
-  uint4 buf[ITERS];
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = tid + it * THREADS;
-    const int r = idx / CPR, c = (idx % CPR) * VEC;
-    buf[it] = r0 + r < N
-                  ? *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + c)
-                  : make_uint4(0, 0, 0, 0);
-  }
-#pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int idx = tid + it * THREADS;
-    const int r = idx / CPR, c = (idx % CPR) * VEC;
-    *reinterpret_cast<uint4*>(dst + r * S + c) = buf[it];
-  }
 }
 
 // V of the forward kernel in fp8 (ops/fwd_kernel.py V_KINDS): 0 = V has

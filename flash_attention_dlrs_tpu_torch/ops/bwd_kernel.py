@@ -1,22 +1,29 @@
 """Attention backward kernels: wrappers, plain version and launch counts.
 
-The kernels are ``csrc/attn_bwd.cuh``: ``attn_bwd_preprocess``
-(D = rowsum(O ∘ dO)), ``attn_bwd_dkv`` and ``attn_bwd_dq``, the two sweeps
-built twice: ``csrc/attn_bwd.cu`` without segment ids and
-``csrc/attn_bwd_seg.cu`` with them (``attn_bwd_dkv_seg``,
-``attn_bwd_dq_seg``), each entry with its own launch count.  Together they
-replace the six backward TPU kernels of the JAX package —
-``ops/fwd_small.py::_small_bwd_kernel``, ``ops/bwd_kernel.py::_bwd_d_kernel``,
-``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``,
-``ops/bwd_fused.py::_bwd_fused_kernel`` and ``ops/bwd_mid.py::_bwd_mid_kernel``
-— for the forward's feature set (causal or not, GQA, ragged lengths, window,
-softcap, ALiBi, attention dropout, segment ids; fp8 V has no backward, as in
-the JAX package).  Dropout regenerates the forward's mask
-from the same seed: dV = (P∘M)ᵀdO and dS = P∘(M∘dP − D), with D =
-rowsum(dO∘O) unchanged.  The result is deterministic: every sum runs in a fixed order and
-no kernel uses atomics.  :func:`attn_bwd` sends CPU tensors to the plain
-PyTorch version :func:`attn_bwd_plain` and CUDA tensors to the kernels;
-each kernel's wrapper likewise has a plain version beside it.
+The kernels are ``csrc/attn_bwd.cuh`` (the D preprocess, the fp32 sweeps
+and the C entries) and ``csrc/attn_bwd_sm90.cuh`` (the bf16 / fp16 sweeps):
+``attn_bwd_preprocess`` (D = rowsum(O ∘ dO)), ``attn_bwd_dkv`` and
+``attn_bwd_dq``, the two sweeps built twice: ``csrc/attn_bwd.cu`` without
+segment ids and ``csrc/attn_bwd_seg.cu`` with them (``attn_bwd_dkv_seg``,
+``attn_bwd_dq_seg``), each entry with its own launch count.  Each sweep
+call takes one of two routes, fixed by :func:`bwd_route` from the call's
+types alone and counted per sweep in :data:`BWD_ROUTE_LAUNCHES`:
+``"wgmma"`` (the Hopper kernels: warpgroup products, TMA, a producer
+warpgroup; every bf16/fp16 call) or ``"fp32"`` (CUDA cores, true fp32).
+The C entries refuse a route that cannot carry a call; nothing switches
+routes at run time.  Together they replace the six backward TPU kernels of
+the JAX package — ``ops/fwd_small.py::_small_bwd_kernel``,
+``ops/bwd_kernel.py::_bwd_d_kernel``, ``_bwd_dkv_kernel`` and
+``_bwd_dq_kernel``, ``ops/bwd_fused.py::_bwd_fused_kernel`` and
+``ops/bwd_mid.py::_bwd_mid_kernel`` — for the forward's feature set (causal
+or not, GQA, ragged lengths, window, softcap, ALiBi, attention dropout,
+segment ids; fp8 V has no backward, as in the JAX package).  Dropout
+regenerates the forward's mask from the same seed: dV = (P∘M)ᵀdO and
+dS = P∘(M∘dP − D), with D = rowsum(dO∘O) unchanged.  The result is
+deterministic: every sum runs in a fixed order and no kernel uses atomics.
+:func:`attn_bwd` sends CPU tensors to the plain PyTorch version
+:func:`attn_bwd_plain` and CUDA tensors to the kernels; each kernel's
+wrapper likewise has a plain version beside it.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_HEAD_DIMS,
     MOD_ARGS,
+    ROUTE_CODES,
     _row_bias,
     bias_and_mask,
     check_segments,
@@ -48,6 +56,7 @@ _SWEEP_ARGS = (
     [ctypes.c_int] * 6  # dtype, B, Hq, Hkv, Nq, Nkv
     + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float]
     + MOD_ARGS
+    + [ctypes.c_int]  # route
     + [ctypes.c_void_p]  # stream
 )
 # q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg
@@ -59,6 +68,35 @@ DQ_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dq", _DQ_ARGS)
 DKV_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dkv_seg", _DKV_ARGS)
 DQ_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dq_seg", _DQ_ARGS)
 
+# The launches of each sweep on each route (the C entries' route codes are
+# the forward's, ops/fwd_kernel.py ROUTE_CODES), over both builds; set to 0
+# by whoever reads them.
+BWD_ROUTE_LAUNCHES = {sweep: dict.fromkeys(ROUTE_CODES, 0)
+                      for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
+
+
+def bwd_route(dtype, head_dim: int, segments: bool = False) -> str:
+    """The kernel route of a backward sweep call, from its types alone:
+
+    ========  ==========================================================
+    route     calls
+    ========  ==========================================================
+    fp32      q in float32 (CUDA cores, true fp32; with or without
+              segment ids)
+    wgmma     bf16 / fp16 q, with or without segment ids
+    ========  ==========================================================
+
+    Segment ids are a mode of both routes and change neither.  d must be
+    64 or 128 on every route; anything else raises."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"attn_bwd kernels take head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if dtype == torch.float32:
+        return "fp32"
+    if dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
+    return "wgmma"
+
 
 def _check_cuda(q, k, v, o, lse, do) -> None:
     for name, t in (("k", k), ("v", v), ("o", o), ("do", do), ("lse", lse)):
@@ -69,7 +107,7 @@ def _check_cuda(q, k, v, o, lse, do) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} has dtype {t.dtype}, q {q.dtype}")
-        if t.data_ptr() % 16:  # the kernels stage tiles with 16-byte loads
+        if t.data_ptr() % 16:  # 16-byte loads and TMA tensor maps
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {q.dtype}")
@@ -96,13 +134,13 @@ def attn_bwd_preprocess(o, do):
     return delta
 
 
-def _sweep_args(q, k, causal, sm_scale, window, softcap, alibi_slopes,
+def _sweep_args(q, k, route, causal, sm_scale, window, softcap, alibi_slopes,
                 dropout_rate, dropout_seed, q_seg, kv_seg):
     b, hq, n_q, d = q.shape
     return (ptr(q_seg), ptr(kv_seg), DTYPE_CODES[q.dtype], b, hq, k.shape[1], n_q,
             k.shape[2], d, float(sm_scale), int(bool(causal)), int(window),
             float(softcap), *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
-            stream_handle(q.device))
+            ROUTE_CODES[route], stream_handle(q.device))
 
 
 def _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
@@ -115,34 +153,38 @@ def _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
 def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                  softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
                  q_seg=None, kv_seg=None):
-    """(dK, dV) [B, Hkv, Nkv, d] in k's dtype: the dK/dV sweep kernel on a
-    CUDA device (its segment build with ``q_seg`` / ``kv_seg``),
-    :func:`attn_bwd_dkv_plain` on the CPU."""
+    """(dK, dV) [B, Hkv, Nkv, d] in k's dtype: the dK/dV sweep kernel on the
+    route of :func:`bwd_route` on a CUDA device (its segment build with
+    ``q_seg`` / ``kv_seg``), :func:`attn_bwd_dkv_plain` on the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+    route = bwd_route(q.dtype, q.shape[-1], q_seg is not None)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernel = DKV_KERNEL if q_seg is None else DKV_SEG_KERNEL
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                  ptr(dk), ptr(dv), *_sweep_args(q, k, **kw))
+                  ptr(dk), ptr(dv), *_sweep_args(q, k, route, **kw))
+    BWD_ROUTE_LAUNCHES["attn_bwd_dkv"][route] += 1
     return dk, dv
 
 
 def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                 softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
                 q_seg=None, kv_seg=None):
-    """dQ [B, Hq, Nq, d] in q's dtype: the dQ sweep kernel on a CUDA device
-    (its segment build with ``q_seg`` / ``kv_seg``),
-    :func:`attn_bwd_dq_plain` on the CPU."""
+    """dQ [B, Hq, Nq, d] in q's dtype: the dQ sweep kernel on the route of
+    :func:`bwd_route` on a CUDA device (its segment build with ``q_seg`` /
+    ``kv_seg``), :func:`attn_bwd_dq_plain` on the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    route = bwd_route(q.dtype, q.shape[-1], q_seg is not None)
     dq = torch.empty_like(q)
     kernel = DQ_KERNEL if q_seg is None else DQ_SEG_KERNEL
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                  ptr(dq), *_sweep_args(q, k, **kw))
+                  ptr(dq), *_sweep_args(q, k, route, **kw))
+    BWD_ROUTE_LAUNCHES["attn_bwd_dq"][route] += 1
     return dq
 
 
@@ -157,8 +199,9 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
 
     Arguments are validated by the caller (ops/flash_attention.py).  CPU
     tensors take :func:`attn_bwd_plain`; CUDA tensors launch the three
-    kernels (preprocess, dK/dV sweep, dQ sweep), which take contiguous
-    fp32/bf16/fp16 inputs with d in {64, 128}, or raise."""
+    kernels (preprocess, dK/dV sweep, dQ sweep; the sweeps on the route of
+    :func:`bwd_route`), which take contiguous fp32/bf16/fp16 inputs with d
+    in {64, 128}, or raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
