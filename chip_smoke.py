@@ -3,13 +3,17 @@
 
 Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers,
 spills and serialization warnings of the wgmma instances of the forward and
-of the backward sweeps), and beside them two broken copies of the dK/dV
-sweep; holds each kernel (and each ALiBi / dropout / segment-id / fp8-V
-mode, and each route of the forward and of the backward sweeps: wgmma,
-fp32) against its plain PyTorch version on the card (the backward kernels
-also against themselves, bit for bit), checks that each broken copy fails
-that check, and reads the forward kernel's dropout mask back against the
-plain mask.  Then drives every path of the port:
+of the backward sweeps, and the registers, shared memory, spills and
+warnings of every paged instance), and beside them two broken copies of the
+dK/dV sweep and two of the paged kernels (a decode merge that drops the
+last key split, a verify that leaves a horizon-crossing tile unmasked);
+holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
+route of the forward, of the backward sweeps and of verify: wgmma, fp32,
+and the paged kernels at their key-split and tile edges) against its plain
+PyTorch version on the card (the backward and paged kernels also against
+themselves, bit for bit), checks that each broken copy fails that check,
+and reads the forward kernel's dropout mask back against the plain mask.
+Then drives every path of the port:
 
 - serving: 8 requests through DecodeEngine at the full width of the repo's
   serving-bench model (scripts/bench_serving.py defaults: 16 layers,
@@ -37,12 +41,13 @@ plain mask.  Then drives every path of the port:
   forward and backward, and fp8 V through the op API;
 
 checks that each path went through its kernels (launch counts, and the
-forward's and each backward sweep's launches per route, set to 0 just
-before the path and read just after: every bf16 forward and backward sweep
-of the model paths on the wgmma route, the packed calls on the routes
-ops/fwd_kernel.py fwd_route and ops/bwd_kernel.py bwd_route name), and
-times each kernel beside its bound, its plain version and, where one
-exists, the PyTorch library call computing the same function.
+forward's, each backward sweep's and verify's launches per route, set to 0
+just before the path and read just after: every bf16 forward, backward
+sweep and verify of the model paths on the wgmma route, the packed calls on
+the routes ops/fwd_kernel.py fwd_route and ops/bwd_kernel.py bwd_route
+name), and times each kernel beside its bound, its plain version and, where
+one exists, the PyTorch library call computing the same function (the
+paged kernels also by device time, their key splits and CTAs).
 
 Every phase prints one JSON line and raises on failure.  The line before
 the last is the card's name and power limit as nvidia-smi reports them; the
@@ -54,10 +59,11 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
        python3 chip_smoke.py --pair PARENT_DIR
            times the forward (mode-free, ALiBi, ALiBi + dropout), the
            backward family (mode-free, ALiBi + dropout, with a packed
-           loader's segment ids), decode and verify from an unpacked earlier
-           commit (PARENT_DIR, its own chip_smoke.py and package) and from
-           this tree in turns, parent, change, change, parent, each run in
-           its own process on the same card, one JSON line per run.
+           loader's segment ids), and decode and verify at the timing shapes
+           (CUDA-event and device times) from an unpacked earlier commit
+           (PARENT_DIR, its own chip_smoke.py and package) and from this
+           tree in turns, parent, change, change, parent, each run in its
+           own process on the same card, one JSON line per run.
 """
 
 from __future__ import annotations
@@ -83,10 +89,11 @@ FWD_REPLACES = (
     "flash_attention_dlrs_tpu/ops/fwd_small.py:69"
 )
 DECODE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode.cu"
-DECODE_REPLACES = "flash_attention_dlrs_tpu/ops/decode.py:44"
+DECODE_REPLACES = "flash_attention_dlrs_tpu/ops/decode.py:44 (called at decode.py:438)"
 VERIFY_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify.cu"
 VERIFY_REPLACES = ("flash_attention_dlrs_tpu/ops/decode.py:44 (multi-token mode, "
-                   "num_tokens > 1; via paged_verify_attention, decode.py:716)")
+                   "num_tokens > 1; called at decode.py:438 via paged_verify_attention, "
+                   "decode.py:716)")
 QUANT_KINDS = ("int8", "int4", "e4m3", "e5m2")
 # stored bytes per K or V element, and per-token scale bytes (K and V)
 KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
@@ -120,7 +127,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, warmup=3, reps=10):
-    """Median of per-call device times (CUDA events), warm."""
+    """Median of per-call times between CUDA events recorded around each
+    call, warm: the call's host time is part of the reading (device_ms
+    reads its kernels alone)."""
     import torch
 
     for _ in range(warmup):
@@ -135,6 +144,47 @@ def median_ms(fn, warmup=3, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps=20, between=None, match="paged_"):
+    """Device time of one ``fn()`` call: the summed durations of the
+    kernels it launches whose names hold ``match`` (torch.profiler's CUPTI
+    trace) over ``reps`` calls after a warm-up, per call; the wrapper's host
+    time is not in it.  ``between()`` runs before each call (an L2 flush:
+    :func:`l2_flush`); its kernels do not match.  Raises if the profiler saw
+    no matching kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if between is not None:
+                between()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and match in e.name)
+    if us <= 0:
+        raise AssertionError("the profiler saw no kernel")
+    return us / 1e3 / reps
+
+
+def l2_flush(dev):
+    """A function that reads 128 MB of random bytes on ``dev`` (2.5x the
+    H100's 50 MB L2, and nothing the L2 could compress), so that the next
+    call reads its inputs from device memory, as a decode step does (each
+    layer's pages were last read a whole step ago), and finds the L2 clean:
+    reading, not writing, leaves no write-back in the way of the call's own
+    misses."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.rand(32 << 20, generator=gen, device=dev)
+    return buf.sum
 
 
 def bound(flops, nbytes, peak_flops):
@@ -213,51 +263,53 @@ def wgmma_instances(log, entry=WGMMA_ENTRY, flags=WGMMA_FLAGS, marker="attn_fwd_
 
 # Broken copies of the bf16 / fp16 dK/dV sweep, each built beside the tree
 # (flash_attention_dlrs_tpu_torch/_build/mutants/<name>/) from csrc/ with one
-# set of text edits: bwd_check must fail on each (phase mutants).
+# set of text edits (source built, file edited, [(old, new)]): bwd_check
+# must fail on each (phase mutants).
 BWD_SM90 = "attn_bwd_sm90.cuh"
 BWD_MUTANTS = {
     # the causal diagonal's and the window's tiles run the unmasked loop
-    "dkv_diagonal_tile_unmasked": [(
+    "dkv_diagonal_tile_unmasked": ("attn_bwd.cu", BWD_SM90, [(
         "SEG || !tile_unmasked<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window);",
-        "SEG || nw + WG_ROWS > Nkv;")],
+        "SEG || nw + WG_ROWS > Nkv;")]),
     # the Q / dO stage (and its lse, D rows) released to the producer as soon
     # as the score products are done, before dK's product has read Q
-    "dkv_stage_released_before_dk": [
+    "dkv_stage_released_before_dk": ("attn_bwd.cu", BWD_SM90, [
         ("        fence_regs(dp);\n        if (softcap > 0.f) {\n"
          "          if (masked) grads(m0, st, slope, stream, yes, yes);",
          "        fence_regs(dp);\n        release(empty(st));\n        if (softcap > 0.f) {\n"
          "          if (masked) grads(m0, st, slope, stream, yes, yes);"),
         ("      }\n      release(empty(st));  // dK's product has read Q, dV's dO",
          "      } else {\n        release(empty(st));\n      }"),
-    ],
+    ]),
 }
 
 
-def start_mutant_builds():
-    """Writes each mutant's csrc/ copy and starts its nvcc on attn_bwd.cu
-    (the sweeps without segment ids): {name: (process, library path)}."""
+def start_mutant_builds(mutants):
+    """Writes each mutant's csrc/ copy (``mutants``: {name: (source,
+    edited file, [(old, new)])}) and starts its nvcc on the source:
+    {name: (process, library path, source)}."""
     import shutil
     from flash_attention_dlrs_tpu_torch import _cuda
 
     running = {}
-    for name, edits in BWD_MUTANTS.items():
+    for name, (source, edited, edits) in mutants.items():
         root = _cuda.BUILD_DIR / "mutants" / name
         if root.exists():
             shutil.rmtree(root)
         shutil.copytree(_cuda.CSRC_DIR, root / "csrc")
-        src = root / "csrc" / BWD_SM90
-        text = src.read_text()
+        path = root / "csrc" / edited
+        text = path.read_text()
         for old, new in edits:
             if text.count(old) != 1:
                 raise AssertionError(f"mutant {name}: edit target found "
                                      f"{text.count(old)} times: {old!r}")
             text = text.replace(old, new)
-        src.write_text(text)
-        lib = root / "attn_bwd.so"
+        path.write_text(text)
+        lib = root / source.replace(".cu", ".so")
         proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
-                                 str(root / "csrc" / "attn_bwd.cu")],
+                                 str(root / "csrc" / source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        running[name] = (proc, lib)
+        running[name] = (proc, lib, source)
     return running
 
 
@@ -284,13 +336,101 @@ def _check_instances(rec, built, sources, entry, flags, marker, count, key):
     return warnings
 
 
+# The paged kernels' instances (csrc/paged_decode.cu, csrc/paged_verify.cu):
+# pool kind codes of csrc/paged.cuh PoolKind.
+PAGED_KIND_NAMES = ("fp32", "bf16", "fp16", "int8", "int4", "e4m3", "e5m2")
+PAGED_ENTRIES = (
+    (re.compile(r"paged_decode_kernelILi(\d)ELi(\d+)ELb([01])ELb([01])E"), "decode"),
+    (re.compile(r"paged_verify_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)ELi(\d)E"
+                r"Lb([01])ELb([01])E"), "verify_wgmma"),
+    (re.compile(r"paged_verify_f32_kernelILi(\d+)E"), "verify_fp32"),
+)
+
+
+def paged_name(entry):
+    """A readable name of one paged kernel instance from its mangled name:
+    kernel, (q dtype,) pool kind, head dim, then "cap" / "alibi" where on."""
+    for pattern, kernel in PAGED_ENTRIES:
+        m = pattern.search(entry)
+        if m is None:
+            continue
+        g = m.groups()
+        if kernel == "decode":
+            parts = [kernel, PAGED_KIND_NAMES[int(g[0])], "d" + g[1]]
+            flags = g[2:]
+        elif kernel == "verify_wgmma":
+            parts = [kernel, "bf16" if g[0] == "__nv_bfloat16" else "fp16",
+                     PAGED_KIND_NAMES[int(g[2])], "d" + g[1]]
+            flags = g[3:]
+        else:
+            return "_".join([kernel] + ["d" + x for x in g])
+        return "_".join(parts + [f for f, on in zip(("cap", "alibi"), flags) if on == "1"])
+    return None
+
+
+def paged_instances(log, source):
+    """Registers, dynamic shared memory, spills and ptxas performance
+    warnings of every kernel instance built from a paged source (from
+    nvcc's ``--ptxas-options=-v`` log; shared memory from the library's
+    ``*_shared_bytes`` entry)."""
+    import ctypes
+    from flash_attention_dlrs_tpu_torch import _cuda
+
+    lib = ctypes.CDLL(str(_cuda.library_path(source)))
+    stem = source.split(".")[0]
+    shared = getattr(lib, f"{stem}_shared_bytes")
+    shared.argtypes, shared.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = paged_name(m.group(1))
+            if cur is not None:
+                out[cur] = {"ptxas_warnings": []}
+            continue
+        if cur is None:
+            continue
+        if "Performance Loss" in line:
+            out[cur]["ptxas_warnings"].append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    for name, rec in out.items():
+        parts = name.split("_")
+        d = next((int(x[1:]) for x in parts if re.fullmatch(r"d\d+", x)), 0)
+        if name.startswith("decode_"):
+            rec["shared_bytes"] = shared(PAGED_KIND_NAMES.index(parts[1]), d)
+        else:
+            rec["shared_bytes"] = shared(0 if name.startswith("verify_fp32") else 1, d)
+    return out
+
+
+# Broken copies of the paged kernels, built as BWD_MUTANTS are:
+# decode_check must fail on each (phase paged_mutants).
+PAGED_MUTANTS = {
+    # the merge of the splits drops the last split's partial
+    "decode_combine_drops_last_split": ("paged_decode.cu", "paged_decode.cu", [(
+        "    for (int s = 0; s < splits; ++s) {\n      const float ws",
+        "    for (int s = 0; s < splits - 1; ++s) {\n      const float ws")]),
+    # a tile that crosses a row's horizon (but not the split's end) unmasked
+    "verify_horizon_tile_unmasked": ("paged_verify.cu", "paged_verify.cu", [(
+        "const bool masked = n0 + V_BN > open;",
+        "const bool masked = n0 + V_BN > k_hi;")]),
+}
+
+
 def phase_build(mutants=False):
-    """Builds every source (and, with ``mutants``, starts the mutant builds
-    first, so that they compile beside it: returns them)."""
+    """Builds every source (and, with ``mutants``, starts the backward and
+    paged mutant builds first, so that they compile beside it: returns
+    them)."""
     from flash_attention_dlrs_tpu_torch import _cuda
 
     t0 = time.perf_counter()
-    mutant_builds = start_mutant_builds() if mutants else {}
+    mutant_builds = ((start_mutant_builds(BWD_MUTANTS), start_mutant_builds(PAGED_MUTANTS))
+                     if mutants else ({}, {}))
     built = _cuda.build()
     info = {}
     for src, rec in built.items():
@@ -309,9 +449,26 @@ def phase_build(mutants=False):
         bwd_warnings = _check_instances(rec, built, ("attn_bwd.cu", "attn_bwd_seg.cu"),
                                         BWD_WGMMA_ENTRY, BWD_WGMMA_FLAGS,
                                         "_wgmma_kernel", 64, "bwd_wgmma")
+    paged = {}
+    for src in ("paged_decode.cu", "paged_verify.cu"):
+        if src in built:
+            paged.update(paged_instances(built[src]["log"], src))
+    serialized = {k: v["ptxas_warnings"] for k, v in paged.items()
+                  if k.startswith("verify_wgmma") and v["ptxas_warnings"]}
+    if paged:
+        # 7 kinds x 2 head dims x 2^2 modes; 2 dtypes x 5 kinds x 2 head
+        # dims x 2^2 modes, and 2 fp32 instances
+        rec.update(paged_instances=paged, paged_spilling={
+            k: v for k, v in paged.items() if v.get("spill_stores") or v.get("spill_loads")})
     emit(rec)
     if bwd_warnings:
         raise AssertionError(f"backward wgmma instances with serialized wgmmas: {bwd_warnings}")
+    if serialized:
+        raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
+    counts = {k: sum(n.startswith(k) for n in paged)
+              for k in ("decode_", "verify_wgmma_", "verify_fp32_")}
+    if paged and counts != {"decode_": 56, "verify_wgmma_": 80, "verify_fp32_": 2}:
+        raise AssertionError(f"unexpected paged instances: {counts}")
     return mutant_builds
 
 
@@ -792,7 +949,7 @@ def phase_mutants(dev, builds):
     cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES]
     checks, out = {}, {}
     real = bk.DKV_KERNEL
-    for name, (proc, lib) in builds.items():
+    for name, (proc, lib, _) in builds.items():
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
@@ -811,7 +968,7 @@ def phase_mutants(dev, builds):
         finally:
             bk.DKV_KERNEL = real
         checks[f"{name}_fails_bwd_check"] = bool(failed)
-        emit({"phase": "mutants", "mutant": name, "edits": BWD_MUTANTS[name],
+        emit({"phase": "mutants", "mutant": name, "edits": BWD_MUTANTS[name][2],
               "failed_cases": failed, "cases": out[name]})
     torch.cuda.empty_cache()
     emit({"phase": "mutants", "checks": checks})
@@ -910,23 +1067,132 @@ def paged_errors(got, want, dtype, spread=None):
 DECODE_B8_LENGTHS = [0, 1, 129, 700, 1337, 2047, 2048, 2112]
 
 
-def phase_decode(dev):
-    """Each paged kernel mode against its plain version on the same inputs:
-    the single-token kernel on value and quantized pools (int8 / int4 take
-    the integer score route), softcap, an empty sequence; the verify kernel
-    at T = 4 and T = 256 (a prefill chunk), bf16 on the tensor cores and
-    fp32 on the CUDA cores."""
+def edge_cases(num_sms):
+    """decode_check cases at the key-split and tile edges, from the planner
+    (ops/decode.py decode_splits) at this card's SM count: lengths 0, 1,
+    exactly on the first split boundary, one past it and the full table at
+    page sizes 16, 64 and 128 (bf16 and int4 pools); B1 and B32; softcap
+    with ALiBi; verify at T = 1, 4, 64, 255 and 256 with row horizons
+    inside tiles (lengths 1000 and 1717), on every pool kind at T = 4 and on
+    16-token pages."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.decode import (
-        paged_decode_attention, paged_decode_plain, paged_verify_attention,
-        paged_verify_plain,
-    )
+    from flash_attention_dlrs_tpu_torch.ops.decode import decode_splits, split_pages
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    hq, hkv, d, table = 16, 8, 128, 2176
+
+    def edges(b, ps):
+        pps = table // ps
+        per, _ = split_pages(pps, decode_splits(b, hkv, pps, ps, num_sms))
+        return pps, [0, 1, per * ps, per * ps + 1, pps * ps]
+
+    cases = []
+    for kind in ("bf16", "int4"):
+        for ps in (16, 64, 128):
+            pps, lengths = edges(5, ps)
+            cases.append((f"edges_{kind}_page{ps}_B5", bf16, kind,
+                          (5, hq, hkv, d, ps, pps, lengths), 0.0, 0, False))
+    pps, lengths = edges(32, 128)
+    b32 = lengths + [(37 * i * i + 11 * i) % (table + 1) for i in range(27)]
+    cases += [
+        ("edges_bf16_B1", bf16, "bf16", (1, hq, hkv, d, 128, pps, [1000]), 0.0, 0, False),
+        ("edges_int4_B1_page16", bf16, "int4", (1, hq, hkv, d, 16, table // 16, [2176]), 0.0,
+         0, False),
+        ("edges_bf16_B32", bf16, "bf16", (32, hq, hkv, d, 128, pps, b32), 0.0, 0, False),
+        ("edges_int8_B32", bf16, "int8", (32, hq, hkv, d, 128, pps, b32), 0.0, 0, False),
+    ]
+    pps, lengths = edges(5, 128)
+    cases += [(f"softcap_alibi_{kind}_B5", bf16, kind, (5, hq, hkv, d, 128, pps, lengths),
+               30.0, 0, True) for kind in ("bf16", "int8", "int4")]
+    horizons = (2, hq, hkv, d, 128, pps, [1000, 1717])
+    cases += [(f"verify_T{t}_bf16_horizons", bf16, "bf16", horizons, 0.0, t, False)
+              for t in (1, 4, 64, 255, 256)]
+    cases += [(f"verify_T255_{kind}_horizons_softcap_alibi", bf16, kind, horizons, 30.0, 255,
+               True) for kind in ("bf16", "int8")]
+    cases += [(f"verify_T4_{kind}_kinds", bf16, kind, horizons, 0.0, 4, False)
+              for kind in ("int8", "int4", "e4m3", "e5m2")]
+    cases += [("verify_T4_fp16_kinds", f16, "fp16", horizons, 0.0, 4, False),
+              ("verify_T4_fp32_kinds", f32, "fp32", horizons, 0.0, 4, False)]
+    page16 = (2, hq, hkv, d, 16, table // 16, [1000, 1717])
+    cases += [(f"verify_T64_{kind}_page16", bf16, kind, page16, 0.0, 64, False)
+              for kind in ("bf16", "int8", "int4")]
+    cases.append(("verify_T256_bf16_page16_alibi", bf16, "bf16", page16, 0.0, 256, True))
+    return cases
+
+
+def paged_ctas(t_new, route, splits, b, hq, hkv):
+    """CTAs one paged call launches: decode one per split, head pair, kv
+    head and sequence; verify one per split,
+    block of rows (128 on the wgmma route, 64 on fp32), kv head and
+    sequence."""
+    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROW_TILE
+
+    g = hq // hkv
+    if not t_new:
+        return splits * -(-g // 2) * hkv * b
+    tile = VERIFY_ROW_TILE if route == "wgmma" else 64
+    return splits * -(-t_new * g // tile) * hkv * b
+
+
+def paged_case(dev, gen, case):
+    """One decode_check case: the kernel twice (O and lse must repeat bit
+    for bit), its plain version (decode: with the kernel's split count) on
+    the same inputs, the errors, the split count, the route and the CTAs."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+
+    name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case
+    q, kp, vp, lens, table = _paged_inputs(
+        gen, dev, dt, kind, b, hq, hkv, d, ps, pps, lengths,
+        num_pages=b * pps + 8, t_new=t_new)
+    kw = dict(logit_softcap=cap, sm_scale=d ** -0.5,
+              alibi_slopes=mods(hq, alibi)["alibi_slopes"])
+    dm.DECODE_SPLITS.clear()
+    dm.VERIFY_SPLITS.clear()
+    for r in dm.VERIFY_ROUTE_LAUNCHES:
+        dm.VERIFY_ROUTE_LAUNCHES[r] = 0
+    if t_new:
+        first = (dm.paged_verify_attention(q, kp, vp, lens, table, **kw), None)
+        again = (dm.paged_verify_attention(q, kp, vp, lens, table, **kw), None)
+        splits = list(dm.VERIFY_SPLITS)
+        route = [r for r, n in dm.VERIFY_ROUTE_LAUNCHES.items() if n]
+        want = (dm.paged_verify_plain(q, kp, vp, lens, table, **kw), None)
+        spread = dm.paged_verify_plain(q, *abs_v_pools(kp, vp), lens, table, **kw)
+    else:
+        first = dm.paged_decode_attention(q, kp, vp, lens, table, return_lse=True, **kw)
+        again = dm.paged_decode_attention(q, kp, vp, lens, table, return_lse=True, **kw)
+        splits, route = list(dm.DECODE_SPLITS), ["cuda"]
+        kw["splits"] = splits[0]
+        want = dm.paged_decode_plain(q, kp, vp, lens, table, return_lse=True, **kw)
+        spread = (None if torch.is_tensor(vp) else
+                  dm.paged_decode_plain(q, *abs_v_pools(kp, vp), lens, table, **kw))
+    torch.cuda.synchronize()
+    rec = paged_errors(first, want, dt, spread)
+    rec["bitwise_repeatable"] = all(
+        x is None or torch.equal(x, y) for x, y in zip(first, again))
+    rec["ok"] &= rec["bitwise_repeatable"] and len(splits) == 1 and len(route) == 1
+    rec.update(splits=splits[0] if len(splits) == 1 else splits,
+               route=route[0] if len(route) == 1 else route,
+               ctas=paged_ctas(t_new, route[0], splits[0], b, hq, hkv))
+    del q, kp, vp, first, again, want
+    return rec
+
+
+def phase_decode(dev, cases=None, phase="decode_check"):
+    """Each paged kernel mode against its plain version on the same inputs,
+    twice (bitwise repeatable): the single-token kernel on value and
+    quantized pools (int8 / int4 take the integer score route), softcap, an
+    empty sequence; the verify kernel at T = 4 and T = 256 (a prefill
+    chunk), bf16 on the tensor cores and fp32 on the CUDA cores; ALiBi; and
+    the key-split and tile edges of :func:`edge_cases`.  ``cases`` (names)
+    runs a subset."""
+    import torch
 
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     serve = (8, 16, 8, 128, 128, 17, DECODE_B8_LENGTHS)
     small = (3, 8, 2, 64, 64, 8, [0, 300, 512])
-    cases = [
+    all_cases = [
         # name, q dtype, kv kind, (B, Hq, Hkv, d, page, pps, lengths), softcap, T, ALiBi
         ("serve_decode", bf16, "bf16", (4, 16, 8, 128, 128, 16, [2048, 1300, 777, 200]), 0.0, 0, False),
         ("ragged_empty_softcap", bf16, "bf16", (4, 16, 8, 128, 128, 16, [0, 1, 129, 2047]), 30.0, 0, False),
@@ -952,35 +1218,67 @@ def phase_decode(dev):
         ("alibi_verify_T256_bf16", bf16, "bf16", serve, 0.0, 256, True),
         ("alibi_verify_T256_int8", bf16, "int8", serve, 0.0, 256, True),
         ("alibi_verify_fp32_int4_d64", f32, "int4", small, 0.0, 5, True),
+        *edge_cases(torch.cuda.get_device_properties(dev).multi_processor_count),
     ]
     results = {}
-    for name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi in cases:
-        q, kp, vp, lens, table = _paged_inputs(
-            gen, dev, dt, kind, b, hq, hkv, d, ps, pps, lengths,
-            num_pages=b * pps + 8, t_new=t_new)
-        kw = dict(logit_softcap=cap, sm_scale=d ** -0.5,
-                  alibi_slopes=mods(hq, alibi)["alibi_slopes"])
-        if t_new:
-            got = (paged_verify_attention(q, kp, vp, lens, table, **kw), None)
-            want = (paged_verify_plain(q, kp, vp, lens, table, **kw), None)
-            spread = paged_verify_plain(q, *abs_v_pools(kp, vp), lens, table, **kw)
-        else:
-            got = paged_decode_attention(q, kp, vp, lens, table, return_lse=True, **kw)
-            want = paged_decode_plain(q, kp, vp, lens, table, return_lse=True, **kw)
-            spread = (None if torch.is_tensor(vp) else
-                      paged_decode_plain(q, *abs_v_pools(kp, vp), lens, table, **kw))
-        torch.cuda.synchronize()
-        results[name] = paged_errors(got, want, dt, spread)
-        emit({"phase": "decode_check", "case": name, "kernel":
+    for case in all_cases:
+        name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case
+        if cases is not None and name not in cases:
+            continue
+        results[name] = paged_case(dev, gen, case)
+        emit({"phase": phase, "case": name, "kernel":
               "paged_verify" if t_new else "paged_decode", "q_dtype": str(dt),
               "kv": kind, "tokens": t_new or 1, "shape": [b, hq, hkv, d, ps, pps],
               "lengths": lengths, "softcap": cap, "alibi": alibi, **results[name]})
-        del q, kp, vp, got, want
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
-    if bad:
+    if bad and phase == "decode_check":
         raise AssertionError(f"paged kernels disagree with their plain versions: {bad}")
     return results
+
+
+# decode_check cases each paged mutant runs: splits past the first with
+# keys (decode), and row horizons inside tiles below the split's end (verify).
+PAGED_MUTANT_CASES = {
+    "decode_combine_drops_last_split": ("serve_decode", "edges_bf16_page128_B5",
+                                        "edges_int4_page16_B5", "edges_bf16_B1"),
+    "verify_horizon_tile_unmasked": ("verify_T256_bf16", "verify_T255_bf16_horizons",
+                                     "verify_T64_bf16_page16", "verify_T64_int8_page16"),
+}
+
+
+def phase_paged_mutants(dev, builds):
+    """Each broken copy of PAGED_MUTANTS (built by
+    :func:`start_mutant_builds`) in place of its kernel on its
+    PAGED_MUTANT_CASES: every mutant must fail at least one case."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+
+    checks = {}
+    for name, (proc, lib, source) in builds.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
+        attr = "DECODE_KERNEL" if source == "paged_decode.cu" else "VERIFY_KERNEL"
+        real = getattr(dm, attr)
+        try:
+            setattr(dm, attr, _cuda.CudaKernel(source, real.symbol, real.argtypes, library=lib))
+            res = phase_decode(dev, PAGED_MUTANT_CASES[name], phase="paged_mutants")
+        finally:
+            setattr(dm, attr, real)
+        failed = [n for n, r in res.items() if not r["ok"]]
+        checks[f"{name}_fails_decode_check"] = bool(failed)
+        emit({"phase": "paged_mutants", "mutant": name, "edits": PAGED_MUTANTS[name][2],
+              "failed_cases": failed, "cases": {
+                  n: {k: r[k] for k in ("max_abs_err_o", "worst_err_over_limit",
+                                        "bitwise_repeatable", "ok")} for n, r in res.items()}})
+    torch.cuda.empty_cache()
+    emit({"phase": "paged_mutants", "checks": checks})
+    survived = [k for k, ok in checks.items() if not ok]
+    if survived:
+        raise AssertionError(f"paged mutants passed decode_check: {survived}")
+    return checks
 
 
 SERVE_CFG = dict(vocab_size=32000, d_model=2048, n_layers=16, n_q_heads=16,
@@ -1259,6 +1557,9 @@ def phase_decode_profile(engine, cfg):
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_ops_per_step": n_ops,
         "top_device_ms_per_step": top_kernels(by_name),
+        # the paged decode calls (the merge of the splits included)
+        "paged_decode_device_ms_per_step": sum(
+            ms for name, ms in by_name.items() if "paged_decode_kernel" in name),
     }
     emit(rec)
     while engine.scheduler.has_work:
@@ -1353,14 +1654,16 @@ def check_layers(calls, verify):
 
 def _serve_run(engine, prompts, new_tokens, record):
     """One ``engine.generate(prompts)``: the launch counts of the forward
-    (in all and per route) and paged kernels zeroed just before and read
-    just after, the
+    (in all and per route) and paged kernels (verify also per route) zeroed
+    just before and read just after, the
     device-synchronized ms of every admission and decode step, the number
     of prefill chunks, and the calls of ``record`` (a paged attention
     function of models/decoding.py) of the last decode step, or of the last
     chunk when ``record`` is the verify function."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL, VERIFY_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops.decode import (
+        DECODE_KERNEL, VERIFY_KERNEL, VERIFY_ROUTE_LAUNCHES,
+    )
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
 
     admit_ms, decode_ms, chunks = [], [], []
@@ -1377,6 +1680,8 @@ def _serve_run(engine, prompts, new_tokens, record):
         steps_before = engine.scheduler.stats.steps
         FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
         fwd_routes(zero=True)
+        for r in VERIFY_ROUTE_LAUNCHES:
+            VERIFY_ROUTE_LAUNCHES[r] = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         outs = engine.generate(prompts, max_new_tokens=new_tokens)
@@ -1385,7 +1690,9 @@ def _serve_run(engine, prompts, new_tokens, record):
         launches = {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches,
                     "paged_verify": VERIFY_KERNEL.launches}
         routes = fwd_routes()
+        verify_routes = dict(VERIFY_ROUTE_LAUNCHES)
     return {"outs": outs, "launches": launches, "fwd_routes": routes,
+            "verify_routes": verify_routes,
             "wall": wall, "admit_ms": admit_ms,
             "decode_ms": decode_ms, "chunks": len(chunks), "calls": rec.calls,
             "steps": engine.scheduler.stats.steps - steps_before}
@@ -1618,6 +1925,7 @@ def phase_serve_chunked(dev, model, cfg):
             "kv": kind, "requests": CHUNKED_REQUESTS, "chunks": chunks,
             "prefix_hits": hits, "pages_reused": [len(p) for p, _ in matched],
             "decode_steps": steps, "launches": launches,
+            "verify_routes": r["verify_routes"],
             "admit_ms_chunked_miss": admit_ms[0],
             "admit_ms_chunked_hit_median": float(np.median(admit_ms[1:])),
             "admit_ms_dense_median": float(np.median(dense_ms)),
@@ -1634,6 +1942,8 @@ def phase_serve_chunked(dev, model, cfg):
             f"{kind}_{want_chunks}_chunks": chunks == want_chunks,
             f"{kind}_verify_launches_16_per_chunk":
                 launches["paged_verify"] == cfg.n_layers * want_chunks,
+            f"{kind}_verify_launches_all_wgmma":
+                all_on(r["verify_routes"], "wgmma", launches["paged_verify"]),
             f"{kind}_decode_launches_16_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
             f"{kind}_no_dense_prefill": (launches["attn_fwd"] == 0
@@ -1708,7 +2018,7 @@ def phase_serve_alibi(dev, model):
         runs[name] = {
             "kv": kind, "slots": slots, "requests": n_req, "new_tokens": new_tokens,
             "prefill_chunk": chunk, "decode_steps": r["steps"], "launches": launches,
-            "fwd_routes": r["fwd_routes"],
+            "fwd_routes": r["fwd_routes"], "verify_routes": r["verify_routes"],
             "admit_ms_median": float(np.median(r["admit_ms"])),
             "decode_ms_per_step_median": float(np.median(r["decode_ms"])),
             "decode_ms_per_step_mean": float(np.mean(r["decode_ms"])),
@@ -1734,6 +2044,8 @@ def phase_serve_alibi(dev, model):
                 f"{name}_7_prefix_hits": hits == CHUNKED_REQUESTS - 1,
                 f"{name}_verify_launches_16_per_chunk":
                     launches["paged_verify"] == cfg.n_layers * want_chunks,
+                f"{name}_verify_launches_all_wgmma":
+                    all_on(r["verify_routes"], "wgmma", launches["paged_verify"]),
                 f"{name}_no_dense_prefill": (launches["attn_fwd"] == 0
                                              and all_on(r["fwd_routes"], "wgmma", 0)),
             })
@@ -2650,6 +2962,12 @@ def phase_time(dev, train_rec, train_alibi_rec, packed_rec):
         emit({"phase": "time", "kernel": "paged_verify", "case": name,
               "shape": [1, hq, hkv, d, ps, pps], "tokens": CHUNK, "kv": kind,
               "library": PAGED_LIBRARY, **timings[name]})
+    # a speculative verify's shape: 4 tokens of 8 sequences of 2048
+    name = "verify_bf16_T4_B8_ctx2048"
+    timings[name] = time_paged(gen, dev, "bf16", 8, [2048] * 8, 4)
+    emit({"phase": "time", "kernel": "paged_verify", "case": name,
+          "shape": [8, hq, hkv, d, ps, pps], "tokens": 4, "kv": "bf16",
+          "library": PAGED_LIBRARY, **timings[name]})
     # ALiBi: decode from bf16 and int8 KV (8 sequences of 2048), verify of a
     # 256-token chunk from bf16 KV
     for name, kind, batch, t_new in (("decode_bf16_B8_ctx2048_alibi", "bf16", 8, 0),
@@ -2681,9 +2999,13 @@ def paged_work(kind, b, hq, hkv, d, lengths, t_new):
 def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
     """One paged kernel (decode, or verify of ``t_new`` tokens) at the
     serving model's heads from bf16 q and ``kind`` pools, with ALiBi when
-    ``alibi``: its time, its plain version's, its bound (the bias adds no
-    bytes) and its error against the plain version."""
+    ``alibi``: its time (``ms``: CUDA events around one wrapper call, warm,
+    host time included; ``device_ms``: the call's kernel from the profiler,
+    each call after an L2 flush), its plain version's, its bound (the bias
+    adds no bytes), its error against the plain version, its key splits,
+    route and CTAs."""
     import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
     from flash_attention_dlrs_tpu_torch.ops.decode import (
         paged_decode_attention, paged_decode_plain, paged_verify_attention,
         paged_verify_plain,
@@ -2701,17 +3023,26 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
     else:
         kernel = lambda: paged_decode_attention(*args, **kw)  # noqa: E731
         plain = lambda: paged_decode_plain(*args, **kw)  # noqa: E731
+    dm.DECODE_SPLITS.clear()
+    dm.VERIFY_SPLITS.clear()
+    for r in dm.VERIFY_ROUTE_LAUNCHES:
+        dm.VERIFY_ROUTE_LAUNCHES[r] = 0
     err = float((kernel().float() - plain().float()).abs().max())
+    splits = next(iter(dm.VERIFY_SPLITS if t_new else dm.DECODE_SPLITS))
+    route = (next(r for r, n in dm.VERIFY_ROUTE_LAUNCHES.items() if n) if t_new else "cuda")
     ms = median_ms(kernel)
+    dev_ms = device_ms(kernel, between=l2_flush(dev))
     plain_ms = median_ms(plain, warmup=1, reps=3)
     flops, nbytes = paged_work(kind, b, hq, hkv, d, lengths, t_new)
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     del q, kp, vp, args
     torch.cuda.empty_cache()
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "flops": flops, "gb_per_s": nbytes / ms / 1e6,
-            "tflops": flops / ms / 1e9, "max_abs_err": err}
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / dev_ms, "bytes": nbytes,
+            "flops": flops, "gb_per_s": nbytes / dev_ms / 1e6,
+            "tflops": flops / dev_ms / 1e9, "max_abs_err": err, "splits": splits,
+            "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
 
 
 def emit_kernels(fwd_res, dec_res, paths, timings):
@@ -2747,23 +3078,29 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
         kernels.append({
             "name": f"paged_decode[{kind}]", "route": "cuda", "source": DECODE_SOURCE,
             "replaces": DECODE_REPLACES, "launches": launches, "max_abs_err": err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "splits": t["splits"], "ctas": t["ctas"]})
     for kind in ("bf16", "int8"):
         t = timings[f"verify_{kind}_T256_ctx2048"]
         kernels.append({
             "name": f"paged_verify[{kind}]", "route": "cuda", "source": VERIFY_SOURCE,
-            "replaces": VERIFY_REPLACES,
+            "verify_route": t["route"], "replaces": VERIFY_REPLACES,
             "launches": chunked[kind]["launches"]["paged_verify"],
             "max_abs_err": dec_res[f"verify_T256_{kind}"]["max_abs_err_o"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None})
+            "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "splits": t["splits"], "ctas": t["ctas"]})
     def entry(name, source, replaces, launches, t, err=None):
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches, "max_abs_err": t["max_abs_err"] if err is None else err,
                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
-        if "route" in t:  # the kernel route (ops/fwd_kernel.py fwd_route, bwd_kernel.py bwd_route)
+        if name.startswith("paged_"):  # device time, key splits, CTAs
+            rec.update(device_ms=t["device_ms"], splits=t["splits"], ctas=t["ctas"])
+            if name.startswith("paged_verify"):
+                rec["verify_route"] = t["route"]
+        elif "route" in t:  # ops/fwd_kernel.py fwd_route, ops/bwd_kernel.py bwd_route
             rec["bwd_route" if name.startswith("attn_bwd") else "fwd_route"] = t["route"]
         return rec
 
@@ -2821,13 +3158,25 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
 # times the forward (mode-free at the serving prefill, training and bench
 # shapes; ALiBi and ALiBi + dropout at the serving and training shapes),
 # the backward family at the training shape (mode-free, ALiBi + dropout,
-# and with the packed loader's segment ids of phase packed), decode (bf16
-# KV, 8 x 2048 tokens) and verify (a 256-token chunk at 2048, bf16 KV) with
-# time_fwd / time_bwd / time_paged.
+# and with the packed loader's segment ids of phase packed) with time_fwd /
+# time_bwd, and the paged kernels at the timing shapes of phase time
+# (decode_serve, decode at 8 and 32 sequences of 2048 tokens from bf16 and
+# int8 KV, verify of a 256-token chunk at 2048 from bf16 and int8 KV and
+# of 4 tokens at 8 x 2048): each call's ms (CUDA events, warm) and
+# device_ms (this script's device_ms after an L2 flush, loaded from SMOKE,
+# on the tree's own package); and the serving model's decode step at 4
+# slots (phase serve's model and first four prompts, 32 new tokens), its
+# median wall ms synchronized around each step.
 PAIR_RUN = """
-import json, numpy as np, torch
+import importlib.util, json, numpy as np, torch
 import chip_smoke as c
+spec = importlib.util.spec_from_file_location("smoke_change", "SMOKE")
+change = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(change)
+from flash_attention_dlrs_tpu_torch.ops.decode import (
+    paged_decode_attention, paged_verify_attention)
 dev = torch.device("cuda", 0)
+flush = change.l2_flush(dev)
 c.phase_build()
 gen = torch.Generator(device=dev).manual_seed(3)
 out = {}
@@ -2847,9 +3196,37 @@ for tag, mod, seg in (("", None, None), ("[alibi+dropout]", both, None),
     rows = c.time_bwd(dev, gen, 8, 32, 8, 2048, 128, mod=mod, seg=seg)
     for k in ("attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
         out[k + tag + "_train_B8_H32_N2048"] = rows[k]["ms"]
-out["paged_decode_bf16_B8_ctx2048"] = c.time_paged(gen, dev, "bf16", 8, [2048] * 8, 0)["ms"]
-out["paged_verify_bf16_T256_ctx2048"] = c.time_paged(gen, dev, "bf16", 1, [2048],
-                                                     c.CHUNK)["ms"]
+serve_lengths = [n + c.SERVE_NEW_TOKENS for n in c.SERVE_PROMPTS[:4]]
+for name, kind, b, lengths, t_new in (
+        ("decode_serve", "bf16", 4, serve_lengths, 0),
+        ("decode_bf16_B8_ctx2048", "bf16", 8, [2048] * 8, 0),
+        ("decode_int8_B8_ctx2048", "int8", 8, [2048] * 8, 0),
+        ("decode_bf16_B32_ctx2048", "bf16", 32, [2048] * 32, 0),
+        ("decode_int8_B32_ctx2048", "int8", 32, [2048] * 32, 0),
+        ("verify_bf16_T256_ctx2048", "bf16", 1, [2048], c.CHUNK),
+        ("verify_int8_T256_ctx2048", "int8", 1, [2048], c.CHUNK),
+        ("verify_bf16_T4_B8_ctx2048", "bf16", 8, [2048] * 8, 4)):
+    q, kp, vp, lens, table = c._paged_inputs(
+        gen, dev, torch.bfloat16, kind, b, 16, 8, 128, c.SERVE_PAGE, c.SERVE_PPS, lengths,
+        num_pages=b * c.SERVE_PPS + 8, t_new=t_new)
+    attend = paged_verify_attention if t_new else paged_decode_attention
+    call = lambda: attend(q, kp, vp, lens, table, sm_scale=128 ** -0.5)
+    out[name] = c.median_ms(call)
+    out[name + "_device"] = change.device_ms(call, between=flush)
+del q, kp, vp
+from flash_attention_dlrs_tpu_torch.models import ModelConfig, init_params_numpy, params_from_jax
+from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+cfg = ModelConfig(**c.SERVE_CFG, dtype=torch.bfloat16)
+model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+engine = DecodeEngine(model, cfg, num_pages=80, page_size=128, num_slots=4, pages_per_seq=17,
+                      kv_dtype=torch.bfloat16, device=dev)
+engine.generate([[1] * n for n in (128, 256, 512, 1024, 2048)], max_new_tokens=2)  # warm-up
+steps = []
+engine._decode_step = c._timed(engine._decode_step, steps)
+rng = np.random.default_rng(0)
+engine.generate([rng.integers(0, cfg.vocab_size, n).tolist() for n in c.SERVE_PROMPTS[:4]],
+                max_new_tokens=c.SERVE_NEW_TOKENS)
+out["serve_decode_step_ms"] = float(np.median(steps))
 print("PAIR " + json.dumps(out), flush=True)
 """
 
@@ -2863,7 +3240,8 @@ def pair(parent_dir) -> None:
     trees = {"parent": Path(parent_dir).resolve(), "change": Path(__file__).resolve().parent}
     print(card_line(), flush=True)
     for i, name in enumerate(("parent", "change", "change", "parent")):
-        out = subprocess.run([sys.executable, "-c", PAIR_RUN], cwd=trees[name],
+        code = PAIR_RUN.replace("SMOKE", str(Path(__file__).resolve()))
+        out = subprocess.run([sys.executable, "-c", code], cwd=trees[name],
                              capture_output=True, text=True, timeout=900)
         if out.returncode:
             raise RuntimeError(f"pair run {i + 1} ({name}) failed:\n{out.stderr[-4000:]}")
@@ -2892,12 +3270,13 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
-    mutant_builds = phase_build(mutants=True)
+    bwd_mutants, paged_mutants = phase_build(mutants=True)
     phase_mask(dev)
     fwd_res = phase_fwd(dev)
     phase_bwd(dev)
-    phase_mutants(dev, mutant_builds)
+    phase_mutants(dev, bwd_mutants)
     dec_res = phase_decode(dev)
+    phase_paged_mutants(dev, paged_mutants)
     serve_rec, model, cfg = phase_serve(dev)
     quant_runs = phase_serve_quant(dev, model, cfg)
     chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg)

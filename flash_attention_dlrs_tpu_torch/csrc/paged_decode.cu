@@ -1,18 +1,20 @@
-// Paged decode attention for Hopper, sm_90a.
+// Paged decode attention for Hopper, sm_90a: split-KV on asynchronous page
+// copies.
 //
 // Replaces the single-token path of the TPU kernel
-//   flash_attention_dlrs_tpu/ops/decode.py  _decode_kernel  (via _paged_decode,
-//   paged_decode_attention)
+//   flash_attention_dlrs_tpu/ops/decode.py:44  _decode_kernel  (called at
+//   decode.py:438 by _paged_decode, via paged_decode_attention)
 // for every pool kind of paged.cuh: float32 / bfloat16 / float16 values and
 // int8 / packed int4 / fp8 (e4m3fn, e5m2) payloads with per-token scales,
-// with ALiBi.  Its multi-token verify mode is paged_verify.cu.
+// with the logit softcap and ALiBi.  Its multi-token verify mode is
+// paged_verify.cu.
 //
 // Computes, for each sequence b and q head h,
 //   O[b, h] = softmax(S[b, h, :len]) V[b, :len]
 // where K/V rows are gathered through the page table.  q is [B, Hq, d];
 // lengths [B] int32 (clamped to pages_per_seq * page_size); page_table
 // [B, pages_per_seq] int32.  Optionally writes the natural-base logsumexp
-// per (b, h).  A sequence of length 0 gets O = 0 and lse = DEFAULT_MASK_VALUE.
+// per (b, h).  A sequence of length 0 gets O = 0 and lse = kMaskValue.
 // q and O may be fp32, bf16 or fp16; all arithmetic is fp32.  The scores:
 //  * value pools: S = scale * q . k (+ softcap), and P V in fp32;
 //  * quantized pools, the TPU kernel's arithmetic: q is pre-scaled in its
@@ -27,296 +29,60 @@
 //  Softcap applies after the scales, then ALiBi's true bias
 //  -m_h * (len - 1 - pos) (the single query sits at len - 1), never inside
 //  the integer dot; the lse is then the true one (the wrapper publishes it
-//  shifted by +m_h * (len - 1), the JAX convention).  The TPU kernel added
-//  the separable +m_h * pos instead; the true form costs the same FMA here
-//  and keeps the scores small.
+//  shifted by +m_h * (len - 1), the JAX convention).
 //
 // Bound on this card.  Decode is bound by bytes: every step reads each live
 // K/V row once (2 * len * d * bytes per kv head, plus 8 bytes of scales per
-// token when quantized) and does only 2 flops per byte of bf16 K/V.  The
-// floor is those bytes over 3.35 TB/s: int8 halves bf16's, int4 quarters it.
-// What the design does about it: one CTA per (b, kv head) serves all Hq/Hkv
-// q heads of its GQA group, so each K/V row is read from device memory once
-// per step, not once per q head; a 64-token tile of K and V is staged with
-// 16-byte loads that are all issued before any is consumed, so a tile costs
-// about one memory round trip; int8/int4 K stay 8-bit in shared memory and
-// the scores run on __dp4a, four products an instruction.  int4 reads each
-// stored byte row once per token it holds (twice per page, the second from
-// L2).  It does not carry over the TPU's cross-cell DMA hand-off, which
-// relied on a strictly sequential grid; CUDA blocks run in no order.  With
-// only B*Hkv CTAs the card is under-filled at small batch: a split-KV
-// version with a combine pass is the next step (ROADMAP queue 2).
-//
-// Layout: blockDim = d threads (64 or 128).  Per tile of 64 tokens: all
-// threads stage K and V rows in shared memory (V as fp32; K as fp32, or as
-// packed int8 words on the integer route), each (head, token) score is a
-// dot over d by one thread, one warp per head runs the online softmax update
-// (exact running max), and thread c accumulates output column c of every
-// head of the group.
-
-#include <math.h>
+// token when quantized) and does about 2 operations per byte of bf16 K/V,
+// far below the ~295 at which the tensor cores would matter, so the
+// products stay on the CUDA cores and the design is about keeping the
+// memory system busy.  The floor is those bytes over 3.35 TB/s.
+// What the design does about it:
+//  * Split-KV.  The grid is (splits x head pairs, Hkv, B): the host's
+//    planner (ops/decode.py decode_splits, static shapes only) cuts each
+//    page table into runs of whole pages so that a small batch still puts
+//    about two CTAs on every SM.  One CTA serves two q heads of a GQA group,
+//    so each K/V row is read from device memory once per step at G <= 2
+//    (and from L2 by the neighbouring CTA beyond).  A CTA whose split
+//    begins past its sequence's length exits at once with an empty partial;
+//    the last CTA of each (b, kv head, head pair) to finish merges the
+//    splits in split order (merge_rows), so a call is one launch.
+//  * Asynchronous page copies.  K, V (and the scales) of a tile of 64 stored
+//    rows land in a ring of 2-4 shared-memory stages tracked by mbarriers,
+//    STAGES - 1 tiles in flight while one is computed.  A tile inside one
+//    page is one 1-D bulk copy per tensor (a kv head's run of a page is
+//    contiguous in the [Hkv, P, rows, d] pool); with pages smaller than the
+//    tile each row takes 16-byte cp.asyncs at its own address.  K and V
+//    stay in their stored type in shared memory and are converted in
+//    registers; an int4 row is staged once and both its tokens are read
+//    from it.
+//  * No per-tile softmax barrier.  The 256 threads are 32 groups of 8
+//    lanes; a group takes every 32nd row of each tile, its lanes d / 8
+//    columns each (16-byte reads of one row), and keeps its own running
+//    max, row sum and O for the CTA's two heads; the groups' states are
+//    merged once at the end in a fixed order.  Each lane's work on a tile
+//    is a chain of dependent shuffles and FMAs, so the CTA is wide (8
+//    warps, two CTAs an SM) to hide their latency.  int8 / int4 scores stay
+//    __dp4a; their V values convert by a byte permute (paged.cuh
+//    word_values).
+//  * The softcap and ALiBi are template flags, not per-score branches.
+// What is left: a small call (8 sequences of 2048 tokens of int8) takes
+// ~15 us beyond its bytes whatever its arithmetic (copies of the kernel
+// without the scores, or without P V, take as long): the prologue, the
+// first cold page copies and the merge's round trips, which no split
+// count hides.
+// It does not carry over the TPU's cross-cell DMA hand-off, which relied on
+// a strictly sequential grid; CUDA blocks run in no order.
 
 #include "paged.cuh"
 
 namespace {
 
-constexpr int TILE = 64;  // tokens staged in shared memory per step
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;
-
-// dtype codes of q and O: 0 = float32, 1 = bfloat16, 2 = float16
-__device__ __forceinline__ float load_f(const void* p, size_t i, int dt) {
-  switch (dt) {
-    case 0: return static_cast<const float*>(p)[i];
-    case 1: return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-    default: return __half2float(static_cast<const __half*>(p)[i]);
-  }
-}
-
-__device__ __forceinline__ void store_f(void* p, size_t i, int dt, float x) {
-  switch (dt) {
-    case 0: static_cast<float*>(p)[i] = x; break;
-    case 1: static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(x); break;
-    default: static_cast<__half*>(p)[i] = __float2half_rn(x); break;
-  }
-}
-
-template <int D>
-__host__ __device__ size_t smem_floats(int G) {
-  // sQ [G][D], sQi [G][D/4] words, sK [TILE][D+1], sV [TILE][D],
-  // sS [G][TILE], sAcc [G][D], sM/sL/sAlpha/sQc [G], sKs/sVs [TILE];
-  // rounded up to keep the offsets after it 8-byte aligned.
-  const size_t f = size_t(G) * D + size_t(G) * (D / 4) + size_t(TILE) * (D + 1) +
-                   size_t(TILE) * D + size_t(G) * TILE + size_t(G) * D +
-                   4 * size_t(G) + 2 * size_t(TILE);
-  return (f + 1) & ~size_t(1);
-}
-
-template <int D>
-size_t smem_bytes(int G) {
-  return smem_floats<D>(G) * sizeof(float) + TILE * (sizeof(size_t) + sizeof(int));
-}
-
-template <int KIND, int D>
-__global__ void __launch_bounds__(D)
-paged_decode_kernel(const void* __restrict__ q, int q_dtype,
-                    const void* __restrict__ k_pages,
-                    const void* __restrict__ v_pages,
-                    const float* __restrict__ k_scales,
-                    const float* __restrict__ v_scales,
-                    const int* __restrict__ lengths,
-                    const int* __restrict__ page_table, void* __restrict__ o,
-                    float* __restrict__ lse, int Hq, int Hkv, int P,
-                    int page_size, int pages_per_seq, float sm_scale,
-                    float softcap, const float* __restrict__ slopes) {
-  constexpr bool QUANT = is_quantized(KIND);
-  constexpr bool INT_ROUTE = KIND == kI8 || KIND == kI4;
-  constexpr int EB = stored_bytes(KIND);
-  constexpr int VEC = 16 / EB;               // elements per 16-byte chunk
-  constexpr int CPR = D / VEC;               // 16-byte chunks per row
-  constexpr int ITERS = TILE * CPR / D;      // chunks per thread per tile
-  constexpr int KS = D + 1;                  // fp32 K row stride (floats)
-  constexpr int KW = D / 4 + 1;              // int8 K row stride (words)
-  constexpr int NWARPS = D / 32;
-  const int G = Hq / Hkv;
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  uint32_t* sQi = reinterpret_cast<uint32_t*>(sQ + G * D);
-  float* sK = reinterpret_cast<float*>(sQi + G * (D / 4));
-  uint32_t* sKi = reinterpret_cast<uint32_t*>(sK);  // integer route
-  float* sV = sK + TILE * KS;
-  float* sS = sV + TILE * D;
-  float* sAcc = sS + G * TILE;
-  float* sM = sAcc + G * D;
-  float* sL = sM + G;
-  float* sAlpha = sL + G;
-  float* sQc = sAlpha + G;
-  float* sKs = sQc + G;
-  float* sVs = sKs + TILE;
-  size_t* sOff = reinterpret_cast<size_t*>(smem + smem_floats<D>(G));
-  int* sHi = reinterpret_cast<int*>(sOff + TILE);
-
-  int len = lengths[b];
-  len = max(0, min(len, pages_per_seq * page_size));
-  const int h0 = kvh * G;
-
-  for (int idx = tid; idx < G * D; idx += D) {
-    float x = load_f(q, (size_t(b) * Hq + h0) * D + idx, q_dtype);
-    // quantized pools: q pre-scaled in its own dtype (sm_scale arrives
-    // rounded to it, so the product is exact before the rounding)
-    if (QUANT) x = round_to(x * sm_scale, q_dtype);
-    sQ[idx] = x;
-    sAcc[idx] = 0.f;
-  }
-  for (int g = tid; g < G; g += D) {
-    sM[g] = -INFINITY;
-    sL[g] = 0.f;
-  }
-  if (INT_ROUTE) {
-    __syncthreads();
-    for (int g = warp; g < G; g += NWARPS) {
-      const float* qr = sQ + g * D;
-      float qa = 0.f;
-      for (int c = lane; c < D; c += 32) qa = fmaxf(qa, fabsf(qr[c]));
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        qa = fmaxf(qa, __shfl_xor_sync(0xffffffffu, qa, off));
-      const float inv = qa > 0.f ? 127.f / qa : 0.f;
-      for (int w = lane; w < D / 4; w += 32) {
-        uint32_t word = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int v = __float2int_rn(qr[4 * w + j] * inv);
-          word |= (uint32_t(v) & 0xFFu) << (8 * j);
-        }
-        sQi[g * (D / 4) + w] = word;
-      }
-      if (lane == 0) sQc[g] = qa * (1.0f / 127.0f);
-    }
-  }
-
-  const char* kb = static_cast<const char*>(k_pages);
-  const char* vb = static_cast<const char*>(v_pages);
-  const int* table = page_table + size_t(b) * pages_per_seq;
-  for (int t0 = 0; t0 < len; t0 += TILE) {
-    const int n = min(TILE, len - t0);
-    __syncthreads();  // previous tile fully consumed
-    for (int r = tid; r < n; r += D) {
-      const int pos = t0 + r;
-      const int page = table[pos / page_size];
-      const int off = pos % page_size;
-      const TokenAddr a = token_addr(KIND, kvh, page, off, P, page_size, D);
-      sOff[r] = a.row;
-      sHi[r] = a.hi;
-      if (QUANT) {
-        const size_t si = scale_index(kvh, page, off, P, page_size);
-        sKs[r] = k_scales[si];
-        sVs[r] = v_scales[si];
-      }
-    }
-    __syncthreads();
-    // Every load of the tile in flight before the first is used.
-    uint4 kraw[ITERS], vraw[ITERS];
-#pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int idx = tid + it * D;
-      const int r = idx / CPR, c = (idx % CPR) * VEC;
-      if (r < n) {
-        kraw[it] = *reinterpret_cast<const uint4*>(kb + (sOff[r] + c) * EB);
-        vraw[it] = *reinterpret_cast<const uint4*>(vb + (sOff[r] + c) * EB);
-      }
-    }
-#pragma unroll
-    for (int it = 0; it < ITERS; ++it) {
-      const int idx = tid + it * D;
-      const int r = idx / CPR, c = (idx % CPR) * VEC;
-      if (r < n) {
-        const int hi = sHi[r];
-        if (INT_ROUTE) {
-          const uint32_t w[4] = {kraw[it].x, kraw[it].y, kraw[it].z, kraw[it].w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) sKi[r * KW + c / 4 + j] = s8x4(KIND, w[j], hi);
-        } else {
-          chunk_values(KIND, kraw[it], hi, sK + r * KS + c);
-        }
-        chunk_values(KIND, vraw[it], hi, sV + r * D + c);
-      }
-    }
-    __syncthreads();
-
-    // Scores for every (head, token) pair of the tile.
-    for (int pair = tid; pair < G * n; pair += D) {
-      const int g = pair / n, r = pair % n;
-      float x;
-      if (INT_ROUTE) {
-        const uint32_t* qr = sQi + g * (D / 4);
-        const uint32_t* kr = sKi + r * KW;
-        int acc = 0;
-#pragma unroll 8
-        for (int w = 0; w < D / 4; ++w) acc = __dp4a(int(qr[w]), int(kr[w]), acc);
-        x = float(acc) * sQc[g] * sKs[r];
-      } else {
-        const float* qr = sQ + g * D;
-        const float* kr = sK + r * KS;
-        float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;  // split FMA chains
-#pragma unroll 8
-        for (int c = 0; c < D; c += 4) {
-          d0 = fmaf(qr[c], kr[c], d0);
-          d1 = fmaf(qr[c + 1], kr[c + 1], d1);
-          d2 = fmaf(qr[c + 2], kr[c + 2], d2);
-          d3 = fmaf(qr[c + 3], kr[c + 3], d3);
-        }
-        const float dot = (d0 + d1) + (d2 + d3);
-        x = QUANT ? dot * sKs[r] : dot * sm_scale;
-      }
-      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-      if (slopes != nullptr) x -= slopes[h0 + g] * float(len - 1 - (t0 + r));
-      sS[g * TILE + r] = x;
-    }
-    __syncthreads();
-
-    // Online softmax update, one warp per head.  Quantized pools: the row
-    // sum takes P, the P V product P * v_scale rounded to q's dtype.
-    for (int g = warp; g < G; g += NWARPS) {
-      float* srow = sS + g * TILE;
-      float mx = -INFINITY;
-      for (int r = lane; r < n; r += 32) mx = fmaxf(mx, srow[r]);
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sM[g];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);  // 0 on the first tile
-      float sum = 0.f;
-      for (int r = lane; r < n; r += 32) {
-        const float p = expf(srow[r] - m_new);
-        srow[r] = QUANT ? round_to(p * sVs[r], q_dtype) : p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (lane == 0) {
-        sL[g] = sL[g] * alpha + sum;
-        sM[g] = m_new;
-        sAlpha[g] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // Output column `tid` of every head in the group.
-    for (int g = 0; g < G; ++g) {
-      const float* prow = sS + g * TILE;
-      float a0 = sAcc[g * D + tid] * sAlpha[g], a1 = 0.f;  // split FMA chains
-      int r = 0;
-      for (; r + 1 < n; r += 2) {
-        a0 = fmaf(prow[r], sV[r * D + tid], a0);
-        a1 = fmaf(prow[r + 1], sV[(r + 1) * D + tid], a1);
-      }
-      if (r < n) a0 = fmaf(prow[r], sV[r * D + tid], a0);
-      sAcc[g * D + tid] = a0 + a1;
-    }
-  }
-  __syncthreads();
-
-  for (int g = 0; g < G; ++g) {
-    const float l = sL[g];
-    const float out = l > 0.f ? sAcc[g * D + tid] / l : 0.f;
-    store_f(o, (size_t(b) * Hq + h0 + g) * D + tid, q_dtype, out);
-  }
-  if (lse != nullptr) {
-    for (int g = tid; g < G; g += D) {
-      const float l = sL[g];
-      lse[size_t(b) * Hq + h0 + g] = l > 0.f ? sM[g] + logf(l) : kMaskValue;
-    }
-  }
-}
+constexpr int THREADS = 256;
+constexpr int GROUPS = THREADS / 8;   // 8 lanes each
+constexpr int TILE = 64;              // stored rows a stage
+constexpr int PASSES = TILE / GROUPS;  // rows of a tile each group takes
+constexpr int HB = 2;                 // q heads a CTA serves
 
 struct Args {
   const void* q;
@@ -326,31 +92,544 @@ struct Args {
   const int *lengths, *page_table;
   void* o;
   float* lse;
-  int B, Hq, Hkv, P, page_size, pages_per_seq;
+  float *part_o, *part_lse;  // [splits, B * Hq, D] and [splits, B * Hq] when splits > 1
+  unsigned* counters;        // [B * Hkv * head pairs], zero between calls, when splits > 1
+  int B, Hq, Hkv, P, page_size, pages_per_seq, splits, pages_per_split;
   float sm_scale, softcap;
   const float* slopes;
   cudaStream_t stream;
 };
 
+// Shared memory of one CTA, in bytes from a 128-byte aligned base: the K and
+// V stages (stored rows as they are in the pool), each stage's scales (K
+// and V, low then high nibble's token for int4), q in lane order (fp32, and
+// int8 words on the integer route), the groups' running maxima, the warps'
+// merged O and row sums, then the stages' full barriers.
 template <int KIND, int D>
-int launch(const Args& a) {
-  auto kernel = paged_decode_kernel<KIND, D>;
-  const size_t smem = smem_bytes<D>(a.Hq / a.Hkv);
+struct Geometry {
+  static constexpr int EB = stored_bytes(KIND);
+  static constexpr bool QUANT = is_quantized(KIND);
+  static constexpr bool INT_ROUTE = KIND == kI8 || KIND == kI4;
+  static constexpr int NTOK = KIND == kI4 ? 2 : 1;  // tokens a stored row holds
+  static constexpr int ROW_BYTES = D * EB;
+  static constexpr int CB = ROW_BYTES / 8 < 16 ? ROW_BYTES / 8 : 16;  // bytes a lane reads at once
+  static constexpr int NCH = ROW_BYTES / (8 * CB);  // reads a lane makes of a row
+  static constexpr int VEC = CB / EB;               // elements of one read
+  static constexpr int E = D / 8;                   // elements (columns) a lane owns
+  static constexpr int STAGES = EB == 1 ? 4 : EB == 2 ? 3 : 2;
+  static constexpr uint32_t TILE_BYTES = TILE * ROW_BYTES;
+  static constexpr uint32_t SC_BYTES = QUANT ? 2 * NTOK * TILE * 4 : 0;
+  static constexpr uint32_t V_OFF = STAGES * TILE_BYTES;
+  static constexpr uint32_t SC_OFF = 2 * STAGES * TILE_BYTES;
+  static constexpr uint32_t Q_OFF = SC_OFF + STAGES * SC_BYTES;
+  static constexpr uint32_t QI_OFF = Q_OFF + HB * D * 4;
+  static constexpr uint32_t QC_OFF = QI_OFF + HB * D;
+  static constexpr uint32_t M_OFF = QC_OFF + 16;
+  static constexpr uint32_t ACC_OFF = M_OFF + GROUPS * HB * 4;
+  static constexpr uint32_t L_OFF = ACC_OFF + (THREADS / 32) * HB * D * 4;
+  static constexpr uint32_t BAR_OFF = (L_OFF + (THREADS / 32) * HB * 4 + 7) & ~7u;
+  static constexpr size_t BYTES = BAR_OFF + 8 * STAGES;
+};
+
+// Column of element e (< D / 8) of lane l of a group.
+template <int KIND, int D>
+__device__ __forceinline__ int lane_col(int l, int e) {
+  using Geo = Geometry<KIND, D>;
+  return (l + 8 * (e / Geo::VEC)) * Geo::VEC + e % Geo::VEC;
+}
+
+// One lane's share of a stored row: NCH reads of CB bytes, as 32-bit words.
+template <int KIND, int D>
+__device__ __forceinline__ void read_row(const unsigned char* row, int l,
+                                         uint32_t (&w)[D / 8 * stored_bytes(KIND) / 4]) {
+  using Geo = Geometry<KIND, D>;
+  constexpr int WPR = Geo::CB / 4;  // words a read
+#pragma unroll
+  for (int k = 0; k < Geo::NCH; ++k) {
+    const unsigned char* p = row + (l + 8 * k) * Geo::CB;
+    if constexpr (Geo::CB == 16) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p);
+      w[k * WPR] = x.x;
+      w[k * WPR + 1] = x.y;
+      w[k * WPR + 2] = x.z;
+      w[k * WPR + 3] = x.w;
+    } else {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[k * WPR] = x.x;
+      w[k * WPR + 1] = x.y;
+    }
+  }
+}
+
+// The lane's D / 8 elements of a row read by read_row, as fp32 (exact for
+// every kind); `hi` picks an int4 byte's high nibble.
+template <int KIND, int N>
+__device__ __forceinline__ void row_values(const uint32_t (&w)[N], int hi, float* out) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (KIND == kF32) {
+      out[i] = __uint_as_float(w[i]);
+    } else if constexpr (KIND == kBF16) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    } else if constexpr (KIND == kF16) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    } else {
+      float f[4];
+      word_values(KIND, w[i], hi, f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[4 * i + j] = f[j];
+    }
+  }
+}
+
+__device__ __forceinline__ float group_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+__device__ __forceinline__ int group_sum(int x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// ---------------------------------------------------------------------------
+// The merge of a split call
+// ---------------------------------------------------------------------------
+
+// Counts this CTA in `counter`, the count of the CTAs of one group (the
+// CTAs whose splits cover the same rows), once every thread has written its
+// share of the CTA's partial; true in the group's last CTA, which resets the
+// counter to 0 for the next call and then sees every other CTA's partial.
+__device__ __forceinline__ bool last_of_group(unsigned* counter, int splits) {
+  __shared__ int last;
+  __threadfence();  // this thread's partial writes, before the count
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1u) == unsigned(splits - 1);
+    if (last) {
+      *counter = 0u;
+      __threadfence();  // the other CTAs' partials, before the reads below
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+// The group's merge, by its last CTA: `n` rows (row_of(i) the index of row
+// i in O, part_o [splits, rows, D] and part_lse [splits, rows]), O = sum_s
+// w_s O_s / sum_s w_s with w_s = exp(lse_s - max lse), summed in split
+// order; a partial of lse -inf weighs exactly 0 (its O is never used).  A
+// row no split saw gets O = 0 and lse kMaskValue.  lse may be null.  First
+// one warp a row takes the row's maximum and weights (a lane a split, all
+// loads at once) into `scratch` (splits * n + n floats of shared memory),
+// then each thread sums four columns of a row, several splits' loads in
+// flight at once.
+template <typename RowOf>
+__device__ __forceinline__ void merge_rows(const float* part_o, const float* part_lse,
+                                           int splits, size_t rows, int n, int D,
+                                           RowOf row_of, void* o, int o_dtype, float* lse,
+                                           float* scratch) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  float* w = scratch;                // [splits][n]: 0 where a split saw nothing
+  float* row_max = scratch + splits * n;  // [n]
+  for (int r = warp; r < n; r += warps) {
+    const size_t row = row_of(r);
+    float mx = -INFINITY;
+    for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, __ldcg(part_lse + s * rows + row));
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    for (int s = lane; s < splits; s += 32) {
+      const float ls = __ldcg(part_lse + s * rows + row);
+      w[s * n + r] = ls != -INFINITY ? expf(ls - mx) : 0.f;
+    }
+    if (lane == 0) row_max[r] = mx;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * (D / 4); i += blockDim.x) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const size_t row = row_of(r);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, w_sum = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float ws = w[s * n + r];
+      const float4 os = __ldcg(reinterpret_cast<const float4*>(part_o + (s * rows + row) * D + c));
+      w_sum += ws;
+      if (ws != 0.f) {
+        acc[0] = fmaf(ws, os.x, acc[0]);
+        acc[1] = fmaf(ws, os.y, acc[1]);
+        acc[2] = fmaf(ws, os.z, acc[2]);
+        acc[3] = fmaf(ws, os.w, acc[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store_as(o, row * D + c + j, o_dtype, w_sum > 0.f ? acc[j] / w_sum : 0.f);
+    if (lse != nullptr && c == 0) lse[row] = w_sum > 0.f ? row_max[r] + logf(w_sum) : kMaskValue;
+  }
+}
+
+template <int KIND, int D, bool CAP, bool ALIBI>
+__global__ void __launch_bounds__(THREADS, 2)
+paged_decode_kernel(const Args a, int bulk) {
+  using Geo = Geometry<KIND, D>;
+  constexpr bool QUANT = Geo::QUANT;
+  constexpr bool INT_ROUTE = Geo::INT_ROUTE;
+  constexpr int NTOK = Geo::NTOK;
+  constexpr int E = Geo::E;
+  constexpr int NW = E * Geo::EB / 4;  // words of a lane's share of a row
+  constexpr int STAGES = Geo::STAGES;
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gid = tid / 8, l8 = tid % 8;
+  const int G = a.Hq / a.Hkv, HG = (G + HB - 1) / HB;
+  const int hg = blockIdx.x % HG, split = blockIdx.x / HG;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int nh = min(HB, G - hg * HB);
+  const size_t out_row = size_t(b) * a.Hq + kvh * G + hg * HB;  // (b, first head)
+  const size_t part_row = size_t(split) * a.B * a.Hq + out_row;
+  const int ps = a.page_size;
+  const int len = max(0, min(a.lengths[b], a.pages_per_seq * ps));
+  const int p_lo = split * a.pages_per_split;
+  // The last CTA of the group merges the splits' partials.
+  auto merge = [&]() {
+    unsigned* counter = a.counters + (size_t(b) * a.Hkv + kvh) * HG + hg;
+    if (last_of_group(counter, a.splits))
+      merge_rows(a.part_o, a.part_lse, a.splits, size_t(a.B) * a.Hq, nh, D,
+                 [&](int h) { return out_row + h; }, a.o, a.q_dtype, a.lse,
+                 reinterpret_cast<float*>(smem));  // the stages are free
+  };
+  if (p_lo * ps >= len) {  // no token of the sequence in this split
+    if (a.splits > 1) {
+      if (tid < nh) a.part_lse[part_row + tid] = -INFINITY;
+      merge();
+    } else {
+      for (int i = tid; i < nh * D; i += THREADS) store_as(a.o, out_row * D + i, a.q_dtype, 0.f);
+      if (a.lse != nullptr && tid < nh) a.lse[out_row + tid] = kMaskValue;
+    }
+    return;
+  }
+  // Stored rows of this split that hold a token below len: whole pages,
+  // then the last page's first rows.
+  const int SR = KIND == kI4 ? ps / 2 : ps;
+  const int p_end = min(min(a.pages_per_seq, p_lo + a.pages_per_split), (len + ps - 1) / ps);
+  const int n_rows = (p_end - 1 - p_lo) * SR + min(SR, len - (p_end - 1) * ps);
+  const int n_tiles = (n_rows + TILE - 1) / TILE;
+  const int* table = a.page_table + size_t(b) * a.pages_per_seq;
+  const unsigned char* kb = static_cast<const unsigned char*>(a.k_pages);
+  const unsigned char* vb = static_cast<const unsigned char*>(a.v_pages);
+
+  const uint32_t s_base = sm90::smem_u32(smem);
+  auto full = [&](int s) { return s_base + Geo::BAR_OFF + 8u * s; };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) sm90::mbar_init(full(s), bulk ? 1 : THREADS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+
+  // Tile t (stored rows [t * TILE, + TILE) of the split) into stage t % STAGES.
+  auto issue = [&](int t) {
+    const int s = t % STAGES, v0 = t * TILE;
+    const uint32_t dk = s_base + s * Geo::TILE_BYTES;
+    const uint32_t dv = dk + Geo::V_OFF;
+    const uint32_t dsc = s_base + Geo::SC_OFF + s * Geo::SC_BYTES;
+    if (bulk) {  // the tile lies inside one page
+      if (tid == 0) {
+        const int page = table[p_lo + v0 / SR], r0 = v0 % SR;
+        const size_t row = (size_t(kvh) * a.P + page) * SR + r0;
+        sm90::fence_proxy_async();  // the stage's last reads come first
+        sm90::mbar_expect_tx(full(s), 2 * Geo::TILE_BYTES + Geo::SC_BYTES);
+        bulk_copy(dk, kb + row * Geo::ROW_BYTES, Geo::TILE_BYTES, full(s));
+        bulk_copy(dv, vb + row * Geo::ROW_BYTES, Geo::TILE_BYTES, full(s));
+        if constexpr (QUANT) {
+#pragma unroll
+          for (int tok = 0; tok < NTOK; ++tok) {
+            const size_t si = scale_index(kvh, page, r0 + tok * SR, a.P, ps);
+            bulk_copy(dsc + tok * TILE * 4, a.k_scales + si, TILE * 4, full(s));
+            bulk_copy(dsc + (NTOK + tok) * TILE * 4, a.v_scales + si, TILE * 4, full(s));
+          }
+        }
+      }
+    } else {  // rows at their own addresses
+      constexpr int CPR = Geo::ROW_BYTES / 16;
+      for (int idx = tid; idx < TILE * CPR; idx += THREADS) {
+        const int r = idx / CPR, c = idx % CPR, v = v0 + r;
+        if (v < n_rows) {
+          const size_t row = (size_t(kvh) * a.P + table[p_lo + v / SR]) * SR + v % SR;
+          cp_async16(dk + r * Geo::ROW_BYTES + c * 16, kb + row * Geo::ROW_BYTES + c * 16, 16);
+          cp_async16(dv + r * Geo::ROW_BYTES + c * 16, vb + row * Geo::ROW_BYTES + c * 16, 16);
+        }
+      }
+      if constexpr (QUANT) {
+        for (int idx = tid; idx < NTOK * TILE; idx += THREADS) {
+          const int tok = idx / TILE, r = idx % TILE, v = v0 + r;
+          if (v < n_rows) {
+            const size_t si = scale_index(kvh, table[p_lo + v / SR], v % SR + tok * SR, a.P, ps);
+            cp_async4(dsc + (tok * TILE + r) * 4, a.k_scales + si);
+            cp_async4(dsc + ((NTOK + tok) * TILE + r) * 4, a.v_scales + si);
+          }
+        }
+      }
+      cp_async_arrive(full(s));
+    }
+  };
+
+  // q of the CTA's heads in lane order (float4 (e / 4) * 8 + l holds lane
+  // l's elements e..e+3); quantized pools: pre-scaled in q's dtype.
+  float* sQ = reinterpret_cast<float*>(smem + Geo::Q_OFF);
+  uint32_t* sQi = reinterpret_cast<uint32_t*>(smem + Geo::QI_OFF);
+  float* sQc = reinterpret_cast<float*>(smem + Geo::QC_OFF);
+  for (int i = tid; i < HB * D; i += THREADS) {
+    const int h = i / D, c = i % D;
+    float x = 0.f;
+    if (h < nh) {
+      x = load_as_float(a.q, out_row * D + i, a.q_dtype);
+      if (QUANT) x = round_to(x * a.sm_scale, a.q_dtype);
+    }
+    const int ci = c / Geo::VEC, e = (ci / 8) * Geo::VEC + c % Geo::VEC;
+    sQ[h * D + ((e / 4) * 8 + ci % 8) * 4 + e % 4] = x;
+  }
+  __syncthreads();  // q staged, barriers initialised
+  for (int t = 0; t < min(STAGES - 1, n_tiles); ++t) issue(t);
+
+  if (INT_ROUTE) {
+    // Each head's q row as int8 words in lane order: word (e / 4) * 8 + l.
+    for (int h = warp; h < HB; h += THREADS / 32) {
+      const float* qh = sQ + h * D;
+      float qa = 0.f;
+      for (int c = lane; c < D; c += 32) qa = fmaxf(qa, fabsf(qh[c]));
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2) qa = fmaxf(qa, __shfl_xor_sync(0xffffffffu, qa, off));
+      const float inv = qa > 0.f ? 127.f / qa : 0.f;
+      for (int w = lane; w < D / 4; w += 32) {  // w = (e / 4) * 8 + l
+        uint32_t word = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int v = __float2int_rn(qh[w * 4 + j] * inv);
+          word |= (uint32_t(v) & 0xFFu) << (8 * j);
+        }
+        sQi[h * (D / 4) + w] = word;
+      }
+      if (lane == 0) sQc[h] = qa * (1.0f / 127.0f);
+    }
+    __syncthreads();
+  }
+  float qf[HB][INT_ROUTE ? 1 : E];
+  uint32_t qw[HB][INT_ROUTE ? E / 4 : 1];
+  float qc[HB], slope[HB];
+#pragma unroll
+  for (int h = 0; h < HB; ++h) {
+    if constexpr (INT_ROUTE) {
+#pragma unroll
+      for (int w = 0; w < E / 4; ++w) qw[h][w] = sQi[h * (D / 4) + w * 8 + l8];
+      qc[h] = sQc[h];
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; e += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(sQ + h * D + ((e / 4) * 8 + l8) * 4);
+        qf[h][e] = x.x;
+        qf[h][e + 1] = x.y;
+        qf[h][e + 2] = x.z;
+        qf[h][e + 3] = x.w;
+      }
+    }
+    slope[h] = ALIBI && h < nh ? a.slopes[kvh * G + hg * HB + h] : 0.f;
+  }
+
+  float m[HB], l[HB], acc[HB][E];
+#pragma unroll
+  for (int h = 0; h < HB; ++h) {
+    m[h] = -INFINITY;
+    l[h] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[h][e] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    // the stage refilled here was released by the barrier that ended tile t - 1
+    if (t + STAGES - 1 < n_tiles) issue(t + STAGES - 1);
+    const int s = t % STAGES;
+    sm90::mbar_wait(full(s), (t / STAGES) & 1);
+    const unsigned char* tk = smem + s * Geo::TILE_BYTES;
+    const unsigned char* tv = tk + Geo::V_OFF;
+    const float* tsc = reinterpret_cast<const float*>(smem + Geo::SC_OFF + s * Geo::SC_BYTES);
+
+    // Scores of the group's rows (every token, in every lane of the group).
+    float sc[PASSES][NTOK][HB];
+    int pos0[PASSES];  // position of each row's first token, -1 past the split's rows
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int r = p * GROUPS + gid, v = t * TILE + r;
+      pos0[p] = v < n_rows ? (p_lo + v / SR) * ps + v % SR : -1;
+      uint32_t kw[NW];
+      read_row<KIND, D>(tk + r * Geo::ROW_BYTES, l8, kw);
+#pragma unroll
+      for (int tok = 0; tok < NTOK; ++tok) {
+        float kf[INT_ROUTE ? 1 : E];
+        if constexpr (!INT_ROUTE) row_values<KIND>(kw, 0, kf);
+        const float ks = QUANT ? tsc[tok * TILE + r] : 1.f;
+        const int pos = pos0[p] + tok * SR;
+#pragma unroll
+        for (int h = 0; h < HB; ++h) {
+          float x;
+          if constexpr (INT_ROUTE) {
+            int d = 0;
+#pragma unroll
+            for (int w = 0; w < E / 4; ++w)
+              d = __dp4a(int(qw[h][w]), int(s8x4(KIND, kw[w], tok)), d);
+            x = float(group_sum(d)) * qc[h] * ks;
+          } else {
+            float d0 = 0.f, d1 = 0.f;  // two FMA chains
+#pragma unroll
+            for (int e = 0; e < E; e += 2) {
+              d0 = fmaf(qf[h][e], kf[e], d0);
+              d1 = fmaf(qf[h][e + 1], kf[e + 1], d1);
+            }
+            const float dot = group_sum(d0 + d1);
+            x = QUANT ? dot * ks : dot * a.sm_scale;
+          }
+          if (CAP) x = a.softcap * tanhf(x / a.softcap);
+          if (ALIBI) x -= slope[h] * float(len - 1 - pos);
+          sc[p][tok][h] = pos0[p] >= 0 && pos < len ? x : -INFINITY;
+        }
+      }
+    }
+    // The group's running max over the tile's rows; O and the row sum rescaled.
+#pragma unroll
+    for (int h = 0; h < HB; ++h) {
+      float mt = m[h];
+#pragma unroll
+      for (int p = 0; p < PASSES; ++p)
+#pragma unroll
+        for (int tok = 0; tok < NTOK; ++tok) mt = fmaxf(mt, sc[p][tok][h]);
+      if (mt > m[h]) {
+        const float alpha = __expf(m[h] - mt);  // 0 while the group saw nothing
+        l[h] *= alpha;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
+        m[h] = mt;
+      }
+    }
+    // P V.  Quantized pools: the row sum takes P, the product P * v_scale
+    // rounded to q's dtype.
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      if (pos0[p] < 0) continue;
+      const int r = p * GROUPS + gid;
+      uint32_t vw[NW];
+      read_row<KIND, D>(tv + r * Geo::ROW_BYTES, l8, vw);
+#pragma unroll
+      for (int tok = 0; tok < NTOK; ++tok) {
+        if (pos0[p] + tok * SR >= len) continue;
+        float vf[E];
+        row_values<KIND>(vw, tok, vf);
+        const float vs = QUANT ? tsc[(NTOK + tok) * TILE + r] : 1.f;
+#pragma unroll
+        for (int h = 0; h < HB; ++h) {
+          const float pe = __expf(sc[p][tok][h] - m[h]);
+          l[h] += pe;
+          const float pv = QUANT ? round_to(pe * vs, a.q_dtype) : pe;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[h][e] = fmaf(pv, vf[e], acc[h][e]);
+        }
+      }
+    }
+    __syncthreads();  // every group is done with stage s
+  }
+
+  // Merge the groups' states in a fixed order: the CTA's max, each
+  // group rescaled to it, summed within a warp (lanes 8 and 16 apart), then
+  // across the warps.
+  float* sM = reinterpret_cast<float*>(smem + Geo::M_OFF);
+  float* sAcc = reinterpret_cast<float*>(smem + Geo::ACC_OFF);
+  float* sL = reinterpret_cast<float*>(smem + Geo::L_OFF);
+  if (l8 == 0) {
+#pragma unroll
+    for (int h = 0; h < HB; ++h) sM[gid * HB + h] = m[h];
+  }
+  __syncthreads();
+  float mx[HB];
+#pragma unroll
+  for (int h = 0; h < HB; ++h) {
+    mx[h] = -INFINITY;
+    for (int g = 0; g < GROUPS; ++g) mx[h] = fmaxf(mx[h], sM[g * HB + h]);
+    const float f = m[h] == -INFINITY ? 0.f : __expf(m[h] - mx[h]);
+    l[h] *= f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float x = acc[h][e] * f;
+      x += __shfl_xor_sync(0xffffffffu, x, 8);
+      acc[h][e] = x + __shfl_xor_sync(0xffffffffu, x, 16);
+    }
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 8);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 16);
+  }
+  if (lane < 8) {
+#pragma unroll
+    for (int h = 0; h < HB; ++h) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        sAcc[(warp * HB + h) * D + lane_col<KIND, D>(lane, e)] = acc[h][e];
+      if (lane == 0) sL[warp * HB + h] = l[h];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < nh * D; i += THREADS) {
+    const int h = i / D, c = i % D;
+    float sum_l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < THREADS / 32; ++w) {
+      sum_l += sL[w * HB + h];
+      o += sAcc[(w * HB + h) * D + c];
+    }
+    const bool seen = sum_l > 0.f;
+    if (a.splits == 1) {
+      store_as(a.o, out_row * D + i, a.q_dtype, seen ? o / sum_l : 0.f);
+      if (a.lse != nullptr && c == 0) a.lse[out_row + h] = seen ? mx[h] + logf(sum_l) : kMaskValue;
+    } else {
+      a.part_o[part_row * D + i] = seen ? o / sum_l : 0.f;
+      if (c == 0) a.part_lse[part_row + h] = seen ? mx[h] + logf(sum_l) : -INFINITY;
+    }
+  }
+  if (a.splits > 1) merge();
+}
+
+template <int KIND, int D, bool CAP, bool ALIBI>
+int launch(const Args& a, int bulk) {
+  auto kernel = paged_decode_kernel<KIND, D, CAP, ALIBI>;
+  constexpr size_t smem = Geometry<KIND, D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
-  dim3 grid(a.Hkv, a.B);
-  kernel<<<grid, D, smem, a.stream>>>(
-      a.q, a.q_dtype, a.k_pages, a.v_pages, a.k_scales, a.v_scales, a.lengths,
-      a.page_table, a.o, a.lse, a.Hq, a.Hkv, a.P, a.page_size,
-      a.pages_per_seq, a.sm_scale, a.softcap, a.slopes);
+  const int G = a.Hq / a.Hkv;
+  dim3 grid(a.splits * ((G + HB - 1) / HB), a.Hkv, a.B);
+  kernel<<<grid, THREADS, smem, a.stream>>>(a, bulk);
   return int(cudaGetLastError());
 }
 
+template <int KIND, int D>
+int launch_modes(const Args& a, int bulk) {
+  const bool cap = a.softcap > 0.f, alibi = a.slopes != nullptr;
+  if (cap)
+    return alibi ? launch<KIND, D, true, true>(a, bulk) : launch<KIND, D, true, false>(a, bulk);
+  return alibi ? launch<KIND, D, false, true>(a, bulk) : launch<KIND, D, false, false>(a, bulk);
+}
+
 template <int KIND>
-int launch_d(int D, const Args& a) {
-  if (D == 64) return launch<KIND, 64>(a);
-  if (D == 128) return launch<KIND, 128>(a);
+int launch_kind(int D, const Args& a) {
+  // Bulk copies take a tile of stored rows that lies inside one page, and
+  // 16-byte aligned scales.
+  const int stored = KIND == kI4 ? a.page_size / 2 : a.page_size;
+  const bool aligned = !is_quantized(KIND) ||
+                       (reinterpret_cast<uintptr_t>(a.k_scales) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(a.v_scales) % 16 == 0);
+  const int bulk = stored % TILE == 0 && aligned;
+  if (D == 64) return launch_modes<KIND, 64>(a, bulk);
+  if (D == 128) return launch_modes<KIND, 128>(a, bulk);
   return int(cudaErrorInvalidValue);
 }
 
@@ -360,36 +639,63 @@ int launch_d(int D, const Args& a) {
 // int4 pool stores page_size/2 rows).  Quantized kinds need k_scales and
 // v_scales [Hkv, P, page_size] fp32 and take sm_scale rounded to q's dtype;
 // value kinds ignore the scale pointers.  lse may be null.  slopes: [Hq]
-// fp32 ALiBi slopes on the device, or null.  Pools must be
-// 16-byte aligned.  A GQA group too large for shared memory is refused by
-// cudaFuncSetAttribute and reported through the return code.  Returns
-// cudaGetLastError() after the launch (0 on success); launches nothing for
-// an empty batch.
+// fp32 ALiBi slopes on the device, or null.  splits: the key splits of
+// paged.cuh (1 to pages_per_seq, as ops/decode.py decode_splits gives them:
+// ceil(pages_per_seq / ceil(pages_per_seq / splits)) == splits); above 1
+// part_o [splits, B, Hq, D] and part_lse [splits, B, Hq] fp32 scratch and
+// counters [B, Hkv, ceil(Hq / Hkv / 2)] uint32, zero before the call and
+// zero after it (no two calls may share them at once).  Pools
+// must be 16-byte aligned.  Returns cudaGetLastError() after the launch (0
+// on success); launches nothing for an empty batch.
 extern "C" int paged_decode(const void* q, int q_dtype, const void* k_pages,
                             const void* v_pages, int kv_kind,
                             const float* k_scales, const float* v_scales,
                             const int* lengths, const int* page_table, void* o,
-                            float* lse, int B, int Hq, int Hkv, int P,
-                            int page_size, int pages_per_seq, int D,
-                            float sm_scale, float softcap, const float* slopes,
-                            void* stream) {
+                            float* lse, float* part_o, float* part_lse,
+                            unsigned* counters, int B, int Hq,
+                            int Hkv, int P, int page_size, int pages_per_seq, int D,
+                            int splits, float sm_scale, float softcap,
+                            const float* slopes, void* stream) {
   if (B <= 0 || Hq <= 0) return 0;
   if (Hkv <= 0 || Hq % Hkv != 0 || page_size <= 0 || pages_per_seq <= 0 ||
       (kv_kind == kI4 && page_size % 2) ||
-      (is_quantized(kv_kind) && (k_scales == nullptr || v_scales == nullptr)))
+      (is_quantized(kv_kind) && (k_scales == nullptr || v_scales == nullptr)) ||
+      splits < 1 || splits > pages_per_seq ||
+      (splits > 1 && (part_o == nullptr || part_lse == nullptr || counters == nullptr)))
     return int(cudaErrorInvalidValue);
-  const Args a{q, q_dtype, k_pages, v_pages, k_scales, v_scales, lengths,
-               page_table, o, lse, B, Hq, Hkv, P, page_size, pages_per_seq,
+  const int per = (pages_per_seq + splits - 1) / splits;
+  if ((pages_per_seq + per - 1) / per != splits) return int(cudaErrorInvalidValue);
+  const Args a{q, q_dtype, k_pages, v_pages, k_scales, v_scales, lengths, page_table, o, lse,
+               part_o, part_lse, counters, B, Hq, Hkv, P, page_size, pages_per_seq, splits, per,
                sm_scale, softcap, slopes, static_cast<cudaStream_t>(stream)};
   switch (kv_kind) {
-    case kF32: return launch_d<kF32>(D, a);
-    case kBF16: return launch_d<kBF16>(D, a);
-    case kF16: return launch_d<kF16>(D, a);
-    case kI8: return launch_d<kI8>(D, a);
-    case kI4: return launch_d<kI4>(D, a);
-    case kE4M3: return launch_d<kE4M3>(D, a);
-    case kE5M2: return launch_d<kE5M2>(D, a);
+    case kF32: return launch_kind<kF32>(D, a);
+    case kBF16: return launch_kind<kBF16>(D, a);
+    case kF16: return launch_kind<kF16>(D, a);
+    case kI8: return launch_kind<kI8>(D, a);
+    case kI4: return launch_kind<kI4>(D, a);
+    case kE4M3: return launch_kind<kE4M3>(D, a);
+    case kE5M2: return launch_kind<kE5M2>(D, a);
     default: return int(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of the kernel instance for (kv_kind, D), in bytes;
+// 0 for a pair no instance takes.
+extern "C" int paged_decode_shared_bytes(int kv_kind, int D) {
+  auto bytes = [&](auto kind) -> int {
+    constexpr int K = decltype(kind)::value;
+    return D == 64 ? int(Geometry<K, 64>::BYTES) : D == 128 ? int(Geometry<K, 128>::BYTES) : 0;
+  };
+  switch (kv_kind) {
+    case kF32: return bytes(std::integral_constant<int, kF32>{});
+    case kBF16: return bytes(std::integral_constant<int, kBF16>{});
+    case kF16: return bytes(std::integral_constant<int, kF16>{});
+    case kI8: return bytes(std::integral_constant<int, kI8>{});
+    case kI4: return bytes(std::integral_constant<int, kI4>{});
+    case kE4M3: return bytes(std::integral_constant<int, kE4M3>{});
+    case kE5M2: return bytes(std::integral_constant<int, kE5M2>{});
+    default: return 0;
   }
 }
 

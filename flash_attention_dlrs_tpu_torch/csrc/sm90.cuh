@@ -1,10 +1,10 @@
-// Hopper (sm_90a) primitives shared by the wgmma kernels of attn_fwd_sm90.cuh
-// and attn_bwd_sm90.cuh: the CTA shape (a producer warpgroup and two
-// consumer warpgroups), mbarriers, TMA copies of 3-D tensor maps with the
-// 128-byte swizzle, wgmma shared-memory descriptors and the products
-// (m64nNk16, fp32 accumulate, A from shared memory or from registers), and
-// the host's tensor-map encoding through the runtime's driver entry point
-// (no -lcuda).
+// Hopper (sm_90a) primitives shared by the wgmma kernels of attn_fwd_sm90.cuh,
+// attn_bwd_sm90.cuh and paged_verify.cu: the forward's and backward's CTA
+// shape (a producer warpgroup and two consumer warpgroups), mbarriers, TMA
+// copies of 3-D and 2-D tensor maps with the 128-byte swizzle, wgmma
+// shared-memory descriptors and the products (m64nNk16, fp32 accumulate, A
+// from shared memory or from registers), and the host's tensor-map encoding
+// through the runtime's driver entry point (no -lcuda).
 
 #pragma once
 
@@ -55,6 +55,16 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// One TMA box of a 2-D map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -333,6 +343,25 @@ bool encode_map(CUtensorMap* map, const void* ptr, int D, int N, int heads, int 
   return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
             fp8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The 2-D map (d, rows) of a contiguous [rows, d] tensor of T (bf16 / fp16),
+// in boxes of 64 columns x `box_rows` rows, 128-byte swizzle.
+template <typename T>
+bool encode_map_2d(CUtensorMap* map, const void* ptr, int D, size_t rows, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cuuint64_t(D), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(D) * sizeof(T)};
+  const cuuint32_t box[2] = {cuuint32_t(CHUNK), cuuint32_t(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -9,8 +9,11 @@ sequence's tokens to pool pages, and ``lengths`` ``[B]`` masks each
 sequence.  Two kernels replace the TPU kernel
 ``ops/decode.py::_decode_kernel``: ``csrc/paged_decode.cu`` its single-token
 mode (:func:`paged_decode_attention`) and ``csrc/paged_verify.cu`` its
-multi-token verify mode (:func:`paged_verify_attention`).  CPU tensors take
-the plain versions, :func:`paged_decode_plain` and
+multi-token verify mode (:func:`paged_verify_attention`, on the route of
+:func:`verify_route`).  Both may cut each page table into key splits of
+whole pages (:func:`decode_splits`, from static shapes only) whose
+normalized partials are merged by lse weight (:func:`combine_partials`).
+CPU tensors take the plain versions, :func:`paged_decode_plain` and
 :func:`paged_verify_plain`: :func:`paged_reference_attention` for
 single-token value pools, and for every other mode the TPU kernel's own
 arithmetic (integer scores for int8/int4 decode, scales folded into S and
@@ -24,10 +27,11 @@ keeps the JAX package's convention, shifted by +m_h·(length − 1).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
-from .._cuda import DTYPE_CODES, CudaKernel, ptr, stream_handle
+from .._cuda import DTYPE_CODES, CudaKernel, ptr
 from .flash_attention import _normalize_alibi
 from .fwd_kernel import DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS, _slopes_on
 from .quantization import (
@@ -55,8 +59,8 @@ _POOL_ARGS = [
 DECODE_KERNEL = CudaKernel(
     "paged_decode.cu",
     "paged_decode",
-    _POOL_ARGS + [ctypes.c_void_p, ctypes.c_void_p]  # o, lse
-    + [ctypes.c_int] * 7  # B, Hq, Hkv, P, page_size, pages_per_seq, D
+    _POOL_ARGS + [ctypes.c_void_p] * 5  # o, lse, split partials O and lse, counters
+    + [ctypes.c_int] * 8  # B, Hq, Hkv, P, page_size, pages_per_seq, D, splits
     + [ctypes.c_float, ctypes.c_float]  # scale, cap
     + [ctypes.c_void_p, ctypes.c_void_p],  # ALiBi slopes, stream
 )
@@ -64,11 +68,154 @@ DECODE_KERNEL = CudaKernel(
 VERIFY_KERNEL = CudaKernel(
     "paged_verify.cu",
     "paged_verify",
-    _POOL_ARGS + [ctypes.c_void_p]  # o
-    + [ctypes.c_int] * 8  # B, Hq, Hkv, T, P, page_size, pages_per_seq, D
+    _POOL_ARGS + [ctypes.c_void_p] * 3  # o, split partials O and lse
+    + [ctypes.c_int] * 9  # B, Hq, Hkv, T, P, page_size, pages_per_seq, D, splits
     + [ctypes.c_float, ctypes.c_float]  # scale_q, cap
-    + [ctypes.c_void_p, ctypes.c_void_p],  # ALiBi slopes, stream
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],  # ALiBi slopes, route, stream
 )
+
+# Calls of each kernel by key-split count ({splits: calls}), beside its
+# launch count (one a call: the last CTA of each group merges the splits);
+# cleared by whoever reads them.
+DECODE_SPLITS: dict = {}
+VERIFY_SPLITS: dict = {}
+
+# The verify C entry's route codes (csrc/paged_verify.cu kRouteF32 /
+# kRouteWgmma) and the launches of each route.
+VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1}
+VERIFY_ROUTE_LAUNCHES = dict.fromkeys(VERIFY_ROUTE_CODES, 0)
+
+# Tokens of one stored-row tile of csrc/paged_decode.cu: the least a split
+# covers.
+SPLIT_MIN_TOKENS = 64
+# Rows of one CTA of the verify kernel's wgmma route, and the most key
+# splits it takes (its combine kernel keeps two splits' weights a lane).
+VERIFY_ROW_TILE = 128
+VERIFY_MAX_SPLITS = 64
+
+
+def _positive_int(name, value) -> int:
+    if isinstance(value, bool) or not isinstance(value, int):
+        raise TypeError(f"{name} must be a Python int, not {type(value).__name__}")
+    if value <= 0:
+        raise ValueError(f"{name} must be positive, got {value}")
+    return value
+
+
+def decode_splits(batch: int, num_kv_heads: int, pages_per_seq: int,
+                  page_size: int, num_sms: int) -> int:
+    """The number of key splits of a paged call, from static shapes only.
+
+    It never reads ``lengths`` (a device tensor: reading it would
+    synchronise every step and could not be captured in a CUDA graph).  It
+    aims at two CTAs per SM: ceil(2 · num_sms / (batch · num_kv_heads))
+    splits, each a whole number of pages and at least
+    :data:`SPLIT_MIN_TOKENS` tokens (one tile), at most one per page; the
+    count returned is the one that ``ceil(pages_per_seq / splits)`` pages
+    a split gives (:func:`split_pages`).  1 means no split."""
+    batch = _positive_int("batch", batch)
+    num_kv_heads = _positive_int("num_kv_heads", num_kv_heads)
+    pages_per_seq = _positive_int("pages_per_seq", pages_per_seq)
+    page_size = _positive_int("page_size", page_size)
+    num_sms = _positive_int("num_sms", num_sms)
+    want = -(-2 * num_sms // (batch * num_kv_heads))
+    per = max(-(-pages_per_seq // want), -(-SPLIT_MIN_TOKENS // page_size))
+    return -(-pages_per_seq // min(per, pages_per_seq))
+
+
+def split_pages(pages_per_seq: int, splits: int):
+    """(pages a split, splits) when a table of ``pages_per_seq`` pages is cut
+    into at most ``splits`` runs of whole pages: ceil(pages_per_seq /
+    splits) pages each, the last run shorter; the count is what those runs
+    need (at most ``splits``, at most one per page)."""
+    per = -(-pages_per_seq // min(_positive_int("splits", splits), pages_per_seq))
+    return per, -(-pages_per_seq // per)
+
+
+def combine_partials(o_parts, lse_parts):
+    """The merge of a split call (decode: csrc/paged_decode.cu merge_rows,
+    by the last CTA of each group; verify: csrc/paged_verify.cu
+    paged_verify_combine_kernel): ``o_parts`` [S, ..., d] fp32 partial
+    attentions, each normalized over its own keys, and ``lse_parts``
+    [S, ...] their natural-base lse (-inf where a split saw no key) merged
+    by lse weight, O = Σ w_s O_s / Σ w_s with w_s = exp(lse_s − max lse), as
+    a fold of the JAX package's ``parallel/ring.py`` ``merge_partials``
+    would.  A partial of lse −inf weighs exactly 0 (its O is never read); a
+    row no split saw gets O = 0 and lse DEFAULT_MASK_VALUE.  Returns (O
+    fp32, lse)."""
+    m = lse_parts.amax(dim=0)
+    live = ~torch.isneginf(lse_parts)
+    w = torch.where(live, torch.exp(lse_parts - torch.where(torch.isneginf(m), 0.0, m)), 0.0)
+    w_sum = w.sum(dim=0)
+    acc = (w[..., None] * torch.where(live[..., None], o_parts, 0.0)).sum(dim=0)
+    seen = w_sum > 0
+    o = torch.where(seen[..., None], acc / torch.where(seen, w_sum, 1.0)[..., None], 0.0)
+    lse = torch.where(seen, m + torch.log(torch.where(seen, w_sum, 1.0)), DEFAULT_MASK_VALUE)
+    return o, lse
+
+
+def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int) -> str:
+    """The kernel route of a verify call, from its types alone:
+
+    ========  ==========================================================
+    route     calls
+    ========  ==========================================================
+    fp32      q in float32, any pool kind (CUDA cores, true fp32)
+    wgmma     bf16 / fp16 q with a pool of q's own dtype or a quantized
+              pool (int8, int4, e4m3, e5m2): the tensor cores
+    ========  ==========================================================
+
+    ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
+    Both routes take every page size (int4: even) and d 64 or 128.  What no
+    route takes raises."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"paged verify kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+                         f"got {head_dim}")
+    if pool_kind not in POOL_KINDS:
+        raise ValueError(f"paged verify kernel takes pools of {list(POOL_KINDS)}, "
+                         f"not {pool_kind}")
+    if page_size <= 0 or (pool_kind == "int4" and page_size % 2):
+        raise ValueError(f"page_size {page_size} is not a page size of a {pool_kind} pool")
+    if q_dtype == torch.float32:
+        return "fp32"
+    if q_dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"paged verify kernel takes fp32/bf16/fp16 q, not {q_dtype}")
+    if pool_kind in DTYPE_CODES and pool_kind != q_dtype:
+        raise ValueError(
+            f"paged verify kernel takes {q_dtype} q with quantized pools or "
+            f"{q_dtype} pools, not {pool_kind}")
+    return "wgmma"
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The scratch of the split calls, per device and stream (calls on one
+# stream run one after another; calls that may run at once never share
+# it): fp32 partials, and decode's uint32 counters, which each kernel
+# leaves zero (csrc/paged_decode.cu last_of_group).  Grown, never shrunk.
+_SCRATCH: dict = {}
+
+
+def _split_scratch(splits: int, rows: int, head_dim: int, groups: int, device, stream: int):
+    """Addresses of the partial O [splits, rows, d] and lse [splits, rows]
+    and of ``groups`` counters of a split call on ``stream``; 0s without
+    a split (and for the counters, without groups)."""
+    if splits == 1:
+        return 0, 0, 0
+    need = splits * rows * (head_dim + 1)
+    key = (device.index, stream)
+    buf, counters = _SCRATCH.get(key, (None, None))
+    if buf is None or buf.numel() < need:
+        buf = torch.empty(need, dtype=torch.float32, device=device)
+    if groups and (counters is None or counters.numel() < groups):
+        counters = torch.zeros(groups, dtype=torch.int32, device=device)
+    _SCRATCH[key] = buf, counters
+    base = buf.data_ptr()
+    return (base, base + 4 * splits * rows * head_dim,
+            counters.data_ptr() if groups else 0)
 
 
 class _Pools:
@@ -108,7 +255,8 @@ class _Pools:
                     raise ValueError(
                         f"scales must be {want} float32, got "
                         f"{tuple(sc.shape)} {sc.dtype}")
-        self.kind = POOL_KINDS["int4" if self.int4 else self.k.dtype]
+        self.key = "int4" if self.int4 else self.k.dtype
+        self.kind = POOL_KINDS[self.key]
 
     def tensors(self):
         return [t for t in (self.k, self.v, self.k_sc, self.v_sc) if t is not None]
@@ -200,7 +348,9 @@ def paged_decode_attention(
     ``alibi_slopes``: see the module docstring; the returned lse is then
     shifted by +m_h·(length − 1).  The caller guarantees that every page id
     a sequence's length reaches is a valid pool page.  CPU tensors take the
-    plain versions; CUDA tensors launch ``csrc/paged_decode.cu`` or raise."""
+    plain versions; CUDA tensors launch ``csrc/paged_decode.cu`` (with the
+    key splits of :func:`decode_splits`, merged inside the launch) or
+    raise."""
     del pages_per_block
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, head_dim = q.shape
@@ -220,15 +370,24 @@ def paged_decode_attention(
                        device=q.device) if return_lse else None)
     scale = _scale_in(sm_scale, q.dtype) if pools.quantized else float(sm_scale)
     if batch:
+        num_kv_heads, pages_per_seq = pools.k.shape[0], page_indices.shape[1]
+        splits = decode_splits(batch, num_kv_heads, pages_per_seq, pools.page_size,
+                               _num_sms(q.device.index or 0))
+        groups = batch * num_kv_heads * -(-(num_q_heads // num_kv_heads) // 2)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_o, part_lse, counters = _split_scratch(
+            splits, batch * num_q_heads, head_dim, groups, q.device, stream)
         DECODE_KERNEL.launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
-            ptr(page_indices), ptr(o), ptr(lse), batch, num_q_heads,
-            pools.k.shape[0], pools.k.shape[1], pools.page_size,
-            page_indices.shape[1], head_dim, scale, float(logit_softcap),
+            ptr(page_indices), ptr(o), ptr(lse), ctypes.c_void_p(part_o),
+            ctypes.c_void_p(part_lse), ctypes.c_void_p(counters), batch,
+            num_q_heads, num_kv_heads, pools.k.shape[1], pools.page_size,
+            pages_per_seq, head_dim, splits, scale, float(logit_softcap),
             ptr(None if slopes is None else _slopes_on(slopes, q.device)),
-            stream_handle(q.device),
+            ctypes.c_void_p(stream),
         )
+        DECODE_SPLITS[splits] = DECODE_SPLITS.get(splits, 0) + 1
     if not return_lse:
         return o
     return o, publish_lse(lse, slopes, lengths, page_indices.shape[1] * pools.page_size)
@@ -254,10 +413,11 @@ def paged_verify_attention(
 
     As on the TPU, verify always takes the dequantized score route (no int8
     q), scales folded into S and P.  CPU tensors take
-    :func:`paged_verify_plain`; CUDA tensors launch
-    ``csrc/paged_verify.cu`` or raise.  bf16/fp16 q on the card needs
-    quantized pools or value pools of q's dtype.  ``alibi_slopes``: see the
-    module docstring."""
+    :func:`paged_verify_plain`; CUDA tensors launch ``csrc/paged_verify.cu``
+    on the route of :func:`verify_route` (bf16/fp16 q needs quantized pools
+    or value pools of q's dtype; the ``"wgmma"`` route splits the keys as
+    :func:`decode_splits` does, for its blocks of :data:`VERIFY_ROW_TILE`
+    rows) or raise.  ``alibi_slopes``: see the module docstring."""
     del pages_per_block
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, num_tokens, head_dim = q.shape
@@ -271,23 +431,33 @@ def paged_verify_attention(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
             logit_softcap=logit_softcap, alibi_slopes=slopes)
     _check_cuda(q, pools, lengths, page_indices, head_dim, "paged verify")
-    if (q.dtype != torch.float32 and not pools.quantized
-            and pools.k.dtype != q.dtype):
-        raise ValueError(
-            f"paged verify kernel takes {q.dtype} q with quantized pools or "
-            f"{q.dtype} pools, not {pools.k.dtype}")
+    route = verify_route(q.dtype, pools.key, pools.page_size, head_dim)
     o = torch.empty_like(q)
     if batch and num_tokens:
+        num_kv_heads, pages_per_seq = pools.k.shape[0], page_indices.shape[1]
+        splits = 1
+        if route == "wgmma":
+            # one CTA fills an SM: the planner's two an SM, of half the SMs
+            row_blocks = -(-num_tokens * (num_q_heads // num_kv_heads) // VERIFY_ROW_TILE)
+            splits = decode_splits(batch * row_blocks, num_kv_heads, pages_per_seq,
+                                   pools.page_size, max(1, _num_sms(q.device.index or 0) // 2))
+            splits = split_pages(pages_per_seq, min(splits, VERIFY_MAX_SPLITS))[1]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        part_o, part_lse, _ = _split_scratch(
+            splits, batch * num_q_heads * num_tokens, head_dim, 0, q.device, stream)
         VERIFY_KERNEL.launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
-            ptr(page_indices), ptr(o), batch, num_q_heads, pools.k.shape[0],
-            num_tokens, pools.k.shape[1], pools.page_size,
-            page_indices.shape[1], head_dim, _scale_in(sm_scale, q.dtype),
-            float(logit_softcap),
+            ptr(page_indices), ptr(o), ctypes.c_void_p(part_o),
+            ctypes.c_void_p(part_lse), batch, num_q_heads, num_kv_heads, num_tokens,
+            pools.k.shape[1],
+            pools.page_size, pages_per_seq, head_dim, splits,
+            _scale_in(sm_scale, q.dtype), float(logit_softcap),
             ptr(None if slopes is None else _slopes_on(slopes, q.device)),
-            stream_handle(q.device),
+            VERIFY_ROUTE_CODES[route], ctypes.c_void_p(stream),
         )
+        VERIFY_ROUTE_LAUNCHES[route] += 1
+        VERIFY_SPLITS[splits] = VERIFY_SPLITS.get(splits, 0) + 1
     return o
 
 
@@ -309,7 +479,7 @@ def _dense(pool, idx, int4: bool):
 def _paged_plain(
     q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
     logit_softcap: float = 0.0, s8_scores: bool = True,
-    return_lse: bool = False, alibi_slopes=None,
+    return_lse: bool = False, alibi_slopes=None, key_range=None,
 ):
     """Plain version of the kernels' modes, q [B, Hq, T, d], with the TPU
     kernel's arithmetic: q pre-scaled in its own dtype; payloads cast to
@@ -320,7 +490,9 @@ def _paged_plain(
     to the table); row t masked to positions < lengths − (T−1−t); P ·
     v_scale rounded to q's dtype before P V.  A row that sees nothing gets
     O = 0 and lse DEFAULT_MASK_VALUE (the true lse).  Returns O [B, Hq, T,
-    d] (and lse [B, Hq, T])."""
+    d] (and lse [B, Hq, T]).  With ``key_range`` (lo, hi) only positions
+    in [lo, hi) are seen, and O is the split's fp32 partial with lse −inf
+    where the split sees nothing (:func:`_split_decode`)."""
     pools = _Pools(k_pages, v_pages)
     b, hq, t, d = q.shape
     if sm_scale is None:
@@ -353,7 +525,10 @@ def _paged_plain(
         m = torch.tensor(alibi_slopes, dtype=torch.float32, device=q.device)
         m = m.reshape(hkv, 1, g).expand(hkv, t, g).reshape(hkv, t * g)
         s = s - m[None, :, :, None] * (qpos[:, None, :, None] - pos).float()
-    s = s.masked_fill(pos >= horizon[:, None, :, None], float("-inf"))
+    hidden = pos >= horizon[:, None, :, None]
+    if key_range is not None:
+        hidden = hidden | (pos < key_range[0]) | (pos >= key_range[1])
+    s = s.masked_fill(hidden, float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     empty = torch.isneginf(m)
     p = torch.exp(s - torch.where(empty, 0.0, m))
@@ -362,35 +537,58 @@ def _paged_plain(
         p = p * _dense(pools.v_sc, idx, False)[..., 0][:, :, None, :]
     acc = torch.matmul(p.to(q.dtype).float(), v.to(q.dtype).float())
     o = acc * torch.where(empty, 0.0, torch.full_like(l, 1.0) / l)
-    o = o.reshape(b, hkv, t, g, d).transpose(2, 3).reshape(b, hq, t, d).to(q.dtype)
+    o = o.reshape(b, hkv, t, g, d).transpose(2, 3).reshape(b, hq, t, d)
+    if key_range is None:
+        o = o.to(q.dtype)
     if not return_lse:
         return o
-    lse = torch.where(empty, DEFAULT_MASK_VALUE, m + torch.log(l))
+    lse = torch.where(empty, DEFAULT_MASK_VALUE if key_range is None else float("-inf"),
+                      m + torch.log(l))
     return o, lse.reshape(b, hkv, t, g).transpose(2, 3).reshape(b, hq, t)
+
+
+def _split_decode(q, k_pages, v_pages, lengths, page_indices, pools, key_range,
+                  **kw):
+    """Single-token attention over positions ``key_range`` (or all):
+    value pools :func:`paged_reference_attention`'s arithmetic, quantized
+    pools :func:`_paged_plain`'s (integer scores for int8/int4)."""
+    if not pools.quantized:
+        return _reference(q, k_pages, v_pages, lengths, page_indices,
+                          key_range=key_range, **kw)
+    o, lse = _paged_plain(q[:, :, None], k_pages, v_pages, lengths, page_indices,
+                          s8_scores=True, return_lse=True, key_range=key_range, **kw)
+    return o[:, :, 0], lse[:, :, 0]
 
 
 def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
                        sm_scale=None, logit_softcap: float = 0.0,
-                       return_lse: bool = False, alibi_slopes=None):
+                       return_lse: bool = False, alibi_slopes=None, splits: int = 1):
     """Plain version of :func:`paged_decode_attention` (q [B, Hq, d]):
     value pools take :func:`paged_reference_attention`, quantized pools the
     TPU kernel's single-token arithmetic (:func:`_paged_plain`, integer
-    scores for int8/int4); the lse is published as the wrapper does."""
+    scores for int8/int4); the lse is published as the wrapper does.
+
+    ``splits`` repeats the kernel's key splits: the table is cut as
+    :func:`split_pages` cuts it, each split's fp32 partial (O normalized
+    over its keys, its lse) is computed alone and :func:`combine_partials`
+    merges them."""
     pools = _Pools(k_pages, v_pages)
     slopes = _normalize_alibi(alibi_slopes, q.shape[1], causal=True)
-    if not pools.quantized:
-        o, lse = paged_reference_attention(
-            q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-            logit_softcap=logit_softcap, return_lse=True, alibi_slopes=slopes)
+    kw = dict(sm_scale=sm_scale, logit_softcap=logit_softcap, alibi_slopes=slopes)
+    pages_per_seq = page_indices.shape[1]
+    per, splits = split_pages(pages_per_seq, splits)
+    if splits == 1:
+        o, lse = _split_decode(q, k_pages, v_pages, lengths, page_indices, pools, None, **kw)
     else:
-        o, lse = _paged_plain(
-            q[:, :, None], k_pages, v_pages, lengths, page_indices,
-            sm_scale=sm_scale, logit_softcap=logit_softcap, s8_scores=True,
-            return_lse=True, alibi_slopes=slopes)
-        o, lse = o[:, :, 0], lse[:, :, 0]
+        span = per * pools.page_size
+        parts = [_split_decode(q, k_pages, v_pages, lengths, page_indices, pools,
+                               (i * span, (i + 1) * span), **kw) for i in range(splits)]
+        o, lse = combine_partials(torch.stack([p[0] for p in parts]),
+                                  torch.stack([p[1] for p in parts]))
+    o = o.to(q.dtype)
     if not return_lse:
         return o
-    return o, publish_lse(lse, slopes, lengths, page_indices.shape[1] * pools.page_size)
+    return o, publish_lse(lse, slopes, lengths, pages_per_seq * pools.page_size)
 
 
 def paged_verify_plain(q, k_pages, v_pages, lengths, page_indices, *,
@@ -415,6 +613,17 @@ def paged_reference_attention(
     the page table are clamped to it.  With ``return_lse`` also the
     natural-base logsumexp, the true one (DEFAULT_MASK_VALUE for an empty
     sequence)."""
+    o, lse = _reference(q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
+                        alibi_slopes=alibi_slopes, logit_softcap=logit_softcap)
+    o = o.to(q.dtype)
+    return (o, lse) if return_lse else o
+
+
+def _reference(q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
+               alibi_slopes=None, logit_softcap: float = 0.0, key_range=None):
+    """:func:`paged_reference_attention`'s (O fp32, lse); with
+    ``key_range`` (lo, hi) over positions [lo, hi) only, lse −inf where
+    that range holds no visible position."""
     pools = _Pools(k_pages, v_pages)
     if pools.quantized:
         k_pages, v_pages = k_pages.dequantize(), v_pages.dequantize()
@@ -439,17 +648,17 @@ def paged_reference_attention(
         m = m.reshape(1, num_kv_heads, group, 1)
         s = s - m * (qpos[:, None, None, None] - pos).float()
     mask = pos[None, :] < lengths.to(q.device).long()[:, None]  # [B, L]
+    if key_range is not None:
+        mask = mask & (pos >= key_range[0]) & (pos < key_range[1])
     s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
     m = s.amax(dim=-1, keepdim=True)
     empty = torch.isneginf(m)
     e = torch.exp(s - torch.where(empty, 0.0, m))
     l = e.sum(dim=-1, keepdim=True)
     o = torch.matmul(e, v_dense) / torch.where(empty, 1.0, l)
-    o = o.reshape(batch, num_q_heads, head_dim).to(q.dtype)
-    if not return_lse:
-        return o
-    lse = torch.where(empty, DEFAULT_MASK_VALUE, m + torch.log(l))
-    return o, lse.reshape(batch, num_q_heads)
+    lse = torch.where(empty, DEFAULT_MASK_VALUE if key_range is None else float("-inf"),
+                      m + torch.log(l))
+    return o.reshape(batch, num_q_heads, head_dim), lse.reshape(batch, num_q_heads)
 
 
 def quantize_kv_pages(pages: torch.Tensor, dtype=torch.int8):
