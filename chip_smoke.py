@@ -27,6 +27,19 @@ Then drives every path of the port:
 - ALiBi serving (serve_alibi): the serving model with
   position_encoding="alibi", bf16 KV at 4 slots x 32 new tokens, int8 KV at
   8 x 16, and bf16 KV with prefill_chunk=256 and the prefix cache;
+- bursts (serve_burst): the serving requests at 4 slots through
+  generate(burst=8), each burst step one replay of a CUDA graph, against
+  the eager step in the order eager, graph, graph, eager (ms per step and
+  per generated token), one step's logits graphed against eager, the
+  graphed burst's device-busy share, a seeded burst against eager steps,
+  and generate_fused at 8 slots against generate;
+- speculative serving (serve_spec): attach_draft with gamma 4 and bursts
+  of 8 (each round one replay of a CUDA graph), with the perfect draft
+  (the target's weights) and a 2-layer independent draft on bf16 KV and
+  the independent draft on int8 KV, tokens against plain greedy (bf16
+  paths may part only at near-ties; a 2-layer fp32 copy exactly),
+  acceptance and tokens/s, generate_speculative_fused at 8 slots, and
+  verify at a round's shape;
 - training: make_train_state / make_train_step on the repo's training-bench
   model (scripts/bench_train.py:68-74: the b7 widths, d_model 4096, 32 q /
   8 kv heads, head_dim 128, d_ff 11008, vocab 32000, 8 layers, bf16, block
@@ -40,7 +53,8 @@ Then drives every path of the port:
   different lengths, through nn.dot_product_attention on padded batches,
   forward and backward, and fp8 V through the op API;
 
-checks that each path went through its kernels (launch counts, and the
+checks that each path went through its kernels (launch counts, counted
+through CUDA graph replays for the bursts and rounds, and the
 forward's, each backward sweep's and verify's launches per route, set to 0
 just before the path and read just after: every bf16 forward, backward
 sweep and verify of the model paths on the wgmma route, the packed calls on
@@ -2080,6 +2094,464 @@ def phase_serve_alibi(dev, model):
     return runs
 
 
+# Bursts and speculative serving (phases serve_burst and serve_spec): the
+# serving model, page 128, 17 pages a sequence (2048 + 32 + γ tokens fit),
+# the serve phase's 8 requests at 4 slots (8 for the lockstep forms),
+# bursts of 8, γ = 4; a 2-layer independent draft at the serving widths.
+BURST, GAMMA, DRAFT_LAYERS = 8, 4, 2
+SEEDED = dict(temperature=0.8, top_k=50, seed=20251017)
+
+
+def serve_engine(model, cfg, dev, slots=4, kv="bf16"):
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    return DecodeEngine(model, cfg, num_pages=slots * SERVE_PPS + 1, page_size=SERVE_PAGE,
+                        num_slots=slots, pages_per_seq=SERVE_PPS, kv_dtype=kv_kind(kv),
+                        quantized_kv=kv in QUANT_KINDS, device=dev)
+
+
+def serve_prompts(cfg):
+    rng = np.random.default_rng(0)  # phase serve's prompts
+    return [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
+
+
+def step_graphs(engine):
+    """Every StepGraph of the engine's burst and speculative programs."""
+    graphs = []
+    for value in engine._programs.values():
+        fn = value[1] if isinstance(value, tuple) else value
+        graphs += [run for _, run in getattr(fn, "programs", {}).values()]
+    return graphs
+
+
+def pages_back(*engines):
+    return all(len(e.allocator.free_pages) == e.pools.k[0].shape[1] - 1 for e in engines)
+
+
+def _zero_launches():
+    from flash_attention_dlrs_tpu_torch.ops.decode import (
+        DECODE_KERNEL, VERIFY_KERNEL, VERIFY_ROUTE_LAUNCHES,
+    )
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+
+    FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
+    fwd_routes(zero=True)
+    for r in VERIFY_ROUTE_LAUNCHES:
+        VERIFY_ROUTE_LAUNCHES[r] = 0
+
+
+def _launches():
+    from flash_attention_dlrs_tpu_torch.ops.decode import (
+        DECODE_KERNEL, VERIFY_KERNEL, VERIFY_ROUTE_LAUNCHES,
+    )
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+
+    return {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches,
+            "paged_verify": VERIFY_KERNEL.launches, "fwd_routes": fwd_routes(),
+            "verify_routes": dict(VERIFY_ROUTE_LAUNCHES)}
+
+
+def graphed_run(engine, prompts, burst, call="generate", **kw):
+    """One ``engine.<call>(prompts, 32 new tokens, ...)`` (``burst`` for
+    generate): the launch counts zeroed just before and read just after,
+    the synchronized ms of every decode call (``step``, ``step_burst``, or
+    the lockstep program), the decode steps (graph runs of the burst or
+    round bodies, or eager ``step`` calls), the spec_stats it added, and
+    each captured graph's capture seconds."""
+    import torch
+
+    lockstep = call != "generate"
+    name = "step_burst" if burst > 1 else "step"
+    decode_ms = []
+    if not lockstep:
+        setattr(engine, name, _timed(getattr(engine, name), decode_ms))
+    runs_before = sum(g.runs for g in step_graphs(engine))
+    stats_before = dict(engine.spec_stats)
+    _zero_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    if lockstep:
+        outs = getattr(engine, call)(prompts, max_new_tokens=SERVE_NEW_TOKENS, **kw)
+    else:
+        outs = engine.generate(prompts, max_new_tokens=SERVE_NEW_TOKENS, burst=burst, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _launches()
+    if not lockstep:
+        delattr(engine, name)
+    graph_steps = sum(g.runs for g in step_graphs(engine)) - runs_before
+    steps = len(decode_ms) if burst == 1 and not lockstep else graph_steps
+    n_tok = sum(len(o) for o in outs)
+    decode_tokens = n_tok - len(prompts)  # first tokens come from the prefills
+    rec = {"outs": outs, "launches": launches, "wall_s": wall, "steps": steps,
+           "tokens": n_tok, "tokens_per_s": n_tok / wall,
+           "spec_stats": {k: engine.spec_stats[k] - stats_before.get(k, 0)
+                          for k in engine.spec_stats},
+           "capture_s": [g.capture_seconds for g in step_graphs(engine)]}
+    if lockstep:
+        rec["program_s"] = engine.last_fused_seconds
+    else:
+        rec["decode_ms_per_token"] = sum(decode_ms) / max(decode_tokens, 1)
+        rec["decode_ms_per_step"] = sum(decode_ms) / max(steps, 1)
+    return rec
+
+
+def check_graph_logits(engine, cfg, prompts):
+    """One decode step of 4 admitted requests, eager and as a replayed CUDA
+    graph (StepGraph over the same static inputs; the step re-writes the
+    same K/V): bitwise equal, or within the serving phases' bf16 logit
+    limit when cuBLAS picks another algorithm under capture."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.runtime.scheduler import Request
+    from flash_attention_dlrs_tpu_torch.runtime.step_graph import StepGraph
+
+    for i, p in enumerate(prompts[:engine.num_slots]):
+        engine.scheduler.submit(Request(request_id=f"logits{i}", prompt_tokens=p,
+                                        max_new_tokens=SERVE_NEW_TOKENS))
+    engine.scheduler.schedule()
+    b, pps = engine.num_slots, engine.pages_per_seq
+    arrays = [np.zeros(b, np.int64) for _ in range(4)] + [
+        np.zeros((b, pps), np.int32), np.zeros(b, np.int32)]
+    tokens, positions, rows, offs, tbl, lens = arrays
+    for slot, req in enumerate(engine.slot_request):
+        table = engine.allocator.page_tables[req.request_id]
+        pos = engine.allocator.seq_lengths[req.request_id]
+        tokens[slot], positions[slot] = engine._slot_next_token[slot], pos
+        rows[slot], offs[slot] = table[pos // SERVE_PAGE], pos % SERVE_PAGE
+        tbl[slot, : len(table)], lens[slot] = table, pos + 1
+    inputs = [torch.from_numpy(a).to(engine.device) for a in arrays]
+    eager = engine._decode_step(engine.params, engine.pools, *inputs)[0].clone()
+    out = torch.empty_like(eager)
+
+    def body():
+        out.copy_(engine._decode_step(engine.params, engine.pools, *inputs)[0])
+
+    graph = StepGraph(body, engine.device, engine._graphs())
+    graph()  # warm-up (eager, on the side stream) and capture
+    graph()  # a replay
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out, eager))
+    diff, std = float((out - eager).abs().max()), float(eager.std())
+    while engine.scheduler.has_work:  # finish the requests
+        engine.scheduler.schedule()
+        engine.step_burst(BURST)
+    engine.scheduler.schedule()
+    return {"logits_bitwise_equal": bitwise, "logit_diff_over_std": diff / std,
+            "logit_limit_over_std": BF16_LOGIT_LIMIT["rope"],
+            "held": "bitwise" if bitwise else (
+                "bf16_limit" if diff <= BF16_LOGIT_LIMIT["rope"] * std else "neither"),
+            "capture_s": graph.capture_seconds}
+
+
+def profile_burst(engine, cfg, prompts):
+    """Where a graphed burst's time goes: 4 requests admitted, one burst
+    (its graph already captured), then 2 bursts of 8 replays in one
+    torch.profiler window (profile_window): wall and device-busy ms per
+    step, the idle share.  If the profiler sees no kernel inside the
+    graphs, the device span of the same bursts by CUDA events stands in
+    for busy (``busy_source`` says which)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.runtime.scheduler import Request
+
+    for i, p in enumerate(prompts[:engine.num_slots]):
+        engine.scheduler.submit(Request(request_id=f"profile{i}", prompt_tokens=p,
+                                        max_new_tokens=SERVE_NEW_TOKENS))
+    engine.scheduler.schedule()
+    engine.step_burst(BURST)
+    bursts = 2
+    rec = {"steps_per_burst": BURST, "bursts": bursts}
+    try:
+        wall_ms, busy_ms, n_ops, by_name = profile_window(
+            lambda: engine.step_burst(BURST), bursts)
+        rec.update(busy_source="profiler", device_ops_per_step=n_ops / BURST,
+                   top_device_ms_per_step={k: v / BURST for k, v in
+                                           top_kernels(by_name).items()},
+                   paged_decode_device_ms_per_step=sum(
+                       ms for name, ms in by_name.items()
+                       if "paged_decode_kernel" in name) / BURST)
+    except AssertionError as err:  # the profiler saw nothing inside the graphs
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        for _ in range(bursts):
+            engine.step_burst(BURST)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3 / bursts
+        busy_ms = start.elapsed_time(end) / bursts
+        rec.update(busy_source=f"cuda_events ({err})")
+    rec.update(wall_ms_per_step=wall_ms / BURST, device_busy_ms_per_step=busy_ms / BURST,
+               device_idle_share=1.0 - busy_ms / wall_ms)
+    while engine.scheduler.has_work:
+        engine.scheduler.schedule()
+        engine.step_burst(BURST)
+    engine.scheduler.schedule()
+    return rec
+
+
+def divergences(model, cfg, dev, prompts, want, got):
+    """Where each greedy stream of ``got`` first leaves ``want`` (the same
+    prompts): the request, the token index, and there the two tokens'
+    logit gap over the logits' std, from one dense prefill of the common
+    prefix.  Two paths of different bf16 arithmetic (verify against decode,
+    a batched prefill against a lone one) pick differently only where the
+    top two logits lie within their noise; a gap within
+    BF16_LOGIT_LIMIT["rope"] x std is such a near-tie."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import make_prefill
+
+    prefill, found = make_prefill(cfg), []
+    for i, (prompt, w, g) in enumerate(zip(prompts, want, got)):
+        j = next((k for k, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if j is None:
+            if len(w) != len(g):
+                found.append({"request": i, "index": min(len(w), len(g)),
+                              "gap_over_std": float("inf")})
+            continue
+        toks = list(prompt) + list(w[:j])
+        x = torch.zeros((1, 1 << max(7, (len(toks) - 1).bit_length())), dtype=torch.long,
+                        device=dev)
+        x[0, : len(toks)] = torch.tensor(toks, device=dev)
+        logits = prefill(model, x, torch.tensor([len(toks)], dtype=torch.int32,
+                                                device=dev))[0][0]
+        found.append({"request": i, "index": j, "tokens": [w[j], g[j]],
+                      "gap_over_std": float((logits[w[j]] - logits[g[j]]).abs()
+                                            / logits.std())})
+    return found
+
+
+def near_ties_only(divs) -> bool:
+    return all(d["gap_over_std"] <= BF16_LOGIT_LIMIT["rope"] for d in divs)
+
+
+def phase_serve_burst(dev, model, cfg):
+    """Decode bursts at full width: the serve phase's 8 requests at 4
+    slots, 32 new tokens, eager (``step``) and graphed
+    (``generate(burst=8)``: each burst step one replay of a CUDA graph), in
+    the order eager, graph, graph, eager in one engine; the graphed tokens
+    must equal the eager ones, the launches hold through replays
+    (paged_decode 16 per step run, attn_fwd 16 per prefill), pages come
+    back.  Beside it: one decode step's logits eager against graphed, the
+    graphed burst's device-busy share, a seeded burst (temperature 0.8,
+    top-k 50) against the same run through eager steps, and the lockstep
+    generate_fused at 8 slots against generate."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.runtime import SamplingParams
+
+    prompts = serve_prompts(cfg)
+    engine = serve_engine(model, cfg, dev)
+    engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
+    engine.generate([[1] * 128], max_new_tokens=BURST + 1, burst=BURST)  # capture
+    runs = {}
+    for i, burst in enumerate((1, BURST, BURST, 1)):
+        runs[f"{'graph' if burst > 1 else 'eager'}_{i + 1}"] = graphed_run(
+            engine, prompts, burst)
+    eager, graph = runs["eager_1"], runs["graph_2"]
+    logits = check_graph_logits(engine, cfg, prompts)
+    profile = profile_burst(engine, cfg, prompts)
+    sp = SamplingParams(**SEEDED)
+    seeded = {b: graphed_run(engine, prompts, b, sampling=sp) for b in (1, BURST)}
+    wide = serve_engine(model, cfg, dev, slots=8)
+    lock_plain = graphed_run(wide, prompts, 1)
+    lock_fused = graphed_run(wide, prompts, 1, call="generate_fused")
+    divs = {k: divergences(model, cfg, dev, prompts, eager["outs"], r["outs"])
+            for k, r in runs.items() if k != "eager_1"}
+    divs["lockstep_generate_fused"] = divergences(model, cfg, dev, prompts,
+                                                  lock_plain["outs"], lock_fused["outs"])
+    checks = {
+        "graph_tokens_equal_eager_or_near_ties": all(
+            near_ties_only(divs[k]) for k in runs if k != "eager_1"),
+        "every_request_32_tokens": all(len(o) == SERVE_NEW_TOKENS for o in graph["outs"]),
+        "graph_fwd_launches_16_per_prefill":
+            graph["launches"]["attn_fwd"] == cfg.n_layers * len(prompts),
+        "graph_fwd_launches_all_wgmma":
+            all_on(graph["launches"]["fwd_routes"], "wgmma", graph["launches"]["attn_fwd"]),
+        "graph_decode_launches_16_per_step_through_replays": all(
+            runs[k]["launches"]["paged_decode"] == cfg.n_layers * runs[k]["steps"] > 0
+            for k in runs),
+        "every_burst_graph_captured_and_replayed": all(
+            g.graph is not None and g.runs > 1 for g in step_graphs(engine)),
+        "graph_logits_bitwise_or_within_bf16_limit": logits["held"] != "neither",
+        "seeded_graph_tokens_equal_eager": seeded[BURST]["outs"] == seeded[1]["outs"],
+        "seeded_tokens_in_vocab": all(0 <= x < cfg.vocab_size
+                                      for o in seeded[BURST]["outs"] for x in o),
+        "lockstep_generate_fused_equals_generate_or_near_ties":
+            near_ties_only(divs["lockstep_generate_fused"]),
+        "lockstep_decode_launches_16_per_step":
+            lock_fused["launches"]["paged_decode"] == cfg.n_layers * lock_fused["steps"] > 0,
+        "lockstep_one_batched_prefill": lock_fused["launches"]["attn_fwd"] == cfg.n_layers,
+        "pages_back": pages_back(engine, wide),
+    }
+    drop = ("outs",)
+    rec = {"phase": "serve_burst", "card": card_line(), "slots": 4, "burst": BURST,
+           "new_tokens": SERVE_NEW_TOKENS,
+           "runs": {k: {f: v for f, v in r.items() if f not in drop} for k, r in runs.items()},
+           "decode_ms_per_token": {k: r["decode_ms_per_token"] for k, r in runs.items()},
+           "decode_ms_per_step": {k: r["decode_ms_per_step"] for k, r in runs.items()},
+           "graph_tokens_equal_eager": {k: r["outs"] == eager["outs"] for k, r in runs.items()},
+           "lockstep_tokens_equal_generate": lock_fused["outs"] == lock_plain["outs"],
+           "divergences": divs, "graph_logits": logits, "graph_profile": profile,
+           "seeded": {b: {f: v for f, v in r.items() if f not in drop}
+                      for b, r in seeded.items()},
+           "lockstep_8_slots": {"generate": {f: v for f, v in lock_plain.items()
+                                             if f not in drop},
+                                "generate_fused": {f: v for f, v in lock_fused.items()
+                                                   if f not in drop}},
+           "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"burst serving checks failed: {failed}")
+    launches = {"attn_fwd": sum(r["launches"]["attn_fwd"] for r in
+                                list(runs.values()) + list(seeded.values())
+                                + [lock_plain, lock_fused]),
+                "paged_decode": sum(r["launches"]["paged_decode"] for r in
+                                    list(runs.values()) + list(seeded.values())
+                                    + [lock_plain, lock_fused])}
+    del engine, wide
+    torch.cuda.empty_cache()
+    return {"launches": launches, "eager_tokens": eager["outs"],
+            "lockstep_tokens": lock_plain["outs"], "rec": rec}
+
+
+def check_spec_fp32(dev, prompts):
+    """The serving model at 2 layers in fp32 (weights from seed 0) on fp32
+    KV: plain greedy serving, then speculative serving (γ 4, bursts of 8)
+    with the perfect draft and with an independent one (the same shape,
+    weights from seed 1).  The fp32 decode and verify kernels compute in
+    true fp32, so the tokens must be identical."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        ModelConfig, init_params_numpy, params_from_jax,
+    )
+
+    cfg32 = ModelConfig(**{**SERVE_CFG, "n_layers": 2}, dtype=torch.float32)
+    model32, draft32 = (params_from_jax(init_params_numpy(cfg32, seed=s), cfg32, device=dev)
+                        for s in (0, 1))
+    plain = serve_engine(model32, cfg32, dev, kv="fp32").generate(
+        prompts, max_new_tokens=SERVE_NEW_TOKENS)
+    out = {}
+    for name, dm in (("perfect", model32), ("independent", draft32)):
+        tgt, draft = (serve_engine(m, cfg32, dev, kv="fp32") for m in (model32, dm))
+        tgt.attach_draft(draft, gamma=GAMMA)
+        got = tgt.generate(prompts, max_new_tokens=SERVE_NEW_TOKENS, burst=BURST)
+        out[name] = {"tokens_equal_plain_greedy": got == plain,
+                     "spec_stats": dict(tgt.spec_stats),
+                     "pages_back_on_both": pages_back(tgt, draft)}
+    del model32, draft32
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_spec(dev, model, cfg, burst_rec):
+    """Speculative serving at full width: ``attach_draft`` (γ = 4) with the
+    serve phase's 8 requests at 4 slots, bursts of 8 (each round one
+    replay of a CUDA graph: γ−1 draft steps, the draft's last K/V write,
+    the target's verify, the accept rule, the commit), with the perfect
+    draft (the target's weights in a second engine) and the independent
+    draft (2 layers at the serving widths, weights from seed 1) on bf16
+    KV, and the independent draft on int8 KV.  Greedy tokens must equal
+    plain greedy serving of the same KV kind; launches hold through the
+    replays (paged_decode = draft layers × γ a round, paged_verify = 16 a
+    round, every verify on wgmma, attn_fwd = target + draft layers a
+    prefill); pages come back on both engines.  Then the lockstep
+    generate_speculative_fused (perfect draft, 8 slots) against generate,
+    a seeded speculative run twice, and verify at the round's shape."""
+    import dataclasses
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import init_params_numpy, params_from_jax
+    from flash_attention_dlrs_tpu_torch.runtime import SamplingParams
+
+    prompts = serve_prompts(cfg)
+    dcfg = dataclasses.replace(cfg, n_layers=DRAFT_LAYERS)
+    dmodel = params_from_jax(init_params_numpy(dcfg, seed=1), dcfg, device=dev)
+    drafts = {"perfect": (model, cfg), "independent": (dmodel, dcfg)}
+    plain = {"bf16": burst_rec["eager_tokens"]}
+    int8 = serve_engine(model, cfg, dev, kv="int8")
+    plain["int8"] = graphed_run(int8, prompts, 1)["outs"]
+    del int8
+    runs, checks = {}, {}
+    launches = {"attn_fwd": 0, "paged_decode": {"bf16": 0, "int8": 0},
+                "paged_verify": {"bf16": 0, "int8": 0}}
+    for name, kv in (("perfect", "bf16"), ("independent", "bf16"), ("independent", "int8")):
+        dm, dc = drafts[name]
+        tgt, draft = serve_engine(model, cfg, dev, kv=kv), serve_engine(dm, dc, dev, kv=kv)
+        tgt.attach_draft(draft, gamma=GAMMA)
+        tgt.generate([[1] * 128], max_new_tokens=BURST + 1, burst=BURST)  # capture
+        r = graphed_run(tgt, prompts, BURST)
+        st, lc, key = r["spec_stats"], r["launches"], f"{name}_{kv}"
+        runs[key] = {f: v for f, v in r.items() if f != "outs"}
+        runs[key]["acceptance"] = st["accepted"] / max(st["proposed"], 1)
+        runs[key]["tokens_equal_plain_greedy"] = r["outs"] == plain[kv]
+        runs[key]["divergences"] = divergences(model, cfg, dev, prompts, plain[kv], r["outs"])
+        checks.update({
+            f"{key}_tokens_equal_plain_greedy_or_near_ties":
+                near_ties_only(runs[key]["divergences"]),
+            f"{key}_rounds_counted": st["rounds"] == r["steps"] > 0,
+            f"{key}_decode_launches_draft_layers_x_gamma_per_round":
+                lc["paged_decode"] == dc.n_layers * GAMMA * st["rounds"],
+            f"{key}_verify_launches_16_per_round":
+                lc["paged_verify"] == cfg.n_layers * st["rounds"],
+            f"{key}_verify_all_wgmma": lc["verify_routes"]["wgmma"] == lc["paged_verify"],
+            f"{key}_fwd_launches_per_prefill":
+                lc["attn_fwd"] == (cfg.n_layers + dc.n_layers) * len(prompts),
+            f"{key}_pages_back_on_both": pages_back(tgt, draft),
+        })
+        if name == "perfect":
+            checks[f"{key}_acceptance_at_least_0.9"] = runs[key]["acceptance"] >= 0.9
+        launches["attn_fwd"] += lc["attn_fwd"]
+        launches["paged_decode"][kv] += lc["paged_decode"]
+        launches["paged_verify"][kv] += lc["paged_verify"]
+        emit({"phase": "serve_spec", "run": key, **runs[key]})
+        if name == "independent" and kv == "bf16":
+            sp = SamplingParams(**SEEDED)
+            seeded = [graphed_run(tgt, prompts, BURST, sampling=sp)["outs"] for _ in range(2)]
+            checks["seeded_spec_reproduces_itself"] = seeded[0] == seeded[1]
+            checks["seeded_spec_tokens_in_vocab"] = all(
+                0 <= x < cfg.vocab_size for o in seeded[0] for x in o)
+            checks["seeded_spec_32_tokens"] = all(len(o) == SERVE_NEW_TOKENS for o in seeded[0])
+        del tgt, draft
+        torch.cuda.empty_cache()
+    wide, wide_draft = serve_engine(model, cfg, dev, slots=8), serve_engine(model, cfg, dev, slots=8)
+    lock = graphed_run(wide, prompts, 1, call="generate_speculative_fused",
+                       draft=wide_draft, gamma=GAMMA)
+    lock["tokens_equal_generate"] = lock["outs"] == burst_rec["lockstep_tokens"]
+    lock["divergences"] = divergences(model, cfg, dev, prompts, burst_rec["lockstep_tokens"],
+                                      lock["outs"])
+    checks["lockstep_spec_fused_equals_generate_or_near_ties"] = near_ties_only(
+        lock["divergences"])
+    checks["lockstep_spec_pages_back"] = pages_back(wide, wide_draft)
+    launches["attn_fwd"] += lock["launches"]["attn_fwd"]
+    launches["paged_decode"]["bf16"] += lock["launches"]["paged_decode"]
+    launches["paged_verify"]["bf16"] += lock["launches"]["paged_verify"]
+    del wide, wide_draft, dmodel
+    torch.cuda.empty_cache()
+    fp32 = check_spec_fp32(dev, prompts)
+    for name, r in fp32.items():
+        checks[f"fp32_2layer_{name}_tokens_equal_plain_greedy"] = r["tokens_equal_plain_greedy"]
+        checks[f"fp32_2layer_{name}_pages_back_on_both"] = r["pages_back_on_both"]
+    gen = torch.Generator(device=dev).manual_seed(9)
+    lengths = [n + SERVE_NEW_TOKENS // 2 + GAMMA for n in SERVE_PROMPTS[:4]]
+    round_verify = time_paged(gen, dev, "bf16", 4, lengths, GAMMA)
+    rec = {"phase": "serve_spec", "card": card_line(), "gamma": GAMMA, "burst": BURST,
+           "slots": 4, "draft_layers": {k: c.n_layers for k, (_, c) in drafts.items()},
+           "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+           "decode_ms_per_token": {k: r["decode_ms_per_token"] for k, r in runs.items()},
+           "plain_graph_decode_ms_per_token":
+               burst_rec["rec"]["decode_ms_per_token"]["graph_2"],
+           "spec_stats": {k: r["spec_stats"] for k, r in runs.items()},
+           "acceptance": {k: r["acceptance"] for k, r in runs.items()},
+           "lockstep_spec_fused_8_slots": {f: v for f, v in lock.items() if f != "outs"},
+           "verify_round_B4_T4": round_verify, "fp32_2layer": fp32, "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"speculative serving checks failed: {failed}")
+    return {"launches": launches, "round_verify": round_verify, "rec": rec}
+
+
 TRAIN_CFG = dict(vocab_size=32000, d_model=4096, n_layers=8, n_q_heads=32,
                  n_kv_heads=8, head_dim=128, d_ff=11008)
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
@@ -3045,7 +3517,7 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
             "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
 
 
-def emit_kernels(fwd_res, dec_res, paths, timings):
+def emit_kernels(fwd_res, dec_res, paths, timings, graphed):
     """The kernels line: every kernel of every path, the paged kernels once
     per pool kind they serve, and one entry per ALiBi / dropout mode.
     Launches are the counts of the path runs (serving, quantized serving,
@@ -3054,14 +3526,20 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
     run's timed steps); times, bounds and errors are at the serving shapes
     for attn_fwd, attn_fwd[alibi] and the paged kernels (decode at 8
     sequences of 2048 tokens, verify a 256-token chunk at 2048) and at the
-    training shape for attn_fwd[alibi+dropout] and the backward kernels."""
+    training shape for attn_fwd[alibi+dropout] and the backward kernels.
+    ``graphed`` holds phases serve_burst and serve_spec: their launches
+    (through CUDA graph replays) join attn_fwd's and the paged kernels' of
+    their KV kind, and verify at a speculative round's shape (B4, T = γ)
+    has an entry of its own."""
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
+    burst, spec = graphed
     fwd_t = timings["fwd_serve_prefill_2048"]
     kernels = [
         {"name": "attn_fwd", "route": "cuda", "source": FWD_SM90_SOURCE,
          "fwd_route": fwd_t["route"], "replaces": FWD_REPLACES,
          "launches": serve["launches"]["attn_fwd"] + train["launches"]["attn_fwd"]
-         + sum(r["launches"]["attn_fwd"] for r in quant.values()) + dense_fwd,
+         + sum(r["launches"]["attn_fwd"] for r in quant.values()) + dense_fwd
+         + burst["launches"]["attn_fwd"] + spec["launches"]["attn_fwd"],
          "max_abs_err": fwd_res["serve_prefill_2048"]["max_abs_err_o"],
          "ms": fwd_t["ms"], "plain_ms": fwd_t["plain_ms"],
          "bound_ms": fwd_t["bound_ms"], "bound_by": fwd_t["bound_by"],
@@ -3072,7 +3550,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
                        if r["kv"] == kind)
         launches += chunked[kind]["launches"]["paged_decode"] if kind in chunked else 0
         if kind == "bf16":
-            launches += serve["launches"]["paged_decode"]
+            launches += serve["launches"]["paged_decode"] + burst["launches"]["paged_decode"]
+        launches += spec["launches"]["paged_decode"].get(kind, 0)
         t = timings[f"decode_{kind}_B8_ctx2048"]
         err = dec_res["serve_decode" if kind == "bf16" else f"{kind}_B8"]["max_abs_err_o"]
         kernels.append({
@@ -3086,7 +3565,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
         kernels.append({
             "name": f"paged_verify[{kind}]", "route": "cuda", "source": VERIFY_SOURCE,
             "verify_route": t["route"], "replaces": VERIFY_REPLACES,
-            "launches": chunked[kind]["launches"]["paged_verify"],
+            "launches": chunked[kind]["launches"]["paged_verify"]
+            + (spec["launches"]["paged_verify"]["int8"] if kind == "int8" else 0),
             "max_abs_err": dec_res[f"verify_T256_{kind}"]["max_abs_err_o"],
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
@@ -3104,6 +3584,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings):
             rec["bwd_route" if name.startswith("attn_bwd") else "fwd_route"] = t["route"]
         return rec
 
+    kernels.append(entry("paged_verify[bf16,round_B4_T4]", VERIFY_SOURCE, VERIFY_REPLACES,
+                         spec["launches"]["paged_verify"]["bf16"], spec["round_verify"]))
     rows = timings["bwd_train_B8_H32_N2048"]
     for name, replaces in BWD_REPLACES.items():
         source = BWD_SOURCE if name == "attn_bwd_preprocess" else BWD_SM90_SOURCE
@@ -3281,6 +3763,8 @@ def main() -> int:
     quant_runs = phase_serve_quant(dev, model, cfg)
     chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg)
     alibi_runs = phase_serve_alibi(dev, model)
+    burst = phase_serve_burst(dev, model, cfg)
+    spec = phase_serve_spec(dev, model, cfg, burst)
     del model
     torch.cuda.empty_cache()
     train_rec = phase_train(dev)
@@ -3290,7 +3774,7 @@ def main() -> int:
     timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
-                  alibi_runs, train_alibi_rec, packed_rec), timings)
+                  alibi_runs, train_alibi_rec, packed_rec), timings, (burst, spec))
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

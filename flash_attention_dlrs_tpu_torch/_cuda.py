@@ -109,6 +109,57 @@ def build(sources: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return built
 
 
+# Every CudaKernel made, and every dict of launches by route or key split
+# that an ops module registers (register_launch_counts): what a CUDA graph's
+# capture recorded of them is added back at each of its replays
+# (runtime/step_graph.py), so the counts mean launches on the card.
+KERNELS: list = []
+LAUNCH_COUNTS: list = []
+
+
+def register_launch_counts(counts: dict) -> dict:
+    """Register a dict of launch counts (by route or split) for graph
+    replays; returns it."""
+    LAUNCH_COUNTS.append(counts)
+    return counts
+
+
+def launch_counts():
+    """A snapshot of every registered count: ([launches of each kernel],
+    [a copy of each count dict])."""
+    return [k.launches for k in KERNELS], [dict(d) for d in LAUNCH_COUNTS]
+
+
+def launches_since(before):
+    """What the counts gained since ``before`` (a :func:`launch_counts`
+    snapshot), as a list of (kernel or dict, key, gain); the counts are set
+    back to ``before``."""
+    kernels, dicts = before
+    gained = []
+    for kernel, n in zip(KERNELS, kernels):
+        if kernel.launches != n:
+            gained.append((kernel, None, kernel.launches - n))
+            kernel.launches = n
+    for counts, old in zip(LAUNCH_COUNTS, dicts):
+        for key in list(counts):
+            if counts[key] != old.get(key, 0):
+                gained.append((counts, key, counts[key] - old.get(key, 0)))
+                if key in old:
+                    counts[key] = old[key]
+                else:
+                    del counts[key]
+    return gained
+
+
+def add_launches(gained) -> None:
+    """Add a :func:`launches_since` record to the counts (one replay)."""
+    for target, key, n in gained:
+        if key is None:
+            target.launches += n
+        else:
+            target[key] = target.get(key, 0) + n
+
+
 class CudaKernel:
     """One C entry point of the library built from ``csrc/<source>``.
 
@@ -126,6 +177,7 @@ class CudaKernel:
         self._fn = None
         self._lib = None
         self._lock = threading.Lock()
+        KERNELS.append(self)
 
     def _load(self):
         with self._lock:

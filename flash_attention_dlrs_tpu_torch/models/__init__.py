@@ -6,6 +6,7 @@ from .decoding import (
     make_verify_step,
     write_prompt_kv,
     write_prompt_kv_all,
+    write_prompt_kv_batch,
 )
 from .train import AdamW, make_train_state, make_train_step
 from .trainer import (
@@ -42,4 +43,5 @@ __all__ = [
     "unembed_matrix",
     "write_prompt_kv",
     "write_prompt_kv_all",
+    "write_prompt_kv_batch",
 ]

@@ -351,3 +351,31 @@ def write_prompt_kv_all(pools: KVPools, kvs, pages, page_size: int) -> KVPools:
                                         v[0, :, : n * page_size]),
                             pages, page_size)
     return pools
+
+
+def write_prompt_kv_batch(pools: KVPools, kvs, pages_b, page_size: int) -> KVPools:
+    """Batched admission write, in place: every sequence's every layer.
+    ``kvs`` is the prefill's per-layer (k, v), each [n, Hkv, T_pad, d];
+    ``pages_b`` [n, max_pages] holds each sequence's prompt pages, rows
+    padded to a common width with the null page (padding writes land there
+    and are never read, the scratch contract of frozen burst slots).  Each
+    page is one row of :func:`_write_tokens`, so the writes (quantized on
+    write for quantized pools) are those of :func:`write_prompt_kv` per
+    sequence."""
+    n, max_pages = pages_b.shape
+    span = max_pages * page_size
+    device = pools.k[0].device
+    rows = pages_b.to(device).long().reshape(-1, 1).expand(n * max_pages, page_size)
+    offs = torch.arange(page_size, device=device).expand(n * max_pages, page_size)
+
+    def paged(x):  # [n, Hkv, T_pad, d] -> [Hkv, n * max_pages, page_size, d]
+        x = x[:, :, :span]
+        if x.shape[2] < span:
+            x = torch.nn.functional.pad(x, (0, 0, 0, span - x.shape[2]))
+        hkv, d = x.shape[1], x.shape[3]
+        return x.transpose(0, 1).reshape(hkv, n * max_pages, page_size, d)
+
+    with torch.inference_mode():
+        for li, (k, v) in enumerate(kvs):
+            _write_tokens(pools, li, rows, offs, paged(k), paged(v))
+    return pools

@@ -32,7 +32,7 @@ import ctypes
 
 import torch
 
-from .._cuda import DTYPE_CODES, CudaKernel, ptr, stream_handle
+from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_HEAD_DIMS,
@@ -71,7 +71,7 @@ DQ_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dq_seg", _DQ_ARGS)
 # The launches of each sweep on each route (the C entries' route codes are
 # the forward's, ops/fwd_kernel.py ROUTE_CODES), over both builds; set to 0
 # by whoever reads them.
-BWD_ROUTE_LAUNCHES = {sweep: dict.fromkeys(ROUTE_CODES, 0)
+BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
 
 

@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from .._cuda import DTYPE_CODES, CudaKernel, ptr
+from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
 from .fwd_kernel import DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS, _slopes_on
 from .quantization import (
@@ -77,13 +77,13 @@ VERIFY_KERNEL = CudaKernel(
 # Calls of each kernel by key-split count ({splits: calls}), beside its
 # launch count (one a call: the last CTA of each group merges the splits);
 # cleared by whoever reads them.
-DECODE_SPLITS: dict = {}
-VERIFY_SPLITS: dict = {}
+DECODE_SPLITS: dict = register_launch_counts({})
+VERIFY_SPLITS: dict = register_launch_counts({})
 
 # The verify C entry's route codes (csrc/paged_verify.cu kRouteF32 /
 # kRouteWgmma) and the launches of each route.
 VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1}
-VERIFY_ROUTE_LAUNCHES = dict.fromkeys(VERIFY_ROUTE_CODES, 0)
+VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES, 0))
 
 # Tokens of one stored-row tile of csrc/paged_decode.cu: the least a split
 # covers.
@@ -216,6 +216,14 @@ def _split_scratch(splits: int, rows: int, head_dim: int, groups: int, device, s
     base = buf.data_ptr()
     return (base, base + 4 * splits * rows * head_dim,
             counters.data_ptr() if groups else 0)
+
+
+def split_scratch_on(device, stream: int):
+    """The (partials, counters) tensors the split calls on ``stream`` use
+    now, or None: a CUDA graph captured on that stream holds them, so that
+    a later call there that needs more (and gets a new buffer) cannot free
+    memory the graph's kernels address."""
+    return _SCRATCH.get((device.index, stream))
 
 
 class _Pools:

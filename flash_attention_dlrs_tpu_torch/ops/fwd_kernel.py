@@ -32,7 +32,7 @@ import functools
 import numpy as np
 import torch
 
-from .._cuda import DTYPE_CODES, CudaKernel, ptr, stream_handle
+from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
 
 # Finite sentinel for masked scores and the lse of a row that sees no key.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -66,7 +66,7 @@ FWD_SEG_KERNEL = CudaKernel("attn_fwd_seg.cu", "attn_fwd_seg", _FWD_ARGS)
 # and the launches of each route, over both builds; set to 0 by whoever
 # reads them.
 ROUTE_CODES = {"fp32": 0, "wgmma": 1}
-ROUTE_LAUNCHES = dict.fromkeys(ROUTE_CODES, 0)
+ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 
 
 def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False) -> str:

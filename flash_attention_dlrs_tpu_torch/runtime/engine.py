@@ -10,14 +10,21 @@ Inactive slots decode against a reserved null page with length 0 (their
 output is ignored), so the decode batch never changes shape.  KV pools may
 be quantized (int8, int4, fp8), prompts may be prefilled in fixed chunks
 through the multi-token verify step, and full-page prompt prefixes may be
-shared through the prefix cache.  The engine runs on the card by default
-(``device="cuda"``) and on the CPU only when asked.  Ring modes, the mesh,
-speculative serving and device-side bursts raise ``NotImplementedError``
-until their slice (ROADMAP.md).
+shared through the prefix cache.  Bursts (:meth:`DecodeEngine.step_burst`,
+``generate(burst=k)``, :meth:`~DecodeEngine.generate_fused`) run k decode
+steps a dispatch and speculative serving (:meth:`~DecodeEngine.attach_draft`,
+:meth:`~DecodeEngine.generate_speculative` and its fused form) whole rounds,
+through ``runtime/speculative.py``: on the card each burst step and each
+round is one CUDA graph, captured once and replayed.  The engine runs on
+the card by default (``device="cuda"``) and on the CPU only when asked.
+Ring modes and the mesh raise ``NotImplementedError`` until their slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import time
+import weakref
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -30,12 +37,19 @@ from ..models.decoding import (
     make_prefill,
     make_verify_step,
     write_prompt_kv_all,
+    write_prompt_kv_batch,
 )
 from ..models.transformer import ModelConfig, Transformer
 from .kv_cache import PageAllocator
 from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams, batch_params, sample_tokens
 from .scheduler import ContinuousBatchingScheduler, Request
+from .speculative import (
+    make_draft_propose,
+    make_plain_generate,
+    make_spec_generate,
+    make_verify_accept,
+)
 
 _NULL_SEQ = "__null__"
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 1 of the PyTorch port)"
@@ -63,6 +77,22 @@ def _token_logprobs(logits, tokens):
     """log-softmax of each row at the chosen token: [B, V], [B] → [B] f32."""
     lp = torch.log_softmax(logits.float(), dim=-1)
     return torch.gather(lp, 1, tokens.long()[:, None])[:, 0]
+
+
+def _to_host(*tensors):
+    """Device tensors (integers) to numpy in one transfer."""
+    flat = torch.cat([t.reshape(-1).long() for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
+def _samples(params_list) -> bool:
+    """Whether any slot's SamplingParams (None: greedy) samples: the
+    greedy-only programs skip the top-k / top-p sort."""
+    return any(p is not None and p.temperature > 0 for p in params_list)
 
 
 class DecodeEngine:
@@ -144,6 +174,18 @@ class DecodeEngine:
         self._decode_step = make_decode_step(cfg)
         self._sample_cache_key = None
         self._sample_cache = None
+        # Burst and speculative programs (runtime/speculative.py) by key,
+        # and the memory pool their CUDA graphs share: dropped with the
+        # engine.
+        self._programs: Dict = {}
+        self._graph_pool = None
+        # Speculative serving (attach_draft): a draft engine mirroring this
+        # engine's slots; step_burst then runs speculative rounds.
+        self.spec_draft: Optional["DecodeEngine"] = None
+        self.spec_gamma = 0
+        self._draft_requests: Dict[int, Request] = {}
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0}
+        self.last_fused_seconds: Optional[float] = None
         self.prefill_chunk = prefill_chunk
         if prefill_chunk:
             self._chunk_prefill = make_verify_step(cfg, prefill_chunk)
@@ -159,7 +201,44 @@ class DecodeEngine:
         return self.allocator.can_allocate(num_tokens)
 
     def attach_draft(self, draft: "DecodeEngine", gamma: int = 4) -> None:
-        raise NotImplementedError(_NOT_YET.format("speculative serving"))
+        """Enable speculative continuous-batching serving: ``draft``
+        mirrors every admission and retirement of this engine slot for slot
+        (prompt prefill included), and :meth:`step_burst` switches from
+        plain bursts to speculative rounds (draft steps → verify / accept →
+        commit on the device, ``runtime.speculative.make_spec_generate``
+        with per-slot budgets).  The draft conditions on the TARGET's
+        committed stream: its own sampled tokens are proposals only, so
+        outputs keep the target distribution (greedy output is identical
+        to plain bursts).
+
+        ``draft`` must share vocab and page size, have at least this
+        engine's slots, and not be attached to anything itself.  Per-token
+        logprobs are not produced under speculative serving (verification
+        commits tokens, not per-step logits)."""
+        if draft.page_size != self.page_size:
+            raise ValueError("draft and target page sizes must match")
+        if draft.num_slots < self.num_slots:
+            raise ValueError("draft needs at least as many slots")
+        if gamma < 2:
+            raise ValueError("gamma must be >= 2")
+        self.spec_draft = draft
+        self.spec_gamma = gamma
+
+    def _mirror_admit(self, req: Request, slot: int) -> None:
+        d = self.spec_draft
+        d_req = Request(
+            request_id=req.request_id,
+            prompt_tokens=list(req.prompt_tokens),
+            # + gamma: the draft's in-flight proposals overshoot the
+            # committed prefix by up to gamma tokens
+            max_new_tokens=req.max_new_tokens + self.spec_gamma,
+            eos_token=d.eos_token,
+        )
+        d._admit(d_req, slot)
+        # the draft conditions on the TARGET's committed stream
+        d._slot_next_token[slot] = self._slot_next_token[slot]
+        d.allocator.seq_lengths[req.request_id] = len(req.prompt_tokens)
+        self._draft_requests[slot] = d_req
 
     def _admit(self, req: Request, slot: int) -> None:
         self._check_fits(req)
@@ -167,12 +246,21 @@ class DecodeEngine:
             self._admit_chunked(req, slot)
         else:
             self._admit_dense(req, slot)
+        if self.spec_draft is not None:
+            self._mirror_admit(req, slot)
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(array).to(self.device)
 
+    def _overhang(self) -> int:
+        """Speculative serving writes the verify window γ positions past
+        the committed prefix: the cache needs that overhang even at a
+        request's final length."""
+        return self.spec_gamma if self.spec_draft is not None else 0
+
     def _check_fits(self, req: Request) -> None:
-        need = -(-(len(req.prompt_tokens) + req.max_new_tokens) // self.page_size)
+        need = -(-(len(req.prompt_tokens) + req.max_new_tokens + self._overhang())
+                 // self.page_size)
         if need > self.pages_per_seq:
             raise ValueError(
                 f"request {req.request_id!r} needs {need} pages "
@@ -186,7 +274,8 @@ class DecodeEngine:
         temp, top_k, top_p, seeds = batch_params(
             [req.sampling or GREEDY], device=self.device)
         lengths = torch.tensor([t], dtype=torch.int32, device=self.device)
-        first = sample_tokens(logits, temp, top_k, top_p, seeds, lengths)
+        first = sample_tokens(logits, temp, top_k, top_p, seeds, lengths,
+                              sample=_samples([req.sampling]))
         first_token = int(first[0])
         req.output_tokens.append(first_token)
         if req.want_logprobs:
@@ -197,7 +286,8 @@ class DecodeEngine:
     def _admit_dense(self, req: Request, slot: int) -> None:
         prompt = np.asarray(req.prompt_tokens, np.int64)
         t = len(prompt)
-        self.allocator.allocate(req.request_id, t + req.max_new_tokens)
+        self.allocator.allocate(req.request_id,
+                                t + req.max_new_tokens + self._overhang())
         pages = np.asarray(self.allocator.page_tables[req.request_id], np.int64)
 
         toks = np.zeros((1, _next_pow2(t)), np.int64)
@@ -225,12 +315,12 @@ class DecodeEngine:
         t = len(prompt)
         sid = req.request_id
         cached_tokens = 0
+        need = t + req.max_new_tokens + self._overhang()
         if self.prefix_cache is not None:
             shared_pages, cached_tokens = self.prefix_cache.match(req.prompt_tokens)
-            self.prefix_cache.allocate_mixed_with_eviction(
-                sid, shared_pages, t + req.max_new_tokens)
+            self.prefix_cache.allocate_mixed_with_eviction(sid, shared_pages, need)
         else:
-            self.allocator.allocate(sid, t + req.max_new_tokens)
+            self.allocator.allocate(sid, need)
         table = self.allocator.page_tables[sid]
         tbl = np.full((1, self.pages_per_seq), self._null_page, np.int32)
         tbl[0, : len(table)] = table
@@ -262,21 +352,103 @@ class DecodeEngine:
             self.prefix_cache.register(req.prompt_tokens, table)
         self._first_token(req, slot, logits[:1, -1], t)
 
+    def _admit_batch(self, reqs: Sequence[Request], slots: Sequence[int]) -> None:
+        """Admit a group of requests with ONE prefill, ONE batched KV write
+        (``write_prompt_kv_batch``) and ONE read of the first tokens (the
+        offline fixed-batch paths: generate_fused, generate_speculative*).
+        Chunked prefill admits per request (its write path is per sequence
+        by construction)."""
+        if self.prefill_chunk or len(reqs) == 1:
+            for r, s in zip(reqs, slots):
+                self._admit(r, s)
+            return
+        for r in reqs:
+            self._check_fits(r)
+        n = len(reqs)
+        ts = [len(r.prompt_tokens) for r in reqs]
+        toks = np.zeros((n, _next_pow2(max(ts))), np.int64)
+        max_pages = max(-(-t // self.page_size) for t in ts)
+        pages_b = np.full((n, max_pages), self._null_page, np.int64)
+        for i, r in enumerate(reqs):
+            toks[i, : ts[i]] = r.prompt_tokens
+            self.allocator.allocate(
+                r.request_id, ts[i] + r.max_new_tokens + self._overhang())
+            npp = -(-ts[i] // self.page_size)
+            pages_b[i, :npp] = self.allocator.page_tables[r.request_id][:npp]
+
+        lengths = self._to_device(np.asarray(ts, np.int32))
+        logits, kvs = self._prefill(self.params, self._to_device(toks), lengths)
+        write_prompt_kv_batch(self.pools, kvs, self._to_device(pages_b),
+                              self.page_size)
+        sps = [r.sampling for r in reqs]
+        temp, top_k, top_p, seeds = batch_params(sps, device=self.device)
+        first_d = sample_tokens(logits, temp, top_k, top_p, seeds, lengths,
+                                sample=_samples(sps))
+        first = first_d.cpu().numpy()  # ONE read for the whole group
+        lps = None
+        if any(r.want_logprobs for r in reqs):
+            lps = _token_logprobs(logits, first_d).cpu().numpy()
+        for i, (r, slot) in enumerate(zip(reqs, slots)):
+            self.allocator.seq_lengths[r.request_id] = ts[i]
+            tok = int(first[i])
+            r.output_tokens.append(tok)
+            if r.want_logprobs:
+                r.output_logprobs.append(float(lps[i]))
+            self.slot_request[slot] = r
+            self._slot_next_token[slot] = tok
+            if self.spec_draft is not None:
+                self._mirror_admit(r, slot)
+
     def _retire(self, req: Request, slot: int) -> None:
         self.allocator.free(req.request_id)
         self.slot_request[slot] = None
+        if self.spec_draft is not None:
+            d_req = self._draft_requests.pop(slot, None)
+            if d_req is not None:
+                self.spec_draft._retire(d_req, slot)
 
     # -- decode ----------------------------------------------------------------
+
+    def _slot_sampling(self):
+        """The slots' sampling tensors (temperature, top_k, top_p, seeds)
+        and whether any slot samples; rebuilt only when the slots'
+        requests change (at admission boundaries)."""
+        cache_key = tuple(id(r) if r else None for r in self.slot_request)
+        if self._sample_cache_key != cache_key:
+            params = [r.sampling if r else None for r in self.slot_request]
+            self._sample_cache = (batch_params(params, device=self.device),
+                                  _samples(params))
+            self._sample_cache_key = cache_key
+        return self._sample_cache
+
+    def _graphs(self):
+        """The memory pool this engine's CUDA graphs share (None on the
+        CPU, where nothing is captured)."""
+        if self._graph_pool is None and self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return self._graph_pool
+
+    def _program(self, key, make):
+        program = self._programs.get(key)
+        if program is None:
+            program = self._programs[key] = make()
+        return program
+
+    def _active(self):
+        return [(i, r) for i, r in enumerate(self.slot_request)
+                if r is not None and not r.finished]
 
     def step(self) -> int:
         """One batched decode step across all active slots; returns the number
         of tokens generated."""
-        active = [
-            (i, r) for i, r in enumerate(self.slot_request)
-            if r is not None and not r.finished
-        ]
+        active = self._active()
         if not active:
             return 0
+        if self.spec_draft is not None:
+            # A plain step would commit a token the draft never saw (its
+            # cache would hold a stale hole at that position): route
+            # through a 1-token speculative burst instead.
+            return self._step_burst_spec(active, 1)
         b = self.num_slots
         tokens = np.zeros(b, np.int64)
         positions = np.zeros(b, np.int64)
@@ -303,20 +475,9 @@ class DecodeEngine:
             self._to_device(rows), self._to_device(offs),
             self._to_device(tbl), lens_d,
         )
-        # Sampling parameters only change at admission boundaries.
-        cache_key = tuple(
-            id(self.slot_request[i]) if self.slot_request[i] else None
-            for i in range(b)
-        )
-        if self._sample_cache_key != cache_key:
-            slot_params = [
-                (self.slot_request[i].sampling if self.slot_request[i] else None)
-                for i in range(b)
-            ]
-            self._sample_cache = batch_params(slot_params, device=self.device)
-            self._sample_cache_key = cache_key
-        temp, top_k, top_p, seeds = self._sample_cache
-        next_dev = sample_tokens(logits, temp, top_k, top_p, seeds, lens_d)
+        (temp, top_k, top_p, seeds), sample = self._slot_sampling()
+        next_dev = sample_tokens(logits, temp, top_k, top_p, seeds, lens_d,
+                                 sample=sample)
         next_tokens = next_dev.cpu().numpy()
         lps = None
         if any(req.want_logprobs for _, req in active):
@@ -331,7 +492,148 @@ class DecodeEngine:
         return len(active)
 
     def step_burst(self, max_steps: int = 8) -> int:
-        raise NotImplementedError(_NOT_YET.format("step_burst (device-side bursts)"))
+        """Up to ``max_steps`` lockstep decode steps for the current active
+        set in one program (``runtime.speculative.make_plain_generate`` with
+        per-slot budgets; on the card one CUDA graph replayed a step);
+        returns the number of tokens generated.
+
+        The continuous-batching analogue of :meth:`generate_fused`:
+        admission and retirement stay on the host (run the scheduler
+        between bursts), the per-token loop does not.  Slots whose request
+        budget ends mid-burst freeze in place (EOS freezes through the
+        engine's eos token); the batch keeps lockstep.  Falls back to
+        per-token :meth:`step` loops when a request wants logprobs (they
+        need each step's logits on the host)."""
+        active = self._active()
+        if not active:
+            return 0
+        if any(r.want_logprobs for _, r in active):
+            total = 0
+            for _ in range(max_steps):
+                got = self.step()
+                if not got:
+                    break
+                total += got
+                if any(r.finished for _, r in active):
+                    break  # let the scheduler retire/admit between bursts
+            return total
+        if self.spec_draft is not None:
+            return self._step_burst_spec(active, max_steps)
+
+        b = self.num_slots
+        k = max_steps
+        x0 = np.zeros(b, np.int64)
+        base_pos = np.zeros(b, np.int64)
+        tbl = np.full((b, self.pages_per_seq), self._null_page, np.int32)
+        budget = np.zeros(b, np.int64)
+        is_active = np.zeros(b, bool)
+        for slot, req in active:
+            sid = req.request_id
+            x0[slot] = self._slot_next_token[slot]
+            base_pos[slot] = self.allocator.seq_lengths[sid]
+            tt = self.allocator.page_tables[sid]
+            tbl[slot, : len(tt)] = tt
+            budget[slot] = min(k, req.max_new_tokens - len(req.output_tokens))
+            is_active[slot] = True
+
+        fused = self._program(("burst", k), lambda: make_plain_generate(
+            self.cfg, self.page_size, k, graph_pool=self._graphs()))
+        (temp, top_k, top_p, seeds), sample = self._slot_sampling()
+        out, n_out, self.pools = fused(
+            self.params, self.pools, x0, base_pos, tbl, is_active, self._eos(),
+            temp, top_k, top_p, seeds, budget, sample=sample)
+        out, n_out = _to_host(out, n_out)  # one transfer, not two
+        total = 0
+        for slot, req in active:
+            got = int(n_out[slot])
+            if got == 0:
+                continue
+            toks = [int(t) for t in out[slot, :got]]
+            req.output_tokens.extend(toks)
+            self._slot_next_token[slot] = toks[-1]
+            # K/V was written for each step's incoming token; the last
+            # sampled token's K/V lands on the NEXT step, as in step()
+            self.allocator.seq_lengths[req.request_id] = int(base_pos[slot]) + got
+            total += got
+        self.scheduler.record_step(total)
+        return total
+
+    def _eos(self) -> int:
+        return -1 if self.eos_token is None else int(self.eos_token)
+
+    def _step_burst_spec(self, active, max_steps: int) -> int:
+        """Speculative continuous-batching burst: up to ``max_steps``
+        committed tokens a slot, every draft / verify / accept / commit
+        round in one program (``runtime.speculative.make_spec_generate``
+        with per-slot budgets; on the card one CUDA graph replayed a round).
+        Admission and retirement stay on the host between bursts, as in the
+        plain burst; the attached draft's cache tracks the target's
+        committed prefix (its in-flight overshoot rolled back by length
+        bookkeeping)."""
+        d = self.spec_draft
+        gamma = self.spec_gamma
+        b = self.num_slots
+        k = max_steps
+        x0 = np.zeros(b, np.int64)
+        base_pos = np.zeros(b, np.int64)
+        budget = np.zeros(b, np.int64)
+        is_active = np.zeros(b, bool)
+        t_tbl = np.full((b, self.pages_per_seq), self._null_page, np.int32)
+        d_tbl = np.full((b, d.pages_per_seq), d._null_page, np.int32)
+        for slot, req in active:
+            sid = req.request_id
+            x0[slot] = self._slot_next_token[slot]
+            base = self.allocator.seq_lengths[sid]
+            base_pos[slot] = base
+            budget[slot] = max(0, min(k, req.max_new_tokens - len(req.output_tokens)))
+            is_active[slot] = True
+            # the draft overshoots its committed prefix by up to gamma
+            # in-flight proposals; both caches need the headroom
+            self.allocator.ensure_capacity(sid, base + budget[slot] + gamma)
+            d.allocator.ensure_capacity(sid, base + budget[slot] + gamma)
+            d.allocator.seq_lengths[sid] = base
+            tt = self.allocator.page_tables[sid]
+            t_tbl[slot, : len(tt)] = tt
+            dt = d.allocator.page_tables[sid]
+            d_tbl[slot, : len(dt)] = dt
+
+        fused = self._spec_program(("specburst", gamma, k), d, gamma, k)
+        (temp, top_k, top_p, seeds), sample = self._slot_sampling()
+        out, cnt, rounds, proposed, accepted, self.pools, d.pools = fused(
+            self.params, self.pools, d.params, d.pools, x0, base_pos, t_tbl,
+            d_tbl, is_active, self._eos(), temp, top_k, top_p, seeds, budget,
+            sample=sample)
+        out, cnt, rounds, proposed, accepted = _to_host(
+            out, cnt, rounds, proposed, accepted)  # ONE transfer
+        self.spec_stats["rounds"] += int(rounds)
+        self.spec_stats["proposed"] += int(proposed)
+        self.spec_stats["accepted"] += int(accepted)
+        total = 0
+        for slot, req in active:
+            got = int(cnt[slot])
+            if got == 0:
+                continue
+            toks = [int(t) for t in out[slot, :got]]
+            req.output_tokens.extend(toks)
+            self._slot_next_token[slot] = toks[-1]
+            final = int(base_pos[slot]) + got
+            self.allocator.seq_lengths[req.request_id] = final
+            d.allocator.seq_lengths[req.request_id] = final
+            total += got
+        self.scheduler.record_step(total)
+        return total
+
+    def _spec_program(self, key, draft, gamma: int, max_new: int):
+        """The speculative program of ``key`` for ``draft``, held with the
+        draft by weakref: a program built for a dead engine's pools must
+        never serve a new one whose id happens to match."""
+        cached = self._programs.get(key)
+        if cached is not None and cached[0]() is draft:
+            return cached[1]
+        fused = make_spec_generate(self.cfg, draft.cfg, gamma, self.page_size,
+                                   max_new, graph_pool=self._graphs())
+        self._programs[key] = (weakref.ref(draft), fused)
+        return fused
 
     def stats(self) -> Dict:
         """Operational snapshot: scheduler counters, slot/queue occupancy,
@@ -370,7 +672,8 @@ class DecodeEngine:
     ):
         """Generate for every prompt (continuous batching).  ``sampling``
         defaults to greedy.  ``return_logprobs=True`` returns
-        (tokens, logprobs) — per-token log P_model(token | prefix)."""
+        (tokens, logprobs) — per-token log P_model(token | prefix).
+        ``burst`` > 1 decodes through :meth:`step_burst`."""
         outputs: Dict[str, List[int]] = {}
         lps: Dict[str, List[float]] = {}
         for ev in self.generate_stream(
@@ -396,10 +699,8 @@ class DecodeEngine:
         burst: int = 1,
     ) -> Iterator[StreamEvent]:
         """Streaming form of :meth:`generate`: yields a ``StreamEvent`` per
-        generated token as each batched decode step retires, then one
-        ``done=True`` event per request (token=None)."""
-        if burst > 1:
-            raise NotImplementedError(_NOT_YET.format("burst decoding"))
+        generated token as each batched decode step (or burst) retires,
+        then one ``done=True`` event per request (token=None)."""
         reqs = [
             Request(
                 request_id=f"req{i}",
@@ -453,7 +754,10 @@ class DecodeEngine:
                     )
                 steps += 1
                 continue
-            self.step()
+            if burst > 1:
+                self.step_burst(burst)
+            else:
+                self.step()
             steps += 1
             yield from drain()
         self.scheduler.schedule()  # final retirement
@@ -463,11 +767,311 @@ class DecodeEngine:
                 done.add(r.request_id)
                 yield StreamEvent(r.request_id, None, True)
 
-    def generate_fused(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_YET.format("generate_fused"))
+    # -- speculative decoding ---------------------------------------------------
 
-    def generate_speculative(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_YET.format("generate_speculative"))
+    def _single_decode_logits(self, sids, tokens_np):
+        """One batched decode step for explicit (sid, token) pairs occupying
+        slots 0..len(sids)−1; inserts the tokens' K/V and returns the raw
+        next-token logits [num_slots, vocab]."""
+        b = self.num_slots
+        tokens = np.zeros(b, np.int64)
+        positions = np.zeros(b, np.int64)
+        rows = np.full(b, self._null_page, np.int64)
+        offs = np.zeros(b, np.int64)
+        tbl = np.full((b, self.pages_per_seq), self._null_page, np.int32)
+        lens = np.zeros(b, np.int32)
+        for slot, (sid, tok) in enumerate(zip(sids, tokens_np)):
+            pos = self.allocator.seq_lengths[sid]
+            self.allocator.ensure_capacity(sid, pos + 1)
+            table = self.allocator.page_tables[sid]
+            tokens[slot] = tok
+            positions[slot] = pos
+            rows[slot] = table[pos // self.page_size]
+            offs[slot] = pos % self.page_size
+            tbl[slot, : len(table)] = table
+            lens[slot] = pos + 1
+            self.allocator.seq_lengths[sid] = pos + 1
+        logits, self.pools = self._decode_step(
+            self.params, self.pools,
+            self._to_device(tokens), self._to_device(positions),
+            self._to_device(rows), self._to_device(offs),
+            self._to_device(tbl), self._to_device(lens),
+        )
+        return logits
 
-    def generate_speculative_fused(self, *args, **kwargs):
-        raise NotImplementedError(_NOT_YET.format("generate_speculative_fused"))
+    def _single_decode(self, sids, tokens_np):
+        """Greedy form of :meth:`_single_decode_logits`."""
+        return torch.argmax(self._single_decode_logits(sids, tokens_np),
+                            dim=-1).cpu().numpy()
+
+    def _check_spec(self, n: int, draft: "DecodeEngine", gamma: int) -> None:
+        if n > self.num_slots or n > draft.num_slots:
+            raise ValueError(
+                f"{n} prompts exceed slots (target {self.num_slots}, "
+                f"draft {draft.num_slots})"
+            )
+        if draft.page_size != self.page_size:
+            raise ValueError("draft and target page sizes must match")
+        if gamma < 2:
+            raise ValueError("gamma must be >= 2 (draft proposes gamma-1)")
+
+    def _lockstep_admit(self, prompts, prefix: str, max_new_tokens: int, sp,
+                        draft=None):
+        """Admit every prompt at once into slots 0..n−1 (bypassing the
+        scheduler: fixed batch, lockstep) on this engine and on ``draft``;
+        returns (target requests, draft requests)."""
+        def requests(sampling):
+            return [Request(request_id=f"{prefix}{i}", prompt_tokens=list(p),
+                            max_new_tokens=max_new_tokens,
+                            eos_token=self.eos_token, sampling=sampling)
+                    for i, p in enumerate(prompts)]
+
+        reqs = requests(sp)
+        slots = list(range(len(prompts)))
+        self._admit_batch(reqs, slots)
+        d_reqs = None
+        if draft is not None:
+            d_reqs = requests(None)
+            draft._admit_batch(d_reqs, slots)
+        return reqs, d_reqs
+
+    def generate_speculative(
+        self,
+        prompts: Sequence[Sequence[int]],
+        *,
+        draft: "DecodeEngine",
+        gamma: int = 4,
+        max_new_tokens: int = 16,
+        max_rounds: int = 10_000,
+        sampling: Optional[SamplingParams] = None,
+    ) -> List[List[int]]:
+        """Speculative decoding, the host-loop form: the ``draft`` engine
+        proposes ``gamma``−1 tokens a round (one eager program,
+        ``runtime.speculative.make_draft_propose``), this (target) engine
+        verifies them in ONE multi-token step and commits the accepted
+        prefix plus a correction / bonus token (``make_verify_accept``);
+        the host does the page bookkeeping between rounds.
+
+        Greedy (``sampling`` None or temperature 0): output is IDENTICAL to
+        plain greedy ``generate`` whatever the draft; only the round count
+        changes.  temperature > 0 uses rejection sampling
+        (``runtime.sampling.speculative_verify``), so the output's
+        distribution is plain sampling's from the target.
+
+        Both engines must share vocab and page size and have slots for all
+        prompts (no mid-flight admission in this mode)."""
+        n = len(prompts)
+        self._check_spec(n, draft, gamma)
+        cached = self._programs.get(gamma)
+        if cached is not None and cached[0]() is draft:
+            propose, verify_accept = cached[1]
+        else:
+            propose = make_draft_propose(draft.cfg, gamma, draft.page_size)
+            verify_accept = make_verify_accept(self.cfg, gamma)
+            self._programs[gamma] = (weakref.ref(draft), (propose, verify_accept))
+        sp = sampling or GREEDY
+        b = self.num_slots
+        temp, top_k, top_p, seeds = batch_params([sp] * n + [None] * (b - n),
+                                                 device=self.device)
+        sample = _samples([sp])
+
+        reqs, d_reqs = self._lockstep_admit(prompts, "spec", max_new_tokens, sp, draft)
+        for slot, r in enumerate(reqs):
+            # the draft conditions on the TARGET's committed stream
+            draft._slot_next_token[slot] = r.output_tokens[0]
+        sids = [r.request_id for r in reqs]
+        outputs = [[r.output_tokens[0]] for r in reqs]
+        # acceptance telemetry: rounds run, proposals offered, proposals
+        # accepted (committed minus the round's correction / bonus token)
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted": 0}
+
+        for _ in range(max_rounds):
+            live = [
+                i for i in range(n)
+                if len(outputs[i]) < max_new_tokens and not (
+                    self.eos_token is not None and outputs[i][-1] == self.eos_token)
+            ]
+            if not live:
+                break
+            x0 = np.zeros(b, np.int64)
+            x0[:n] = [outputs[i][-1] for i in range(n)]  # last committed token
+            base_pos_d = np.zeros(b, np.int64)
+            base_pos_d[:n] = [draft.allocator.seq_lengths[s] for s in sids]
+
+            # the draft proposes gamma−1 tokens (and writes the last one's K/V)
+            d_tbl = np.full((b, draft.pages_per_seq), draft._null_page, np.int32)
+            for slot in range(n):
+                sid, base = sids[slot], int(base_pos_d[slot])
+                draft.allocator.ensure_capacity(sid, base + gamma)
+                table = draft.allocator.page_tables[sid]
+                d_tbl[slot, : len(table)] = table
+                draft.allocator.seq_lengths[sid] = base + gamma
+            props, draft_logits, draft.pools = propose(
+                draft.params, draft.pools, draft._to_device(x0),
+                draft._to_device(base_pos_d), draft._to_device(d_tbl),
+                temp, top_k, top_p, seeds, sample=sample)
+
+            # the target verifies and accepts / resamples
+            positions = np.zeros((b, gamma), np.int64)
+            rows = np.full((b, gamma), self._null_page, np.int64)
+            offs = np.zeros((b, gamma), np.int64)
+            tbl = np.full((b, self.pages_per_seq), self._null_page, np.int32)
+            lens = np.zeros(b, np.int32)
+            base_pos = np.zeros(b, np.int64)
+            for slot in range(n):
+                sid = sids[slot]
+                p0 = self.allocator.seq_lengths[sid]
+                base_pos[slot] = p0
+                self.allocator.ensure_capacity(sid, p0 + gamma)
+                table = np.asarray(self.allocator.page_tables[sid], np.int64)
+                pos = p0 + np.arange(gamma)
+                positions[slot] = pos
+                rows[slot] = table[pos // self.page_size]
+                offs[slot] = pos % self.page_size
+                tbl[slot, : len(table)] = table
+                lens[slot] = p0 + gamma
+            round_tokens, n_committed, self.pools = verify_accept(
+                self.params, self.pools, props, self._to_device(positions),
+                self._to_device(rows), self._to_device(offs),
+                self._to_device(tbl), self._to_device(lens), draft_logits,
+                temp, top_k, top_p, seeds, self._to_device(base_pos),
+                sample=sample)
+            round_tokens, n_committed = _to_host(round_tokens, n_committed)
+            self.spec_stats["rounds"] += 1
+            self.spec_stats["proposed"] += len(live) * (gamma - 1)
+            self.spec_stats["accepted"] += int(sum(n_committed[s] - 1 for s in live))
+
+            for slot in live:
+                sid = sids[slot]
+                m = int(n_committed[slot]) - 1  # accepted proposals
+                budget = max_new_tokens - len(outputs[slot])
+                for tok in round_tokens[slot, : m + 1][:budget]:
+                    outputs[slot].append(int(tok))
+                    if self.eos_token is not None and tok == self.eos_token:
+                        break
+                # the cache holds x0, d1..d_m as its valid prefix (m+1 tokens)
+                self.allocator.seq_lengths[sid] = int(base_pos[slot]) + 1 + m
+                draft.allocator.seq_lengths[sid] = int(base_pos[slot]) + 1 + m
+            for slot in set(range(n)) - set(live):
+                # finished slots still ride the fixed-shape draft calls
+                # (which advance their lengths by gamma a round): roll them
+                # back so their page tables never grow
+                draft.allocator.seq_lengths[sids[slot]] = int(base_pos_d[slot])
+
+        for slot in range(n):
+            self._retire(reqs[slot], slot)
+            draft._retire(d_reqs[slot], slot)
+        return outputs
+
+    def _lockstep_tables(self, sids, extra: int, outputs, max_new: int, engines):
+        """x0, base positions and each engine's page tables of a lockstep
+        batch, every sequence's capacity ensured for its final length plus
+        ``extra`` on each engine (nothing inside the program can allocate)."""
+        b = self.num_slots
+        x0 = np.zeros(b, np.int64)
+        base_pos = np.zeros(b, np.int64)
+        tables = [np.full((b, e.pages_per_seq), e._null_page, np.int32)
+                  for e in engines]
+        for slot, sid in enumerate(sids):
+            x0[slot] = outputs[slot][0]
+            base = self.allocator.seq_lengths[sid]
+            base_pos[slot] = base
+            for e, tbl in zip(engines, tables):
+                e.allocator.ensure_capacity(sid, base + max_new + extra)
+                table = e.allocator.page_tables[sid]
+                tbl[slot, : len(table)] = table
+        return x0, base_pos, tables
+
+    def generate_speculative_fused(
+        self,
+        prompts: Sequence[Sequence[int]],
+        *,
+        draft: "DecodeEngine",
+        gamma: int = 4,
+        max_new_tokens: int = 16,
+        sampling: Optional[SamplingParams] = None,
+    ) -> List[List[int]]:
+        """Speculative decoding with every round in one program
+        (``runtime.speculative.make_spec_generate``; on the card a CUDA
+        graph replayed a round): page capacity for the final lengths is
+        ensured up front, the draft / verify / commit loop runs on the
+        device, and the host reads one flag a round and the tokens once.
+        Same outputs as :meth:`generate_speculative`; lockstep fixed batch
+        (no mid-flight admission)."""
+        n = len(prompts)
+        self._check_spec(n, draft, gamma)
+        b = self.num_slots
+        sp = sampling or GREEDY
+        temp, top_k, top_p, seeds = batch_params([sp] * n + [None] * (b - n),
+                                                 device=self.device)
+        reqs, d_reqs = self._lockstep_admit(prompts, "specf", max_new_tokens, sp, draft)
+        sids = [r.request_id for r in reqs]
+        outputs = [[r.output_tokens[0]] for r in reqs]
+        max_new = max_new_tokens - 1  # the first token came from prefill
+        if max_new > 0:
+            x0, base_pos, (t_tbl, d_tbl) = self._lockstep_tables(
+                sids, gamma, outputs, max_new, (self, draft))
+            fused = self._spec_program(("fused", gamma, max_new), draft, gamma, max_new)
+            active = np.arange(b) < n
+            t0 = time.perf_counter()
+            out, cnt, rounds, proposed, accepted, self.pools, draft.pools = fused(
+                self.params, self.pools, draft.params, draft.pools, x0, base_pos,
+                t_tbl, d_tbl, active, self._eos(), temp, top_k, top_p, seeds,
+                np.full(b, max_new), sample=_samples([sp]))
+            out, cnt, rounds, proposed, accepted = _to_host(
+                out, cnt, rounds, proposed, accepted)  # one transfer, not 5
+            # the program's wall time (admission and prefill excluded)
+            self.last_fused_seconds = time.perf_counter() - t0
+            self.spec_stats = {"rounds": int(rounds), "proposed": int(proposed),
+                               "accepted": int(accepted)}
+            for slot in range(n):
+                outputs[slot].extend(int(t) for t in out[slot, : cnt[slot]])
+                final = int(base_pos[slot]) + int(cnt[slot])
+                self.allocator.seq_lengths[sids[slot]] = final
+                draft.allocator.seq_lengths[sids[slot]] = final
+        for slot in range(n):
+            self._retire(reqs[slot], slot)
+            draft._retire(d_reqs[slot], slot)
+        return outputs
+
+    def generate_fused(
+        self,
+        prompts: Sequence[Sequence[int]],
+        *,
+        max_new_tokens: int = 16,
+        sampling: Optional[SamplingParams] = None,
+    ) -> List[List[int]]:
+        """Plain generation with the whole decode loop in one program
+        (``runtime.speculative.make_plain_generate``; on the card a CUDA
+        graph replayed a step): the baseline of
+        :meth:`generate_speculative_fused` and the lockstep offline path."""
+        n = len(prompts)
+        if n > self.num_slots:
+            raise ValueError("prompts exceed slots")
+        b = self.num_slots
+        sp = sampling or GREEDY
+        temp, top_k, top_p, seeds = batch_params([sp] * n + [None] * (b - n),
+                                                 device=self.device)
+        reqs, _ = self._lockstep_admit(prompts, "plainf", max_new_tokens, sp)
+        sids = [r.request_id for r in reqs]
+        outputs = [[r.output_tokens[0]] for r in reqs]
+        max_new = max_new_tokens - 1
+        if max_new > 0:
+            x0, base_pos, (tbl,) = self._lockstep_tables(sids, 0, outputs, max_new, (self,))
+            fused = self._program(("plain_fused", max_new), lambda: make_plain_generate(
+                self.cfg, self.page_size, max_new, graph_pool=self._graphs()))
+            active = np.arange(b) < n
+            t0 = time.perf_counter()
+            out, n_out, self.pools = fused(
+                self.params, self.pools, x0, base_pos, tbl, active, self._eos(),
+                temp, top_k, top_p, seeds, np.full(b, max_new),
+                sample=_samples([sp]))
+            out, n_out = _to_host(out, n_out)  # one transfer
+            self.last_fused_seconds = time.perf_counter() - t0
+            for slot in range(n):
+                outputs[slot].extend(int(t) for t in out[slot, : n_out[slot]])
+                self.allocator.seq_lengths[sids[slot]] = (
+                    int(base_pos[slot]) + int(n_out[slot]))
+        for slot in range(n):
+            self._retire(reqs[slot], slot)
+        return outputs

@@ -7,11 +7,14 @@ One sampler handles a whole decode batch with PER-SLOT parameters:
 - top_k > 0         → keep the k highest logits (k clamped to MAX_TOP_K);
 - top_p < 1         → nucleus sampling: smallest probability mass ≥ p.
 
-Randomness is deterministic per (seed, position): each sampled slot draws
-from a ``torch.Generator`` seeded from its request's seed and the token
-position, so a request reproduces its stream whatever slot or batch it lands
-in.  The bits differ from ``jax.random``'s: a seeded stream of the port
-cannot match the JAX sampler's, only reproduce itself.
+Randomness is a pure function of (seed, position, vocab index): a
+counter-based 32-bit hash (``lowbias32``, the mixer of the attention
+kernels' dropout) turned into a uniform, then Gumbel-max over the filtered
+logits.  A (seed, position) stream therefore reproduces itself whatever
+slot or batch it lands in, and drawing reads nothing back from the device,
+so a decode step with its sampling can be captured into a CUDA graph.  The
+bits differ from ``jax.random``'s: a seeded stream of the port cannot match
+the JAX sampler's, only reproduce itself.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Optional
 import torch
 
 from .._cuda import resolve_device
+from ..ops.fwd_kernel import lowbias32
 
 _NEG = -1e30
 
@@ -53,18 +57,34 @@ class SamplingParams:
 GREEDY = SamplingParams()
 
 
-_U64 = (1 << 64) - 1
+# Stream tags folded into the key beside (seed, position): 0 draws sampled
+# tokens; 2 and 3 are the acceptance and replacement draws of
+# speculative_verify (the tags the JAX package folds in).
+_TAG_SAMPLE, _TAG_ACCEPT, _TAG_REPLACE = 0, 2, 3
+_M32 = 0xFFFFFFFF
 
 
-def _stream_seed(seed: int, position: int) -> int:
-    """One generator seed per (request seed, token position), mixed with the
-    splitmix64 finalizer: the CPU generator keeps only the low 32 bits of
-    its seed, so every input bit has to reach them."""
-    x = ((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF)
-    x = (x + 0x9E3779B97F4A7C15) & _U64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _U64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _U64
-    return x ^ (x >> 31)
+def _u32(x):
+    return x.long() & _M32
+
+
+def _uniforms(seeds, positions, tag: int, index):
+    """Uniforms in (0, 1), fp32, [slots, *index.shape]: a pure function of
+    (seed, position, tag, index), hashed with ``lowbias32`` on uint32
+    values held in int64.  ``seeds`` and ``positions`` are [slots]."""
+    key = lowbias32(_u32(seeds) ^ ((tag * 0x9E3779B9) & _M32))
+    key = lowbias32(key ^ _u32(positions))  # one key per (seed, position, tag)
+    key = key.reshape(key.shape + (1,) * index.ndim)
+    bits = lowbias32(lowbias32((_u32(index) + key) & _M32) ^ key)
+    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel_argmax(scores, seeds, positions, tag: int):
+    """argmax over the last axis of ``scores`` [slots, V] plus Gumbel noise
+    from :func:`_uniforms`: a draw from softmax(scores)."""
+    vocab = torch.arange(scores.shape[-1], device=scores.device)
+    u = _uniforms(seeds, positions, tag, vocab)
+    return torch.argmax(scores - torch.log(-torch.log(u)), dim=-1)
 
 
 def sample_tokens(
@@ -73,24 +93,21 @@ def sample_tokens(
     top_k,  # [slots] int32; 0 → disabled
     top_p,  # [slots] f32; 1 → disabled
     seeds,  # [slots] int32 per-request seeds
-    positions,  # [slots] int32 — with the seed, picks the random stream
+    positions,  # [slots] — with the seed, picks the random stream
+    *,
+    sample: bool = True,
 ):
     """Per-slot filtered sampling; returns [slots] int64 token ids on the
-    logits' device."""
+    logits' device, with tensor operations only (no value is read back to
+    the host).  ``sample=False`` is the greedy-only form for a batch whose
+    every temperature is 0: it skips the top-k / top-p sort."""
     logits = logits.float()
-    tokens = torch.argmax(logits, dim=-1)
-    sampled = (temperature > 0).nonzero().flatten().tolist()
-    if not sampled:
-        return tokens
+    greedy = torch.argmax(logits, dim=-1)
+    if not sample:
+        return greedy
     scaled = filtered_logits(logits, temperature, top_k, top_p)
-    seeds_h = seeds.tolist()
-    pos_h = positions.tolist()
-    for i in sampled:
-        gen = torch.Generator(device=logits.device)
-        gen.manual_seed(_stream_seed(seeds_h[i], pos_h[i]))
-        probs = torch.softmax(scaled[i], dim=-1)
-        tokens[i] = torch.multinomial(probs, 1, generator=gen)[0]
-    return tokens
+    sampled = _gumbel_argmax(scaled, seeds, positions, _TAG_SAMPLE)
+    return torch.where(temperature > 0, sampled, greedy)
 
 
 def filtered_logits(logits, temperature, top_k, top_p):
@@ -127,6 +144,72 @@ def filtered_logits(logits, temperature, top_k, top_p):
                          torch.full_like(sorted_logits, float("inf")))
     thresh = thresh.amin(dim=-1, keepdim=True)
     return torch.where(scaled < thresh, torch.full_like(scaled, _NEG), scaled)
+
+
+def speculative_verify(
+    target_logits,  # [slots, gamma, vocab]: logits after consuming proposals[:, :j+1]
+    draft_logits,  # [slots, gamma-1, vocab]: the distributions that drew d_1..d_{γ-1}
+    proposals,  # [slots, gamma]: x0, d_1..d_{γ-1}
+    temperature,  # [slots] f32; 0 → greedy verify (argmax match)
+    top_k,  # [slots] int32
+    top_p,  # [slots] f32
+    seeds,  # [slots] int32
+    base_positions,  # [slots]: committed length before this round
+    *,
+    sample: bool = True,
+):
+    """Speculative-decoding verification (Leviathan et al.), the JAX
+    package's ``speculative_verify``: accept d_{j+1} with probability
+    min(1, p_j(d_{j+1}) / q_j(d_{j+1})); at the first rejection resample
+    from the residual norm(max(p_j − q_j, 0)); if all γ−1 proposals are
+    accepted, draw the bonus token from p_{γ−1}.  The committed stream is
+    distributed exactly as plain sampling from the filtered target
+    distribution, whatever the draft.  temperature 0 is the greedy
+    argmax-match rule.
+
+    The acceptance uniforms are stream tag 2 at ``base_positions`` (index
+    j), the replacement draw tag 3 at ``base_positions + m``.  Tensor
+    operations only; ``sample=False`` (every temperature 0) skips the
+    filtering and the draws.
+
+    Returns (tokens [slots, gamma] int64, n_committed [slots] int64): the
+    first n_committed[i] entries of tokens[i] are this round's output."""
+    slots, gamma = proposals.shape
+    greedy = torch.argmax(target_logits.float(), dim=-1)  # [slots, gamma]
+    d_next = proposals[:, 1:].long()  # [slots, gamma-1]
+    accept = d_next == greedy[:, : gamma - 1]
+    if sample:
+        p_probs = torch.softmax(
+            filtered_logits(target_logits, temperature, top_k, top_p), dim=-1)
+        q_probs = torch.softmax(
+            filtered_logits(draft_logits, temperature, top_k, top_p), dim=-1)
+        p_at = torch.gather(p_probs[:, : gamma - 1], -1, d_next[..., None])[..., 0]
+        q_at = torch.gather(q_probs, -1, d_next[..., None])[..., 0]
+        u = _uniforms(seeds, base_positions, _TAG_ACCEPT,
+                      torch.arange(gamma - 1, device=proposals.device))
+        accept = torch.where((temperature > 0)[:, None], u * q_at <= p_at, accept)
+    m = torch.cumprod(accept.long(), dim=-1).sum(dim=-1)  # [slots]
+
+    replacement = torch.gather(greedy, 1, m[:, None])[:, 0]
+    if sample:
+        # the residual at index m when a proposal was rejected (m < γ−1),
+        # the target's bonus distribution when all were accepted
+        at_m = m[:, None, None].expand(slots, 1, p_probs.shape[-1])
+        p_m = torch.gather(p_probs, 1, at_m)[:, 0]
+        q_pad = torch.cat([q_probs, torch.zeros_like(q_probs[:, :1])], dim=1)
+        q_m = torch.gather(q_pad, 1, at_m)[:, 0]
+        residual = torch.clamp(p_m - q_m, min=0.0)
+        use_residual = (m < gamma - 1) & (residual.sum(dim=-1) > 0)
+        dist = torch.where(use_residual[:, None], residual, p_m)
+        drawn = _gumbel_argmax(torch.log(torch.clamp(dist, min=1e-38)), seeds,
+                               base_positions.long() + m, _TAG_REPLACE)
+        replacement = torch.where(temperature > 0, drawn, replacement)
+
+    # tokens[:, :m] = accepted proposals d_1..d_m; tokens[:, m] = replacement
+    cols = torch.arange(gamma, device=proposals.device)[None, :]
+    toks = torch.cat([d_next, torch.zeros_like(d_next[:, :1])], dim=1)
+    tokens = torch.where(cols == m[:, None], replacement[:, None], toks)
+    return tokens, m + 1
 
 
 def batch_params(params_list, default: Optional[SamplingParams] = None,

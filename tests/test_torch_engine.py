@@ -216,29 +216,51 @@ def test_stats_have_the_jax_keys(jparams, model):
     dict(prefill_chunk=16, enable_prefix_cache=True,
          call="generate_speculative_fused"),
 ])
-def test_unported_engine_options_raise(model, kwargs):
-    """Unported options raise at construction; with ``call``, the options
-    are ported and the unported speculative entry point raises."""
+def test_unported_engine_options_raise(jparams, model, kwargs):
+    """Unported options raise at construction.  With ``call``, the options
+    and the speculative entry point are ported: misused (γ < 2 with int8
+    KV, more prompts than slots with chunked prefill and the prefix cache),
+    the call raises as the JAX package's does."""
     kwargs = dict(kwargs)
     call = kwargs.pop("call", None)
     if call is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port(model, num_slots=1, **kwargs)
         return
-    eng = _port(model, num_slots=1, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(eng, call)(PROMPTS)
+    jkw = dict(kwargs, kv_dtype=jnp.int8) if "kv_dtype" in kwargs else dict(kwargs)
+    misuse, match = ((dict(gamma=1), "gamma") if call == "generate_speculative"
+                     else (dict(gamma=2), "exceed slots"))
+    prompts = PROMPTS if match == "exceed slots" else PROMPTS[:1]
+    for eng, draft in (
+            (_port(model, num_slots=1, **kwargs), _port(model, num_slots=1, **kwargs)),
+            (JEngine(jparams, JCFG, num_pages=32, page_size=128, pages_per_seq=4,
+                     num_slots=1, **{"kv_dtype": jnp.float32, **jkw}),
+             JEngine(jparams, JCFG, num_pages=32, page_size=128, pages_per_seq=4,
+                     num_slots=1, **{"kv_dtype": jnp.float32, **jkw}))):
+        with pytest.raises(ValueError, match=match):
+            getattr(eng, call)(prompts, draft=draft, **misuse)
 
 
-def test_unported_engine_modes_raise(model):
+def test_unported_engine_modes_raise(jparams, model):
+    """Bursts, drafts and the lockstep forms are ported; misused they raise
+    as the JAX package's do: a draft with another page size or fewer
+    slots, γ < 2, more prompts than slots."""
+    for make in (lambda **kw: TEngine(model, TCFG, num_pages=32, pages_per_seq=4,
+                                      kv_dtype=torch.float32, device="cpu",
+                                      **{"page_size": 128, **kw}),
+                 lambda **kw: JEngine(jparams, JCFG, num_pages=32, pages_per_seq=4,
+                                      kv_dtype=jnp.float32,
+                                      **{"page_size": 128, **kw})):
+        eng = make(num_slots=2)
+        with pytest.raises(ValueError, match="page sizes"):
+            eng.attach_draft(make(num_slots=2, page_size=64))
+        with pytest.raises(ValueError, match="as many slots"):
+            eng.attach_draft(make(num_slots=1))
+        with pytest.raises(ValueError, match="gamma"):
+            eng.attach_draft(make(num_slots=2), gamma=1)
+        assert eng.spec_draft is None and eng.step_burst(4) == 0  # nothing active
+        with pytest.raises(ValueError, match="exceed slots"):
+            eng.generate_fused(MANY)
     eng = _port(model, num_slots=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.attach_draft(eng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.step_burst(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate(PROMPTS, burst=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.generate_fused(PROMPTS)
     with pytest.raises(ValueError, match="pages_per_seq"):
         eng.generate([list(range(600))], max_new_tokens=1)
