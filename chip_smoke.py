@@ -52,6 +52,17 @@ Then drives every path of the port:
   with a packed loader's segment ids and with SegmentIds(q, kv) of
   different lengths, through nn.dot_product_attention on padded batches,
   forward and backward, and fp8 V through the op API;
+- Gemma-2-2B (serve_gemma2): the published google/gemma-2-2b config at
+  full width and depth (26 layers, head_dim 256, softcaps, a 4096 window
+  on even layers), imported by import_hf_gemma from a random HF-named
+  state dict and a SimpleNamespace config, served from bf16 KV at 4 slots
+  (eager, then graphed bursts of 8: equal tokens), int8 KV at 8 slots and
+  with chunked prefill and the prefix cache; a dense 8192-token forward; a
+  2-layer fp32 copy;
+- model variants (variants): Llama-3.1-8B, Qwen2-7B (YaRN, QKV biases),
+  the same in weight-only int8 and Phi-3-mini-4k (head_dim 96, a 2047
+  window) at their published widths and 4 layers, through their importers,
+  eager and graphed with equal tokens, and 2-layer fp32 copies;
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -165,8 +176,9 @@ def device_ms(fn, reps=20, between=None, match="paged_"):
     kernels it launches whose names hold ``match`` (torch.profiler's CUPTI
     trace) over ``reps`` calls after a warm-up, per call; the wrapper's host
     time is not in it.  ``between()`` runs before each call (an L2 flush:
-    :func:`l2_flush`); its kernels do not match.  Raises if the profiler saw
-    no matching kernel."""
+    :func:`l2_flush`); its kernels do not match.  A trace that came back
+    empty is taken once more (one in about a hundred did, on the H100);
+    raises if the second saw no matching kernel either."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -174,17 +186,18 @@ def device_ms(fn, reps=20, between=None, match="paged_"):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and match in e.name)
-    if us <= 0:
-        raise AssertionError("the profiler saw no kernel")
-    return us / 1e3 / reps
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and match in e.name)
+        if us > 0:
+            return us / 1e3 / reps
+    raise AssertionError("the profiler saw no kernel")
 
 
 def l2_flush(dev):
@@ -207,15 +220,19 @@ def bound(flops, nbytes, peak_flops):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, v_itemsize=None):
+def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, v_itemsize=None,
+             window=0):
     """Operations and bytes one forward needs: 4·d operations per visible
     (row, key) pair and head, where ``pairs`` (one head, the whole batch)
     counts them when the data decide them (segment ids, whose [B, N] int32
     reads then count too); by default causal counts the visible half of the
-    score matrix (2·B·H·N²·d when Nq = Nkv).  ``v_itemsize``: V's bytes per
+    score matrix (2·B·H·N²·d when Nq = Nkv), and a causal ``window`` w the
+    keys each row sees, min(i + 1, w).  ``v_itemsize``: V's bytes per
     element when they differ from q's (fp8 V: 1)."""
     seg_bytes = 0 if pairs is None else 4 * b * (nq + nkv)
-    if pairs is None:
+    if pairs is None and window and causal and nq == nkv and window < nq:
+        pairs = b * (window * (window + 1) / 2 + (nq - window) * window)
+    elif pairs is None:
         pairs = b * (nq * nkv / 2 if causal and nq == nkv else nq * nkv)
     v_itemsize = itemsize if v_itemsize is None else v_itemsize
     flops = 4 * hq * pairs * d
@@ -301,7 +318,9 @@ BWD_MUTANTS = {
 def start_mutant_builds(mutants):
     """Writes each mutant's csrc/ copy (``mutants``: {name: (source,
     edited file, [(old, new)])}) and starts its nvcc on the source:
-    {name: (process, library path, source)}."""
+    {name: (process, library path, source)}, each nvcc (and the compilers
+    it runs) at the lowest CPU priority."""
+    import os
     import shutil
     from flash_attention_dlrs_tpu_torch import _cuda
 
@@ -322,9 +341,22 @@ def start_mutant_builds(mutants):
         lib = root / source.replace(".cu", ".so")
         proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
                                  str(root / "csrc" / source)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                preexec_fn=lambda: os.nice(19))
         running[name] = (proc, lib, source)
     return running
+
+
+def wait_mutant_builds(builds) -> float:
+    """Waits for the nvcc of every mutant of ``builds`` (from
+    :func:`start_mutant_builds`); raises if one failed.  Returns the
+    seconds it waited."""
+    t0 = time.perf_counter()
+    for name, (proc, _, _) in builds.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode:
+            raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
+    return time.perf_counter() - t0
 
 
 def _check_instances(rec, built, sources, entry, flags, marker, count, key):
@@ -437,9 +469,9 @@ PAGED_MUTANTS = {
 
 
 def phase_build(mutants=False):
-    """Builds every source (and, with ``mutants``, starts the backward and
-    paged mutant builds first, so that they compile beside it: returns
-    them)."""
+    """Builds every source and, with ``mutants``, starts the backward and
+    paged mutant builds first and returns them: they compile beside it at
+    the lowest CPU priority, so the main build keeps the cores it needs."""
     from flash_attention_dlrs_tpu_torch import _cuda
 
     t0 = time.perf_counter()
@@ -453,11 +485,11 @@ def phase_build(mutants=False):
         info[src] = {"seconds": round(rec["seconds"], 3), "ptxas": ptxas}
     rec = {"phase": "build", "seconds": time.perf_counter() - t0,
            "sources": _cuda.all_sources(), "built": info}
-    bwd_warnings = []
+    fwd_warnings, bwd_warnings = [], []
     if "attn_fwd.cu" in built and "attn_fwd_seg.cu" in built:
-        # 2 dtypes x 2 head dims x 2^4 modes
-        _check_instances(rec, built, ("attn_fwd.cu", "attn_fwd_seg.cu"), WGMMA_ENTRY,
-                         WGMMA_FLAGS, "attn_fwd_wgmma_kernel", 64, "wgmma")
+        # 2 dtypes x 2 head dims x 2^4 modes, and 2 dtypes at d 256 (no mode)
+        fwd_warnings = _check_instances(rec, built, ("attn_fwd.cu", "attn_fwd_seg.cu"), WGMMA_ENTRY,
+                         WGMMA_FLAGS, "attn_fwd_wgmma_kernel", 66, "wgmma")
     if "attn_bwd.cu" in built and "attn_bwd_seg.cu" in built:
         # 2 sweeps x 2 dtypes x 2 head dims x 2^3 modes
         bwd_warnings = _check_instances(rec, built, ("attn_bwd.cu", "attn_bwd_seg.cu"),
@@ -470,18 +502,21 @@ def phase_build(mutants=False):
     serialized = {k: v["ptxas_warnings"] for k, v in paged.items()
                   if k.startswith("verify_wgmma") and v["ptxas_warnings"]}
     if paged:
-        # 7 kinds x 2 head dims x 2^2 modes; 2 dtypes x 5 kinds x 2 head
-        # dims x 2^2 modes, and 2 fp32 instances
+        # 7 kinds x 2 head dims x 2^2 modes + 7 x 2 (softcap) at d 256;
+        # 2 dtypes x 5 kinds x (2 head dims x 2^2 modes + 2 at d 256), and
+        # 3 fp32 instances
         rec.update(paged_instances=paged, paged_spilling={
             k: v for k, v in paged.items() if v.get("spill_stores") or v.get("spill_loads")})
     emit(rec)
+    if fwd_warnings:
+        raise AssertionError(f"forward wgmma instances with serialized wgmmas: {fwd_warnings}")
     if bwd_warnings:
         raise AssertionError(f"backward wgmma instances with serialized wgmmas: {bwd_warnings}")
     if serialized:
         raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
     counts = {k: sum(n.startswith(k) for n in paged)
               for k in ("decode_", "verify_wgmma_", "verify_fp32_")}
-    if paged and counts != {"decode_": 56, "verify_wgmma_": 80, "verify_fp32_": 2}:
+    if paged and counts != {"decode_": 70, "verify_wgmma_": 100, "verify_fp32_": 3}:
         raise AssertionError(f"unexpected paged instances: {counts}")
     return mutant_builds
 
@@ -596,6 +631,8 @@ def case_kwargs(hq, b, nq, nkv, dev, mod):
 
 
 def phase_fwd(dev):
+    """Each forward mode and route against the plain version on the same
+    inputs."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
         DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain, fwd_route,
@@ -674,6 +711,21 @@ def phase_fwd(dev):
          0.0, both),
         ("wg_empty_rows_alibi_fp16_d64", f16, 1, 4, 2, 300, 200, 64, True, 0, 0.0, alibi),
         ("wg_empty_rows_dropout_bf16", bf16, 1, 4, 2, 300, 200, 128, True, 0, 0.0, drop),
+        # head_dim 256 (Gemma, 64-key tiles): the modes Gemma uses, none,
+        # softcap and window, on both routes, at Gemma-2-2B's heads
+        ("d256_gemma_prefill_2048_softcap", bf16, 1, 8, 4, 2048, 2048, 256, True, 0, 50.0,
+         {}),
+        ("d256_gemma_window_softcap_8192", bf16, 1, 8, 4, 8192, 8192, 256, True, 4096, 50.0,
+         {}),
+        ("d256_none_bf16", bf16, 1, 8, 4, 1024, 1024, 256, True, 0, 0.0, {}),
+        ("d256_window_fp16_tail", f16, 1, 4, 2, 300, 300, 256, True, 100, 0.0, {}),
+        ("d256_cross_tails_bf16", bf16, 2, 4, 2, 129, 385, 256, True, 0, 0.0, {}),
+        ("d256_window63_softcap_fp16", f16, 1, 4, 2, 200, 200, 256, True, 63, 30.0, {}),
+        ("d256_noncausal_tail_fp16", f16, 1, 4, 1, 100, 700, 256, False, 0, 0.0, {}),
+        ("d256_empty_rows_bf16", bf16, 1, 4, 2, 300, 200, 256, True, 0, 0.0, {}),
+        ("d256_fp32_none", f32, 1, 4, 2, 256, 256, 256, True, 0, 0.0, {}),
+        ("d256_fp32_softcap", f32, 1, 8, 4, 300, 300, 256, True, 0, 50.0, {}),
+        ("d256_fp32_window", f32, 1, 4, 2, 512, 512, 256, True, 100, 0.0, {}),
     ]
     results = {}
     for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod in cases:
@@ -963,10 +1015,8 @@ def phase_mutants(dev, builds):
     cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES]
     checks, out = {}, {}
     real = bk.DKV_KERNEL
-    for name, (proc, lib, _) in builds.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
-            raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
+    wait = wait_mutant_builds(builds)
+    for name, (_, lib, _) in builds.items():
         gen = torch.Generator(device=dev).manual_seed(4)
         failed = []
         try:
@@ -985,7 +1035,7 @@ def phase_mutants(dev, builds):
         emit({"phase": "mutants", "mutant": name, "edits": BWD_MUTANTS[name][2],
               "failed_cases": failed, "cases": out[name]})
     torch.cuda.empty_cache()
-    emit({"phase": "mutants", "checks": checks})
+    emit({"phase": "mutants", "checks": checks, "build_wait_seconds": wait})
     survived = [k for k, ok in checks.items() if not ok]
     if survived:
         raise AssertionError(f"mutants passed bwd_check: {survived}")
@@ -1134,6 +1184,44 @@ def edge_cases(num_sms):
     return cases
 
 
+# Gemma-2-2B's paged shapes: 8 q / 4 kv heads of 256, 17 pages of 128 (a
+# 2176-token table), ragged lengths; its attention softcap 50.
+GEMMA_PAGED = (4, 8, 4, 256, 128, 17, [2048, 1300, 777, 200])
+GEMMA_SOFTCAP = 50.0
+
+
+def d256_cases():
+    """decode_check cases at head_dim 256: decode on all seven pool kinds
+    with the softcap off and on, B8 with an empty sequence, 16-token pages
+    (per-row copies); verify on the wgmma route (bf16 and fp16 pools, int8,
+    int4, e4m3) and the fp32 route, a 256-token chunk and a round of 4."""
+    import torch
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    q_of = {"fp32": f32, "fp16": f16}
+    cases = [(f"d256_{kind}_softcap{int(cap)}", q_of.get(kind, bf16), kind, GEMMA_PAGED, cap,
+              0, False)
+             for kind in ("bf16", "fp16", "fp32") + QUANT_KINDS for cap in (0.0, GEMMA_SOFTCAP)]
+    b8 = (8, 8, 4, 256, 128, 17, DECODE_B8_LENGTHS)
+    page16 = (2, 8, 4, 256, 16, 136, [1000, 2176])
+    cases += [
+        ("d256_bf16_B8_empty", bf16, "bf16", b8, GEMMA_SOFTCAP, 0, False),
+        ("d256_int8_B8_empty", bf16, "int8", b8, 0.0, 0, False),
+        ("d256_bf16_page16", bf16, "bf16", page16, GEMMA_SOFTCAP, 0, False),
+        ("d256_int4_page16", bf16, "int4", page16, 0.0, 0, False),
+        ("d256_verify_T256_bf16", bf16, "bf16", GEMMA_PAGED, GEMMA_SOFTCAP, 256, False),
+        ("d256_verify_T256_int8", bf16, "int8", GEMMA_PAGED, GEMMA_SOFTCAP, 256, False),
+        ("d256_verify_T4_bf16", bf16, "bf16", GEMMA_PAGED, 0.0, 4, False),
+        ("d256_verify_T4_fp16", f16, "fp16", GEMMA_PAGED, GEMMA_SOFTCAP, 4, False),
+        ("d256_verify_T4_int4", bf16, "int4", GEMMA_PAGED, GEMMA_SOFTCAP, 4, False),
+        ("d256_verify_T4_e4m3", bf16, "e4m3", GEMMA_PAGED, 0.0, 4, False),
+        ("d256_verify_T64_bf16_page16", bf16, "bf16", page16, GEMMA_SOFTCAP, 64, False),
+        ("d256_verify_fp32_T32", f32, "fp32", GEMMA_PAGED, GEMMA_SOFTCAP, 32, False),
+        ("d256_verify_fp32_int8_T5", f32, "int8", GEMMA_PAGED, 0.0, 5, False),
+    ]
+    return cases
+
+
 def paged_ctas(t_new, route, splits, b, hq, hkv):
     """CTAs one paged call launches: decode one per split, head pair, kv
     head and sequence; verify one per split,
@@ -1233,6 +1321,7 @@ def phase_decode(dev, cases=None, phase="decode_check"):
         ("alibi_verify_T256_int8", bf16, "int8", serve, 0.0, 256, True),
         ("alibi_verify_fp32_int4_d64", f32, "int4", small, 0.0, 5, True),
         *edge_cases(torch.cuda.get_device_properties(dev).multi_processor_count),
+        *d256_cases(),
     ]
     results = {}
     for case in all_cases:
@@ -1270,10 +1359,8 @@ def phase_paged_mutants(dev, builds):
     from flash_attention_dlrs_tpu_torch.ops import decode as dm
 
     checks = {}
-    for name, (proc, lib, source) in builds.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
-            raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
+    wait = wait_mutant_builds(builds)
+    for name, (_, lib, source) in builds.items():
         attr = "DECODE_KERNEL" if source == "paged_decode.cu" else "VERIFY_KERNEL"
         real = getattr(dm, attr)
         try:
@@ -1288,7 +1375,7 @@ def phase_paged_mutants(dev, builds):
                   n: {k: r[k] for k in ("max_abs_err_o", "worst_err_over_limit",
                                         "bitwise_repeatable", "ok")} for n, r in res.items()}})
     torch.cuda.empty_cache()
-    emit({"phase": "paged_mutants", "checks": checks})
+    emit({"phase": "paged_mutants", "checks": checks, "build_wait_seconds": wait})
     survived = [k for k, ok in checks.items() if not ok]
     if survived:
         raise AssertionError(f"paged mutants passed decode_check: {survived}")
@@ -1325,15 +1412,12 @@ def _prefill_paths(cfg, model, toks, lens):
     kernel_attention = decoding.flash_attention
     inputs = []
 
-    def recording(q, k, v, *, causal, sm_scale=None, alibi_slopes=None):
-        inputs.append((q, k, v, causal, sm_scale, alibi_slopes))
-        return kernel_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                                alibi_slopes=alibi_slopes)
+    def recording(q, k, v, **kw):
+        inputs.append((q, k, v, kw))
+        return kernel_attention(q, k, v, **kw)
 
-    def plain(q, k, v, *, causal, sm_scale=None, alibi_slopes=None):
-        scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
-        return attn_fwd_plain(q, k, v, causal=causal, sm_scale=scale,
-                              alibi_slopes=alibi_slopes)[0]
+    def plain(q, k, v, **kw):
+        return attn_fwd_plain(q, k, v, **kernel_kwargs(q, kw))[0]
 
     def reordered(q, k, v, **kw):
         return plain(q.flip(-1), k.flip(-1), v, **kw)
@@ -1350,6 +1434,29 @@ def _prefill_paths(cfg, model, toks, lens):
     return logits_k, logits_p, logits_r, inputs
 
 
+def kernel_kwargs(q, kw):
+    """The forward kernel's keyword arguments of a model's attention call
+    (its ``flash_attention`` keywords): the softmax scale of q's head dim
+    unless given, the window, the softcap and the ALiBi slopes."""
+    sm_scale = kw.get("sm_scale")
+    return dict(causal=kw["causal"], sm_scale=q.shape[-1] ** -0.5 if sm_scale is None
+                else sm_scale, window=kw.get("window", 0),
+                softcap=kw.get("logit_softcap", 0.0), alibi_slopes=kw.get("alibi_slopes"))
+
+
+def attention_errors(q, k, v, kw):
+    """One recorded attention call again through the forward kernel and its
+    plain version (q, k and v zero-padded to the kernels' head dim, as the
+    op API pads them): :func:`fwd_errors`."""
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
+        attn_fwd, attn_fwd_plain, kernel_width, pad_head_dim,
+    )
+
+    kw = kernel_kwargs(q, kw)
+    q, k, v = (pad_head_dim(t, kernel_width(q.shape[-1])) for t in (q, k, v))
+    return fwd_errors(attn_fwd(q, k, v, **kw), attn_fwd_plain(q, k, v, **kw), q.dtype)
+
+
 def check_prefill(model, cfg, dev, prompt):
     """One prompt's prefill, kernel path against plain path, three ways:
     the bf16 model's logits (within BF16_LOGIT_LIMIT x std, the reordered
@@ -1362,7 +1469,6 @@ def check_prefill(model, cfg, dev, prompt):
     import dataclasses
 
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
 
     t = len(prompt)
     toks = torch.zeros((1, 1 << max(7, (t - 1).bit_length())), dtype=torch.long,
@@ -1376,11 +1482,8 @@ def check_prefill(model, cfg, dev, prompt):
     limit = BF16_LOGIT_LIMIT[cfg.position_encoding]
 
     err_o, err_l, layers_ok = [], [], True
-    for q, k, v, causal, sm_scale, slopes in inputs:
-        kw = dict(causal=causal, sm_scale=q.shape[-1] ** -0.5 if sm_scale is None
-                  else sm_scale, alibi_slopes=slopes)
-        rec, ok = fwd_errors(attn_fwd(q, k, v, **kw), attn_fwd_plain(q, k, v, **kw),
-                             q.dtype)
+    for q, k, v, kw in inputs:
+        rec, ok = attention_errors(q, k, v, kw)
         layers_ok &= ok
         err_o.append(rec["max_abs_err_o"])
         err_l.append(rec["max_abs_err_lse"])
@@ -1537,7 +1640,7 @@ def top_kernels(by_name, n=6):
     return {name[:60]: ms for name, ms in list(by_name.items())[:n]}
 
 
-def phase_decode_profile(engine, cfg):
+def phase_decode_profile(engine, cfg, model_name="serving-bench"):
     """Where a steady decode step's time goes.  One torch.profiler window,
     synchronized at both edges, gives the wall time per step and the device's
     busy time and operation count per step (by kernel name) over the same
@@ -1564,7 +1667,7 @@ def phase_decode_profile(engine, cfg):
     unprofiled_ms = (time.perf_counter() - t) * 1e3 / steps
     wall_ms, busy_ms, n_ops, by_name = profile_window(engine.step, steps)
     rec = {
-        "phase": "decode_profile", "active_slots": engine.num_slots,
+        "phase": "decode_profile", "model": model_name, "active_slots": engine.num_slots,
         "steps": steps, "wall_ms_per_step": wall_ms,
         "wall_ms_per_step_unprofiled": unprofiled_ms,
         "device_busy_ms_per_step": busy_ms,
@@ -1649,7 +1752,8 @@ def check_layers(calls, verify):
                  "worst_err_over_limit": 0.0}, True
     for (q, k, v, lens, tbl), kw in calls:
         kw = dict(sm_scale=kw["sm_scale"] or q.shape[-1] ** -0.5,
-                  alibi_slopes=kw.get("alibi_slopes"))
+                  alibi_slopes=kw.get("alibi_slopes"),
+                  logit_softcap=kw.get("logit_softcap", 0.0))
         if verify:
             got = (paged_verify_attention(q, k, v, lens, tbl, **kw), None)
             want = (paged_verify_plain(q, k, v, lens, tbl, **kw), None)
@@ -1747,9 +1851,9 @@ def check_decode_fp32(dev, prompt, kinds, **variant):
                                      SERVE_PAGE)
         return step(model, pools, *args)[0]
 
-    def plain(q, k, v, lens, tbl, *, sm_scale, alibi_slopes=None):
+    def plain(q, k, v, lens, tbl, *, sm_scale, alibi_slopes=None, logit_softcap=0.0):
         return paged_decode_plain(q, k, v, lens, tbl, sm_scale=sm_scale,
-                                  alibi_slopes=alibi_slopes)
+                                  alibi_slopes=alibi_slopes, logit_softcap=logit_softcap)
 
     gaps = {}
     for kind in kinds:
@@ -2151,8 +2255,8 @@ def _launches():
             "verify_routes": dict(VERIFY_ROUTE_LAUNCHES)}
 
 
-def graphed_run(engine, prompts, burst, call="generate", **kw):
-    """One ``engine.<call>(prompts, 32 new tokens, ...)`` (``burst`` for
+def graphed_run(engine, prompts, burst, call="generate", new_tokens=SERVE_NEW_TOKENS, **kw):
+    """One ``engine.<call>(prompts, new_tokens, ...)`` (``burst`` for
     generate): the launch counts zeroed just before and read just after,
     the synchronized ms of every decode call (``step``, ``step_burst``, or
     the lockstep program), the decode steps (graph runs of the burst or
@@ -2171,9 +2275,9 @@ def graphed_run(engine, prompts, burst, call="generate", **kw):
     torch.cuda.synchronize()
     t = time.perf_counter()
     if lockstep:
-        outs = getattr(engine, call)(prompts, max_new_tokens=SERVE_NEW_TOKENS, **kw)
+        outs = getattr(engine, call)(prompts, max_new_tokens=new_tokens, **kw)
     else:
-        outs = engine.generate(prompts, max_new_tokens=SERVE_NEW_TOKENS, burst=burst, **kw)
+        outs = engine.generate(prompts, max_new_tokens=new_tokens, burst=burst, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = _launches()
@@ -2550,6 +2654,465 @@ def phase_serve_spec(dev, model, cfg, burst_rec):
     if failed:
         raise AssertionError(f"speculative serving checks failed: {failed}")
     return {"launches": launches, "round_verify": round_verify, "rec": rec}
+
+
+# ---------------------------------------------------------------------------
+# Model variants through the HF import (phases serve_gemma2 and variants)
+# ---------------------------------------------------------------------------
+
+# The published config.json values of the checkpoints these phases build,
+# written here (no download) and read by the port's converter through a
+# types.SimpleNamespace, as it reads an HF config by attribute.
+GEMMA2_2B = dict(  # google/gemma-2-2b
+    vocab_size=256000, hidden_size=2304, intermediate_size=9216, num_hidden_layers=26,
+    num_attention_heads=8, num_key_value_heads=4, head_dim=256, rms_norm_eps=1e-6,
+    rope_theta=10000.0, sliding_window=4096, attn_logit_softcapping=50.0,
+    final_logit_softcapping=30.0, query_pre_attn_scalar=256,
+    max_position_embeddings=8192, hidden_activation="gelu_pytorch_tanh")
+LLAMA31_8B = dict(  # meta-llama/Llama-3.1-8B
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=500000.0,
+    rope_scaling={"rope_type": "llama3", "factor": 8.0, "low_freq_factor": 1.0,
+                  "high_freq_factor": 4.0, "original_max_position_embeddings": 8192},
+    max_position_embeddings=131072, tie_word_embeddings=False)
+QWEN2_7B = dict(  # Qwen/Qwen2-7B, with the YaRN block of Qwen2.5's model card
+    vocab_size=152064, hidden_size=3584, intermediate_size=18944, num_hidden_layers=28,
+    num_attention_heads=28, num_key_value_heads=4, rms_norm_eps=1e-6, rope_theta=1000000.0,
+    sliding_window=131072, use_sliding_window=False, max_window_layers=28,
+    max_position_embeddings=131072, tie_word_embeddings=False,
+    rope_scaling={"type": "yarn", "factor": 4.0, "original_max_position_embeddings": 32768})
+PHI3_MINI = dict(  # microsoft/Phi-3-mini-4k-instruct
+    vocab_size=32064, hidden_size=3072, intermediate_size=8192, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=32, rms_norm_eps=1e-5, rope_theta=10000.0,
+    sliding_window=2047, max_position_embeddings=4096, tie_word_embeddings=False)
+# family: (the port's importer, its config function)
+IMPORTERS = {"llama": ("import_hf_llama", "config_from_hf"),
+             "qwen2": ("import_hf_llama", "config_from_hf"),
+             "phi3": ("import_hf_phi3", "config_from_hf"),
+             "gemma2": ("import_hf_gemma", "config_from_hf_gemma")}
+# Gemma-2-2B's dense forward at twice its window; the fp32 copies' depth
+GEMMA_DENSE_N, FP32_LAYERS = 8192, 2
+# variants: name, config, family, weight-only int8; cut to 4 layers, served
+# 4 greedy requests (prompts fit Phi-3's window: 15 pages of 128 <= 2047)
+VARIANTS = (("llama3.1-8b", LLAMA31_8B, "llama", False),
+            ("qwen2-7b", QWEN2_7B, "qwen2", False),
+            ("qwen2-7b-int8", QWEN2_7B, "qwen2", True),
+            ("phi3-mini-4k", PHI3_MINI, "phi3", False))
+VARIANT_LAYERS, VARIANT_PROMPTS, VARIANT_NEW_TOKENS = 4, (200, 777, 1300, 1800), 16
+
+
+def hf_state(spec, family, dev, seed, n_layers, dtype):
+    """A random state dict of HF's names and [out, in] layouts for the
+    config ``spec`` of ``family`` (IMPORTERS: "llama" and "qwen2" split
+    projections, Qwen2's QKV biases, "phi3" fused ones, "gemma2" its
+    sandwich norms), ``n_layers`` layers of ``dtype`` on ``dev`` from
+    ``seed``: projections normal·in^-0.5, the embedding normal·0.02 (Gemma
+    scales it by √d at run time), an untied head normal·d^-0.5, norm gains
+    1 + normal·0.05 (Gemma stores gain − 1), biases normal·0.02."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dm, dff, vocab = spec["hidden_size"], spec["intermediate_size"], spec["vocab_size"]
+    nq, nkv = spec["num_attention_heads"], spec["num_key_value_heads"]
+    dh = spec.get("head_dim") or dm // nq
+
+    def rnd(shape, std, offset=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std + offset).to(dtype)
+
+    def linear(dout, din):
+        return rnd((dout, din), din ** -0.5)
+
+    def gain():
+        return rnd((dm,), 0.05, 0.0 if family == "gemma2" else 1.0)
+
+    state = {"model.embed_tokens.weight": rnd((vocab, dm), 0.02), "model.norm.weight": gain()}
+    for i in range(n_layers):
+        p = f"model.layers.{i}."
+        state[p + "input_layernorm.weight"] = gain()
+        state[p + "post_attention_layernorm.weight"] = gain()
+        if family == "phi3":
+            state[p + "self_attn.qkv_proj.weight"] = linear((nq + 2 * nkv) * dh, dm)
+            state[p + "mlp.gate_up_proj.weight"] = linear(2 * dff, dm)
+        else:
+            for name, rows in (("q", nq * dh), ("k", nkv * dh), ("v", nkv * dh)):
+                state[p + f"self_attn.{name}_proj.weight"] = linear(rows, dm)
+                if family == "qwen2":
+                    state[p + f"self_attn.{name}_proj.bias"] = rnd((rows,), 0.02)
+            state[p + "mlp.gate_proj.weight"] = linear(dff, dm)
+            state[p + "mlp.up_proj.weight"] = linear(dff, dm)
+        state[p + "self_attn.o_proj.weight"] = linear(dm, nq * dh)
+        state[p + "mlp.down_proj.weight"] = linear(dm, dff)
+        if family == "gemma2":
+            state[p + "pre_feedforward_layernorm.weight"] = gain()
+            state[p + "post_feedforward_layernorm.weight"] = gain()
+    if not spec.get("tie_word_embeddings", True):
+        state["lm_head.weight"] = rnd((vocab, dm), dm ** -0.5)
+    return state
+
+
+def import_model(spec, family, state, dev, dtype, **overrides):
+    """(model, cfg): ``state`` through the family's importer, the config
+    from ``spec`` read by attribute (a SimpleNamespace) with ``overrides``."""
+    import types
+
+    from flash_attention_dlrs_tpu_torch.models import convert
+
+    importer, config_fn = IMPORTERS[family]
+    cfg = getattr(convert, config_fn)(types.SimpleNamespace(**spec), dtype=dtype,
+                                      **overrides)
+    return getattr(convert, importer)(state, cfg=cfg, device=dev)
+
+
+def first_layers(state, n, dtype):
+    """The entries of ``state`` outside layers n.. , in ``dtype``."""
+    return {k: v.to(dtype) for k, v in state.items()
+            if not k.startswith("model.layers.") or int(k.split(".")[2]) < n}
+
+
+def fp32_prefill_gap(model32, cfg32, dev, prompt):
+    """The fp32 copy's last-token prefill logits through the kernels
+    against the plain path, over their std."""
+    import torch
+
+    toks = torch.zeros((1, 1 << max(7, (len(prompt) - 1).bit_length())), dtype=torch.long,
+                       device=dev)
+    toks[0, :len(prompt)] = torch.tensor(prompt, device=dev)
+    logits_k, logits_p, _, _ = _prefill_paths(
+        cfg32, model32, toks, torch.tensor([len(prompt)], dtype=torch.int32, device=dev))
+    return float((logits_k - logits_p).abs().max() / logits_p.std())
+
+
+def dense_greedy(model, cfg, prompt, n):
+    """``n`` greedy tokens of the dense forward, one full pass a token."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models.transformer import (
+        forward_hidden, logits_from_hidden,
+    )
+
+    seq = list(prompt)
+    with torch.inference_mode():
+        for _ in range(n):
+            x = forward_hidden(model, torch.tensor([seq], device=model.embed.device), cfg)
+            seq.append(int(logits_from_hidden(x[:, -1], model, cfg.final_softcap).argmax()))
+    return seq[len(prompt):]
+
+
+def eager_then_graphed(engine, cfg, prompts, new_tokens):
+    """The requests eagerly (``_serve_run``: launches, admission and step
+    ms, the last decode step's every layer held against the plain
+    version), then as graphed bursts of BURST: the two runs' records and
+    the checks that the tokens are equal and every launch count holds."""
+    decode_step = engine._decode_step
+    eager = _serve_run(engine, prompts, new_tokens, "paged_decode_attention")
+    engine._decode_step = decode_step
+    del engine._admit_dense  # the timed wrapper _serve_run left on the instance
+    layers = check_layers(eager["calls"], verify=False)
+    graph = graphed_run(engine, prompts, BURST, new_tokens=new_tokens)
+    n = cfg.n_layers
+    checks = {
+        "graph_tokens_equal_eager": graph["outs"] == eager["outs"],
+        f"every_request_{new_tokens}_tokens": all(len(o) == new_tokens for o in eager["outs"]),
+        "fwd_launches_per_layer_and_prefill": eager["launches"]["attn_fwd"] == n * len(prompts),
+        "fwd_launches_all_wgmma": all_on(eager["fwd_routes"], "wgmma",
+                                         eager["launches"]["attn_fwd"]),
+        "decode_launches_per_layer_and_step":
+            eager["launches"]["paged_decode"] == n * eager["steps"] > 0,
+        "graph_decode_launches_per_layer_and_step_through_replays":
+            graph["launches"]["paged_decode"] == n * graph["steps"] > 0,
+        "graph_fwd_launches_all_wgmma": all_on(graph["launches"]["fwd_routes"], "wgmma",
+                                               n * len(prompts)),
+        "last_step_every_layer_kernel_vs_plain": layers["ok"] and layers["layers_checked"] == n,
+    }
+    summary = {
+        "eager": {"launches": eager["launches"], "steps": eager["steps"],
+                  "admit_ms": eager["admit_ms"],
+                  "decode_ms_per_step_median": float(np.median(eager["decode_ms"])),
+                  "wall_s": eager["wall"],
+                  "tokens_per_s": sum(map(len, eager["outs"])) / eager["wall"]},
+        "graph": {k: v for k, v in graph.items() if k != "outs"},
+        "last_step_layers": layers,
+    }
+    return summary, checks, eager, graph
+
+
+def phase_serve_gemma2(dev):
+    """Gemma-2-2B at full width and depth (GEMMA2_2B: 26 layers, head_dim
+    256, softcaps 50 / 30, a 4096 window on even layers) from a random
+    HF-named bf16 state dict (seed 0) through import_hf_gemma and a
+    SimpleNamespace config, served with pages of 128 and 17 pages a
+    sequence (2176 tokens, within the window, so the window never clips):
+    bf16 KV at 4 slots, the 8 serving prompts (200-2048 tokens), 32 new
+    tokens, eager then graphed bursts of 8, tokens equal; int8 KV at 8
+    slots x 16; chunked admission (chunk 256, the prefix cache) of 8
+    requests sharing a 1024-token prefix, verify at d 256; a dense
+    forward_hidden of 8192 tokens (even layers windowed), its two last
+    layers' attention held against the plain version; a decode profile and
+    the LM head's device time; a 2-layer fp32 copy (prefill logits within
+    FP32_LOGIT_LIMIT x std of the plain path, the engine's greedy tokens
+    equal to the dense forward's)."""
+    import dataclasses
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import transformer
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    t_phase = t0 = time.perf_counter()
+    state = hf_state(GEMMA2_2B, "gemma2", dev, 0, GEMMA2_2B["num_hidden_layers"],
+                     torch.bfloat16)
+    torch.cuda.synchronize()
+    state_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, cfg = import_model(GEMMA2_2B, "gemma2", state, dev, torch.bfloat16)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    state32 = first_layers(state, FP32_LAYERS, torch.float32)
+    del state
+    torch.cuda.empty_cache()
+    n_params = sum(p.numel() for p in model.parameters())
+    checks = {"config_is_gemma2": (cfg.head_dim, cfg.window, cfg.window_pattern,
+                                   cfg.attn_softcap, cfg.final_softcap, cfg.sm_scale)
+              == (256, 4096, "even", 50.0, 30.0, 256 ** -0.5),
+              "sandwich_norms_imported": hasattr(model.layers[0], "post_mlp_norm")}
+    prompts = serve_prompts(cfg)
+    engine = serve_engine(model, cfg, dev)
+    engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
+    engine.generate([[1] * 128], max_new_tokens=BURST + 1, burst=BURST)  # capture
+    bf16, bf16_checks, eager, graph = eager_then_graphed(engine, cfg, prompts,
+                                                         SERVE_NEW_TOKENS)
+    checks.update({f"bf16_{k}": v for k, v in bf16_checks.items()})
+    per_len = dict(zip(map(str, SERVE_PROMPTS), eager["admit_ms"]))
+    profile = phase_decode_profile(engine, cfg, "gemma-2-2b")
+    x = torch.randn((engine.num_slots, cfg.d_model), device=dev, dtype=cfg.dtype)
+    lm_wall, lm_busy, lm_ops, lm_kernels = profile_window(
+        lambda: transformer.logits_from_hidden(x, model, cfg.final_softcap), 8)
+    del engine
+    torch.cuda.empty_cache()
+
+    # int8 KV at 8 slots x 16 new tokens
+    engine = serve_engine(model, cfg, dev, slots=8, kv="int8")
+    engine.generate([[1] * 128], max_new_tokens=2)
+    decode_step = engine._decode_step
+    int8 = _serve_run(engine, prompts, 16, "paged_decode_attention")
+    engine._decode_step = decode_step
+    int8_layers = check_layers(int8["calls"], verify=False)
+    checks.update({
+        "int8_every_request_16_tokens": all(len(o) == 16 for o in int8["outs"]),
+        "int8_decode_launches_per_layer_and_step":
+            int8["launches"]["paged_decode"] == cfg.n_layers * int8["steps"] > 0,
+        "int8_fwd_launches_all_wgmma": all_on(int8["fwd_routes"], "wgmma",
+                                              cfg.n_layers * len(prompts)),
+        "int8_last_step_every_layer_kernel_vs_plain":
+            int8_layers["ok"] and int8_layers["layers_checked"] == cfg.n_layers,
+    })
+    del engine
+    torch.cuda.empty_cache()
+
+    # chunked admission with the prefix cache: verify at d 256
+    rng = np.random.default_rng(2)
+    system = rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS).tolist()
+    shared = [system + rng.integers(0, cfg.vocab_size, UNIQUE_TOKENS).tolist()
+              for _ in range(CHUNKED_REQUESTS)]
+    want_chunks = ((SYSTEM_TOKENS + UNIQUE_TOKENS) // CHUNK
+                   + (CHUNKED_REQUESTS - 1) * (UNIQUE_TOKENS // CHUNK))
+    engine = DecodeEngine(model, cfg, num_pages=CHUNKED_REQUESTS * SERVE_PPS + 1,
+                          page_size=SERVE_PAGE, num_slots=CHUNKED_REQUESTS,
+                          pages_per_seq=SERVE_PPS, kv_dtype=torch.bfloat16,
+                          prefill_chunk=CHUNK, enable_prefix_cache=True, device=dev)
+    engine.generate([[2] * 1000], max_new_tokens=2)  # warm-up, shares nothing
+    hits_before = engine.prefix_cache.hits
+    chunked = _serve_run(engine, shared, CHUNKED_NEW_TOKENS, "paged_verify_attention")
+    hits = engine.prefix_cache.hits - hits_before
+    verify_layers = check_layers(chunked["calls"], verify=True)
+    checks.update({
+        "chunked_7_prefix_hits": hits == CHUNKED_REQUESTS - 1,
+        f"chunked_{want_chunks}_chunks": chunked["chunks"] == want_chunks,
+        "chunked_verify_launches_per_layer_and_chunk":
+            chunked["launches"]["paged_verify"] == cfg.n_layers * want_chunks,
+        "chunked_verify_launches_all_wgmma":
+            all_on(chunked["verify_routes"], "wgmma", chunked["launches"]["paged_verify"]),
+        "chunked_no_dense_prefill": chunked["launches"]["attn_fwd"] == 0,
+        "chunked_last_chunk_every_layer_verify_kernel_vs_plain":
+            verify_layers["ok"] and verify_layers["layers_checked"] == cfg.n_layers,
+    })
+    del engine
+    torch.cuda.empty_cache()
+
+    # the dense forward at twice the window: even layers windowed
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, GEMMA_DENSE_N))).to(dev)
+    calls, kernel_attention = [], transformer.flash_attention
+
+    def recording(q, k, v, **kw):
+        calls.append((q, k, v, kw))
+        return kernel_attention(q, k, v, **kw)
+
+    _zero_launches()
+    transformer.flash_attention = recording
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hidden = transformer.forward_hidden(model, toks, cfg)
+            torch.cuda.synchronize()
+            dense_s = time.perf_counter() - t
+    finally:
+        transformer.flash_attention = kernel_attention
+    dense_launches = _launches()
+    dense_layers = {}
+    for li in (cfg.n_layers - 2, cfg.n_layers - 1):
+        rec, ok = attention_errors(*calls[li])
+        dense_layers[f"layer{li}_window{calls[li][3]['window']}"] = dict(rec, ok=ok)
+    checks.update({
+        "dense_8192_finite": bool(torch.isfinite(hidden).all()),
+        "dense_8192_fwd_launches_one_per_layer":
+            dense_launches["attn_fwd"] == cfg.n_layers
+            and all_on(dense_launches["fwd_routes"], "wgmma", cfg.n_layers),
+        "dense_8192_even_layers_windowed": [c[3]["window"] for c in calls[:2]] == [4096, 0],
+        "dense_8192_last_two_layers_kernel_vs_plain":
+            all(r["ok"] for r in dense_layers.values()),
+    })
+    del hidden, calls, toks
+    torch.cuda.empty_cache()
+
+    # a 2-layer fp32 copy
+    cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype=torch.float32)
+    model32, _ = import_model(GEMMA2_2B, "gemma2", state32, dev, torch.float32,
+                              n_layers=FP32_LAYERS)
+    del state32
+    fp32_prompts = [p[:n] for p, n in zip(prompts[:2], (300, 1000))]
+    fp32_gap = fp32_prefill_gap(model32, cfg32, dev, fp32_prompts[1])
+    engine32 = serve_engine(model32, cfg32, dev, slots=2, kv="fp32")
+    fp32_outs = engine32.generate(fp32_prompts, max_new_tokens=8)
+    fp32_dense = [dense_greedy(model32, cfg32, p, 8) for p in fp32_prompts]
+    checks.update({
+        "fp32_2layer_prefill_logits_vs_plain": fp32_gap <= FP32_LOGIT_LIMIT,
+        "fp32_2layer_engine_tokens_equal_dense_forward": fp32_outs == fp32_dense,
+    })
+    del engine32, model32
+    torch.cuda.empty_cache()
+
+    step_busy = profile["device_busy_ms_per_step"]
+    rec = {
+        "phase": "serve_gemma2", "seconds": time.perf_counter() - t_phase,
+        "card": card_line(), "config": GEMMA2_2B,
+        "config_source": "google/gemma-2-2b config.json", "dtype": "bfloat16",
+        "params": n_params, "state_dict_s": state_s, "import_s": import_s,
+        "page_size": SERVE_PAGE, "pages_per_seq": SERVE_PPS,
+        "bf16_4_slots": {**bf16, "admit_ms_by_prompt_len": per_len},
+        "decode_ms_per_step": {"eager": bf16["eager"]["decode_ms_per_step_median"],
+                               "graph": bf16["graph"]["decode_ms_per_step"]},
+        "decode_profile": {k: v for k, v in profile.items() if k != "phase"},
+        "lm_head": {"shape": [cfg.vocab_size, cfg.d_model], "batch": x.shape[0],
+                    "device_ms": lm_busy, "wall_ms": lm_wall, "ops": lm_ops,
+                    "kernels": top_kernels(lm_kernels),
+                    "share_of_step_device_ms": lm_busy / step_busy},
+        "int8_8_slots": {"launches": int8["launches"], "steps": int8["steps"],
+                         "decode_ms_per_step_median": float(np.median(int8["decode_ms"])),
+                         "wall_s": int8["wall"], "last_step_layers": int8_layers},
+        "chunked": {"launches": chunked["launches"], "verify_routes": chunked["verify_routes"],
+                    "chunks": chunked["chunks"], "prefix_hits": hits,
+                    "admit_ms_chunked_miss": chunked["admit_ms"][0],
+                    "admit_ms_chunked_hit_median": float(np.median(chunked["admit_ms"][1:])),
+                    "last_chunk_layers": verify_layers},
+        "dense_8192": {"seconds": dense_s, "launches": dense_launches,
+                       "layers": dense_layers},
+        "fp32_2layer": {"prefill_logit_diff_over_std": fp32_gap, "tokens": fp32_outs,
+                        "dense_tokens": fp32_dense},
+        "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"Gemma-2-2B serving checks failed: {failed}")
+    del model
+    torch.cuda.empty_cache()
+    bf16_decode = (eager["launches"]["paged_decode"] + graph["launches"]["paged_decode"]
+                   + chunked["launches"]["paged_decode"])
+    return {"rec": rec, "launches": {
+        "attn_fwd": eager["launches"]["attn_fwd"] + graph["launches"]["attn_fwd"]
+        + int8["launches"]["attn_fwd"],
+        "attn_fwd_window": dense_launches["attn_fwd"],
+        "paged_decode_bf16": bf16_decode,
+        "paged_decode_int8": int8["launches"]["paged_decode"],
+        "paged_verify_bf16": chunked["launches"]["paged_verify"]}}
+
+
+def phase_variants(dev):
+    """VARIANTS at their published widths, cut to VARIANT_LAYERS layers:
+    each from a random HF-named bf16 state dict through its own importer
+    and a SimpleNamespace config (Qwen2's int8 copy through
+    quantize_params), 4 greedy requests (VARIANT_PROMPTS, 16 new tokens)
+    eagerly and as graphed bursts of 8 with equal tokens and exact launch
+    counts, and a 2-layer fp32 copy's prefill logits within
+    FP32_LOGIT_LIMIT x std of the plain path."""
+    import dataclasses
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import quantize_params
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import kernel_width
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    rng = np.random.default_rng(4)
+    t_phase = time.perf_counter()
+    records, launches, checks = {}, {"attn_fwd": 0, "paged_decode": 0}, {}
+    for i, (name, spec, family, int8) in enumerate(VARIANTS):
+        t0 = time.perf_counter()
+        state = hf_state(spec, family, dev, 10 + i, VARIANT_LAYERS, torch.bfloat16)
+        model, cfg = import_model(spec, family, state, dev, torch.bfloat16,
+                                  n_layers=VARIANT_LAYERS)
+        state32 = first_layers(state, FP32_LAYERS, torch.float32)
+        del state
+        if int8:
+            quantize_params(model)
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        # pages of 128 within the window (Phi-3: 2047 -> 15 pages)
+        pps = min(SERVE_PPS, cfg.window // SERVE_PAGE) if cfg.window else SERVE_PPS
+        engine = DecodeEngine(model, cfg, num_pages=4 * pps + 1, page_size=SERVE_PAGE,
+                              num_slots=4, pages_per_seq=pps, kv_dtype=torch.bfloat16,
+                              device=dev)
+        engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
+        engine.generate([[1] * 128], max_new_tokens=BURST + 1, burst=BURST)  # capture
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in VARIANT_PROMPTS]
+        summary, run_checks, eager, graph = eager_then_graphed(engine, cfg, prompts,
+                                                               VARIANT_NEW_TOKENS)
+        del engine
+        cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype=torch.float32)
+        model32, _ = import_model(spec, family, state32, dev, torch.float32,
+                                  n_layers=FP32_LAYERS)
+        if int8:
+            quantize_params(model32)
+        gap = fp32_prefill_gap(model32, cfg32, dev, prompts[1])
+        del model32, state32
+        run_checks["fp32_2layer_prefill_logits_vs_plain"] = gap <= FP32_LOGIT_LIMIT
+        run_checks["imported_as_published"] = {
+            "llama": lambda: cfg.rope_scaling == ("llama3", 8.0, 1.0, 4.0, 8192.0)
+            and not cfg.tie_embeddings,
+            "qwen2": lambda: cfg.rope_scaling[0] == "yarn"
+            and hasattr(model.layers[0], "bq") and cfg.window == 0,
+            "phi3": lambda: cfg.head_dim == 96 and cfg.window == 2047 and pps == 15,
+        }[family]()
+        for key in ("attn_fwd", "paged_decode"):
+            launches[key] += eager["launches"][key] + graph["launches"][key]
+        records[name] = {"config_source": name, "layers": VARIANT_LAYERS,
+                         "head_dim": cfg.head_dim, "kernel_head_dim": kernel_width(cfg.head_dim),
+                         "window": cfg.window, "rope_scaling": cfg.rope_scaling,
+                         "int8_weights": int8, "pages_per_seq": pps,
+                         "params": sum(p.numel() for p in model.parameters())
+                         + sum(b.numel() for b in model.buffers()),
+                         "import_s": import_s, **summary,
+                         "fp32_2layer_prefill_logit_diff_over_std": gap,
+                         "checks": run_checks}
+        emit({"phase": "variants", "model": name, **records[name]})
+        checks.update({f"{name}_{k}": v for k, v in run_checks.items()})
+        del model
+        torch.cuda.empty_cache()
+    emit({"phase": "variants", "seconds": time.perf_counter() - t_phase, "launches": launches,
+          "checks": checks})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"variant serving checks failed: {failed}")
+    return {"launches": launches, "records": records}
 
 
 TRAIN_CFG = dict(vocab_size=32000, d_model=4096, n_layers=8, n_q_heads=32,
@@ -3278,7 +3841,7 @@ def sdpa_bias(slopes, n, dtype, dev):
     return torch.where(dist >= 0, -m * dist, float("-inf"))[None].to(dtype)
 
 
-def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
+def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softcap=0.0):
     """The forward kernel at one causal bf16 shape with the ALiBi and
     dropout arguments of :func:`mods` ``mod``, the [B, N] segment ids
     ``seg`` (numpy) and V in the fp8 kind ``v8`` when given: its time, its
@@ -3287,7 +3850,9 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
     and their ids' bytes; fp8 V one byte per element), its error against the
     plain version, and SDPA's time where no dropout is asked: with the ALiBi
     bias as a float mask, with segments on the block-diagonal causal
-    boolean mask, with fp8 V on V upcast to bf16 (the upcast included)."""
+    boolean mask, with fp8 V on V upcast to bf16 (the upcast included),
+    with a causal ``window`` on its boolean band mask; none computes a
+    ``softcap``."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
@@ -3300,15 +3865,22 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
     if v8:
         v = v.to(getattr(torch, FP8_V[v8]))
     ids = None if seg is None else torch.from_numpy(seg).to(dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **mod),
-              **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
+    kw = dict(causal=True, sm_scale=d ** -0.5, window=window, softcap=softcap,
+              **mods(hq, **mod), **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
     err = float((attn_fwd(q, k, v, **kw)[0].float()
                  - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
     ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
     route = fwd_route(q.dtype, d, ids is not None, bool(v8))
     plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=1, reps=3)
     lib_ms = None
-    if ids is not None:
+    if softcap:
+        pass  # no PyTorch call softcaps the scores
+    elif window:
+        pos = torch.arange(n, device=dev)
+        band = (pos[None] <= pos[:, None]) & (pos[:, None] - pos[None] < window)
+        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=band, enable_gqa=True))
+    elif ids is not None:
         mask = block_causal_mask(ids)
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True))
@@ -3321,7 +3893,7 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None):
             q, k, v, attn_mask=bias, is_causal=bias is None, enable_gqa=True))
     flops, nbytes = fwd_work(b, hq, hkv, n, n, d, True, 2,
                              pairs=None if seg is None else visible_pairs(seg, seg, True),
-                             v_itemsize=1 if v8 else 2)
+                             v_itemsize=1 if v8 else 2, window=window)
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     del q, k, v
     torch.cuda.empty_cache()
@@ -3449,6 +4021,39 @@ def phase_time(dev, train_rec, train_alibi_rec, packed_rec):
         emit({"phase": "time", "kernel": "paged_verify" if t_new else "paged_decode",
               "case": name, "shape": [batch, hq, hkv, d, ps, pps], "tokens": t_new or 1,
               "kv": kind, "alibi": True, "library": PAGED_LIBRARY, **timings[name]})
+    # head_dim 256 at Gemma-2-2B's heads (8 q / 4 kv): the prefill, the
+    # windowed dense forward, decode and verify with its softcap
+    gemma = (GEMMA2_2B["num_attention_heads"], GEMMA2_2B["num_key_value_heads"], 256)
+    for name, n, window, cap in (("fwd_d256_prefill_2048", 2048, 0, 0.0),
+                                 ("fwd_d256_prefill_2048_softcap", 2048, 0, GEMMA_SOFTCAP),
+                                 ("fwd_d256_window4096_8192", GEMMA_DENSE_N, 4096, 0.0),
+                                 ("fwd_d256_window4096_8192_softcap", GEMMA_DENSE_N, 4096,
+                                  GEMMA_SOFTCAP)):
+        timings[name] = time_fwd(gen, dev, 1, gemma[0], gemma[1], n, 256, {},
+                                 window=window, softcap=cap)
+        emit({"phase": "time", "kernel": "attn_fwd[d256]", "case": name,
+              "shape": [1, gemma[0], gemma[1], n, 256], "dtype": "bfloat16", "causal": True,
+              "window": window, "softcap": cap,
+              "library": ("none: no PyTorch call softcaps the scores" if cap else
+                          "torch.nn.functional.scaled_dot_product_attention"
+                          + (" with the causal band as a boolean attn_mask" if window
+                             else " (is_causal)")),
+              **timings[name]})
+    for kind in ("bf16", "int8"):
+        for batch in (4, 8):
+            name = f"decode_d256_{kind}_B{batch}_ctx2048"
+            timings[name] = time_paged(gen, dev, kind, batch, [2048] * batch, 0,
+                                       heads=gemma, softcap=GEMMA_SOFTCAP)
+            emit({"phase": "time", "kernel": "paged_decode[d256]", "case": name,
+                  "shape": [batch, *gemma, SERVE_PAGE, SERVE_PPS], "kv": kind,
+                  "softcap": GEMMA_SOFTCAP, "library": PAGED_LIBRARY, **timings[name]})
+    for kind in ("bf16", "int8"):
+        name = f"verify_d256_{kind}_T256_ctx2048"
+        timings[name] = time_paged(gen, dev, kind, 1, [2048], CHUNK, heads=gemma,
+                                   softcap=GEMMA_SOFTCAP)
+        emit({"phase": "time", "kernel": "paged_verify[d256]", "case": name,
+              "shape": [1, *gemma, SERVE_PAGE, SERVE_PPS], "tokens": CHUNK, "kv": kind,
+              "softcap": GEMMA_SOFTCAP, "library": PAGED_LIBRARY, **timings[name]})
     return timings
 
 
@@ -3468,10 +4073,11 @@ def paged_work(kind, b, hq, hkv, d, lengths, t_new):
     return 4 * pairs * d, nbytes
 
 
-def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
+def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softcap=0.0):
     """One paged kernel (decode, or verify of ``t_new`` tokens) at the
-    serving model's heads from bf16 q and ``kind`` pools, with ALiBi when
-    ``alibi``: its time (``ms``: CUDA events around one wrapper call, warm,
+    serving model's heads (or ``heads``: (Hq, Hkv, d)) from bf16 q and
+    ``kind`` pools, with ALiBi when ``alibi`` and the logit ``softcap``: its
+    time (``ms``: CUDA events around one wrapper call, warm,
     host time included; ``device_ms``: the call's kernel from the profiler,
     each call after an L2 flush), its plain version's, its bound (the bias
     adds no bytes), its error against the plain version, its key splits,
@@ -3483,12 +4089,14 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
         paged_verify_plain,
     )
 
-    hq, hkv, d = SERVE_CFG["n_q_heads"], SERVE_CFG["n_kv_heads"], SERVE_CFG["head_dim"]
+    hq, hkv, d = heads or (SERVE_CFG["n_q_heads"], SERVE_CFG["n_kv_heads"],
+                           SERVE_CFG["head_dim"])
     q, kp, vp, lens, table = _paged_inputs(
         gen, dev, torch.bfloat16, kind, b, hq, hkv, d, SERVE_PAGE, SERVE_PPS,
         lengths, num_pages=b * SERVE_PPS + 8, t_new=t_new)
     args = (q, kp, vp, lens, table)
-    kw = dict(sm_scale=d ** -0.5, alibi_slopes=mods(hq, alibi)["alibi_slopes"])
+    kw = dict(sm_scale=d ** -0.5, alibi_slopes=mods(hq, alibi)["alibi_slopes"],
+              logit_softcap=softcap)
     if t_new:
         kernel = lambda: paged_verify_attention(*args, **kw)  # noqa: E731
         plain = lambda: paged_verify_plain(*args, **kw)  # noqa: E731
@@ -3517,7 +4125,7 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False):
             "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
 
 
-def emit_kernels(fwd_res, dec_res, paths, timings, graphed):
+def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models):
     """The kernels line: every kernel of every path, the paged kernels once
     per pool kind they serve, and one entry per ALiBi / dropout mode.
     Launches are the counts of the path runs (serving, quantized serving,
@@ -3530,16 +4138,23 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed):
     ``graphed`` holds phases serve_burst and serve_spec: their launches
     (through CUDA graph replays) join attn_fwd's and the paged kernels' of
     their KV kind, and verify at a speculative round's shape (B4, T = γ)
-    has an entry of its own."""
+    has an entry of its own.  ``models`` holds phases serve_gemma2 and
+    variants: the variants' launches (head dims 128 and 96, padded to 128)
+    join attn_fwd's and paged_decode[bf16]'s, and Gemma-2-2B's head dim 256
+    has entries of its own (the forward at its prefill and its windowed
+    dense forward, decode from bf16 and int8 KV at 8 sequences of 2048,
+    verify of a 256-token chunk), timed with its softcap."""
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
     burst, spec = graphed
+    gemma, variants = models
     fwd_t = timings["fwd_serve_prefill_2048"]
     kernels = [
         {"name": "attn_fwd", "route": "cuda", "source": FWD_SM90_SOURCE,
          "fwd_route": fwd_t["route"], "replaces": FWD_REPLACES,
          "launches": serve["launches"]["attn_fwd"] + train["launches"]["attn_fwd"]
          + sum(r["launches"]["attn_fwd"] for r in quant.values()) + dense_fwd
-         + burst["launches"]["attn_fwd"] + spec["launches"]["attn_fwd"],
+         + burst["launches"]["attn_fwd"] + spec["launches"]["attn_fwd"]
+         + variants["launches"]["attn_fwd"],
          "max_abs_err": fwd_res["serve_prefill_2048"]["max_abs_err_o"],
          "ms": fwd_t["ms"], "plain_ms": fwd_t["plain_ms"],
          "bound_ms": fwd_t["bound_ms"], "bound_by": fwd_t["bound_by"],
@@ -3550,7 +4165,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed):
                        if r["kv"] == kind)
         launches += chunked[kind]["launches"]["paged_decode"] if kind in chunked else 0
         if kind == "bf16":
-            launches += serve["launches"]["paged_decode"] + burst["launches"]["paged_decode"]
+            launches += (serve["launches"]["paged_decode"] + burst["launches"]["paged_decode"]
+                         + variants["launches"]["paged_decode"])
         launches += spec["launches"]["paged_decode"].get(kind, 0)
         t = timings[f"decode_{kind}_B8_ctx2048"]
         err = dec_res["serve_decode" if kind == "bf16" else f"{kind}_B8"]["max_abs_err_o"]
@@ -3633,6 +4249,24 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed):
         kernels.append(entry(f"attn_fwd[fp8v-{kind}]", FWD_SM90_SOURCE, FWD_REPLACES,
                              packed["fp8_launches"][kind],
                              timings[f"fwd_fp8v_{kind}_serve_prefill_2048"]))
+    g = gemma["launches"]
+    kernels += [
+        entry("attn_fwd[d256]", FWD_SM90_SOURCE, FWD_REPLACES, g["attn_fwd"],
+              timings["fwd_d256_prefill_2048_softcap"],
+              fwd_res["d256_gemma_prefill_2048_softcap"]["max_abs_err_o"]),
+        entry("attn_fwd[d256,window]", FWD_SM90_SOURCE, FWD_REPLACES, g["attn_fwd_window"],
+              timings["fwd_d256_window4096_8192_softcap"],
+              fwd_res["d256_gemma_window_softcap_8192"]["max_abs_err_o"]),
+        entry("paged_decode[d256,bf16]", DECODE_SOURCE, DECODE_REPLACES,
+              g["paged_decode_bf16"], timings["decode_d256_bf16_B8_ctx2048"],
+              dec_res["d256_bf16_softcap50"]["max_abs_err_o"]),
+        entry("paged_decode[d256,int8]", DECODE_SOURCE, DECODE_REPLACES,
+              g["paged_decode_int8"], timings["decode_d256_int8_B8_ctx2048"],
+              dec_res["d256_int8_softcap50"]["max_abs_err_o"]),
+        entry("paged_verify[d256,bf16]", VERIFY_SOURCE, VERIFY_REPLACES,
+              g["paged_verify_bf16"], timings["verify_d256_bf16_T256_ctx2048"],
+              dec_res["d256_verify_T256_bf16"]["max_abs_err_o"]),
+    ]
     emit({"kernels": kernels})
 
 
@@ -3767,6 +4401,8 @@ def main() -> int:
     spec = phase_serve_spec(dev, model, cfg, burst)
     del model
     torch.cuda.empty_cache()
+    gemma = phase_serve_gemma2(dev)
+    variants = phase_variants(dev)
     train_rec = phase_train(dev)
     train_alibi_rec = phase_train(dev, "train_alibi", position_encoding="alibi",
                                   attn_dropout=TRAIN_ALIBI_DROPOUT)
@@ -3774,7 +4410,8 @@ def main() -> int:
     timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
-                  alibi_runs, train_alibi_rec, packed_rec), timings, (burst, spec))
+                  alibi_runs, train_alibi_rec, packed_rec), timings, (burst, spec),
+                 (gemma, variants))
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

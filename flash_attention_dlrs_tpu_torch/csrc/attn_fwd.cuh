@@ -37,7 +37,8 @@
 // cross-length causal diagonal, or whose segment id occurs nowhere in its
 // keys, mid-sequence) gets O = 0 and L = DEFAULT_MASK_VALUE, the JAX
 // package's stats_to_lse convention.  Inputs are fp32, bf16 or fp16 with d
-// in {64, 128}; V may instead be fp8 (e4m3fn or e5m2, the JAX package's
+// in {64, 128, 256} (256 without segment ids, ALiBi, dropout or fp8 V:
+// gemma_modes); V may instead be fp8 (e4m3fn or e5m2, the JAX package's
 // v_payload), dequantized exactly to q's type before P V (P is still
 // rounded to q's type).  The online softmax keeps an exact running max (no
 // static shift) and fp32 statistics.
@@ -297,24 +298,51 @@ int dispatch_v8(int v_kind, Fn&& fn) {
   return v_kind == kVSame ? fn(std::false_type{}) : fn(std::true_type{});
 }
 
+// Head dim 256 (Gemma) is built for the modes Gemma uses only: no mode
+// flag (causal, window and softcap are run-time arguments).  ALiBi,
+// dropout, segment ids and fp8 V at d 256 are still to port (ROADMAP.md,
+// queue 2); ops/fwd_kernel.py refuses them before the launch.
+inline bool gemma_modes(const Args& a) {
+  return a.md.slopes == nullptr && a.md.rate == 0.f && a.md.q_seg == nullptr &&
+         a.v_kind == kVSame;
+}
+
+// Calls fn(std::integral_constant<int, D>) for a head dim the build takes:
+// 64 and 128, and 256 without segment ids.
+template <bool SEG, typename Fn>
+int dispatch_d(int D, Fn&& fn) {
+  if (D == 64) return fn(std::integral_constant<int, 64>{});
+  if (D == 128) return fn(std::integral_constant<int, 128>{});
+  if constexpr (!SEG) {
+    if (D == 256) return fn(std::integral_constant<int, 256>{});
+  }
+  return int(cudaErrorInvalidValue);
+}
+
 template <bool SEG, int D>
 int launch_f32(const Args& a) {
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-    return dispatch_v8(a.v_kind, [&](auto v8) {
-      auto kernel = attn_fwd_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
-                                        SEG, decltype(v8)::value>;
-      constexpr size_t smem = f32_smem_bytes<D, SEG>();
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (err != cudaSuccess) return int(err);
-      dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
-      kernel<<<grid, F32_THREADS, smem, a.stream>>>(
-          static_cast<const float*>(a.q), static_cast<const float*>(a.k), a.v,
-          a.v_kind, static_cast<float*>(a.o), a.lse, a.Hq, a.Hkv,
-          a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
-      return int(cudaGetLastError());
+  auto run = [&](auto alibi, auto drop, auto v8) {
+    auto kernel = attn_fwd_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
+                                      SEG, decltype(v8)::value>;
+    constexpr size_t smem = f32_smem_bytes<D, SEG>();
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    dim3 grid((a.Nq + BM - 1) / BM, a.B * a.Hq);
+    kernel<<<grid, F32_THREADS, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), a.v,
+        a.v_kind, static_cast<float*>(a.o), a.lse, a.Hq, a.Hkv,
+        a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
+    return int(cudaGetLastError());
+  };
+  if constexpr (D == 256) {
+    if (!gemma_modes(a)) return int(cudaErrorInvalidValue);
+    return run(std::false_type{}, std::false_type{}, std::false_type{});
+  } else {
+    return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+      return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
     });
-  });
+  }
 }
 
 // The C entry of attn_fwd.cu (SEG false) and attn_fwd_seg.cu (SEG true).
@@ -341,16 +369,13 @@ int attn_fwd_entry(const void* q, const void* k, const void* v, void* o, float* 
   const Args a{q, k, v, v_kind, o, lse, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if (D != 64 && D != 128) return int(cudaErrorInvalidValue);
-  if (route == kRouteF32 && dtype == 0)
-    return D == 64 ? launch_f32<SEG, 64>(a) : launch_f32<SEG, 128>(a);
-  if (route == kRouteWgmma && dtype == 1)
-    return D == 64 ? launch_wgmma<SEG, __nv_bfloat16, 64>(a)
-                   : launch_wgmma<SEG, __nv_bfloat16, 128>(a);
-  if (route == kRouteWgmma && dtype == 2)
-    return D == 64 ? launch_wgmma<SEG, __half, 64>(a)
-                   : launch_wgmma<SEG, __half, 128>(a);
-  return int(cudaErrorInvalidValue);
+  return dispatch_d<SEG>(D, [&](auto d) {
+    constexpr int DIM = decltype(d)::value;
+    if (route == kRouteF32 && dtype == 0) return launch_f32<SEG, DIM>(a);
+    if (route == kRouteWgmma && dtype == 1) return launch_wgmma<SEG, __nv_bfloat16, DIM>(a);
+    if (route == kRouteWgmma && dtype == 2) return launch_wgmma<SEG, __half, DIM>(a);
+    return int(cudaErrorInvalidValue);
+  });
 }
 
 }  // namespace

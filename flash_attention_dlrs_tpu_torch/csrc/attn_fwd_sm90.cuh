@@ -10,12 +10,14 @@
 // flash_attention_dlrs_tpu/ops/fwd_kernel.py _fwd_kernel, fwd_mid.py
 // _mid_kernel and _mid_strip_kernel, and fwd_small.py _small_kernel, with
 // the contract of attn_fwd.cuh: causal aligned bottom-right, sliding
-// window, logit softcap, GQA, ragged Nq and Nkv, d in {64, 128}, the true
-// ALiBi bias after the softcap, the dropout mask of common.cuh after the
+// window, logit softcap, GQA, ragged Nq and Nkv, d in {64, 128, 256}, the
+// true ALiBi bias after the softcap, the dropout mask of common.cuh after the
 // undropped row sum and before P is rounded to q's type, segment ids, fp8
 // V (e4m3 / e5m2, dequantized exactly), an exact running max in fp32, and
 // O = 0 with L = kMaskValue for a row that sees no key.  ALiBi, dropout,
-// segment ids and fp8 V are template flags.
+// segment ids and fp8 V are template flags, built at d 64 and 128; d 256
+// (Gemma) is built for the modes Gemma uses (none, softcap, window: run-time
+// arguments) and refuses the four flags.
 //
 // Bound on this card.  At the model paths' shapes the forward is bound by
 // operations (4*d per visible pair and head on the tensor cores' 989
@@ -27,19 +29,22 @@
 //    producer: one thread issues TMA copies and gives its registers to the
 //    consumers (setmaxnreg 24 / 240; 32 / 232 where it stages segment ids,
 //    56 / 224 where it converts fp8 V).
-//  * Q is loaded once by TMA; K and V stream in tiles of BN = 128 keys
-//    through a ring of STAGES stages (2 at d 128: 32 KB of Q + 128 KB of
-//    K/V; 4 at d 64), each stage with a full and an empty barrier for K
+//  * Q is loaded once by TMA; K and V stream in tiles of BN = 128 keys (64
+//    at d 256) through a ring of STAGES stages (2 at d 128: 32 KB of Q +
+//    128 KB of K/V; 4 at d 64; 2 at d 256: 64 KB of Q + 128 KB of K/V),
+//    each stage with a full and an empty barrier for K
 //    and for V (so Q K^T starts before V lands, and K is refilled before
 //    P V is done).  Loads of later tiles overlap the products.
 //  * The tensor maps are 3-D (d, N, B*H): a head's ragged tail reads TMA's
 //    zero fill, never the next head's rows.  Maps and wgmma descriptors
 //    use the 128-byte swizzle: a [rows][64] column chunk of 128-byte rows,
 //    d / 64 chunks a tile.
-//  * S = Q K^T is wgmma.m64n128k16 with both operands in shared memory
-//    (K-major); O += P V is wgmma.m64n{d}k16 with P from registers (the S
-//    accumulator re-packed) and V in shared memory, MN-major (the
-//    transpose bit).  Per warp, the accumulator has the m16n8 fragment
+//  * S = Q K^T is wgmma.m64n{BN}k16 with both operands in shared memory
+//    (K-major); O += P V is wgmma.m64n{d}k16 (at d 256 two n128 halves)
+//    with P from registers (the S accumulator re-packed) and V in shared
+//    memory, MN-major (the transpose bit).  At d 256 the O accumulator
+//    takes 128 registers a consumer thread, hence the 64-key tile: S and P
+//    then take 48 more, within the consumers' 240.  Per warp, the accumulator has the m16n8 fragment
 //    pattern repeated over N/8, so the scale, softcap, ALiBi, mask,
 //    dropout and online softmax are the mma.sync kernel's with row = m0 +
 //    64*wg + 16*warp + g (+8), col = n0 + 8*j + 2*t (+1).
@@ -80,7 +85,10 @@ namespace {
 namespace sm90 {
 
 constexpr int BM = 128;       // q rows per CTA: two consumer warpgroups of 64
-constexpr int BN = 128;       // keys per K / V tile
+
+// Keys per K / V tile: 128, and 64 at d 256, where O takes half a consumer
+// thread's registers and Q 64 KB of shared memory.
+__host__ __device__ constexpr int key_tile(int D) { return D == 256 ? 64 : 128; }
 
 // Shared memory of one CTA, in bytes from a 1024-byte aligned base: Q, the
 // K stages, the V stages, with fp8 V (V8) the fp8 tiles as loaded, with
@@ -88,7 +96,8 @@ constexpr int BN = 128;       // keys per K / V tile
 // stage K full, V full, K empty, V empty and fp8 V full).
 template <int D, bool SEG, bool V8>
 struct Layout {
-  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int BN = key_tile(D);
+  static constexpr int STAGES = D == 64 ? 4 : 2;
   static constexpr uint32_t Q_BYTES = BM * D * 2;
   static constexpr uint32_t KV_BYTES = BN * D * 2;  // one K or V tile
   static constexpr uint32_t V8_BYTES = BN * D;      // one fp8 V tile
@@ -109,6 +118,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       int Nkv, float sm_scale, int causal, int window, float softcap,
                       Mods md) {
   using L = Layout<D, SEG, V8>;
+  constexpr int BN = L::BN;
   constexpr int STAGES = L::STAGES;
   constexpr int CHUNKS = D / CHUNK;  // 128-byte column chunks of a row
   constexpr int NS = BN / 8;         // score n-tiles of 8 columns per warp
@@ -486,28 +496,34 @@ int launch_wgmma(const Args& a) {
   const bool keys = a.Nkv > 0;
   const bool fp8_v = keys && a.v_kind != kVSame;
   const int kv_heads = keys ? a.B * a.Hkv : a.B * a.Hq;
+  constexpr int BN = sm90::key_tile(D);
   if (!sm90::encode_map<T>(&tm_q, a.q, D, a.Nq, a.B * a.Hq, sm90::BM) ||
-      !sm90::encode_map<T>(&tm_k, keys ? a.k : a.q, D, keys ? a.Nkv : a.Nq, kv_heads,
-                           sm90::BN) ||
-      !sm90::encode_map<T>(&tm_v, keys ? a.v : a.q, D, keys ? a.Nkv : a.Nq, kv_heads,
-                           sm90::BN, fp8_v))
+      !sm90::encode_map<T>(&tm_k, keys ? a.k : a.q, D, keys ? a.Nkv : a.Nq, kv_heads, BN) ||
+      !sm90::encode_map<T>(&tm_v, keys ? a.v : a.q, D, keys ? a.Nkv : a.Nq, kv_heads, BN,
+                           fp8_v))
     return int(cudaErrorInvalidValue);
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-    return dispatch_v8(a.v_kind, [&](auto v8) {
-      auto kernel = sm90::attn_fwd_wgmma_kernel<T, D, decltype(alibi)::value,
-                                                decltype(drop)::value, SEG,
-                                                decltype(v8)::value>;
-      constexpr size_t smem = sm90::Layout<D, SEG, decltype(v8)::value>::BYTES;
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-      if (err != cudaSuccess) return int(err);
-      dim3 grid((a.Nq + sm90::BM - 1) / sm90::BM, a.B * a.Hq);
-      kernel<<<grid, sm90::THREADS, smem, a.stream>>>(
-          tm_q, tm_k, tm_v, a.v_kind, static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv, a.Nq,
-          a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
-      return int(cudaGetLastError());
+  auto run = [&](auto alibi, auto drop, auto v8) {
+    auto kernel = sm90::attn_fwd_wgmma_kernel<T, D, decltype(alibi)::value,
+                                              decltype(drop)::value, SEG,
+                                              decltype(v8)::value>;
+    constexpr size_t smem = sm90::Layout<D, SEG, decltype(v8)::value>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return int(err);
+    dim3 grid((a.Nq + sm90::BM - 1) / sm90::BM, a.B * a.Hq);
+    kernel<<<grid, sm90::THREADS, smem, a.stream>>>(
+        tm_q, tm_k, tm_v, a.v_kind, static_cast<T*>(a.o), a.lse, a.Hq, a.Hkv, a.Nq,
+        a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
+    return int(cudaGetLastError());
+  };
+  if constexpr (D == 256) {
+    if (!gemma_modes(a)) return int(cudaErrorInvalidValue);
+    return run(std::false_type{}, std::false_type{}, std::false_type{});
+  } else {
+    return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+      return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
     });
-  });
+  }
 }
 
 }  // namespace

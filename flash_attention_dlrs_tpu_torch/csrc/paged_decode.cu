@@ -66,6 +66,11 @@
 //    __dp4a; their V values convert by a byte permute (paged.cuh
 //    word_values).
 //  * The softcap and ALiBi are template flags, not per-score branches.
+//  * Head dims 64, 128 and 256.  At d 256 (Gemma) a lane owns 32 columns,
+//    so its q, O and row values take most of its registers: one CTA an SM
+//    (255 registers a thread), and the ring keeps 128 KB of stages (fp32 1,
+//    16-bit 2, 1-byte kinds 4).  ALiBi at d 256 is still to port (ROADMAP.md,
+//    queue 2): the d 256 instances are the softcap's on and off.
 // What is left: a small call (8 sequences of 2048 tokens of int8) takes
 // ~15 us beyond its bytes whatever its arithmetic (copies of the kernel
 // without the scores, or without P V, take as long): the prologue, the
@@ -116,7 +121,8 @@ struct Geometry {
   static constexpr int NCH = ROW_BYTES / (8 * CB);  // reads a lane makes of a row
   static constexpr int VEC = CB / EB;               // elements of one read
   static constexpr int E = D / 8;                   // elements (columns) a lane owns
-  static constexpr int STAGES = EB == 1 ? 4 : EB == 2 ? 3 : 2;
+  static constexpr int STAGES = D == 256 ? (EB == 1 ? 4 : EB == 2 ? 2 : 1)
+                                           : (EB == 1 ? 4 : EB == 2 ? 3 : 2);
   static constexpr uint32_t TILE_BYTES = TILE * ROW_BYTES;
   static constexpr uint32_t SC_BYTES = QUANT ? 2 * NTOK * TILE * 4 : 0;
   static constexpr uint32_t V_OFF = STAGES * TILE_BYTES;
@@ -274,7 +280,7 @@ __device__ __forceinline__ void merge_rows(const float* part_o, const float* par
 }
 
 template <int KIND, int D, bool CAP, bool ALIBI>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D == 256 ? 1 : 2)
 paged_decode_kernel(const Args a, int bulk) {
   using Geo = Geometry<KIND, D>;
   constexpr bool QUANT = Geo::QUANT;
@@ -630,6 +636,9 @@ int launch_kind(int D, const Args& a) {
   const int bulk = stored % TILE == 0 && aligned;
   if (D == 64) return launch_modes<KIND, 64>(a, bulk);
   if (D == 128) return launch_modes<KIND, 128>(a, bulk);
+  if (D == 256 && a.slopes == nullptr)
+    return a.softcap > 0.f ? launch<KIND, 256, true, false>(a, bulk)
+                           : launch<KIND, 256, false, false>(a, bulk);
   return int(cudaErrorInvalidValue);
 }
 
@@ -685,7 +694,10 @@ extern "C" int paged_decode(const void* q, int q_dtype, const void* k_pages,
 extern "C" int paged_decode_shared_bytes(int kv_kind, int D) {
   auto bytes = [&](auto kind) -> int {
     constexpr int K = decltype(kind)::value;
-    return D == 64 ? int(Geometry<K, 64>::BYTES) : D == 128 ? int(Geometry<K, 128>::BYTES) : 0;
+    return D == 64    ? int(Geometry<K, 64>::BYTES)
+           : D == 128 ? int(Geometry<K, 128>::BYTES)
+           : D == 256 ? int(Geometry<K, 256>::BYTES)
+                      : 0;
   };
   switch (kv_kind) {
     case kF32: return bytes(std::integral_constant<int, kF32>{});

@@ -52,7 +52,11 @@
 //    A CTA walks only the keys its last row can see, and only a tile past
 //    its warpgroup's first row's horizon (or past the split) is masked.
 //    The ring has 4 stages of 64 keys, so three tiles are in flight while
-//    one is computed.  The pool kind, softcap and ALiBi are template flags.
+//    one is computed (2 stages at d 256, where Q takes 64 KB and O 128
+//    registers a consumer thread; P V is two n128 products).  The pool
+//    kind, softcap and ALiBi are template flags; ALiBi at d 256 is still to
+//    port (ROADMAP.md, queue 2), so the d 256 instances are the softcap's
+//    on and off.
 //  * "fp32", fp32 q: the CUDA cores in true fp32, one CTA of 256 threads per
 //    64 rows (a 4 x 4 patch of the score tile each), no split.
 
@@ -329,7 +333,7 @@ static_assert(128 * V_PRODUCER_REGS + 256 * V_CONSUMER_REGS <= THREADS * LAUNCH_
 // warpgroup's Q rows; per stage full and empty).
 template <int D>
 struct VerifyLayout {
-  static constexpr int STAGES = 4;
+  static constexpr int STAGES = D == 256 ? 2 : 4;  // d 256: 64 KB of Q + 128 KB of K/V
   static constexpr uint32_t Q_BYTES = V_BM * D * 2;
   static constexpr uint32_t KV_BYTES = V_BN * D * 2;
   static constexpr uint32_t K_OFF = Q_BYTES;
@@ -470,24 +474,13 @@ paged_verify_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
       } else {
         // Quantized pools: the tile's stored 16-byte chunks in flight as
         // registers, converted (unscaled, exactly) into T once the stage is
-        // free; zero past the visible keys.
-        constexpr int CPR = D / 16, IT = V_BN * CPR / 128;
+        // free; zero past the visible keys.  At d 256 the tile is taken in
+        // two parts of four chunks a thread, so the producer's 72 registers
+        // still hold a part's loads.
+        constexpr int CPR = D / 16, IT_ALL = V_BN * CPR / 128;
+        constexpr int IT = IT_ALL < 4 ? IT_ALL : 4;
         const unsigned char* kb = static_cast<const unsigned char*>(a.k_pages);
         const unsigned char* vb = static_cast<const unsigned char*>(a.v_pages);
-        uint4 kr[IT], vr[IT];
-        int hi[IT];
-#pragma unroll
-        for (int it = 0; it < IT; ++it) {
-          const int idx = tid + it * 128, r = idx / CPR, c16 = idx % CPR, key = n0 + r;
-          kr[it] = vr[it] = make_uint4(0, 0, 0, 0);
-          hi[it] = 0;
-          if (key < k_hi) {
-            const TokenAddr t = token_addr(KIND, kvh, table[key / ps], key % ps, a.P, ps, D);
-            kr[it] = *reinterpret_cast<const uint4*>(kb + t.row + c16 * 16);
-            vr[it] = *reinterpret_cast<const uint4*>(vb + t.row + c16 * 16);
-            hi[it] = t.hi;
-          }
-        }
         float ks = 0.f, vs = 0.f;
         if (tid < V_BN && n0 + tid < k_hi) {
           const int key = n0 + tid;
@@ -495,12 +488,30 @@ paged_verify_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
           ks = a.k_scales[si];
           vs = a.v_scales[si];
         }
-        mbar_wait(empty(s), parity);
 #pragma unroll
-        for (int it = 0; it < IT; ++it) {
-          const int idx = tid + it * 128, r = idx / CPR, c16 = idx % CPR;
-          store_converted<T, KIND>(smem + L::K_OFF + s * L::KV_BYTES, r, c16, kr[it], hi[it]);
-          store_converted<T, KIND>(smem + L::V_OFF + s * L::KV_BYTES, r, c16, vr[it], hi[it]);
+        for (int part = 0; part < IT_ALL; part += IT) {
+          uint4 kr[IT], vr[IT];
+          int hi[IT];
+#pragma unroll
+          for (int it = 0; it < IT; ++it) {
+            const int idx = tid + (part + it) * 128, r = idx / CPR, c16 = idx % CPR;
+            const int key = n0 + r;
+            kr[it] = vr[it] = make_uint4(0, 0, 0, 0);
+            hi[it] = 0;
+            if (key < k_hi) {
+              const TokenAddr t = token_addr(KIND, kvh, table[key / ps], key % ps, a.P, ps, D);
+              kr[it] = *reinterpret_cast<const uint4*>(kb + t.row + c16 * 16);
+              vr[it] = *reinterpret_cast<const uint4*>(vb + t.row + c16 * 16);
+              hi[it] = t.hi;
+            }
+          }
+          if (part == 0) mbar_wait(empty(s), parity);
+#pragma unroll
+          for (int it = 0; it < IT; ++it) {
+            const int idx = tid + (part + it) * 128, r = idx / CPR, c16 = idx % CPR;
+            store_converted<T, KIND>(smem + L::K_OFF + s * L::KV_BYTES, r, c16, kr[it], hi[it]);
+            store_converted<T, KIND>(smem + L::V_OFF + s * L::KV_BYTES, r, c16, vr[it], hi[it]);
+          }
         }
         if (tid < V_BN) {
           stage_scales(s)[tid] = ks;
@@ -767,9 +778,12 @@ paged_verify_combine_kernel(const float* __restrict__ part_o,
     const float ws = __shfl_sync(0xffffffffu, w[s / 32], s % 32);
     const float* src = part_o + (size_t(s) * rows + row) * D + lane * VEC;
     float os[VEC];
-    if constexpr (VEC == 4) {
-      const float4 x = *reinterpret_cast<const float4*>(src);
-      os[0] = x.x, os[1] = x.y, os[2] = x.z, os[3] = x.w;
+    if constexpr (VEC % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < VEC; j += 4) {
+        const float4 x = *reinterpret_cast<const float4*>(src + j);
+        os[j] = x.x, os[j + 1] = x.y, os[j + 2] = x.z, os[j + 3] = x.w;
+      }
     } else {
       const float2 x = *reinterpret_cast<const float2*>(src);
       os[0] = x.x, os[1] = x.y;
@@ -818,11 +832,17 @@ int launch_wgmma(const Args& a) {
     return int(cudaGetLastError());
   };
   const bool cap = a.softcap > 0.f, alibi = a.slopes != nullptr;
-  if (cap)
-    return alibi ? run(paged_verify_wgmma_kernel<T, D, KIND, true, true>)
-                 : run(paged_verify_wgmma_kernel<T, D, KIND, true, false>);
-  return alibi ? run(paged_verify_wgmma_kernel<T, D, KIND, false, true>)
+  if constexpr (D == 256) {  // ALiBi at d 256 is still to port (ROADMAP.md, queue 2)
+    if (alibi) return int(cudaErrorInvalidValue);
+    return cap ? run(paged_verify_wgmma_kernel<T, D, KIND, true, false>)
                : run(paged_verify_wgmma_kernel<T, D, KIND, false, false>);
+  } else {
+    if (cap)
+      return alibi ? run(paged_verify_wgmma_kernel<T, D, KIND, true, true>)
+                   : run(paged_verify_wgmma_kernel<T, D, KIND, true, false>);
+    return alibi ? run(paged_verify_wgmma_kernel<T, D, KIND, false, true>)
+                 : run(paged_verify_wgmma_kernel<T, D, KIND, false, false>);
+  }
 }
 
 // The pool kinds the wgmma route takes from q of type T: T's own values and
@@ -880,7 +900,7 @@ extern "C" int paged_verify(const void* q, int q_dtype, const void* k_pages,
   if (Hkv <= 0 || Hq % Hkv != 0 || page_size <= 0 || pages_per_seq <= 0 ||
       kv_kind < kF32 || kv_kind > kE5M2 || (kv_kind == kI4 && page_size % 2) ||
       (is_quantized(kv_kind) && (k_scales == nullptr || v_scales == nullptr)) ||
-      (D != 64 && D != 128) || splits < 1 || splits > pages_per_seq ||
+      (D != 64 && D != 128 && D != 256) || splits < 1 || splits > pages_per_seq ||
       (splits > 1 && (part_o == nullptr || part_lse == nullptr)))
     return int(cudaErrorInvalidValue);
   const int per = (pages_per_seq + splits - 1) / splits;
@@ -888,24 +908,31 @@ extern "C" int paged_verify(const void* q, int q_dtype, const void* k_pages,
   const Args a{q, q_dtype, kv_kind, k_pages, v_pages, k_scales, v_scales, lengths,
                page_table, o, part_o, part_lse, B, Hq, Hkv, T, P, page_size, pages_per_seq,
                splits, per, scale_q, softcap, slopes, static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && q_dtype == 0 && splits == 1)
-    return D == 64 ? launch_f32<64>(a) : launch_f32<128>(a);
-  if (route == kRouteWgmma && splits > kMaxSplits) return int(cudaErrorInvalidValue);
-  if (route == kRouteWgmma && q_dtype == 1)
-    return D == 64 ? launch_wgmma_kind<__nv_bfloat16, 64>(a)
-                   : launch_wgmma_kind<__nv_bfloat16, 128>(a);
-  if (route == kRouteWgmma && q_dtype == 2)
-    return D == 64 ? launch_wgmma_kind<__half, 64>(a) : launch_wgmma_kind<__half, 128>(a);
-  return int(cudaErrorInvalidValue);
+  auto by_d = [&](auto d) {
+    constexpr int DIM = decltype(d)::value;
+    if (route == kRouteF32 && q_dtype == 0 && splits == 1) return launch_f32<DIM>(a);
+    if (route == kRouteWgmma && splits > kMaxSplits) return int(cudaErrorInvalidValue);
+    if (route == kRouteWgmma && q_dtype == 1) return launch_wgmma_kind<__nv_bfloat16, DIM>(a);
+    if (route == kRouteWgmma && q_dtype == 2) return launch_wgmma_kind<__half, DIM>(a);
+    return int(cudaErrorInvalidValue);
+  };
+  if (D == 64) return by_d(std::integral_constant<int, 64>{});
+  if (D == 128) return by_d(std::integral_constant<int, 128>{});
+  return by_d(std::integral_constant<int, 256>{});
 }
 
 // Dynamic shared memory of the route's kernel at head dim D, in bytes; 0
 // for a pair no kernel takes.
 extern "C" int paged_verify_shared_bytes(int route, int D) {
-  if (D != 64 && D != 128) return 0;
-  if (route == kRouteF32) return D == 64 ? int(f32_smem_bytes<64>()) : int(f32_smem_bytes<128>());
-  if (route == kRouteWgmma)
-    return D == 64 ? int(sm90::VerifyLayout<64>::BYTES) : int(sm90::VerifyLayout<128>::BYTES);
+  auto bytes = [&](auto d) -> int {
+    constexpr int DIM = decltype(d)::value;
+    if (route == kRouteF32) return int(f32_smem_bytes<DIM>());
+    if (route == kRouteWgmma) return int(sm90::VerifyLayout<DIM>::BYTES);
+    return 0;
+  };
+  if (D == 64) return bytes(std::integral_constant<int, 64>{});
+  if (D == 128) return bytes(std::integral_constant<int, 128>{});
+  if (D == 256) return bytes(std::integral_constant<int, 256>{});
   return 0;
 }
 

@@ -3,8 +3,9 @@
 // shape (a producer warpgroup and two consumer warpgroups), mbarriers, TMA
 // copies of 3-D and 2-D tensor maps with the 128-byte swizzle, wgmma
 // shared-memory descriptors and the products (m64nNk16, fp32 accumulate, A
-// from shared memory or from registers), and the host's tensor-map encoding
-// through the runtime's driver entry point (no -lcuda).
+// from shared memory or from registers; N 256 as two halves), and the
+// host's tensor-map encoding through the runtime's driver entry point (no
+// -lcuda).
 
 #pragma once
 
@@ -287,6 +288,20 @@ __device__ __forceinline__ void WgmmaSS<64, __half>::run(
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// m64n256k16 with A from registers (head_dim 256): two m64n128k16 products
+// over the two halves of B's columns (MN-major, so columns 128.. start two
+// leading byte offsets on) into the two halves of D (the accumulator holds
+// its n8 tiles in column order).
+template <typename T>
+struct WgmmaRS<256, T> {
+  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4],
+                                             uint64_t db) {
+    const uint64_t half = 2 * ((db >> 16) & 0x3FFF);  // two LBOs, in 16-byte units
+    WgmmaRS<128, T>::run(*reinterpret_cast<float(*)[64]>(d), a, db);
+    WgmmaRS<128, T>::run(*reinterpret_cast<float(*)[64]>(d + 64), a, db + half);
+  }
+};
 
 // 2^x on the special-function unit; subnormal results flush to 0 (an
 // unnormalised P < 2^-126 against a row sum >= 1).

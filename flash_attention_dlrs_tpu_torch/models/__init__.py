@@ -1,3 +1,11 @@
+from .convert import (
+    config_from_hf,
+    config_from_hf_gemma,
+    import_hf_gemma,
+    import_hf_llama,
+    import_hf_phi3,
+    load_trained,
+)
 from .decoding import (
     KVPools,
     init_kv_pools,
@@ -16,7 +24,14 @@ from .trainer import (
     make_accum_train_step,
     make_optimizer,
 )
-from .transformer import ModelConfig, Transformer, forward, loss_fn, unembed_matrix
+from .transformer import (
+    ModelConfig,
+    Transformer,
+    forward,
+    loss_fn,
+    quantize_params,
+    unembed_matrix,
+)
 from .weights import init_params_numpy, params_from_jax, params_to_numpy
 
 __all__ = [
@@ -25,10 +40,16 @@ __all__ = [
     "ModelConfig",
     "TrainSpec",
     "Transformer",
+    "config_from_hf",
+    "config_from_hf_gemma",
     "fit",
     "forward",
     "init_kv_pools",
+    "import_hf_gemma",
+    "import_hf_llama",
+    "import_hf_phi3",
     "init_params_numpy",
+    "load_trained",
     "loss_fn",
     "lr_schedule",
     "make_accum_train_step",
@@ -40,6 +61,7 @@ __all__ = [
     "make_verify_step",
     "params_from_jax",
     "params_to_numpy",
+    "quantize_params",
     "unembed_matrix",
     "write_prompt_kv",
     "write_prompt_kv_all",

@@ -10,9 +10,15 @@ int8 / int4 / fp8 pools) and attends over the pages with
 for T tokens per sequence with :func:`..ops.decode.paged_verify_attention`
 (chunked prefill, speculative verification).  PyTorch runs eagerly, so
 there is no jit here; shapes stay static (slots × pages_per_seq) all the
-same.  Pools keep the model's head_dim: the JAX package pads it to 128 lanes
-for the TPU's DMA tiling, which this card does not need (a row's amax, and
-so its scale, is the same either way).
+same.  Every step carries the model variants of ``models/transformer.py``:
+scaled RoPE, QKV biases, sandwich norms, embeddings scaled by √d_model, the
+attention softcap and ``sm_scale`` in all three, each layer's window in the
+prefill (the engine keeps paged contexts within the window), the final
+softcap on the logits, int8 weights.  Pools are allocated at the kernels'
+head dim (:func:`..ops.fwd_kernel.kernel_width`: 64, 128 or 256), as the
+JAX package pads them to 128 lanes: K/V are zero-padded on write and the
+paged ops pad q and slice O (a row's amax, and so its scale, is the same
+either way).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from .._cuda import resolve_device
 from ..ops.decode import paged_decode_attention, paged_verify_attention
 from ..ops.flash_attention import flash_attention
+from ..ops.fwd_kernel import kernel_width, pad_head_dim
 from ..ops.quantization import (
     Int4QuantizedTensor,
     QuantizedTensor,
@@ -31,8 +38,8 @@ from ..ops.quantization import (
     quantize_int4_values,
 )
 from .transformer import (
-    ModelConfig, Transformer, _cfg_slopes, _proj, apply_rope,
-    logits_from_hidden, mlp_block, rms_norm, rope_tables,
+    ModelConfig, Transformer, _cfg_slopes, apply_rope, attn_residual, embed_tokens,
+    layer_window, logits_from_hidden, mlp_block, model_rope_tables, qkv, rms_norm,
 )
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -80,7 +87,7 @@ def init_kv_pools(
     """Zeroed pools, one K and one V per layer: value pools of ``dtype``,
     or with ``quantized`` int8 / fp8 payloads (``dtype``) or, for
     ``dtype="int4"``, packed int4 bytes [Hkv, P, page_size/2, d], with
-    scales of 1."""
+    scales of 1.  d is the kernels' head dim, ``kernel_width(head_dim)``."""
     int4 = isinstance(dtype, str) and dtype == "int4"
     if int4:
         if page_size % 2:
@@ -94,7 +101,7 @@ def init_kv_pools(
         raise ValueError(f"{dtype} pools need quantized=True")
     device = resolve_device(device)
     store_ps = page_size // 2 if int4 else page_size
-    shape = (cfg.n_kv_heads, num_pages, store_ps, cfg.head_dim)
+    shape = (cfg.n_kv_heads, num_pages, store_ps, kernel_width(cfg.head_dim))
 
     def pools(make):
         return tuple(make() for _ in range(cfg.n_layers))
@@ -153,10 +160,13 @@ def _write_tokens(pools: KVPools, li: int, rows, offs, k, v) -> None:
     """Layer ``li``'s K/V of new tokens into the pools in place, quantized
     per token on write for quantized pools (the same payloads and scales as
     :func:`..ops.quantization.quantize` / ``quantize_int4``): rows/offs
-    [N, T] (see :func:`_int4_insert`), k/v [Hkv, N, T, d]."""
+    [N, T] (see :func:`_int4_insert`), k/v [Hkv, N, T, d], zero-padded to
+    the pools' head dim."""
     scales = ((pools.k_scales[li], pools.v_scales[li]) if pools.quantized
               else (None, None))
+    width = pools.k[li].shape[-1]
     for pool, sc, x in zip((pools.k[li], pools.v[li]), scales, (k, v)):
+        x = pad_head_dim(x, width)
         if pools.int4:
             xq, xs = quantize_int4_values(x)
             _int4_insert(pool, rows, offs, xq)
@@ -179,37 +189,36 @@ def make_prefill(cfg: ModelConfig):
     per-layer K/V [L] of ([B, Hkv, T, d], [B, Hkv, T, d])).  T may be
     padded: attention is causal, so padding rows only look back and are
     discarded, and the ALiBi bias of a real row depends only on its own
-    position; ``lengths`` picks each row's last real token."""
+    position; ``lengths`` picks each row's last real token.  Each layer
+    attends within its own window (:func:`..transformer.layer_window`)."""
     slopes = _cfg_slopes(cfg)
 
     @torch.inference_mode()
     def prefill(model: Transformer, tokens, lengths):
         b, t = tokens.shape
         positions = torch.arange(t, device=tokens.device).expand(b, t)
-        x = model.embed[tokens]
-        if slopes is None:
-            rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        x = embed_tokens(model, tokens, cfg)
+        rope_cs = model_rope_tables(positions, cfg)
         kvs = []
-        for layer in model.layers:
+        for li, layer in enumerate(model.layers):
             h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-            q = _proj(h, layer.wq).reshape(b, t, cfg.n_q_heads, cfg.head_dim)
-            k = _proj(h, layer.wk).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-            v = _proj(h, layer.wv).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-            if slopes is None:
+            q, k, v = qkv(layer, h, cfg)
+            if rope_cs is not None:
                 q = apply_rope(q, *rope_cs)
                 k = apply_rope(k, *rope_cs)
             kvs.append((k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous()))
             o = flash_attention(
                 q.transpose(1, 2).contiguous(), kvs[-1][0], kvs[-1][1],
-                causal=True, sm_scale=cfg.sm_scale, alibi_slopes=slopes,
+                causal=True, sm_scale=cfg.sm_scale, window=layer_window(cfg, li),
+                logit_softcap=cfg.attn_softcap, alibi_slopes=slopes,
             )
-            x = x + _proj(o.transpose(1, 2).reshape(b, t, -1), layer.wo)
+            x = attn_residual(layer, x, o.transpose(1, 2).reshape(b, t, -1), cfg)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
         rows = torch.arange(b, device=x.device)
         last = x[rows, lengths.to(x.device).long() - 1]
-        return logits_from_hidden(last, model), kvs
+        return logits_from_hidden(last, model, cfg.final_softcap), kvs
 
     return prefill
 
@@ -236,15 +245,12 @@ def make_decode_step(cfg: ModelConfig):
                     page_rows, page_offs, page_tbl, lengths):
         b = tokens.shape[0]
         rows, offs = page_rows.long()[:, None], page_offs.long()[:, None]
-        x = model.embed[tokens]  # [B, dm]
-        if slopes is None:
-            rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, 1, d/2]
+        x = embed_tokens(model, tokens, cfg)  # [B, dm]
+        rope_cs = model_rope_tables(positions, cfg)  # [B, 1, d/2]
         for li, layer in enumerate(model.layers):
             h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-            q = _proj(h, layer.wq).reshape(b, cfg.n_q_heads, cfg.head_dim)
-            k = _proj(h, layer.wk).reshape(b, cfg.n_kv_heads, cfg.head_dim)
-            v = _proj(h, layer.wv).reshape(b, cfg.n_kv_heads, cfg.head_dim)
-            if slopes is None:
+            q, k, v = qkv(layer, h, cfg)
+            if rope_cs is not None:
                 q = apply_rope(q, *rope_cs)  # RoPE at each token's absolute position
                 k = apply_rope(k, *rope_cs)
             # this token's K/V into its (page, offset): [Hkv, B, 1, d]
@@ -253,11 +259,12 @@ def make_decode_step(cfg: ModelConfig):
             o = paged_decode_attention(
                 q.contiguous(), *pools.layer(li), lengths, page_tbl,
                 sm_scale=cfg.sm_scale, alibi_slopes=slopes,
+                logit_softcap=cfg.attn_softcap,
             )  # [B, Hq, d]
-            x = x + _proj(o.reshape(b, -1), layer.wo)
+            x = attn_residual(layer, x, o.reshape(b, -1), cfg)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
-        return logits_from_hidden(x, model), pools
+        return logits_from_hidden(x, model, cfg.final_softcap), pools
 
     return decode_step
 
@@ -289,15 +296,12 @@ def make_verify_step(cfg: ModelConfig, num_tokens: int):
                     page_rows, page_offs, page_tbl, lengths):
         b = tokens.shape[0]
         rows, offs = page_rows.long(), page_offs.long()
-        x = model.embed[tokens]  # [B, T, dm]
-        if slopes is None:
-            rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)  # [B, T, 1, d/2]
+        x = embed_tokens(model, tokens, cfg)  # [B, T, dm]
+        rope_cs = model_rope_tables(positions, cfg)  # [B, T, 1, d/2]
         for li, layer in enumerate(model.layers):
             h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-            q = _proj(h, layer.wq).reshape(b, t_new, cfg.n_q_heads, cfg.head_dim)
-            k = _proj(h, layer.wk).reshape(b, t_new, cfg.n_kv_heads, cfg.head_dim)
-            v = _proj(h, layer.wv).reshape(b, t_new, cfg.n_kv_heads, cfg.head_dim)
-            if slopes is None:
+            q, k, v = qkv(layer, h, cfg)
+            if rope_cs is not None:
                 q = apply_rope(q, *rope_cs)
                 k = apply_rope(k, *rope_cs)
             # all B·T tokens' K/V: [Hkv, B, T, d]
@@ -306,11 +310,12 @@ def make_verify_step(cfg: ModelConfig, num_tokens: int):
             o = paged_verify_attention(
                 q.transpose(1, 2).contiguous(), *pools.layer(li), lengths,
                 page_tbl, sm_scale=cfg.sm_scale, alibi_slopes=slopes,
+                logit_softcap=cfg.attn_softcap,
             )  # [B, Hq, T, d]
-            x = x + _proj(o.transpose(1, 2).reshape(b, t_new, -1), layer.wo)
+            x = attn_residual(layer, x, o.transpose(1, 2).reshape(b, t_new, -1), cfg)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
         x = rms_norm(x, model.final_norm, cfg.norm_eps)
-        return logits_from_hidden(x, model), pools
+        return logits_from_hidden(x, model, cfg.final_softcap), pools
 
     return verify_step
 

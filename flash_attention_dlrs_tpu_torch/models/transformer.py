@@ -7,8 +7,15 @@ around both, tied embeddings by default.  Parameters live in :class:`Transformer
 place of the JAX params dict.  Plain projections are ``torch.matmul``, as
 the JAX package leaves them to XLA; attention goes through the port's
 kernels, forward and backward.  Parameters are trainable; the serving paths
-run under ``torch.inference_mode``.  Variants the port does not run yet
-raise when a :class:`ModelConfig` is built.
+run under ``torch.inference_mode``.
+
+The open checkpoint families' variants ride the same blocks (see
+``models/convert.py``): scaled RoPE (linear, YaRN, Llama-3), sliding
+windows per layer (:func:`layer_window`), the attention-logit and
+final-logit softcaps, GeGLU, embeddings scaled by √d_model, an explicit
+softmax scale, QKV biases and Gemma-2's sandwich norms (optional layer
+parameters, present only when the weights have them), and weight-only int8
+projections (:func:`quantize_params`).
 
 Attention dropout runs only when a ``dropout_seed`` is passed (training):
 layer i draws its mask from the seed base + i·1299709, wrapped to int32 as
@@ -19,6 +26,7 @@ backward see the forward's mask and training stays bitwise reproducible.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -28,9 +36,16 @@ from torch.utils.checkpoint import checkpoint
 from .._cuda import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..ops.fwd_kernel import int32_seed
+from ..ops.quantization import QuantizedTensor, int8_matmul, quantize_weight
 from ..ops.reference import alibi_slopes_for
 
 _NOT_YET = "{} is not ported yet (ROADMAP.md, queue 1 of the PyTorch port)"
+
+# Projection weights (weight-only int8 under quantize_params), the optional
+# QKV biases and the optional sandwich norms of a layer.
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+BIASES = ("bq", "bk", "bv")
+SANDWICH_NORMS = ("post_attn_norm", "post_mlp_norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +59,14 @@ class ModelConfig:
     :func:`loss_fn`.  ``position_encoding="alibi"`` replaces RoPE with the
     per-head linear bias of :func:`alibi_slopes_for` (MPT/BLOOM);
     ``attn_dropout`` is the attention-probability dropout rate of training
-    steps that pass a ``dropout_seed``."""
+    steps that pass a ``dropout_seed``.  ``rope_scaling`` is a tuple
+    ``("linear", factor)``, ``("llama3", factor, low_freq_factor,
+    high_freq_factor, orig_max_pos)`` or ``("yarn", factor, beta_fast,
+    beta_slow, orig_max_pos, attn_factor)``; ``window`` slides on the layers
+    ``window_pattern`` names ("all", "even", or "from:K"); ``mlp_act`` is
+    "silu" or "gelu_tanh"; ``embed_scale``, ``attn_softcap``,
+    ``final_softcap`` and ``sm_scale`` are Gemma's (see the JAX
+    ModelConfig)."""
 
     vocab_size: int = 32000
     d_model: int = 512
@@ -79,17 +101,6 @@ class ModelConfig:
                 "(expected 'rope' or 'alibi')")
         if self.mlp_act not in ("silu", "gelu_tanh"):
             raise ValueError(f"unknown mlp_act {self.mlp_act!r}")
-        unported = {
-            "rope_scaling": self.rope_scaling is not None,
-            "window": bool(self.window),
-            "mlp_act='gelu_tanh'": self.mlp_act == "gelu_tanh",
-            "embed_scale": self.embed_scale,
-            "attn_softcap": bool(self.attn_softcap),
-            "final_softcap": bool(self.final_softcap),
-        }
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(_NOT_YET.format(f"ModelConfig {name}"))
         if self.n_q_heads % self.n_kv_heads:
             raise ValueError(
                 f"n_q_heads ({self.n_q_heads}) must be a multiple of "
@@ -120,34 +131,65 @@ def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
-class Block(nn.Module):
-    """One decoder layer's parameters (names as in the JAX params dict)."""
+class QuantizedWeight(nn.Module):
+    """A weight-only int8 projection [in, out]: int8 ``values`` and one
+    fp32 scale per output channel, ``scales`` [1, out] (buffers: not
+    trained), the JAX package's ``QuantizedTensor`` leaf."""
 
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, values: torch.Tensor, scales: torch.Tensor):
         super().__init__()
+        self.register_buffer("values", values)
+        self.register_buffer("scales", scales)
+
+    def tensor(self) -> QuantizedTensor:
+        return QuantizedTensor(self.values, self.scales)
+
+
+class Block(nn.Module):
+    """One decoder layer's parameters (names as in the JAX params dict).
+    ``extras`` names the optional ones this layer has (:data:`BIASES`,
+    :data:`SANDWICH_NORMS`), kept as ``self.extras`` so that a step tests
+    a set and never probes the module for a name it lacks; with
+    ``quantized`` the projections are :class:`QuantizedWeight` buffers."""
+
+    def __init__(self, cfg: ModelConfig, device, extras=(), quantized: bool = False):
+        super().__init__()
+        self.extras = frozenset(extras)
         dm, dh, dff = cfg.d_model, cfg.head_dim, cfg.d_ff
         nq, nkv, dt = cfg.n_q_heads, cfg.n_kv_heads, cfg.dtype
-        self.attn_norm = _param((dm,), torch.float32, device)
-        self.wq = _param((dm, nq * dh), dt, device)
-        self.wk = _param((dm, nkv * dh), dt, device)
-        self.wv = _param((dm, nkv * dh), dt, device)
-        self.wo = _param((nq * dh, dm), dt, device)
-        self.mlp_norm = _param((dm,), torch.float32, device)
-        self.w_gate = _param((dm, dff), dt, device)
-        self.w_up = _param((dm, dff), dt, device)
-        self.w_down = _param((dff, dm), dt, device)
+        shapes = {"attn_norm": (dm,), "wq": (dm, nq * dh), "wk": (dm, nkv * dh),
+                  "wv": (dm, nkv * dh), "wo": (nq * dh, dm), "mlp_norm": (dm,),
+                  "w_gate": (dm, dff), "w_up": (dm, dff), "w_down": (dff, dm)}
+        for name, shape in shapes.items():
+            if name not in PROJECTIONS:  # the norms' gains stay fp32
+                setattr(self, name, _param(shape, torch.float32, device))
+            elif quantized:
+                setattr(self, name, QuantizedWeight(
+                    torch.empty(shape, dtype=torch.int8, device=device),
+                    torch.empty((1, shape[1]), dtype=torch.float32, device=device)))
+            else:
+                setattr(self, name, _param(shape, dt, device))
+        for name in extras:
+            if name in BIASES:  # bq is the width of wq's output, and so on
+                setattr(self, name, _param((shapes["w" + name[1]][1],), dt, device))
+            elif name in SANDWICH_NORMS:
+                setattr(self, name, _param((dm,), torch.float32, device))
+            else:
+                raise ValueError(f"unknown optional layer parameter {name!r}")
 
 
 class Transformer(nn.Module):
     """Parameters of the model, uninitialized: fill them with
-    :func:`..models.weights.params_from_jax`."""
+    :func:`..models.weights.params_from_jax`.  ``extras`` and ``quantized``
+    are every :class:`Block`'s."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda"):
+    def __init__(self, cfg: ModelConfig, device="cuda", extras=(), quantized: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = _param((cfg.vocab_size, cfg.d_model), cfg.dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, device, extras, quantized)
+                                    for _ in range(cfg.n_layers))
         self.final_norm = _param((cfg.d_model,), torch.float32, device)
         if not cfg.tie_embeddings:
             self.unembed = _param((cfg.vocab_size, cfg.d_model), cfg.dtype, device)
@@ -164,20 +206,88 @@ def rms_norm(x, weight, eps=1e-6):
     return (x32 * inv * weight).to(x.dtype)
 
 
-def _proj(x, w):
-    return torch.matmul(x, w)
+def _proj(x, w, b=None):
+    """x @ W (+ b): ``torch.matmul``, or :func:`..ops.quantization.int8_matmul`
+    for a :class:`QuantizedWeight`; the optional bias (Qwen2's QKV biases)
+    is added in x's dtype."""
+    y = int8_matmul(x, w.tensor()) if isinstance(w, QuantizedWeight) else torch.matmul(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def quantize_params(model: "Transformer") -> "Transformer":
+    """Weight-only int8, in place: every projection of every layer becomes a
+    :class:`QuantizedWeight` (per output channel, from the weight in fp32),
+    as the JAX package's ``quantize_params``; returns ``model``."""
+    with torch.no_grad():
+        for layer in model.layers:
+            for name in PROJECTIONS:
+                wq = quantize_weight(getattr(layer, name).float())
+                delattr(layer, name)
+                setattr(layer, name, QuantizedWeight(wq.values, wq.scales))
+    return model
+
+
+def _scaled_rope_freqs(theta: float, d: int, scaling, device=None):
+    """Inverse frequencies [d/2] fp32 with optional RoPE scaling (see
+    :class:`ModelConfig`): the JAX package's ``_scaled_rope_freqs``, op for
+    op (HF's linear, YaRN and Llama-3 rules)."""
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=device) / d)
+    if scaling is None:
+        return freqs
+    kind = scaling[0]
+    if kind == "linear":
+        return freqs / float(scaling[1])
+    if kind == "yarn":
+        _, factor, beta_fast, beta_slow, orig_max, _att = scaling
+
+        def corr_dim(n_rot):
+            return (d * math.log(orig_max / (n_rot * 2 * math.pi))) / (2 * math.log(float(theta)))
+
+        low = max(math.floor(corr_dim(beta_fast)), 0)
+        high = min(math.ceil(corr_dim(beta_slow)), d - 1)
+        if low == high:
+            high += 0.001
+        ramp = torch.clamp(
+            (torch.arange(d // 2, dtype=torch.float32, device=device) - low) / (high - low),
+            0, 1)
+        extrap_f = 1.0 - ramp  # 1 where extrapolation (unscaled) wins
+        return (freqs / float(factor)) * (1.0 - extrap_f) + freqs * extrap_f
+    if kind == "llama3":
+        _, factor, low_ff, high_ff, orig_max = scaling
+        factor, low_ff, high_ff = float(factor), float(low_ff), float(high_ff)
+        orig_max = float(orig_max)
+        wavelen = 2.0 * math.pi / freqs
+        low_wl, high_wl = orig_max / low_ff, orig_max / high_ff
+        smooth = (orig_max / wavelen - low_ff) / (high_ff - low_ff)
+        interp = (1.0 - smooth) * freqs / factor + smooth * freqs
+        out = torch.where(wavelen > low_wl, freqs / factor, freqs)
+        is_mid = (wavelen <= low_wl) & (wavelen >= high_wl)
+        return torch.where(is_mid, interp, out)
+    raise ValueError(f"unsupported rope_scaling kind {kind!r}")
 
 
 def rope_tables(positions, d: int, theta: float, scaling=None):
     """RoPE cos/sin for positions [..., N]: [..., N, 1, d/2] each, to
     broadcast over heads.  Built once per call and shared by q, k and every
-    layer."""
-    if scaling is not None:
-        raise NotImplementedError(_NOT_YET.format("rope_scaling"))
-    freqs = theta ** (
-        -torch.arange(0, d, 2, dtype=torch.float32, device=positions.device) / d)
+    layer.  YaRN's attention factor rides both tables, as in HF (it scales
+    the scores by its square)."""
+    freqs = _scaled_rope_freqs(theta, d, scaling, positions.device)
     angles = positions[..., :, None].float() * freqs  # [..., N, d/2]
-    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    cos, sin = torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    if scaling is not None and scaling[0] == "yarn":
+        att = torch.tensor(scaling[5], dtype=torch.float32)
+        cos, sin = cos * att, sin * att
+    return cos, sin
+
+
+def model_rope_tables(positions, cfg: ModelConfig):
+    """:func:`rope_tables` of the model's RoPE (theta and scaling), or None
+    under ALiBi (no rotation; the bias rides in the kernels)."""
+    if cfg.position_encoding == "alibi":
+        return None
+    return rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
 
 
 def apply_rope(x, cos, sin):
@@ -194,6 +304,51 @@ def _cfg_slopes(cfg: ModelConfig):
     return None
 
 
+def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
+    """This layer's sliding window: ``cfg.window`` gated by
+    ``window_pattern`` ("even": Gemma-2's layers 0, 2, ... slide; "from:K":
+    Qwen2's max_window_layers, full attention below layer K); 0 = full
+    causal."""
+    if not cfg.window:
+        return 0
+    if cfg.window_pattern == "even" and layer_idx % 2 != 0:
+        return 0
+    if cfg.window_pattern.startswith("from:") and layer_idx < int(cfg.window_pattern[5:]):
+        return 0
+    return cfg.window
+
+
+def embed_tokens(model: "Transformer", tokens, cfg: ModelConfig):
+    """Token embeddings, times √d_model rounded to their dtype first (as
+    the JAX package rounds it) under ``cfg.embed_scale``."""
+    x = model.embed[tokens]
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+    return x
+
+
+def qkv(layer: "Block", h, cfg: ModelConfig):
+    """q [..., Hq, d], k and v [..., Hkv, d] of normed states h [..., dm],
+    with the layer's biases where it has them."""
+    lead = h.shape[:-1]
+    extras = layer.extras
+    q = _proj(h, layer.wq, layer.bq if "bq" in extras else None)
+    k = _proj(h, layer.wk, layer.bk if "bk" in extras else None)
+    v = _proj(h, layer.wv, layer.bv if "bv" in extras else None)
+    return (q.reshape(*lead, cfg.n_q_heads, cfg.head_dim),
+            k.reshape(*lead, cfg.n_kv_heads, cfg.head_dim),
+            v.reshape(*lead, cfg.n_kv_heads, cfg.head_dim))
+
+
+def attn_residual(layer: "Block", x, o, cfg: ModelConfig):
+    """x + o W_o, the output normed first where the layer has Gemma-2's
+    sandwich norm; o [..., Hq·d]."""
+    out = _proj(o, layer.wo)
+    if "post_attn_norm" in layer.extras:
+        out = rms_norm(out, layer.post_attn_norm, cfg.norm_eps)
+    return x + out
+
+
 def layer_seed(dropout_seed, layer: int) -> int:
     """Layer ``layer``'s dropout seed: base + layer·1299709 in int32
     wrap-around (the JAX package's forward_hidden)."""
@@ -206,16 +361,15 @@ def rope(x, positions, theta: float, scaling=None):
 
 
 def attention_block(layer: Block, x, rope_cs, cfg: ModelConfig,
-                    dropout_seed: Optional[int] = None):
+                    dropout_seed: Optional[int] = None, layer_idx: int = 0):
     """``rope_cs``: the (cos, sin) tables of the positions of x, or None
     under ALiBi (no rotation; the bias rides in the kernel).  With a
     ``dropout_seed`` (this layer's) and ``cfg.attn_dropout``, attention
-    probabilities are dropped."""
+    probabilities are dropped.  The layer's window is
+    ``layer_window(cfg, layer_idx)``."""
     b, n, _ = x.shape
     h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-    q = _proj(h, layer.wq).reshape(b, n, cfg.n_q_heads, cfg.head_dim)
-    k = _proj(h, layer.wk).reshape(b, n, cfg.n_kv_heads, cfg.head_dim)
-    v = _proj(h, layer.wv).reshape(b, n, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = qkv(layer, h, cfg)
     if rope_cs is not None:
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
@@ -226,30 +380,39 @@ def attention_block(layer: Block, x, rope_cs, cfg: ModelConfig,
         v.transpose(1, 2).contiguous(),
         causal=True,
         sm_scale=cfg.sm_scale,
+        window=layer_window(cfg, layer_idx),
+        logit_softcap=cfg.attn_softcap,
         alibi_slopes=_cfg_slopes(cfg),
         dropout_rate=rate,
         dropout_seed=dropout_seed if rate else None,
     )
     o = o.transpose(1, 2).reshape(b, n, cfg.n_q_heads * cfg.head_dim)
-    return x + _proj(o, layer.wo)
+    return attn_residual(layer, x, o, cfg)
 
 
 def mlp_block(layer: Block, x, eps: float = 1e-6, act: str = "silu"):
-    if act != "silu":
-        raise NotImplementedError(_NOT_YET.format(f"mlp_act={act!r}"))
+    """x + the gated MLP: SwiGLU, or GeGLU (tanh GELU) for ``"gelu_tanh"``,
+    the gate's activation in fp32; the output normed first where the layer
+    has Gemma-2's sandwich norm."""
     h = rms_norm(x, layer.mlp_norm, eps)
     gate = _proj(h, layer.w_gate)
     up = _proj(h, layer.w_up)
-    gated = torch.nn.functional.silu(gate.float()).to(x.dtype) * up
-    return x + _proj(gated, layer.w_down)
+    if act == "gelu_tanh":
+        g32 = torch.nn.functional.gelu(gate.float(), approximate="tanh")
+    else:
+        g32 = torch.nn.functional.silu(gate.float())
+    out = _proj(g32.to(x.dtype) * up, layer.w_down)
+    if "post_mlp_norm" in layer.extras:
+        out = rms_norm(out, layer.post_mlp_norm, eps)
+    return x + out
 
 
 # remat policies of the JAX package that pin named outputs
 _UNPORTED_REMAT = ("save_flash", "save_dots", "save_matmuls")
 
 
-def _block(layer: Block, x, rope_cs, cfg: ModelConfig, dropout_seed=None):
-    x = attention_block(layer, x, rope_cs, cfg, dropout_seed)
+def _block(layer: Block, x, rope_cs, cfg: ModelConfig, dropout_seed=None, layer_idx=0):
+    x = attention_block(layer, x, rope_cs, cfg, dropout_seed, layer_idx)
     return mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
 
 
@@ -268,10 +431,8 @@ def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
     b, n = tokens.shape
     if positions is None:
         positions = torch.arange(n, device=tokens.device).expand(b, n)
-    x = model.embed[tokens]
-    rope_cs = None
-    if _cfg_slopes(cfg) is None:
-        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    x = embed_tokens(model, tokens, cfg)
+    rope_cs = model_rope_tables(positions, cfg)
     dropping = dropout_seed is not None and bool(cfg.attn_dropout)
     n_ckpt = 0
     if cfg.remat and torch.is_grad_enabled():
@@ -279,16 +440,22 @@ def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
     for i, layer in enumerate(model.layers):
         seed = layer_seed(dropout_seed, i) if dropping else None
         if i < n_ckpt:
-            x = checkpoint(_block, layer, x, rope_cs, cfg, seed, use_reentrant=False)
+            x = checkpoint(_block, layer, x, rope_cs, cfg, seed, i, use_reentrant=False)
         else:
-            x = _block(layer, x, rope_cs, cfg, seed)
+            x = _block(layer, x, rope_cs, cfg, seed, i)
     return rms_norm(x, model.final_norm, cfg.norm_eps)
 
 
-def logits_from_hidden(x, model: Transformer):
+def softcapped(logits, cap: float):
+    """cap·tanh(logits / cap) (Gemma-2's final-logit softcap), or the
+    logits as they are for cap 0."""
+    return cap * torch.tanh(logits / cap) if cap else logits
+
+
+def logits_from_hidden(x, model: Transformer, softcap: float = 0.0):
     """Hidden states → fp32 logits: the unembedding in fp32, as the JAX
-    package's f32-accumulated dot returns them."""
-    return torch.matmul(x.float(), unembed_matrix(model).float().t())
+    package's f32-accumulated dot returns them, then the final softcap."""
+    return softcapped(torch.matmul(x.float(), unembed_matrix(model).float().t()), softcap)
 
 
 def forward(model: Transformer, tokens, cfg: ModelConfig, *, positions=None,
@@ -297,7 +464,7 @@ def forward(model: Transformer, tokens, cfg: ModelConfig, *, positions=None,
     forward, which the tests use as the greedy oracle."""
     return logits_from_hidden(
         forward_hidden(model, tokens, cfg, positions=positions,
-                       dropout_seed=dropout_seed), model)
+                       dropout_seed=dropout_seed), model, cfg.final_softcap)
 
 
 def unembed_matrix(model: Transformer):
@@ -306,38 +473,40 @@ def unembed_matrix(model: Transformer):
     return getattr(model, "unembed", model.embed)
 
 
-def chunked_cross_entropy(x, embed, targets, chunk: int):
+def chunked_cross_entropy(x, embed, targets, chunk: int, softcap: float = 0.0):
     """Mean next-token NLL of hidden states x [B, N, d] against ``targets``
     [B, N] without keeping the [B, N, vocab] fp32 logits: each chunk of
-    ``chunk`` positions computes its logits under ``torch.utils.checkpoint``,
-    so the backward recomputes them chunk by chunk.  N must divide by
-    ``chunk``."""
+    ``chunk`` positions computes its logits (final-softcapped with
+    ``softcap``) under ``torch.utils.checkpoint``, so the backward
+    recomputes them chunk by chunk.  N must divide by ``chunk``."""
     b, n, _ = x.shape
     if n % chunk:
         raise ValueError(f"seq len {n} not divisible by loss chunk {chunk}")
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, n, chunk):
         total = total + checkpoint(_chunk_nll, x[:, c0:c0 + chunk], embed,
-                                   targets[:, c0:c0 + chunk], use_reentrant=False)
+                                   targets[:, c0:c0 + chunk], softcap,
+                                   use_reentrant=False)
     return total / (b * n)
 
 
-def _chunk_nll(x_c, embed, t_c):
-    logits = torch.matmul(x_c.float(), embed.float().t())
+def _chunk_nll(x_c, embed, t_c, softcap=0.0):
+    logits = softcapped(torch.matmul(x_c.float(), embed.float().t()), softcap)
     return torch.nn.functional.cross_entropy(
         logits.flatten(0, 1), t_c.flatten(), reduction="sum")
 
 
 def loss_fn(model: Transformer, tokens, cfg: ModelConfig, *, dropout_seed=None):
     """Next-token cross entropy over tokens[:, :-1] → tokens[:, 1:]: the
-    mean NLL from fp32 logits.  ``tokens`` [B, N+1] integer ids on the
-    model's device; ``dropout_seed`` as in :func:`forward_hidden`."""
+    mean NLL from fp32 logits (final-softcapped).  ``tokens`` [B, N+1]
+    integer ids on the model's device; ``dropout_seed`` as in
+    :func:`forward_hidden`."""
     tokens = tokens.long()
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     if cfg.loss_chunk:
         x = forward_hidden(model, inputs, cfg, dropout_seed=dropout_seed)
         return chunked_cross_entropy(x, unembed_matrix(model), targets,
-                                     cfg.loss_chunk)
+                                     cfg.loss_chunk, cfg.final_softcap)
     logits = forward(model, inputs, cfg, dropout_seed=dropout_seed)
     return torch.nn.functional.cross_entropy(
         logits.flatten(0, 1), targets.flatten())

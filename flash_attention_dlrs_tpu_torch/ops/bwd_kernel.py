@@ -35,7 +35,7 @@ import torch
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
-    KERNEL_HEAD_DIMS,
+    D256_TODO,
     MOD_ARGS,
     ROUTE_CODES,
     _row_bias,
@@ -44,6 +44,10 @@ from .fwd_kernel import (
     dropout_rows,
     mod_args,
 )
+
+# The head dims the backward kernels are built for (256 is still to port:
+# ROADMAP.md, queue 2).
+BWD_HEAD_DIMS = (64, 128)
 
 PREPROCESS_KERNEL = CudaKernel(
     "attn_bwd.cu",
@@ -87,15 +91,22 @@ def bwd_route(dtype, head_dim: int, segments: bool = False) -> str:
     ========  ==========================================================
 
     Segment ids are a mode of both routes and change neither.  d must be
-    64 or 128 on every route; anything else raises."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attn_bwd kernels take head_dim in {KERNEL_HEAD_DIMS}, "
-                         f"got {head_dim}")
+    64 or 128 on every route (the backward at 256 is still to port);
+    anything else raises."""
+    _check_head_dim(head_dim)
     if dtype == torch.float32:
         return "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
     return "wgmma"
+
+
+def _check_head_dim(head_dim: int) -> None:
+    if head_dim == 256:
+        raise ValueError(D256_TODO.format("the attention backward"))
+    if head_dim not in BWD_HEAD_DIMS:
+        raise ValueError(f"attn_bwd kernels take head_dim in {BWD_HEAD_DIMS}, "
+                         f"got {head_dim}")
 
 
 def _check_cuda(q, k, v, o, lse, do) -> None:
@@ -111,9 +122,7 @@ def _check_cuda(q, k, v, o, lse, do) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {q.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(
-            f"attn_bwd kernels take head_dim in {KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+    _check_head_dim(q.shape[-1])
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:

@@ -22,6 +22,12 @@ are dequantized first.  ``alibi_slopes`` adds the true ALiBi bias
 −m_h·(q_pos − col) after the scales and the softcap, q_pos = length − 1 in
 decode and length − T + t for verify row t; the lse that decode returns
 keeps the JAX package's convention, shifted by +m_h·(length − 1).
+
+Pools may be wider than q's head_dim (``models/decoding.py`` allocates them
+at the kernels' width, :func:`.fwd_kernel.kernel_width`, as the JAX package
+pads them to 128 lanes): q is zero-padded to the pool's head dim on every
+device, ``sm_scale`` defaults to q's own head_dim**-0.5, and O is sliced
+back.  The kernels take pool head dims 64, 128 and 256 (256 without ALiBi).
 """
 
 from __future__ import annotations
@@ -33,7 +39,9 @@ import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
-from .fwd_kernel import DEFAULT_MASK_VALUE, KERNEL_HEAD_DIMS, _slopes_on
+from .fwd_kernel import (
+    DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, pad_head_dim, refuse_d256_modes,
+)
 from .quantization import (
     Int4QuantizedTensor,
     QuantizedTensor,
@@ -88,6 +96,9 @@ VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES,
 # Tokens of one stored-row tile of csrc/paged_decode.cu: the least a split
 # covers.
 SPLIT_MIN_TOKENS = 64
+# The pool head dims both paged kernels are built for (256 without ALiBi).
+PAGED_HEAD_DIMS = KERNEL_WIDTHS
+
 # Rows of one CTA of the verify kernel's wgmma route, and the most key
 # splits it takes (its combine kernel keeps two splits' weights a lane).
 VERIFY_ROW_TILE = 128
@@ -154,7 +165,8 @@ def combine_partials(o_parts, lse_parts):
     return o, lse
 
 
-def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int) -> str:
+def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
+                 alibi: bool = False) -> str:
     """The kernel route of a verify call, from its types alone:
 
     ========  ==========================================================
@@ -166,11 +178,12 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int) -> str:
     ========  ==========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
-    Both routes take every page size (int4: even) and d 64 or 128.  What no
-    route takes raises."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"paged verify kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+    Both routes take every page size (int4: even) and d 64, 128 or 256
+    (256 without ``alibi``).  What no route takes raises."""
+    if head_dim not in PAGED_HEAD_DIMS:
+        raise ValueError(f"paged verify kernel takes head_dim in {PAGED_HEAD_DIMS}, "
                          f"got {head_dim}")
+    refuse_d256_modes(head_dim, **{"ALiBi in the paged verify kernel": alibi})
     if pool_kind not in POOL_KINDS:
         raise ValueError(f"paged verify kernel takes pools of {list(POOL_KINDS)}, "
                          f"not {pool_kind}")
@@ -277,8 +290,8 @@ def _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
         raise ValueError(
             f"num_q_heads ({num_q_heads}) must divide by num_kv_heads "
             f"({num_kv_heads})")
-    if d_pool != head_dim:
-        raise ValueError(f"q head_dim {head_dim} != pool head_dim {d_pool}")
+    if head_dim > d_pool:
+        raise ValueError(f"q head_dim {head_dim} > pool head_dim {d_pool}")
     batch = q.shape[0]
     if lengths.shape != (batch,) or page_indices.ndim != 2 or (
             page_indices.shape[0] != batch):
@@ -306,9 +319,9 @@ def _check_cuda(q, pools, lengths, page_indices, head_dim, what):
         raise ValueError("lengths and page_indices must be int32")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{what} kernel takes fp32/bf16/fp16 q, not {q.dtype}")
-    if head_dim not in KERNEL_HEAD_DIMS:
+    if head_dim not in PAGED_HEAD_DIMS:
         raise ValueError(
-            f"{what} kernel takes head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+            f"{what} kernel takes head_dim in {PAGED_HEAD_DIMS}, got {head_dim}")
 
 
 def _scale_in(sm_scale: float, dtype) -> float:
@@ -361,18 +374,21 @@ def paged_decode_attention(
     raise."""
     del pages_per_block
     pools = _Pools(k_pages, v_pages)
-    batch, num_q_heads, head_dim = q.shape
-    _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
+    batch, num_q_heads, d_true = q.shape
+    _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
                 logit_softcap)
     slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
     if sm_scale is None:
-        sm_scale = float(head_dim) ** -0.5
+        sm_scale = float(d_true) ** -0.5
     if q.device.type == "cpu":
         o, lse = paged_decode_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
             logit_softcap=logit_softcap, return_lse=True, alibi_slopes=slopes)
         return (o, lse) if return_lse else o
+    head_dim = pools.k.shape[3]
+    q = pad_head_dim(q, head_dim)
     _check_cuda(q, pools, lengths, page_indices, head_dim, "paged decode")
+    refuse_d256_modes(head_dim, **{"ALiBi in the paged decode kernel": slopes is not None})
     o = torch.empty_like(q)
     lse = (torch.empty((batch, num_q_heads), dtype=torch.float32,
                        device=q.device) if return_lse else None)
@@ -396,6 +412,7 @@ def paged_decode_attention(
             ctypes.c_void_p(stream),
         )
         DECODE_SPLITS[splits] = DECODE_SPLITS.get(splits, 0) + 1
+    o = o[..., :d_true]
     if not return_lse:
         return o
     return o, publish_lse(lse, slopes, lengths, page_indices.shape[1] * pools.page_size)
@@ -428,18 +445,20 @@ def paged_verify_attention(
     rows) or raise.  ``alibi_slopes``: see the module docstring."""
     del pages_per_block
     pools = _Pools(k_pages, v_pages)
-    batch, num_q_heads, num_tokens, head_dim = q.shape
-    _check_call(q, pools, lengths, page_indices, num_q_heads, head_dim,
+    batch, num_q_heads, num_tokens, d_true = q.shape
+    _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
                 logit_softcap)
     slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
     if sm_scale is None:
-        sm_scale = float(head_dim) ** -0.5
+        sm_scale = float(d_true) ** -0.5
     if q.device.type == "cpu":
         return paged_verify_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
             logit_softcap=logit_softcap, alibi_slopes=slopes)
+    head_dim = pools.k.shape[3]
+    q = pad_head_dim(q, head_dim)
     _check_cuda(q, pools, lengths, page_indices, head_dim, "paged verify")
-    route = verify_route(q.dtype, pools.key, pools.page_size, head_dim)
+    route = verify_route(q.dtype, pools.key, pools.page_size, head_dim, slopes is not None)
     o = torch.empty_like(q)
     if batch and num_tokens:
         num_kv_heads, pages_per_seq = pools.k.shape[0], page_indices.shape[1]
@@ -466,7 +485,7 @@ def paged_verify_attention(
         )
         VERIFY_ROUTE_LAUNCHES[route] += 1
         VERIFY_SPLITS[splits] = VERIFY_SPLITS.get(splits, 0) + 1
-    return o
+    return o[..., :d_true]
 
 
 # ---------------------------------------------------------------------------
@@ -502,9 +521,11 @@ def _paged_plain(
     in [lo, hi) are seen, and O is the split's fp32 partial with lse −inf
     where the split sees nothing (:func:`_split_decode`)."""
     pools = _Pools(k_pages, v_pages)
-    b, hq, t, d = q.shape
+    b, hq, t, d_true = q.shape
     if sm_scale is None:
-        sm_scale = float(d) ** -0.5
+        sm_scale = float(d_true) ** -0.5
+    d = pools.k.shape[3]
+    q = pad_head_dim(q, d)  # pools wider than q (see the module docstring)
     hkv = pools.k.shape[0]
     g = hq // hkv
     idx = page_indices.long()
@@ -545,7 +566,7 @@ def _paged_plain(
         p = p * _dense(pools.v_sc, idx, False)[..., 0][:, :, None, :]
     acc = torch.matmul(p.to(q.dtype).float(), v.to(q.dtype).float())
     o = acc * torch.where(empty, 0.0, torch.full_like(l, 1.0) / l)
-    o = o.reshape(b, hkv, t, g, d).transpose(2, 3).reshape(b, hq, t, d)
+    o = o.reshape(b, hkv, t, g, d).transpose(2, 3).reshape(b, hq, t, d)[..., :d_true]
     if key_range is None:
         o = o.to(q.dtype)
     if not return_lse:
@@ -635,10 +656,11 @@ def _reference(q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
     pools = _Pools(k_pages, v_pages)
     if pools.quantized:
         k_pages, v_pages = k_pages.dequantize(), v_pages.dequantize()
-    batch, num_q_heads, head_dim = q.shape
-    num_kv_heads, _, page_size, d_pool = k_pages.shape
+    batch, num_q_heads, d_true = q.shape
+    num_kv_heads, _, page_size, head_dim = k_pages.shape
     if sm_scale is None:
-        sm_scale = float(head_dim) ** -0.5
+        sm_scale = float(d_true) ** -0.5
+    q = pad_head_dim(q, head_dim)  # pools wider than q (see the module docstring)
     idx = page_indices.long()
     max_len = idx.shape[1] * page_size
     k_dense = _dense(k_pages, idx, False).float()  # [B, Hkv, max_len, d]
@@ -666,7 +688,7 @@ def _reference(q, k_pages, v_pages, lengths, page_indices, *, sm_scale=None,
     o = torch.matmul(e, v_dense) / torch.where(empty, 1.0, l)
     lse = torch.where(empty, DEFAULT_MASK_VALUE if key_range is None else float("-inf"),
                       m + torch.log(l))
-    return o.reshape(batch, num_q_heads, head_dim), lse.reshape(batch, num_q_heads)
+    return o.reshape(batch, num_q_heads, head_dim)[..., :d_true], lse.reshape(batch, num_q_heads)
 
 
 def quantize_kv_pages(pages: torch.Tensor, dtype=torch.int8):

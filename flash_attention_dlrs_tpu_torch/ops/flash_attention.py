@@ -20,6 +20,13 @@ mask of :func:`..fwd_kernel.dropout_keep_mask`.  :class:`SegmentIds` packs
 sequences: a row sees only keys of its own id.  V may be fp8 (e4m3fn /
 e5m2) beside fp32/bf16/fp16 q and k, for the forward only: the backward
 through fp8 V raises ``NotImplementedError``, as in the JAX package.
+
+The kernels are built for head dims 64, 128 and 256; every entry point
+zero-pads q, k and v to the next of them (:func:`..fwd_kernel.kernel_width`,
+on every device, as the JAX package pads to 128 lanes), takes ``sm_scale``
+from the true head_dim and slices O (and dQ, dK, dV) back.  The padding is
+exact: zero columns add nothing to a score, and zero V columns are sliced
+off.  A head_dim above 256 raises.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from .bwd_kernel import attn_bwd
-from .fwd_kernel import FP8_DTYPES, attn_fwd, int32_seed
+from .fwd_kernel import FP8_DTYPES, attn_fwd, int32_seed, kernel_width, pad_head_dim
 
 _SUPPORTED_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 _FP8_BACKWARD = ("backward through fp8 V is not supported — use bf16 V for "
@@ -155,11 +162,17 @@ def _prepare(q, k, v, causal, sm_scale, segment_ids, window, logit_softcap,
     slopes = _normalize_alibi(alibi_slopes, q.shape[1], causal)
     rate, seed = _normalize_dropout(dropout_rate, dropout_seed)
     if sm_scale is None:
-        sm_scale = float(q.shape[-1]) ** -0.5
+        sm_scale = float(q.shape[-1]) ** -0.5  # the true head_dim, not the padded one
     return dict(causal=bool(causal), sm_scale=float(sm_scale),
                 window=_normalize_window(window, causal, k.shape[2]),
                 softcap=float(logit_softcap), alibi_slopes=slopes,
                 dropout_rate=rate, dropout_seed=seed, q_seg=q_seg, kv_seg=kv_seg)
+
+
+def _padded(*tensors):
+    """The tensors with their head dim zero-padded to the kernels' width."""
+    width = kernel_width(tensors[0].shape[-1])
+    return [pad_head_dim(t, width) for t in tensors]
 
 
 def flash_attention_forward(
@@ -190,7 +203,10 @@ def flash_attention_forward(
     on a CUDA device, the plain PyTorch version on the CPU."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                   logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
-    return attn_fwd(q, k, v, **kw)
+    d = q.shape[-1]
+    q, k, v = _padded(q, k, v)
+    o, lse = attn_fwd(q, k, v, **kw)
+    return o[..., :d], lse
 
 
 def flash_attention_backward(
@@ -235,10 +251,12 @@ def flash_attention_backward(
                          f"{tuple(q.shape[:3])}")
     if rederive_stats is None:
         rederive_stats = kw["alibi_slopes"] is not None
+    d = q.shape[-1]
+    q, k, v, o, do = _padded(q, k, v, o, do)
     if rederive_stats:
         lse = attn_fwd(q, k, v, **kw)[1]
-    return attn_bwd(q, k, v, o.contiguous(), lse.contiguous(), do.contiguous(),
-                    **kw)
+    grads = attn_bwd(q, k, v, o.contiguous(), lse.contiguous(), do.contiguous(), **kw)
+    return tuple(g[..., :d] for g in grads)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -286,4 +304,6 @@ def flash_attention(
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                   logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
     q_seg, kv_seg = kw.pop("q_seg"), kw.pop("kv_seg")
-    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, kw)
+    d = q.shape[-1]
+    q, k, v = _padded(q, k, v)  # the pad's backward slices the gradients
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, kw)[..., :d]

@@ -39,7 +39,26 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-KERNEL_HEAD_DIMS = (64, 128)
+# The head dims the kernels are built for; any other head_dim up to 256 is
+# zero-padded to the next of them (:func:`kernel_width`), as the JAX package
+# pads to 128 lanes.  The forward takes all three; at 256 only the modes
+# Gemma uses (no ALiBi, dropout, segment ids or fp8 V: :func:`refuse_d256_modes`).
+KERNEL_WIDTHS = (64, 128, 256)
+FWD_HEAD_DIMS = KERNEL_WIDTHS
+D256_TODO = ("{} at head_dim 256 is not ported yet (ROADMAP.md, queue 2 of the "
+             "PyTorch port)")
+
+
+def refuse_d256_modes(head_dim: int, **modes) -> None:
+    """Raise :data:`D256_TODO` at head_dim 256 for the first of ``modes``
+    (name: whether the call uses it) that is on: the one rule for what the
+    d256 kernels do not carry yet (forward: ALiBi, dropout, segment ids, fp8
+    V; paged: ALiBi)."""
+    if head_dim == 256:
+        for name, on in modes.items():
+            if on:
+                raise ValueError(D256_TODO.format(name))
+
 
 # V's kind code of the forward's C interface (csrc/common.cuh kVE4M3 /
 # kVE5M2; 0: V has q's dtype): fp8 V is dequantized to q's dtype as the
@@ -69,7 +88,32 @@ ROUTE_CODES = {"fp32": 0, "wgmma": 1}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 
 
-def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False) -> str:
+def kernel_width(head_dim: int) -> int:
+    """The kernel head dim that ``head_dim`` is zero-padded to: the least
+    of :data:`KERNEL_WIDTHS` that holds it.  Zero columns add nothing to a
+    score and zero V columns are sliced off, so the padding is exact.  A
+    head_dim above 256 raises."""
+    for width in KERNEL_WIDTHS:
+        if head_dim <= width:
+            return width
+    raise ValueError(f"head_dim {head_dim} is above {KERNEL_WIDTHS[-1]}, the widest "
+                     "kernel head dim")
+
+
+def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """``x`` with its last axis zero-padded to ``width`` (itself when it is
+    that wide already); fp8 tensors are padded as their bytes (zero bits
+    are 0.0)."""
+    pad = width - x.shape[-1]
+    if pad == 0:
+        return x
+    if x.dtype in V_KINDS:
+        return torch.nn.functional.pad(x.view(torch.uint8), (0, pad)).view(x.dtype)
+    return torch.nn.functional.pad(x, (0, pad))
+
+
+def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
+              alibi: bool = False, dropout: bool = False) -> str:
     """The kernel route of a forward call, from its types alone:
 
     ========  ==========================================================
@@ -80,11 +124,14 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False)
               or fp8
     ========  ==========================================================
 
-    Segment ids and fp8 V are modes of both routes and change neither.  d
-    must be 64 or 128 on every route; anything else raises."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attn_fwd kernel takes head_dim in {KERNEL_HEAD_DIMS}, "
+    Segment ids, fp8 V, ALiBi and dropout are modes of both routes and
+    change neither.  d must be 64, 128 or 256 on every route (256 without
+    those modes: :func:`refuse_d256_modes`); anything else raises."""
+    if head_dim not in FWD_HEAD_DIMS:
+        raise ValueError(f"attn_fwd kernel takes head_dim in {FWD_HEAD_DIMS}, "
                          f"got {head_dim}")
+    refuse_d256_modes(head_dim, **{"segment ids": segments, "fp8 V": fp8_v,
+                                   "ALiBi": alibi, "dropout": dropout})
     if dtype == torch.float32:
         return "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
@@ -195,7 +242,8 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     validated by the caller (ops/flash_attention.py).  CPU tensors take
     :func:`attn_fwd_plain`; CUDA tensors launch the kernel on the route of
     :func:`fwd_route` (with segments its ``attn_fwd_seg`` build), which
-    takes contiguous inputs with d in {64, 128}, or raise."""
+    takes contiguous inputs with d in {64, 128, 256} (256 without ALiBi,
+    dropout, segment ids or fp8 V), or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
@@ -215,7 +263,8 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     check_segments(q, k, q_seg, kv_seg)
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
-    route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS)
+    route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS,
+                      alibi_slopes is not None, bool(dropout_rate))
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0:

@@ -95,6 +95,43 @@ def _samples(params_list) -> bool:
     return any(p is not None and p.temperature > 0 for p in params_list)
 
 
+def _check_window(cfg: ModelConfig, page_size: int, pages_per_seq: int,
+                  prefill_chunk: int) -> None:
+    """A sliding-window model is served exactly when a sequence's whole
+    context fits its window (pages_per_seq·page_size ≤ window: the window
+    never clips).  Past it the JAX engine rolls a ring: its refusals are
+    kept here, with their classes and messages, and the ring itself is
+    still to port."""
+    window = int(cfg.window or 0)
+    if not window or pages_per_seq * page_size <= window:
+        return
+    if cfg.position_encoding == "alibi":
+        raise NotImplementedError(
+            "rolling sliding-window serving does not support ALiBi "
+            f"models — keep pages_per_seq*page_size <= {window}")
+    if cfg.window_pattern != "all":
+        raise NotImplementedError(
+            f"window_pattern={cfg.window_pattern!r} (Gemma-2 style) mixes "
+            "sliding and full layers; the shared-ring serving path "
+            "supports uniformly-sliding models — keep "
+            f"pages_per_seq*page_size <= {window} for exact "
+            "full-residency serving")
+    if window % page_size:
+        raise ValueError(
+            f"rolling sliding-window serving needs window "
+            f"({window}) divisible by page_size ({page_size})")
+    if prefill_chunk:
+        raise NotImplementedError(
+            "rolling sliding-window serving is incompatible with "
+            "chunked prefill / speculative verification (tokens "
+            "written in one multi-token step would overwrite slots "
+            "earlier tokens of the same step must still attend)")
+    raise NotImplementedError(
+        f"rolling sliding-window serving (pages_per_seq*page_size > window "
+        f"{window}) is not ported yet (ROADMAP.md, queue 1 item 3 of the "
+        "PyTorch port)")
+
+
 class DecodeEngine:
     def __init__(
         self,
@@ -134,6 +171,7 @@ class DecodeEngine:
         for name, used in unported.items():
             if used:
                 raise NotImplementedError(_NOT_YET.format(name))
+        _check_window(cfg, page_size, pages_per_seq, prefill_chunk)
         if kv_dtype == "int4" and not quantized_kv:
             raise ValueError("kv_dtype='int4' requires quantized_kv=True")
         if enable_prefix_cache and not prefill_chunk:

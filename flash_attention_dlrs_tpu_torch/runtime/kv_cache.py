@@ -18,6 +18,7 @@ import torch
 
 from .._cuda import resolve_device
 from ..models.decoding import KVPools, _write_tokens, write_prompt_kv
+from ..ops.fwd_kernel import kernel_width
 
 
 class PageAllocator:
@@ -150,8 +151,9 @@ class PageAllocator:
 @dataclasses.dataclass
 class PagedKVCache:
     """Device page pools + host page accounting for one attention layer.
-    Pools keep ``head_dim`` (the JAX package pads it to 128 lanes for the
-    TPU's page DMA); writes update them in place."""
+    Pools are allocated at the kernels' head dim (``kernel_width(head_dim)``:
+    64, 128 or 256, as the JAX package pads to 128 lanes); ``head_dim`` is
+    the model's.  Writes update them in place, zero-padded."""
 
     k_pages: torch.Tensor  # [Hkv, num_pages, page_size, d] (payload dtype)
     v_pages: torch.Tensor
@@ -176,7 +178,7 @@ class PagedKVCache:
         device="cuda",
     ) -> "PagedKVCache":
         device = resolve_device(device)
-        shape = (num_kv_heads, num_pages, page_size, head_dim)
+        shape = (num_kv_heads, num_pages, page_size, kernel_width(head_dim))
         sshape = (num_kv_heads, num_pages, page_size, 1)
 
         def scales():

@@ -126,8 +126,15 @@ def test_shape_errors():
     with pytest.raises(ValueError, match="divide"):
         tdec.paged_decode_attention(q, kp, vp, lens, tbl)
     q, kp, vp, lens, tbl = _torch(*_inputs(3, 2, 4, 2, 16, 2, [3, 4]))
+    # q narrower than the pools is zero-padded to them (the pools' head dim
+    # is the kernels'): the same O as a zero-padded q of the true scale
+    got = tdec.paged_decode_attention(q[..., :64], kp, vp, lens, tbl)
+    want = tdec.paged_decode_attention(
+        torch.nn.functional.pad(q[..., :64], (0, q.shape[-1] - 64)), kp, vp, lens, tbl,
+        sm_scale=64 ** -0.5)
+    assert torch.equal(got, want[..., :64])
     with pytest.raises(ValueError, match="head_dim"):
-        tdec.paged_decode_attention(q[..., :64], kp, vp, lens, tbl)
+        tdec.paged_decode_attention(torch.cat([q, q], -1), kp, vp, lens, tbl)
     with pytest.raises(ValueError):
         tdec.paged_decode_attention(q, kp, vp[:, :, :8], lens, tbl)
 

@@ -55,8 +55,23 @@ def test_route_table(dtype, segments, fp8_v, d):
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float32, 256),
                                      (torch.float64, 64), (torch.int8, 128)])
 def test_route_refuses_what_no_kernel_takes(dtype, d):
+    """Head dim 256 is a kernel width now (Gemma): what no kernel takes
+    there is segment ids (and fp8 V, ALiBi, dropout: still to port)."""
+    kw = dict(segments=True) if d == 256 else {}
     with pytest.raises(ValueError):
-        tfwd.fwd_route(dtype, d)
+        tfwd.fwd_route(dtype, d, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_route_table_d256(dtype):
+    """d 256 without segment ids, fp8 V, ALiBi or dropout takes its dtype's
+    route; d 512 and the 256 modes that are still to port raise."""
+    assert tfwd.fwd_route(dtype, 256) == ("fp32" if dtype == torch.float32 else "wgmma")
+    for kw in (dict(segments=True), dict(fp8_v=True), dict(alibi=True), dict(dropout=True)):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            tfwd.fwd_route(dtype, 256, **kw)
+    with pytest.raises(ValueError):
+        tfwd.fwd_route(dtype, 512)
 
 
 def test_cpu_calls_count_no_route():

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it imports neither JAX nor the JAX package,
-its default-device entry points need a card, and ``chip_smoke.py`` refuses
-to report without one."""
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
+nor ``transformers`` (the card has none: the HF import reads configs by
+attribute), its default-device entry points need a card, and
+``chip_smoke.py`` refuses to report without one."""
 
 import ast
 import os
@@ -42,6 +43,23 @@ def test_no_jax_import_in_source(path):
         assert root not in ("jax", "jaxlib", "flash_attention_dlrs_tpu"), (path, name)
 
 
+@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+def test_no_transformers_import_in_source(path):
+    for name in _imported_names(path):
+        assert name.split(".")[0] != "transformers", (path, name)
+
+
+def test_importing_the_whole_port_loads_no_transformers():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "assert 'transformers' not in sys.modules\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_importing_the_whole_port_loads_no_jax():
     code = (
         "import importlib, sys\n"
@@ -64,8 +82,8 @@ def _no_card():
 def test_default_device_entry_points_need_a_card():
     _no_card()
     from flash_attention_dlrs_tpu_torch.models import (
-        ModelConfig, Transformer, fit, init_kv_pools, init_params_numpy,
-        make_train_state, params_from_jax,
+        ModelConfig, Transformer, fit, import_hf_gemma, import_hf_llama, import_hf_phi3,
+        init_kv_pools, init_params_numpy, make_train_state, params_from_jax,
     )
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
     from flash_attention_dlrs_tpu_torch.runtime.sampling import batch_params
@@ -86,6 +104,9 @@ def test_default_device_entry_points_need_a_card():
         lambda: make_train_state(alibi_dropout),
         lambda: fit(cfg, iter(()), steps=1),
         lambda: fit(alibi_dropout, iter(()), steps=1),
+        lambda: import_hf_llama({}, cfg=cfg),
+        lambda: import_hf_gemma({}, cfg=cfg),
+        lambda: import_hf_phi3({}, cfg=cfg),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -154,6 +175,22 @@ def test_exports_match_the_jax_package():
     assert ops.SegmentIds is tp.SegmentIds
     assert tp.nn.dot_product_attention.__module__ == "flash_attention_dlrs_tpu_torch.nn"
     assert tp.SegmentIds._fields == ("q", "kv")
+
+
+def test_model_exports_match_the_jax_package():
+    """models/ exports what the JAX package's models/__init__.py exports from
+    convert and transformer (its init_params draws JAX keys: the port's
+    seeded counterpart is init_params_numpy)."""
+    from flash_attention_dlrs_tpu import models as jmodels
+    from flash_attention_dlrs_tpu.models import convert as jconvert
+    from flash_attention_dlrs_tpu.models import transformer as jtransformer
+    from flash_attention_dlrs_tpu_torch import models as tmodels
+
+    wanted = [n for n in jmodels.__all__ if n != "init_params"
+              and getattr(jmodels, n).__module__ in (jconvert.__name__, jtransformer.__name__)]
+    assert len(wanted) == 10
+    for name in wanted + ["load_trained", "init_params_numpy"]:
+        assert name in tmodels.__all__ and hasattr(tmodels, name), name
 
 
 def test_resolve_device_takes_the_cpu_only_when_asked():

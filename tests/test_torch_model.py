@@ -71,9 +71,18 @@ def test_params_from_jax_bf16_is_bit_exact():
 
 
 def test_params_from_jax_rejects_unported_keys_and_shapes(tree):
-    bad = dict(tree, layers=[dict(tree["layers"][0], bq=np.zeros(128))] * 2)
-    with pytest.raises(NotImplementedError, match="bq"):
+    """QKV biases are ported: a ``bq`` of the config's width is carried.
+    What raises is their misuse (a bias of another width, a key no model
+    has) and a weight of the wrong shape."""
+    biased = dict(tree, layers=[dict(tree["layers"][0], bq=np.ones(128, np.float32))] * 2)
+    assert torch.equal(params_from_jax(biased, TCFG, device="cpu").layers[1].bq,
+                       torch.ones(128))
+    bad = dict(tree, layers=[dict(tree["layers"][0], bq=np.zeros(100))] * 2)
+    with pytest.raises(ValueError, match="bq"):
         params_from_jax(bad, TCFG, device="cpu")
+    with pytest.raises(ValueError, match="bz"):
+        params_from_jax(dict(tree, layers=[dict(tree["layers"][0], bz=np.zeros(8))] * 2),
+                        TCFG, device="cpu")
     with pytest.raises(ValueError, match="shape"):
         params_from_jax(tree, dataclasses.replace(TCFG, d_ff=128), device="cpu")
 
@@ -171,11 +180,14 @@ def test_write_prompt_kv_all_fills_the_pages(model):
                                     dtype=torch.float32, device="cpu")
     pages = torch.tensor([4, 1, 3])
     tdecoding.write_prompt_kv_all(pools, kvs, pages, 16)
+    d = TCFG.head_dim  # the pools are zero-padded to the kernels' width, 64
+    assert pools.k[0].shape[-1] == 64
     for li, (k, v) in enumerate(kvs):
         got = pools.k[li][:, pages].reshape(TCFG.n_kv_heads, 48, -1)
-        assert torch.equal(got[:, :40], k[0, :, :40])
+        assert torch.equal(got[:, :40, :d], k[0, :, :40])
         assert torch.equal(pools.v[li][:, pages].reshape(
-            TCFG.n_kv_heads, 48, -1)[:, :40], v[0, :, :40])
+            TCFG.n_kv_heads, 48, -1)[:, :40, :d], v[0, :, :40])
+        assert (got[..., d:] == 0).all()
     assert (pools.k[0][:, [0, 2, 5]] == 0).all()
 
 
@@ -190,14 +202,20 @@ def test_write_prompt_kv_all_fills_the_pages(model):
     ("final_softcap", 30.0),
 ])
 def test_model_config_refuses_unported_variants(field, value):
-    """Variants not ported yet raise when the config is built.  ALiBi and
-    attention dropout are ported; what raises is their misuse, as in the
-    JAX package: an ALiBi model behind a rolling ring (a sliding window or
-    a streaming window, neither ported), and a dropout model's train step
-    called without its seed."""
+    """Every variant is ported: each config builds.  What raises is the
+    misuse the JAX package refuses too: an ALiBi model behind a rolling
+    ring (a sliding window or a streaming window, neither ported), a
+    dropout model's train step called without its seed, a RoPE scaling of
+    an unknown kind, an even-pattern window the context outgrows, an
+    unknown MLP activation, a Gemma state dict without its cfg, a negative
+    attention softcap, and a softcapped chunked loss whose chunk does not
+    divide the sequence."""
+    TConfig.tiny(**{field: value})
     if field == "position_encoding":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TConfig.tiny(position_encoding=value, window=64)
+        cfg = TConfig.tiny(position_encoding=value, window=64, dtype=torch.float32)
+        model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ALiBi"):
+            TEngine(model, cfg, page_size=16, pages_per_seq=8, device="cpu")
         cfg = TConfig.tiny(position_encoding=value, dtype=torch.float32)
         model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -207,9 +225,62 @@ def test_model_config_refuses_unported_variants(field, value):
         model, state, opt = make_train_state(cfg, device="cpu")
         with pytest.raises(ValueError, match="dropout_seed"):
             make_train_step(cfg, opt)(model, state, torch.zeros((1, 9), dtype=torch.long))
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TConfig.tiny(**{field: value})
+    elif field == "rope_scaling":
+        from flash_attention_dlrs_tpu.models.transformer import rope as jrope
+        from flash_attention_dlrs_tpu_torch.models.transformer import rope as trope
+
+        x, pos = np.zeros((1, 4, 2, 32), np.float32), np.arange(4)[None]
+        with pytest.raises(ValueError, match="rope_scaling kind"):
+            jrope(jnp.asarray(x), jnp.asarray(pos), 1e4, ("ntk", 2.0))
+        with pytest.raises(ValueError, match="rope_scaling kind"):
+            trope(torch.from_numpy(x), torch.from_numpy(pos), 1e4, ("ntk", 2.0))
+    elif field == "window":
+        from flash_attention_dlrs_tpu.runtime.engine import DecodeEngine as JEngine
+
+        cfg = TConfig.tiny(window=value, window_pattern="even", dtype=torch.float32)
+        model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
+        jcfg = JConfig.tiny(window=value, window_pattern="even", dtype=jnp.float32)
+        for make in (lambda: TEngine(model, cfg, page_size=16, pages_per_seq=8,
+                                     device="cpu"),
+                     lambda: JEngine(init_params(jax.random.PRNGKey(0), jcfg), jcfg,
+                                     page_size=16, pages_per_seq=8)):
+            with pytest.raises(NotImplementedError, match="window_pattern"):
+                make()
+        TEngine(model, cfg, page_size=16, pages_per_seq=4, device="cpu")  # within it
+    elif field == "mlp_act":
+        with pytest.raises(ValueError, match="mlp_act"):
+            TConfig.tiny(mlp_act="gelu")
+    elif field == "embed_scale":
+        from flash_attention_dlrs_tpu.models import import_hf_gemma as jimport
+        from flash_attention_dlrs_tpu_torch.models import import_hf_gemma as timport
+
+        state = {"model.embed_tokens.weight": np.zeros((4, 2), np.float32)}
+        with pytest.raises(ValueError, match="cfg is required"):
+            jimport(state)
+        with pytest.raises(ValueError, match="cfg is required"):
+            timport(state, device="cpu")
+    elif field == "attn_softcap":
+        from flash_attention_dlrs_tpu.ops import flash_attention as jflash
+        from flash_attention_dlrs_tpu_torch.ops import flash_attention as tflash
+
+        x = np.zeros((1, 1, 8, 64), np.float32)
+        with pytest.raises(ValueError, match="logit_softcap"):
+            jflash(*(jnp.asarray(x),) * 3, causal=True, logit_softcap=-value)
+        with pytest.raises(ValueError, match="logit_softcap"):
+            tflash(*(torch.from_numpy(x),) * 3, causal=True, logit_softcap=-value)
+    else:  # final_softcap
+        from flash_attention_dlrs_tpu.models.transformer import (
+            chunked_cross_entropy as jchunked)
+        from flash_attention_dlrs_tpu_torch.models.transformer import (
+            chunked_cross_entropy as tchunked)
+
+        x, emb, t = np.zeros((1, 6, 8), np.float32), np.zeros((5, 8), np.float32), np.zeros(
+            (1, 6), np.int32)
+        with pytest.raises(ValueError, match="divisible"):
+            jchunked(jnp.asarray(x), jnp.asarray(emb), jnp.asarray(t), 4, value)
+        with pytest.raises(ValueError, match="divisible"):
+            tchunked(torch.from_numpy(x), torch.from_numpy(emb), torch.from_numpy(t).long(),
+                     4, value)
 
 
 def test_quantized_pools_are_not_ported_yet():

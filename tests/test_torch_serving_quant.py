@@ -274,7 +274,9 @@ def test_int4_chunk_longer_than_half_a_page_keeps_every_nibble(model, jparams):
     # the JAX write of the same chunk into the same bytes drops nibbles
     jpool = jnp.asarray(tdecoding.write_prompt_kv(
         fresh(), 0, (k[:, :t0], v[:, :t0]), pages, ps).k[0].numpy())
-    kq, _ = jdecoding._quantize_rows_int4(jnp.asarray(k[:, t0:].numpy()))
+    width = jpool.shape[-1]  # the pools' head dim: both packages zero-pad to it
+    kq, _ = jdecoding._quantize_rows_int4(jnp.asarray(
+        torch.nn.functional.pad(k[:, t0:], (0, width - d)).numpy()))
     jpool = jdecoding._int4_insert(jpool, jnp.asarray((pos // ps)[0].numpy()),
                                    jnp.asarray((pos % ps)[0].numpy()), kq)
     assert not np.array_equal(np.asarray(jpool), whole.k[0].numpy())
@@ -295,11 +297,13 @@ def test_int4_verify_step_with_a_long_chunk_against_the_oracle(model, jparams,
     pools = _prompt_pools("torch", "int4", model, jparams, prompt, page_size=ps)
     got, pools = step(model, pools, *targs)
 
-    def oracle(q, k_pages, v_pages, lengths, tbl, *, sm_scale, alibi_slopes):
+    def oracle(q, k_pages, v_pages, lengths, tbl, *, sm_scale, alibi_slopes,
+               logit_softcap):
         t = q.shape[2]
         return torch.stack([tdec.paged_reference_attention(
             q[:, :, i], k_pages, v_pages, lengths - (t - 1 - i), tbl,
-            sm_scale=sm_scale, alibi_slopes=alibi_slopes) for i in range(t)], dim=2)
+            sm_scale=sm_scale, alibi_slopes=alibi_slopes, logit_softcap=logit_softcap)
+            for i in range(t)], dim=2)
 
     monkeypatch.setattr(tdecoding, "paged_verify_attention", oracle)
     pools2 = _prompt_pools("torch", "int4", model, jparams, prompt, page_size=ps)

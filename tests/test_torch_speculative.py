@@ -353,7 +353,7 @@ def test_write_prompt_kv_batch_matches_jax(kv):
         tpools, [(torch.from_numpy(k), torch.from_numpy(v)) for k, v in kvs],
         torch.from_numpy(pages_b), ps)
     live = [p for row, n in zip(pages_b, lens) for p in row[:-(-n // ps)]]
-    d = TCFG.head_dim
+    d = tpools.k[0].shape[-1]  # the kernels' width; both packages zero-pad to it
     for li in range(TCFG.n_layers):
         for t_pool, j_pool in zip(tpools.layer(li), _jax_layer(jpools, li)):
             if not quantized:
