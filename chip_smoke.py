@@ -4,9 +4,10 @@
 Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers,
 spills and serialization warnings of the wgmma instances of the forward and
 of the backward sweeps, and the registers, shared memory, spills and
-warnings of every paged instance), and beside them two broken copies of the
-dK/dV sweep and two of the paged kernels (a decode merge that drops the
-last key split, a verify that leaves a horizon-crossing tile unmasked);
+warnings of every paged instance), and beside them three broken copies of
+the dK/dV sweep (one at head dim 256) and two of the paged kernels (a
+decode merge that drops the last key split, a verify that leaves a
+horizon-crossing tile unmasked);
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
 route of the forward, of the backward sweeps and of verify: wgmma, fp32,
 and the paged kernels at their key-split and tile edges) against its plain
@@ -63,6 +64,21 @@ Then drives every path of the port:
   the same in weight-only int8 and Phi-3-mini-4k (head_dim 96, a 2047
   window) at their published widths and 4 layers, through their importers,
   eager and graphed with equal tokens, and 2-layer fp32 copies;
+- Gemma-2-2B trained (train_gemma2): the published config at full width
+  and depth from random HF-named weights through import_hf_gemma, B2 x
+  N8192 (its window bites), block remat, AdamW: ms/step, tokens/s, MFU,
+  peak, exact launches of the head-dim-256 kernels (csrc/attn_bwd_d256.cu),
+  the LM head in fp32 against half-precision operands, a windowed and a
+  global layer's attention against the plain versions, a 2-layer fp32 copy;
+  then the same weights under remat_policy="save_flash" and with the
+  blockwise-int8 AdamW;
+- the remat policies (remat): block, save_flash, save_dots and
+  save_matmuls on the training-bench model (ms/step, peak, launches) and
+  their 2-layer fp32 copies, bitwise equal;
+- the bf16 projections' reduction (bf16_reduction): torch.matmul with
+  PyTorch's reduced-precision bf16 reduction allowed and not, at the
+  training-bench and Gemma-2-2B projection shapes, against fp32
+  accumulation;
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -123,6 +139,8 @@ QUANT_KINDS = ("int8", "int4", "e4m3", "e5m2")
 # stored bytes per K or V element, and per-token scale bytes (K and V)
 KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
 BWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd.cu"
+# the sweeps' head-dim-256 instances (csrc/attn_bwd_sm90.cuh, attn_bwd.cuh)
+BWD_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_d256.cu"
 # the sweeps' bf16 / fp16 kernel bodies (built into attn_bwd.cu, attn_bwd_seg.cu)
 BWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_sm90.cuh"
 BWD_REPLACES = {
@@ -297,6 +315,11 @@ def wgmma_instances(log, entry=WGMMA_ENTRY, flags=WGMMA_FLAGS, marker="attn_fwd_
 # set of text edits (source built, file edited, [(old, new)]): bwd_check
 # must fail on each (phase mutants).
 BWD_SM90 = "attn_bwd_sm90.cuh"
+# the dK/dV step's stage released to the producer as soon as its score
+# products are read, before the element loop and the update products
+STAGE_RELEASED_AFTER_SCORES = (
+    "      if constexpr (decltype(with_ds)::value) fence_regs(dp);\n",
+    "      if constexpr (decltype(with_ds)::value) fence_regs(dp);\n      release(empty(st));\n")
 BWD_MUTANTS = {
     # the causal diagonal's and the window's tiles run the unmasked loop
     "dkv_diagonal_tile_unmasked": ("attn_bwd.cu", BWD_SM90, [(
@@ -305,12 +328,16 @@ BWD_MUTANTS = {
     # the Q / dO stage (and its lse, D rows) released to the producer as soon
     # as the score products are done, before dK's product has read Q
     "dkv_stage_released_before_dk": ("attn_bwd.cu", BWD_SM90, [
-        ("        fence_regs(dp);\n        if (softcap > 0.f) {\n"
-         "          if (masked) grads(m0, st, slope, stream, yes, yes);",
-         "        fence_regs(dp);\n        release(empty(st));\n        if (softcap > 0.f) {\n"
-         "          if (masked) grads(m0, st, slope, stream, yes, yes);"),
-        ("      }\n      release(empty(st));  // dK's product has read Q, dV's dO",
-         "      } else {\n        release(empty(st));\n      }"),
+        STAGE_RELEASED_AFTER_SCORES,
+        ("        }\n        release(empty(st));  // dK's product has read Q, dV's dO",
+         "        } else {\n          release(empty(st));\n        }"),
+    ]),
+    # d 256: each pass's stage released as soon as its score products are
+    # done, before the pass's update product (dV from dO, dK from Q) reads it
+    "d256_dkv_stage_released_before_update": ("attn_bwd_d256.cu", BWD_SM90, [
+        STAGE_RELEASED_AFTER_SCORES,
+        ("          }\n          release(empty(st));  // this pass's product has read its stage",
+         "          } else {\n            release(empty(st));\n          }"),
     ]),
 }
 
@@ -490,11 +517,12 @@ def phase_build(mutants=False):
         # 2 dtypes x 2 head dims x 2^4 modes, and 2 dtypes at d 256 (no mode)
         fwd_warnings = _check_instances(rec, built, ("attn_fwd.cu", "attn_fwd_seg.cu"), WGMMA_ENTRY,
                          WGMMA_FLAGS, "attn_fwd_wgmma_kernel", 66, "wgmma")
-    if "attn_bwd.cu" in built and "attn_bwd_seg.cu" in built:
-        # 2 sweeps x 2 dtypes x 2 head dims x 2^3 modes
-        bwd_warnings = _check_instances(rec, built, ("attn_bwd.cu", "attn_bwd_seg.cu"),
-                                        BWD_WGMMA_ENTRY, BWD_WGMMA_FLAGS,
-                                        "_wgmma_kernel", 64, "bwd_wgmma")
+    bwd_sources = ("attn_bwd.cu", "attn_bwd_seg.cu", "attn_bwd_d256.cu")
+    if all(src in built for src in bwd_sources):
+        # 2 sweeps x 2 dtypes x 2 head dims x 2^3 modes, and 2 sweeps x 2
+        # dtypes at d 256 (no mode)
+        bwd_warnings = _check_instances(rec, built, bwd_sources, BWD_WGMMA_ENTRY,
+                                        BWD_WGMMA_FLAGS, "_wgmma_kernel", 68, "bwd_wgmma")
     paged = {}
     for src in ("paged_decode.cu", "paged_verify.cu"):
         if src in built:
@@ -924,6 +952,32 @@ BWD_CASES = [
      _BOTH),
     ("wg_seg_n257_bf16", BF16, 2, 4, 2, 257, 257, 128, True, 0, 0.0, None,
      dict(seg="packed")),
+    # head dim 256 (Gemma's heads, 8 q / 4 kv; csrc/attn_bwd_d256.cu): none,
+    # softcap 50 and window 4096 at Gemma-2-2B's training length (the window
+    # bites at 8192), causal and not, Nq < Nkv, ragged tails at the 32-row
+    # steps' edges, an explicit sm_scale, in bf16, fp16 and fp32
+    ("d256_bf16_N2048", BF16, 1, 8, 4, 2048, 2048, 256, True, 0, 0.0, None, {}),
+    ("d256_bf16_softcap50_N2048", BF16, 1, 8, 4, 2048, 2048, 256, True, 0, 50.0, None, {}),
+    ("d256_bf16_window4096_softcap50_N8192", BF16, 1, 8, 4, 8192, 8192, 256, True, 4096,
+     50.0, None, {}),
+    ("d256_fp16_window4096_N8192", F16, 1, 8, 4, 8192, 8192, 256, True, 4096, 0.0, None,
+     {}),
+    ("d256_fp16_noncausal_tail_300_1000", F16, 1, 8, 4, 300, 1000, 256, False, 0, 0.0, None,
+     {}),
+    ("d256_bf16_noncausal_softcap_n97", BF16, 2, 8, 4, 97, 97, 256, False, 0, 50.0, None, {}),
+    ("d256_fp16_cross_129_385_softcap", F16, 2, 8, 4, 129, 385, 256, True, 0, 50.0, None, {}),
+    ("d256_bf16_cross_31_300", BF16, 1, 8, 4, 31, 300, 256, True, 0, 0.0, None, {}),
+    ("d256_bf16_empty_rows_300_200", BF16, 1, 8, 4, 300, 200, 256, True, 0, 0.0, None, {}),
+    ("d256_bf16_window33_n161", BF16, 1, 8, 4, 161, 161, 256, True, 33, 0.0, None, {}),
+    ("d256_fp16_window100_softcap_n300_scale", F16, 1, 8, 4, 300, 300, 256, True, 100,
+     50.0, 0.05, {}),
+    ("d256_bf16_n32", BF16, 1, 8, 4, 32, 32, 256, True, 0, 0.0, None, {}),
+    ("d256_fp16_n65_scale", F16, 1, 8, 4, 65, 65, 256, True, 0, 0.0, 0.1, {}),
+    ("d256_fp32_causal_softcap", F32, 1, 8, 4, 256, 256, 256, True, 0, 50.0, None, {}),
+    ("d256_fp32_window_softcap_cross", F32, 1, 8, 4, 200, 500, 256, True, 100, 50.0, None,
+     {}),
+    ("d256_fp32_noncausal_tail_scale", F32, 2, 8, 4, 130, 161, 256, False, 0, 0.0, 0.05, {}),
+    ("d256_fp32_window_n8192", F32, 1, 8, 4, 8192, 8192, 256, True, 4096, 0.0, None, {}),
 ]
 
 
@@ -996,32 +1050,39 @@ def phase_bwd(dev):
     return results
 
 
-# The bwd_check cases each mutant runs: the training shape (many q steps a
-# CTA, so the producer refills stages the consumers still read), the tile
-# edges, a window, ALiBi + dropout.
+# The bwd_check cases each mutant runs (those of its head dims): the
+# training shapes (many q steps a CTA, so the producer refills stages the
+# consumers still read), the tile edges, a window, ALiBi + dropout.
 MUTANT_CASES = ("train_B2_H32_N2048", "alibi_dropout_train_B2_H32_N2048",
                 "wg_n129_bf16", "wg_n257_bf16_d64", "wg_cross_129_385_fp16",
-                "wg_window128_softcap_n300_bf16")
+                "wg_window128_softcap_n300_bf16", "d256_bf16_N2048",
+                "d256_fp16_cross_129_385_softcap", "d256_bf16_window33_n161")
+# The dK/dV build a mutant of each source replaces (ops/bwd_kernel.py
+# attribute, C entry).
+MUTANT_TARGETS = {"attn_bwd.cu": ("DKV_KERNEL", "attn_bwd_dkv"),
+                  "attn_bwd_d256.cu": ("DKV_D256_KERNEL", "attn_bwd_dkv_d256")}
 
 
 def phase_mutants(dev, builds):
     """Each broken copy of BWD_MUTANTS (built by :func:`start_mutant_builds`)
-    in place of the dK/dV sweep without segment ids, on MUTANT_CASES: every
-    mutant must fail at least one case."""
+    in place of the dK/dV build of its source (MUTANT_TARGETS), on the
+    MUTANT_CASES of that build's head dims: every mutant must fail at least
+    one case."""
     import torch
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
 
-    cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES]
     checks, out = {}, {}
-    real = bk.DKV_KERNEL
     wait = wait_mutant_builds(builds)
-    for name, (_, lib, _) in builds.items():
+    for name, (_, lib, source) in builds.items():
+        attr, symbol = MUTANT_TARGETS[source]
+        d256 = source == "attn_bwd_d256.cu"
+        cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES and (c[7] == 256) == d256]
         gen = torch.Generator(device=dev).manual_seed(4)
         failed = []
+        real = getattr(bk, attr)
         try:
-            bk.DKV_KERNEL = _cuda.CudaKernel("attn_bwd.cu", "attn_bwd_dkv", bk._DKV_ARGS,
-                                             library=lib)
+            setattr(bk, attr, _cuda.CudaKernel(source, symbol, bk._DKV_ARGS, library=lib))
             for case in cases:
                 rec, ok = bwd_case(dev, gen, case)
                 if not ok:
@@ -1030,7 +1091,7 @@ def phase_mutants(dev, builds):
                     k: rec[k] for k in ("rel_err_dq", "rel_err_dk", "rel_err_dv",
                                         "bitwise_repeatable", "ok")}
         finally:
-            bk.DKV_KERNEL = real
+            setattr(bk, attr, real)
         checks[f"{name}_fails_bwd_check"] = bool(failed)
         emit({"phase": "mutants", "mutant": name, "edits": BWD_MUTANTS[name][2],
               "failed_cases": failed, "cases": out[name]})
@@ -1596,13 +1657,14 @@ def phase_serve(dev):
     return rec, model, cfg
 
 
-def profile_window(fn, steps):
+def profile_window(fn, steps, retry=True):
     """Run ``fn`` ``steps`` times in one torch.profiler window synchronized
     at both edges.  Returns the wall ms per step, the device's busy ms per
     step (the union of its operations' intervals: operations that overlap
     count once), its operation count per step, and the device ms per step
-    of every kernel name, largest first; raises if the profiler saw no
-    device time or more than the wall."""
+    of every kernel name, largest first.  A window whose trace came back
+    without device time is taken once more (as in :func:`device_ms`); raises
+    if the second saw none either, or more than the wall."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1614,6 +1676,8 @@ def profile_window(fn, steps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3 / steps
+    if retry and not any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        return profile_window(fn, steps, retry=False)
     by_name, spans = {}, []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -2835,6 +2899,34 @@ def eager_then_graphed(engine, cfg, prompts, new_tokens):
     return summary, checks, eager, graph
 
 
+def lm_head_ab_decode(model, cfg, dev, prompts, x):
+    """The LM head in fp32 (:func:`lm_head_fp32`) against half-precision
+    operands in turns fp32, bf16, bf16, fp32: each turn a fresh 4-slot bf16
+    engine serving ``prompts`` as graphed bursts (its step graphs captured
+    with that head), its ms per step, and the head's device ms on the
+    hidden states ``x``."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import transformer
+
+    out = {"fp32": [], "bf16": []}
+    for head in ("fp32", "bf16", "bf16", "fp32"):
+        undo = lm_head_as(lm_head_fp32) if head == "fp32" else (lambda: None)
+        try:
+            engine = serve_engine(model, cfg, dev)
+            engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
+            engine.generate([[1] * 128], max_new_tokens=BURST + 1, burst=BURST)  # capture
+            run = graphed_run(engine, prompts, BURST)
+            _, busy, _, _ = profile_window(
+                lambda: transformer.logits_from_hidden(x, model, cfg.final_softcap), 8)
+        finally:
+            undo()
+        out[head].append({"graph_decode_ms_per_step": run["decode_ms_per_step"],
+                          "lm_head_device_ms": busy})
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_serve_gemma2(dev):
     """Gemma-2-2B at full width and depth (GEMMA2_2B: 26 layers, head_dim
     256, softcaps 50 / 30, a 4096 window on even layers) from a random
@@ -2887,6 +2979,7 @@ def phase_serve_gemma2(dev):
         lambda: transformer.logits_from_hidden(x, model, cfg.final_softcap), 8)
     del engine
     torch.cuda.empty_cache()
+    lm_ab = lm_head_ab_decode(model, cfg, dev, prompts, x)
 
     # int8 KV at 8 slots x 16 new tokens
     engine = serve_engine(model, cfg, dev, slots=8, kv="int8")
@@ -3006,6 +3099,7 @@ def phase_serve_gemma2(dev):
                     "device_ms": lm_busy, "wall_ms": lm_wall, "ops": lm_ops,
                     "kernels": top_kernels(lm_kernels),
                     "share_of_step_device_ms": lm_busy / step_busy},
+        "lm_head_fp32_vs_bf16_operands": lm_ab,
         "int8_8_slots": {"launches": int8["launches"], "steps": int8["steps"],
                          "decode_ms_per_step_median": float(np.median(int8["decode_ms"])),
                          "wall_s": int8["wall"], "last_step_layers": int8_layers},
@@ -3130,7 +3224,7 @@ FP32_LOSS_RTOL = 1e-5
 # first group whose marker a name contains takes it.
 TRAIN_PROFILE_GROUPS = (
     ("attention kernels (csrc/attn_*.cu)", ("attn_",)),
-    ("fp32 GEMMs (the LM head in true fp32)", ("f32f32", "sgemm")),
+    ("fp32 GEMMs (the LM head's gradients in true fp32)", ("f32f32", "sgemm")),
     ("other GEMMs (bf16 projections, cuBLAS)", ("nvjet", "gemm")),
     ("AdamW (multi-tensor kernels)", ("multi_tensor",)),
 )
@@ -3166,13 +3260,15 @@ def _kernels():
             "attn_bwd_dq": bwd_kernel.DQ_KERNEL}
 
 
-def check_train_attention(model, opt_state, step, tokens, seed):
+def check_train_attention(model, opt_state, step, tokens, seed, pick=None):
     """One more train step (dropout seed ``seed``) with every layer's
     attention backward inputs recorded; then, on that step's own
     q/k/v/O/lse/dO and the same ALiBi and dropout arguments, each layer's
     forward kernel output (O, lse) against the plain forward at the
     fwd_check tolerances, and its backward kernels against the plain
-    backward at the bwd_check tolerances."""
+    backward at the bwd_check tolerances.  With ``pick`` (the kernels'
+    keyword arguments -> a key, or None) only the first layer of each key
+    is kept and checked."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd, attn_bwd_plain
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
@@ -3181,8 +3277,13 @@ def check_train_attention(model, opt_state, step, tokens, seed):
     recorded = []
     kernel_bwd = fa_ops.attn_bwd
 
+    keys = set()
+
     def recording(q, k, v, o, lse, do, **kw):
-        recorded.append((q, k, v, o, lse, do, kw))
+        key = None if pick is None else pick(kw)
+        if pick is None or (key is not None and key not in keys):
+            keys.add(key)
+            recorded.append((q, k, v, o, lse, do, kw))
         return kernel_bwd(q, k, v, o, lse, do, **kw)
 
     try:
@@ -3234,9 +3335,10 @@ def _grad_gaps(grads, ref, ids):
     }
 
 
-def check_train_fp32(tokens, dev, seed=None, **variant):
-    """The training model (with the config fields ``variant``) in fp32 at 2
-    layers: loss and gradients of one step (dropout seed ``seed``, the same
+def check_train_fp32(tokens, dev, seed=None, build=None, batch=None, **variant):
+    """The training model (with the config fields ``variant``; or the
+    (model, cfg) that ``build()`` makes) in fp32 at 2 layers: loss and
+    gradients of one step on ``batch`` rows (dropout seed ``seed``, the same
     masks on both sides) through the kernels and through the plain versions.  A third run
     takes the plain path with the plain backward's q-row chunks cut to a
     quarter, which only reorders the fp32 sums of dK and dV: its gap to the
@@ -3250,10 +3352,13 @@ def check_train_fp32(tokens, dev, seed=None, **variant):
     from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd_plain
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
 
-    cfg = ModelConfig(**{**TRAIN_CFG, "n_layers": TRAIN_FP32_LAYERS, **variant},
-                      dtype=torch.float32)
-    model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
-    toks = tokens[:TRAIN_FP32_BATCH]
+    if build is None:
+        cfg = ModelConfig(**{**TRAIN_CFG, "n_layers": TRAIN_FP32_LAYERS, **variant},
+                          dtype=torch.float32)
+        model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+    else:
+        model, cfg = build()
+    toks = tokens[:batch or TRAIN_FP32_BATCH]
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
@@ -3281,7 +3386,7 @@ def check_train_fp32(tokens, dev, seed=None, **variant):
     del model, grads_k, grads_p, grads_r
     torch.cuda.empty_cache()
     return {
-        "fp32_layers": TRAIN_FP32_LAYERS, "fp32_batch": TRAIN_FP32_BATCH,
+        "fp32_layers": cfg.n_layers, "fp32_batch": toks.shape[0],
         "fp32_loss_kernel": loss_k, "fp32_loss_plain": loss_p,
         "fp32_worst_grad": worst, "fp32_worst_grad_diff_over_std": ratios[worst],
         "fp32_kernel_vs_plain": {"per_leaf": ratios, **gaps},
@@ -3290,6 +3395,22 @@ def check_train_fp32(tokens, dev, seed=None, **variant):
                and ratios[worst] <= FP32_GRAD_LIMIT
                and all(np.isfinite(list(ratios.values())))),
     }
+
+
+def profiled_train_step(run):
+    """One train step (``run``) in a profiler window: wall and device-busy
+    ms, the idle share, the device operations and the device ms by kind
+    (TRAIN_PROFILE_GROUPS) and of the top kernels."""
+    wall, busy, ops, by_name = profile_window(run, 1)
+    by_group = {label: 0.0 for label, _ in TRAIN_PROFILE_GROUPS}
+    by_group["everything else"] = 0.0
+    for kname, ms in by_name.items():
+        label = next((label for label, marks in TRAIN_PROFILE_GROUPS
+                      if any(m in kname for m in marks)), "everything else")
+        by_group[label] += ms
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / wall,
+            "device_ops": ops, "device_ms_by_kind": by_group,
+            "top_device_ms": top_kernels(by_name, 8)}
 
 
 def phase_train(dev, name="train", **variant):
@@ -3340,18 +3461,8 @@ def phase_train(dev, name="train", **variant):
 
     profiled = {}
     if not variant:
-        prof_wall, prof_busy, prof_ops, prof_by_name = profile_window(
-            lambda: losses.append(float(step(model, opt_state, tokens, len(losses)))), 1)
-        by_group = {label: 0.0 for label, _ in TRAIN_PROFILE_GROUPS}
-        by_group["everything else"] = 0.0
-        for kname, ms in prof_by_name.items():
-            label = next((label for label, marks in TRAIN_PROFILE_GROUPS
-                          if any(m in kname for m in marks)), "everything else")
-            by_group[label] += ms
-        profiled = {"profiled_step": {
-            "wall_ms": prof_wall, "device_busy_ms": prof_busy,
-            "device_idle_share": 1.0 - prof_busy / prof_wall, "device_ops": prof_ops,
-            "device_ms_by_kind": by_group, "top_device_ms": top_kernels(prof_by_name, 8)}}
+        profiled = {"profiled_step": profiled_train_step(
+            lambda: losses.append(float(step(model, opt_state, tokens, len(losses)))))}
 
     loss, layers_checked, attn_err, attn_ok = check_train_attention(
         model, opt_state, step, tokens, len(losses))
@@ -3399,6 +3510,420 @@ def phase_train(dev, name="train", **variant):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"{name} checks failed: {failed}")
+    return rec
+
+
+# Gemma-2-2B trained at its published width and depth (train_gemma2):
+# google/gemma-2-2b's config (GEMMA2_2B), random HF-named bf16 weights from
+# seed 0 through import_hf_gemma, block remat, B2 x N8192 (its
+# max_position_embeddings, twice the 4096 window, so the even layers' window
+# bites in the backward; 16,384 tokens a step, as the training bench's 8 x
+# 2048), the cross entropy in chunks of GEMMA_LOSS_CHUNK positions.
+GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_LOSS_CHUNK = 2, 8192, 1024
+# the save_flash run's warm and timed steps; the adamw8bit run takes the
+# AdamW run's (its losses are printed beside AdamW's)
+GEMMA_SAVE_FLASH_WARM, GEMMA_SAVE_FLASH_TIMED = 1, 3
+# steps per turn of the LM-head comparison (fp32, bf16, bf16, fp32)
+LM_HEAD_AB_STEPS = 2
+
+
+def gemma_train_model(dev, dtype, n_layers, **overrides):
+    """(model, cfg): Gemma-2-2B at ``n_layers`` layers in ``dtype`` from a
+    random HF-named state dict (seed 0: every call makes the same weights)
+    through import_hf_gemma, with the training overrides (loss chunk) and
+    ``overrides``."""
+    import torch
+
+    state = hf_state(GEMMA2_2B, "gemma2", dev, 0, n_layers, dtype)
+    model, cfg = import_model(GEMMA2_2B, "gemma2", state, dev, dtype, n_layers=n_layers,
+                              loss_chunk=GEMMA_LOSS_CHUNK, **overrides)
+    del state
+    torch.cuda.empty_cache()
+    return model, cfg
+
+
+def _d256_kernels():
+    """The kernels of a training step at head dim 256."""
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+
+    return {"attn_fwd": FWD_KERNEL,
+            "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
+            "attn_bwd_dkv": bwd_kernel.DKV_D256_KERNEL,
+            "attn_bwd_dq": bwd_kernel.DQ_D256_KERNEL,
+            "attn_bwd_dkv[d64/128]": bwd_kernel.DKV_KERNEL,
+            "attn_bwd_dq[d64/128]": bwd_kernel.DQ_KERNEL}
+
+
+def windowed_calls():
+    """Wraps ops/flash_attention.py's attn_fwd and attn_bwd to count their
+    calls with and without a window; returns (counts, undo)."""
+    fa_ops = _attention_ops()
+    real = fa_ops.attn_fwd, fa_ops.attn_bwd
+    counts = {"attn_fwd_window": 0, "attn_fwd_global": 0,
+              "attn_bwd_window": 0, "attn_bwd_global": 0}
+
+    def counting(name, fn):
+        def call(*args, **kw):
+            counts[f"{name}_{'window' if kw.get('window') else 'global'}"] += 1
+            return fn(*args, **kw)
+        return call
+
+    fa_ops.attn_fwd, fa_ops.attn_bwd = counting("attn_fwd", real[0]), counting("attn_bwd", real[1])
+
+    def undo():
+        fa_ops.attn_fwd, fa_ops.attn_bwd = real
+    return counts, undo
+
+
+def lm_head_fp32(x, embed):
+    """The LM head as the port computed it before it took half-precision
+    operands on the card: both operands upcast, one fp32 GEMM."""
+    return x.float() @ embed.float().t()
+
+
+def lm_head_as(fn):
+    """Puts ``fn`` in place of models/transformer.py lm_logits (every LM
+    head of the port calls it); returns the undo."""
+    from flash_attention_dlrs_tpu_torch.models import transformer
+
+    real = transformer.lm_logits
+    transformer.lm_logits = fn
+
+    def undo():
+        transformer.lm_logits = real
+    return undo
+
+
+def timed_steps(step, model, opt_state, tokens, n):
+    """``n`` train steps synchronized at both edges: (losses, ms per step)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = [step(model, opt_state, tokens) for _ in range(n)]
+    torch.cuda.synchronize()
+    return [float(x) for x in losses], (time.perf_counter() - t) * 1e3 / n
+
+
+def optimizer_update_ms(optimizer, model, opt_state, reps=3):
+    """CUDA-event ms of one optimizer update on the gradients in place."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    optimizer.update(model, opt_state)  # warm
+    start.record()
+    for _ in range(reps):
+        optimizer.update(model, opt_state)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def gemma_train_run(dev, tokens, warm, timed, optimizer_name="adamw", **overrides):
+    """One training run of Gemma-2-2B (:func:`gemma_train_model`, config
+    ``overrides``) with ``optimizer_name`` (AdamW lr 3e-4, wd 0.01, or the
+    blockwise-int8 AdamW): ``warm`` steps, then ``timed`` ones with every
+    launch count set to 0 just before and read just after.  Returns the
+    record and (model, cfg, optimizer, opt_state, step) to go on with."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import AdamW, make_train_step
+    from flash_attention_dlrs_tpu_torch.models.optim import AdamW8bit, moment_bytes
+
+    t0 = time.perf_counter()
+    model, cfg = gemma_train_model(dev, torch.bfloat16, GEMMA2_2B["num_hidden_layers"],
+                                   **overrides)
+    optimizer = (AdamW8bit if optimizer_name == "adamw8bit" else AdamW)(
+        3e-4, weight_decay=0.01)
+    opt_state = optimizer.init(model)
+    step = make_train_step(cfg, optimizer)
+    setup_s = time.perf_counter() - t0
+    losses = [float(step(model, opt_state, tokens)) for _ in range(warm)]
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _d256_kernels()
+    for kern in kernels.values():
+        kern.launches = 0
+    fwd_routes(zero=True)
+    bwd_routes(zero=True)
+    split, undo = windowed_calls()
+    try:
+        timed_losses, ms = timed_steps(step, model, opt_state, tokens, timed)
+    finally:
+        undo()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    rec = {
+        "optimizer": optimizer_name, "remat_policy": cfg.remat_policy,
+        "setup_s": setup_s, "losses": losses + timed_losses, "timed_steps": timed,
+        "ms_per_step": ms, "tokens_per_s": GEMMA_TRAIN_BATCH * GEMMA_TRAIN_SEQ / (ms / 1e3),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": launches, "launches_by_window": dict(split),
+        "fwd_routes": fwd_routes(), "bwd_routes": bwd_routes(),
+        "moment_bytes": dict(zip(("adamw_bf16", "adamw8bit"), moment_bytes(model))),
+    }
+    return rec, (model, cfg, optimizer, opt_state, step)
+
+
+def phase_train_gemma2(dev):
+    """Gemma-2-2B trained at full width and depth (26 layers, head dim 256,
+    softcaps 50 / 30, the 4096 window on even layers; B2 x N8192, block
+    remat, AdamW): 2 warm and 4 timed steps with exact launch counts per
+    kernel and route (the head-dim-256 backward sweeps on the wgmma route);
+    ms/step, tokens/s, MFU, peak; the optimizer update's time; one profiled
+    step's device time by kind; the LM head
+    in fp32 against half-precision operands (turns of LM_HEAD_AB_STEPS
+    steps: fp32, bf16, bf16, fp32); one step whose attention is held
+    against the plain versions on one windowed and one global layer; a
+    2-layer fp32 copy (the fp32 d256 route) against the plain path.  Then
+    the same weights under remat_policy="save_flash" (the attention
+    forward launched once a layer and step) and with the blockwise-int8
+    AdamW (its moment bytes; its first loss equal to AdamW's, the rest
+    finite beside AdamW's)."""
+    import torch
+
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, GEMMA2_2B["vocab_size"], (GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ + 1))).to(dev)
+    n_layers = GEMMA2_2B["num_hidden_layers"]
+    warm, timed = TRAIN_WARM_STEPS, TRAIN_TIMED_STEPS
+    block, (model, cfg, optimizer, opt_state, step) = gemma_train_run(dev, tokens, warm, timed)
+    n_params = sum(p.numel() for p in model.parameters())
+    block["optimizer_update_ms"] = optimizer_update_ms(optimizer, model, opt_state)
+    block["profiled_step"] = profiled_train_step(lambda: step(model, opt_state, tokens))
+    lm_ab = {"fp32": [], "bf16": []}
+    for head in ("fp32", "bf16", "bf16", "fp32"):
+        undo = lm_head_as(lm_head_fp32) if head == "fp32" else (lambda: None)
+        try:
+            lm_ab[head].append(timed_steps(step, model, opt_state, tokens, LM_HEAD_AB_STEPS)[1])
+        finally:
+            undo()
+    _, layers_checked, attn_err, attn_ok = check_train_attention(
+        model, opt_state, step, tokens, None,
+        pick=lambda kw: "window" if kw["window"] else "global")
+    del model, opt_state, optimizer, step
+    torch.cuda.empty_cache()
+    fp32 = check_train_fp32(tokens, dev, batch=1,
+                            build=lambda: gemma_train_model(dev, torch.float32, 2))
+
+    flash, rest = gemma_train_run(dev, tokens, GEMMA_SAVE_FLASH_WARM, GEMMA_SAVE_FLASH_TIMED,
+                                  remat_policy="save_flash")
+    del rest
+    torch.cuda.empty_cache()
+    adam8, (model8, _, optimizer8, opt_state8, _) = gemma_train_run(
+        dev, tokens, warm, timed, optimizer_name="adamw8bit")
+    adam8["optimizer_update_ms"] = optimizer_update_ms(optimizer8, model8, opt_state8)
+    del model8, optimizer8, opt_state8
+    torch.cuda.empty_cache()
+
+    fpt = model_flops_per_token(cfg, GEMMA_TRAIN_SEQ)
+    tokens_per_s = block["tokens_per_s"]
+
+    def exact(run, fwd_per_layer):
+        per = run["timed_steps"] * n_layers
+        want = {"attn_fwd": fwd_per_layer * per, "attn_bwd_preprocess": per,
+                "attn_bwd_dkv": per, "attn_bwd_dq": per,
+                "attn_bwd_dkv[d64/128]": 0, "attn_bwd_dq[d64/128]": 0}
+        half = n_layers // 2 * run["timed_steps"]  # even layers slide
+        return (run["launches"] == want
+                and all_on(run["fwd_routes"], "wgmma", want["attn_fwd"])
+                and all(all_on(run["bwd_routes"][s], "wgmma", per) for s in run["bwd_routes"])
+                and run["launches_by_window"] == {
+                    "attn_fwd_window": fwd_per_layer * half,
+                    "attn_fwd_global": fwd_per_layer * half,
+                    "attn_bwd_window": half, "attn_bwd_global": half})
+
+    losses = block["losses"]
+    checks = {
+        "config_is_gemma2": (cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.window,
+                             cfg.window_pattern, cfg.attn_softcap, cfg.final_softcap)
+        == (26, 2304, 256, 4096, "even", 50.0, 30.0),
+        "loss_finite": all(np.isfinite(losses)),
+        "loss_falls": losses[-1] < losses[0],
+        "launches_exact_per_step_all_wgmma": exact(block, 2),
+        "attention_windowed_and_global_layer_fwd_and_bwd_kernel_vs_plain":
+            layers_checked == 2 and attn_ok,
+        "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
+        "save_flash_fwd_launched_once_per_layer_and_step": exact(flash, 1),
+        "save_flash_loss_finite": all(np.isfinite(flash["losses"])),
+        "adamw8bit_first_loss_equals_adamw":
+            abs(adam8["losses"][0] - losses[0]) <= 1e-5 * abs(losses[0]),
+        "adamw8bit_losses_finite": all(np.isfinite(adam8["losses"])),
+        "adamw8bit_launches_exact": exact(adam8, 2),
+        "adamw8bit_moments_bytes": adam8["moment_bytes"]["adamw8bit"]
+        < 0.52 * adam8["moment_bytes"]["adamw_bf16"],
+    }
+    rec = {
+        "phase": "train_gemma2", "card": card_line(), "config": GEMMA2_2B,
+        "config_source": "google/gemma-2-2b config.json", "dtype": "bfloat16",
+        "params": n_params, "batch": GEMMA_TRAIN_BATCH, "seq": GEMMA_TRAIN_SEQ,
+        "loss_chunk": GEMMA_LOSS_CHUNK, "remat_policy": "block",
+        "optimizer": "AdamW (optax.adamw semantics) lr 3e-4, wd 0.01",
+        **{k: v for k, v in block.items() if k not in ("optimizer", "remat_policy")},
+        "model_flops_per_token": fpt, "mfu": tokens_per_s * fpt / PEAK_BF16_FLOPS,
+        "mfu_formula": ("tokens/s x model_flops_per_token (3 x forward matmul flops: "
+                        "projections, causal attention, LM head; scripts/bench_train.py:"
+                        "26-36; its convention counts the windowed layers as fully causal) "
+                        "/ 989e12"),
+        "lm_head_ab_ms_per_step": lm_ab,
+        "attention_layers_checked": layers_checked,
+        **{f"attention_{k}": v for k, v in attn_err.items()}, **fp32,
+        "save_flash": flash, "adamw8bit": adam8,
+        "losses_adamw_vs_adamw8bit": list(zip(losses, adam8["losses"])),
+        "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_gemma2 checks failed: {failed}")
+    return rec
+
+
+# The remat policies (remat): the training-bench model (TRAIN_CFG, the shape
+# the JAX package's comments size the policies for, transformer.py:387-400)
+# under each, from the same weights; steps per policy.
+REMAT_POLICIES = ("block", "save_flash", "save_dots", "save_matmuls")
+REMAT_WARM, REMAT_TIMED = 1, 3
+
+
+def phase_remat(dev):
+    """Each remat policy on the training-bench model at full width and
+    depth (B8 x 2048, bf16, AdamW), from the same weights: ms/step, peak and
+    launches (the attention forward twice a layer and step under block
+    remat, once under the others); then the 2-layer fp32 copy's loss and
+    gradients under the four, which must be bitwise equal (the kernels are
+    deterministic and the policies only choose what is kept)."""
+    import dataclasses
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        AdamW, ModelConfig, init_params_numpy, loss_fn, make_train_step, params_from_jax,
+    )
+    from flash_attention_dlrs_tpu_torch.models.transformer import REMAT_SAVED
+
+    cfg0 = ModelConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True)
+    model = params_from_jax(init_params_numpy(cfg0, seed=0), cfg0, device=dev)
+    initial = {n: t.clone() for n, t in model.state_dict().items()}
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg0.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
+    kernels = _kernels()
+    runs, checks = {}, {}
+    for policy in REMAT_POLICIES:
+        cfg = dataclasses.replace(cfg0, remat_policy=policy)
+        model.load_state_dict(initial)
+        optimizer = AdamW(3e-4, weight_decay=0.01)
+        opt_state = optimizer.init(model)
+        step = make_train_step(cfg, optimizer)
+        losses = [float(step(model, opt_state, tokens)) for _ in range(REMAT_WARM)]
+        torch.cuda.reset_peak_memory_stats()
+        for kern in kernels.values():
+            kern.launches = 0
+        timed, ms = timed_steps(step, model, opt_state, tokens, REMAT_TIMED)
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        runs[policy] = {"ms_per_step": ms,
+                        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": launches, "losses": losses + timed}
+        per = cfg.n_layers * REMAT_TIMED
+        checks[f"{policy}_launches_exact"] = launches == {
+            "attn_fwd": (2 if policy == "block" else 1) * per, "attn_bwd_preprocess": per,
+            "attn_bwd_dkv": per, "attn_bwd_dq": per}
+        del optimizer, opt_state, step
+        torch.cuda.empty_cache()
+    del model, initial
+    torch.cuda.empty_cache()
+
+    cfg32 = ModelConfig(**{**TRAIN_CFG, "n_layers": TRAIN_FP32_LAYERS}, dtype=torch.float32)
+    model32 = params_from_jax(init_params_numpy(cfg32, seed=0), cfg32, device=dev)
+    toks = tokens[:TRAIN_FP32_BATCH]
+    fp32 = {}
+    for policy in REMAT_POLICIES:
+        model32.zero_grad(set_to_none=True)
+        loss = loss_fn(model32, toks, dataclasses.replace(cfg32, remat_policy=policy))
+        loss.backward()
+        fp32[policy] = (loss.detach(), {n: p.grad.clone() for n, p in model32.named_parameters()})
+    ref_loss, ref_grads = fp32["block"]
+    bitwise = {policy: bool(torch.equal(loss, ref_loss)) and all(
+        torch.equal(g, ref_grads[n]) for n, g in grads.items())
+        for policy, (loss, grads) in fp32.items()}
+    checks.update({f"fp32_2layer_{p}_bitwise_equal_block": ok for p, ok in bitwise.items()})
+    del model32, fp32, ref_grads
+    torch.cuda.empty_cache()
+    rec = {"phase": "remat", "card": card_line(), "config": TRAIN_CFG, "dtype": "bfloat16",
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "timed_steps": REMAT_TIMED,
+           "saved": {p: list(REMAT_SAVED.get(p, ())) for p in REMAT_POLICIES},
+           "runs": runs, "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"remat checks failed: {failed}")
+    return rec
+
+
+# The bf16 projections' reduction (bf16_reduction): PyTorch lets cuBLAS
+# reduce bf16 products in reduced precision unless
+# torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction is off;
+# the JAX package accumulates in fp32 and rounds once.  The projections of
+# the training-bench model and of Gemma-2-2B at their training tokens
+# (M = 16,384): (name, K, N).
+BF16_REDUCTION_SHAPES = {
+    "bench_train": (16384, (("wq", 4096, 4096), ("wk", 4096, 1024), ("w_gate", 4096, 11008),
+                            ("w_down", 11008, 4096))),
+    "gemma2_2b": (16384, (("wq", 2304, 2048), ("wk", 2304, 1024), ("wo", 2048, 2304),
+                          ("w_gate", 2304, 9216), ("w_down", 9216, 2304))),
+}
+
+
+def bf16_gap(got, ref, bound):
+    """How far a bf16 product ``got`` lies from the fp32-accumulated one
+    ``ref`` (fp32): the elements more than one bf16 unit (at |ref|) plus
+    ``bound`` (the two fp32 accumulations' own rounding, K 2^-23 |A||B|) off,
+    and the largest gap over that allowance."""
+    import torch
+
+    # one bf16 unit at |ref|: 2^(exponent - 8), at least the least normal one
+    unit = torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs().clamp_min(2.0 ** -126))[1] - 8)
+    err = (got.float() - ref).abs()
+    return int((err > unit + bound).sum()), float((err / (unit + bound)).max())
+
+
+def phase_bf16_reduction(dev):
+    """Each projection's forward product X W and its two gradient products
+    dY Wᵀ and Xᵀ dY (K up to 16,384 tokens) in bf16 through torch.matmul with
+    the reduced-precision reduction allowed (PyTorch's default) and not:
+    the elements where the two differ, and each against the same product
+    accumulated in fp32 (operands upcast, TF32 off; :func:`bf16_gap`)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    out = {}
+    try:
+        for model, (m, shapes) in BF16_REDUCTION_SHAPES.items():
+            for name, k, n in shapes:
+                x = _rand(gen, (m, k), torch.bfloat16, dev)
+                w = (_rand(gen, (k, n), torch.bfloat16, dev).float() * k ** -0.5).bfloat16()
+                dy = _rand(gen, (m, n), torch.bfloat16, dev)
+                for prod, (a, b) in (("forward", (x, w)), ("grad_x", (dy, w.t())),
+                                     ("grad_w", (x.t(), dy))):
+                    ref = a.float() @ b.float()
+                    bound = a.shape[1] * 2.0 ** -23 * (a.float().abs() @ b.float().abs())
+                    got, rec = {}, {}
+                    for allowed in (True, False):
+                        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = allowed
+                        got[allowed] = a @ b
+                        n_off, worst = bf16_gap(got[allowed], ref, bound)
+                        rec["allowed" if allowed else "off"] = {
+                            "elements_off": n_off, "max_gap_over_allowance": worst}
+                    rec["elements_allowed_vs_off"] = int((got[True] != got[False]).sum())
+                    out[f"{model}_{name}_{prod}"] = rec
+                    del ref, bound, got
+                del x, w, dy
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    torch.cuda.empty_cache()
+    rec = {"phase": "bf16_reduction", "card": card_line(), "flag_default": flag,
+           "products": out,
+           "elements_off_allowed": sum(r["allowed"]["elements_off"] for r in out.values()),
+           "elements_off_off": sum(r["off"]["elements_off"] for r in out.values()),
+           "elements_allowed_vs_off": sum(r["elements_allowed_vs_off"] for r in out.values())}
+    emit(rec)
     return rec
 
 
@@ -3719,16 +4244,19 @@ def visible_pairs(q_ids, kv_ids, causal):
     return total
 
 
-def bwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None):
+def bwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, segments=None):
     """Operations and bytes each backward kernel needs, and the whole
     backward ("attn_bwd"), each input read once and each output written
     once.  With p visible (q, key) pairs: the dK/dV sweep computes S, dP,
     dV and dK (8·p·d flops per head), the dQ sweep S, dP and dQ (6·p·d);
     the backward as a whole needs the five products of the minimal
     backward, 2.5 x the forward's 4·p·d.  ``pairs`` (one head, the whole
-    batch) counts p when the data decide it (segment ids, whose int32 reads
-    then count in each sweep)."""
-    seg_bytes = 0 if pairs is None else 4 * b * (nq + nkv)
+    batch) counts p when the data or a window decide it; with ``segments``
+    (default: whenever ``pairs`` is given) the int32 ids' reads count in
+    each sweep."""
+    if segments is None:
+        segments = pairs is not None
+    seg_bytes = 0 if pairs is None or not segments else 4 * b * (nq + nkv)
     if pairs is None:
         pairs = b * (nq * nkv / 2 if causal and nq == nkv else nq * nkv)
     q_bytes = itemsize * b * hq * nq * d  # one of q, O, dO, dQ
@@ -3756,30 +4284,39 @@ def block_causal_mask(ids):
     return ((ids[:, :, None] == ids[:, None, :]) & tril)[:, None]
 
 
-def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None):
+def window_pairs(n: int, window: int) -> int:
+    """Visible (q row, key) pairs of one causal head of length n whose
+    rows see at most ``window`` keys."""
+    return sum(min(i + 1, window) for i in range(n))
+
+
+def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0.0):
     """The three backward kernels one by one and together at one causal
     bf16 shape (with the ALiBi and dropout arguments of :func:`mods`
-    ``mod``, and the [B, N] segment ids ``seg`` (numpy) when given), each
-    with its bound (with segments, of the layout's visible pairs), its plain
-    version's time and its error against the plain version on the same
-    inputs; SDPA's backward (torch.autograd.grad through
-    scaled_dot_product_attention, graph kept; with segments on the
-    block-diagonal causal boolean mask) as the library time of the whole
-    backward, torch.linalg.vecdot on the fp32 casts of O and dO as that of
-    the preprocess.  Dropout has no library time: SDPA's dropout draws other
-    bits."""
+    ``mod``, the [B, N] segment ids ``seg`` (numpy), a ``window`` and a
+    ``softcap`` when given), each with its bound (with segments or a window,
+    of the visible pairs), its plain version's time and its error against
+    the plain version on the same inputs; SDPA's backward
+    (torch.autograd.grad through scaled_dot_product_attention, graph kept;
+    with segments on the block-diagonal causal boolean mask, with a window
+    on its boolean band) as the library time of the whole backward,
+    torch.linalg.vecdot on the fp32 casts of O and dO as that of the
+    preprocess.  Dropout and the softcap have no library time: SDPA's
+    dropout draws other bits, and no PyTorch call softcaps the scores."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd
 
-    route = bk.bwd_route(torch.bfloat16, d, seg is not None)
+    route = bk.bwd_route(torch.bfloat16, d, seg is not None, bool((mod or {}).get("alibi")),
+                         bool((mod or {}).get("rate")))
     q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
     k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     do = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
     ids = None if seg is None else torch.from_numpy(seg).to(dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5, **mods(hq, **(mod or {})),
+    kw = dict(causal=True, sm_scale=d ** -0.5, window=window, softcap=softcap,
+              **mods(hq, **(mod or {})),
               **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
     o, lse = attn_fwd(q, k, v, **kw)
     delta = bk.attn_bwd_preprocess(o, do)
@@ -3797,15 +4334,19 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None):
         lambda: torch.linalg.vecdot(o.float(), do.float()))}
     qr, kr, vr = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
     out = None
-    if not kw["dropout_rate"]:
+    if not kw["dropout_rate"] and not softcap:
         mask = (block_causal_mask(ids) if ids is not None
                 else sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev))
+        if window:
+            pos = torch.arange(n, device=dev)
+            mask = (pos[None] <= pos[:, None]) & (pos[:, None] - pos[None] < window)
         out = F.scaled_dot_product_attention(
             qr, kr, vr, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
         lib_ms["attn_bwd"] = median_ms(lambda: torch.autograd.grad(
             out, (qr, kr, vr), do, retain_graph=True))
-    work = bwd_work(b, hq, hkv, n, n, d, True, 2,
-                    pairs=None if seg is None else visible_pairs(seg, seg, True))
+    pairs = (visible_pairs(seg, seg, True) if seg is not None
+             else b * window_pairs(n, window) if window else None)
+    work = bwd_work(b, hq, hkv, n, n, d, True, 2, pairs=pairs, segments=seg is not None)
     rows = {}
     for name, (kernel, plain) in calls.items():
         got, want = kernel(), plain()
@@ -3902,7 +4443,17 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
             "tflops": flops / ms / 1e9, "max_abs_err": err}
 
 
-def phase_time(dev, train_rec, train_alibi_rec, packed_rec):
+def gemma_train_launches(gemma_rec, kernel):
+    """Launches of ``kernel`` ("attn_fwd_window", "attn_bwd_global", ...,
+    or a kernel name of the launch counts) over train_gemma2's three
+    runs."""
+    runs = (gemma_rec, gemma_rec["save_flash"], gemma_rec["adamw8bit"])
+    if kernel in gemma_rec["launches_by_window"]:
+        return sum(r["launches_by_window"][kernel] for r in runs)
+    return sum(r["launches"][kernel] for r in runs)
+
+
+def phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec):
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -4039,6 +4590,37 @@ def phase_time(dev, train_rec, train_alibi_rec, packed_rec):
                           + (" with the causal band as a boolean attn_mask" if window
                              else " (is_causal)")),
               **timings[name]})
+    # the head-dim-256 backward at Gemma-2-2B's training shape (B2, 8 q / 4
+    # kv heads, N8192): global causal and the 4096 window, each without and
+    # with the softcap 50 (its layers' own config; no library call then)
+    g_steps = gemma_train_rec["timed_steps"]
+    for name, window, cap in (("bwd_d256_B2_H8_N8192", 0, 0.0),
+                              ("bwd_d256_B2_H8_N8192_softcap", 0, GEMMA_SOFTCAP),
+                              ("bwd_d256_window4096_B2_H8_N8192", 4096, 0.0),
+                              ("bwd_d256_window4096_B2_H8_N8192_softcap", 4096, GEMMA_SOFTCAP)):
+        shape = (GEMMA_TRAIN_BATCH, gemma[0], gemma[1], GEMMA_TRAIN_SEQ, 256)
+        rows = time_bwd(dev, gen, *shape, window=window, softcap=cap)
+        timings[name] = rows
+        per_step = gemma_train_rec["launches_by_window"][
+            "attn_bwd_window" if window else "attn_bwd_global"] // g_steps
+        library = {
+            "attn_bwd_preprocess": "torch.linalg.vecdot(o.float(), do.float()), the casts "
+                                   "included",
+            "attn_bwd": ("none: no PyTorch call softcaps the scores" if cap else
+                         "backward of torch.nn.functional.scaled_dot_product_attention "
+                         "(enable_gqa), torch.autograd.grad on a kept graph"
+                         + (", on the causal band as a boolean attn_mask" if window else "")),
+        }
+        for kernel in ("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
+            emit({"phase": "time", "kernel": kernel + "[d256]", "case": name,
+                  "shape": list(shape), "dtype": "bfloat16", "causal": True,
+                  "window": window, "softcap": cap,
+                  "launches_per_train_gemma2_step": per_step,
+                  "library": library.get(kernel, "none: SDPA's backward computes all three "
+                                         "kernels' outputs at once (see attn_bwd)"),
+                  **rows[kernel]})
+        emit({"phase": "time", "kernel": "attn_bwd[d256] (sum of the three launches)",
+              "case": name, "ms": rows["sum_of_three"]})
     for kind in ("bf16", "int8"):
         for batch in (4, 8):
             name = f"decode_d256_{kind}_B{batch}_ctx2048"
@@ -4125,7 +4707,7 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softc
             "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
 
 
-def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models):
+def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train):
     """The kernels line: every kernel of every path, the paged kernels once
     per pool kind they serve, and one entry per ALiBi / dropout mode.
     Launches are the counts of the path runs (serving, quantized serving,
@@ -4143,7 +4725,11 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models):
     join attn_fwd's and paged_decode[bf16]'s, and Gemma-2-2B's head dim 256
     has entries of its own (the forward at its prefill and its windowed
     dense forward, decode from bf16 and int8 KV at 8 sequences of 2048,
-    verify of a 256-token chunk), timed with its softcap."""
+    verify of a 256-token chunk), timed with its softcap.  ``gemma_train``
+    is phase train_gemma2: its launches join attn_fwd[d256] (global and
+    windowed) and attn_bwd_preprocess, and the head-dim-256 backward sweeps
+    have entries of their own (global and windowed), timed at its training
+    shape with its softcap."""
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
     burst, spec = graphed
     gemma, variants = models
@@ -4205,7 +4791,10 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models):
     rows = timings["bwd_train_B8_H32_N2048"]
     for name, replaces in BWD_REPLACES.items():
         source = BWD_SOURCE if name == "attn_bwd_preprocess" else BWD_SM90_SOURCE
-        kernels.append(entry(name, source, replaces, train["launches"][name], rows[name]))
+        launches = train["launches"][name]
+        if name == "attn_bwd_preprocess":
+            launches += gemma_train_launches(gemma_train, name)
+        kernels.append(entry(name, source, replaces, launches, rows[name]))
 
     alibi_fwd = sum(r["launches"]["attn_fwd"] for r in serve_alibi.values())
     rows = timings["bwd_alibi_dropout_train_B8_H32_N2048"]
@@ -4251,10 +4840,12 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models):
                              timings[f"fwd_fp8v_{kind}_serve_prefill_2048"]))
     g = gemma["launches"]
     kernels += [
-        entry("attn_fwd[d256]", FWD_SM90_SOURCE, FWD_REPLACES, g["attn_fwd"],
+        entry("attn_fwd[d256]", FWD_SM90_SOURCE, FWD_REPLACES,
+              g["attn_fwd"] + gemma_train_launches(gemma_train, "attn_fwd_global"),
               timings["fwd_d256_prefill_2048_softcap"],
               fwd_res["d256_gemma_prefill_2048_softcap"]["max_abs_err_o"]),
-        entry("attn_fwd[d256,window]", FWD_SM90_SOURCE, FWD_REPLACES, g["attn_fwd_window"],
+        entry("attn_fwd[d256,window]", FWD_SM90_SOURCE, FWD_REPLACES,
+              g["attn_fwd_window"] + gemma_train_launches(gemma_train, "attn_fwd_window"),
               timings["fwd_d256_window4096_8192_softcap"],
               fwd_res["d256_gemma_window_softcap_8192"]["max_abs_err_o"]),
         entry("paged_decode[d256,bf16]", DECODE_SOURCE, DECODE_REPLACES,
@@ -4267,6 +4858,13 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models):
               g["paged_verify_bf16"], timings["verify_d256_bf16_T256_ctx2048"],
               dec_res["d256_verify_T256_bf16"]["max_abs_err_o"]),
     ]
+    for tag, key, case in (("d256", "global", "bwd_d256_B2_H8_N8192_softcap"),
+                           ("d256,window", "window", "bwd_d256_window4096_B2_H8_N8192_softcap")):
+        for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+            rec = entry(f"{name}[{tag}]", BWD_SM90_SOURCE, BWD_REPLACES[name],
+                        gemma_train_launches(gemma_train, f"attn_bwd_{key}"),
+                        timings[case][name])
+            kernels.append({**rec, "built_from": BWD_D256_SOURCE})
     emit({"kernels": kernels})
 
 
@@ -4407,11 +5005,14 @@ def main() -> int:
     train_alibi_rec = phase_train(dev, "train_alibi", position_encoding="alibi",
                                   attn_dropout=TRAIN_ALIBI_DROPOUT)
     packed_rec = phase_packed(dev)
-    timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec)
+    gemma_train_rec = phase_train_gemma2(dev)
+    phase_remat(dev)
+    phase_bf16_reduction(dev)
+    timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
                   alibi_runs, train_alibi_rec, packed_rec), timings, (burst, spec),
-                 (gemma, variants))
+                 (gemma, variants), gemma_train_rec)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,9 +64,10 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                             int window, float softcap, const float* slopes, float rate,
                             float keep_scale, int seed, int route, void* stream) {
-  return attn_bwd_dkv_entry<false>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg, dtype,
-                                   B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap,
-                                   slopes, rate, keep_scale, seed, route, stream);
+  return attn_bwd_dkv_entry<false, false>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg,
+                                          dtype, B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal,
+                                          window, softcap, slopes, rate, keep_scale, seed,
+                                          route, stream);
 }
 
 extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -75,9 +76,10 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int Nkv, int D, float sm_scale, int causal, int window,
                            float softcap, const float* slopes, float rate, float keep_scale,
                            int seed, int route, void* stream) {
-  return attn_bwd_dq_entry<false>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg, dtype, B, Hq,
-                                  Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap, slopes,
-                                  rate, keep_scale, seed, route, stream);
+  return attn_bwd_dq_entry<false, false>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg,
+                                         dtype, B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal,
+                                         window, softcap, slopes, rate, keep_scale, seed,
+                                         route, stream);
 }
 
 extern "C" const char* attn_bwd_preprocess_error_string(int err) { return error_string(err); }

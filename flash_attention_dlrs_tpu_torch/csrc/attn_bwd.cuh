@@ -81,10 +81,13 @@
 
 namespace {
 
-// The fp32 sweeps' tiles (the bf16 / fp16 sweeps' are attn_bwd_sm90.cuh's).
-constexpr int KV_TILE = 64;  // dkv: keys per CTA; dq: keys per step
+// The fp32 sweeps' tiles (the bf16 / fp16 sweeps' are attn_bwd_sm90.cuh's):
+// 64-key (dK/dV) and 64-row (dQ) CTAs walking steps of 64 streamed rows (q
+// rows in dK/dV, keys in dQ), 32 at d 256, where the four staged fp32 tiles
+// would not fit a CTA's shared memory at 64 (263 KB).
+constexpr int KV_TILE = 64;  // dkv: keys per CTA
 constexpr int Q_TILE = 64;   // dq: q rows per CTA
-constexpr int F32_Q_STEP = 64;  // dkv: q rows per step
+__host__ __device__ constexpr int f32_step(int D) { return D == 256 ? 32 : 64; }
 
 // q tiles of STEP rows that see keys [n0, n0 + KEYS): the transpose of
 // kv_tiles.  Causal: rows from the diagonal on (row + Nkv - Nq >= n0);
@@ -122,11 +125,12 @@ __device__ __forceinline__ float score(float s, float sm_scale, float softcap,
 
 constexpr int F32_THREADS = 256;  // 16 x 16
 
-// rows [r0, r0 + 64) of a [N, D] fp32 matrix into a [64][D+1] tile, zero past N
-template <int D>
+// rows [r0, r0 + ROWS) of a [N, D] fp32 matrix into a [ROWS][D+1] tile, zero
+// past N
+template <int D, int ROWS = 64>
 __device__ __forceinline__ void stage_f32(float* dst, const float* src, int r0, int N,
                                           int tid) {
-  for (int idx = tid; idx < 64 * D; idx += F32_THREADS) {
+  for (int idx = tid; idx < ROWS * D; idx += F32_THREADS) {
     const int r = idx / D, c = idx % D;
     dst[r * (D + 1) + c] = r0 + r < N ? src[size_t(r0 + r) * D + c] : 0.f;
   }
@@ -134,10 +138,12 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int r0, 
 
 template <int D, bool SEG>
 constexpr size_t dkv_f32_smem_bytes() {
-  // sK, sV, sQ, sdO [64][D+1]; sP, sDS [64][65]; lse, D [64]; with segments
-  // the q step's ids [64]
-  return sizeof(float) * (4 * 64 * size_t(D + 1) + 2 * 64 * 65 + 2 * 64) +
-         (SEG ? 64 * sizeof(int) : 0);
+  // sK, sV [64][D+1]; sQ, sdO [STEP][D+1]; sP, sDS [64][STEP+1]; lse, D
+  // [STEP]; with segments the q step's ids [STEP]
+  constexpr size_t STEP = f32_step(D);
+  return sizeof(float) * (2 * 64 * size_t(D + 1) + 2 * STEP * (D + 1) + 2 * 64 * (STEP + 1) +
+                          2 * STEP) +
+         (SEG ? STEP * sizeof(int) : 0);
 }
 
 template <int D, bool ALIBI, bool DROP, bool SEG>
@@ -148,21 +154,23 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
                         float* __restrict__ dk, float* __restrict__ dv, int Hq, int Hkv,
                         int Nq, int Nkv, float sm_scale, int causal, int window,
                         float softcap, Mods md) {
-  static_assert(KV_TILE == 64 && F32_Q_STEP == 64, "the fp32 tiles are 64 x 64");
+  static_assert(KV_TILE == 64, "the fp32 dK/dV CTA holds 64 keys");
+  constexpr int STEP = f32_step(D);  // q rows per step
+  constexpr int JS = STEP / 16;      // q rows per thread in a step
   constexpr int PS = D + 1;   // padded strides: conflict-free column walks
-  constexpr int SS = 64 + 1;
+  constexpr int SS = STEP + 1;
   constexpr int OJ = D / 16;  // output columns per thread
 
   extern __shared__ float smem[];
   float* sK = smem;
   float* sV = sK + 64 * PS;
   float* sQ = sV + 64 * PS;
-  float* sdO = sQ + 64 * PS;
-  float* sP = sdO + 64 * PS;   // P^T [key][row]
-  float* sDS = sP + 64 * SS;   // dS^T [key][row]
+  float* sdO = sQ + STEP * PS;
+  float* sP = sdO + STEP * PS;  // P^T [key][row]
+  float* sDS = sP + 64 * SS;    // dS^T [key][row]
   float* sLse = sDS + 64 * SS;
-  float* sDelta = sLse + 64;
-  int* sQseg = reinterpret_cast<int*>(sDelta + 64);  // the q step's ids (SEG)
+  float* sDelta = sLse + STEP;
+  int* sQseg = reinterpret_cast<int*>(sDelta + STEP);  // the q step's ids (SEG)
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
@@ -185,7 +193,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
     for (int j = 0; j < OJ; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  const TileRange steps = q_tiles<F32_Q_STEP, KV_TILE>(n0, Nq, Nkv, causal, window);
+  const TileRange steps = q_tiles<STEP, KV_TILE>(n0, Nq, Nkv, causal, window);
   const int q_off = Nkv - Nq;
   for (int hh = 0; hh < group; ++hh) {
     const int h = kvh * group + hh;  // the q head: its slope and dropout stream
@@ -193,11 +201,11 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
     const size_t bh = size_t(b) * Hq + h;
     for (int it = steps.lo; it < steps.hi; ++it) {
-      const int m0 = it * F32_Q_STEP;
+      const int m0 = it * STEP;
       __syncthreads();
-      stage_f32<D>(sQ, q + bh * Nq * D, m0, Nq, tid);
-      stage_f32<D>(sdO, dout + bh * Nq * D, m0, Nq, tid);
-      if (tid < 64) {
+      stage_f32<D, STEP>(sQ, q + bh * Nq * D, m0, Nq, tid);
+      stage_f32<D, STEP>(sdO, dout + bh * Nq * D, m0, Nq, tid);
+      if (tid < STEP) {
         const int row = m0 + tid;
         sLse[tid] = row < Nq ? lse[bh * Nq + row] : 0.f;
         sDelta[tid] = row < Nq ? delta[bh * Nq + row] : 0.f;
@@ -206,28 +214,28 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       __syncthreads();
 
       // S^T and dP^T for keys 4*ty + i, rows tx + 16*j
-      float s[4][4], dp[4][4];
+      float s[4][JS], dp[4][JS];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < JS; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < D; ++c) {
-        float kv[4], vv[4], qv[4], ov[4];
+        float kv[4], vv[4], qv[JS], ov[JS];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           kv[i] = sK[(ty * 4 + i) * PS + c];
           vv[i] = sV[(ty * 4 + i) * PS + c];
         }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JS; ++j) {
           qv[j] = sQ[(tx + 16 * j) * PS + c];
           ov[j] = sdO[(tx + 16 * j) * PS + c];
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < JS; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
           }
@@ -235,7 +243,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JS; ++j) {
           const int r = tx + 16 * j;
           const int row = m0 + r, col = n0 + ty * 4 + i;
           float dcap;
@@ -257,7 +265,7 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
       __syncthreads();
 
 #pragma unroll 4
-      for (int c = 0; c < F32_Q_STEP; ++c) {
+      for (int c = 0; c < STEP; ++c) {
         float p[4], ds[4], ov[OJ], qv[OJ];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -295,10 +303,12 @@ attn_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 template <int D, bool SEG>
 constexpr size_t dq_f32_smem_bytes() {
-  // sQ, sdO, sK, sV [64][D+1]; sDS [64][65]; lse, D [64]; with segments the
-  // K tile's ids [64]
-  return sizeof(float) * (4 * 64 * size_t(D + 1) + 64 * 65 + 2 * 64) +
-         (SEG ? 64 * sizeof(int) : 0);
+  // sQ, sdO [64][D+1]; sK, sV [STEP][D+1]; sDS [64][STEP+1]; lse, D [64];
+  // with segments the K tile's ids [STEP]
+  constexpr size_t STEP = f32_step(D);
+  return sizeof(float) * (2 * 64 * size_t(D + 1) + 2 * STEP * (D + 1) + 64 * (STEP + 1) +
+                          2 * 64) +
+         (SEG ? STEP * sizeof(int) : 0);
 }
 
 template <int D, bool ALIBI, bool DROP, bool SEG>
@@ -309,17 +319,19 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        float* __restrict__ dq, int Hq, int Hkv, int Nq, int Nkv,
                        float sm_scale, int causal, int window, float softcap,
                        Mods md) {
-  static_assert(Q_TILE == 64 && KV_TILE == 64, "the fp32 tiles are 64 x 64");
+  static_assert(Q_TILE == 64, "the fp32 dQ CTA holds 64 q rows");
+  constexpr int STEP = f32_step(D);  // keys per step
+  constexpr int JS = STEP / 16;      // keys per thread in a step
   constexpr int PS = D + 1;
-  constexpr int SS = 64 + 1;
+  constexpr int SS = STEP + 1;
   constexpr int OJ = D / 16;
 
   extern __shared__ float smem[];
   float* sQ = smem;
   float* sdO = sQ + 64 * PS;
   float* sK = sdO + 64 * PS;
-  float* sV = sK + 64 * PS;
-  float* sDS = sV + 64 * PS;
+  float* sV = sK + STEP * PS;
+  float* sDS = sV + STEP * PS;
   float* sLse = sDS + 64 * SS;
   float* sDelta = sLse + 64;
   int* sKseg = reinterpret_cast<int*>(sDelta + 64);  // the K tile's ids (SEG)
@@ -356,38 +368,38 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OJ; ++j) acc[i][j] = 0.f;
 
-  const TileRange tiles = kv_tiles<Q_TILE, KV_TILE>(m0, Nq, Nkv, causal, window);
+  const TileRange tiles = kv_tiles<Q_TILE, STEP>(m0, Nq, Nkv, causal, window);
   for (int kt = tiles.lo; kt < tiles.hi; ++kt) {
-    const int n0 = kt * KV_TILE;
+    const int n0 = kt * STEP;
     __syncthreads();  // the previous tile's dS K is done with sDS / sK
-    stage_f32<D>(sK, kb, n0, Nkv, tid);
-    stage_f32<D>(sV, vb, n0, Nkv, tid);
-    if (SEG && tid < 64) sKseg[tid] = seg_id(md.kv_seg, b, Nkv, n0 + tid);
+    stage_f32<D, STEP>(sK, kb, n0, Nkv, tid);
+    stage_f32<D, STEP>(sV, vb, n0, Nkv, tid);
+    if (SEG && tid < STEP) sKseg[tid] = seg_id(md.kv_seg, b, Nkv, n0 + tid);
     __syncthreads();
 
     // S and dP for rows 4*ty + i, keys tx + 16*j
-    float s[4][4], dp[4][4];
+    float s[4][JS], dp[4][JS];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < JS; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < D; ++c) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[4], ov[4], kv[JS], vv[JS];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = sQ[(ty * 4 + i) * PS + c];
         ov[i] = sdO[(ty * 4 + i) * PS + c];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JS; ++j) {
         kv[j] = sK[(tx + 16 * j) * PS + c];
         vv[j] = sV[(tx + 16 * j) * PS + c];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JS; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
@@ -396,7 +408,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int r = ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JS; ++j) {
         const int row = m0 + r, col = n0 + tx + 16 * j;
         float dcap;
         float x = score(s[i][j], sm_scale, softcap, dcap);
@@ -411,7 +423,7 @@ attn_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < KV_TILE; ++c) {
+    for (int c = 0; c < STEP; ++c) {
       float ds[4], kv[OJ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) ds[i] = sDS[(ty * 4 + i) * SS + c];
@@ -462,6 +474,36 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
 // The routes of the sweeps' C entries (ops/bwd_kernel.py ROUTE_CODES).
 constexpr int kRouteF32 = 0, kRouteWgmma = 1;
 
+// Calls fn(alibi, drop) with std::true_type / std::false_type for the modes
+// a call asks of a sweep built at head dim D: every mode at d 64 and 128
+// (dispatch_mods), none at 256, where ALiBi, dropout and segment ids are
+// still to port (ROADMAP.md, queue 2; ops/bwd_kernel.py bwd_route refuses
+// them before the launch) and a call asking for one is refused.
+template <bool SEG, int D, typename Fn>
+int dispatch_bwd_mods(const Mods& md, Fn&& fn) {
+  if constexpr (D == 256) {
+    if (SEG || md.q_seg != nullptr || md.slopes != nullptr || md.rate > 0.f)
+      return int(cudaErrorInvalidValue);
+    return fn(std::false_type{}, std::false_type{});
+  } else {
+    return dispatch_mods<SEG>(md, [&](auto alibi, auto drop, auto) { return fn(alibi, drop); });
+  }
+}
+
+// Calls fn(std::integral_constant<int, D>) for a head dim the build holds:
+// 64 and 128 (attn_bwd.cu, attn_bwd_seg.cu), or 256 (D256: attn_bwd_d256.cu,
+// its own source so that it compiles beside the others).
+template <bool D256, typename Fn>
+int dispatch_bwd_d(int D, Fn&& fn) {
+  if constexpr (D256) {
+    if (D == 256) return fn(std::integral_constant<int, 256>{});
+  } else {
+    if (D == 64) return fn(std::integral_constant<int, 64>{});
+    if (D == 128) return fn(std::integral_constant<int, 128>{});
+  }
+  return int(cudaErrorInvalidValue);
+}
+
 // The "wgmma" route, defined in attn_bwd_sm90.cuh.
 template <bool SEG, typename T, int D>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv);
@@ -470,7 +512,7 @@ int launch_dq_wgmma(const Args& a, void* dq);
 
 template <bool SEG, int D>
 int launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
     return launch(attn_bwd_dkv_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
                                           SEG>,
                   dkv_f32_smem_bytes<D, SEG>(), dim3((a.Nkv + KV_TILE - 1) / KV_TILE,
@@ -485,7 +527,7 @@ int launch_dkv_f32(const Args& a, void* dk, void* dv) {
 
 template <bool SEG, int D>
 int launch_dq_f32(const Args& a, void* dq) {
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
     return launch(attn_bwd_dq_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
                                          SEG>,
                   dq_f32_smem_bytes<D, SEG>(), dim3((a.Nq + Q_TILE - 1) / Q_TILE, a.B * a.Hq),
@@ -502,62 +544,59 @@ bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
          rate >= 0.f && rate < 1.f;
 }
 
-// The sweeps' C entries of attn_bwd.cu (SEG false) and attn_bwd_seg.cu (SEG
-// true).  dtype 0 = float32, 1 = bfloat16, 2 = float16; tensors contiguous,
-// bf16/fp16 pointers 16-byte aligned; d 64 or 128.  The sweeps take the
-// forward's ALiBi slopes ([Hq] fp32 on the device, or null), dropout rate,
-// keep scale 1 / (1 - rate) and seed, and its q_seg [B, Nq] / kv_seg
-// [B, Nkv] int32 segment ids (set exactly when SEG).  route: kRouteF32
-// (dtype 0) or kRouteWgmma (dtype 1 or 2); a route that cannot carry the
-// call returns cudaErrorInvalidValue, never another route.  Each returns
-// cudaGetLastError() after its launch (0 on success).
+// The sweeps' C entries of attn_bwd.cu (SEG false), attn_bwd_seg.cu (SEG
+// true) and attn_bwd_d256.cu (D256).  dtype 0 = float32, 1 = bfloat16, 2 =
+// float16; tensors contiguous, bf16/fp16 pointers 16-byte aligned; d 64 or
+// 128, or 256 in the D256 build (without ALiBi, dropout or segment ids).
+// The sweeps take the forward's ALiBi slopes ([Hq] fp32 on the device, or
+// null), dropout rate, keep scale 1 / (1 - rate) and seed, and its q_seg
+// [B, Nq] / kv_seg [B, Nkv] int32 segment ids (set exactly when SEG).
+// route: kRouteF32 (dtype 0) or kRouteWgmma (dtype 1 or 2); a route or a
+// build that cannot carry the call returns cudaErrorInvalidValue, never
+// another route.  Each returns cudaGetLastError() after its launch (0 on
+// success).
 
 // dK, dV [B, Hkv, Nkv, d] from q, k, v, dout, lse and delta.
-template <bool SEG>
+template <bool SEG, bool D256>
 int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
                        int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                        int window, float softcap, const float* slopes, float rate,
                        float keep_scale, int seed, int route, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv, rate) || (D != 64 && D != 128))
-    return int(cudaErrorInvalidValue);
+  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && dtype == 0)
-    return D == 64 ? launch_dkv_f32<SEG, 64>(a, dk, dv) : launch_dkv_f32<SEG, 128>(a, dk, dv);
-  if (route == kRouteWgmma && dtype == 1)
-    return D == 64 ? launch_dkv_wgmma<SEG, __nv_bfloat16, 64>(a, dk, dv)
-                   : launch_dkv_wgmma<SEG, __nv_bfloat16, 128>(a, dk, dv);
-  if (route == kRouteWgmma && dtype == 2)
-    return D == 64 ? launch_dkv_wgmma<SEG, __half, 64>(a, dk, dv)
-                   : launch_dkv_wgmma<SEG, __half, 128>(a, dk, dv);
-  return int(cudaErrorInvalidValue);
+  return dispatch_bwd_d<D256>(D, [&](auto d) {
+    constexpr int DIM = decltype(d)::value;
+    if (route == kRouteF32 && dtype == 0) return launch_dkv_f32<SEG, DIM>(a, dk, dv);
+    if (route == kRouteWgmma && dtype == 1)
+      return launch_dkv_wgmma<SEG, __nv_bfloat16, DIM>(a, dk, dv);
+    if (route == kRouteWgmma && dtype == 2) return launch_dkv_wgmma<SEG, __half, DIM>(a, dk, dv);
+    return int(cudaErrorInvalidValue);
+  });
 }
 
 // dQ [B, Hq, Nq, d] from q, k, v, dout, lse and delta.
-template <bool SEG>
+template <bool SEG, bool D256>
 int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const int* q_seg,
                       const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq,
                       int Nkv, int D, float sm_scale, int causal, int window,
                       float softcap, const float* slopes, float rate, float keep_scale,
                       int seed, int route, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv, rate) || (D != 64 && D != 128))
-    return int(cudaErrorInvalidValue);
+  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && dtype == 0)
-    return D == 64 ? launch_dq_f32<SEG, 64>(a, dq) : launch_dq_f32<SEG, 128>(a, dq);
-  if (route == kRouteWgmma && dtype == 1)
-    return D == 64 ? launch_dq_wgmma<SEG, __nv_bfloat16, 64>(a, dq)
-                   : launch_dq_wgmma<SEG, __nv_bfloat16, 128>(a, dq);
-  if (route == kRouteWgmma && dtype == 2)
-    return D == 64 ? launch_dq_wgmma<SEG, __half, 64>(a, dq)
-                   : launch_dq_wgmma<SEG, __half, 128>(a, dq);
-  return int(cudaErrorInvalidValue);
+  return dispatch_bwd_d<D256>(D, [&](auto d) {
+    constexpr int DIM = decltype(d)::value;
+    if (route == kRouteF32 && dtype == 0) return launch_dq_f32<SEG, DIM>(a, dq);
+    if (route == kRouteWgmma && dtype == 1) return launch_dq_wgmma<SEG, __nv_bfloat16, DIM>(a, dq);
+    if (route == kRouteWgmma && dtype == 2) return launch_dq_wgmma<SEG, __half, DIM>(a, dq);
+    return int(cudaErrorInvalidValue);
+  });
 }
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -13,9 +13,10 @@ extern "C" int attn_bwd_dkv_seg(const void* q, const void* k, const void* v,
                                 float sm_scale, int causal, int window, float softcap,
                                 const float* slopes, float rate, float keep_scale, int seed,
                                 int route, void* stream) {
-  return attn_bwd_dkv_entry<true>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg, dtype,
-                                  B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap,
-                                  slopes, rate, keep_scale, seed, route, stream);
+  return attn_bwd_dkv_entry<true, false>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg,
+                                         dtype, B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal,
+                                         window, softcap, slopes, rate, keep_scale, seed,
+                                         route, stream);
 }
 
 extern "C" int attn_bwd_dq_seg(const void* q, const void* k, const void* v, const void* dout,
@@ -24,9 +25,10 @@ extern "C" int attn_bwd_dq_seg(const void* q, const void* k, const void* v, cons
                                int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                                int window, float softcap, const float* slopes, float rate,
                                float keep_scale, int seed, int route, void* stream) {
-  return attn_bwd_dq_entry<true>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg, dtype, B, Hq,
-                                 Hkv, Nq, Nkv, D, sm_scale, causal, window, softcap, slopes,
-                                 rate, keep_scale, seed, route, stream);
+  return attn_bwd_dq_entry<true, false>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg, dtype,
+                                        B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal, window,
+                                        softcap, slopes, rate, keep_scale, seed, route,
+                                        stream);
 }
 
 extern "C" const char* attn_bwd_dkv_seg_error_string(int err) { return error_string(err); }

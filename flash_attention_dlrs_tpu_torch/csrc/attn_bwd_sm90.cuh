@@ -72,6 +72,16 @@
 //  * Determinism stays structural: a dK/dV CTA owns its 128 keys and walks
 //    the q heads of its GQA group and then their q steps in order; a dQ CTA
 //    owns its 128 rows and walks its key tiles in order; no atomics.
+//  * Head dim 256 (Gemma; built in attn_bwd_d256.cu, without ALiBi, dropout
+//    or segment ids) keeps the CTA shape and changes two things.  Registers:
+//    a dK/dV warpgroup cannot hold dK and dV for its 64 keys (2 x 128 fp32 a
+//    thread past the consumers' 232), so the sweep runs twice over the same
+//    q steps, dV in the first pass (S recomputed) and dK in the second (S
+//    and dP recomputed): 10 d operations a visible pair in place of 8, the
+//    products and the order of every sum otherwise as at d 128; the dQ
+//    accumulator (128 registers) fits as the forward's O does.  Shared
+//    memory: the two resident tiles take 128 KB, so the streamed stages
+//    carry 32 rows (16 KB a tile) in 3 stages, 96 KB, 224 KB in all.
 // The host builds the four tensor maps (3-D: d, N, B * H; zero fill past a
 // head's tail) on every call and passes them as __grid_constant__
 // parameters; the launch allocates nothing and does not synchronise.
@@ -84,7 +94,6 @@ namespace {
 namespace sm90 {
 
 constexpr int BR = 128;  // resident rows per CTA: keys (dK/dV), q rows (dQ)
-constexpr int BS = 64;   // streamed rows per stage: q rows (dK/dV), keys (dQ)
 constexpr int WG_ROWS = 64;  // resident rows of one consumer warpgroup
 
 // Shared memory of a sweep's CTA, in bytes from a 1024-byte aligned base:
@@ -94,7 +103,10 @@ constexpr int WG_ROWS = 64;  // resident rows of one consumer warpgroup
 // full and empty).
 template <int D, bool SEG, bool DKV>
 struct BwdLayout {
-  static constexpr int STAGES = 4;
+  // streamed rows per stage (q rows in dK/dV, keys in dQ) and stages: 64 x 4,
+  // and 32 x 3 at d 256
+  static constexpr int BS = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == 256 ? 3 : 4;
   static constexpr uint32_t RES_BYTES = BR * D * 2;   // one resident tile
   static constexpr uint32_t STEP_BYTES = BS * D * 2;  // one streamed tile
   static constexpr uint32_t U_OFF = 2 * RES_BYTES;
@@ -103,15 +115,17 @@ struct BwdLayout {
   static constexpr uint32_t ROWS_OFF = W_OFF + STAGES * STEP_BYTES;
   static constexpr uint32_t BAR_OFF = ROWS_OFF + STAGES * ROW_ARRAYS * BS * 4;
   static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 // S = A B^T of one warpgroup over d, issued (not committed): A the
-// warpgroup's 64 rows of a resident tile at `a_rows`, B the streamed tile at
-// `b_tile`, both K-major (16 columns a k-step, 32 bytes apart inside a
-// 128-byte chunk of 64 columns).
-template <typename T, int D>
-__device__ __forceinline__ void issue_scores(float (&acc)[BS / 2], uint32_t a_rows,
+// warpgroup's 64 rows of a resident tile at `a_rows`, B the streamed tile of
+// BS = 2 HALF rows at `b_tile`, both K-major (16 columns a k-step, 32 bytes
+// apart inside a 128-byte chunk of 64 columns).
+template <typename T, int D, int HALF>
+__device__ __forceinline__ void issue_scores(float (&acc)[HALF], uint32_t a_rows,
                                              uint32_t b_tile) {
+  constexpr int BS = 2 * HALF;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     const uint32_t in_chunk = (ks % 4) * 32;
@@ -121,25 +135,24 @@ __device__ __forceinline__ void issue_scores(float (&acc)[BS / 2], uint32_t a_ro
   }
 }
 
-// acc += A B over the BS streamed rows, issued: A from registers (a[kk],
-// 16 rows a k-step), B the streamed tile at `b_tile` read MN-major (2048
-// bytes a k-step; 64-column chunks BS * 128 bytes apart).
-template <typename T, int D>
-__device__ __forceinline__ void issue_update(float (&acc)[D / 2],
-                                             const uint32_t (&a)[BS / 16][4],
+// acc += A B over the BS = 16 KS streamed rows, issued: A from registers
+// (a[kk], 16 rows a k-step), B the streamed tile at `b_tile` read MN-major
+// (2048 bytes a k-step; 64-column chunks BS * 128 bytes apart).
+template <typename T, int D, int KS>
+__device__ __forceinline__ void issue_update(float (&acc)[D / 2], const uint32_t (&a)[KS][4],
                                              uint32_t b_tile) {
+  constexpr int BS = 16 * KS;
 #pragma unroll
-  for (int kk = 0; kk < BS / 16; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
     WgmmaRS<D, T>::run(acc, a[kk], smem_desc(b_tile + kk * 2048, BS * 128, 1024));
 }
 
 // A score accumulator as the A fragments of an update product (its columns,
 // the streamed rows, become the k dimension), rounded to T.
-template <typename T>
-__device__ __forceinline__ void pack_frags(const float (&acc)[BS / 2],
-                                           uint32_t (&a)[BS / 16][4]) {
+template <typename T, int HALF>
+__device__ __forceinline__ void pack_frags(const float (&acc)[HALF], uint32_t (&a)[HALF / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < BS / 16; ++kk) {
+  for (int kk = 0; kk < HALF / 8; ++kk) {
 #pragma unroll
     for (int x = 0; x < 4; ++x)
       a[kk][x] = Mma<T>::pack(acc[8 * kk + 2 * x], acc[8 * kk + 2 * x + 1]);
@@ -176,7 +189,10 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           Mods md) {
   using L = BwdLayout<D, SEG, true>;
   constexpr int STAGES = L::STAGES;
+  constexpr int BS = L::BS;
   constexpr int CHUNKS = D / CHUNK;
+  // sweeps over the q steps: 1 (dK and dV together), 2 at d 256 (dV, then dK)
+  constexpr int PASSES = D == 256 ? 2 : 1;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atom
@@ -198,6 +214,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const TileRange steps = q_tiles<BS, BR>(n0, Nq, Nkv, causal, window);
   const int per_head = steps.hi - steps.lo;
   const int n_steps = group * per_head;  // q heads of the group, then their steps
+  // every pass streams the same steps through the ring, one after another
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -229,12 +246,12 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           tma_load_3d(sV + c * (BR * 128), &tm_v, bar_kv, c * CHUNK, n0, blockIdx.y);
         }
       }
-      for (int i = 0; i < n_steps; ++i) {
-        const int s = i % STAGES;
+      for (int i = 0; i < PASSES * n_steps; ++i) {
+        const int s = i % STAGES, step = i % n_steps;
         // the stage's previous step released (passes at once on the first lap)
         mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
-        const int bh = b * Hq + kvh * group + i / per_head;
-        const int m0 = (steps.lo + i % per_head) * BS;
+        const int bh = b * Hq + kvh * group + step / per_head;
+        const int m0 = (steps.lo + step % per_head) * BS;
         for (int x = lane; x < BS; x += 32) {
           const int row = m0 + x;
           const bool in = row < Nq;
@@ -272,16 +289,16 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
     // S^T, then P^T o M; dP^T, then dS^T: element e of n-tile j is key
     // key0 + 8 (e >> 1), q row m0 + 8 j + 2 t + (e & 1).
-    float s[BS / 2], dp[BS / 2], dk_acc[D / 2], dv_acc[D / 2];
+    float s[BS / 2], dp[BS / 2];
     uint32_t pa[BS / 16][4], da[BS / 16][4];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     const uint32_t k_rows = sK + cw * (WG_ROWS * 128), v_rows = sV + cw * (WG_ROWS * 128);
+    const size_t out = (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
 
-    // P^T o M and dS^T of q step m0 (stage st) in place of S^T and dP^T, in
-    // base-2 units; the softcap and the mask are compiled out of the loop
-    // when the call or the tile needs neither.
-    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked) {
+    // P^T o M and (with_ds) dS^T of q step m0 (stage st) in place of S^T and
+    // dP^T, in base-2 units; the softcap and the mask are compiled out of
+    // the loop when the call or the tile needs neither.
+    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked,
+                     auto with_ds) {
       const float* lse2 = rows_of(st, 0);
       const float* dlt = rows_of(st, 1);
       const int* qseg = reinterpret_cast<const int*>(rows_of(st, 2));
@@ -321,75 +338,117 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                 (SEG && kseg[r] != qseg[col]))
               p = 0.f;
           }
-          float dpv = dp[4 * j + e];
+          float keep = 1.f;
           if (DROP) {
             const uint32_t bits = lowbias32(uint32_t(m0 + col) ^ inner[r]);
-            const float keep = (bits & 0xFFFFFFu) >= keep_min ? md.keep_scale : 0.f;
-            dpv *= keep;
-            s[4 * j + e] = p * keep;
-          } else {
-            s[4 * j + e] = p;
+            keep = (bits & 0xFFFFFFu) >= keep_min ? md.keep_scale : 0.f;
           }
-          dp[4 * j + e] = p * (dpv - (c ? d2.y : d2.x)) * dcap;
+          s[4 * j + e] = DROP ? p * keep : p;
+          if constexpr (decltype(with_ds)::value) {
+            const float dpv = DROP ? dp[4 * j + e] * keep : dp[4 * j + e];
+            dp[4 * j + e] = p * (dpv - (c ? d2.y : d2.x)) * dcap;
+          }
+        }
+      }
+    };
+
+    // Ring index i's q step in the stage st: S^T (and with_ds dP^T), then
+    // P^T o M (and dS^T) in their place; false, and nothing run, when the
+    // warpgroup's keys see no row of the step.
+    auto step_grads = [&](int i, int st, auto with_ds) -> bool {
+      const int step = i % n_steps;
+      const int m0 = (steps.lo + step % per_head) * BS;
+      if (tile_hidden<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window)) return false;
+      wgmma_fence();
+      issue_scores<T, D>(s, k_rows, q_tile(st));
+      if constexpr (decltype(with_ds)::value) issue_scores<T, D>(dp, v_rows, do_tile(st));
+      wgmma_commit();
+      const int h = kvh * group + step / per_head;  // the q head: slope, dropout stream
+      const float slope = ALIBI ? md.slopes[h] : 0.f;
+      const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
+      const bool masked =
+          SEG || !tile_unmasked<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window);
+      const std::true_type yes{};
+      const std::false_type no{};
+      wgmma_wait_all();
+      fence_regs(s);
+      if constexpr (decltype(with_ds)::value) fence_regs(dp);
+      if (softcap > 0.f) {
+        if (masked) grads(m0, st, slope, stream, yes, yes, with_ds);
+        else grads(m0, st, slope, stream, yes, no, with_ds);
+      } else {
+        if (masked) grads(m0, st, slope, stream, no, yes, with_ds);
+        else grads(m0, st, slope, stream, no, no, with_ds);
+      }
+      return true;
+    };
+
+    // this thread's rows of dK (times sm_scale) or dV from an accumulator
+    auto store = [&](T* dst, const float (&acc)[D / 2], float scale) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= Nkv) continue;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dst + out + size_t(key) * D + 8 * j + 2 * t) =
+              Mma<T>::pack(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
         }
       }
     };
 
     mbar_wait(bar_kv, 0);
-    for (int i = 0; i < n_steps; ++i) {
-      const int st = i % STAGES;
-      const int m0 = (steps.lo + i % per_head) * BS;
-      mbar_wait(full(st), (i / STAGES) & 1);
-      if (!tile_hidden<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window)) {
-        wgmma_fence();
-        issue_scores<T, D>(s, k_rows, q_tile(st));
-        issue_scores<T, D>(dp, v_rows, do_tile(st));
-        wgmma_commit();
-        const int h = kvh * group + i / per_head;  // the q head: slope, dropout stream
-        const float slope = ALIBI ? md.slopes[h] : 0.f;
-        const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
-        const bool masked =
-            SEG || !tile_unmasked<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window);
-        const std::true_type yes{};
-        const std::false_type no{};
-        wgmma_wait_all();
-        fence_regs(s);
-        fence_regs(dp);
-        if (softcap > 0.f) {
-          if (masked) grads(m0, st, slope, stream, yes, yes);
-          else grads(m0, st, slope, stream, yes, no);
-        } else {
-          if (masked) grads(m0, st, slope, stream, no, yes);
-          else grads(m0, st, slope, stream, no, no);
+    if constexpr (PASSES == 1) {
+      float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      for (int i = 0; i < n_steps; ++i) {
+        const int st = i % STAGES;
+        mbar_wait(full(st), (i / STAGES) & 1);
+        if (step_grads(i, st, std::true_type{})) {
+          pack_frags<T>(s, pa);
+          wgmma_fence();
+          issue_update<T, D>(dv_acc, pa, do_tile(st));
+          wgmma_commit();
+          pack_frags<T>(dp, da);
+          wgmma_fence();
+          issue_update<T, D>(dk_acc, da, q_tile(st));
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(dv_acc);
+          fence_regs(dk_acc);
         }
-        pack_frags<T>(s, pa);
-        wgmma_fence();
-        issue_update<T, D>(dv_acc, pa, do_tile(st));
-        wgmma_commit();
-        pack_frags<T>(dp, da);
-        wgmma_fence();
-        issue_update<T, D>(dk_acc, da, q_tile(st));
-        wgmma_commit();
-        wgmma_wait_all();
-        fence_regs(dv_acc);
-        fence_regs(dk_acc);
+        release(empty(st));  // dK's product has read Q, dV's dO
       }
-      release(empty(st));  // dK's product has read Q, dV's dO
-    }
-
-    const size_t out = (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
+      store(dk, dk_acc, sm_scale);
+      store(dv, dv_acc, 1.f);
+    } else {
+      // d 256: dV += (P o M)^T dO over every step, then dK += dS^T Q over
+      // the same steps streamed again (ring indices n_steps .. 2 n_steps).
+      auto pass = [&](auto dk_pass) {
+        constexpr bool DK = decltype(dk_pass)::value;
+        float acc[D / 2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = key0 + 8 * r;
-      if (key >= Nkv) continue;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const size_t at = out + size_t(key) * D + 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(dk + at) = Mma<T>::pack(
-            dk_acc[4 * j + 2 * r] * sm_scale, dk_acc[4 * j + 2 * r + 1] * sm_scale);
-        *reinterpret_cast<uint32_t*>(dv + at) =
-            Mma<T>::pack(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
-      }
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        for (int i = DK ? n_steps : 0; i < (DK ? 2 : 1) * n_steps; ++i) {
+          const int st = i % STAGES;
+          mbar_wait(full(st), (i / STAGES) & 1);
+          if (step_grads(i, st, dk_pass)) {
+            if constexpr (DK) pack_frags<T>(dp, da);
+            else pack_frags<T>(s, pa);
+            wgmma_fence();
+            if constexpr (DK) issue_update<T, D>(acc, da, q_tile(st));
+            else issue_update<T, D>(acc, pa, do_tile(st));
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(acc);
+          }
+          release(empty(st));  // this pass's product has read its stage
+        }
+        store(DK ? dk : dv, acc, DK ? sm_scale : 1.f);
+      };
+      pass(std::false_type{});
+      pass(std::true_type{});
     }
   }
 }
@@ -405,6 +464,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          int causal, int window, float softcap, Mods md) {
   using L = BwdLayout<D, SEG, false>;
   constexpr int STAGES = L::STAGES;
+  constexpr int BS = L::BS;
   constexpr int CHUNKS = D / CHUNK;
 
   extern __shared__ unsigned char smem_raw[];
@@ -621,12 +681,13 @@ bool encode_sweep_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* tm_q
 template <bool SEG, typename T, int D>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!encode_sweep_maps<T, D>(a, sm90::BS, sm90::BR, &tm_q, &tm_k, &tm_v, &tm_do))
+  using L = sm90::BwdLayout<D, SEG, true>;
+  if (!encode_sweep_maps<T, D>(a, L::BS, sm90::BR, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
     return launch(sm90::attn_bwd_dkv_wgmma_kernel<T, D, decltype(alibi)::value,
                                                   decltype(drop)::value, SEG>,
-                  sm90::BwdLayout<D, SEG, true>::BYTES,
+                  L::BYTES,
                   dim3((a.Nkv + sm90::BR - 1) / sm90::BR, a.B * a.Hkv), sm90::THREADS,
                   a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dk),
                   static_cast<T*>(dv), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal,
@@ -638,12 +699,13 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
 template <bool SEG, typename T, int D>
 int launch_dq_wgmma(const Args& a, void* dq) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  if (!encode_sweep_maps<T, D>(a, sm90::BR, sm90::BS, &tm_q, &tm_k, &tm_v, &tm_do))
+  using L = sm90::BwdLayout<D, SEG, false>;
+  if (!encode_sweep_maps<T, D>(a, sm90::BR, L::BS, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
     return launch(sm90::attn_bwd_dq_wgmma_kernel<T, D, decltype(alibi)::value,
                                                  decltype(drop)::value, SEG>,
-                  sm90::BwdLayout<D, SEG, false>::BYTES,
+                  L::BYTES,
                   dim3((a.Nq + sm90::BR - 1) / sm90::BR, a.B * a.Hq), sm90::THREADS,
                   a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dq),
                   a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap,

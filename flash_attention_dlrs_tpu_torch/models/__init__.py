@@ -16,6 +16,7 @@ from .decoding import (
     write_prompt_kv_all,
     write_prompt_kv_batch,
 )
+from .optim import adamw8bit
 from .train import AdamW, make_train_state, make_train_step
 from .trainer import (
     TrainSpec,
@@ -36,6 +37,7 @@ from .weights import init_params_numpy, params_from_jax, params_to_numpy
 
 __all__ = [
     "AdamW",
+    "adamw8bit",
     "KVPools",
     "ModelConfig",
     "TrainSpec",

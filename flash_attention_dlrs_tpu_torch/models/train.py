@@ -5,8 +5,9 @@ The JAX step is a pure function that donates its inputs and returns the new
 updated IN PLACE and the step returns the loss.  The optimizer reproduces
 ``optax.adamw``: moments in the parameter dtype, weight decay on every
 parameter (norms included), bias-corrected Adam with eps outside the square
-root, and optax's ``clip_by_global_norm`` rule when asked.  Mesh sharding
-and the blockwise-int8 AdamW (``optim.py``) are not ported yet.
+root, and optax's ``clip_by_global_norm`` rule when asked; or the JAX
+package's blockwise-int8 AdamW (:mod:`.optim`).  Mesh sharding is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple, Union
 
 import torch
 
+from .optim import Adam8State, AdamW8bit
 from .transformer import ModelConfig, Transformer, loss_fn
 from .weights import init_params_numpy, params_from_jax
 
@@ -37,17 +39,27 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float):
 
 @dataclasses.dataclass
 class OptState:
-    """The optimizer's state: the torch AdamW that holds the moments, and
+    """The optimizer's state: the moments, held by the torch AdamW
+    (:class:`AdamW`) or as blockwise int8 (:class:`.optim.AdamW8bit`), and
     the update count that optax's schedules read."""
 
-    adamw: torch.optim.AdamW
+    adamw: Optional[torch.optim.AdamW] = None
     count: int = 0
+    adam8: Optional[Adam8State] = None
 
     def state_dict(self) -> Dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+        state = {"count": self.count}
+        if self.adamw is not None:
+            state["adamw"] = self.adamw.state_dict()
+        if self.adam8 is not None:
+            state["adam8"] = self.adam8.state_dict()
+        return state
 
     def load_state_dict(self, state: Dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        if self.adamw is not None:
+            self.adamw.load_state_dict(state["adamw"])
+        if self.adam8 is not None:
+            self.adam8.load_state_dict(state["adam8"])
         self.count = int(state["count"])
 
 
@@ -92,21 +104,24 @@ def make_train_state(
     device="cuda",
     learning_rate: float = 3e-4,
     optimizer_name: str = "adamw",
-) -> Tuple[Transformer, OptState, AdamW]:
+) -> Tuple[Transformer, OptState, Union[AdamW, AdamW8bit]]:
     """(model, opt_state, optimizer) on ``device``.  The weights are
     ``params`` (the JAX params layout with numpy leaves, e.g. carried across
     from the JAX package) or else :func:`init_params_numpy` of ``seed``: the
-    port cannot reproduce ``jax.random``'s bits.  The optimizer is
-    ``optax.adamw(learning_rate, weight_decay=0.01)``."""
+    port cannot reproduce ``jax.random``'s bits.  ``optimizer_name``:
+    "adamw" (``optax.adamw(learning_rate, weight_decay=0.01)``, moments in
+    the parameter dtype) or "adamw8bit" (blockwise-int8 moments,
+    :class:`.optim.AdamW8bit`, weight decay 0.01)."""
     if mesh is not None:
         raise NotImplementedError(_NOT_YET.format("mesh-sharded training"))
-    if optimizer_name == "adamw8bit":
-        raise NotImplementedError(_NOT_YET.format("the adamw8bit optimizer"))
-    if optimizer_name != "adamw":
+    if optimizer_name == "adamw":
+        optimizer = AdamW(learning_rate, weight_decay=0.01)
+    elif optimizer_name == "adamw8bit":
+        optimizer = AdamW8bit(learning_rate, weight_decay=0.01)
+    else:
         raise ValueError(f"unknown optimizer {optimizer_name!r}")
     tree = init_params_numpy(cfg, seed) if params is None else params
     model = params_from_jax(tree, cfg, device=device)
-    optimizer = AdamW(learning_rate, weight_decay=0.01)
     return model, optimizer.init(model), optimizer
 
 
@@ -122,7 +137,7 @@ def dropout_seed_of(cfg: ModelConfig, dropout_seed):
     return int(dropout_seed)
 
 
-def make_train_step(cfg: ModelConfig, optimizer: AdamW, mesh=None):
+def make_train_step(cfg: ModelConfig, optimizer: Union[AdamW, AdamW8bit], mesh=None):
     """``step(model, opt_state, tokens [B, N+1], dropout_seed=None) ->
     loss``: the loss and its gradients (:func:`~.transformer.loss_fn`), then
     one optimizer update.  With ``cfg.attn_dropout`` the step needs the

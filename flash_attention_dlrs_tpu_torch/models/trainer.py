@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -27,6 +27,7 @@ from ..runtime.data import LoaderState
 from ..utils import checkpoint as ckpt_lib
 from ..utils.metrics import MetricsLogger, ThroughputMeter
 from ..ops.fwd_kernel import int32_seed
+from .optim import AdamW8bit
 from .train import _NOT_YET, AdamW, OptState, dropout_seed_of, make_train_step
 from .transformer import ModelConfig, Transformer, loss_fn
 from .weights import init_params_numpy, params_from_jax
@@ -44,7 +45,7 @@ class TrainSpec:
     weight_decay: float = 0.01
     grad_clip_norm: float = 0.0  # global-norm clip; 0 = off
     accum_steps: int = 1  # microbatches averaged per optimizer step
-    optimizer: str = "adamw"  # or "adamw8bit" (not ported yet)
+    optimizer: str = "adamw"  # or "adamw8bit" (blockwise-int8 moments)
 
     def __post_init__(self):
         if self.accum_steps < 1:
@@ -104,16 +105,16 @@ def lr_schedule(spec: TrainSpec) -> Callable[[int], float]:
                    spec.min_lr_ratio)
 
 
-def make_optimizer(spec: TrainSpec) -> AdamW:
-    """AdamW on :func:`lr_schedule`, after global-norm clipping when
+def make_optimizer(spec: TrainSpec) -> Union[AdamW, AdamW8bit]:
+    """AdamW, or the blockwise-int8 AdamW for ``spec.optimizer ==
+    "adamw8bit"``, on :func:`lr_schedule`, after global-norm clipping when
     ``spec.grad_clip_norm`` is set."""
-    if spec.optimizer == "adamw8bit":
-        raise NotImplementedError(_NOT_YET.format("the adamw8bit optimizer"))
-    return AdamW(lr_schedule(spec), weight_decay=spec.weight_decay,
-                 grad_clip_norm=spec.grad_clip_norm)
+    optimizer = AdamW8bit if spec.optimizer == "adamw8bit" else AdamW
+    return optimizer(lr_schedule(spec), weight_decay=spec.weight_decay,
+                     grad_clip_norm=spec.grad_clip_norm)
 
 
-def make_accum_train_step(cfg: ModelConfig, optimizer: AdamW, mesh=None, *,
+def make_accum_train_step(cfg: ModelConfig, optimizer: Union[AdamW, AdamW8bit], mesh=None, *,
                           accum_steps: int):
     """``step(model, opt_state, tokens [A·b, N+1], dropout_seed=None) ->
     loss``: the batch is split into ``accum_steps`` microbatches of

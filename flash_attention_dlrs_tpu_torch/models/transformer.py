@@ -21,25 +21,38 @@ Attention dropout runs only when a ``dropout_seed`` is passed (training):
 layer i draws its mask from the seed base + i·1299709, wrapped to int32 as
 the JAX package's int32 arithmetic wraps it, so a remat recompute and the
 backward see the forward's mask and training stays bitwise reproducible.
+
+Remat follows the JAX package's policies: "block" recomputes each layer in
+the backward (``torch.utils.checkpoint``); "save_flash", "save_dots" and
+"save_matmuls" keep the outputs JAX's ``checkpoint_name`` pins
+(:data:`REMAT_SAVED`) through a selective checkpoint policy, which sees the
+attention forward as one custom operator and the named projections as the
+matrix products run inside :func:`checkpoint_name`; everything else is
+recomputed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
+import threading
 from typing import Any, Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .._cuda import resolve_device
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import FLASH_FWD, flash_attention
 from ..ops.fwd_kernel import int32_seed
 from ..ops.quantization import QuantizedTensor, int8_matmul, quantize_weight
 from ..ops.reference import alibi_slopes_for
-
-_NOT_YET = "{} is not ported yet (ROADMAP.md, queue 1 of the PyTorch port)"
 
 # Projection weights (weight-only int8 under quantize_params), the optional
 # QKV biases and the optional sandwich norms of a layer.
@@ -53,9 +66,10 @@ class ModelConfig:
     """Same fields as the JAX package's ModelConfig.  ``dtype`` is a torch
     dtype.  ``remat`` with ``remat_policy="block"`` recomputes each layer in
     the backward (``torch.utils.checkpoint``), except the last
-    ``remat_skip`` layers; the policies that pin named outputs
-    (``save_flash``, ``save_dots``, ``save_matmuls``) raise
-    ``NotImplementedError``.  ``loss_chunk`` chunks the cross entropy of
+    ``remat_skip`` layers; ``save_flash``, ``save_dots`` and
+    ``save_matmuls`` keep the named outputs of :data:`REMAT_SAVED` and
+    recompute the rest (any other policy name is block remat, as in the JAX
+    package).  ``loss_chunk`` chunks the cross entropy of
     :func:`loss_fn`.  ``position_encoding="alibi"`` replaces RoPE with the
     per-head linear bias of :func:`alibi_slopes_for` (MPT/BLOOM);
     ``attn_dropout`` is the attention-probability dropout rate of training
@@ -206,11 +220,57 @@ def rms_norm(x, weight, eps=1e-6):
     return (x32 * inv * weight).to(x.dtype)
 
 
-def _proj(x, w, b=None):
+# The outputs each selective remat policy keeps (the JAX package's
+# save_only_these_names, transformer.py:380-409): the attention forward's O
+# and lse, then the MLP's gate and up products, then its down product and
+# the attention output projection.
+REMAT_SAVED = {
+    "save_flash": ("flash_o", "flash_lse"),
+    "save_dots": ("flash_o", "flash_lse", "mlp_gate", "mlp_up"),
+    "save_matmuls": ("flash_o", "flash_lse", "mlp_gate", "mlp_up", "mlp_down", "attn_wo"),
+}
+_NAMING = threading.local()
+
+
+@contextlib.contextmanager
+def checkpoint_name(name: Optional[str]):
+    """A scope whose matrix products make the output JAX names ``name``
+    (``jax.ad_checkpoint.checkpoint_name``): a selective remat policy keeps
+    the products run inside it when it pins the name.  Use as ``with
+    checkpoint_name("mlp_gate"): ...``."""
+    outer = getattr(_NAMING, "name", None)
+    _NAMING.name = name
+    try:
+        yield
+    finally:
+        _NAMING.name = outer
+
+
+def remat_policy_fn(saved):
+    """The selective checkpoint policy that keeps the outputs named in
+    ``saved``: the attention forward (its O and lse together, "flash_o" /
+    "flash_lse") and each ``aten.mm`` run inside a :func:`checkpoint_name`
+    of a saved name; every other op is recomputed."""
+    mm = torch.ops.aten.mm.default
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is FLASH_FWD:
+            keep = "flash_o" in saved
+        else:
+            keep = op is mm and getattr(_NAMING, "name", None) in saved
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _proj(x, w, b=None, name=None):
     """x @ W (+ b): ``torch.matmul``, or :func:`..ops.quantization.int8_matmul`
-    for a :class:`QuantizedWeight`; the optional bias (Qwen2's QKV biases)
-    is added in x's dtype."""
-    y = int8_matmul(x, w.tensor()) if isinstance(w, QuantizedWeight) else torch.matmul(x, w)
+    for a :class:`QuantizedWeight`, as the output JAX names ``name``
+    (:func:`checkpoint_name`); the optional bias (Qwen2's QKV biases) is
+    added in x's dtype."""
+    with checkpoint_name(name):
+        y = (int8_matmul(x, w.tensor()) if isinstance(w, QuantizedWeight)
+             else torch.matmul(x, w))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -332,9 +392,9 @@ def qkv(layer: "Block", h, cfg: ModelConfig):
     with the layer's biases where it has them."""
     lead = h.shape[:-1]
     extras = layer.extras
-    q = _proj(h, layer.wq, layer.bq if "bq" in extras else None)
-    k = _proj(h, layer.wk, layer.bk if "bk" in extras else None)
-    v = _proj(h, layer.wv, layer.bv if "bv" in extras else None)
+    q = _proj(h, layer.wq, layer.bq if "bq" in extras else None, "attn_q")
+    k = _proj(h, layer.wk, layer.bk if "bk" in extras else None, "attn_k")
+    v = _proj(h, layer.wv, layer.bv if "bv" in extras else None, "attn_v")
     return (q.reshape(*lead, cfg.n_q_heads, cfg.head_dim),
             k.reshape(*lead, cfg.n_kv_heads, cfg.head_dim),
             v.reshape(*lead, cfg.n_kv_heads, cfg.head_dim))
@@ -343,7 +403,7 @@ def qkv(layer: "Block", h, cfg: ModelConfig):
 def attn_residual(layer: "Block", x, o, cfg: ModelConfig):
     """x + o W_o, the output normed first where the layer has Gemma-2's
     sandwich norm; o [..., Hq·d]."""
-    out = _proj(o, layer.wo)
+    out = _proj(o, layer.wo, name="attn_wo")
     if "post_attn_norm" in layer.extras:
         out = rms_norm(out, layer.post_attn_norm, cfg.norm_eps)
     return x + out
@@ -395,20 +455,16 @@ def mlp_block(layer: Block, x, eps: float = 1e-6, act: str = "silu"):
     the gate's activation in fp32; the output normed first where the layer
     has Gemma-2's sandwich norm."""
     h = rms_norm(x, layer.mlp_norm, eps)
-    gate = _proj(h, layer.w_gate)
-    up = _proj(h, layer.w_up)
+    gate = _proj(h, layer.w_gate, name="mlp_gate")
+    up = _proj(h, layer.w_up, name="mlp_up")
     if act == "gelu_tanh":
         g32 = torch.nn.functional.gelu(gate.float(), approximate="tanh")
     else:
         g32 = torch.nn.functional.silu(gate.float())
-    out = _proj(g32.to(x.dtype) * up, layer.w_down)
+    out = _proj(g32.to(x.dtype) * up, layer.w_down, name="mlp_down")
     if "post_mlp_norm" in layer.extras:
         out = rms_norm(out, layer.post_mlp_norm, eps)
     return x + out
-
-
-# remat policies of the JAX package that pin named outputs
-_UNPORTED_REMAT = ("save_flash", "save_dots", "save_matmuls")
 
 
 def _block(layer: Block, x, rope_cs, cfg: ModelConfig, dropout_seed=None, layer_idx=0):
@@ -420,14 +476,12 @@ def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
                    positions=None, dropout_seed=None):
     """Token ids [B, N] → final-norm hidden states [B, N, d_model].  With
     ``cfg.remat`` and gradients on, each of the first ``n_layers −
-    remat_skip`` layers runs under ``torch.utils.checkpoint`` (the JAX
-    "block" policy): the backward recomputes it, attention kernel
-    included, with the layer's own dropout seed.  ALiBi assumes contiguous
-    positions: ``positions`` only feed RoPE.  ``dropout_seed`` (an int)
-    turns on ``cfg.attn_dropout``."""
-    if cfg.remat and cfg.remat_policy in _UNPORTED_REMAT:
-        raise NotImplementedError(
-            _NOT_YET.format(f"remat_policy={cfg.remat_policy!r}"))
+    remat_skip`` layers runs under ``torch.utils.checkpoint``: the backward
+    recomputes it with the layer's own dropout seed, the attention kernel
+    included under "block" and, under the selective policies of
+    :data:`REMAT_SAVED`, all but the outputs they keep.  ALiBi assumes
+    contiguous positions: ``positions`` only feed RoPE.  ``dropout_seed``
+    (an int) turns on ``cfg.attn_dropout``."""
     b, n = tokens.shape
     if positions is None:
         positions = torch.arange(n, device=tokens.device).expand(b, n)
@@ -437,10 +491,15 @@ def forward_hidden(model: Transformer, tokens, cfg: ModelConfig, *,
     n_ckpt = 0
     if cfg.remat and torch.is_grad_enabled():
         n_ckpt = cfg.n_layers - max(0, cfg.remat_skip)
+    selective = {}
+    if cfg.remat_policy in REMAT_SAVED:
+        selective["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, remat_policy_fn(REMAT_SAVED[cfg.remat_policy]))
     for i, layer in enumerate(model.layers):
         seed = layer_seed(dropout_seed, i) if dropping else None
         if i < n_ckpt:
-            x = checkpoint(_block, layer, x, rope_cs, cfg, seed, i, use_reentrant=False)
+            x = checkpoint(_block, layer, x, rope_cs, cfg, seed, i, use_reentrant=False,
+                           **selective)
         else:
             x = _block(layer, x, rope_cs, cfg, seed, i)
     return rms_norm(x, model.final_norm, cfg.norm_eps)
@@ -452,10 +511,42 @@ def softcapped(logits, cap: float):
     return cap * torch.tanh(logits / cap) if cap else logits
 
 
+class _HalfLogits(torch.autograd.Function):
+    """x [M, d] @ Eᵀ → fp32 [M, V] from half-precision x and E on the card:
+    one GEMM of the half operands with fp32 accumulation and output
+    (``torch.mm``'s ``out_dtype``), whose products are exact in fp32, as the
+    JAX package's ``preferred_element_type=f32`` dot makes them; no fp32
+    copy of E.  The backward runs in fp32 against E upcast, as JAX's
+    transpose of that dot does, and rounds each gradient to its input's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, e):
+        ctx.save_for_backward(x, e)
+        return torch.mm(x, e.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, e = ctx.saved_tensors
+        dx = torch.mm(g, e.float()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        de = torch.mm(g.t(), x.float()).to(e.dtype) if ctx.needs_input_grad[1] else None
+        return dx, de
+
+
+def lm_logits(x, embed):
+    """Hidden states x [..., d] → fp32 logits [..., V] against the output
+    embedding [V, d]: :class:`_HalfLogits` for bf16 / fp16 operands on the
+    card, else ``torch.matmul`` in true fp32 (the CPU plain path and fp32
+    models)."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and embed.dtype == x.dtype:
+        return _HalfLogits.apply(x.reshape(-1, x.shape[-1]), embed).reshape(*x.shape[:-1], -1)
+    return torch.matmul(x.float(), embed.float().t())
+
+
 def logits_from_hidden(x, model: Transformer, softcap: float = 0.0):
-    """Hidden states → fp32 logits: the unembedding in fp32, as the JAX
-    package's f32-accumulated dot returns them, then the final softcap."""
-    return softcapped(torch.matmul(x.float(), unembed_matrix(model).float().t()), softcap)
+    """Hidden states → fp32 logits (:func:`lm_logits`, as the JAX package's
+    f32-accumulated dot returns them), then the final softcap."""
+    return softcapped(lm_logits(x, unembed_matrix(model)), softcap)
 
 
 def forward(model: Transformer, tokens, cfg: ModelConfig, *, positions=None,
@@ -491,7 +582,7 @@ def chunked_cross_entropy(x, embed, targets, chunk: int, softcap: float = 0.0):
 
 
 def _chunk_nll(x_c, embed, t_c, softcap=0.0):
-    logits = softcapped(torch.matmul(x_c.float(), embed.float().t()), softcap)
+    logits = softcapped(lm_logits(x_c, embed), softcap)
     return torch.nn.functional.cross_entropy(
         logits.flatten(0, 1), t_c.flatten(), reduction="sum")
 

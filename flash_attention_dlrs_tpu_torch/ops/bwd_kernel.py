@@ -2,10 +2,13 @@
 
 The kernels are ``csrc/attn_bwd.cuh`` (the D preprocess, the fp32 sweeps
 and the C entries) and ``csrc/attn_bwd_sm90.cuh`` (the bf16 / fp16 sweeps):
-``attn_bwd_preprocess`` (D = rowsum(O ∘ dO)), ``attn_bwd_dkv`` and
-``attn_bwd_dq``, the two sweeps built twice: ``csrc/attn_bwd.cu`` without
-segment ids and ``csrc/attn_bwd_seg.cu`` with them (``attn_bwd_dkv_seg``,
-``attn_bwd_dq_seg``), each entry with its own launch count.  Each sweep
+``attn_bwd_preprocess`` (D = rowsum(O ∘ dO), any head dim), ``attn_bwd_dkv``
+and ``attn_bwd_dq``, the two sweeps built three times: ``csrc/attn_bwd.cu``
+at head dims 64 and 128 without segment ids, ``csrc/attn_bwd_seg.cu`` with
+them (``attn_bwd_dkv_seg``, ``attn_bwd_dq_seg``) and ``csrc/attn_bwd_d256.cu``
+at head dim 256 (``attn_bwd_dkv_d256``, ``attn_bwd_dq_d256``; without ALiBi,
+dropout or segment ids, which are still to port there), each entry with its
+own launch count.  Each sweep
 call takes one of two routes, fixed by :func:`bwd_route` from the call's
 types alone and counted per sweep in :data:`BWD_ROUTE_LAUNCHES`:
 ``"wgmma"`` (the Hopper kernels: warpgroup products, TMA, a producer
@@ -35,19 +38,22 @@ import torch
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
-    D256_TODO,
+    KERNEL_WIDTHS,
     MOD_ARGS,
     ROUTE_CODES,
     _row_bias,
     bias_and_mask,
+    check_kernel_head_dim,
     check_segments,
     dropout_rows,
     mod_args,
+    refuse_d256_modes,
 )
 
-# The head dims the backward kernels are built for (256 is still to port:
-# ROADMAP.md, queue 2).
-BWD_HEAD_DIMS = (64, 128)
+# The head dims the backward kernels are built for (the forward's): 256 in a
+# build of its own, without ALiBi, dropout or segment ids
+# (:func:`..fwd_kernel.refuse_d256_modes`).
+BWD_HEAD_DIMS = KERNEL_WIDTHS
 
 PREPROCESS_KERNEL = CudaKernel(
     "attn_bwd.cu",
@@ -71,15 +77,18 @@ DKV_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dkv", _DKV_ARGS)
 DQ_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dq", _DQ_ARGS)
 DKV_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dkv_seg", _DKV_ARGS)
 DQ_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dq_seg", _DQ_ARGS)
+DKV_D256_KERNEL = CudaKernel("attn_bwd_d256.cu", "attn_bwd_dkv_d256", _DKV_ARGS)
+DQ_D256_KERNEL = CudaKernel("attn_bwd_d256.cu", "attn_bwd_dq_d256", _DQ_ARGS)
 
 # The launches of each sweep on each route (the C entries' route codes are
-# the forward's, ops/fwd_kernel.py ROUTE_CODES), over both builds; set to 0
-# by whoever reads them.
+# the forward's, ops/fwd_kernel.py ROUTE_CODES), over the three builds; set
+# to 0 by whoever reads them.
 BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
 
 
-def bwd_route(dtype, head_dim: int, segments: bool = False) -> str:
+def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
+              dropout: bool = False) -> str:
     """The kernel route of a backward sweep call, from its types alone:
 
     ========  ==========================================================
@@ -90,23 +99,17 @@ def bwd_route(dtype, head_dim: int, segments: bool = False) -> str:
     wgmma     bf16 / fp16 q, with or without segment ids
     ========  ==========================================================
 
-    Segment ids are a mode of both routes and change neither.  d must be
-    64 or 128 on every route (the backward at 256 is still to port);
-    anything else raises."""
-    _check_head_dim(head_dim)
+    Segment ids, ALiBi and dropout are modes of both routes and change
+    neither.  d must be 64, 128 or 256 on every route (256 without those
+    modes: :func:`..fwd_kernel.refuse_d256_modes`); anything else raises."""
+    check_kernel_head_dim(head_dim, "attn_bwd kernels", BWD_HEAD_DIMS)
+    refuse_d256_modes(head_dim, **{"segment ids": segments, "ALiBi": alibi,
+                                   "dropout": dropout})
     if dtype == torch.float32:
         return "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
     return "wgmma"
-
-
-def _check_head_dim(head_dim: int) -> None:
-    if head_dim == 256:
-        raise ValueError(D256_TODO.format("the attention backward"))
-    if head_dim not in BWD_HEAD_DIMS:
-        raise ValueError(f"attn_bwd kernels take head_dim in {BWD_HEAD_DIMS}, "
-                         f"got {head_dim}")
 
 
 def _check_cuda(q, k, v, o, lse, do) -> None:
@@ -122,7 +125,7 @@ def _check_cuda(q, k, v, o, lse, do) -> None:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {q.dtype}")
-    _check_head_dim(q.shape[-1])
+    check_kernel_head_dim(q.shape[-1], "attn_bwd kernels", BWD_HEAD_DIMS)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("lse must be contiguous float32")
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
@@ -159,6 +162,20 @@ def _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
                 dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
 
 
+def _route(q, *, alibi_slopes, dropout_rate, q_seg, **_):
+    """:func:`bwd_route` of a sweep call on q."""
+    return bwd_route(q.dtype, q.shape[-1], q_seg is not None, alibi_slopes is not None,
+                     bool(dropout_rate))
+
+
+def _kernel(q, q_seg, plain_build, seg_build, d256_build):
+    """The build of a sweep that takes the call: the d256 one at head dim 256,
+    else the one with or without segment ids."""
+    if q.shape[-1] == 256:
+        return d256_build
+    return plain_build if q_seg is None else seg_build
+
+
 def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                  softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
                  q_seg=None, kv_seg=None):
@@ -169,9 +186,9 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
-    route = bwd_route(q.dtype, q.shape[-1], q_seg is not None)
+    route = _route(q, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kernel = DKV_KERNEL if q_seg is None else DKV_SEG_KERNEL
+    kernel = _kernel(q, q_seg, DKV_KERNEL, DKV_SEG_KERNEL, DKV_D256_KERNEL)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                   ptr(dk), ptr(dv), *_sweep_args(q, k, route, **kw))
     BWD_ROUTE_LAUNCHES["attn_bwd_dkv"][route] += 1
@@ -188,9 +205,9 @@ def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
-    route = bwd_route(q.dtype, q.shape[-1], q_seg is not None)
+    route = _route(q, **kw)
     dq = torch.empty_like(q)
-    kernel = DQ_KERNEL if q_seg is None else DQ_SEG_KERNEL
+    kernel = _kernel(q, q_seg, DQ_KERNEL, DQ_SEG_KERNEL, DQ_D256_KERNEL)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                   ptr(dq), *_sweep_args(q, k, route, **kw))
     BWD_ROUTE_LAUNCHES["attn_bwd_dq"][route] += 1
@@ -210,7 +227,8 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     tensors take :func:`attn_bwd_plain`; CUDA tensors launch the three
     kernels (preprocess, dK/dV sweep, dQ sweep; the sweeps on the route of
     :func:`bwd_route`), which take contiguous fp32/bf16/fp16 inputs with d
-    in {64, 128}, or raise."""
+    in {64, 128, 256} (256 without ALiBi, dropout or segment ids), or
+    raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":

@@ -40,7 +40,8 @@ import torch
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
 from .fwd_kernel import (
-    DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, pad_head_dim, refuse_d256_modes,
+    DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, check_kernel_head_dim, pad_head_dim,
+    refuse_d256_modes,
 )
 from .quantization import (
     Int4QuantizedTensor,
@@ -180,9 +181,7 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
     Both routes take every page size (int4: even) and d 64, 128 or 256
     (256 without ``alibi``).  What no route takes raises."""
-    if head_dim not in PAGED_HEAD_DIMS:
-        raise ValueError(f"paged verify kernel takes head_dim in {PAGED_HEAD_DIMS}, "
-                         f"got {head_dim}")
+    check_kernel_head_dim(head_dim, "paged verify kernel", PAGED_HEAD_DIMS)
     refuse_d256_modes(head_dim, **{"ALiBi in the paged verify kernel": alibi})
     if pool_kind not in POOL_KINDS:
         raise ValueError(f"paged verify kernel takes pools of {list(POOL_KINDS)}, "
@@ -319,9 +318,7 @@ def _check_cuda(q, pools, lengths, page_indices, head_dim, what):
         raise ValueError("lengths and page_indices must be int32")
     if q.dtype not in DTYPE_CODES:
         raise ValueError(f"{what} kernel takes fp32/bf16/fp16 q, not {q.dtype}")
-    if head_dim not in PAGED_HEAD_DIMS:
-        raise ValueError(
-            f"{what} kernel takes head_dim in {PAGED_HEAD_DIMS}, got {head_dim}")
+    check_kernel_head_dim(head_dim, f"{what} kernel", PAGED_HEAD_DIMS)
 
 
 def _scale_in(sm_scale: float, dtype) -> float:

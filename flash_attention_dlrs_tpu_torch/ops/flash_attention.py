@@ -5,10 +5,11 @@
 - :func:`flash_attention_backward` returns ``(dQ, dK, dV)`` from the
   forward's O and L (under ALiBi by default from the forward kernel's own
   replayed L: ``rederive_stats``);
-- :func:`flash_attention` is the differentiable op, a
-  ``torch.autograd.Function`` in place of the JAX ``custom_vjp``: its
-  forward saves (q, k, v, O, L) and the segment ids, and its backward runs
-  the backward kernels.
+- :func:`flash_attention` is the differentiable op, a custom operator
+  (``torch.library``) with a registered backward in place of the JAX
+  ``custom_vjp``: its forward saves (q, k, v, O, L) and the segment ids, and
+  its backward runs the backward kernels.  As one dispatcher op it is what a
+  selective checkpoint policy can keep (JAX's "flash_o" / "flash_lse").
 
 The JAX package splits the forward over four TPU routes and the backward
 over six, chosen by length; here one forward kernel (``csrc/attn_fwd.cuh``)
@@ -26,12 +27,14 @@ zero-pads q, k and v to the next of them (:func:`..fwd_kernel.kernel_width`,
 on every device, as the JAX package pads to 128 lanes), takes ``sm_scale``
 from the true head_dim and slices O (and dQ, dK, dV) back.  The padding is
 exact: zero columns add nothing to a score, and zero V columns are sliced
-off.  A head_dim above 256 raises.
+off.  A head_dim above 256 is padded to a multiple of 128 and runs on the
+plain versions (CPU tensors); on the card its kernels raise, naming the
+queue that ports them.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -259,27 +262,50 @@ def flash_attention_backward(
     return tuple(g[..., :d] for g in grads)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, its (O, L) and the segment ids saved, and the
-    backward kernels on them; ``kw`` holds the kernels' other normalized
-    keyword arguments (ALiBi slopes and the dropout rate and seed among
-    them).  The segment ids get no gradient; fp8 V has no backward."""
+# The differentiable forward is a custom operator (torch.library), so that a
+# selective checkpoint policy sees it as one op and can keep its (O, L)
+# instead of replaying it (models/transformer.py, remat_policy="save_flash"
+# and the others, JAX's checkpoint names "flash_o" / "flash_lse"); its
+# backward runs the backward kernels on the saved (q, k, v, O, L).
+@torch.library.custom_op("flash_attention_dlrs_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor],
+               causal: bool, sm_scale: float, window: int, softcap: float,
+               alibi_slopes: Optional[List[float]], dropout_rate: float,
+               dropout_seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, L) of the forward kernel (:func:`..fwd_kernel.attn_fwd`)."""
+    return attn_fwd(q, k, v, **_op_kw(q_seg, kv_seg, causal, sm_scale, window, softcap,
+                                      alibi_slopes, dropout_rate, dropout_seed))
 
-    @staticmethod
-    def forward(ctx, q, k, v, q_seg, kv_seg, kw):
-        o, lse = attn_fwd(q, k, v, q_seg=q_seg, kv_seg=kv_seg, **kw)
-        ctx.save_for_backward(q, k, v, o, lse, q_seg, kv_seg)
-        ctx.kw = kw
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
-        if v.dtype in FP8_DTYPES:
-            raise NotImplementedError(_FP8_BACKWARD)
-        dq, dk, dv = attn_bwd(q, k, v, o, lse, do.contiguous(), q_seg=q_seg,
-                              kv_seg=kv_seg, **ctx.kw)
-        return dq, dk, dv, None, None, None
+def _op_kw(q_seg, kv_seg, causal, sm_scale, window, softcap, alibi_slopes,
+           dropout_rate, dropout_seed):
+    return dict(q_seg=q_seg, kv_seg=kv_seg, causal=causal, sm_scale=sm_scale,
+                window=window, softcap=softcap,
+                alibi_slopes=None if alibi_slopes is None else tuple(alibi_slopes),
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, q_seg, kv_seg, *args = inputs
+    ctx.save_for_backward(q, k, v, *output, q_seg, kv_seg)
+    ctx.args = args
+
+
+def _flash_fwd_backward(ctx, do, _dlse):
+    """The backward kernels on the saved (q, k, v, O, L); the segment ids
+    and the other arguments get no gradient, fp8 V has no backward."""
+    q, k, v, o, lse, q_seg, kv_seg = ctx.saved_tensors
+    if v.dtype in FP8_DTYPES:
+        raise NotImplementedError(_FP8_BACKWARD)
+    dq, dk, dv = attn_bwd(q, k, v, o, lse, do.contiguous(),
+                          **_op_kw(q_seg, kv_seg, *ctx.args))
+    return (dq, dk, dv) + (None,) * (2 + len(ctx.args))
+
+
+_flash_fwd.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
+# the operator as a selective checkpoint policy meets it
+FLASH_FWD = torch.ops.flash_attention_dlrs_tpu_torch.flash_fwd.default
 
 
 def flash_attention(
@@ -303,7 +329,10 @@ def flash_attention(
     backward raises ``NotImplementedError``)."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
                   logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
-    q_seg, kv_seg = kw.pop("q_seg"), kw.pop("kv_seg")
+    slopes = kw["alibi_slopes"]
     d = q.shape[-1]
     q, k, v = _padded(q, k, v)  # the pad's backward slices the gradients
-    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, kw)[..., :d]
+    o, _ = _flash_fwd(q, k, v, kw["q_seg"], kw["kv_seg"], kw["causal"], kw["sm_scale"],
+                      kw["window"], kw["softcap"], None if slopes is None else list(slopes),
+                      kw["dropout_rate"], kw["dropout_seed"])
+    return o[..., :d]

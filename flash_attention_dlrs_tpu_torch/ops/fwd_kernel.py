@@ -43,6 +43,8 @@ LN2 = 0.6931471805599453
 # zero-padded to the next of them (:func:`kernel_width`), as the JAX package
 # pads to 128 lanes.  The forward takes all three; at 256 only the modes
 # Gemma uses (no ALiBi, dropout, segment ids or fp8 V: :func:`refuse_d256_modes`).
+# Wider heads are padded to a multiple of 128, as in the JAX package, and
+# run on the plain versions only (:func:`check_kernel_head_dim`).
 KERNEL_WIDTHS = (64, 128, 256)
 FWD_HEAD_DIMS = KERNEL_WIDTHS
 D256_TODO = ("{} at head_dim 256 is not ported yet (ROADMAP.md, queue 2 of the "
@@ -89,15 +91,28 @@ ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 
 
 def kernel_width(head_dim: int) -> int:
-    """The kernel head dim that ``head_dim`` is zero-padded to: the least
-    of :data:`KERNEL_WIDTHS` that holds it.  Zero columns add nothing to a
-    score and zero V columns are sliced off, so the padding is exact.  A
-    head_dim above 256 raises."""
+    """The head dim that ``head_dim`` is zero-padded to: the least of
+    :data:`KERNEL_WIDTHS` that holds it, and above 256 the next multiple of
+    128 (the JAX package's lanes), which only the plain versions take.
+    Zero columns add nothing to a score and zero V columns are sliced off,
+    so the padding is exact."""
     for width in KERNEL_WIDTHS:
         if head_dim <= width:
             return width
-    raise ValueError(f"head_dim {head_dim} is above {KERNEL_WIDTHS[-1]}, the widest "
-                     "kernel head dim")
+    return -(-head_dim // 128) * 128
+
+
+def check_kernel_head_dim(head_dim: int, what: str, widths=KERNEL_WIDTHS) -> None:
+    """Raise unless ``what`` (a kernel) is built for ``head_dim``; above
+    the widest kernel the message names the queue that ports it."""
+    if head_dim in widths:
+        return
+    msg = f"{what}: head_dim must be one of {widths}, got {head_dim}"
+    if head_dim > widths[-1]:
+        msg += (": head dims above 256 run on the plain versions only (CPU "
+                "tensors); their kernels are still to port (ROADMAP.md, queue 2 "
+                "of the PyTorch port)")
+    raise ValueError(msg)
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -127,9 +142,7 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
     Segment ids, fp8 V, ALiBi and dropout are modes of both routes and
     change neither.  d must be 64, 128 or 256 on every route (256 without
     those modes: :func:`refuse_d256_modes`); anything else raises."""
-    if head_dim not in FWD_HEAD_DIMS:
-        raise ValueError(f"attn_fwd kernel takes head_dim in {FWD_HEAD_DIMS}, "
-                         f"got {head_dim}")
+    check_kernel_head_dim(head_dim, "attn_fwd kernel", FWD_HEAD_DIMS)
     refuse_d256_modes(head_dim, **{"segment ids": segments, "fp8 V": fp8_v,
                                    "ALiBi": alibi, "dropout": dropout})
     if dtype == torch.float32:

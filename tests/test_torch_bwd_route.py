@@ -3,7 +3,8 @@
 ``bwd_route`` fixes a backward sweep call's kernel from its types alone;
 every (dtype, segment ids, head dim) combination is held against the table
 of PERF.md: fp32 calls take the CUDA-core sweeps, every bf16/fp16 call
-(with or without segment ids) the Hopper ``wgmma`` sweeps.
+(with or without segment ids) the Hopper ``wgmma`` sweeps; at head dim 256
+the same routes without ALiBi, dropout or segment ids, which raise.
 
 The plain backward (``attn_bwd_plain``, which CPU tensors take, and the
 yardstick ``chip_smoke.py`` holds the kernels to on the card) is held
@@ -51,11 +52,37 @@ def test_route_table(dtype, segments, d):
     assert all(route in counts for counts in tbwd.BWD_ROUTE_LAUNCHES.values())
 
 
+# d 256 without modes: both routes, like d 64 and 128
+D256_ROUTES = {torch.float32: "fp32", torch.bfloat16: "wgmma", torch.float16: "wgmma"}
+
+
+@pytest.mark.parametrize("dtype", sorted(D256_ROUTES, key=str))
+def test_route_table_d256(dtype):
+    route = tbwd.bwd_route(dtype, 256)
+    assert route == D256_ROUTES[dtype]
+    assert all(route in counts for counts in tbwd.BWD_ROUTE_LAUNCHES.values())
+
+
+@pytest.mark.parametrize("mode", ["segments", "alibi", "dropout"])
+@pytest.mark.parametrize("dtype", sorted(D256_ROUTES, key=str))
+def test_route_refuses_the_modes_d256_lacks(dtype, mode):
+    """ALiBi, dropout and segment ids at d 256 raise, naming queue 2."""
+    with pytest.raises(ValueError, match="head_dim 256 is not ported yet"):
+        tbwd.bwd_route(dtype, 256, **{mode: True})
+
+
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float32, 256),
                                      (torch.float64, 64), (torch.int8, 128)])
 def test_route_refuses_what_no_kernel_takes(dtype, d):
+    """A head dim no kernel is built for, a dtype none takes, and at d 256
+    segment ids, which that build lacks."""
     with pytest.raises(ValueError):
-        tbwd.bwd_route(dtype, d)
+        tbwd.bwd_route(dtype, d, segments=d == 256)
+
+
+def test_route_refuses_head_dims_above_256_naming_queue_2():
+    with pytest.raises(ValueError, match="queue 2"):
+        tbwd.bwd_route(torch.bfloat16, 384)
 
 
 def test_cpu_calls_count_no_route():

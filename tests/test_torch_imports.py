@@ -126,12 +126,12 @@ def test_kernel_launch_without_a_toolchain_raises():
 def test_library_names_follow_the_source_hash():
     from flash_attention_dlrs_tpu_torch import _cuda
 
-    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_bwd_seg.cu", "attn_fwd.cu",
-                                   "attn_fwd_seg.cu", "paged_decode.cu",
+    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_bwd_d256.cu", "attn_bwd_seg.cu",
+                                   "attn_fwd.cu", "attn_fwd_seg.cu", "paged_decode.cu",
                                    "paged_verify.cu"]
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 6
+    assert len({p.name for p in paths}) == 7
 
 
 def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
