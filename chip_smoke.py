@@ -4,8 +4,8 @@
 Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers,
 spills and serialization warnings of the wgmma instances of the forward and
 of the backward sweeps, and the registers, shared memory, spills and
-warnings of every paged instance), and beside them three broken copies of
-the dK/dV sweep (one at head dim 256) and two of the paged kernels (a
+warnings of every paged instance), and beside them four broken copies of
+the dK/dV sweep (two at head dim 256) and two of the paged kernels (a
 decode merge that drops the last key split, a verify that leaves a
 horizon-crossing tile unmasked);
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
@@ -52,7 +52,9 @@ Then drives every path of the port:
   (B8, N2048, 32 q / 8 kv heads, head_dim 128, bf16) through the op API
   with a packed loader's segment ids and with SegmentIds(q, kv) of
   different lengths, through nn.dot_product_attention on padded batches,
-  forward and backward, and fp8 V through the op API;
+  forward and backward, and fp8 V through the op API; then the same at
+  Gemma-2-2B's attention shape (B2, N8192, 8 q / 4 kv heads of 256), with
+  ALiBi and ALiBi + dropout besides;
 - Gemma-2-2B (serve_gemma2): the published google/gemma-2-2b config at
   full width and depth (26 layers, head_dim 256, softcaps, a 4096 window
   on even layers), imported by import_hf_gemma from a random HF-named
@@ -64,14 +66,20 @@ Then drives every path of the port:
   the same in weight-only int8 and Phi-3-mini-4k (head_dim 96, a 2047
   window) at their published widths and 4 layers, through their importers,
   eager and graphed with equal tokens, and 2-layer fp32 copies;
+- ALiBi at head dim 256 (serve_alibi_d256): Gemma-2-2B's attention widths
+  with position_encoding="alibi", 4 layers, served as serve_alibi serves
+  (bf16 and int8 KV, chunked with the prefix cache);
 - Gemma-2-2B trained (train_gemma2): the published config at full width
   and depth from random HF-named weights through import_hf_gemma, B2 x
   N8192 (its window bites), block remat, AdamW: ms/step, tokens/s, MFU,
-  peak, exact launches of the head-dim-256 kernels (csrc/attn_bwd_d256.cu),
+  peak, exact launches of the head-dim-256 kernels (csrc/attn_*_d256.cu),
   the LM head in fp32 against half-precision operands, a windowed and a
   global layer's attention against the plain versions, a 2-layer fp32 copy;
   then the same weights under remat_policy="save_flash" and with the
-  blockwise-int8 AdamW;
+  blockwise-int8 AdamW; and again under attn_dropout=0.1
+  (train_gemma2_dropout: 1 warm and 2 timed steps, the d256 dropout
+  kernels' launches exact, a windowed and a global layer and a 2-layer fp32
+  copy against the plain path);
 - the remat policies (remat): block, save_flash, save_dots and
   save_matmuls on the training-bench model (ms/step, peak, launches) and
   their 2-layer fp32 copies, bitwise equal;
@@ -121,17 +129,25 @@ import numpy as np
 PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16/fp16, H100 SXM
 PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
 
-# the forward's bf16 / fp16 kernel body (built into attn_fwd.cu, attn_fwd_seg.cu)
+# the forward's bf16 / fp16 kernel body (built into the six attn_fwd*.cu)
 FWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_sm90.cuh"
+# the forward's head-dim-256 builds, without and with segment ids
+FWD_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_d256.cu"
+FWD_D256_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_d256_seg.cu"
 FWD_REPLACES = (
     "flash_attention_dlrs_tpu/ops/fwd_kernel.py:197; "
     "flash_attention_dlrs_tpu/ops/fwd_mid.py:211; "
     "flash_attention_dlrs_tpu/ops/fwd_mid.py:572; "
     "flash_attention_dlrs_tpu/ops/fwd_small.py:69"
 )
-DECODE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode.cu"
+# the paged kernels' bodies (csrc/paged_decode.cuh, paged_verify.cuh), each
+# built once for each pool head dim (paged_decode.cu and paged_verify.cu at
+# 128, *_d64.cu, *_d256.cu)
+DECODE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode.cuh"
+DECODE_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode_d256.cu"
 DECODE_REPLACES = "flash_attention_dlrs_tpu/ops/decode.py:44 (called at decode.py:438)"
-VERIFY_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify.cu"
+VERIFY_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify.cuh"
+VERIFY_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify_d256.cu"
 VERIFY_REPLACES = ("flash_attention_dlrs_tpu/ops/decode.py:44 (multi-token mode, "
                    "num_tokens > 1; called at decode.py:438 via paged_verify_attention, "
                    "decode.py:716)")
@@ -141,7 +157,8 @@ KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
 BWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd.cu"
 # the sweeps' head-dim-256 instances (csrc/attn_bwd_sm90.cuh, attn_bwd.cuh)
 BWD_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_d256.cu"
-# the sweeps' bf16 / fp16 kernel bodies (built into attn_bwd.cu, attn_bwd_seg.cu)
+BWD_D256_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_d256_seg.cu"
+# the sweeps' bf16 / fp16 kernel bodies (built into the six attn_bwd*.cu)
 BWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_sm90.cuh"
 BWD_REPLACES = {
     "attn_bwd_preprocess": "flash_attention_dlrs_tpu/ops/bwd_kernel.py:59",
@@ -339,6 +356,11 @@ BWD_MUTANTS = {
         ("          }\n          release(empty(st));  // this pass's product has read its stage",
          "          } else {\n            release(empty(st));\n          }"),
     ]),
+    # d 256 with dropout: the second (dK) pass builds dS from dP without the
+    # keep mask, while the first (dV) pass still drops P
+    "d256_dkv_pass2_skips_keep_mask": ("attn_bwd_d256.cu", BWD_SM90, [(
+        "const float dpv = DROP ? dp[4 * j + e] * keep : dp[4 * j + e];",
+        "const float dpv = dp[4 * j + e];")]),
 }
 
 
@@ -366,10 +388,11 @@ def start_mutant_builds(mutants):
             text = text.replace(old, new)
         path.write_text(text)
         lib = root / source.replace(".cu", ".so")
-        proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
-                                 str(root / "csrc" / source)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                preexec_fn=lambda: os.nice(19))
+        with open(root / "nvcc.log", "wb") as log:  # a file: no pipe to fill
+            proc = subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
+                                     str(root / "csrc" / source)],
+                                    stdout=log, stderr=subprocess.STDOUT,
+                                    preexec_fn=lambda: os.nice(19))
         running[name] = (proc, lib, source)
     return running
 
@@ -379,9 +402,9 @@ def wait_mutant_builds(builds) -> float:
     :func:`start_mutant_builds`); raises if one failed.  Returns the
     seconds it waited."""
     t0 = time.perf_counter()
-    for name, (proc, _, _) in builds.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
+    for name, (proc, lib, _) in builds.items():
+        if proc.wait():
+            log = (lib.parent / "nvcc.log").read_text(errors="replace")
             raise RuntimeError(f"mutant {name} did not build:\n{log[-4000:]}")
     return time.perf_counter() - t0
 
@@ -409,7 +432,7 @@ def _check_instances(rec, built, sources, entry, flags, marker, count, key):
     return warnings
 
 
-# The paged kernels' instances (csrc/paged_decode.cu, csrc/paged_verify.cu):
+# The paged kernels' instances (csrc/paged_decode.cuh, paged_verify.cuh):
 # pool kind codes of csrc/paged.cuh PoolKind.
 PAGED_KIND_NAMES = ("fp32", "bf16", "fp16", "int8", "int4", "e4m3", "e5m2")
 PAGED_ENTRIES = (
@@ -485,54 +508,87 @@ def paged_instances(log, source):
 # decode_check must fail on each (phase paged_mutants).
 PAGED_MUTANTS = {
     # the merge of the splits drops the last split's partial
-    "decode_combine_drops_last_split": ("paged_decode.cu", "paged_decode.cu", [(
+    "decode_combine_drops_last_split": ("paged_decode.cu", "paged_decode.cuh", [(
         "    for (int s = 0; s < splits; ++s) {\n      const float ws",
         "    for (int s = 0; s < splits - 1; ++s) {\n      const float ws")]),
     # a tile that crosses a row's horizon (but not the split's end) unmasked
-    "verify_horizon_tile_unmasked": ("paged_verify.cu", "paged_verify.cu", [(
+    "verify_horizon_tile_unmasked": ("paged_verify.cu", "paged_verify.cuh", [(
         "const bool masked = n0 + V_BN > open;",
         "const bool masked = n0 + V_BN > k_hi;")]),
 }
 
 
+# The head-dim-256 builds of the forward and the backward sweeps.
+D256_SOURCES = ("attn_fwd_d256.cu", "attn_fwd_d256_seg.cu", "attn_bwd_d256.cu",
+                "attn_bwd_d256_seg.cu")
+
+
+def d256_shared_bytes():
+    """The dynamic shared memory (bytes, of the 232,448 a CTA may opt into)
+    of every d256 instance's layout, from the builds' *_shared_bytes
+    entries: the forward's by route and fp8 V, the sweeps' by sweep and
+    route (the mode flags ALiBi and dropout add none)."""
+    import ctypes
+    from flash_attention_dlrs_tpu_torch import _cuda
+
+    out = {}
+    for source in D256_SOURCES:
+        stem = source.split(".")[0]
+        fn = getattr(ctypes.CDLL(str(_cuda.library_path(source))), f"{stem}_shared_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+        if stem.startswith("attn_fwd"):
+            out.update({f"{stem}_{route}{'_fp8v' if v8 else ''}": fn(code, v8)
+                        for route, code in (("fp32", 0), ("wgmma", 1)) for v8 in (0, 1)})
+        else:
+            out.update({f"{stem}_{sweep}_{route}": fn(dkv, code)
+                        for sweep, dkv in (("dkv", 1), ("dq", 0))
+                        for route, code in (("fp32", 0), ("wgmma", 1))})
+    return out
+
+
 def phase_build(mutants=False):
-    """Builds every source and, with ``mutants``, starts the backward and
-    paged mutant builds first and returns them: they compile beside it at
-    the lowest CPU priority, so the main build keeps the cores it needs."""
+    """Builds every source and, with ``mutants``, then starts the backward
+    and paged mutant builds and returns them: they compile at the lowest CPU
+    priority while the next phases run (phases mutants and paged_mutants
+    wait for them), so the main build has every core."""
     from flash_attention_dlrs_tpu_torch import _cuda
 
     t0 = time.perf_counter()
+    built = _cuda.build()
+    build_s = time.perf_counter() - t0
     mutant_builds = ((start_mutant_builds(BWD_MUTANTS), start_mutant_builds(PAGED_MUTANTS))
                      if mutants else ({}, {}))
-    built = _cuda.build()
     info = {}
     for src, rec in built.items():
         ptxas = [l.strip() for l in rec["log"].splitlines()
                  if "registers" in l or "spill" in l or "smem" in l]
         info[src] = {"seconds": round(rec["seconds"], 3), "ptxas": ptxas}
-    rec = {"phase": "build", "seconds": time.perf_counter() - t0,
-           "sources": _cuda.all_sources(), "built": info}
+    rec = {"phase": "build", "seconds": build_s, "sources": _cuda.all_sources(),
+           "built": info}
     fwd_warnings, bwd_warnings = [], []
-    if "attn_fwd.cu" in built and "attn_fwd_seg.cu" in built:
-        # 2 dtypes x 2 head dims x 2^4 modes, and 2 dtypes at d 256 (no mode)
-        fwd_warnings = _check_instances(rec, built, ("attn_fwd.cu", "attn_fwd_seg.cu"), WGMMA_ENTRY,
-                         WGMMA_FLAGS, "attn_fwd_wgmma_kernel", 66, "wgmma")
-    bwd_sources = ("attn_bwd.cu", "attn_bwd_seg.cu", "attn_bwd_d256.cu")
+    fwd_sources = tuple(f"attn_fwd{d}{s}.cu" for d in ("_d64", "", "_d256")
+                        for s in ("", "_seg"))
+    if all(src in built for src in fwd_sources):
+        # 2 dtypes x 3 head dims x 2^4 modes
+        fwd_warnings = _check_instances(rec, built, fwd_sources, WGMMA_ENTRY, WGMMA_FLAGS,
+                                        "attn_fwd_wgmma_kernel", 96, "wgmma")
+    bwd_sources = tuple(f"attn_bwd{d}{s}.cu" for d in ("_d64", "", "_d256")
+                        for s in ("", "_seg"))
     if all(src in built for src in bwd_sources):
-        # 2 sweeps x 2 dtypes x 2 head dims x 2^3 modes, and 2 sweeps x 2
-        # dtypes at d 256 (no mode)
+        # 2 sweeps x 2 dtypes x 3 head dims x 2^3 modes
         bwd_warnings = _check_instances(rec, built, bwd_sources, BWD_WGMMA_ENTRY,
-                                        BWD_WGMMA_FLAGS, "_wgmma_kernel", 68, "bwd_wgmma")
+                                        BWD_WGMMA_FLAGS, "_wgmma_kernel", 96, "bwd_wgmma")
+    if all(src in built for src in D256_SOURCES):
+        rec["d256_shared_bytes"] = d256_shared_bytes()
     paged = {}
-    for src in ("paged_decode.cu", "paged_verify.cu"):
+    for src in (f"paged_{k}{d}.cu" for k in ("decode", "verify") for d in ("_d64", "", "_d256")):
         if src in built:
             paged.update(paged_instances(built[src]["log"], src))
     serialized = {k: v["ptxas_warnings"] for k, v in paged.items()
                   if k.startswith("verify_wgmma") and v["ptxas_warnings"]}
     if paged:
-        # 7 kinds x 2 head dims x 2^2 modes + 7 x 2 (softcap) at d 256;
-        # 2 dtypes x 5 kinds x (2 head dims x 2^2 modes + 2 at d 256), and
-        # 3 fp32 instances
+        # 7 kinds x 3 head dims x 2^2 modes; 2 dtypes x 5 kinds x 3 head dims
+        # x 2^2 modes, and 3 fp32 instances
         rec.update(paged_instances=paged, paged_spilling={
             k: v for k, v in paged.items() if v.get("spill_stores") or v.get("spill_loads")})
     emit(rec)
@@ -544,7 +600,7 @@ def phase_build(mutants=False):
         raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
     counts = {k: sum(n.startswith(k) for n in paged)
               for k in ("decode_", "verify_wgmma_", "verify_fp32_")}
-    if paged and counts != {"decode_": 70, "verify_wgmma_": 100, "verify_fp32_": 3}:
+    if paged and counts != {"decode_": 84, "verify_wgmma_": 120, "verify_fp32_": 3}:
         raise AssertionError(f"unexpected paged instances: {counts}")
     return mutant_builds
 
@@ -754,6 +810,51 @@ def phase_fwd(dev):
         ("d256_fp32_none", f32, 1, 4, 2, 256, 256, 256, True, 0, 0.0, {}),
         ("d256_fp32_softcap", f32, 1, 8, 4, 300, 300, 256, True, 0, 50.0, {}),
         ("d256_fp32_window", f32, 1, 4, 2, 512, 512, 256, True, 100, 0.0, {}),
+        # head_dim 256 with every other mode (attn_fwd_d256.cu,
+        # attn_fwd_d256_seg.cu): ALiBi, dropout, segment ids and fp8 V at
+        # the 64-key tiles' and 128-row tiles' edges (ragged Nq / Nkv, GQA,
+        # window, softcap where the mode allows it), in bf16, fp16 and fp32
+        ("d256_alibi_gemma_prefill_2048", bf16, 1, 8, 4, 2048, 2048, 256, True, 0, 0.0,
+         alibi),
+        ("d256_alibi_softcap_window_fp16_n300", f16, 1, 8, 4, 300, 300, 256, True, 100, 50.0,
+         alibi),
+        ("d256_alibi_cross_tails_bf16", bf16, 2, 4, 2, 129, 385, 256, True, 0, 0.0, alibi),
+        ("d256_alibi_fp32_cross", f32, 1, 4, 2, 100, 300, 256, True, 0, 0.0, alibi),
+        ("d256_dropout_bf16_n1024", bf16, 2, 8, 4, 1024, 1024, 256, True, 0, 0.0, drop),
+        ("d256_dropout_window_softcap_fp16_n8192", f16, 1, 8, 4, 8192, 8192, 256, True, 4096,
+         50.0, drop),
+        ("d256_dropout_fp32_tail", f32, 1, 4, 2, 130, 161, 256, True, 0, 0.0, drop),
+        ("d256_alibi_dropout_noncausal_tail_bf16", bf16, 2, 4, 2, 300, 1000, 256, False, 0,
+         0.0, both),
+        ("d256_alibi_dropout_window63_fp16_n129", f16, 1, 4, 1, 129, 129, 256, True, 63, 0.0,
+         both),
+        ("d256_alibi_dropout_fp32_gqa", f32, 2, 8, 2, 256, 256, 256, True, 0, 0.0, both),
+        ("d256_seg_loader_gemma_n8192", bf16, 2, 8, 4, 8192, 8192, 256, True, 0, 0.0,
+         dict(seg="loader")),
+        ("d256_seg_bf16_causal_gqa_tails", bf16, 2, 8, 2, 333, 333, 256, True, 0, 0.0, seg),
+        ("d256_seg_fp16_cross_empty_rows", f16, 2, 4, 2, 300, 1000, 256, False, 0, 0.0, cross),
+        ("d256_seg_bf16_cross_causal", bf16, 1, 4, 1, 300, 700, 256, True, 0, 0.0, cross),
+        ("d256_seg_window_softcap_bf16", bf16, 1, 8, 4, 1024, 1024, 256, True, 256, 50.0, seg),
+        ("d256_seg_alibi_dropout_fp16", f16, 2, 8, 4, 1024, 1024, 256, True, 0, 0.0,
+         dict(both, seg="packed")),
+        ("d256_seg_fp32_cross_empty_rows", f32, 2, 4, 2, 200, 500, 256, False, 0, 0.0, cross),
+        ("d256_seg_fp32_alibi_dropout", f32, 2, 4, 2, 256, 256, 256, True, 0, 0.0,
+         dict(both, seg="packed")),
+        ("d256_fp8v_e4m3_gemma_prefill_2048", bf16, 1, 8, 4, 2048, 2048, 256, True, 0, 50.0,
+         dict(v8="e4m3")),
+        ("d256_fp8v_e5m2_gemma_prefill_2048", bf16, 1, 8, 4, 2048, 2048, 256, True, 0, 0.0,
+         dict(v8="e5m2")),
+        ("d256_fp8v_e4m3_fp16_window_tail", f16, 1, 4, 2, 300, 700, 256, True, 100, 0.0,
+         dict(v8="e4m3")),
+        ("d256_fp8v_e5m2_fp16_noncausal", f16, 2, 4, 2, 129, 385, 256, False, 0, 0.0,
+         dict(v8="e5m2")),
+        ("d256_fp8v_e4m3_seg_alibi_dropout_bf16", bf16, 2, 8, 4, 1024, 1024, 256, True, 0,
+         0.0, dict(both, seg="packed", v8="e4m3")),
+        ("d256_fp8v_e5m2_seg_cross_fp16", f16, 1, 4, 2, 300, 1000, 256, False, 0, 0.0,
+         dict(seg="cross", v8="e5m2")),
+        ("d256_fp8v_e4m3_fp32", f32, 1, 4, 2, 256, 256, 256, True, 0, 0.0, dict(v8="e4m3")),
+        ("d256_fp8v_e5m2_fp32_seg_tail", f32, 1, 4, 2, 300, 300, 256, True, 0, 50.0,
+         dict(v8="e5m2", seg="packed")),
     ]
     results = {}
     for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod in cases:
@@ -792,24 +893,25 @@ def phase_fwd(dev):
 
 
 def phase_mask(dev):
-    """The forward kernel's dropout mask read back directly: Nkv = d = 128,
-    V = I and one q row per key, non-causal, so O = diag(1/l)·(P∘M) with
-    every P > 0, and O is 0 exactly where the mask drops.  The zero pattern
-    of O must equal ops/fwd_kernel.py dropout_keep_mask (the plain mask) at
-    every element, in fp32 and bf16; the kept share must lie within 3σ of
-    1 − rate."""
+    """The forward kernel's dropout mask read back directly: Nkv = d (128,
+    and 256 for the head-dim-256 build), V = I and one q row per key,
+    non-causal, so O = diag(1/l)·(P∘M) with every P > 0, and O is 0 exactly
+    where the mask drops.  The zero pattern of O must equal
+    ops/fwd_kernel.py dropout_keep_mask (the plain mask) at every element,
+    in fp32 and bf16; the kept share must lie within 3σ of 1 − rate."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, dropout_keep_mask
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    b, hq, hkv, n, rate, seed = 4, 8, 2, 128, 0.1, 1299709 * 3
-    rows = torch.arange(n, device=dev)
-    want_drop = dropout_keep_mask(seed, torch.arange(b, device=dev)[:, None, None, None],
-                                  torch.arange(hq, device=dev)[None, :, None, None],
-                                  rows[None, None, :, None], rows[None, None, None, :],
-                                  rate) == 0
+    b, hq, hkv, rate, seed = 4, 8, 2, 0.1, 1299709 * 3
     checks, rec = {}, {}
-    for dt in (torch.float32, torch.bfloat16):
+    for dt, n in ((torch.float32, 128), (torch.bfloat16, 128), (torch.float32, 256),
+                  (torch.bfloat16, 256)):
+        rows = torch.arange(n, device=dev)
+        want_drop = dropout_keep_mask(seed, torch.arange(b, device=dev)[:, None, None, None],
+                                      torch.arange(hq, device=dev)[None, :, None, None],
+                                      rows[None, None, :, None], rows[None, None, None, :],
+                                      rate) == 0
         q = _rand(gen, (b, hq, n, n), dt, dev)
         k = _rand(gen, (b, hkv, n, n), dt, dev)
         v = torch.eye(n, device=dev, dtype=dt).expand(b, hkv, n, n).contiguous()
@@ -820,13 +922,13 @@ def phase_mask(dev):
         mismatches = int((got_drop != want_drop).sum())
         kept = 1.0 - float(got_drop.float().mean())
         sigma = (rate * (1 - rate) / got_drop.numel()) ** 0.5
-        name = str(dt).split(".")[-1]
+        name = f"{str(dt).split('.')[-1]}_d{n}"
         rec[name] = {"mismatches": mismatches, "elements": got_drop.numel(),
                      "kept_share": kept, "sigma": sigma}
         checks[f"{name}_zero_pattern_equals_mask"] = mismatches == 0
         checks[f"{name}_keep_rate_within_3_sigma"] = abs(kept - (1 - rate)) <= 3 * sigma
     emit({"phase": "mask_check", "rate": rate, "seed": seed,
-          "shape": [b, hq, hkv, n, n, n], **rec, "checks": checks})
+          "shape": [b, hq, hkv, "n", "n", "n"], **rec, "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"dropout mask check failed: {failed}")
@@ -978,6 +1080,38 @@ BWD_CASES = [
      {}),
     ("d256_fp32_noncausal_tail_scale", F32, 2, 8, 4, 130, 161, 256, False, 0, 0.0, 0.05, {}),
     ("d256_fp32_window_n8192", F32, 1, 8, 4, 8192, 8192, 256, True, 4096, 0.0, None, {}),
+    # head dim 256 with ALiBi, dropout and segment ids (attn_bwd_d256.cu,
+    # attn_bwd_d256_seg.cu), at the same edges: the training shape, windows
+    # and softcaps, Nq != Nkv, rows that see no key, GQA 8:1 and 8:2
+    ("d256_alibi_bf16_N2048", BF16, 1, 8, 4, 2048, 2048, 256, True, 0, 0.0, None, _ALIBI),
+    ("d256_alibi_fp16_cross_129_385_softcap", F16, 2, 8, 4, 129, 385, 256, True, 0, 50.0,
+     None, _ALIBI),
+    ("d256_alibi_fp32_window_softcap_cross", F32, 1, 8, 4, 200, 500, 256, True, 100, 50.0,
+     None, _ALIBI),
+    ("d256_dropout_bf16_N2048", BF16, 1, 8, 4, 2048, 2048, 256, True, 0, 0.0, None, _DROP),
+    ("d256_dropout_bf16_window4096_softcap50_N8192", BF16, 1, 8, 4, 8192, 8192, 256, True,
+     4096, 50.0, None, _DROP),
+    ("d256_dropout_fp16_noncausal_tail_300_1000", F16, 1, 8, 4, 300, 1000, 256, False, 0,
+     0.0, None, _DROP),
+    ("d256_dropout_fp32_noncausal_tail", F32, 2, 8, 4, 130, 161, 256, False, 0, 0.0, 0.05,
+     _DROP),
+    ("d256_alibi_dropout_bf16_window33_n161", BF16, 1, 8, 4, 161, 161, 256, True, 33, 0.0,
+     None, _BOTH),
+    ("d256_alibi_dropout_fp16_empty_rows_300_200", F16, 1, 8, 1, 300, 200, 256, True, 0,
+     0.0, None, _BOTH),
+    ("d256_alibi_dropout_fp32_gqa", F32, 2, 8, 2, 256, 256, 256, True, 0, 0.0, None, _BOTH),
+    ("d256_seg_loader_bf16_N8192", BF16, 2, 8, 4, 8192, 8192, 256, True, 0, 0.0, None,
+     dict(seg="loader")),
+    ("d256_seg_bf16_cross_empty_rows", BF16, 2, 8, 4, 300, 1000, 256, False, 0, 0.0, None,
+     dict(seg="cross")),
+    ("d256_seg_fp16_window_softcap_n300", F16, 1, 8, 4, 300, 300, 256, True, 100, 50.0, None,
+     dict(seg="packed")),
+    ("d256_seg_alibi_dropout_bf16", BF16, 2, 8, 4, 1024, 1024, 256, True, 0, 0.0, None,
+     dict(_BOTH, seg="packed")),
+    ("d256_seg_fp32_cross_causal", F32, 1, 8, 4, 200, 500, 256, True, 0, 0.0, None,
+     dict(seg="cross")),
+    ("d256_seg_fp32_alibi_dropout_gqa", F32, 2, 8, 2, 130, 130, 256, True, 0, 0.0, None,
+     dict(_BOTH, seg="packed")),
 ]
 
 
@@ -1056,11 +1190,12 @@ def phase_bwd(dev):
 MUTANT_CASES = ("train_B2_H32_N2048", "alibi_dropout_train_B2_H32_N2048",
                 "wg_n129_bf16", "wg_n257_bf16_d64", "wg_cross_129_385_fp16",
                 "wg_window128_softcap_n300_bf16", "d256_bf16_N2048",
-                "d256_fp16_cross_129_385_softcap", "d256_bf16_window33_n161")
+                "d256_fp16_cross_129_385_softcap", "d256_bf16_window33_n161",
+                "d256_dropout_bf16_N2048", "d256_alibi_dropout_bf16_window33_n161")
 # The dK/dV build a mutant of each source replaces (ops/bwd_kernel.py
-# attribute, C entry).
-MUTANT_TARGETS = {"attn_bwd.cu": ("DKV_KERNEL", "attn_bwd_dkv"),
-                  "attn_bwd_d256.cu": ("DKV_D256_KERNEL", "attn_bwd_dkv_d256")}
+# attribute, C entry, the build's head dim).
+MUTANT_TARGETS = {"attn_bwd.cu": ("DKV_KERNEL", "attn_bwd_dkv", 128),
+                  "attn_bwd_d256.cu": ("DKV_D256_KERNEL", "attn_bwd_dkv_d256", 256)}
 
 
 def phase_mutants(dev, builds):
@@ -1075,9 +1210,9 @@ def phase_mutants(dev, builds):
     checks, out = {}, {}
     wait = wait_mutant_builds(builds)
     for name, (_, lib, source) in builds.items():
-        attr, symbol = MUTANT_TARGETS[source]
-        d256 = source == "attn_bwd_d256.cu"
-        cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES and (c[7] == 256) == d256]
+        attr, symbol, head_dim = MUTANT_TARGETS[source]
+        cases = [c for c in BWD_CASES if c[0] in MUTANT_CASES and c[7] == head_dim
+                 and "seg" not in c[12]]
         gen = torch.Generator(device=dev).manual_seed(4)
         failed = []
         real = getattr(bk, attr)
@@ -1253,16 +1388,18 @@ GEMMA_SOFTCAP = 50.0
 
 def d256_cases():
     """decode_check cases at head_dim 256: decode on all seven pool kinds
-    with the softcap off and on, B8 with an empty sequence, 16-token pages
-    (per-row copies); verify on the wgmma route (bf16 and fp16 pools, int8,
-    int4, e4m3) and the fp32 route, a 256-token chunk and a round of 4."""
+    with the softcap off and on, without and with ALiBi, B8 with an empty
+    sequence, 16-token pages (per-row copies); verify on the wgmma route
+    (bf16 and fp16 pools, int8, int4, e4m3, e5m2) and the fp32 route, a
+    256-token chunk and a round of 4, each pool kind also with ALiBi."""
     import torch
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     q_of = {"fp32": f32, "fp16": f16}
-    cases = [(f"d256_{kind}_softcap{int(cap)}", q_of.get(kind, bf16), kind, GEMMA_PAGED, cap,
-              0, False)
-             for kind in ("bf16", "fp16", "fp32") + QUANT_KINDS for cap in (0.0, GEMMA_SOFTCAP)]
+    cases = [(f"d256_{kind}_softcap{int(cap)}{'_alibi' if alibi else ''}",
+              q_of.get(kind, bf16), kind, GEMMA_PAGED, cap, 0, alibi)
+             for kind in ("bf16", "fp16", "fp32") + QUANT_KINDS for cap in (0.0, GEMMA_SOFTCAP)
+             for alibi in (False, True)]
     b8 = (8, 8, 4, 256, 128, 17, DECODE_B8_LENGTHS)
     page16 = (2, 8, 4, 256, 16, 136, [1000, 2176])
     cases += [
@@ -1279,6 +1416,24 @@ def d256_cases():
         ("d256_verify_T64_bf16_page16", bf16, "bf16", page16, GEMMA_SOFTCAP, 64, False),
         ("d256_verify_fp32_T32", f32, "fp32", GEMMA_PAGED, GEMMA_SOFTCAP, 32, False),
         ("d256_verify_fp32_int8_T5", f32, "int8", GEMMA_PAGED, 0.0, 5, False),
+        # ALiBi: every pool kind, the softcap off and on, chunk and round
+        ("d256_alibi_B8_empty_int4", bf16, "int4", b8, GEMMA_SOFTCAP, 0, True),
+        ("d256_alibi_page16_bf16", bf16, "bf16", page16, 0.0, 0, True),
+        ("d256_alibi_verify_T256_bf16", bf16, "bf16", GEMMA_PAGED, 0.0, 256, True),
+        ("d256_alibi_verify_T256_bf16_softcap", bf16, "bf16", GEMMA_PAGED, GEMMA_SOFTCAP,
+         256, True),
+        ("d256_alibi_verify_T256_int8_softcap", bf16, "int8", GEMMA_PAGED, GEMMA_SOFTCAP,
+         256, True),
+        ("d256_alibi_verify_T4_fp16_softcap", f16, "fp16", GEMMA_PAGED, GEMMA_SOFTCAP, 4,
+         True),
+        ("d256_alibi_verify_T4_int4", bf16, "int4", GEMMA_PAGED, 0.0, 4, True),
+        ("d256_alibi_verify_T4_e4m3_softcap", bf16, "e4m3", GEMMA_PAGED, GEMMA_SOFTCAP, 4,
+         True),
+        ("d256_alibi_verify_T4_e5m2", bf16, "e5m2", GEMMA_PAGED, 0.0, 4, True),
+        ("d256_alibi_verify_T64_int8_page16", bf16, "int8", page16, 0.0, 64, True),
+        ("d256_alibi_verify_fp32_T32_softcap", f32, "fp32", GEMMA_PAGED, GEMMA_SOFTCAP, 32,
+         True),
+        ("d256_alibi_verify_fp32_e5m2_T5", f32, "e5m2", GEMMA_PAGED, 0.0, 5, True),
     ]
     return cases
 
@@ -1843,10 +1998,6 @@ def _serve_run(engine, prompts, new_tokens, record):
     function of models/decoding.py) of the last decode step, or of the last
     chunk when ``record`` is the verify function."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.decode import (
-        DECODE_KERNEL, VERIFY_KERNEL, VERIFY_ROUTE_LAUNCHES,
-    )
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
 
     admit_ms, decode_ms, chunks = [], [], []
     admit = "_admit_chunked" if engine.prefill_chunk else "_admit_dense"
@@ -1860,19 +2011,14 @@ def _serve_run(engine, prompts, new_tokens, record):
             decode_step = rec.step(decode_step)
         engine._decode_step = decode_step
         steps_before = engine.scheduler.stats.steps
-        FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
-        fwd_routes(zero=True)
-        for r in VERIFY_ROUTE_LAUNCHES:
-            VERIFY_ROUTE_LAUNCHES[r] = 0
+        _zero_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         outs = engine.generate(prompts, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches,
-                    "paged_verify": VERIFY_KERNEL.launches}
-        routes = fwd_routes()
-        verify_routes = dict(VERIFY_ROUTE_LAUNCHES)
+        launches = _launches()
+        routes, verify_routes = launches.pop("fwd_routes"), launches.pop("verify_routes")
     return {"outs": outs, "launches": launches, "fwd_routes": routes,
             "verify_routes": verify_routes,
             "wall": wall, "admit_ms": admit_ms,
@@ -1978,7 +2124,7 @@ def phase_serve_quant(dev, model, cfg):
                 launches["attn_fwd"] == cfg.n_layers * slots,
             f"{name}_fwd_launches_all_wgmma":
                 all_on(r["fwd_routes"], "wgmma", launches["attn_fwd"]),
-            f"{name}_decode_launches_16_per_step":
+            f"{name}_decode_launches_{cfg.n_layers}_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
             f"{name}_every_layer_kernel_vs_plain":
                 layers["ok"] and layers["layers_checked"] == cfg.n_layers,
@@ -2158,9 +2304,10 @@ SERVE_ALIBI_RUNS = (("bf16", "bf16", 4, SERVE_NEW_TOKENS, 0),
                     ("bf16_chunked", "bf16", CHUNKED_REQUESTS, CHUNKED_NEW_TOKENS, CHUNK))
 
 
-def phase_serve_alibi(dev, model):
+def phase_serve_alibi(dev, model, cfg=None, phase="serve_alibi", variant=None):
     """The serving path of an ALiBi model (the serving config with
-    position_encoding="alibi", slopes alibi_slopes_for(16)) through
+    position_encoding="alibi", slopes alibi_slopes_for(16); or ``cfg``,
+    the serving config with the fields ``variant``) through
     DecodeEngine, SERVE_ALIBI_RUNS: 8 requests of 200-2048 prompt tokens
     (numpy seed 0) from bf16 KV at 4 slots and int8 KV at 8, and 8 requests
     sharing a 1024-token system prompt (numpy seed 2) from bf16 KV with
@@ -2174,7 +2321,9 @@ def phase_serve_alibi(dev, model):
     from flash_attention_dlrs_tpu_torch.models import ModelConfig
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
-    cfg = ModelConfig(**SERVE_CFG, dtype=torch.bfloat16, position_encoding="alibi")
+    variant = {"position_encoding": "alibi", **(variant or {})}
+    if cfg is None:
+        cfg = ModelConfig(**SERVE_CFG, dtype=torch.bfloat16, position_encoding="alibi")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in SERVE_PROMPTS]
     rng = np.random.default_rng(2)
@@ -2211,7 +2360,7 @@ def phase_serve_alibi(dev, model):
             f"{name}_every_request_{new_tokens}_tokens":
                 all(len(o) == new_tokens for o in outs),
             f"{name}_tokens_in_vocab": all(0 <= x < cfg.vocab_size for o in outs for x in o),
-            f"{name}_decode_launches_16_per_step":
+            f"{name}_decode_launches_{cfg.n_layers}_per_step":
                 launches["paged_decode"] == cfg.n_layers * r["steps"] > 0,
             f"{name}_every_layer_kernel_vs_plain":
                 layers["ok"] and layers["layers_checked"] == cfg.n_layers,
@@ -2224,7 +2373,7 @@ def phase_serve_alibi(dev, model):
             checks.update({
                 f"{name}_{want_chunks}_chunks": r["chunks"] == want_chunks,
                 f"{name}_7_prefix_hits": hits == CHUNKED_REQUESTS - 1,
-                f"{name}_verify_launches_16_per_chunk":
+                f"{name}_verify_launches_{cfg.n_layers}_per_chunk":
                     launches["paged_verify"] == cfg.n_layers * want_chunks,
                 f"{name}_verify_launches_all_wgmma":
                     all_on(r["verify_routes"], "wgmma", launches["paged_verify"]),
@@ -2232,23 +2381,24 @@ def phase_serve_alibi(dev, model):
                                              and all_on(r["fwd_routes"], "wgmma", 0)),
             })
         else:
-            checks[f"{name}_fwd_launches_16_per_prefill"] = (
+            checks[f"{name}_fwd_launches_{cfg.n_layers}_per_prefill"] = (
                 launches["attn_fwd"] == cfg.n_layers * n_req and launches["paged_verify"] == 0)
             checks[f"{name}_fwd_launches_all_wgmma"] = all_on(
                 r["fwd_routes"], "wgmma", launches["attn_fwd"])
-        emit({"phase": "serve_alibi", "run": name, **runs[name]})
+        emit({"phase": phase, "run": name, **runs[name]})
         del engine
         torch.cuda.empty_cache()
     prefill_rec = check_prefill(model, cfg, dev, prompts[0])
     checks.update(prefill_rec.pop("checks"))
-    fp32 = check_decode_fp32(dev, prompts[1], ("fp32", "int8"), position_encoding="alibi")
+    fp32 = check_decode_fp32(dev, prompts[1], ("fp32", "int8"), **variant)
     for kind, gap in fp32.items():
         checks[f"fp32_2layer_first_decode_{kind}_kernel_vs_plain"] = gap <= FP32_LOGIT_LIMIT
-    chunked = check_chunked_fp32(dev, shared, position_encoding="alibi")
+    chunked = check_chunked_fp32(dev, shared, **variant)
     checks["fp32_2layer_chunked_vs_dense_miss"] = chunked["miss"] <= FP32_LOGIT_LIMIT
     checks["fp32_2layer_chunked_vs_dense_hit"] = (chunked["hit"] <= FP32_LOGIT_LIMIT
                                                   and chunked["hits"] == 1)
-    rec = {"phase": "serve_alibi", "config": {**SERVE_CFG, "position_encoding": "alibi"},
+    rec = {"phase": phase, "card": card_line(),
+           "config": {**SERVE_CFG, **variant, "n_layers": cfg.n_layers},
            "dtype": "bfloat16", "page_size": SERVE_PAGE, "pages_per_seq": SERVE_PPS,
            "decode_ms_per_step": {n: r["decode_ms_per_step_median"] for n, r in runs.items()},
            "admit_ms": {n: r["admit_ms_median"] for n, r in runs.items()},
@@ -2258,7 +2408,40 @@ def phase_serve_alibi(dev, model):
     emit(rec)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"ALiBi serving checks failed: {failed}")
+        raise AssertionError(f"{phase} checks failed: {failed}")
+    return runs
+
+
+# An ALiBi model at Gemma-2-2B's attention widths (serve_alibi_d256): no
+# public ALiBi model has head dim 256 (BLOOM's and MPT's heads are 128 and
+# below), so this configuration exists only to put ALiBi in the paged
+# kernels at head dim 256 on an engine path.  google/gemma-2-2b's d_model,
+# heads, d_ff, vocab, softcaps and its 4096 window on even layers, RoPE
+# replaced by ALiBi; cut to ALIBI_D256_LAYERS of its 26 layers.
+ALIBI_D256 = dict(vocab_size=256000, d_model=2304, n_q_heads=8, n_kv_heads=4, head_dim=256,
+                  d_ff=9216, window=4096, window_pattern="even", attn_softcap=50.0,
+                  final_softcap=30.0, position_encoding="alibi")
+ALIBI_D256_LAYERS = 4
+
+
+def phase_serve_alibi_d256(dev):
+    """The serving path (:func:`phase_serve_alibi`'s runs and checks) of
+    ALIBI_D256 at ALIBI_D256_LAYERS layers, random weights from seed 0: page
+    128 x 17 (2176 tokens, under the 4096 window, so the whole context stays
+    resident and no ring is needed), bf16 KV at 4 slots, int8 KV at 8 slots,
+    and bf16 KV with prefill_chunk=256 and the prefix cache (verify with
+    ALiBi at head dim 256); its 2-layer fp32 copies are the same widths."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        ModelConfig, init_params_numpy, params_from_jax,
+    )
+
+    cfg = ModelConfig(**{**SERVE_CFG, **ALIBI_D256, "n_layers": ALIBI_D256_LAYERS},
+                      dtype=torch.bfloat16)
+    model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+    runs = phase_serve_alibi(dev, model, cfg, "serve_alibi_d256", ALIBI_D256)
+    del model
+    torch.cuda.empty_cache()
     return runs
 
 
@@ -2296,27 +2479,33 @@ def pages_back(*engines):
     return all(len(e.allocator.free_pages) == e.pools.k[0].shape[1] - 1 for e in engines)
 
 
-def _zero_launches():
-    from flash_attention_dlrs_tpu_torch.ops.decode import (
-        DECODE_KERNEL, VERIFY_KERNEL, VERIFY_ROUTE_LAUNCHES,
-    )
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+def _serve_kernels():
+    """The serving path's kernels by name, each over its builds (one for
+    each head dim; the forward's without segment ids)."""
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
 
-    FWD_KERNEL.launches = DECODE_KERNEL.launches = VERIFY_KERNEL.launches = 0
+    return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL),
+            "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL),
+            "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL)}
+
+
+def _zero_launches():
+    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROUTE_LAUNCHES
+
+    for builds in _serve_kernels().values():
+        for kern in builds:
+            kern.launches = 0
     fwd_routes(zero=True)
     for r in VERIFY_ROUTE_LAUNCHES:
         VERIFY_ROUTE_LAUNCHES[r] = 0
 
 
 def _launches():
-    from flash_attention_dlrs_tpu_torch.ops.decode import (
-        DECODE_KERNEL, VERIFY_KERNEL, VERIFY_ROUTE_LAUNCHES,
-    )
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROUTE_LAUNCHES
 
-    return {"attn_fwd": FWD_KERNEL.launches, "paged_decode": DECODE_KERNEL.launches,
-            "paged_verify": VERIFY_KERNEL.launches, "fwd_routes": fwd_routes(),
-            "verify_routes": dict(VERIFY_ROUTE_LAUNCHES)}
+    return {**{name: sum(k.launches for k in builds) for name, builds in _serve_kernels().items()},
+            "fwd_routes": fwd_routes(), "verify_routes": dict(VERIFY_ROUTE_LAUNCHES)}
 
 
 def graphed_run(engine, prompts, burst, call="generate", new_tokens=SERVE_NEW_TOKENS, **kw):
@@ -3543,14 +3732,16 @@ def gemma_train_model(dev, dtype, n_layers, **overrides):
 
 
 def _d256_kernels():
-    """The kernels of a training step at head dim 256."""
+    """The kernels of a training step at head dim 256 (its builds of the
+    forward and the sweeps), beside those of head dims 64 and 128."""
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel
 
-    return {"attn_fwd": FWD_KERNEL,
+    return {"attn_fwd": fwd_kernel.FWD_D256_KERNEL,
             "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
             "attn_bwd_dkv": bwd_kernel.DKV_D256_KERNEL,
             "attn_bwd_dq": bwd_kernel.DQ_D256_KERNEL,
+            "attn_fwd[d64/128]": fwd_kernel.FWD_KERNEL,
             "attn_bwd_dkv[d64/128]": bwd_kernel.DKV_KERNEL,
             "attn_bwd_dq[d64/128]": bwd_kernel.DQ_KERNEL}
 
@@ -3595,13 +3786,15 @@ def lm_head_as(fn):
     return undo
 
 
-def timed_steps(step, model, opt_state, tokens, n):
-    """``n`` train steps synchronized at both edges: (losses, ms per step)."""
+def timed_steps(step, model, opt_state, tokens, n, seed0=None):
+    """``n`` train steps synchronized at both edges, step i with dropout
+    seed ``seed0`` + i when ``seed0`` is given: (losses, ms per step)."""
     import torch
 
+    seeds = [()] * n if seed0 is None else [(seed0 + i,) for i in range(n)]
     torch.cuda.synchronize()
     t = time.perf_counter()
-    losses = [step(model, opt_state, tokens) for _ in range(n)]
+    losses = [step(model, opt_state, tokens, *seed) for seed in seeds]
     torch.cuda.synchronize()
     return [float(x) for x in losses], (time.perf_counter() - t) * 1e3 / n
 
@@ -3620,12 +3813,14 @@ def optimizer_update_ms(optimizer, model, opt_state, reps=3):
     return start.elapsed_time(end) / reps
 
 
-def gemma_train_run(dev, tokens, warm, timed, optimizer_name="adamw", **overrides):
+def gemma_train_run(dev, tokens, warm, timed, optimizer_name="adamw", seeded=False,
+                    **overrides):
     """One training run of Gemma-2-2B (:func:`gemma_train_model`, config
     ``overrides``) with ``optimizer_name`` (AdamW lr 3e-4, wd 0.01, or the
     blockwise-int8 AdamW): ``warm`` steps, then ``timed`` ones with every
-    launch count set to 0 just before and read just after.  Returns the
-    record and (model, cfg, optimizer, opt_state, step) to go on with."""
+    launch count set to 0 just before and read just after; with ``seeded``
+    step i takes dropout seed i.  Returns the record and (model, cfg,
+    optimizer, opt_state, step) to go on with."""
     import torch
     from flash_attention_dlrs_tpu_torch.models import AdamW, make_train_step
     from flash_attention_dlrs_tpu_torch.models.optim import AdamW8bit, moment_bytes
@@ -3638,7 +3833,8 @@ def gemma_train_run(dev, tokens, warm, timed, optimizer_name="adamw", **override
     opt_state = optimizer.init(model)
     step = make_train_step(cfg, optimizer)
     setup_s = time.perf_counter() - t0
-    losses = [float(step(model, opt_state, tokens)) for _ in range(warm)]
+    losses = [float(step(model, opt_state, tokens, *((i,) if seeded else ())))
+              for i in range(warm)]
     torch.cuda.reset_peak_memory_stats()
     kernels = _d256_kernels()
     for kern in kernels.values():
@@ -3647,7 +3843,8 @@ def gemma_train_run(dev, tokens, warm, timed, optimizer_name="adamw", **override
     bwd_routes(zero=True)
     split, undo = windowed_calls()
     try:
-        timed_losses, ms = timed_steps(step, model, opt_state, tokens, timed)
+        timed_losses, ms = timed_steps(step, model, opt_state, tokens, timed,
+                                       warm if seeded else None)
     finally:
         undo()
     launches = {name: kern.launches for name, kern in kernels.items()}
@@ -3661,6 +3858,26 @@ def gemma_train_run(dev, tokens, warm, timed, optimizer_name="adamw", **override
         "moment_bytes": dict(zip(("adamw_bf16", "adamw8bit"), moment_bytes(model))),
     }
     return rec, (model, cfg, optimizer, opt_state, step)
+
+
+def gemma_launches_exact(run, fwd_per_layer, n_layers):
+    """Whether a Gemma-2-2B training run's timed steps (``run``, from
+    :func:`gemma_train_run`) launched exactly ``fwd_per_layer`` forwards and
+    one of each backward kernel a layer and step, all of the head-dim-256
+    builds and on the wgmma route, half of them on the windowed (even)
+    layers."""
+    per = run["timed_steps"] * n_layers
+    want = {"attn_fwd": fwd_per_layer * per, "attn_bwd_preprocess": per,
+            "attn_bwd_dkv": per, "attn_bwd_dq": per, "attn_fwd[d64/128]": 0,
+            "attn_bwd_dkv[d64/128]": 0, "attn_bwd_dq[d64/128]": 0}
+    half = n_layers // 2 * run["timed_steps"]  # even layers slide
+    return (run["launches"] == want
+            and all_on(run["fwd_routes"], "wgmma", want["attn_fwd"])
+            and all(all_on(run["bwd_routes"][s], "wgmma", per) for s in run["bwd_routes"])
+            and run["launches_by_window"] == {
+                "attn_fwd_window": fwd_per_layer * half,
+                "attn_fwd_global": fwd_per_layer * half,
+                "attn_bwd_window": half, "attn_bwd_global": half})
 
 
 def phase_train_gemma2(dev):
@@ -3717,18 +3934,7 @@ def phase_train_gemma2(dev):
     tokens_per_s = block["tokens_per_s"]
 
     def exact(run, fwd_per_layer):
-        per = run["timed_steps"] * n_layers
-        want = {"attn_fwd": fwd_per_layer * per, "attn_bwd_preprocess": per,
-                "attn_bwd_dkv": per, "attn_bwd_dq": per,
-                "attn_bwd_dkv[d64/128]": 0, "attn_bwd_dq[d64/128]": 0}
-        half = n_layers // 2 * run["timed_steps"]  # even layers slide
-        return (run["launches"] == want
-                and all_on(run["fwd_routes"], "wgmma", want["attn_fwd"])
-                and all(all_on(run["bwd_routes"][s], "wgmma", per) for s in run["bwd_routes"])
-                and run["launches_by_window"] == {
-                    "attn_fwd_window": fwd_per_layer * half,
-                    "attn_fwd_global": fwd_per_layer * half,
-                    "attn_bwd_window": half, "attn_bwd_global": half})
+        return gemma_launches_exact(run, fwd_per_layer, n_layers)
 
     losses = block["losses"]
     checks = {
@@ -3773,6 +3979,73 @@ def phase_train_gemma2(dev):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"train_gemma2 checks failed: {failed}")
+    return rec
+
+
+# Gemma-2-2B trained under attention dropout (train_gemma2_dropout): HF
+# Gemma2Config's attention_dropout, which import_hf_gemma does not read, set
+# on the imported config; the shape and optimizer of train_gemma2, cut to 1
+# warm and 2 timed steps (step i seeded with i) to keep the script's time.
+GEMMA_ATTN_DROPOUT = 0.1
+GEMMA_DROPOUT_WARM, GEMMA_DROPOUT_TIMED = 1, 2
+
+
+def phase_train_gemma2_dropout(dev, gemma_rec):
+    """Gemma-2-2B at full width and depth with attn_dropout=0.1 (B2 x
+    N8192, block remat, AdamW): the timed steps' exact launches per kernel
+    and route (every head-dim-256 forward and both sweeps on the wgmma
+    route, the dropout instances of attn_fwd_d256.cu and attn_bwd_d256.cu),
+    ms/step, tokens/s and MFU beside train_gemma2's (``gemma_rec``); one
+    more step whose attention, on one windowed and one global layer, is
+    held against the plain versions under the same dropout mask at the
+    kernel tolerances; a 2-layer fp32 copy with dropout on the fp32 d256
+    route against the plain path."""
+    import torch
+
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, GEMMA2_2B["vocab_size"], (GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ + 1))).to(dev)
+    n_layers = GEMMA2_2B["num_hidden_layers"]
+    run, (model, cfg, optimizer, opt_state, step) = gemma_train_run(
+        dev, tokens, GEMMA_DROPOUT_WARM, GEMMA_DROPOUT_TIMED, seeded=True,
+        attn_dropout=GEMMA_ATTN_DROPOUT)
+    # only calls that carry the dropout are kept: one windowed, one global
+    loss, layers_checked, attn_err, attn_ok = check_train_attention(
+        model, opt_state, step, tokens, GEMMA_DROPOUT_WARM + GEMMA_DROPOUT_TIMED,
+        pick=lambda kw: (("window" if kw["window"] else "global")
+                         if kw["dropout_rate"] == GEMMA_ATTN_DROPOUT else None))
+    del model, opt_state, optimizer, step
+    torch.cuda.empty_cache()
+    fp32 = check_train_fp32(tokens, dev, seed=3, batch=1, build=lambda: gemma_train_model(
+        dev, torch.float32, 2, attn_dropout=GEMMA_ATTN_DROPOUT))
+    fpt = model_flops_per_token(cfg, GEMMA_TRAIN_SEQ)
+    losses = run["losses"] + [loss]
+    checks = {
+        "config_is_gemma2_with_dropout": (cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.window,
+                                          cfg.attn_dropout)
+        == (26, 2304, 256, 4096, GEMMA_ATTN_DROPOUT),
+        "loss_finite": all(np.isfinite(losses)),
+        "launches_exact_per_step_all_wgmma": gemma_launches_exact(run, 2, n_layers),
+        "attention_windowed_and_global_layer_fwd_and_bwd_kernel_vs_plain":
+            layers_checked == 2 and attn_ok,
+        "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
+    }
+    rec = {
+        "phase": "train_gemma2_dropout", "card": card_line(),
+        "config": {**GEMMA2_2B, "attention_dropout": GEMMA_ATTN_DROPOUT},
+        "config_source": "google/gemma-2-2b config.json, attention_dropout set",
+        "dtype": "bfloat16", "batch": GEMMA_TRAIN_BATCH, "seq": GEMMA_TRAIN_SEQ,
+        **{k: v for k, v in run.items() if k not in ("moment_bytes",)},
+        "model_flops_per_token": fpt, "mfu": run["tokens_per_s"] * fpt / PEAK_BF16_FLOPS,
+        "train_gemma2": {"ms_per_step": gemma_rec["ms_per_step"],
+                         "tokens_per_s": gemma_rec["tokens_per_s"], "mfu": gemma_rec["mfu"]},
+        "attention_layers_checked": layers_checked,
+        **{f"attention_{k}": v for k, v in attn_err.items()}, **fp32,
+        "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"train_gemma2_dropout checks failed: {failed}")
     return rec
 
 
@@ -3931,6 +4204,14 @@ def phase_bf16_reduction(dev):
 # (scripts/bench_train.py:68-74: B=8, N=2048, 32 q / 8 kv heads, head_dim
 # 128, bf16) through the op API and the nn adapter, forward and backward.
 PACKED_B, PACKED_N, PACKED_HQ, PACKED_HKV, PACKED_D = 8, 2048, 32, 8, 128
+PACKED_SHAPE = (PACKED_B, PACKED_HQ, PACKED_HKV, PACKED_N, PACKED_D)
+# the head-dim-256 block of phase packed: Gemma-2-2B's attention (8 q / 4 kv
+# heads of 256) at its training shape B2 x N8192 (B, Hq, Hkv, N, d); the
+# cross-length SegmentIds' Nq; the padded batches' lengths
+PACKED_D256_SHAPE = (2, 8, 4, 8192, 256)
+PACKED_D256_CROSS_NQ = 4096
+PACKED_D256_LENGTHS = [8192, 5000]
+PACKED_D256_DROPOUT = dict(rate=0.1, seed=12345)
 PACKED_CROSS_NQ = 1024
 PACKED_LENGTHS = [2048, 1900, 1536, 1024, 777, 512, 2048, 300]
 PACKED_WINDOW = (255, 0)
@@ -3940,24 +4221,37 @@ PACKED_FP32_B = 2
 FP8_SHAPES = {"serve_prefill_2048": (1, 16, 8, 2048), "train_B8_H32_N2048": (8, 32, 8, 2048)}
 
 
-def _seg_kernels():
+def _all_attention_kernels():
+    """Every build of the attention forward and backward kernels, by name."""
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_SEG_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel
 
-    return {**_kernels(), "attn_fwd_seg": FWD_SEG_KERNEL,
+    return {**_kernels(), "attn_fwd_seg": fwd_kernel.FWD_SEG_KERNEL,
             "attn_bwd_dkv_seg": bwd_kernel.DKV_SEG_KERNEL,
-            "attn_bwd_dq_seg": bwd_kernel.DQ_SEG_KERNEL}
+            "attn_bwd_dq_seg": bwd_kernel.DQ_SEG_KERNEL,
+            "attn_fwd_d64": fwd_kernel.FWD_D64_KERNEL,
+            "attn_fwd_d64_seg": fwd_kernel.FWD_D64_SEG_KERNEL,
+            "attn_bwd_dkv_d64": bwd_kernel.DKV_D64_KERNEL,
+            "attn_bwd_dq_d64": bwd_kernel.DQ_D64_KERNEL,
+            "attn_bwd_dkv_d64_seg": bwd_kernel.DKV_D64_SEG_KERNEL,
+            "attn_bwd_dq_d64_seg": bwd_kernel.DQ_D64_SEG_KERNEL,
+            "attn_fwd_d256": fwd_kernel.FWD_D256_KERNEL,
+            "attn_fwd_d256_seg": fwd_kernel.FWD_D256_SEG_KERNEL,
+            "attn_bwd_dkv_d256": bwd_kernel.DKV_D256_KERNEL,
+            "attn_bwd_dq_d256": bwd_kernel.DQ_D256_KERNEL,
+            "attn_bwd_dkv_d256_seg": bwd_kernel.DKV_D256_SEG_KERNEL,
+            "attn_bwd_dq_d256_seg": bwd_kernel.DQ_D256_SEG_KERNEL}
 
 
 def counted(fn):
     """``fn()`` with every attention kernel's launch count, and the
     forward's and each backward sweep's per route ("attn_fwd@<route>",
-    "attn_bwd_dkv@<route>", "attn_bwd_dq@<route>", over both builds), set
+    "attn_bwd_dkv@<route>", "attn_bwd_dq@<route>", over all builds), set
     to 0 just before and read just after (synchronized): (result,
     launches)."""
     import torch
 
-    kernels = _seg_kernels()
+    kernels = _all_attention_kernels()
     for kern in kernels.values():
         kern.launches = 0
     fwd_routes(zero=True)
@@ -3978,9 +4272,15 @@ def launches_are(got, **want):
 
 SEG_CALL = dict(attn_fwd_seg=1, attn_bwd_preprocess=1, attn_bwd_dkv_seg=1,
                 attn_bwd_dq_seg=1)
+# one call of the op and its backward at head dim 256, with and without
+# segment ids
+SEG_D256_CALL = dict(attn_fwd_d256_seg=1, attn_bwd_preprocess=1, attn_bwd_dkv_d256_seg=1,
+                     attn_bwd_dq_d256_seg=1)
+D256_CALL = dict(attn_fwd_d256=1, attn_bwd_preprocess=1, attn_bwd_dkv_d256=1,
+                 attn_bwd_dq_d256=1)
 
 
-def on_route(dtype, segments=False, fp8_v=False, **want):
+def on_route(dtype, segments=False, fp8_v=False, d=PACKED_D, **want):
     """``want`` with the forward's one launch on the route the static rule
     (ops/fwd_kernel.py fwd_route) names for a call of these types, and,
     where ``want`` has a backward, each sweep's one launch on the route of
@@ -3988,9 +4288,9 @@ def on_route(dtype, segments=False, fp8_v=False, **want):
     from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import bwd_route
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import fwd_route
 
-    want = {**want, f"attn_fwd@{fwd_route(dtype, PACKED_D, segments, fp8_v)}": 1}
+    want = {**want, f"attn_fwd@{fwd_route(dtype, d, segments, fp8_v)}": 1}
     if want.get("attn_bwd_preprocess"):
-        route = bwd_route(dtype, PACKED_D, segments)
+        route = bwd_route(dtype, d, segments)
         want.update({f"attn_bwd_dkv@{route}": 1, f"attn_bwd_dq@{route}": 1})
     return want
 
@@ -4009,32 +4309,34 @@ def _packed_grads_check(q, k, v, do, kw, grads, o, lse):
     return rec, fwd_ok and bwd_ok
 
 
-def _op_packed(dev, gen, dtype, b, nq, seg, causal):
-    """One flash_attention call with ``seg`` (a SegmentIds or a [B, N]
-    tensor) and its .backward(), counted; then the kernels against their
-    plain versions on the same inputs."""
+def _op_packed(dev, gen, dtype, b, nq, seg, causal, shape=PACKED_SHAPE, mod=None):
+    """One flash_attention call with ``seg`` (a SegmentIds, a [B, N]
+    tensor, or None) and the ALiBi / dropout arguments of :func:`mods`
+    ``mod``, and its .backward(), counted; then the kernels against their
+    plain versions on the same inputs (heads, N and d from ``shape``)."""
     import torch
     from flash_attention_dlrs_tpu_torch import SegmentIds, flash_attention
     from flash_attention_dlrs_tpu_torch.ops.flash_attention import flash_attention_forward
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import DEFAULT_MASK_VALUE
 
-    hq, hkv, n, d = PACKED_HQ, PACKED_HKV, PACKED_N, PACKED_D
+    _, hq, hkv, n, d = shape
+    md = mods(hq, **(mod or {}))
     q = _rand(gen, (b, hq, nq, d), dtype, dev).requires_grad_(True)
     k = _rand(gen, (b, hkv, n, d), dtype, dev).requires_grad_(True)
     v = _rand(gen, (b, hkv, n, d), dtype, dev).requires_grad_(True)
     do = _rand(gen, (b, hq, nq, d), dtype, dev)
 
     def call():
-        out = flash_attention(q, k, v, causal=causal, segment_ids=seg)
+        out = flash_attention(q, k, v, causal=causal, segment_ids=seg, **md)
         out.backward(do)
         return out
 
     o, launches = counted(call)
     grads = (q.grad, k.grad, v.grad)
     qs, ks = (seg.q, seg.kv) if isinstance(seg, SegmentIds) else (seg, seg)
-    kw = dict(causal=causal, sm_scale=d ** -0.5, q_seg=qs, kv_seg=ks)
+    kw = dict(causal=causal, sm_scale=d ** -0.5, q_seg=qs, kv_seg=ks, **md)
     with torch.no_grad():
-        o2, lse = flash_attention_forward(q, k, v, causal=causal, segment_ids=seg)
+        o2, lse = flash_attention_forward(q, k, v, causal=causal, segment_ids=seg, **md)
         rec, ok = _packed_grads_check(q.detach(), k.detach(), v.detach(), do, kw, grads,
                                       o2, lse)
     rec["op_output_equals_forward"] = bool(torch.equal(o.detach(), o2))
@@ -4044,18 +4346,18 @@ def _op_packed(dev, gen, dtype, b, nq, seg, causal):
     return rec, ok, launches
 
 
-def _nn_packed(dev, gen, lengths, window=None):
+def _nn_packed(dev, gen, lengths, window=None, shape=PACKED_SHAPE):
     """nn.dot_product_attention on padded BTNH batches (per-batch lengths,
     is_causal, optionally a window) and its .backward(), counted; padded
     query rows must come out exactly 0; then the same call with the op's
     kernels swapped for their plain versions, output and gradients held
-    against the kernel path's."""
+    against the kernel path's (batch, heads, length and d from ``shape``)."""
     import torch
     from flash_attention_dlrs_tpu_torch import nn as fnn
     from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd_plain
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
 
-    b, t, hq, hkv, d = PACKED_B, PACKED_N, PACKED_HQ, PACKED_HKV, PACKED_D
+    b, hq, hkv, t, d = shape
     q = _rand(gen, (b, t, hq, d), torch.bfloat16, dev)
     k = _rand(gen, (b, t, hkv, d), torch.bfloat16, dev)
     v = _rand(gen, (b, t, hkv, d), torch.bfloat16, dev)
@@ -4216,14 +4518,76 @@ def phase_packed(dev):
            on_route(torch.float32, True, **SEG_CALL))
     torch.cuda.empty_cache()
 
+    layout_d256 = _packed_d256(dev, gen, rng, record, checks)
     out = {"phase": "packed", "shape": [b, PACKED_HQ, PACKED_HKV, n, PACKED_D],
-           "dtype": "bfloat16", "layout_seed": 0, "lengths": PACKED_LENGTHS,
+           "d256_shape": list(PACKED_D256_SHAPE), "dtype": "bfloat16", "layout_seed": 0,
+           "lengths": PACKED_LENGTHS, "d256_lengths": PACKED_D256_LENGTHS,
            "window": list(PACKED_WINDOW), "fp8_launches": fp8, "checks": checks}
     emit(out)
     failed = [key for key, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"packed-sequence checks failed: {failed}")
-    return {"calls": calls, "layout": layout, "fp8_launches": fp8}
+    return {"calls": calls, "layout": layout, "fp8_launches": fp8,
+            "layout_d256": layout_d256}
+
+
+def _packed_d256(dev, gen, rng, record, checks):
+    """The head-dim-256 block of phase packed, at PACKED_D256_SHAPE (bf16),
+    each call counted exactly and held against the plain versions: the op
+    API with a packed loader's segment ids (causal) and with SegmentIds(q,
+    kv) of different lengths (non-causal, some q ids absent from kv);
+    nn.dot_product_attention on padded batches; fp8 V (e4m3, e5m2), forward
+    only; ALiBi, and ALiBi with dropout, forward and backward.  Returns the
+    loader layout (for the timings)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import SegmentIds, flash_attention
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
+
+    bf16, shape = torch.bfloat16, PACKED_D256_SHAPE
+    b, hq, hkv, n, d = shape
+    layout = loader_layout(rng, b, n)
+    seg = torch.from_numpy(layout).to(dev)
+    rec, ok, launches = _op_packed(dev, gen, bf16, b, n, seg, True, shape)
+    rec["documents_per_row"] = [int(r.max()) + 1 for r in layout]
+    record("d256_op_causal_packed", rec, ok, launches,
+           on_route(bf16, True, d=d, **SEG_D256_CALL))
+
+    cross_q = loader_layout(rng, b, PACKED_D256_CROSS_NQ)
+    cross_q[1::2, -64:] = 1000  # ids no key has: rows that see nothing
+    cross = SegmentIds(q=torch.from_numpy(cross_q).to(dev),
+                       kv=torch.from_numpy(loader_layout(rng, b, n)).to(dev))
+    rec, ok, launches = _op_packed(dev, gen, bf16, b, PACKED_D256_CROSS_NQ, cross, False,
+                                   shape)
+    record("d256_op_cross_segment_ids", rec, ok, launches,
+           on_route(bf16, True, d=d, **SEG_D256_CALL))
+    checks["d256_op_cross_segment_ids_has_empty_rows"] = rec["empty_rows"] > 0
+
+    rec, ok, launches, _ = _nn_packed(dev, gen, PACKED_D256_LENGTHS, shape=shape)
+    record("d256_nn_padded_causal", rec, ok, launches,
+           on_route(bf16, True, d=d, **SEG_D256_CALL))
+    torch.cuda.empty_cache()
+
+    for kind in FP8_V:
+        q = _rand(gen, (b, hq, n, d), bf16, dev)
+        k = _rand(gen, (b, hkv, n, d), bf16, dev)
+        v8 = _rand(gen, (b, hkv, n, d), bf16, dev).to(getattr(torch, FP8_V[kind]))
+        with torch.no_grad():
+            o, launches = counted(lambda: flash_attention(q, k, v8, causal=True))
+        want_o = attn_fwd_plain(q, k, v8, causal=True, sm_scale=d ** -0.5)[0]
+        o_rec, o_ok = fwd_errors((o, torch.zeros(1, device=dev)),
+                                 (want_o, torch.zeros(1, device=dev)), bf16)
+        record(f"d256_fp8v_{kind}", {"shape": list(shape), "v": FP8_V[kind],
+                                     "max_abs_err_o": o_rec["max_abs_err_o"],
+                                     "tolerance": o_rec["tolerance"]},
+               o_ok, launches, on_route(bf16, False, True, d=d, attn_fwd_d256=1))
+        del q, k, v8, o, want_o
+
+    for name, mod in (("d256_op_alibi", dict(alibi=True)),
+                      ("d256_op_alibi_dropout", dict(alibi=True, **PACKED_D256_DROPOUT))):
+        rec, ok, launches = _op_packed(dev, gen, bf16, b, n, None, True, shape, mod)
+        record(name, rec, ok, launches, on_route(bf16, d=d, **D256_CALL))
+    torch.cuda.empty_cache()
+    return layout
 
 
 def visible_pairs(q_ids, kv_ids, causal):
@@ -4391,9 +4755,8 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
     and their ids' bytes; fp8 V one byte per element), its error against the
     plain version, and SDPA's time where no dropout is asked: with the ALiBi
     bias as a float mask, with segments on the block-diagonal causal
-    boolean mask, with fp8 V on V upcast to bf16 (the upcast included),
-    with a causal ``window`` on its boolean band mask; none computes a
-    ``softcap``."""
+    boolean mask, with a causal ``window`` on its boolean band mask; none
+    computes a ``softcap`` or takes fp8 V."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
@@ -4426,8 +4789,7 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True))
     elif v8:
-        lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v.to(torch.bfloat16), is_causal=True, enable_gqa=True))
+        pass  # no single PyTorch call takes fp8 V (SDPA needs a cast of V first)
     elif not kw["dropout_rate"]:
         bias = sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev)
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
@@ -4494,9 +4856,7 @@ def phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec):
             emit({"phase": "time", "kernel": f"attn_fwd[fp8v-{kind}]", "case": name,
                   "shape": list(shape), "dtype": "bfloat16 q/k, " + FP8_V[kind] + " V",
                   "causal": True,
-                  "library": ("torch.nn.functional.scaled_dot_product_attention on V "
-                              "upcast to bf16, the upcast included"),
-                  **timings[name]})
+                  "library": FP8_LIBRARY, **timings[name]})
 
     # launches per train step; one attn_bwd call launches each of its three
     # kernels once
@@ -4636,10 +4996,87 @@ def phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec):
         emit({"phase": "time", "kernel": "paged_verify[d256]", "case": name,
               "shape": [1, *gemma, SERVE_PAGE, SERVE_PPS], "tokens": CHUNK, "kv": kind,
               "softcap": GEMMA_SOFTCAP, "library": PAGED_LIBRARY, **timings[name]})
+    timings.update(time_d256_modes(dev, gen, packed_rec["layout_d256"]))
+    return timings
+
+
+def time_d256_modes(dev, gen, layout):
+    """The head-dim-256 modes at Gemma-2-2B's heads (8 q / 4 kv): the
+    forward with ALiBi, dropout, both and fp8 V at its 2048-token prefill,
+    and with the packed phase's segment ids (``layout``) at its training
+    shape B2 x N8192; the backward family at that training shape with
+    ALiBi, dropout, both and the segment ids; decode (8 sequences of 2048
+    from bf16 and int8 KV) and verify (a 256-token chunk from bf16 KV) with
+    ALiBi and the softcap of serve_alibi_d256."""
+    heads = (GEMMA2_2B["num_attention_heads"], GEMMA2_2B["num_key_value_heads"], 256)
+    alibi, drop = dict(alibi=True), dict(rate=0.1, seed=1)
+    both = dict(alibi, **drop)
+    prefill, train = (1, heads[0], heads[1], 2048, 256), (
+        GEMMA_TRAIN_BATCH, heads[0], heads[1], GEMMA_TRAIN_SEQ, 256)
+    timings = {}
+    for name, shape, mod, seg, v8, library in (
+            ("fwd_d256_alibi_prefill_2048", prefill, alibi, None, None,
+             "torch.nn.functional.scaled_dot_product_attention with the ALiBi bias as a "
+             "float attn_mask"),
+            ("fwd_d256_dropout_prefill_2048", prefill, drop, None, None, DROPOUT_LIBRARY),
+            ("fwd_d256_alibi_dropout_prefill_2048", prefill, both, None, None,
+             DROPOUT_LIBRARY),
+            ("fwd_d256_fp8v_e4m3_prefill_2048", prefill, {}, None, "e4m3", FP8_LIBRARY),
+            ("fwd_d256_fp8v_e5m2_prefill_2048", prefill, {}, None, "e5m2", FP8_LIBRARY),
+            ("fwd_d256_seg_B2_N8192", train, {}, layout, None,
+             "torch.nn.functional.scaled_dot_product_attention with the block-diagonal "
+             "causal boolean attn_mask")):
+        timings[name] = time_fwd(gen, dev, *shape, mod, seg=seg, v8=v8)
+        emit({"phase": "time", "kernel": "attn_fwd[d256]", "case": name, "shape": list(shape),
+              "dtype": "bfloat16" + (f" q/k, {FP8_V[v8]} V" if v8 else ""), "causal": True,
+              "alibi": bool(mod.get("alibi")), "dropout_rate": mod.get("rate", 0.0),
+              "segments": None if seg is None else "packed",
+              **({} if seg is None else
+                 {"visible_pairs_per_head": visible_pairs(layout, layout, True)}),
+              "library": library, **timings[name]})
+    for name, mod, seg in (("bwd_d256_alibi_B2_H8_N8192", alibi, None),
+                           ("bwd_d256_dropout_B2_H8_N8192", drop, None),
+                           ("bwd_d256_alibi_dropout_B2_H8_N8192", both, None),
+                           ("bwd_d256_seg_B2_H8_N8192", None, layout)):
+        rows = time_bwd(dev, gen, *train, mod=mod, seg=seg)
+        timings[name] = rows
+        whole = (DROPOUT_LIBRARY if (mod or {}).get("rate") else
+                 "backward of torch.nn.functional.scaled_dot_product_attention (enable_gqa), "
+                 "torch.autograd.grad on a kept graph, on the "
+                 + ("ALiBi bias as a float attn_mask" if mod else
+                    "block-diagonal causal boolean attn_mask"))
+        library = {"attn_bwd_preprocess": ("torch.linalg.vecdot(o.float(), do.float()), "
+                                           "the casts included"), "attn_bwd": whole}
+        for kernel in ("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq", "attn_bwd"):
+            emit({"phase": "time", "kernel": kernel + "[d256]", "case": name,
+                  "shape": list(train), "dtype": "bfloat16", "causal": True,
+                  "alibi": bool((mod or {}).get("alibi")),
+                  "dropout_rate": (mod or {}).get("rate", 0.0),
+                  "segments": None if seg is None else "packed",
+                  "library": library.get(kernel, "none: SDPA's backward computes all three "
+                                         "kernels' outputs at once (see attn_bwd)"),
+                  **rows[kernel]})
+        emit({"phase": "time", "kernel": "attn_bwd[d256] (sum of the three launches)",
+              "case": name, "ms": rows["sum_of_three"]})
+    for name, kind, batch, t_new in (("decode_d256_bf16_B8_ctx2048_alibi", "bf16", 8, 0),
+                                     ("decode_d256_int8_B8_ctx2048_alibi", "int8", 8, 0),
+                                     ("verify_d256_bf16_T256_ctx2048_alibi", "bf16", 1,
+                                      CHUNK)):
+        timings[name] = time_paged(gen, dev, kind, batch, [2048] * batch, t_new, alibi=True,
+                                   heads=heads, softcap=ALIBI_D256["attn_softcap"])
+        emit({"phase": "time", "kernel": ("paged_verify" if t_new else "paged_decode")
+              + "[d256]", "case": name, "shape": [batch, *heads, SERVE_PAGE, SERVE_PPS],
+              "tokens": t_new or 1, "kv": kind, "alibi": True,
+              "softcap": ALIBI_D256["attn_softcap"], "library": PAGED_LIBRARY,
+              **timings[name]})
     return timings
 
 
 PAGED_LIBRARY = "none: no single PyTorch call attends through a page table"
+FP8_LIBRARY = ("none: no single PyTorch call takes fp8 V (scaled_dot_product_attention "
+               "needs V cast to bf16 first, a second call)")
+DROPOUT_LIBRARY = ("none: scaled_dot_product_attention's dropout draws other bits, so it "
+                   "is not the same function")
 
 
 def paged_work(kind, b, hq, hkv, d, lengths, t_new):
@@ -4707,7 +5144,7 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softc
             "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
 
 
-def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train):
+def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train, d256_modes):
     """The kernels line: every kernel of every path, the paged kernels once
     per pool kind they serve, and one entry per ALiBi / dropout mode.
     Launches are the counts of the path runs (serving, quantized serving,
@@ -4729,7 +5166,11 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train)
     is phase train_gemma2: its launches join attn_fwd[d256] (global and
     windowed) and attn_bwd_preprocess, and the head-dim-256 backward sweeps
     have entries of their own (global and windowed), timed at its training
-    shape with its softcap."""
+    shape with its softcap.  ``d256_modes`` holds phases train_gemma2_dropout
+    and serve_alibi_d256: with the packed phase's head-dim-256 block they
+    give the head-dim-256 modes' launches (each mode's builds named in
+    "built_from").  Every kernel of the line must have been launched on
+    its path."""
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
     burst, spec = graphed
     gemma, variants = models
@@ -4773,11 +5214,13 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train)
             "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
             "splits": t["splits"], "ctas": t["ctas"]})
-    def entry(name, source, replaces, launches, t, err=None):
+    def entry(name, source, replaces, launches, t, err=None, built_from=None):
         rec = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches, "max_abs_err": t["max_abs_err"] if err is None else err,
                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        if built_from:  # the source the kernel body (source) is built in
+            rec["built_from"] = built_from
         if name.startswith("paged_"):  # device time, key splits, CTAs
             rec.update(device_ms=t["device_ms"], splits=t["splits"], ctas=t["ctas"])
             if name.startswith("paged_verify"):
@@ -4843,29 +5286,92 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train)
         entry("attn_fwd[d256]", FWD_SM90_SOURCE, FWD_REPLACES,
               g["attn_fwd"] + gemma_train_launches(gemma_train, "attn_fwd_global"),
               timings["fwd_d256_prefill_2048_softcap"],
-              fwd_res["d256_gemma_prefill_2048_softcap"]["max_abs_err_o"]),
+              fwd_res["d256_gemma_prefill_2048_softcap"]["max_abs_err_o"], FWD_D256_SOURCE),
         entry("attn_fwd[d256,window]", FWD_SM90_SOURCE, FWD_REPLACES,
               g["attn_fwd_window"] + gemma_train_launches(gemma_train, "attn_fwd_window"),
               timings["fwd_d256_window4096_8192_softcap"],
-              fwd_res["d256_gemma_window_softcap_8192"]["max_abs_err_o"]),
+              fwd_res["d256_gemma_window_softcap_8192"]["max_abs_err_o"], FWD_D256_SOURCE),
         entry("paged_decode[d256,bf16]", DECODE_SOURCE, DECODE_REPLACES,
               g["paged_decode_bf16"], timings["decode_d256_bf16_B8_ctx2048"],
-              dec_res["d256_bf16_softcap50"]["max_abs_err_o"]),
+              dec_res["d256_bf16_softcap50"]["max_abs_err_o"], DECODE_D256_SOURCE),
         entry("paged_decode[d256,int8]", DECODE_SOURCE, DECODE_REPLACES,
               g["paged_decode_int8"], timings["decode_d256_int8_B8_ctx2048"],
-              dec_res["d256_int8_softcap50"]["max_abs_err_o"]),
+              dec_res["d256_int8_softcap50"]["max_abs_err_o"], DECODE_D256_SOURCE),
         entry("paged_verify[d256,bf16]", VERIFY_SOURCE, VERIFY_REPLACES,
               g["paged_verify_bf16"], timings["verify_d256_bf16_T256_ctx2048"],
-              dec_res["d256_verify_T256_bf16"]["max_abs_err_o"]),
+              dec_res["d256_verify_T256_bf16"]["max_abs_err_o"], VERIFY_D256_SOURCE),
     ]
     for tag, key, case in (("d256", "global", "bwd_d256_B2_H8_N8192_softcap"),
                            ("d256,window", "window", "bwd_d256_window4096_B2_H8_N8192_softcap")):
         for name in ("attn_bwd_dkv", "attn_bwd_dq"):
-            rec = entry(f"{name}[{tag}]", BWD_SM90_SOURCE, BWD_REPLACES[name],
-                        gemma_train_launches(gemma_train, f"attn_bwd_{key}"),
-                        timings[case][name])
-            kernels.append({**rec, "built_from": BWD_D256_SOURCE})
+            kernels.append(entry(f"{name}[{tag}]", BWD_SM90_SOURCE, BWD_REPLACES[name],
+                                 gemma_train_launches(gemma_train, f"attn_bwd_{key}"),
+                                 timings[case][name], built_from=BWD_D256_SOURCE))
+    kernels += d256_mode_entries(entry, packed, timings, dec_res, d256_modes)
     emit({"kernels": kernels})
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels of the line not launched on their paths: {idle}")
+
+
+def d256_mode_entries(entry, packed, timings, dec_res, d256_modes):
+    """The kernels line's entries of the head-dim-256 modes (``entry`` is
+    emit_kernels' maker): launches from the packed phase's head-dim-256
+    block (ALiBi, ALiBi + dropout, segment ids, fp8 V), train_gemma2_dropout's
+    timed steps (dropout) and serve_alibi_d256's runs (the paged kernels
+    with ALiBi); times at the shapes of time_d256_modes."""
+    calls = packed["calls"]
+
+    def launched(kernel, *names):
+        return sum(calls[n]["launches"][kernel] for n in names)
+
+    seg_calls = ("d256_op_causal_packed", "d256_op_cross_segment_ids", "d256_nn_padded_causal")
+    drop = d256_modes["train_gemma2_dropout"]["launches"]
+    serve = d256_modes["serve_alibi_d256"]
+    fwd = [
+        ("attn_fwd[d256+alibi]", launched("attn_fwd_d256", "d256_op_alibi"),
+         "fwd_d256_alibi_prefill_2048", FWD_D256_SOURCE),
+        ("attn_fwd[d256+dropout]", drop["attn_fwd"], "fwd_d256_dropout_prefill_2048",
+         FWD_D256_SOURCE),
+        ("attn_fwd[d256+alibi+dropout]", launched("attn_fwd_d256", "d256_op_alibi_dropout"),
+         "fwd_d256_alibi_dropout_prefill_2048", FWD_D256_SOURCE),
+        ("attn_fwd[d256+seg]", launched("attn_fwd_d256_seg", *seg_calls),
+         "fwd_d256_seg_B2_N8192", FWD_D256_SEG_SOURCE),
+        *[(f"attn_fwd[d256+fp8v-{kind}]", launched("attn_fwd_d256", f"d256_fp8v_{kind}"),
+           f"fwd_d256_fp8v_{kind}_prefill_2048", FWD_D256_SOURCE) for kind in FP8_V],
+    ]
+    out = [entry(name, FWD_SM90_SOURCE, FWD_REPLACES, n, timings[case], built_from=src)
+           for name, n, case, src in fwd]
+    for tag, case, src, counts in (
+            ("d256+dropout", "bwd_d256_dropout_B2_H8_N8192", BWD_D256_SOURCE,
+             {s: drop[s] for s in ("attn_bwd_dkv", "attn_bwd_dq")}),
+            ("d256+alibi", "bwd_d256_alibi_B2_H8_N8192", BWD_D256_SOURCE,
+             {s: launched(s + "_d256", "d256_op_alibi") for s in ("attn_bwd_dkv", "attn_bwd_dq")}),
+            ("d256+alibi+dropout", "bwd_d256_alibi_dropout_B2_H8_N8192", BWD_D256_SOURCE,
+             {s: launched(s + "_d256", "d256_op_alibi_dropout")
+              for s in ("attn_bwd_dkv", "attn_bwd_dq")}),
+            ("d256+seg", "bwd_d256_seg_B2_H8_N8192", BWD_D256_SEG_SOURCE,
+             {s: launched(s + "_d256_seg", *seg_calls) for s in ("attn_bwd_dkv", "attn_bwd_dq")})):
+        for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+            out.append(entry(f"{name}[{tag}]", BWD_SM90_SOURCE, BWD_REPLACES[name],
+                             counts[name], timings[case][name], built_from=src))
+    out += [
+        entry("paged_decode[d256,bf16+alibi]", DECODE_SOURCE, DECODE_REPLACES,
+              serve["bf16"]["launches"]["paged_decode"]
+              + serve["bf16_chunked"]["launches"]["paged_decode"],
+              timings["decode_d256_bf16_B8_ctx2048_alibi"],
+              dec_res["d256_bf16_softcap50_alibi"]["max_abs_err_o"], DECODE_D256_SOURCE),
+        entry("paged_decode[d256,int8+alibi]", DECODE_SOURCE, DECODE_REPLACES,
+              serve["int8"]["launches"]["paged_decode"],
+              timings["decode_d256_int8_B8_ctx2048_alibi"],
+              dec_res["d256_int8_softcap50_alibi"]["max_abs_err_o"], DECODE_D256_SOURCE),
+        entry("paged_verify[d256,bf16+alibi]", VERIFY_SOURCE, VERIFY_REPLACES,
+              serve["bf16_chunked"]["launches"]["paged_verify"],
+              timings["verify_d256_bf16_T256_ctx2048_alibi"],
+              dec_res["d256_alibi_verify_T256_bf16_softcap"]["max_abs_err_o"],
+              VERIFY_D256_SOURCE),
+    ]
+    return out
 
 
 # One run of --pair: the tree's own chip_smoke.py builds its kernels and
@@ -4988,9 +5494,7 @@ def main() -> int:
     phase_mask(dev)
     fwd_res = phase_fwd(dev)
     phase_bwd(dev)
-    phase_mutants(dev, bwd_mutants)
     dec_res = phase_decode(dev)
-    phase_paged_mutants(dev, paged_mutants)
     serve_rec, model, cfg = phase_serve(dev)
     quant_runs = phase_serve_quant(dev, model, cfg)
     chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg)
@@ -4999,20 +5503,26 @@ def main() -> int:
     spec = phase_serve_spec(dev, model, cfg, burst)
     del model
     torch.cuda.empty_cache()
+    phase_mutants(dev, bwd_mutants)  # their builds ran beside the serving phases
+    phase_paged_mutants(dev, paged_mutants)
     gemma = phase_serve_gemma2(dev)
+    alibi_d256_runs = phase_serve_alibi_d256(dev)
     variants = phase_variants(dev)
     train_rec = phase_train(dev)
     train_alibi_rec = phase_train(dev, "train_alibi", position_encoding="alibi",
                                   attn_dropout=TRAIN_ALIBI_DROPOUT)
     packed_rec = phase_packed(dev)
     gemma_train_rec = phase_train_gemma2(dev)
+    gemma_dropout_rec = phase_train_gemma2_dropout(dev, gemma_train_rec)
     phase_remat(dev)
     phase_bf16_reduction(dev)
     timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
                   alibi_runs, train_alibi_rec, packed_rec), timings, (burst, spec),
-                 (gemma, variants), gemma_train_rec)
+                 (gemma, variants), gemma_train_rec,
+                 {"train_gemma2_dropout": gemma_dropout_rec,
+                  "serve_alibi_d256": alibi_d256_runs})
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -80,30 +80,40 @@ def all_sources() -> list:
 def build(sources: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile each source (default: every ``csrc/*.cu``) whose library is
     missing for its current hash: one ``nvcc`` per source, all started
-    together.  Returns ``{source: {"seconds": s, "log": nvcc output}}`` for
-    the sources it built; raises with nvcc's output if one fails."""
+    together, each writing its output to a file of its own (so that none
+    waits on a full pipe).  Returns ``{source: {"seconds": s, "log": nvcc
+    output}}`` for the sources it built, ``s`` the seconds from the start
+    to that source's own end; raises with nvcc's output if one fails."""
     sources = list(all_sources() if sources is None else sources)
     BUILD_DIR.mkdir(exist_ok=True)
     running = {}
+    t0 = time.perf_counter()
     for source in sources:
         out = library_path(source)
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log_path = out.with_name(f"{out.name}.{os.getpid()}.log")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT
-        )
-        running[source] = (proc, tmp, out, time.perf_counter())
+        with open(log_path, "wb") as log_file:
+            proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT)
+        running[source] = (proc, tmp, out, log_path)
     built = {}
     failed = []
-    for source, (proc, tmp, out, t0) in running.items():
-        log = proc.communicate()[0].decode(errors="replace")
-        if proc.returncode:
-            failed.append(f"nvcc failed on {source}:\n{log}")
-            continue
-        os.replace(tmp, out)
-        built[source] = {"seconds": time.perf_counter() - t0, "log": log}
+    while running:
+        for source, (proc, tmp, out, log_path) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds = time.perf_counter() - t0
+            del running[source]
+            log = log_path.read_bytes().decode(errors="replace")
+            log_path.unlink()
+            if proc.returncode:
+                failed.append(f"nvcc failed on {source}:\n{log}")
+                continue
+            os.replace(tmp, out)
+            built[source] = {"seconds": seconds, "log": log}
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     return built

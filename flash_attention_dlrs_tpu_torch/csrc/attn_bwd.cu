@@ -1,7 +1,8 @@
-// The attention backward without segment ids: the D preprocess, and the
-// sweeps of attn_bwd.cuh (fp32) and attn_bwd_sm90.cuh (bf16 / fp16)
-// instantiated with SEG = false (attn_bwd_seg.cu holds the other half, so
-// the two compile side by side).
+// The attention backward at head dim 128 without segment ids, and the D
+// preprocess (any head dim): the sweeps of attn_bwd.cuh (fp32) and
+// attn_bwd_sm90.cuh (bf16 / fp16) instantiated at d 128 with SEG = false,
+// ALiBi and dropout as flags.  One of six backward sources (a head dim and
+// a segment-id flag each), which compile side by side.
 
 #include "attn_bwd.cuh"
 #include "attn_bwd_sm90.cuh"
@@ -64,7 +65,7 @@ extern "C" int attn_bwd_dkv(const void* q, const void* k, const void* v, const v
                             int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                             int window, float softcap, const float* slopes, float rate,
                             float keep_scale, int seed, int route, void* stream) {
-  return attn_bwd_dkv_entry<false, false>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg,
+  return attn_bwd_dkv_entry<false, 128>(q, k, v, dout, lse, delta, dk, dv, q_seg, kv_seg,
                                           dtype, B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal,
                                           window, softcap, slopes, rate, keep_scale, seed,
                                           route, stream);
@@ -76,7 +77,7 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                            int Nkv, int D, float sm_scale, int causal, int window,
                            float softcap, const float* slopes, float rate, float keep_scale,
                            int seed, int route, void* stream) {
-  return attn_bwd_dq_entry<false, false>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg,
+  return attn_bwd_dq_entry<false, 128>(q, k, v, dout, lse, delta, dq, q_seg, kv_seg,
                                          dtype, B, Hq, Hkv, Nq, Nkv, D, sm_scale, causal,
                                          window, softcap, slopes, rate, keep_scale, seed,
                                          route, stream);

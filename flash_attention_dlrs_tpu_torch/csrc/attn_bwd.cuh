@@ -1,7 +1,7 @@
 // Attention backward (FlashAttention-2 style, deterministic) for Hopper, sm_90a:
-// the kernel bodies and the sweeps' C entries, included by attn_bwd.cu (the
-// preprocess, and the sweeps without segment ids) and attn_bwd_seg.cu (the
-// sweeps with them), which compile side by side.
+// the kernel bodies and the sweeps' C entries, included by six sources that
+// compile side by side, one for each head dim without and with segment ids
+// (attn_bwd_dkv_entry); attn_bwd.cu also holds the preprocess.
 //
 // Three kernels, one per C entry point, carry the backward of all six TPU
 // backward routes of the JAX package, with their whole feature set:
@@ -474,36 +474,6 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
 // The routes of the sweeps' C entries (ops/bwd_kernel.py ROUTE_CODES).
 constexpr int kRouteF32 = 0, kRouteWgmma = 1;
 
-// Calls fn(alibi, drop) with std::true_type / std::false_type for the modes
-// a call asks of a sweep built at head dim D: every mode at d 64 and 128
-// (dispatch_mods), none at 256, where ALiBi, dropout and segment ids are
-// still to port (ROADMAP.md, queue 2; ops/bwd_kernel.py bwd_route refuses
-// them before the launch) and a call asking for one is refused.
-template <bool SEG, int D, typename Fn>
-int dispatch_bwd_mods(const Mods& md, Fn&& fn) {
-  if constexpr (D == 256) {
-    if (SEG || md.q_seg != nullptr || md.slopes != nullptr || md.rate > 0.f)
-      return int(cudaErrorInvalidValue);
-    return fn(std::false_type{}, std::false_type{});
-  } else {
-    return dispatch_mods<SEG>(md, [&](auto alibi, auto drop, auto) { return fn(alibi, drop); });
-  }
-}
-
-// Calls fn(std::integral_constant<int, D>) for a head dim the build holds:
-// 64 and 128 (attn_bwd.cu, attn_bwd_seg.cu), or 256 (D256: attn_bwd_d256.cu,
-// its own source so that it compiles beside the others).
-template <bool D256, typename Fn>
-int dispatch_bwd_d(int D, Fn&& fn) {
-  if constexpr (D256) {
-    if (D == 256) return fn(std::integral_constant<int, 256>{});
-  } else {
-    if (D == 64) return fn(std::integral_constant<int, 64>{});
-    if (D == 128) return fn(std::integral_constant<int, 128>{});
-  }
-  return int(cudaErrorInvalidValue);
-}
-
 // The "wgmma" route, defined in attn_bwd_sm90.cuh.
 template <bool SEG, typename T, int D>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv);
@@ -512,7 +482,7 @@ int launch_dq_wgmma(const Args& a, void* dq);
 
 template <bool SEG, int D>
 int launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
     return launch(attn_bwd_dkv_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
                                           SEG>,
                   dkv_f32_smem_bytes<D, SEG>(), dim3((a.Nkv + KV_TILE - 1) / KV_TILE,
@@ -527,7 +497,7 @@ int launch_dkv_f32(const Args& a, void* dk, void* dv) {
 
 template <bool SEG, int D>
 int launch_dq_f32(const Args& a, void* dq) {
-  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
     return launch(attn_bwd_dq_f32_kernel<D, decltype(alibi)::value, decltype(drop)::value,
                                          SEG>,
                   dq_f32_smem_bytes<D, SEG>(), dim3((a.Nq + Q_TILE - 1) / Q_TILE, a.B * a.Hq),
@@ -544,10 +514,13 @@ bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
          rate >= 0.f && rate < 1.f;
 }
 
-// The sweeps' C entries of attn_bwd.cu (SEG false), attn_bwd_seg.cu (SEG
-// true) and attn_bwd_d256.cu (D256).  dtype 0 = float32, 1 = bfloat16, 2 =
-// float16; tensors contiguous, bf16/fp16 pointers 16-byte aligned; d 64 or
-// 128, or 256 in the D256 build (without ALiBi, dropout or segment ids).
+// The sweeps' C entries of the backward's builds, one for each head dim
+// DIM (64, 128, 256) without (SEG false) and with segment ids:
+// attn_bwd_d64.cu, attn_bwd.cu (128, and the preprocess), attn_bwd_d256.cu
+// and their *_seg.cu twins, sources of their own so that they compile side
+// by side.  D must be DIM; every mode at every head dim.  dtype 0 = float32,
+// 1 = bfloat16, 2 = float16; tensors contiguous, bf16/fp16 pointers 16-byte
+// aligned.
 // The sweeps take the forward's ALiBi slopes ([Hq] fp32 on the device, or
 // null), dropout rate, keep scale 1 / (1 - rate) and seed, and its q_seg
 // [B, Nq] / kv_seg [B, Nkv] int32 segment ids (set exactly when SEG).
@@ -557,46 +530,40 @@ bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
 // success).
 
 // dK, dV [B, Hkv, Nkv, d] from q, k, v, dout, lse and delta.
-template <bool SEG, bool D256>
+template <bool SEG, int DIM>
 int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
                        int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                        int window, float softcap, const float* slopes, float rate,
                        float keep_scale, int seed, int route, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
+  if (D != DIM || !valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  return dispatch_bwd_d<D256>(D, [&](auto d) {
-    constexpr int DIM = decltype(d)::value;
-    if (route == kRouteF32 && dtype == 0) return launch_dkv_f32<SEG, DIM>(a, dk, dv);
-    if (route == kRouteWgmma && dtype == 1)
-      return launch_dkv_wgmma<SEG, __nv_bfloat16, DIM>(a, dk, dv);
-    if (route == kRouteWgmma && dtype == 2) return launch_dkv_wgmma<SEG, __half, DIM>(a, dk, dv);
-    return int(cudaErrorInvalidValue);
-  });
+  if (route == kRouteF32 && dtype == 0) return launch_dkv_f32<SEG, DIM>(a, dk, dv);
+  if (route == kRouteWgmma && dtype == 1)
+    return launch_dkv_wgmma<SEG, __nv_bfloat16, DIM>(a, dk, dv);
+  if (route == kRouteWgmma && dtype == 2) return launch_dkv_wgmma<SEG, __half, DIM>(a, dk, dv);
+  return int(cudaErrorInvalidValue);
 }
 
 // dQ [B, Hq, Nq, d] from q, k, v, dout, lse and delta.
-template <bool SEG, bool D256>
+template <bool SEG, int DIM>
 int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const int* q_seg,
                       const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq,
                       int Nkv, int D, float sm_scale, int causal, int window,
                       float softcap, const float* slopes, float rate, float keep_scale,
                       int seed, int route, void* stream) {
-  if (!valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
+  if (D != DIM || !valid(B, Hq, Hkv, Nq, Nkv, rate)) return int(cudaErrorInvalidValue);
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  return dispatch_bwd_d<D256>(D, [&](auto d) {
-    constexpr int DIM = decltype(d)::value;
-    if (route == kRouteF32 && dtype == 0) return launch_dq_f32<SEG, DIM>(a, dq);
-    if (route == kRouteWgmma && dtype == 1) return launch_dq_wgmma<SEG, __nv_bfloat16, DIM>(a, dq);
-    if (route == kRouteWgmma && dtype == 2) return launch_dq_wgmma<SEG, __half, DIM>(a, dq);
-    return int(cudaErrorInvalidValue);
-  });
+  if (route == kRouteF32 && dtype == 0) return launch_dq_f32<SEG, DIM>(a, dq);
+  if (route == kRouteWgmma && dtype == 1) return launch_dq_wgmma<SEG, __nv_bfloat16, DIM>(a, dq);
+  if (route == kRouteWgmma && dtype == 2) return launch_dq_wgmma<SEG, __half, DIM>(a, dq);
+  return int(cudaErrorInvalidValue);
 }
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -2,9 +2,9 @@
 // (sm_90a): warpgroup products (wgmma), TMA copies into a ring of
 // shared-memory stages tracked by mbarriers, and a producer warpgroup apart
 // from two consumer warpgroups (registers moved by setmaxnreg).  Included by
-// attn_bwd.cu (SEG false) and attn_bwd_seg.cu (SEG true) after attn_bwd.cuh,
-// whose C entries launch them on the "wgmma" route (ops/bwd_kernel.py
-// bwd_route): every bf16 / fp16 call.
+// the six backward sources after attn_bwd.cuh, whose C entries launch them
+// on the "wgmma" route (ops/bwd_kernel.py bwd_route): every bf16 / fp16
+// call.
 //
 // Replaces the dK/dV and dQ sweeps of the TPU kernels
 // flash_attention_dlrs_tpu/ops/bwd_kernel.py _bwd_dkv_kernel and
@@ -72,8 +72,9 @@
 //  * Determinism stays structural: a dK/dV CTA owns its 128 keys and walks
 //    the q heads of its GQA group and then their q steps in order; a dQ CTA
 //    owns its 128 rows and walks its key tiles in order; no atomics.
-//  * Head dim 256 (Gemma; built in attn_bwd_d256.cu, without ALiBi, dropout
-//    or segment ids) keeps the CTA shape and changes two things.  Registers:
+//  * Head dim 256 (Gemma; built in attn_bwd_d256.cu and, with segment ids,
+//    attn_bwd_d256_seg.cu, every mode a flag as at d 64 and 128) keeps the
+//    CTA shape and changes two things.  Registers:
 //    a dK/dV warpgroup cannot hold dK and dV for its 64 keys (2 x 128 fp32 a
 //    thread past the consumers' 232), so the sweep runs twice over the same
 //    q steps, dV in the first pass (S recomputed) and dK in the second (S
@@ -81,7 +82,11 @@
 //    products and the order of every sum otherwise as at d 128; the dQ
 //    accumulator (128 registers) fits as the forward's O does.  Shared
 //    memory: the two resident tiles take 128 KB, so the streamed stages
-//    carry 32 rows (16 KB a tile) in 3 stages, 96 KB, 224 KB in all.
+//    carry 32 rows (16 KB a tile) in 3 stages, 96 KB, 224 KB in all (with
+//    segment ids the dK/dV stages' three row arrays bring it to 231,608 of
+//    the 232,448 bytes a CTA may opt into).  With dropout both dK/dV passes
+//    regenerate the keep mask at the same (seed, b, h, row, key): the first
+//    builds P o M for dV, the second dS = P o (M o dP - D) for dK.
 // The host builds the four tensor maps (3-D: d, N, B * H; zero fill past a
 // head's tail) on every call and passes them as __grid_constant__
 // parameters; the launch allocates nothing and does not synchronise.
@@ -684,7 +689,7 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   using L = sm90::BwdLayout<D, SEG, true>;
   if (!encode_sweep_maps<T, D>(a, L::BS, sm90::BR, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
     return launch(sm90::attn_bwd_dkv_wgmma_kernel<T, D, decltype(alibi)::value,
                                                   decltype(drop)::value, SEG>,
                   L::BYTES,
@@ -695,6 +700,16 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   });
 }
 
+// Dynamic shared memory of a sweep of the build at head dim D (dkv 1: the
+// dK/dV sweep, 0: dQ) on a route (kRouteF32 or kRouteWgmma), in bytes.
+template <bool SEG, int D>
+int bwd_shared_bytes(int dkv, int route) {
+  if (route == kRouteF32)
+    return dkv ? int(dkv_f32_smem_bytes<D, SEG>()) : int(dq_f32_smem_bytes<D, SEG>());
+  return dkv ? int(sm90::BwdLayout<D, SEG, true>::BYTES)
+             : int(sm90::BwdLayout<D, SEG, false>::BYTES);
+}
+
 // Declared in attn_bwd.cuh: the "wgmma" route of the dQ entry.
 template <bool SEG, typename T, int D>
 int launch_dq_wgmma(const Args& a, void* dq) {
@@ -702,7 +717,7 @@ int launch_dq_wgmma(const Args& a, void* dq) {
   using L = sm90::BwdLayout<D, SEG, false>;
   if (!encode_sweep_maps<T, D>(a, sm90::BR, L::BS, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_bwd_mods<SEG, D>(a.md, [&](auto alibi, auto drop) {
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
     return launch(sm90::attn_bwd_dq_wgmma_kernel<T, D, decltype(alibi)::value,
                                                  decltype(drop)::value, SEG>,
                   L::BYTES,

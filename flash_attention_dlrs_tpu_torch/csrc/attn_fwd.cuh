@@ -1,7 +1,7 @@
 // Blocked attention forward for Hopper, sm_90a: the fp32 kernel, the launch
-// arguments and the C entry, included by attn_fwd.cu (no segment ids) and
-// attn_fwd_seg.cu (with them), which compile side by side; the bf16 / fp16
-// kernel is in attn_fwd_sm90.cuh.
+// arguments and the C entry, included by six sources that compile side by
+// side, one for each head dim (64, 128, 256) without and with segment ids
+// (attn_fwd_entry); the bf16 / fp16 kernel is in attn_fwd_sm90.cuh.
 //
 // Replaces the forward of four TPU kernels, with their whole feature set:
 //   flash_attention_dlrs_tpu/ops/fwd_kernel.py  _fwd_kernel        (general tri/band grid;
@@ -37,8 +37,8 @@
 // cross-length causal diagonal, or whose segment id occurs nowhere in its
 // keys, mid-sequence) gets O = 0 and L = DEFAULT_MASK_VALUE, the JAX
 // package's stats_to_lse convention.  Inputs are fp32, bf16 or fp16 with d
-// in {64, 128, 256} (256 without segment ids, ALiBi, dropout or fp8 V:
-// gemma_modes); V may instead be fp8 (e4m3fn or e5m2, the JAX package's
+// in {64, 128, 256}, every mode at every head dim; V may instead be fp8
+// (e4m3fn or e5m2, the JAX package's
 // v_payload), dequantized exactly to q's type before P V (P is still
 // rounded to q's type).  The online softmax keeps an exact running max (no
 // static shift) and fp32 statistics.
@@ -298,27 +298,6 @@ int dispatch_v8(int v_kind, Fn&& fn) {
   return v_kind == kVSame ? fn(std::false_type{}) : fn(std::true_type{});
 }
 
-// Head dim 256 (Gemma) is built for the modes Gemma uses only: no mode
-// flag (causal, window and softcap are run-time arguments).  ALiBi,
-// dropout, segment ids and fp8 V at d 256 are still to port (ROADMAP.md,
-// queue 2); ops/fwd_kernel.py refuses them before the launch.
-inline bool gemma_modes(const Args& a) {
-  return a.md.slopes == nullptr && a.md.rate == 0.f && a.md.q_seg == nullptr &&
-         a.v_kind == kVSame;
-}
-
-// Calls fn(std::integral_constant<int, D>) for a head dim the build takes:
-// 64 and 128, and 256 without segment ids.
-template <bool SEG, typename Fn>
-int dispatch_d(int D, Fn&& fn) {
-  if (D == 64) return fn(std::integral_constant<int, 64>{});
-  if (D == 128) return fn(std::integral_constant<int, 128>{});
-  if constexpr (!SEG) {
-    if (D == 256) return fn(std::integral_constant<int, 256>{});
-  }
-  return int(cudaErrorInvalidValue);
-}
-
 template <bool SEG, int D>
 int launch_f32(const Args& a) {
   auto run = [&](auto alibi, auto drop, auto v8) {
@@ -335,17 +314,15 @@ int launch_f32(const Args& a) {
         a.Nq, a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
     return int(cudaGetLastError());
   };
-  if constexpr (D == 256) {
-    if (!gemma_modes(a)) return int(cudaErrorInvalidValue);
-    return run(std::false_type{}, std::false_type{}, std::false_type{});
-  } else {
-    return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-      return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
-    });
-  }
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+    return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
+  });
 }
 
-// The C entry of attn_fwd.cu (SEG false) and attn_fwd_seg.cu (SEG true).
+// The C entry of the forward's builds, one for each head dim DIM (64, 128,
+// 256) without (SEG false) and with segment ids: attn_fwd_d64.cu,
+// attn_fwd.cu (128), attn_fwd_d256.cu and their *_seg.cu twins, sources of
+// their own so that they compile side by side.  D must be DIM.
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16, of q, k and O; v_kind 0 =
 // V of that type, 1 = float8_e4m3fn, 2 = float8_e5m2.  bf16/fp16/fp8
 // pointers must be 16-byte aligned.  q_seg [B, Nq] / kv_seg [B, Nkv] int32
@@ -356,26 +333,23 @@ int launch_f32(const Args& a) {
 // route that cannot carry the call returns cudaErrorInvalidValue, never
 // another route.  Returns cudaGetLastError() after the launch (0 on success);
 // launches nothing for an empty problem.
-template <bool SEG>
+template <bool SEG, int DIM>
 int attn_fwd_entry(const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* q_seg, const int* kv_seg, int dtype, int v_kind, int B,
                    int Hq, int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
                    int window, float softcap, const float* slopes, float rate,
                    float keep_scale, int seed, int route, void* stream) {
   if (B <= 0 || Hq <= 0 || Nq <= 0) return 0;
-  if (Hkv <= 0 || Hq % Hkv != 0 || Nkv < 0 || rate < 0.f || rate >= 1.f ||
+  if (D != DIM || Hkv <= 0 || Hq % Hkv != 0 || Nkv < 0 || rate < 0.f || rate >= 1.f ||
       v_kind < kVSame || v_kind > kVE5M2)
     return int(cudaErrorInvalidValue);
   const Args a{q, k, v, v_kind, o, lse, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  return dispatch_d<SEG>(D, [&](auto d) {
-    constexpr int DIM = decltype(d)::value;
-    if (route == kRouteF32 && dtype == 0) return launch_f32<SEG, DIM>(a);
-    if (route == kRouteWgmma && dtype == 1) return launch_wgmma<SEG, __nv_bfloat16, DIM>(a);
-    if (route == kRouteWgmma && dtype == 2) return launch_wgmma<SEG, __half, DIM>(a);
-    return int(cudaErrorInvalidValue);
-  });
+  if (route == kRouteF32 && dtype == 0) return launch_f32<SEG, DIM>(a);
+  if (route == kRouteWgmma && dtype == 1) return launch_wgmma<SEG, __nv_bfloat16, DIM>(a);
+  if (route == kRouteWgmma && dtype == 2) return launch_wgmma<SEG, __half, DIM>(a);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -2,9 +2,9 @@
 // warpgroup products (wgmma), TMA copies into a ring of shared-memory
 // stages tracked by mbarriers, and a producer warpgroup apart from the
 // consumers (warp specialisation, registers moved by setmaxnreg).  Included
-// by attn_fwd.cu and attn_fwd_seg.cu after attn_fwd.cuh, whose C entry
-// launches it on the "wgmma" route (ops/fwd_kernel.py fwd_route): every
-// bf16 / fp16 call.
+// by the six forward sources after attn_fwd.cuh, whose C entry launches it
+// on the "wgmma" route (ops/fwd_kernel.py fwd_route): every bf16 / fp16
+// call.
 //
 // Replaces the forward of the TPU kernels
 // flash_attention_dlrs_tpu/ops/fwd_kernel.py _fwd_kernel, fwd_mid.py
@@ -15,9 +15,7 @@
 // undropped row sum and before P is rounded to q's type, segment ids, fp8
 // V (e4m3 / e5m2, dequantized exactly), an exact running max in fp32, and
 // O = 0 with L = kMaskValue for a row that sees no key.  ALiBi, dropout,
-// segment ids and fp8 V are template flags, built at d 64 and 128; d 256
-// (Gemma) is built for the modes Gemma uses (none, softcap, window: run-time
-// arguments) and refuses the four flags.
+// segment ids and fp8 V are template flags, built at every head dim.
 //
 // Bound on this card.  At the model paths' shapes the forward is bound by
 // operations (4*d per visible pair and head on the tensor cores' 989
@@ -44,7 +42,8 @@
 //    with P from registers (the S accumulator re-packed) and V in shared
 //    memory, MN-major (the transpose bit).  At d 256 the O accumulator
 //    takes 128 registers a consumer thread, hence the 64-key tile: S and P
-//    then take 48 more, within the consumers' 240.  Per warp, the accumulator has the m16n8 fragment
+//    then take 48 more, within the consumers' 240 (224 with fp8 V, 232
+//    with segment ids).  Per warp, the accumulator has the m16n8 fragment
 //    pattern repeated over N/8, so the scale, softcap, ALiBi, mask,
 //    dropout and online softmax are the mma.sync kernel's with row = m0 +
 //    64*wg + 16*warp + g (+8), col = n0 + 8*j + 2*t (+1).
@@ -72,6 +71,9 @@
 //    (half the bytes) into a staging buffer and the producer warpgroup
 //    converts it exactly (common.cuh fp8x2_to) into the swizzled 16-bit V
 //    stage, then fences the async proxy and arrives on V's full barrier.
+//    At d 256 the two 16 KB fp8 stages and the segment ids' 512 bytes
+//    bring a CTA to 231,000 of the 232,448 bytes it may opt into
+//    (Layout<256, true, true>::BYTES).
 // The host builds the three tensor maps on every call with
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point
 // (no -lcuda), and passes them as __grid_constant__ parameters; the launch
@@ -107,6 +109,7 @@ struct Layout {
   static constexpr uint32_t IDS_OFF = V8_OFF + (V8 ? STAGES * V8_BYTES : 0);
   static constexpr uint32_t BAR_OFF = IDS_OFF + (SEG ? STAGES * BN * 4 : 0);
   static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 5 * STAGES) + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 template <typename T, int D, bool ALIBI, bool DROP, bool SEG, bool V8>
@@ -516,14 +519,17 @@ int launch_wgmma(const Args& a) {
         a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
     return int(cudaGetLastError());
   };
-  if constexpr (D == 256) {
-    if (!gemma_modes(a)) return int(cudaErrorInvalidValue);
-    return run(std::false_type{}, std::false_type{}, std::false_type{});
-  } else {
-    return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-      return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
-    });
-  }
+  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+    return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
+  });
+}
+
+// Dynamic shared memory of a kernel of the build at head dim D (route
+// kRouteF32 or kRouteWgmma; v8: fp8 V), in bytes.
+template <bool SEG, int D>
+int fwd_shared_bytes(int route, int v8) {
+  if (route == kRouteF32) return int(f32_smem_bytes<D, SEG>());
+  return v8 ? int(sm90::Layout<D, SEG, true>::BYTES) : int(sm90::Layout<D, SEG, false>::BYTES);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
 // Pieces shared by the attention kernels (attn_fwd*.cu, attn_bwd*.cu,
-// paged_verify.cu), sm_90a.
+// paged_verify.cuh), sm_90a.
 //
 // The masking rule of the JAX package (bottom-right causal alignment,
 // sliding window on the causal band, ragged KV tail), the ALiBi,
@@ -105,10 +105,10 @@ __device__ __forceinline__ float dropout_factor(uint32_t stream, int row, int co
 // as template flags, so a call without them runs code compiled without them
 // (runtime branches in the unrolled tile loops cost registers, and 14-40%
 // of the mode-free kernels' time on the H100).  SEG is fixed per source:
-// attn_fwd.cu / attn_bwd.cu instantiate the kernels without segments and
-// attn_fwd_seg.cu / attn_bwd_seg.cu with them, so the two halves compile
-// side by side; a call whose q ids disagree with SEG is refused (kv_seg is
-// read only where keys exist: it may be null when Nkv = 0).
+// attn_fwd*.cu / attn_bwd*.cu instantiate the kernels without segments and
+// their *_seg.cu twins with them, so the halves compile side by side; a call
+// whose q ids disagree with SEG is refused (kv_seg is read only where keys
+// exist: it may be null when Nkv = 0).
 template <bool SEG, typename Fn>
 int dispatch_mods(const Mods& md, Fn&& fn) {
   if ((md.q_seg != nullptr) != SEG) return int(cudaErrorInvalidValue);

@@ -1,5 +1,5 @@
-// Page-pool formats shared by the paged attention kernels (paged_decode.cu,
-// paged_verify.cu), sm_90a, and what the two share beyond them: the
+// Page-pool formats shared by the paged attention kernels (paged_decode.cuh,
+// paged_verify.cuh), sm_90a, and what the two share beyond them: the
 // asynchronous copies that stage pages (1-D bulk copies and 16-byte
 // cp.async, both completing on an mbarrier) and the layout of key splits.
 //
@@ -20,8 +20,8 @@
 // shapes).  Each split's CTA writes its rows' attention normalized over its
 // own keys, in fp32, and the natural-base lse of those keys, or an lse of
 // -inf when it sees none; the splits of each row are then merged in split
-// order by lse weight (ops/decode.py combine_partials; paged_decode.cu
-// merge_rows, paged_verify.cu paged_verify_combine_kernel), so a call is
+// order by lse weight (ops/decode.py combine_partials; paged_decode.cuh
+// merge_rows, paged_verify.cuh paged_verify_combine_kernel), so a call is
 // bitwise repeatable and no atomics touch O.
 
 #pragma once

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) primitives shared by the wgmma kernels of attn_fwd_sm90.cuh,
-// attn_bwd_sm90.cuh and paged_verify.cu: the forward's and backward's CTA
+// attn_bwd_sm90.cuh and paged_verify.cuh: the forward's and backward's CTA
 // shape (a producer warpgroup and two consumer warpgroups), mbarriers, TMA
 // copies of 3-D and 2-D tensor maps with the 128-byte swizzle, wgmma
 // shared-memory descriptors and the products (m64nNk16, fp32 accumulate, A

@@ -3,12 +3,13 @@
 The kernels are ``csrc/attn_bwd.cuh`` (the D preprocess, the fp32 sweeps
 and the C entries) and ``csrc/attn_bwd_sm90.cuh`` (the bf16 / fp16 sweeps):
 ``attn_bwd_preprocess`` (D = rowsum(O ∘ dO), any head dim), ``attn_bwd_dkv``
-and ``attn_bwd_dq``, the two sweeps built three times: ``csrc/attn_bwd.cu``
-at head dims 64 and 128 without segment ids, ``csrc/attn_bwd_seg.cu`` with
-them (``attn_bwd_dkv_seg``, ``attn_bwd_dq_seg``) and ``csrc/attn_bwd_d256.cu``
-at head dim 256 (``attn_bwd_dkv_d256``, ``attn_bwd_dq_d256``; without ALiBi,
-dropout or segment ids, which are still to port there), each entry with its
-own launch count.  Each sweep
+and ``attn_bwd_dq``, the two sweeps built six times, once for each head dim
+without and with segment ids (:func:`sweep_kernel`): ``csrc/attn_bwd.cu``
+(head dim 128, with the preprocess), ``csrc/attn_bwd_seg.cu``
+(``attn_bwd_dkv_seg``, ``attn_bwd_dq_seg``), ``csrc/attn_bwd_d64.cu`` /
+``attn_bwd_d64_seg.cu`` and ``csrc/attn_bwd_d256.cu`` /
+``attn_bwd_d256_seg.cu`` (entries suffixed alike), each entry with its own
+launch count.  Each sweep
 call takes one of two routes, fixed by :func:`bwd_route` from the call's
 types alone and counted per sweep in :data:`BWD_ROUTE_LAUNCHES`:
 ``"wgmma"`` (the Hopper kernels: warpgroup products, TMA, a producer
@@ -47,12 +48,10 @@ from .fwd_kernel import (
     check_segments,
     dropout_rows,
     mod_args,
-    refuse_d256_modes,
 )
 
-# The head dims the backward kernels are built for (the forward's): 256 in a
-# build of its own, without ALiBi, dropout or segment ids
-# (:func:`..fwd_kernel.refuse_d256_modes`).
+# The head dims the backward kernels are built for (the forward's), each
+# with every mode; 256 in builds of its own.
 BWD_HEAD_DIMS = KERNEL_WIDTHS
 
 PREPROCESS_KERNEL = CudaKernel(
@@ -77,11 +76,16 @@ DKV_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dkv", _DKV_ARGS)
 DQ_KERNEL = CudaKernel("attn_bwd.cu", "attn_bwd_dq", _DQ_ARGS)
 DKV_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dkv_seg", _DKV_ARGS)
 DQ_SEG_KERNEL = CudaKernel("attn_bwd_seg.cu", "attn_bwd_dq_seg", _DQ_ARGS)
+DKV_D64_KERNEL = CudaKernel("attn_bwd_d64.cu", "attn_bwd_dkv_d64", _DKV_ARGS)
+DQ_D64_KERNEL = CudaKernel("attn_bwd_d64.cu", "attn_bwd_dq_d64", _DQ_ARGS)
+DKV_D64_SEG_KERNEL = CudaKernel("attn_bwd_d64_seg.cu", "attn_bwd_dkv_d64_seg", _DKV_ARGS)
+DQ_D64_SEG_KERNEL = CudaKernel("attn_bwd_d64_seg.cu", "attn_bwd_dq_d64_seg", _DQ_ARGS)
 DKV_D256_KERNEL = CudaKernel("attn_bwd_d256.cu", "attn_bwd_dkv_d256", _DKV_ARGS)
 DQ_D256_KERNEL = CudaKernel("attn_bwd_d256.cu", "attn_bwd_dq_d256", _DQ_ARGS)
-
+DKV_D256_SEG_KERNEL = CudaKernel("attn_bwd_d256_seg.cu", "attn_bwd_dkv_d256_seg", _DKV_ARGS)
+DQ_D256_SEG_KERNEL = CudaKernel("attn_bwd_d256_seg.cu", "attn_bwd_dq_d256_seg", _DQ_ARGS)
 # The launches of each sweep on each route (the C entries' route codes are
-# the forward's, ops/fwd_kernel.py ROUTE_CODES), over the three builds; set
+# the forward's, ops/fwd_kernel.py ROUTE_CODES), over the six builds; set
 # to 0 by whoever reads them.
 BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
@@ -99,12 +103,12 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
     wgmma     bf16 / fp16 q, with or without segment ids
     ========  ==========================================================
 
-    Segment ids, ALiBi and dropout are modes of both routes and change
-    neither.  d must be 64, 128 or 256 on every route (256 without those
-    modes: :func:`..fwd_kernel.refuse_d256_modes`); anything else raises."""
+    Segment ids, ALiBi and dropout are modes of both routes at every head
+    dim and change neither (the mode arguments are kept so that a caller
+    can name what it runs).  d must be 64, 128 or 256 on every route;
+    anything else raises."""
+    del segments, alibi, dropout
     check_kernel_head_dim(head_dim, "attn_bwd kernels", BWD_HEAD_DIMS)
-    refuse_d256_modes(head_dim, **{"segment ids": segments, "ALiBi": alibi,
-                                   "dropout": dropout})
     if dtype == torch.float32:
         return "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
@@ -168,12 +172,14 @@ def _route(q, *, alibi_slopes, dropout_rate, q_seg, **_):
                      bool(dropout_rate))
 
 
-def _kernel(q, q_seg, plain_build, seg_build, d256_build):
-    """The build of a sweep that takes the call: the d256 one at head dim 256,
-    else the one with or without segment ids."""
-    if q.shape[-1] == 256:
-        return d256_build
-    return plain_build if q_seg is None else seg_build
+def sweep_kernel(sweep: str, head_dim: int, segments: bool) -> CudaKernel:
+    """The build of ``sweep`` ("attn_bwd_dkv" or "attn_bwd_dq") that takes a
+    call, by head dim and by whether it has segment ids: the module
+    attribute ``DKV[_D<d>][_SEG]_KERNEL`` / ``DQ...`` (no suffix at d 128),
+    looked up at call time so that a check may swap a build."""
+    dim = "" if head_dim == 128 else f"_D{head_dim}"
+    name = "DKV" if sweep == "attn_bwd_dkv" else "DQ"
+    return globals()[f"{name}{dim}{'_SEG' if segments else ''}_KERNEL"]
 
 
 def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
@@ -188,7 +194,7 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     route = _route(q, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kernel = _kernel(q, q_seg, DKV_KERNEL, DKV_SEG_KERNEL, DKV_D256_KERNEL)
+    kernel = sweep_kernel("attn_bwd_dkv", q.shape[-1], q_seg is not None)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                   ptr(dk), ptr(dv), *_sweep_args(q, k, route, **kw))
     BWD_ROUTE_LAUNCHES["attn_bwd_dkv"][route] += 1
@@ -207,7 +213,7 @@ def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     route = _route(q, **kw)
     dq = torch.empty_like(q)
-    kernel = _kernel(q, q_seg, DQ_KERNEL, DQ_SEG_KERNEL, DQ_D256_KERNEL)
+    kernel = sweep_kernel("attn_bwd_dq", q.shape[-1], q_seg is not None)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
                   ptr(dq), *_sweep_args(q, k, route, **kw))
     BWD_ROUTE_LAUNCHES["attn_bwd_dq"][route] += 1
@@ -227,8 +233,7 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     tensors take :func:`attn_bwd_plain`; CUDA tensors launch the three
     kernels (preprocess, dK/dV sweep, dQ sweep; the sweeps on the route of
     :func:`bwd_route`), which take contiguous fp32/bf16/fp16 inputs with d
-    in {64, 128, 256} (256 without ALiBi, dropout or segment ids), or
-    raise."""
+    in {64, 128, 256}, or raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg)
     if q.device.type == "cpu":

@@ -7,10 +7,12 @@ per byte, ``[Hkv, P, page_size/2, d]``), each with per-token fp32 scales
 ``[Hkv, P, page_size, 1]``.  A page table ``[B, pages_per_seq]`` maps each
 sequence's tokens to pool pages, and ``lengths`` ``[B]`` masks each
 sequence.  Two kernels replace the TPU kernel
-``ops/decode.py::_decode_kernel``: ``csrc/paged_decode.cu`` its single-token
-mode (:func:`paged_decode_attention`) and ``csrc/paged_verify.cu`` its
+``ops/decode.py::_decode_kernel``: ``csrc/paged_decode.cuh`` its single-token
+mode (:func:`paged_decode_attention`) and ``csrc/paged_verify.cuh`` its
 multi-token verify mode (:func:`paged_verify_attention`, on the route of
-:func:`verify_route`).  Both may cut each page table into key splits of
+:func:`verify_route`), each built once for each pool head dim
+(:func:`paged_kernels`: ``paged_decode.cu`` and ``paged_verify.cu`` at 128,
+``*_d64.cu`` and ``*_d256.cu``).  Both may cut each page table into key splits of
 whole pages (:func:`decode_splits`, from static shapes only) whose
 normalized partials are merged by lse weight (:func:`combine_partials`).
 CPU tensors take the plain versions, :func:`paged_decode_plain` and
@@ -27,7 +29,7 @@ Pools may be wider than q's head_dim (``models/decoding.py`` allocates them
 at the kernels' width, :func:`.fwd_kernel.kernel_width`, as the JAX package
 pads them to 128 lanes): q is zero-padded to the pool's head dim on every
 device, ``sm_scale`` defaults to q's own head_dim**-0.5, and O is sliced
-back.  The kernels take pool head dims 64, 128 and 256 (256 without ALiBi).
+back.  The kernels take pool head dims 64, 128 and 256, each with every mode.
 """
 
 from __future__ import annotations
@@ -41,7 +43,6 @@ from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
 from .fwd_kernel import (
     DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, check_kernel_head_dim, pad_head_dim,
-    refuse_d256_modes,
 )
 from .quantization import (
     Int4QuantizedTensor,
@@ -65,23 +66,35 @@ _POOL_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,  # lengths, page table
 ]
 
-DECODE_KERNEL = CudaKernel(
-    "paged_decode.cu",
-    "paged_decode",
+_DECODE_ARGS = (
     _POOL_ARGS + [ctypes.c_void_p] * 5  # o, lse, split partials O and lse, counters
     + [ctypes.c_int] * 8  # B, Hq, Hkv, P, page_size, pages_per_seq, D, splits
     + [ctypes.c_float, ctypes.c_float]  # scale, cap
-    + [ctypes.c_void_p, ctypes.c_void_p],  # ALiBi slopes, stream
+    + [ctypes.c_void_p, ctypes.c_void_p]  # ALiBi slopes, stream
 )
 
-VERIFY_KERNEL = CudaKernel(
-    "paged_verify.cu",
-    "paged_verify",
+_VERIFY_ARGS = (
     _POOL_ARGS + [ctypes.c_void_p] * 3  # o, split partials O and lse
     + [ctypes.c_int] * 9  # B, Hq, Hkv, T, P, page_size, pages_per_seq, D, splits
     + [ctypes.c_float, ctypes.c_float]  # scale_q, cap
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],  # ALiBi slopes, route, stream
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]  # ALiBi slopes, route, stream
 )
+# Each paged kernel's builds, one for each pool head dim.
+DECODE_KERNEL = CudaKernel("paged_decode.cu", "paged_decode", _DECODE_ARGS)
+DECODE_D64_KERNEL = CudaKernel("paged_decode_d64.cu", "paged_decode_d64", _DECODE_ARGS)
+DECODE_D256_KERNEL = CudaKernel("paged_decode_d256.cu", "paged_decode_d256", _DECODE_ARGS)
+VERIFY_KERNEL = CudaKernel("paged_verify.cu", "paged_verify", _VERIFY_ARGS)
+VERIFY_D64_KERNEL = CudaKernel("paged_verify_d64.cu", "paged_verify_d64", _VERIFY_ARGS)
+VERIFY_D256_KERNEL = CudaKernel("paged_verify_d256.cu", "paged_verify_d256", _VERIFY_ARGS)
+
+
+def paged_kernels(head_dim: int):
+    """(decode build, verify build) of a pool head dim: the module attributes
+    ``DECODE[_D<d>]_KERNEL`` / ``VERIFY[_D<d>]_KERNEL`` (no suffix at d
+    128), looked up at call time so that a check may swap a build."""
+    dim = "" if head_dim == 128 else f"_D{head_dim}"
+    return globals()[f"DECODE{dim}_KERNEL"], globals()[f"VERIFY{dim}_KERNEL"]
+
 
 # Calls of each kernel by key-split count ({splits: calls}), beside its
 # launch count (one a call: the last CTA of each group merges the splits);
@@ -89,15 +102,15 @@ VERIFY_KERNEL = CudaKernel(
 DECODE_SPLITS: dict = register_launch_counts({})
 VERIFY_SPLITS: dict = register_launch_counts({})
 
-# The verify C entry's route codes (csrc/paged_verify.cu kRouteF32 /
+# The verify C entry's route codes (csrc/paged_verify.cuh kRouteF32 /
 # kRouteWgmma) and the launches of each route.
 VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1}
 VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES, 0))
 
-# Tokens of one stored-row tile of csrc/paged_decode.cu: the least a split
+# Tokens of one stored-row tile of csrc/paged_decode.cuh: the least a split
 # covers.
 SPLIT_MIN_TOKENS = 64
-# The pool head dims both paged kernels are built for (256 without ALiBi).
+# The pool head dims both paged kernels are built for.
 PAGED_HEAD_DIMS = KERNEL_WIDTHS
 
 # Rows of one CTA of the verify kernel's wgmma route, and the most key
@@ -145,8 +158,8 @@ def split_pages(pages_per_seq: int, splits: int):
 
 
 def combine_partials(o_parts, lse_parts):
-    """The merge of a split call (decode: csrc/paged_decode.cu merge_rows,
-    by the last CTA of each group; verify: csrc/paged_verify.cu
+    """The merge of a split call (decode: csrc/paged_decode.cuh merge_rows,
+    by the last CTA of each group; verify: csrc/paged_verify.cuh
     paged_verify_combine_kernel): ``o_parts`` [S, ..., d] fp32 partial
     attentions, each normalized over its own keys, and ``lse_parts``
     [S, ...] their natural-base lse (-inf where a split saw no key) merged
@@ -179,10 +192,11 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
     ========  ==========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
-    Both routes take every page size (int4: even) and d 64, 128 or 256
-    (256 without ``alibi``).  What no route takes raises."""
+    Both routes take every page size (int4: even) and d 64, 128 or 256,
+    with or without ``alibi`` (kept so that a caller can name what it
+    runs).  What no route takes raises."""
+    del alibi
     check_kernel_head_dim(head_dim, "paged verify kernel", PAGED_HEAD_DIMS)
-    refuse_d256_modes(head_dim, **{"ALiBi in the paged verify kernel": alibi})
     if pool_kind not in POOL_KINDS:
         raise ValueError(f"paged verify kernel takes pools of {list(POOL_KINDS)}, "
                          f"not {pool_kind}")
@@ -207,7 +221,7 @@ def _num_sms(index: int) -> int:
 # The scratch of the split calls, per device and stream (calls on one
 # stream run one after another; calls that may run at once never share
 # it): fp32 partials, and decode's uint32 counters, which each kernel
-# leaves zero (csrc/paged_decode.cu last_of_group).  Grown, never shrunk.
+# leaves zero (csrc/paged_decode.cuh last_of_group).  Grown, never shrunk.
 _SCRATCH: dict = {}
 
 
@@ -366,7 +380,7 @@ def paged_decode_attention(
     ``alibi_slopes``: see the module docstring; the returned lse is then
     shifted by +m_h·(length − 1).  The caller guarantees that every page id
     a sequence's length reaches is a valid pool page.  CPU tensors take the
-    plain versions; CUDA tensors launch ``csrc/paged_decode.cu`` (with the
+    plain versions; CUDA tensors launch ``csrc/paged_decode.cuh`` (with the
     key splits of :func:`decode_splits`, merged inside the launch) or
     raise."""
     del pages_per_block
@@ -385,7 +399,6 @@ def paged_decode_attention(
     head_dim = pools.k.shape[3]
     q = pad_head_dim(q, head_dim)
     _check_cuda(q, pools, lengths, page_indices, head_dim, "paged decode")
-    refuse_d256_modes(head_dim, **{"ALiBi in the paged decode kernel": slopes is not None})
     o = torch.empty_like(q)
     lse = (torch.empty((batch, num_q_heads), dtype=torch.float32,
                        device=q.device) if return_lse else None)
@@ -398,7 +411,7 @@ def paged_decode_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, counters = _split_scratch(
             splits, batch * num_q_heads, head_dim, groups, q.device, stream)
-        DECODE_KERNEL.launch(
+        paged_kernels(head_dim)[0].launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
             ptr(page_indices), ptr(o), ptr(lse), ctypes.c_void_p(part_o),
@@ -435,8 +448,9 @@ def paged_verify_attention(
 
     As on the TPU, verify always takes the dequantized score route (no int8
     q), scales folded into S and P.  CPU tensors take
-    :func:`paged_verify_plain`; CUDA tensors launch ``csrc/paged_verify.cu``
-    on the route of :func:`verify_route` (bf16/fp16 q needs quantized pools
+    :func:`paged_verify_plain`; CUDA tensors launch ``csrc/paged_verify.cuh``
+    (the build of the pool's head dim) on the route of :func:`verify_route`
+    (bf16/fp16 q needs quantized pools
     or value pools of q's dtype; the ``"wgmma"`` route splits the keys as
     :func:`decode_splits` does, for its blocks of :data:`VERIFY_ROW_TILE`
     rows) or raise.  ``alibi_slopes``: see the module docstring."""
@@ -469,7 +483,7 @@ def paged_verify_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, _ = _split_scratch(
             splits, batch * num_q_heads * num_tokens, head_dim, 0, q.device, stream)
-        VERIFY_KERNEL.launch(
+        paged_kernels(head_dim)[1].launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
             ptr(page_indices), ptr(o), ctypes.c_void_p(part_o),
@@ -620,7 +634,7 @@ def paged_decode_plain(q, k_pages, v_pages, lengths, page_indices, *,
 def paged_verify_plain(q, k_pages, v_pages, lengths, page_indices, *,
                        sm_scale=None, logit_softcap: float = 0.0,
                        alibi_slopes=None):
-    """Plain version of ``csrc/paged_verify.cu`` (q [B, Hq, T, d]): the
+    """Plain version of ``csrc/paged_verify.cuh`` (q [B, Hq, T, d]): the
     TPU kernel's dequantized route."""
     return _paged_plain(
         q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,

@@ -1,9 +1,12 @@
 """Attention forward kernel: wrapper, plain version and launch counts.
 
 The kernels are ``csrc/attn_fwd.cuh`` (fp32, and the C entry) and
-``csrc/attn_fwd_sm90.cuh`` (bf16 / fp16), built twice: ``csrc/attn_fwd.cu``
-without segment ids (:data:`FWD_KERNEL`) and ``csrc/attn_fwd_seg.cu`` with
-them (:data:`FWD_SEG_KERNEL`), each with its own launch count.  Each call
+``csrc/attn_fwd_sm90.cuh`` (bf16 / fp16), built six times, once for each
+head dim without and with segment ids (:func:`fwd_kernel`), each build with
+its own launch count: ``csrc/attn_fwd.cu`` (head dim 128,
+:data:`FWD_KERNEL`), ``csrc/attn_fwd_seg.cu`` (:data:`FWD_SEG_KERNEL`),
+``csrc/attn_fwd_d64.cu`` / ``attn_fwd_d64_seg.cu`` and
+``csrc/attn_fwd_d256.cu`` / ``attn_fwd_d256_seg.cu``.  Each call
 takes one of two routes, fixed by :func:`fwd_route` from the call's types
 alone and counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel
 of ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp
@@ -39,27 +42,13 @@ DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
-# The head dims the kernels are built for; any other head_dim up to 256 is
-# zero-padded to the next of them (:func:`kernel_width`), as the JAX package
-# pads to 128 lanes.  The forward takes all three; at 256 only the modes
-# Gemma uses (no ALiBi, dropout, segment ids or fp8 V: :func:`refuse_d256_modes`).
-# Wider heads are padded to a multiple of 128, as in the JAX package, and
-# run on the plain versions only (:func:`check_kernel_head_dim`).
+# The head dims the kernels are built for, each with every mode; any other
+# head_dim up to 256 is zero-padded to the next of them (:func:`kernel_width`),
+# as the JAX package pads to 128 lanes.  Wider heads are padded to a multiple
+# of 128, as in the JAX package, and run on the plain versions only
+# (:func:`check_kernel_head_dim`).
 KERNEL_WIDTHS = (64, 128, 256)
 FWD_HEAD_DIMS = KERNEL_WIDTHS
-D256_TODO = ("{} at head_dim 256 is not ported yet (ROADMAP.md, queue 2 of the "
-             "PyTorch port)")
-
-
-def refuse_d256_modes(head_dim: int, **modes) -> None:
-    """Raise :data:`D256_TODO` at head_dim 256 for the first of ``modes``
-    (name: whether the call uses it) that is on: the one rule for what the
-    d256 kernels do not carry yet (forward: ALiBi, dropout, segment ids, fp8
-    V; paged: ALiBi)."""
-    if head_dim == 256:
-        for name, on in modes.items():
-            if on:
-                raise ValueError(D256_TODO.format(name))
 
 
 # V's kind code of the forward's C interface (csrc/common.cuh kVE4M3 /
@@ -82,9 +71,13 @@ _FWD_ARGS = (
 )
 FWD_KERNEL = CudaKernel("attn_fwd.cu", "attn_fwd", _FWD_ARGS)
 FWD_SEG_KERNEL = CudaKernel("attn_fwd_seg.cu", "attn_fwd_seg", _FWD_ARGS)
+FWD_D64_KERNEL = CudaKernel("attn_fwd_d64.cu", "attn_fwd_d64", _FWD_ARGS)
+FWD_D64_SEG_KERNEL = CudaKernel("attn_fwd_d64_seg.cu", "attn_fwd_d64_seg", _FWD_ARGS)
+FWD_D256_KERNEL = CudaKernel("attn_fwd_d256.cu", "attn_fwd_d256", _FWD_ARGS)
+FWD_D256_SEG_KERNEL = CudaKernel("attn_fwd_d256_seg.cu", "attn_fwd_d256_seg", _FWD_ARGS)
 
 # The C entry's route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma)
-# and the launches of each route, over both builds; set to 0 by whoever
+# and the launches of each route, over the six builds; set to 0 by whoever
 # reads them.
 ROUTE_CODES = {"fp32": 0, "wgmma": 1}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
@@ -139,17 +132,26 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
               or fp8
     ========  ==========================================================
 
-    Segment ids, fp8 V, ALiBi and dropout are modes of both routes and
-    change neither.  d must be 64, 128 or 256 on every route (256 without
-    those modes: :func:`refuse_d256_modes`); anything else raises."""
+    Segment ids, fp8 V, ALiBi and dropout are modes of both routes at every
+    head dim and change neither (the mode arguments are kept so that a
+    caller can name what it runs).  d must be 64, 128 or 256 on every
+    route; anything else raises."""
+    del segments, fp8_v, alibi, dropout
     check_kernel_head_dim(head_dim, "attn_fwd kernel", FWD_HEAD_DIMS)
-    refuse_d256_modes(head_dim, **{"segment ids": segments, "fp8 V": fp8_v,
-                                   "ALiBi": alibi, "dropout": dropout})
     if dtype == torch.float32:
         return "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {dtype}")
     return "wgmma"
+
+
+def fwd_kernel(head_dim: int, segments: bool) -> CudaKernel:
+    """The build of the forward that takes a call, by head dim and by
+    whether it has segment ids: the module attribute ``FWD[_D<d>][_SEG]_KERNEL``
+    (no suffix at d 128), looked up at call time so that a check may swap
+    a build."""
+    dim = "" if head_dim == 128 else f"_D{head_dim}"
+    return globals()[f"FWD{dim}{'_SEG' if segments else ''}_KERNEL"]
 
 
 # Rows of scores the plain version materializes at once (bounds its memory).
@@ -254,9 +256,8 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     fp8 (e4m3fn / e5m2) beside fp32/bf16/fp16 q and k.  Arguments are
     validated by the caller (ops/flash_attention.py).  CPU tensors take
     :func:`attn_fwd_plain`; CUDA tensors launch the kernel on the route of
-    :func:`fwd_route` (with segments its ``attn_fwd_seg`` build), which
-    takes contiguous inputs with d in {64, 128, 256} (256 without ALiBi,
-    dropout, segment ids or fp8 V), or raise."""
+    :func:`fwd_route` (in the build of :func:`fwd_kernel`), which takes
+    contiguous inputs with d in {64, 128, 256}, or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
@@ -283,8 +284,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     if o.numel() == 0:
         lse.fill_(DEFAULT_MASK_VALUE)
         return o, lse
-    kernel = FWD_KERNEL if q_seg is None else FWD_SEG_KERNEL
-    kernel.launch(
+    fwd_kernel(d, q_seg is not None).launch(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(q_seg), ptr(kv_seg),
         DTYPE_CODES[q.dtype], V_KINDS.get(v.dtype, 0), b, hq, hkv, n_q, n_kv, d,
         float(sm_scale), int(bool(causal)), int(window), float(softcap),

@@ -4,7 +4,7 @@
 every (dtype, segment ids, head dim) combination is held against the table
 of PERF.md: fp32 calls take the CUDA-core sweeps, every bf16/fp16 call
 (with or without segment ids) the Hopper ``wgmma`` sweeps; at head dim 256
-the same routes without ALiBi, dropout or segment ids, which raise.
+the same routes, with ALiBi, dropout and segment ids as at 64 and 128.
 
 The plain backward (``attn_bwd_plain``, which CPU tensors take, and the
 yardstick ``chip_smoke.py`` holds the kernels to on the card) is held
@@ -66,18 +66,29 @@ def test_route_table_d256(dtype):
 @pytest.mark.parametrize("mode", ["segments", "alibi", "dropout"])
 @pytest.mark.parametrize("dtype", sorted(D256_ROUTES, key=str))
 def test_route_refuses_the_modes_d256_lacks(dtype, mode):
-    """ALiBi, dropout and segment ids at d 256 raise, naming queue 2."""
-    with pytest.raises(ValueError, match="head_dim 256 is not ported yet"):
-        tbwd.bwd_route(dtype, 256, **{mode: True})
+    """ALiBi, dropout and segment ids at d 256, which the d256 builds once
+    lacked, now take their dtype's route, as at d 64 and 128: nothing is
+    refused at d 256 by mode."""
+    route = tbwd.bwd_route(dtype, 256, **{mode: True})
+    assert route == D256_ROUTES[dtype]
+    assert route == tbwd.bwd_route(dtype, 128, **{mode: True})
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float32, 256),
                                      (torch.float64, 64), (torch.int8, 128)])
 def test_route_refuses_what_no_kernel_takes(dtype, d):
-    """A head dim no kernel is built for, a dtype none takes, and at d 256
-    segment ids, which that build lacks."""
-    with pytest.raises(ValueError):
-        tbwd.bwd_route(dtype, d, segments=d == 256)
+    """A head dim no kernel is built for and a dtype none takes.  Every mode
+    is built at d 256, so there what is refused is a dtype no kernel takes
+    and a head dim past the widest kernel (320), with segment ids as
+    well."""
+    if d == 256:
+        with pytest.raises(ValueError):
+            tbwd.bwd_route(torch.float64, d, segments=True)
+        with pytest.raises(ValueError):
+            tbwd.bwd_route(dtype, 320, segments=True)
+    else:
+        with pytest.raises(ValueError):
+            tbwd.bwd_route(dtype, d)
 
 
 def test_route_refuses_head_dims_above_256_naming_queue_2():
@@ -161,3 +172,18 @@ def test_plain_backward_matches_jax_at_tile_edges(name):
     for grad, a, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=ATOL[grad], rtol=RTOL,
                                    err_msg=grad)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("segments", [False, True])
+def test_sweep_builds_are_looked_up_at_call_time(monkeypatch, d, segments):
+    """Each (head dim, segment ids) has its own build of each sweep, found
+    by its module attribute when a call is made, so a check on the card
+    can put a broken copy in its place (chip_smoke.py phase mutants)."""
+    names = {tbwd.sweep_kernel(s, d, segments).symbol for s in ("attn_bwd_dkv", "attn_bwd_dq")}
+    suffix = ("" if d == 128 else f"_d{d}") + ("_seg" if segments else "")
+    assert names == {f"attn_bwd_dkv{suffix}", f"attn_bwd_dq{suffix}"}
+    attr = "DKV" + ("" if d == 128 else f"_D{d}") + ("_SEG" if segments else "") + "_KERNEL"
+    stand_in = object()
+    monkeypatch.setattr(tbwd, attr, stand_in)
+    assert tbwd.sweep_kernel("attn_bwd_dkv", d, segments) is stand_in

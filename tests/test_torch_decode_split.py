@@ -228,7 +228,26 @@ def test_verify_route_follows_the_route_table(q_dtype):
     (torch.bfloat16, torch.int32, 128, 128),
 ], ids=lambda a: "_".join(str(x).replace("torch.", "") for x in a))
 def test_verify_route_refuses_what_no_kernel_takes(args):
-    """Head dim 256 is a kernel width now (Gemma): what no route takes there
-    is ALiBi (still to port)."""
-    with pytest.raises(ValueError):
-        tdec.verify_route(*args, alibi=args[3] == 256)
+    """What no route takes raises.  Head dim 256 takes ALiBi now (its
+    route is the one it takes without), so at 256 what is refused is a pool
+    head dim past the widest kernel (320)."""
+    if args[3] == 256:
+        assert tdec.verify_route(*args, alibi=True) == tdec.verify_route(*args) == "fp32"
+        with pytest.raises(ValueError):
+            tdec.verify_route(*args[:3], 320, alibi=True)
+    else:
+        with pytest.raises(ValueError):
+            tdec.verify_route(*args)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_paged_builds_are_looked_up_at_call_time(monkeypatch, d):
+    """Decode and verify have a build for each pool head dim, found by its
+    module attribute when a call is made (chip_smoke.py paged_mutants swaps
+    one)."""
+    suffix = "" if d == 128 else f"_d{d}"
+    assert [k.symbol for k in tdec.paged_kernels(d)] == [f"paged_decode{suffix}",
+                                                         f"paged_verify{suffix}"]
+    stand_in = object()
+    monkeypatch.setattr(tdec, f"VERIFY{suffix.upper()}_KERNEL", stand_in)
+    assert tdec.paged_kernels(d)[1] is stand_in

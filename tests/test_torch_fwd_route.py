@@ -55,21 +55,28 @@ def test_route_table(dtype, segments, fp8_v, d):
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 32), (torch.float32, 256),
                                      (torch.float64, 64), (torch.int8, 128)])
 def test_route_refuses_what_no_kernel_takes(dtype, d):
-    """Head dim 256 is a kernel width now (Gemma): what no kernel takes
-    there is segment ids (and fp8 V, ALiBi, dropout: still to port)."""
-    kw = dict(segments=True) if d == 256 else {}
-    with pytest.raises(ValueError):
-        tfwd.fwd_route(dtype, d, **kw)
+    """A head dim no kernel is built for and a dtype none takes.  Every mode
+    is built at d 256, so there what is refused is a dtype no kernel takes
+    and a head dim past the widest kernel (320), with segment ids as
+    well."""
+    if d == 256:
+        with pytest.raises(ValueError):
+            tfwd.fwd_route(torch.float64, d, segments=True)
+        with pytest.raises(ValueError):
+            tfwd.fwd_route(dtype, 320, segments=True)
+    else:
+        with pytest.raises(ValueError):
+            tfwd.fwd_route(dtype, d)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
 def test_route_table_d256(dtype):
-    """d 256 without segment ids, fp8 V, ALiBi or dropout takes its dtype's
-    route; d 512 and the 256 modes that are still to port raise."""
-    assert tfwd.fwd_route(dtype, 256) == ("fp32" if dtype == torch.float32 else "wgmma")
+    """d 256 takes its dtype's route with or without segment ids, fp8 V,
+    ALiBi or dropout, as d 64 and 128 do; d 512 raises."""
+    route = "fp32" if dtype == torch.float32 else "wgmma"
+    assert tfwd.fwd_route(dtype, 256) == route
     for kw in (dict(segments=True), dict(fp8_v=True), dict(alibi=True), dict(dropout=True)):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            tfwd.fwd_route(dtype, 256, **kw)
+        assert tfwd.fwd_route(dtype, 256, **kw) == route
     with pytest.raises(ValueError):
         tfwd.fwd_route(dtype, 512)
 
@@ -119,3 +126,15 @@ def test_plain_forward_matches_jax_at_tile_edges(name):
                                  dropout_seed=mods.get("seed", 0))
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), **FWD)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **FWD)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("segments", [False, True])
+def test_builds_are_looked_up_at_call_time(monkeypatch, d, segments):
+    """Each (head dim, segment ids) has a build of its own, found by its
+    module attribute when a call is made."""
+    suffix = ("" if d == 128 else f"_d{d}") + ("_seg" if segments else "")
+    assert tfwd.fwd_kernel(d, segments).symbol == f"attn_fwd{suffix}"
+    stand_in = object()
+    monkeypatch.setattr(tfwd, f"FWD{suffix.upper()}_KERNEL", stand_in)
+    assert tfwd.fwd_kernel(d, segments) is stand_in

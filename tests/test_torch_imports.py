@@ -126,12 +126,35 @@ def test_kernel_launch_without_a_toolchain_raises():
 def test_library_names_follow_the_source_hash():
     from flash_attention_dlrs_tpu_torch import _cuda
 
-    assert _cuda.all_sources() == ["attn_bwd.cu", "attn_bwd_d256.cu", "attn_bwd_seg.cu",
-                                   "attn_fwd.cu", "attn_fwd_seg.cu", "paged_decode.cu",
-                                   "paged_verify.cu"]
+    # one source for each kernel, head dim (d 128 unsuffixed) and, for the
+    # attention kernels, segment-id flag
+    want = sorted(f"{kernel}{d}{seg}.cu" for kernel, segs in (
+        ("attn_fwd", ("", "_seg")), ("attn_bwd", ("", "_seg")),
+        ("paged_decode", ("",)), ("paged_verify", ("",)))
+        for d in ("", "_d64", "_d256") for seg in segs)
+    assert _cuda.all_sources() == want and len(want) == 18
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 7
+    assert len({p.name for p in paths}) == 18
+
+
+def test_every_kernel_entry_is_defined_in_its_source():
+    """Each wrapper's C entry, and its error string, is an extern "C"
+    function of the source it builds (nothing compiles here, so a misnamed
+    entry would show first on the card); every source is some wrapper's."""
+    import re
+
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel, decode, fwd_kernel  # noqa: F401
+
+    for kernel in _cuda.KERNELS:
+        if kernel.library is not None:
+            continue
+        text = (_cuda.CSRC_DIR / kernel.source).read_text()
+        for name in (kernel.symbol, f"{kernel.symbol}_error_string"):
+            assert re.search(rf'extern "C" [^(]*\b{name}\(', text), (kernel.source, name)
+    built = {k.source for k in _cuda.KERNELS if k.library is None}
+    assert built >= set(_cuda.all_sources())
 
 
 def test_library_hash_covers_the_shared_headers(tmp_path, monkeypatch):
