@@ -87,6 +87,29 @@ Then drives every path of the port:
   PyTorch's reduced-precision bf16 reduction allowed and not, at the
   training-bench and Gemma-2-2B projection shapes, against fp32
   accumulation;
+- rolling sliding-window serving (serve_rolling): the published
+  mistralai/Mistral-7B-v0.1 config (4096 window) at 4 of its 32 layers,
+  page tables past the window, so each sequence lives on a ring of 32
+  pages: prompts of 3968 (wrapping), 6000 (rolled in at admission) and
+  512 tokens, 256 new, from bf16 and int8 KV, greedy tokens against the
+  dense windowed forward, a 2-layer fp32 copy step by step, and the same
+  engine at full residency;
+- StreamingLLM serving (serve_streaming): the serving-bench model with
+  128 attention sinks and a 1920-token window, 1800-token prompts decoded
+  past eviction and a 3000-token prompt, against dense greedy before
+  eviction and, in a 2-layer fp32 copy, against a dense forward that sees
+  exactly the resident keys;
+- the native runtime library (native): built from native/src, its page
+  allocator's bookkeeping against the Python allocator's (plain and both
+  rings) and the serve requests through each;
+- the perplexity gate (eval_gate): scripts/train_lm.py's default model
+  trained by fit on a corpus of the interpreter's own Python sources
+  (scripts/make_corpus.py, fed by native_batches), then perplexity dense
+  and through paged decode from bf16, int8, int4, e4m3 and e5m2 KV: int8
+  within 0.1 ppl of bf16;
+- the encoder (encoder): bert-base-uncased's widths with the JAX
+  encoder's blocks, masked-LM steps at B32 x 512 through the non-causal
+  head-dim-64 kernels, a 2-layer fp32 copy and a bidirectionality check;
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -113,6 +136,11 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
            (PARENT_DIR, its own chip_smoke.py and package) and from this
            tree in turns, parent, change, change, parent, each run in its
            own process on the same card, one JSON line per run.
+
+       python3 chip_smoke.py --only PHASE[,PHASE...]
+           builds the kernels and runs only the named phases of
+           serve_rolling, serve_streaming, native, eval_gate and encoder
+           (development runs; prints no result line).
 """
 
 from __future__ import annotations
@@ -133,6 +161,7 @@ PEAK_BYTES = 3.35e12  # HBM3, H100 SXM
 FWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_sm90.cuh"
 # the forward's head-dim-256 builds, without and with segment ids
 FWD_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_d256.cu"
+FWD_D64_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_d64.cu"
 FWD_D256_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_d256_seg.cu"
 FWD_REPLACES = (
     "flash_attention_dlrs_tpu/ops/fwd_kernel.py:197; "
@@ -145,6 +174,7 @@ FWD_REPLACES = (
 # 128, *_d64.cu, *_d256.cu)
 DECODE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode.cuh"
 DECODE_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode_d256.cu"
+DECODE_D64_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_decode_d64.cu"
 DECODE_REPLACES = "flash_attention_dlrs_tpu/ops/decode.py:44 (called at decode.py:438)"
 VERIFY_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify.cuh"
 VERIFY_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/paged_verify_d256.cu"
@@ -157,6 +187,7 @@ KV_BYTES = {"bf16": 2, "fp32": 4, "int8": 1, "int4": 0.5, "e4m3": 1, "e5m2": 1}
 BWD_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd.cu"
 # the sweeps' head-dim-256 instances (csrc/attn_bwd_sm90.cuh, attn_bwd.cuh)
 BWD_D256_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_d256.cu"
+BWD_D64_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_d64.cu"
 BWD_D256_SEG_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_d256_seg.cu"
 # the sweeps' bf16 / fp16 kernel bodies (built into the six attn_bwd*.cu)
 BWD_SM90_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_sm90.cuh"
@@ -3524,9 +3555,10 @@ def _grad_gaps(grads, ref, ids):
     }
 
 
-def check_train_fp32(tokens, dev, seed=None, build=None, batch=None, **variant):
+def check_train_fp32(tokens, dev, seed=None, build=None, batch=None, loss=None, **variant):
     """The training model (with the config fields ``variant``; or the
-    (model, cfg) that ``build()`` makes) in fp32 at 2 layers: loss and
+    (model, cfg) that ``build()`` makes, its loss ``loss(model, tokens,
+    cfg, dropout_seed=)`` when given) in fp32 at 2 layers: loss and
     gradients of one step on ``batch`` rows (dropout seed ``seed``, the same
     masks on both sides) through the kernels and through the plain versions.  A third run
     takes the plain path with the plain backward's q-row chunks cut to a
@@ -3548,12 +3580,13 @@ def check_train_fp32(tokens, dev, seed=None, build=None, batch=None, **variant):
     else:
         model, cfg = build()
     toks = tokens[:batch or TRAIN_FP32_BATCH]
+    objective = loss or loss_fn
 
     def loss_and_grads():
         model.zero_grad(set_to_none=True)
-        loss = loss_fn(model, toks, cfg, dropout_seed=seed)
-        loss.backward()
-        return loss.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
+        value = objective(model, toks, cfg, dropout_seed=seed)
+        value.backward()
+        return value.item(), {n: p.grad.clone() for n, p in model.named_parameters()}
 
     loss_k, grads_k = loss_and_grads()
     fa_ops = _attention_ops()
@@ -4654,9 +4687,10 @@ def window_pairs(n: int, window: int) -> int:
     return sum(min(i + 1, window) for i in range(n))
 
 
-def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0.0):
-    """The three backward kernels one by one and together at one causal
-    bf16 shape (with the ALiBi and dropout arguments of :func:`mods`
+def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0.0,
+             causal=True):
+    """The three backward kernels one by one and together at one bf16
+    shape (causal unless ``causal`` is false) (with the ALiBi and dropout arguments of :func:`mods`
     ``mod``, the [B, N] segment ids ``seg`` (numpy), a ``window`` and a
     ``softcap`` when given), each with its bound (with segments or a window,
     of the visible pairs), its plain version's time and its error against
@@ -4679,7 +4713,7 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0
     v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
     do = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
     ids = None if seg is None else torch.from_numpy(seg).to(dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5, window=window, softcap=softcap,
+    kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=softcap,
               **mods(hq, **(mod or {})),
               **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
     o, lse = attn_fwd(q, k, v, **kw)
@@ -4705,12 +4739,12 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0
             pos = torch.arange(n, device=dev)
             mask = (pos[None] <= pos[:, None]) & (pos[:, None] - pos[None] < window)
         out = F.scaled_dot_product_attention(
-            qr, kr, vr, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+            qr, kr, vr, attn_mask=mask, is_causal=mask is None and causal, enable_gqa=True)
         lib_ms["attn_bwd"] = median_ms(lambda: torch.autograd.grad(
             out, (qr, kr, vr), do, retain_graph=True))
     pairs = (visible_pairs(seg, seg, True) if seg is not None
              else b * window_pairs(n, window) if window else None)
-    work = bwd_work(b, hq, hkv, n, n, d, True, 2, pairs=pairs, segments=seg is not None)
+    work = bwd_work(b, hq, hkv, n, n, d, causal, 2, pairs=pairs, segments=seg is not None)
     rows = {}
     for name, (kernel, plain) in calls.items():
         got, want = kernel(), plain()
@@ -4746,8 +4780,10 @@ def sdpa_bias(slopes, n, dtype, dev):
     return torch.where(dist >= 0, -m * dist, float("-inf"))[None].to(dtype)
 
 
-def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softcap=0.0):
-    """The forward kernel at one causal bf16 shape with the ALiBi and
+def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softcap=0.0,
+             causal=True):
+    """The forward kernel at one bf16 shape (causal unless ``causal`` is
+    false) with the ALiBi and
     dropout arguments of :func:`mods` ``mod``, the [B, N] segment ids
     ``seg`` (numpy) and V in the fp8 kind ``v8`` when given: its time, its
     plain version's, its bound (ALiBi and dropout add no bytes and their
@@ -4769,7 +4805,7 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
     if v8:
         v = v.to(getattr(torch, FP8_V[v8]))
     ids = None if seg is None else torch.from_numpy(seg).to(dev)
-    kw = dict(causal=True, sm_scale=d ** -0.5, window=window, softcap=softcap,
+    kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=softcap,
               **mods(hq, **mod), **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
     err = float((attn_fwd(q, k, v, **kw)[0].float()
                  - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
@@ -4793,8 +4829,8 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
     elif not kw["dropout_rate"]:
         bias = sdpa_bias(kw["alibi_slopes"], n, q.dtype, dev)
         lib_ms = median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=bias, is_causal=bias is None, enable_gqa=True))
-    flops, nbytes = fwd_work(b, hq, hkv, n, n, d, True, 2,
+            q, k, v, attn_mask=bias, is_causal=bias is None and causal, enable_gqa=True))
+    flops, nbytes = fwd_work(b, hq, hkv, n, n, d, causal, 2,
                              pairs=None if seg is None else visible_pairs(seg, seg, True),
                              v_itemsize=1 if v8 else 2, window=window)
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
@@ -5144,7 +5180,747 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softc
             "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
 
 
-def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train, d256_modes):
+# Rolling sliding-window serving (serve_rolling): mistralai/Mistral-7B-v0.1's
+# published config.json, cut to ROLLING_LAYERS of its 32 layers, random
+# HF-named bf16 weights through import_hf_llama.  Page tables of
+# ROLLING_PPS pages reach past the 4096-token window, so the engine serves
+# on a rolling ring of 4096 / 128 = 32 pages a sequence.  Two prompts of
+# 3968 tokens wrap the ring at their 129th generated token, one of 6000 is
+# rolled into it at admission.  The same engine at full residency
+# (RESIDENT_PPS pages = the window, prompts + new tokens <= 4096) is its
+# step-time yardstick.
+MISTRAL_7B = dict(  # mistralai/Mistral-7B-v0.1
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336, num_hidden_layers=32,
+    num_attention_heads=32, num_key_value_heads=8, rms_norm_eps=1e-5, rope_theta=10000.0,
+    sliding_window=4096, max_position_embeddings=32768, tie_word_embeddings=False)
+ROLLING_LAYERS, ROLLING_PPS, RESIDENT_PPS = 4, 64, 32
+ROLLING_PROMPTS, ROLLING_NEW_TOKENS = (3968, 3968, 6000, 512), 256
+RESIDENT_PROMPTS = (3840, 3840, 3840, 512)
+# the 2-layer fp32 copies' requests: a prompt that wraps and one rolled in
+ROLLING_FP32_PROMPTS, ROLLING_FP32_NEW_TOKENS = (3968, 6000), 160
+# StreamingLLM serving (serve_streaming) on the serving-bench model: 128
+# sink tokens (the smallest page-aligned count) and a 1920-token window, a
+# resident set of 2048; prompts of 1800 tokens evict from their 249th
+# generated token on, and a 3000-token prompt is longer than the set.
+STREAM_SINKS, STREAM_WINDOW = 128, 1920
+STREAM_PROMPT, STREAM_NEW_TOKENS, STREAM_LONG_PROMPT, STREAM_LONG_NEW = 1800, 512, 3000, 64
+STREAM_FP32_NEW_TOKENS = 400
+
+
+def teacher_forced_logits(model, cfg, prompt, generated):
+    """The dense forward's fp32 logits at the positions that produced each
+    token of ``generated`` (the last prompt token's, then each generated
+    token's but the last), fed the prompt and ``generated``: [n, vocab]."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models.transformer import (
+        forward_hidden, logits_from_hidden,
+    )
+
+    seq = list(prompt) + list(generated[:-1])
+    with torch.inference_mode():
+        x = forward_hidden(model, torch.tensor([seq], device=model.embed.device), cfg)
+        return logits_from_hidden(x[0, len(prompt) - 1:], model, cfg.final_softcap)
+
+
+def greedy_gaps(model, cfg, prompts, outs, upto=None):
+    """Each request's greedy tokens (the first ``upto`` of each, all by
+    default) against the teacher-forced dense forward: the positions where
+    the dense argmax differs, each with the two tokens' logit gap over the
+    logits' std (a near-tie when within BF16_LOGIT_LIMIT["rope"])."""
+    found, compared = [], 0
+    for i, (prompt, out) in enumerate(zip(prompts, outs)):
+        out = out[:upto] if upto else out
+        logits = teacher_forced_logits(model, cfg, prompt, out)
+        want = logits.argmax(-1).tolist()
+        compared += len(out)
+        for j, (w, g) in enumerate(zip(want, out)):
+            if w != g:
+                row = logits[j]
+                found.append({"request": i, "index": j, "tokens": [w, g],
+                              "gap_over_std": float((row[w] - row[g]).abs() / row.std())})
+    return found, compared
+
+
+def captured_decode_logits(engine):
+    """Wrap the engine's decode step so that each step's logits [slots, V]
+    are kept (a copy) in the returned list."""
+    kept, step = [], engine._decode_step
+
+    def run(*args):
+        out = step(*args)
+        kept.append(out[0].clone())
+        return out
+    engine._decode_step = run
+    return kept
+
+
+def fp32_decode_gap(engine, prompts, new_tokens, reference):
+    """The engine's fp32 decode-step logits of every request against
+    ``reference(prompt, generated)`` (fp32 logits at the same positions),
+    over the reference's std: the worst gap per request and in all."""
+    import torch
+
+    kept = captured_decode_logits(engine)
+    outs = engine.generate(prompts, max_new_tokens=new_tokens)
+    gaps = []
+    for slot, (prompt, out) in enumerate(zip(prompts, outs)):
+        got = torch.stack([k[slot] for k in kept])  # steps feed out[0..n-2]
+        want = reference(prompt, out)[1:]  # the prefill made out[0]
+        gaps.append(float((got - want).abs().max() / want.std()))
+    return gaps, outs
+
+
+def mistral_model(dev, dtype, n_layers, seed=20):
+    state = hf_state(MISTRAL_7B, "llama", dev, seed, n_layers, dtype)
+    return import_model(MISTRAL_7B, "llama", state, dev, dtype, n_layers=n_layers)
+
+
+def ring_engine(model, cfg, dev, pps, kv="bf16", slots=4, resident=None, **kw):
+    """A DecodeEngine of ``slots`` slots and page tables of ``pps`` pages,
+    its pool sized for ``resident`` pages a sequence (default ``pps``: a
+    ring's resident set is smaller than its tables) and the null page."""
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    return DecodeEngine(model, cfg, num_pages=slots * (resident or pps) + 1,
+                        page_size=SERVE_PAGE,
+                        num_slots=slots, pages_per_seq=pps, kv_dtype=kv_kind(kv),
+                        quantized_kv=kv in QUANT_KINDS, device=dev, **kw)
+
+
+def ring_run(engine, prompts, new_tokens, cfg):
+    """``_serve_run`` of the requests with the checks every ring run makes:
+    each request's budget of tokens in the vocabulary, exact forward and
+    decode launches (all forwards on the wgmma route), the last decode
+    step's every layer against the plain paged decode, the pool wholly
+    reclaimed."""
+    r = _serve_run(engine, prompts, new_tokens, "paged_decode_attention")
+    layers = check_layers(r["calls"], verify=False)
+    n = cfg.n_layers
+    checks = {
+        "every_request_its_tokens": all(len(o) == new_tokens for o in r["outs"]),
+        "tokens_in_vocab": all(0 <= x < cfg.vocab_size for o in r["outs"] for x in o),
+        "fwd_launches_per_layer_and_prefill": r["launches"]["attn_fwd"] == n * len(prompts),
+        "fwd_launches_all_wgmma": all_on(r["fwd_routes"], "wgmma", r["launches"]["attn_fwd"]),
+        "decode_launches_per_layer_and_step": r["launches"]["paged_decode"] == n * r["steps"] > 0,
+        "last_step_every_layer_kernel_vs_plain": layers["ok"] and layers["layers_checked"] == n,
+        "pages_all_reclaimed": pages_back(engine),
+    }
+    summary = {"launches": r["launches"], "steps": r["steps"], "admit_ms": r["admit_ms"],
+               "decode_ms_per_step_median": float(np.median(r["decode_ms"])),
+               "wall_s": r["wall"], "tokens_per_s": sum(map(len, r["outs"])) / r["wall"],
+               "last_step_layers": layers}
+    return r, summary, checks
+
+
+def phase_serve_rolling(dev):
+    """Mistral-7B-v0.1 (MISTRAL_7B) at published widths, ROLLING_LAYERS
+    layers, served past its 4096-token window on the rolling ring: bf16 KV
+    and int8 KV at 4 slots (ROLLING_PROMPTS, 256 new tokens each), every
+    greedy token against the teacher-forced dense windowed forward (bf16:
+    near-ties only), the last step's layers against the plain paged
+    decode, 32 pages a sequence all reclaimed; a 2-layer fp32 copy on the
+    fp32 routes, its every decode step's logits within FP32_LOGIT_LIMIT x
+    std of the dense windowed forward; the eager ring step against the same
+    engine at full residency, and the 6000-token admission's ms."""
+    import dataclasses
+
+    import torch
+
+    t_phase = time.perf_counter()
+    model, cfg = mistral_model(dev, torch.bfloat16, ROLLING_LAYERS)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in ROLLING_PROMPTS]
+    runs, checks, launches = {}, {}, {"attn_fwd": 0, "paged_decode_bf16": 0,
+                                      "paged_decode_int8": 0}
+    outs, engines = {}, {}
+    for kv in ("bf16", "int8"):
+        engine = ring_engine(model, cfg, dev, ROLLING_PPS, kv, resident=RESIDENT_PPS)
+        engine.generate([[1] * n for n in sorted(set(ROLLING_PROMPTS))],
+                        max_new_tokens=2)  # warm-up: each padded prefill length
+        r, summary, run_checks = ring_run(engine, prompts, ROLLING_NEW_TOKENS, cfg)
+        stats = engine.stats()
+        run_checks["ring_of_window_pages"] = (
+            engine.rolling and engine.pages_per_seq == cfg.window // SERVE_PAGE
+            and stats["rolling_window"] == cfg.window == MISTRAL_7B["sliding_window"])
+        outs[kv] = r["outs"]
+        longest = max(ROLLING_PROMPTS)  # admitted in prompt order
+        summary[f"prefill_{longest}_admit_ms"] = r["admit_ms"][ROLLING_PROMPTS.index(longest)]
+        launches["attn_fwd"] += r["launches"]["attn_fwd"]
+        launches[f"paged_decode_{kv}"] += r["launches"]["paged_decode"]
+        runs[kv] = summary
+        checks.update({f"{kv}_{k}": v for k, v in run_checks.items()})
+        engines[kv] = engine
+    del engines["int8"], engine
+    torch.cuda.empty_cache()
+    divs, compared = greedy_gaps(model, cfg, prompts, outs["bf16"])
+    checks["bf16_tokens_vs_dense_windowed_near_ties_only"] = near_ties_only(divs)
+    int8_divs, _ = greedy_gaps(model, cfg, prompts, outs["int8"])
+
+    engine = ring_engine(model, cfg, dev, RESIDENT_PPS)
+    engine.generate([[1] * max(RESIDENT_PROMPTS)], max_new_tokens=2)  # warm-up
+    resident_prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in RESIDENT_PROMPTS]
+    checks["full_residency_is_no_ring"] = not engine.rolling
+    # eager step times in turns: ring (above), resident, resident, ring
+    step_ms = {"ring": [runs["bf16"]["decode_ms_per_step_median"]], "resident": []}
+    for turn, (eng, reqs) in enumerate(((engine, resident_prompts), (engine, resident_prompts),
+                                        (engines["bf16"], prompts))):
+        r, summary, run_checks = ring_run(eng, reqs, ROLLING_NEW_TOKENS, cfg)
+        resident = summary if turn == 0 else resident
+        step_ms["ring" if eng.rolling else "resident"].append(
+            summary["decode_ms_per_step_median"])
+        checks.update({f"turn{turn + 2}_{k}": v for k, v in run_checks.items()})
+        launches["attn_fwd"] += r["launches"]["attn_fwd"]
+        launches["paged_decode_bf16"] += r["launches"]["paged_decode"]
+    del engine, engines, model
+    torch.cuda.empty_cache()
+
+    model32, cfg32 = mistral_model(dev, torch.float32, FP32_LAYERS)
+    engine = ring_engine(model32, cfg32, dev, ROLLING_PPS, "fp32", slots=2,
+                         resident=RESIDENT_PPS)
+    fp32_prompts = [prompts[ROLLING_PROMPTS.index(n)] for n in ROLLING_FP32_PROMPTS]
+    gaps, _ = fp32_decode_gap(engine, fp32_prompts, ROLLING_FP32_NEW_TOKENS,
+                              lambda p, o: teacher_forced_logits(model32, cfg32, p, o))
+    checks["fp32_2layer_every_step_logits_vs_dense_windowed"] = max(gaps) <= FP32_LOGIT_LIMIT
+    del engine, model32
+    torch.cuda.empty_cache()
+    rec = {
+        "phase": "serve_rolling", "config_source": "mistralai/Mistral-7B-v0.1 config.json",
+        "config": {k: getattr(cfg, k) for k in ("d_model", "n_q_heads", "n_kv_heads",
+                                                 "head_dim", "d_ff", "vocab_size", "window")},
+        "layers": ROLLING_LAYERS, "page_size": SERVE_PAGE, "pages_per_seq_asked": ROLLING_PPS,
+        "prompt_lengths": list(ROLLING_PROMPTS), "new_tokens": ROLLING_NEW_TOKENS,
+        "runs": runs, "full_residency": {"prompt_lengths": list(RESIDENT_PROMPTS),
+                                         **resident},
+        "step_ms_in_turns": step_ms,
+        "ring_over_resident_step_ms": (float(np.median(step_ms["ring"]))
+                                       / float(np.median(step_ms["resident"]))),
+        "bf16_tokens_compared": compared, "bf16_divergences": divs,
+        "int8_divergences_from_dense": len(int8_divs),
+        "fp32_2layer_step_logit_gap_over_std": gaps,
+        "launches": launches, "seconds": time.perf_counter() - t_phase, "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"rolling serving checks failed: {failed}")
+    return rec
+
+
+def streaming_attention(sinks, window):
+    """A plain attention with flash_attention's signature in which query i
+    sees exactly the keys [0, sinks) and (i − window, i] (the StreamingLLM
+    resident set of a sequence at length i + 1), in the inputs' dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    def attend(q, k, v, *, causal=True, sm_scale=None, **_):
+        n = q.shape[-2]
+        i = torch.arange(n, device=q.device)
+        keep = (i[None] <= i[:, None]) & ((i[None] < sinks) | (i[:, None] - i[None] < window))
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=keep, scale=sm_scale,
+                                              enable_gqa=True)
+    return attend
+
+
+def streaming_reference(model, cfg, sinks, window):
+    """``reference(prompt, generated)`` of :func:`fp32_decode_gap`: the
+    teacher-forced dense forward through :func:`streaming_attention`."""
+    from flash_attention_dlrs_tpu_torch.models import transformer
+
+    def reference(prompt, generated):
+        kernel = transformer.flash_attention
+        transformer.flash_attention = streaming_attention(sinks, window)
+        try:
+            return teacher_forced_logits(model, cfg, prompt, generated)
+        finally:
+            transformer.flash_attention = kernel
+    return reference
+
+
+def serving_bench_model(dev, dtype=None, n_layers=None):
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        ModelConfig, init_params_numpy, params_from_jax,
+    )
+
+    cfg = ModelConfig(**{**SERVE_CFG, **({"n_layers": n_layers} if n_layers else {})},
+                      dtype=dtype or torch.bfloat16)
+    return params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev), cfg
+
+
+def phase_serve_streaming(dev):
+    """The serving-bench model (SERVE_CFG, nothing cut) on a StreamingLLM
+    ring: STREAM_SINKS sinks and a STREAM_WINDOW window (16 pages a
+    sequence), 4 slots of STREAM_PROMPT-token prompts with STREAM_NEW_TOKENS
+    new tokens, then one STREAM_LONG_PROMPT-token prompt, longer than the
+    resident set.  Tokens before eviction against the dense greedy forward
+    (near-ties only); a 2-layer fp32 copy's every decode step, before and
+    after eviction, within FP32_LOGIT_LIMIT x std of a dense fp32 forward in
+    which each query sees exactly its resident keys (and, as a control, far
+    from the unevicted dense forward after eviction); the last step's
+    layers against the plain paged decode.  Returns the record and the
+    model (the native phase serves it too)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    model, cfg = serving_bench_model(dev)
+    ring = dict(attention_sinks=STREAM_SINKS, streaming_window=STREAM_WINDOW)
+    resident = STREAM_SINKS + STREAM_WINDOW
+    engine = ring_engine(model, cfg, dev, SERVE_PPS, resident=resident // SERVE_PAGE, **ring)
+    engine.generate([[1] * n for n in (STREAM_PROMPT, STREAM_LONG_PROMPT)], max_new_tokens=2)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, cfg.vocab_size, STREAM_PROMPT).tolist() for _ in range(4)]
+    long_prompt = rng.integers(0, cfg.vocab_size, STREAM_LONG_PROMPT).tolist()
+    r, summary, checks = ring_run(engine, prompts, STREAM_NEW_TOKENS, cfg)
+    r_long, summary_long, checks_long = ring_run(engine, [long_prompt], STREAM_LONG_NEW, cfg)
+    checks.update({f"long_prompt_{k}": v for k, v in checks_long.items()})
+    stats = engine.stats()
+    checks["ring_of_resident_pages"] = (
+        engine.streaming and engine.pages_per_seq == resident // SERVE_PAGE
+        and (stats["attention_sinks"], stats["streaming_window"]) == (STREAM_SINKS,
+                                                                       STREAM_WINDOW))
+    exact = resident - STREAM_PROMPT + 1  # tokens made with the whole context resident
+    divs, compared = greedy_gaps(model, cfg, prompts, r["outs"], upto=exact)
+    checks["tokens_before_eviction_vs_dense_near_ties_only"] = near_ties_only(divs)
+    launches = {"attn_fwd": r["launches"]["attn_fwd"] + r_long["launches"]["attn_fwd"],
+                "paged_decode": (r["launches"]["paged_decode"]
+                                 + r_long["launches"]["paged_decode"])}
+    del engine
+
+    model32, cfg32 = serving_bench_model(dev, torch.float32, FP32_LAYERS)
+    engine = ring_engine(model32, cfg32, dev, SERVE_PPS, "fp32", slots=1,
+                         resident=resident // SERVE_PAGE, **ring)
+    gaps, outs32 = fp32_decode_gap(engine, prompts[:1], STREAM_FP32_NEW_TOKENS,
+                                   streaming_reference(model32, cfg32, STREAM_SINKS,
+                                                       STREAM_WINDOW))
+    # control: the unevicted dense forward parts from the ring after eviction
+    full = teacher_forced_logits(model32, cfg32, prompts[0], outs32[0])
+    ring_ref = streaming_reference(model32, cfg32, STREAM_SINKS, STREAM_WINDOW)(
+        prompts[0], outs32[0])
+    after = slice(exact, None)  # rows made with keys evicted
+    evicted_gap = float((full[after] - ring_ref[after]).abs().max() / ring_ref.std())
+    checks["fp32_2layer_every_step_logits_vs_dense_resident_keys"] = max(gaps) <= FP32_LOGIT_LIMIT
+    checks["fp32_eviction_changes_logits_vs_full_attention"] = evicted_gap > 10 * FP32_LOGIT_LIMIT
+    del engine, model32
+    torch.cuda.empty_cache()
+    rec = {
+        "phase": "serve_streaming", "config": SERVE_CFG, "dtype": "bfloat16",
+        "attention_sinks": STREAM_SINKS, "streaming_window": STREAM_WINDOW,
+        "page_size": SERVE_PAGE, "pages_per_seq": resident // SERVE_PAGE,
+        "prompt_tokens": STREAM_PROMPT,
+        "new_tokens": STREAM_NEW_TOKENS, "eviction_from_token": exact + 1,
+        "run": summary, "long_prompt": {"prompt_tokens": STREAM_LONG_PROMPT,
+                                        "new_tokens": STREAM_LONG_NEW, **summary_long},
+        "tokens_compared_before_eviction": compared, "divergences": divs,
+        "fp32_2layer_step_logit_gap_over_std": gaps,
+        "fp32_full_attention_gap_after_eviction_over_std": evicted_gap,
+        "launches": launches, "seconds": time.perf_counter() - t_phase, "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"streaming serving checks failed: {failed}")
+    return rec, model, cfg
+
+
+# The native phase's replays of a serving run's bookkeeping: (name, wrap,
+# sinks, pages_per_seq, prompt lengths, new tokens) at page 128, 4 slots.
+BOOKKEEPING_RUNS = (("plain", 0, 0, SERVE_PPS, SERVE_PROMPTS, SERVE_NEW_TOKENS),
+                    ("streaming", STREAM_WINDOW, STREAM_SINKS, 16, (1800,) * 4 + (3000,), 300),
+                    ("rolling", 4096, 0, 32, ROLLING_PROMPTS, ROLLING_NEW_TOKENS))
+
+
+def replay_bookkeeping(alloc, wrap, sinks, pps, lengths, new_tokens, slots=4):
+    """The page bookkeeping of a serving run on ``alloc``, as DecodeEngine
+    makes it: the null sequence, FIFO admission into ``slots`` slots (one
+    resident set on a ring), one decode_step_bookkeeping call a step for the
+    active sequences, retirement at the budget.  Returns every call's
+    outputs (copies) and the seconds spent in the calls."""
+    alloc.allocate("null", 1)
+    queue = list(enumerate(lengths))
+    active, outs, spent = {}, [], 0.0
+    while queue or active:
+        while queue and len(active) < slots:
+            i, t = queue.pop(0)
+            sid = f"req{i}"
+            alloc.allocate(sid, sinks + wrap if wrap else t + new_tokens)
+            alloc.seq_lengths[sid] = t
+            active[sid] = new_tokens - 1
+        sids = list(active)
+        t0 = time.perf_counter()
+        got = alloc.decode_step_bookkeeping(sids, pps, wrap, sinks)
+        spent += time.perf_counter() - t0
+        outs.append(tuple(np.array(a) for a in got))
+        for sid in sids:
+            active[sid] -= 1
+            if not active[sid]:
+                del active[sid]
+                alloc.free(sid)
+    return outs, spent
+
+
+def phase_native(dev, model, cfg):
+    """The native runtime library (runtime/_native.py): built afresh into a
+    private directory, timed; NativePageAllocator's decode_step_bookkeeping
+    equal to the Python allocator's over BOOKKEEPING_RUNS (plain, streaming
+    and rolling rings), µs per call of each; then phase serve's requests
+    (SERVE_PROMPTS, 4 slots, 32 new tokens) through DecodeEngine with
+    native_allocator=False and True: equal tokens, exact launches, µs per
+    bookkeeping call in the engine."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.runtime import _native
+    from flash_attention_dlrs_tpu_torch.runtime.kv_cache import PageAllocator
+    from flash_attention_dlrs_tpu_torch.runtime.native_alloc import NativePageAllocator
+
+    t_phase = time.perf_counter()
+    built = _native.library_path()
+    scratch = pathlib.Path(tempfile.mkdtemp(dir=_native.BUILD_DIR))
+    keep = _native.NATIVE_BUILD_DIR
+    try:
+        _native.NATIVE_BUILD_DIR = scratch
+        t = time.perf_counter()
+        fresh = _native.build()
+        build_s = time.perf_counter() - t
+    finally:
+        _native.NATIVE_BUILD_DIR = keep
+        shutil.rmtree(scratch, ignore_errors=True)
+    checks = {"library_built_beside_the_package": fresh.name == built.name
+              and pathlib.Path(_native.load_lib()._name) == _native.library_path()}
+    replays = {}
+    for name, wrap, sinks, pps, lengths, new in BOOKKEEPING_RUNS:
+        py, py_s = replay_bookkeeping(PageAllocator(129, SERVE_PAGE), wrap, sinks, pps,
+                                      lengths, new)
+        cc, cc_s = replay_bookkeeping(NativePageAllocator(129, SERVE_PAGE), wrap, sinks, pps,
+                                      lengths, new)
+        same = len(py) == len(cc) and all(
+            all(np.array_equal(a, b) for a, b in zip(x, y)) for x, y in zip(py, cc))
+        checks[f"bookkeeping_{name}_native_equals_python"] = same
+        replays[name] = {"calls": len(py), "python_us_per_call": py_s / len(py) * 1e6,
+                         "native_us_per_call": cc_s / len(cc) * 1e6}
+    runs, launches = {}, {"attn_fwd": 0, "paged_decode": 0}
+    prompts = serve_prompts(cfg)
+    for native in (False, True):
+        engine = ring_engine(model, cfg, dev, SERVE_PPS, native_allocator=native)
+        engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
+        spent, calls = [], engine.allocator.decode_step_bookkeeping
+
+        def timed(*args, calls=calls, spent=spent):
+            t = time.perf_counter()
+            out = calls(*args)
+            spent.append(time.perf_counter() - t)
+            return out
+        engine.allocator.decode_step_bookkeeping = timed
+        r, summary, run_checks = ring_run(engine, prompts, SERVE_NEW_TOKENS, cfg)
+        name = "native" if native else "python"
+        checks.update({f"{name}_{k}": v for k, v in run_checks.items()})
+        checks[f"{name}_allocator_in_stats"] = engine.stats()["allocator"] == name
+        runs[name] = {"outs": r["outs"], "bookkeeping_calls": len(spent),
+                      "bookkeeping_us_per_call": float(np.mean(spent[1:]) * 1e6),
+                      "decode_ms_per_step_median": summary["decode_ms_per_step_median"]}
+        for key in launches:
+            launches[key] += r["launches"][key]
+        del engine
+        torch.cuda.empty_cache()
+    checks["engine_tokens_native_equal_python"] = runs["native"].pop("outs") == runs[
+        "python"].pop("outs")
+    rec = {"phase": "native", "library": str(built.relative_to(_native.BUILD_DIR.parent.parent)),
+           "build_s": build_s, "replays": replays, "engine": runs, "launches": launches,
+           "seconds": time.perf_counter() - t_phase, "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"native checks failed: {failed}")
+    return rec
+
+
+# The perplexity gate (eval_gate): scripts/train_lm.py's default model
+# (GATE_CFG: ~51M parameters, byte-level vocab 512, block remat, bf16)
+# trained by fit on a corpus that scripts/make_corpus.py builds from the
+# interpreter's own site-packages (GATE_CORPUS_MB), fed by native_batches;
+# B16 x 2048, lr 6e-4, warmup 200 (train_lm.py's), AdamW8bit, clip 1.0,
+# cut from 3000 steps to GATE_STEPS; then perplexity over GATE_EVAL rows of
+# 2048 tokens of val.bin, dense and paged from every KV kind.
+GATE_CFG = dict(vocab_size=512, d_model=768, n_layers=8, n_q_heads=12, n_kv_heads=4,
+                head_dim=64, d_ff=2048)
+GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 350, 200, 6e-4
+GATE_CORPUS_MB, GATE_EVAL, GATE_PPL, GATE_PAGED_RTOL = 32, 2, 0.1, 1e-2
+GATE_KINDS = ("bf16", "int8", "int4", "e4m3", "e5m2")
+
+
+def _d64_kernels():
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel
+    from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_D64_KERNEL
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_D64_KERNEL
+
+    return {"attn_fwd": FWD_D64_KERNEL, "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
+            "attn_bwd_dkv": bwd_kernel.DKV_D64_KERNEL, "attn_bwd_dq": bwd_kernel.DQ_D64_KERNEL,
+            "paged_decode": DECODE_D64_KERNEL}
+
+
+def _zero_d64():
+    for kern in _d64_kernels().values():
+        kern.launches = 0
+    fwd_routes(zero=True)
+    bwd_routes(zero=True)
+
+
+def _d64_launches():
+    return ({name: kern.launches for name, kern in _d64_kernels().items()},
+            fwd_routes(), bwd_routes())
+
+
+def train_launches_exact(launches, routes, sweeps, n_layers, steps, fwd_per_layer=2):
+    """Block remat: two forwards a layer and step, one of each backward
+    kernel; every forward and sweep on the wgmma route."""
+    want = {"attn_fwd": fwd_per_layer * n_layers * steps,
+            **dict.fromkeys(("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq"),
+                            n_layers * steps), "paged_decode": 0}
+    return (launches == want and all_on(routes, "wgmma", want["attn_fwd"])
+            and all(all_on(sweeps[s], "wgmma", want[s]) for s in sweeps))
+
+
+def phase_eval_gate(dev):
+    """The perplexity gate on a model the port trains itself: the corpus
+    (scripts/make_corpus.py in a subprocess, --roots the interpreter's
+    purelib), GATE_STEPS steps of fit over native_batches of train.bin
+    (exact launches), then perplexity_dense and perplexity_paged from
+    every KV kind of GATE_KINDS over val.bin, each paged run's decode
+    launches exact and its last step's layers against the plain paged
+    decode.  Gates: int8 within GATE_PPL ppl of bf16, paged bf16 within
+    GATE_PAGED_RTOL of dense, dense well below the byte-random 256."""
+    import pathlib
+    import sysconfig
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        ModelConfig, TrainSpec, fit, make_optimizer, make_train_step,
+    )
+    from flash_attention_dlrs_tpu_torch.models.eval import perplexity_dense, perplexity_paged
+    from flash_attention_dlrs_tpu_torch.runtime import native_batches
+    from flash_attention_dlrs_tpu_torch.runtime._native import BUILD_DIR
+
+    t_phase = time.perf_counter()
+    repo = pathlib.Path(__file__).resolve().parent
+    corpus = BUILD_DIR / "corpus"
+    t = time.perf_counter()
+    made = subprocess.run(
+        [sys.executable, str(repo / "scripts" / "make_corpus.py"), "--roots",
+         sysconfig.get_paths()["purelib"], "--out", str(corpus), "--max-mb",
+         str(GATE_CORPUS_MB)], capture_output=True, text=True, timeout=300)
+    if made.returncode:
+        raise RuntimeError(f"make_corpus.py failed:\n{made.stderr[-2000:]}")
+    corpus_s = time.perf_counter() - t
+
+    cfg = ModelConfig(**GATE_CFG, dtype=torch.bfloat16, remat=True)
+    spec = TrainSpec(learning_rate=GATE_LR, warmup_steps=min(GATE_WARMUP, GATE_STEPS // 10),
+                     total_steps=GATE_STEPS, weight_decay=0.01, grad_clip_norm=1.0,
+                     optimizer="adamw8bit")
+    losses = []
+    train_bin = str(corpus / "train.bin")
+    _zero_d64()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state = fit(cfg, lambda cursor: native_batches(
+        train_bin, seq_len=GATE_SEQ, batch_size=GATE_BATCH, seed=0, state=cursor),
+        spec=spec, steps=GATE_STEPS, device=dev, seed=0,
+        on_step=lambda i, loss: losses.append(loss.detach()))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    train_counts, routes, sweeps = _d64_launches()
+    model = state["model"]
+    n_params = sum(p.numel() for p in model.parameters())
+    losses = [float(x) for x in losses]
+    checks = {"train_launches_exact": train_launches_exact(train_counts, routes, sweeps,
+                                                           cfg.n_layers, GATE_STEPS),
+              "loss_finite_and_falls": all(np.isfinite(losses)) and losses[-1] < losses[0]}
+
+    val = np.fromfile(corpus / "val.bin", dtype=np.uint16)
+    tokens = torch.from_numpy(val[: GATE_EVAL * GATE_SEQ].astype(np.int64)).reshape(
+        GATE_EVAL, GATE_SEQ).to(dev)
+    _zero_d64()
+    ppl = {"dense": perplexity_dense(model, cfg, tokens)}
+    eval_counts = {"dense": _d64_launches()[0]}
+    layers = {}
+    for kind in GATE_KINDS:
+        _zero_d64()
+        with _Recorder("paged_decode_attention") as rec:
+            t = time.perf_counter()
+            ppl[kind] = perplexity_paged(model, cfg, tokens, kv_dtype=kv_kind(kind),
+                                         quantized=kind in QUANT_KINDS, device=dev)
+            seconds = time.perf_counter() - t
+        eval_counts[kind] = _d64_launches()[0]
+        layers[kind] = {**check_layers(rec.calls[-cfg.n_layers:], verify=False),
+                        "seconds": seconds}
+        rec.calls.clear()
+        steps = GATE_SEQ - 2
+        checks[f"{kind}_decode_launches_per_layer_and_step"] = (
+            eval_counts[kind]["paged_decode"] == cfg.n_layers * steps
+            and eval_counts[kind]["attn_fwd"] == cfg.n_layers)
+        checks[f"{kind}_last_step_every_layer_kernel_vs_plain"] = layers[kind]["ok"]
+    gaps = {kind: abs(ppl[kind] - ppl["bf16"]) for kind in GATE_KINDS if kind != "bf16"}
+    paged_rel = abs(ppl["bf16"] - ppl["dense"]) / ppl["dense"]
+    checks.update({
+        "dense_launches_one_forward_a_layer": eval_counts["dense"]["attn_fwd"] == cfg.n_layers,
+        "dense_ppl_well_below_byte_random_256": ppl["dense"] < 256 / 10,
+        "gate_int8_within_0.1_ppl_of_bf16": gaps["int8"] < GATE_PPL,
+        "paged_bf16_within_1e-2_of_dense": paged_rel < GATE_PAGED_RTOL,
+    })
+    head = np.fromfile(train_bin, dtype=np.uint16, count=GATE_BATCH * (GATE_SEQ + 1))
+    batch = torch.from_numpy(head.astype(np.int64)).reshape(GATE_BATCH, -1).to(dev)
+    loss, layers_checked, attn_err, attn_ok = check_train_attention(
+        model, state["opt_state"], make_train_step(cfg, make_optimizer(spec)), batch, None)
+    checks["train_attention_every_layer_fwd_and_bwd_kernel_vs_plain"] = (
+        attn_ok and layers_checked == cfg.n_layers)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    timings = {"attn_fwd": time_fwd(gen, dev, GATE_BATCH, 12, 4, GATE_SEQ, 64, {}),
+               "bwd": time_bwd(dev, gen, GATE_BATCH, 12, 4, GATE_SEQ, 64)}
+    for kind in GATE_KINDS:
+        timings[f"paged_decode_{kind}"] = time_paged(
+            gen, dev, kind, GATE_EVAL, [GATE_SEQ] * GATE_EVAL, 0, heads=(12, 4, 64))
+    del model, state
+    torch.cuda.empty_cache()
+    rec = {
+        "phase": "eval_gate", "config_source": "scripts/train_lm.py model_config (default)",
+        "config": GATE_CFG, "dtype": "bfloat16", "remat": "block",
+        "params": n_params, "corpus_mb": GATE_CORPUS_MB, "corpus_s": corpus_s,
+        "corpus_log": made.stdout.strip()[-300:], "batch": GATE_BATCH, "seq": GATE_SEQ,
+        "steps": GATE_STEPS, "steps_published": 3000, "train_s": train_s,
+        "ms_per_step": train_s * 1e3 / GATE_STEPS,
+        "tokens_per_s": GATE_BATCH * GATE_SEQ * GATE_STEPS / train_s,
+        "losses_first_last": [losses[0], losses[-1]], "loss_every_50": losses[::50],
+        "eval_rows": GATE_EVAL, "eval_tokens": GATE_SEQ, "ppl": ppl,
+        "gap_vs_bf16": gaps, "paged_bf16_vs_dense_rel": paged_rel, "gate_ppl": GATE_PPL,
+        "train_launches": train_counts, "eval_launches": eval_counts,
+        "eval_last_step_layers": layers, "train_attention_layers_checked": layers_checked,
+        **{f"train_attention_{k}": v for k, v in attn_err.items()},
+        "timings": timings, "seconds": time.perf_counter() - t_phase, "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"eval gate checks failed: {failed}")
+    return rec
+
+
+# The encoder (encoder): bert-base-uncased's published widths (BERT_BASE),
+# the JAX encoder's own blocks (RMSNorm, RoPE, SwiGLU) in bf16 with block
+# remat, masked-LM steps at B32 x 512 (BERT's phase-2 length), 15% of the
+# positions masked to [MASK] = 103, AdamW lr 1e-4.
+BERT_BASE = dict(vocab_size=30522, d_model=768, n_layers=12, n_q_heads=12, n_kv_heads=12,
+                 head_dim=64, d_ff=3072)
+ENC_BATCH, ENC_SEQ, ENC_MASK_ID, ENC_MASK_RATE = 32, 512, 103, 0.15
+ENC_WARM_STEPS, ENC_TIMED_STEPS = 2, 4
+
+
+def mlm_batch(rng, vocab, b, n):
+    import torch
+
+    tokens = rng.integers(1000, vocab, (b, n))
+    mask = rng.random((b, n)) < ENC_MASK_RATE
+    masked = np.where(mask, ENC_MASK_ID, tokens)
+    return tuple(torch.from_numpy(a) for a in (tokens, masked, mask))
+
+
+def phase_encoder(dev):
+    """The bidirectional encoder at BERT-base widths: ENC_WARM_STEPS warm
+    and ENC_TIMED_STEPS timed mlm_loss steps (forward, backward through
+    the non-causal d64 sweeps, AdamW) with exact launches on the wgmma
+    route, ms a step, tokens/s and peak memory; one more step's every layer
+    forward and backward against the plain versions; a 2-layer fp32 copy's
+    loss and gradients within FP32_GRAD_LIMIT x std of the plain path; and
+    bidirectionality: changing the last token moves the first position's
+    embedding."""
+    import dataclasses
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import (
+        AdamW, ModelConfig, init_params_numpy, params_from_jax,
+    )
+    from flash_attention_dlrs_tpu_torch.models.encoder import encode, mlm_loss
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig(**BERT_BASE, dtype=torch.bfloat16, remat=True)
+    model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    optimizer = AdamW(1e-4, weight_decay=0.01)
+    opt_state = optimizer.init(model)
+    tokens, masked, mask = (x.to(dev) for x in mlm_batch(
+        np.random.default_rng(15), cfg.vocab_size, ENC_BATCH, ENC_SEQ))
+
+    def step(model, opt_state, batch, seed=None):
+        model.zero_grad(set_to_none=True)
+        loss = mlm_loss(model, tokens, masked, mask, cfg)
+        loss.backward()
+        optimizer.update(model, opt_state)
+        return loss.detach()
+
+    losses = [float(step(model, opt_state, None)) for _ in range(ENC_WARM_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_d64()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    timed = [step(model, opt_state, None) for _ in range(ENC_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms_per_step = (time.perf_counter() - t) * 1e3 / ENC_TIMED_STEPS
+    launches, routes, sweeps = _d64_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses += [float(x) for x in timed]
+    checks = {"launches_exact_per_step": train_launches_exact(
+        launches, routes, sweeps, cfg.n_layers, ENC_TIMED_STEPS),
+        "loss_finite_and_falls": all(np.isfinite(losses)) and losses[-1] < losses[0]}
+    loss, layers_checked, attn_err, attn_ok = check_train_attention(
+        model, opt_state, step, None, None)
+    checks["attention_every_layer_fwd_and_bwd_kernel_vs_plain"] = (
+        attn_ok and layers_checked == cfg.n_layers)
+    with torch.no_grad():
+        toks = tokens[:1].clone()
+        first = encode(model, toks, cfg)[0, 0]
+        toks[0, -1] = (toks[0, -1] + 1) % cfg.vocab_size
+        moved = float((encode(model, toks, cfg)[0, 0] - first).abs().max())
+    checks["bidirectional_last_token_moves_first_embedding"] = moved > 0
+    del model, opt_state
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=FP32_LAYERS, dtype=torch.float32, remat=False)
+
+    def build():
+        return params_from_jax(init_params_numpy(cfg32, seed=0), cfg32, device=dev), cfg32
+
+    def loss32(model, toks, cfg, dropout_seed=None):
+        rows = toks.shape[0]
+        return mlm_loss(model, toks, masked[:rows], mask[:rows], cfg)
+
+    fp32 = check_train_fp32(tokens, dev, build=build, loss=loss32)
+    checks["fp32_2layer_loss_and_grads_kernel_vs_plain"] = fp32.pop("ok")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    timings = {"attn_fwd": time_fwd(gen, dev, ENC_BATCH, 12, 12, ENC_SEQ, 64, {}, causal=False),
+               "bwd": time_bwd(dev, gen, ENC_BATCH, 12, 12, ENC_SEQ, 64, causal=False)}
+    tokens_per_s = ENC_BATCH * ENC_SEQ / (ms_per_step / 1e3)
+    rec = {
+        "phase": "encoder", "config_source": "bert-base-uncased config.json (widths)",
+        "config": BERT_BASE, "dtype": "bfloat16", "remat": "block", "params": n_params,
+        "batch": ENC_BATCH, "seq": ENC_SEQ, "mask_rate": ENC_MASK_RATE,
+        "losses": losses, "timed_steps": ENC_TIMED_STEPS, "ms_per_step": ms_per_step,
+        "tokens_per_s": tokens_per_s, "peak_memory_gb": peak_gb, "launches": launches,
+        "fwd_routes": routes, "bwd_routes": sweeps,
+        "attention_layers_checked": layers_checked,
+        **{f"attention_{k}": v for k, v in attn_err.items()},
+        "first_embedding_moved_by": moved, **fp32, "timings": timings,
+        "seconds": time.perf_counter() - t_phase, "checks": checks,
+    }
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"encoder checks failed: {failed}")
+    return rec
+
+
+def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train, d256_modes,
+                 later):
     """The kernels line: every kernel of every path, the paged kernels once
     per pool kind they serve, and one entry per ALiBi / dropout mode.
     Launches are the counts of the path runs (serving, quantized serving,
@@ -5169,9 +5945,15 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
     shape with its softcap.  ``d256_modes`` holds phases train_gemma2_dropout
     and serve_alibi_d256: with the packed phase's head-dim-256 block they
     give the head-dim-256 modes' launches (each mode's builds named in
-    "built_from").  Every kernel of the line must have been launched on
-    its path."""
+    "built_from").  ``later`` holds the phases serve_rolling,
+    serve_streaming, native, eval_gate and encoder: the rings' and the
+    native phase's launches join attn_fwd's and the paged kernels' of their
+    KV kind, the two training runs' join attn_bwd_preprocess, and head dim
+    64 has entries of its own (:func:`later_entries`).  Every kernel of the
+    line must have been launched on its path."""
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
+    rolling, streaming, native = (later[k]["launches"] for k in (
+        "serve_rolling", "serve_streaming", "native"))
     burst, spec = graphed
     gemma, variants = models
     fwd_t = timings["fwd_serve_prefill_2048"]
@@ -5181,7 +5963,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
          "launches": serve["launches"]["attn_fwd"] + train["launches"]["attn_fwd"]
          + sum(r["launches"]["attn_fwd"] for r in quant.values()) + dense_fwd
          + burst["launches"]["attn_fwd"] + spec["launches"]["attn_fwd"]
-         + variants["launches"]["attn_fwd"],
+         + variants["launches"]["attn_fwd"] + rolling["attn_fwd"] + streaming["attn_fwd"]
+         + native["attn_fwd"],
          "max_abs_err": fwd_res["serve_prefill_2048"]["max_abs_err_o"],
          "ms": fwd_t["ms"], "plain_ms": fwd_t["plain_ms"],
          "bound_ms": fwd_t["bound_ms"], "bound_by": fwd_t["bound_by"],
@@ -5193,7 +5976,10 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
         launches += chunked[kind]["launches"]["paged_decode"] if kind in chunked else 0
         if kind == "bf16":
             launches += (serve["launches"]["paged_decode"] + burst["launches"]["paged_decode"]
-                         + variants["launches"]["paged_decode"])
+                         + variants["launches"]["paged_decode"] + rolling["paged_decode_bf16"]
+                         + streaming["paged_decode"] + native["paged_decode"])
+        if kind == "int8":
+            launches += rolling["paged_decode_int8"]
         launches += spec["launches"]["paged_decode"].get(kind, 0)
         t = timings[f"decode_{kind}_B8_ctx2048"]
         err = dec_res["serve_decode" if kind == "bf16" else f"{kind}_B8"]["max_abs_err_o"]
@@ -5236,7 +6022,9 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
         source = BWD_SOURCE if name == "attn_bwd_preprocess" else BWD_SM90_SOURCE
         launches = train["launches"][name]
         if name == "attn_bwd_preprocess":
-            launches += gemma_train_launches(gemma_train, name)
+            launches += (gemma_train_launches(gemma_train, name)
+                         + later["eval_gate"]["train_launches"][name]
+                         + later["encoder"]["launches"][name])
         kernels.append(entry(name, source, replaces, launches, rows[name]))
 
     alibi_fwd = sum(r["launches"]["attn_fwd"] for r in serve_alibi.values())
@@ -5308,6 +6096,7 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
                                  gemma_train_launches(gemma_train, f"attn_bwd_{key}"),
                                  timings[case][name], built_from=BWD_D256_SOURCE))
     kernels += d256_mode_entries(entry, packed, timings, dec_res, d256_modes)
+    kernels += later_entries(entry, later["eval_gate"], later["encoder"])
     emit({"kernels": kernels})
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
@@ -5371,6 +6160,35 @@ def d256_mode_entries(entry, packed, timings, dec_res, d256_modes):
               dec_res["d256_alibi_verify_T256_bf16_softcap"]["max_abs_err_o"],
               VERIFY_D256_SOURCE),
     ]
+    return out
+
+
+def later_entries(entry, gate, encoder):
+    """The kernels line's head-dim-64 entries (``entry`` is emit_kernels'
+    maker): the causal forward and sweeps of eval_gate's training run (the
+    forward also its dense and paged evaluations' prefills), timed at its
+    training shape; the non-causal forward and sweeps of the encoder's
+    timed steps, timed at its shape; the d64 decode from each KV kind of
+    eval_gate's paged runs, timed at its evaluation shape."""
+    fwd = gate["train_launches"]["attn_fwd"] + sum(
+        counts["attn_fwd"] for counts in gate["eval_launches"].values())
+    out = [
+        entry("attn_fwd[d64]", FWD_SM90_SOURCE, FWD_REPLACES, fwd, gate["timings"]["attn_fwd"],
+              built_from=FWD_D64_SOURCE),
+        entry("attn_fwd[d64,noncausal]", FWD_SM90_SOURCE, FWD_REPLACES,
+              encoder["launches"]["attn_fwd"], encoder["timings"]["attn_fwd"],
+              built_from=FWD_D64_SOURCE),
+    ]
+    for tag, rec, counts in (("d64", gate, gate["train_launches"]),
+                             ("d64,noncausal", encoder, encoder["launches"])):
+        for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+            out.append(entry(f"{name}[{tag}]", BWD_SM90_SOURCE, BWD_REPLACES[name],
+                             counts[name], rec["timings"]["bwd"][name],
+                             built_from=BWD_D64_SOURCE))
+    for kind in GATE_KINDS:
+        out.append(entry(f"paged_decode[d64,{kind}]", DECODE_SOURCE, DECODE_REPLACES,
+                         gate["eval_launches"][kind]["paged_decode"],
+                         gate["timings"][f"paged_decode_{kind}"], built_from=DECODE_D64_SOURCE))
     return out
 
 
@@ -5469,6 +6287,31 @@ def pair(parent_dir) -> None:
         emit({"phase": "pair", "run": i + 1, "tree": name, "ms": json.loads(line[5:])})
 
 
+LATER_PHASES = ("serve_rolling", "serve_streaming", "native", "eval_gate", "encoder")
+
+
+def later_phases(dev, only=None):
+    """The phases that follow phase time, in order (``only``: those named):
+    the rings, the native library, the perplexity gate and the encoder;
+    their records by name."""
+    import torch
+
+    names = LATER_PHASES if only is None else [n for n in LATER_PHASES if n in only]
+    out, model = {}, None
+    for name in names:
+        if name == "serve_streaming":
+            out[name], model, cfg = phase_serve_streaming(dev)
+        elif name == "native":
+            if model is None:
+                model, cfg = serving_bench_model(dev)
+            out[name] = phase_native(dev, model, cfg)
+            model = None
+        else:
+            out[name] = globals()[f"phase_{name}"](dev)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5480,6 +6323,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--pair"]:
         pair(sys.argv[2])
         return 0
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5490,6 +6334,11 @@ def main() -> int:
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    if only is not None:  # the build and the named later phases, no result line
+        phase_build()
+        later_phases(dev, only)
+        print(card_line(), flush=True)
+        return 0
     bwd_mutants, paged_mutants = phase_build(mutants=True)
     phase_mask(dev)
     fwd_res = phase_fwd(dev)
@@ -5517,12 +6366,13 @@ def main() -> int:
     phase_remat(dev)
     phase_bf16_reduction(dev)
     timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec)
+    later = later_phases(dev)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,
                   alibi_runs, train_alibi_rec, packed_rec), timings, (burst, spec),
                  (gemma, variants), gemma_train_rec,
                  {"train_gemma2_dropout": gemma_dropout_rec,
-                  "serve_alibi_d256": alibi_d256_runs})
+                  "serve_alibi_d256": alibi_d256_runs}, later)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,8 @@ from .decoding import (
     write_prompt_kv_all,
     write_prompt_kv_batch,
 )
+from .encoder import encode, init_encoder_params, mlm_logits, mlm_loss
+from .eval import perplexity_dense, perplexity_paged
 from .optim import adamw8bit
 from .train import AdamW, make_train_state, make_train_step
 from .trainer import (
@@ -44,8 +46,10 @@ __all__ = [
     "Transformer",
     "config_from_hf",
     "config_from_hf_gemma",
+    "encode",
     "fit",
     "forward",
+    "init_encoder_params",
     "init_kv_pools",
     "import_hf_gemma",
     "import_hf_llama",
@@ -61,8 +65,12 @@ __all__ = [
     "make_train_state",
     "make_train_step",
     "make_verify_step",
+    "mlm_logits",
+    "mlm_loss",
     "params_from_jax",
     "params_to_numpy",
+    "perplexity_dense",
+    "perplexity_paged",
     "quantize_params",
     "unembed_matrix",
     "write_prompt_kv",

@@ -1,10 +1,11 @@
 """DecodeEngine, PyTorch port of ``flash_attention_dlrs_tpu/runtime/engine.py``.
 
 Continuous-batching generation over the paged KV cache:
-ContinuousBatchingScheduler (admission control) + PageAllocator (page
-accounting, shared across layers) + models.decoding (dense prefill per
-admitted prompt and one batched decode step per token) — greedy or seeded
-sampling, EOS/budget termination, slot backfill at step boundaries.
+ContinuousBatchingScheduler (admission control) + a page allocator (page
+accounting, shared across layers; the C++ one where it builds) +
+models.decoding (dense prefill per admitted prompt and one batched decode
+step per token) — greedy or seeded sampling, EOS/budget termination, slot
+backfill at step boundaries.
 
 Inactive slots decode against a reserved null page with length 0 (their
 output is ignored), so the decode batch never changes shape.  KV pools may
@@ -17,7 +18,9 @@ steps a dispatch and speculative serving (:meth:`~DecodeEngine.attach_draft`,
 through ``runtime/speculative.py``: on the card each burst step and each
 round is one CUDA graph, captured once and replayed.  The engine runs on
 the card by default (``device="cuda"``) and on the CPU only when asked.
-Ring modes and the mesh raise ``NotImplementedError`` until their slice
+Sliding-window models are served past their window on a rolling KV ring,
+full-attention models with StreamingLLM sinks on a sink + recent ring
+(:func:`_ring`); the mesh raises ``NotImplementedError`` until its slice
 (ROADMAP.md).
 """
 
@@ -36,11 +39,12 @@ from ..models.decoding import (
     make_decode_step,
     make_prefill,
     make_verify_step,
+    write_prompt_kv,
     write_prompt_kv_all,
     write_prompt_kv_batch,
 )
 from ..models.transformer import ModelConfig, Transformer
-from .kv_cache import PageAllocator
+from .native_alloc import NativePageAllocator, make_page_allocator
 from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams, batch_params, sample_tokens
 from .scheduler import ContinuousBatchingScheduler, Request
@@ -95,41 +99,75 @@ def _samples(params_list) -> bool:
     return any(p is not None and p.temperature > 0 for p in params_list)
 
 
-def _check_window(cfg: ModelConfig, page_size: int, pages_per_seq: int,
-                  prefill_chunk: int) -> None:
-    """A sliding-window model is served exactly when a sequence's whole
-    context fits its window (pages_per_seq·page_size ≤ window: the window
-    never clips).  Past it the JAX engine rolls a ring: its refusals are
-    kept here, with their classes and messages, and the ring itself is
-    still to port."""
+def _ring(cfg: ModelConfig, page_size: int, pages_per_seq: int,
+          prefill_chunk: int, streaming_window: int, attention_sinks: int):
+    """The ring a sequence's KV lives in: (rolling, streaming, wrap, sinks,
+    pages_per_seq), with the JAX engine's refusals, classes and messages.
+
+    Rolling: a uniformly sliding model whose page tables reach past its
+    window (pages_per_seq·page_size > window) keeps each sequence's last
+    ``window`` tokens in ``window // page_size`` pages, writing position p
+    at slot p % window; the attention length is clamped to the window, and
+    RoPE phases were applied at each token's true position on insert, so
+    the ring's rotation never matters.  Streaming (StreamingLLM, for
+    full-attention models): the first ``attention_sinks`` slots pin the
+    first tokens, the ``streaming_window`` slots after them ring the most
+    recent ones — an approximation once a sequence outgrows them."""
     window = int(cfg.window or 0)
-    if not window or pages_per_seq * page_size <= window:
-        return
-    if cfg.position_encoding == "alibi":
-        raise NotImplementedError(
-            "rolling sliding-window serving does not support ALiBi "
-            f"models — keep pages_per_seq*page_size <= {window}")
-    if cfg.window_pattern != "all":
-        raise NotImplementedError(
-            f"window_pattern={cfg.window_pattern!r} (Gemma-2 style) mixes "
-            "sliding and full layers; the shared-ring serving path "
-            "supports uniformly-sliding models — keep "
-            f"pages_per_seq*page_size <= {window} for exact "
-            "full-residency serving")
-    if window % page_size:
-        raise ValueError(
-            f"rolling sliding-window serving needs window "
-            f"({window}) divisible by page_size ({page_size})")
-    if prefill_chunk:
-        raise NotImplementedError(
-            "rolling sliding-window serving is incompatible with "
-            "chunked prefill / speculative verification (tokens "
-            "written in one multi-token step would overwrite slots "
-            "earlier tokens of the same step must still attend)")
-    raise NotImplementedError(
-        f"rolling sliding-window serving (pages_per_seq*page_size > window "
-        f"{window}) is not ported yet (ROADMAP.md, queue 1 item 3 of the "
-        "PyTorch port)")
+    rolling = bool(window) and pages_per_seq * page_size > window
+    if rolling:
+        if cfg.position_encoding == "alibi":
+            # The port's true ALiBi bias reads a cache index as a position,
+            # which a rotated ring breaks.
+            raise NotImplementedError(
+                "rolling sliding-window serving does not support ALiBi "
+                f"models — keep pages_per_seq*page_size <= {window}")
+        if cfg.window_pattern != "all":
+            raise NotImplementedError(
+                f"window_pattern={cfg.window_pattern!r} (Gemma-2 style) mixes "
+                "sliding and full layers; the shared-ring serving path "
+                "supports uniformly-sliding models — keep "
+                f"pages_per_seq*page_size <= {window} for exact "
+                "full-residency serving")
+        if window % page_size:
+            raise ValueError(
+                f"rolling sliding-window serving needs window "
+                f"({window}) divisible by page_size ({page_size})")
+        if prefill_chunk:
+            raise NotImplementedError(
+                "rolling sliding-window serving is incompatible with "
+                "chunked prefill / speculative verification (tokens "
+                "written in one multi-token step would overwrite slots "
+                "earlier tokens of the same step must still attend)")
+        pages_per_seq = window // page_size
+    if streaming_window:
+        if window:
+            raise ValueError(
+                "streaming_window is for full-attention models; "
+                "sliding-window models get the exact rolling ring "
+                "automatically")
+        if streaming_window % page_size or attention_sinks % page_size:
+            raise ValueError(
+                f"streaming_window ({streaming_window}) and "
+                f"attention_sinks ({attention_sinks}) must be "
+                f"page_size ({page_size}) aligned")
+        if prefill_chunk:
+            raise NotImplementedError(
+                "streaming eviction is incompatible with chunked "
+                "prefill / speculative verification (multi-token "
+                "writes overwrite slots earlier tokens still attend)")
+        resident = attention_sinks + streaming_window
+        if pages_per_seq * page_size < resident:
+            raise ValueError(
+                f"pages_per_seq*page_size ({pages_per_seq * page_size}) "
+                f"is smaller than sinks+window ({resident})")
+        return (False, True, streaming_window, attention_sinks,
+                resident // page_size)
+    if attention_sinks:
+        raise ValueError("attention_sinks requires streaming_window > 0")
+    if rolling:
+        return True, False, window, 0, pages_per_seq
+    return False, False, 0, 0, pages_per_seq
 
 
 class DecodeEngine:
@@ -149,12 +187,15 @@ class DecodeEngine:
         streaming_window: int = 0,
         attention_sinks: int = 0,
         enable_prefix_cache: bool = False,
+        native_allocator: Optional[bool] = None,
         mesh=None,
         device="cuda",
     ):
         """``params`` is the port's model (models.weights.params_from_jax);
         it is moved to ``device`` if it lies elsewhere.  Pages are accounted
-        by the Python PageAllocator.
+        by ``runtime.native_alloc.make_page_allocator(native=
+        native_allocator)``: the C++ allocator where it builds (None), always
+        (True: raises if it cannot be built or loaded) or never (False).
 
         ``quantized_kv`` stores K/V as ``kv_dtype`` payloads with per-token
         scales: ``torch.int8``, ``"int4"`` (two tokens per byte),
@@ -163,15 +204,19 @@ class DecodeEngine:
         back to int8 on TPUs without one.  ``prefill_chunk`` > 0 prefills
         every prompt in chunks of that many tokens through the verify step;
         ``enable_prefix_cache`` (which needs it) reuses the full-page
-        prompt prefixes of earlier requests."""
-        unported = {
-            "streaming_window / attention_sinks": streaming_window or attention_sinks,
-            "mesh (tensor-parallel serving)": mesh is not None,
-        }
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(_NOT_YET.format(name))
-        _check_window(cfg, page_size, pages_per_seq, prefill_chunk)
+        prompt prefixes of earlier requests.
+
+        A uniformly sliding model (``cfg.window``) whose page tables reach
+        past its window is served on a rolling ring of ``window //
+        page_size`` pages a sequence; ``streaming_window`` (with
+        ``attention_sinks`` pinned first tokens) serves a full-attention
+        model on a StreamingLLM ring (:func:`_ring`)."""
+        if mesh is not None:
+            raise NotImplementedError(_NOT_YET.format("mesh (tensor-parallel serving)"))
+        (self.rolling, self.streaming, self._wrap, self._sinks,
+         pages_per_seq) = _ring(cfg, page_size, pages_per_seq, prefill_chunk,
+                                streaming_window, attention_sinks)
+        self.window = int(cfg.window or 0)
         if kv_dtype == "int4" and not quantized_kv:
             raise ValueError("kv_dtype='int4' requires quantized_kv=True")
         if enable_prefix_cache and not prefill_chunk:
@@ -190,7 +235,8 @@ class DecodeEngine:
         self.pools = init_kv_pools(cfg, num_pages=num_pages,
                                    page_size=page_size, dtype=kv_dtype,
                                    quantized=quantized_kv, device=self.device)
-        self.allocator = PageAllocator(num_pages, page_size)
+        self.allocator = make_page_allocator(num_pages, page_size,
+                                             native=native_allocator)
         self.allocator.allocate(_NULL_SEQ, 1)  # scratch page for idle slots
         self._null_page = self.allocator.page_tables[_NULL_SEQ][0]
         # decode_step_bookkeeping zero-pads page-table rows, and step copies
@@ -236,7 +282,15 @@ class DecodeEngine:
     # -- admission / retirement ------------------------------------------------
 
     def _can_admit(self, num_tokens: int) -> bool:
+        """Scheduler admission gate: a ring allocates one resident set per
+        sequence, whatever the request's length."""
+        if self._wrap:
+            num_tokens = min(num_tokens, self._sinks + self._wrap)
         return self.allocator.can_allocate(num_tokens)
+
+    def _refuse_ring(self, message: str, *engines) -> None:
+        if any(e._wrap for e in (self,) + engines):
+            raise NotImplementedError(message)
 
     def attach_draft(self, draft: "DecodeEngine", gamma: int = 4) -> None:
         """Enable speculative continuous-batching serving: ``draft``
@@ -257,6 +311,8 @@ class DecodeEngine:
             raise ValueError("draft and target page sizes must match")
         if draft.num_slots < self.num_slots:
             raise ValueError("draft needs at least as many slots")
+        self._refuse_ring(
+            "speculative serving is incompatible with ring-based modes", draft)
         if gamma < 2:
             raise ValueError("gamma must be >= 2")
         self.spec_draft = draft
@@ -279,7 +335,8 @@ class DecodeEngine:
         self._draft_requests[slot] = d_req
 
     def _admit(self, req: Request, slot: int) -> None:
-        self._check_fits(req)
+        if not self._wrap:  # a ring holds any length in its resident set
+            self._check_fits(req)
         if self.prefill_chunk:
             self._admit_chunked(req, slot)
         else:
@@ -324,8 +381,10 @@ class DecodeEngine:
     def _admit_dense(self, req: Request, slot: int) -> None:
         prompt = np.asarray(req.prompt_tokens, np.int64)
         t = len(prompt)
-        self.allocator.allocate(req.request_id,
-                                t + req.max_new_tokens + self._overhang())
+        resident = self._sinks + self._wrap
+        self.allocator.allocate(
+            req.request_id,
+            resident if self._wrap else t + req.max_new_tokens + self._overhang())
         pages = np.asarray(self.allocator.page_tables[req.request_id], np.int64)
 
         toks = np.zeros((1, _next_pow2(t)), np.int64)
@@ -333,12 +392,29 @@ class DecodeEngine:
         lengths = np.asarray([t], np.int32)
         logits, kvs = self._prefill(self.params, self._to_device(toks),
                                     self._to_device(lengths))
-        n_pages_prompt = -(-t // self.page_size)
-        write_prompt_kv_all(self.pools, kvs,
-                            self._to_device(pages[:n_pages_prompt]),
-                            self.page_size)
+        if self._wrap and t > resident:
+            self._write_long_prompt(kvs, t, self._to_device(pages))
+        else:
+            n_pages_prompt = -(-t // self.page_size)
+            write_prompt_kv_all(self.pools, kvs,
+                                self._to_device(pages[:n_pages_prompt]),
+                                self.page_size)
         self.allocator.seq_lengths[req.request_id] = t
         self._first_token(req, slot, logits[:1], t)
+
+    def _write_long_prompt(self, kvs, t: int, pages) -> None:
+        """A prompt longer than the ring's resident set: its first
+        ``_sinks`` tokens pin in place and only its last ``_wrap`` tokens
+        stay.  Position p >= sinks lives in slot sinks + (p − sinks) % wrap,
+        so the last-wrap slice lands rolled by (t − sinks) % wrap: one roll
+        lines the write up with whole pages (sinks are page-aligned)."""
+        w, sk = self._wrap, self._sinks
+        shift = (t - sk) % w
+        with torch.inference_mode():
+            for li, (k, v) in enumerate(kvs):
+                kw, vw = (torch.cat([x[0, :, :sk], torch.roll(x[0, :, t - w:t], shift, dims=1)],
+                                    dim=1) for x in (k, v))
+                write_prompt_kv(self.pools, li, (kw, vw), pages, self.page_size)
 
     def _admit_chunked(self, req: Request, slot: int) -> None:
         """Prefill through the multi-token verify step in fixed chunks: one
@@ -394,9 +470,9 @@ class DecodeEngine:
         """Admit a group of requests with ONE prefill, ONE batched KV write
         (``write_prompt_kv_batch``) and ONE read of the first tokens (the
         offline fixed-batch paths: generate_fused, generate_speculative*).
-        Chunked prefill admits per request (its write path is per sequence
-        by construction)."""
-        if self.prefill_chunk or len(reqs) == 1:
+        Chunked prefill and the rings admit per request (their write paths
+        are per sequence by construction)."""
+        if self.prefill_chunk or self._wrap or len(reqs) == 1:
             for r, s in zip(reqs, slots):
                 self._admit(r, s)
             return
@@ -497,7 +573,12 @@ class DecodeEngine:
 
         sids = [req.request_id for _, req in active]
         rows_a, offs_a, tbl_a, pos_a, lens_a = (
-            self.allocator.decode_step_bookkeeping(sids, self.pages_per_seq))
+            self.allocator.decode_step_bookkeeping(
+                sids, self.pages_per_seq, self._wrap, self._sinks))
+        if self._wrap:
+            # attention covers the resident set: the sinks and the last
+            # min(len − sinks, wrap) tokens; RoPE positions stay true
+            lens_a = np.minimum(lens_a, self._sinks + self._wrap)
         for i, (slot, _) in enumerate(active):
             tokens[slot] = self._slot_next_token[slot]
             positions[slot] = pos_a[i]
@@ -541,11 +622,12 @@ class DecodeEngine:
         budget ends mid-burst freeze in place (EOS freezes through the
         engine's eos token); the batch keeps lockstep.  Falls back to
         per-token :meth:`step` loops when a request wants logprobs (they
-        need each step's logits on the host)."""
+        need each step's logits on the host) and on a ring (its bookkeeping
+        is per token, on the host): no graph is captured then."""
         active = self._active()
         if not active:
             return 0
-        if any(r.want_logprobs for _, r in active):
+        if self._wrap or any(r.want_logprobs for _, r in active):
             total = 0
             for _ in range(max_steps):
                 got = self.step()
@@ -690,10 +772,12 @@ class DecodeEngine:
             "pages_total": total,
             "pages_free": free,
             "page_utilization": 1.0 - free / total,
-            "rolling_window": 0,
-            "streaming_window": 0,
-            "attention_sinks": 0,
+            "rolling_window": self.window if self.rolling else 0,
+            "streaming_window": self._wrap if self.streaming else 0,
+            "attention_sinks": self._sinks,
             "kv_dtype": str(self.kv_dtype),
+            "allocator": ("native" if isinstance(self.allocator, NativePageAllocator)
+                          else "python"),
         }
 
     # -- public API --------------------------------------------------------------
@@ -752,13 +836,14 @@ class DecodeEngine:
         ]
         total_pages = self.pools.k[0].shape[1] - 1  # minus the null page
         for r in reqs:  # validate the WHOLE batch before submitting any
-            need = -(-(len(r.prompt_tokens) + r.max_new_tokens) // self.page_size)
+            need = ((self._sinks + self._wrap) // self.page_size if self._wrap
+                    else -(-(len(r.prompt_tokens) + r.max_new_tokens) // self.page_size))
             if need > total_pages:
                 raise MemoryError(
                     f"request {r.request_id!r} needs {need} pages but the pool "
                     f"only has {total_pages} — raise num_pages or shrink the request"
                 )
-            if need > self.pages_per_seq:
+            if not self._wrap and need > self.pages_per_seq:
                 raise ValueError(
                     f"request {r.request_id!r} needs {need} pages but page "
                     f"tables hold pages_per_seq={self.pages_per_seq} — raise "
@@ -900,6 +985,11 @@ class DecodeEngine:
         prompts (no mid-flight admission in this mode)."""
         n = len(prompts)
         self._check_spec(n, draft, gamma)
+        self._refuse_ring(
+            "speculative decoding is incompatible with ring-based "
+            "serving (rolling window / streaming eviction): multi-token "
+            "verification would overwrite ring slots its own earlier "
+            "tokens still attend", draft)
         cached = self._programs.get(gamma)
         if cached is not None and cached[0]() is draft:
             propose, verify_accept = cached[1]
@@ -1038,6 +1128,9 @@ class DecodeEngine:
         (no mid-flight admission)."""
         n = len(prompts)
         self._check_spec(n, draft, gamma)
+        self._refuse_ring(
+            "speculative decoding is incompatible with ring-based "
+            "serving modes", draft)
         b = self.num_slots
         sp = sampling or GREEDY
         temp, top_k, top_p, seeds = batch_params([sp] * n + [None] * (b - n),
@@ -1086,6 +1179,7 @@ class DecodeEngine:
         n = len(prompts)
         if n > self.num_slots:
             raise ValueError("prompts exceed slots")
+        self._refuse_ring("fused generation does not support ring-based serving")
         b = self.num_slots
         sp = sampling or GREEDY
         temp, top_k, top_p, seeds = batch_params([sp] * n + [None] * (b - n),

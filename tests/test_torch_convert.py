@@ -247,16 +247,20 @@ def test_mistral_sliding_window_parity():
 
 
 def test_windowed_model_engine_modes():
-    """A window the context outgrows on a uniformly sliding model needs the
-    rolling KV ring, which is still to port (ROADMAP queue 1 item 3); a
-    window covering the context serves with full residency."""
+    """A window the context outgrows on a uniformly sliding model is served
+    on the rolling KV ring (one window of pages a sequence; tokens across
+    the ring's wrap match the dense windowed forward); a window covering
+    the context serves with full residency."""
     from flash_attention_dlrs_tpu_torch.models import ModelConfig, init_params_numpy
 
     cfg = ModelConfig.tiny(dtype=torch.float32, remat=False, window=128)
     model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        DecodeEngine(model, cfg, num_pages=16, page_size=128, num_slots=1,
-                     pages_per_seq=4, kv_dtype=torch.float32, device="cpu")
+    ring = DecodeEngine(model, cfg, num_pages=16, page_size=128, num_slots=1,
+                        pages_per_seq=4, kv_dtype=torch.float32, device="cpu")
+    assert ring.rolling and ring.pages_per_seq == 1
+    prompt = [int(t) for t in np.random.default_rng(5).integers(0, 128, 120)]
+    assert ring.generate([prompt], max_new_tokens=16)[0] == _greedy_oracle(
+        model, cfg, prompt, 16)
     eng = DecodeEngine(model, cfg, num_pages=4, page_size=128, num_slots=1,
                        pages_per_seq=1, kv_dtype=torch.float32, device="cpu")
     assert eng.generate([[1, 2, 3]], max_new_tokens=3)[0] == _greedy_oracle(

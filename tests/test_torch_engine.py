@@ -206,26 +206,37 @@ def test_page_allocator_bookkeeping_matches_jax():
 def test_stats_have_the_jax_keys(jparams, model):
     jeng, teng = _engines(jparams, model, num_slots=2)
     teng.generate(PROMPTS, max_new_tokens=2)
-    assert set(teng.stats()) == set(jeng.stats())
+    # and which allocator runs, a key of the port's own
+    assert set(teng.stats()) == set(jeng.stats()) | {"allocator"}
     assert teng.stats()["admitted"] == 2 and teng.stats()["pages_free"] == 31
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(streaming_window=128), dict(attention_sinks=128), dict(mesh=object()),
+    dict(streaming_window=100, call="__init__"),
+    dict(attention_sinks=128, call="__init__"), dict(mesh=object()),
     dict(quantized_kv=True, kv_dtype=torch.int8, call="generate_speculative"),
     dict(prefill_chunk=16, enable_prefix_cache=True,
          call="generate_speculative_fused"),
 ])
 def test_unported_engine_options_raise(jparams, model, kwargs):
     """Unported options raise at construction.  With ``call``, the options
-    and the speculative entry point are ported: misused (γ < 2 with int8
-    KV, more prompts than slots with chunked prefill and the prefix cache),
-    the call raises as the JAX package's does."""
+    (and the entry point) are ported: misused (a streaming ring not aligned
+    to the page, sinks without a ring, γ < 2 with int8 KV, more prompts
+    than slots with chunked prefill and the prefix cache), the engine
+    raises as the JAX package's does."""
     kwargs = dict(kwargs)
     call = kwargs.pop("call", None)
     if call is None:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _port(model, num_slots=1, **kwargs)
+        return
+    if call == "__init__":
+        with pytest.raises(ValueError) as want:
+            JEngine(jparams, JCFG, num_pages=32, page_size=128, pages_per_seq=4,
+                    num_slots=1, kv_dtype=jnp.float32, **kwargs)
+        with pytest.raises(ValueError) as got:
+            _port(model, num_slots=1, **kwargs)
+        assert str(got.value) == str(want.value)
         return
     jkw = dict(kwargs, kv_dtype=jnp.int8) if "kv_dtype" in kwargs else dict(kwargs)
     misuse, match = ((dict(gamma=1), "gamma") if call == "generate_speculative"

@@ -15,6 +15,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "flash_attention_dlrs_tpu_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
+SCRIPTS = ["chip_smoke.py", "scripts/eval_ppl_torch.py"]
 MODULES = sorted(
     ".".join(pathlib.Path(f).with_suffix("").parts).removesuffix(".__init__")
     for f in PORT_FILES
@@ -36,14 +37,14 @@ def _imported_names(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", PORT_FILES + SCRIPTS)
 def test_no_jax_import_in_source(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "flash_attention_dlrs_tpu"), (path, name)
 
 
-@pytest.mark.parametrize("path", PORT_FILES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", PORT_FILES + SCRIPTS)
 def test_no_transformers_import_in_source(path):
     for name in _imported_names(path):
         assert name.split(".")[0] != "transformers", (path, name)
@@ -84,6 +85,7 @@ def test_default_device_entry_points_need_a_card():
     from flash_attention_dlrs_tpu_torch.models import (
         ModelConfig, Transformer, fit, import_hf_gemma, import_hf_llama, import_hf_phi3,
         init_kv_pools, init_params_numpy, make_train_state, params_from_jax,
+        perplexity_paged,
     )
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
     from flash_attention_dlrs_tpu_torch.runtime.sampling import batch_params
@@ -107,6 +109,8 @@ def test_default_device_entry_points_need_a_card():
         lambda: import_hf_llama({}, cfg=cfg),
         lambda: import_hf_gemma({}, cfg=cfg),
         lambda: import_hf_phi3({}, cfg=cfg),
+        lambda: perplexity_paged(params_from_jax(tree, cfg, device="cpu"), cfg,
+                                 [[1, 2, 3]]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

@@ -204,7 +204,8 @@ def test_write_prompt_kv_all_fills_the_pages(model):
 def test_model_config_refuses_unported_variants(field, value):
     """Every variant is ported: each config builds.  What raises is the
     misuse the JAX package refuses too: an ALiBi model behind a rolling
-    ring (a sliding window or a streaming window, neither ported), a
+    ring (the JAX engine refuses none behind a streaming ring, and the
+    port serves it with the JAX engine's tokens, after eviction too), a
     dropout model's train step called without its seed, a RoPE scaling of
     an unknown kind, an even-pattern window the context outgrows, an
     unknown MLP activation, a Gemma state dict without its cfg, a negative
@@ -216,10 +217,20 @@ def test_model_config_refuses_unported_variants(field, value):
         model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
         with pytest.raises(NotImplementedError, match="ALiBi"):
             TEngine(model, cfg, page_size=16, pages_per_seq=8, device="cpu")
-        cfg = TConfig.tiny(position_encoding=value, dtype=torch.float32)
-        model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(model, cfg, streaming_window=64, device="cpu")
+        from flash_attention_dlrs_tpu.runtime.engine import DecodeEngine as JEngine
+
+        jcfg = JConfig.tiny(position_encoding=value, dtype=jnp.float32, remat=False)
+        cfg = TConfig.tiny(position_encoding=value, dtype=torch.float32, remat=False)
+        tree = init_params_numpy(cfg, seed=0)
+        model = params_from_jax(tree, cfg, device="cpu")
+        ring = dict(num_pages=8, page_size=128, pages_per_seq=4, streaming_window=128,
+                    attention_sinks=128)
+        prompt = [int(t) for t in np.random.default_rng(3).integers(0, 256, 200)]
+        want = JEngine(jax.tree.map(jnp.asarray, tree), jcfg, kv_dtype=jnp.float32,
+                       **ring).generate([prompt], max_new_tokens=80)  # evicts at 256
+        got = TEngine(model, cfg, kv_dtype=torch.float32, device="cpu",
+                      **ring).generate([prompt], max_new_tokens=80)
+        assert got == want
     elif field == "attn_dropout":
         cfg = TConfig.tiny(attn_dropout=value, dtype=torch.float32)
         model, state, opt = make_train_state(cfg, device="cpu")
