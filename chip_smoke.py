@@ -110,6 +110,22 @@ Then drives every path of the port:
 - the encoder (encoder): bert-base-uncased's widths with the JAX
   encoder's blocks, masked-LM steps at B32 x 512 through the non-causal
   head-dim-64 kernels, a 2-layer fp32 copy and a bidirectionality check;
+- the geometry model and the tuner (tune): current_geometry() against the
+  H100's 132 SMs and 232,448 bytes, every built layout's shared memory
+  against geometry.py's model; the other tiles (csrc/attn_fwd_tiles.cu:
+  64-key forward tiles, csrc/attn_bwd_tiles.cu: 32-row sweep stages, at
+  d 64 and 128) against their plain versions at the gate model's,
+  BERT-base's and the training-bench attention shapes and at edges, two
+  tile mutants caught, the op API pinned to them (exact launches per
+  tile); tuned_block_sizes and tuned_pages_per_block (every candidate's
+  time, the winner, a second call from the cache); the serving-bench
+  engine with its tuned pages_per_block, eager and graphed, against the
+  default engine (bf16 near-ties only, a 2-layer fp32 copy equal);
+- the bench suite (bench): bench/suite.py run_bench for ours / sdpa at
+  N 1024, 4096 and 16384 (naive to 4096), fwd and bwd, TFLOP/s and percent
+  of the bf16 peak, and bench_torch.py's one JSON line;
+- the golden gate (golden): scripts/run_golden_gate_torch.py's 200 fp32
+  trials at B32 H32 N256 d128 against the oracle at the reference ladder;
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -139,8 +155,9 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
 
        python3 chip_smoke.py --only PHASE[,PHASE...]
            builds the kernels and runs only the named phases of
-           serve_rolling, serve_streaming, native, eval_gate and encoder
-           (development runs; prints no result line).
+           serve_rolling, serve_streaming, native, eval_gate, encoder,
+           tune, bench and golden (development runs; prints no result
+           line).
 """
 
 from __future__ import annotations
@@ -587,8 +604,11 @@ def phase_build(mutants=False):
     t0 = time.perf_counter()
     built = _cuda.build()
     build_s = time.perf_counter() - t0
+    global TILE_MUTANT_BUILDS
     mutant_builds = ((start_mutant_builds(BWD_MUTANTS), start_mutant_builds(PAGED_MUTANTS))
                      if mutants else ({}, {}))
+    if mutants:
+        TILE_MUTANT_BUILDS = start_mutant_builds(TILE_MUTANTS)
     info = {}
     for src, rec in built.items():
         ptxas = [l.strip() for l in rec["log"].splitlines()
@@ -611,8 +631,10 @@ def phase_build(mutants=False):
                                         BWD_WGMMA_FLAGS, "_wgmma_kernel", 96, "bwd_wgmma")
     if all(src in built for src in D256_SOURCES):
         rec["d256_shared_bytes"] = d256_shared_bytes()
+    tiles_wrong = check_tile_builds(rec, built)
     paged = {}
-    for src in (f"paged_{k}{d}.cu" for k in ("decode", "verify") for d in ("_d64", "", "_d256")):
+    for src in [f"paged_{k}{d}.cu" for k in ("decode", "verify") for d in ("_d64", "", "_d256")
+                ] + ["paged_verify_d256_f16.cu"]:
         if src in built:
             paged.update(paged_instances(built[src]["log"], src))
     serialized = {k: v["ptxas_warnings"] for k, v in paged.items()
@@ -623,6 +645,8 @@ def phase_build(mutants=False):
         rec.update(paged_instances=paged, paged_spilling={
             k: v for k, v in paged.items() if v.get("spill_stores") or v.get("spill_loads")})
     emit(rec)
+    if tiles_wrong:
+        raise AssertionError(tiles_wrong)
     if fwd_warnings:
         raise AssertionError(f"forward wgmma instances with serialized wgmmas: {fwd_warnings}")
     if bwd_warnings:
@@ -2092,7 +2116,9 @@ def check_decode_fp32(dev, prompt, kinds, **variant):
                                      SERVE_PAGE)
         return step(model, pools, *args)[0]
 
-    def plain(q, k, v, lens, tbl, *, sm_scale, alibi_slopes=None, logit_softcap=0.0):
+    def plain(q, k, v, lens, tbl, *, sm_scale, alibi_slopes=None, logit_softcap=0.0,
+              pages_per_block=None):
+        assert pages_per_block is None  # the default engine's steps: no split asked
         return paged_decode_plain(q, k, v, lens, tbl, sm_scale=sm_scale,
                                   alibi_slopes=alibi_slopes, logit_softcap=logit_softcap)
 
@@ -2518,7 +2544,8 @@ def _serve_kernels():
 
     return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL),
             "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL),
-            "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL)}
+            "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL,
+                             dm.VERIFY_D256_F16_KERNEL)}
 
 
 def _zero_launches():
@@ -4688,7 +4715,7 @@ def window_pairs(n: int, window: int) -> int:
 
 
 def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0.0,
-             causal=True):
+             causal=True, blocks=None):
     """The three backward kernels one by one and together at one bf16
     shape (causal unless ``causal`` is false) (with the ALiBi and dropout arguments of :func:`mods`
     ``mod``, the [B, N] segment ids ``seg`` (numpy), a ``window`` and a
@@ -4700,7 +4727,8 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0
     on its boolean band) as the library time of the whole backward,
     torch.linalg.vecdot on the fp32 casts of O and dO as that of the
     preprocess.  Dropout and the softcap have no library time: SDPA's
-    dropout draws other bits, and no PyTorch call softcaps the scores."""
+    dropout draws other bits, and no PyTorch call softcaps the scores.
+    ``blocks``: the kernels' tiles (a tuning.BlockSizes), when given."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
@@ -4715,7 +4743,7 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0
     ids = None if seg is None else torch.from_numpy(seg).to(dev)
     kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=softcap,
               **mods(hq, **(mod or {})),
-              **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
+              **({} if ids is None else dict(q_seg=ids, kv_seg=ids)), block_sizes=blocks)
     o, lse = attn_fwd(q, k, v, **kw)
     delta = bk.attn_bwd_preprocess(o, do)
     calls = {
@@ -4781,7 +4809,7 @@ def sdpa_bias(slopes, n, dtype, dev):
 
 
 def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softcap=0.0,
-             causal=True):
+             causal=True, blocks=None):
     """The forward kernel at one bf16 shape (causal unless ``causal`` is
     false) with the ALiBi and
     dropout arguments of :func:`mods` ``mod``, the [B, N] segment ids
@@ -4792,7 +4820,8 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
     plain version, and SDPA's time where no dropout is asked: with the ALiBi
     bias as a float mask, with segments on the block-diagonal causal
     boolean mask, with a causal ``window`` on its boolean band mask; none
-    computes a ``softcap`` or takes fp8 V."""
+    computes a ``softcap`` or takes fp8 V.  ``blocks``: the kernel's tiles
+    (a tuning.BlockSizes), when given."""
     import torch
     import torch.nn.functional as F
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
@@ -4806,7 +4835,8 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
         v = v.to(getattr(torch, FP8_V[v8]))
     ids = None if seg is None else torch.from_numpy(seg).to(dev)
     kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=softcap,
-              **mods(hq, **mod), **({} if ids is None else dict(q_seg=ids, kv_seg=ids)))
+              **mods(hq, **mod), **({} if ids is None else dict(q_seg=ids, kv_seg=ids)),
+              block_sizes=blocks)
     err = float((attn_fwd(q, k, v, **kw)[0].float()
                  - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
     ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
@@ -5919,6 +5949,528 @@ def phase_encoder(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# The tiles, the tuner, the bench suite and the golden gate
+# ---------------------------------------------------------------------------
+
+FWD_TILES_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_tiles.cu"
+BWD_TILES_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_tiles.cu"
+# The other tiles' instances (csrc/attn_fwd_tiles.cu, attn_bwd_tiles.cu): the
+# mangled names end in the tile after four (forward) or three (sweeps) mode
+# flags, all off.
+TILE_ENTRY = re.compile(r"attn_(fwd|bwd_dkv|bwd_dq)_wgmma_kernelI\d+(__nv_bfloat16|__half)"
+                        r"Li(\d+)E(?:Lb0E){3,4}Li(\d+)E")
+# Check cases of the other tiles: name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal,
+# window, softcap.  The gate model's attention (scripts/train_lm.py), BERT-base
+# widths (the encoder) and the training-bench attention shape at d 128, in
+# bf16; fp16 at two of them; ragged and cross-length edges with a window and
+# the softcap.
+TILE_CASES = (
+    ("gate_d64", BF16, 16, 12, 4, 2048, 2048, 64, True, 0, 0.0),
+    ("bert_d64", BF16, 32, 12, 12, 512, 512, 64, False, 0, 0.0),
+    ("train_d128", BF16, 8, 32, 8, 2048, 2048, 128, True, 0, 0.0),
+    ("bert_d64_fp16", F16, 32, 12, 12, 512, 512, 64, False, 0, 0.0),
+    ("train_d128_fp16", F16, 2, 32, 8, 2048, 2048, 128, True, 0, 0.0),
+    ("edge_d128_cross_129_385", BF16, 2, 8, 2, 129, 385, 128, True, 0, 0.0),
+    ("edge_d64_window128_softcap_n300", F16, 2, 8, 2, 300, 300, 64, True, 128, 30.0),
+)
+# The shapes the tuner and the kernels line time the tiles at: (B, Hq, Hkv,
+# N, d, causal).
+TUNE_SHAPES = {"gate_d64": (16, 12, 4, 2048, 64, True),
+               "bert_d64": (32, 12, 12, 512, 64, False),
+               "train_d128": (8, 32, 8, 2048, 128, True)}
+# Broken copies of the other tiles' instances, built as BWD_MUTANTS are:
+# each drops the last key tile of its CTA's range (the producer and the
+# consumers alike), only where the tile is not the head dim's own; the
+# tiles check must fail on each.
+TILE_MUTANTS = {
+    "fwd_tiles_skip_last_key_tile": ("attn_fwd_tiles.cu", "attn_fwd_sm90.cuh", [(
+        "  const TileRange tiles = kv_tiles<BM, BN>(m0, Nq, Nkv, causal, window);\n",
+        "  TileRange tiles = kv_tiles<BM, BN>(m0, Nq, Nkv, causal, window);\n"
+        "  if (KT != key_tile(D) && tiles.hi - tiles.lo > 1) --tiles.hi;\n")]),
+    "dq_tiles_skip_last_key_tile": ("attn_bwd_tiles.cu", "attn_bwd_sm90.cuh", [(
+        "  const TileRange tiles = kv_tiles<BR, BS>(m0, Nq, Nkv, causal, window);\n",
+        "  TileRange tiles = kv_tiles<BR, BS>(m0, Nq, Nkv, causal, window);\n"
+        "  if (ST != stream_tile(D) && tiles.hi - tiles.lo > 1) --tiles.hi;\n")]),
+}
+# The C entry each tile mutant replaces (ops module, attribute, symbol).
+TILE_MUTANT_TARGETS = {"fwd_tiles_skip_last_key_tile": ("fwd_kernel", "FWD_TILES_KERNEL",
+                                                        "attn_fwd_tiles"),
+                       "dq_tiles_skip_last_key_tile": ("bwd_kernel", "DQ_TILES_KERNEL",
+                                                       "attn_bwd_dq_tiles")}
+TILE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
+# Paged tuner cases: (name, kv kind, B, Hq, Hkv, d, softcap), context 2048
+# in 128-token pages, tables of 17 pages (the serving model's and
+# Gemma-2-2B's decode shapes).
+PAGED_TUNE_CASES = tuple(
+    (f"{kind}_B{b}_d{d}", kind, b, hq, hkv, d, cap)
+    for d, hq, hkv, cap in ((128, 16, 8, 0.0), (256, 8, 4, GEMMA_SOFTCAP))
+    for kind in ("bf16", "int8") for b in (4, 8))
+BENCH_SEQ_LENS = (1024, 4096, 16384)
+
+
+def tile_instances(log):
+    """Registers, spills and ptxas performance warnings of each instance of
+    the other tiles from nvcc's ``--ptxas-options=-v`` log:
+    {"<kernel>_<dtype>_d<d>_kv<tile>": {...}}."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            w = TILE_ENTRY.search(m.group(1))
+            cur = None
+            if w is not None:
+                kernel, dtype, d, tile = w.groups()
+                cur = (f"{kernel}_{'bf16' if dtype == '__nv_bfloat16' else 'fp16'}"
+                       f"_d{d}_kv{tile}")
+                out[cur] = {"ptxas_warnings": []}
+            continue
+        if cur is None:
+            continue
+        if "Performance Loss" in line:
+            out[cur]["ptxas_warnings"].append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
+def check_tile_builds(rec, built):
+    """Adds the other tiles' instances to the build record; what is wrong
+    with them (a message, or None): there must be 4 forward and 8 sweep
+    instances, each at the launch allocation, none with serialized
+    wgmmas."""
+    tiles = {}
+    for src in ("attn_fwd_tiles.cu", "attn_bwd_tiles.cu"):
+        if src in built:
+            tiles.update(tile_instances(built[src]["log"]))
+    if not tiles:
+        return None
+    rec["tile_instances"] = tiles
+    bad = {k: v for k, v in tiles.items()
+           if v.get("registers") != LAUNCH_REGS or v["ptxas_warnings"]}
+    if len(tiles) != 12 or bad:
+        return (f"tile instances: expected 12 at {LAUNCH_REGS} registers without "
+                f"warnings, found {sorted(tiles)}; at fault {bad}")
+    return None
+
+
+def shared_bytes_check():
+    """Every built layout's dynamic shared memory, from each build's
+    ``*_shared_bytes`` entry, against geometry.py's model (the forward's
+    by head dim, segment flag and fp8 V; the sweeps' by head dim, segment
+    flag and sweep; the other tiles' by head dim): {layout: [C, Python]}."""
+    import ctypes
+    from flash_attention_dlrs_tpu_torch import _cuda, geometry as geo
+
+    def entry(source, nargs):
+        stem = source.split(".")[0]
+        fn = getattr(ctypes.CDLL(str(_cuda.library_path(source))), f"{stem}_shared_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
+        return fn
+
+    out = {}
+    for d, dim in ((64, "_d64"), (128, ""), (256, "_d256")):
+        for seg in (False, True):
+            fwd = entry(f"attn_fwd{dim}{'_seg' if seg else ''}.cu", 2)
+            bwd = entry(f"attn_bwd{dim}{'_seg' if seg else ''}.cu", 2)
+            bkv, bs = geo.default_block_kv(d), geo.default_block_kv_bwd(d)
+            for v8 in (False, True):
+                out[f"fwd_d{d}_kv{bkv}{'_seg' if seg else ''}{'_fp8v' if v8 else ''}"] = [
+                    fwd(1, int(v8)), geo.attention_fwd_smem_bytes(
+                        bkv, d, geo.fwd_stages(bkv, d, seg, v8), seg, v8)]
+            for dkv in (True, False):
+                out[f"{'dkv' if dkv else 'dq'}_d{d}_kv{bs}{'_seg' if seg else ''}"] = [
+                    bwd(int(dkv), 1), geo.attention_bwd_smem_bytes(bs, d, seg, dkv)]
+    fwd_tiles, bwd_tiles = entry("attn_fwd_tiles.cu", 2), entry("attn_bwd_tiles.cu", 3)
+    for d in (64, 128):
+        out[f"fwd_d{d}_kv64"] = [fwd_tiles(d, 64), geo.attention_fwd_smem_bytes(
+            64, d, geo.fwd_stages(64, d))]
+        for dkv in (True, False):
+            out[f"{'dkv' if dkv else 'dq'}_d{d}_kv32"] = [
+                bwd_tiles(int(dkv), d, 32), geo.attention_bwd_smem_bytes(32, d, False, dkv)]
+    return out
+
+
+def tile_launches(zero=False):
+    """The forward's and each sweep's wgmma launches by head dim and tile
+    (ops/fwd_kernel.py TILE_LAUNCHES, ops/bwd_kernel.py BWD_TILE_LAUNCHES),
+    cleared when ``zero``."""
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import BWD_TILE_LAUNCHES
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import TILE_LAUNCHES
+
+    counts = {"attn_fwd": TILE_LAUNCHES, **BWD_TILE_LAUNCHES}
+    if zero:
+        for c in counts.values():
+            c.clear()
+    return {k: dict(c) for k, c in counts.items()}
+
+
+def other_tiles(d):
+    from flash_attention_dlrs_tpu_torch.tuning import BlockSizes
+
+    return BlockSizes(block_kv=64, block_kv_bwd=32) if d in (64, 128) else None
+
+
+def tile_case(dev, gen, case):
+    """One tiles check case: the forward on its other key tile (64) and the
+    three backward kernels on the other streamed tile (32) against the plain
+    versions on the same inputs (fwd_check's and bwd_check's limits), the
+    backward twice (bitwise equal), each launch on its tile.  (record, ok)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd, attn_bwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd, attn_fwd_plain
+
+    name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap = case
+    dt = getattr(torch, dt)
+    q, do = (_rand(gen, (b, hq, nq, d), dt, dev) for _ in range(2))
+    k, v = (_rand(gen, (b, hkv, nkv, d), dt, dev) for _ in range(2))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
+              block_sizes=other_tiles(d))
+    tile_launches(zero=True)
+    o, lse = attn_fwd(q, k, v, **kw)
+    got = attn_bwd(q, k, v, o, lse, do, **kw)
+    again = attn_bwd(q, k, v, o, lse, do, **kw)
+    launches = tile_launches()
+    fwd_rec, fwd_ok = fwd_errors((o, lse), attn_fwd_plain(q, k, v, **kw), dt)
+    bwd_rec, bwd_ok = bwd_errors(got, attn_bwd_plain(q, k, v, o, lse, do, **kw), dt)
+    torch.cuda.synchronize()
+    want = {"attn_fwd": {f"d{d}_kv64": 1}, "attn_bwd_dkv": {f"d{d}_kv32": 2},
+            "attn_bwd_dq": {f"d{d}_kv32": 2}}
+    rec = {"case": name, "dtype": str(dt), "shape": [b, hq, hkv, nq, nkv, d],
+           "causal": causal, "window": window, "softcap": cap, "fwd": fwd_rec, "bwd": bwd_rec,
+           "bitwise_repeatable": all(torch.equal(a, c) for a, c in zip(got, again)),
+           "tile_launches": launches, "launches_exact": launches == want}
+    rec["ok"] = fwd_ok and bwd_ok and rec["bitwise_repeatable"] and rec["launches_exact"]
+    return rec, rec["ok"]
+
+
+def tile_mutants_caught(dev, builds):
+    """Each broken copy of TILE_MUTANTS in place of its C entry on every
+    TILE_CASES case: each must fail at least one."""
+    import importlib
+
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+
+    wait = wait_mutant_builds(builds)
+    caught = {}
+    for name, (_, lib, source) in builds.items():
+        module, attr, symbol = TILE_MUTANT_TARGETS[name]
+        mod = importlib.import_module(f"flash_attention_dlrs_tpu_torch.ops.{module}")
+        real = getattr(mod, attr)
+        failed = []
+        gen = torch.Generator(device=dev).manual_seed(8)
+        try:
+            setattr(mod, attr, _cuda.CudaKernel(source, symbol, real.argtypes, library=lib))
+            for case in TILE_CASES:
+                if not tile_case(dev, gen, case)[1]:
+                    failed.append(case[0])
+        finally:
+            setattr(mod, attr, real)
+        caught[name] = failed
+    return caught, wait
+
+
+def tuner_run(fn, *args, **kw):
+    """``fn(*args, **kw)`` and the number of candidates it timed
+    (tuning._time_call calls)."""
+    from flash_attention_dlrs_tpu_torch import tuning
+
+    timed, real = [], tuning._time_call
+
+    def counting(*a, **k):
+        timed.append(1)
+        return real(*a, **k)
+
+    tuning._time_call = counting
+    try:
+        out = fn(*args, **kw)
+    finally:
+        tuning._time_call = real
+    return out, len(timed)
+
+
+def search_times(key_prefix):
+    """The candidates' times (ms) of the tuner's searches whose key starts
+    with ``key_prefix`` in this process (tuning.TIMINGS)."""
+    from flash_attention_dlrs_tpu_torch import tuning
+
+    return {key: {str(c): (None if t is None else t * 1e3) for c, t in rows}
+            for key, rows in tuning.TIMINGS.items() if json.loads(key)[1] == key_prefix}
+
+
+def phase_tune(dev):
+    """The geometry model, the other tiles and the tuner:
+
+    (a) ``current_geometry()`` against the H100's 132 SMs and 232,448 bytes,
+        and every built layout's shared memory against geometry.py's;
+    (b) each other-tile instance against its plain version (TILE_CASES),
+        its launches counted exactly, and each tile mutant caught; the
+        tiles driven through the op API (``flash_attention`` with
+        ``block_sizes``, forward and backward) at the TUNE_SHAPES, their
+        launches counted exactly, and timed beside their bounds;
+    (c) ``tuned_block_sizes`` at the TUNE_SHAPES: every candidate's ms, the
+        winner, a second call that times nothing;
+    (d) ``tuned_pages_per_block`` at PAGED_TUNE_CASES: every candidate's
+        device ms, the winner, decode_splits' choice, a second call that
+        times nothing;
+    (e) the serving-bench engine with its tuned ``pages_per_block``, eager
+        and graphed: its tokens against the default engine's (bf16 at full
+        width: near-ties only; a 2-layer fp32 copy: equal)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda, geometry as geo, tuning
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops.flash_attention import (
+        flash_attention, tuned_block_sizes,
+    )
+
+    t0 = time.perf_counter()
+    builds = TILE_MUTANT_BUILDS or start_mutant_builds(TILE_MUTANTS)
+    tuning._CACHE_PATH = str(_cuda.BUILD_DIR / "tune_cache.json")
+    tuning._TUNE_CACHE.clear()
+    tuning.TIMINGS.clear()
+    checks = {}
+    # (a) the geometry model
+    g = geo.current_geometry()
+    shared = shared_bytes_check()
+    checks["geometry_is_h100"] = (g.sm_count, g.smem_per_block_optin) == (132, 232448)
+    checks["model_bytes_equal_kernels"] = all(c == p for c, p in shared.values())
+    emit({"phase": "tune", "part": "geometry", "geometry": dataclasses_dict(g),
+          "supports_fast_fp8": geo.supports_fast_fp8(g), "shared_bytes": shared})
+    # (b) the other tiles against their plain versions, and their mutants
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = {}
+    for case in TILE_CASES:
+        rec, _ = tile_case(dev, gen, case)
+        cases[case[0]] = rec
+        emit({"phase": "tune", "part": "tile_check", **rec})
+    checks["tiles_within_limits"] = all(r["ok"] for r in cases.values())
+    caught, wait = tile_mutants_caught(dev, builds)
+    checks["tile_mutants_caught"] = all(caught.values())
+    emit({"phase": "tune", "part": "tile_mutants", "failed_cases": caught,
+          "build_wait_seconds": wait})
+    # the op API on the other tiles: the path the kernels line counts
+    tile_launches(zero=True)
+    drive = {}
+    for name, (b, hq, hkv, n, d, causal) in TUNE_SHAPES.items():
+        q, k, v = (_rand(gen, (b, h, n, d), torch.bfloat16, dev).requires_grad_(True)
+                   for h in (hq, hkv, hkv))
+        before = tile_launches()
+        o = flash_attention(q, k, v, causal=causal, block_sizes=other_tiles(d))
+        torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+        after = tile_launches()
+        drive[name] = {s: {t: n_ - before[s].get(t, 0) for t, n_ in c.items()}
+                       for s, c in after.items()}
+        del q, k, v, o
+    launches = tile_launches()
+    checks["op_api_launches_exact"] = launches == {
+        "attn_fwd": {"d64_kv64": 2, "d128_kv64": 1},
+        "attn_bwd_dkv": {"d64_kv32": 2, "d128_kv32": 1},
+        "attn_bwd_dq": {"d64_kv32": 2, "d128_kv32": 1}}
+    timings = {}
+    for name, (b, hq, hkv, n, d, causal) in TUNE_SHAPES.items():
+        blocks = other_tiles(d)
+        timings[name] = {"fwd": time_fwd(gen, dev, b, hq, hkv, n, d, {}, causal=causal,
+                                         blocks=blocks),
+                         "bwd": time_bwd(dev, gen, b, hq, hkv, n, d, causal=causal,
+                                         blocks=blocks)}
+    emit({"phase": "tune", "part": "op_api", "launches": launches, "by_shape": drive,
+          "timings": timings})
+    # (c) the tile tuner
+    tuned = {}
+    for name, (b, hq, hkv, n, d, causal) in TUNE_SHAPES.items():
+        q, k, v = (_rand(gen, (b, h, n, d), torch.bfloat16, dev) for h in (hq, hkv, hkv))
+        first, timed = tuner_run(tuned_block_sizes, q, k, v, causal=causal)
+        second, timed_again = tuner_run(tuned_block_sizes, q, k, v, causal=causal)
+        tuned[name] = {"winner": dataclasses_dict(first), "timed": timed,
+                       "timed_on_second_call": timed_again, "same_on_second_call":
+                       first == second}
+        del q, k, v
+    searches = search_times("fwd") | search_times("bwd")
+    checks["tile_tuner_caches"] = all(r["timed"] > 0 and r["timed_on_second_call"] == 0
+                                      and r["same_on_second_call"] for r in tuned.values())
+    emit({"phase": "tune", "part": "tile_tuner", "tuned": tuned, "candidate_ms": searches})
+    # (d) the paged tuner
+    paged = {}
+    for name, kind, b, hq, hkv, d, cap in PAGED_TUNE_CASES:
+        q, kp, vp, lens, table = _paged_inputs(gen, dev, torch.bfloat16, kind, b, hq, hkv, d,
+                                               SERVE_PAGE, SERVE_PPS, [2048] * b,
+                                               num_pages=b * SERVE_PPS + 8)
+        kw = dict(sm_scale=d ** -0.5, logit_softcap=cap)
+        ppb, timed = tuner_run(dm.tuned_pages_per_block, q, kp, vp, lens, table, **kw)
+        again, timed_again = tuner_run(dm.tuned_pages_per_block, q, kp, vp, lens, table, **kw)
+        planner = dm.decode_splits(b, hkv, SERVE_PPS, SERVE_PAGE, g.sm_count)
+        paged[name] = {"winner_pages_per_block": ppb,
+                       "winner_splits": dm.key_splits(SERVE_PPS, ppb),
+                       "decode_splits": planner, "timed": timed,
+                       "timed_on_second_call": timed_again, "same": ppb == again}
+        del q, kp, vp
+    checks["paged_tuner_caches"] = all(r["timed"] > 0 and r["timed_on_second_call"] == 0
+                                       and r["same"] for r in paged.values())
+    emit({"phase": "tune", "part": "paged_tuner", "tuned": paged,
+          "candidate_device_ms": search_times("decode")})
+    # (e) the serving engine with the tuned pages_per_block
+    serve = tuned_engine_check(dev, gen)
+    checks.update(serve.pop("checks"))
+    torch.cuda.empty_cache()
+    rec = {"phase": "tune", "part": "result", "checks": checks, "engine": serve,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"tune checks failed: {bad}")
+    return {"launches": launches, "timings": timings, "cases": cases, "tuned": tuned,
+            "paged": paged}
+
+
+def dataclasses_dict(obj):
+    import dataclasses
+
+    return dataclasses.asdict(obj)
+
+
+def tuned_engine_check(dev, gen):
+    """The serving-bench engine (4 slots, phase serve's 8 prompts, 32 new
+    tokens) with ``pages_per_block`` from ``tuned_pages_per_block`` at its
+    decode shape, eager (``generate``) and graphed (``generate(burst=8)``),
+    against the default engine eagerly: bf16 at full width may part only at
+    near-ties; a 2-layer fp32 copy must be equal.  Every decode call of the
+    tuned engine runs the tuned split count."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
+
+    slots = 4
+    lengths = [n + SERVE_NEW_TOKENS for n in SERVE_PROMPTS[:slots]]
+    q, kp, vp, lens, table = _paged_inputs(gen, dev, torch.bfloat16, "bf16", slots, 16, 8,
+                                           128, SERVE_PAGE, SERVE_PPS, lengths,
+                                           num_pages=slots * SERVE_PPS + 1)
+    ppb = dm.tuned_pages_per_block(q, kp, vp, lens, table, sm_scale=128 ** -0.5)
+    splits = dm.key_splits(SERVE_PPS, ppb)
+    del q, kp, vp
+    out, checks = {"pages_per_block": ppb, "splits": splits,
+                   "decode_splits": dm.decode_splits(slots, 8, SERVE_PPS, SERVE_PAGE,
+                                                     torch.cuda.get_device_properties(
+                                                         dev).multi_processor_count)}, {}
+    for dtype, layers in ((torch.bfloat16, None), (torch.float32, 2)):
+        model, cfg = serving_bench_model(dev, dtype=dtype, n_layers=layers)
+        prompts = serve_prompts(cfg)
+        kv = "bf16" if dtype == torch.bfloat16 else "fp32"
+
+        def engine(**kw):
+            return DecodeEngine(model, cfg, num_pages=slots * SERVE_PPS + 1,
+                                page_size=SERVE_PAGE, num_slots=slots,
+                                pages_per_seq=SERVE_PPS, kv_dtype=kv_kind(kv), device=dev,
+                                **kw)
+
+        want = engine().generate(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+        tuned = engine(pages_per_block=ppb)
+        dm.DECODE_SPLITS.clear()
+        eager = tuned.generate(prompts, max_new_tokens=SERVE_NEW_TOKENS)
+        eager_splits = dict(dm.DECODE_SPLITS)
+        dm.DECODE_SPLITS.clear()
+        graphed = tuned.generate(prompts, max_new_tokens=SERVE_NEW_TOKENS, burst=8)
+        graphed_splits = dict(dm.DECODE_SPLITS)
+        tag = "bf16" if layers is None else "fp32_2layer"
+        rec = {"eager_splits": eager_splits, "graphed_splits": graphed_splits,
+               "graphs": len(step_graphs(tuned))}
+        checks[f"{tag}_splits_as_tuned"] = (set(eager_splits) == {splits}
+                                            and set(graphed_splits) == {splits})
+        if layers is None:
+            rec["divergences_eager"] = divergences(model, cfg, dev, prompts, want, eager)
+            rec["divergences_graphed"] = divergences(model, cfg, dev, prompts, want, graphed)
+            checks["bf16_near_ties_only"] = (near_ties_only(rec["divergences_eager"])
+                                             and near_ties_only(rec["divergences_graphed"]))
+        else:
+            checks["fp32_tokens_equal"] = eager == want and graphed == want
+        rec["tokens_equal"] = eager == want and graphed == want
+        out[tag] = rec
+        del model, tuned
+        torch.cuda.empty_cache()
+    out["checks"] = checks
+    return out
+
+
+def phase_bench(dev):
+    """bench/suite.py run_bench at B8 H16 d128 bf16 causal, N in
+    BENCH_SEQ_LENS, fwd and bwd, for ours and sdpa (naive to 4096): each
+    row's TFLOP/s and percent of the bf16 peak (utils/profiling.py); the
+    ``ours`` rows finite.  Then bench_torch.py's one JSON line (a process of
+    its own)."""
+    import os
+
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.bench.suite import run_bench
+    from flash_attention_dlrs_tpu_torch.utils.profiling import device_peaks, percent_of_sol
+
+    t0 = time.perf_counter()
+    results = run_bench(seq_lens=BENCH_SEQ_LENS, providers=("ours", "sdpa", "naive"),
+                        modes=("fwd", "bwd"), out_dir=str(_cuda.BUILD_DIR / "bench_out"),
+                        device=dev, max_n={"naive": 4096})
+    rows = [{"provider": r.provider, "mode": r.mode, "N": r.n, "ms": r.ms,
+             "tflops": r.tflops, "percent_of_sol": percent_of_sol(r.tflops, dev)}
+            for r in results]
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, "bench_torch.py"], capture_output=True, text=True,
+                         timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode:
+        raise RuntimeError(f"bench_torch.py failed:\n{out.stderr[-4000:]}")
+    line = out.stdout.strip().splitlines()[-1]
+    print(line, flush=True)  # bench_torch.py's own line, as it prints it
+    headline = json.loads(line)
+    ours_finite = all(r["ms"] == r["ms"] for r in rows if r["provider"] == "ours")
+    rec = {"phase": "bench", "peaks": device_peaks(dev), "rows": rows,
+           "bench_torch": headline, "ours_finite": ours_finite,
+           "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not ours_finite or not headline["value"] > 0:
+        raise AssertionError("bench: a row of ours is NaN or the headline is not positive")
+    return rec
+
+
+def phase_golden(dev):
+    """scripts/run_golden_gate_torch.py's gate: 200 fp32 trials at B32 H32
+    N256 d128, sm_scale 1, non-causal (the reference harness), forward and
+    backward against the oracle at the reference ladder."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "run_golden_gate_torch.py")
+    spec = importlib.util.spec_from_file_location("run_golden_gate_torch", path)
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    t0 = time.perf_counter()
+    rec = gate.run_gate(200, small=False, causal=False, device=dev)
+    rec = {"phase": "golden", **rec, "seconds": time.perf_counter() - t0}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"golden gate: {rec['fwd_pass']} / {rec['bwd_pass']} of 200")
+    return rec
+
+
+def tile_entries(entry, tune):
+    """The kernels line's entries of the other tiles: launches from phase
+    tune's op-API run, times at the gate model's causal d64 shape and the
+    training-bench d128 shape (the BERT shape's in phase tune's record)."""
+    out = []
+    for d, shape in ((64, "gate_d64"), (128, "train_d128")):
+        t = tune["timings"][shape]
+        out.append(entry(f"attn_fwd[d{d},kv64]", FWD_SM90_SOURCE, FWD_REPLACES,
+                         tune["launches"]["attn_fwd"].get(f"d{d}_kv64", 0), t["fwd"],
+                         built_from=FWD_TILES_SOURCE))
+        for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+            out.append(entry(f"{name}[d{d},kv32]", BWD_SM90_SOURCE, BWD_REPLACES[name],
+                             tune["launches"][name].get(f"d{d}_kv32", 0), t["bwd"][name],
+                             built_from=BWD_TILES_SOURCE))
+    return out
+
+
 def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train, d256_modes,
                  later):
     """The kernels line: every kernel of every path, the paged kernels once
@@ -5946,10 +6498,11 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
     and serve_alibi_d256: with the packed phase's head-dim-256 block they
     give the head-dim-256 modes' launches (each mode's builds named in
     "built_from").  ``later`` holds the phases serve_rolling,
-    serve_streaming, native, eval_gate and encoder: the rings' and the
+    serve_streaming, native, eval_gate, encoder and tune: the rings' and the
     native phase's launches join attn_fwd's and the paged kernels' of their
-    KV kind, the two training runs' join attn_bwd_preprocess, and head dim
-    64 has entries of its own (:func:`later_entries`).  Every kernel of the
+    KV kind, the two training runs' join attn_bwd_preprocess, head dim
+    64 has entries of its own (:func:`later_entries`), and so have the
+    other tiles (:func:`tile_entries`).  Every kernel of the
     line must have been launched on its path."""
     serve, quant, chunked, dense_fwd, train, serve_alibi, train_alibi, packed = paths
     rolling, streaming, native = (later[k]["launches"] for k in (
@@ -6097,6 +6650,7 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
                                  timings[case][name], built_from=BWD_D256_SOURCE))
     kernels += d256_mode_entries(entry, packed, timings, dec_res, d256_modes)
     kernels += later_entries(entry, later["eval_gate"], later["encoder"])
+    kernels += tile_entries(entry, later["tune"])
     emit({"kernels": kernels})
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
@@ -6287,13 +6841,15 @@ def pair(parent_dir) -> None:
         emit({"phase": "pair", "run": i + 1, "tree": name, "ms": json.loads(line[5:])})
 
 
-LATER_PHASES = ("serve_rolling", "serve_streaming", "native", "eval_gate", "encoder")
+LATER_PHASES = ("serve_rolling", "serve_streaming", "native", "eval_gate", "encoder", "tune",
+                "bench", "golden")
 
 
 def later_phases(dev, only=None):
     """The phases that follow phase time, in order (``only``: those named):
-    the rings, the native library, the perplexity gate and the encoder;
-    their records by name."""
+    the rings, the native library, the perplexity gate, the encoder, the
+    tiles and the tuner, the bench suite and the golden gate; their records
+    by name."""
     import torch
 
     names = LATER_PHASES if only is None else [n for n in LATER_PHASES if n in only]

@@ -6,12 +6,15 @@ attention forward, its deterministic backward and the paged decode attention
 are hand-written CUDA kernels for sm_90a (``csrc/``), built with nvcc on
 first use and bound with ctypes; everything around them is PyTorch.  The op
 API takes packed sequences (:class:`SegmentIds`) and fp8 V, and :mod:`.nn`
-is the ``jax.nn.dot_product_attention`` adapter.  Every kernel has a plain
+is the ``jax.nn.dot_product_attention`` adapter.  :class:`BlockSizes`
+pins the kernels' tiles and :mod:`.tuning` times them (``tune=True``),
+against :mod:`.geometry`'s model of the card.  Every kernel has a plain
 PyTorch version that CPU tensors take.  Entry points run on the card unless
 the caller asks for the CPU.  See ROADMAP.md for what is not ported yet.
 """
 
 from . import nn
+from .geometry import HopperGeometry, current_geometry
 from .ops import (
     SegmentIds,
     alibi_slopes_for,
@@ -21,12 +24,17 @@ from .ops import (
     reference_attention,
     reference_attention_grads,
 )
+from .tuning import BlockSizes, default_block_sizes
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "BlockSizes",
+    "HopperGeometry",
     "SegmentIds",
     "alibi_slopes_for",
+    "current_geometry",
+    "default_block_sizes",
     "flash_attention",
     "flash_attention_backward",
     "flash_attention_forward",

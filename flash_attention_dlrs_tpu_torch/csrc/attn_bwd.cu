@@ -83,6 +83,12 @@ extern "C" int attn_bwd_dq(const void* q, const void* k, const void* v, const vo
                                          route, stream);
 }
 
+// Dynamic shared memory of a sweep of the build (dkv 1: dK/dV, 0: dQ) on a
+// route (0 fp32, 1 wgmma), in bytes.
+extern "C" int attn_bwd_shared_bytes(int dkv, int route) {
+  return bwd_shared_bytes<false, 128>(dkv, route);
+}
+
 extern "C" const char* attn_bwd_preprocess_error_string(int err) { return error_string(err); }
 extern "C" const char* attn_bwd_dkv_error_string(int err) { return error_string(err); }
 extern "C" const char* attn_bwd_dq_error_string(int err) { return error_string(err); }

@@ -474,10 +474,16 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
 // The routes of the sweeps' C entries (ops/bwd_kernel.py ROUTE_CODES).
 constexpr int kRouteF32 = 0, kRouteWgmma = 1;
 
-// The "wgmma" route, defined in attn_bwd_sm90.cuh.
-template <bool SEG, typename T, int D>
+// Rows streamed a stage by the "wgmma" route's builds of a head dim (q rows
+// in dK/dV, keys in dQ), each with every mode: 64, and 32 at d 256.
+// attn_bwd_tiles.cu builds 32-row stages at d 64 and 128 too, mode-free
+// (ops/bwd_kernel.py BWD_TILES).
+__host__ __device__ constexpr int stream_tile(int D) { return D == 256 ? 32 : 64; }
+
+// The "wgmma" route streaming ST rows a stage, defined in attn_bwd_sm90.cuh.
+template <bool SEG, typename T, int D, int ST = stream_tile(D)>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv);
-template <bool SEG, typename T, int D>
+template <bool SEG, typename T, int D, int ST = stream_tile(D)>
 int launch_dq_wgmma(const Args& a, void* dq);
 
 template <bool SEG, int D>
@@ -529,8 +535,11 @@ bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
 // another route.  Each returns cudaGetLastError() after its launch (0 on
 // success).
 
+// ST: the wgmma route's rows streamed a stage; a size other than the head
+// dim's own (attn_bwd_tiles.cu) takes only the wgmma route and no mode.
+
 // dK, dV [B, Hkv, Nkv, d] from q, k, v, dout, lse and delta.
-template <bool SEG, int DIM>
+template <bool SEG, int DIM, int ST = stream_tile(DIM)>
 int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
@@ -541,15 +550,18 @@ int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* 
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && dtype == 0) return launch_dkv_f32<SEG, DIM>(a, dk, dv);
+  if constexpr (ST == stream_tile(DIM)) {
+    if (route == kRouteF32 && dtype == 0) return launch_dkv_f32<SEG, DIM>(a, dk, dv);
+  }
   if (route == kRouteWgmma && dtype == 1)
-    return launch_dkv_wgmma<SEG, __nv_bfloat16, DIM>(a, dk, dv);
-  if (route == kRouteWgmma && dtype == 2) return launch_dkv_wgmma<SEG, __half, DIM>(a, dk, dv);
+    return launch_dkv_wgmma<SEG, __nv_bfloat16, DIM, ST>(a, dk, dv);
+  if (route == kRouteWgmma && dtype == 2)
+    return launch_dkv_wgmma<SEG, __half, DIM, ST>(a, dk, dv);
   return int(cudaErrorInvalidValue);
 }
 
 // dQ [B, Hq, Nq, d] from q, k, v, dout, lse and delta.
-template <bool SEG, int DIM>
+template <bool SEG, int DIM, int ST = stream_tile(DIM)>
 int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const int* q_seg,
                       const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq,
@@ -560,9 +572,12 @@ int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* d
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && dtype == 0) return launch_dq_f32<SEG, DIM>(a, dq);
-  if (route == kRouteWgmma && dtype == 1) return launch_dq_wgmma<SEG, __nv_bfloat16, DIM>(a, dq);
-  if (route == kRouteWgmma && dtype == 2) return launch_dq_wgmma<SEG, __half, DIM>(a, dq);
+  if constexpr (ST == stream_tile(DIM)) {
+    if (route == kRouteF32 && dtype == 0) return launch_dq_f32<SEG, DIM>(a, dq);
+  }
+  if (route == kRouteWgmma && dtype == 1)
+    return launch_dq_wgmma<SEG, __nv_bfloat16, DIM, ST>(a, dq);
+  if (route == kRouteWgmma && dtype == 2) return launch_dq_wgmma<SEG, __half, DIM, ST>(a, dq);
   return int(cudaErrorInvalidValue);
 }
 

@@ -27,5 +27,11 @@ extern "C" int attn_bwd_dq_d64_seg(const void* q, const void* k, const void* v,
       seed, route, stream);
 }
 
+// Dynamic shared memory of a sweep of the build (dkv 1: dK/dV, 0: dQ) on a
+// route (0 fp32, 1 wgmma), in bytes.
+extern "C" int attn_bwd_d64_seg_shared_bytes(int dkv, int route) {
+  return bwd_shared_bytes<true, 64>(dkv, route);
+}
+
 extern "C" const char* attn_bwd_dkv_d64_seg_error_string(int err) { return error_string(err); }
 extern "C" const char* attn_bwd_dq_d64_seg_error_string(int err) { return error_string(err); }

@@ -28,7 +28,9 @@
 //    tiles (K and V in dK/dV; Q and dO in dQ), 64 for each consumer
 //    warpgroup, loaded once by TMA, and streams BS = 64-row tiles of the
 //    other two (Q and dO; K and V) through a ring of 4 stages with a full
-//    and an empty barrier each.  The third warpgroup is the producer: one
+//    and an empty barrier each (BS is a template parameter: attn_bwd_tiles.cu
+//    also builds 32-row stages at d 64 and 128, mode-free, which the tuner,
+//    tuning.py, may pick).  The third warpgroup is the producer: one
 //    thread issues the copies; in dK/dV its first warp also stages each
 //    step's lse (in base-2 units), D and q segment ids beside Q and dO, and
 //    in dQ each K tile's segment ids.  Rows past Nq read Q = dO = 0 (TMA's
@@ -106,11 +108,12 @@ constexpr int WG_ROWS = 64;  // resident rows of one consumer warpgroup
 // stage's row data (dK/dV: lse, D and with segment ids the q ids; dQ: with
 // segment ids the key ids), then the barriers (resident full; per stage
 // full and empty).
-template <int D, bool SEG, bool DKV>
+template <int D, bool SEG, bool DKV, int ST = stream_tile(D)>
 struct BwdLayout {
   // streamed rows per stage (q rows in dK/dV, keys in dQ) and stages: 64 x 4,
-  // and 32 x 3 at d 256
-  static constexpr int BS = D == 256 ? 32 : 64;
+  // and 32 x 3 at d 256; attn_bwd_tiles.cu's 32-row stages at d 64 and 128
+  // keep 4
+  static constexpr int BS = ST;
   static constexpr int STAGES = D == 256 ? 3 : 4;
   static constexpr uint32_t RES_BYTES = BR * D * 2;   // one resident tile
   static constexpr uint32_t STEP_BYTES = BS * D * 2;  // one streamed tile
@@ -182,7 +185,7 @@ __device__ __forceinline__ bool tile_hidden(int m0, int n0, int Nq, int Nkv, int
   return window > 0 && m0 + q_off - (min(n0 + N, Nkv) - 1) >= window;
 }
 
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
+template <typename T, int D, bool ALIBI, bool DROP, bool SEG, int ST>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -192,7 +195,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                           T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Nq,
                           int Nkv, float sm_scale, int causal, int window, float softcap,
                           Mods md) {
-  using L = BwdLayout<D, SEG, true>;
+  using L = BwdLayout<D, SEG, true, ST>;
   constexpr int STAGES = L::STAGES;
   constexpr int BS = L::BS;
   constexpr int CHUNKS = D / CHUNK;
@@ -458,7 +461,7 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
+template <typename T, int D, bool ALIBI, bool DROP, bool SEG, int ST>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -467,7 +470,7 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          T* __restrict__ dq, int Hq, int Hkv, int Nq, int Nkv, float sm_scale,
                          int causal, int window, float softcap, Mods md) {
-  using L = BwdLayout<D, SEG, false>;
+  using L = BwdLayout<D, SEG, false, ST>;
   constexpr int STAGES = L::STAGES;
   constexpr int BS = L::BS;
   constexpr int CHUNKS = D / CHUNK;
@@ -682,16 +685,32 @@ bool encode_sweep_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* tm_q
          sm90::encode_map<T>(tm_v, a.v, D, a.Nkv, a.B * a.Hkv, kv_rows);
 }
 
-// Declared in attn_bwd.cuh: the "wgmma" route of the dK/dV entry.
-template <bool SEG, typename T, int D>
+// Calls fn(alibi, drop) with the call's modes as std::integral_constants:
+// every mode on the head dim's own streamed tile (stream_tile), none on
+// another (attn_bwd_tiles.cu builds those mode-free, and refuses a mode).
+template <bool SEG, int D, int ST, typename Fn>
+int dispatch_sweep_mods(const Mods& md, Fn&& fn) {
+  if constexpr (ST != stream_tile(D)) {
+    static_assert(!SEG, "another streamed tile is built without segment ids");
+    if (md.q_seg != nullptr || md.slopes != nullptr || md.rate > 0.f)
+      return int(cudaErrorInvalidValue);
+    return fn(std::false_type{}, std::false_type{});
+  } else {
+    return dispatch_mods<SEG>(md, [&](auto alibi, auto drop, auto) { return fn(alibi, drop); });
+  }
+}
+
+// Declared in attn_bwd.cuh: the "wgmma" route of the dK/dV entry, streaming
+// ST q rows a stage.
+template <bool SEG, typename T, int D, int ST>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  using L = sm90::BwdLayout<D, SEG, true>;
+  using L = sm90::BwdLayout<D, SEG, true, ST>;
   if (!encode_sweep_maps<T, D>(a, L::BS, sm90::BR, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+  return dispatch_sweep_mods<SEG, D, ST>(a.md, [&](auto alibi, auto drop) {
     return launch(sm90::attn_bwd_dkv_wgmma_kernel<T, D, decltype(alibi)::value,
-                                                  decltype(drop)::value, SEG>,
+                                                  decltype(drop)::value, SEG, ST>,
                   L::BYTES,
                   dim3((a.Nkv + sm90::BR - 1) / sm90::BR, a.B * a.Hkv), sm90::THREADS,
                   a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dk),
@@ -700,26 +719,28 @@ int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   });
 }
 
-// Dynamic shared memory of a sweep of the build at head dim D (dkv 1: the
-// dK/dV sweep, 0: dQ) on a route (kRouteF32 or kRouteWgmma), in bytes.
-template <bool SEG, int D>
+// Dynamic shared memory of a sweep of the build at head dim D streaming ST
+// rows a stage (dkv 1: the dK/dV sweep, 0: dQ) on a route (kRouteF32 or
+// kRouteWgmma), in bytes.  The fp32 route has one step of its own.
+template <bool SEG, int D, int ST = stream_tile(D)>
 int bwd_shared_bytes(int dkv, int route) {
   if (route == kRouteF32)
     return dkv ? int(dkv_f32_smem_bytes<D, SEG>()) : int(dq_f32_smem_bytes<D, SEG>());
-  return dkv ? int(sm90::BwdLayout<D, SEG, true>::BYTES)
-             : int(sm90::BwdLayout<D, SEG, false>::BYTES);
+  return dkv ? int(sm90::BwdLayout<D, SEG, true, ST>::BYTES)
+             : int(sm90::BwdLayout<D, SEG, false, ST>::BYTES);
 }
 
-// Declared in attn_bwd.cuh: the "wgmma" route of the dQ entry.
-template <bool SEG, typename T, int D>
+// Declared in attn_bwd.cuh: the "wgmma" route of the dQ entry, streaming ST
+// keys a stage.
+template <bool SEG, typename T, int D, int ST>
 int launch_dq_wgmma(const Args& a, void* dq) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  using L = sm90::BwdLayout<D, SEG, false>;
+  using L = sm90::BwdLayout<D, SEG, false, ST>;
   if (!encode_sweep_maps<T, D>(a, sm90::BR, L::BS, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+  return dispatch_sweep_mods<SEG, D, ST>(a.md, [&](auto alibi, auto drop) {
     return launch(sm90::attn_bwd_dq_wgmma_kernel<T, D, decltype(alibi)::value,
-                                                 decltype(drop)::value, SEG>,
+                                                 decltype(drop)::value, SEG, ST>,
                   L::BYTES,
                   dim3((a.Nq + sm90::BR - 1) / sm90::BR, a.B * a.Hq), sm90::THREADS,
                   a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dq),

@@ -288,8 +288,13 @@ struct Args {
 // The routes of the C entry (ops/fwd_kernel.py ROUTE_CODES).
 constexpr int kRouteF32 = 0, kRouteWgmma = 1;
 
-// The "wgmma" route, defined in attn_fwd_sm90.cuh.
-template <bool SEG, typename T, int D>
+// Keys per K / V tile of the "wgmma" route's builds of a head dim, each with
+// every mode: 128, and 64 at d 256.  attn_fwd_tiles.cu builds 64-key tiles at
+// d 64 and 128 too, mode-free (ops/fwd_kernel.py FWD_TILES).
+__host__ __device__ constexpr int key_tile(int D) { return D == 256 ? 64 : 128; }
+
+// The "wgmma" route on tiles of KT keys, defined in attn_fwd_sm90.cuh.
+template <bool SEG, typename T, int D, int KT = key_tile(D)>
 int launch_wgmma(const Args& a);
 
 // Calls fn(v8) with std::true_type for fp8 V, std::false_type otherwise.
@@ -332,8 +337,10 @@ int launch_f32(const Args& a) {
 // seed.  route: kRouteF32 (dtype 0) or kRouteWgmma (dtype 1 or 2); a
 // route that cannot carry the call returns cudaErrorInvalidValue, never
 // another route.  Returns cudaGetLastError() after the launch (0 on success);
-// launches nothing for an empty problem.
-template <bool SEG, int DIM>
+// launches nothing for an empty problem.  KT: the wgmma route's keys a tile;
+// a tile other than the head dim's own (attn_fwd_tiles.cu) takes only the
+// wgmma route and no mode.
+template <bool SEG, int DIM, int KT = key_tile(DIM)>
 int attn_fwd_entry(const void* q, const void* k, const void* v, void* o, float* lse,
                    const int* q_seg, const int* kv_seg, int dtype, int v_kind, int B,
                    int Hq, int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal,
@@ -346,9 +353,11 @@ int attn_fwd_entry(const void* q, const void* k, const void* v, void* o, float* 
   const Args a{q, k, v, v_kind, o, lse, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && dtype == 0) return launch_f32<SEG, DIM>(a);
-  if (route == kRouteWgmma && dtype == 1) return launch_wgmma<SEG, __nv_bfloat16, DIM>(a);
-  if (route == kRouteWgmma && dtype == 2) return launch_wgmma<SEG, __half, DIM>(a);
+  if constexpr (KT == key_tile(DIM)) {
+    if (route == kRouteF32 && dtype == 0) return launch_f32<SEG, DIM>(a);
+  }
+  if (route == kRouteWgmma && dtype == 1) return launch_wgmma<SEG, __nv_bfloat16, DIM, KT>(a);
+  if (route == kRouteWgmma && dtype == 2) return launch_wgmma<SEG, __half, DIM, KT>(a);
   return int(cudaErrorInvalidValue);
 }
 

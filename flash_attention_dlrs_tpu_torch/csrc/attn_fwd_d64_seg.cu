@@ -17,6 +17,12 @@ extern "C" int attn_fwd_d64_seg(const void* q, const void* k, const void* v, voi
       route, stream);
 }
 
+// Dynamic shared memory of the build's kernel on a route (0 fp32, 1 wgmma)
+// with (v8 1) or without fp8 V, in bytes.
+extern "C" int attn_fwd_d64_seg_shared_bytes(int route, int v8) {
+  return fwd_shared_bytes<true, 64>(route, v8);
+}
+
 extern "C" const char* attn_fwd_d64_seg_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -32,7 +32,10 @@
 //    128 KB of K/V; 4 at d 64; 2 at d 256: 64 KB of Q + 128 KB of K/V),
 //    each stage with a full and an empty barrier for K
 //    and for V (so Q K^T starts before V lands, and K is refilled before
-//    P V is done).  Loads of later tiles overlap the products.
+//    P V is done).  Loads of later tiles overlap the products.  The key
+//    tile KT is a template parameter: attn_fwd_tiles.cu also builds 64-key
+//    tiles at d 64 and 128 (4 stages each; mode-free), which the tuner
+//    (tuning.py) may pick.
 //  * The tensor maps are 3-D (d, N, B*H): a head's ragged tail reads TMA's
 //    zero fill, never the next head's rows.  Maps and wgmma descriptors
 //    use the 128-byte swizzle: a [rows][64] column chunk of 128-byte rows,
@@ -88,18 +91,35 @@ namespace sm90 {
 
 constexpr int BM = 128;       // q rows per CTA: two consumer warpgroups of 64
 
-// Keys per K / V tile: 128, and 64 at d 256, where O takes half a consumer
-// thread's registers and Q 64 KB of shared memory.
-__host__ __device__ constexpr int key_tile(int D) { return D == 256 ? 64 : 128; }
+// Shared memory of a CTA's layout, in bytes: Q, STAGES stages of K and of V
+// (KT keys each), with fp8 V the fp8 tiles as loaded, with segment ids each K
+// tile's ids, the barriers, and 1024 bytes of alignment.
+__host__ __device__ constexpr size_t layout_bytes(int D, int KT, int STAGES, bool SEG,
+                                                  bool V8) {
+  return size_t(BM) * D * 2 + 2 * size_t(STAGES) * KT * D * 2 +
+         (V8 ? size_t(STAGES) * KT * D : 0) + (SEG ? size_t(STAGES) * KT * 4 : 0) +
+         8 * (1 + 5 * STAGES) + 1024;
+}
+
+// Stages of a key tile: the head dim's own tile (key_tile, attn_fwd.cuh) keeps
+// its 4 at d 64 and 2 above; another tile (attn_fwd_tiles.cu) takes as many as
+// fit in the 232,448 bytes a CTA may opt into, at most 4 and at least 2 (4 for
+// 64 keys at d 64 and d 128: 165,032 bytes at d 128).
+__host__ __device__ constexpr int fwd_stages(int D, int KT, bool SEG, bool V8) {
+  if (KT == key_tile(D)) return D == 64 ? 4 : 2;
+  int stages = 4;
+  while (stages > 2 && layout_bytes(D, KT, stages, SEG, V8) > 232448) --stages;
+  return stages;
+}
 
 // Shared memory of one CTA, in bytes from a 1024-byte aligned base: Q, the
 // K stages, the V stages, with fp8 V (V8) the fp8 tiles as loaded, with
 // segment ids (SEG) each K tile's ids, then the barriers (Q full; per
-// stage K full, V full, K empty, V empty and fp8 V full).
-template <int D, bool SEG, bool V8>
+// stage K full, V full, K empty, V empty and fp8 V full).  KT keys a tile.
+template <int D, bool SEG, bool V8, int KT = key_tile(D)>
 struct Layout {
-  static constexpr int BN = key_tile(D);
-  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int BN = KT;
+  static constexpr int STAGES = fwd_stages(D, KT, SEG, V8);
   static constexpr uint32_t Q_BYTES = BM * D * 2;
   static constexpr uint32_t KV_BYTES = BN * D * 2;  // one K or V tile
   static constexpr uint32_t V8_BYTES = BN * D;      // one fp8 V tile
@@ -109,10 +129,11 @@ struct Layout {
   static constexpr uint32_t IDS_OFF = V8_OFF + (V8 ? STAGES * V8_BYTES : 0);
   static constexpr uint32_t BAR_OFF = IDS_OFF + (SEG ? STAGES * BN * 4 : 0);
   static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 5 * STAGES) + 1024;  // + alignment
+  static_assert(BYTES == layout_bytes(D, KT, STAGES, SEG, V8), "the layout's byte count");
   static_assert(BYTES <= 232448, "a CTA has 227 KB of shared memory");
 };
 
-template <typename T, int D, bool ALIBI, bool DROP, bool SEG, bool V8>
+template <typename T, int D, bool ALIBI, bool DROP, bool SEG, bool V8, int KT>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -120,7 +141,7 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       T* __restrict__ o, float* __restrict__ lse, int Hq, int Hkv, int Nq,
                       int Nkv, float sm_scale, int causal, int window, float softcap,
                       Mods md) {
-  using L = Layout<D, SEG, V8>;
+  using L = Layout<D, SEG, V8, KT>;
   constexpr int BN = L::BN;
   constexpr int STAGES = L::STAGES;
   constexpr int CHUNKS = D / CHUNK;  // 128-byte column chunks of a row
@@ -491,25 +512,30 @@ attn_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 // Launch
 // ---------------------------------------------------------------------------
 
-// Declared in attn_fwd.cuh: the "wgmma" route of its C entry.
-template <bool SEG, typename T, int D>
+// Declared in attn_fwd.cuh: the "wgmma" route of its C entry, on tiles of KT
+// keys.  The head dim's own tile (key_tile) is built with every mode; another
+// tile (attn_fwd_tiles.cu) only mode-free, and a mode there is refused.
+template <bool SEG, typename T, int D, int KT>
 int launch_wgmma(const Args& a) {
   CUtensorMap tm_q, tm_k, tm_v;
   // With no keys the K / V maps cover q instead: no tile is ever loaded.
   const bool keys = a.Nkv > 0;
   const bool fp8_v = keys && a.v_kind != kVSame;
   const int kv_heads = keys ? a.B * a.Hkv : a.B * a.Hq;
-  constexpr int BN = sm90::key_tile(D);
+  constexpr bool OWN_TILE = KT == key_tile(D);
+  static_assert(OWN_TILE || !SEG, "another key tile is built without segment ids");
+  if (!OWN_TILE && (fp8_v || a.md.slopes != nullptr || a.md.rate > 0.f))
+    return int(cudaErrorInvalidValue);
   if (!sm90::encode_map<T>(&tm_q, a.q, D, a.Nq, a.B * a.Hq, sm90::BM) ||
-      !sm90::encode_map<T>(&tm_k, keys ? a.k : a.q, D, keys ? a.Nkv : a.Nq, kv_heads, BN) ||
-      !sm90::encode_map<T>(&tm_v, keys ? a.v : a.q, D, keys ? a.Nkv : a.Nq, kv_heads, BN,
+      !sm90::encode_map<T>(&tm_k, keys ? a.k : a.q, D, keys ? a.Nkv : a.Nq, kv_heads, KT) ||
+      !sm90::encode_map<T>(&tm_v, keys ? a.v : a.q, D, keys ? a.Nkv : a.Nq, kv_heads, KT,
                            fp8_v))
     return int(cudaErrorInvalidValue);
   auto run = [&](auto alibi, auto drop, auto v8) {
     auto kernel = sm90::attn_fwd_wgmma_kernel<T, D, decltype(alibi)::value,
                                               decltype(drop)::value, SEG,
-                                              decltype(v8)::value>;
-    constexpr size_t smem = sm90::Layout<D, SEG, decltype(v8)::value>::BYTES;
+                                              decltype(v8)::value, KT>;
+    constexpr size_t smem = sm90::Layout<D, SEG, decltype(v8)::value, KT>::BYTES;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
@@ -519,17 +545,23 @@ int launch_wgmma(const Args& a) {
         a.Nkv, a.sm_scale, a.causal, a.window, a.softcap, a.md);
     return int(cudaGetLastError());
   };
-  return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
-    return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
-  });
+  if constexpr (!OWN_TILE) {
+    return run(std::false_type{}, std::false_type{}, std::false_type{});
+  } else {
+    return dispatch_mods<SEG>(a.md, [&](auto alibi, auto drop, auto) {
+      return dispatch_v8(a.v_kind, [&](auto v8) { return run(alibi, drop, v8); });
+    });
+  }
 }
 
-// Dynamic shared memory of a kernel of the build at head dim D (route
-// kRouteF32 or kRouteWgmma; v8: fp8 V), in bytes.
-template <bool SEG, int D>
+// Dynamic shared memory of a kernel of the build at head dim D on tiles of
+// KT keys (route kRouteF32 or kRouteWgmma; v8: fp8 V), in bytes.  The fp32
+// route has one tile of its own.
+template <bool SEG, int D, int KT = key_tile(D)>
 int fwd_shared_bytes(int route, int v8) {
   if (route == kRouteF32) return int(f32_smem_bytes<D, SEG>());
-  return v8 ? int(sm90::Layout<D, SEG, true>::BYTES) : int(sm90::Layout<D, SEG, false>::BYTES);
+  return v8 ? int(sm90::Layout<D, SEG, true, KT>::BYTES)
+            : int(sm90::Layout<D, SEG, false, KT>::BYTES);
 }
 
 }  // namespace

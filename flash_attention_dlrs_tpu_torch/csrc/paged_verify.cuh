@@ -1,7 +1,8 @@
 // Multi-token paged attention (speculative verify, chunked prefill) for
 // Hopper, sm_90a: the kernels, their launch and the C entry, included by
-// paged_verify_d64.cu, paged_verify.cu (head dim 128) and
-// paged_verify_d256.cu, which compile side by side.
+// paged_verify_d64.cu, paged_verify.cu (head dim 128), paged_verify_d256.cu
+// (fp32 and bf16 q) and paged_verify_d256_f16.cu (fp16 q), which compile side
+// by side.
 //
 // Replaces the multi-token mode of the TPU kernel
 //   flash_attention_dlrs_tpu/ops/decode.py:44  _decode_kernel  (num_tokens >
@@ -882,8 +883,11 @@ int launch_f32(const Args& a) {
 // route.  Pools and q must be
 // 16-byte aligned.  Returns cudaGetLastError() after the launches (0 on
 // success); launches nothing for an empty problem.  D must be DIM, the
-// build's head dim.
-template <int DIM>
+// build's head dim.  Q_TYPES: the q dtypes the build carries, a mask of
+// 1 << q_dtype (every one but at d 256, whose fp16-q instances compile in
+// paged_verify_d256_f16.cu beside the others); another returns
+// cudaErrorInvalidValue.
+template <int DIM, int Q_TYPES = 7>
 int paged_verify_entry(const void* q, int q_dtype, const void* k_pages,
                        const void* v_pages, int kv_kind, const float* k_scales,
                        const float* v_scales, const int* lengths, const int* page_table,
@@ -903,19 +907,27 @@ int paged_verify_entry(const void* q, int q_dtype, const void* k_pages,
   const Args a{q, q_dtype, kv_kind, k_pages, v_pages, k_scales, v_scales, lengths,
                page_table, o, part_o, part_lse, B, Hq, Hkv, T, P, page_size, pages_per_seq,
                splits, per, scale_q, softcap, slopes, static_cast<cudaStream_t>(stream)};
-  if (route == kRouteF32 && q_dtype == 0 && splits == 1) return launch_f32<DIM>(a);
+  if (q_dtype < 0 || q_dtype > 2 || !(Q_TYPES >> q_dtype & 1))
+    return int(cudaErrorInvalidValue);
+  if constexpr (Q_TYPES & 1) {
+    if (route == kRouteF32 && q_dtype == 0 && splits == 1) return launch_f32<DIM>(a);
+  }
   if (route == kRouteWgmma && splits > kMaxSplits) return int(cudaErrorInvalidValue);
-  if (route == kRouteWgmma && q_dtype == 1) return launch_wgmma_kind<__nv_bfloat16, DIM>(a);
-  if (route == kRouteWgmma && q_dtype == 2) return launch_wgmma_kind<__half, DIM>(a);
+  if constexpr (Q_TYPES & 2) {
+    if (route == kRouteWgmma && q_dtype == 1) return launch_wgmma_kind<__nv_bfloat16, DIM>(a);
+  }
+  if constexpr (Q_TYPES & 4) {
+    if (route == kRouteWgmma && q_dtype == 2) return launch_wgmma_kind<__half, DIM>(a);
+  }
   return int(cudaErrorInvalidValue);
 }
 
 // Dynamic shared memory of the route's kernel at head dim D, in bytes; 0
 // for a pair no kernel of the build takes.
-template <int DIM>
+template <int DIM, int Q_TYPES = 7>
 int paged_verify_shared_bytes_entry(int route, int D) {
   if (D != DIM) return 0;
-  if (route == kRouteF32) return int(f32_smem_bytes<DIM>());
+  if (route == kRouteF32) return Q_TYPES & 1 ? int(f32_smem_bytes<DIM>()) : 0;
   if (route == kRouteWgmma) return int(sm90::VerifyLayout<DIM>::BYTES);
   return 0;
 }

@@ -1,8 +1,10 @@
 // Multi-token paged attention (speculative verify, chunked prefill) at pool
-// head dim 256 (Gemma's heads): the kernels of paged_verify.cuh, which says what they replace and
-// how they are built, at d 256 for every pool kind, the softcap and ALiBi as
-// flags.  One of three verify sources (a head dim each), which compile side
-// by side.
+// head dim 256 (Gemma's heads) from fp32 and bf16 q: the kernels of
+// paged_verify.cuh, which says what they replace and how they are built, at
+// d 256 for every pool kind, the softcap and ALiBi as flags.  One of four
+// verify sources (a head dim each; at d 256 fp16 q apart, in
+// paged_verify_d256_f16.cu, the slowest source split in two), which compile
+// side by side.
 
 #include "paged_verify.cuh"
 
@@ -12,13 +14,13 @@ extern "C" int paged_verify_d256(const void* q, int q_dtype, const void* k_pages
     int B, int Hq, int Hkv, int T, int P, int page_size, int pages_per_seq, int D,
     int splits, float scale_q, float softcap, const float* slopes, int route,
     void* stream) {
-  return paged_verify_entry<256>(q, q_dtype, k_pages, v_pages, kv_kind, k_scales,
+  return paged_verify_entry<256, 3>(q, q_dtype, k_pages, v_pages, kv_kind, k_scales,
       v_scales, lengths, page_table, o, part_o, part_lse, B, Hq, Hkv, T, P, page_size,
       pages_per_seq, D, splits, scale_q, softcap, slopes, route, stream);
 }
 
 extern "C" int paged_verify_d256_shared_bytes(int route, int D) {
-  return paged_verify_shared_bytes_entry<256>(route, D);
+  return paged_verify_shared_bytes_entry<256, 3>(route, D);
 }
 
 extern "C" const char* paged_verify_d256_error_string(int err) {

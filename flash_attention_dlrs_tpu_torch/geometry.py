@@ -1,0 +1,148 @@
+"""Hopper geometry model and tile pruning, the port of ``flash_attention_dlrs_tpu/geometry.py``.
+
+The reference's autotuner pruned its Triton configurations against a
+hand-written GA102 SRAM model (``SRAM = 99 * 1024`` bytes and a safety
+factor, reference ``src/autotune_configs.py:10,18,169-245``); the JAX
+package models a TPU core's VMEM instead.  Here the budget is the running
+card's own (``torch.cuda.get_device_properties``: on the H100 232,448 bytes
+of shared memory a CTA may opt into, 132 SMs), and the footprint is the
+kernels' own layout, byte for byte: :func:`attention_fwd_smem_bytes` is
+``csrc/attn_fwd_sm90.cuh`` ``Layout::BYTES`` and
+:func:`attention_bwd_smem_bytes` is ``csrc/attn_bwd_sm90.cuh``
+``BwdLayout::BYTES`` (each build reports its own through a
+``*_shared_bytes`` entry, which ``chip_smoke.py`` holds these against).
+There is no safety margin: the layouts are exact, and a layout past the
+budget does not launch.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import torch
+
+from ._cuda import resolve_device
+
+# q rows of a forward CTA (two consumer warpgroups of 64) and resident rows
+# of a backward sweep's CTA (csrc/attn_fwd_sm90.cuh BM, attn_bwd_sm90.cuh BR)
+CTA_ROWS = 128
+
+# The H100 SXM5 (80 GB HBM3) as torch.cuda.get_device_properties reports it;
+# current_geometry gives it for the CPU, where no card can be asked.
+H100_SXM = dict(
+    device_name="NVIDIA H100 80GB HBM3",
+    sm_count=132,
+    smem_per_block_optin=232448,
+    regs_per_sm=65536,
+    l2_bytes=50 * 1024 * 1024,
+    capability=(9, 0),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperGeometry:
+    """What the tuner needs to know of one card."""
+
+    device_name: str
+    sm_count: int
+    smem_per_block_optin: int  # shared memory one CTA may opt into, bytes
+    regs_per_sm: int
+    l2_bytes: int
+    capability: tuple  # (major, minor)
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry_of(index: int) -> HopperGeometry:
+    props = torch.cuda.get_device_properties(index)
+    return HopperGeometry(
+        device_name=props.name,
+        sm_count=props.multi_processor_count,
+        smem_per_block_optin=props.shared_memory_per_block_optin,
+        regs_per_sm=props.regs_per_multiprocessor,
+        l2_bytes=props.L2_cache_size,
+        capability=(props.major, props.minor),
+    )
+
+
+def current_geometry(device=None) -> HopperGeometry:
+    """The geometry of ``device`` (default ``"cuda"``: the current card,
+    and none raises); the written H100 table only when asked for the CPU."""
+    device = resolve_device("cuda" if device is None else device)
+    if device.type == "cpu":
+        return HopperGeometry(**H100_SXM)
+    return _geometry_of(torch.cuda.current_device() if device.index is None else device.index)
+
+
+def supports_fast_fp8(geom: Optional[HopperGeometry] = None) -> bool:
+    """Whether the card converts fp8 natively: compute capability 8.9 (Ada)
+    and later; True on the CPU (the plain versions, nothing to guard), as
+    the JAX package answers True off the TPU."""
+    geom = geom or current_geometry()
+    return tuple(geom.capability) >= (8, 9)
+
+
+def attention_fwd_smem_bytes(block_kv: int, head_dim: int, stages: int,
+                             segments: bool = False, fp8_v: bool = False) -> int:
+    """Shared memory of one forward CTA (``csrc/attn_fwd_sm90.cuh``
+    ``layout_bytes``): Q (128 rows), ``stages`` K and V tiles of
+    ``block_kv`` keys in 16-bit, with fp8 V the fp8 tiles as loaded, with
+    segment ids each K tile's int32 ids, the barriers (1 + 5 per stage, 8
+    bytes each) and 1024 bytes of alignment."""
+    return (CTA_ROWS * head_dim * 2 + 2 * stages * block_kv * head_dim * 2
+            + (stages * block_kv * head_dim if fp8_v else 0)
+            + (stages * block_kv * 4 if segments else 0)
+            + 8 * (1 + 5 * stages) + 1024)
+
+
+def fwd_stages(block_kv: int, head_dim: int, segments: bool = False, fp8_v: bool = False,
+               geom: Optional[HopperGeometry] = None) -> int:
+    """Stages of the forward's ring on tiles of ``block_kv`` keys
+    (``csrc/attn_fwd_sm90.cuh`` ``fwd_stages``): the head dim's own tile
+    keeps 4 at d 64 and 2 above; another takes as many as fit, at most 4
+    and at least 2, so that loads overlap the products (0 if two do not
+    fit)."""
+    if block_kv == default_block_kv(head_dim):
+        return 4 if head_dim == 64 else 2
+    budget = (geom or current_geometry("cpu")).smem_per_block_optin
+    for stages in (4, 3, 2):
+        if attention_fwd_smem_bytes(block_kv, head_dim, stages, segments, fp8_v) <= budget:
+            return stages
+    return 0
+
+
+def bwd_stages(head_dim: int) -> int:
+    """Stages of a backward sweep's ring (``csrc/attn_bwd_sm90.cuh``
+    ``BwdLayout::STAGES``): 3 at d 256, 4 below, whatever the tile."""
+    return 3 if head_dim == 256 else 4
+
+
+def attention_bwd_smem_bytes(block_kv_bwd: int, head_dim: int, segments: bool = False,
+                             dkv: bool = True) -> int:
+    """Shared memory of one backward sweep's CTA (``csrc/attn_bwd_sm90.cuh``
+    ``BwdLayout::BYTES``): the two resident tiles (128 rows), the stages of
+    the two streamed tiles of ``block_kv_bwd`` rows, each stage's row
+    arrays (dK/dV: lse and D; with segment ids the streamed rows' ids), the
+    barriers (1 + 2 per stage) and 1024 bytes of alignment."""
+    stages = bwd_stages(head_dim)
+    row_arrays = (2 if dkv else 0) + (1 if segments else 0)
+    return (2 * CTA_ROWS * head_dim * 2 + 2 * stages * block_kv_bwd * head_dim * 2
+            + stages * row_arrays * block_kv_bwd * 4 + 8 * (1 + 2 * stages) + 1024)
+
+
+def fits_smem(nbytes: int, geom: Optional[HopperGeometry] = None) -> bool:
+    """Whether a CTA of ``nbytes`` of shared memory can launch."""
+    return nbytes <= (geom or current_geometry("cpu")).smem_per_block_optin
+
+
+def default_block_kv(head_dim: int) -> int:
+    """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
+    ``key_tile``): 128, and 64 at d 256."""
+    return 64 if head_dim == 256 else 128
+
+
+def default_block_kv_bwd(head_dim: int) -> int:
+    """Rows a sweep streams a stage in the head dim's builds
+    (``csrc/attn_bwd.cuh`` ``stream_tile``): 64, and 32 at d 256."""
+    return 32 if head_dim == 256 else 64

@@ -228,9 +228,11 @@ def make_prefill(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, *, pages_per_block: Optional[int] = None):
     """Decode step that writes the new K/V into the pools IN PLACE (the JAX
     version donates its pools to the same effect) and returns them.
+    ``pages_per_block``: the pages of one key split of every layer's paged
+    decode (None: the kernel's planner, ops/decode.py decode_splits).
 
     (model, pools, tokens [B], positions [B], page_rows [B], page_offs [B],
      page_tbl [B, pages_per_seq] int32, lengths [B] int32)
@@ -259,7 +261,7 @@ def make_decode_step(cfg: ModelConfig):
             o = paged_decode_attention(
                 q.contiguous(), *pools.layer(li), lengths, page_tbl,
                 sm_scale=cfg.sm_scale, alibi_slopes=slopes,
-                logit_softcap=cfg.attn_softcap,
+                logit_softcap=cfg.attn_softcap, pages_per_block=pages_per_block,
             )  # [B, Hq, d]
             x = attn_residual(layer, x, o.reshape(b, -1), cfg)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)
@@ -274,9 +276,11 @@ def make_decode_step(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
-def make_verify_step(cfg: ModelConfig, num_tokens: int):
+def make_verify_step(cfg: ModelConfig, num_tokens: int, *,
+                     pages_per_block: Optional[int] = None):
     """Multi-token step for chunked prefill and speculative verification,
-    pools written IN PLACE.
+    pools written IN PLACE; ``pages_per_block`` as in
+    :func:`make_decode_step`, for every layer's paged verify.
 
     (model, pools, tokens [B, T], positions [B, T], page_rows [B, T],
      page_offs [B, T], page_tbl [B, pages_per_seq], lengths [B])
@@ -310,7 +314,7 @@ def make_verify_step(cfg: ModelConfig, num_tokens: int):
             o = paged_verify_attention(
                 q.transpose(1, 2).contiguous(), *pools.layer(li), lengths,
                 page_tbl, sm_scale=cfg.sm_scale, alibi_slopes=slopes,
-                logit_softcap=cfg.attn_softcap,
+                logit_softcap=cfg.attn_softcap, pages_per_block=pages_per_block,
             )  # [B, Hq, T, d]
             x = attn_residual(layer, x, o.transpose(1, 2).reshape(b, t_new, -1), cfg)
             x = mlp_block(layer, x, cfg.norm_eps, cfg.mlp_act)

@@ -9,7 +9,10 @@ without and with segment ids (:func:`sweep_kernel`): ``csrc/attn_bwd.cu``
 (``attn_bwd_dkv_seg``, ``attn_bwd_dq_seg``), ``csrc/attn_bwd_d64.cu`` /
 ``attn_bwd_d64_seg.cu`` and ``csrc/attn_bwd_d256.cu`` /
 ``attn_bwd_d256_seg.cu`` (entries suffixed alike), each entry with its own
-launch count.  Each sweep
+launch count; a seventh, ``csrc/attn_bwd_tiles.cu`` (``attn_bwd_dkv_tiles``,
+``attn_bwd_dq_tiles``), carries the 32-row stages at d 64 and 128 that a
+caller may pin or the tuner pick (``block_sizes``, :mod:`..tuning`),
+mode-free.  Each sweep
 call takes one of two routes, fixed by :func:`bwd_route` from the call's
 types alone and counted per sweep in :data:`BWD_ROUTE_LAUNCHES`:
 ``"wgmma"`` (the Hopper kernels: warpgroup products, TMA, a producer
@@ -37,6 +40,7 @@ import ctypes
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
+from ..geometry import default_block_kv_bwd
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_WIDTHS,
@@ -84,11 +88,21 @@ DKV_D256_KERNEL = CudaKernel("attn_bwd_d256.cu", "attn_bwd_dkv_d256", _DKV_ARGS)
 DQ_D256_KERNEL = CudaKernel("attn_bwd_d256.cu", "attn_bwd_dq_d256", _DQ_ARGS)
 DKV_D256_SEG_KERNEL = CudaKernel("attn_bwd_d256_seg.cu", "attn_bwd_dkv_d256_seg", _DKV_ARGS)
 DQ_D256_SEG_KERNEL = CudaKernel("attn_bwd_d256_seg.cu", "attn_bwd_dq_d256_seg", _DQ_ARGS)
+# The other streamed tiles (csrc/attn_bwd_tiles.cu): the builds' arguments
+# with the tile's rows before the route.
+DKV_TILES_KERNEL = CudaKernel("attn_bwd_tiles.cu", "attn_bwd_dkv_tiles",
+                              _DKV_ARGS[:-2] + [ctypes.c_int] + _DKV_ARGS[-2:])
+DQ_TILES_KERNEL = CudaKernel("attn_bwd_tiles.cu", "attn_bwd_dq_tiles",
+                             _DQ_ARGS[:-2] + [ctypes.c_int] + _DQ_ARGS[-2:])
 # The launches of each sweep on each route (the C entries' route codes are
 # the forward's, ops/fwd_kernel.py ROUTE_CODES), over the six builds; set
 # to 0 by whoever reads them.
 BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
+# Each sweep's wgmma launches by head dim and streamed tile ("d128_kv32"),
+# over every build; set to 0 by whoever reads them.
+BWD_TILE_LAUNCHES = {sweep: register_launch_counts({})
+                     for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
 
 
 def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
@@ -150,20 +164,23 @@ def attn_bwd_preprocess(o, do):
     return delta
 
 
-def _sweep_args(q, k, route, causal, sm_scale, window, softcap, alibi_slopes,
-                dropout_rate, dropout_seed, q_seg, kv_seg):
+def _sweep_args(q, k, route, tile, causal, sm_scale, window, softcap, alibi_slopes,
+                dropout_rate, dropout_seed, q_seg, kv_seg, block_sizes):
+    del block_sizes  # the tile, resolved by _stream_tile
     b, hq, n_q, d = q.shape
+    extra = [] if tile == default_block_kv_bwd(d) else [tile]
     return (ptr(q_seg), ptr(kv_seg), DTYPE_CODES[q.dtype], b, hq, k.shape[1], n_q,
             k.shape[2], d, float(sm_scale), int(bool(causal)), int(window),
             float(softcap), *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
-            ROUTE_CODES[route], stream_handle(q.device))
+            *extra, ROUTE_CODES[route], stream_handle(q.device))
 
 
 def _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-        dropout_seed, q_seg, kv_seg):
+        dropout_seed, q_seg, kv_seg, block_sizes=None):
     return dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
                 alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
-                dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
+                dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg,
+                block_sizes=block_sizes)
 
 
 def _route(q, *, alibi_slopes, dropout_rate, q_seg, **_):
@@ -172,58 +189,87 @@ def _route(q, *, alibi_slopes, dropout_rate, q_seg, **_):
                      bool(dropout_rate))
 
 
-def sweep_kernel(sweep: str, head_dim: int, segments: bool) -> CudaKernel:
+def _stream_tile(q, route, *, alibi_slopes, dropout_rate, q_seg, block_sizes, **_):
+    """Rows the call's sweeps stream a stage: ``block_sizes.block_kv_bwd``
+    on the wgmma route if a build carries the tiles at q's head dim with the
+    call's modes (``BlockSizes.check``: ``ValueError`` naming the built
+    tiles otherwise), the head dim's own tile without ``block_sizes`` or on
+    the fp32 route (its own fixed steps)."""
+    d = q.shape[-1]
+    if route != "wgmma" or block_sizes is None:
+        return default_block_kv_bwd(d)
+    block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
+                      segments=q_seg is not None)
+    return block_sizes.block_kv_bwd
+
+
+def sweep_kernel(sweep: str, head_dim: int, segments: bool, block_kv_bwd=None) -> CudaKernel:
     """The build of ``sweep`` ("attn_bwd_dkv" or "attn_bwd_dq") that takes a
     call, by head dim and by whether it has segment ids: the module
     attribute ``DKV[_D<d>][_SEG]_KERNEL`` / ``DQ...`` (no suffix at d 128),
-    looked up at call time so that a check may swap a build."""
-    dim = "" if head_dim == 128 else f"_D{head_dim}"
+    or ``DKV_TILES_KERNEL`` / ``DQ_TILES_KERNEL`` for a ``block_kv_bwd``
+    other than the head dim's own, looked up at call time so that a check
+    may swap a build."""
     name = "DKV" if sweep == "attn_bwd_dkv" else "DQ"
+    if block_kv_bwd not in (None, default_block_kv_bwd(head_dim)):
+        return globals()[f"{name}_TILES_KERNEL"]
+    dim = "" if head_dim == 128 else f"_D{head_dim}"
     return globals()[f"{name}{dim}{'_SEG' if segments else ''}_KERNEL"]
+
+
+def _count(sweep, route, d, tile) -> None:
+    BWD_ROUTE_LAUNCHES[sweep][route] += 1
+    if route == "wgmma":
+        key = f"d{d}_kv{tile}"
+        BWD_TILE_LAUNCHES[sweep][key] = BWD_TILE_LAUNCHES[sweep].get(key, 0) + 1
 
 
 def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                  softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
-                 q_seg=None, kv_seg=None):
+                 q_seg=None, kv_seg=None, block_sizes=None):
     """(dK, dV) [B, Hkv, Nkv, d] in k's dtype: the dK/dV sweep kernel on the
     route of :func:`bwd_route` on a CUDA device (its segment build with
-    ``q_seg`` / ``kv_seg``), :func:`attn_bwd_dkv_plain` on the CPU."""
+    ``q_seg`` / ``kv_seg``, streaming ``block_sizes.block_kv_bwd`` q rows a
+    stage: :func:`_stream_tile`), :func:`attn_bwd_dkv_plain` on the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed, q_seg, kv_seg)
+             dropout_seed, q_seg, kv_seg, block_sizes)
     if q.device.type == "cpu":
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     route = _route(q, **kw)
+    tile = _stream_tile(q, route, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    kernel = sweep_kernel("attn_bwd_dkv", q.shape[-1], q_seg is not None)
+    kernel = sweep_kernel("attn_bwd_dkv", q.shape[-1], q_seg is not None, tile)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                  ptr(dk), ptr(dv), *_sweep_args(q, k, route, **kw))
-    BWD_ROUTE_LAUNCHES["attn_bwd_dkv"][route] += 1
+                  ptr(dk), ptr(dv), *_sweep_args(q, k, route, tile, **kw))
+    _count("attn_bwd_dkv", route, q.shape[-1], tile)
     return dk, dv
 
 
 def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                 softcap=0.0, alibi_slopes=None, dropout_rate=0.0, dropout_seed=0,
-                q_seg=None, kv_seg=None):
+                q_seg=None, kv_seg=None, block_sizes=None):
     """dQ [B, Hq, Nq, d] in q's dtype: the dQ sweep kernel on the route of
     :func:`bwd_route` on a CUDA device (its segment build with ``q_seg`` /
-    ``kv_seg``), :func:`attn_bwd_dq_plain` on the CPU."""
+    ``kv_seg``, streaming ``block_sizes.block_kv_bwd`` keys a stage),
+    :func:`attn_bwd_dq_plain` on the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed, q_seg, kv_seg)
+             dropout_seed, q_seg, kv_seg, block_sizes)
     if q.device.type == "cpu":
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     route = _route(q, **kw)
+    tile = _stream_tile(q, route, **kw)
     dq = torch.empty_like(q)
-    kernel = sweep_kernel("attn_bwd_dq", q.shape[-1], q_seg is not None)
+    kernel = sweep_kernel("attn_bwd_dq", q.shape[-1], q_seg is not None, tile)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
-                  ptr(dq), *_sweep_args(q, k, route, **kw))
-    BWD_ROUTE_LAUNCHES["attn_bwd_dq"][route] += 1
+                  ptr(dq), *_sweep_args(q, k, route, tile, **kw))
+    _count("attn_bwd_dq", route, q.shape[-1], tile)
     return dq
 
 
 def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
              window: int = 0, softcap: float = 0.0, alibi_slopes=None,
              dropout_rate: float = 0.0, dropout_seed: int = 0, q_seg=None,
-             kv_seg=None):
+             kv_seg=None, block_sizes=None):
     """(dQ, dK, dV) of O = dropout(softmax(scale·QKᵀ (softcapped) + ALiBi
     bias + mask))V, given the forward's O and natural-base lse [B, Hq, Nq]
     and the output gradient dO; ALiBi, dropout and segment arguments as in
@@ -232,16 +278,19 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     Arguments are validated by the caller (ops/flash_attention.py).  CPU
     tensors take :func:`attn_bwd_plain`; CUDA tensors launch the three
     kernels (preprocess, dK/dV sweep, dQ sweep; the sweeps on the route of
-    :func:`bwd_route`), which take contiguous fp32/bf16/fp16 inputs with d
-    in {64, 128, 256}, or raise."""
+    :func:`bwd_route`, streaming ``block_sizes.block_kv_bwd`` rows a stage:
+    a tile no build carries for the call raises ``ValueError`` before any
+    launch), which take contiguous fp32/bf16/fp16 inputs with d in {64,
+    128, 256}, or raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
-             dropout_seed, q_seg, kv_seg)
+             dropout_seed, q_seg, kv_seg, block_sizes)
     if q.device.type == "cpu":
         return attn_bwd_plain(q, k, v, o, lse, do, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"attn_bwd runs on cpu or cuda, not {q.device}")
     _check_cuda(q, k, v, o, lse, do)
     check_segments(q, k, q_seg, kv_seg)
+    _stream_tile(q, _route(q, **kw), **kw)  # a tile no build carries raises first
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = attn_bwd_preprocess(o, do)
@@ -260,12 +309,15 @@ def attn_bwd_preprocess_plain(o, do):
 
 
 def _plain_sweep(q, k, v, do, lse, delta, *, causal, sm_scale, window,
-                 softcap, alibi_slopes, dropout_rate, dropout_seed, q_seg, kv_seg):
+                 softcap, alibi_slopes, dropout_rate, dropout_seed, q_seg, kv_seg,
+                 block_sizes=None):
     """Per chunk of q rows (bounding the score matrix's memory): the row
     slice, q and dO in fp32, P∘M and dS, and K expanded to the q heads.  P
     is rebuilt from the passed lse as exp(S − lse), exactly 0 where masked
     (so a row that saw no key, whose lse is DEFAULT_MASK_VALUE, gives 0); M
-    is the dropout mask (1 without dropout)."""
+    is the dropout mask (1 without dropout).  ``block_sizes`` changes
+    nothing here."""
+    del block_sizes
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     kf, vf = k.float(), v.float()
@@ -299,8 +351,10 @@ def _plain_sweep(q, k, v, do, lse, delta, *, causal, sm_scale, window,
 
 def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
                        window=0, softcap=0.0, alibi_slopes=None,
-                       dropout_rate=0.0, dropout_seed=0, q_seg=None, kv_seg=None):
-    """Plain version of the dK/dV sweep kernel."""
+                       dropout_rate=0.0, dropout_seed=0, q_seg=None, kv_seg=None,
+                       block_sizes=None):
+    """Plain version of the dK/dV sweep kernel (any ``block_sizes``)."""
+    del block_sizes
     b, hq, _, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     dk = torch.zeros((b, hq, n_kv, d), dtype=torch.float32, device=q.device)
@@ -320,8 +374,9 @@ def attn_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal, sm_scale,
 
 def attn_bwd_dq_plain(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
                       softcap=0.0, alibi_slopes=None, dropout_rate=0.0,
-                      dropout_seed=0, q_seg=None, kv_seg=None):
-    """Plain version of the dQ sweep kernel."""
+                      dropout_seed=0, q_seg=None, kv_seg=None, block_sizes=None):
+    """Plain version of the dQ sweep kernel (any ``block_sizes``)."""
+    del block_sizes
     dq = torch.zeros(q.shape, dtype=q.dtype, device=q.device)
     for rows, _, _, _, ds, kf in _plain_sweep(
             q, k, v, do, lse, delta, **_kw(causal, sm_scale, window, softcap,
@@ -334,9 +389,10 @@ def attn_bwd_dq_plain(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
 def attn_bwd_plain(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
                    window: int = 0, softcap: float = 0.0, alibi_slopes=None,
                    dropout_rate: float = 0.0, dropout_seed: int = 0, q_seg=None,
-                   kv_seg=None):
+                   kv_seg=None, block_sizes=None):
     """Plain PyTorch version of :func:`attn_bwd`: the three kernels' plain
-    versions in turn, in fp32 on the inputs' device."""
+    versions in turn, in fp32 on the inputs' device (any ``block_sizes``)."""
+    del block_sizes
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg)
     delta = attn_bwd_preprocess_plain(o, do)

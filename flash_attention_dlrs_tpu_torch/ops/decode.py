@@ -12,8 +12,11 @@ mode (:func:`paged_decode_attention`) and ``csrc/paged_verify.cuh`` its
 multi-token verify mode (:func:`paged_verify_attention`, on the route of
 :func:`verify_route`), each built once for each pool head dim
 (:func:`paged_kernels`: ``paged_decode.cu`` and ``paged_verify.cu`` at 128,
-``*_d64.cu`` and ``*_d256.cu``).  Both may cut each page table into key splits of
-whole pages (:func:`decode_splits`, from static shapes only) whose
+``*_d64.cu`` and ``*_d256.cu``, verify from fp16 q at 256 in
+``paged_verify_d256_f16.cu``).  Both may cut each page table into key splits of
+whole pages (:func:`decode_splits`, from static shapes only, unless the
+caller sets ``pages_per_block``, the pages of one split:
+:func:`key_splits`; :func:`tuned_pages_per_block` times the choices) whose
 normalized partials are merged by lse weight (:func:`combine_partials`).
 CPU tensors take the plain versions, :func:`paged_decode_plain` and
 :func:`paged_verify_plain`: :func:`paged_reference_attention` for
@@ -86,14 +89,18 @@ DECODE_D256_KERNEL = CudaKernel("paged_decode_d256.cu", "paged_decode_d256", _DE
 VERIFY_KERNEL = CudaKernel("paged_verify.cu", "paged_verify", _VERIFY_ARGS)
 VERIFY_D64_KERNEL = CudaKernel("paged_verify_d64.cu", "paged_verify_d64", _VERIFY_ARGS)
 VERIFY_D256_KERNEL = CudaKernel("paged_verify_d256.cu", "paged_verify_d256", _VERIFY_ARGS)
+VERIFY_D256_F16_KERNEL = CudaKernel("paged_verify_d256_f16.cu", "paged_verify_d256_f16",
+                                    _VERIFY_ARGS)
 
 
-def paged_kernels(head_dim: int):
+def paged_kernels(head_dim: int, q_dtype=None):
     """(decode build, verify build) of a pool head dim: the module attributes
     ``DECODE[_D<d>]_KERNEL`` / ``VERIFY[_D<d>]_KERNEL`` (no suffix at d
-    128), looked up at call time so that a check may swap a build."""
+    128; verify from fp16 ``q_dtype`` at d 256: ``VERIFY_D256_F16_KERNEL``),
+    looked up at call time so that a check may swap a build."""
     dim = "" if head_dim == 128 else f"_D{head_dim}"
-    return globals()[f"DECODE{dim}_KERNEL"], globals()[f"VERIFY{dim}_KERNEL"]
+    f16 = "_F16" if head_dim == 256 and q_dtype == torch.float16 else ""
+    return globals()[f"DECODE{dim}_KERNEL"], globals()[f"VERIFY{dim}{f16}_KERNEL"]
 
 
 # Calls of each kernel by key-split count ({splits: calls}), beside its
@@ -146,6 +153,15 @@ def decode_splits(batch: int, num_kv_heads: int, pages_per_seq: int,
     want = -(-2 * num_sms // (batch * num_kv_heads))
     per = max(-(-pages_per_seq // want), -(-SPLIT_MIN_TOKENS // page_size))
     return -(-pages_per_seq // min(per, pages_per_seq))
+
+
+def key_splits(pages_per_seq: int, pages_per_block: int, max_splits: int = 0) -> int:
+    """The key splits of a call whose caller asks for ``pages_per_block``
+    pages a split: ceil(pages_per_seq / pages_per_block), at most
+    ``max_splits`` (0: no cap), as :func:`split_pages` cuts the table."""
+    pages_per_block = _positive_int("pages_per_block", pages_per_block)
+    splits = -(-_positive_int("pages_per_seq", pages_per_seq) // pages_per_block)
+    return split_pages(pages_per_seq, min(splits, max_splits) if max_splits else splits)[1]
 
 
 def split_pages(pages_per_seq: int, splits: int):
@@ -376,14 +392,15 @@ def paged_decode_attention(
     GQA: q head h reads kv head h // (Hq / Hkv).  Quantized pools (both of
     one kind) fold their scales into the scores and probabilities;
     int8/int4 K scores through per-row int8 q, as the TPU kernel does.
-    ``pages_per_block`` (a TPU DMA tuning knob) is accepted and ignored.
+    ``pages_per_block`` is the pages of one key split (:func:`key_splits`);
+    None leaves the splits to :func:`decode_splits`.
     ``alibi_slopes``: see the module docstring; the returned lse is then
     shifted by +m_h·(length − 1).  The caller guarantees that every page id
     a sequence's length reaches is a valid pool page.  CPU tensors take the
-    plain versions; CUDA tensors launch ``csrc/paged_decode.cuh`` (with the
-    key splits of :func:`decode_splits`, merged inside the launch) or
+    plain versions (split and merged as the kernel would when
+    ``pages_per_block`` is given); CUDA tensors launch
+    ``csrc/paged_decode.cuh`` (its key splits merged inside the launch) or
     raise."""
-    del pages_per_block
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, d_true = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
@@ -391,10 +408,13 @@ def paged_decode_attention(
     slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
     if sm_scale is None:
         sm_scale = float(d_true) ** -0.5
+    pages_per_seq = page_indices.shape[1]
+    chosen = None if pages_per_block is None else key_splits(pages_per_seq, pages_per_block)
     if q.device.type == "cpu":
         o, lse = paged_decode_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
-            logit_softcap=logit_softcap, return_lse=True, alibi_slopes=slopes)
+            logit_softcap=logit_softcap, return_lse=True, alibi_slopes=slopes,
+            splits=chosen or 1)
         return (o, lse) if return_lse else o
     head_dim = pools.k.shape[3]
     q = pad_head_dim(q, head_dim)
@@ -404,9 +424,9 @@ def paged_decode_attention(
                        device=q.device) if return_lse else None)
     scale = _scale_in(sm_scale, q.dtype) if pools.quantized else float(sm_scale)
     if batch:
-        num_kv_heads, pages_per_seq = pools.k.shape[0], page_indices.shape[1]
-        splits = decode_splits(batch, num_kv_heads, pages_per_seq, pools.page_size,
-                               _num_sms(q.device.index or 0))
+        num_kv_heads = pools.k.shape[0]
+        splits = chosen or decode_splits(batch, num_kv_heads, pages_per_seq, pools.page_size,
+                                         _num_sms(q.device.index or 0))
         groups = batch * num_kv_heads * -(-(num_q_heads // num_kv_heads) // 2)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, counters = _split_scratch(
@@ -426,6 +446,50 @@ def paged_decode_attention(
     if not return_lse:
         return o
     return o, publish_lse(lse, slopes, lengths, page_indices.shape[1] * pools.page_size)
+
+
+def tuned_pages_per_block(
+    q,
+    k_pages,
+    v_pages,
+    lengths,
+    page_indices,
+    *,
+    sm_scale=None,
+    alibi_slopes=None,
+    logit_softcap: float = 0.0,
+) -> int:
+    """Timed search over ``pages_per_block`` (pages per key split) for this
+    decode workload, cached on the JAX package's key (q shape, pool shape,
+    pages_per_seq, payload dtype, pool kind, ALiBi, softcap); pass the
+    serving configuration's ALiBi and softcap so that the search times the
+    kernel instance that will run.  Candidates: powers of two up to
+    pages_per_seq whose split covers at least :data:`SPLIT_MIN_TOKENS`
+    tokens (a tile; pages_per_seq alone if none does).  Each is timed by
+    device time, as replays of one call captured as a CUDA graph on the card
+    (:func:`..tuning._time_call`)."""
+    from .. import tuning
+
+    pools = _Pools(k_pages, v_pages)
+    pages_per_seq = page_indices.shape[1]
+    cands, ppb = [], 1
+    while ppb <= pages_per_seq:
+        if ppb * pools.page_size >= SPLIT_MIN_TOKENS:
+            cands.append(ppb)
+        ppb *= 2
+    cands = cands or [pages_per_seq]
+
+    def build(ppb_):
+        return lambda q_, k_, v_, lengths_, idx_: paged_decode_attention(
+            q_, k_, v_, lengths_, idx_, sm_scale=sm_scale, pages_per_block=ppb_,
+            alibi_slopes=alibi_slopes, logit_softcap=logit_softcap)
+
+    return int(tuning.tune_decode_pages_per_block(
+        build, cands,
+        [list(q.shape), list(pools.k.shape), pages_per_seq, str(pools.k.dtype),
+         type(k_pages).__name__, alibi_slopes is not None, float(logit_softcap)],
+        (q, k_pages, v_pages, lengths, page_indices),
+    ))
 
 
 def paged_verify_attention(
@@ -453,8 +517,9 @@ def paged_verify_attention(
     (bf16/fp16 q needs quantized pools
     or value pools of q's dtype; the ``"wgmma"`` route splits the keys as
     :func:`decode_splits` does, for its blocks of :data:`VERIFY_ROW_TILE`
-    rows) or raise.  ``alibi_slopes``: see the module docstring."""
-    del pages_per_block
+    rows, or into ``pages_per_block`` pages a split, at most
+    :data:`VERIFY_MAX_SPLITS`; the fp32 route does not split) or raise.
+    ``alibi_slopes``: see the module docstring."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, num_tokens, d_true = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
@@ -462,6 +527,8 @@ def paged_verify_attention(
     slopes = _normalize_alibi(alibi_slopes, num_q_heads, causal=True)
     if sm_scale is None:
         sm_scale = float(d_true) ** -0.5
+    chosen = None if pages_per_block is None else key_splits(
+        page_indices.shape[1], pages_per_block, VERIFY_MAX_SPLITS)
     if q.device.type == "cpu":
         return paged_verify_plain(
             q, k_pages, v_pages, lengths, page_indices, sm_scale=sm_scale,
@@ -474,7 +541,9 @@ def paged_verify_attention(
     if batch and num_tokens:
         num_kv_heads, pages_per_seq = pools.k.shape[0], page_indices.shape[1]
         splits = 1
-        if route == "wgmma":
+        if route == "wgmma" and chosen:
+            splits = chosen
+        elif route == "wgmma":
             # one CTA fills an SM: the planner's two an SM, of half the SMs
             row_blocks = -(-num_tokens * (num_q_heads // num_kv_heads) // VERIFY_ROW_TILE)
             splits = decode_splits(batch * row_blocks, num_kv_heads, pages_per_seq,
@@ -483,7 +552,7 @@ def paged_verify_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, _ = _split_scratch(
             splits, batch * num_q_heads * num_tokens, head_dim, 0, q.device, stream)
-        paged_kernels(head_dim)[1].launch(
+        paged_kernels(head_dim, q.dtype)[1].launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),
             ptr(page_indices), ptr(o), ctypes.c_void_p(part_o),

@@ -22,6 +22,16 @@ sequences: a row sees only keys of its own id.  V may be fp8 (e4m3fn /
 e5m2) beside fp32/bf16/fp16 q and k, for the forward only: the backward
 through fp8 V raises ``NotImplementedError``, as in the JAX package.
 
+``block_sizes`` (a :class:`..tuning.BlockSizes`) pins the kernels' tiles:
+the forward's key tile and the rows the backward sweeps stream a stage,
+each among those some build carries for the call (:mod:`..tuning`: a call
+with ALiBi, dropout, segment ids or fp8 V has its build's own tile only,
+and another raises ``ValueError`` naming the built tiles; the JAX package
+takes any multiple of 128).  ``tune=True`` times the candidates on the
+call's own inputs the first time a shape is seen
+(:func:`tuned_block_sizes`, cached in process and on disk).  The plain
+versions check the tiles alike and ignore them.
+
 The kernels are built for head dims 64, 128 and 256; every entry point
 zero-pads q, k and v to the next of them (:func:`..fwd_kernel.kernel_width`,
 on every device, as the JAX package pads to 128 lanes), takes ``sm_scale``
@@ -39,6 +49,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tuning
 from .bwd_kernel import attn_bwd
 from .fwd_kernel import FP8_DTYPES, attn_fwd, int32_seed, kernel_width, pad_head_dim
 
@@ -156,8 +167,9 @@ def _normalize_dropout(dropout_rate, dropout_seed):
 
 
 def _prepare(q, k, v, causal, sm_scale, segment_ids, window, logit_softcap,
-             alibi_slopes, dropout_rate, dropout_seed):
-    """Validate a call; returns the kernels' keyword arguments normalized."""
+             alibi_slopes, dropout_rate, dropout_seed, block_sizes=None):
+    """Validate a call; returns the kernels' keyword arguments normalized
+    (``block_sizes`` checked against the tiles built for the call)."""
     _validate(q, k, v)
     q_seg, kv_seg = _normalize_segments(segment_ids, q, k)
     if logit_softcap < 0:
@@ -166,10 +178,42 @@ def _prepare(q, k, v, causal, sm_scale, segment_ids, window, logit_softcap,
     rate, seed = _normalize_dropout(dropout_rate, dropout_seed)
     if sm_scale is None:
         sm_scale = float(q.shape[-1]) ** -0.5  # the true head_dim, not the padded one
+    if block_sizes is not None:
+        if not isinstance(block_sizes, tuning.BlockSizes):
+            raise TypeError(f"block_sizes must be a BlockSizes, not "
+                            f"{type(block_sizes).__name__}")
+        block_sizes.check(kernel_width(q.shape[-1]), alibi=slopes is not None,
+                          dropout=rate > 0, segments=q_seg is not None,
+                          fp8_v=v.dtype in FP8_DTYPES)
     return dict(causal=bool(causal), sm_scale=float(sm_scale),
                 window=_normalize_window(window, causal, k.shape[2]),
                 softcap=float(logit_softcap), alibi_slopes=slopes,
-                dropout_rate=rate, dropout_seed=seed, q_seg=q_seg, kv_seg=kv_seg)
+                dropout_rate=rate, dropout_seed=seed, q_seg=q_seg, kv_seg=kv_seg,
+                block_sizes=block_sizes)
+
+
+def _has_modes(kw, v) -> bool:
+    """Whether a prepared call has a mode the other tiles are not built
+    with (ALiBi, dropout, segment ids, fp8 V)."""
+    return (kw["alibi_slopes"] is not None or kw["dropout_rate"] > 0
+            or kw["q_seg"] is not None or v.dtype in FP8_DTYPES)
+
+
+def _resolve_blocks(q, k, v, kw, block_sizes, tune: bool, causal):
+    """The call's tiles: ``block_sizes`` as given, or with ``tune`` (and
+    none given) the timed search's, or None (each head dim's own).  A call
+    with a mode has one candidate, its build's own tile, and is not timed;
+    ``tune`` during a CUDA graph's capture raises ``ValueError``, as the
+    JAX package raises under ``jit``."""
+    if not tune or block_sizes is not None:
+        return block_sizes
+    if q.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise ValueError(
+            "tune=True requires running outside a CUDA graph's capture (call "
+            "once outside, or pass the tuned block_sizes in explicitly)")
+    if _has_modes(kw, v):
+        return tuning.default_block_sizes(kernel_width(q.shape[-1]))
+    return tuned_block_sizes(q, k, v, causal=causal, sm_scale=kw["sm_scale"])
 
 
 def _padded(*tensors):
@@ -191,6 +235,8 @@ def flash_attention_forward(
     alibi_slopes=None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    block_sizes: Optional[tuning.BlockSizes] = None,
+    tune: bool = False,
 ):
     """Forward pass returning (O, L).  q: [B, Hq, Nq, d]; k, v:
     [B, Hkv, Nkv, d] with Hq % Hkv == 0.  ``sm_scale`` defaults to d**-0.5.
@@ -202,10 +248,12 @@ def flash_attention_forward(
     keeps each row to the keys of its own id.  V may be fp8.  L is the
     natural-base logsumexp of the scaled, softcapped and biased scores
     (dropout-independent), [B, Hq, Nq] fp32; a row that sees no key gets
-    O = 0 and L = DEFAULT_MASK_VALUE.  Runs where the inputs lie: the kernel
-    on a CUDA device, the plain PyTorch version on the CPU."""
+    O = 0 and L = DEFAULT_MASK_VALUE.  ``block_sizes`` / ``tune``: see the
+    module docstring.  Runs where the inputs lie: the kernel on a CUDA
+    device, the plain PyTorch version on the CPU."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
-                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
+                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed, block_sizes)
+    kw["block_sizes"] = _resolve_blocks(q, k, v, kw, block_sizes, tune, causal)
     d = q.shape[-1]
     q, k, v = _padded(q, k, v)
     o, lse = attn_fwd(q, k, v, **kw)
@@ -229,6 +277,8 @@ def flash_attention_backward(
     dropout_rate: float = 0.0,
     dropout_seed=None,
     rederive_stats: Optional[bool] = None,
+    block_sizes: Optional[tuning.BlockSizes] = None,
+    tune: bool = False,
 ):
     """Backward pass returning (dQ, dK, dV) in the dtypes of q, k and v.
     ``o`` and ``lse`` [B, Hq, Nq] come from the forward with the same
@@ -239,10 +289,11 @@ def flash_attention_backward(
     lse, as a ring caller with a globally merged lse needs; None, the
     default, rederives under ALiBi and honours the lse otherwise, as the JAX
     package does.  fp8 V raises ``NotImplementedError`` (no backward, as in
-    the JAX package).  Runs where the inputs lie: the kernels on a CUDA
-    device, the plain PyTorch version on the CPU."""
+    the JAX package).  ``block_sizes`` / ``tune``: see the module docstring.
+    Runs where the inputs lie: the kernels on a CUDA device, the plain
+    PyTorch version on the CPU."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
-                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
+                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed, block_sizes)
     if v.dtype in FP8_DTYPES:
         raise NotImplementedError(_FP8_BACKWARD)
     if o.shape != q.shape or do.shape != q.shape:
@@ -254,6 +305,7 @@ def flash_attention_backward(
                          f"{tuple(q.shape[:3])}")
     if rederive_stats is None:
         rederive_stats = kw["alibi_slopes"] is not None
+    kw["block_sizes"] = _resolve_blocks(q, k, v, kw, block_sizes, tune, causal)
     d = q.shape[-1]
     q, k, v, o, do = _padded(q, k, v, o, do)
     if rederive_stats:
@@ -272,18 +324,23 @@ def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor],
                causal: bool, sm_scale: float, window: int, softcap: float,
                alibi_slopes: Optional[List[float]], dropout_rate: float,
-               dropout_seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, L) of the forward kernel (:func:`..fwd_kernel.attn_fwd`)."""
+               dropout_seed: int, block_kv: int,
+               block_kv_bwd: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, L) of the forward kernel (:func:`..fwd_kernel.attn_fwd`);
+    ``block_kv`` / ``block_kv_bwd`` 0: each head dim's own tiles."""
     return attn_fwd(q, k, v, **_op_kw(q_seg, kv_seg, causal, sm_scale, window, softcap,
-                                      alibi_slopes, dropout_rate, dropout_seed))
+                                      alibi_slopes, dropout_rate, dropout_seed, block_kv,
+                                      block_kv_bwd))
 
 
 def _op_kw(q_seg, kv_seg, causal, sm_scale, window, softcap, alibi_slopes,
-           dropout_rate, dropout_seed):
+           dropout_rate, dropout_seed, block_kv, block_kv_bwd):
+    blocks = (tuning.BlockSizes(block_kv=block_kv, block_kv_bwd=block_kv_bwd)
+              if block_kv else None)
     return dict(q_seg=q_seg, kv_seg=kv_seg, causal=causal, sm_scale=sm_scale,
                 window=window, softcap=softcap,
                 alibi_slopes=None if alibi_slopes is None else tuple(alibi_slopes),
-                dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+                dropout_rate=dropout_rate, dropout_seed=dropout_seed, block_sizes=blocks)
 
 
 def _flash_fwd_setup(ctx, inputs, output):
@@ -321,18 +378,67 @@ def flash_attention(
     alibi_slopes=None,
     dropout_rate: float = 0.0,
     dropout_seed=None,
+    block_sizes: Optional[tuning.BlockSizes] = None,
+    tune: bool = False,
 ):
     """Differentiable fused attention O = softmax(scale·QKᵀ + bias + mask)V
     (dropped out when asked), with the conventions of
     :func:`flash_attention_forward`; gradients flow to q, k and v through
     :func:`flash_attention_backward`'s kernels (none through fp8 V, whose
-    backward raises ``NotImplementedError``)."""
+    backward raises ``NotImplementedError``).  ``block_sizes`` pins the
+    forward's and the backward's tiles; ``tune=True`` (with none pinned)
+    times both directions' candidates on these inputs first
+    (:func:`tuned_block_sizes`), as ``triton.autotune`` did for the
+    reference."""
     kw = _prepare(q, k, v, causal, sm_scale, segment_ids, window,
-                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed)
+                  logit_softcap, alibi_slopes, dropout_rate, dropout_seed, block_sizes)
+    blocks = _resolve_blocks(q, k, v, kw, block_sizes, tune, causal)
     slopes = kw["alibi_slopes"]
     d = q.shape[-1]
     q, k, v = _padded(q, k, v)  # the pad's backward slices the gradients
     o, _ = _flash_fwd(q, k, v, kw["q_seg"], kw["kv_seg"], kw["causal"], kw["sm_scale"],
                       kw["window"], kw["softcap"], None if slopes is None else list(slopes),
-                      kw["dropout_rate"], kw["dropout_seed"])
+                      kw["dropout_rate"], kw["dropout_seed"],
+                      0 if blocks is None else blocks.block_kv,
+                      0 if blocks is None else blocks.block_kv_bwd)
     return o[..., :d]
+
+
+def tuned_block_sizes(q, k, v, *, causal: bool = False,
+                      sm_scale: Optional[float] = None) -> tuning.BlockSizes:
+    """Timed tile search for this workload (the JAX package's
+    ``tuned_block_sizes``): the forward's key tiles first, timed through
+    :func:`flash_attention_forward`, then with the winner the backward's
+    streamed tiles, timed through :func:`flash_attention_backward` (which
+    returns all three gradients) on the winner's (O, L) and a seeded dO.
+    Candidates are :func:`..tuning.candidate_fwd_configs` /
+    ``candidate_bwd_configs`` of q's kernel width; each search is cached on
+    its ("fwd" / "bwd", shapes, dtype, causal) key."""
+    width = kernel_width(q.shape[-1])
+    own = tuning.default_block_sizes(width)
+
+    def blocks(bkv, bkv_bwd):
+        return tuning.BlockSizes(block_kv=bkv, block_kv_bwd=bkv_bwd)
+
+    def build_fwd(_, bkv):
+        bs = blocks(bkv, own.block_kv_bwd)
+        return lambda q_, k_, v_: flash_attention_forward(
+            q_, k_, v_, causal=causal, sm_scale=sm_scale, block_sizes=bs)
+
+    with torch.no_grad():
+        _, bkv = tuning.tune_fwd_blocks(build_fwd, q, k, v, key_extra=causal,
+                                        candidates=tuning.candidate_fwd_configs(width))
+        o, lse = flash_attention_forward(q, k, v, causal=causal, sm_scale=sm_scale,
+                                         block_sizes=blocks(bkv, own.block_kv_bwd))
+        gen = torch.Generator(device=q.device).manual_seed(0)
+        do = torch.randn(q.shape, generator=gen, device=q.device,
+                         dtype=torch.float32).to(q.dtype)
+
+        def build_bwd(_, bkv_bwd):
+            bs = blocks(bkv, bkv_bwd)
+            return lambda q_, k_, v_, do_: flash_attention_backward(
+                q_, k_, v_, o, do_, lse, causal=causal, sm_scale=sm_scale, block_sizes=bs)
+
+        _, bkv_bwd = tuning.tune_bwd_blocks(build_bwd, q, k, v, do, key_extra=causal,
+                                            candidates=tuning.candidate_bwd_configs(width))
+    return blocks(bkv, bkv_bwd)

@@ -6,7 +6,10 @@ head dim without and with segment ids (:func:`fwd_kernel`), each build with
 its own launch count: ``csrc/attn_fwd.cu`` (head dim 128,
 :data:`FWD_KERNEL`), ``csrc/attn_fwd_seg.cu`` (:data:`FWD_SEG_KERNEL`),
 ``csrc/attn_fwd_d64.cu`` / ``attn_fwd_d64_seg.cu`` and
-``csrc/attn_fwd_d256.cu`` / ``attn_fwd_d256_seg.cu``.  Each call
+``csrc/attn_fwd_d256.cu`` / ``attn_fwd_d256_seg.cu``; a seventh,
+``csrc/attn_fwd_tiles.cu`` (:data:`FWD_TILES_KERNEL`), carries the 64-key
+tiles at d 64 and 128 that a caller may pin or the tuner pick
+(``block_sizes``, :mod:`..tuning`), mode-free.  Each call
 takes one of two routes, fixed by :func:`fwd_route` from the call's types
 alone and counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel
 of ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
+from ..geometry import default_block_kv
 
 # Finite sentinel for masked scores and the lse of a row that sees no key.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -75,12 +79,19 @@ FWD_D64_KERNEL = CudaKernel("attn_fwd_d64.cu", "attn_fwd_d64", _FWD_ARGS)
 FWD_D64_SEG_KERNEL = CudaKernel("attn_fwd_d64_seg.cu", "attn_fwd_d64_seg", _FWD_ARGS)
 FWD_D256_KERNEL = CudaKernel("attn_fwd_d256.cu", "attn_fwd_d256", _FWD_ARGS)
 FWD_D256_SEG_KERNEL = CudaKernel("attn_fwd_d256_seg.cu", "attn_fwd_d256_seg", _FWD_ARGS)
+# The other key tiles (csrc/attn_fwd_tiles.cu): the arguments of the builds
+# above with the tile's keys before the route.
+FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
+                              _FWD_ARGS[:-2] + [ctypes.c_int] + _FWD_ARGS[-2:])
 
 # The C entry's route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma)
 # and the launches of each route, over the six builds; set to 0 by whoever
 # reads them.
 ROUTE_CODES = {"fp32": 0, "wgmma": 1}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
+# The wgmma route's launches by head dim and key tile ("d128_kv64"), over
+# every build; set to 0 by whoever reads them.
+TILE_LAUNCHES = register_launch_counts({})
 
 
 def kernel_width(head_dim: int) -> int:
@@ -145,11 +156,14 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
     return "wgmma"
 
 
-def fwd_kernel(head_dim: int, segments: bool) -> CudaKernel:
+def fwd_kernel(head_dim: int, segments: bool, block_kv=None) -> CudaKernel:
     """The build of the forward that takes a call, by head dim and by
     whether it has segment ids: the module attribute ``FWD[_D<d>][_SEG]_KERNEL``
-    (no suffix at d 128), looked up at call time so that a check may swap
-    a build."""
+    (no suffix at d 128), or ``FWD_TILES_KERNEL`` for a ``block_kv`` other
+    than the head dim's own, looked up at call time so that a check may
+    swap a build."""
+    if block_kv not in (None, default_block_kv(head_dim)):
+        return globals()["FWD_TILES_KERNEL"]
     dim = "" if head_dim == 128 else f"_D{head_dim}"
     return globals()[f"FWD{dim}{'_SEG' if segments else ''}_KERNEL"]
 
@@ -244,7 +258,7 @@ def check_segments(q, k, q_seg, kv_seg) -> None:
 
 def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
              softcap: float = 0.0, alibi_slopes=None, dropout_rate: float = 0.0,
-             dropout_seed: int = 0, q_seg=None, kv_seg=None):
+             dropout_seed: int = 0, q_seg=None, kv_seg=None, block_sizes=None):
     """(O [B, Hq, Nq, d] in q's dtype, L [B, Hq, Nq] fp32 natural-base lse).
 
     ``alibi_slopes`` (one float per q head, or None) adds the true ALiBi
@@ -254,13 +268,18 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     ``q_seg`` [B, Nq] / ``kv_seg`` [B, Nkv] (int32, or None) are segment
     ids: row i sees key j only where q_seg[b, i] == kv_seg[b, j].  V may be
     fp8 (e4m3fn / e5m2) beside fp32/bf16/fp16 q and k.  Arguments are
-    validated by the caller (ops/flash_attention.py).  CPU tensors take
-    :func:`attn_fwd_plain`; CUDA tensors launch the kernel on the route of
-    :func:`fwd_route` (in the build of :func:`fwd_kernel`), which takes
-    contiguous inputs with d in {64, 128, 256}, or raise."""
+    validated by the caller (ops/flash_attention.py).  ``block_sizes`` (a
+    :class:`..tuning.BlockSizes`, or None: the head dim's own tile) sets the
+    wgmma route's key tile, ``block_kv``; a tile no build carries for the
+    call raises ``ValueError`` before any launch, and the fp32 route (its
+    own fixed tiles) and the plain version take any tile alike.  CPU
+    tensors take :func:`attn_fwd_plain`; CUDA tensors launch the kernel on
+    the route of :func:`fwd_route` (in the build of :func:`fwd_kernel`),
+    which takes contiguous inputs with d in {64, 128, 256}, or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg)
+              dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg,
+              block_sizes=block_sizes)
     if q.device.type == "cpu":
         return attn_fwd_plain(q, k, v, **kw)
     if q.device.type != "cuda":
@@ -279,19 +298,28 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     hkv, n_kv = k.shape[1], k.shape[2]
     route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS,
                       alibi_slopes is not None, bool(dropout_rate))
+    block_kv = default_block_kv(d)
+    if route == "wgmma" and block_sizes is not None:
+        block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
+                          segments=q_seg is not None, fp8_v=v.dtype in V_KINDS)
+        block_kv = block_sizes.block_kv
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         lse.fill_(DEFAULT_MASK_VALUE)
         return o, lse
-    fwd_kernel(d, q_seg is not None).launch(
+    tile = [] if block_kv == default_block_kv(d) else [block_kv]
+    fwd_kernel(d, q_seg is not None, block_kv).launch(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(q_seg), ptr(kv_seg),
         DTYPE_CODES[q.dtype], V_KINDS.get(v.dtype, 0), b, hq, hkv, n_q, n_kv, d,
         float(sm_scale), int(bool(causal)), int(window), float(softcap),
         *mod_args(alibi_slopes, dropout_rate, dropout_seed, q.device),
-        ROUTE_CODES[route], stream_handle(q.device),
+        *tile, ROUTE_CODES[route], stream_handle(q.device),
     )
     ROUTE_LAUNCHES[route] += 1
+    if route == "wgmma":
+        key = f"d{d}_kv{block_kv}"
+        TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
     return o, lse
 
 
@@ -334,10 +362,12 @@ def dropout_rows(q, r0, r1, n_kv, dropout_rate, dropout_seed):
 def attn_fwd_plain(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
                    softcap: float = 0.0, alibi_slopes=None,
                    dropout_rate: float = 0.0, dropout_seed: int = 0, q_seg=None,
-                   kv_seg=None):
+                   kv_seg=None, block_sizes=None):
     """Plain PyTorch version of the kernel: the same function in fp32 on the
     inputs' device (fp8 V upcast exactly), in chunks of q rows so the score
-    matrix stays bounded.  Empty rows give O = 0 and L = DEFAULT_MASK_VALUE."""
+    matrix stays bounded; ``block_sizes`` changes nothing here.  Empty rows
+    give O = 0 and L = DEFAULT_MASK_VALUE."""
+    del block_sizes
     b, hq, n_q, d = q.shape
     hkv, n_kv = k.shape[1], k.shape[2]
     kf, vf = k.float(), v.float()

@@ -27,12 +27,14 @@ full-attention models with StreamingLLM sinks on a sink + recent ring
 from __future__ import annotations
 
 import time
+import warnings
 import weakref
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import geometry as geo
 from .._cuda import resolve_device
 from ..models.decoding import (
     init_kv_pools,
@@ -183,6 +185,7 @@ class DecodeEngine:
         kv_dtype=torch.bfloat16,
         quantized_kv: bool = False,
         eos_token: Optional[int] = None,
+        pages_per_block: Optional[int] = None,
         prefill_chunk: int = 0,
         streaming_window: int = 0,
         attention_sinks: int = 0,
@@ -199,9 +202,17 @@ class DecodeEngine:
 
         ``quantized_kv`` stores K/V as ``kv_dtype`` payloads with per-token
         scales: ``torch.int8``, ``"int4"`` (two tokens per byte),
-        ``torch.float8_e4m3fn`` or ``torch.float8_e5m2``.  fp8 is taken as
-        asked: the H100 has an fp8 datapath, where the JAX package falls
-        back to int8 on TPUs without one.  ``prefill_chunk`` > 0 prefills
+        ``torch.float8_e4m3fn`` or ``torch.float8_e5m2``.  fp8 KV is taken
+        where the card converts fp8 natively (``geometry.supports_fast_fp8``:
+        compute capability 8.9 and later, the H100 among them); elsewhere the
+        engine warns and stores int8, as the JAX package does on TPUs
+        without an fp8 datapath.  ``pages_per_block`` sets the pages of one
+        key split of every paged decode and verify the engine runs (its
+        steps, bursts, drafts and speculative rounds; a graph is captured
+        with its split count fixed); None leaves them to the kernels'
+        planner (``ops.decode.decode_splits``), and
+        ``ops.decode.tuned_pages_per_block`` times the choices.
+        ``prefill_chunk`` > 0 prefills
         every prompt in chunks of that many tokens through the verify step;
         ``enable_prefix_cache`` (which needs it) reuses the full-page
         prompt prefixes of earlier requests.
@@ -224,6 +235,14 @@ class DecodeEngine:
                 "enable_prefix_cache requires prefill_chunk > 0 (the suffix "
                 "prefill runs through the chunked path)")
         self.device = resolve_device(device)
+        if (quantized_kv and kv_dtype in (torch.float8_e4m3fn, torch.float8_e5m2)
+                and not geo.supports_fast_fp8(geo.current_geometry(self.device))):
+            warnings.warn(
+                f"kv_dtype={kv_dtype} has no fp8 datapath on "
+                f"{geo.current_geometry(self.device).device_name}: falling back to int8 "
+                "KV.  Pass kv_dtype=torch.int8 explicitly to silence this.",
+                stacklevel=2)
+            kv_dtype = torch.int8
         self.params = params.to(self.device)
         self.cfg = cfg
         self.page_size = page_size
@@ -255,7 +274,8 @@ class DecodeEngine:
         self.slot_request: List[Optional[Request]] = [None] * num_slots
         self._slot_next_token = np.zeros(num_slots, np.int64)
         self._prefill = make_prefill(cfg)
-        self._decode_step = make_decode_step(cfg)
+        self.pages_per_block = pages_per_block
+        self._decode_step = make_decode_step(cfg, pages_per_block=pages_per_block)
         self._sample_cache_key = None
         self._sample_cache = None
         # Burst and speculative programs (runtime/speculative.py) by key,
@@ -272,7 +292,8 @@ class DecodeEngine:
         self.last_fused_seconds: Optional[float] = None
         self.prefill_chunk = prefill_chunk
         if prefill_chunk:
-            self._chunk_prefill = make_verify_step(cfg, prefill_chunk)
+            self._chunk_prefill = make_verify_step(cfg, prefill_chunk,
+                                                   pages_per_block=pages_per_block)
         self.prefix_cache = None
         if enable_prefix_cache:
             self.prefix_cache = PrefixCache(self.allocator, page_size)
@@ -657,7 +678,8 @@ class DecodeEngine:
             is_active[slot] = True
 
         fused = self._program(("burst", k), lambda: make_plain_generate(
-            self.cfg, self.page_size, k, graph_pool=self._graphs()))
+            self.cfg, self.page_size, k, graph_pool=self._graphs(),
+            pages_per_block=self.pages_per_block))
         (temp, top_k, top_p, seeds), sample = self._slot_sampling()
         out, n_out, self.pools = fused(
             self.params, self.pools, x0, base_pos, tbl, is_active, self._eos(),
@@ -751,7 +773,9 @@ class DecodeEngine:
         if cached is not None and cached[0]() is draft:
             return cached[1]
         fused = make_spec_generate(self.cfg, draft.cfg, gamma, self.page_size,
-                                   max_new, graph_pool=self._graphs())
+                                   max_new, graph_pool=self._graphs(),
+                                   t_pages_per_block=self.pages_per_block,
+                                   d_pages_per_block=draft.pages_per_block)
         self._programs[key] = (weakref.ref(draft), fused)
         return fused
 
@@ -994,8 +1018,10 @@ class DecodeEngine:
         if cached is not None and cached[0]() is draft:
             propose, verify_accept = cached[1]
         else:
-            propose = make_draft_propose(draft.cfg, gamma, draft.page_size)
-            verify_accept = make_verify_accept(self.cfg, gamma)
+            propose = make_draft_propose(draft.cfg, gamma, draft.page_size,
+                                         pages_per_block=draft.pages_per_block)
+            verify_accept = make_verify_accept(self.cfg, gamma,
+                                               pages_per_block=self.pages_per_block)
             self._programs[gamma] = (weakref.ref(draft), (propose, verify_accept))
         sp = sampling or GREEDY
         b = self.num_slots
@@ -1191,7 +1217,8 @@ class DecodeEngine:
         if max_new > 0:
             x0, base_pos, (tbl,) = self._lockstep_tables(sids, 0, outputs, max_new, (self,))
             fused = self._program(("plain_fused", max_new), lambda: make_plain_generate(
-                self.cfg, self.page_size, max_new, graph_pool=self._graphs()))
+                self.cfg, self.page_size, max_new, graph_pool=self._graphs(),
+                pages_per_block=self.pages_per_block))
             active = np.arange(b) < n
             t0 = time.perf_counter()
             out, n_out, self.pools = fused(

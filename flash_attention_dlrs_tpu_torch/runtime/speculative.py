@@ -29,6 +29,8 @@ algorithm is Leviathan et al. 2023 via ``runtime.sampling.speculative_verify``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -66,7 +68,8 @@ def _propose(step, params, pools, x0, base_pos, page_tbl, page_size, gamma,
     return torch.stack(props, dim=1), torch.stack(logits_seq, dim=1)
 
 
-def make_draft_propose(cfg: ModelConfig, gamma: int, page_size: int):
+def make_draft_propose(cfg: ModelConfig, gamma: int, page_size: int, *,
+                       pages_per_block: Optional[int] = None):
     """The draft's proposal loop of one round.
 
     (params, pools, x0 [B], base_pos [B], page_tbl [B, pps] int32, temp,
@@ -77,8 +80,9 @@ def make_draft_propose(cfg: ModelConfig, gamma: int, page_size: int):
     (``DecodeEngine._single_decode_logits`` in a loop) plus the final
     proposal's K/V write; pools are written in place.  Page capacity for
     base_pos + γ tokens must be ensured by the host.  ``sample=False`` when
-    every temperature is 0."""
-    step = make_decode_step(cfg)
+    every temperature is 0.  ``pages_per_block``: the draft's key splits
+    (``models.decoding.make_decode_step``)."""
+    step = make_decode_step(cfg, pages_per_block=pages_per_block)
 
     def propose(params, pools, x0, base_pos, page_tbl, temp, top_k, top_p,
                 seeds, *, sample=True):
@@ -99,14 +103,18 @@ def _verify_accept(verify, params, pools, proposals, positions, rows, offs,
                               base_pos, sample=sample)
 
 
-def make_verify_accept(cfg: ModelConfig, gamma: int):
+def make_verify_accept(cfg: ModelConfig, gamma: int, *,
+                       pages_per_block: Optional[int] = None):
     """The target's verification of one round and the accept / resample
     rule.
 
     (params, pools, proposals [B, γ], positions, rows, offs, tbl, lens,
     draft_logits [B, γ-1, V], temp, top_k, top_p, seeds, base_pos, *,
-    sample=True) -> (round_tokens [B, γ], n_committed [B], pools)"""
-    verify = make_verify_step(cfg, gamma)
+    sample=True) -> (round_tokens [B, γ], n_committed [B], pools)
+
+    ``pages_per_block``: the target's key splits
+    (``models.decoding.make_verify_step``)."""
+    verify = make_verify_step(cfg, gamma, pages_per_block=pages_per_block)
 
     def verify_accept(params, pools, proposals, positions, rows, offs, tbl,
                       lens, draft_logits, temp, top_k, top_p, seeds, base_pos,
@@ -173,7 +181,7 @@ def _key(*tensors_or_objects):
 
 
 def make_plain_generate(cfg: ModelConfig, page_size: int, max_new: int, *,
-                        graph_pool=None):
+                        graph_pool=None, pages_per_block: Optional[int] = None):
     """Plain autoregressive generation of up to ``max_new`` tokens a slot,
     one decode step per run of the body.
 
@@ -192,8 +200,9 @@ def make_plain_generate(cfg: ModelConfig, page_size: int, max_new: int, *,
     valid until its next call.  Page capacity for base_pos + max_new tokens
     must be ensured by the host.  Each (params, pools, batch, table width,
     ``sample``) gets a program of its own: on the card one CUDA graph,
-    captured in ``graph_pool`` on first use."""
-    step = make_decode_step(cfg)
+    captured in ``graph_pool`` on first use, its key splits fixed
+    (``pages_per_block``, as ``models.decoding.make_decode_step``)."""
+    step = make_decode_step(cfg, pages_per_block=pages_per_block)
     programs = {}
 
     def program(params, pools, b, pps, sample):
@@ -243,7 +252,9 @@ def make_plain_generate(cfg: ModelConfig, page_size: int, max_new: int, *,
 
 
 def make_spec_generate(t_cfg: ModelConfig, d_cfg: ModelConfig, gamma: int,
-                       page_size: int, max_new: int, *, graph_pool=None):
+                       page_size: int, max_new: int, *, graph_pool=None,
+                       t_pages_per_block: Optional[int] = None,
+                       d_pages_per_block: Optional[int] = None):
     """Speculative generation, one whole round per run of the body.
 
     (t_params, t_pools, d_params, d_pools, x0 [B], base_pos [B],
@@ -265,9 +276,11 @@ def make_spec_generate(t_cfg: ModelConfig, d_cfg: ModelConfig, gamma: int,
     each.  Arguments and outputs as :func:`make_plain_generate`'s; the
     counters are 0-d tensors.  Page capacity for base_pos + max_new + γ
     must be ensured on BOTH engines (frozen slots keep overwriting the same
-    γ positions past their prefix)."""
-    d_step = make_decode_step(d_cfg)
-    verify = make_verify_step(t_cfg, gamma)
+    γ positions past their prefix).  ``t_pages_per_block`` /
+    ``d_pages_per_block``: the target's verify and the draft's decode key
+    splits."""
+    d_step = make_decode_step(d_cfg, pages_per_block=d_pages_per_block)
+    verify = make_verify_step(t_cfg, gamma, pages_per_block=t_pages_per_block)
     programs = {}
 
     def program(t_params, t_pools, d_params, d_pools, b, pps_t, pps_d, sample):

@@ -82,12 +82,17 @@ def test_lengths_past_the_table_are_clamped():
 
 
 def test_pages_per_block_is_ignored_and_cpu_takes_plain_version():
+    """pages_per_block now sets the pages of a key split: the CPU takes the
+    plain version split as the kernel would (ops/decode.py key_splits), the
+    same attention to fp32 rounding."""
     before = tdec.DECODE_KERNEL.launches
     args = _torch(*_inputs(2, 2, 4, 2, 16, 3, [9, 40]))
     o1 = tdec.paged_decode_attention(*args)
     o2 = tdec.paged_decode_attention(*args, pages_per_block=2)
     o3 = tdec.paged_reference_attention(*args)
-    assert torch.equal(o1, o2) and torch.equal(o1, o3)
+    assert torch.equal(o1, o3)
+    assert torch.equal(o2, tdec.paged_decode_plain(*args, splits=tdec.key_splits(3, 2)))
+    np.testing.assert_allclose(o2.numpy(), o1.numpy(), atol=1e-6, rtol=1e-6)
     assert tdec.DECODE_KERNEL.launches == before
 
 
@@ -267,7 +272,7 @@ def test_quantized_cpu_path_takes_the_plain_version():
     q, kp, vp, lens, tbl = _torch(*_inputs(9, 2, 4, 2, 16, 3, [9, 40]))
     kq, vq = tdec.quantize_kv_pages(kp, "int4"), tdec.quantize_kv_pages(vp, "int4")
     o = tdec.paged_decode_attention(q, kq, vq, lens, tbl, pages_per_block=2)
-    want = tdec.paged_decode_plain(q, kq, vq, lens, tbl)
+    want = tdec.paged_decode_plain(q, kq, vq, lens, tbl, splits=tdec.key_splits(3, 2))
     assert torch.equal(o, want)
     assert (tdec.DECODE_KERNEL.launches, tdec.VERIFY_KERNEL.launches) == before
 

@@ -15,7 +15,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "flash_attention_dlrs_tpu_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
-SCRIPTS = ["chip_smoke.py", "scripts/eval_ppl_torch.py"]
+SCRIPTS = ["chip_smoke.py", "scripts/eval_ppl_torch.py", "bench_torch.py",
+           "scripts/run_bench_suite_torch.py", "scripts/run_golden_gate_torch.py"]
 MODULES = sorted(
     ".".join(pathlib.Path(f).with_suffix("").parts).removesuffix(".__init__")
     for f in PORT_FILES
@@ -87,6 +88,8 @@ def test_default_device_entry_points_need_a_card():
         init_kv_pools, init_params_numpy, make_train_state, params_from_jax,
         perplexity_paged,
     )
+    from flash_attention_dlrs_tpu_torch import current_geometry
+    from flash_attention_dlrs_tpu_torch.bench.suite import run_bench
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
     from flash_attention_dlrs_tpu_torch.runtime.sampling import batch_params
 
@@ -111,6 +114,8 @@ def test_default_device_entry_points_need_a_card():
         lambda: import_hf_phi3({}, cfg=cfg),
         lambda: perplexity_paged(params_from_jax(tree, cfg, device="cpu"), cfg,
                                  [[1, 2, 3]]),
+        lambda: current_geometry(),
+        lambda: run_bench(seq_lens=(128,)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -131,15 +136,17 @@ def test_library_names_follow_the_source_hash():
     from flash_attention_dlrs_tpu_torch import _cuda
 
     # one source for each kernel, head dim (d 128 unsuffixed) and, for the
-    # attention kernels, segment-id flag
-    want = sorted(f"{kernel}{d}{seg}.cu" for kernel, segs in (
+    # attention kernels, segment-id flag; one for the other tiles of the
+    # forward and of the sweeps; verify at d 256 in two, by q dtype
+    want = sorted([f"{kernel}{d}{seg}.cu" for kernel, segs in (
         ("attn_fwd", ("", "_seg")), ("attn_bwd", ("", "_seg")),
         ("paged_decode", ("",)), ("paged_verify", ("",)))
-        for d in ("", "_d64", "_d256") for seg in segs)
-    assert _cuda.all_sources() == want and len(want) == 18
+        for d in ("", "_d64", "_d256") for seg in segs]
+        + ["attn_fwd_tiles.cu", "attn_bwd_tiles.cu", "paged_verify_d256_f16.cu"])
+    assert _cuda.all_sources() == want and len(want) == 21
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 18
+    assert len({p.name for p in paths}) == 21
 
 
 def test_every_kernel_entry_is_defined_in_its_source():
@@ -197,7 +204,8 @@ def test_exports_match_the_jax_package():
     from flash_attention_dlrs_tpu_torch import ops
 
     for name in ("SegmentIds", "nn", "flash_attention", "flash_attention_forward",
-                 "flash_attention_backward", "reference_attention", "alibi_slopes_for"):
+                 "flash_attention_backward", "reference_attention", "alibi_slopes_for",
+                 "BlockSizes", "default_block_sizes", "current_geometry"):
         assert name in tp.__all__ and hasattr(tp, name), name
     assert ops.SegmentIds is tp.SegmentIds
     assert tp.nn.dot_product_attention.__module__ == "flash_attention_dlrs_tpu_torch.nn"

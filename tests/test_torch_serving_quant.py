@@ -298,7 +298,8 @@ def test_int4_verify_step_with_a_long_chunk_against_the_oracle(model, jparams,
     got, pools = step(model, pools, *targs)
 
     def oracle(q, k_pages, v_pages, lengths, tbl, *, sm_scale, alibi_slopes,
-               logit_softcap):
+               logit_softcap, pages_per_block=None):
+        del pages_per_block  # key splits change no value of the oracle
         t = q.shape[2]
         return torch.stack([tdec.paged_reference_attention(
             q[:, :, i], k_pages, v_pages, lengths - (t - 1 - i), tbl,
