@@ -126,6 +126,20 @@ Then drives every path of the port:
   of the bf16 peak, and bench_torch.py's one JSON line;
 - the golden gate (golden): scripts/run_golden_gate_torch.py's 200 fp32
   trials at B32 H32 N256 d128 against the oracle at the reference ladder;
+- scale-out (parallel/ on torch.distributed; one card, so 4 ranks, 2 for
+  serve_mesh, share cuda:0 in a gloo group and every collective passes
+  through host memory): ring (causal, non-causal), zigzag, combine and
+  head-parallel attention at the training-bench attention over 16384
+  tokens, forward and backward, against the single-process op, exact
+  launches per rank, dropout's kept fraction and bitwise replay
+  (parallel_attention); context- and head-sharded paged decode at the
+  serving-bench decode heads from bf16 and int8 pools (parallel_decode);
+  the training-bench model trained dp 2 x tp 2 against the single-process
+  step, and a 2-layer fp32 copy (train_mesh); the serving-bench model
+  served tp 2 from bf16 and int8 KV against the single-process engine,
+  tokens equal on both ranks, and a 2-layer fp32 copy (serve_mesh);
+  parallel/dryrun.py (dryrun); examples 01, 03 and 04 --world 4 --backend
+  gloo (examples);
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -156,14 +170,16 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
        python3 chip_smoke.py --only PHASE[,PHASE...]
            builds the kernels and runs only the named phases of
            serve_rolling, serve_streaming, native, eval_gate, encoder,
-           tune, bench and golden (development runs; prints no result
-           line).
+           tune, bench, golden, parallel_attention, parallel_decode,
+           train_mesh, serve_mesh, dryrun and examples (development runs;
+           prints no result line).
 """
 
 from __future__ import annotations
 
 import importlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1653,6 +1669,23 @@ def phase_paged_mutants(dev, builds):
     return checks
 
 
+_WEIGHTS: dict = {}
+
+
+def seeded_weights(cfg, seed=0):
+    """``init_params_numpy(cfg, seed)``, drawn once a run for each set of
+    widths (the fp32 tree does not depend on the dtype or the position
+    encoding): the phases that rebuild the serving-bench or training-bench
+    model reuse the host copy instead of drawing 0.8 / 1.5 B numbers again."""
+    from flash_attention_dlrs_tpu_torch.models import init_params_numpy
+
+    key = (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.tie_embeddings, seed)
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = init_params_numpy(cfg, seed)
+    return _WEIGHTS[key]
+
+
 SERVE_CFG = dict(vocab_size=32000, d_model=2048, n_layers=16, n_q_heads=16,
                  n_kv_heads=8, head_dim=128, d_ff=5504)
 SERVE_PROMPTS = (200, 2048, 512, 1300, 777, 1800, 1024, 1536)
@@ -1789,16 +1822,14 @@ def check_prefill(model, cfg, dev, prompt):
 
 def phase_serve(dev):
     import torch
-    from flash_attention_dlrs_tpu_torch.models import (
-        ModelConfig, init_params_numpy, params_from_jax,
-    )
+    from flash_attention_dlrs_tpu_torch.models import ModelConfig, params_from_jax
     from flash_attention_dlrs_tpu_torch.ops.decode import DECODE_KERNEL
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
     cfg = ModelConfig(**SERVE_CFG, dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    model = params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev)
+    model = params_from_jax(seeded_weights(cfg), cfg, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     setup_s = time.perf_counter() - t0
@@ -3681,7 +3712,7 @@ def phase_train(dev, name="train", **variant):
                       remat_policy="block")
     t0 = time.perf_counter()
     model, opt_state, optimizer = make_train_state(
-        cfg, seed=0, device=dev, learning_rate=3e-4)
+        cfg, params=seeded_weights(cfg), device=dev, learning_rate=3e-4)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
@@ -4132,7 +4163,7 @@ def phase_remat(dev):
     from flash_attention_dlrs_tpu_torch.models.transformer import REMAT_SAVED
 
     cfg0 = ModelConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True)
-    model = params_from_jax(init_params_numpy(cfg0, seed=0), cfg0, device=dev)
+    model = params_from_jax(seeded_weights(cfg0), cfg0, device=dev)
     initial = {n: t.clone() for n, t in model.state_dict().items()}
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg0.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
@@ -5469,13 +5500,11 @@ def streaming_reference(model, cfg, sinks, window):
 
 def serving_bench_model(dev, dtype=None, n_layers=None):
     import torch
-    from flash_attention_dlrs_tpu_torch.models import (
-        ModelConfig, init_params_numpy, params_from_jax,
-    )
+    from flash_attention_dlrs_tpu_torch.models import ModelConfig, params_from_jax
 
     cfg = ModelConfig(**{**SERVE_CFG, **({"n_layers": n_layers} if n_layers else {})},
                       dtype=dtype or torch.bfloat16)
-    return params_from_jax(init_params_numpy(cfg, seed=0), cfg, device=dev), cfg
+    return params_from_jax(seeded_weights(cfg), cfg, device=dev), cfg
 
 
 def phase_serve_streaming(dev):
@@ -5676,7 +5705,7 @@ def phase_native(dev, model, cfg):
 # 2048 tokens of val.bin, dense and paged from every KV kind.
 GATE_CFG = dict(vocab_size=512, d_model=768, n_layers=8, n_q_heads=12, n_kv_heads=4,
                 head_dim=64, d_ff=2048)
-GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 350, 200, 6e-4
+GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 200, 200, 6e-4
 GATE_CORPUS_MB, GATE_EVAL, GATE_PPL, GATE_PAGED_RTOL = 32, 2, 0.1, 1e-2
 GATE_KINDS = ("bf16", "int8", "int4", "e4m3", "e5m2")
 
@@ -6651,6 +6680,10 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
     kernels += d256_mode_entries(entry, packed, timings, dec_res, d256_modes)
     kernels += later_entries(entry, later["eval_gate"], later["encoder"])
     kernels += tile_entries(entry, later["tune"])
+    # the scale-out phases' launches, every rank's, join their kernels' entries
+    for name in ("parallel_attention", "parallel_decode", "train_mesh", "serve_mesh", "dryrun"):
+        for kernel in kernels:
+            kernel["launches"] += later[name]["entry_launches"].get(kernel["name"], 0)
     emit({"kernels": kernels})
     idle = [k["name"] for k in kernels if not k["launches"]]
     if idle:
@@ -6841,20 +6874,453 @@ def pair(parent_dir) -> None:
         emit({"phase": "pair", "run": i + 1, "tree": name, "ms": json.loads(line[5:])})
 
 
+# ---------------------------------------------------------------------------
+# Scale-out (parallel/ on torch.distributed).  One card: each phase runs its
+# ranks as processes that share cuda:0 in a gloo group (NCCL refuses two
+# ranks on one device), so every collective passes through host memory.
+# What one card shows: the sharded algorithms are right, each rank launches
+# the kernels it should, the zigzag ring balances them.  Its times are
+# gloo times of ranks that share one card, not scaling figures.
+# ---------------------------------------------------------------------------
+
+PAR_RANKS, PAR_BACKEND, PAR_DEVICE = 4, "gloo", "cuda"
+PAR_ATTN = (1, 32, 8, 16384, 128)  # B, Hq, Hkv, global N, d: the training-bench attention
+PAR_FP32_N, PAR_COMBINE_NQ, PAR_DROPOUT = 2048, 16, 0.1
+PAR_DECODE = (8, 16, 8, 128, 128)  # B, Hq, Hkv, d, page: the serving-bench decode heads
+PAR_DECODE_TOKENS = 2048  # a rank's tokens of each sequence, context-sharded
+# train_mesh: the training-bench model (TRAIN_CFG, bf16, block remat) at dp 2
+# x tp 2, the global batch TRAIN_BATCH x TRAIN_SEQ, 2 steps; a 2-layer fp32
+# copy at B4 x 512 for one step.  The bf16 loss averages 16k tokens' cross
+# entropy: a bf16 reordering of the model's sums moves it far less than
+# TRAIN_MESH_LOSS_REL of itself.
+TRAIN_MESH_STEPS, TRAIN_MESH_LOSS_REL = 2, 5e-3
+TRAIN_MESH_FP32 = (4, 512)
+MESH_FP32_GAP = 1e-3  # x std: the fp32 copies' loss and weights
+# Adam's first update moves every weight by about lr·sign(g): where g sits at
+# the summation-order noise the two runs move it by up to 2 lr apart (3% of
+# a weight's std at lr 3e-4), so a handful of weights may pass the limit.
+MESH_FP32_LR, MESH_FP32_PAST = 3e-4, 1e-4
+# serve_mesh: tp 2, phase serve's 8 requests at 4 slots, 16 new tokens each
+# (cut from serve's 32 for the script's time)
+SERVE_MESH_TP, SERVE_MESH_NEW_TOKENS = 2, 16
+PAR_EXAMPLES = (("01_attention_features_torch.py", []), ("03_serve_paged_torch.py", []),
+                ("04_multichip_mesh_torch.py", ["--world", "4", "--backend", "gloo"]))
+# kernels-line entries by kernel symbol (paged decode by its pool kind)
+PAR_ENTRIES = {"attn_fwd": "attn_fwd", "attn_fwd_d64": "attn_fwd[d64]",
+               "attn_bwd_preprocess": "attn_bwd_preprocess", "attn_bwd_dkv": "attn_bwd_dkv",
+               "attn_bwd_dq": "attn_bwd_dq", "attn_bwd_dkv_d64": "attn_bwd_dkv[d64]",
+               "attn_bwd_dq_d64": "attn_bwd_dq[d64]"}
+
+
+def par_group(fn, world, *args, timeout=900):
+    """``fn(*args, PAR_DEVICE)`` on ``world`` gloo ranks of the card (a
+    failing rank fails the group and raises here); (per-rank results,
+    seconds)."""
+    from flash_attention_dlrs_tpu_torch.parallel.launch import launch
+
+    t0 = time.perf_counter()
+    out = launch(fn, world, *args, PAR_DEVICE, backend=PAR_BACKEND, device=PAR_DEVICE,
+                 timeout=timeout)
+    return out, time.perf_counter() - t0
+
+
+def par_record(phase, world, seconds, **rest):
+    import torch
+
+    return {"phase": phase, "backend": PAR_BACKEND, "ranks": world,
+            "cards": torch.cuda.device_count(), "card": card_line(),
+            "timing": f"{PAR_BACKEND}, {world} ranks on one card", "seconds": seconds, **rest}
+
+
+def entry_launches(ranks, key="launches", kinds=None):
+    """The kernels-line launches of a group's runs: per-rank counts summed by
+    entry (:data:`PAR_ENTRIES`); ``kinds`` maps a run name to its pool kind,
+    whose paged decode launches go to ``paged_decode[<kind>]``."""
+    out = {}
+    for rank in ranks:
+        for name, rec in rank.items():
+            for sym, n in rec[key].items():
+                entry = PAR_ENTRIES.get(sym)
+                if sym == "paged_decode" and kinds and kinds.get(name):
+                    entry = f"paged_decode[{kinds[name]}]"
+                if entry:
+                    out[entry] = out.get(entry, 0) + n
+    return out
+
+
+def par_attention_cases():
+    b, hq, hkv, n, d = PAR_ATTN
+    shapes = [(b, hq, n, d), (b, hkv, n, d), (b, hkv, n, d), (b, hq, n, d)]
+    ctx = ("data", None, "context", None)
+    cp = dict(axes=[1, PAR_RANKS], names=("data", "context"), q_spec=ctx, kv_spec=ctx,
+              gather=False)
+    bf16 = lambda seed, s=shapes: {"seed": seed, "shapes": s, "dtype": "bfloat16"}
+    fp32_shapes = [(b, 8, PAR_FP32_N, d), (b, 2, PAR_FP32_N, d), (b, 2, PAR_FP32_N, d),
+                   (b, 8, PAR_FP32_N, d)]
+    uniform = {"uniform": True, "shapes": shapes[:3], "dtype": "bfloat16"}
+    heads = ("data", "model", None, None)
+    return [
+        dict(name="ring_causal", strategy="ring", kw=dict(causal=True, model_axis=None),
+             inputs=bf16(1), grads=True, check=True, **cp),
+        dict(name="ring_noncausal", strategy="ring", kw=dict(causal=False, model_axis=None),
+             inputs=bf16(2), grads=True, check=True, **cp),
+        dict(name="zigzag", strategy="zigzag", kw=dict(model_axis=None), inputs=bf16(3),
+             zigzag=True, grads=True, check=True, **cp),
+        dict(name="combine", strategy="combine", kw={}, check=True,
+             inputs=bf16(4, [(b, hq, PAR_COMBINE_NQ, d)] + shapes[1:3]),
+             **{**cp, "q_spec": ("data", None, None, None)}),
+        dict(name="head", strategy="head", kw=dict(causal=True), inputs=bf16(5), grads=True,
+             check=True, axes=[1, PAR_RANKS], names=("data", "model"), q_spec=heads,
+             kv_spec=heads, gather=False),
+        dict(name="ring_causal_fp32", strategy="ring", kw=dict(causal=True, model_axis=None),
+             inputs={"seed": 6, "shapes": fp32_shapes, "dtype": "float32"}, grads=True,
+             check=True, **cp),
+        dict(name="ring_dropout", strategy="ring", seed=7, repeat=True, inputs=uniform,
+             kw=dict(causal=False, model_axis=None, dropout_rate=PAR_DROPOUT), **cp),
+        dict(name="zigzag_dropout", strategy="zigzag", seed=7, repeat=True, inputs=uniform,
+             zigzag=True, kw=dict(model_axis=None, dropout_rate=PAR_DROPOUT), **cp),
+    ]
+
+
+def par_expected(name, r, n):
+    """The launches rank ``r`` of ``n`` must make in case ``name``: the
+    causal ring r + 1 forwards and sweeps (the blocks it sees), the zigzag
+    n + 2 on every rank, the non-causal ring n, the combine and the
+    head-parallel call one; bf16 on the wgmma route, fp32 on its own."""
+    per = {"ring_causal": r + 1, "ring_causal_fp32": r + 1, "ring_noncausal": n,
+           "zigzag": n + 2, "combine": 1, "head": 1, "ring_dropout": n,
+           "zigzag_dropout": n + 2}[name]
+    route = "fp32" if name.endswith("fp32") else "wgmma"
+    want = {"attn_fwd": per, f"attn_fwd@{route}": per}
+    if name in ("ring_causal", "ring_noncausal", "zigzag", "head", "ring_causal_fp32"):
+        for k in ("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq"):
+            want[k] = per
+        want[f"attn_bwd_dkv@{route}"] = want[f"attn_bwd_dq@{route}"] = per
+    return want
+
+
+def phase_parallel_attention(dev):
+    """Ring (causal, non-causal), zigzag, combine and head-parallel attention
+    over 4 gloo ranks of the card at the training-bench attention (B1, 32 q /
+    8 kv heads of 128, bf16, 16384 tokens: 4096 a rank), forward and
+    backward, each rank's shards held against the single-process op on the
+    whole sequence on the same card (bf16_check / bwd_check limits); an fp32
+    causal ring at 2048 tokens at the fp32 ladder; each rank's launches
+    exact (the causal ring's rank r launches r + 1 forwards and sweeps, the
+    zigzag's every rank n + 2); ring and zigzag with dropout 0.1 on uniform
+    scores: two calls bitwise equal, finite, the kept fraction (read back as
+    0.9 x mean O) within 1% of 0.9."""
+    from flash_attention_dlrs_tpu_torch.parallel import workloads
+
+    cases = par_attention_cases()
+    ranks, seconds = par_group(workloads.attention_cases, PAR_RANKS, cases)
+    rec = par_record("parallel_attention", PAR_RANKS, seconds, cases={})
+    ok = True
+    for case in cases:
+        name = case["name"]
+        per = [r[name] for r in ranks]
+        exact = all(p["launches"] == par_expected(name, i, PAR_RANKS) for i, p in enumerate(per))
+        row = {"launches": [p["launches"] for p in per], "launches_exact": exact,
+               "seconds": [p["seconds"] for p in per]}
+        ok &= exact
+        if case.get("check"):
+            row["held"] = [p["held"] for p in per]
+            ok &= all(h["ok"] for p in per for h in p["held"])
+        if case.get("repeat"):
+            keep = (1 - PAR_DROPOUT) * float(np.mean([p["mean_o"] for p in per]))
+            row.update(keep_rate=keep, bitwise=all(p["bitwise"] for p in per),
+                       finite=all(p["finite"] for p in per))
+            ok &= (row["bitwise"] and row["finite"]
+                   and abs(keep - (1 - PAR_DROPOUT)) <= 0.01 * (1 - PAR_DROPOUT))
+        rec["cases"][name] = row
+    rec["entry_launches"] = entry_launches(ranks)
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("parallel_attention: a case failed its check (see its line)")
+    return rec
+
+
+def par_decode_cases():
+    b, hq, hkv, d, ps = PAR_DECODE
+    rng = np.random.default_rng(11)
+    per_rank = PAR_DECODE_TOKENS // ps  # pages a rank holds of each sequence
+    local_pool = b * per_rank
+    # context-sharded: every rank holds 2048 tokens of each sequence, but the
+    # last sequence ends 1000 tokens into rank 1 (ranks 2-3 hold none of it)
+    tok = np.full((b, PAR_RANKS), PAR_DECODE_TOKENS, np.int32)
+    tok[-1, 1:] = 0
+    tok[-1, 1] = 1000 * PAR_DECODE_TOKENS // 2048
+    tables = np.stack([np.stack([rng.permutation(local_pool)[:per_rank]
+                                 for _ in range(PAR_RANKS)]) for _ in range(b)]).astype(np.int32)
+    g_tbl = np.zeros((b, PAR_RANKS * per_rank), np.int32)
+    for s in range(b):
+        pages = [c * local_pool + tables[s, c, j] for c in range(PAR_RANKS)
+                 for j in range(-(-int(tok[s, c]) // ps))]
+        g_tbl[s, :len(pages)] = pages
+    pool = PAR_RANKS * local_pool
+    ctx = dict(layout="context", axes=[PAR_RANKS], names=("context",), lengths=tok,
+               tables=tables, global_lengths=tok.sum(1).astype(np.int32), global_tables=g_tbl,
+               check=True, gather=False)
+    shapes = [(b, hq, d), (hkv, pool, ps, d), (hkv, pool, ps, d)]
+    # head-sharded: the serving pool of phase serve (17 pages a sequence)
+    h_pool = b * SERVE_PPS + 1
+    h_tbl = rng.permutation(h_pool)[: b * SERVE_PPS].reshape(b, SERVE_PPS).astype(np.int32)
+    h_len = np.array(DECODE_B8_LENGTHS, np.int32)
+    head = dict(layout="head", lengths=h_len, tables=h_tbl, global_lengths=h_len,
+                global_tables=h_tbl, check=True, gather=False)
+    h_shapes = [(b, hq, d), (hkv, h_pool, ps, d), (hkv, h_pool, ps, d)]
+    cases = []
+    for kind in ("bf16", "int8"):
+        cases.append(dict(name=f"context_{kind}", kind=kind,
+                          inputs={"seed": 21, "shapes": shapes, "dtype": "bfloat16"}, **ctx))
+        for tp, axes in ((2, [2, 2]), (4, [1, 4])):
+            cases.append(dict(name=f"head_tp{tp}_{kind}", kind=kind, axes=axes,
+                              names=("data", "model"),
+                              inputs={"seed": 22, "shapes": h_shapes, "dtype": "bfloat16"},
+                              **head))
+    return cases
+
+
+def phase_parallel_decode(dev):
+    """Context-sharded paged decode (4 ranks x 2048 tokens of each of 8
+    sequences, one sequence on 1.5 ranks only) and head-sharded decode (tp 2
+    with the batch over 2 data ranks, tp 4) at the serving-bench decode
+    heads (16 q / 8 kv of 128, page 128, B8) from bf16 and int8 pools, over
+    4 gloo ranks of the card, each held against the single-process paged
+    decode of the whole context on the same card (decode_check's limits,
+    with P|V| for the partials each rounded to bf16)."""
+    from flash_attention_dlrs_tpu_torch.parallel import workloads
+
+    cases = par_decode_cases()
+    ranks, seconds = par_group(workloads.decode_cases, PAR_RANKS, cases)
+    rec = par_record("parallel_decode", PAR_RANKS, seconds, cases={})
+    ok = True
+    for case in cases:
+        per = [r[case["name"]] for r in ranks]
+        launched = all(p["launches"].get("paged_decode", 0) == 1 for p in per)
+        held = all(h["ok"] for p in per for h in p["held"])
+        ok &= launched and held
+        rec["cases"][case["name"]] = {
+            "launches": [p["launches"] for p in per], "one_launch_a_rank": launched,
+            "held": [p["held"][0] for p in per], "seconds": [p["seconds"] for p in per]}
+    rec["entry_launches"] = entry_launches(
+        ranks, kinds={c["name"]: c["kind"] for c in cases})
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("parallel_decode: a case failed its check (see its line)")
+    return rec
+
+
+def phase_train_mesh(dev):
+    """The training-bench model at full width and depth (TRAIN_CFG: b7
+    widths, 8 layers, bf16, block remat) trained dp 2 x tp 2 over 4 gloo
+    ranks of the card, global batch 8 x 2048, 2 steps: each step's loss
+    held against the single-process steps on the same batch and weights
+    (run on the same card by rank 0 after the mesh run, from the weights
+    it drew), every rank's launches exact (2 forwards and one of each
+    backward kernel a layer and step, on the wgmma route); a 2-layer fp32
+    copy (B4 x 512, one step) against the single-process step on every
+    rank: the loss within 1e-3 of itself, each rank's shard of the updated
+    weights within 1e-3 x std of the same shard but for a fraction
+    MESH_FP32_PAST, none past 2 lr."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import ModelConfig
+    from flash_attention_dlrs_tpu_torch.parallel import workloads
+
+    import tempfile
+
+    cfg = ModelConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int64)
+    b32, n32 = TRAIN_MESH_FP32
+    cfg32 = ModelConfig(**{**TRAIN_CFG, "n_layers": 2}, dtype=torch.float32, remat=True)
+    tok32 = rng.integers(0, cfg.vocab_size, (b32, n32 + 1)).astype(np.int64)
+    with tempfile.TemporaryDirectory() as tmp:  # the seed-0 weights, drawn once a run
+        saved = {}
+        for name, c in (("bf16", cfg), ("fp32", cfg32)):
+            os.mkdir(os.path.join(tmp, name))
+            saved[name] = workloads.save_weights(seeded_weights(c), os.path.join(tmp, name))
+        runs = [dict(name="bf16", cfg=cfg, params=saved["bf16"], tokens=tokens, axes=[2, 2],
+                     steps=TRAIN_MESH_STEPS, gather=False, reference="losses"),
+                dict(name="fp32_2layer", cfg=cfg32, params=saved["fp32"], tokens=tok32,
+                     axes=[2, 2], steps=1, gather=False, reference="weights",
+                     learning_rate=MESH_FP32_LR, gap_limit=MESH_FP32_GAP)]
+        ranks, seconds = par_group(workloads.models_suite, PAR_RANKS, runs, [])
+    per = [r["bf16"] for r in ranks]
+    n_fwd = 2 * cfg.n_layers * TRAIN_MESH_STEPS
+    n_bwd = cfg.n_layers * TRAIN_MESH_STEPS
+    want = {"attn_fwd": n_fwd, "attn_fwd@wgmma": n_fwd,
+            **dict.fromkeys(("attn_bwd_preprocess", "attn_bwd_dkv", "attn_bwd_dq",
+                             "attn_bwd_dkv@wgmma", "attn_bwd_dq@wgmma"), n_bwd)}
+    exact = all(p["launches"] == want for p in per)
+    losses, single = per[0]["losses"], per[0]["ref_losses"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, single))
+    f32 = ranks[0]["fp32_2layer"]
+    f32_loss_gap = abs(f32["losses"][0] - f32["ref_losses"][0]) / abs(f32["ref_losses"][0])
+    gaps = [r["fp32_2layer"]["weight_gaps"] for r in ranks]
+    weights_ok = all(g["frac_past_limit"] <= MESH_FP32_PAST
+                     and g["max_abs_gap"] <= 2 * MESH_FP32_LR for g in gaps)
+    ok = (exact and all(p["losses"] == losses for p in per) and weights_ok
+          and loss_gap <= TRAIN_MESH_LOSS_REL and f32_loss_gap <= MESH_FP32_GAP
+          and all(np.isfinite(losses)))
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    rec = par_record(
+        "train_mesh", PAR_RANKS, seconds, mesh={"data": 2, "model": 2}, model="training-bench",
+        layers=cfg.n_layers, batch=[TRAIN_BATCH, TRAIN_SEQ], losses=losses,
+        single_process_losses=single,
+        loss_gap_rel=loss_gap, loss_limit_rel=TRAIN_MESH_LOSS_REL,
+        launches=[p["launches"] for p in per], launches_exact=exact,
+        step_seconds=[p["step_seconds"] for p in per],
+        tokens_per_s=[tokens_per_step / s for s in per[0]["step_seconds"]],
+        fp32_2layer={"losses": f32["losses"], "ref_losses": f32["ref_losses"],
+                     "loss_gap_rel": f32_loss_gap, "loss_limit_rel": MESH_FP32_GAP,
+                     "weights_by_rank": gaps, "weights_ok": weights_ok,
+                     "weights_rule": f"at most {MESH_FP32_PAST:g} of the weights past "
+                                     f"{MESH_FP32_GAP:g} x std, none past 2 lr"},
+        entry_launches=entry_launches(ranks), ok=bool(ok))
+    emit(rec)
+    if not ok:
+        raise AssertionError("train_mesh: a check failed (see its line)")
+    return rec
+
+
+def phase_serve_mesh(dev):
+    """The serving-bench model at full width and depth (SERVE_CFG: 16
+    layers, d_model 2048, 16 q / 8 kv heads) served tensor-parallel, tp 2
+    over 2 gloo ranks of the card: phase serve's 8 requests at 4 slots
+    (SERVE_MESH_NEW_TOKENS new tokens each) from bf16 and int8 KV, greedy tokens against the single-process engine on
+    the same card (bf16 / int8 may part only at near-ties, divergences), the
+    tokens equal on both ranks, each rank's pools holding 4 of the 8 kv
+    heads; a 2-layer fp32 copy's tokens equal to the single-process
+    engine's."""
+    import tempfile
+
+    import torch
+    from flash_attention_dlrs_tpu_torch.parallel import workloads
+
+    model, cfg = serving_bench_model(dev)
+    prompts = serve_prompts(cfg)
+    kw = lambda kv: dict(num_pages=4 * SERVE_PPS + 1, page_size=SERVE_PAGE, num_slots=4,
+                         pages_per_seq=SERVE_PPS, kv_dtype=kv_kind(kv),
+                         quantized_kv=kv in QUANT_KINDS)
+    single = {}
+    for kv in ("bf16", "int8"):
+        single[kv] = serve_engine(model, cfg, dev, kv=kv).generate(
+            prompts, max_new_tokens=SERVE_MESH_NEW_TOKENS)
+        torch.cuda.empty_cache()
+    model32, cfg32 = serving_bench_model(dev, torch.float32, 2)
+    single["fp32_2layer"] = serve_engine(model32, cfg32, dev, kv="fp32").generate(
+        prompts, max_new_tokens=SERVE_MESH_NEW_TOKENS)
+    del model32
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:  # the seed-0 weights, drawn once a run
+        weights = workloads.save_weights(seeded_weights(cfg), tmp)
+        runs = [dict(name=kv, cfg=cfg, params=weights, prompts=prompts,
+                     new_tokens=SERVE_MESH_NEW_TOKENS, axes=[SERVE_MESH_TP], names=("model",),
+                     engine_kw=kw(kv)) for kv in ("bf16", "int8")]
+        runs.append(dict(name="fp32_2layer", cfg=cfg32, params=0, prompts=prompts,
+                         new_tokens=SERVE_MESH_NEW_TOKENS, axes=[SERVE_MESH_TP],
+                         names=("model",), engine_kw=kw("fp32")))
+        ranks, seconds = par_group(workloads.models_suite, SERVE_MESH_TP, [], runs)
+    rec = par_record("serve_mesh", SERVE_MESH_TP, seconds, model="serving-bench",
+                     mesh={"model": SERVE_MESH_TP}, runs={})
+    ok = True
+    for run in runs:
+        name = run["name"]
+        per = [r[name] for r in ranks]
+        got = per[0]["tokens"]["generate"]
+        want = [list(map(int, t)) for t in single[name]]
+        row = {"equal_on_every_rank": all(p["all_ranks_equal"] for p in per),
+               "pool_heads": [p["pool_heads"] for p in per],
+               "launches": [p["launches"] for p in per],
+               "seconds": [p["seconds"]["generate"] for p in per],
+               "tokens_equal_single_process": got == want}
+        ok &= row["equal_on_every_rank"] and all(
+            h == cfg.n_kv_heads // SERVE_MESH_TP for h in row["pool_heads"])
+        ok &= all(p["launches"].get("attn_fwd", 0) > 0 and p["launches"].get("paged_decode", 0) > 0
+                  for p in per)
+        if name == "fp32_2layer":
+            ok &= row["tokens_equal_single_process"]
+        else:
+            row["divergences"] = divergences(model, cfg, dev, prompts, want, got)
+            row["near_ties_only"] = near_ties_only(row["divergences"])
+            ok &= row["near_ties_only"]
+        rec["runs"][name] = row
+    del model
+    torch.cuda.empty_cache()
+    rec["entry_launches"] = entry_launches(ranks, kinds={"bf16": "bf16", "int8": "int8"})
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("serve_mesh: a check failed (see its line)")
+    return rec
+
+
+def phase_dryrun(dev):
+    """parallel/dryrun.py over 4 gloo ranks of the card: a dp 2 x tp 2 train
+    step with dropout 0.1, ring fwd + bwd with dropout, the zigzag ring
+    against the oracle (< 2e-4), context-sharded paged decode and a tp 2
+    engine's generate."""
+    from flash_attention_dlrs_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    steps = dryrun_multichip(PAR_RANKS, device=PAR_DEVICE, backend=PAR_BACKEND)
+    rec = par_record("dryrun", PAR_RANKS, time.perf_counter() - t0, steps=steps,
+                     ok=[s["step"] for s in steps] == ["train", "ring", "zigzag",
+                                                       "context_decode", "engine"],
+                     entry_launches=entry_launches(
+                         [{s["step"]: {"launches": n} for s in steps
+                           for n in [s["launches_by_rank"][r]]} for r in range(PAR_RANKS)]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("dryrun: steps missing")
+    return rec
+
+
+def phase_examples(dev):
+    """examples/01, 03 and 04 (--world 4 --backend gloo) of the port on the
+    card, each in a process of its own, the three at once."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, str(root / "examples" / name), *args],
+                                    cwd=root, env=env, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, args in PAR_EXAMPLES}
+    runs, failed = {}, []
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        runs[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                      "tail": out.strip().splitlines()[-3:]}
+        if proc.returncode:
+            failed.append(f"{name}:\n{err[-3000:]}")
+    rec = par_record("examples", PAR_RANKS, time.perf_counter() - t0, runs=runs)
+    emit(rec)
+    if failed:
+        raise RuntimeError("examples failed: " + "\n".join(failed))
+    return rec
+
+
 LATER_PHASES = ("serve_rolling", "serve_streaming", "native", "eval_gate", "encoder", "tune",
-                "bench", "golden")
+                "bench", "golden", "parallel_attention", "parallel_decode", "train_mesh",
+                "serve_mesh", "dryrun", "examples")
 
 
 def later_phases(dev, only=None):
     """The phases that follow phase time, in order (``only``: those named):
     the rings, the native library, the perplexity gate, the encoder, the
-    tiles and the tuner, the bench suite and the golden gate; their records
-    by name."""
+    tiles and the tuner, the bench suite, the golden gate and the scale-out
+    phases; their records by name."""
     import torch
 
     names = LATER_PHASES if only is None else [n for n in LATER_PHASES if n in only]
-    out, model = {}, None
+    out, model, seconds = {}, None, {}
     for name in names:
+        t0 = time.perf_counter()
         if name == "serve_streaming":
             out[name], model, cfg = phase_serve_streaming(dev)
         elif name == "native":
@@ -6865,6 +7331,8 @@ def later_phases(dev, only=None):
         else:
             out[name] = globals()[f"phase_{name}"](dev)
         torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "later_seconds", "seconds": seconds})
     return out
 
 

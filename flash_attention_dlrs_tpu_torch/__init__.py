@@ -8,12 +8,15 @@ first use and bound with ctypes; everything around them is PyTorch.  The op
 API takes packed sequences (:class:`SegmentIds`) and fp8 V, and :mod:`.nn`
 is the ``jax.nn.dot_product_attention`` adapter.  :class:`BlockSizes`
 pins the kernels' tiles and :mod:`.tuning` times them (``tune=True``),
-against :mod:`.geometry`'s model of the card.  Every kernel has a plain
-PyTorch version that CPU tensors take.  Entry points run on the card unless
-the caller asks for the CPU.  See ROADMAP.md for what is not ported yet.
+against :mod:`.geometry`'s model of the card.  :mod:`.parallel` scales
+out over ``torch.distributed``: process meshes, ring and zigzag context
+parallelism, sharded attention and paged decode, dp × tp training and
+tensor-parallel serving.  Every kernel has a plain PyTorch version that CPU
+tensors take.  Entry points run on the card unless the caller asks for the
+CPU.
 """
 
-from . import nn
+from . import nn, parallel
 from .geometry import HopperGeometry, current_geometry
 from .ops import (
     SegmentIds,
@@ -39,6 +42,7 @@ __all__ = [
     "flash_attention_backward",
     "flash_attention_forward",
     "nn",
+    "parallel",
     "reference_attention",
     "reference_attention_grads",
     "__version__",

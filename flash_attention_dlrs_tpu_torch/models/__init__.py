@@ -19,7 +19,7 @@ from .decoding import (
 from .encoder import encode, init_encoder_params, mlm_logits, mlm_loss
 from .eval import perplexity_dense, perplexity_paged
 from .optim import adamw8bit
-from .train import AdamW, make_train_state, make_train_step
+from .train import AdamW, make_train_state, make_train_step, param_shardings
 from .trainer import (
     TrainSpec,
     fit,
@@ -67,6 +67,7 @@ __all__ = [
     "make_verify_step",
     "mlm_logits",
     "mlm_loss",
+    "param_shardings",
     "params_from_jax",
     "params_to_numpy",
     "perplexity_dense",

@@ -83,11 +83,15 @@ def init_kv_pools(
     dtype=torch.bfloat16,
     quantized: bool = False,
     device="cuda",
+    num_kv_heads: Optional[int] = None,
 ) -> KVPools:
     """Zeroed pools, one K and one V per layer: value pools of ``dtype``,
     or with ``quantized`` int8 / fp8 payloads (``dtype``) or, for
     ``dtype="int4"``, packed int4 bytes [Hkv, P, page_size/2, d], with
-    scales of 1.  d is the kernels' head dim, ``kernel_width(head_dim)``."""
+    scales of 1.  d is the kernels' head dim, ``kernel_width(head_dim)``.
+    Hkv is ``num_kv_heads`` (a tensor-parallel rank's share), by default
+    ``cfg.n_kv_heads``."""
+    hkv = cfg.n_kv_heads if num_kv_heads is None else num_kv_heads
     int4 = isinstance(dtype, str) and dtype == "int4"
     if int4:
         if page_size % 2:
@@ -101,7 +105,7 @@ def init_kv_pools(
         raise ValueError(f"{dtype} pools need quantized=True")
     device = resolve_device(device)
     store_ps = page_size // 2 if int4 else page_size
-    shape = (cfg.n_kv_heads, num_pages, store_ps, kernel_width(cfg.head_dim))
+    shape = (hkv, num_pages, store_ps, kernel_width(cfg.head_dim))
 
     def pools(make):
         return tuple(make() for _ in range(cfg.n_layers))
@@ -110,7 +114,7 @@ def init_kv_pools(
     v = pools(lambda: torch.zeros(shape, dtype=dtype, device=device))
     if not quantized:
         return KVPools(k, v)
-    sshape = (cfg.n_kv_heads, num_pages, page_size, 1)
+    sshape = (hkv, num_pages, page_size, 1)
     ks = pools(lambda: torch.ones(sshape, dtype=torch.float32, device=device))
     vs = pools(lambda: torch.ones(sshape, dtype=torch.float32, device=device))
     return KVPools(k, v, ks, vs)
@@ -191,11 +195,10 @@ def make_prefill(cfg: ModelConfig):
     discarded, and the ALiBi bias of a real row depends only on its own
     position; ``lengths`` picks each row's last real token.  Each layer
     attends within its own window (:func:`..transformer.layer_window`)."""
-    slopes = _cfg_slopes(cfg)
-
     @torch.inference_mode()
     def prefill(model: Transformer, tokens, lengths):
         b, t = tokens.shape
+        slopes = _cfg_slopes(cfg, model.tp)  # this rank's heads' slopes
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         x = embed_tokens(model, tokens, cfg)
         rope_cs = model_rope_tables(positions, cfg)
@@ -240,12 +243,11 @@ def make_decode_step(cfg: ModelConfig, *, pages_per_block: Optional[int] = None)
 
     ``positions`` is the absolute index of the incoming token; ``lengths``
     already counts it (an ALiBi model's query sits at lengths − 1)."""
-    slopes = _cfg_slopes(cfg)
-
     @torch.inference_mode()
     def decode_step(model: Transformer, pools: KVPools, tokens, positions,
                     page_rows, page_offs, page_tbl, lengths):
         b = tokens.shape[0]
+        slopes = _cfg_slopes(cfg, model.tp)  # this rank's heads' slopes
         rows, offs = page_rows.long()[:, None], page_offs.long()[:, None]
         x = embed_tokens(model, tokens, cfg)  # [B, dm]
         rope_cs = model_rope_tables(positions, cfg)  # [B, 1, d/2]
@@ -293,12 +295,11 @@ def make_verify_step(cfg: ModelConfig, num_tokens: int, *,
     (an ALiBi model's token t at lengths − T + t); padding tokens may all
     write to one scratch page."""
     t_new = num_tokens
-    slopes = _cfg_slopes(cfg)
-
     @torch.inference_mode()
     def verify_step(model: Transformer, pools: KVPools, tokens, positions,
                     page_rows, page_offs, page_tbl, lengths):
         b = tokens.shape[0]
+        slopes = _cfg_slopes(cfg, model.tp)  # this rank's heads' slopes
         rows, offs = page_rows.long(), page_offs.long()
         x = embed_tokens(model, tokens, cfg)  # [B, T, dm]
         rope_cs = model_rope_tables(positions, cfg)  # [B, T, 1, d/2]

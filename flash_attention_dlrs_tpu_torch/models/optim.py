@@ -139,11 +139,12 @@ class AdamW8bit:
 
     def __init__(self, learning_rate: Union[float, Callable[[int], float]], *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.01, grad_clip_norm: float = 0.0):
+                 weight_decay: float = 0.01, grad_clip_norm: float = 0.0, mask=None):
         self.schedule = learning_rate if callable(learning_rate) else (lambda count: learning_rate)
         self.adam8 = ScaleByAdam8(b1, b2, eps)
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
+        self.mask = mask
 
     def init(self, model: torch.nn.Module):
         from .train import OptState
@@ -157,22 +158,60 @@ class AdamW8bit:
         params = list(model.parameters())
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         if self.grad_clip_norm:
-            clip_by_global_norm(grads, self.grad_clip_norm)
+            clip_by_global_norm(grads, self.grad_clip_norm, model)
         steps = self.adam8.update(grads, state.adam8)
         lr = -float(self.schedule(state.count))
-        for p, u in zip(params, steps):
-            u = u + torch.tensor(self.weight_decay, dtype=u.dtype, device=u.device) * p
+        for p, u, decay in zip(params, steps, decay_mask(model, self.mask)):
+            if decay:
+                u = u + torch.tensor(self.weight_decay, dtype=u.dtype, device=u.device) * p
             u = torch.tensor(lr, dtype=u.dtype, device=u.device) * u
             p.copy_((p + u).to(p.dtype))
         state.count += 1
 
 
+def _layout(model: torch.nn.Module):
+    """The JAX params layout of ``model``'s parameters (``layers.3.wq`` →
+    ``tree["layers"][3]["wq"]``), leaves the parameters themselves."""
+    tree = {}
+    for name, p in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers = tree.setdefault("layers", [])
+            while len(layers) <= int(parts[1]):
+                layers.append({})
+            layers[int(parts[1])][parts[2]] = p
+        else:
+            tree[name] = p
+    return tree
+
+
+def decay_mask(model: torch.nn.Module, mask) -> List[bool]:
+    """Whether weight decay applies to each parameter of ``model`` (in
+    ``parameters()`` order) under ``mask``: optax's ``add_decayed_weights``
+    mask over the JAX params layout, a tree of bools (``{"embed": False,
+    "layers": [{"wq": True, ...}], ...}``) or a callable from the layout
+    (leaves: the parameters) to one; None decays every parameter."""
+    if mask is None:
+        return [True] * len(list(model.parameters()))
+    if callable(mask):
+        mask = mask(_layout(model))
+    out = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        leaf = mask["layers"][int(parts[1])][parts[2]] if parts[0] == "layers" else mask[name]
+        out.append(bool(leaf))
+    return out
+
+
 def adamw8bit(learning_rate: Union[float, Callable[[int], float]], *, b1: float = 0.9,
-              b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01) -> AdamW8bit:
+              b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.01,
+              mask=None) -> AdamW8bit:
     """AdamW with blockwise-int8 moment storage (the JAX package's drop-in
-    for optax.adamw).  Weight decay applies to every parameter: JAX's
-    weight-decay ``mask`` is not ported."""
-    return AdamW8bit(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    for optax.adamw).  ``mask`` limits the weight decay to the parameters
+    it marks True (:func:`decay_mask`), as optax's ``add_decayed_weights``
+    mask does in the JAX package."""
+    return AdamW8bit(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                     mask=mask)
 
 
 def moment_bytes(params) -> Tuple[int, int]:

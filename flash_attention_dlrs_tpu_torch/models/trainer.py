@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, Optional, Union
 
 import numpy as np
@@ -28,7 +29,16 @@ from ..utils import checkpoint as ckpt_lib
 from ..utils.metrics import MetricsLogger, ThroughputMeter
 from ..ops.fwd_kernel import int32_seed
 from .optim import AdamW8bit
-from .train import _NOT_YET, AdamW, OptState, dropout_seed_of, make_train_step
+from .train import (
+    AdamW,
+    OptState,
+    _check_tp_divisibility,
+    data_mean,
+    data_shard,
+    dropout_seed_of,
+    make_train_step,
+    shard_params,
+)
 from .transformer import ModelConfig, Transformer, loss_fn
 from .weights import init_params_numpy, params_from_jax
 
@@ -115,16 +125,19 @@ def make_optimizer(spec: TrainSpec) -> Union[AdamW, AdamW8bit]:
 
 
 def make_accum_train_step(cfg: ModelConfig, optimizer: Union[AdamW, AdamW8bit], mesh=None, *,
-                          accum_steps: int):
+                          accum_steps: int, data_axis: str = "data"):
     """``step(model, opt_state, tokens [A·b, N+1], dropout_seed=None) ->
     loss``: the batch is split into ``accum_steps`` microbatches of
     consecutive rows, their gradients are averaged into an fp32 running mean
     (each g / A added in turn, as the JAX scan does), then ONE optimizer
     update, in place.  Microbatch i draws its dropout from the sub-seed
     seed + 7368787·i in int32 wrap-around, as the JAX step does.  Peak
-    memory is one microbatch's activations plus the fp32 mean."""
+    memory is one microbatch's activations plus the fp32 mean.  With a
+    ``mesh`` every rank takes the same GLOBAL ``tokens`` and trains on its
+    rows of each microbatch; the fp32 mean is averaged over the data axis
+    before the update."""
     if mesh is not None:
-        raise NotImplementedError(_NOT_YET.format("mesh-sharded training"))
+        _check_tp_divisibility(cfg, mesh)
 
     def step(model: Transformer, opt_state: OptState, tokens, dropout_seed=None):
         seed = dropout_seed_of(cfg, dropout_seed)
@@ -138,11 +151,12 @@ def make_accum_train_step(cfg: ModelConfig, optimizer: Union[AdamW, AdamW8bit], 
         for i, micro in enumerate(tokens.reshape(accum_steps, b_total // accum_steps, n)):
             model.zero_grad(set_to_none=True)
             sub = None if seed is None else int32_seed(seed + 7368787 * i)
-            loss = loss_fn(model, micro, cfg, dropout_seed=sub)
+            loss = loss_fn(model, data_shard(micro, mesh, data_axis), cfg, dropout_seed=sub)
             loss.backward()
             for m, p in zip(mean, params):
                 m.add_(p.grad / accum_steps)
             loss_mean += loss.detach() / accum_steps
+        loss_mean = data_mean(mean, loss_mean, mesh, data_axis)
         for m, p in zip(mean, params):
             p.grad = m.to(p.dtype)
         optimizer.update(model, opt_state)
@@ -190,13 +204,21 @@ def fit(
     checkpoint resumes the step, the weights, the optimizer moments and
     (for a callable ``batches``) the data cursor.  With ``cfg.attn_dropout``
     step i draws its dropout masks from seed i, so a resumed run stays
-    bitwise equal to the uninterrupted one."""
-    if mesh is not None:
-        raise NotImplementedError(_NOT_YET.format("mesh-sharded training"))
+    bitwise equal to the uninterrupted one.
+
+    With a ``mesh`` every rank of it calls ``fit`` with the same arguments
+    and the same batches: each trains its slice of the model
+    (``train.shard_params``) on its rows of every batch, and checkpoints its
+    own shard under ``checkpoint_dir/rank<r>``."""
     device = resolve_device(device)
     optimizer = make_optimizer(spec)
     tree = init_params_numpy(cfg, seed) if params is None else params
-    model = params_from_jax(tree, cfg, device=device)
+    if mesh is not None:
+        _check_tp_divisibility(cfg, mesh)
+        tree = shard_params(tree, mesh, n_kv_heads=cfg.n_kv_heads)
+        if checkpoint_dir is not None and mesh.devices.size > 1:
+            checkpoint_dir = os.path.join(checkpoint_dir, f"rank{mesh.rank}")
+    model = params_from_jax(tree, cfg, device=device, mesh=mesh)
     opt_state = optimizer.init(model)
     start_step = 0
     loader_state = None
@@ -213,10 +235,9 @@ def fit(
         batches = batches(loader_state)
 
     if spec.accum_steps > 1:
-        step_fn = make_accum_train_step(cfg, optimizer,
-                                        accum_steps=spec.accum_steps)
+        step_fn = make_accum_train_step(cfg, optimizer, mesh, accum_steps=spec.accum_steps)
     else:
-        step_fn = make_train_step(cfg, optimizer)
+        step_fn = make_train_step(cfg, optimizer, mesh)
 
     logger = MetricsLogger(metrics_path) if metrics_path else None
     meter = ThroughputMeter()

@@ -17,6 +17,20 @@ softmax scale, QKV biases and Gemma-2's sandwich norms (optional layer
 parameters, present only when the weights have them), and weight-only int8
 projections (:func:`quantize_params`).
 
+Tensor parallelism (a :class:`Transformer` made with a ``mesh``): each rank
+holds its slice of the heads and of the MLP's hidden width (the JAX
+package's ``param_shardings``); the column-parallel inputs pass through
+:class:`ToModel` (identity forward, gradient all-reduced over the model
+axis) and the row-parallel outputs ``x @ wo`` and ``x @ w_down`` through
+:class:`FromModel` (summed over the model axis), before any sandwich norm.
+A rank takes its slice of the GLOBAL ALiBi slopes and folds its (data,
+model) coordinates into the dropout seed as the JAX package's partitioned
+attention does (``ops/partitioning.py``: prime 49979687, flat = data index ·
+tp + model index).  An ALiBi model with dropout attends the whole batch and
+every head on every rank, with the seed unfolded, and keeps its own block:
+JAX's partitioned attention replicates an ALiBi call, so its masks are the
+single-device masks.
+
 Attention dropout runs only when a ``dropout_seed`` is passed (training):
 layer i draws its mask from the seed base + i·1299709, wrapped to int32 as
 the JAX package's int32 arithmetic wraps it, so a remat recompute and the
@@ -50,6 +64,7 @@ from torch.utils.checkpoint import (
 
 from .._cuda import resolve_device
 from ..ops.flash_attention import FLASH_FWD, flash_attention
+from ..parallel.launch import all_gather, all_reduce
 from ..ops.fwd_kernel import int32_seed
 from ..ops.quantization import QuantizedTensor, int8_matmul, quantize_weight
 from ..ops.reference import alibi_slopes_for
@@ -159,18 +174,97 @@ class QuantizedWeight(nn.Module):
         return QuantizedTensor(self.values, self.scales)
 
 
+class TensorParallel:
+    """Where a rank sits in a tensor-parallel model: the mesh, its model
+    axis (heads and MLP width) and its data axis (batch)."""
+
+    def __init__(self, mesh, model_axis: str = "model", data_axis: str = "data"):
+        self.mesh, self.model_axis, self.data_axis = mesh, model_axis, data_axis
+        self.size = mesh.size(model_axis)
+        self.index = mesh.index(model_axis)
+
+    def dropout_seed(self, seed: int) -> int:
+        """The JAX partitioned attention's seed fold: seed + 49979687 ·
+        (data index · tp + model index), int32."""
+        flat = self.mesh.index(self.data_axis) * self.size + self.index
+        return int32_seed(int(seed) + 49979687 * flat)
+
+
+class ToModel(torch.autograd.Function):
+    """Identity forward; the gradient all-reduced over the model axis (the
+    input of a column-parallel projection)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.tp.mesh, ctx.tp.model_axis), None
+
+
+class FromModel(torch.autograd.Function):
+    """Sum over the model axis forward (the output of a row-parallel
+    projection); identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return all_reduce(x, tp.mesh, tp.model_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Whole(torch.autograd.Function):
+    """This rank's [B/dp, H/tp, N, d] → the whole [B, H, N, d], gathered over
+    the data axis (dim 0) and the model axis (dim 1); the backward keeps
+    this rank's block (attention is independent per batch row and head, so
+    no other rank's loss reaches it)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp, ctx.b, ctx.h = tp, x.shape[0], x.shape[1]
+        x = torch.cat(all_gather(x, tp.mesh, tp.data_axis), dim=0)
+        return torch.cat(all_gather(x, tp.mesh, tp.model_axis), dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_block(g, ctx.tp, ctx.b, ctx.h).contiguous(), None
+
+
+def _own_block(x, tp, b: int, h: int):
+    """Rows and heads of the whole [B, H, ...] ``x`` that this rank holds."""
+    d = tp.mesh.index(tp.data_axis)
+    return x[d * b:(d + 1) * b, tp.index * h:(tp.index + 1) * h]
+
+
+def _to_model(x, tp):
+    return x if tp is None or tp.size == 1 else ToModel.apply(x, tp)
+
+
+def _from_model(x, tp):
+    return x if tp is None or tp.size == 1 else FromModel.apply(x, tp)
+
+
 class Block(nn.Module):
     """One decoder layer's parameters (names as in the JAX params dict).
     ``extras`` names the optional ones this layer has (:data:`BIASES`,
     :data:`SANDWICH_NORMS`), kept as ``self.extras`` so that a step tests
     a set and never probes the module for a name it lacks; with
-    ``quantized`` the projections are :class:`QuantizedWeight` buffers."""
+    ``quantized`` the projections are :class:`QuantizedWeight` buffers.
+    With ``tp`` (a :class:`TensorParallel`) the layer holds its rank's slice
+    of the heads and of the MLP's hidden width."""
 
-    def __init__(self, cfg: ModelConfig, device, extras=(), quantized: bool = False):
+    def __init__(self, cfg: ModelConfig, device, extras=(), quantized: bool = False,
+                 tp: Optional[TensorParallel] = None):
         super().__init__()
         self.extras = frozenset(extras)
-        dm, dh, dff = cfg.d_model, cfg.head_dim, cfg.d_ff
-        nq, nkv, dt = cfg.n_q_heads, cfg.n_kv_heads, cfg.dtype
+        self.tp = tp
+        n = 1 if tp is None else tp.size
+        dm, dh, dff = cfg.d_model, cfg.head_dim, cfg.d_ff // n
+        nq, nkv, dt = cfg.n_q_heads // n, cfg.n_kv_heads // n, cfg.dtype
         shapes = {"attn_norm": (dm,), "wq": (dm, nq * dh), "wk": (dm, nkv * dh),
                   "wv": (dm, nkv * dh), "wo": (nq * dh, dm), "mlp_norm": (dm,),
                   "w_gate": (dm, dff), "w_up": (dm, dff), "w_down": (dff, dm)}
@@ -195,14 +289,19 @@ class Block(nn.Module):
 class Transformer(nn.Module):
     """Parameters of the model, uninitialized: fill them with
     :func:`..models.weights.params_from_jax`.  ``extras`` and ``quantized``
-    are every :class:`Block`'s."""
+    are every :class:`Block`'s.  With a ``mesh`` (a
+    :class:`..parallel.mesh.Mesh`) this rank's layers hold their slice of
+    the model axis (``tp``, a :class:`TensorParallel`); the embeddings and
+    norms are whole on every rank."""
 
-    def __init__(self, cfg: ModelConfig, device="cuda", extras=(), quantized: bool = False):
+    def __init__(self, cfg: ModelConfig, device="cuda", extras=(), quantized: bool = False,
+                 mesh=None, model_axis: str = "model", data_axis: str = "data"):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
+        self.tp = None if mesh is None else TensorParallel(mesh, model_axis, data_axis)
         self.embed = _param((cfg.vocab_size, cfg.d_model), cfg.dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, device, extras, quantized)
+        self.layers = nn.ModuleList(Block(cfg, device, extras, quantized, self.tp)
                                     for _ in range(cfg.n_layers))
         self.final_norm = _param((cfg.d_model,), torch.float32, device)
         if not cfg.tie_embeddings:
@@ -356,12 +455,17 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _cfg_slopes(cfg: ModelConfig):
+def _cfg_slopes(cfg: ModelConfig, tp: Optional[TensorParallel] = None):
     """Per-head ALiBi slopes of an ALiBi config, else None (RoPE rotates
-    instead).  Every attention call of the model takes them."""
-    if cfg.position_encoding == "alibi":
-        return alibi_slopes_for(cfg.n_q_heads)
-    return None
+    instead).  Every attention call of the model takes them; under ``tp``
+    a rank takes its slice of the global heads' slopes."""
+    if cfg.position_encoding != "alibi":
+        return None
+    slopes = alibi_slopes_for(cfg.n_q_heads)
+    if tp is None or tp.size == 1:
+        return slopes
+    h = cfg.n_q_heads // tp.size
+    return list(slopes)[tp.index * h:(tp.index + 1) * h]
 
 
 def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
@@ -392,18 +496,19 @@ def qkv(layer: "Block", h, cfg: ModelConfig):
     with the layer's biases where it has them."""
     lead = h.shape[:-1]
     extras = layer.extras
+    h = _to_model(h, layer.tp)
     q = _proj(h, layer.wq, layer.bq if "bq" in extras else None, "attn_q")
     k = _proj(h, layer.wk, layer.bk if "bk" in extras else None, "attn_k")
     v = _proj(h, layer.wv, layer.bv if "bv" in extras else None, "attn_v")
-    return (q.reshape(*lead, cfg.n_q_heads, cfg.head_dim),
-            k.reshape(*lead, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(*lead, cfg.n_kv_heads, cfg.head_dim))
+    return (q.reshape(*lead, -1, cfg.head_dim),
+            k.reshape(*lead, -1, cfg.head_dim),
+            v.reshape(*lead, -1, cfg.head_dim))
 
 
 def attn_residual(layer: "Block", x, o, cfg: ModelConfig):
     """x + o W_o, the output normed first where the layer has Gemma-2's
     sandwich norm; o [..., Hq·d]."""
-    out = _proj(o, layer.wo, name="attn_wo")
+    out = _from_model(_proj(o, layer.wo, name="attn_wo"), layer.tp)
     if "post_attn_norm" in layer.extras:
         out = rms_norm(out, layer.post_attn_norm, cfg.norm_eps)
     return x + out
@@ -434,19 +539,29 @@ def attention_block(layer: Block, x, rope_cs, cfg: ModelConfig,
         q = apply_rope(q, *rope_cs)
         k = apply_rope(k, *rope_cs)
     rate = cfg.attn_dropout if dropout_seed is not None else 0.0
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    tp = layer.tp
+    slopes = _cfg_slopes(cfg, tp)
+    whole = bool(rate) and tp is not None and slopes is not None
+    if whole:  # ALiBi with dropout on a mesh: JAX's single-device masks
+        bl, hl = q.shape[:2]
+        q, k, v = (_Whole.apply(t, tp) for t in (q, k, v))
+        slopes = _cfg_slopes(cfg)
+    elif rate and tp is not None:
+        dropout_seed = tp.dropout_seed(dropout_seed)
     o = flash_attention(
-        q.transpose(1, 2).contiguous(),
-        k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(),
+        q, k, v,
         causal=True,
         sm_scale=cfg.sm_scale,
         window=layer_window(cfg, layer_idx),
         logit_softcap=cfg.attn_softcap,
-        alibi_slopes=_cfg_slopes(cfg),
+        alibi_slopes=slopes,
         dropout_rate=rate,
         dropout_seed=dropout_seed if rate else None,
     )
-    o = o.transpose(1, 2).reshape(b, n, cfg.n_q_heads * cfg.head_dim)
+    if whole:
+        o = _own_block(o, tp, bl, hl)
+    o = o.transpose(1, 2).reshape(b, n, -1)
     return attn_residual(layer, x, o, cfg)
 
 
@@ -454,14 +569,14 @@ def mlp_block(layer: Block, x, eps: float = 1e-6, act: str = "silu"):
     """x + the gated MLP: SwiGLU, or GeGLU (tanh GELU) for ``"gelu_tanh"``,
     the gate's activation in fp32; the output normed first where the layer
     has Gemma-2's sandwich norm."""
-    h = rms_norm(x, layer.mlp_norm, eps)
+    h = _to_model(rms_norm(x, layer.mlp_norm, eps), layer.tp)
     gate = _proj(h, layer.w_gate, name="mlp_gate")
     up = _proj(h, layer.w_up, name="mlp_up")
     if act == "gelu_tanh":
         g32 = torch.nn.functional.gelu(gate.float(), approximate="tanh")
     else:
         g32 = torch.nn.functional.silu(gate.float())
-    out = _proj(g32.to(x.dtype) * up, layer.w_down, name="mlp_down")
+    out = _from_model(_proj(g32.to(x.dtype) * up, layer.w_down, name="mlp_down"), layer.tp)
     if "post_mlp_norm" in layer.extras:
         out = rms_norm(out, layer.post_mlp_norm, eps)
     return x + out

@@ -113,11 +113,14 @@ def _load(param, array, name: str) -> None:
         param.copy_(t)
 
 
-def params_from_jax(tree: Dict, cfg: ModelConfig, *, device="cuda") -> Transformer:
+def params_from_jax(tree: Dict, cfg: ModelConfig, *, device="cuda", mesh=None,
+                    model_axis: str = "model") -> Transformer:
     """The port's model on ``device`` with the weights of ``tree`` (the JAX
     params layout, numpy leaves), cast to ``cfg.dtype`` (norms stay fp32).
     Every layer must carry the same optional keys; int8 projections (every
-    one of a layer, as ``quantize_params`` makes them) stay int8."""
+    one of a layer, as ``quantize_params`` makes them) stay int8.  With a
+    ``mesh``, ``tree`` is this rank's slice (``train.shard_params``) and the
+    model is tensor-parallel over ``model_axis``."""
     expected = {"embed", "layers", "final_norm"} | (
         set() if cfg.tie_embeddings else {"unembed"})
     unknown = set(tree) - expected
@@ -136,7 +139,8 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, device="cuda") -> Transform
             raise ValueError(f"layers[{i}] has other optional keys than layers[0] {extras}")
         if any(_quantized(layer[k]) != quantized for k in PROJECTIONS):
             raise ValueError(f"layers[{i}]: projections must be all int8 or none")
-    model = Transformer(cfg, device=device, extras=extras, quantized=quantized)
+    model = Transformer(cfg, device=device, extras=extras, quantized=quantized, mesh=mesh,
+                        model_axis=model_axis)
     _load(model.embed, tree["embed"], "embed")
     _load(model.final_norm, tree["final_norm"], "final_norm")
     if not cfg.tie_embeddings:

@@ -20,8 +20,15 @@ round is one CUDA graph, captured once and replayed.  The engine runs on
 the card by default (``device="cuda"``) and on the CPU only when asked.
 Sliding-window models are served past their window on a rolling KV ring,
 full-attention models with StreamingLLM sinks on a sink + recent ring
-(:func:`_ring`); the mesh raises ``NotImplementedError`` until its slice
-(ROADMAP.md).
+(:func:`_ring`).
+
+Tensor-parallel serving (``mesh``): every rank of the mesh builds the
+engine with the same arguments and runs the same host scheduler, allocator
+and page tables; it keeps its slice of the model (the training plan,
+``models.train.shard_params``) and pools of its share of the kv heads, and
+the model's all-reduces make every rank's logits, and so its tokens, the
+same.  Under a mesh every step runs eagerly: no CUDA graph is captured
+across a process group (gloo has no device-side collectives).
 """
 
 from __future__ import annotations
@@ -45,11 +52,14 @@ from ..models.decoding import (
     write_prompt_kv_all,
     write_prompt_kv_batch,
 )
+from ..models.train import _check_tp_divisibility, shard_params
 from ..models.transformer import ModelConfig, Transformer
+from ..models.weights import params_from_jax, params_to_numpy
 from .native_alloc import NativePageAllocator, make_page_allocator
 from .prefix_cache import PrefixCache
 from .sampling import GREEDY, SamplingParams, batch_params, sample_tokens
 from .scheduler import ContinuousBatchingScheduler, Request
+from .step_graph import EAGER
 from .speculative import (
     make_draft_propose,
     make_plain_generate,
@@ -58,7 +68,6 @@ from .speculative import (
 )
 
 _NULL_SEQ = "__null__"
-_NOT_YET = "{} is not ported yet (ROADMAP.md, queue 1 of the PyTorch port)"
 
 
 def _next_pow2(n: int, floor: int = 128) -> int:
@@ -192,6 +201,7 @@ class DecodeEngine:
         enable_prefix_cache: bool = False,
         native_allocator: Optional[bool] = None,
         mesh=None,
+        model_axis: str = "model",
         device="cuda",
     ):
         """``params`` is the port's model (models.weights.params_from_jax);
@@ -221,9 +231,13 @@ class DecodeEngine:
         past its window is served on a rolling ring of ``window //
         page_size`` pages a sequence; ``streaming_window`` (with
         ``attention_sinks`` pinned first tokens) serves a full-attention
-        model on a StreamingLLM ring (:func:`_ring`)."""
+        model on a StreamingLLM ring (:func:`_ring`).
+
+        ``mesh`` (a ``parallel.mesh.Mesh`` with a ``model_axis``): serve
+        tensor-parallel; ``params`` is the whole model, of which this rank
+        keeps its slice (or already a slice, made with the mesh)."""
         if mesh is not None:
-            raise NotImplementedError(_NOT_YET.format("mesh (tensor-parallel serving)"))
+            _check_tp_divisibility(cfg, mesh, model_axis)
         (self.rolling, self.streaming, self._wrap, self._sinks,
          pages_per_seq) = _ring(cfg, page_size, pages_per_seq, prefill_chunk,
                                 streaming_window, attention_sinks)
@@ -243,7 +257,12 @@ class DecodeEngine:
                 "KV.  Pass kv_dtype=torch.int8 explicitly to silence this.",
                 stacklevel=2)
             kv_dtype = torch.int8
+        if mesh is not None and params.tp is None:
+            params = params_from_jax(
+                shard_params(params_to_numpy(params), mesh, model_axis, cfg.n_kv_heads),
+                cfg, device=self.device, mesh=mesh, model_axis=model_axis)
         self.params = params.to(self.device)
+        self.mesh, self.model_axis = mesh, model_axis
         self.cfg = cfg
         self.page_size = page_size
         self.pages_per_seq = pages_per_seq
@@ -251,9 +270,11 @@ class DecodeEngine:
         self.eos_token = eos_token
         self.kv_dtype = kv_dtype
 
+        tp = 1 if mesh is None else mesh.size(model_axis)
         self.pools = init_kv_pools(cfg, num_pages=num_pages,
                                    page_size=page_size, dtype=kv_dtype,
-                                   quantized=quantized_kv, device=self.device)
+                                   quantized=quantized_kv, device=self.device,
+                                   num_kv_heads=cfg.n_kv_heads // tp)
         self.allocator = make_page_allocator(num_pages, page_size,
                                              native=native_allocator)
         self.allocator.allocate(_NULL_SEQ, 1)  # scratch page for idle slots
@@ -558,7 +579,10 @@ class DecodeEngine:
 
     def _graphs(self):
         """The memory pool this engine's CUDA graphs share (None on the
-        CPU, where nothing is captured)."""
+        CPU, where nothing is captured; ``step_graph.EAGER`` under a mesh,
+        where nothing is captured either)."""
+        if self.mesh is not None:
+            return EAGER
         if self._graph_pool is None and self.device.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
         return self._graph_pool

@@ -22,6 +22,10 @@ counts a capture adds (``_cuda.launch_counts``: every ``CudaKernel`` and
 every registered count by route or split) are taken back after it and
 added at each replay: the counters keep meaning launches on the card.
 
+``pool=EAGER`` runs the body eagerly on every call, on the card too: the
+steps of an engine under a mesh, whose collectives a graph cannot hold
+across a gloo process group.
+
 The split scratch is keyed by stream and replaced by a larger one when a
 later call on that stream needs more; the graph holds the buffers it
 captured (``ops.decode.split_scratch_on``), so a replacement cannot free
@@ -36,6 +40,8 @@ import torch
 
 from .._cuda import add_launches, launch_counts, launches_since
 from ..ops.decode import split_scratch_on
+
+EAGER = "eager"
 
 
 class StepGraph:
@@ -57,7 +63,7 @@ class StepGraph:
         self._scratch = None
 
     def __call__(self) -> None:
-        if self.device.type != "cuda":
+        if self.device.type != "cuda" or self.pool is EAGER:
             self.body()
         elif self.graph is None:
             self._warm_up_and_capture()

@@ -213,29 +213,34 @@ def test_stats_have_the_jax_keys(jparams, model):
 
 @pytest.mark.parametrize("kwargs", [
     dict(streaming_window=100, call="__init__"),
-    dict(attention_sinks=128, call="__init__"), dict(mesh=object()),
+    dict(attention_sinks=128, call="__init__"), dict(mesh=3, call="__init__"),
     dict(quantized_kv=True, kv_dtype=torch.int8, call="generate_speculative"),
     dict(prefill_chunk=16, enable_prefix_cache=True,
          call="generate_speculative_fused"),
 ])
 def test_unported_engine_options_raise(jparams, model, kwargs):
-    """Unported options raise at construction.  With ``call``, the options
-    (and the entry point) are ported: misused (a streaming ring not aligned
-    to the page, sinks without a ring, γ < 2 with int8 KV, more prompts
-    than slots with chunked prefill and the prefix cache), the engine
-    raises as the JAX package's does."""
+    """Every option is ported: misused (a streaming ring not aligned to the
+    page, sinks without a ring, a mesh whose model axis (``mesh=3``) divides
+    neither head count, γ < 2 with int8 KV, more prompts than slots with
+    chunked prefill and the prefix cache), the engine raises as the JAX
+    package's does."""
     kwargs = dict(kwargs)
     call = kwargs.pop("call", None)
-    if call is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port(model, num_slots=1, **kwargs)
-        return
     if call == "__init__":
+        jkw, tkw = dict(kwargs), dict(kwargs)
+        if "mesh" in kwargs:  # each package's mesh of that model axis
+            from jax.sharding import Mesh as JMesh
+
+            from flash_attention_dlrs_tpu_torch.parallel.mesh import Mesh as TMesh
+
+            m = kwargs["mesh"]
+            jkw["mesh"] = JMesh(np.array(jax.devices()[:m]), ("model",))
+            tkw["mesh"] = TMesh(np.arange(m), ("model",))
         with pytest.raises(ValueError) as want:
             JEngine(jparams, JCFG, num_pages=32, page_size=128, pages_per_seq=4,
-                    num_slots=1, kv_dtype=jnp.float32, **kwargs)
+                    num_slots=1, kv_dtype=jnp.float32, **jkw)
         with pytest.raises(ValueError) as got:
-            _port(model, num_slots=1, **kwargs)
+            _port(model, num_slots=1, **tkw)
         assert str(got.value) == str(want.value)
         return
     jkw = dict(kwargs, kv_dtype=jnp.int8) if "kv_dtype" in kwargs else dict(kwargs)

@@ -16,7 +16,11 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "flash_attention_dlrs_tpu_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
 SCRIPTS = ["chip_smoke.py", "scripts/eval_ppl_torch.py", "bench_torch.py",
-           "scripts/run_bench_suite_torch.py", "scripts/run_golden_gate_torch.py"]
+           "scripts/run_bench_suite_torch.py", "scripts/run_golden_gate_torch.py",
+           "examples/01_attention_features_torch.py", "examples/02_train_tiny_torch.py",
+           "examples/03_serve_paged_torch.py", "examples/04_multichip_mesh_torch.py"]
+# imports transformers (the checkpoint it converts), as tests/test_torch_convert.py does
+HF_EXAMPLE = "examples/05_import_hf_torch.py"
 MODULES = sorted(
     ".".join(pathlib.Path(f).with_suffix("").parts).removesuffix(".__init__")
     for f in PORT_FILES
@@ -38,7 +42,7 @@ def _imported_names(path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", PORT_FILES + SCRIPTS)
+@pytest.mark.parametrize("path", PORT_FILES + SCRIPTS + [HF_EXAMPLE])
 def test_no_jax_import_in_source(path):
     for name in _imported_names(path):
         root = name.split(".")[0]
@@ -92,6 +96,9 @@ def test_default_device_entry_points_need_a_card():
     from flash_attention_dlrs_tpu_torch.bench.suite import run_bench
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
     from flash_attention_dlrs_tpu_torch.runtime.sampling import batch_params
+    from flash_attention_dlrs_tpu_torch.parallel.dryrun import dryrun_multichip, dryrun_rank
+    from flash_attention_dlrs_tpu_torch.parallel.launch import launch
+    from flash_attention_dlrs_tpu_torch.parallel.mesh import rank_device
 
     cfg = ModelConfig.tiny(dtype=torch.float32)
     alibi_dropout = ModelConfig.tiny(dtype=torch.float32, position_encoding="alibi",
@@ -116,6 +123,9 @@ def test_default_device_entry_points_need_a_card():
                                  [[1, 2, 3]]),
         lambda: current_geometry(),
         lambda: run_bench(seq_lens=(128,)),
+        lambda: dryrun_multichip(2),
+        lambda: launch(dryrun_rank, 2, device="cuda"),
+        lambda: rank_device().index,
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
@@ -226,6 +236,18 @@ def test_model_exports_match_the_jax_package():
     assert len(wanted) == 10
     for name in wanted + ["load_trained", "init_params_numpy"]:
         assert name in tmodels.__all__ and hasattr(tmodels, name), name
+
+
+def test_parallel_exports_match_the_jax_package():
+    """parallel/ exports what the JAX package's parallel/__init__.py does,
+    and the package exports parallel."""
+    import flash_attention_dlrs_tpu_torch as tp
+    from flash_attention_dlrs_tpu import parallel as jparallel
+    from flash_attention_dlrs_tpu_torch import parallel as tparallel
+
+    assert tparallel.__all__ == jparallel.__all__
+    assert all(hasattr(tparallel, name) for name in tparallel.__all__)
+    assert "parallel" in tp.__all__ and tp.parallel is tparallel
 
 
 def test_resolve_device_takes_the_cpu_only_when_asked():

@@ -115,6 +115,42 @@ def test_adamw8bit_chain_matches_jax(schedule):
     assert tstate.count == 5
 
 
+@pytest.mark.parametrize("form", ["callable", "tree"])
+def test_adamw8bit_mask_matches_jax(form):
+    """adamw8bit's weight-decay ``mask`` (optax's add_decayed_weights mask
+    over the JAX params layout): the tiny model's weights through both
+    packages for three updates on the same gradients, decay on the matrices
+    only (norms spared), the mask given as a callable and as a tree."""
+    jcfg, tcfg = _configs(remat=False)
+    tree = init_params_numpy(tcfg, 3)
+    jp = jax.tree.map(jnp.asarray, tree)
+
+    def matrices(params):
+        return jax.tree.map(lambda x: x.ndim > 1, params)
+
+    mask = matrices if form == "callable" else matrices(tree)
+    assert not mask(tree)["final_norm"] if callable(mask) else not mask["final_norm"]
+    jopt = joptim.adamw8bit(1e-2, weight_decay=0.5, mask=mask)
+    jstate = jopt.init(jp)
+    model = params_from_jax(tree, tcfg, device="cpu")
+    topt = adamw8bit(1e-2, weight_decay=0.5, mask=mask)
+    tstate = topt.init(model)
+    assert toptim.decay_mask(model, mask).count(False) == 1 + 2 * tcfg.n_layers
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        grads = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32), tree)
+        updates, jstate = jopt.update(jax.tree.map(jnp.asarray, grads), jstate, jp)
+        jp = optax.apply_updates(jp, updates)
+        tgrads = params_from_jax(grads, tcfg, device="cpu")
+        for p, g in zip(model.parameters(), tgrads.parameters()):
+            p.grad = g.detach().clone()
+        topt.update(model, tstate)
+    got = params_to_numpy(model)
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(jp), jax.tree.leaves(got)):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=STEP_RTOL, atol=1e-7,
+                                   err_msg=_jname(path))
+
+
 def test_moment_bytes_match_jax():
     shapes = [shape for shape, _ in LEAVES] + [(256 * 3,), (1, 257)]
     want = joptim.moment_bytes([jnp.zeros(s) for s in shapes])

@@ -26,6 +26,7 @@ from flash_attention_dlrs_tpu.models import TrainSpec as JSpec
 from flash_attention_dlrs_tpu.models import init_params, loss_fn as jloss
 from flash_attention_dlrs_tpu.models import lr_schedule as jschedule
 from flash_attention_dlrs_tpu.models import make_accum_train_step as jaccum
+from flash_attention_dlrs_tpu.models import make_train_state as jmake_train_state
 from flash_attention_dlrs_tpu.models import make_train_step as jstep
 from flash_attention_dlrs_tpu.runtime import data as jdata
 from flash_attention_dlrs_tpu_torch.models import ModelConfig as TConfig
@@ -350,24 +351,39 @@ def _adamw8bit_spec(cfg):
         TSpec(optimizer="sgd")
 
 
-def _not_ported(call):
+def _misused_mesh(tcall, jcall):
+    """A mesh whose model axis (3) divides neither head count of the tiny
+    model (4 q, 2 kv): both packages refuse it with the same ValueError."""
+    from jax.sharding import Mesh as JMesh
+
+    from flash_attention_dlrs_tpu_torch.parallel.mesh import Mesh as TMesh
+
     def check(cfg):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call(cfg)
+        jcfg, _ = _configs(remat=False)
+        with pytest.raises(ValueError) as want:
+            jcall(jcfg, JMesh(np.array(jax.devices()[:3]).reshape(1, 3), ("data", "model")))
+        with pytest.raises(ValueError) as got:
+            tcall(cfg, TMesh(np.arange(3).reshape(1, 3), ("data", "model")))
+        assert str(got.value) == str(want.value)
+        assert "model axis size 3 must divide" in str(got.value)
     return check
 
 
 @pytest.mark.parametrize("call", [
     _adamw8bit_state,
-    _not_ported(lambda cfg: make_train_state(cfg, mesh=object(), device="cpu")),
+    _misused_mesh(lambda cfg, mesh: make_train_state(cfg, mesh, device="cpu"),
+                  lambda cfg, mesh: jmake_train_state(jax.random.PRNGKey(0), cfg, mesh)),
     _adamw8bit_spec,
-    _not_ported(lambda cfg: make_train_step(cfg, AdamW(1e-3), mesh=object())),
-    _not_ported(lambda cfg: make_accum_train_step(cfg, AdamW(1e-3), mesh=object(),
-                                                  accum_steps=2)),
+    _misused_mesh(lambda cfg, mesh: make_train_step(cfg, AdamW(1e-3), mesh),
+                  lambda cfg, mesh: jstep(cfg, optax.adamw(1e-3), mesh)),
+    _misused_mesh(lambda cfg, mesh: make_accum_train_step(cfg, AdamW(1e-3), mesh,
+                                                          accum_steps=2),
+                  lambda cfg, mesh: jaccum(cfg, optax.adamw(1e-3), mesh, accum_steps=2)),
 ], ids=[f"<lambda>{i}" for i in range(5)])  # the ids these cases have had
 def test_unported_training_options_raise(call):
-    """Mesh training is not ported yet (each of its entry points raises);
-    the adamw8bit cases, ported, check what the JAX package refuses of the
-    option on both packages."""
+    """Mesh training and adamw8bit are ported: each case checks what the
+    JAX package refuses of the option on both packages (a mesh whose model
+    axis divides neither head count; an unknown optimizer name), with equal
+    messages."""
     _, tcfg = _configs(remat=False)
     call(tcfg)
