@@ -4,10 +4,12 @@
 Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers,
 spills and serialization warnings of the wgmma instances of the forward and
 of the backward sweeps, and the registers, shared memory, spills and
-warnings of every paged instance), and beside them four broken copies of
-the dK/dV sweep (two at head dim 256) and two of the paged kernels (a
+warnings of every paged instance, and of every instance of the wide
+builds, none of which may spill), and beside them four broken copies of
+the dK/dV sweep (two at head dim 256), two of the paged kernels (a
 decode merge that drops the last key split, a verify that leaves a
-horizon-crossing tile unmasked);
+horizon-crossing tile unmasked) and one of the wide forward (its Q K^T
+short of the last 128 columns);
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
 route of the forward, of the backward sweeps and of verify: wgmma, fp32,
 and the paged kernels at their key-split and tile edges) against its plain
@@ -140,6 +142,16 @@ Then drives every path of the port:
   tokens equal on both ranks, and a 2-layer fp32 copy (serve_mesh);
   parallel/dryrun.py (dryrun); examples 01, 03 and 04 --world 4 --backend
   gloo (examples);
+- head dims above 256 (csrc/wide.cuh, the wide builds): the forward, both
+  sweeps, paged decode and verify against their plain versions at head dims
+  320 (padded to 384), 512 and 640 in every mode and dtype, the paged
+  kernels at their key-split edges, the sweeps and paged kernels bit for
+  bit, the wide forward's mutant caught, and their times at the re-headed
+  bench models' shapes (wide_heads); serving-bench-d512, the serving-bench
+  model with 4 q / 2 kv heads of 512, served from bf16 KV eagerly and as
+  graphed bursts of 8, from int8 KV and chunked with the prefix cache
+  (serve_d512); training-bench-d512, the training-bench model with 8 q / 2
+  kv heads of 512, trained at B8 x N2048 (train_d512);
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -171,8 +183,9 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
            builds the kernels and runs only the named phases of
            serve_rolling, serve_streaming, native, eval_gate, encoder,
            tune, bench, golden, parallel_attention, parallel_decode,
-           train_mesh, serve_mesh, dryrun and examples (development runs;
-           prints no result line).
+           train_mesh, serve_mesh, dryrun, examples, wide_heads,
+           serve_d512 and train_d512 (development runs; prints no result
+           line).
 """
 
 from __future__ import annotations
@@ -270,33 +283,56 @@ def median_ms(fn, warmup=3, reps=10):
     return float(np.median(times))
 
 
-def device_ms(fn, reps=20, between=None, match="paged_"):
-    """Device time of one ``fn()`` call: the summed durations of the
-    kernels it launches whose names hold ``match`` (torch.profiler's CUPTI
-    trace) over ``reps`` calls after a warm-up, per call; the wrapper's host
-    time is not in it.  ``between()`` runs before each call (an L2 flush:
-    :func:`l2_flush`); its kernels do not match.  A trace that came back
-    empty is taken once more (one in about a hundred did, on the H100);
-    raises if the second saw no matching kernel either."""
+def device_ms(fn, reps=20, between=None, floor_ms=None):
+    """Device time of one ``fn()`` call: the median, over ``reps`` warm
+    calls, of CUDA events recorded just before and just after the call,
+    with a spin kernel (torch.cuda._sleep, touching no memory) queued ahead
+    of the first event for at least three times the call's host time, so
+    that the card is still spinning when the host has launched the call:
+    the interval holds the call's kernels and the gaps between them, not
+    the wrapper's host time.  ``between()`` runs before each call, ahead of
+    the spin (an L2 flush: :func:`l2_flush`).  A call whose launch outlasted
+    its spin is not read; None where fewer than half were read, or where
+    the median is under ``floor_ms`` (the call's bound), so that no such
+    reading is reported.  (The profiler's kernel records came back
+    incomplete in whole runs of this script on the H100: under the bound,
+    or empty.)"""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    host = []
     for _ in range(3):
+        t = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if between is not None:
-                    between()
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and match in e.name)
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError("the profiler saw no kernel")
+        host.append(time.perf_counter() - t)
+    start, end = events()
+    start.record()
+    torch.cuda._sleep(1 << 20)
+    end.record()
+    end.synchronize()
+    ms_per_cycle = start.elapsed_time(end) / (1 << 20)
+    spin_ms = max(0.2, 3e3 * max(host))
+    cycles = int(spin_ms / ms_per_cycle)
+    times = []
+    for _ in range(reps):
+        if between is not None:
+            between()
+        start, end = events()
+        t = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        start.record()
+        fn()
+        end.record()
+        launched_ms = (time.perf_counter() - t) * 1e3
+        end.synchronize()
+        if launched_ms < spin_ms:
+            times.append(start.elapsed_time(end))
+    if 2 * len(times) < reps:
+        return None
+    ms = float(np.median(times))
+    return None if floor_ms is not None and ms < floor_ms else ms
 
 
 def l2_flush(dev):
@@ -620,11 +656,12 @@ def phase_build(mutants=False):
     t0 = time.perf_counter()
     built = _cuda.build()
     build_s = time.perf_counter() - t0
-    global TILE_MUTANT_BUILDS
+    global TILE_MUTANT_BUILDS, WIDE_MUTANT_BUILDS
     mutant_builds = ((start_mutant_builds(BWD_MUTANTS), start_mutant_builds(PAGED_MUTANTS))
                      if mutants else ({}, {}))
     if mutants:
         TILE_MUTANT_BUILDS = start_mutant_builds(TILE_MUTANTS)
+        WIDE_MUTANT_BUILDS = start_mutant_builds(WIDE_MUTANTS)
     info = {}
     for src, rec in built.items():
         ptxas = [l.strip() for l in rec["log"].splitlines()
@@ -669,6 +706,15 @@ def phase_build(mutants=False):
         raise AssertionError(f"backward wgmma instances with serialized wgmmas: {bwd_warnings}")
     if serialized:
         raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
+    # the wide builds (csrc/wide.cuh): every instance's ptxas lines, none
+    # may spill
+    wide = {src: info[src]["ptxas"] for src in built if src.endswith("_wide.cu")}
+    spilling = {src: [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
+                for src, lines in wide.items()}
+    spilling = {src: lines for src, lines in spilling.items() if lines}
+    emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling})
+    if spilling:
+        raise AssertionError(f"wide instances spill: {spilling}")
     counts = {k: sum(n.startswith(k) for n in paged)
               for k in ("decode_", "verify_wgmma_", "verify_fp32_")}
     if paged and counts != {"decode_": 84, "verify_wgmma_": 120, "verify_fp32_": 3}:
@@ -789,9 +835,6 @@ def phase_fwd(dev):
     """Each forward mode and route against the plain version on the same
     inputs."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
-        DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain, fwd_route,
-    )
 
     gen = torch.Generator(device=dev).manual_seed(1)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -928,39 +971,52 @@ def phase_fwd(dev):
          dict(v8="e5m2", seg="packed")),
     ]
     results = {}
-    for name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod in cases:
-        q = _rand(gen, (b, hq, nq, d), dt, dev)
-        k = _rand(gen, (b, hkv, nkv, d), dt, dev)
-        v = _rand(gen, (b, hkv, nkv, d), dt, dev)
-        if mod.get("v8"):
-            v = v.to(getattr(torch, FP8_V[mod["v8"]]))
-        kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
-                  **case_kwargs(hq, b, nq, nkv, dev, mod))
-        route = fwd_route(dt, d, "q_seg" in kw, bool(mod.get("v8")))
-        fwd_routes(zero=True)
-        got = attn_fwd(q, k, v, **kw)
-        routes = fwd_routes()
-        want = attn_fwd_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        rec, ok = fwd_errors(got, want, dt)
-        rec["route"] = route
-        rec["on_its_route"] = all_on(routes, route, 1)
-        ok &= rec["on_its_route"]
-        rec["ok"] = ok
-        results[name] = rec
-        if "q_seg" in kw:
-            rec["empty_rows"] = int((want[1] == DEFAULT_MASK_VALUE).sum())
-        emit({"phase": "fwd_check", "case": name, "dtype": str(dt),
-              "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
-              "window": window, "softcap": cap, "alibi": bool(mod.get("alibi")),
-              "dropout_rate": mod.get("rate", 0.0), "segments": mod.get("seg"),
-              "fp8_v": mod.get("v8"), **rec})
-        del q, k, v, got, want
+    for case in cases:
+        results[case[0]] = fwd_case(dev, gen, case)
     torch.cuda.empty_cache()
     bad = [n for n, r in results.items() if not r["ok"]]
     if bad:
         raise AssertionError(f"forward kernel disagrees with its plain version: {bad}")
     return results
+
+
+def fwd_case(dev, gen, case, phase="fwd_check"):
+    """One forward check case (name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal,
+    window, softcap, mods): the kernel once on the route fwd_route names
+    and its plain version on the same inputs; emits and returns the
+    record."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
+        DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain, fwd_route,
+    )
+
+    name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod = case
+    q = _rand(gen, (b, hq, nq, d), dt, dev)
+    k = _rand(gen, (b, hkv, nkv, d), dt, dev)
+    v = _rand(gen, (b, hkv, nkv, d), dt, dev)
+    if mod.get("v8"):
+        v = v.to(getattr(torch, FP8_V[mod["v8"]]))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
+              **case_kwargs(hq, b, nq, nkv, dev, mod))
+    route = fwd_route(dt, d, "q_seg" in kw, bool(mod.get("v8")))
+    fwd_routes(zero=True)
+    got = attn_fwd(q, k, v, **kw)
+    routes = fwd_routes()
+    want = attn_fwd_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    rec, ok = fwd_errors(got, want, dt)
+    rec["route"] = route
+    rec["on_its_route"] = all_on(routes, route, 1)
+    ok &= rec["on_its_route"]
+    rec["ok"] = ok
+    if "q_seg" in kw:
+        rec["empty_rows"] = int((want[1] == DEFAULT_MASK_VALUE).sum())
+    emit({"phase": phase, "case": name, "dtype": str(dt),
+          "shape": [b, hq, hkv, nq, nkv, d], "causal": causal,
+          "window": window, "softcap": cap, "alibi": bool(mod.get("alibi")),
+          "dropout_rate": mod.get("rate", 0.0), "segments": mod.get("seg"),
+          "fp8_v": mod.get("v8"), **rec})
+    return rec
 
 
 def phase_mask(dev):
@@ -1509,18 +1565,20 @@ def d256_cases():
     return cases
 
 
-def paged_ctas(t_new, route, splits, b, hq, hkv):
+def paged_ctas(t_new, route, splits, b, hq, hkv, d=128):
     """CTAs one paged call launches: decode one per split, head pair, kv
     head and sequence; verify one per split,
-    block of rows (128 on the wgmma route, 64 on fp32), kv head and
-    sequence."""
+    block of rows (128 on the wgmma route, 64 on fp32 and the wide routes,
+    whose CTAs also own one 128-column chunk of the pool head dim ``d``),
+    kv head and sequence."""
     from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROW_TILE
 
     g = hq // hkv
     if not t_new:
         return splits * -(-g // 2) * hkv * b
     tile = VERIFY_ROW_TILE if route == "wgmma" else 64
-    return splits * -(-t_new * g // tile) * hkv * b
+    chunks = d // 128 if route.startswith("wide") else 1
+    return splits * -(-t_new * g // tile) * chunks * hkv * b
 
 
 def paged_case(dev, gen, case):
@@ -1562,7 +1620,7 @@ def paged_case(dev, gen, case):
     rec["ok"] &= rec["bitwise_repeatable"] and len(splits) == 1 and len(route) == 1
     rec.update(splits=splits[0] if len(splits) == 1 else splits,
                route=route[0] if len(route) == 1 else route,
-               ctas=paged_ctas(t_new, route[0], splits[0], b, hq, hkv))
+               ctas=paged_ctas(t_new, route[0], splits[0], b, hq, hkv, d))
     del q, kp, vp, first, again, want
     return rec
 
@@ -1612,7 +1670,7 @@ def phase_decode(dev, cases=None, phase="decode_check"):
     ]
     results = {}
     for case in all_cases:
-        name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case
+        name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case[:7]
         if cases is not None and name not in cases:
             continue
         results[name] = paged_case(dev, gen, case)
@@ -1675,12 +1733,14 @@ _WEIGHTS: dict = {}
 def seeded_weights(cfg, seed=0):
     """``init_params_numpy(cfg, seed)``, drawn once a run for each set of
     widths (the fp32 tree does not depend on the dtype or the position
-    encoding): the phases that rebuild the serving-bench or training-bench
-    model reuse the host copy instead of drawing 0.8 / 1.5 B numbers again."""
+    encoding, nor on how the q and kv widths split into heads): the phases
+    that rebuild the serving-bench or training-bench model, or re-head it
+    at 512, reuse the host copy instead of drawing 0.8 / 1.5 B numbers
+    again."""
     from flash_attention_dlrs_tpu_torch.models import init_params_numpy
 
-    key = (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_q_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.d_ff, cfg.tie_embeddings, seed)
+    key = (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_q_heads * cfg.head_dim,
+           cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.tie_embeddings, seed)
     if key not in _WEIGHTS:
         _WEIGHTS[key] = init_params_numpy(cfg, seed)
     return _WEIGHTS[key]
@@ -1904,7 +1964,7 @@ def profile_window(fn, steps, retry=True):
     step (the union of its operations' intervals: operations that overlap
     count once), its operation count per step, and the device ms per step
     of every kernel name, largest first.  A window whose trace came back
-    without device time is taken once more (as in :func:`device_ms`); raises
+    without device time is taken once more; raises
     if the second saw none either, or more than the wall."""
     import torch
     from torch.autograd import DeviceType
@@ -2283,16 +2343,16 @@ def check_chunked_fp32(dev, prompts, **variant):
     return {"miss": gaps[0], "hit": gaps[1], "hits": hits}
 
 
-def phase_serve_chunked(dev, model, cfg):
+def phase_serve_chunked(dev, model, cfg, phase="serve_chunked", route="wgmma", **variant):
     """Chunked admission with the prefix cache from bf16 and int8 KV: the
     first request prefills 2048 tokens in 8 chunks and registers its pages;
     the next seven hit the cache for the 8 pages of the system prompt and
     prefill 4 chunks each.  Launch counts zeroed just before each run and
-    read just after; the last chunk's every layer checked kernel against
-    plain; admission ms dense / chunked / chunked with a hit; a 2-layer fp32
-    copy's chunked logits against its dense prefill."""
+    read just after (every forward and verify on ``route``); the last
+    chunk's every layer checked kernel against plain; admission ms dense /
+    chunked / chunked with a hit; a 2-layer fp32 copy (with the config
+    fields ``variant``) chunked logits against its dense prefill."""
     import torch
-    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import FWD_KERNEL
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
     rng = np.random.default_rng(2)
@@ -2310,18 +2370,17 @@ def phase_serve_chunked(dev, model, cfg):
     dense.generate([[1] * total], max_new_tokens=1)  # warm-up
     dense_ms = []
     dense._admit_dense = _timed(dense._admit_dense, dense_ms)
-    FWD_KERNEL.launches = 0
-    fwd_routes(zero=True)
+    _zero_launches()
     dense.generate(prompts, max_new_tokens=1)
-    dense_fwd = FWD_KERNEL.launches
+    dense_fwd = _launches()["attn_fwd"]
     dense_routes = fwd_routes()
     del dense
     torch.cuda.empty_cache()
 
     runs, checks = {}, {"dense_fwd_launches_16_per_prefill":
                         dense_fwd == cfg.n_layers * CHUNKED_REQUESTS,
-                        "dense_fwd_launches_all_wgmma": all_on(dense_routes, "wgmma",
-                                                               dense_fwd)}
+                        f"dense_fwd_launches_all_{route}": all_on(dense_routes, route,
+                                                                  dense_fwd)}
     for kind in ("bf16", "int8"):
         engine = DecodeEngine(model, cfg, kv_dtype=kv_kind(kind),
                               quantized_kv=kind in QUANT_KINDS, prefill_chunk=CHUNK,
@@ -2358,29 +2417,29 @@ def phase_serve_chunked(dev, model, cfg):
             f"{kind}_{want_chunks}_chunks": chunks == want_chunks,
             f"{kind}_verify_launches_16_per_chunk":
                 launches["paged_verify"] == cfg.n_layers * want_chunks,
-            f"{kind}_verify_launches_all_wgmma":
-                all_on(r["verify_routes"], "wgmma", launches["paged_verify"]),
+            f"{kind}_verify_launches_all_{route}":
+                all_on(r["verify_routes"], route, launches["paged_verify"]),
             f"{kind}_decode_launches_16_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
             f"{kind}_no_dense_prefill": (launches["attn_fwd"] == 0
-                                         and all_on(r["fwd_routes"], "wgmma", 0)),
+                                         and all_on(r["fwd_routes"], route, 0)),
             f"{kind}_every_layer_verify_kernel_vs_plain":
                 layers["ok"] and layers["layers_checked"] == cfg.n_layers,
         })
-        emit({"phase": "serve_chunked", "run": kind, **runs[kind]})
+        emit({"phase": phase, "run": kind, **runs[kind]})
         del engine
         torch.cuda.empty_cache()
-    fp32 = check_chunked_fp32(dev, prompts)
+    fp32 = check_chunked_fp32(dev, prompts, **variant)
     checks["fp32_2layer_chunked_vs_dense_miss"] = fp32["miss"] <= FP32_LOGIT_LIMIT
     checks["fp32_2layer_chunked_vs_dense_hit"] = (fp32["hit"] <= FP32_LOGIT_LIMIT
                                                   and fp32["hits"] == 1)
-    emit({"phase": "serve_chunked", "chunk": CHUNK, "system_tokens": SYSTEM_TOKENS,
+    emit({"phase": phase, "chunk": CHUNK, "system_tokens": SYSTEM_TOKENS,
           "unique_tokens": UNIQUE_TOKENS, "dense_fwd_launches": dense_fwd,
           "dense_fwd_routes": dense_routes,
           "fp32_2layer_chunked_vs_dense_diff_over_std": fp32, "checks": checks})
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"chunked serving checks failed: {failed}")
+        raise AssertionError(f"{phase} checks failed: {failed}")
     return runs, dense_fwd
 
 
@@ -2569,14 +2628,16 @@ def pages_back(*engines):
 
 def _serve_kernels():
     """The serving path's kernels by name, each over its builds (one for
-    each head dim; the forward's without segment ids)."""
+    each head dim, and the wide one; the forward's without segment ids)."""
     from flash_attention_dlrs_tpu_torch.ops import decode as dm
     from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
 
-    return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL),
-            "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL),
+    return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL,
+                         fk.FWD_WIDE_KERNEL),
+            "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL,
+                             dm.DECODE_WIDE_KERNEL),
             "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL,
-                             dm.VERIFY_D256_F16_KERNEL)}
+                             dm.VERIFY_D256_F16_KERNEL, dm.VERIFY_WIDE_KERNEL)}
 
 
 def _zero_launches():
@@ -3693,22 +3754,24 @@ def profiled_train_step(run):
             "top_device_ms": top_kernels(by_name, 8)}
 
 
-def phase_train(dev, name="train", **variant):
+def phase_train(dev, name="train", kernels=None, route="wgmma", warm=TRAIN_WARM_STEPS,
+                timed=TRAIN_TIMED_STEPS, **variant):
     """The training path at the bench-train config (with the config fields
     ``variant``), full width and depth: make_train_state (weights from
     init_params_numpy, seed 0), AdamW lr 3e-4 / wd 0.01, one batch of tokens
-    [8, 2049] from numpy seed 1, step i called with dropout seed i.  2 warm
-    steps, 4 timed ones (synchronized at the edges, launch counts zeroed
-    just before and read just after), one profiled step (the rope model
-    only), one step whose attention backward inputs are recorded and
-    checked layer by layer, then the 2-layer fp32 comparison of kernel and
-    plain paths."""
+    [8, 2049] from numpy seed 1, step i called with dropout seed i.
+    ``warm`` (2) warm steps, ``timed`` (4) timed ones (synchronized at the
+    edges, launch counts of ``kernels`` (the d128 builds: _kernels())
+    zeroed just before and read just after, every forward and sweep on
+    ``route``), one profiled step (the rope model only), one step whose
+    attention backward inputs are recorded and checked layer by layer, then
+    the 2-layer fp32 comparison of kernel and plain paths."""
     import torch
     from flash_attention_dlrs_tpu_torch.models import (
         ModelConfig, make_train_state, make_train_step,
     )
 
-    cfg = ModelConfig(**TRAIN_CFG, **variant, dtype=torch.bfloat16, remat=True,
+    cfg = ModelConfig(**{**TRAIN_CFG, **variant}, dtype=torch.bfloat16, remat=True,
                       remat_policy="block")
     t0 = time.perf_counter()
     model, opt_state, optimizer = make_train_state(
@@ -3720,23 +3783,22 @@ def phase_train(dev, name="train", **variant):
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).to(dev)
 
-    losses = [float(step(model, opt_state, tokens, i)) for i in range(TRAIN_WARM_STEPS)]
+    losses = [float(step(model, opt_state, tokens, i)) for i in range(warm)]
     torch.cuda.reset_peak_memory_stats()
-    kernels = _kernels()
+    kernels = kernels or _kernels()
     for kern in kernels.values():
         kern.launches = 0
     fwd_routes(zero=True)
     bwd_routes(zero=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    timed = [step(model, opt_state, tokens, TRAIN_WARM_STEPS + i)
-             for i in range(TRAIN_TIMED_STEPS)]
+    timed_losses = [step(model, opt_state, tokens, warm + i) for i in range(timed)]
     torch.cuda.synchronize()
-    ms_per_step = (time.perf_counter() - t) * 1e3 / TRAIN_TIMED_STEPS
+    ms_per_step = (time.perf_counter() - t) * 1e3 / timed
     launches = {kname: kern.launches for kname, kern in kernels.items()}
     routes = fwd_routes()
     sweep_routes = bwd_routes()
-    losses += [float(x) for x in timed]
+    losses += [float(x) for x in timed_losses]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     profiled = {}
@@ -3753,16 +3815,15 @@ def phase_train(dev, name="train", **variant):
 
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (ms_per_step / 1e3)
     fpt = model_flops_per_token(cfg, TRAIN_SEQ)
-    expected = {"attn_fwd": 2 * cfg.n_layers * TRAIN_TIMED_STEPS,
-                **{kname: cfg.n_layers * TRAIN_TIMED_STEPS for kname in kernels
-                   if kname != "attn_fwd"}}
+    expected = {"attn_fwd": 2 * cfg.n_layers * timed,
+                **{kname: cfg.n_layers * timed for kname in kernels if kname != "attn_fwd"}}
     checks = {
         "loss_finite": all(np.isfinite(losses)),
         "loss_falls": losses[-1] < losses[0],
         "launches_exact_per_step": launches == expected,
-        "fwd_launches_all_wgmma": all_on(routes, "wgmma", launches["attn_fwd"]),
-        "bwd_sweep_launches_all_wgmma": all(
-            all_on(sweep_routes[sweep], "wgmma", launches[sweep]) for sweep in sweep_routes),
+        f"fwd_launches_all_{route}": all_on(routes, route, launches["attn_fwd"]),
+        f"bwd_sweep_launches_all_{route}": all(
+            all_on(sweep_routes[sweep], route, launches[sweep]) for sweep in sweep_routes),
         "attention_every_layer_fwd_and_bwd_kernel_vs_plain":
             layers_checked == cfg.n_layers and attn_ok,
         "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
@@ -3772,7 +3833,7 @@ def phase_train(dev, name="train", **variant):
         "remat_policy": "block", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "params": n_params, "weights_setup_s": setup_s,
         "optimizer": "AdamW (optax.adamw semantics) lr 3e-4, wd 0.01",
-        "losses": losses, "timed_steps": TRAIN_TIMED_STEPS,
+        "losses": losses, "warm_steps": warm, "timed_steps": timed,
         "ms_per_step": ms_per_step, "tokens_per_s": tokens_per_s,
         "model_flops_per_token": fpt,
         "mfu": tokens_per_s * fpt / PEAK_BF16_FLOPS,
@@ -4331,7 +4392,10 @@ def _all_attention_kernels():
             "attn_bwd_dkv_d256": bwd_kernel.DKV_D256_KERNEL,
             "attn_bwd_dq_d256": bwd_kernel.DQ_D256_KERNEL,
             "attn_bwd_dkv_d256_seg": bwd_kernel.DKV_D256_SEG_KERNEL,
-            "attn_bwd_dq_d256_seg": bwd_kernel.DQ_D256_SEG_KERNEL}
+            "attn_bwd_dq_d256_seg": bwd_kernel.DQ_D256_SEG_KERNEL,
+            "attn_fwd_wide": fwd_kernel.FWD_WIDE_KERNEL,
+            "attn_bwd_dkv_wide": bwd_kernel.DKV_WIDE_KERNEL,
+            "attn_bwd_dq_wide": bwd_kernel.DQ_WIDE_KERNEL}
 
 
 def counted(fn):
@@ -5194,8 +5258,8 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softc
     serving model's heads (or ``heads``: (Hq, Hkv, d)) from bf16 q and
     ``kind`` pools, with ALiBi when ``alibi`` and the logit ``softcap``: its
     time (``ms``: CUDA events around one wrapper call, warm,
-    host time included; ``device_ms``: the call's kernel from the profiler,
-    each call after an L2 flush), its plain version's, its bound (the bias
+    host time included; ``device_ms``: the call's kernels alone, each call
+    after an L2 flush, :func:`device_ms`), its plain version's, its bound (the bias
     adds no bytes), its error against the plain version, its key splits,
     route and CTAs."""
     import torch
@@ -5227,18 +5291,20 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softc
     splits = next(iter(dm.VERIFY_SPLITS if t_new else dm.DECODE_SPLITS))
     route = (next(r for r, n in dm.VERIFY_ROUTE_LAUNCHES.items() if n) if t_new else "cuda")
     ms = median_ms(kernel)
-    dev_ms = device_ms(kernel, between=l2_flush(dev))
-    plain_ms = median_ms(plain, warmup=1, reps=3)
     flops, nbytes = paged_work(kind, b, hq, hkv, d, lengths, t_new)
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    dev_ms = device_ms(kernel, between=l2_flush(dev), floor_ms=bound_ms)
+    plain_ms = median_ms(plain, warmup=1, reps=3)
     del q, kp, vp, args
     torch.cuda.empty_cache()
+    per_dev = ({"device_ms_unread": "under its bound, or launches outlasting the spin"}
+               if dev_ms is None else
+               {"share_of_bound": bound_ms / dev_ms, "gb_per_s": nbytes / dev_ms / 1e6,
+                "tflops": flops / dev_ms / 1e9})
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "share_of_bound": bound_ms / dev_ms, "bytes": nbytes,
-            "flops": flops, "gb_per_s": nbytes / dev_ms / 1e6,
-            "tflops": flops / dev_ms / 1e9, "max_abs_err": err, "splits": splits,
-            "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv)}
+            "bound_ms": bound_ms, "bound_by": bound_by, **per_dev, "bytes": nbytes,
+            "flops": flops, "max_abs_err": err, "splits": splits,
+            "route": route, "ctas": paged_ctas(t_new, route, splits, b, hq, hkv, d)}
 
 
 # Rolling sliding-window serving (serve_rolling): mistralai/Mistral-7B-v0.1's
@@ -5705,7 +5771,7 @@ def phase_native(dev, model, cfg):
 # 2048 tokens of val.bin, dense and paged from every KV kind.
 GATE_CFG = dict(vocab_size=512, d_model=768, n_layers=8, n_q_heads=12, n_kv_heads=4,
                 head_dim=64, d_ff=2048)
-GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 200, 200, 6e-4
+GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 120, 200, 6e-4
 GATE_CORPUS_MB, GATE_EVAL, GATE_PPL, GATE_PAGED_RTOL = 32, 2, 0.1, 1e-2
 GATE_KINDS = ("bf16", "int8", "int4", "e4m3", "e5m2")
 
@@ -6606,7 +6672,8 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
         if name == "attn_bwd_preprocess":
             launches += (gemma_train_launches(gemma_train, name)
                          + later["eval_gate"]["train_launches"][name]
-                         + later["encoder"]["launches"][name])
+                         + later["encoder"]["launches"][name]
+                         + later["train_d512"]["launches"][name])
         kernels.append(entry(name, source, replaces, launches, rows[name]))
 
     alibi_fwd = sum(r["launches"]["attn_fwd"] for r in serve_alibi.values())
@@ -6680,6 +6747,7 @@ def emit_kernels(fwd_res, dec_res, paths, timings, graphed, models, gemma_train,
     kernels += d256_mode_entries(entry, packed, timings, dec_res, d256_modes)
     kernels += later_entries(entry, later["eval_gate"], later["encoder"])
     kernels += tile_entries(entry, later["tune"])
+    kernels += wide_entries(entry, later)
     # the scale-out phases' launches, every rank's, join their kernels' entries
     for name in ("parallel_attention", "parallel_decode", "train_mesh", "serve_mesh", "dryrun"):
         for kernel in kernels:
@@ -6893,7 +6961,7 @@ PAR_DECODE_TOKENS = 2048  # a rank's tokens of each sequence, context-sharded
 # copy at B4 x 512 for one step.  The bf16 loss averages 16k tokens' cross
 # entropy: a bf16 reordering of the model's sums moves it far less than
 # TRAIN_MESH_LOSS_REL of itself.
-TRAIN_MESH_STEPS, TRAIN_MESH_LOSS_REL = 2, 5e-3
+TRAIN_MESH_STEPS, TRAIN_MESH_LOSS_REL = 1, 5e-3
 TRAIN_MESH_FP32 = (4, 512)
 MESH_FP32_GAP = 1e-3  # x std: the fp32 copies' loss and weights
 # Adam's first update moves every weight by about lr·sign(g): where g sits at
@@ -6902,7 +6970,7 @@ MESH_FP32_GAP = 1e-3  # x std: the fp32 copies' loss and weights
 MESH_FP32_LR, MESH_FP32_PAST = 3e-4, 1e-4
 # serve_mesh: tp 2, phase serve's 8 requests at 4 slots, 16 new tokens each
 # (cut from serve's 32 for the script's time)
-SERVE_MESH_TP, SERVE_MESH_NEW_TOKENS = 2, 16
+SERVE_MESH_TP, SERVE_MESH_NEW_TOKENS = 2, 8
 PAR_EXAMPLES = (("01_attention_features_torch.py", []), ("03_serve_paged_torch.py", []),
                 ("04_multichip_mesh_torch.py", ["--world", "4", "--backend", "gloo"]))
 # kernels-line entries by kernel symbol (paged decode by its pool kind)
@@ -7116,7 +7184,7 @@ def phase_parallel_decode(dev):
 def phase_train_mesh(dev):
     """The training-bench model at full width and depth (TRAIN_CFG: b7
     widths, 8 layers, bf16, block remat) trained dp 2 x tp 2 over 4 gloo
-    ranks of the card, global batch 8 x 2048, 2 steps: each step's loss
+    ranks of the card, global batch 8 x 2048, TRAIN_MESH_STEPS steps: each step's loss
     held against the single-process steps on the same batch and weights
     (run on the same card by rank 0 after the mesh run, from the weights
     it drew), every rank's launches exact (2 forwards and one of each
@@ -7305,16 +7373,680 @@ def phase_examples(dev):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Head dims above 256 (csrc/wide.cuh): the wide kernels held against their
+# plain versions, a broken copy caught, their times; the serving- and
+# training-bench models re-headed at head dim 512 served and trained on them
+# ---------------------------------------------------------------------------
+
+# the wide kernels' body, and the source each is built from
+WIDE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/wide.cuh"
+WIDE_BUILDS = {"attn_fwd": "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_wide.cu",
+               "attn_bwd": "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_wide.cu",
+               "paged_decode": "flash_attention_dlrs_tpu_torch/csrc/paged_decode_wide.cu",
+               "paged_verify": "flash_attention_dlrs_tpu_torch/csrc/paged_verify_wide.cu"}
+# The bench models re-headed at head dim 512: every projection keeps its
+# bench shape (serving 16 q x 128 = 4 q x 512 and 8 kv x 128 = 2 kv x 512;
+# training 32 x 128 = 8 x 512 and 8 x 128 = 2 x 512), so parameters, GEMMs
+# and attention FLOPs stay the bench models'; only the head width changes.
+D512_SERVE_HEADS = dict(n_q_heads=4, n_kv_heads=2, head_dim=512)
+D512_TRAIN_HEADS = dict(n_q_heads=8, n_kv_heads=2, head_dim=512)
+SERVE_D512_NEW_TOKENS = 16
+TRAIN_D512_WARM, TRAIN_D512_TIMED = 1, 2
+# The wide forward with its Q K^T cut short by its last 128 columns, the
+# class of fault its column chunks can bring: fwd_check's wide cases at
+# d 512 and 640 must catch it.
+WIDE_MUTANTS = {
+    "wide_fwd_drops_last_chunk": ("attn_fwd_wide.cu", "wide.cuh", [(
+        "const int score_cols = D;  // Q K^T runs over every column of the head dim",
+        "const int score_cols = D - 128;  // Q K^T runs over every column of the head dim")]),
+}
+WIDE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
+WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cap, below
+# the op API and the nn adapter at head dims the op pads (320 -> 384) and
+# does not (640): (B, Hq, Hkv, Nq, Nkv, d)
+WIDE_OP_SHAPES = {320: (2, 4, 2, 300, 300, 320), 640: (2, 4, 2, 257, 257, 640)}
+
+
+def wide_fwd_cases():
+    """fwd_check cases of the wide forward at d 384, 512 and 640: every mode
+    (GQA, tails, window, softcap, ALiBi, dropout, segment ids with rows that
+    see nothing, fp8 V) in bf16, fp16 and fp32, the bench models' shapes and
+    d 1024, the cap."""
+    import torch
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    both = dict(alibi=True, rate=0.1, seed=-5)
+    cases = []
+    for d in WIDE_WIDTHS:
+        tag = f"d{d}"
+        cases += [
+            (f"{tag}_causal_gqa_bf16", bf16, 1, 8, 2, 300, 300, d, True, 0, 0.0, {}),
+            (f"{tag}_noncausal_tail_fp16", f16, 2, 4, 2, 130, 200, d, False, 0, 0.0, {}),
+            (f"{tag}_window_softcap_bf16", bf16, 1, 4, 1, 257, 257, d, True, 100, 30.0, {}),
+            (f"{tag}_alibi_dropout_fp16", f16, 2, 4, 2, 333, 333, d, True, 0, 0.0,
+             both),
+            (f"{tag}_seg_packed_bf16", bf16, 2, 4, 2, 300, 300, d, True, 0, 0.0,
+             dict(seg="packed")),
+            (f"{tag}_seg_cross_fp16", f16, 1, 4, 2, 300, 700, d, False, 0, 0.0,
+             dict(seg="cross")),
+            (f"{tag}_fp8v_e4m3_bf16", bf16, 1, 4, 2, 300, 300, d, True, 0, 0.0,
+             dict(v8="e4m3")),
+            (f"{tag}_fp8v_e5m2_fp16_window", f16, 1, 4, 2, 200, 300, d, True, 63, 0.0,
+             dict(v8="e5m2")),
+            (f"{tag}_empty_rows_bf16", bf16, 1, 4, 2, 300, 200, d, True, 0, 0.0, {}),
+            (f"{tag}_fp32_causal_gqa", f32, 1, 4, 2, 200, 200, d, True, 0, 0.0, {}),
+            (f"{tag}_fp32_window_softcap_alibi_dropout", f32, 1, 4, 2, 130, 161, d, True,
+             50, 25.0, both),
+            (f"{tag}_fp32_seg_cross_fp8v_e5m2", f32, 1, 2, 1, 200, 500, d, False, 0, 0.0,
+             dict(seg="cross", v8="e5m2")),
+        ]
+    return cases + [
+        ("d512_train_B8_H8_N2048", bf16, 8, 8, 2, 2048, 2048, 512, True, 0, 0.0, {}),
+        ("d512_serve_prefill_2048", bf16, 1, 4, 2, 2048, 2048, 512, True, 0, 0.0, {}),
+        ("d1024_causal_bf16", bf16, 1, 2, 1, 256, 256, 1024, True, 0, 0.0, {}),
+        ("d1024_fp32_window_softcap_alibi_dropout", f32, 1, 2, 1, 130, 161, 1024, True, 50,
+         25.0, both),
+    ]
+
+
+def wide_bwd_cases():
+    """bwd_check cases of the wide sweeps at d 384, 512, 640 and 1024 (the
+    cap): every mode but fp8 V, in bf16, fp16 and fp32, and the training
+    model's attention."""
+    cases = []
+    for d in WIDE_WIDTHS:
+        tag = f"d{d}"
+        cases += [
+            (f"{tag}_causal_gqa_bf16", BF16, 1, 4, 2, 300, 300, d, True, 0, 0.0, None, {}),
+            (f"{tag}_window_softcap_fp16", F16, 1, 4, 1, 257, 257, d, True, 100, 30.0, None, {}),
+            (f"{tag}_noncausal_cross_bf16", BF16, 2, 4, 2, 130, 300, d, False, 0, 0.0, None, {}),
+            (f"{tag}_alibi_dropout_seg_bf16", BF16, 2, 4, 2, 333, 333, d, True, 0, 0.0, None,
+             dict(_BOTH, seg="packed")),
+            (f"{tag}_empty_rows_fp16", F16, 1, 4, 2, 300, 200, d, True, 0, 0.0, None, {}),
+            (f"{tag}_fp32_causal", F32, 1, 2, 1, 200, 200, d, True, 0, 0.0, None, {}),
+            (f"{tag}_fp32_window_softcap_alibi_dropout", F32, 1, 4, 2, 300, 300, d, True, 100,
+             25.0, None, _BOTH),
+            (f"{tag}_fp32_seg_cross", F32, 1, 2, 1, 200, 500, d, True, 0, 0.0, None,
+             dict(seg="cross")),
+        ]
+    return cases + [
+        ("d512_train_B2_H8_N2048", BF16, 2, 8, 2, 2048, 2048, 512, True, 0, 0.0, None, {}),
+        ("d1024_alibi_dropout_seg_bf16", BF16, 1, 2, 1, 300, 300, 1024, True, 0, 0.0, None,
+         dict(_BOTH, seg="packed")),
+        ("d1024_fp32_window_softcap", F32, 1, 2, 1, 200, 200, 1024, True, 64, 25.0, None, {}),
+    ]
+
+
+def wide_paged_cases(num_sms):
+    """decode_check cases of the wide paged kernels at pool widths 384, 512,
+    640 and 1024 (the cap), at the serving-d512 model's heads: the key-split
+    edges from the planner at page sizes 16 and 128 (lengths 0, 1, on the
+    first split boundary, one past it and the full table), every pool kind,
+    softcap and ALiBi; verify at T = 1, 4, 64, 255 and 256 with row horizons
+    inside tiles; quantized pools from bf16 (or fp32) q, value pools of q's
+    dtype."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import decode_splits, split_pages
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    hq, hkv, table = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"], 2176
+
+    def edges(b, ps):
+        pps = table // ps
+        per, _ = split_pages(pps, decode_splits(b, hkv, pps, ps, num_sms))
+        return pps, [0, 1, per * ps, per * ps + 1, pps * ps][:b]
+
+    cases = []
+    for d in WIDE_WIDTHS:
+        tag = f"d{d}"
+        pps, lengths = edges(5, 128)
+        cases += [(f"{tag}_edges_{kind}_page128_B5", bf16, kind,
+                   (5, hq, hkv, d, 128, pps, lengths), 0.0, 0, False)
+                  for kind in ("bf16", "int4")]
+        pps16, lengths16 = edges(5, 16)
+        cases.append((f"{tag}_edges_int8_page16_softcap_alibi_B5", bf16, "int8",
+                      (5, hq, hkv, d, 16, pps16, lengths16), 30.0, 0, True))
+        serve = (8, hq, hkv, d, 128, 17, DECODE_B8_LENGTHS)
+        small = (3, 8, 2, d, 64, 8, [0, 300, 512])
+        cases += [(f"{tag}_decode_{kind}_B8", bf16, kind, serve, 0.0, 0, False)
+                  for kind in ("e4m3", "e5m2")]
+        cases += [
+            (f"{tag}_decode_fp16_softcap_alibi", f16, "fp16", small, 30.0, 0, True),
+            (f"{tag}_decode_fp32_int8_alibi", f32, "int8", small, 0.0, 0, True),
+            (f"{tag}_decode_fp32_values", f32, "fp32", small, 0.0, 0, False),
+        ]
+        horizons = (2, hq, hkv, d, 128, 17, [1000, 1717])
+        cases += [(f"{tag}_verify_T{t}_bf16", bf16, "bf16", horizons, 0.0, t, False)
+                  for t in (1, 4, 255, 256)]
+        cases += [(f"{tag}_verify_T64_{kind}_softcap_alibi", bf16, kind, horizons, 30.0, 64,
+                   True) for kind in QUANT_KINDS]
+        cases += [
+            (f"{tag}_verify_T4_fp16", f16, "fp16", horizons, 0.0, 4, False),
+            (f"{tag}_verify_T5_fp32_int4_alibi", f32, "int4", small, 0.0, 5, True),
+            (f"{tag}_verify_T32_fp32_values", f32, "fp32",
+             (2, hq, hkv, d, 128, 17, [40, 2100]), 0.0, 32, False),
+            (f"{tag}_verify_T256_bf16_page16_alibi", bf16, "bf16",
+             (2, hq, hkv, d, 16, table // 16, [1000, 1717]), 0.0, 256, True),
+        ]
+    pps, lengths = edges(5, 128)
+    return cases + [
+        ("d1024_edges_int8_page128_softcap_alibi_B5", bf16, "int8",
+         (5, hq, hkv, 1024, 128, pps, lengths), 30.0, 0, True),
+        ("d1024_decode_fp32_values", f32, "fp32", (3, 8, 2, 1024, 64, 8, [0, 300, 512]), 0.0,
+         0, False),
+        ("d1024_verify_T64_int4_softcap_alibi", bf16, "int4",
+         (2, hq, hkv, 1024, 128, 17, [1000, 1717]), 30.0, 64, True),
+        ("d1024_verify_T5_fp32_values", f32, "fp32", (3, 8, 2, 1024, 64, 8, [0, 300, 512]),
+         0.0, 5, False),
+    ]
+
+
+# one op call and its backward on the wide kernels
+WIDE_CALL = dict(attn_fwd_wide=1, attn_bwd_preprocess=1, attn_bwd_dkv_wide=1,
+                 attn_bwd_dq_wide=1)
+
+
+def _op_wide(dev, gen, dt, shape, v8=None, seg=None, **kw):
+    """One flash_attention call (the op API) on inputs of ``shape`` (B, Hq,
+    Hkv, Nq, Nkv, d; d the model's head dim, which the op pads to its
+    kernels' width) with a :func:`segment_layout` ``seg`` as SegmentIds,
+    and its .backward() (forward only with fp8 V ``v8``), counted; then the
+    same call with the op's kernels swapped for their plain versions, the
+    output and gradients held against the kernel path's: (record, ok,
+    launches)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import SegmentIds, flash_attention
+    from flash_attention_dlrs_tpu_torch.ops.bwd_kernel import attn_bwd_plain
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd_plain
+
+    b, hq, hkv, nq, nkv, d = shape
+    q = _rand(gen, (b, hq, nq, d), dt, dev)
+    k = _rand(gen, (b, hkv, nkv, d), dt, dev)
+    v = _rand(gen, (b, hkv, nkv, d), dt, dev)
+    do = _rand(gen, (b, hq, nq, d), dt, dev)
+    if v8:
+        v = v.to(getattr(torch, FP8_V[v8]))
+    ids = segment_layout(seg, b, nq, nkv, dev)
+    segment_ids = SegmentIds(q=ids["q_seg"], kv=ids["kv_seg"]) if ids else None
+
+    def run():
+        if v8:
+            with torch.no_grad():
+                return flash_attention(q, k, v, segment_ids=segment_ids, **kw), None
+        qr, kr, vr = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+        out = flash_attention(qr, kr, vr, segment_ids=segment_ids, **kw)
+        out.backward(do)
+        return out.detach(), (qr.grad, kr.grad, vr.grad)
+
+    (o, grads), launches = counted(run)
+    fa_ops = _attention_ops()
+    kernels = fa_ops.attn_fwd, fa_ops.attn_bwd
+    try:
+        fa_ops.attn_fwd, fa_ops.attn_bwd = attn_fwd_plain, attn_bwd_plain
+        o_p, grads_p = run()
+    finally:
+        fa_ops.attn_fwd, fa_ops.attn_bwd = kernels
+    torch.cuda.synchronize()
+    zero = torch.zeros(1, device=dev)
+    fwd_rec, ok = fwd_errors((o, zero), (o_p, zero), dt)
+    rec = {"max_abs_err_o": fwd_rec["max_abs_err_o"], "tolerance_o": fwd_rec["tolerance"],
+           "out_shape": list(o.shape)}
+    ok &= rec["out_shape"] == [b, hq, nq, d]
+    if grads is not None:
+        bwd_rec, bwd_ok = bwd_errors(grads, grads_p, dt)
+        rec.update(bwd_rec)
+        ok &= bwd_ok and all(g.shape == x.shape for g, x in zip(grads, (q, k, v)))
+    return rec, ok, launches
+
+
+def _paged_wide_op(dev, gen, kind, t_new):
+    """Paged decode (``t_new`` 0) or verify of ``t_new`` tokens through its
+    entry point from bf16 q of head dim 320 on ``kind`` pools of the
+    kernels' width 384 (an engine's pools for such a model, padded as the
+    JAX package pads them), with softcap and ALiBi, the wide kernel's
+    launches counted; against the plain version on the same inputs:
+    (record, ok, launches)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+
+    hq, hkv = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"]
+    q, kp, vp, lens, table = _paged_inputs(
+        gen, dev, torch.bfloat16, kind, 2, hq, hkv, 384, 128, 17, [1000, 2100],
+        num_pages=2 * 17 + 8, t_new=t_new)
+    q = q[..., :320].contiguous()
+    kw = dict(sm_scale=320 ** -0.5, logit_softcap=30.0,
+              alibi_slopes=mods(hq, True)["alibi_slopes"])
+    wide = dm.VERIFY_WIDE_KERNEL if t_new else dm.DECODE_WIDE_KERNEL
+    attend, plain = ((dm.paged_verify_attention, dm.paged_verify_plain) if t_new
+                     else (dm.paged_decode_attention, dm.paged_decode_plain))
+    dm.DECODE_SPLITS.clear()
+    wide.launches = 0
+    got = attend(q, kp, vp, lens, table, **kw)
+    torch.cuda.synchronize()
+    launches = wide.launches
+    if dm.DECODE_SPLITS:  # the kernel's split count (none recorded off the card)
+        kw["splits"] = next(iter(dm.DECODE_SPLITS))
+    want = plain(q, kp, vp, lens, table, **kw)
+    spread = (plain(q, *abs_v_pools(kp, vp), lens, table, **kw)
+              if t_new or not torch.is_tensor(vp) else None)
+    rec = paged_errors((got, None), (want, None), torch.bfloat16, spread)
+    rec["out_shape"] = list(got.shape)
+    ok = rec.pop("ok") and list(got.shape) == list(q.shape)
+    return rec, ok, launches
+
+
+def wide_op_checks(dev, gen):
+    """The entry points a user calls, at head dims 320 (which the op pads
+    to 384 and slices back) and 640: flash_attention forward and backward
+    in bf16, fp16 and fp32 with causal GQA, window, softcap, ALiBi,
+    dropout and SegmentIds, fp8 V forward only; nn.dot_product_attention
+    on padded batches, causal and with a window; paged decode and verify
+    from q of 320 on pools of 384.  Each call's launches counted exactly
+    (one wide forward, and with a backward the preprocess and each wide
+    sweep once, on the route of its types) and held against the same call
+    on the plain versions: (records, checks)."""
+    import torch
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    both = mods(4, True, 0.1, -5)
+    calls, checks = {}, {}
+
+    def record(name, rec, ok, launches, want):
+        calls[name] = {**rec, "launches": launches}
+        checks[f"{name}_vs_plain"] = ok
+        checks[f"{name}_launches_exact"] = (launches == want if isinstance(want, int)
+                                            else launches_are(launches, **want))
+        emit({"phase": "wide_op_check", "call": name, **rec,
+              "launches": launches if isinstance(launches, int)
+              else {k: n for k, n in launches.items() if n}})
+
+    for d, shape in WIDE_OP_SHAPES.items():
+        width = -(-d // 128) * 128
+        for name, dt, v8, seg, kw in (
+                ("causal_gqa_bf16", bf16, None, None, dict(causal=True)),
+                ("window_softcap_fp16", f16, None, None,
+                 dict(causal=True, window=100, logit_softcap=30.0)),
+                ("alibi_dropout_segments_bf16", bf16, None, "packed",
+                 dict(causal=True, **both)),
+                ("fp32_window_softcap_alibi_dropout", f32, None, None,
+                 dict(causal=True, window=64, logit_softcap=25.0, **both)),
+                ("fp8v_e4m3_bf16_forward", bf16, "e4m3", None, dict(causal=True))):
+            want = {"attn_fwd_wide": 1} if v8 else WIDE_CALL
+            record(f"op_d{d}_{name}", *_op_wide(dev, gen, dt, shape, v8, seg, **kw),
+                   on_route(dt, seg is not None, bool(v8), d=width, **want))
+        b, hq, hkv, n = shape[:4]
+        lengths = [n, n - 77]
+        for name, window in (("causal", None), ("causal_window", (63, 0))):
+            rec, ok, launches, _ = _nn_packed(dev, gen, lengths, window, shape=(b, hq, hkv, n, d))
+            record(f"nn_d{d}_padded_{name}", rec, ok, launches,
+                   on_route(bf16, True, d=width, **WIDE_CALL))
+    record("paged_decode_d320_int8", *_paged_wide_op(dev, gen, "int8", 0), 1)
+    record("paged_verify_d320_T64_bf16", *_paged_wide_op(dev, gen, "bf16", 64), 1)
+    torch.cuda.empty_cache()
+    return calls, checks
+
+
+def sdpa_backend(q, k, v, causal=True):
+    """The backend scaled_dot_product_attention picks for (q, k, v) with GQA
+    (torch._fused_sdp_choice), by name."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                                  enable_gqa=True)).name
+    except (RuntimeError, TypeError, ValueError) as exc:  # a private entry point
+        return f"not read ({type(exc).__name__}: {exc})"
+
+
+def sdpa_expanded_ms(gen, dev, b, hq, hkv, n, d, backward=False):
+    """scaled_dot_product_attention (causal, bf16) on the memory-efficient
+    backend with K/V expanded to q's heads (repeat_interleave before the
+    timing, so the GQA that backend lacks costs it nothing): the forward's
+    ms, or with ``backward`` that of torch.autograd.grad on a kept graph
+    (dK and dV then per q head: their sum over each group is not timed);
+    a string saying why where it does not run."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = hq // hkv
+    q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev).requires_grad_(backward)
+    k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev).repeat_interleave(g, 1)
+    v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev).repeat_interleave(g, 1)
+    k.requires_grad_(backward)
+    v.requires_grad_(backward)
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            if not backward:
+                return median_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                         is_causal=True))
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        do = torch.randn_like(out)
+        return median_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
+    except RuntimeError as exc:
+        return f"did not run: {str(exc)[:300]}"
+    finally:
+        del q, k, v
+        torch.cuda.empty_cache()
+
+
+def _faster_library(row, expanded, backend):
+    """``row``'s library_ms the faster of SDPA with enable_gqa (on
+    ``backend``) and SDPA on expanded K/V (``expanded``: ms, or why it did
+    not run), ``library`` naming the one kept."""
+    if isinstance(expanded, float) and (row["library_ms"] is None
+                                        or expanded < row["library_ms"]):
+        row["library_ms"] = expanded
+        row["library"] = "scaled_dot_product_attention, EFFICIENT_ATTENTION, K/V expanded"
+    else:
+        row["library"] = f"scaled_dot_product_attention, {backend}, enable_gqa"
+
+
+def wide_timings(dev, gen):
+    """The wide kernels at the re-headed bench models' shapes: the forward
+    at the training shape (B8 Hq8 Hkv2 N2048) and the serving prefill (B1
+    Hq4 Hkv2 N2048), the sweeps at the training shape, decode from bf16 and
+    int8 KV at 8 sequences of 2048 and verify of a 256-token chunk at 2048
+    (the serving heads Hq4 Hkv2).  The library time is the faster of SDPA
+    with enable_gqa on the backend it picks at d 512 and SDPA's
+    memory-efficient backend on expanded K/V (:func:`sdpa_expanded_ms`)."""
+    import torch
+
+    heads = (D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"], 512)
+    t = {"fwd_train_d512": time_fwd(gen, dev, 8, 8, 2, 2048, 512, {}),
+         "fwd_serve_prefill_d512": time_fwd(gen, dev, 1, 4, 2, 2048, 512, {}),
+         "bwd_train_d512": time_bwd(dev, gen, 8, 8, 2, 2048, 512)}
+    expanded = {"fwd_train_d512": sdpa_expanded_ms(gen, dev, 8, 8, 2, 2048, 512),
+                "fwd_serve_prefill_d512": sdpa_expanded_ms(gen, dev, 1, 4, 2, 2048, 512),
+                "bwd_train_d512": sdpa_expanded_ms(gen, dev, 8, 8, 2, 2048, 512, True)}
+    t["sdpa_expanded_efficient_ms"] = expanded
+    for kind in ("bf16", "int8"):
+        t[f"decode_d512_{kind}_B8_ctx2048"] = time_paged(gen, dev, kind, 8, [2048] * 8, 0,
+                                                         heads=heads)
+        t[f"verify_d512_{kind}_T256_ctx2048"] = time_paged(gen, dev, kind, 1, [2048], 256,
+                                                           heads=heads)
+    q = _rand(gen, (8, 8, 2048, 512), torch.bfloat16, dev)
+    k = _rand(gen, (8, 2, 2048, 512), torch.bfloat16, dev)
+    t["sdpa_backend_d512"] = sdpa_backend(q, k, k)
+    del q, k
+    torch.cuda.empty_cache()
+    for key in ("fwd_train_d512", "fwd_serve_prefill_d512"):
+        _faster_library(t[key], expanded[key], t["sdpa_backend_d512"])
+    _faster_library(t["bwd_train_d512"]["attn_bwd"], expanded["bwd_train_d512"],
+                    t["sdpa_backend_d512"])
+    return t
+
+
+def wide_mutants_caught(dev, builds):
+    """Each broken copy of WIDE_MUTANTS in place of FWD_WIDE_KERNEL on the
+    wide forward cases at d 512 and 640: each must fail at least one."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+
+    wait = wait_mutant_builds(builds)
+    cases = [c for c in wide_fwd_cases() if c[7] in (512, 640) and c[2] * c[5] <= 2048]
+    caught = {}
+    for name, (_, lib, source) in builds.items():
+        real = fk.FWD_WIDE_KERNEL
+        failed = []
+        gen = torch.Generator(device=dev).manual_seed(9)
+        try:
+            fk.FWD_WIDE_KERNEL = _cuda.CudaKernel(source, real.symbol, real.argtypes,
+                                                  library=lib)
+            for case in cases:
+                if not fwd_case(dev, gen, case, phase="wide_mutants")["ok"]:
+                    failed.append(case[0])
+        finally:
+            fk.FWD_WIDE_KERNEL = real
+        caught[name] = failed
+    return caught, wait
+
+
+def phase_wide_heads(dev):
+    """The wide kernels (csrc/wide.cuh) against their plain versions at
+    kernel widths 384, 512, 640 and 1024 in every mode and dtype: the
+    forward once (fwd_case), the sweeps twice, bit for bit (bwd_case), the
+    paged kernels twice, bit for bit, at their key-split edges (paged_case);
+    each call on the route its route function names.  Then the entry points
+    at head dims 320 and 640 (wide_op_checks), the mutant of WIDE_MUTANTS
+    caught, each build's shared memory against geometry.py's model, and the
+    kernels timed at the re-headed bench models' shapes."""
+    import ctypes
+
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch import geometry as geo
+
+    global WIDE_MUTANT_BUILDS
+    builds = WIDE_MUTANT_BUILDS or start_mutant_builds(WIDE_MUTANTS)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    fwd = {c[0]: fwd_case(dev, gen, c, phase="wide_fwd_check") for c in wide_fwd_cases()}
+    bwd = {}
+    for case in wide_bwd_cases():
+        bwd[case[0]], _ = bwd_case(dev, gen, case)
+        emit({"phase": "wide_bwd_check", **bwd[case[0]]})
+    paged = {}
+    for case in wide_paged_cases(torch.cuda.get_device_properties(dev).multi_processor_count):
+        name, dt, kind, shape, cap, t_new, alibi = case
+        paged[name] = paged_case(dev, gen, case)
+        emit({"phase": "wide_paged_check", "case": name,
+              "kernel": "paged_verify" if t_new else "paged_decode", "q_dtype": str(dt),
+              "kv": kind, "tokens": t_new or 1, "shape": list(shape[:6]),
+              "lengths": shape[6], "softcap": cap, "alibi": alibi,
+              **paged[name]})
+    torch.cuda.empty_cache()
+    op_calls, op_checks = wide_op_checks(dev, gen)
+    caught, wait = wide_mutants_caught(dev, builds)
+    shared = {}
+    for src, entry in (("attn_fwd_wide.cu", "attn_fwd_wide"),
+                       ("attn_bwd_wide.cu", "attn_bwd_wide")):
+        fn = getattr(ctypes.CDLL(str(_cuda.library_path(src))), f"{entry}_shared_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        for dtype, itemsize in ((0, 4), (1, 2)):
+            shared[f"{entry}_{'fp32' if dtype == 0 else '16bit'}"] = [
+                fn(dtype), geo.wide_smem_bytes(itemsize)]
+    timings = wide_timings(dev, gen)
+    checks = {
+        "fwd_every_case_kernel_vs_plain_on_its_route": all(r["ok"] for r in fwd.values()),
+        "bwd_every_case_kernel_vs_plain_bitwise_on_its_route":
+            all(r["ok"] for r in bwd.values()),
+        "paged_every_case_kernel_vs_plain_bitwise": all(r["ok"] for r in paged.values()),
+        **op_checks,
+        "mutants_fail_fwd_check": all(bool(f) for f in caught.values()),
+        "shared_bytes_match_geometry": all(c == p for c, p in shared.values()),
+    }
+    rec = {"phase": "wide_heads", "cases": {"fwd": len(fwd), "bwd": len(bwd),
+                                            "paged": len(paged), "entry_points": len(op_calls)},
+           "failed": {"fwd": [n for n, r in fwd.items() if not r["ok"]],
+                      "bwd": [n for n, r in bwd.items() if not r["ok"]],
+                      "paged": [n for n, r in paged.items() if not r["ok"]]},
+           "mutants": {"edits": {n: m[2] for n, m in WIDE_MUTANTS.items()},
+                       "failed_cases": caught, "build_wait_seconds": wait},
+           "shared_bytes": shared, "timings": timings, "card": card_line(),
+           "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"wide_heads checks failed: {failed}")
+    return {"timings": timings, "fwd": fwd, "paged": paged}
+
+
+def phase_serve_d512(dev):
+    """serving-bench-d512: the serving-bench model re-headed at head dim 512
+    (scripts/bench_serving.py:28-34 with 4 q / 2 kv heads of 512; bf16,
+    pages of 128, weights from seed 0) served through DecodeEngine at full
+    width and depth on the wide kernels: the serve phase's 8 requests at 8
+    slots from bf16 KV eagerly, then as graphed bursts of 8 (tokens equal,
+    or apart at near-ties only), from int8 KV at 8 slots, and chunked
+    (prefill_chunk=256, the prefix cache: the wide verify) from bf16 and
+    int8 KV.  Launch counts zeroed just before each run and read just
+    after; every layer of a decode step checked against the plain version
+    on the engine's own pools; the prefill check (every layer's attention
+    at the kernel's tolerances, the bf16 logits, the model in fp32); 2-layer
+    fp32 copies of decode and of chunked admission within FP32_LOGIT_LIMIT x
+    std."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.models import ModelConfig, params_from_jax
+
+    cfg = ModelConfig(**{**SERVE_CFG, **D512_SERVE_HEADS}, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    model = params_from_jax(seeded_weights(cfg), cfg, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts, new, n = serve_prompts(cfg), SERVE_D512_NEW_TOKENS, cfg.n_layers
+    slots = len(prompts)
+    engine = serve_engine(model, cfg, dev, slots=slots)
+    engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
+    engine.generate([[1] * 128], max_new_tokens=BURST + 1, burst=BURST)  # capture
+    eager = _serve_run(engine, prompts, new, "paged_decode_attention")
+    eager_layers = check_layers(eager["calls"], verify=False)
+    graph = graphed_run(engine, prompts, BURST, new_tokens=new)
+    divs = divergences(model, cfg, dev, prompts, eager["outs"], graph["outs"])
+    q8 = serve_engine(model, cfg, dev, slots=slots, kv="int8")
+    q8.generate([[1] * 128], max_new_tokens=2)
+    int8 = _serve_run(q8, prompts, new, "paged_decode_attention")
+    int8_layers = check_layers(int8["calls"], verify=False)
+    pages = pages_back(engine, q8)
+    captured = all(g.graph is not None and g.runs > 1 for g in step_graphs(engine))
+    del engine, q8
+    torch.cuda.empty_cache()
+    prefill = check_prefill(model, cfg, dev, prompts[0])
+    fp32 = check_decode_fp32(dev, prompts[0], ("fp32", "int8"), **D512_SERVE_HEADS)
+    chunked, dense_fwd = phase_serve_chunked(dev, model, cfg, phase="serve_d512_chunked",
+                                             route="wide_mma", **D512_SERVE_HEADS)
+    del model
+    torch.cuda.empty_cache()
+
+    def run_checks(tag, r, fwd_routes_, decode, layers=None):
+        out = {
+            f"{tag}_every_request_{new}_tokens": all(len(o) == new for o in r["outs"]),
+            f"{tag}_fwd_launches_{n}_per_prefill": r["launches"]["attn_fwd"] == n * slots,
+            f"{tag}_fwd_launches_all_wide_mma":
+                all_on(fwd_routes_, "wide_mma", r["launches"]["attn_fwd"]),
+            f"{tag}_decode_launches_{n}_per_step": r["launches"]["paged_decode"] == decode > 0,
+        }
+        if layers is not None:
+            out[f"{tag}_every_layer_decode_kernel_vs_plain"] = (
+                layers["ok"] and layers["layers_checked"] == n)
+        return out
+
+    checks = {
+        **run_checks("bf16_eager", eager, eager["fwd_routes"], n * eager["steps"],
+                     eager_layers),
+        **run_checks("bf16_graph", graph, graph["launches"]["fwd_routes"], n * graph["steps"]),
+        **run_checks("int8", int8, int8["fwd_routes"], n * int8["steps"], int8_layers),
+        "graph_tokens_equal_eager_or_near_ties": near_ties_only(divs),
+        "every_burst_graph_captured_and_replayed": captured,
+        "pages_back": pages,
+        **prefill.pop("checks"),
+        "fp32_2layer_decode_kernel_vs_plain":
+            all(g <= FP32_LOGIT_LIMIT for g in fp32.values()),
+    }
+
+    def summary(r, steps_ms):
+        n_tok = sum(len(o) for o in r["outs"])
+        wall = r.get("wall", r.get("wall_s"))
+        admit = r.get("admit_ms") or []
+        return {"admit_ms_median": float(np.median(admit)) if admit else None,
+                "admit_ms_by_prompt_len": dict(zip(map(str, SERVE_PROMPTS), admit)),
+                "decode_ms_per_step": steps_ms, "wall_s": wall, "tokens": n_tok,
+                "tokens_per_s": n_tok / wall, "decode_steps": r["steps"],
+                "launches": {k: v for k, v in r["launches"].items() if k != "fwd_routes"}}
+
+    runs = {"bf16_eager": summary(eager, float(np.median(eager["decode_ms"]))),
+            "bf16_graph_burst8": summary(graph, graph["decode_ms_per_step"]),
+            "int8_eager": summary(int8, float(np.median(int8["decode_ms"])))}
+    launches = {
+        "attn_fwd": eager["launches"]["attn_fwd"] + graph["launches"]["attn_fwd"]
+        + int8["launches"]["attn_fwd"] + dense_fwd,
+        "paged_decode_bf16": eager["launches"]["paged_decode"]
+        + graph["launches"]["paged_decode"] + chunked["bf16"]["launches"]["paged_decode"],
+        "paged_decode_int8": int8["launches"]["paged_decode"]
+        + chunked["int8"]["launches"]["paged_decode"],
+        "paged_verify_bf16": chunked["bf16"]["launches"]["paged_verify"],
+        "paged_verify_int8": chunked["int8"]["launches"]["paged_verify"],
+    }
+    rec = {"phase": "serve_d512", "config": {**SERVE_CFG, **D512_SERVE_HEADS},
+           "dtype": "bfloat16", "params": n_params, "weights_setup_s": setup_s, "slots": slots,
+           "prompt_lengths": list(SERVE_PROMPTS), "new_tokens": new, "burst": BURST,
+           "page_size": SERVE_PAGE, "pages_per_seq": SERVE_PPS, "runs": runs,
+           "graph_tokens_equal_eager": graph["outs"] == eager["outs"], "divergences": divs,
+           "decode_layers": {"bf16": eager_layers, "int8": int8_layers},
+           "chunked": {k: {f: r[f] for f in ("admit_ms_chunked_miss",
+                                              "admit_ms_chunked_hit_median",
+                                              "admit_ms_dense_median",
+                                              "decode_ms_per_step_median", "tokens_per_s",
+                                              "chunks", "prefix_hits", "launches")}
+                       for k, r in chunked.items()},
+           **prefill, "fp32_2layer_decode_diff_over_std": fp32, "launches": launches,
+           "card": card_line(), "checks": checks}
+    emit(rec)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"serve_d512 checks failed: {failed}")
+    return rec
+
+
+def phase_train_d512(dev):
+    """training-bench-d512: the training-bench model re-headed at head dim
+    512 (scripts/bench_train.py:68-74 with 8 q / 2 kv heads of 512; 8
+    layers, bf16, block remat) trained through make_train_state /
+    make_train_step at B8 x N2048 on the wide kernels (phase_train: 1 warm
+    and 2 timed steps, exact launches on the wide_mma route, every layer's
+    attention forward and backward against the plain versions, a 2-layer
+    fp32 copy within 1e-3 x std)."""
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel, fwd_kernel
+
+    kernels = {"attn_fwd": fwd_kernel.FWD_WIDE_KERNEL,
+               "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
+               "attn_bwd_dkv": bwd_kernel.DKV_WIDE_KERNEL,
+               "attn_bwd_dq": bwd_kernel.DQ_WIDE_KERNEL}
+    return phase_train(dev, "train_d512", kernels=kernels, route="wide_mma",
+                       warm=TRAIN_D512_WARM, timed=TRAIN_D512_TIMED, **D512_TRAIN_HEADS)
+
+
+def wide_entries(entry, later):
+    """The kernels line's entries of the wide kernels (``entry`` is
+    emit_kernels' maker): launches from serve_d512's and train_d512's runs,
+    times at the shapes of wide_timings, each built from its own source
+    (the kernel body wide.cuh)."""
+    t = later["wide_heads"]["timings"]
+    serve, train = later["serve_d512"]["launches"], later["train_d512"]["launches"]
+    fwd = entry("attn_fwd[wide,d512]", WIDE_SOURCE, FWD_REPLACES,
+                serve["attn_fwd"] + train["attn_fwd"], t["fwd_train_d512"],
+                built_from=WIDE_BUILDS["attn_fwd"])
+    fwd["serving_prefill"] = {k: t["fwd_serve_prefill_d512"][k]
+                              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    fwd["library"] = t["fwd_train_d512"]["library"]
+    fwd["serving_prefill"]["library"] = t["fwd_serve_prefill_d512"]["library"]
+    out = [fwd]
+    for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+        out.append(entry(f"{name}[wide,d512]", WIDE_SOURCE, BWD_REPLACES[name], train[name],
+                         t["bwd_train_d512"][name], built_from=WIDE_BUILDS["attn_bwd"]))
+    for kind in ("bf16", "int8"):
+        out.append(entry(f"paged_decode[wide,d512,{kind}]", WIDE_SOURCE, DECODE_REPLACES,
+                         serve[f"paged_decode_{kind}"], t[f"decode_d512_{kind}_B8_ctx2048"],
+                         built_from=WIDE_BUILDS["paged_decode"]))
+        out.append(entry(f"paged_verify[wide,d512,{kind}]", WIDE_SOURCE, VERIFY_REPLACES,
+                         serve[f"paged_verify_{kind}"], t[f"verify_d512_{kind}_T256_ctx2048"],
+                         built_from=WIDE_BUILDS["paged_verify"]))
+    return out
+
+
 LATER_PHASES = ("serve_rolling", "serve_streaming", "native", "eval_gate", "encoder", "tune",
                 "bench", "golden", "parallel_attention", "parallel_decode", "train_mesh",
-                "serve_mesh", "dryrun", "examples")
+                "serve_mesh", "dryrun", "examples", "wide_heads", "serve_d512", "train_d512")
 
 
 def later_phases(dev, only=None):
     """The phases that follow phase time, in order (``only``: those named):
     the rings, the native library, the perplexity gate, the encoder, the
-    tiles and the tuner, the bench suite, the golden gate and the scale-out
-    phases; their records by name."""
+    tiles and the tuner, the bench suite, the golden gate, the scale-out
+    phases and the head dims above 256; their records by name."""
     import torch
 
     names = LATER_PHASES if only is None else [n for n in LATER_PHASES if n in only]

@@ -1,0 +1,52 @@
+// Paged multi-token verify at pool head dims above 256 (multiples of 128
+// up to 1024): wide.cuh's column-chunked forward over the T x G rows of a
+// kv head, keys gathered through the page table and converted exactly to
+// q's dtype (payloads unscaled; K scales on S, V scales on P), q pre-scaled
+// in its dtype, on the routes "wide_mma" (bf16 / fp16 q, value pools of
+// q's dtype or quantized pools) and "wide_fp32" (fp32 q, any pool); its key
+// splits merged by wide_combine_kernel in the same C entry.
+
+#include "wide.cuh"
+
+// The C entry, with the arguments of paged_verify.cu's; D a multiple of 128
+// in (256, 1024].  Returns cudaGetLastError() after the launches.
+extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages,
+    const void* v_pages, int kv_kind, const float* k_scales, const float* v_scales,
+    const int* lengths, const int* page_table, void* o, float* part_o, float* part_lse,
+    int B, int Hq, int Hkv, int T, int P, int page_size, int pages_per_seq, int D,
+    int splits, float scale_q, float softcap, const float* slopes, int route, void* stream) {
+  if (B <= 0 || T <= 0) return 0;
+  const bool value_pool = kv_kind <= kF16;
+  if (!wide_head_dim(D) || Hkv <= 0 || Hq % Hkv != 0 || page_size <= 0 ||
+      (kv_kind == kI4 && page_size % 2) || kv_kind < kF32 || kv_kind > kE5M2 ||
+      pages_per_seq <= 0 || splits <= 0 || splits > pages_per_seq ||
+      (splits > 1 && (part_o == nullptr || part_lse == nullptr)) ||
+      (!value_pool && (k_scales == nullptr || v_scales == nullptr)) ||
+      (route == kRouteWideMma && value_pool && kv_kind != q_dtype))
+    return int(cudaErrorInvalidValue);
+  WideArgs a{};
+  a.q = q; a.k = k_pages; a.v = v_pages; a.o = o;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.D = D;
+  a.sm_scale = scale_q; a.softcap = softcap;
+  a.md = Mods{slopes, 0.f, 1.f, 0u, nullptr, nullptr};
+  a.kind = kv_kind; a.k_scales = k_scales; a.v_scales = v_scales;
+  a.lengths = lengths; a.page_table = page_table;
+  a.P = P; a.page_size = page_size; a.pages_per_seq = pages_per_seq; a.T = T;
+  a.splits = splits; a.pages_per_split = (pages_per_seq + splits - 1) / splits;
+  a.part_o = part_o; a.part_lse = part_lse;
+  a.stream = static_cast<cudaStream_t>(stream);
+  const int G = Hq / Hkv;
+  const dim3 grid((T * G + WROWS - 1) / WROWS, (D / WCOLS) * splits, B * Hkv);
+  int err;
+  if (route == kRouteWideF32 && q_dtype == 0) err = launch_wide_fwd<float, true>(a, grid);
+  else if (route == kRouteWideMma && q_dtype == 1) err = launch_wide_fwd<__nv_bfloat16, true>(a, grid);
+  else if (route == kRouteWideMma && q_dtype == 2) err = launch_wide_fwd<__half, true>(a, grid);
+  else return int(cudaErrorInvalidValue);
+  if (err || splits == 1) return err;
+  return launch_combine(part_o, part_lse, o, q_dtype, nullptr, B * Hq * T, splits, D,
+                        a.stream);
+}
+
+extern "C" const char* paged_verify_wide_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

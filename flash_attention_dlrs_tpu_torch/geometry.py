@@ -29,6 +29,13 @@ from ._cuda import resolve_device
 # of a backward sweep's CTA (csrc/attn_fwd_sm90.cuh BM, attn_bwd_sm90.cuh BR)
 CTA_ROWS = 128
 
+# The wide builds (csrc/wide.cuh): head dims above 256 that are multiples of
+# 128, at most WIDE_MAX_HEAD_DIM; a CTA owns WIDE_ROWS rows and one
+# 128-column chunk of its output, and streams tiles of WIDE_KEYS rows.
+WIDE_MAX_HEAD_DIM = 1024
+WIDE_ROWS = 64
+WIDE_KEYS = 64
+
 # The H100 SXM5 (80 GB HBM3) as torch.cuda.get_device_properties reports it;
 # current_geometry gives it for the CPU, where no card can be asked.
 H100_SXM = dict(
@@ -136,13 +143,34 @@ def fits_smem(nbytes: int, geom: Optional[HopperGeometry] = None) -> bool:
     return nbytes <= (geom or current_geometry("cpu")).smem_per_block_optin
 
 
+def is_wide(head_dim: int) -> bool:
+    """Whether ``head_dim`` is a width of the wide builds (``csrc/wide.cuh``
+    ``wide_head_dim``): a multiple of 128 above 256, at most
+    :data:`WIDE_MAX_HEAD_DIM`."""
+    return 256 < head_dim <= WIDE_MAX_HEAD_DIM and head_dim % 128 == 0
+
+
+def wide_smem_bytes(itemsize: int) -> int:
+    """Shared memory of one CTA of the wide builds (``csrc/wide.cuh``
+    ``WideLayout::BYTES``) for inputs of ``itemsize`` bytes: two stages of
+    each streamed operand (64 rows of 128 bytes, each padded by 16), the
+    update tile (64 rows of 128 columns, padded by 16 bytes), in fp32 each
+    warp's 16 x 68 probabilities, six vectors of 64 and 64 row offsets and
+    flags."""
+    chunk = WIDE_ROWS * (128 + 16)
+    tile = WIDE_KEYS * (128 * itemsize + 16)
+    probs = 4 * 16 * (WIDE_KEYS + 4) * 4 if itemsize == 4 else 0
+    return 4 * chunk + tile + probs + 6 * 64 * 4 + 64 * 8 + 64 * 4
+
+
 def default_block_kv(head_dim: int) -> int:
     """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
-    ``key_tile``): 128, and 64 at d 256."""
-    return 64 if head_dim == 256 else 128
+    ``key_tile``): 128, and 64 at d 256 and in the wide builds."""
+    return 64 if head_dim == 256 or is_wide(head_dim) else 128
 
 
 def default_block_kv_bwd(head_dim: int) -> int:
     """Rows a sweep streams a stage in the head dim's builds
-    (``csrc/attn_bwd.cuh`` ``stream_tile``): 64, and 32 at d 256."""
+    (``csrc/attn_bwd.cuh`` ``stream_tile``): 64, and 32 at d 256; the wide
+    builds stream 64."""
     return 32 if head_dim == 256 else 64

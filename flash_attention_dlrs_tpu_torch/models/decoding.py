@@ -15,8 +15,9 @@ scaled RoPE, QKV biases, sandwich norms, embeddings scaled by √d_model, the
 attention softcap and ``sm_scale`` in all three, each layer's window in the
 prefill (the engine keeps paged contexts within the window), the final
 softcap on the logits, int8 weights.  Pools are allocated at the kernels'
-head dim (:func:`..ops.fwd_kernel.kernel_width`: 64, 128 or 256), as the
-JAX package pads them to 128 lanes: K/V are zero-padded on write and the
+head dim (:func:`..ops.fwd_kernel.kernel_width`: 64, 128 or 256, and above
+256 the next multiple of 128, the wide builds' widths), as the JAX package
+pads them to 128 lanes: K/V are zero-padded on write and the
 paged ops pad q and slice O (a row's amax, and so its scale, is the same
 either way).
 """

@@ -12,11 +12,15 @@ without and with segment ids (:func:`sweep_kernel`): ``csrc/attn_bwd.cu``
 launch count; a seventh, ``csrc/attn_bwd_tiles.cu`` (``attn_bwd_dkv_tiles``,
 ``attn_bwd_dq_tiles``), carries the 32-row stages at d 64 and 128 that a
 caller may pin or the tuner pick (``block_sizes``, :mod:`..tuning`),
-mode-free.  Each sweep
-call takes one of two routes, fixed by :func:`bwd_route` from the call's
-types alone and counted per sweep in :data:`BWD_ROUTE_LAUNCHES`:
-``"wgmma"`` (the Hopper kernels: warpgroup products, TMA, a producer
-warpgroup; every bf16/fp16 call) or ``"fp32"`` (CUDA cores, true fp32).
+mode-free; an eighth, ``csrc/attn_bwd_wide.cu`` (``attn_bwd_dkv_wide``,
+``attn_bwd_dq_wide``: the column-chunked sweeps of ``csrc/wide.cuh``),
+every head dim above 256 that is a multiple of 128, up to 1024, with every
+mode.  Each sweep call takes one of four routes, fixed by :func:`bwd_route`
+from the call's types and width alone and counted per sweep in
+:data:`BWD_ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernels: warpgroup
+products, TMA, a producer warpgroup; every bf16/fp16 call at d 64, 128 and
+256), ``"fp32"`` (CUDA cores, true fp32), and at the wide head dims
+``"wide_mma"`` (bf16/fp16 on ``mma.sync``) and ``"wide_fp32"``.
 The C entries refuse a route that cannot carry a call; nothing switches
 routes at run time.  Together they replace the six backward TPU kernels of
 the JAX package — ``ops/fwd_small.py::_small_bwd_kernel``,
@@ -40,7 +44,7 @@ import ctypes
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
-from ..geometry import default_block_kv_bwd
+from ..geometry import default_block_kv_bwd, is_wide
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_WIDTHS,
@@ -55,7 +59,8 @@ from .fwd_kernel import (
 )
 
 # The head dims the backward kernels are built for (the forward's), each
-# with every mode; 256 in builds of its own.
+# with every mode; 256 in builds of its own, and the wide head dims (above
+# 256, multiples of 128 up to 1024) in attn_bwd_wide.cu.
 BWD_HEAD_DIMS = KERNEL_WIDTHS
 
 PREPROCESS_KERNEL = CudaKernel(
@@ -94,13 +99,17 @@ DKV_TILES_KERNEL = CudaKernel("attn_bwd_tiles.cu", "attn_bwd_dkv_tiles",
                               _DKV_ARGS[:-2] + [ctypes.c_int] + _DKV_ARGS[-2:])
 DQ_TILES_KERNEL = CudaKernel("attn_bwd_tiles.cu", "attn_bwd_dq_tiles",
                              _DQ_ARGS[:-2] + [ctypes.c_int] + _DQ_ARGS[-2:])
+# Every head dim above 256 (csrc/attn_bwd_wide.cu): the builds' arguments.
+DKV_WIDE_KERNEL = CudaKernel("attn_bwd_wide.cu", "attn_bwd_dkv_wide", _DKV_ARGS)
+DQ_WIDE_KERNEL = CudaKernel("attn_bwd_wide.cu", "attn_bwd_dq_wide", _DQ_ARGS)
 # The launches of each sweep on each route (the C entries' route codes are
 # the forward's, ops/fwd_kernel.py ROUTE_CODES), over the six builds; set
 # to 0 by whoever reads them.
 BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
-# Each sweep's wgmma launches by head dim and streamed tile ("d128_kv32"),
-# over every build; set to 0 by whoever reads them.
+# Each sweep's wgmma and wide_mma launches by head dim and streamed tile
+# ("d128_kv32", "d512_kv64"), over every build; set to 0 by whoever reads
+# them.
 BWD_TILE_LAUNCHES = {sweep: register_launch_counts({})
                      for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
 
@@ -109,25 +118,28 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
               dropout: bool = False) -> str:
     """The kernel route of a backward sweep call, from its types alone:
 
-    ========  ==========================================================
-    route     calls
-    ========  ==========================================================
-    fp32      q in float32 (CUDA cores, true fp32; with or without
-              segment ids)
-    wgmma     bf16 / fp16 q, with or without segment ids
-    ========  ==========================================================
+    =========  =========================================================
+    route      calls
+    =========  =========================================================
+    fp32       q in float32 (CUDA cores, true fp32; with or without
+               segment ids)
+    wgmma      bf16 / fp16 q, with or without segment ids
+    wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
+    wide_mma   as wgmma, at a wide head dim (``mma.sync``)
+    =========  =========================================================
 
-    Segment ids, ALiBi and dropout are modes of both routes at every head
-    dim and change neither (the mode arguments are kept so that a caller
-    can name what it runs).  d must be 64, 128 or 256 on every route;
-    anything else raises."""
+    Segment ids, ALiBi and dropout are modes of every route at every head
+    dim and change none (the mode arguments are kept so that a caller can
+    name what it runs).  d must be 64, 128, 256 or a multiple of 128 in
+    (256, 1024]; anything else raises."""
     del segments, alibi, dropout
     check_kernel_head_dim(head_dim, "attn_bwd kernels", BWD_HEAD_DIMS)
+    wide = is_wide(head_dim)
     if dtype == torch.float32:
-        return "fp32"
+        return "wide_fp32" if wide else "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
-    return "wgmma"
+    return "wide_mma" if wide else "wgmma"
 
 
 def _check_cuda(q, k, v, o, lse, do) -> None:
@@ -196,7 +208,7 @@ def _stream_tile(q, route, *, alibi_slopes, dropout_rate, q_seg, block_sizes, **
     tiles otherwise), the head dim's own tile without ``block_sizes`` or on
     the fp32 route (its own fixed steps)."""
     d = q.shape[-1]
-    if route != "wgmma" or block_sizes is None:
+    if route not in ("wgmma", "wide_mma") or block_sizes is None:
         return default_block_kv_bwd(d)
     block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                       segments=q_seg is not None)
@@ -207,10 +219,13 @@ def sweep_kernel(sweep: str, head_dim: int, segments: bool, block_kv_bwd=None) -
     """The build of ``sweep`` ("attn_bwd_dkv" or "attn_bwd_dq") that takes a
     call, by head dim and by whether it has segment ids: the module
     attribute ``DKV[_D<d>][_SEG]_KERNEL`` / ``DQ...`` (no suffix at d 128),
-    or ``DKV_TILES_KERNEL`` / ``DQ_TILES_KERNEL`` for a ``block_kv_bwd``
+    ``DKV_WIDE_KERNEL`` / ``DQ_WIDE_KERNEL`` at a wide head dim, or
+    ``DKV_TILES_KERNEL`` / ``DQ_TILES_KERNEL`` for a ``block_kv_bwd``
     other than the head dim's own, looked up at call time so that a check
     may swap a build."""
     name = "DKV" if sweep == "attn_bwd_dkv" else "DQ"
+    if is_wide(head_dim):
+        return globals()[f"{name}_WIDE_KERNEL"]
     if block_kv_bwd not in (None, default_block_kv_bwd(head_dim)):
         return globals()[f"{name}_TILES_KERNEL"]
     dim = "" if head_dim == 128 else f"_D{head_dim}"
@@ -219,7 +234,7 @@ def sweep_kernel(sweep: str, head_dim: int, segments: bool, block_kv_bwd=None) -
 
 def _count(sweep, route, d, tile) -> None:
     BWD_ROUTE_LAUNCHES[sweep][route] += 1
-    if route == "wgmma":
+    if route in ("wgmma", "wide_mma"):
         key = f"d{d}_kv{tile}"
         BWD_TILE_LAUNCHES[sweep][key] = BWD_TILE_LAUNCHES[sweep].get(key, 0) + 1
 
@@ -281,7 +296,7 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     :func:`bwd_route`, streaming ``block_sizes.block_kv_bwd`` rows a stage:
     a tile no build carries for the call raises ``ValueError`` before any
     launch), which take contiguous fp32/bf16/fp16 inputs with d in {64,
-    128, 256}, or raise."""
+    128, 256} or a multiple of 128 in (256, 1024], or raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg, block_sizes)
     if q.device.type == "cpu":

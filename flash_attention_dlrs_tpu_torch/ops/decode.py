@@ -13,11 +13,14 @@ multi-token verify mode (:func:`paged_verify_attention`, on the route of
 :func:`verify_route`), each built once for each pool head dim
 (:func:`paged_kernels`: ``paged_decode.cu`` and ``paged_verify.cu`` at 128,
 ``*_d64.cu`` and ``*_d256.cu``, verify from fp16 q at 256 in
-``paged_verify_d256_f16.cu``).  Both may cut each page table into key splits of
-whole pages (:func:`decode_splits`, from static shapes only, unless the
-caller sets ``pages_per_block``, the pages of one split:
-:func:`key_splits`; :func:`tuned_pages_per_block` times the choices) whose
-normalized partials are merged by lse weight (:func:`combine_partials`).
+``paged_verify_d256_f16.cu``; every pool head dim above 256 that is a
+multiple of 128, up to 1024, in ``paged_decode_wide.cu`` and
+``paged_verify_wide.cu``, the kernels of ``csrc/wide.cuh``).  Both may cut
+each page table into key splits of whole pages (:func:`decode_splits`, from
+static shapes only, unless the caller sets ``pages_per_block``, the pages of
+one split: :func:`key_splits`; :func:`tuned_pages_per_block` times the
+choices) whose normalized partials are merged by lse weight
+(:func:`combine_partials`).
 CPU tensors take the plain versions, :func:`paged_decode_plain` and
 :func:`paged_verify_plain`: :func:`paged_reference_attention` for
 single-token value pools, and for every other mode the TPU kernel's own
@@ -32,7 +35,8 @@ Pools may be wider than q's head_dim (``models/decoding.py`` allocates them
 at the kernels' width, :func:`.fwd_kernel.kernel_width`, as the JAX package
 pads them to 128 lanes): q is zero-padded to the pool's head dim on every
 device, ``sm_scale`` defaults to q's own head_dim**-0.5, and O is sliced
-back.  The kernels take pool head dims 64, 128 and 256, each with every mode.
+back.  The kernels take pool head dims 64, 128 and 256 and the wide ones
+(multiples of 128 in (256, 1024]), each with every mode.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
+from ..geometry import WIDE_ROWS, is_wide
 from .fwd_kernel import (
     DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, check_kernel_head_dim, pad_head_dim,
 )
@@ -91,13 +96,21 @@ VERIFY_D64_KERNEL = CudaKernel("paged_verify_d64.cu", "paged_verify_d64", _VERIF
 VERIFY_D256_KERNEL = CudaKernel("paged_verify_d256.cu", "paged_verify_d256", _VERIFY_ARGS)
 VERIFY_D256_F16_KERNEL = CudaKernel("paged_verify_d256_f16.cu", "paged_verify_d256_f16",
                                     _VERIFY_ARGS)
+# Every pool head dim above 256 (csrc/wide.cuh): decode on the CUDA cores
+# (the counters argument unused: its splits merge in a second kernel of the
+# same C entry), verify column-chunked.
+DECODE_WIDE_KERNEL = CudaKernel("paged_decode_wide.cu", "paged_decode_wide", _DECODE_ARGS)
+VERIFY_WIDE_KERNEL = CudaKernel("paged_verify_wide.cu", "paged_verify_wide", _VERIFY_ARGS)
 
 
 def paged_kernels(head_dim: int, q_dtype=None):
     """(decode build, verify build) of a pool head dim: the module attributes
     ``DECODE[_D<d>]_KERNEL`` / ``VERIFY[_D<d>]_KERNEL`` (no suffix at d
-    128; verify from fp16 ``q_dtype`` at d 256: ``VERIFY_D256_F16_KERNEL``),
+    128; verify from fp16 ``q_dtype`` at d 256: ``VERIFY_D256_F16_KERNEL``;
+    ``DECODE_WIDE_KERNEL`` / ``VERIFY_WIDE_KERNEL`` at a wide head dim),
     looked up at call time so that a check may swap a build."""
+    if is_wide(head_dim):
+        return globals()["DECODE_WIDE_KERNEL"], globals()["VERIFY_WIDE_KERNEL"]
     dim = "" if head_dim == 128 else f"_D{head_dim}"
     f16 = "_F16" if head_dim == 256 and q_dtype == torch.float16 else ""
     return globals()[f"DECODE{dim}_KERNEL"], globals()[f"VERIFY{dim}{f16}_KERNEL"]
@@ -109,15 +122,16 @@ def paged_kernels(head_dim: int, q_dtype=None):
 DECODE_SPLITS: dict = register_launch_counts({})
 VERIFY_SPLITS: dict = register_launch_counts({})
 
-# The verify C entry's route codes (csrc/paged_verify.cuh kRouteF32 /
-# kRouteWgmma) and the launches of each route.
-VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1}
+# The verify C entries' route codes (csrc/paged_verify.cuh kRouteF32 /
+# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideMma) and the
+# launches of each route.
+VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_mma": 3}
 VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES, 0))
 
 # Tokens of one stored-row tile of csrc/paged_decode.cuh: the least a split
 # covers.
 SPLIT_MIN_TOKENS = 64
-# The pool head dims both paged kernels are built for.
+# The pool head dims both paged kernels are built for, besides the wide ones.
 PAGED_HEAD_DIMS = KERNEL_WIDTHS
 
 # Rows of one CTA of the verify kernel's wgmma route, and the most key
@@ -199,18 +213,21 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
                  alibi: bool = False) -> str:
     """The kernel route of a verify call, from its types alone:
 
-    ========  ==========================================================
-    route     calls
-    ========  ==========================================================
-    fp32      q in float32, any pool kind (CUDA cores, true fp32)
-    wgmma     bf16 / fp16 q with a pool of q's own dtype or a quantized
-              pool (int8, int4, e4m3, e5m2): the tensor cores
-    ========  ==========================================================
+    =========  =========================================================
+    route      calls
+    =========  =========================================================
+    fp32       q in float32, any pool kind (CUDA cores, true fp32)
+    wgmma      bf16 / fp16 q with a pool of q's own dtype or a quantized
+               pool (int8, int4, e4m3, e5m2): the tensor cores
+    wide_fp32  as fp32, at a wide pool head dim (``csrc/wide.cuh``)
+    wide_mma   as wgmma, at a wide pool head dim (``mma.sync``)
+    =========  =========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
-    Both routes take every page size (int4: even) and d 64, 128 or 256,
-    with or without ``alibi`` (kept so that a caller can name what it
-    runs).  What no route takes raises."""
+    Every route takes every page size (int4: even) at d 64, 128 or 256, or
+    (the wide routes) a multiple of 128 in (256, 1024], with or without
+    ``alibi`` (kept so that a caller can name what it runs).  What no route
+    takes raises."""
     del alibi
     check_kernel_head_dim(head_dim, "paged verify kernel", PAGED_HEAD_DIMS)
     if pool_kind not in POOL_KINDS:
@@ -218,15 +235,16 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
                          f"not {pool_kind}")
     if page_size <= 0 or (pool_kind == "int4" and page_size % 2):
         raise ValueError(f"page_size {page_size} is not a page size of a {pool_kind} pool")
+    wide = is_wide(head_dim)
     if q_dtype == torch.float32:
-        return "fp32"
+        return "wide_fp32" if wide else "fp32"
     if q_dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"paged verify kernel takes fp32/bf16/fp16 q, not {q_dtype}")
     if pool_kind in DTYPE_CODES and pool_kind != q_dtype:
         raise ValueError(
             f"paged verify kernel takes {q_dtype} q with quantized pools or "
             f"{q_dtype} pools, not {pool_kind}")
-    return "wgmma"
+    return "wide_mma" if wide else "wgmma"
 
 
 @functools.lru_cache(maxsize=None)
@@ -399,8 +417,9 @@ def paged_decode_attention(
     a sequence's length reaches is a valid pool page.  CPU tensors take the
     plain versions (split and merged as the kernel would when
     ``pages_per_block`` is given); CUDA tensors launch
-    ``csrc/paged_decode.cuh`` (its key splits merged inside the launch) or
-    raise."""
+    ``csrc/paged_decode.cuh`` (its key splits merged inside the launch), at
+    a wide pool head dim ``csrc/wide.cuh``'s decode (its splits merged by a
+    second kernel of the same C entry), or raise."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, d_true = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
@@ -427,7 +446,8 @@ def paged_decode_attention(
         num_kv_heads = pools.k.shape[0]
         splits = chosen or decode_splits(batch, num_kv_heads, pages_per_seq, pools.page_size,
                                          _num_sms(q.device.index or 0))
-        groups = batch * num_kv_heads * -(-(num_q_heads // num_kv_heads) // 2)
+        groups = 0 if is_wide(head_dim) else (
+            batch * num_kv_heads * -(-(num_q_heads // num_kv_heads) // 2))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, counters = _split_scratch(
             splits, batch * num_q_heads, head_dim, groups, q.device, stream)
@@ -518,7 +538,8 @@ def paged_verify_attention(
     or value pools of q's dtype; the ``"wgmma"`` route splits the keys as
     :func:`decode_splits` does, for its blocks of :data:`VERIFY_ROW_TILE`
     rows, or into ``pages_per_block`` pages a split, at most
-    :data:`VERIFY_MAX_SPLITS`; the fp32 route does not split) or raise.
+    :data:`VERIFY_MAX_SPLITS`; the wide routes likewise for their blocks of
+    64 rows and 128 columns; the fp32 route does not split) or raise.
     ``alibi_slopes``: see the module docstring."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, num_tokens, d_true = q.shape
@@ -541,11 +562,14 @@ def paged_verify_attention(
     if batch and num_tokens:
         num_kv_heads, pages_per_seq = pools.k.shape[0], page_indices.shape[1]
         splits = 1
-        if route == "wgmma" and chosen:
+        if route != "fp32" and chosen:
             splits = chosen
-        elif route == "wgmma":
-            # one CTA fills an SM: the planner's two an SM, of half the SMs
-            row_blocks = -(-num_tokens * (num_q_heads // num_kv_heads) // VERIFY_ROW_TILE)
+        elif route != "fp32":
+            # one CTA fills an SM: the planner's two an SM, of half the SMs;
+            # the wide routes' CTAs own 64 rows and 128 columns
+            rows = num_tokens * (num_q_heads // num_kv_heads)
+            row_blocks = (-(-rows // VERIFY_ROW_TILE) if route == "wgmma"
+                          else -(-rows // WIDE_ROWS) * (head_dim // 128))
             splits = decode_splits(batch * row_blocks, num_kv_heads, pages_per_seq,
                                    pools.page_size, max(1, _num_sms(q.device.index or 0) // 2))
             splits = split_pages(pages_per_seq, min(splits, VERIFY_MAX_SPLITS))[1]

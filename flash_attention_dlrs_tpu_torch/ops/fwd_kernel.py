@@ -9,13 +9,17 @@ its own launch count: ``csrc/attn_fwd.cu`` (head dim 128,
 ``csrc/attn_fwd_d256.cu`` / ``attn_fwd_d256_seg.cu``; a seventh,
 ``csrc/attn_fwd_tiles.cu`` (:data:`FWD_TILES_KERNEL`), carries the 64-key
 tiles at d 64 and 128 that a caller may pin or the tuner pick
-(``block_sizes``, :mod:`..tuning`), mode-free.  Each call
-takes one of two routes, fixed by :func:`fwd_route` from the call's types
-alone and counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel
-of ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp
-specialisation; every bf16/fp16 call) or ``"fp32"`` (CUDA cores, true
-fp32).  The C entry refuses a route that cannot carry a call; nothing
-switches routes at run time.  It replaces
+(``block_sizes``, :mod:`..tuning`), mode-free; an eighth,
+``csrc/attn_fwd_wide.cu`` (:data:`FWD_WIDE_KERNEL`, the column-chunked
+kernel of ``csrc/wide.cuh``), every head dim above 256 that is a multiple of
+128, up to 1024, with every mode.  Each call takes one of four routes,
+fixed by :func:`fwd_route` from the call's types and width alone and
+counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel of
+``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp specialisation;
+every bf16/fp16 call at d 64, 128 and 256), ``"fp32"`` (CUDA cores, true
+fp32), and at the wide head dims ``"wide_mma"`` (bf16/fp16 on
+``mma.sync``) and ``"wide_fp32"``.  The C entry refuses a route that
+cannot carry a call; nothing switches routes at run time.  It replaces
 the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
 ``ops/fwd_mid.py::_mid_kernel``, ``ops/fwd_mid.py::_mid_strip_kernel`` and
 ``ops/fwd_small.py::_small_kernel`` of the JAX package with their whole
@@ -39,7 +43,7 @@ import numpy as np
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
-from ..geometry import default_block_kv
+from ..geometry import WIDE_MAX_HEAD_DIM, default_block_kv, is_wide
 
 # Finite sentinel for masked scores and the lse of a row that sees no key.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -49,8 +53,8 @@ LN2 = 0.6931471805599453
 # The head dims the kernels are built for, each with every mode; any other
 # head_dim up to 256 is zero-padded to the next of them (:func:`kernel_width`),
 # as the JAX package pads to 128 lanes.  Wider heads are padded to a multiple
-# of 128, as in the JAX package, and run on the plain versions only
-# (:func:`check_kernel_head_dim`).
+# of 128, as in the JAX package, and run on the wide builds
+# (``csrc/wide.cuh``) up to 1024 (:func:`check_kernel_head_dim`).
 KERNEL_WIDTHS = (64, 128, 256)
 FWD_HEAD_DIMS = KERNEL_WIDTHS
 
@@ -83,21 +87,24 @@ FWD_D256_SEG_KERNEL = CudaKernel("attn_fwd_d256_seg.cu", "attn_fwd_d256_seg", _F
 # above with the tile's keys before the route.
 FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
                               _FWD_ARGS[:-2] + [ctypes.c_int] + _FWD_ARGS[-2:])
+# Every head dim above 256 (csrc/attn_fwd_wide.cu): the builds' arguments.
+FWD_WIDE_KERNEL = CudaKernel("attn_fwd_wide.cu", "attn_fwd_wide", _FWD_ARGS)
 
-# The C entry's route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma)
-# and the launches of each route, over the six builds; set to 0 by whoever
-# reads them.
-ROUTE_CODES = {"fp32": 0, "wgmma": 1}
+# The C entries' route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma,
+# csrc/wide.cuh kRouteWideF32 / kRouteWideMma) and the launches of each
+# route, over every build; set to 0 by whoever reads them.
+ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_mma": 3}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
-# The wgmma route's launches by head dim and key tile ("d128_kv64"), over
-# every build; set to 0 by whoever reads them.
+# The wgmma and wide_mma routes' launches by head dim and key tile
+# ("d128_kv64", "d512_kv64"), over every build; set to 0 by whoever reads
+# them.
 TILE_LAUNCHES = register_launch_counts({})
 
 
 def kernel_width(head_dim: int) -> int:
     """The head dim that ``head_dim`` is zero-padded to: the least of
     :data:`KERNEL_WIDTHS` that holds it, and above 256 the next multiple of
-    128 (the JAX package's lanes), which only the plain versions take.
+    128 (the JAX package's lanes), the wide builds' widths up to 1024.
     Zero columns add nothing to a score and zero V columns are sliced off,
     so the padding is exact."""
     for width in KERNEL_WIDTHS:
@@ -107,15 +114,18 @@ def kernel_width(head_dim: int) -> int:
 
 
 def check_kernel_head_dim(head_dim: int, what: str, widths=KERNEL_WIDTHS) -> None:
-    """Raise unless ``what`` (a kernel) is built for ``head_dim``; above
-    the widest kernel the message names the queue that ports it."""
-    if head_dim in widths:
+    """Raise unless ``what`` (a kernel) is built for ``head_dim``: one of
+    ``widths``, or a wide head dim (a multiple of 128 above 256, at most
+    1024: :func:`..geometry.is_wide`); above 1024 the message names the
+    queue that would widen the kernels."""
+    if head_dim in widths or is_wide(head_dim):
         return
-    msg = f"{what}: head_dim must be one of {widths}, got {head_dim}"
-    if head_dim > widths[-1]:
-        msg += (": head dims above 256 run on the plain versions only (CPU "
-                "tensors); their kernels are still to port (ROADMAP.md, queue 2 "
-                "of the PyTorch port)")
+    msg = (f"{what}: head_dim must be one of {widths} or a multiple of 128 in "
+           f"(256, {WIDE_MAX_HEAD_DIM}], got {head_dim}")
+    if head_dim > WIDE_MAX_HEAD_DIM:
+        msg += (f": head dims above {WIDE_MAX_HEAD_DIM} run on the plain versions only "
+                "(CPU tensors); the wide kernels' cap is lifted in queue 2 of the "
+                "PyTorch port (ROADMAP.md)")
     raise ValueError(msg)
 
 
@@ -135,33 +145,38 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
               alibi: bool = False, dropout: bool = False) -> str:
     """The kernel route of a forward call, from its types alone:
 
-    ========  ==========================================================
-    route     calls
-    ========  ==========================================================
-    fp32      q in float32 (CUDA cores, true fp32; any V kind, segments)
-    wgmma     bf16 / fp16 q, with or without segment ids, V of q's dtype
-              or fp8
-    ========  ==========================================================
+    =========  =========================================================
+    route      calls
+    =========  =========================================================
+    fp32       q in float32 (CUDA cores, true fp32; any V kind, segments)
+    wgmma      bf16 / fp16 q, with or without segment ids, V of q's dtype
+               or fp8
+    wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
+    wide_mma   as wgmma, at a wide head dim (``mma.sync``)
+    =========  =========================================================
 
-    Segment ids, fp8 V, ALiBi and dropout are modes of both routes at every
-    head dim and change neither (the mode arguments are kept so that a
-    caller can name what it runs).  d must be 64, 128 or 256 on every
-    route; anything else raises."""
+    Segment ids, fp8 V, ALiBi and dropout are modes of every route at every
+    head dim and change none (the mode arguments are kept so that a caller
+    can name what it runs).  d must be 64, 128, 256 or a multiple of 128
+    in (256, 1024] (:func:`check_kernel_head_dim`); anything else raises."""
     del segments, fp8_v, alibi, dropout
     check_kernel_head_dim(head_dim, "attn_fwd kernel", FWD_HEAD_DIMS)
+    wide = "wide_" if is_wide(head_dim) else ""
     if dtype == torch.float32:
-        return "fp32"
+        return wide + "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {dtype}")
-    return "wgmma"
+    return wide + "mma" if wide else "wgmma"
 
 
 def fwd_kernel(head_dim: int, segments: bool, block_kv=None) -> CudaKernel:
     """The build of the forward that takes a call, by head dim and by
     whether it has segment ids: the module attribute ``FWD[_D<d>][_SEG]_KERNEL``
-    (no suffix at d 128), or ``FWD_TILES_KERNEL`` for a ``block_kv`` other
-    than the head dim's own, looked up at call time so that a check may
-    swap a build."""
+    (no suffix at d 128), ``FWD_WIDE_KERNEL`` at a wide head dim, or
+    ``FWD_TILES_KERNEL`` for a ``block_kv`` other than the head dim's own,
+    looked up at call time so that a check may swap a build."""
+    if is_wide(head_dim):
+        return globals()["FWD_WIDE_KERNEL"]
     if block_kv not in (None, default_block_kv(head_dim)):
         return globals()["FWD_TILES_KERNEL"]
     dim = "" if head_dim == 128 else f"_D{head_dim}"
@@ -275,7 +290,8 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     own fixed tiles) and the plain version take any tile alike.  CPU
     tensors take :func:`attn_fwd_plain`; CUDA tensors launch the kernel on
     the route of :func:`fwd_route` (in the build of :func:`fwd_kernel`),
-    which takes contiguous inputs with d in {64, 128, 256}, or raise."""
+    which takes contiguous inputs with d in {64, 128, 256} or a multiple of
+    128 in (256, 1024], or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg,
@@ -299,7 +315,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS,
                       alibi_slopes is not None, bool(dropout_rate))
     block_kv = default_block_kv(d)
-    if route == "wgmma" and block_sizes is not None:
+    if route in ("wgmma", "wide_mma") and block_sizes is not None:
         block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                           segments=q_seg is not None, fp8_v=v.dtype in V_KINDS)
         block_kv = block_sizes.block_kv
@@ -317,7 +333,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
         *tile, ROUTE_CODES[route], stream_handle(q.device),
     )
     ROUTE_LAUNCHES[route] += 1
-    if route == "wgmma":
+    if route in ("wgmma", "wide_mma"):
         key = f"d{d}_kv{block_kv}"
         TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
     return o, lse

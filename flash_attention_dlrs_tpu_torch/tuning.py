@@ -38,6 +38,10 @@ from . import geometry as geo
 # tile first.
 BUILT_BLOCK_KV = {64: (128, 64), 128: (128, 64), 256: (64,)}
 BUILT_BLOCK_KV_BWD = {64: (64, 32), 128: (64, 32), 256: (32,)}
+# The wide builds' tiles (csrc/wide.cuh, every head dim above 256 that is a
+# multiple of 128): 64 keys a forward tile, 64 rows a sweep's stream.
+WIDE_BLOCK_KV = (64,)
+WIDE_BLOCK_KV_BWD = (64,)
 CTA_ROWS = geo.CTA_ROWS
 
 
@@ -68,13 +72,17 @@ class BlockSizes:
     def check(self, head_dim: int, *, alibi: bool = False, dropout: bool = False,
               segments: bool = False, fp8_v: bool = False) -> None:
         """Raise ``ValueError`` unless some build carries these tiles at
-        ``head_dim`` (the kernels' width: 64, 128 or 256) with the call's
-        modes; the message names the built tiles."""
+        ``head_dim`` (the kernels' width: 64, 128, 256 or a wide width, whose
+        one build carries block_kv 64 and block_kv_bwd 64 in every mode and
+        cuts its own 64-row CTAs) with the call's modes; the message names
+        the built tiles."""
         modes = alibi or dropout or segments or fp8_v
         fwd = built_fwd_tiles(head_dim, modes)
         bwd = built_bwd_tiles(head_dim, modes)
         if self.block_kv not in fwd or self.block_kv_bwd not in bwd:
             what = " with ALiBi, dropout, segment ids or fp8 V" if modes else ""
+            if geo.is_wide(head_dim):
+                what = " (the wide build, csrc/wide.cuh)"
             raise ValueError(
                 f"{self}: the kernels at head dim {head_dim}{what} are built with "
                 f"block_kv in {fwd} and block_kv_bwd in {bwd}")
@@ -82,8 +90,11 @@ class BlockSizes:
 
 def built_fwd_tiles(head_dim: int, modes: bool = False) -> tuple:
     """The forward's key tiles built at ``head_dim``: the build's own only
-    with a mode (ALiBi, dropout, segment ids, fp8 V).  Head dims above 256
-    (the plain versions only) take the d 128 tiles."""
+    with a mode (ALiBi, dropout, segment ids, fp8 V).  The wide head dims
+    (:func:`..geometry.is_wide`) have the wide build's one tile; other head
+    dims (the plain versions only) take the d 128 tiles."""
+    if geo.is_wide(head_dim):
+        return WIDE_BLOCK_KV
     tiles = BUILT_BLOCK_KV.get(head_dim, BUILT_BLOCK_KV[128])
     return tiles[:1] if modes else tiles
 
@@ -91,6 +102,8 @@ def built_fwd_tiles(head_dim: int, modes: bool = False) -> tuple:
 def built_bwd_tiles(head_dim: int, modes: bool = False) -> tuple:
     """The sweeps' streamed tiles built at ``head_dim``, as
     :func:`built_fwd_tiles`."""
+    if geo.is_wide(head_dim):
+        return WIDE_BLOCK_KV_BWD
     tiles = BUILT_BLOCK_KV_BWD.get(head_dim, BUILT_BLOCK_KV_BWD[128])
     return tiles[:1] if modes else tiles
 
@@ -103,6 +116,8 @@ def candidate_fwd_configs(head_dim: int, *, segments: bool = False, fp8_v: bool 
     shared-memory model (a tile whose ring has no stage that fits is out:
     at d 256, 128-key tiles need 65,536 + 2·2·65,536 bytes, past 232,448),
     as the reference pruned its configurations by its SRAM model."""
+    if geo.is_wide(head_dim):  # one tile, whose layout needs no head row
+        return [(CTA_ROWS, bkv) for bkv in WIDE_BLOCK_KV]
     geom = geom or geo.current_geometry("cpu")
     modes = alibi or dropout or segments or fp8_v
     out = []
@@ -120,6 +135,8 @@ def candidate_bwd_configs(head_dim: int, *, segments: bool = False, alibi: bool 
     """(block_q_bwd, block_kv_bwd) candidates of a backward call: the
     streamed tiles built for its head dim and modes whose dK/dV and dQ
     layouts both fit."""
+    if geo.is_wide(head_dim):
+        return [(CTA_ROWS, bs) for bs in WIDE_BLOCK_KV_BWD]
     geom = geom or geo.current_geometry("cpu")
     modes = alibi or dropout or segments
     out = []
@@ -133,8 +150,9 @@ def candidate_bwd_configs(head_dim: int, *, segments: bool = False, alibi: bool 
 
 def default_block_sizes(head_dim: int) -> BlockSizes:
     """The tiles every call takes unless told otherwise: each head dim's own
-    builds', (128, 128, 128, 64), and (128, 64, 128, 32) at d 256."""
-    width = head_dim if head_dim in BUILT_BLOCK_KV else 128
+    builds', (128, 128, 128, 64), (128, 64, 128, 32) at d 256 and (128, 64,
+    128, 64) in the wide builds."""
+    width = head_dim if head_dim in BUILT_BLOCK_KV or geo.is_wide(head_dim) else 128
     return BlockSizes(block_kv=geo.default_block_kv(width),
                       block_kv_bwd=geo.default_block_kv_bwd(width))
 

@@ -7,9 +7,15 @@ pools and int8 / int4 / fp8 pools.  The JAX kernel runs in interpret mode on
 the CPU; the port runs its plain versions.  fp32, atol 1e-5 (quantized:
 atol and rtol 1e-5); against the dequantized oracle both sides are held to
 the JAX package's own 2e-3 / 1e-3 (``tests/test_decode.py``).  d = 128, the
-width the JAX pools are padded to, so both sides see the same pools.
+width the JAX pools are padded to, so both sides see the same pools.  Each
+JAX call runs under one ``jax.jit`` (:func:`_jit`): the same function on
+the same inputs, compiled once, where eager dispatch compiles each
+operation of its wrapper apart.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,12 +50,18 @@ def _torch(*arrays):
     return [torch.from_numpy(a) for a in arrays]
 
 
+def _jit(fn, **static):
+    """``fn`` of the JAX package with the keyword arguments ``static``
+    bound, under one jax.jit."""
+    return jax.jit(functools.partial(fn, **static))
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_paged_decode_matches_jax(name):
     b, hq, hkv, ps, pps, lengths, cap = CASES[name]
     arrays = _inputs(len(name), b, hq, hkv, ps, pps, lengths)
-    oj, lj = jdec.paged_decode_attention(
-        *(jnp.asarray(a) for a in arrays), return_lse=True, logit_softcap=cap)
+    oj, lj = _jit(jdec.paged_decode_attention, return_lse=True, logit_softcap=cap)(
+        *(jnp.asarray(a) for a in arrays))
     ot, lt = tdec.paged_decode_attention(
         *_torch(*arrays), return_lse=True, logit_softcap=cap)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=ATOL, rtol=0)
@@ -60,8 +72,8 @@ def test_paged_decode_matches_jax(name):
 def test_paged_reference_matches_jax(name):
     b, hq, hkv, ps, pps, lengths, cap = CASES[name]
     arrays = _inputs(len(name) + 1, b, hq, hkv, ps, pps, lengths)
-    oj = jdec.paged_reference_attention(
-        *(jnp.asarray(a) for a in arrays), logit_softcap=cap)
+    oj = _jit(jdec.paged_reference_attention, logit_softcap=cap)(
+        *(jnp.asarray(a) for a in arrays))
     ot = tdec.paged_reference_attention(*_torch(*arrays), logit_softcap=cap)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=ATOL, rtol=0)
 
@@ -189,16 +201,18 @@ def test_quantized_decode_matches_jax_and_oracle(kind, group):
     """Plain version vs the JAX kernel at 1e-5 (int8/int4: both take the
     integer score route), and both vs the dequantized oracle at the JAX
     package's tolerance.  Softcap on odd groups; lengths include 0, 1 and
-    page boundaries."""
+    page boundaries.  The JAX kernel takes 4 pages a block (as
+    tests/test_decode.py does): its interpret-mode compile unrolls a block's
+    pages, and the default 8 doubles that compile for the same function."""
     hkv, ps, pps = 2, 64, 16  # contexts as long as the JAX package's test's
     cap = 30.0 if group % 2 else 0.0
     lengths = [0, 1, ps * pps - 37, ps * pps]
     q, kp, vp, lens, tbl = _inputs(group * 10 + len(kind), 4, group * hkv, hkv,
                                    ps, pps, lengths)
     (kj, vj), (kt, vt) = _pools(kind, kp, vp)
-    oj, lj = jdec.paged_decode_attention(
-        jnp.asarray(q), kj, vj, jnp.asarray(lens), jnp.asarray(tbl),
-        return_lse=True, logit_softcap=cap)
+    oj, lj = _jit(jdec.paged_decode_attention, return_lse=True, logit_softcap=cap,
+                  pages_per_block=4)(jnp.asarray(q), kj, vj, jnp.asarray(lens),
+                                     jnp.asarray(tbl))
     ot, lt = tdec.paged_decode_attention(
         *_torch(q), kt, vt, *_torch(lens, tbl), return_lse=True,
         logit_softcap=cap)
@@ -221,7 +235,9 @@ def _visible(lengths, t_new):
 @pytest.mark.parametrize("kind", [None, "int8", "int4", "e5m2"])
 def test_paged_verify_matches_jax(kind, t_new):
     """Rows that see nothing (lengths < T) are zeros in the port; the TPU
-    kernel leaves them undefined, so they are compared with 0 only."""
+    kernel leaves them undefined, so they are compared with 0 only.  The
+    JAX kernel takes a page a block: its interpret-mode compile unrolls a
+    block's pages (the default 2 doubles it for the same function)."""
     b, hq, hkv, ps, pps, d = 3, 4, 2, 16, 4, 128
     lengths = [2, 37, 64]
     _, kp, vp, lens, tbl = _inputs(t_new + 3 * len(str(kind)), b, hq, hkv, ps,
@@ -230,9 +246,8 @@ def test_paged_verify_matches_jax(kind, t_new):
                                                      dtype=np.float32)
     (kj, vj), (kt, vt) = _pools(kind, kp, vp)
     cap = 25.0 if t_new == 3 else 0.0
-    oj = np.asarray(jdec.paged_verify_attention(
-        jnp.asarray(q), kj, vj, jnp.asarray(lens), jnp.asarray(tbl),
-        logit_softcap=cap))
+    oj = np.asarray(_jit(jdec.paged_verify_attention, logit_softcap=cap, pages_per_block=1)(
+        jnp.asarray(q), kj, vj, jnp.asarray(lens), jnp.asarray(tbl)))
     ot = tdec.paged_verify_attention(*_torch(q), kt, vt, *_torch(lens, tbl),
                                      logit_softcap=cap).numpy()
     seen = _visible(lengths, t_new)[:, None, :, None]
@@ -283,8 +298,8 @@ def test_bf16_q_rounds_p_times_v_scale_like_jax():
     q, kp, vp, lens, tbl = _inputs(10, 2, 4, 2, 16, 4, [30, 64])
     (kj, vj), (kt, vt) = _pools("int8", kp, vp)
     qb = torch.from_numpy(q).bfloat16()
-    oj = jdec.paged_decode_attention(jnp.asarray(qb.float().numpy(), jnp.bfloat16),
-                                     kj, vj, jnp.asarray(lens), jnp.asarray(tbl))
+    oj = _jit(jdec.paged_decode_attention)(jnp.asarray(qb.float().numpy(), jnp.bfloat16),
+                                           kj, vj, jnp.asarray(lens), jnp.asarray(tbl))
     ot = tdec.paged_decode_attention(qb, kt, vt, *_torch(lens, tbl))
     assert ot.dtype == torch.bfloat16
     np.testing.assert_allclose(ot.float().numpy(), np.asarray(oj, np.float32),

@@ -1,0 +1,299 @@
+"""Head dims above 256 in the PyTorch port, against the JAX package.
+
+The JAX package pads any head dim to a multiple of 128 lanes and runs its
+kernels there; the port pads alike (``kernel_width``: 320 to 384, 512 as it
+is) and on the card runs the wide builds (``csrc/wide.cuh``: the
+column-chunked forward, both backward sweeps, paged decode and verify,
+routes ``wide_mma`` / ``wide_fp32``).  Here, on CPU tensors, the port runs
+their plain versions; the JAX side runs its Pallas routes in interpret
+mode, as its own CPU tests do.  Same seeded numpy inputs on both sides:
+
+- the op's forward (O, lse) and dQ/dK/dV at d 320 and 512, one case for
+  each of ALiBi, dropout (its mask bit for bit the JAX package's), segment
+  ids, the window and the softcap, and the plain causal case (with
+  ``nn.dot_product_attention`` over the same op); fp8 V in the forward;
+- ``paged_decode_attention`` (O, lse) and ``paged_verify_attention`` at
+  pool widths 384 (bf16, int4 pools) and 512 (int8, e4m3 pools);
+- the route functions at 384, 512 and 640 (the wide routes, the wide
+  builds) and a refusal past 1024 that names queue 2;
+- a 2-layer model at head_dim 320: ``DecodeEngine`` greedy tokens equal to
+  the JAX engine's, and one AdamW train step against JAX's.
+
+Tolerances: forward atol 1e-4 / rtol 1e-5 (tests/test_forward.py:21);
+gradients dQ 9e-4 / dK 7e-4 / dV 7e-5, rtol 1e-5 (tests/test_backward.py:25);
+bf16 q/k with fp8 V 2e-2 (tests/test_forward.py:530-544); paged fp32 q on
+quantized pools atol / rtol 1e-5 (tests/test_torch_decode.py), bf16 q on
+bf16 pools a bf16 unit (atol 2^-8, rtol 2^-7); the model's loss 1e-5 and
+its trained weights ADAM_ATOL 3e-5 (tests/test_torch_train.py says why)
+but for at most one weight in 10^4, none past 2 lr: Adam's first update
+moves a weight by about lr·sign(g), so a weight whose gradient is
+summation noise lands up to 2 lr apart in two right runs
+(tests/test_torch_parallel_models.py, tests/test_torch_optim.py).
+The JAX runs are shared in module fixtures, and each JAX op call runs
+under one ``jax.jit`` (one compile, where eager dispatch compiles each
+operation of its wrapper apart).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+import flash_attention_dlrs_tpu as fa
+import flash_attention_dlrs_tpu_torch as tp
+from flash_attention_dlrs_tpu.models import ModelConfig as JConfig
+from flash_attention_dlrs_tpu.models import make_train_step as jstep
+from flash_attention_dlrs_tpu.ops import decode as jdec
+from flash_attention_dlrs_tpu.runtime.engine import DecodeEngine as JEngine
+from flash_attention_dlrs_tpu_torch import nn as tnn
+from flash_attention_dlrs_tpu_torch import tuning
+from flash_attention_dlrs_tpu_torch.models import ModelConfig as TConfig
+from flash_attention_dlrs_tpu_torch.models import (
+    init_params_numpy, make_train_state, make_train_step, params_from_jax, params_to_numpy,
+)
+from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as tbwd
+from flash_attention_dlrs_tpu_torch.ops import decode as tdec
+from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as tfwd
+from flash_attention_dlrs_tpu_torch.runtime.engine import DecodeEngine as TEngine
+
+FWD = dict(atol=1e-4, rtol=1e-5)
+GRAD_ATOL = {"dq": 9e-4, "dk": 7e-4, "dv": 7e-5}
+RTOL = 1e-5
+FP8_TOL = dict(atol=2e-2, rtol=2e-2)
+QUANT_TOL = dict(atol=1e-5, rtol=1e-5)
+BF16_TOL = dict(atol=2 ** -8, rtol=2 ** -7)
+MODEL_ATOL, ADAM_ATOL = 1e-5, 3e-5
+
+
+def _packed(rng, b, n, max_segs=4):
+    """Each row split at max_segs - 1 random boundaries into documents 0, 1,
+    ... (tests/test_forward.py:200-210)."""
+    ids = np.zeros((b, n), np.int32)
+    for row in ids:
+        for bound in np.sort(rng.integers(1, n, max_segs - 1)):
+            row[bound:] += 1
+    return ids
+
+
+OP_CASES = {
+    # name: (B, Hq, Hkv, Nq, Nkv, d, kwargs, segment ids: None or "packed")
+    "d320_plain_only": (1, 2, 1, 40, 40, 320, dict(causal=True, logit_softcap=2.0), None),
+    "d320_alibi_gqa": (1, 4, 2, 40, 40, 320, dict(
+        causal=True, alibi_slopes=fa.alibi_slopes_for(4)), None),
+    "d512_dropout_cross": (1, 2, 1, 24, 40, 512, dict(
+        causal=True, dropout_rate=0.1, dropout_seed=2 ** 31 - 3), None),
+    "d320_segments_packed": (2, 2, 1, 32, 32, 320, dict(causal=True), "packed"),
+    "d512_window_gqa": (1, 4, 2, 40, 40, 512, dict(causal=True, window=20), None),
+    "d512_softcap_noncausal": (1, 2, 1, 32, 32, 512, dict(causal=False, logit_softcap=5.0),
+                               None),
+}
+
+
+@functools.cache
+def _case(name):
+    """The case's numpy inputs and ids, and the JAX package's (O, lse) and
+    (dQ, dK, dV) on them."""
+    b, hq, hkv, nq, nkv, d, kw, seg = OP_CASES[name]
+    rng = np.random.default_rng(len(name) + d)
+    q = rng.standard_normal((b, hq, nq, d), dtype=np.float32)
+    k = rng.standard_normal((b, hkv, nkv, d), dtype=np.float32)
+    v = rng.standard_normal((b, hkv, nkv, d), dtype=np.float32)
+    do = rng.standard_normal((b, hq, nq, d), dtype=np.float32)
+    ids = _packed(rng, b, nq) if seg else None
+    jkw = dict(kw, segment_ids=None if ids is None else jnp.asarray(ids))
+    op = functools.partial(fa.flash_attention, **jkw)
+    grads = jax.jit(lambda a, b_, c, g: jax.vjp(op, a, b_, c)[1](g))(
+        *map(jnp.asarray, (q, k, v, do)))
+    o, lse = jax.jit(functools.partial(fa.flash_attention_forward, **jkw))(
+        *map(jnp.asarray, (q, k, v)))
+    return (q, k, v, do), ids, (np.asarray(o), np.asarray(lse)), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("name", sorted(OP_CASES))
+def test_op_forward_and_gradients_match_jax(name):
+    (q, k, v, do), ids, (oj, lj), want = _case(name)
+    kw = dict(OP_CASES[name][6], segment_ids=None if ids is None else torch.from_numpy(ids))
+    ot, lt = tp.flash_attention_forward(*map(torch.from_numpy, (q, k, v)), **kw)
+    np.testing.assert_allclose(ot.numpy(), oj, **FWD)
+    np.testing.assert_allclose(lt.numpy(), lj, **FWD)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    tp.flash_attention(*leaves, **kw).backward(torch.from_numpy(do))
+    for gname, t, w in zip(("dq", "dk", "dv"), leaves, want):
+        assert t.grad.shape == t.shape
+        np.testing.assert_allclose(t.grad.numpy(), w, atol=GRAD_ATOL[gname], rtol=RTOL,
+                                   err_msg=gname)
+    if name == "d320_plain_only":  # the jax.nn drop-in over the same op, BTNH
+        got = tnn.dot_product_attention(
+            *(torch.from_numpy(a).transpose(1, 2) for a in (q, k, v)), is_causal=True)
+        np.testing.assert_allclose(got.transpose(1, 2).numpy(),
+                                   tp.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                                      causal=True).numpy(), **FWD)
+
+
+def test_fp8_v_forward_matches_jax():
+    """bf16 q/k with e4m3 V at d 512 (the two packages' fp8 roundings of V
+    checked equal), causal, GQA 2:1."""
+    rng = np.random.default_rng(82)
+    q = rng.standard_normal((1, 4, 64, 512), dtype=np.float32)
+    k, v = (rng.standard_normal((1, 2, 64, 512), dtype=np.float32) for _ in range(2))
+    vj = jnp.asarray(v).astype(jnp.float8_e4m3fn)
+    vt = torch.from_numpy(v).to(torch.float8_e4m3fn)
+    assert np.array_equal(np.asarray(vj.astype(jnp.float32)), vt.float().numpy())
+    oj = fa.flash_attention(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16), vj,
+                            causal=True)
+    ot = tp.flash_attention(torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
+                            vt, causal=True)
+    assert ot.dtype == torch.bfloat16 and ot.shape == (1, 4, 64, 512)
+    np.testing.assert_allclose(ot.float().numpy(), np.asarray(oj, np.float32), **FP8_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode and verify at pool widths 384 and 512
+# ---------------------------------------------------------------------------
+
+KINDS = {"int8": (jnp.int8, torch.int8), "int4": ("int4", "int4"),
+         "e4m3": (jnp.float8_e4m3fn, torch.float8_e4m3fn)}
+
+
+@pytest.mark.parametrize("d,kind", [(384, "bf16"), (384, "int4"), (512, "int8"),
+                                    (512, "e4m3")])
+def test_paged_decode_and_verify_match_jax(d, kind):
+    """Decode (O and lse; ragged lengths with an empty one, softcap on int4)
+    and a 3-token verify (rows that see nothing compared with 0 only), GQA
+    2:1, 16-token pages, a shuffled table.  bf16 q pre-scaled in bf16 (the
+    JAX kernel) or not (the port's value-pool decode, the oracle's
+    arithmetic) moves the lse by about a bf16 unit too."""
+    b, hq, hkv, ps, pps, t_new = 2, 4, 2, 16, 2, 3
+    lengths = np.asarray([0, 29], np.int32)
+    rng = np.random.default_rng(d + len(kind))
+    num_pages = b * pps + 2
+    q = rng.standard_normal((b, hq, d), dtype=np.float32)
+    qv = rng.standard_normal((b, hq, t_new, d), dtype=np.float32)
+    kp, vp = (rng.standard_normal((hkv, num_pages, ps, d), dtype=np.float32) for _ in range(2))
+    tbl = rng.permutation(num_pages)[: b * pps].reshape(b, pps).astype(np.int32)
+    cap = 30.0 if kind == "int4" else 0.0
+    if kind == "bf16":
+        jq, jqv = jnp.asarray(q, jnp.bfloat16), jnp.asarray(qv, jnp.bfloat16)
+        tq, tqv = torch.from_numpy(q).bfloat16(), torch.from_numpy(qv).bfloat16()
+        jk, jv = jnp.asarray(kp, jnp.bfloat16), jnp.asarray(vp, jnp.bfloat16)
+        tk, tv = torch.from_numpy(kp).bfloat16(), torch.from_numpy(vp).bfloat16()
+        tol = BF16_TOL
+    else:
+        jq, jqv = jnp.asarray(q), jnp.asarray(qv)
+        tq, tqv = torch.from_numpy(q), torch.from_numpy(qv)
+        jd, td = KINDS[kind]
+        jk, jv = (jdec.quantize_kv_pages(jnp.asarray(a), jd) for a in (kp, vp))
+        tk, tv = (tdec.quantize_kv_pages(torch.from_numpy(a), td) for a in (kp, vp))
+        tol = QUANT_TOL
+    lens_j, tbl_j = jnp.asarray(lengths), jnp.asarray(tbl)
+    lens_t, tbl_t = torch.from_numpy(lengths), torch.from_numpy(tbl)
+    oj, lj = jax.jit(functools.partial(jdec.paged_decode_attention, return_lse=True,
+                                       logit_softcap=cap))(jq, jk, jv, lens_j, tbl_j)
+    ot, lt = tdec.paged_decode_attention(tq, tk, tv, lens_t, tbl_t, return_lse=True,
+                                         logit_softcap=cap)
+    np.testing.assert_allclose(ot.float().numpy(), np.asarray(oj, np.float32), **tol)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **tol)
+    oj = np.asarray(jax.jit(functools.partial(jdec.paged_verify_attention,
+                                              logit_softcap=cap))(jqv, jk, jv, lens_j, tbl_j),
+                    np.float32)
+    ot = tdec.paged_verify_attention(tqv, tk, tv, lens_t, tbl_t,
+                                     logit_softcap=cap).float().numpy()
+    seen = ((lengths[:, None] - (t_new - 1) + np.arange(t_new)[None, :]) > 0)[:, None, :, None]
+    np.testing.assert_allclose(np.where(seen, ot, 0), np.where(seen, oj, 0), **tol)
+    assert (np.where(seen, 0, ot) == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# Routes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [384, 512, 640])
+def test_routes_take_the_wide_builds(d):
+    """Every route function names its wide route at d, with every mode, and
+    the builds the wrappers look up are the wide ones; CPU calls at d count
+    no launch; the tiles a caller may pin at d are the wide build's own."""
+    for dtype, suffix in ((torch.float32, "fp32"), (torch.bfloat16, "mma"),
+                          (torch.float16, "mma")):
+        route = f"wide_{suffix}"
+        tfwd.check_kernel_head_dim(d, "wide")
+        for kw in ({}, dict(segments=True), dict(alibi=True, dropout=True)):
+            assert tbwd.bwd_route(dtype, d, **kw) == route
+            assert tfwd.fwd_route(dtype, d, fp8_v=dtype != torch.float32, **kw) == route
+        for pool in (dtype, torch.int8, "int4", torch.float8_e4m3fn):
+            assert tdec.verify_route(dtype, pool, 16, d, alibi=True) == route
+        assert route in tfwd.ROUTE_CODES and route in tdec.VERIFY_ROUTE_CODES
+    assert tfwd.fwd_kernel(d, True) is tfwd.FWD_WIDE_KERNEL
+    assert tbwd.sweep_kernel("attn_bwd_dkv", d, False) is tbwd.DKV_WIDE_KERNEL
+    assert tbwd.sweep_kernel("attn_bwd_dq", d, True) is tbwd.DQ_WIDE_KERNEL
+    assert tdec.paged_kernels(d, torch.float16) == (tdec.DECODE_WIDE_KERNEL,
+                                                   tdec.VERIFY_WIDE_KERNEL)
+    before = (dict(tfwd.ROUTE_LAUNCHES), tfwd.FWD_WIDE_KERNEL.launches)
+    q = torch.zeros(1, 2, 8, d)
+    tfwd.attn_fwd(q, q, q, causal=True, sm_scale=0.1)
+    assert (dict(tfwd.ROUTE_LAUNCHES), tfwd.FWD_WIDE_KERNEL.launches) == before
+    with pytest.raises(ValueError, match="queue 2"):
+        tfwd.fwd_route(torch.bfloat16, 1152)
+    # the wide build's own tile is its only one, in every mode
+    tuning.BlockSizes(block_kv=64, block_kv_bwd=64).check(d, alibi=True, segments=True)
+    with pytest.raises(ValueError, match="wide build"):
+        tuning.BlockSizes().check(d)
+    assert tuning.default_block_sizes(d) == tuning.BlockSizes(block_kv=64, block_kv_bwd=64)
+
+
+# ---------------------------------------------------------------------------
+# A 2-layer model at head_dim 320: serving and one train step
+# ---------------------------------------------------------------------------
+
+MODEL = dict(vocab_size=256, d_model=64, n_layers=2, n_q_heads=2, n_kv_heads=1,
+             head_dim=320, d_ff=128)
+PROMPTS = [[5, 7, 11, 13, 17, 19], [3, 1, 4, 1, 5, 9]]
+ENGINE = dict(num_slots=2, num_pages=6, page_size=16, pages_per_seq=2)
+NEW_TOKENS = 3
+LR = 3e-4
+
+
+def _tokens(seed, b=2, n=17):
+    return np.random.default_rng(seed).integers(0, MODEL["vocab_size"], (b, n)).astype(
+        np.int32)
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    """Seeded numpy weights, the JAX engine's greedy tokens on them and one
+    JAX AdamW step (its loss and the weights after it)."""
+    jcfg = JConfig(**MODEL, dtype=jnp.float32, remat=False)
+    tree = init_params_numpy(TConfig(**MODEL, dtype=torch.float32), seed=3)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    greedy = JEngine(jparams, jcfg, kv_dtype=jnp.float32, **ENGINE).generate(
+        PROMPTS, max_new_tokens=NEW_TOKENS)
+    opt = optax.adamw(LR, weight_decay=0.01)
+    params, state, loss = jstep(jcfg, opt)(jparams, opt.init(jparams), jnp.asarray(_tokens(1)))
+    return dict(tree=tree, greedy=greedy, loss=float(loss), params=params)
+
+
+def test_head_dim_320_engine_tokens_match_jax(jax_model):
+    tcfg = TConfig(**MODEL, dtype=torch.float32, remat=False)
+    model = params_from_jax(jax_model["tree"], tcfg, device="cpu")
+    engine = TEngine(model, tcfg, kv_dtype=torch.float32, device="cpu", **ENGINE)
+    assert engine.generate(PROMPTS, max_new_tokens=NEW_TOKENS) == jax_model["greedy"]
+
+
+def test_head_dim_320_train_step_matches_jax(jax_model):
+    tcfg = TConfig(**MODEL, dtype=torch.float32, remat=True)
+    model, opt_state, optimizer = make_train_state(tcfg, params=jax_model["tree"],
+                                                   device="cpu")
+    loss = make_train_step(tcfg, optimizer)(model, opt_state, torch.from_numpy(_tokens(1)))
+    assert abs(float(loss) - jax_model["loss"]) <= MODEL_ATOL
+    got, want = params_to_numpy(model), jax_model["params"]
+    assert jax.tree.structure(got) == jax.tree.structure(want)
+    diff = np.concatenate([np.abs(a - np.asarray(b)).ravel()
+                           for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want))])
+    limit = np.concatenate([(ADAM_ATOL + 1e-5 * np.abs(np.asarray(b))).ravel()
+                            for b in jax.tree.leaves(want)])
+    assert (diff > limit).sum() <= max(1, diff.size // 10 ** 4)
+    assert diff.max() <= 2 * LR
