@@ -5,11 +5,12 @@ Builds the port's CUDA kernels from csrc/ with nvcc (printing the registers,
 spills and serialization warnings of the wgmma instances of the forward and
 of the backward sweeps, and the registers, shared memory, spills and
 warnings of every paged instance, and of every instance of the wide
-builds, none of which may spill), and beside them four broken copies of
-the dK/dV sweep (two at head dim 256), two of the paged kernels (a
-decode merge that drops the last key split, a verify that leaves a
-horizon-crossing tile unmasked) and one of the wide forward (its Q K^T
-short of the last 128 columns);
+builds, none of which may spill, the wide_wgmma ones of two owners at 168
+registers), and beside them four broken copies of the dK/dV sweep (two at
+head dim 256), two of the paged kernels (a decode merge that drops the
+last key split, a verify that leaves a horizon-crossing tile unmasked)
+and two of the 16-bit wide forward (S summed without the last owner's
+partial score, or with an owner's own partial in place of its peers');
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
 route of the forward, of the backward sweeps and of verify: wgmma, fp32,
 and the paged kernels at their key-split and tile edges) against its plain
@@ -144,9 +145,12 @@ Then drives every path of the port:
   gloo (examples);
 - head dims above 256 (csrc/wide.cuh, the wide builds): the forward, both
   sweeps, paged decode and verify against their plain versions at head dims
-  320 (padded to 384), 512 and 640 in every mode and dtype, the paged
-  kernels at their key-split edges, the sweeps and paged kernels bit for
-  bit, the wide forward's mutant caught, and their times at the re-headed
+  320 (padded to 384), 512 and 640 in every mode and dtype (the 16-bit
+  forward and verify on wide_wgmma, the forward also at 768, 896 and
+  1024), the paged kernels at their key-split edges, the sweeps, paged
+  kernels and wide_wgmma forward bit for bit, the wide forward's mutants
+  caught, every instance's shared memory against geometry.py's model, and
+  their times at the re-headed
   bench models' shapes (wide_heads); serving-bench-d512, the serving-bench
   model with 4 q / 2 kv heads of 512, served from bf16 KV eagerly and as
   graphed bursts of 8, from int8 KV and chunked with the prefix cache
@@ -604,6 +608,38 @@ def paged_instances(log, source):
     return out
 
 
+def wide_wgmma_instances(log, source):
+    """Registers, spills and ptxas performance warnings of every
+    wide_wgmma_kernel instance of a wide source (csrc/wide.cuh), from nvcc's
+    ``--ptxas-options=-v`` log, by "<dtype>_<fwd|verify>_d<head dim>" (the
+    head dim from its cut: CTAs a cluster x owners a CTA x 64-column chunks
+    an owner)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"wide_wgmma_kernelI(\w+?)Lb(\d)ELi(\d)ELi(\d)ELi(\d)E", m.group(1))
+            cur = None
+            if k:
+                nc, nw, c = (int(x) for x in k.groups()[2:])
+                cur = (f"{'bf16' if 'bfloat16' in k.group(1) else 'fp16'}_"
+                       f"{'verify' if k.group(2) == '1' else 'fwd'}_d{64 * nc * nw * c}")
+                out[cur] = {"source": source, "owners_a_cta": nw, "cluster": nc,
+                            "ptxas_warnings": []}
+            continue
+        if cur is None:
+            continue
+        if "Performance Loss" in line or "serialized" in line:
+            out[cur]["ptxas_warnings"].append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 # Broken copies of the paged kernels, built as BWD_MUTANTS are:
 # decode_check must fail on each (phase paged_mutants).
 PAGED_MUTANTS = {
@@ -707,14 +743,26 @@ def phase_build(mutants=False):
     if serialized:
         raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
     # the wide builds (csrc/wide.cuh): every instance's ptxas lines, none
-    # may spill
+    # may spill; the wide_wgmma instances (2 dtypes x 6 head dims in each of
+    # the forward and verify) by name, those of two owners a CTA at the
+    # launch's 168 registers (setmaxnreg moves registers only within them),
+    # none with serialized wgmmas
     wide = {src: info[src]["ptxas"] for src in built if src.endswith("_wide.cu")}
     spilling = {src: [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
                 for src, lines in wide.items()}
     spilling = {src: lines for src, lines in spilling.items() if lines}
-    emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling})
+    wgmma = {}
+    for src in ("attn_fwd_wide.cu", "paged_verify_wide.cu"):
+        if src in built:
+            wgmma.update(wide_wgmma_instances(built[src]["log"], src))
+    wrong = {k: v for k, v in wgmma.items()
+             if v["ptxas_warnings"] or (v["owners_a_cta"] == 2 and v.get("registers") != LAUNCH_REGS)}
+    emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling,
+          "wide_wgmma_instances": wgmma})
     if spilling:
         raise AssertionError(f"wide instances spill: {spilling}")
+    if wrong or (wgmma and len(wgmma) != 24):
+        raise AssertionError(f"wide_wgmma instances off ({len(wgmma)} of 24): {wrong}")
     counts = {k: sum(n.startswith(k) for n in paged)
               for k in ("decode_", "verify_wgmma_", "verify_fp32_")}
     if paged and counts != {"decode_": 84, "verify_wgmma_": 120, "verify_fp32_": 3}:
@@ -1567,18 +1615,16 @@ def d256_cases():
 
 def paged_ctas(t_new, route, splits, b, hq, hkv, d=128):
     """CTAs one paged call launches: decode one per split, head pair, kv
-    head and sequence; verify one per split,
-    block of rows (128 on the wgmma route, 64 on fp32 and the wide routes,
-    whose CTAs also own one 128-column chunk of the pool head dim ``d``),
-    kv head and sequence."""
-    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROW_TILE
+    head and sequence; verify one per split, kv head, sequence and block
+    of rows (ops/decode.py verify_ctas_per_split: 128 rows on the wgmma
+    route; 64 on the others, a cluster of the CTAs that split the head dim
+    on wide_wgmma, one 128-column chunk of it a CTA on wide_fp32)."""
+    from flash_attention_dlrs_tpu_torch.ops.decode import verify_ctas_per_split
 
     g = hq // hkv
     if not t_new:
         return splits * -(-g // 2) * hkv * b
-    tile = VERIFY_ROW_TILE if route == "wgmma" else 64
-    chunks = d // 128 if route.startswith("wide") else 1
-    return splits * -(-t_new * g // tile) * chunks * hkv * b
+    return splits * verify_ctas_per_split(route, t_new * g, d) * hkv * b
 
 
 def paged_case(dev, gen, case):
@@ -3755,15 +3801,15 @@ def profiled_train_step(run):
 
 
 def phase_train(dev, name="train", kernels=None, route="wgmma", warm=TRAIN_WARM_STEPS,
-                timed=TRAIN_TIMED_STEPS, **variant):
+                timed=TRAIN_TIMED_STEPS, bwd_route=None, **variant):
     """The training path at the bench-train config (with the config fields
     ``variant``), full width and depth: make_train_state (weights from
     init_params_numpy, seed 0), AdamW lr 3e-4 / wd 0.01, one batch of tokens
     [8, 2049] from numpy seed 1, step i called with dropout seed i.
     ``warm`` (2) warm steps, ``timed`` (4) timed ones (synchronized at the
     edges, launch counts of ``kernels`` (the d128 builds: _kernels())
-    zeroed just before and read just after, every forward and sweep on
-    ``route``), one profiled step (the rope model only), one step whose
+    zeroed just before and read just after, every forward on ``route`` and
+    every sweep on ``bwd_route``, by default ``route``), one profiled step (the rope model only), one step whose
     attention backward inputs are recorded and checked layer by layer, then
     the 2-layer fp32 comparison of kernel and plain paths."""
     import torch
@@ -3822,8 +3868,9 @@ def phase_train(dev, name="train", kernels=None, route="wgmma", warm=TRAIN_WARM_
         "loss_falls": losses[-1] < losses[0],
         "launches_exact_per_step": launches == expected,
         f"fwd_launches_all_{route}": all_on(routes, route, launches["attn_fwd"]),
-        f"bwd_sweep_launches_all_{route}": all(
-            all_on(sweep_routes[sweep], route, launches[sweep]) for sweep in sweep_routes),
+        f"bwd_sweep_launches_all_{bwd_route or route}": all(
+            all_on(sweep_routes[sweep], bwd_route or route, launches[sweep])
+            for sweep in sweep_routes),
         "attention_every_layer_fwd_and_bwd_kernel_vs_plain":
             layers_checked == cfg.n_layers and attn_ok,
         "fp32_2layer_kernel_vs_plain": fp32.pop("ok"),
@@ -7393,16 +7440,31 @@ D512_SERVE_HEADS = dict(n_q_heads=4, n_kv_heads=2, head_dim=512)
 D512_TRAIN_HEADS = dict(n_q_heads=8, n_kv_heads=2, head_dim=512)
 SERVE_D512_NEW_TOKENS = 16
 TRAIN_D512_WARM, TRAIN_D512_TIMED = 1, 2
-# The wide forward with its Q K^T cut short by its last 128 columns, the
-# class of fault its column chunks can bring: fwd_check's wide cases at
-# d 512 and 640 must catch it.
+# The 16-bit wide forward (csrc/wide.cuh wide_wgmma_kernel) broken in its
+# exchange of partial scores, the class of fault the split of the head dim
+# among owners can bring: S summed without the last owner's partial, and S
+# summed with each owner's own partial in place of its peers'.
+# fwd_check's wide cases at d 512 and 640 must catch each.  A mutant builds
+# only the cuts of those two widths (the other widths' launches refuse,
+# and none of its cases makes one), a third of the wide_wgmma instances, so
+# that its compile takes less of the host beside the serving phases.
+_WIDE_MUTANT_ONLY_512_640 = [
+    (f"    case {d}: return launch_wgmma_cut<T, PAGED, {cut}>(a, tm_q, tm_k, tm_v, tma, grid);",
+     f"    case {d}: return int(cudaErrorInvalidValue);")
+    for d, cut in ((384, "1, 2, 3"), (768, "2, 2, 3"), (896, "7, 1, 2"), (1024, "2, 2, 4"))]
 WIDE_MUTANTS = {
     "wide_fwd_drops_last_chunk": ("attn_fwd_wide.cu", "wide.cuh", [(
-        "const int score_cols = D;  // Q K^T runs over every column of the head dim",
-        "const int score_cols = D - 128;  // Q K^T runs over every column of the head dim")]),
+        "for (int p = 0; p < OWNERS; ++p) {  // every owner's partial, in owner order",
+        "for (int p = 0; p < OWNERS - 1; ++p) {  // every owner's partial, in owner order"),
+    ] + _WIDE_MUTANT_ONLY_512_640),
+    "wide_fwd_adds_own_partial": ("attn_fwd_wide.cu", "wide.cuh", [(
+        "const int src = p;  // the owner whose partial is added",
+        "const int src = p == 0 ? p : me;  // the owner whose partial is added"),
+    ] + _WIDE_MUTANT_ONLY_512_640),
 }
 WIDE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
 WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cap, below
+WIDE_ALL = (384, 512, 640, 768, 896, 1024)  # every width of the wide builds
 # the op API and the nn adapter at head dims the op pads (320 -> 384) and
 # does not (640): (B, Hq, Hkv, Nq, Nkv, d)
 WIDE_OP_SHAPES = {320: (2, 4, 2, 300, 300, 320), 640: (2, 4, 2, 257, 257, 640)}
@@ -7411,8 +7473,9 @@ WIDE_OP_SHAPES = {320: (2, 4, 2, 300, 300, 320), 640: (2, 4, 2, 257, 257, 640)}
 def wide_fwd_cases():
     """fwd_check cases of the wide forward at d 384, 512 and 640: every mode
     (GQA, tails, window, softcap, ALiBi, dropout, segment ids with rows that
-    see nothing, fp8 V) in bf16, fp16 and fp32, the bench models' shapes and
-    d 1024, the cap."""
+    see nothing, fp8 V) in bf16, fp16 and fp32, the bench models' shapes,
+    d 1024, the cap, and bf16 at 768 and 896, whose cuts of the head dim
+    (clusters of 2 and 7 CTAs) no other width takes."""
     import torch
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -7445,6 +7508,9 @@ def wide_fwd_cases():
         ("d512_train_B8_H8_N2048", bf16, 8, 8, 2, 2048, 2048, 512, True, 0, 0.0, {}),
         ("d512_serve_prefill_2048", bf16, 1, 4, 2, 2048, 2048, 512, True, 0, 0.0, {}),
         ("d1024_causal_bf16", bf16, 1, 2, 1, 256, 256, 1024, True, 0, 0.0, {}),
+        # the widths whose cut (csrc/wide.cuh wide_cut) the others do not reach
+        ("d768_causal_gqa_bf16", bf16, 1, 4, 2, 300, 300, 768, True, 0, 0.0, {}),
+        ("d896_causal_gqa_bf16", bf16, 1, 4, 2, 300, 300, 896, True, 0, 0.0, {}),
         ("d1024_fp32_window_softcap_alibi_dropout", f32, 1, 2, 1, 130, 161, 1024, True, 50,
          25.0, both),
     ]
@@ -7744,6 +7810,32 @@ def _faster_library(row, expanded, backend):
         row["library"] = f"scaled_dot_product_attention, {backend}, enable_gqa"
 
 
+# The times of the column-chunked mma.sync forward and verify that the
+# wide_wgmma kernel replaced, at the shapes wide_timings measures (H100
+# 80GB HBM3, 700 W; PERF.md section 6), printed beside the new ones.
+WIDE_MMA_SYNC_MS = {
+    "fwd_train_d512": {"ms": 8.06}, "fwd_serve_prefill_d512": {"ms": 0.900},
+    "verify_d512_bf16_T256_ctx2048": {"ms": 0.624, "device_ms": 0.541},
+    "verify_d512_int8_T256_ctx2048": {"ms": 0.500, "device_ms": 0.437},
+}
+
+
+def fwd_device_ms(gen, dev, b, hq, hkv, n, d, floor_ms):
+    """:func:`device_ms` of the bf16 forward (causal) at one shape, none
+    read under ``floor_ms`` (its bound)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd
+
+    q = _rand(gen, (b, hq, n, d), torch.bfloat16, dev)
+    k = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
+    v = _rand(gen, (b, hkv, n, d), torch.bfloat16, dev)
+    ms = device_ms(lambda: attn_fwd(q, k, v, causal=True, sm_scale=d ** -0.5),
+                   floor_ms=floor_ms)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return ms
+
+
 def wide_timings(dev, gen):
     """The wide kernels at the re-headed bench models' shapes: the forward
     at the training shape (B8 Hq8 Hkv2 N2048) and the serving prefill (B1
@@ -7758,6 +7850,8 @@ def wide_timings(dev, gen):
     t = {"fwd_train_d512": time_fwd(gen, dev, 8, 8, 2, 2048, 512, {}),
          "fwd_serve_prefill_d512": time_fwd(gen, dev, 1, 4, 2, 2048, 512, {}),
          "bwd_train_d512": time_bwd(dev, gen, 8, 8, 2, 2048, 512)}
+    for key, shape in (("fwd_train_d512", (8, 8, 2)), ("fwd_serve_prefill_d512", (1, 4, 2))):
+        t[key]["device_ms"] = fwd_device_ms(gen, dev, *shape, 2048, 512, t[key]["bound_ms"])
     expanded = {"fwd_train_d512": sdpa_expanded_ms(gen, dev, 8, 8, 2, 2048, 512),
                 "fwd_serve_prefill_d512": sdpa_expanded_ms(gen, dev, 1, 4, 2, 2048, 512),
                 "bwd_train_d512": sdpa_expanded_ms(gen, dev, 8, 8, 2, 2048, 512, True)}
@@ -7776,7 +7870,35 @@ def wide_timings(dev, gen):
         _faster_library(t[key], expanded[key], t["sdpa_backend_d512"])
     _faster_library(t["bwd_train_d512"]["attn_bwd"], expanded["bwd_train_d512"],
                     t["sdpa_backend_d512"])
+    for key, before in WIDE_MMA_SYNC_MS.items():
+        t[key]["mma_sync_kernel"] = before
     return t
+
+
+def wide_fwd_repeats(dev, gen):
+    """The 16-bit wide forward twice on the same inputs, O and lse bit for
+    bit (its owners sum their partial scores in a fixed order; no atomics),
+    at the cuts of d 512 (one CTA of two owners), 640 (a cluster of 5) and
+    1024 (a cluster of 2), with segment ids, ALiBi and dropout at 512:
+    {case: equal}."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd
+
+    out = {}
+    for name, dt, b, hq, hkv, n, d, mod in (
+            ("d512_causal_gqa_bf16", torch.bfloat16, 2, 8, 2, 1000, 512, {}),
+            ("d512_seg_alibi_dropout_fp16", torch.float16, 2, 4, 2, 700, 512,
+             dict(seg="packed", alibi=True, rate=0.1, seed=3)),
+            ("d640_causal_bf16", torch.bfloat16, 1, 4, 2, 700, 640, {}),
+            ("d1024_causal_bf16", torch.bfloat16, 1, 2, 1, 500, 1024, {})):
+        q = _rand(gen, (b, hq, n, d), dt, dev)
+        k = _rand(gen, (b, hkv, n, d), dt, dev)
+        v = _rand(gen, (b, hkv, n, d), dt, dev)
+        kw = dict(causal=True, sm_scale=d ** -0.5, **case_kwargs(hq, b, n, n, dev, mod))
+        first, again = attn_fwd(q, k, v, **kw), attn_fwd(q, k, v, **kw)
+        out[name] = all(torch.equal(x, y) for x, y in zip(first, again))
+    torch.cuda.synchronize()
+    return out
 
 
 def wide_mutants_caught(dev, builds):
@@ -7805,20 +7927,51 @@ def wide_mutants_caught(dev, builds):
     return caught, wait
 
 
-def phase_wide_heads(dev):
-    """The wide kernels (csrc/wide.cuh) against their plain versions at
-    kernel widths 384, 512, 640 and 1024 in every mode and dtype: the
-    forward once (fwd_case), the sweeps twice, bit for bit (bwd_case), the
-    paged kernels twice, bit for bit, at their key-split edges (paged_case);
-    each call on the route its route function names.  Then the entry points
-    at head dims 320 and 640 (wide_op_checks), the mutant of WIDE_MUTANTS
-    caught, each build's shared memory against geometry.py's model, and the
-    kernels timed at the re-headed bench models' shapes."""
+def wide_shared_bytes():
+    """Every wide instance's dynamic shared memory, from its build's
+    ``*_shared_bytes`` entry, against geometry.py's model: the wide_wgmma
+    forward by dtype, head dim and modes (segment ids, fp8 V), its verify by
+    dtype and head dim, the fp32 kernels' and the sweeps' one layout each:
+    {layout: [C, Python]}."""
     import ctypes
-
-    import torch
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch import geometry as geo
+
+    def entry(source, nargs):
+        fn = getattr(ctypes.CDLL(str(_cuda.library_path(source))),
+                     f"{source.split('.')[0]}_shared_bytes")
+        fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
+        return fn
+
+    fwd, verify = entry("attn_fwd_wide.cu", 3), entry("paged_verify_wide.cu", 2)
+    bwd = entry("attn_bwd_wide.cu", 1)
+    out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), geo.wide_smem_bytes(4)],
+           "paged_verify_wide_fp32": [verify(0, 512), geo.wide_smem_bytes(4)],
+           "attn_bwd_wide_fp32": [bwd(0), geo.wide_smem_bytes(4)],
+           "attn_bwd_wide_16bit": [bwd(1), geo.wide_smem_bytes(2)]}
+    for dtype, name in ((1, "bf16"), (2, "fp16")):
+        for d in WIDE_ALL:
+            for seg, v8 in ((False, False), (True, False), (False, True), (True, True)):
+                tag = f"attn_fwd_wide_{name}_d{d}{'_seg' if seg else ''}{'_fp8v' if v8 else ''}"
+                out[tag] = [fwd(dtype, d, int(seg) | 2 * int(v8)),
+                            geo.wide_fwd_smem_bytes(d, segments=seg)]
+            out[f"paged_verify_wide_{name}_d{d}"] = [verify(dtype, d),
+                                                     geo.wide_fwd_smem_bytes(d, paged=True)]
+    return out
+
+
+def phase_wide_heads(dev):
+    """The wide kernels (csrc/wide.cuh) against their plain versions at
+    kernel widths 384, 512, 640 and 1024 in every mode and dtype (the
+    forward also at 768 and 896): the forward once (fwd_case), the sweeps
+    twice, bit for bit (bwd_case), the paged kernels twice, bit for bit, at
+    their key-split edges (paged_case); each call on the route its route
+    function names (the 16-bit forward and verify on wide_wgmma, the sweeps
+    on wide_mma).  Then the entry points at head dims 320 and 640
+    (wide_op_checks), each mutant of WIDE_MUTANTS caught, every instance's
+    shared memory against geometry.py's model (wide_shared_bytes), and the
+    kernels timed at the re-headed bench models' shapes."""
+    import torch
 
     global WIDE_MUTANT_BUILDS
     builds = WIDE_MUTANT_BUILDS or start_mutant_builds(WIDE_MUTANTS)
@@ -7838,19 +7991,14 @@ def phase_wide_heads(dev):
               "lengths": shape[6], "softcap": cap, "alibi": alibi,
               **paged[name]})
     torch.cuda.empty_cache()
+    repeats = wide_fwd_repeats(dev, gen)
     op_calls, op_checks = wide_op_checks(dev, gen)
     caught, wait = wide_mutants_caught(dev, builds)
-    shared = {}
-    for src, entry in (("attn_fwd_wide.cu", "attn_fwd_wide"),
-                       ("attn_bwd_wide.cu", "attn_bwd_wide")):
-        fn = getattr(ctypes.CDLL(str(_cuda.library_path(src))), f"{entry}_shared_bytes")
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
-        for dtype, itemsize in ((0, 4), (1, 2)):
-            shared[f"{entry}_{'fp32' if dtype == 0 else '16bit'}"] = [
-                fn(dtype), geo.wide_smem_bytes(itemsize)]
+    shared = wide_shared_bytes()
     timings = wide_timings(dev, gen)
     checks = {
         "fwd_every_case_kernel_vs_plain_on_its_route": all(r["ok"] for r in fwd.values()),
+        "fwd_wide_wgmma_bitwise_repeatable": all(repeats.values()),
         "bwd_every_case_kernel_vs_plain_bitwise_on_its_route":
             all(r["ok"] for r in bwd.values()),
         "paged_every_case_kernel_vs_plain_bitwise": all(r["ok"] for r in paged.values()),
@@ -7863,6 +8011,7 @@ def phase_wide_heads(dev):
            "failed": {"fwd": [n for n, r in fwd.items() if not r["ok"]],
                       "bwd": [n for n, r in bwd.items() if not r["ok"]],
                       "paged": [n for n, r in paged.items() if not r["ok"]]},
+           "fwd_repeats": repeats,
            "mutants": {"edits": {n: m[2] for n, m in WIDE_MUTANTS.items()},
                        "failed_cases": caught, "build_wait_seconds": wait},
            "shared_bytes": shared, "timings": timings, "card": card_line(),
@@ -7917,7 +8066,7 @@ def phase_serve_d512(dev):
     prefill = check_prefill(model, cfg, dev, prompts[0])
     fp32 = check_decode_fp32(dev, prompts[0], ("fp32", "int8"), **D512_SERVE_HEADS)
     chunked, dense_fwd = phase_serve_chunked(dev, model, cfg, phase="serve_d512_chunked",
-                                             route="wide_mma", **D512_SERVE_HEADS)
+                                             route="wide_wgmma", **D512_SERVE_HEADS)
     del model
     torch.cuda.empty_cache()
 
@@ -7925,8 +8074,8 @@ def phase_serve_d512(dev):
         out = {
             f"{tag}_every_request_{new}_tokens": all(len(o) == new for o in r["outs"]),
             f"{tag}_fwd_launches_{n}_per_prefill": r["launches"]["attn_fwd"] == n * slots,
-            f"{tag}_fwd_launches_all_wide_mma":
-                all_on(fwd_routes_, "wide_mma", r["launches"]["attn_fwd"]),
+            f"{tag}_fwd_launches_all_wide_wgmma":
+                all_on(fwd_routes_, "wide_wgmma", r["launches"]["attn_fwd"]),
             f"{tag}_decode_launches_{n}_per_step": r["launches"]["paged_decode"] == decode > 0,
         }
         if layers is not None:
@@ -7996,7 +8145,8 @@ def phase_train_d512(dev):
     512 (scripts/bench_train.py:68-74 with 8 q / 2 kv heads of 512; 8
     layers, bf16, block remat) trained through make_train_state /
     make_train_step at B8 x N2048 on the wide kernels (phase_train: 1 warm
-    and 2 timed steps, exact launches on the wide_mma route, every layer's
+    and 2 timed steps, exact launches: the forward on the wide_wgmma route,
+    the sweeps on wide_mma; every layer's
     attention forward and backward against the plain versions, a 2-layer
     fp32 copy within 1e-3 x std)."""
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel, fwd_kernel
@@ -8005,8 +8155,9 @@ def phase_train_d512(dev):
                "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
                "attn_bwd_dkv": bwd_kernel.DKV_WIDE_KERNEL,
                "attn_bwd_dq": bwd_kernel.DQ_WIDE_KERNEL}
-    return phase_train(dev, "train_d512", kernels=kernels, route="wide_mma",
-                       warm=TRAIN_D512_WARM, timed=TRAIN_D512_TIMED, **D512_TRAIN_HEADS)
+    return phase_train(dev, "train_d512", kernels=kernels, route="wide_wgmma",
+                       bwd_route="wide_mma", warm=TRAIN_D512_WARM, timed=TRAIN_D512_TIMED,
+                       **D512_TRAIN_HEADS)
 
 
 def wide_entries(entry, later):
@@ -8019,8 +8170,9 @@ def wide_entries(entry, later):
     fwd = entry("attn_fwd[wide,d512]", WIDE_SOURCE, FWD_REPLACES,
                 serve["attn_fwd"] + train["attn_fwd"], t["fwd_train_d512"],
                 built_from=WIDE_BUILDS["attn_fwd"])
+    fwd["device_ms"] = t["fwd_train_d512"]["device_ms"]
     fwd["serving_prefill"] = {k: t["fwd_serve_prefill_d512"][k]
-                              for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+                              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
     fwd["library"] = t["fwd_train_d512"]["library"]
     fwd["serving_prefill"]["library"] = t["fwd_serve_prefill_d512"]["library"]
     out = [fwd]

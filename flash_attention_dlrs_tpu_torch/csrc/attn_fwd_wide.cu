@@ -1,16 +1,18 @@
 // Attention forward at head dims above 256 (multiples of 128 up to 1024):
-// the column-chunked kernel of wide.cuh, which says what it replaces, what
-// bounds it and how it is cut, on two routes (ops/fwd_kernel.py fwd_route):
-// "wide_mma" (bf16 / fp16 on mma.sync) and "wide_fp32" (true fp32 on the
-// CUDA cores), each with every mode as a runtime flag (one instance a
-// dtype).
+// the kernels of wide.cuh, which says what they replace, what bounds them
+// and how they are cut, on two routes (ops/fwd_kernel.py fwd_route):
+// "wide_wgmma" (bf16 / fp16: warpgroup products, TMA, scores once a key
+// tile, a cluster above 512 columns; one instance a dtype and head dim) and
+// "wide_fp32" (true fp32 on the CUDA cores, column-chunked), every mode a
+// runtime flag.
 
 #include "wide.cuh"
 
 // The C entry, with the arguments of attn_fwd.cu's (attn_fwd_entry says
 // what each is); D a multiple of 128 in (256, 1024]; route kRouteWideF32
-// (dtype 0) or kRouteWideMma (dtype 1 or 2), any other call refused with
-// cudaErrorInvalidValue.
+// (dtype 0) or kRouteWideWgmma (dtype 1 or 2), any other call refused with
+// cudaErrorInvalidValue.  Returns the launch's error (cudaGetLastError()
+// after it), so a refused launch raises in the wrapper.
 extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* o,
     float* lse, const int* q_seg, const int* kv_seg, int dtype, int v_kind, int B, int Hq,
     int Hkv, int Nq, int Nkv, int D, float sm_scale, int causal, int window,
@@ -28,16 +30,39 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
   a.md = Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg};
   a.T = 1; a.splits = 1;
   a.stream = static_cast<cudaStream_t>(stream);
-  const dim3 grid((Nq + WROWS - 1) / WROWS, D / WCOLS, B * Hq);
-  if (route == kRouteWideF32 && dtype == 0) return launch_wide_fwd<float, false>(a, grid);
-  if (route == kRouteWideMma && dtype == 1) return launch_wide_fwd<__nv_bfloat16, false>(a, grid);
-  if (route == kRouteWideMma && dtype == 2) return launch_wide_fwd<__half, false>(a, grid);
-  return int(cudaErrorInvalidValue);
+  if (route == kRouteWideF32 && dtype == 0)
+    return launch_wide_f32<false>(a, dim3((Nq + WROWS - 1) / WROWS, D / WCOLS, B * Hq));
+  if (route != kRouteWideWgmma || (dtype != 1 && dtype != 2)) return int(cudaErrorInvalidValue);
+  // 3-D maps (d, N, heads): Q in boxes of 64 rows, K and V of a tile's 32
+  // keys; with no keys the K / V maps cover q (no tile is loaded), fp8 V is
+  // read by the producer without a map.
+  const bool keys = Nkv > 0;
+  CUtensorMap tm_q, tm_k, tm_v;
+  auto encode = [&](auto t) {
+    using T = decltype(t);
+    return sm90::encode_map<T>(&tm_q, q, D, Nq, B * Hq, 64) &&
+           sm90::encode_map<T>(&tm_k, keys ? k : q, D, keys ? Nkv : Nq, keys ? B * Hkv : B * Hq,
+                               sm90::WBN) &&
+           sm90::encode_map<T>(&tm_v, keys && v_kind == kVSame ? v : q, D,
+                               keys && v_kind == kVSame ? Nkv : Nq,
+                               keys && v_kind == kVSame ? B * Hkv : B * Hq, sm90::WBN);
+  };
+  const dim3 grid((Nq + 63) / 64, B * Hq);
+  if (dtype == 1) {
+    if (!encode(__nv_bfloat16{})) return int(cudaErrorInvalidValue);
+    return launch_wide_wgmma<__nv_bfloat16, false>(a, tm_q, tm_k, tm_v, 0, grid);
+  }
+  if (!encode(__half{})) return int(cudaErrorInvalidValue);
+  return launch_wide_wgmma<__half, false>(a, tm_q, tm_k, tm_v, 0, grid);
 }
 
-// Dynamic shared memory of the kernel for a dtype code (0 fp32, else 16-bit).
-extern "C" int attn_fwd_wide_shared_bytes(int dtype) {
-  return int(dtype == 0 ? WideLayout<float>::BYTES : WideLayout<__nv_bfloat16>::BYTES);
+// Dynamic shared memory of the kernel, in bytes, for a dtype code (0 fp32:
+// the column-chunked kernel, one layout; else the wide_wgmma kernel at head
+// dim D) and mode flags (1: segment ids, 2: fp8 V, 4: the layout of paged
+// verify); 0 for a head dim no kernel takes.
+extern "C" int attn_fwd_wide_shared_bytes(int dtype, int D, int flags) {
+  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  return wide_wgmma_smem(D, (flags & 1) != 0, (flags & 4) != 0);
 }
 
 extern "C" const char* attn_fwd_wide_error_string(int err) {

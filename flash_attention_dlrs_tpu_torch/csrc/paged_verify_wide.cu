@@ -1,10 +1,11 @@
 // Paged multi-token verify at pool head dims above 256 (multiples of 128
-// up to 1024): wide.cuh's column-chunked forward over the T x G rows of a
-// kv head, keys gathered through the page table and converted exactly to
-// q's dtype (payloads unscaled; K scales on S, V scales on P), q pre-scaled
-// in its dtype, on the routes "wide_mma" (bf16 / fp16 q, value pools of
-// q's dtype or quantized pools) and "wide_fp32" (fp32 q, any pool); its key
-// splits merged by wide_combine_kernel in the same C entry.
+// up to 1024): wide.cuh's forward kernels over the T x G rows of a kv head,
+// keys gathered through the page table and converted exactly to q's dtype
+// (payloads unscaled; K scales on S, V scales on P), q pre-scaled in its
+// dtype, on the routes "wide_wgmma" (bf16 / fp16 q, value pools of q's
+// dtype or quantized pools: warpgroup products, scores once a key tile)
+// and "wide_fp32" (fp32 q, any pool, column-chunked); its key splits merged
+// by wide_combine_kernel in the same C entry.
 
 #include "wide.cuh"
 
@@ -22,7 +23,7 @@ extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages
       pages_per_seq <= 0 || splits <= 0 || splits > pages_per_seq ||
       (splits > 1 && (part_o == nullptr || part_lse == nullptr)) ||
       (!value_pool && (k_scales == nullptr || v_scales == nullptr)) ||
-      (route == kRouteWideMma && value_pool && kv_kind != q_dtype))
+      (route == kRouteWideWgmma && value_pool && kv_kind != q_dtype))
     return int(cudaErrorInvalidValue);
   WideArgs a{};
   a.q = q; a.k = k_pages; a.v = v_pages; a.o = o;
@@ -36,15 +37,42 @@ extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages
   a.part_o = part_o; a.part_lse = part_lse;
   a.stream = static_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
-  const dim3 grid((T * G + WROWS - 1) / WROWS, (D / WCOLS) * splits, B * Hkv);
   int err;
-  if (route == kRouteWideF32 && q_dtype == 0) err = launch_wide_fwd<float, true>(a, grid);
-  else if (route == kRouteWideMma && q_dtype == 1) err = launch_wide_fwd<__nv_bfloat16, true>(a, grid);
-  else if (route == kRouteWideMma && q_dtype == 2) err = launch_wide_fwd<__half, true>(a, grid);
-  else return int(cudaErrorInvalidValue);
+  if (route == kRouteWideF32 && q_dtype == 0) {
+    err = launch_wide_f32<true>(
+        a, dim3((T * G + WROWS - 1) / WROWS, (D / WCOLS) * splits, B * Hkv));
+  } else if (route == kRouteWideWgmma && (q_dtype == 1 || q_dtype == 2)) {
+    // Value pools whose pages hold whole tiles are read by TMA boxes of a
+    // 2-D map over the pool viewed as [Hkv * P * page_size, D].
+    CUtensorMap tm_q{}, tm_k{}, tm_v{};
+    int tma = 0;
+    if (value_pool && page_size % sm90::WBN == 0) {
+      const size_t pool_rows = size_t(Hkv) * P * page_size;
+      const bool ok = q_dtype == 1
+          ? sm90::encode_map_2d<__nv_bfloat16>(&tm_k, k_pages, D, pool_rows, sm90::WBN) &&
+                sm90::encode_map_2d<__nv_bfloat16>(&tm_v, v_pages, D, pool_rows, sm90::WBN)
+          : sm90::encode_map_2d<__half>(&tm_k, k_pages, D, pool_rows, sm90::WBN) &&
+                sm90::encode_map_2d<__half>(&tm_v, v_pages, D, pool_rows, sm90::WBN);
+      if (!ok) return int(cudaErrorInvalidValue);
+      tma = 1;
+    }
+    const dim3 grid(((T * G + 63) / 64) * splits, Hkv, B);
+    err = q_dtype == 1 ? launch_wide_wgmma<__nv_bfloat16, true>(a, tm_q, tm_k, tm_v, tma, grid)
+                       : launch_wide_wgmma<__half, true>(a, tm_q, tm_k, tm_v, tma, grid);
+  } else {
+    return int(cudaErrorInvalidValue);
+  }
   if (err || splits == 1) return err;
   return launch_combine(part_o, part_lse, o, q_dtype, nullptr, B * Hq * T, splits, D,
                         a.stream);
+}
+
+// Dynamic shared memory of the kernel for a q dtype code (0 fp32: the
+// column-chunked kernel; else the wide_wgmma kernel at pool head dim D), in
+// bytes; 0 for a head dim no kernel takes.
+extern "C" int paged_verify_wide_shared_bytes(int dtype, int D) {
+  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  return wide_wgmma_smem(D, false, true);
 }
 
 extern "C" const char* paged_verify_wide_error_string(int err) {

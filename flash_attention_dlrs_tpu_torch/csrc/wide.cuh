@@ -1,6 +1,7 @@
-// Attention kernels for head dims above 256, sm_90a: the forward, both
-// backward sweeps and paged verify on column-chunked tiles, paged decode on
-// the CUDA cores, and the merge of key splits.  Included by
+// Attention kernels for head dims above 256, sm_90a: the 16-bit forward and
+// paged verify on Hopper's warpgroup products (route "wide_wgmma"), the fp32
+// forward and verify and both backward sweeps on column-chunked tiles, paged
+// decode on the CUDA cores, and the merge of key splits.  Included by
 // attn_fwd_wide.cu, attn_bwd_wide.cu, paged_decode_wide.cu and
 // paged_verify_wide.cu, which compile side by side.
 //
@@ -28,8 +29,53 @@
 // Why not one more template instance of the narrower kernels: they hold a
 // whole head row of a tile in shared memory or registers.  At d 512 a
 // 128-row bf16 Q tile alone is 128 KB of the 227 KB, and a 64 x 512 fp32
-// O accumulator 256 registers a thread of a warpgroup.  So here D is a
-// runtime multiple of 128 (at most 1024) and the work is cut by columns:
+// O accumulator 256 registers a thread of a warpgroup; at d 1024 a 64-row
+// O is all 256 KB of an SM's registers.  So D is a runtime width here (a
+// multiple of 128, at most 1024) and the work is cut by columns.
+//
+// The 16-bit forward and verify ("wide_wgmma").  Bound on this card by
+// operations: at the bench models' d 512 shapes 4 d flops per visible
+// (row, key) pair on the tensor cores' 989 TFLOP/s, against 4 d bytes of
+// K and V per key.  The mma.sync kernel this one replaced reached ~9% of
+// that: a CTA owned one 128-column chunk of O and recomputed S over the
+// whole head dim for it (2.5x the flops of one pass at d 512), restaged Q
+// for every key tile, and streamed both operands through two cp.async
+// stages with a block-wide barrier a chunk.  What this design does:
+//  * S once a key tile, the head dim split among owners.  A CTA holds 64 q
+//    rows; each of its consumer warpgroups (an owner) owns 64 C of its
+//    columns (C <= 4: at most 256, so O takes at most 128 registers a
+//    thread, as in the d 256 forward).  Each owner computes a partial S
+//    over its own columns of Q and K (wgmma.m64n32k16, both operands in
+//    shared memory) and writes it to shared memory; every owner then sums
+//    all partials in owner order, so S, the running max, the row sum and P
+//    are the same bits in every owner, and runs O[:, its columns] += P
+//    V[:, its columns] (wgmma with P from registers, V MN-major).  One
+//    owner writes lse.  The flops are one pass's.
+//  * Above 512 columns Q, K and V of a 64-row tile outgrow a CTA, so a
+//    thread-block cluster splits the columns (cudaLaunchKernelEx with a
+//    cluster dimension) and each owner reads its peers' partials from their
+//    shared memory (DSMEM), in the same owner order: d 640 and 896 as 5 and
+//    7 CTAs of one 128-column owner, d 768 and 1024 as 2 CTAs of two owners
+//    (wide_cut).
+//  * Q is loaded once: by TMA (3-D maps, so other heads' rows are never
+//    read and ragged tails are zero-filled), or in verify staged by each
+//    owner, pre-scaled in q's dtype.  K and V stream in tiles of 32 keys
+//    through a ring of stages with full / empty mbarriers, filled by a
+//    producer warpgroup (setmaxnreg 40 / 232 where a CTA has two owners):
+//    TMA boxes, or for paged rows TMA boxes of a page / 16-byte cp.asyncs,
+//    and fp8 V or quantized pools converted exactly by the producer from
+//    device memory into the 16-bit stage (no staging buffer).  Shared
+//    memory (WgLayout): Q, the K and V stages, the owners' 64 x 32 fp32
+//    partials, with segment ids each K tile's ids, in verify each stage's
+//    K and V scales: at d 512 two stages, 214,112 bytes of the 232,448 a
+//    CTA may opt into (214,624 in verify; d 384: three stages).
+//  * Carried over from attn_fwd_sm90.cuh: S(i) is issued beside P V(i - 1);
+//    the softcap, ALiBi and the mask are compiled out of a tile that needs
+//    none; key tiles above the diagonal or outside the window are skipped;
+//    causal row tiles run heaviest first; the running max is exact in fp32
+//    and the exponentials are ex2.approx.ftz.
+//
+// The fp32 forward and verify ("wide_fp32") and the sweeps ("wide_mma"):
 //  * Products over the head dim (S = Q K^T, dP = dO V^T and their
 //    transposes) stream both operands through shared memory in chunks of
 //    128 bytes a row (64 bf16 / fp16 columns, 32 fp32), double-buffered
@@ -37,18 +83,16 @@
 //  * Each CTA owns 64 rows and one 128-column chunk of its output (O, dQ,
 //    dK or dV): the update product multiplies the 64-key tile of
 //    probabilities (or dS) into that chunk only.  Scores are recomputed
-//    for each output chunk: at d 512 the forward does 4 x (Q K^T) + P V,
-//    2.5x the FLOPs of one pass; the dK/dV sweep runs dV and dK as
-//    separate CTAs (dV needs no dP), 4 x (S + dP) + 4 x S + dV + dK =
-//    14 units against 4, 3.5x; the dQ sweep 4 x (S + dP) + dQ, 3x.
+//    for each output chunk: the dK/dV sweep runs dV and dK as separate
+//    CTAs (dV needs no dP), at d 512 4 x (S + dP) + 4 x S + dV + dK = 14
+//    units against 4, 3.5x; the dQ sweep 4 x (S + dP) + dQ, 3x.
 //  * bf16 / fp16 run on the tensor cores (mma.sync m16n8k16, fp32
 //    accumulate, ldmatrix); fp32 runs in true fp32 on the CUDA cores with
 //    the same fragment layout, so masks, softmax and updates are shared.
-//  * The sweeps stay deterministic: every output element has one owner and
-//    every sum runs in a fixed order; there are no atomics.
-// Bound on this card: at the bench models' shapes the forward and sweeps
-// are bound by operations (989 TFLOP/s bf16), decode by bytes (3.35 TB/s).
-// These kernels are right first; their speed is later work (ROADMAP.md).
+//  * Every output element has one owner and every sum runs in a fixed
+//    order (the 16-bit forward's too); there are no atomics.
+// Decode is bound by bytes (3.35 TB/s).  The sweeps are right first; their
+// redesign for Hopper is later work (ROADMAP.md).
 
 #pragma once
 
@@ -63,8 +107,9 @@ constexpr int WTHREADS = 128;   // 4 warps of 16 rows
 constexpr int WIDE_MAX_D = 1024;
 
 // Route codes of the wide C entries (ops/fwd_kernel.py ROUTE_CODES,
-// ops/decode.py VERIFY_ROUTE_CODES).
-constexpr int kRouteWideF32 = 2, kRouteWideMma = 3;
+// ops/decode.py VERIFY_ROUTE_CODES): fp32, the sweeps' mma.sync, and the
+// 16-bit forward and verify on wgmma.
+constexpr int kRouteWideF32 = 2, kRouteWideMma = 3, kRouteWideWgmma = 4;
 
 // Whether D is a head dim of these kernels.
 __host__ __device__ constexpr bool wide_head_dim(int D) {
@@ -102,17 +147,6 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
-
 // Rows [0, 64) x columns [c0, c0 + W) of a row source of T into a shared
 // tile of row stride S, 16 bytes a cp.async; `row(r)` is the row's first
 // element, or null for a row of zeros.  `any` is a valid address the
@@ -128,13 +162,13 @@ __device__ __forceinline__ void stage_async(T* dst, RowFn row, int c0, const voi
   }
 }
 
-// The same from rows of any stored kind (paged.cuh PoolKind; fp8 V of the
-// forward as kE4M3 / kE5M2), converted exactly to T, payloads unscaled:
-// row r starts at element `off[r]` of `base` (-1: zeros), int4 rows read
-// their high nibbles where `hi[r]`.  Synchronous: a __syncthreads() makes
-// the tile visible.
-template <typename T, int W, int S>
-__device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind,
+// The same into an fp32 tile from rows of any stored kind (paged.cuh
+// PoolKind; fp8 V of the forward as kE4M3 / kE5M2), converted exactly,
+// payloads unscaled: row r starts at element `off[r]` of `base` (-1:
+// zeros), int4 rows read their high nibbles where `hi[r]`.  Synchronous: a
+// __syncthreads() makes the tile visible.
+template <int W, int S>
+__device__ __forceinline__ void stage_convert(float* dst, const void* base, int kind,
                                               const long long* off, const int* hi, int c0) {
   const int eb = stored_bytes(kind);
   const int epp = 16 / eb;
@@ -142,7 +176,7 @@ __device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind
   const uint8_t* bytes = static_cast<const uint8_t*>(base);
   for (int i = threadIdx.x; i < WROWS * per_row; i += WTHREADS) {
     const int r = i / per_row, p = i % per_row;
-    T* out = dst + r * S + p * epp;
+    float* out = dst + r * S + p * epp;
     float f[16];
     if (off[r] < 0) {
 #pragma unroll
@@ -152,29 +186,22 @@ __device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind
           bytes + size_t(off[r] + c0 + p * epp) * eb);
       chunk_values(kind, raw, hi[r], f);
     }
-    for (int e = 0; e < epp; ++e) out[e] = from_float<T>(f[e]);
+    for (int e = 0; e < epp; ++e) out[e] = f[e];
   }
 }
 
-// Rows of T times `scale`, rounded to T (the paged kernels pre-scale q in
-// its own dtype, as the TPU kernel does); null rows give zeros.
-template <typename T, int W, int S, typename RowFn>
-__device__ __forceinline__ void stage_scaled(T* dst, RowFn row, int c0, float scale) {
-  constexpr int EPP = 16 / int(sizeof(T));
-  constexpr int PER_ROW = W / EPP;
+// Rows of fp32 q times `scale` (the paged kernels pre-scale q in its own
+// dtype, as the TPU kernel does); null rows give zeros.
+template <int W, int S, typename RowFn>
+__device__ __forceinline__ void stage_scaled(float* dst, RowFn row, int c0, float scale) {
+  constexpr int PER_ROW = W / 4;
   for (int i = threadIdx.x; i < WROWS * PER_ROW; i += WTHREADS) {
     const int r = i / PER_ROW, p = i % PER_ROW;
-    const T* src = row(r);
-    T* out = dst + r * S + p * EPP;
-    if (src == nullptr) {
-#pragma unroll
-      for (int e = 0; e < EPP; ++e) out[e] = from_float<T>(0.f);
-      continue;
-    }
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + c0 + p * EPP);
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < EPP; ++e) out[e] = from_float<T>(to_float(v[e]) * scale);
+    const float* src = row(r);
+    const float4 v = src == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                    : *reinterpret_cast<const float4*>(src + c0 + p * 4);
+    *reinterpret_cast<float4*>(dst + r * S + p * 4) =
+        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
   }
 }
 
@@ -343,13 +370,14 @@ struct WideArgs {
   cudaStream_t stream;
 };
 
-// The forward (PAGED false) and paged verify (PAGED true), one CTA per
+// The fp32 forward (PAGED false) and paged verify (PAGED true), one CTA per
 // (64-row tile, output column chunk [and key split], batch x head).  The
 // forward's rows are one q head's; verify's are the T x G (token, q head)
 // rows of a kv head, row r = t * G + g, as the TPU kernel folds them.
-template <typename T, bool PAGED>
+template <bool PAGED>
 __global__ void __launch_bounds__(WTHREADS)
-wide_fwd_kernel(const WideArgs a) {
+wide_fwd_f32_kernel(const WideArgs a) {
+  using T = float;
   using L = WideLayout<T>;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
@@ -481,16 +509,16 @@ wide_fwd_kernel(const WideArgs a) {
     float s[8][4];
     if constexpr (PAGED) {
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_scaled<T, L::KC, L::SA>(dst, q_row, c, a.sm_scale); },
-             [&](T* dst, int c) { stage_convert<T, L::KC, L::SA>(dst, a.k, a.kind, sOff, sHi, c); },
+             [&](T* dst, int c) { stage_scaled<L::KC, L::SA>(dst, q_row, c, a.sm_scale); },
+             [&](T* dst, int c) { stage_convert<L::KC, L::SA>(dst, a.k, a.kind, sOff, sHi, c); },
              score_cols, warp, lane);
-      stage_convert<T, WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
+      stage_convert<WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
     } else {
       scores(s, sA, sB,
              [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
              [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
              score_cols, warp, lane);
-      if (v8) stage_convert<T, WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
+      if (v8) stage_convert<WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
                                              sOff, sHi, c0);
     }
 
@@ -593,6 +621,778 @@ wide_fwd_kernel(const WideArgs a) {
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// The 16-bit forward and paged verify on wgmma ("wide_wgmma")
+// ---------------------------------------------------------------------------
+
+namespace sm90 {
+
+constexpr int WBN = 32;  // keys a K / V tile
+// Registers a thread where a CTA has two owners (384 threads launched at
+// LAUNCH_REGS = 168): the producer keeps 40, converting one 16-byte chunk
+// at a time; the owners take the rest, 232: with fewer the owners of the
+// d 512 forward spill (wide_breakdown_torch.py builds the 72 / 216 split).
+// A CTA of one owner (256 threads) launches with enough.
+constexpr int WG_PRODUCER_REGS = 40, WG_CONSUMER_REGS = 232;
+static_assert(128 * WG_PRODUCER_REGS + 256 * WG_CONSUMER_REGS <= THREADS * LAUNCH_REGS,
+              "the register split exceeds the CTA's registers");
+
+// How head dim D is cut: a cluster of nc CTAs, nw owners (consumer
+// warpgroups) a CTA, c 64-column chunks an owner (geometry.py wide_cut).
+struct WideCut {
+  int nc, nw, c;
+};
+__host__ __device__ constexpr WideCut wide_cut(int D) {
+  return D == 384   ? WideCut{1, 2, 3}
+         : D == 512 ? WideCut{1, 2, 4}
+         : D == 640 ? WideCut{5, 1, 2}
+         : D == 768 ? WideCut{2, 2, 3}
+         : D == 896 ? WideCut{7, 1, 2}
+                    : WideCut{2, 2, 4};
+}
+
+// Shared memory of one CTA of NW owners of C chunks, in bytes from a
+// 1024-byte aligned base: Q (64 rows x CW columns), STAGES stages of K and
+// of V (32 keys x CW), the owners' partial scores (64 x 32 fp32 each), then
+// with segment ids each K tile's ids or in verify each stage's K and V
+// scales, then the barriers (a Q barrier per owner; per stage K full, V
+// full, K empty and V empty; the partials' full and empty), and 1024 bytes
+// of alignment.  Every tile is [CW / 64 chunks][rows][128 bytes], swizzled.
+template <int NW, int C>
+struct WgLayout {
+  static constexpr int CW = 64 * NW * C;                  // the CTA's columns
+  static constexpr uint32_t Q_BYTES = 64 * CW * 2;
+  static constexpr uint32_t KV_BYTES = WBN * CW * 2;     // one K or V tile
+  static constexpr uint32_t X_BYTES = NW * 64 * WBN * 4;
+  __host__ __device__ static constexpr uint32_t extra(int stages, bool seg, bool paged) {
+    return paged ? stages * 2 * WBN * 4 : seg ? stages * WBN * 4 : 0;
+  }
+  __host__ __device__ static constexpr size_t bytes(int stages, bool seg, bool paged) {
+    return size_t(Q_BYTES) + 2 * size_t(stages) * KV_BYTES + X_BYTES +
+           extra(stages, seg, paged) + 8 * (NW + 4 * stages + 2) + 1024;
+  }
+  // as many stages as fit, at most 4 (the paged scales are the larger extra)
+  __host__ __device__ static constexpr int fit() {
+    int s = 4;
+    while (s > 2 && bytes(s, false, true) > 232448) --s;
+    return s;
+  }
+  static constexpr int STAGES = fit();
+  static_assert(bytes(STAGES, false, true) <= 232448 && bytes(STAGES, true, false) <= 232448,
+                "a CTA has 227 KB of shared memory");
+  static constexpr uint32_t K_OFF = Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t X_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t E_OFF = X_OFF + X_BYTES;  // segment ids or scales
+};
+
+// Byte offset of 16-byte unit u of row r of 64-column chunk c in a swizzled
+// tile of `rows` rows.
+__device__ __forceinline__ uint32_t swz(int rows, int c, int r, int u) {
+  return c * (rows * 128) + r * 128 + ((u ^ (r & 7)) * 16);
+}
+
+// One stored 16-byte chunk c16 (16 one-byte elements of paged.cuh `kind`:
+// int8, int4 nibbles, e4m3, e5m2) of row r of a K or V tile, converted
+// exactly and unscaled to T into the swizzled stage.
+template <typename T>
+__device__ __forceinline__ void store_converted(unsigned char* tile, int r, int c16,
+                                                const uint4& raw, int hi, int kind) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t p[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float f[4];
+    word_values(kind, w[j], hi, f);
+    p[2 * j] = Mma<T>::pack(f[0], f[1]);
+    p[2 * j + 1] = Mma<T>::pack(f[2], f[3]);
+  }
+  const int c = c16 / 4, u = 2 * (c16 % 4);
+  *reinterpret_cast<uint4*>(tile + swz(WBN, c, r, u)) = make_uint4(p[0], p[1], p[2], p[3]);
+  *reinterpret_cast<uint4*>(tile + swz(WBN, c, r, u + 1)) = make_uint4(p[4], p[5], p[6], p[7]);
+}
+
+// O += P V over `C` 64-column chunks of V (MN-major, chunks `lbo` bytes
+// apart): n128 products, and an n64 one for an odd chunk.
+template <int C, typename T>
+__device__ __forceinline__ void pv_product(float (&acc)[32 * C], const uint32_t (&a)[4],
+                                           uint32_t v, uint32_t lbo) {
+#pragma unroll
+  for (int h = 0; h < C / 2; ++h)
+    WgmmaRS<128, T>::run(*reinterpret_cast<float(*)[64]>(acc + 64 * h), a,
+                         smem_desc(v + 2 * h * lbo, lbo, 1024));
+  if constexpr (C % 2 == 1)
+    WgmmaRS<64, T>::run(*reinterpret_cast<float(*)[32]>(acc + 64 * (C / 2)), a,
+                        smem_desc(v + (C - 1) * lbo, lbo, 1024));
+}
+
+// Calls f with std::true_type / std::false_type for each of three flags, so
+// that a tile's element loop is compiled without what it does not need.
+template <typename F>
+__device__ __forceinline__ void with_flags(bool x, bool y, bool z, F&& f) {
+  const std::true_type Y{};
+  const std::false_type N{};
+  if (x) {
+    if (y) { if (z) f(Y, Y, Y); else f(Y, Y, N); }
+    else { if (z) f(Y, N, Y); else f(Y, N, N); }
+  } else {
+    if (y) { if (z) f(N, Y, Y); else f(N, Y, N); }
+    else { if (z) f(N, N, Y); else f(N, N, N); }
+  }
+}
+
+// Thread-block clusters: this CTA's rank, a shared address in a peer's
+// window, the cluster-wide barrier, and mbarrier operations across CTAs.
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ float4 ld_peer_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// The forward (PAGED false) and paged verify (PAGED true) in T = bf16 /
+// fp16: one cluster of NC CTAs per (64-row tile [and key split], batch x
+// head) of the forward, (key split x 64-row block, kv head, batch) of
+// verify, whose rows are the T x G (token, q head) rows of a kv head, row r
+// = t * G + g.  CTA `rank` of a cluster owns columns [rank CW, + CW), owner
+// w of it columns [w 64 C, + 64 C) of those; the owner's place in the sum
+// order is rank NW + w.  tma (verify): the pools are read by TMA boxes of
+// tm_k / tm_v where a tile lies in one page.
+template <typename T, bool PAGED, int NC, int NW, int C>
+__global__ void __launch_bounds__(128 * (NW + 1), 1)
+wide_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v, const WideArgs a, int tma) {
+  using L = WgLayout<NW, C>;
+  constexpr int BN = WBN, STAGES = L::STAGES, CW = L::CW, OC = 64 * C;
+  constexpr int OWNERS = NC * NW;
+  constexpr int NS = BN / 8;  // score n-tiles of 8 keys per warp
+  constexpr int NO = OC / 8;  // output n-tiles per warp (the owner's columns)
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atom
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));  // generic view
+  const uint32_t sQ = base, sK = base + L::K_OFF, sV = base + L::V_OFF;
+
+  const int D = a.D, G = a.Hq / a.Hkv;
+  const int rank = NC > 1 ? cluster_rank() : 0;
+  const int c_lo = rank * CW;       // the CTA's first column
+  const int cta = blockIdx.x / NC;  // the cluster's place along x
+  const bool seg = !PAGED && a.md.q_seg != nullptr;
+  const bool v8 = !PAGED && a.v_kind != kVSame;
+
+  int b, h = 0, kvh, m0, rows, n_tiles, k_first, split = 0, len = 0, alen = 0, key_hi = 0;
+  if constexpr (PAGED) {
+    const int row_blocks = (a.T * G + 63) / 64;
+    split = cta / row_blocks;
+    m0 = (cta % row_blocks) * 64;
+    kvh = blockIdx.y;
+    b = blockIdx.z;
+    rows = a.T * G;
+    len = a.lengths[b];
+    const int max_len = a.pages_per_seq * a.page_size;
+    alen = min(max(len, 0), max_len);
+    const int t_hi = min(a.T - 1, (min(m0 + 64, rows) - 1) / G);
+    k_first = split * a.pages_per_split * a.page_size;
+    key_hi = min(min(k_first + a.pages_per_split * a.page_size, max_len),
+                 max(0, len - a.T + 1 + t_hi));
+    n_tiles = key_hi > k_first ? (key_hi - k_first + BN - 1) / BN : 0;
+  } else {
+    b = blockIdx.y / a.Hq;
+    h = blockIdx.y % a.Hq;
+    kvh = h / G;
+    m0 = (a.causal ? int(gridDim.x) / NC - 1 - cta : cta) * 64;  // heaviest causal tiles first
+    rows = a.Nq;
+    const TileRange tr = kv_tiles<64, BN>(m0, a.Nq, a.Nkv, a.causal, a.window);
+    k_first = tr.lo * BN;
+    n_tiles = max(tr.hi - tr.lo, 0);
+  }
+  auto out_row = [&](int r) -> size_t {  // row r of the CTA's rows in O (and lse)
+    if constexpr (PAGED) {
+      return (size_t(b) * a.Hq + kvh * G + r % G) * a.T + r / G;
+    } else {
+      return (size_t(b) * a.Hq + h) * a.Nq + r;
+    }
+  };
+  const size_t all_rows = size_t(a.B) * a.Hq * a.T;
+  const bool split_out = PAGED && a.splits > 1;
+
+  if (n_tiles == 0) {  // the rows see no key (of this split): every CTA of the cluster
+    for (int idx = threadIdx.x; idx < 64 * (CW / 8); idx += blockDim.x) {
+      const int r = m0 + idx / (CW / 8);
+      if (r >= rows) continue;
+      if (!split_out)
+        *reinterpret_cast<uint4*>(static_cast<T*>(a.o) + out_row(r) * D + c_lo +
+                                  (idx % (CW / 8)) * 8) = make_uint4(0, 0, 0, 0);
+      if (rank == 0 && idx % (CW / 8) == 0) {
+        if (split_out) a.part_lse[split * all_rows + out_row(r)] = -INFINITY;
+        else if (!PAGED) a.lse[out_row(r)] = kMaskValue;
+      }
+    }
+    return;
+  }
+
+  const uint32_t bars = base + L::E_OFF + L::extra(STAGES, seg, PAGED);
+  auto bar_q = [&](int w) { return bars + 8u * w; };
+  auto full_k = [&](int s) { return bars + 8u * (NW + s); };
+  auto full_v = [&](int s) { return bars + 8u * (NW + STAGES + s); };
+  auto empty_k = [&](int s) { return bars + 8u * (NW + 2 * STAGES + s); };
+  auto empty_v = [&](int s) { return bars + 8u * (NW + 3 * STAGES + s); };
+  const uint32_t x_full = bars + 8u * (NW + 4 * STAGES), x_empty = x_full + 8u;
+  auto tile_ids = [&](int s) {  // the segment ids of the K tile in stage s
+    return reinterpret_cast<int*>(smem + L::E_OFF) + s * BN;
+  };
+  auto scales = [&](int s) {  // verify: stage s's K scales, then its V scales
+    return reinterpret_cast<float*>(smem + L::E_OFF) + s * 2 * BN;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < NW; ++w) mbar_init(bar_q(w), PAGED ? 128 : 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), PAGED ? 128 : 1);
+      mbar_init(full_v(s), PAGED ? 128 : v8 ? 4 : 1);  // converted fp8 V: a producer warp each
+      mbar_init(empty_k(s), 4 * NW);                   // one arrival per owner warp
+      mbar_init(empty_v(s), 4 * NW);
+    }
+    mbar_init(x_full, 4 * OWNERS);  // one arrival per owner warp of the cluster
+    mbar_init(x_empty, 4 * OWNERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (PAGED && !is_quantized(a.kind)) {  // value pools: every scale 1
+    for (int i = threadIdx.x; i < STAGES * 2 * BN; i += blockDim.x) scales(0)[i] = 1.f;
+  }
+  __syncthreads();
+  if constexpr (NC > 1) cluster_sync();  // the peers' barriers exist before any arrival
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup.
+    if constexpr (NW > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    constexpr int CPR = CW / 16;         // 16-byte stored chunks of a 1-byte row
+    constexpr int PER = BN * CPR / 128;  // of a tile, a producer thread's
+    if constexpr (!PAGED) {
+      // Thread 0 issues every TMA copy; with segment ids warp 0 writes each K
+      // tile's ids, with fp8 V every warp converts V.  The rest have no work.
+      const int producers = v8 ? 128 : seg ? 32 : 1;
+      if (tid < producers) {
+        const bool leader = tid == 0;
+        const int bh = b * a.Hq + h, kv_bh = b * a.Hkv + kvh;
+        if (leader) {
+          mbar_expect_tx(bar_q(0), L::Q_BYTES);
+#pragma unroll
+          for (int c = 0; c < CW / 64; ++c)
+            tma_load_3d(sQ + c * (64 * 128), &tm_q, bar_q(0), c_lo + 64 * c, m0, bh);
+        }
+        const uint8_t* v_bytes = static_cast<const uint8_t*>(a.v);
+        const int v_fmt = a.v_kind == kVE4M3 ? kE4M3 : kE5M2;
+        for (int i = 0; i < n_tiles; ++i) {
+          const int s = i % STAGES, n0 = k_first + i * BN;
+          const uint32_t parity = ((i / STAGES) & 1) ^ 1;  // passes at once on the first lap
+          mbar_wait(empty_k(s), parity);
+          if (seg && tid < 32) {
+            for (int x = tid; x < BN; x += 32) tile_ids(s)[x] = seg_id(a.md.kv_seg, b, a.Nkv, n0 + x);
+            __syncwarp();  // the ids are written before K's full barrier completes
+          }
+          if (leader) {
+            mbar_expect_tx(full_k(s), L::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < CW / 64; ++c)
+              tma_load_3d(sK + s * L::KV_BYTES + c * (BN * 128), &tm_k, full_k(s), c_lo + 64 * c,
+                          n0, kv_bh);
+          }
+          if (v8) {
+            for (int part = 0; part < PER; ++part) {
+              const int idx = tid + part * 128, r = idx / CPR, c16 = idx % CPR;
+              const uint4 raw =
+                  n0 + r < a.Nkv
+                      ? *reinterpret_cast<const uint4*>(
+                            v_bytes + (size_t(kv_bh) * a.Nkv + n0 + r) * D + c_lo + c16 * 16)
+                      : make_uint4(0, 0, 0, 0);
+              if (part == 0) mbar_wait(empty_v(s), parity);  // the first load in flight
+              store_converted<T>(smem + L::V_OFF + s * L::KV_BYTES, r, c16, raw, 0, v_fmt);
+            }
+            fence_proxy_async();  // the V stage is read by wgmma
+            __syncwarp();
+            if (tid % 32 == 0) mbar_arrive(full_v(s));
+          } else if (leader) {
+            mbar_wait(empty_v(s), parity);
+            mbar_expect_tx(full_v(s), L::KV_BYTES);
+#pragma unroll
+            for (int c = 0; c < CW / 64; ++c)
+              tma_load_3d(sV + s * L::KV_BYTES + c * (BN * 128), &tm_v, full_v(s), c_lo + 64 * c,
+                          n0, kv_bh);
+          }
+        }
+      }
+    } else {
+      // Every producer thread: each tile's rows through the page table.
+      const int ps = a.page_size;
+      const int* table = a.page_table + size_t(b) * a.pages_per_seq;
+      const bool quant = is_quantized(a.kind);
+      const int data_end = min(k_first + a.pages_per_split * ps, alen);  // keys whose pages hold data
+      const unsigned char* kb = static_cast<const unsigned char*>(a.k);
+      const unsigned char* vb = static_cast<const unsigned char*>(a.v);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, n0 = k_first + i * BN;
+        const uint32_t parity = ((i / STAGES) & 1) ^ 1;
+        const uint32_t dk = sK + s * L::KV_BYTES, dv = sV + s * L::KV_BYTES;
+        if (!quant) {
+          mbar_wait(empty_k(s), parity);
+          mbar_wait(empty_v(s), parity);
+          if (tma && n0 + BN <= data_end) {  // a whole tile inside one page
+            if (tid == 0) {
+              const int row = (kvh * a.P + table[n0 / ps]) * ps + n0 % ps;
+              mbar_expect_tx(full_k(s), L::KV_BYTES);
+              mbar_expect_tx(full_v(s), L::KV_BYTES);
+#pragma unroll
+              for (int c = 0; c < CW / 64; ++c) {
+                tma_load_2d(dk + c * (BN * 128), &tm_k, full_k(s), c_lo + 64 * c, row);
+                tma_load_2d(dv + c * (BN * 128), &tm_v, full_v(s), c_lo + 64 * c, row);
+              }
+            } else {
+              mbar_arrive(full_k(s));
+              mbar_arrive(full_v(s));
+            }
+          } else {  // each row at its own address; zeros past the visible keys
+            const T* kp = static_cast<const T*>(a.k);
+            const T* vp = static_cast<const T*>(a.v);
+            for (int idx = tid; idx < BN * (CW / 8); idx += 128) {
+              const int r = idx / (CW / 8), u16 = idx % (CW / 8), key = n0 + r;
+              const bool live = key < key_hi;
+              const size_t off =
+                  live ? (size_t(kvh * a.P + table[key / ps]) * ps + key % ps) * D + c_lo + u16 * 8
+                       : 0;
+              const uint32_t at = swz(BN, u16 / 8, r, u16 % 8);
+              cp_async16(dk + at, kp + off, live ? 16 : 0);
+              cp_async16(dv + at, vp + off, live ? 16 : 0);
+            }
+            cp_async_arrive(full_k(s));
+            cp_async_arrive(full_v(s));
+          }
+        } else {
+          // Quantized pools: each stored chunk converted once the stage is
+          // free (the first loads in flight meanwhile); zeros past the
+          // visible keys.
+          float ks = 0.f, vs = 0.f;
+          if (tid < BN && n0 + tid < key_hi) {
+            const int key = n0 + tid;
+            const size_t si = scale_index(kvh, table[key / ps], key % ps, a.P, ps);
+            ks = a.k_scales[si];
+            vs = a.v_scales[si];
+          }
+          for (int part = 0; part < PER; ++part) {
+            const int idx = tid + part * 128, r = idx / CPR, c16 = idx % CPR, key = n0 + r;
+            uint4 kr = make_uint4(0, 0, 0, 0), vr = kr;
+            int hi = 0;
+            if (key < key_hi) {
+              const TokenAddr ta = token_addr(a.kind, kvh, table[key / ps], key % ps, a.P, ps, D);
+              kr = *reinterpret_cast<const uint4*>(kb + ta.row + c_lo + c16 * 16);
+              vr = *reinterpret_cast<const uint4*>(vb + ta.row + c_lo + c16 * 16);
+              hi = ta.hi;
+            }
+            if (part == 0) {
+              mbar_wait(empty_k(s), parity);
+              mbar_wait(empty_v(s), parity);
+            }
+            store_converted<T>(smem + L::K_OFF + s * L::KV_BYTES, r, c16, kr, hi, a.kind);
+            store_converted<T>(smem + L::V_OFF + s * L::KV_BYTES, r, c16, vr, hi, a.kind);
+          }
+          if (tid < BN) {
+            scales(s)[tid] = ks;
+            scales(s)[BN + tid] = vs;
+          }
+          fence_proxy_async();  // the stage is read by wgmma
+          mbar_arrive(full_k(s));
+          mbar_arrive(full_v(s));
+        }
+      }
+    }
+  } else {
+    // Owners: consumer warpgroup w of the CTA, 64 rows x its OC columns.
+    if constexpr (NW > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+    const int w = threadIdx.x / 128 - 1;
+    const int me = rank * NW + w;  // the owner's place in the sum order
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int g = lane / 4, t = lane % 4;  // accumulator row group / column pair
+    const int row0 = m0 + 16 * warp + g;   // this thread's rows: row0, row0 + 8
+    const uint32_t q_own = sQ + w * C * (64 * 128);  // the owner's chunks of Q
+
+    if constexpr (PAGED) {
+      // The owner's 64 x OC block of q, pre-scaled and rounded to T (the TPU
+      // kernel scales q in its own dtype), padding rows zero.
+      const T* q = static_cast<const T*>(a.q);
+#pragma unroll 4
+      for (int idx = wt; idx < 64 * (OC / 8); idx += 128) {
+        const int r = idx / (OC / 8), u16 = idx % (OC / 8);
+        uint4 raw = make_uint4(0, 0, 0, 0);
+        if (m0 + r < rows)
+          raw = *reinterpret_cast<const uint4*>(q + out_row(m0 + r) * D + c_lo + w * OC + u16 * 8);
+        const T* e = reinterpret_cast<const T*>(&raw);
+        uint32_t p[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[i] = Mma<T>::pack(to_float(e[2 * i]) * a.sm_scale, to_float(e[2 * i + 1]) * a.sm_scale);
+        *reinterpret_cast<uint4*>(smem + swz(64, w * C + u16 / 8, r, u16 % 8)) =
+            make_uint4(p[0], p[1], p[2], p[3]);
+      }
+      fence_proxy_async();  // Q is read by wgmma
+      mbar_arrive(bar_q(w));
+    }
+
+    // Per row: forward segment ids and ALiBi slope; verify the key limit,
+    // the ALiBi position and slope.
+    int qseg[2] = {0, 0}, lim[2] = {0, 0}, qpos[2] = {0, 0};
+    float slope[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if constexpr (PAGED) {
+        const int tt = row / G;
+        lim[r] = min(len - a.T + 1 + tt, key_hi);  // the row's horizon, within the split
+        qpos[r] = alen - a.T + tt;
+        if (a.md.slopes != nullptr && row < rows) slope[r] = a.md.slopes[kvh * G + row % G];
+      } else {
+        if (seg) qseg[r] = seg_id(a.md.q_seg, b, a.Nq, row);
+        if (a.md.slopes != nullptr) slope[r] = a.md.slopes[h] * kLog2e;
+      }
+    }
+    // verify: keys below `open` are visible to every row of the CTA (its
+    // first row's horizon is the nearest) and lie in the split
+    const int open = PAGED ? min(len - a.T + 1 + m0 / G, key_hi) : 0;
+    const uint32_t stream = !PAGED && a.md.rate > 0.f ? dropout_stream(a.md.seed, b, h) : 0u;
+    const int q_off = a.Nkv - a.Nq;
+    const float scale_log2 = a.sm_scale * kLog2e;
+
+    float s[BN / 2], acc[OC / 2];
+    uint32_t pa[BN / 16][4];  // P as the A fragments of P V, 16 keys a k-step
+#pragma unroll
+    for (int i = 0; i < OC / 2; ++i) acc[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};  // running max, base-2 units
+    float l_r[2] = {0.f, 0.f};              // this thread's share of the row sum
+    float alpha[2] = {1.f, 1.f};            // O's rescale before the next P V
+
+    // The owner's partial S = Q K^T over its OC columns of the tile in
+    // stage st, issued (not awaited).
+    auto issue_s = [&](int st) {
+      const uint32_t k_own = sK + st * L::KV_BYTES + w * C * (BN * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < OC / 16; ++ks) {
+        const uint32_t in_chunk = (ks % 4) * 32;
+        WgmmaSS<BN, T>::run(s, smem_desc(q_own + (ks / 4) * (64 * 128) + in_chunk, 16, 1024),
+                            smem_desc(k_own + (ks / 4) * (BN * 128) + in_chunk, 16, 1024),
+                            ks > 0);
+      }
+      wgmma_commit();
+    };
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int i = 0; i < NO; ++i) {
+        acc[4 * i] *= alpha[0];
+        acc[4 * i + 1] *= alpha[0];
+        acc[4 * i + 2] *= alpha[1];
+        acc[4 * i + 3] *= alpha[1];
+      }
+    };
+    // O[:, the owner's columns] += P V of the tile in stage st, issued.
+    auto issue_pv = [&](int st) {
+      const uint32_t v_own = sV + st * L::KV_BYTES + w * C * (BN * 128);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) pv_product<C, T>(acc, pa[kk], v_own + kk * 2048, BN * 128);
+      wgmma_commit();
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    // The exchange: each thread's 16 partial scores as float4 j of owner p
+    // at X_OFF + ((p % NW) * NS + j) * 2048 + 16 * wt of rank p / NW.
+    auto x_read = [&](int p, int j) -> float4 {
+      const uint32_t off = L::X_OFF + (((p % NW) * NS + j) * 128 + wt) * 16;
+      if constexpr (NC == 1) {
+        return *reinterpret_cast<const float4*>(smem + off);
+      } else {
+        return ld_peer_f4(peer_addr(base + off, p / NW));
+      }
+    };
+    auto x_arrive = [&](uint32_t bar) {  // on the barrier of every CTA of the cluster
+      __syncwarp();
+      if (lane == 0) {
+        if constexpr (NC == 1) {
+          mbar_arrive(bar);
+        } else {
+          for (int c = 0; c < NC; ++c) mbar_arrive_peer(peer_addr(bar, c));
+        }
+      }
+    };
+    auto x_wait = [&](uint32_t bar, uint32_t parity) {
+      if constexpr (NC == 1) {
+        mbar_wait(bar, parity);
+      } else {
+        mbar_wait_cluster(bar, parity);
+      }
+    };
+    // S of tile i: the owners' partials summed in owner order, so every
+    // owner gets the same bits.
+    auto exchange = [&](int i) {
+      if (i > 0) x_wait(x_empty, (i - 1) & 1);  // every owner has read tile i - 1's
+      float4* own = reinterpret_cast<float4*>(smem + L::X_OFF) + w * NS * 128 + wt;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        own[j * 128] = make_float4(s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      x_arrive(x_full);
+      x_wait(x_full, i & 1);
+#pragma unroll
+      for (int p = 0; p < OWNERS; ++p) {  // every owner's partial, in owner order
+        const int src = p;  // the owner whose partial is added
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float4 x = x_read(src, j);
+          if (p == 0) {
+            s[4 * j] = x.x, s[4 * j + 1] = x.y, s[4 * j + 2] = x.z, s[4 * j + 3] = x.w;
+          } else {
+            s[4 * j] += x.x, s[4 * j + 1] += x.y, s[4 * j + 2] += x.z, s[4 * j + 3] += x.w;
+          }
+        }
+      }
+      x_arrive(x_empty);
+    };
+
+    // The forward's scale, softcap, ALiBi bias and mask of the scores of keys
+    // [n0, n0 + BN) into base-2 units (attn_fwd_sm90.cuh's arithmetic); the
+    // bias distance q_pos - col is an exact integer in fp32.
+    auto scores_fwd = [&](int n0, const int* ids, auto cap, auto masked, auto alibi) {
+      const float dist0[2] = {float(row0 + q_off - n0 - 2 * t),
+                              float(row0 + 8 + q_off - n0 - 2 * t)};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dist = dist0[e >> 1] - float(j * 8 + (e & 1));
+          float x;
+          if constexpr (decltype(cap)::value) {
+            x = s[4 * j + e] * a.sm_scale;
+            x = a.softcap * tanhf(x / a.softcap) * kLog2e;
+          } else {
+            x = s[4 * j + e] * scale_log2;
+          }
+          if constexpr (decltype(alibi)::value) x -= slope[0] * dist;
+          if constexpr (decltype(masked)::value) {
+            const int row = row0 + (e >= 2 ? 8 : 0);
+            const int col = n0 + j * 8 + 2 * t + (e & 1);
+            if (!visible(row, col, a.Nq, a.Nkv, a.causal, a.window) ||
+                (seg && qseg[e >> 1] != ids[col - n0]))
+              x = -INFINITY;
+          }
+          s[4 * j + e] = x;
+        }
+      }
+    };
+    // Verify's: the K scale, softcap, ALiBi bias -m (q_pos - pos) and the
+    // row's horizon (paged_verify.cuh's arithmetic), into base-2 units.
+    auto scores_paged = [&](int n0, const float* ksc, auto cap, auto masked, auto alibi) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1), r = e >> 1;
+          float x = s[4 * j + e] * ksc[c];
+          if constexpr (decltype(cap)::value) x = a.softcap * tanhf(x * (1.f / a.softcap));
+          if constexpr (decltype(alibi)::value) x -= slope[r] * float(qpos[r] - (n0 + c));
+          x *= kLog2e;
+          if constexpr (decltype(masked)::value) {
+            if (n0 + c >= lim[r]) x = -INFINITY;
+          }
+          s[4 * j + e] = x;
+        }
+      }
+    };
+    // Dropout of P (common.cuh dropout_factor, bit for bit: the keep test
+    // u * 2^-24 >= rate on the 24-bit u is the integer test u >= ceil(rate
+    // * 2^24)).
+    const uint32_t keep_min = a.md.rate > 0.f ? uint32_t(ceilf(a.md.rate * 16777216.f)) : 0u;
+    auto drop_p = [&](int n0) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const uint32_t inner = lowbias32(uint32_t(n0 + j * 8 + 2 * t + c) + stream);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t bits = lowbias32(uint32_t(row0 + 8 * r) ^ inner);
+            float& p = s[4 * j + 2 * r + c];
+            p = (bits & 0xFFFFFFu) >= keep_min ? p * a.md.keep_scale : 0.f;
+          }
+        }
+      }
+    };
+    // The online softmax of tile (n0, stage st): new running max, alpha, P
+    // in place of S (dropped after the undropped row sum).
+    auto softmax = [&](int n0, int st) {
+      const bool masked = PAGED ? n0 + BN > open
+                                : seg || !tile_unmasked<64, BN>(m0, n0, a.Nq, a.Nkv, a.causal,
+                                                               a.window);
+      with_flags(a.softcap > 0.f, masked, a.md.slopes != nullptr,
+                 [&](auto cap, auto msk, auto alibi) {
+                   if constexpr (PAGED) {
+                     scores_paged(n0, scales(st), cap, msk, alibi);
+                   } else {
+                     scores_fwd(n0, tile_ids(st), cap, msk, alibi);
+                   }
+                 });
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[r], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = exp2_ftz(m_r[r] - m_use);  // 0 while the row saw nothing
+        m_r[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[4 * j + e] = exp2_ftz(s[4 * j + e] - m_use);  // masked: 0
+            sum += s[4 * j + e];  // the row sum is undropped and unscaled
+          }
+        }
+        l_r[r] = l_r[r] * alpha[r] + sum;
+      }
+      if (!PAGED && a.md.rate > 0.f) drop_p(n0);
+    };
+    // P (in verify times the V scale) rounded to T, as P V's A fragments.
+    auto pack_p = [&](int st) {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float p0 = s[8 * kk + 2 * x], p1 = s[8 * kk + 2 * x + 1];
+          if constexpr (PAGED) {
+            const float* vsc = scales(st) + BN + 8 * (2 * kk + x / 2) + 2 * t;
+            p0 *= vsc[0];
+            p1 *= vsc[1];
+          }
+          pa[kk][x] = Mma<T>::pack(p0, p1);
+        }
+      }
+    };
+
+    // Tile i: the partial S(i) is issued beside P V of tile i - 1; the
+    // exchange and the softmax of S(i) run while that P V finishes.  K(i) is
+    // released once S(i) is done (with segment ids, once its ids are read
+    // too), V(i - 1) once its P V is.
+    mbar_wait(bar_q(PAGED ? w : 0), 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES, prev = (i + STAGES - 1) % STAGES;
+      const int n0 = k_first + i * BN;
+      if (i > 0) rescale_o();
+      mbar_wait(full_k(st), (i / STAGES) & 1);
+      if constexpr (PAGED) fence_proxy_async();  // rows written by cp.async, read by wgmma
+      issue_s(st);
+      if (i > 0) {
+        mbar_wait(full_v(prev), ((i - 1) / STAGES) & 1);
+        issue_pv(prev);
+      }
+      if (i > 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      } else {
+        wgmma_wait_all();
+      }
+      fence_regs(s);
+      if (!seg) release(empty_k(st));
+      exchange(i);
+      softmax(n0, st);
+      if (seg) release(empty_k(st));
+      if (i > 0) {
+        wgmma_wait_all();
+        fence_regs(acc);
+        release(empty_v(prev));
+      }
+      pack_p(st);
+    }
+    // n_tiles > 0 here (an empty CTA returned above); without the guard
+    // ptxas serializes every wgmma of the kernel (C7514).
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) % STAGES;
+      rescale_o();
+      mbar_wait(full_v(last), ((n_tiles - 1) / STAGES) & 1);
+      issue_pv(last);
+      wgmma_wait_all();
+      fence_regs(acc);
+      release(empty_v(last));
+    }
+
+    // O / l for the owner's columns; lse (verify with splits: the partial's)
+    // from the first owner.
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row0 + 8 * r;
+      if (row >= rows) continue;
+      const size_t orow = out_row(row);
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      const int col0 = c_lo + w * OC + 2 * t;
+      if (split_out) {
+        float* dst = a.part_o + (split * all_rows + orow) * D + col0;
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+          *reinterpret_cast<float2*>(dst + j * 8) =
+              make_float2(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+        if (me == 0 && t == 0)
+          a.part_lse[split * all_rows + orow] = l > 0.f ? (m_r[r] + log2f(l)) * kLn2 : -INFINITY;
+      } else {
+        T* dst = static_cast<T*>(a.o) + orow * D + col0;
+#pragma unroll
+        for (int j = 0; j < NO; ++j)
+          *reinterpret_cast<uint32_t*>(dst + j * 8) =
+              Mma<T>::pack(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+        if (!PAGED && me == 0 && t == 0)
+          a.lse[orow] = l > 0.f ? (m_r[r] + log2f(l)) * kLn2 : kMaskValue;
+      }
+    }
+  }
+  // No CTA leaves while a peer may still read its partials or arrive on its
+  // barriers.
+  if constexpr (NC > 1) cluster_sync();
+}
+
+}  // namespace sm90
 
 // ---------------------------------------------------------------------------
 // The backward sweeps
@@ -1162,16 +1962,78 @@ int launch_wide_decode(const WideDecodeArgs& a) {
                         a.D, a.stream);
 }
 
-// Launches the forward-family kernel over `grid`.
-template <typename T, bool PAGED>
-int launch_wide_fwd(const WideArgs& a, dim3 grid) {
-  auto kernel = wide_fwd_kernel<T, PAGED>;
-  constexpr size_t smem = WideLayout<T>::BYTES;
+// Launches the fp32 forward or verify over `grid`.
+template <bool PAGED>
+int launch_wide_f32(const WideArgs& a, dim3 grid) {
+  auto kernel = wide_fwd_f32_kernel<PAGED>;
+  constexpr size_t smem = WideLayout<float>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
   return int(cudaGetLastError());
+}
+
+// Dynamic shared memory of the wide_wgmma kernel at head dim D (with
+// segment ids `seg`, or verify `paged`), in bytes; 0 for another D.
+inline int wide_wgmma_smem(int D, bool seg, bool paged) {
+  auto bytes = [&](auto layout) {
+    using L = decltype(layout);
+    return int(L::bytes(L::STAGES, seg, paged));
+  };
+  switch (D) {
+    case 384: case 768: return bytes(sm90::WgLayout<2, 3>{});
+    case 512: case 1024: return bytes(sm90::WgLayout<2, 4>{});
+    case 640: case 896: return bytes(sm90::WgLayout<1, 2>{});
+    default: return 0;
+  }
+}
+
+// Launches the wide_wgmma kernel of one cut over `grid` clusters (x counts
+// clusters), each of NC CTAs along x; returns the launch's error.
+template <typename T, bool PAGED, int NC, int NW, int C>
+int launch_wgmma_cut(const WideArgs& a, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                     const CUtensorMap& tm_v, int tma, dim3 grid) {
+  using L = sm90::WgLayout<NW, C>;
+  static_assert(sm90::wide_cut(64 * NC * NW * C).nc == NC, "the cut of this head dim");
+  auto kernel = sm90::wide_wgmma_kernel<T, PAGED, NC, NW, C>;
+  const size_t smem = L::bytes(L::STAGES, !PAGED && a.md.q_seg != nullptr, PAGED);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(grid.x * NC, grid.y, grid.z);
+  cfg.blockDim = dim3(128 * (NW + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute cluster{};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = NC;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = NC > 1 ? 1 : 0;
+  int tma_flag = tma;
+  void* args[] = {const_cast<CUtensorMap*>(&tm_q), const_cast<CUtensorMap*>(&tm_k),
+                  const_cast<CUtensorMap*>(&tm_v), const_cast<WideArgs*>(&a), &tma_flag};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// The wide_wgmma kernel of a.D's cut (sm90::wide_cut) over `grid` clusters.
+template <typename T, bool PAGED>
+int launch_wide_wgmma(const WideArgs& a, const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                      const CUtensorMap& tm_v, int tma, dim3 grid) {
+  switch (a.D) {
+    case 384: return launch_wgmma_cut<T, PAGED, 1, 2, 3>(a, tm_q, tm_k, tm_v, tma, grid);
+    case 512: return launch_wgmma_cut<T, PAGED, 1, 2, 4>(a, tm_q, tm_k, tm_v, tma, grid);
+    case 640: return launch_wgmma_cut<T, PAGED, 5, 1, 2>(a, tm_q, tm_k, tm_v, tma, grid);
+    case 768: return launch_wgmma_cut<T, PAGED, 2, 2, 3>(a, tm_q, tm_k, tm_v, tma, grid);
+    case 896: return launch_wgmma_cut<T, PAGED, 7, 1, 2>(a, tm_q, tm_k, tm_v, tma, grid);
+    case 1024: return launch_wgmma_cut<T, PAGED, 2, 2, 4>(a, tm_q, tm_k, tm_v, tma, grid);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace

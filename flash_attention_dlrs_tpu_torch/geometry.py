@@ -30,11 +30,15 @@ from ._cuda import resolve_device
 CTA_ROWS = 128
 
 # The wide builds (csrc/wide.cuh): head dims above 256 that are multiples of
-# 128, at most WIDE_MAX_HEAD_DIM; a CTA owns WIDE_ROWS rows and one
-# 128-column chunk of its output, and streams tiles of WIDE_KEYS rows.
+# 128, at most WIDE_MAX_HEAD_DIM.  A CTA owns WIDE_ROWS rows.  The 16-bit
+# forward and verify (route "wide_wgmma") stream key tiles of WIDE_FWD_KEYS
+# and cut the head dim among owners and CTAs (:func:`wide_cut`); the fp32
+# forward / verify and the sweeps own one 128-column chunk of their output a
+# CTA and stream tiles of WIDE_KEYS rows.
 WIDE_MAX_HEAD_DIM = 1024
 WIDE_ROWS = 64
 WIDE_KEYS = 64
+WIDE_FWD_KEYS = 32
 
 # The H100 SXM5 (80 GB HBM3) as torch.cuda.get_device_properties reports it;
 # current_geometry gives it for the CPU, where no card can be asked.
@@ -163,10 +167,60 @@ def wide_smem_bytes(itemsize: int) -> int:
     return 4 * chunk + tile + probs + 6 * 64 * 4 + 64 * 8 + 64 * 4
 
 
+def wide_cut(head_dim: int) -> tuple:
+    """How the wide_wgmma kernel cuts a wide head dim (``csrc/wide.cuh``
+    ``wide_cut``): (CTAs a cluster, owners a CTA, 64-column chunks an
+    owner).  An owner (a consumer warpgroup) holds at most 256 columns of
+    O; a CTA at most 512 columns; d 640 and 896 take clusters of 5 and 7
+    CTAs of one 128-column owner."""
+    cuts = {384: (1, 2, 3), 512: (1, 2, 4), 640: (5, 1, 2), 768: (2, 2, 3),
+            896: (7, 1, 2), 1024: (2, 2, 4)}
+    if head_dim not in cuts:
+        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+    return cuts[head_dim]
+
+
+def wide_fwd_stages(head_dim: int) -> int:
+    """Stages of the wide_wgmma kernel's K/V ring (``csrc/wide.cuh``
+    ``WgLayout::STAGES``): as many as fit beside Q, the partials and
+    verify's scales, at most 4: 2 where a CTA holds 512 columns, 3 at 384,
+    4 at 128."""
+    stages = 4
+    while stages > 2 and _wide_fwd_bytes(head_dim, stages, False, True) > H100_SXM[
+            "smem_per_block_optin"]:
+        stages -= 1
+    return stages
+
+
+def _wide_fwd_bytes(head_dim: int, stages: int, segments: bool, paged: bool) -> int:
+    _, nw, c = wide_cut(head_dim)
+    cols = 64 * nw * c  # the CTA's columns
+    extra = stages * 2 * WIDE_FWD_KEYS * 4 if paged else (
+        stages * WIDE_FWD_KEYS * 4 if segments else 0)
+    return (WIDE_ROWS * cols * 2 + 2 * stages * WIDE_FWD_KEYS * cols * 2
+            + nw * WIDE_ROWS * WIDE_FWD_KEYS * 4 + extra + 8 * (nw + 4 * stages + 2) + 1024)
+
+
+def wide_fwd_smem_bytes(head_dim: int, segments: bool = False, paged: bool = False) -> int:
+    """Shared memory of one CTA of the wide_wgmma kernel (``csrc/wide.cuh``
+    ``WgLayout::bytes``), forward or (``paged``) verify: 64 rows of Q over
+    the CTA's columns, :func:`wide_fwd_stages` stages of K and V tiles of
+    WIDE_FWD_KEYS keys, each owner's 64 x 32 fp32 partial scores, with
+    segment ids each K tile's ids, in verify each stage's K and V scales,
+    the barriers (one Q barrier an owner, four a stage, two for the
+    partials) and 1024 bytes of alignment.  fp8 V takes no bytes (the
+    producer converts it from device memory into the 16-bit V stage), so
+    the model has no fp8-V flag."""
+    return _wide_fwd_bytes(head_dim, wide_fwd_stages(head_dim), segments, paged)
+
+
 def default_block_kv(head_dim: int) -> int:
     """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
-    ``key_tile``): 128, and 64 at d 256 and in the wide builds."""
-    return 64 if head_dim == 256 or is_wide(head_dim) else 128
+    ``key_tile``): 128, 64 at d 256, and in the wide builds 32
+    (:data:`WIDE_FWD_KEYS`, the wide_wgmma kernel's tile)."""
+    if is_wide(head_dim):
+        return WIDE_FWD_KEYS
+    return 64 if head_dim == 256 else 128
 
 
 def default_block_kv_bwd(head_dim: int) -> int:

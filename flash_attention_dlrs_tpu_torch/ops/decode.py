@@ -48,7 +48,7 @@ import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
-from ..geometry import WIDE_ROWS, is_wide
+from ..geometry import WIDE_ROWS, is_wide, wide_cut
 from .fwd_kernel import (
     DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, check_kernel_head_dim, pad_head_dim,
 )
@@ -98,7 +98,8 @@ VERIFY_D256_F16_KERNEL = CudaKernel("paged_verify_d256_f16.cu", "paged_verify_d2
                                     _VERIFY_ARGS)
 # Every pool head dim above 256 (csrc/wide.cuh): decode on the CUDA cores
 # (the counters argument unused: its splits merge in a second kernel of the
-# same C entry), verify column-chunked.
+# same C entry), verify on warpgroup products (bf16 / fp16 q) or
+# column-chunked (fp32 q).
 DECODE_WIDE_KERNEL = CudaKernel("paged_decode_wide.cu", "paged_decode_wide", _DECODE_ARGS)
 VERIFY_WIDE_KERNEL = CudaKernel("paged_verify_wide.cu", "paged_verify_wide", _VERIFY_ARGS)
 
@@ -123,9 +124,9 @@ DECODE_SPLITS: dict = register_launch_counts({})
 VERIFY_SPLITS: dict = register_launch_counts({})
 
 # The verify C entries' route codes (csrc/paged_verify.cuh kRouteF32 /
-# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideMma) and the
+# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma) and the
 # launches of each route.
-VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_mma": 3}
+VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4}
 VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES, 0))
 
 # Tokens of one stored-row tile of csrc/paged_decode.cuh: the least a split
@@ -220,7 +221,7 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
     wgmma      bf16 / fp16 q with a pool of q's own dtype or a quantized
                pool (int8, int4, e4m3, e5m2): the tensor cores
     wide_fp32  as fp32, at a wide pool head dim (``csrc/wide.cuh``)
-    wide_mma   as wgmma, at a wide pool head dim (``mma.sync``)
+    wide_wgmma as wgmma, at a wide pool head dim (``csrc/wide.cuh``)
     =========  =========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
@@ -244,7 +245,40 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
         raise ValueError(
             f"paged verify kernel takes {q_dtype} q with quantized pools or "
             f"{q_dtype} pools, not {pool_kind}")
-    return "wide_mma" if wide else "wgmma"
+    return "wide_wgmma" if wide else "wgmma"
+
+
+def verify_ctas_per_split(route: str, rows: int, head_dim: int) -> int:
+    """CTAs of one key split of a verify call, per (sequence, kv head), over
+    its ``rows`` = T · G rows: blocks of :data:`VERIFY_ROW_TILE` rows on the
+    ``"wgmma"`` route; on ``"wide_wgmma"`` blocks of 64 rows, each a
+    cluster of the CTAs that split the head dim (:func:`..geometry.wide_cut`);
+    on ``"wide_fp32"`` blocks of 64 rows times the 128-column chunks of
+    the head dim; on ``"fp32"`` (which does not split) blocks of 64 rows."""
+    if route == "wgmma":
+        return -(-rows // VERIFY_ROW_TILE)
+    if route == "wide_wgmma":
+        return -(-rows // WIDE_ROWS) * wide_cut(head_dim)[0]
+    if route == "wide_fp32":
+        return -(-rows // WIDE_ROWS) * (head_dim // 128)
+    return -(-rows // WIDE_ROWS)
+
+
+def verify_splits(route: str, batch: int, num_q_heads: int, num_kv_heads: int,
+                  num_tokens: int, head_dim: int, pages_per_seq: int, page_size: int,
+                  num_sms: int) -> int:
+    """The key splits of a verify call on ``route`` that names none, from
+    static shapes: one CTA fills an SM, so :func:`decode_splits` asked for
+    its two an SM of half the SMs, counting each (sequence, kv head)'s CTAs
+    of a split (:func:`verify_ctas_per_split`) as its batch; at most
+    :data:`VERIFY_MAX_SPLITS`, cut to whole pages (:func:`split_pages`).
+    The fp32 route takes 1."""
+    if route == "fp32":
+        return 1
+    ctas = verify_ctas_per_split(route, num_tokens * (num_q_heads // num_kv_heads), head_dim)
+    splits = decode_splits(batch * ctas, num_kv_heads, pages_per_seq, page_size,
+                           max(1, num_sms // 2))
+    return split_pages(pages_per_seq, min(splits, VERIFY_MAX_SPLITS))[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -538,8 +572,8 @@ def paged_verify_attention(
     or value pools of q's dtype; the ``"wgmma"`` route splits the keys as
     :func:`decode_splits` does, for its blocks of :data:`VERIFY_ROW_TILE`
     rows, or into ``pages_per_block`` pages a split, at most
-    :data:`VERIFY_MAX_SPLITS`; the wide routes likewise for their blocks of
-    64 rows and 128 columns; the fp32 route does not split) or raise.
+    :data:`VERIFY_MAX_SPLITS`; the wide routes likewise for their CTAs,
+    :func:`verify_splits`; the fp32 route does not split) or raise.
     ``alibi_slopes``: see the module docstring."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, num_tokens, d_true = q.shape
@@ -565,14 +599,9 @@ def paged_verify_attention(
         if route != "fp32" and chosen:
             splits = chosen
         elif route != "fp32":
-            # one CTA fills an SM: the planner's two an SM, of half the SMs;
-            # the wide routes' CTAs own 64 rows and 128 columns
-            rows = num_tokens * (num_q_heads // num_kv_heads)
-            row_blocks = (-(-rows // VERIFY_ROW_TILE) if route == "wgmma"
-                          else -(-rows // WIDE_ROWS) * (head_dim // 128))
-            splits = decode_splits(batch * row_blocks, num_kv_heads, pages_per_seq,
-                                   pools.page_size, max(1, _num_sms(q.device.index or 0) // 2))
-            splits = split_pages(pages_per_seq, min(splits, VERIFY_MAX_SPLITS))[1]
+            splits = verify_splits(route, batch, num_q_heads, num_kv_heads, num_tokens,
+                                   head_dim, pages_per_seq, pools.page_size,
+                                   _num_sms(q.device.index or 0))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, _ = _split_scratch(
             splits, batch * num_q_heads * num_tokens, head_dim, 0, q.device, stream)

@@ -10,15 +10,17 @@ its own launch count: ``csrc/attn_fwd.cu`` (head dim 128,
 ``csrc/attn_fwd_tiles.cu`` (:data:`FWD_TILES_KERNEL`), carries the 64-key
 tiles at d 64 and 128 that a caller may pin or the tuner pick
 (``block_sizes``, :mod:`..tuning`), mode-free; an eighth,
-``csrc/attn_fwd_wide.cu`` (:data:`FWD_WIDE_KERNEL`, the column-chunked
-kernel of ``csrc/wide.cuh``), every head dim above 256 that is a multiple of
-128, up to 1024, with every mode.  Each call takes one of four routes,
+``csrc/attn_fwd_wide.cu`` (:data:`FWD_WIDE_KERNEL`, the kernels of
+``csrc/wide.cuh``), every head dim above 256 that is a multiple of 128, up
+to 1024, with every mode.  Each call takes one of four routes,
 fixed by :func:`fwd_route` from the call's types and width alone and
 counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel of
 ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp specialisation;
 every bf16/fp16 call at d 64, 128 and 256), ``"fp32"`` (CUDA cores, true
-fp32), and at the wide head dims ``"wide_mma"`` (bf16/fp16 on
-``mma.sync``) and ``"wide_fp32"``.  The C entry refuses a route that
+fp32), and at the wide head dims ``"wide_wgmma"`` (bf16/fp16: the same
+Hopper machinery with the head dim split among warpgroups and, above 512,
+the CTAs of a cluster, scores computed once a key tile) and
+``"wide_fp32"``.  The C entry refuses a route that
 cannot carry a call; nothing switches routes at run time.  It replaces
 the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
 ``ops/fwd_mid.py::_mid_kernel``, ``ops/fwd_mid.py::_mid_strip_kernel`` and
@@ -91,12 +93,14 @@ FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
 FWD_WIDE_KERNEL = CudaKernel("attn_fwd_wide.cu", "attn_fwd_wide", _FWD_ARGS)
 
 # The C entries' route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma,
-# csrc/wide.cuh kRouteWideF32 / kRouteWideMma) and the launches of each
-# route, over every build; set to 0 by whoever reads them.
-ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_mma": 3}
+# csrc/wide.cuh kRouteWideF32 / kRouteWideMma / kRouteWideWgmma) and the
+# launches of each route, over every build; set to 0 by whoever reads them.
+# "wide_mma" is the wide backward sweeps' route (ops/bwd_kernel.py, which
+# shares these codes); the forward takes "wide_wgmma".
+ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_mma": 3, "wide_wgmma": 4}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
-# The wgmma and wide_mma routes' launches by head dim and key tile
-# ("d128_kv64", "d512_kv64"), over every build; set to 0 by whoever reads
+# The wgmma and wide_wgmma routes' launches by head dim and key tile
+# ("d128_kv64", "d512_kv32"), over every build; set to 0 by whoever reads
 # them.
 TILE_LAUNCHES = register_launch_counts({})
 
@@ -152,7 +156,7 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
     wgmma      bf16 / fp16 q, with or without segment ids, V of q's dtype
                or fp8
     wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
-    wide_mma   as wgmma, at a wide head dim (``mma.sync``)
+    wide_wgmma as wgmma, at a wide head dim (``csrc/wide.cuh``)
     =========  =========================================================
 
     Segment ids, fp8 V, ALiBi and dropout are modes of every route at every
@@ -166,7 +170,7 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
         return wide + "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {dtype}")
-    return wide + "mma" if wide else "wgmma"
+    return wide + "wgmma"
 
 
 def fwd_kernel(head_dim: int, segments: bool, block_kv=None) -> CudaKernel:
@@ -315,7 +319,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS,
                       alibi_slopes is not None, bool(dropout_rate))
     block_kv = default_block_kv(d)
-    if route in ("wgmma", "wide_mma") and block_sizes is not None:
+    if route in ("wgmma", "wide_wgmma") and block_sizes is not None:
         block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                           segments=q_seg is not None, fp8_v=v.dtype in V_KINDS)
         block_kv = block_sizes.block_kv
@@ -333,7 +337,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
         *tile, ROUTE_CODES[route], stream_handle(q.device),
     )
     ROUTE_LAUNCHES[route] += 1
-    if route in ("wgmma", "wide_mma"):
+    if route in ("wgmma", "wide_wgmma"):
         key = f"d{d}_kv{block_kv}"
         TILE_LAUNCHES[key] = TILE_LAUNCHES.get(key, 0) + 1
     return o, lse

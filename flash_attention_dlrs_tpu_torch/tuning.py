@@ -39,8 +39,9 @@ from . import geometry as geo
 BUILT_BLOCK_KV = {64: (128, 64), 128: (128, 64), 256: (64,)}
 BUILT_BLOCK_KV_BWD = {64: (64, 32), 128: (64, 32), 256: (32,)}
 # The wide builds' tiles (csrc/wide.cuh, every head dim above 256 that is a
-# multiple of 128): 64 keys a forward tile, 64 rows a sweep's stream.
-WIDE_BLOCK_KV = (64,)
+# multiple of 128): 32 keys a forward tile (the wide_wgmma kernel), 64 rows a
+# sweep's stream.
+WIDE_BLOCK_KV = (geo.WIDE_FWD_KEYS,)
 WIDE_BLOCK_KV_BWD = (64,)
 CTA_ROWS = geo.CTA_ROWS
 
@@ -50,8 +51,9 @@ class BlockSizes:
     """Tiles of the attention kernels (the forward and both backward
     sweeps), the JAX package's four fields on Hopper's tiles: ``block_q``
     and ``block_q_bwd`` are a CTA's 128 rows; ``block_kv`` is 64 or 128
-    (64 at head dim 256), ``block_kv_bwd`` 32 or 64 (32 at d 256).  The
-    head dim is checked when a call uses the tiles (:meth:`check`)."""
+    (64 at head dim 256, 32 at the wide head dims), ``block_kv_bwd`` 32 or
+    64 (32 at d 256).  The head dim is checked when a call uses the tiles
+    (:meth:`check`)."""
 
     block_q: int = CTA_ROWS
     block_kv: int = 128
@@ -64,8 +66,8 @@ class BlockSizes:
                 raise ValueError(
                     f"{name}={getattr(self, name)}: a Hopper CTA owns {CTA_ROWS} rows "
                     f"(two consumer warpgroups of 64)")
-        if self.block_kv not in (64, 128):
-            raise ValueError(f"block_kv={self.block_kv} must be 64 or 128")
+        if self.block_kv not in (32, 64, 128):
+            raise ValueError(f"block_kv={self.block_kv} must be 32, 64 or 128")
         if self.block_kv_bwd not in (32, 64):
             raise ValueError(f"block_kv_bwd={self.block_kv_bwd} must be 32 or 64")
 
@@ -73,7 +75,7 @@ class BlockSizes:
               segments: bool = False, fp8_v: bool = False) -> None:
         """Raise ``ValueError`` unless some build carries these tiles at
         ``head_dim`` (the kernels' width: 64, 128, 256 or a wide width, whose
-        one build carries block_kv 64 and block_kv_bwd 64 in every mode and
+        one build carries block_kv 32 and block_kv_bwd 64 in every mode and
         cuts its own 64-row CTAs) with the call's modes; the message names
         the built tiles."""
         modes = alibi or dropout or segments or fp8_v
@@ -150,7 +152,7 @@ def candidate_bwd_configs(head_dim: int, *, segments: bool = False, alibi: bool 
 
 def default_block_sizes(head_dim: int) -> BlockSizes:
     """The tiles every call takes unless told otherwise: each head dim's own
-    builds', (128, 128, 128, 64), (128, 64, 128, 32) at d 256 and (128, 64,
+    builds', (128, 128, 128, 64), (128, 64, 128, 32) at d 256 and (128, 32,
     128, 64) in the wide builds."""
     width = head_dim if head_dim in BUILT_BLOCK_KV or geo.is_wide(head_dim) else 128
     return BlockSizes(block_kv=geo.default_block_kv(width),

@@ -78,7 +78,7 @@ def test_route_table_d256(dtype):
     assert tfwd.fwd_route(dtype, 256) == route
     for kw in (dict(segments=True), dict(fp8_v=True), dict(alibi=True), dict(dropout=True)):
         assert tfwd.fwd_route(dtype, 256, **kw) == route
-    assert tfwd.fwd_route(dtype, 512) == "wide_" + ("fp32" if route == "fp32" else "mma")
+    assert tfwd.fwd_route(dtype, 512) == "wide_" + ("fp32" if route == "fp32" else "wgmma")
     with pytest.raises(ValueError):
         tfwd.fwd_route(dtype, 1152)
 

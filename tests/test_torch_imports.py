@@ -15,7 +15,8 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "flash_attention_dlrs_tpu_torch"
 PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in PORT.rglob("*.py"))
-SCRIPTS = ["chip_smoke.py", "scripts/eval_ppl_torch.py", "bench_torch.py",
+SCRIPTS = ["chip_smoke.py", "wide_breakdown_torch.py", "scripts/eval_ppl_torch.py",
+           "bench_torch.py",
            "scripts/run_bench_suite_torch.py", "scripts/run_golden_gate_torch.py",
            "examples/01_attention_features_torch.py", "examples/02_train_tiny_torch.py",
            "examples/03_serve_paged_torch.py", "examples/04_multichip_mesh_torch.py"]

@@ -2,11 +2,12 @@
 
 The JAX package pads any head dim to a multiple of 128 lanes and runs its
 kernels there; the port pads alike (``kernel_width``: 320 to 384, 512 as it
-is) and on the card runs the wide builds (``csrc/wide.cuh``: the
-column-chunked forward, both backward sweeps, paged decode and verify,
-routes ``wide_mma`` / ``wide_fp32``).  Here, on CPU tensors, the port runs
-their plain versions; the JAX side runs its Pallas routes in interpret
-mode, as its own CPU tests do.  Same seeded numpy inputs on both sides:
+is) and on the card runs the wide builds (``csrc/wide.cuh``: the 16-bit
+forward and verify on warpgroup products, route ``wide_wgmma``; the
+column-chunked sweeps, ``wide_mma``; decode; ``wide_fp32``).  Here, on CPU
+tensors, the port runs their plain versions; the JAX side runs its Pallas
+routes in interpret mode, as its own CPU tests do.  Same seeded numpy
+inputs on both sides:
 
 - the op's forward (O, lse) and dQ/dK/dV at d 320 and 512, one case for
   each of ALiBi, dropout (its mask bit for bit the JAX package's), segment
@@ -15,7 +16,9 @@ mode, as its own CPU tests do.  Same seeded numpy inputs on both sides:
 - ``paged_decode_attention`` (O, lse) and ``paged_verify_attention`` at
   pool widths 384 (bf16, int4 pools) and 512 (int8, e4m3 pools);
 - the route functions at 384, 512 and 640 (the wide routes, the wide
-  builds) and a refusal past 1024 that names queue 2;
+  builds) and a refusal past 1024 that names queue 2; the wide_wgmma
+  kernel's shared-memory model in every mode at every wide head dim, and
+  verify's split planner for its CTAs (no JAX);
 - a 2-layer model at head_dim 320: ``DecodeEngine`` greedy tokens equal to
   the JAX engine's, and one AdamW train step against JAX's.
 
@@ -49,6 +52,7 @@ from flash_attention_dlrs_tpu.models import ModelConfig as JConfig
 from flash_attention_dlrs_tpu.models import make_train_step as jstep
 from flash_attention_dlrs_tpu.ops import decode as jdec
 from flash_attention_dlrs_tpu.runtime.engine import DecodeEngine as JEngine
+from flash_attention_dlrs_tpu_torch import geometry as geo
 from flash_attention_dlrs_tpu_torch import nn as tnn
 from flash_attention_dlrs_tpu_torch import tuning
 from flash_attention_dlrs_tpu_torch.models import ModelConfig as TConfig
@@ -217,16 +221,17 @@ def test_routes_take_the_wide_builds(d):
     """Every route function names its wide route at d, with every mode, and
     the builds the wrappers look up are the wide ones; CPU calls at d count
     no launch; the tiles a caller may pin at d are the wide build's own."""
-    for dtype, suffix in ((torch.float32, "fp32"), (torch.bfloat16, "mma"),
-                          (torch.float16, "mma")):
-        route = f"wide_{suffix}"
+    for dtype, fwd, bwd in ((torch.float32, "wide_fp32", "wide_fp32"),
+                            (torch.bfloat16, "wide_wgmma", "wide_mma"),
+                            (torch.float16, "wide_wgmma", "wide_mma")):
         tfwd.check_kernel_head_dim(d, "wide")
         for kw in ({}, dict(segments=True), dict(alibi=True, dropout=True)):
-            assert tbwd.bwd_route(dtype, d, **kw) == route
-            assert tfwd.fwd_route(dtype, d, fp8_v=dtype != torch.float32, **kw) == route
+            assert tbwd.bwd_route(dtype, d, **kw) == bwd
+            assert tfwd.fwd_route(dtype, d, fp8_v=dtype != torch.float32, **kw) == fwd
         for pool in (dtype, torch.int8, "int4", torch.float8_e4m3fn):
-            assert tdec.verify_route(dtype, pool, 16, d, alibi=True) == route
-        assert route in tfwd.ROUTE_CODES and route in tdec.VERIFY_ROUTE_CODES
+            assert tdec.verify_route(dtype, pool, 16, d, alibi=True) == fwd
+        assert fwd in tfwd.ROUTE_CODES and fwd in tdec.VERIFY_ROUTE_CODES
+        assert bwd in tfwd.ROUTE_CODES
     assert tfwd.fwd_kernel(d, True) is tfwd.FWD_WIDE_KERNEL
     assert tbwd.sweep_kernel("attn_bwd_dkv", d, False) is tbwd.DKV_WIDE_KERNEL
     assert tbwd.sweep_kernel("attn_bwd_dq", d, True) is tbwd.DQ_WIDE_KERNEL
@@ -239,10 +244,64 @@ def test_routes_take_the_wide_builds(d):
     with pytest.raises(ValueError, match="queue 2"):
         tfwd.fwd_route(torch.bfloat16, 1152)
     # the wide build's own tile is its only one, in every mode
-    tuning.BlockSizes(block_kv=64, block_kv_bwd=64).check(d, alibi=True, segments=True)
+    tuning.BlockSizes(block_kv=32, block_kv_bwd=64).check(d, alibi=True, segments=True)
     with pytest.raises(ValueError, match="wide build"):
         tuning.BlockSizes().check(d)
-    assert tuning.default_block_sizes(d) == tuning.BlockSizes(block_kv=64, block_kv_bwd=64)
+    assert tuning.default_block_sizes(d) == tuning.BlockSizes(block_kv=32, block_kv_bwd=64)
+
+
+WIDE_DIMS = (384, 512, 640, 768, 896, 1024)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_wgmma_layout_fits_every_mode(d):
+    """The wide_wgmma kernel's shared memory (geometry's byte model of
+    csrc/wide.cuh WgLayout) fits the 232,448 bytes an H100 CTA may opt into
+    at every wide head dim, for both 16-bit dtypes (one layout), with and
+    without segment ids, with fp8 V (no bytes of its own) and in verify;
+    the cut covers the head dim with owners of at most 256 columns and CTAs
+    of at most 512, and the ring has at least two stages."""
+    optin = geo.current_geometry("cpu").smem_per_block_optin
+    nc, nw, c = geo.wide_cut(d)
+    assert nc * nw * c * 64 == d and c * 64 <= 256 and nw * c * 64 <= 512 and nc <= 8
+    stages = geo.wide_fwd_stages(d)
+    assert 2 <= stages <= 4
+    sizes = {}
+    for segments, paged in ((False, False), (True, False), (False, True)):
+        n = geo.wide_fwd_smem_bytes(d, segments=segments, paged=paged)
+        assert geo.fits_smem(n), (segments, paged, n)
+        sizes[segments, paged] = n
+    # segment ids take one int a key of each stage, verify two scales a key
+    # of each stage (fp8 V none: it is converted from device memory)
+    assert sizes[True, False] - sizes[False, False] == stages * 32 * 4
+    assert sizes[False, True] - sizes[False, False] == stages * 2 * 32 * 4
+    # one more stage would not fit, unless the ring has its four
+    assert stages == 4 or geo._wide_fwd_bytes(d, stages + 1, False, True) > optin
+
+
+@pytest.mark.parametrize("d", [384, 512, 640, 1024])
+@pytest.mark.parametrize("tokens,page_size,pps", [(256, 128, 17), (4, 16, 136), (64, 128, 3),
+                                                  (1, 64, 40)])
+def test_verify_split_planner_wide_cta_shape(d, tokens, page_size, pps):
+    """verify_splits on the wide_wgmma route counts the kernel's CTAs (a
+    cluster of wide_cut's CTAs per 64-row block of the T x G rows), stays
+    within VERIFY_MAX_SPLITS and cuts the table into whole pages that cover
+    it; the fp32 route does not split."""
+    b, hq, hkv = 2, 4, 2
+    rows = tokens * (hq // hkv)
+    ctas = tdec.verify_ctas_per_split("wide_wgmma", rows, d)
+    assert ctas == -(-rows // 64) * geo.wide_cut(d)[0]
+    assert tdec.verify_ctas_per_split("wide_fp32", rows, d) == -(-rows // 64) * (d // 128)
+    for route in ("wide_wgmma", "wide_fp32"):
+        splits = tdec.verify_splits(route, b, hq, hkv, tokens, d, pps, page_size, 132)
+        assert 1 <= splits <= min(tdec.VERIFY_MAX_SPLITS, pps)
+        per, count = tdec.split_pages(pps, splits)
+        assert count == splits and per * splits >= pps and per * (splits - 1) < pps
+        # the planner's own cut: two CTAs an SM of half the SMs
+        want = tdec.decode_splits(b * tdec.verify_ctas_per_split(route, rows, d), hkv, pps,
+                                  page_size, 66)
+        assert splits == tdec.split_pages(pps, min(want, tdec.VERIFY_MAX_SPLITS))[1]
+    assert tdec.verify_splits("fp32", b, hq, hkv, tokens, d, pps, page_size, 132) == 1
 
 
 # ---------------------------------------------------------------------------
