@@ -8,9 +8,11 @@ warnings of every paged instance, and of every instance of the wide
 builds, none of which may spill, the wide_wgmma ones of two owners at 168
 registers), and beside them four broken copies of the dK/dV sweep (two at
 head dim 256), two of the paged kernels (a decode merge that drops the
-last key split, a verify that leaves a horizon-crossing tile unmasked)
-and two of the 16-bit wide forward (S summed without the last owner's
-partial score, or with an owner's own partial in place of its peers');
+last key split, a verify that leaves a horizon-crossing tile unmasked),
+two of the 16-bit wide forward (S summed without the last owner's
+partial score, or with an owner's own partial in place of its peers') and
+two of the 16-bit wide sweeps (dP summed without the last owner's
+partial, or S with an owner's own partial in place of its peers');
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
 route of the forward, of the backward sweeps and of verify: wgmma, fp32,
 and the paged kernels at their key-split and tile edges) against its plain
@@ -47,7 +49,7 @@ Then drives every path of the port:
 - training: make_train_state / make_train_step on the repo's training-bench
   model (scripts/bench_train.py:68-74: the b7 widths, d_model 4096, 32 q /
   8 kv heads, head_dim 128, d_ff 11008, vocab 32000, 8 layers, bf16, block
-  remat) at batch 8, sequence 2048, for 2 warm and 4 timed steps plus a
+  remat) at batch 8, sequence 2048, for 1 warm and 3 timed steps plus a
   profiled and a recorded one;
 - ALiBi training (train_alibi): the same model with
   position_encoding="alibi" and attn_dropout=0.1, step i seeded with i;
@@ -146,11 +148,11 @@ Then drives every path of the port:
 - head dims above 256 (csrc/wide.cuh, the wide builds): the forward, both
   sweeps, paged decode and verify against their plain versions at head dims
   320 (padded to 384), 512 and 640 in every mode and dtype (the 16-bit
-  forward and verify on wide_wgmma, the forward also at 768, 896 and
-  1024), the paged kernels at their key-split edges, the sweeps, paged
-  kernels and wide_wgmma forward bit for bit, the wide forward's mutants
-  caught, every instance's shared memory against geometry.py's model, and
-  their times at the re-headed
+  forward, verify and sweeps on wide_wgmma, the forward and the sweeps
+  also at 768, 896 and 1024), the paged kernels at their key-split edges,
+  the sweeps, paged kernels and wide_wgmma forward bit for bit, the wide
+  forward's and sweeps' mutants caught, every instance's shared memory
+  against geometry.py's model, and their times at the re-headed
   bench models' shapes (wide_heads); serving-bench-d512, the serving-bench
   model with 4 q / 2 kv heads of 512, served from bf16 KV eagerly and as
   graphed bursts of 8, from int8 KV and chunked with the prefix cache
@@ -640,6 +642,37 @@ def wide_wgmma_instances(log, source):
     return out
 
 
+def wide_bwd_instances(log):
+    """Registers, spills and ptxas performance warnings of every 16-bit
+    wide sweep instance (csrc/wide.cuh wide_bwd_dkv_kernel /
+    wide_bwd_dq_kernel) from attn_bwd_wide.cu's nvcc log, by
+    "<sweep>_<dtype>_d<head dim>" (the head dim from its cut: CTAs a
+    cluster x owners a CTA x 64-column chunks an owner)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"wide_bwd_(dkv|dq)_kernelI(\w+?)Li(\d)ELi(\d)ELi(\d)E", m.group(1))
+            cur = None
+            if k:
+                nc, nw, c = (int(x) for x in k.groups()[2:])
+                cur = (f"{k.group(1)}_{'bf16' if 'bfloat16' in k.group(2) else 'fp16'}"
+                       f"_d{64 * nc * nw * c}")
+                out[cur] = {"owners_a_cta": nw, "cluster": nc, "ptxas_warnings": []}
+            continue
+        if cur is None:
+            continue
+        if "Performance Loss" in line or "serialized" in line:
+            out[cur]["ptxas_warnings"].append(line.strip())
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 # Broken copies of the paged kernels, built as BWD_MUTANTS are:
 # decode_check must fail on each (phase paged_mutants).
 PAGED_MUTANTS = {
@@ -744,9 +777,9 @@ def phase_build(mutants=False):
         raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
     # the wide builds (csrc/wide.cuh): every instance's ptxas lines, none
     # may spill; the wide_wgmma instances (2 dtypes x 6 head dims in each of
-    # the forward and verify) by name, those of two owners a CTA at the
-    # launch's 168 registers (setmaxnreg moves registers only within them),
-    # none with serialized wgmmas
+    # the forward, verify and both sweeps) by name, those of two owners a
+    # CTA at the launch's 168 registers (setmaxnreg moves registers only
+    # within them), none with serialized wgmmas
     wide = {src: info[src]["ptxas"] for src in built if src.endswith("_wide.cu")}
     spilling = {src: [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
                 for src, lines in wide.items()}
@@ -755,14 +788,17 @@ def phase_build(mutants=False):
     for src in ("attn_fwd_wide.cu", "paged_verify_wide.cu"):
         if src in built:
             wgmma.update(wide_wgmma_instances(built[src]["log"], src))
-    wrong = {k: v for k, v in wgmma.items()
+    sweeps = wide_bwd_instances(built["attn_bwd_wide.cu"]["log"]) if (
+        "attn_bwd_wide.cu" in built) else {}
+    wrong = {k: v for k, v in {**wgmma, **sweeps}.items()
              if v["ptxas_warnings"] or (v["owners_a_cta"] == 2 and v.get("registers") != LAUNCH_REGS)}
     emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling,
-          "wide_wgmma_instances": wgmma})
+          "wide_wgmma_instances": wgmma, "wide_bwd_instances": sweeps})
     if spilling:
         raise AssertionError(f"wide instances spill: {spilling}")
-    if wrong or (wgmma and len(wgmma) != 24):
-        raise AssertionError(f"wide_wgmma instances off ({len(wgmma)} of 24): {wrong}")
+    if wrong or (wgmma and len(wgmma) != 24) or (sweeps and len(sweeps) != 24):
+        raise AssertionError(f"wide_wgmma instances off ({len(wgmma)} + {len(sweeps)} of "
+                             f"24 + 24): {wrong}")
     counts = {k: sum(n.startswith(k) for n in paged)
               for k in ("decode_", "verify_wgmma_", "verify_fp32_")}
     if paged and counts != {"decode_": 84, "verify_wgmma_": 120, "verify_fp32_": 3}:
@@ -3597,7 +3633,7 @@ def phase_variants(dev):
 TRAIN_CFG = dict(vocab_size=32000, d_model=4096, n_layers=8, n_q_heads=32,
                  n_kv_heads=8, head_dim=128, d_ff=11008)
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
-TRAIN_WARM_STEPS, TRAIN_TIMED_STEPS = 2, 4
+TRAIN_WARM_STEPS, TRAIN_TIMED_STEPS = 1, 3
 TRAIN_ALIBI_DROPOUT = 0.1  # train_alibi: the ALiBi model with attention dropout
 # The fp32 copy of the training model: 2 layers at full width, batch 2.  Its
 # kernel path computes in true fp32, so its loss and gradients must match
@@ -3910,9 +3946,9 @@ def phase_train(dev, name="train", kernels=None, route="wgmma", warm=TRAIN_WARM_
 GEMMA_TRAIN_BATCH, GEMMA_TRAIN_SEQ, GEMMA_LOSS_CHUNK = 2, 8192, 1024
 # the save_flash run's warm and timed steps; the adamw8bit run takes the
 # AdamW run's (its losses are printed beside AdamW's)
-GEMMA_SAVE_FLASH_WARM, GEMMA_SAVE_FLASH_TIMED = 1, 3
+GEMMA_SAVE_FLASH_WARM, GEMMA_SAVE_FLASH_TIMED = 1, 2
 # steps per turn of the LM-head comparison (fp32, bf16, bf16, fp32)
-LM_HEAD_AB_STEPS = 2
+LM_HEAD_AB_STEPS = 1
 
 
 def gemma_train_model(dev, dtype, n_layers, **overrides):
@@ -4082,7 +4118,7 @@ def gemma_launches_exact(run, fwd_per_layer, n_layers):
 def phase_train_gemma2(dev):
     """Gemma-2-2B trained at full width and depth (26 layers, head dim 256,
     softcaps 50 / 30, the 4096 window on even layers; B2 x N8192, block
-    remat, AdamW): 2 warm and 4 timed steps with exact launch counts per
+    remat, AdamW): 1 warm and 3 timed steps with exact launch counts per
     kernel and route (the head-dim-256 backward sweeps on the wgmma route);
     ms/step, tokens/s, MFU, peak; the optimizer update's time; one profiled
     step's device time by kind; the LM head
@@ -4252,7 +4288,7 @@ def phase_train_gemma2_dropout(dev, gemma_rec):
 # the JAX package's comments size the policies for, transformer.py:387-400)
 # under each, from the same weights; steps per policy.
 REMAT_POLICIES = ("block", "save_flash", "save_dots", "save_matmuls")
-REMAT_WARM, REMAT_TIMED = 1, 3
+REMAT_WARM, REMAT_TIMED = 1, 2
 
 
 def phase_remat(dev):
@@ -4922,7 +4958,7 @@ def time_bwd(dev, gen, b, hq, hkv, n, d, mod=None, seg=None, window=0, softcap=0
         want = want if isinstance(want, tuple) else (want,)
         err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
         ms = median_ms(kernel)
-        plain_ms = median_ms(plain, warmup=1, reps=3)
+        plain_ms = median_ms(plain, warmup=0, reps=1)  # warm: it ran for the error
         flops, nbytes = work[name]
         bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         rows[name] = {"ms": ms, "plain_ms": plain_ms,
@@ -4983,7 +5019,7 @@ def time_fwd(gen, dev, b, hq, hkv, n, d, mod, seg=None, v8=None, window=0, softc
                  - attn_fwd_plain(q, k, v, **kw)[0].float()).abs().max())
     ms = median_ms(lambda: attn_fwd(q, k, v, **kw))
     route = fwd_route(q.dtype, d, ids is not None, bool(v8))
-    plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=1, reps=3)
+    plain_ms = median_ms(lambda: attn_fwd_plain(q, k, v, **kw), warmup=0, reps=1)
     lib_ms = None
     if softcap:
         pass  # no PyTorch call softcaps the scores
@@ -5341,7 +5377,7 @@ def time_paged(gen, dev, kind, b, lengths, t_new, alibi=False, heads=None, softc
     flops, nbytes = paged_work(kind, b, hq, hkv, d, lengths, t_new)
     bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
     dev_ms = device_ms(kernel, between=l2_flush(dev), floor_ms=bound_ms)
-    plain_ms = median_ms(plain, warmup=1, reps=3)
+    plain_ms = median_ms(plain, warmup=0, reps=1)
     del q, kp, vp, args
     torch.cuda.empty_cache()
     per_dev = ({"device_ms_unread": "under its bound, or launches outlasting the spin"}
@@ -5818,7 +5854,7 @@ def phase_native(dev, model, cfg):
 # 2048 tokens of val.bin, dense and paged from every KV kind.
 GATE_CFG = dict(vocab_size=512, d_model=768, n_layers=8, n_q_heads=12, n_kv_heads=4,
                 head_dim=64, d_ff=2048)
-GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 120, 200, 6e-4
+GATE_BATCH, GATE_SEQ, GATE_STEPS, GATE_WARMUP, GATE_LR = 16, 2048, 40, 200, 6e-4
 GATE_CORPUS_MB, GATE_EVAL, GATE_PPL, GATE_PAGED_RTOL = 32, 2, 0.1, 1e-2
 GATE_KINDS = ("bf16", "int8", "int4", "e4m3", "e5m2")
 
@@ -7452,6 +7488,18 @@ _WIDE_MUTANT_ONLY_512_640 = [
     (f"    case {d}: return launch_wgmma_cut<T, PAGED, {cut}>(a, tm_q, tm_k, tm_v, tma, grid);",
      f"    case {d}: return int(cudaErrorInvalidValue);")
     for d, cut in ((384, "1, 2, 3"), (768, "2, 2, 3"), (896, "7, 1, 2"), (1024, "2, 2, 4"))]
+# The 16-bit wide sweeps (wide_bwd_dkv_kernel, wide_bwd_dq_kernel) broken
+# alike in their exchange (BwdExchange, shared by both): dP summed without
+# the last owner's partial, and S summed with each owner's own partial in
+# place of its peers'.  bwd_check's wide cases at d 512 and 640 must catch
+# each; the mutants build only those widths' cuts.
+_WIDE_BWD_MUTANT_ONLY_512_640 = [
+    (f"      case {d}: return launch_bwd_cut<T, true, {cut}>(a, maps, grid);",
+     f"      case {d}: return int(cudaErrorInvalidValue);")
+    for d, cut in ((384, "3, 1, 2"), (768, "6, 1, 2"), (896, "7, 1, 2"), (1024, "8, 1, 2"))] + [
+    (f"    case {d}: return launch_bwd_cut<T, false, {cut}>(a, maps, grid);",
+     f"    case {d}: return int(cudaErrorInvalidValue);")
+    for d, cut in ((384, "3, 1, 2"), (768, "3, 1, 4"), (896, "7, 1, 2"), (1024, "4, 1, 4"))]
 WIDE_MUTANTS = {
     "wide_fwd_drops_last_chunk": ("attn_fwd_wide.cu", "wide.cuh", [(
         "for (int p = 0; p < OWNERS; ++p) {  // every owner's partial, in owner order",
@@ -7461,6 +7509,14 @@ WIDE_MUTANTS = {
         "const int src = p;  // the owner whose partial is added",
         "const int src = p == 0 ? p : me;  // the owner whose partial is added"),
     ] + _WIDE_MUTANT_ONLY_512_640),
+    "wide_bwd_drops_last_dp": ("attn_bwd_wide.cu", "wide.cuh", [(
+        "for (int p = 0; p < OWNERS; ++p) {  // dP: each owner's partial in owner order",
+        "for (int p = 0; p < OWNERS - 1; ++p) {  // dP: each owner's partial in owner order"),
+    ] + _WIDE_BWD_MUTANT_ONLY_512_640),
+    "wide_bwd_adds_own_s": ("attn_bwd_wide.cu", "wide.cuh", [(
+        "const int src_s = p;  // the owner whose S partial is added",
+        "const int src_s = p == 0 ? p : me;  // the owner whose S partial is added"),
+    ] + _WIDE_BWD_MUTANT_ONLY_512_640),
 }
 WIDE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
 WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cap, below
@@ -7518,8 +7574,9 @@ def wide_fwd_cases():
 
 def wide_bwd_cases():
     """bwd_check cases of the wide sweeps at d 384, 512, 640 and 1024 (the
-    cap): every mode but fp8 V, in bf16, fp16 and fp32, and the training
-    model's attention."""
+    cap): every mode but fp8 V, in bf16, fp16 and fp32, the training
+    model's attention, and bf16 at 768 and 896, whose cuts of the head dim
+    (clusters of 6 and 3 CTAs, of 7) no other width takes."""
     cases = []
     for d in WIDE_WIDTHS:
         tag = f"d{d}"
@@ -7541,6 +7598,9 @@ def wide_bwd_cases():
         ("d1024_alibi_dropout_seg_bf16", BF16, 1, 2, 1, 300, 300, 1024, True, 0, 0.0, None,
          dict(_BOTH, seg="packed")),
         ("d1024_fp32_window_softcap", F32, 1, 2, 1, 200, 200, 1024, True, 64, 25.0, None, {}),
+        ("d768_causal_gqa_bf16", BF16, 1, 4, 2, 300, 300, 768, True, 0, 0.0, None, {}),
+        ("d896_window_softcap_alibi_bf16", BF16, 1, 4, 2, 257, 257, 896, True, 100, 30.0,
+         None, _ALIBI),
     ]
 
 
@@ -7810,13 +7870,15 @@ def _faster_library(row, expanded, backend):
         row["library"] = f"scaled_dot_product_attention, {backend}, enable_gqa"
 
 
-# The times of the column-chunked mma.sync forward and verify that the
-# wide_wgmma kernel replaced, at the shapes wide_timings measures (H100
-# 80GB HBM3, 700 W; PERF.md section 6), printed beside the new ones.
+# The times of the column-chunked mma.sync kernels that the wide_wgmma
+# kernels replaced, at the shapes wide_timings measures (H100 80GB HBM3,
+# 700 W; PERF.md section 6), printed beside the new ones: the forward,
+# verify, the sweeps and their family with the preprocess.
 WIDE_MMA_SYNC_MS = {
     "fwd_train_d512": {"ms": 8.06}, "fwd_serve_prefill_d512": {"ms": 0.900},
     "verify_d512_bf16_T256_ctx2048": {"ms": 0.624, "device_ms": 0.541},
     "verify_d512_int8_T256_ctx2048": {"ms": 0.500, "device_ms": 0.437},
+    "bwd_train_d512": {"attn_bwd_dkv": 25.10, "attn_bwd_dq": 12.81, "attn_bwd": 37.70},
 }
 
 
@@ -7872,6 +7934,9 @@ def wide_timings(dev, gen):
                     t["sdpa_backend_d512"])
     for key, before in WIDE_MMA_SYNC_MS.items():
         t[key]["mma_sync_kernel"] = before
+    family = t["bwd_train_d512"]["attn_bwd"]
+    t["bwd_train_d512"]["family_vs_sdpa"] = (family["ms"] / family["library_ms"]
+                                             if family["library_ms"] else None)
     return t
 
 
@@ -7902,27 +7967,39 @@ def wide_fwd_repeats(dev, gen):
 
 
 def wide_mutants_caught(dev, builds):
-    """Each broken copy of WIDE_MUTANTS in place of FWD_WIDE_KERNEL on the
-    wide forward cases at d 512 and 640: each must fail at least one."""
+    """Each broken copy of WIDE_MUTANTS in place of its build's kernels:
+    the forward's (FWD_WIDE_KERNEL) on the wide forward cases at d 512 and
+    640, the sweeps' (DKV_WIDE_KERNEL and DQ_WIDE_KERNEL) on the 16-bit wide
+    bwd_check cases there: each must fail at least one."""
     import torch
     from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
     from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
 
     wait = wait_mutant_builds(builds)
-    cases = [c for c in wide_fwd_cases() if c[7] in (512, 640) and c[2] * c[5] <= 2048]
+    fwd_cases = [c for c in wide_fwd_cases() if c[7] in (512, 640) and c[2] * c[5] <= 2048]
+    bwd_cases = [c for c in wide_bwd_cases() if c[7] in (512, 640) and c[1] != F32
+                 and c[2] * c[5] <= 2048]
     caught = {}
     for name, (_, lib, source) in builds.items():
-        real = fk.FWD_WIDE_KERNEL
+        sweeps = source == "attn_bwd_wide.cu"
+        slots = ((bk, "DKV_WIDE_KERNEL"), (bk, "DQ_WIDE_KERNEL")) if sweeps else (
+            (fk, "FWD_WIDE_KERNEL"),)
+        real = [getattr(mod, attr) for mod, attr in slots]
         failed = []
         gen = torch.Generator(device=dev).manual_seed(9)
         try:
-            fk.FWD_WIDE_KERNEL = _cuda.CudaKernel(source, real.symbol, real.argtypes,
-                                                  library=lib)
-            for case in cases:
-                if not fwd_case(dev, gen, case, phase="wide_mutants")["ok"]:
+            for (mod, attr), kernel in zip(slots, real):
+                setattr(mod, attr, _cuda.CudaKernel(source, kernel.symbol, kernel.argtypes,
+                                                    library=lib))
+            for case in bwd_cases if sweeps else fwd_cases:
+                ok = (bwd_case(dev, gen, case)[1] if sweeps
+                      else fwd_case(dev, gen, case, phase="wide_mutants")["ok"])
+                if not ok:
                     failed.append(case[0])
         finally:
-            fk.FWD_WIDE_KERNEL = real
+            for (mod, attr), kernel in zip(slots, real):
+                setattr(mod, attr, kernel)
         caught[name] = failed
     return caught, wait
 
@@ -7931,8 +8008,8 @@ def wide_shared_bytes():
     """Every wide instance's dynamic shared memory, from its build's
     ``*_shared_bytes`` entry, against geometry.py's model: the wide_wgmma
     forward by dtype, head dim and modes (segment ids, fp8 V), its verify by
-    dtype and head dim, the fp32 kernels' and the sweeps' one layout each:
-    {layout: [C, Python]}."""
+    dtype and head dim, the 16-bit sweeps by sweep, dtype, head dim and
+    segment ids, the fp32 kernels' one layout: {layout: [C, Python]}."""
     import ctypes
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch import geometry as geo
@@ -7944,11 +8021,10 @@ def wide_shared_bytes():
         return fn
 
     fwd, verify = entry("attn_fwd_wide.cu", 3), entry("paged_verify_wide.cu", 2)
-    bwd = entry("attn_bwd_wide.cu", 1)
-    out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), geo.wide_smem_bytes(4)],
-           "paged_verify_wide_fp32": [verify(0, 512), geo.wide_smem_bytes(4)],
-           "attn_bwd_wide_fp32": [bwd(0), geo.wide_smem_bytes(4)],
-           "attn_bwd_wide_16bit": [bwd(1), geo.wide_smem_bytes(2)]}
+    bwd = entry("attn_bwd_wide.cu", 3)
+    out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), geo.wide_smem_bytes()],
+           "paged_verify_wide_fp32": [verify(0, 512), geo.wide_smem_bytes()],
+           "attn_bwd_wide_fp32": [bwd(0, 512, 0), geo.wide_smem_bytes()]}
     for dtype, name in ((1, "bf16"), (2, "fp16")):
         for d in WIDE_ALL:
             for seg, v8 in ((False, False), (True, False), (False, True), (True, True)):
@@ -7957,6 +8033,11 @@ def wide_shared_bytes():
                             geo.wide_fwd_smem_bytes(d, segments=seg)]
             out[f"paged_verify_wide_{name}_d{d}"] = [verify(dtype, d),
                                                      geo.wide_fwd_smem_bytes(d, paged=True)]
+            for sweep, dkv in (("dkv", True), ("dq", False)):
+                for seg in (False, True):
+                    out[f"attn_bwd_{sweep}_wide_{name}_d{d}{'_seg' if seg else ''}"] = [
+                        bwd(dtype, d, int(seg) | 2 * int(dkv)),
+                        geo.wide_bwd_smem_bytes(d, segments=seg, dkv=dkv)]
     return out
 
 
@@ -7966,9 +8047,10 @@ def phase_wide_heads(dev):
     forward also at 768 and 896): the forward once (fwd_case), the sweeps
     twice, bit for bit (bwd_case), the paged kernels twice, bit for bit, at
     their key-split edges (paged_case); each call on the route its route
-    function names (the 16-bit forward and verify on wide_wgmma, the sweeps
-    on wide_mma).  Then the entry points at head dims 320 and 640
-    (wide_op_checks), each mutant of WIDE_MUTANTS caught, every instance's
+    function names (the 16-bit forward, verify and sweeps on wide_wgmma).
+    Then the entry points at head dims 320 and 640 (wide_op_checks), each
+    mutant of WIDE_MUTANTS caught (the forward's by fwd_check, the sweeps'
+    by bwd_check, at d 512 and 640), every instance's
     shared memory against geometry.py's model (wide_shared_bytes), and the
     kernels timed at the re-headed bench models' shapes."""
     import torch
@@ -8003,7 +8085,7 @@ def phase_wide_heads(dev):
             all(r["ok"] for r in bwd.values()),
         "paged_every_case_kernel_vs_plain_bitwise": all(r["ok"] for r in paged.values()),
         **op_checks,
-        "mutants_fail_fwd_check": all(bool(f) for f in caught.values()),
+        "mutants_fail_their_check": all(bool(f) for f in caught.values()),
         "shared_bytes_match_geometry": all(c == p for c, p in shared.values()),
     }
     rec = {"phase": "wide_heads", "cases": {"fwd": len(fwd), "bwd": len(bwd),
@@ -8145,8 +8227,8 @@ def phase_train_d512(dev):
     512 (scripts/bench_train.py:68-74 with 8 q / 2 kv heads of 512; 8
     layers, bf16, block remat) trained through make_train_state /
     make_train_step at B8 x N2048 on the wide kernels (phase_train: 1 warm
-    and 2 timed steps, exact launches: the forward on the wide_wgmma route,
-    the sweeps on wide_mma; every layer's
+    and 2 timed steps, exact launches: the forward and the sweeps on the
+    wide_wgmma route; every layer's
     attention forward and backward against the plain versions, a 2-layer
     fp32 copy within 1e-3 x std)."""
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel, fwd_kernel
@@ -8156,7 +8238,7 @@ def phase_train_d512(dev):
                "attn_bwd_dkv": bwd_kernel.DKV_WIDE_KERNEL,
                "attn_bwd_dq": bwd_kernel.DQ_WIDE_KERNEL}
     return phase_train(dev, "train_d512", kernels=kernels, route="wide_wgmma",
-                       bwd_route="wide_mma", warm=TRAIN_D512_WARM, timed=TRAIN_D512_TIMED,
+                       bwd_route="wide_wgmma", warm=TRAIN_D512_WARM, timed=TRAIN_D512_TIMED,
                        **D512_TRAIN_HEADS)
 
 
@@ -8247,33 +8329,44 @@ def main() -> int:
         later_phases(dev, only)
         print(card_line(), flush=True)
         return 0
-    bwd_mutants, paged_mutants = phase_build(mutants=True)
-    phase_mask(dev)
-    fwd_res = phase_fwd(dev)
-    phase_bwd(dev)
-    dec_res = phase_decode(dev)
-    serve_rec, model, cfg = phase_serve(dev)
-    quant_runs = phase_serve_quant(dev, model, cfg)
-    chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg)
-    alibi_runs = phase_serve_alibi(dev, model)
-    burst = phase_serve_burst(dev, model, cfg)
-    spec = phase_serve_spec(dev, model, cfg, burst)
+    early = {}  # seconds of each phase before the later ones
+
+    def run(name, phase, *args, **kw):
+        t0 = time.perf_counter()
+        out = phase(*args, **kw)
+        early[name] = time.perf_counter() - t0
+        return out
+
+    bwd_mutants, paged_mutants = run("build", phase_build, mutants=True)
+    run("mask", phase_mask, dev)
+    fwd_res = run("fwd", phase_fwd, dev)
+    run("bwd", phase_bwd, dev)
+    dec_res = run("decode", phase_decode, dev)
+    serve_rec, model, cfg = run("serve", phase_serve, dev)
+    quant_runs = run("serve_quant", phase_serve_quant, dev, model, cfg)
+    chunked_runs, dense_fwd = run("serve_chunked", phase_serve_chunked, dev, model, cfg)
+    alibi_runs = run("serve_alibi", phase_serve_alibi, dev, model)
+    burst = run("serve_burst", phase_serve_burst, dev, model, cfg)
+    spec = run("serve_spec", phase_serve_spec, dev, model, cfg, burst)
     del model
     torch.cuda.empty_cache()
-    phase_mutants(dev, bwd_mutants)  # their builds ran beside the serving phases
-    phase_paged_mutants(dev, paged_mutants)
-    gemma = phase_serve_gemma2(dev)
-    alibi_d256_runs = phase_serve_alibi_d256(dev)
-    variants = phase_variants(dev)
-    train_rec = phase_train(dev)
-    train_alibi_rec = phase_train(dev, "train_alibi", position_encoding="alibi",
-                                  attn_dropout=TRAIN_ALIBI_DROPOUT)
-    packed_rec = phase_packed(dev)
-    gemma_train_rec = phase_train_gemma2(dev)
-    gemma_dropout_rec = phase_train_gemma2_dropout(dev, gemma_train_rec)
-    phase_remat(dev)
-    phase_bf16_reduction(dev)
-    timings = phase_time(dev, train_rec, train_alibi_rec, packed_rec, gemma_train_rec)
+    run("mutants", phase_mutants, dev, bwd_mutants)  # their builds ran beside the serving phases
+    run("paged_mutants", phase_paged_mutants, dev, paged_mutants)
+    gemma = run("serve_gemma2", phase_serve_gemma2, dev)
+    alibi_d256_runs = run("serve_alibi_d256", phase_serve_alibi_d256, dev)
+    variants = run("variants", phase_variants, dev)
+    train_rec = run("train", phase_train, dev)
+    train_alibi_rec = run("train_alibi", phase_train, dev, "train_alibi",
+                          position_encoding="alibi", attn_dropout=TRAIN_ALIBI_DROPOUT)
+    packed_rec = run("packed", phase_packed, dev)
+    gemma_train_rec = run("train_gemma2", phase_train_gemma2, dev)
+    gemma_dropout_rec = run("train_gemma2_dropout", phase_train_gemma2_dropout, dev,
+                            gemma_train_rec)
+    run("remat", phase_remat, dev)
+    run("bf16_reduction", phase_bf16_reduction, dev)
+    timings = run("time", phase_time, dev, train_rec, train_alibi_rec, packed_rec,
+                  gemma_train_rec)
+    emit({"phase": "early_seconds", "seconds": early})
     later = later_phases(dev)
     emit_kernels(fwd_res, dec_res,
                  (serve_rec, quant_runs, chunked_runs, dense_fwd, train_rec,

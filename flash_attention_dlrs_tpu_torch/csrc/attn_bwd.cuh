@@ -89,22 +89,6 @@ constexpr int KV_TILE = 64;  // dkv: keys per CTA
 constexpr int Q_TILE = 64;   // dq: q rows per CTA
 __host__ __device__ constexpr int f32_step(int D) { return D == 256 ? 32 : 64; }
 
-// q tiles of STEP rows that see keys [n0, n0 + KEYS): the transpose of
-// kv_tiles.  Causal: rows from the diagonal on (row + Nkv - Nq >= n0);
-// window: rows whose band still reaches the tile's last key.
-template <int STEP, int KEYS>
-__device__ __forceinline__ TileRange q_tiles(int n0, int Nq, int Nkv, int causal,
-                                             int window) {
-  const int q_off = Nkv - Nq;
-  int row_lo = 0, row_hi = Nq;
-  if (causal) {
-    row_lo = max(0, n0 - q_off);
-    if (window > 0) row_hi = min(Nq, n0 + KEYS - 1 - q_off + window);
-  }
-  if (row_lo >= row_hi) return {0, 0};
-  return {row_lo / STEP, (row_hi + STEP - 1) / STEP};
-}
-
 // The score of one (row, col) pair from its raw product: scaled, softcapped.
 // `dcap` gets the softcap's derivative 1 - (S_c / cap)^2 (1 without one).
 __device__ __forceinline__ float score(float s, float sm_scale, float softcap,

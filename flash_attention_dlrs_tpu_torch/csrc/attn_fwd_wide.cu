@@ -61,7 +61,7 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
 // dim D) and mode flags (1: segment ids, 2: fp8 V, 4: the layout of paged
 // verify); 0 for a head dim no kernel takes.
 extern "C" int attn_fwd_wide_shared_bytes(int dtype, int D, int flags) {
-  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  if (dtype == 0) return int(WideLayout::BYTES);
   return wide_wgmma_smem(D, (flags & 1) != 0, (flags & 4) != 0);
 }
 

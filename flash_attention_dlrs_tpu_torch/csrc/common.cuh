@@ -138,6 +138,22 @@ __device__ __forceinline__ TileRange kv_tiles(int m0, int Nq, int Nkv,
   return {col_lo / N, col_hi > 0 ? (col_hi + N - 1) / N : 0};
 }
 
+// q tiles of STEP rows that see keys [n0, n0 + KEYS): the transpose of
+// kv_tiles.  Causal: rows from the diagonal on (row + Nkv - Nq >= n0);
+// window: rows whose band still reaches the tile's last key.
+template <int STEP, int KEYS>
+__device__ __forceinline__ TileRange q_tiles(int n0, int Nq, int Nkv, int causal,
+                                             int window) {
+  const int q_off = Nkv - Nq;
+  int row_lo = 0, row_hi = Nq;
+  if (causal) {
+    row_lo = max(0, n0 - q_off);
+    if (window > 0) row_hi = min(Nq, n0 + KEYS - 1 - q_off + window);
+  }
+  if (row_lo >= row_hi) return {0, 0};
+  return {row_lo / STEP, (row_hi + STEP - 1) / STEP};
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }

@@ -71,7 +71,7 @@ extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages
 // column-chunked kernel; else the wide_wgmma kernel at pool head dim D), in
 // bytes; 0 for a head dim no kernel takes.
 extern "C" int paged_verify_wide_shared_bytes(int dtype, int D) {
-  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  if (dtype == 0) return int(WideLayout::BYTES);
   return wide_wgmma_smem(D, false, true);
 }
 

@@ -1,7 +1,8 @@
-// Attention kernels for head dims above 256, sm_90a: the 16-bit forward and
-// paged verify on Hopper's warpgroup products (route "wide_wgmma"), the fp32
-// forward and verify and both backward sweeps on column-chunked tiles, paged
-// decode on the CUDA cores, and the merge of key splits.  Included by
+// Attention kernels for head dims above 256, sm_90a: the 16-bit forward,
+// paged verify and both backward sweeps on Hopper's warpgroup products
+// (route "wide_wgmma"), the fp32 forward, verify and sweeps on
+// column-chunked tiles, paged decode on the CUDA cores, and the merge of key
+// splits.  Included by
 // attn_fwd_wide.cu, attn_bwd_wide.cu, paged_decode_wide.cu and
 // paged_verify_wide.cu, which compile side by side.
 //
@@ -75,24 +76,59 @@
 //    causal row tiles run heaviest first; the running max is exact in fp32
 //    and the exponentials are ex2.approx.ftz.
 //
-// The fp32 forward and verify ("wide_fp32") and the sweeps ("wide_mma"):
+// The 16-bit backward sweeps ("wide_wgmma": wide_bwd_dkv_kernel,
+// wide_bwd_dq_kernel).  Bound on this card by operations: 8 d (dK/dV) and
+// 6 d (dQ) flops per visible pair and q head on the tensor cores.  The
+// mma.sync sweeps these replaced reached 2-3% of that: a CTA owned one
+// 128-column chunk of dK, dV or dQ and recomputed S (and dP) over the whole
+// head dim for it, the dK/dV sweep running dV and dK as separate CTAs (at
+// d 512 14 units of work against 4; dQ 9 against 3), with every operand
+// restaged per tile through two cp.async stages and a block-wide barrier a
+// chunk.  What this design does:
+//  * S and dP once a tile, the head dim split among owners (consumer
+//    warpgroups; wide_bwd_cut): a dK/dV owner holds dK and dV for 128
+//    columns, a dQ owner dQ for 256 where D is a multiple of 256 (else
+//    128); one owner a CTA, two in the dK/dV sweep at d 512, the rest a
+//    thread-block cluster.  Each owner computes partial S and dP over its
+//    columns (wgmma.m64n32k16, both operands in shared memory, one commit
+//    group) and BwdExchange sums every owner's partials, S then dP, in owner
+//    order, in one round trip a tile: each owner writes its partials to its
+//    own CTA's shared memory and bulk-copies them into every peer's (DSMEM),
+//    so every read is local; every owner then builds the same P and dS.
+//  * dK/dV: a cluster holds 64 keys (K and V by TMA, once) and streams
+//    32-row Q and dO tiles of each q head of the GQA group in turn (q_tiles
+//    skips the rows that see none of the keys), the producer staging each
+//    tile's lse (base 2), D and q segment ids beside it; dV += (P o M)^T dO
+//    and dK += dS^T Q in one pass (8 d a pair where the old sweeps spent 28
+//    d), the stage read MN-major.  dQ: a cluster holds 64 q rows (Q and dO
+//    by TMA, heaviest causal tiles first) and streams the 32-key K and V
+//    tiles the rows see (kv_tiles); dQ += dS K (K read MN-major) runs beside
+//    the next tile's score products, exchange and element loop.
+//  * The element loop is attn_bwd_sm90.cuh's: P from the passed natural-base
+//    lse in base 2 (ex2.approx.ftz), the softcap, the mask and ALiBi
+//    compiled out of a tile that needs none (with_flags), the dropout mask
+//    regenerated bit for bit, P and dS rounded to T for the products, dK and
+//    dQ scaled by sm_scale once at the end.  A producer warpgroup fills an
+//    mbarrier ring (2-4 stages, as many as fit); setmaxnreg 40 / 232 where
+//    a CTA has two owners.
+//  * What bounds them now (wide_breakdown_torch.py): the exchange, whose
+//    cross-CTA round trip a 32-row tile waits on, and the element loop
+//    every owner repeats on the whole tile; the products are the smaller
+//    part (PERF.md).
+//
+// The fp32 forward, verify and sweeps ("wide_fp32"):
 //  * Products over the head dim (S = Q K^T, dP = dO V^T and their
 //    transposes) stream both operands through shared memory in chunks of
-//    128 bytes a row (64 bf16 / fp16 columns, 32 fp32), double-buffered
-//    by cp.async, into a warp's 16 x 64 block of fp32 scores.
+//    128 bytes a row (32 columns), double-buffered by cp.async, into a
+//    warp's 16 x 64 block of scores, in true fp32 on the CUDA cores.
 //  * Each CTA owns 64 rows and one 128-column chunk of its output (O, dQ,
 //    dK or dV): the update product multiplies the 64-key tile of
 //    probabilities (or dS) into that chunk only.  Scores are recomputed
 //    for each output chunk: the dK/dV sweep runs dV and dK as separate
-//    CTAs (dV needs no dP), at d 512 4 x (S + dP) + 4 x S + dV + dK = 14
-//    units against 4, 3.5x; the dQ sweep 4 x (S + dP) + dQ, 3x.
-//  * bf16 / fp16 run on the tensor cores (mma.sync m16n8k16, fp32
-//    accumulate, ldmatrix); fp32 runs in true fp32 on the CUDA cores with
-//    the same fragment layout, so masks, softmax and updates are shared.
+//    CTAs (dV needs no dP).
 //  * Every output element has one owner and every sum runs in a fixed
-//    order (the 16-bit forward's too); there are no atomics.
-// Decode is bound by bytes (3.35 TB/s).  The sweeps are right first; their
-// redesign for Hopper is later work (ROADMAP.md).
+//    order (the 16-bit kernels' too); there are no atomics.
+// Decode is bound by bytes (3.35 TB/s).
 
 #pragma once
 
@@ -107,33 +143,31 @@ constexpr int WTHREADS = 128;   // 4 warps of 16 rows
 constexpr int WIDE_MAX_D = 1024;
 
 // Route codes of the wide C entries (ops/fwd_kernel.py ROUTE_CODES,
-// ops/decode.py VERIFY_ROUTE_CODES): fp32, the sweeps' mma.sync, and the
-// 16-bit forward and verify on wgmma.
-constexpr int kRouteWideF32 = 2, kRouteWideMma = 3, kRouteWideWgmma = 4;
+// ops/decode.py VERIFY_ROUTE_CODES): fp32 on the CUDA cores, and the
+// 16-bit forward, verify and sweeps on wgmma.
+constexpr int kRouteWideF32 = 2, kRouteWideWgmma = 4;
 
 // Whether D is a head dim of these kernels.
 __host__ __device__ constexpr bool wide_head_dim(int D) {
   return D > 256 && D <= WIDE_MAX_D && D % WCOLS == 0;
 }
 
-// Shared memory of the column-chunked kernels, in bytes from an aligned
-// base: two stages of each streamed operand (64 rows x 128 bytes, padded),
-// the update tile (64 rows x 128 columns), fp32 P of each warp (the fp32
-// route's update reads it back), six vectors of 64 (segment ids, scales,
-// lse, D) and the paged tile's stored-row offsets.
-template <typename T>
+// Shared memory of the column-chunked fp32 kernels, in bytes from an
+// aligned base: two stages of each streamed operand (64 rows x 128 bytes,
+// padded), the update tile (64 rows x 128 columns), P of each warp (the
+// update reads it back), six vectors of 64 (segment ids, scales, lse, D)
+// and the paged tile's stored-row offsets.
 struct WideLayout {
-  static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int KC = 128 / int(sizeof(T));          // columns of a streamed chunk
-  static constexpr int SA = KC + 16 / int(sizeof(T));      // its row stride
-  static constexpr int ST = WCOLS + 16 / int(sizeof(T));   // the update tile's row stride
-  static constexpr int PS = WKEYS + 4;                     // fp32 P's row stride
-  static constexpr size_t CHUNK = size_t(WROWS) * SA * sizeof(T);
+  static constexpr int KC = 32;         // columns of a streamed chunk
+  static constexpr int SA = KC + 4;     // its row stride
+  static constexpr int ST = WCOLS + 4;  // the update tile's row stride
+  static constexpr int PS = WKEYS + 4;  // P's row stride
+  static constexpr size_t CHUNK = size_t(WROWS) * SA * 4;
   static constexpr size_t A_OFF = 0;
   static constexpr size_t B_OFF = 2 * CHUNK;
   static constexpr size_t T_OFF = 4 * CHUNK;
-  static constexpr size_t P_OFF = T_OFF + size_t(WKEYS) * ST * sizeof(T);
-  static constexpr size_t VEC_OFF = P_OFF + (F32 ? size_t(4) * 16 * PS * 4 : 0);
+  static constexpr size_t P_OFF = T_OFF + size_t(WKEYS) * ST * 4;
+  static constexpr size_t VEC_OFF = P_OFF + size_t(4) * 16 * PS * 4;
   static constexpr size_t ROW_OFF = VEC_OFF + 6 * 64 * 4;
   static constexpr size_t BYTES = ROW_OFF + 64 * 8 + 64 * 4;
 };
@@ -147,18 +181,17 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [0, 64) x columns [c0, c0 + W) of a row source of T into a shared
+// Rows [0, 64) x columns [c0, c0 + W) of an fp32 row source into a shared
 // tile of row stride S, 16 bytes a cp.async; `row(r)` is the row's first
 // element, or null for a row of zeros.  `any` is a valid address the
 // zero-filled copies name.
-template <typename T, int W, int S, typename RowFn>
-__device__ __forceinline__ void stage_async(T* dst, RowFn row, int c0, const void* any) {
-  constexpr int EPP = 16 / int(sizeof(T));
-  constexpr int PER_ROW = W / EPP;
+template <int W, int S, typename RowFn>
+__device__ __forceinline__ void stage_async(float* dst, RowFn row, int c0, const void* any) {
+  constexpr int PER_ROW = W / 4;
   for (int i = threadIdx.x; i < WROWS * PER_ROW; i += WTHREADS) {
     const int r = i / PER_ROW, p = i % PER_ROW;
-    const T* src = row(r);
-    cp_async16(sm90::smem_u32(dst + r * S + p * EPP), src ? src + c0 + p * EPP : any, src ? 16 : 0);
+    const float* src = row(r);
+    cp_async16(sm90::smem_u32(dst + r * S + p * 4), src ? src + c0 + p * 4 : any, src ? 16 : 0);
   }
 }
 
@@ -207,47 +240,31 @@ __device__ __forceinline__ void stage_scaled(float* dst, RowFn row, int c0, floa
 
 // A warp's 16 x 64 block of scores from one staged chunk: rows
 // [16 warp, 16 warp + 16) of sA against the 64 rows of sB, over the chunk's
-// KC columns, added to s.  Element (j, e) of s is row lane/4 (+8 for e >= 2)
-// and column 8 j + 2 (lane % 4) + (e & 1) of the block: the mma.sync
-// accumulator layout, which the fp32 route keeps.
-template <typename T>
-__device__ __forceinline__ void score_chunk(float (&s)[8][4], const T* sA, const T* sB,
+// KC columns, in true fp32, added to s.  Element (j, e) of s is row lane/4
+// (+8 for e >= 2) and column 8 j + 2 (lane % 4) + (e & 1) of the block
+// (the mma.sync accumulator layout).
+__device__ __forceinline__ void score_chunk(float (&s)[8][4], const float* sA, const float* sB,
                                             int warp, int lane) {
-  using L = WideLayout<T>;
-  if constexpr (L::F32) {
-    const float* a0 = sA + (warp * 16 + lane / 4) * L::SA;
-    const float* a1 = a0 + 8 * L::SA;
-    const int cb = 2 * (lane % 4);
+  using L = WideLayout;
+  const float* a0 = sA + (warp * 16 + lane / 4) * L::SA;
+  const float* a1 = a0 + 8 * L::SA;
+  const int cb = 2 * (lane % 4);
 #pragma unroll 2
-    for (int k = 0; k < L::KC; k += 4) {
-      const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
-      const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
+  for (int k = 0; k < L::KC; k += 4) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
+    const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float4 y = *reinterpret_cast<const float4*>(sB + (8 * j + cb + e) * L::SA + k);
-          float t0 = s[j][e], t1 = s[j][2 + e];
-          t0 = fmaf(x0.x, y.x, t0); t0 = fmaf(x0.y, y.y, t0);
-          t0 = fmaf(x0.z, y.z, t0); t0 = fmaf(x0.w, y.w, t0);
-          t1 = fmaf(x1.x, y.x, t1); t1 = fmaf(x1.y, y.y, t1);
-          t1 = fmaf(x1.z, y.z, t1); t1 = fmaf(x1.w, y.w, t1);
-          s[j][e] = t0;
-          s[j][2 + e] = t1;
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < L::KC / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, a_frag<L::SA>(sA, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t b[4];
-        ldsm_x4(b, b_frag<L::SA>(sB, jj * 16, kk * 16, lane));
-        Mma<T>::run(s[2 * jj], a, b[0], b[1]);
-        Mma<T>::run(s[2 * jj + 1], a, b[2], b[3]);
+      for (int e = 0; e < 2; ++e) {
+        const float4 y = *reinterpret_cast<const float4*>(sB + (8 * j + cb + e) * L::SA + k);
+        float t0 = s[j][e], t1 = s[j][2 + e];
+        t0 = fmaf(x0.x, y.x, t0); t0 = fmaf(x0.y, y.y, t0);
+        t0 = fmaf(x0.z, y.z, t0); t0 = fmaf(x0.w, y.w, t0);
+        t1 = fmaf(x1.x, y.x, t1); t1 = fmaf(x1.y, y.y, t1);
+        t1 = fmaf(x1.z, y.z, t1); t1 = fmaf(x1.w, y.w, t1);
+        s[j][e] = t0;
+        s[j][2 + e] = t1;
       }
     }
   }
@@ -257,10 +274,10 @@ __device__ __forceinline__ void score_chunk(float (&s)[8][4], const T* sA, const
 // streamed in chunks through two stages: `load_a(dst, c0)` / `load_b(dst,
 // c0)` stage a chunk (cp.async ones are committed here; synchronous ones
 // are made visible by the barrier).  Every thread of the CTA calls it.
-template <typename T, typename LoadA, typename LoadB>
-__device__ __forceinline__ void scores(float (&s)[8][4], T* sA, T* sB, LoadA load_a,
+template <typename LoadA, typename LoadB>
+__device__ __forceinline__ void scores(float (&s)[8][4], float* sA, float* sB, LoadA load_a,
                                        LoadB load_b, int cols, int warp, int lane) {
-  using L = WideLayout<T>;
+  using L = WideLayout;
   constexpr int STAGE = WROWS * L::SA;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -288,63 +305,34 @@ __device__ __forceinline__ void scores(float (&s)[8][4], T* sA, T* sB, LoadA loa
   }
 }
 
-// o (the warp's 16 rows x 128 columns) += p (its 16 x 64 block, fp32) times
-// the staged 64 x 128 tile: p rounded to T on the tensor cores; in fp32
-// through the warp's rows of sP (row stride PS).
-template <typename T>
+// o (the warp's 16 rows x 128 columns) += p (its 16 x 64 block) times the
+// staged 64 x 128 tile, in fp32 through the warp's rows of sP (row stride
+// PS).
 __device__ __forceinline__ void update_product(float (&o)[16][4], const float (&p)[8][4],
-                                               const T* sT, float* sPw, int lane) {
-  using L = WideLayout<T>;
-  if constexpr (L::F32) {
-    const int r = lane / 4, cb = 2 * (lane % 4);
+                                               const float* sT, float* sPw, int lane) {
+  using L = WideLayout;
+  const int r = lane / 4, cb = 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sPw[r * L::PS + 8 * j + cb] = p[j][0];
-      sPw[r * L::PS + 8 * j + cb + 1] = p[j][1];
-      sPw[(r + 8) * L::PS + 8 * j + cb] = p[j][2];
-      sPw[(r + 8) * L::PS + 8 * j + cb + 1] = p[j][3];
-    }
-    __syncwarp();
+  for (int j = 0; j < 8; ++j) {
+    sPw[r * L::PS + 8 * j + cb] = p[j][0];
+    sPw[r * L::PS + 8 * j + cb + 1] = p[j][1];
+    sPw[(r + 8) * L::PS + 8 * j + cb] = p[j][2];
+    sPw[(r + 8) * L::PS + 8 * j + cb + 1] = p[j][3];
+  }
+  __syncwarp();
 #pragma unroll 2
-    for (int k = 0; k < WKEYS; ++k) {
-      const float p0 = sPw[r * L::PS + k], p1 = sPw[(r + 8) * L::PS + k];
+  for (int k = 0; k < WKEYS; ++k) {
+    const float p0 = sPw[r * L::PS + k], p1 = sPw[(r + 8) * L::PS + k];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 v = *reinterpret_cast<const float2*>(sT + k * L::ST + 8 * j + cb);
-        o[j][0] = fmaf(p0, v.x, o[j][0]);
-        o[j][1] = fmaf(p0, v.y, o[j][1]);
-        o[j][2] = fmaf(p1, v.x, o[j][2]);
-        o[j][3] = fmaf(p1, v.y, o[j][3]);
-      }
-    }
-    __syncwarp();
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < WKEYS / 16; ++kk) {
-      const uint32_t a[4] = {Mma<T>::pack(p[2 * kk][0], p[2 * kk][1]),
-                             Mma<T>::pack(p[2 * kk][2], p[2 * kk][3]),
-                             Mma<T>::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                             Mma<T>::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-      for (int jj = 0; jj < WCOLS / 16; ++jj) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, bt_frag<L::ST>(sT, kk * 16, jj * 16, lane));
-        Mma<T>::run(o[2 * jj], a, b[0], b[1]);
-        Mma<T>::run(o[2 * jj + 1], a, b[2], b[3]);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(sT + k * L::ST + 8 * j + cb);
+      o[j][0] = fmaf(p0, v.x, o[j][0]);
+      o[j][1] = fmaf(p0, v.y, o[j][1]);
+      o[j][2] = fmaf(p1, v.x, o[j][2]);
+      o[j][3] = fmaf(p1, v.y, o[j][3]);
     }
   }
-}
-
-// A pair of fp32 values stored as T at `p` (two consecutive elements).
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float x, float y) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-  } else {
-    const uint32_t v = Mma<T>::pack(x, y);
-    *reinterpret_cast<uint32_t*>(p) = v;
-  }
+  __syncwarp();
 }
 
 // ---------------------------------------------------------------------------
@@ -378,7 +366,7 @@ template <bool PAGED>
 __global__ void __launch_bounds__(WTHREADS)
 wide_fwd_f32_kernel(const WideArgs a) {
   using T = float;
-  using L = WideLayout<T>;
+  using L = WideLayout;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
   T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
@@ -502,7 +490,7 @@ wide_fwd_f32_kernel(const WideArgs a) {
       return n0 + r < a.Nkv ? kT + kv_base + size_t(n0 + r) * D : nullptr;
     };
     if (!PAGED && !v8) {
-      stage_async<T, WCOLS, L::ST>(
+      stage_async<WCOLS, L::ST>(
           sT, [&](int r) { return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr; },
           c0, a.v);
     }
@@ -515,8 +503,8 @@ wide_fwd_f32_kernel(const WideArgs a) {
       stage_convert<WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
     } else {
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
+             [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); },
+             [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); },
              score_cols, warp, lane);
       if (v8) stage_convert<WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
                                              sOff, sHi, c0);
@@ -615,7 +603,8 @@ wide_fwd_f32_kernel(const WideArgs a) {
     } else {
       T* po = static_cast<T*>(a.o) + out_row * D + cb;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) store_pair(po + 8 * j, o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(po + 8 * j) = make_float2(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
       if (!PAGED && cc == 0 && lane % 4 == 0)
         a.lse[out_row] = l > 0.f ? m_i[i] + logf(l) : kMaskValue;
     }
@@ -767,6 +756,16 @@ __device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity)
       "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P1, [%0], %1;\n"
       "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
       "r"(parity)
+      : "memory");
+}
+// `bytes` of this CTA's shared memory at `src` copied to `dst` in a CTA of
+// the cluster by the bulk-copy engine, completing a transaction on that
+// CTA's barrier `bar` (dst and bar: mapa addresses).
+__device__ __forceinline__ void bulk_copy_peer(uint32_t dst, uint32_t src, uint32_t bytes,
+                                               uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ float4 ld_peer_f4(uint32_t addr) {
@@ -1410,15 +1409,16 @@ struct WideBwdArgs {
   cudaStream_t stream;
 };
 
-// The dK/dV sweep: one CTA per (64-key tile, output column chunk and pass,
-// batch x kv head).  Pass 0 keeps dV += (P o M)^T dO, pass 1 dK += dS^T Q
-// (times sm_scale at the end), each for its 128 columns, over the q heads
-// of the GQA group and, in order, the q tiles that see the keys.  The
-// warp's rows are keys: S^T = K Q^T and dP^T = V dO^T.
-template <typename T>
+// The fp32 dK/dV sweep ("wide_fp32"): one CTA per (64-key tile, output
+// column chunk and pass, batch x kv head).  Pass 0 keeps dV += (P o M)^T
+// dO, pass 1 dK += dS^T Q (times sm_scale at the end), each for its 128
+// columns, over the q heads of the GQA group and, in order, the q tiles
+// that see the keys.  The warp's rows are keys: S^T = K Q^T and dP^T =
+// V dO^T.
 __global__ void __launch_bounds__(WTHREADS)
-wide_bwd_dkv_kernel(const WideBwdArgs a) {
-  using L = WideLayout<T>;
+wide_bwd_dkv_f32_kernel(const WideBwdArgs a) {
+  using T = float;
+  using L = WideLayout;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
   T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
@@ -1490,18 +1490,18 @@ wide_bwd_dkv_kernel(const WideBwdArgs a) {
         return m0 + r < a.Nq ? dT + (q_base + m0 + r) * D : nullptr;
       };
       if (pass_dk) {
-        stage_async<T, WCOLS, L::ST>(sT, q_row, c0, a.q);
+        stage_async<WCOLS, L::ST>(sT, q_row, c0, a.q);
       } else {
-        stage_async<T, WCOLS, L::ST>(sT, do_row, c0, a.q);
+        stage_async<WCOLS, L::ST>(sT, do_row, c0, a.q);
       }
       float s[8][4], dp[8][4];
-      scores(s, sA, sB, [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); }, D, warp,
+      scores(s, sA, sB, [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); },
+             [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); }, D, warp,
              lane);
       if (pass_dk) {
         scores(dp, sA, sB,
-               [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, v_row, c, a.v); },
-               [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, do_row, c, a.q); }, D,
+               [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, v_row, c, a.v); },
+               [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, do_row, c, a.q); }, D,
                warp, lane);
       }
 #pragma unroll
@@ -1543,17 +1543,18 @@ wide_bwd_dkv_kernel(const WideBwdArgs a) {
     T* po = out + kv_base + size_t(key[i]) * D + c0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      store_pair(po + 8 * j, acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(po + 8 * j) =
+          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
-// The dQ sweep: one CTA per (64-row q tile, output column chunk, batch x q
-// head), walking the key tiles it sees in order; dQ += dS K for its 128
-// columns, times sm_scale at the end.
-template <typename T>
+// The fp32 dQ sweep ("wide_fp32"): one CTA per (64-row q tile, output
+// column chunk, batch x q head), walking the key tiles it sees in order;
+// dQ += dS K for its 128 columns, times sm_scale at the end.
 __global__ void __launch_bounds__(WTHREADS)
-wide_bwd_dq_kernel(const WideBwdArgs a) {
-  using L = WideLayout<T>;
+wide_bwd_dq_f32_kernel(const WideBwdArgs a) {
+  using T = float;
+  using L = WideLayout;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
   T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
@@ -1613,13 +1614,13 @@ wide_bwd_dq_kernel(const WideBwdArgs a) {
     auto v_row = [&](int r) -> const T* {
       return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr;
     };
-    stage_async<T, WCOLS, L::ST>(sT, k_row, c0, a.k);
+    stage_async<WCOLS, L::ST>(sT, k_row, c0, a.k);
     float s[8][4], dp[8][4];
-    scores(s, sA, sB, [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
-           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); }, D, warp,
+    scores(s, sA, sB, [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); },
+           [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); }, D, warp,
            lane);
-    scores(dp, sA, sB, [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, do_row, c, a.q); },
-           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, v_row, c, a.v); }, D, warp,
+    scores(dp, sA, sB, [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, do_row, c, a.q); },
+           [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, v_row, c, a.v); }, D, warp,
            lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1653,29 +1654,830 @@ wide_bwd_dq_kernel(const WideBwdArgs a) {
     T* po = static_cast<T*>(a.dq) + (q_base + row[i]) * D + c0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      store_pair(po + 8 * j, acc[j][2 * i] * a.sm_scale, acc[j][2 * i + 1] * a.sm_scale);
+      *reinterpret_cast<float2*>(po + 8 * j) =
+          make_float2(acc[j][2 * i] * a.sm_scale, acc[j][2 * i + 1] * a.sm_scale);
   }
 }
 
-template <typename T>
-int launch_wide_bwd(const WideBwdArgs& a, bool dkv) {
-  constexpr size_t smem = WideLayout<T>::BYTES;
+inline int launch_wide_bwd_f32(const WideBwdArgs& a, bool dkv) {
+  constexpr size_t smem = WideLayout::BYTES;
   if (dkv) {
-    auto kernel = wide_bwd_dkv_kernel<T>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    cudaError_t err = cudaFuncSetAttribute(wide_bwd_dkv_f32_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
     dim3 grid((a.Nkv + WROWS - 1) / WROWS, 2 * (a.D / WCOLS), a.B * a.Hkv);
-    kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
+    wide_bwd_dkv_f32_kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
   } else {
-    auto kernel = wide_bwd_dq_kernel<T>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    cudaError_t err = cudaFuncSetAttribute(wide_bwd_dq_f32_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
     dim3 grid((a.Nq + WROWS - 1) / WROWS, a.D / WCOLS, a.B * a.Hq);
-    kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
+    wide_bwd_dq_f32_kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
   }
   return int(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The 16-bit sweeps on wgmma ("wide_wgmma")
+// ---------------------------------------------------------------------------
+
+namespace sm90 {
+
+constexpr int WB_ROWS = 32;  // rows of a streamed tile: keys (dQ), q rows (dK/dV)
+
+// How the sweeps cut head dim D (geometry.py wide_bwd_cut), `dkv` the
+// dK/dV sweep: CTAs a cluster, owners a CTA, 64-column chunks an owner.
+// Each CTA holds the partial scores of every owner of its cluster.  A dK/dV
+// owner holds dK and dV for its columns, so it takes 128 (2 x 64 fp32
+// registers a thread): two owners a CTA at d 512 (2 CTAs), else one a CTA
+// (d 384 / 640 / 768 / 896 / 1024 as 3 / 5 / 6 / 7 / 8 CTAs).  A dQ owner
+// takes 256 columns where D is a multiple of 256 (d 512 / 768 / 1024 as 2
+// / 3 / 4 CTAs of one owner: fewer owners, each with more products a tile
+// beside the exchange and the element loop every owner repeats), else 128
+// (d 384 / 640 / 896 as 3 / 5 / 7 CTAs).
+__host__ __device__ constexpr WideCut wide_bwd_cut(int D, bool dkv) {
+  return dkv ? (D == 512 ? WideCut{2, 2, 2} : WideCut{D / 128, 1, 2})
+             : (D % 256 == 0 ? WideCut{D / 256, 1, 4} : WideCut{D / 128, 1, 2});
+}
+
+// Shared memory of a sweep's CTA of NW owners of C chunks in a cluster of NC
+// CTAs, in bytes from a 1024-byte aligned base: the two resident tiles (64
+// rows x CW columns: K and V in dK/dV, Q and dO in dQ), STAGES stages of the
+// two streamed tiles (WB_ROWS rows x CW: Q and dO, K and V), every owner's
+// partial S and dP of the cluster (64 x 32 fp32 each), each stage's row arrays (dK/dV: lse in base-2
+// units and D; with segment ids the streamed rows' ids), the barriers
+// (resident full; per stage full and empty; the partials' full and empty)
+// and 1024 bytes of alignment.  Every tile is [CW / 64 chunks][rows][128
+// bytes], swizzled.
+template <int NC, int NW, int C, bool DKV>
+struct WbLayout {
+  static constexpr int CW = 64 * NW * C;
+  static constexpr uint32_t RES_BYTES = 64 * CW * 2;
+  static constexpr uint32_t STEP_BYTES = WB_ROWS * CW * 2;
+  static constexpr uint32_t X_BYTES = 2 * NC * NW * 64 * WB_ROWS * 4;
+  __host__ __device__ static constexpr uint32_t rows(int stages, bool seg) {
+    return stages * ((DKV ? 2 : 0) + (seg ? 1 : 0)) * WB_ROWS * 4;
+  }
+  __host__ __device__ static constexpr size_t bytes(int stages, bool seg) {
+    return 2 * size_t(RES_BYTES) + 2 * size_t(stages) * STEP_BYTES + X_BYTES + rows(stages, seg) +
+           8 * (1 + 2 * stages + 2) + 1024;
+  }
+  // as many stages as fit with segment ids, at most 4
+  __host__ __device__ static constexpr int fit() {
+    int s = 4;
+    while (s > 2 && bytes(s, true) > 232448) --s;
+    return s;
+  }
+  static constexpr int STAGES = fit();
+  static_assert(bytes(STAGES, true) <= 232448, "a CTA has 227 KB of shared memory");
+  static constexpr uint32_t U_OFF = 2 * RES_BYTES;                 // the first streamed tile
+  static constexpr uint32_t W_OFF = U_OFF + STAGES * STEP_BYTES;   // the second
+  static constexpr uint32_t X_OFF = W_OFF + STAGES * STEP_BYTES;   // the partials
+  static constexpr uint32_t ROWS_OFF = X_OFF + X_BYTES;
+};
+
+// The exchange of a sweep's partial scores.  Every owner of the cluster
+// writes its partial S and dP of a tile (64 x 32 fp32: 16 of each a
+// thread) into its slot of its own CTA's shared memory (owner p's slot at
+// X_OFF + 16384 p: 4 KB a warp, float4 j of array a (0 S, 1 dP) of lane l at
+// + (a NS + j) 512 + 16 l), and each warp copies its 4 KB into the same
+// slot of every other CTA of the cluster with one bulk copy (DSMEM), whose
+// bytes complete that CTA's `full` barrier; then each owner sums all
+// owners' partials from its own CTA's shared memory, S and then dP, in
+// owner order (owner p is slot p % NW of rank p / NW), so that every owner
+// holds the same bits.  One round trip a tile: `full` completes when every
+// local owner warp has written (and arrived, expecting its share of the
+// peers' bytes) and every peer's bytes have landed, `empty` when every
+// owner warp of the cluster has read.
+template <int NC, int NW>
+struct BwdExchange {
+  static constexpr int OWNERS = NC * NW, NS = WB_ROWS / 8;
+  uint32_t base, x_off, full, empty;
+  int wt, me;
+
+  // Owner p's partials for this thread in this CTA (S, float4 0).
+  __device__ __forceinline__ uint32_t slot(int p) const {
+    return base + x_off + p * 16384 + ((wt / 32) * 2 * NS * 32 + wt % 32) * 16;
+  }
+  // float4 j of array arr (0 S, 1 dP) of the slot at `at`
+  static __device__ __forceinline__ float4 read(uint32_t at, int arr, int j) {
+    float4 v;
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                 : "r"(at + (arr * NS + j) * 512)
+                 : "memory");
+    return v;
+  }
+  static __device__ __forceinline__ void write(uint32_t at, float x, float y, float z, float w) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "f"(x), "f"(y), "f"(z),
+                 "f"(w)
+                 : "memory");
+  }
+  __device__ __forceinline__ void arrive(uint32_t bar) const {  // on every CTA's barrier
+    __syncwarp();
+    if (wt % 32 == 0) {
+      if constexpr (NC == 1) {
+        mbar_arrive(bar);
+      } else {
+        for (int c = 0; c < NC; ++c) mbar_arrive_peer(peer_addr(bar, c));
+      }
+    }
+  }
+  __device__ __forceinline__ void wait(uint32_t bar, uint32_t parity) const {
+    if constexpr (NC == 1) {
+      mbar_wait(bar, parity);
+    } else {
+      mbar_wait_cluster(bar, parity);
+    }
+  }
+  // The i-th exchange of this owner: s and dp, its partials, become the sums.
+  __device__ __forceinline__ void run(float (&s)[4 * NS], float (&dp)[4 * NS], int i) const {
+    if (i > 0) wait(empty, (i - 1) & 1);  // every owner has read exchange i - 1's
+    const uint32_t own = slot(me);
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      write(own + j * 512, s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]);
+      write(own + (NS + j) * 512, dp[4 * j], dp[4 * j + 1], dp[4 * j + 2], dp[4 * j + 3]);
+    }
+    fence_proxy_async();  // the slot is read by the bulk copies
+    __syncwarp();
+    if (wt % 32 == 0) {
+      mbar_expect_tx(full, (NC - 1) * 4096);  // this warp's share of the peers' bytes
+      const uint32_t warp_slot = base + x_off + me * 16384 + (wt / 32) * 4096;
+      for (int c = 0; c < NC; ++c)
+        if (c != me / NW) bulk_copy_peer(peer_addr(warp_slot, c), warp_slot, 4096, peer_addr(full, c));
+    }
+    wait(full, i & 1);
+#pragma unroll
+    for (int p = 0; p < OWNERS; ++p) {  // S: each owner's partial in owner order
+      const int src_s = p;  // the owner whose S partial is added
+      const uint32_t at = slot(src_s);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float4 x = read(at, 0, j);
+        if (p == 0) {
+          s[4 * j] = x.x, s[4 * j + 1] = x.y, s[4 * j + 2] = x.z, s[4 * j + 3] = x.w;
+        } else {
+          s[4 * j] += x.x, s[4 * j + 1] += x.y, s[4 * j + 2] += x.z, s[4 * j + 3] += x.w;
+        }
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < OWNERS; ++p) {  // dP: each owner's partial in owner order
+      const uint32_t at = slot(p);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float4 x = read(at, 1, j);
+        if (p == 0) {
+          dp[4 * j] = x.x, dp[4 * j + 1] = x.y, dp[4 * j + 2] = x.z, dp[4 * j + 3] = x.w;
+        } else {
+          dp[4 * j] += x.x, dp[4 * j + 1] += x.y, dp[4 * j + 2] += x.z, dp[4 * j + 3] += x.w;
+        }
+      }
+    }
+    arrive(empty);
+  }
+};
+
+// A partial score product of one owner, issued (not committed): acc = A
+// B^T over the owner's OC columns, A its 64 resident rows at `a_rows` (a
+// tile of 64-row chunks), B its columns of the WB_ROWS-row stage at
+// `b_rows`, both K-major (16 columns a k-step, 32 bytes apart inside a
+// 128-byte chunk of 64 columns).
+template <typename T, int OC>
+__device__ __forceinline__ void issue_partial(float (&acc)[WB_ROWS / 2], uint32_t a_rows,
+                                              uint32_t b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < OC / 16; ++ks) {
+    const uint32_t in_chunk = (ks % 4) * 32;
+    WgmmaSS<WB_ROWS, T>::run(acc, smem_desc(a_rows + (ks / 4) * (64 * 128) + in_chunk, 16, 1024),
+                             smem_desc(b_rows + (ks / 4) * (WB_ROWS * 128) + in_chunk, 16, 1024),
+                             ks > 0);
+  }
+}
+
+// A 64 x WB_ROWS score accumulator as the A fragments of an update product
+// (its columns become the k dimension), rounded to T.
+template <typename T>
+__device__ __forceinline__ void pack_scores(const float (&acc)[WB_ROWS / 2],
+                                            uint32_t (&a)[WB_ROWS / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < WB_ROWS / 16; ++kk) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) a[kk][x] = Mma<T>::pack(acc[8 * kk + 2 * x], acc[8 * kk + 2 * x + 1]);
+  }
+}
+
+// acc (an owner's OC = 64 C columns) += A B, issued: A from registers, B
+// the owner's columns of a WB_ROWS-row stage at `b_rows`, read MN-major.
+template <typename T, int C>
+__device__ __forceinline__ void issue_update(float (&acc)[32 * C],
+                                             const uint32_t (&a)[WB_ROWS / 16][4],
+                                             uint32_t b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < WB_ROWS / 16; ++kk)
+    pv_product<C, T>(acc, a[kk], b_rows + kk * 2048, WB_ROWS * 128);
+}
+
+// The dQ sweep in T = bf16 / fp16: one cluster of NC CTAs per (64-row q
+// tile, heaviest causal tiles first; batch x q head).  CTA `rank` holds Q
+// and dO for columns [rank CW, + CW) (TMA, once), streams the K and V tiles
+// of 32 keys the rows see (kv_tiles) through the ring, and owner w of it
+// computes partial S = Q K^T and dP = dO V^T over its 128 columns,
+// exchanges them (BwdExchange), builds dS (attn_bwd_sm90.cuh's element
+// loop) and adds dS K to dQ[:, its columns] (K read MN-major).  The update
+// of tile i runs beside the score products, exchange and element loop of
+// tile i + 1.
+template <typename T, int NC, int NW, int C>
+__global__ void __launch_bounds__(128 * (NW + 1), 1)
+wide_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do, const WideBwdArgs a) {
+  using L = WbLayout<NC, NW, C, false>;
+  constexpr int BN = WB_ROWS, STAGES = L::STAGES, CW = L::CW, OC = 64 * C;
+  constexpr int NS = BN / 8, NO = OC / 8;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sQ = base, sdO = base + L::RES_BYTES;
+  auto k_tile = [&](int s) { return base + L::U_OFF + s * L::STEP_BYTES; };
+  auto v_tile = [&](int s) { return base + L::W_OFF + s * L::STEP_BYTES; };
+  auto tile_ids = [&](int s) {  // the segment ids of the K tile in stage s
+    return reinterpret_cast<int*>(smem + L::ROWS_OFF) + s * BN;
+  };
+
+  const int D = a.D, G = a.Hq / a.Hkv;
+  const int rank = NC > 1 ? cluster_rank() : 0;
+  const int c_lo = rank * CW;
+  const int cta = blockIdx.x / NC;
+  const int b = blockIdx.y / a.Hq, h = blockIdx.y % a.Hq;
+  const int kv_bh = b * a.Hkv + h / G;
+  const int m0 = (a.causal ? int(gridDim.x) / NC - 1 - cta : cta) * 64;
+  const bool seg = a.md.q_seg != nullptr, drop = a.md.rate > 0.f;
+  const TileRange tr = kv_tiles<64, BN>(m0, a.Nq, a.Nkv, a.causal, a.window);
+  const int k_first = tr.lo * BN, n_tiles = max(tr.hi - tr.lo, 0);
+  T* const dq = static_cast<T*>(a.dq) + size_t(blockIdx.y) * a.Nq * D;
+
+  if (n_tiles == 0) {  // the rows see no key: dQ = 0, every CTA of the cluster
+    for (int idx = threadIdx.x; idx < 64 * (CW / 8); idx += blockDim.x) {
+      const int r = m0 + idx / (CW / 8);
+      if (r < a.Nq)
+        *reinterpret_cast<uint4*>(dq + size_t(r) * D + c_lo + (idx % (CW / 8)) * 8) =
+            make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const uint32_t bars = base + L::ROWS_OFF + L::rows(STAGES, seg);
+  const uint32_t bar_res = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  const uint32_t x_full = bars + 8u * (1 + 2 * STAGES), x_empty = x_full + 8u;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NW);  // one arrival per owner warp
+    }
+    mbar_init(x_full, 4 * NW);        // one arrival per owner warp of the CTA, and the bytes
+    mbar_init(x_empty, 4 * NC * NW);  // one arrival per owner warp of the cluster
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if constexpr (NC > 1) cluster_sync();  // the peers' barriers exist before any arrival
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: thread 0 issues every copy; with segment ids its
+    // warp writes each K tile's ids.  The rest have no work.
+    if constexpr (NW > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    if (tid < (seg ? 32 : 1)) {
+      const bool leader = tid == 0;
+      if (leader) {
+        mbar_expect_tx(bar_res, 2 * L::RES_BYTES);
+#pragma unroll
+        for (int c = 0; c < CW / 64; ++c) {
+          tma_load_3d(sQ + c * (64 * 128), &tm_q, bar_res, c_lo + 64 * c, m0, blockIdx.y);
+          tma_load_3d(sdO + c * (64 * 128), &tm_do, bar_res, c_lo + 64 * c, m0, blockIdx.y);
+        }
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES, n0 = k_first + i * BN;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);  // passes at once on the first lap
+        if (seg) {
+          for (int x = tid; x < BN; x += 32) tile_ids(s)[x] = seg_id(a.md.kv_seg, b, a.Nkv, n0 + x);
+          __syncwarp();  // the ids are written before the full barrier completes
+        }
+        if (leader) {
+          mbar_expect_tx(full(s), 2 * L::STEP_BYTES);
+#pragma unroll
+          for (int c = 0; c < CW / 64; ++c) {
+            tma_load_3d(k_tile(s) + c * (BN * 128), &tm_k, full(s), c_lo + 64 * c, n0, kv_bh);
+            tma_load_3d(v_tile(s) + c * (BN * 128), &tm_v, full(s), c_lo + 64 * c, n0, kv_bh);
+          }
+        }
+      }
+    }
+  } else {
+    // Owners: consumer warpgroup w of the CTA, 64 q rows x its OC columns.
+    if constexpr (NW > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+    const int w = threadIdx.x / 128 - 1;
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int row0 = m0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+    const int q_off = a.Nkv - a.Nq;
+    const uint32_t q_own = sQ + w * C * (64 * 128), do_own = sdO + w * C * (64 * 128);
+    const float scale_log2 = a.sm_scale * kLog2e;
+    const float slope = a.md.slopes != nullptr ? a.md.slopes[h] : 0.f;
+    const float slope_log2 = slope * kLog2e;
+    const uint32_t stream = drop ? dropout_stream(a.md.seed, b, h) : 0u;
+    const uint32_t keep_min = drop ? uint32_t(ceilf(a.md.rate * 16777216.f)) : 0u;
+    const BwdExchange<NC, NW> xchg{base, L::X_OFF, x_full, x_empty, wt, rank * NW + w};
+    // this thread's rows' lse (base 2), D and segment ids; 0 past Nq
+    float lse2[2], dlt[2];
+    int qseg[2] = {0, 0};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < a.Nq ? a.lse[size_t(blockIdx.y) * a.Nq + row] * kLog2e : 0.f;
+      dlt[r] = row < a.Nq ? a.delta[size_t(blockIdx.y) * a.Nq + row] : 0.f;
+      if (seg) qseg[r] = seg_id(a.md.q_seg, b, a.Nq, row);
+    }
+
+    // S, then P; dP, then dS: element e of n-tile j is row row0 + 8 (e >> 1),
+    // key n0 + 8 j + 2 t + (e & 1).
+    float s[BN / 2], dp[BN / 2], acc[OC / 2];
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int i = 0; i < OC / 2; ++i) acc[i] = 0.f;
+
+    // dS of keys [n0, n0 + BN) in place of dP; the softcap, the mask and
+    // ALiBi compiled out of a tile that needs none.
+    auto grads = [&](int n0, const int* ids, auto cap, auto masked, auto alibi) {
+      const float dist0[2] = {float(row0 + q_off - n0 - 2 * t),
+                              float(row0 + 8 + q_off - n0 - 2 * t)};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = n0 + 8 * j + 2 * t + c;
+          // the dropout hash's column half, shared by the thread's two rows
+          const uint32_t inner = drop ? lowbias32(uint32_t(col) + stream) : 0u;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const float dist = dist0[r] - float(8 * j + c);
+            float x, dcap = 1.f;
+            if constexpr (decltype(cap)::value) {
+              const float th = tanhf(s[4 * j + e] * a.sm_scale / a.softcap);
+              x = a.softcap * th;
+              dcap = 1.f - th * th;
+              if constexpr (decltype(alibi)::value) x -= slope * dist;
+              x = x * kLog2e - lse2[r];
+            } else {
+              x = s[4 * j + e] * scale_log2 - lse2[r];
+              if constexpr (decltype(alibi)::value) x -= slope_log2 * dist;
+            }
+            float p = exp2_ftz(x);
+            if constexpr (decltype(masked)::value) {
+              if (!visible(row0 + 8 * r, col, a.Nq, a.Nkv, a.causal, a.window) ||
+                  (seg && qseg[r] != ids[col - n0]))
+                p = 0.f;
+            }
+            float dpv = dp[4 * j + e];
+            if (drop) {
+              const uint32_t bits = lowbias32(uint32_t(row0 + 8 * r) ^ inner);
+              dpv = (bits & 0xFFFFFFu) >= keep_min ? dpv * a.md.keep_scale : 0.f;
+            }
+            dp[4 * j + e] = p * (dpv - dlt[r]) * dcap;
+          }
+        }
+      }
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    auto own_cols = [&](uint32_t tile) { return tile + w * C * (BN * 128); };
+
+    // Tile i: its partial S and dP are issued beside dQ's update from tile
+    // i - 1; the exchange and the element loop of tile i run while that
+    // update finishes.  Stage i - 1 (K and V) is released once its update
+    // is done.
+    mbar_wait(bar_res, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % STAGES, prev = (i + STAGES - 1) % STAGES;
+      const int n0 = k_first + i * BN;
+      mbar_wait(full(st), (i / STAGES) & 1);
+      wgmma_fence();
+      issue_partial<T, OC>(s, q_own, own_cols(k_tile(st)));
+      issue_partial<T, OC>(dp, do_own, own_cols(v_tile(st)));
+      wgmma_commit();
+      if (i > 0) {
+        wgmma_fence();
+        issue_update<T, C>(acc, da, own_cols(k_tile(prev)));  // dQ: tile i - 1
+        wgmma_commit();
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      } else {
+        wgmma_wait_all();
+      }
+      fence_regs(s);
+      fence_regs(dp);
+      xchg.run(s, dp, i);  // the dQ sweep's exchange
+      const bool masked = seg || !tile_unmasked<64, BN>(m0, n0, a.Nq, a.Nkv, a.causal, a.window);
+      with_flags(a.softcap > 0.f, masked, a.md.slopes != nullptr,
+                 [&](auto cap, auto msk, auto alibi) {  // the dQ sweep's element loop
+                   grads(n0, tile_ids(st), cap, msk, alibi);
+                 });
+      if (i > 0) {
+        wgmma_wait_all();
+        fence_regs(acc);
+        release(empty(prev));
+      }
+      pack_scores<T>(dp, da);
+    }
+    // n_tiles > 0 here (an empty CTA returned above)
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) % STAGES;
+      wgmma_fence();
+      issue_update<T, C>(acc, da, own_cols(k_tile(last)));  // dQ: the last tile
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      release(empty(last));
+    }
+
+    // dQ[:, the owner's columns] times sm_scale
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= a.Nq) continue;
+      T* dst = dq + size_t(row) * D + c_lo + w * OC + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NO; ++j)
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            Mma<T>::pack(acc[4 * j + 2 * r] * a.sm_scale, acc[4 * j + 2 * r + 1] * a.sm_scale);
+    }
+  }
+  // No CTA leaves while a peer may still read its partials or arrive on its
+  // barriers.
+  if constexpr (NC > 1) cluster_sync();
+}
+
+// The dK/dV sweep in T = bf16 / fp16: one cluster of NC CTAs per (64-key
+// tile, batch x kv head).  CTA `rank` holds K and V for its CW columns
+// (TMA, once) and streams, for each q head of the GQA group and then its
+// q steps in order, the 32-row Q and dO tiles that see the keys (q_tiles),
+// with each step's lse (base 2), D and q segment ids beside them.  Owner w
+// computes partial S^T = K Q^T and dP^T = V dO^T over its 128 columns,
+// exchanges them (BwdExchange), builds P^T o M and dS^T (attn_bwd_sm90.cuh's
+// element loop: a thread's rows are its two keys, its columns q rows) and
+// adds dV[:, own] += (P o M)^T dO and dK[:, own] += dS^T Q (the stage read
+// MN-major), in order a step: 8 d operations a visible pair.
+template <typename T, int NC, int NW, int C>
+__global__ void __launch_bounds__(128 * (NW + 1), 1)
+wide_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const WideBwdArgs a) {
+  using L = WbLayout<NC, NW, C, true>;
+  constexpr int BS = WB_ROWS, STAGES = L::STAGES, CW = L::CW, OC = 64 * C;
+  constexpr int NS = BS / 8, NO = OC / 8;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sK = base, sV = base + L::RES_BYTES;
+  auto q_tile = [&](int s) { return base + L::U_OFF + s * L::STEP_BYTES; };
+  auto do_tile = [&](int s) { return base + L::W_OFF + s * L::STEP_BYTES; };
+
+  const int D = a.D, G = a.Hq / a.Hkv;
+  const int rank = NC > 1 ? cluster_rank() : 0;
+  const int c_lo = rank * CW;
+  const int n0 = (blockIdx.x / NC) * 64;  // causal: the first key tiles see the most q rows
+  const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
+  const bool seg = a.md.q_seg != nullptr, drop = a.md.rate > 0.f;
+  const int arrays = seg ? 3 : 2;  // a stage's rows: lse (base 2), D, q segment ids
+  auto rows_of = [&](int s, int arr) {
+    return reinterpret_cast<float*>(smem + L::ROWS_OFF) + (s * arrays + arr) * BS;
+  };
+  const TileRange steps = q_tiles<BS, 64>(n0, a.Nq, a.Nkv, a.causal, a.window);
+  const int per_head = max(steps.hi - steps.lo, 0);
+  const int n_steps = G * per_head;  // q heads of the group, then their steps
+  const size_t out = size_t(blockIdx.y) * a.Nkv * D;
+
+  if (n_steps == 0) {  // no q row sees the keys: dK = dV = 0, every CTA of the cluster
+    for (int idx = threadIdx.x; idx < 64 * (CW / 8); idx += blockDim.x) {
+      const int key = n0 + idx / (CW / 8);
+      if (key >= a.Nkv) continue;
+      const size_t at = out + size_t(key) * D + c_lo + (idx % (CW / 8)) * 8;
+      *reinterpret_cast<uint4*>(static_cast<T*>(a.dk) + at) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(static_cast<T*>(a.dv) + at) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+
+  const uint32_t bars = base + L::ROWS_OFF + L::rows(STAGES, seg);
+  const uint32_t bar_res = bars;
+  auto full = [&](int s) { return bars + 8u * (1 + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  const uint32_t x_full = bars + 8u * (1 + 2 * STAGES), x_empty = x_full + 8u;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_res, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * NW);
+    }
+    mbar_init(x_full, 4 * NW);
+    mbar_init(x_empty, 4 * NC * NW);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if constexpr (NC > 1) cluster_sync();
+
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: thread 0 issues every copy, its warp stages each
+    // step's rows; the other warps leave.
+    if constexpr (NW > 1) asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(WG_PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(bar_res, 2 * L::RES_BYTES);
+#pragma unroll
+        for (int c = 0; c < CW / 64; ++c) {
+          tma_load_3d(sK + c * (64 * 128), &tm_k, bar_res, c_lo + 64 * c, n0, blockIdx.y);
+          tma_load_3d(sV + c * (64 * 128), &tm_v, bar_res, c_lo + 64 * c, n0, blockIdx.y);
+        }
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % STAGES;
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        const int bh = b * a.Hq + kvh * G + i / per_head;
+        const int m0 = (steps.lo + i % per_head) * BS;
+        for (int x = lane; x < BS; x += 32) {
+          const int row = m0 + x;
+          const bool in = row < a.Nq;
+          rows_of(s, 0)[x] = in ? a.lse[size_t(bh) * a.Nq + row] * kLog2e : 0.f;
+          rows_of(s, 1)[x] = in ? a.delta[size_t(bh) * a.Nq + row] : 0.f;
+          if (seg) reinterpret_cast<int*>(rows_of(s, 2))[x] = seg_id(a.md.q_seg, b, a.Nq, row);
+        }
+        __syncwarp();  // the rows are written before the full barrier completes
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * L::STEP_BYTES);
+#pragma unroll
+          for (int c = 0; c < CW / 64; ++c) {
+            tma_load_3d(q_tile(s) + c * (BS * 128), &tm_q, full(s), c_lo + 64 * c, m0, bh);
+            tma_load_3d(do_tile(s) + c * (BS * 128), &tm_do, full(s), c_lo + 64 * c, m0, bh);
+          }
+        }
+      }
+    }
+  } else {
+    // Owners: consumer warpgroup w of the CTA, 64 keys x its OC columns.
+    if constexpr (NW > 1) asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(WG_CONSUMER_REGS));
+    const int w = threadIdx.x / 128 - 1;
+    const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int key0 = n0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const int q_off = a.Nkv - a.Nq;
+    const uint32_t k_own = sK + w * C * (64 * 128), v_own = sV + w * C * (64 * 128);
+    const float scale_log2 = a.sm_scale * kLog2e;
+    const uint32_t keep_min = drop ? uint32_t(ceilf(a.md.rate * 16777216.f)) : 0u;
+    const BwdExchange<NC, NW> xchg{base, L::X_OFF, x_full, x_empty, wt, rank * NW + w};
+    int kseg[2] = {0, 0};
+    if (seg) {
+      kseg[0] = seg_id(a.md.kv_seg, b, a.Nkv, key0);
+      kseg[1] = seg_id(a.md.kv_seg, b, a.Nkv, key0 + 8);
+    }
+
+    // S^T, then P^T o M; dP^T, then dS^T: element e of n-tile j is key
+    // key0 + 8 (e >> 1), q row m0 + 8 j + 2 t + (e & 1).
+    float s[BS / 2], dp[BS / 2], dk[OC / 2], dv[OC / 2];
+    uint32_t pa[BS / 16][4], da[BS / 16][4];
+#pragma unroll
+    for (int i = 0; i < OC / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    // P^T o M and dS^T of q step m0 (stage st) in place of S^T and dP^T.
+    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked,
+                     auto alibi) {
+      const float* lse2 = rows_of(st, 0);
+      const float* dlt = rows_of(st, 1);
+      const int* qseg = reinterpret_cast<const int*>(rows_of(st, 2));
+      const float slope_log2 = slope * kLog2e;
+      // the ALiBi distance q_pos - key, exact in fp32
+      const float dist0[2] = {float(m0 + 2 * t + q_off - key0),
+                              float(m0 + 2 * t + q_off - key0 - 8)};
+      uint32_t inner[2] = {0u, 0u};  // the dropout hash's half of each key
+      if (drop) {
+        inner[0] = lowbias32(uint32_t(key0) + stream);
+        inner[1] = lowbias32(uint32_t(key0 + 8) + stream);
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dlt + 8 * j + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = e & 1;
+          const int col = 8 * j + 2 * t + c;  // q row - m0
+          const float dist = dist0[r] + float(8 * j + c);
+          float x, dcap = 1.f;
+          if constexpr (decltype(cap)::value) {
+            const float th = tanhf(s[4 * j + e] * a.sm_scale / a.softcap);
+            x = a.softcap * th;
+            dcap = 1.f - th * th;
+            if constexpr (decltype(alibi)::value) x -= slope * dist;
+            x = x * kLog2e - (c ? l2.y : l2.x);
+          } else {
+            x = s[4 * j + e] * scale_log2 - (c ? l2.y : l2.x);
+            if constexpr (decltype(alibi)::value) x -= slope_log2 * dist;
+          }
+          float p = exp2_ftz(x);
+          if constexpr (decltype(masked)::value) {
+            if (m0 + col >= a.Nq || !visible(m0 + col, key0 + 8 * r, a.Nq, a.Nkv, a.causal, a.window) ||
+                (seg && kseg[r] != qseg[col]))
+              p = 0.f;
+          }
+          float keep = 1.f;
+          if (drop) {
+            const uint32_t bits = lowbias32(uint32_t(m0 + col) ^ inner[r]);
+            keep = (bits & 0xFFFFFFu) >= keep_min ? a.md.keep_scale : 0.f;
+          }
+          s[4 * j + e] = p * keep;
+          dp[4 * j + e] = p * (dp[4 * j + e] * keep - (c ? d2.y : d2.x)) * dcap;
+        }
+      }
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+    auto own_cols = [&](uint32_t tile) { return tile + w * C * (BS * 128); };
+
+    mbar_wait(bar_res, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i % STAGES;
+      const int h = kvh * G + i / per_head;  // the q head: slope, dropout stream
+      const int m0 = (steps.lo + i % per_head) * BS;
+      mbar_wait(full(st), (i / STAGES) & 1);
+      wgmma_fence();
+      issue_partial<T, OC>(s, k_own, own_cols(q_tile(st)));
+      issue_partial<T, OC>(dp, v_own, own_cols(do_tile(st)));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      xchg.run(s, dp, i);  // the dK/dV sweep's exchange
+      const float slope = a.md.slopes != nullptr ? a.md.slopes[h] : 0.f;
+      const uint32_t stream = drop ? dropout_stream(a.md.seed, b, h) : 0u;
+      const bool masked = seg || m0 + BS > a.Nq ||
+                          !tile_unmasked<BS, 64>(m0, n0, a.Nq, a.Nkv, a.causal, a.window);
+      with_flags(a.softcap > 0.f, masked, a.md.slopes != nullptr,
+                 [&](auto cap, auto msk, auto alibi) {  // the dK/dV sweep's element loop
+                   grads(m0, st, slope, stream, cap, msk, alibi);
+                 });
+      pack_scores<T>(s, pa);
+      pack_scores<T>(dp, da);
+      wgmma_fence();
+      issue_update<T, C>(dv, pa, own_cols(do_tile(st)));  // dV += (P o M)^T dO
+      issue_update<T, C>(dk, da, own_cols(q_tile(st)));   // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      release(empty(st));  // both updates have read the stage
+    }
+
+    // dK (times sm_scale) and dV for the owner's columns
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= a.Nkv) continue;
+      const size_t at = out + size_t(key) * D + c_lo + w * OC + 2 * t;
+      T* dst_k = static_cast<T*>(a.dk) + at;
+      T* dst_v = static_cast<T*>(a.dv) + at;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        *reinterpret_cast<uint32_t*>(dst_k + j * 8) =
+            Mma<T>::pack(dk[4 * j + 2 * r] * a.sm_scale, dk[4 * j + 2 * r + 1] * a.sm_scale);
+        *reinterpret_cast<uint32_t*>(dst_v + j * 8) =
+            Mma<T>::pack(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+  if constexpr (NC > 1) cluster_sync();
+}
+
+}  // namespace sm90
+
+// Dynamic shared memory of a 16-bit sweep's instance at head dim D (`dkv`:
+// the dK/dV sweep, else dQ; with segment ids `seg`), in bytes; 0 for
+// another D.
+template <int NC, int NW, int C, bool DKV>
+int wide_bwd_bytes(bool seg) {
+  using L = sm90::WbLayout<NC, NW, C, DKV>;
+  return int(L::bytes(L::STAGES, seg));
+}
+inline int wide_bwd_smem(int D, bool seg, bool dkv) {
+  if (dkv) {
+    switch (D) {
+      case 384: return wide_bwd_bytes<3, 1, 2, true>(seg);
+      case 512: return wide_bwd_bytes<2, 2, 2, true>(seg);
+      case 640: return wide_bwd_bytes<5, 1, 2, true>(seg);
+      case 768: return wide_bwd_bytes<6, 1, 2, true>(seg);
+      case 896: return wide_bwd_bytes<7, 1, 2, true>(seg);
+      case 1024: return wide_bwd_bytes<8, 1, 2, true>(seg);
+      default: return 0;
+    }
+  }
+  switch (D) {
+    case 384: return wide_bwd_bytes<3, 1, 2, false>(seg);
+    case 512: return wide_bwd_bytes<2, 1, 4, false>(seg);
+    case 640: return wide_bwd_bytes<5, 1, 2, false>(seg);
+    case 768: return wide_bwd_bytes<3, 1, 4, false>(seg);
+    case 896: return wide_bwd_bytes<7, 1, 2, false>(seg);
+    case 1024: return wide_bwd_bytes<4, 1, 4, false>(seg);
+    default: return 0;
+  }
+}
+
+// Launches one 16-bit sweep of one cut over `grid` clusters (x counts
+// clusters), each of NC CTAs along x; returns the launch's error.
+template <typename T, bool DKV, int NC, int NW, int C>
+int launch_bwd_cut(const WideBwdArgs& a, const CUtensorMap (&maps)[4], dim3 grid) {
+  using L = sm90::WbLayout<NC, NW, C, DKV>;
+  static_assert(sm90::wide_bwd_cut(64 * NC * NW * C, DKV).nc == NC &&
+                    sm90::wide_bwd_cut(64 * NC * NW * C, DKV).nw == NW,
+                "the cut of this head dim");
+  const auto kernel = [] {  // only this sweep's instance
+    if constexpr (DKV) {
+      return sm90::wide_bwd_dkv_kernel<T, NC, NW, C>;
+    } else {
+      return sm90::wide_bwd_dq_kernel<T, NC, NW, C>;
+    }
+  }();
+  const size_t smem = L::bytes(L::STAGES, a.md.q_seg != nullptr);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(grid.x * NC, grid.y, 1);
+  cfg.blockDim = dim3(128 * (NW + 1));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute cluster{};
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = NC;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = NC > 1 ? 1 : 0;
+  void* args[] = {const_cast<CUtensorMap*>(&maps[0]), const_cast<CUtensorMap*>(&maps[1]),
+                  const_cast<CUtensorMap*>(&maps[2]), const_cast<CUtensorMap*>(&maps[3]),
+                  const_cast<WideBwdArgs*>(&a)};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
+}
+
+// A 16-bit sweep at a.D's cut (sm90::wide_bwd_cut): the tensor maps (3-D:
+// d, N, heads; zero fill past a head's tail) of q, k, v and dO, the
+// resident tiles in boxes of 64 rows and the streamed ones of 32, and the
+// launch over a grid of 64-row tiles (keys for dK/dV, q rows for dQ).
+template <typename T>
+int launch_wide_bwd_wgmma(const WideBwdArgs& a, bool dkv) {
+  CUtensorMap maps[4];  // q, k, v, dO
+  const int q_box = dkv ? sm90::WB_ROWS : 64, kv_box = dkv ? 64 : sm90::WB_ROWS;
+  if (!sm90::encode_map<T>(&maps[0], a.q, a.D, a.Nq, a.B * a.Hq, q_box) ||
+      !sm90::encode_map<T>(&maps[1], a.k, a.D, a.Nkv, a.B * a.Hkv, kv_box) ||
+      !sm90::encode_map<T>(&maps[2], a.v, a.D, a.Nkv, a.B * a.Hkv, kv_box) ||
+      !sm90::encode_map<T>(&maps[3], a.dout, a.D, a.Nq, a.B * a.Hq, q_box))
+    return int(cudaErrorInvalidValue);
+  const dim3 grid = dkv ? dim3((a.Nkv + 63) / 64, a.B * a.Hkv) : dim3((a.Nq + 63) / 64, a.B * a.Hq);
+  if (dkv) {
+    switch (a.D) {
+      case 384: return launch_bwd_cut<T, true, 3, 1, 2>(a, maps, grid);
+      case 512: return launch_bwd_cut<T, true, 2, 2, 2>(a, maps, grid);
+      case 640: return launch_bwd_cut<T, true, 5, 1, 2>(a, maps, grid);
+      case 768: return launch_bwd_cut<T, true, 6, 1, 2>(a, maps, grid);
+      case 896: return launch_bwd_cut<T, true, 7, 1, 2>(a, maps, grid);
+      case 1024: return launch_bwd_cut<T, true, 8, 1, 2>(a, maps, grid);
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
+  switch (a.D) {
+    case 384: return launch_bwd_cut<T, false, 3, 1, 2>(a, maps, grid);
+    case 512: return launch_bwd_cut<T, false, 2, 1, 4>(a, maps, grid);
+    case 640: return launch_bwd_cut<T, false, 5, 1, 2>(a, maps, grid);
+    case 768: return launch_bwd_cut<T, false, 3, 1, 4>(a, maps, grid);
+    case 896: return launch_bwd_cut<T, false, 7, 1, 2>(a, maps, grid);
+    case 1024: return launch_bwd_cut<T, false, 4, 1, 4>(a, maps, grid);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1966,7 +2768,7 @@ int launch_wide_decode(const WideDecodeArgs& a) {
 template <bool PAGED>
 int launch_wide_f32(const WideArgs& a, dim3 grid) {
   auto kernel = wide_fwd_f32_kernel<PAGED>;
-  constexpr size_t smem = WideLayout<float>::BYTES;
+  constexpr size_t smem = WideLayout::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);

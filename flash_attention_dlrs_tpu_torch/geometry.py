@@ -32,13 +32,16 @@ CTA_ROWS = 128
 # The wide builds (csrc/wide.cuh): head dims above 256 that are multiples of
 # 128, at most WIDE_MAX_HEAD_DIM.  A CTA owns WIDE_ROWS rows.  The 16-bit
 # forward and verify (route "wide_wgmma") stream key tiles of WIDE_FWD_KEYS
-# and cut the head dim among owners and CTAs (:func:`wide_cut`); the fp32
-# forward / verify and the sweeps own one 128-column chunk of their output a
-# CTA and stream tiles of WIDE_KEYS rows.
+# and cut the head dim among owners and CTAs (:func:`wide_cut`); the 16-bit
+# sweeps (also "wide_wgmma") stream tiles of WIDE_BWD_ROWS rows (keys in dQ,
+# q rows in dK/dV) and cut it their own way (:func:`wide_bwd_cut`); the fp32
+# kernels own one 128-column chunk of their output a CTA and stream tiles of
+# WIDE_KEYS rows.
 WIDE_MAX_HEAD_DIM = 1024
 WIDE_ROWS = 64
 WIDE_KEYS = 64
 WIDE_FWD_KEYS = 32
+WIDE_BWD_ROWS = 32
 
 # The H100 SXM5 (80 GB HBM3) as torch.cuda.get_device_properties reports it;
 # current_geometry gives it for the CPU, where no card can be asked.
@@ -154,16 +157,15 @@ def is_wide(head_dim: int) -> bool:
     return 256 < head_dim <= WIDE_MAX_HEAD_DIM and head_dim % 128 == 0
 
 
-def wide_smem_bytes(itemsize: int) -> int:
-    """Shared memory of one CTA of the wide builds (``csrc/wide.cuh``
-    ``WideLayout::BYTES``) for inputs of ``itemsize`` bytes: two stages of
-    each streamed operand (64 rows of 128 bytes, each padded by 16), the
-    update tile (64 rows of 128 columns, padded by 16 bytes), in fp32 each
-    warp's 16 x 68 probabilities, six vectors of 64 and 64 row offsets and
-    flags."""
+def wide_smem_bytes() -> int:
+    """Shared memory of one CTA of the wide builds' fp32 kernels
+    (``csrc/wide.cuh`` ``WideLayout::BYTES``): two stages of each streamed
+    operand (64 rows of 128 bytes, each padded by 16), the update tile (64
+    rows of 128 fp32 columns, padded by 16 bytes), each warp's 16 x 68
+    probabilities, six vectors of 64 and 64 row offsets and flags."""
     chunk = WIDE_ROWS * (128 + 16)
-    tile = WIDE_KEYS * (128 * itemsize + 16)
-    probs = 4 * 16 * (WIDE_KEYS + 4) * 4 if itemsize == 4 else 0
+    tile = WIDE_KEYS * (128 * 4 + 16)
+    probs = 4 * 16 * (WIDE_KEYS + 4) * 4
     return 4 * chunk + tile + probs + 6 * 64 * 4 + 64 * 8 + 64 * 4
 
 
@@ -214,6 +216,53 @@ def wide_fwd_smem_bytes(head_dim: int, segments: bool = False, paged: bool = Fal
     return _wide_fwd_bytes(head_dim, wide_fwd_stages(head_dim), segments, paged)
 
 
+def wide_bwd_cut(head_dim: int, dkv: bool = True) -> tuple:
+    """How a 16-bit wide sweep (``dkv``: dK/dV, else dQ) cuts a wide head
+    dim (``csrc/wide.cuh`` ``wide_bwd_cut``): (CTAs a cluster, owners a CTA,
+    64-column chunks an owner); each CTA holds the partial scores of every
+    owner of its cluster.  A dK/dV owner holds dK and dV for 128 columns (2
+    x 64 fp32 registers a thread): two a CTA at d 512, one elsewhere.  A dQ
+    owner takes 256 columns where the head dim is a multiple of 256, else
+    128, one a CTA."""
+    if not is_wide(head_dim):
+        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+    if dkv:
+        return (2, 2, 2) if head_dim == 512 else (head_dim // 128, 1, 2)
+    return (head_dim // 256, 1, 4) if head_dim % 256 == 0 else (head_dim // 128, 1, 2)
+
+
+def _wide_bwd_bytes(head_dim: int, stages: int, segments: bool, dkv: bool) -> int:
+    nc, nw, c = wide_bwd_cut(head_dim, dkv)
+    cols = 64 * nw * c  # the CTA's columns
+    row_arrays = (2 if dkv else 0) + (1 if segments else 0)
+    return (2 * WIDE_ROWS * cols * 2 + 2 * stages * WIDE_BWD_ROWS * cols * 2
+            + 2 * nc * nw * WIDE_ROWS * WIDE_BWD_ROWS * 4 + stages * row_arrays * WIDE_BWD_ROWS * 4
+            + 8 * (1 + 2 * stages + 2) + 1024)
+
+
+def wide_bwd_stages(head_dim: int, dkv: bool = True) -> int:
+    """Stages of a 16-bit wide sweep's ring (``csrc/wide.cuh``
+    ``WbLayout::STAGES``): as many as fit with segment ids, at most 4 and
+    at least 2."""
+    stages = 4
+    while stages > 2 and _wide_bwd_bytes(head_dim, stages, True, dkv) > H100_SXM[
+            "smem_per_block_optin"]:
+        stages -= 1
+    return stages
+
+
+def wide_bwd_smem_bytes(head_dim: int, segments: bool = False, dkv: bool = True) -> int:
+    """Shared memory of one CTA of a 16-bit wide sweep (``csrc/wide.cuh``
+    ``WbLayout::bytes``), dK/dV (``dkv``) or dQ: the two resident tiles
+    (64 rows over the CTA's columns: K and V, or Q and dO),
+    :func:`wide_bwd_stages` stages of the two streamed tiles of
+    WIDE_BWD_ROWS rows, the 64 x 32 fp32 partial S and dP of every owner of
+    the cluster, each stage's row arrays (dK/dV: lse and D; with segment
+    ids the streamed rows' ids), the barriers (one resident, two a stage,
+    two for the partials) and 1024 bytes of alignment."""
+    return _wide_bwd_bytes(head_dim, wide_bwd_stages(head_dim, dkv), segments, dkv)
+
+
 def default_block_kv(head_dim: int) -> int:
     """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
     ``key_tile``): 128, 64 at d 256, and in the wide builds 32
@@ -225,6 +274,8 @@ def default_block_kv(head_dim: int) -> int:
 
 def default_block_kv_bwd(head_dim: int) -> int:
     """Rows a sweep streams a stage in the head dim's builds
-    (``csrc/attn_bwd.cuh`` ``stream_tile``): 64, and 32 at d 256; the wide
-    builds stream 64."""
+    (``csrc/attn_bwd.cuh`` ``stream_tile``): 64, and 32 at d 256 and in the
+    wide builds (:data:`WIDE_BWD_ROWS`, the 16-bit wide sweeps' tile)."""
+    if is_wide(head_dim):
+        return WIDE_BWD_ROWS
     return 32 if head_dim == 256 else 64

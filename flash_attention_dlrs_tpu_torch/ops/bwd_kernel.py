@@ -13,14 +13,16 @@ launch count; a seventh, ``csrc/attn_bwd_tiles.cu`` (``attn_bwd_dkv_tiles``,
 ``attn_bwd_dq_tiles``), carries the 32-row stages at d 64 and 128 that a
 caller may pin or the tuner pick (``block_sizes``, :mod:`..tuning`),
 mode-free; an eighth, ``csrc/attn_bwd_wide.cu`` (``attn_bwd_dkv_wide``,
-``attn_bwd_dq_wide``: the column-chunked sweeps of ``csrc/wide.cuh``),
+``attn_bwd_dq_wide``: the sweeps of ``csrc/wide.cuh``),
 every head dim above 256 that is a multiple of 128, up to 1024, with every
 mode.  Each sweep call takes one of four routes, fixed by :func:`bwd_route`
 from the call's types and width alone and counted per sweep in
 :data:`BWD_ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernels: warpgroup
 products, TMA, a producer warpgroup; every bf16/fp16 call at d 64, 128 and
 256), ``"fp32"`` (CUDA cores, true fp32), and at the wide head dims
-``"wide_mma"`` (bf16/fp16 on ``mma.sync``) and ``"wide_fp32"``.
+``"wide_wgmma"`` (bf16/fp16: owners of 128 or 256 columns computing S and
+dP once a tile, a cluster of CTAs; the forward's route code) and
+``"wide_fp32"``.
 The C entries refuse a route that cannot carry a call; nothing switches
 routes at run time.  Together they replace the six backward TPU kernels of
 the JAX package — ``ops/fwd_small.py::_small_bwd_kernel``,
@@ -107,8 +109,8 @@ DQ_WIDE_KERNEL = CudaKernel("attn_bwd_wide.cu", "attn_bwd_dq_wide", _DQ_ARGS)
 # to 0 by whoever reads them.
 BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
-# Each sweep's wgmma and wide_mma launches by head dim and streamed tile
-# ("d128_kv32", "d512_kv64"), over every build; set to 0 by whoever reads
+# Each sweep's wgmma and wide_wgmma launches by head dim and streamed tile
+# ("d128_kv32", "d512_kv32"), over every build; set to 0 by whoever reads
 # them.
 BWD_TILE_LAUNCHES = {sweep: register_launch_counts({})
                      for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
@@ -125,7 +127,8 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
                segment ids)
     wgmma      bf16 / fp16 q, with or without segment ids
     wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
-    wide_mma   as wgmma, at a wide head dim (``mma.sync``)
+    wide_wgmma as wgmma, at a wide head dim (``csrc/wide.cuh``
+               ``wide_bwd_dkv_kernel`` / ``wide_bwd_dq_kernel``)
     =========  =========================================================
 
     Segment ids, ALiBi and dropout are modes of every route at every head
@@ -139,7 +142,7 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
         return "wide_fp32" if wide else "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
-    return "wide_mma" if wide else "wgmma"
+    return "wide_wgmma" if wide else "wgmma"
 
 
 def _check_cuda(q, k, v, o, lse, do) -> None:
@@ -208,7 +211,7 @@ def _stream_tile(q, route, *, alibi_slopes, dropout_rate, q_seg, block_sizes, **
     tiles otherwise), the head dim's own tile without ``block_sizes`` or on
     the fp32 route (its own fixed steps)."""
     d = q.shape[-1]
-    if route not in ("wgmma", "wide_mma") or block_sizes is None:
+    if route not in ("wgmma", "wide_wgmma") or block_sizes is None:
         return default_block_kv_bwd(d)
     block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                       segments=q_seg is not None)
@@ -234,7 +237,7 @@ def sweep_kernel(sweep: str, head_dim: int, segments: bool, block_kv_bwd=None) -
 
 def _count(sweep, route, d, tile) -> None:
     BWD_ROUTE_LAUNCHES[sweep][route] += 1
-    if route in ("wgmma", "wide_mma"):
+    if route in ("wgmma", "wide_wgmma"):
         key = f"d{d}_kv{tile}"
         BWD_TILE_LAUNCHES[sweep][key] = BWD_TILE_LAUNCHES[sweep].get(key, 0) + 1
 

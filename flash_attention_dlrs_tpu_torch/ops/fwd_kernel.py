@@ -93,11 +93,11 @@ FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
 FWD_WIDE_KERNEL = CudaKernel("attn_fwd_wide.cu", "attn_fwd_wide", _FWD_ARGS)
 
 # The C entries' route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma,
-# csrc/wide.cuh kRouteWideF32 / kRouteWideMma / kRouteWideWgmma) and the
-# launches of each route, over every build; set to 0 by whoever reads them.
-# "wide_mma" is the wide backward sweeps' route (ops/bwd_kernel.py, which
-# shares these codes); the forward takes "wide_wgmma".
-ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_mma": 3, "wide_wgmma": 4}
+# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma) and the launches of each
+# route, over every build; set to 0 by whoever reads them.  The backward
+# sweeps share the codes (ops/bwd_kernel.py): "wide_wgmma" names the 16-bit
+# wide forward and both wide sweeps.
+ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 # The wgmma and wide_wgmma routes' launches by head dim and key tile
 # ("d128_kv64", "d512_kv32"), over every build; set to 0 by whoever reads

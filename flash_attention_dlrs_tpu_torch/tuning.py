@@ -39,10 +39,10 @@ from . import geometry as geo
 BUILT_BLOCK_KV = {64: (128, 64), 128: (128, 64), 256: (64,)}
 BUILT_BLOCK_KV_BWD = {64: (64, 32), 128: (64, 32), 256: (32,)}
 # The wide builds' tiles (csrc/wide.cuh, every head dim above 256 that is a
-# multiple of 128): 32 keys a forward tile (the wide_wgmma kernel), 64 rows a
-# sweep's stream.
+# multiple of 128): 32 keys a forward tile and 32 rows a sweep's stream (the
+# 16-bit kernels on wide_wgmma).
 WIDE_BLOCK_KV = (geo.WIDE_FWD_KEYS,)
-WIDE_BLOCK_KV_BWD = (64,)
+WIDE_BLOCK_KV_BWD = (geo.WIDE_BWD_ROWS,)
 CTA_ROWS = geo.CTA_ROWS
 
 
@@ -52,8 +52,8 @@ class BlockSizes:
     sweeps), the JAX package's four fields on Hopper's tiles: ``block_q``
     and ``block_q_bwd`` are a CTA's 128 rows; ``block_kv`` is 64 or 128
     (64 at head dim 256, 32 at the wide head dims), ``block_kv_bwd`` 32 or
-    64 (32 at d 256).  The head dim is checked when a call uses the tiles
-    (:meth:`check`)."""
+    64 (32 at d 256 and at the wide head dims).  The head dim is checked
+    when a call uses the tiles (:meth:`check`)."""
 
     block_q: int = CTA_ROWS
     block_kv: int = 128
@@ -75,7 +75,7 @@ class BlockSizes:
               segments: bool = False, fp8_v: bool = False) -> None:
         """Raise ``ValueError`` unless some build carries these tiles at
         ``head_dim`` (the kernels' width: 64, 128, 256 or a wide width, whose
-        one build carries block_kv 32 and block_kv_bwd 64 in every mode and
+        one build carries block_kv 32 and block_kv_bwd 32 in every mode and
         cuts its own 64-row CTAs) with the call's modes; the message names
         the built tiles."""
         modes = alibi or dropout or segments or fp8_v
@@ -153,7 +153,7 @@ def candidate_bwd_configs(head_dim: int, *, segments: bool = False, alibi: bool 
 def default_block_sizes(head_dim: int) -> BlockSizes:
     """The tiles every call takes unless told otherwise: each head dim's own
     builds', (128, 128, 128, 64), (128, 64, 128, 32) at d 256 and (128, 32,
-    128, 64) in the wide builds."""
+    128, 32) in the wide builds."""
     width = head_dim if head_dim in BUILT_BLOCK_KV or geo.is_wide(head_dim) else 128
     return BlockSizes(block_kv=geo.default_block_kv(width),
                       block_kv_bwd=geo.default_block_kv_bwd(width))

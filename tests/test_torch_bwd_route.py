@@ -94,7 +94,7 @@ def test_route_refuses_what_no_kernel_takes(dtype, d):
 def test_route_refuses_head_dims_above_256_naming_queue_2():
     """Head dims above 256 run on the wide builds up to 1024; past that the
     refusal names queue 2."""
-    assert tbwd.bwd_route(torch.bfloat16, 384) == "wide_mma"
+    assert tbwd.bwd_route(torch.bfloat16, 384) == "wide_wgmma"
     with pytest.raises(ValueError, match="queue 2"):
         tbwd.bwd_route(torch.bfloat16, 1152)
 

@@ -3,8 +3,8 @@
 The JAX package pads any head dim to a multiple of 128 lanes and runs its
 kernels there; the port pads alike (``kernel_width``: 320 to 384, 512 as it
 is) and on the card runs the wide builds (``csrc/wide.cuh``: the 16-bit
-forward and verify on warpgroup products, route ``wide_wgmma``; the
-column-chunked sweeps, ``wide_mma``; decode; ``wide_fp32``).  Here, on CPU
+forward, verify and sweeps on warpgroup products, route ``wide_wgmma``;
+decode; ``wide_fp32``).  Here, on CPU
 tensors, the port runs their plain versions; the JAX side runs its Pallas
 routes in interpret mode, as its own CPU tests do.  Same seeded numpy
 inputs on both sides:
@@ -16,9 +16,10 @@ inputs on both sides:
 - ``paged_decode_attention`` (O, lse) and ``paged_verify_attention`` at
   pool widths 384 (bf16, int4 pools) and 512 (int8, e4m3 pools);
 - the route functions at 384, 512 and 640 (the wide routes, the wide
-  builds) and a refusal past 1024 that names queue 2; the wide_wgmma
-  kernel's shared-memory model in every mode at every wide head dim, and
-  verify's split planner for its CTAs (no JAX);
+  builds) and a refusal past 1024 that names queue 2; the shared-memory
+  models of the wide_wgmma forward and of both 16-bit sweeps in every mode
+  at every wide head dim, and verify's split planner for its CTAs (no
+  JAX);
 - a 2-layer model at head_dim 320: ``DecodeEngine`` greedy tokens equal to
   the JAX engine's, and one AdamW train step against JAX's.
 
@@ -222,8 +223,8 @@ def test_routes_take_the_wide_builds(d):
     the builds the wrappers look up are the wide ones; CPU calls at d count
     no launch; the tiles a caller may pin at d are the wide build's own."""
     for dtype, fwd, bwd in ((torch.float32, "wide_fp32", "wide_fp32"),
-                            (torch.bfloat16, "wide_wgmma", "wide_mma"),
-                            (torch.float16, "wide_wgmma", "wide_mma")):
+                            (torch.bfloat16, "wide_wgmma", "wide_wgmma"),
+                            (torch.float16, "wide_wgmma", "wide_wgmma")):
         tfwd.check_kernel_head_dim(d, "wide")
         for kw in ({}, dict(segments=True), dict(alibi=True, dropout=True)):
             assert tbwd.bwd_route(dtype, d, **kw) == bwd
@@ -244,10 +245,12 @@ def test_routes_take_the_wide_builds(d):
     with pytest.raises(ValueError, match="queue 2"):
         tfwd.fwd_route(torch.bfloat16, 1152)
     # the wide build's own tile is its only one, in every mode
-    tuning.BlockSizes(block_kv=32, block_kv_bwd=64).check(d, alibi=True, segments=True)
+    tuning.BlockSizes(block_kv=32, block_kv_bwd=32).check(d, alibi=True, segments=True)
     with pytest.raises(ValueError, match="wide build"):
         tuning.BlockSizes().check(d)
-    assert tuning.default_block_sizes(d) == tuning.BlockSizes(block_kv=32, block_kv_bwd=64)
+    with pytest.raises(ValueError, match="wide build"):
+        tuning.BlockSizes(block_kv=32, block_kv_bwd=64).check(d)
+    assert tuning.default_block_sizes(d) == tuning.BlockSizes(block_kv=32, block_kv_bwd=32)
 
 
 WIDE_DIMS = (384, 512, 640, 768, 896, 1024)
@@ -277,6 +280,34 @@ def test_wide_wgmma_layout_fits_every_mode(d):
     assert sizes[False, True] - sizes[False, False] == stages * 2 * 32 * 4
     # one more stage would not fit, unless the ring has its four
     assert stages == 4 or geo._wide_fwd_bytes(d, stages + 1, False, True) > optin
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_sweep_layouts_fit_every_mode(d):
+    """Each 16-bit wide sweep's shared memory (geometry's byte model of
+    csrc/wide.cuh WbLayout) fits the 232,448 bytes an H100 CTA may opt
+    into at every wide head dim, with and without segment ids (ALiBi and
+    dropout take no bytes), for dK/dV and dQ; each cut covers the head dim
+    with owners of 128 columns for dK/dV (dK and dV: 128 fp32 registers a
+    thread) and of at most 256 for dQ, at most two a CTA and at most 8 CTAs
+    a cluster, and the ring has at least two stages."""
+    optin = geo.current_geometry("cpu").smem_per_block_optin
+    for dkv in (True, False):
+        nc, nw, c = geo.wide_bwd_cut(d, dkv)
+        assert nc * nw * c * 64 == d and nw <= 2 and nc <= 8
+        assert c * 64 == 128 if dkv else c * 64 in (128, 256)
+        stages = geo.wide_bwd_stages(d, dkv)
+        assert 2 <= stages <= 4
+        plain = geo.wide_bwd_smem_bytes(d, dkv=dkv)
+        seg = geo.wide_bwd_smem_bytes(d, segments=True, dkv=dkv)
+        assert geo.fits_smem(plain) and geo.fits_smem(seg), (dkv, plain, seg)
+        # segment ids take one int a streamed row of each stage
+        assert seg - plain == stages * 32 * 4
+        assert stages == 4 or geo._wide_bwd_bytes(d, stages + 1, True, dkv) > optin
+        # the CTA holds every owner's partial S and dP (64 x 32 fp32 each)
+        cols = 64 * nw * c
+        assert plain == (2 * 64 * cols * 2 + 2 * stages * 32 * cols * 2 + nc * nw * 16384
+                         + stages * (2 if dkv else 0) * 32 * 4 + 8 * (3 + 2 * stages) + 1024)
 
 
 @pytest.mark.parametrize("d", [384, 512, 640, 1024])
