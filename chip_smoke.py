@@ -543,6 +543,7 @@ def _check_instances(rec, built, sources, entry, flags, marker, count, key):
 PAGED_KIND_NAMES = ("fp32", "bf16", "fp16", "int8", "int4", "e4m3", "e5m2")
 PAGED_ENTRIES = (
     (re.compile(r"paged_decode_kernelILi(\d)ELi(\d+)ELb([01])ELb([01])E"), "decode"),
+    (re.compile(r"wide_decode_kernelILi(\d)ELi(\d)E"), "decode_wide"),
     (re.compile(r"paged_verify_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)ELi(\d)E"
                 r"Lb([01])ELb([01])E"), "verify_wgmma"),
     (re.compile(r"paged_verify_f32_kernelILi(\d+)E"), "verify_fp32"),
@@ -551,7 +552,8 @@ PAGED_ENTRIES = (
 
 def paged_name(entry):
     """A readable name of one paged kernel instance from its mangled name:
-    kernel, (q dtype,) pool kind, head dim, then "cap" / "alibi" where on."""
+    kernel, (q dtype,) pool kind, head dim, then "cap" / "alibi" where on
+    (the wide decode kernel takes them at run time)."""
     for pattern, kernel in PAGED_ENTRIES:
         m = pattern.search(entry)
         if m is None:
@@ -560,6 +562,8 @@ def paged_name(entry):
         if kernel == "decode":
             parts = [kernel, PAGED_KIND_NAMES[int(g[0])], "d" + g[1]]
             flags = g[2:]
+        elif kernel == "decode_wide":  # kind, 128-column blocks
+            return f"{kernel}_{PAGED_KIND_NAMES[int(g[0])]}_d{128 * int(g[1])}"
         elif kernel == "verify_wgmma":
             parts = [kernel, "bf16" if g[0] == "__nv_bfloat16" else "fp16",
                      PAGED_KIND_NAMES[int(g[2])], "d" + g[1]]
@@ -604,7 +608,8 @@ def paged_instances(log, source):
         parts = name.split("_")
         d = next((int(x[1:]) for x in parts if re.fullmatch(r"d\d+", x)), 0)
         if name.startswith("decode_"):
-            rec["shared_bytes"] = shared(PAGED_KIND_NAMES.index(parts[1]), d)
+            kind = parts[2] if name.startswith("decode_wide_") else parts[1]
+            rec["shared_bytes"] = shared(PAGED_KIND_NAMES.index(kind), d)
         else:
             rec["shared_bytes"] = shared(0 if name.startswith("verify_fp32") else 1, d)
     return out
@@ -673,13 +678,29 @@ def wide_bwd_instances(log):
     return out
 
 
+# The wide decode mutants build the d 512 instances alone (the other widths'
+# launches edited to refuse), which keeps their compile small.
+_WIDE_DECODE_MUTANT_ONLY_512 = [
+    (f"      case {d}: return f(kind, std::integral_constant<int, {d // 128}>{{}});",
+     f"      case {d}: return int(cudaErrorInvalidValue);") for d in (384, 640, 768, 896, 1024)]
 # Broken copies of the paged kernels, built as BWD_MUTANTS are:
-# decode_check must fail on each (phase paged_mutants).
+# decode_check must fail on each (phase paged_mutants); the wide decode's on
+# its d 512 cases of wide_paged_cases.
 PAGED_MUTANTS = {
     # the merge of the splits drops the last split's partial
-    "decode_combine_drops_last_split": ("paged_decode.cu", "paged_decode.cuh", [(
+    "decode_combine_drops_last_split": ("paged_decode.cu", "paged.cuh", [(
         "    for (int s = 0; s < splits; ++s) {\n      const float ws",
         "    for (int s = 0; s < splits - 1; ++s) {\n      const float ws")]),
+    # wide decode: the last CTA of a group merges all splits but the last
+    "wide_decode_merge_drops_last_split": ("paged_decode_wide.cu", "wide.cuh", [(
+        "merge_rows(a.part_o, a.part_lse, a.splits, size_t(a.B) * a.Hq, nh, D,",
+        "merge_rows(a.part_o, a.part_lse, a.splits - 1, size_t(a.B) * a.Hq, nh, D,"),
+    ] + _WIDE_DECODE_MUTANT_ONLY_512),
+    # wide decode: the last stored row of every stage's tile left out
+    "wide_decode_drops_last_tile_row": ("paged_decode_wide.cu", "wide.cuh", [(
+        "own = v < n_rows && pos < len ? x : -INFINITY;  // the tile's rows",
+        "own = v < n_rows && r != TILE - 1 && pos < len ? x : -INFINITY;"),
+    ] + _WIDE_DECODE_MUTANT_ONLY_512),
     # a tile that crosses a row's horizon (but not the split's end) unmasked
     "verify_horizon_tile_unmasked": ("paged_verify.cu", "paged_verify.cuh", [(
         "const bool masked = n0 + V_BN > open;",
@@ -779,7 +800,9 @@ def phase_build(mutants=False):
     # may spill; the wide_wgmma instances (2 dtypes x 6 head dims in each of
     # the forward, verify and both sweeps) by name, those of two owners a
     # CTA at the launch's 168 registers (setmaxnreg moves registers only
-    # within them), none with serialized wgmmas
+    # within them), none with serialized wgmmas; the decode instances (7
+    # pool kinds x 6 head dims) by name, none spilling, each with its
+    # layout's shared bytes
     wide = {src: info[src]["ptxas"] for src in built if src.endswith("_wide.cu")}
     spilling = {src: [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
                 for src, lines in wide.items()}
@@ -792,10 +815,16 @@ def phase_build(mutants=False):
         "attn_bwd_wide.cu" in built) else {}
     wrong = {k: v for k, v in {**wgmma, **sweeps}.items()
              if v["ptxas_warnings"] or (v["owners_a_cta"] == 2 and v.get("registers") != LAUNCH_REGS)}
+    decode = paged_instances(built["paged_decode_wide.cu"]["log"], "paged_decode_wide.cu") if (
+        "paged_decode_wide.cu" in built) else {}
     emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling,
-          "wide_wgmma_instances": wgmma, "wide_bwd_instances": sweeps})
+          "wide_wgmma_instances": wgmma, "wide_bwd_instances": sweeps,
+          "wide_decode_instances": decode})
     if spilling:
         raise AssertionError(f"wide instances spill: {spilling}")
+    if decode and (len(decode) != 42 or any(v.get("spill_stores") or v.get("spill_loads")
+                                            for v in decode.values())):
+        raise AssertionError(f"wide decode instances off ({len(decode)} of 42): {decode}")
     if wrong or (wgmma and len(wgmma) != 24) or (sweeps and len(sweeps) != 24):
         raise AssertionError(f"wide_wgmma instances off ({len(wgmma)} + {len(sweeps)} of "
                              f"24 + 24): {wrong}")
@@ -1750,6 +1779,8 @@ def phase_decode(dev, cases=None, phase="decode_check"):
         *edge_cases(torch.cuda.get_device_properties(dev).multi_processor_count),
         *d256_cases(),
     ]
+    if cases is not None:  # a mutant's cases may be wide ones
+        all_cases += wide_paged_cases(torch.cuda.get_device_properties(dev).multi_processor_count)
     results = {}
     for case in all_cases:
         name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case[:7]
@@ -1772,6 +1803,11 @@ def phase_decode(dev, cases=None, phase="decode_check"):
 PAGED_MUTANT_CASES = {
     "decode_combine_drops_last_split": ("serve_decode", "edges_bf16_page128_B5",
                                         "edges_int4_page16_B5", "edges_bf16_B1"),
+    "wide_decode_merge_drops_last_split": ("d512_edges_bf16_page128_B5",
+                                           "d512_edges_int4_page16_B5",
+                                           "d512_edges_int8_page16_softcap_alibi_B5"),
+    "wide_decode_drops_last_tile_row": ("d512_decode_e4m3_B8", "d512_decode_fp16_softcap_alibi",
+                                        "d512_decode_fp32_values", "d512_edges_int4_page16_B5"),
     "verify_horizon_tile_unmasked": ("verify_T256_bf16", "verify_T255_bf16_horizons",
                                      "verify_T64_bf16_page16", "verify_T64_int8_page16"),
 }
@@ -1787,8 +1823,10 @@ def phase_paged_mutants(dev, builds):
 
     checks = {}
     wait = wait_mutant_builds(builds)
+    attrs = {"paged_decode.cu": "DECODE_KERNEL", "paged_decode_wide.cu": "DECODE_WIDE_KERNEL",
+             "paged_verify.cu": "VERIFY_KERNEL"}
     for name, (_, lib, source) in builds.items():
-        attr = "DECODE_KERNEL" if source == "paged_decode.cu" else "VERIFY_KERNEL"
+        attr = attrs[source]
         real = getattr(dm, attr)
         try:
             setattr(dm, attr, _cuda.CudaKernel(source, real.symbol, real.argtypes, library=lib))
@@ -7633,6 +7671,9 @@ def wide_paged_cases(num_sms):
         pps16, lengths16 = edges(5, 16)
         cases.append((f"{tag}_edges_int8_page16_softcap_alibi_B5", bf16, "int8",
                       (5, hq, hkv, d, 16, pps16, lengths16), 30.0, 0, True))
+        # int4 pages of 16 store 8 rows: decode's rows copied one by one
+        cases.append((f"{tag}_edges_int4_page16_B5", bf16, "int4",
+                      (5, hq, hkv, d, 16, pps16, lengths16), 0.0, 0, False))
         serve = (8, hq, hkv, d, 128, 17, DECODE_B8_LENGTHS)
         small = (3, 8, 2, d, 64, 8, [0, 300, 512])
         cases += [(f"{tag}_decode_{kind}_B8", bf16, kind, serve, 0.0, 0, False)
@@ -7880,6 +7921,13 @@ WIDE_MMA_SYNC_MS = {
     "verify_d512_int8_T256_ctx2048": {"ms": 0.500, "device_ms": 0.437},
     "bwd_train_d512": {"attn_bwd_dkv": 25.10, "attn_bwd_dq": 12.81, "attn_bwd": 37.70},
 }
+# The times of the decode kernel on the CUDA cores that the one on page
+# copies replaced (one key a warp, splits merged by a second kernel), at the
+# same shapes (H100 80GB HBM3, 700 W; PERF.md section 6).
+WIDE_CUDA_CORE_DECODE_MS = {
+    "decode_d512_bf16_B8_ctx2048": {"ms": 0.123, "device_ms": 0.0771},
+    "decode_d512_int8_B8_ctx2048": {"ms": 0.119, "device_ms": 0.0749},
+}
 
 
 def fwd_device_ms(gen, dev, b, hq, hkv, n, d, floor_ms):
@@ -7934,6 +7982,8 @@ def wide_timings(dev, gen):
                     t["sdpa_backend_d512"])
     for key, before in WIDE_MMA_SYNC_MS.items():
         t[key]["mma_sync_kernel"] = before
+    for key, before in WIDE_CUDA_CORE_DECODE_MS.items():
+        t[key]["cuda_core_kernel"] = before
     family = t["bwd_train_d512"]["attn_bwd"]
     t["bwd_train_d512"]["family_vs_sdpa"] = (family["ms"] / family["library_ms"]
                                              if family["library_ms"] else None)
@@ -8009,7 +8059,8 @@ def wide_shared_bytes():
     ``*_shared_bytes`` entry, against geometry.py's model: the wide_wgmma
     forward by dtype, head dim and modes (segment ids, fp8 V), its verify by
     dtype and head dim, the 16-bit sweeps by sweep, dtype, head dim and
-    segment ids, the fp32 kernels' one layout: {layout: [C, Python]}."""
+    segment ids, the fp32 kernels' one layout, decode by pool kind and
+    head dim: {layout: [C, Python]}."""
     import ctypes
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch import geometry as geo
@@ -8021,7 +8072,7 @@ def wide_shared_bytes():
         return fn
 
     fwd, verify = entry("attn_fwd_wide.cu", 3), entry("paged_verify_wide.cu", 2)
-    bwd = entry("attn_bwd_wide.cu", 3)
+    bwd, decode = entry("attn_bwd_wide.cu", 3), entry("paged_decode_wide.cu", 2)
     out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), geo.wide_smem_bytes()],
            "paged_verify_wide_fp32": [verify(0, 512), geo.wide_smem_bytes()],
            "attn_bwd_wide_fp32": [bwd(0, 512, 0), geo.wide_smem_bytes()]}
@@ -8038,7 +8089,26 @@ def wide_shared_bytes():
                     out[f"attn_bwd_{sweep}_wide_{name}_d{d}{'_seg' if seg else ''}"] = [
                         bwd(dtype, d, int(seg) | 2 * int(dkv)),
                         geo.wide_bwd_smem_bytes(d, segments=seg, dkv=dkv)]
+    for code, kind in enumerate(PAGED_KIND_NAMES):
+        for d in WIDE_ALL:
+            out[f"paged_decode_wide_{kind}_d{d}"] = [decode(code, d),
+                                                     geo.wide_decode_smem_bytes(d, kind)]
     return out
+
+
+def wide_decode_ctas():
+    """CTAs of each wide decode instance one SM holds at once, by the
+    runtime's occupancy calculator (paged_decode_wide_ctas_per_sm), beside
+    the design's (geometry.wide_decode_ctas_per_sm: two up to 512 columns,
+    else one): {instance: [card, design]}."""
+    import ctypes
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch import geometry as geo
+
+    fn = ctypes.CDLL(str(_cuda.library_path("paged_decode_wide.cu"))).paged_decode_wide_ctas_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return {f"{kind}_d{d}": [fn(code, d), geo.wide_decode_ctas_per_sm(d)]
+            for code, kind in enumerate(PAGED_KIND_NAMES) for d in WIDE_ALL}
 
 
 def phase_wide_heads(dev):
@@ -8051,7 +8121,8 @@ def phase_wide_heads(dev):
     Then the entry points at head dims 320 and 640 (wide_op_checks), each
     mutant of WIDE_MUTANTS caught (the forward's by fwd_check, the sweeps'
     by bwd_check, at d 512 and 640), every instance's
-    shared memory against geometry.py's model (wide_shared_bytes), and the
+    shared memory against geometry.py's model (wide_shared_bytes), decode's
+    CTAs an SM as designed (wide_decode_ctas), and the
     kernels timed at the re-headed bench models' shapes."""
     import torch
 
@@ -8077,6 +8148,7 @@ def phase_wide_heads(dev):
     op_calls, op_checks = wide_op_checks(dev, gen)
     caught, wait = wide_mutants_caught(dev, builds)
     shared = wide_shared_bytes()
+    decode_ctas = wide_decode_ctas()
     timings = wide_timings(dev, gen)
     checks = {
         "fwd_every_case_kernel_vs_plain_on_its_route": all(r["ok"] for r in fwd.values()),
@@ -8087,6 +8159,7 @@ def phase_wide_heads(dev):
         **op_checks,
         "mutants_fail_their_check": all(bool(f) for f in caught.values()),
         "shared_bytes_match_geometry": all(c == p for c, p in shared.values()),
+        "decode_ctas_per_sm_as_designed": all(c == p for c, p in decode_ctas.values()),
     }
     rec = {"phase": "wide_heads", "cases": {"fwd": len(fwd), "bwd": len(bwd),
                                             "paged": len(paged), "entry_points": len(op_calls)},
@@ -8096,7 +8169,8 @@ def phase_wide_heads(dev):
            "fwd_repeats": repeats,
            "mutants": {"edits": {n: m[2] for n, m in WIDE_MUTANTS.items()},
                        "failed_cases": caught, "build_wait_seconds": wait},
-           "shared_bytes": shared, "timings": timings, "card": card_line(),
+           "shared_bytes": shared, "decode_ctas_per_sm": decode_ctas, "timings": timings,
+           "card": card_line(),
            "checks": checks}
     emit(rec)
     failed = [k for k, ok in checks.items() if not ok]

@@ -1,7 +1,8 @@
 // Page-pool formats shared by the paged attention kernels (paged_decode.cuh,
-// paged_verify.cuh), sm_90a, and what the two share beyond them: the
-// asynchronous copies that stage pages (1-D bulk copies and 16-byte
-// cp.async, both completing on an mbarrier) and the layout of key splits.
+// paged_verify.cuh and wide.cuh's), sm_90a, and what they share beyond
+// them: stored words converted to fp32, the asynchronous copies that stage
+// pages (1-D bulk copies and 16-byte cp.async, both completing on an
+// mbarrier), the layout of key splits and their merge inside a launch.
 //
 // A pool is [Hkv, P, stored_rows, D] of one kind (the codes of
 // ops/decode.py POOL_KINDS): float32, bfloat16 and float16 hold values;
@@ -20,8 +21,8 @@
 // shapes).  Each split's CTA writes its rows' attention normalized over its
 // own keys, in fp32, and the natural-base lse of those keys, or an lse of
 // -inf when it sees none; the splits of each row are then merged in split
-// order by lse weight (ops/decode.py combine_partials; paged_decode.cuh
-// merge_rows, paged_verify.cuh paged_verify_combine_kernel), so a call is
+// order by lse weight (ops/decode.py combine_partials; merge_rows below,
+// paged_verify.cuh paged_verify_combine_kernel), so a call is
 // bitwise repeatable and no atomics touch O.
 
 #pragma once
@@ -167,6 +168,108 @@ __device__ __forceinline__ float round_to(float x, int dt) {
     case 0: return x;
     case 1: return __bfloat162float(__float2bfloat16_rn(x));
     default: return __half2float(__float2half_rn(x));
+  }
+}
+
+// The elements of N stored words of a row (a lane's share of it, element c +
+// j of a 1-byte kind in byte j of a word) as fp32, exact for every kind;
+// `hi` picks an int4 byte's high nibble.  paged_decode.cuh and wide.cuh's
+// decode read rows this way.
+template <int KIND, int N>
+__device__ __forceinline__ void row_values(const uint32_t (&w)[N], int hi, float* out) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (KIND == kF32) {
+      out[i] = __uint_as_float(w[i]);
+    } else if constexpr (KIND == kBF16) {
+      out[2 * i] = __uint_as_float(w[i] << 16);
+      out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+    } else if constexpr (KIND == kF16) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    } else {
+      float f[4];
+      word_values(KIND, w[i], hi, f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[4 * i + j] = f[j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The merge of a split call
+// ---------------------------------------------------------------------------
+
+// Counts this CTA in `counter`, the count of the CTAs of one group (the
+// CTAs whose splits cover the same rows), once every thread has written its
+// share of the CTA's partial; true in the group's last CTA, which resets the
+// counter to 0 for the next call and then sees every other CTA's partial.
+__device__ __forceinline__ bool last_of_group(unsigned* counter, int splits) {
+  __shared__ int last;
+  __threadfence();  // this thread's partial writes, before the count
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1u) == unsigned(splits - 1);
+    if (last) {
+      *counter = 0u;
+      __threadfence();  // the other CTAs' partials, before the reads below
+    }
+  }
+  __syncthreads();
+  return last;
+}
+
+// The group's merge, by its last CTA: `n` rows (row_of(i) the index of row
+// i in O, part_o [splits, rows, D] and part_lse [splits, rows]), O = sum_s
+// w_s O_s / sum_s w_s with w_s = exp(lse_s - max lse), summed in split
+// order; a partial of lse -inf weighs exactly 0 (its O is never used).  A
+// row no split saw gets O = 0 and lse kMaskValue.  lse may be null.  First
+// one warp a row takes the row's maximum and weights (a lane a split, all
+// loads at once) into `scratch` (splits * n + n floats of shared memory),
+// then each thread sums four columns of a row, several splits' loads in
+// flight at once.
+template <typename RowOf>
+__device__ __forceinline__ void merge_rows(const float* part_o, const float* part_lse,
+                                           int splits, size_t rows, int n, int D,
+                                           RowOf row_of, void* o, int o_dtype, float* lse,
+                                           float* scratch) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+  float* w = scratch;                // [splits][n]: 0 where a split saw nothing
+  float* row_max = scratch + splits * n;  // [n]
+  for (int r = warp; r < n; r += warps) {
+    const size_t row = row_of(r);
+    float mx = -INFINITY;
+    for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, __ldcg(part_lse + s * rows + row));
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    for (int s = lane; s < splits; s += 32) {
+      const float ls = __ldcg(part_lse + s * rows + row);
+      w[s * n + r] = ls != -INFINITY ? expf(ls - mx) : 0.f;
+    }
+    if (lane == 0) row_max[r] = mx;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * (D / 4); i += blockDim.x) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const size_t row = row_of(r);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f}, w_sum = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float ws = w[s * n + r];
+      const float4 os = __ldcg(reinterpret_cast<const float4*>(part_o + (s * rows + row) * D + c));
+      w_sum += ws;
+      if (ws != 0.f) {
+        acc[0] = fmaf(ws, os.x, acc[0]);
+        acc[1] = fmaf(ws, os.y, acc[1]);
+        acc[2] = fmaf(ws, os.z, acc[2]);
+        acc[3] = fmaf(ws, os.w, acc[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store_as(o, row * D + c + j, o_dtype, w_sum > 0.f ? acc[j] / w_sum : 0.f);
+    if (lse != nullptr && c == 0) lse[row] = w_sum > 0.f ? row_max[r] + logf(w_sum) : kMaskValue;
   }
 }
 

@@ -1,8 +1,8 @@
 // Attention kernels for head dims above 256, sm_90a: the 16-bit forward,
 // paged verify and both backward sweeps on Hopper's warpgroup products
 // (route "wide_wgmma"), the fp32 forward, verify and sweeps on
-// column-chunked tiles, paged decode on the CUDA cores, and the merge of key
-// splits.  Included by
+// column-chunked tiles, paged decode on asynchronous page copies, and
+// verify's merge of key splits.  Included by
 // attn_fwd_wide.cu, attn_bwd_wide.cu, paged_decode_wide.cu and
 // paged_verify_wide.cu, which compile side by side.
 //
@@ -128,7 +128,51 @@
 //    CTAs (dV needs no dP).
 //  * Every output element has one owner and every sum runs in a fixed
 //    order (the 16-bit kernels' too); there are no atomics.
-// Decode is bound by bytes (3.35 TB/s).
+//
+// Paged decode (wide_decode_kernel), every pool kind.  Bound on this card
+// by bytes: each live K / V row is read once (2 d bytes a token a kv head
+// per stored byte, plus 8 bytes of scales a token when quantized) for
+// about 2 operations a byte, so the design is about keeping copies in
+// flight.  The kernel this one replaced reached 26% of that bound (bf16 at
+// the serving-d512 heads): each of a CTA's 4 warps took one key at a time,
+// loaded its page id, then its K and V rows from device memory, then ran a
+// shuffle tree, so every key waited on two dependent trips (~16 KB in
+// flight an SM); its registers were sized for 1024 columns at every width,
+// and its key splits merged in a second kernel.  What this design does
+// (paged_decode.cuh's, at the wide widths):
+//  * Templated on the pool kind and the number of 128-column blocks, so
+//    registers follow the width: a lane owns D / 32 columns, read from
+//    shared memory 16 bytes at a time where the row allows (8 or 4 else).
+//    Up to 512 columns two CTAs of 8 warps share an SM (about 100 KB of
+//    shared memory and at most 128 registers a thread), above it one.
+//  * The split's page ids (and q) land in shared memory beside the
+//    length's load; K, V (and the scales) of each tile of 32 D bytes a
+//    tensor (16 rows of a 16-bit pool, 32 of int8 / int4, 8 of fp32; 8 rows
+//    of fp8, whose float dots of more rows would not fit the registers)
+//    land in an mbarrier ring of 2-8 stages, STAGES - 1 tiles in flight
+//    while one is reduced: one 1-D bulk copy a tensor where the tile lies
+//    in one page, 16-byte cp.asyncs a row where pages are smaller.  Rows
+//    stay in their stored type in shared memory, converted in registers;
+//    an int4 row is staged once for its two tokens.
+//  * A warp reduces whole rows (the tile's rows are spread over the 8
+//    warps); the partial dots of all its rows and both heads of the CTA's
+//    pair are summed over the warp by one spread_sum, after which each lane
+//    makes the one score it holds (scales, softcap, ALiBi, mask: once, not
+//    once a score), and every lane takes them all; a token's position comes
+//    from its stored row (no division by the page size but for int4).  A
+//    warp keeps its own running max, row sum and O, releasing each stage
+//    through an empty barrier: no CTA-wide barrier a tile.  The warps merge
+//    in warp order.
+//  * Key splits merge inside the launch (paged.cuh merge_rows, by the last
+//    CTA of each group through a counter it resets), so a call is one
+//    launch and CUDA-graph replays stay right.
+// What is left (wide_breakdown_torch.py decode, at the serving-d512 heads,
+// 8 sequences of 2048 tokens): of ~0.037 ms (bf16) a copy of the kernel
+// that only copies takes ~0.030 (an empty call ~0.006 of it), the merge
+// of the splits ~0.005 and the reduction the rest; int8 ~0.030 against
+// ~0.021 copies only.  Each CTA streams one page (the split planner's two
+// CTAs an SM), so the first copy's round trip and the merge's serial L2
+// round trips are a large share; fewer, longer splits leave SMs idle.
 
 #pragma once
 
@@ -2532,237 +2576,550 @@ struct WideDecodeArgs {
   void* o;
   float* lse;
   float *part_o, *part_lse;  // [splits, B * Hq, D] and [splits, B * Hq] when splits > 1
-  int B, Hq, Hkv, P, page_size, pages_per_seq, D, splits, pages_per_split;
+  unsigned* counters;        // [B * Hkv * head pairs], zero between calls, when splits > 1
+  int B, Hq, Hkv, P, page_size, pages_per_seq, splits, pages_per_split;
   float sm_scale, softcap;
   const float* slopes;
   cudaStream_t stream;
 };
 
-constexpr int WD_HEADS = 2;                 // q heads a decode CTA serves
-constexpr int WD_NB = WIDE_MAX_D / WCOLS;   // 128-column blocks of a row, at most
+constexpr int WD_THREADS = 256;  // 8 warps
+constexpr int WD_WARPS = WD_THREADS / 32;
+constexpr int WD_HEADS = 2;      // q heads a CTA serves
+constexpr int WD_PIDS = 512;     // page ids of a split staged in shared memory
 
-// Four elements (columns c .. c + 3) of a stored row of KIND at element
-// `at` of `base`, as fp32 (exact), and for int8 / int4 as a __dp4a word.
-template <int KIND>
-__device__ __forceinline__ void four(const void* base, size_t at, int hi, float (&f)[4],
-                                     uint32_t& s8) {
-  if constexpr (KIND == kF32) {
-    const float4 x = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + at);
-    f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
-  } else if constexpr (KIND == kBF16 || KIND == kF16) {
-    const uint2 x = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(base) + at);
-    const uint32_t w[2] = {x.x, x.y};
+// One decode CTA at D = 128 NB columns from a pool of KIND, and its shared
+// memory in bytes from a 128-byte aligned base (geometry.py
+// wide_decode_smem_bytes): the K and V stages (TILE stored rows each, as
+// they are in the pool: 32 D bytes a tensor, 8 D for fp8, whose float dots
+// of more than one row a warp would not fit 128 registers at d 512), each
+// stage's scales (K then V, low then high nibble's token for int4), the
+// split's first WD_PIDS page ids, q of the two heads in fp32, the warps'
+// running maxima and row sums, then each stage's full and empty barriers.
+// The warps' O at the end and the merge's weights reuse the stages.
+// Stages: as many as fit 96 KB where two CTAs share an SM (D <= 512), 192
+// KB where one CTA fills it, at most 8.
+template <int KIND, int NB>
+struct WdLayout {
+  static constexpr int D = WCOLS * NB;
+  static constexpr int EB = stored_bytes(KIND);
+  static constexpr bool QUANT = is_quantized(KIND);
+  static constexpr bool INT_ROUTE = KIND == kI8 || KIND == kI4;
+  static constexpr int NTOK = KIND == kI4 ? 2 : 1;  // tokens a stored row holds
+  static constexpr int ROW_BYTES = D * EB;
+  static constexpr int TILE = EB == 1 && !INT_ROUTE ? 8 : 32 / EB;  // stored rows a stage
+  static constexpr int R = TILE / WD_WARPS;         // rows of a tile each warp takes
+  static constexpr int LB = ROW_BYTES / 32;         // bytes of a row a lane owns
+  static constexpr int CB = LB % 16 == 0 ? 16 : (LB % 8 == 0 ? 8 : 4);  // bytes a read
+  static constexpr int NCH = LB / CB;               // reads a lane makes of a row
+  static constexpr int VEC = CB / EB;               // elements of one read
+  static constexpr int E = D / 32;                  // columns a lane owns
+  static constexpr int NW = LB / 4;                 // words of a lane's share of a row
+  static constexpr int CTAS = NB <= 4 ? 2 : 1;      // CTAs an SM
+  static constexpr int BUDGET = NB <= 4 ? 96 * 1024 : 192 * 1024;
+  static constexpr uint32_t TILE_BYTES = TILE * ROW_BYTES;
+  static constexpr int STAGES = BUDGET / (2 * TILE_BYTES) < 8 ? BUDGET / (2 * TILE_BYTES) : 8;
+  static constexpr uint32_t SC_BYTES = QUANT ? 2 * NTOK * TILE * 4 : 0;
+  static constexpr uint32_t V_OFF = STAGES * TILE_BYTES;
+  static constexpr uint32_t SC_OFF = 2 * STAGES * TILE_BYTES;
+  static constexpr uint32_t PID_OFF = SC_OFF + STAGES * SC_BYTES;
+  static constexpr uint32_t Q_OFF = PID_OFF + WD_PIDS * 4;
+  static constexpr uint32_t M_OFF = Q_OFF + WD_HEADS * D * 4;
+  static constexpr uint32_t L_OFF = M_OFF + WD_WARPS * WD_HEADS * 4;
+  static constexpr uint32_t BAR_OFF = (L_OFF + WD_WARPS * WD_HEADS * 4 + 7) & ~7u;
+  static constexpr size_t BYTES = BAR_OFF + 16 * STAGES;
+  static_assert(NB >= 3 && NB <= WIDE_MAX_D / WCOLS, "a wide head dim");
+  static_assert(R >= 1 && TILE % WD_WARPS == 0 && LB % CB == 0 && (EB > 1 || VEC % 4 == 0),
+                "a lane's share of a row is whole reads");
+  static_assert(STAGES >= 2, "a ring of at least two stages");
+  static_assert(Q_OFF % 16 == 0, "q read as float4");
+  static_assert(WD_WARPS * WD_HEADS * D * 4 <= SC_OFF, "the warps' O fits in the stages");
+  static_assert(BYTES <= 232448, "one CTA's shared memory");
+};
+
+// Column of element e (< D / 32) of lane `lane`: the lane's reads of a row
+// are 16, 8 or 4 bytes at (lane + 32 k) CB, consecutive lanes on
+// consecutive addresses.
+template <int KIND, int NB>
+__device__ __forceinline__ int wd_col(int lane, int e) {
+  using L = WdLayout<KIND, NB>;
+  return (lane + 32 * (e / L::VEC)) * L::VEC + e % L::VEC;
+}
+
+// A lane's share of a stored row in shared memory, as 32-bit words.
+template <int KIND, int NB>
+__device__ __forceinline__ void wd_read_row(const unsigned char* row, int lane,
+                                            uint32_t (&w)[WdLayout<KIND, NB>::NW]) {
+  using L = WdLayout<KIND, NB>;
+  constexpr int WPR = L::CB / 4;  // words a read
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint16_t u = uint16_t(w[c / 2] >> (16 * (c % 2)));
-      f[c] = KIND == kBF16 ? __bfloat162float(__ushort_as_bfloat16(u))
-                           : __half2float(__ushort_as_half(u));
+  for (int k = 0; k < L::NCH; ++k) {
+    const unsigned char* p = row + (lane + 32 * k) * L::CB;
+    if constexpr (L::CB == 16) {
+      const uint4 x = *reinterpret_cast<const uint4*>(p);
+      w[k * WPR] = x.x;
+      w[k * WPR + 1] = x.y;
+      w[k * WPR + 2] = x.z;
+      w[k * WPR + 3] = x.w;
+    } else if constexpr (L::CB == 8) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p);
+      w[k * WPR] = x.x;
+      w[k * WPR + 1] = x.y;
+    } else {
+      w[k] = *reinterpret_cast<const uint32_t*>(p);
     }
-  } else {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(static_cast<const uint8_t*>(base) + at);
-    word_values(KIND, w, hi, f);
-    if constexpr (KIND == kI8 || KIND == kI4) s8 = s8x4(KIND, w, hi);
   }
 }
 
-// Decode, split-KV on the CUDA cores: one CTA per (key split, kv head x
-// pair of its q heads, sequence), 4 warps taking every 4th key of the
-// split; lane l owns columns 128 i + 4 l .. + 3 of the row, so a warp reads
-// each K / V row whole and coalesced and one shuffle tree makes a score.
-// Each warp keeps its own running max, row sum and O; the warps merge in a
-// fixed order at the end, and the splits in wide_combine_kernel.  The
-// arithmetic is paged_decode.cuh's (value pools fp32 with P unrounded;
-// quantized pools q pre-scaled in its dtype, int8 / int4 integer scores by
-// __dp4a against per-row int8 q, fp8 an fp32 dot, K scales on S, V scales
-// on P rounded to q's dtype).
-template <int KIND>
-__global__ void __launch_bounds__(WTHREADS)
-wide_decode_kernel(const WideDecodeArgs a) {
-  constexpr bool QUANT = is_quantized(KIND);
-  constexpr bool INT = KIND == kI8 || KIND == kI4;
-  extern __shared__ float sO[];  // [4 warps][WD_HEADS][D]
-  __shared__ float sM[4][WD_HEADS], sL[4][WD_HEADS];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int D = a.D, nb = D / WCOLS;
-  const int G = a.Hq / a.Hkv, ngroups = (G + WD_HEADS - 1) / WD_HEADS;
-  const int split = blockIdx.x, b = blockIdx.z;
-  const int kvh = blockIdx.y / ngroups, hg = blockIdx.y % ngroups;
-  const int nh = min(WD_HEADS, G - WD_HEADS * hg);
-  const int len = a.lengths[b];
-  const int max_len = a.pages_per_seq * a.page_size;
-  const int alen = min(max(len, 0), max_len);
-  const int lo = split * a.pages_per_split * a.page_size;
-  const int hi_pos = min(lo + a.pages_per_split * a.page_size, alen);
-  const int dt = a.q_dtype;
-
-  float qf[WD_HEADS][WD_NB][4];
-  uint32_t q8[WD_HEADS][WD_NB];
-  float qscale[WD_HEADS], slope[WD_HEADS];
+// The sums over a warp's 32 lanes of each of v[0 .. N) (N a power of two
+// up to 32), in 31 shuffles for N = 32 where one tree each would take 5 N:
+// each level of the first log2 N halves the values a lane holds, the lanes
+// whose bit is set keeping the upper half; the rest are a butterfly.  Value
+// n's sum ends in the lanes l with l >> (5 - log2 N) == n, each the same
+// bits (every step adds a pair, which commutes); returns the lane's.
+template <int N, typename T>
+__device__ __forceinline__ T spread_sum(T (&v)[N], int lane) {
+  constexpr int LOG = N == 1 ? 0 : N == 2 ? 1 : N == 4 ? 2 : N == 8 ? 3 : N == 16 ? 4 : 5;
+  static_assert(N == 1 << LOG, "N a power of two up to 32");
 #pragma unroll
-  for (int hh = 0; hh < WD_HEADS; ++hh) {
-    const int h = kvh * G + WD_HEADS * hg + hh;
-    slope[hh] = a.slopes != nullptr && hh < nh ? a.slopes[h] : 0.f;
+  for (int j = 0; j < LOG; ++j) {
+    const int m = 16 >> j, half = N >> (j + 1);
+    const bool up = (lane & m) != 0;
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const T send = up ? v[k] : v[k + half];
+      const T keep = up ? v[k + half] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+  }
+  T x = v[0];
+#pragma unroll
+  for (int j = LOG; j < 5; ++j) x += __shfl_xor_sync(0xffffffffu, x, 16 >> j);
+  return x;
+}
+
+// Decode, split-KV on asynchronous page copies: paged_decode.cuh's design
+// at the wide widths.  One CTA of 8 warps a (key split, pair of q heads of a
+// kv head, sequence); the split's page ids land in shared memory first, and
+// K, V (and the scales) of each tile of stored rows land in a ring of
+// STAGES stages, STAGES - 1 tiles in flight while one is reduced: one 1-D
+// bulk copy a tensor where the tile lies in one page (`bulk`), else 16-byte
+// cp.asyncs a row.  Warp w takes rows w + 8 i of each tile, a whole row at
+// a time: its lanes own D / 32 columns each (wd_col), both heads' partial
+// dots of all its rows are summed by one spread_sum, and it keeps its own
+// running max, row sum and O for the pair, releasing each stage to the
+// copies through the stage's empty barrier (no CTA-wide barrier a tile).
+// The warps merge in warp order at the end; with key splits each CTA writes
+// its partial, and the last of each group merges them in split order
+// (merge_rows), so a call is one launch.  The arithmetic is
+// paged_decode.cuh's.
+template <int KIND, int NB>
+__global__ void __launch_bounds__(WD_THREADS, WdLayout<KIND, NB>::CTAS)
+wide_decode_kernel(const WideDecodeArgs a, int bulk) {
+  using L = WdLayout<KIND, NB>;
+  constexpr int D = L::D, TILE = L::TILE, R = L::R, NTOK = L::NTOK, E = L::E, NW = L::NW;
+  constexpr int STAGES = L::STAGES, HB = WD_HEADS;
+  constexpr bool QUANT = L::QUANT, INT = L::INT_ROUTE;
+  constexpr int N = R * NTOK * HB;  // scores a warp makes of a tile
+  constexpr int VPW = E / NW;       // elements a stored word holds
+  constexpr int LOG_N = N == 2 ? 1 : N == 4 ? 2 : N == 8 ? 3 : 4;
+  using Dot = std::conditional_t<INT, int, float>;
+  extern __shared__ __align__(128) unsigned char wsmem[];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int G = a.Hq / a.Hkv, HG = (G + HB - 1) / HB;
+  const int hg = blockIdx.x % HG, split = blockIdx.x / HG;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int nh = min(HB, G - hg * HB);
+  const size_t out_row = size_t(b) * a.Hq + kvh * G + hg * HB;  // (b, first head)
+  const size_t part_row = size_t(split) * a.B * a.Hq + out_row;
+  const int ps = a.page_size, dt = a.q_dtype;
+  const int p_lo = split * a.pages_per_split;
+  const int* table = a.page_table + size_t(b) * a.pages_per_seq + p_lo;  // the split's ids
+  unsigned* counter = a.counters + (size_t(b) * a.Hkv + kvh) * HG + hg;
+  // What needs no length is asked for beside it: the split's first page
+  // ids (a thread's two), and the counter's line into L2 for the merge.
+  const int n_ids = min(min(a.pages_per_split, a.pages_per_seq - p_lo), WD_PIDS);
+  const int id0 = tid < n_ids ? table[tid] : 0;
+  const int id1 = tid + WD_THREADS < n_ids ? table[tid + WD_THREADS] : 0;
+  if (tid == 0 && a.splits > 1) asm volatile("prefetch.L2 [%0];\n" ::"l"(counter));
+  const int len = max(0, min(a.lengths[b], a.pages_per_seq * ps));
+  // The last CTA of the group merges the splits' partials.
+  auto merge = [&]() {
+    if (last_of_group(counter, a.splits))
+      merge_rows(a.part_o, a.part_lse, a.splits, size_t(a.B) * a.Hq, nh, D,
+                 [&](int h) { return out_row + h; }, a.o, dt, a.lse,
+                 reinterpret_cast<float*>(wsmem));  // the stages are free
+  };
+  if (p_lo * ps >= len) {  // no token of the sequence in this split
+    if (a.splits > 1) {
+      if (tid < nh) a.part_lse[part_row + tid] = -INFINITY;
+      merge();
+    } else {
+      for (int i = tid; i < nh * D; i += WD_THREADS) store_as(a.o, out_row * D + i, dt, 0.f);
+      if (a.lse != nullptr && tid < nh) a.lse[out_row + tid] = kMaskValue;
+    }
+    return;
+  }
+  // Stored rows of this split that hold a token below len: whole pages,
+  // then the last page's first rows.
+  const int SR = KIND == kI4 ? ps / 2 : ps;
+  const int p_end = min(min(a.pages_per_seq, p_lo + a.pages_per_split), (len + ps - 1) / ps);
+  const int n_rows = (p_end - 1 - p_lo) * SR + min(SR, len - (p_end - 1) * ps);
+  const int n_tiles = (n_rows + TILE - 1) / TILE;
+  int* s_pid = reinterpret_cast<int*>(wsmem + L::PID_OFF);
+  const unsigned char* kb = static_cast<const unsigned char*>(a.k_pages);
+  const unsigned char* vb = static_cast<const unsigned char*>(a.v_pages);
+
+  const uint32_t s_base = sm90::smem_u32(wsmem);
+  auto full = [&](int s) { return s_base + L::BAR_OFF + 8u * s; };
+  auto empty = [&](int s) { return s_base + L::BAR_OFF + 8u * (STAGES + s); };
+  // The split's page p: from shared memory (past the first WD_PIDS, from
+  // the table).
+  auto page_of = [&](int p) { return p < WD_PIDS ? s_pid[p] : __ldg(table + p); };
+
+  // Tile t (stored rows [t * TILE, + TILE) of the split) into stage
+  // t % STAGES, once every warp has released the stage's last tile.
+  auto issue = [&](int t) {
+    const int s = t % STAGES, v0 = t * TILE;
+    const uint32_t dk = s_base + s * L::TILE_BYTES;
+    const uint32_t dv = dk + L::V_OFF;
+    const uint32_t dsc = s_base + L::SC_OFF + s * L::SC_BYTES;
+    if (bulk) {  // the tile lies inside one page
+      if (tid == 0) {
+        if (t >= STAGES) sm90::mbar_wait(empty(s), (t / STAGES - 1) & 1);
+        const int page = page_of(v0 / SR), r0 = v0 % SR;
+        const size_t row = (size_t(kvh) * a.P + page) * SR + r0;
+        sm90::fence_proxy_async();  // the stage's last reads come first
+        sm90::mbar_expect_tx(full(s), 2 * L::TILE_BYTES + L::SC_BYTES);
+        bulk_copy(dk, kb + row * L::ROW_BYTES, L::TILE_BYTES, full(s));
+        bulk_copy(dv, vb + row * L::ROW_BYTES, L::TILE_BYTES, full(s));
+        if constexpr (QUANT) {
+#pragma unroll
+          for (int tok = 0; tok < NTOK; ++tok) {
+            const size_t si = scale_index(kvh, page, r0 + tok * SR, a.P, ps);
+            bulk_copy(dsc + tok * TILE * 4, a.k_scales + si, TILE * 4, full(s));
+            bulk_copy(dsc + (NTOK + tok) * TILE * 4, a.v_scales + si, TILE * 4, full(s));
+          }
+        }
+      }
+    } else {  // rows at their own addresses
+      if (t >= STAGES) sm90::mbar_wait(empty(s), (t / STAGES - 1) & 1);
+      constexpr int CPR = L::ROW_BYTES / 16;
+      for (int idx = tid; idx < TILE * CPR; idx += WD_THREADS) {
+        const int r = idx / CPR, c = idx % CPR, v = v0 + r;
+        if (v < n_rows) {
+          const size_t row = (size_t(kvh) * a.P + page_of(v / SR)) * SR + v % SR;
+          cp_async16(dk + r * L::ROW_BYTES + c * 16, kb + row * L::ROW_BYTES + c * 16, 16);
+          cp_async16(dv + r * L::ROW_BYTES + c * 16, vb + row * L::ROW_BYTES + c * 16, 16);
+        }
+      }
+      if constexpr (QUANT) {
+        for (int idx = tid; idx < NTOK * TILE; idx += WD_THREADS) {
+          const int tok = idx / TILE, r = idx % TILE, v = v0 + r;
+          if (v < n_rows) {
+            const size_t si = scale_index(kvh, page_of(v / SR), v % SR + tok * SR,
+                                          a.P, ps);
+            cp_async4(dsc + (tok * TILE + r) * 4, a.k_scales + si);
+            cp_async4(dsc + ((NTOK + tok) * TILE + r) * 4, a.v_scales + si);
+          }
+        }
+      }
+      cp_async_arrive(full(s));
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(full(s), bulk ? 1 : WD_THREADS);
+      sm90::mbar_init(empty(s), WD_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (tid < n_ids) s_pid[tid] = id0;
+  if (tid + WD_THREADS < n_ids) s_pid[tid + WD_THREADS] = id1;
+  float* s_q = reinterpret_cast<float*>(wsmem + L::Q_OFF);  // [head][column]
+  for (int i = tid; i < HB * D; i += WD_THREADS) {
+    float x = 0.f;
+    if (i < nh * D) {
+      x = load_as_float(a.q, out_row * D + i, dt);
+      if (QUANT) x = round_to(x * a.sm_scale, dt);
+    }
+    s_q[i] = x;
+  }
+  __syncthreads();  // barriers initialised, page ids and q staged
+  for (int t = 0; t < min(STAGES - 1, n_tiles); ++t) issue(t);
+
+  // q of the CTA's heads in the lane's columns, from shared memory;
+  // quantized pools: pre-scaled in q's dtype, and on the integer route as
+  // int8 words (element 4 w + j in byte j of word w) with their scale.
+  float qf[HB][INT ? 1 : E];
+  uint32_t q8[HB][INT ? NW : 1];
+  float qc[INT ? HB : 1];
+#pragma unroll
+  for (int h = 0; h < HB; ++h) {
+    float x[E];
     float qa = 0.f;
 #pragma unroll
-    for (int i = 0; i < WD_NB; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float x = 0.f;
-        if (i < nb && hh < nh) {
-          x = load_as_float(a.q, (size_t(b) * a.Hq + h) * D + WCOLS * i + 4 * lane + c, dt);
-          if (QUANT) x = round_to(x * a.sm_scale, dt);
-        }
-        qf[hh][i][c] = x;
-        qa = fmaxf(qa, fabsf(x));
-      }
+    for (int e = 0; e < E; e += 4) {
+      const float4 v4 = *reinterpret_cast<const float4*>(s_q + h * D + wd_col<KIND, NB>(lane, e));
+      x[e] = v4.x;
+      x[e + 1] = v4.y;
+      x[e + 2] = v4.z;
+      x[e + 3] = v4.w;
+      qa = fmaxf(fmaxf(qa, fmaxf(fabsf(v4.x), fabsf(v4.y))), fmaxf(fabsf(v4.z), fabsf(v4.w)));
     }
     if constexpr (INT) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) qa = fmaxf(qa, __shfl_xor_sync(0xffffffffu, qa, off));
+      for (int off = 16; off > 0; off /= 2) qa = fmaxf(qa, __shfl_xor_sync(0xffffffffu, qa, off));
       const float inv = qa > 0.f ? 127.f / qa : 0.f;
 #pragma unroll
-      for (int i = 0; i < WD_NB; ++i) {
-        uint32_t w = 0;
+      for (int w = 0; w < NW; ++w) {
+        uint32_t word = 0;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          w |= (uint32_t(int(rintf(qf[hh][i][c] * inv))) & 0xFFu) << (8 * c);
-        q8[hh][i] = w;
+        for (int j = 0; j < 4; ++j)
+          word |= (uint32_t(__float2int_rn(x[4 * w + j] * inv)) & 0xFFu) << (8 * j);
+        q8[h][w] = word;
       }
-      qscale[hh] = qa * (1.f / 127.f);
+      qc[h] = qa * (1.0f / 127.0f);
     } else {
-      qscale[hh] = 1.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) qf[h][e] = x[e];
     }
   }
 
-  float m[WD_HEADS], l[WD_HEADS], acc[WD_HEADS][WD_NB][4];
+  float m[HB], l[HB], acc[HB][E];
 #pragma unroll
-  for (int hh = 0; hh < WD_HEADS; ++hh) {
-    m[hh] = -INFINITY;
-    l[hh] = 0.f;
+  for (int h = 0; h < HB; ++h) {
+    m[h] = -INFINITY;
+    l[h] = 0.f;
 #pragma unroll
-    for (int i = 0; i < WD_NB; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[hh][i][c] = 0.f;
+    for (int e = 0; e < E; ++e) acc[h][e] = 0.f;
   }
 
-  for (int pos = lo + warp; pos < hi_pos; pos += 4) {
-    const int page = a.page_table[size_t(b) * a.pages_per_seq + pos / a.page_size];
-    const int off = pos % a.page_size;
-    const TokenAddr ta = token_addr(KIND, kvh, page, off, a.P, a.page_size, D);
-    float ks = 1.f, vs = 1.f;
-    if constexpr (QUANT) {
-      const size_t si = scale_index(kvh, page, off, a.P, a.page_size);
-      ks = a.k_scales[si];
-      vs = a.v_scales[si];
-    }
-    float kf[WD_NB][4], vf[WD_NB][4];
-    uint32_t k8[WD_NB], unused;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + STAGES - 1 < n_tiles) issue(t + STAGES - 1);
+    const int s = t % STAGES;
+    sm90::mbar_wait(full(s), (t / STAGES) & 1);
+    const unsigned char* tk = wsmem + s * L::TILE_BYTES;
+    const unsigned char* tv = tk + L::V_OFF;
+    const float* tsc = reinterpret_cast<const float*>(wsmem + L::SC_OFF + s * L::SC_BYTES);
+
+    // The partial dots of the warp's rows (row warp + 8 i of the tile),
+    // every token and head: value n = (i NTOK + tok) HB + h.
+    Dot part[N];
 #pragma unroll
-    for (int i = 0; i < WD_NB; ++i) {
-      if (i < nb) {
-        const size_t at = ta.row + WCOLS * i + 4 * lane;
-        four<KIND>(a.k_pages, at, ta.hi, kf[i], k8[i]);
-        four<KIND>(a.v_pages, at, ta.hi, vf[i], unused);
+    for (int i = 0; i < R; ++i) {
+      uint32_t kw[NW];
+      wd_read_row<KIND, NB>(tk + (warp + WD_WARPS * i) * L::ROW_BYTES, lane, kw);
+#pragma unroll
+      for (int tok = 0; tok < NTOK; ++tok) {
+        if constexpr (INT) {
+#pragma unroll
+          for (int h = 0; h < HB; ++h) {
+            int d = 0;
+#pragma unroll
+            for (int w = 0; w < NW; ++w) d = __dp4a(int(q8[h][w]), int(s8x4(KIND, kw[w], tok)), d);
+            part[(i * NTOK + tok) * HB + h] = d;
+          }
+        } else {  // a word at a time (fewer values live), two FMA chains a head
+          float dot[HB][2] = {};
+#pragma unroll
+          for (int w = 0; w < NW; ++w) {
+            float f[VPW];
+            row_values<KIND>(*reinterpret_cast<const uint32_t(*)[1]>(&kw[w]), 0, f);
+#pragma unroll
+            for (int h = 0; h < HB; ++h)
+#pragma unroll
+              for (int j = 0; j < VPW; ++j)
+                dot[h][(w * VPW + j) & 1] = fmaf(qf[h][w * VPW + j], f[j], dot[h][(w * VPW + j) & 1]);
+          }
+#pragma unroll
+          for (int h = 0; h < HB; ++h) part[(i * NTOK + tok) * HB + h] = dot[h][0] + dot[h][1];
+        }
       }
     }
-#pragma unroll
-    for (int hh = 0; hh < WD_HEADS; ++hh) {
+    // Summed over the warp at once; lane l holds value l >> (5 - LOG_N),
+    // makes that one score (the scales, the softcap, ALiBi's bias, -inf
+    // past the split's keys), and every lane then takes all N.
+    float own;
+    {
+      const Dot dot = spread_sum<N>(part, lane);
+      const int n = lane >> (5 - LOG_N);
+      const int i = n / (NTOK * HB), tok = (n / HB) % NTOK, h = n % HB;
+      const int r = warp + WD_WARPS * i, v = t * TILE + r;
+      // the token's position: stored row v of the split (an int4 row's
+      // high nibble SR tokens on)
+      const int pos = NTOK == 2 ? (p_lo + v / SR) * ps + v % SR + tok * SR : p_lo * ps + v;
+      const float ks = QUANT ? tsc[tok * TILE + r] : 1.f;
       float x;
       if constexpr (INT) {
-        int dot = 0;
+        float qch = qc[0];
 #pragma unroll
-        for (int i = 0; i < WD_NB; ++i)
-          if (i < nb) dot = __dp4a(int(q8[hh][i]), int(k8[i]), dot);
-#pragma unroll
-        for (int o2 = 16; o2 > 0; o2 >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o2);
-        x = float(dot) * qscale[hh] * ks;
+        for (int j = 1; j < HB; ++j) qch = h == j ? qc[j] : qch;
+        x = float(dot) * qch * ks;
       } else {
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < WD_NB; ++i)
-          if (i < nb)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) dot = fmaf(qf[hh][i][c], kf[i][c], dot);
-#pragma unroll
-        for (int o2 = 16; o2 > 0; o2 >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o2);
         x = QUANT ? dot * ks : dot * a.sm_scale;
       }
-      if (a.softcap > 0.f)
-        x = QUANT ? a.softcap * tanhf(x * (1.f / a.softcap)) : a.softcap * tanhf(x / a.softcap);
-      if (a.slopes != nullptr) x -= slope[hh] * float(alen - 1 - pos);
-      const float m_new = fmaxf(m[hh], x);
-      const float alpha = expf(m[hh] - m_new);
-      const float p = expf(x - m_new);
-      l[hh] = l[hh] * alpha + p;
-      m[hh] = m_new;
-      const float pv = QUANT ? round_to(p * vs, dt) : p;
-#pragma unroll
-      for (int i = 0; i < WD_NB; ++i)
-        if (i < nb)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[hh][i][c] = fmaf(pv, vf[i][c], acc[hh][i][c] * alpha);
+      if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
+      if (a.slopes != nullptr && h < nh)  // ALiBi's bias, the head's slope
+        x -= __ldg(a.slopes + kvh * G + hg * HB + h) * float(len - 1 - pos);
+      own = v < n_rows && pos < len ? x : -INFINITY;  // the tile's rows
     }
+    float sc[R][NTOK][HB];
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+      sc[n / (NTOK * HB)][(n / HB) % NTOK][n % HB] = __shfl_sync(0xffffffffu, own, n << (5 - LOG_N));
+    // The warp's running max over the tile's rows; O and the row sum rescaled.
+#pragma unroll
+    for (int h = 0; h < HB; ++h) {
+      float mt = m[h];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int tok = 0; tok < NTOK; ++tok) mt = fmaxf(mt, sc[i][tok][h]);
+      if (mt > m[h]) {
+        const float alpha = sm90::exp2_ftz((m[h] - mt) * kLog2e);  // 0 while the warp saw nothing
+        l[h] *= alpha;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[h][e] *= alpha;
+        m[h] = mt;
+      }
+    }
+    // P V over the rows with a key (a finite score).  Quantized pools: the
+    // row sum takes P, the product P * v_scale rounded to q's dtype.
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      if (sc[i][0][0] == -INFINITY) continue;
+      const int r = warp + WD_WARPS * i;
+      uint32_t vw[NW];
+      wd_read_row<KIND, NB>(tv + r * L::ROW_BYTES, lane, vw);
+#pragma unroll
+      for (int tok = 0; tok < NTOK; ++tok) {
+        if (tok > 0 && sc[i][tok][0] == -INFINITY) continue;
+        const float vs = QUANT ? tsc[(NTOK + tok) * TILE + r] : 1.f;
+        float pv[HB];
+#pragma unroll
+        for (int h = 0; h < HB; ++h) {
+          const float pe = sm90::exp2_ftz((sc[i][tok][h] - m[h]) * kLog2e);
+          l[h] += pe;
+          pv[h] = QUANT ? round_to(pe * vs, dt) : pe;
+        }
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {  // a word at a time
+          float f[VPW];
+          row_values<KIND>(*reinterpret_cast<const uint32_t(*)[1]>(&vw[w]), tok, f);
+#pragma unroll
+          for (int h = 0; h < HB; ++h)
+#pragma unroll
+            for (int j = 0; j < VPW; ++j)
+              acc[h][w * VPW + j] = fmaf(pv[h], f[j], acc[h][w * VPW + j]);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(empty(s));  // the warp is done with stage s
   }
 
-  // The warps' states, merged in warp order.
+  // Merge the warps' states in warp order: the CTA's max, each warp's O and
+  // row sum rescaled to it, then summed over the warps column by column.
+  float* s_m = reinterpret_cast<float*>(wsmem + L::M_OFF);
+  float* s_l = reinterpret_cast<float*>(wsmem + L::L_OFF);
+  float* s_acc = reinterpret_cast<float*>(wsmem);  // [warp][head][D], over the stages
+  if (lane == 0) {
 #pragma unroll
-  for (int hh = 0; hh < WD_HEADS; ++hh) {
-    if (lane == 0) {
-      sM[warp][hh] = m[hh];
-      sL[warp][hh] = l[hh];
-    }
+    for (int h = 0; h < HB; ++h) s_m[warp * HB + h] = m[h];
+  }
+  __syncthreads();  // every warp is past its last tile
+  float mx[HB];
 #pragma unroll
-    for (int i = 0; i < WD_NB; ++i)
-      if (i < nb)
+  for (int h = 0; h < HB; ++h) {
+    mx[h] = -INFINITY;
+    for (int w = 0; w < WD_WARPS; ++w) mx[h] = fmaxf(mx[h], s_m[w * HB + h]);
+    const float f = m[h] == -INFINITY ? 0.f : __expf(m[h] - mx[h]);
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          sO[(warp * WD_HEADS + hh) * D + WCOLS * i + 4 * lane + c] = acc[hh][i][c];
+    for (int e = 0; e < E; ++e) s_acc[(warp * HB + h) * D + wd_col<KIND, NB>(lane, e)] = acc[h][e] * f;
+    if (lane == 0) s_l[warp * HB + h] = l[h] * f;
   }
   __syncthreads();
-  const bool split_out = a.splits > 1;
-  for (int hh = 0; hh < nh; ++hh) {
-    const int h = kvh * G + WD_HEADS * hg + hh;
-    float mx = -INFINITY;
-    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, sM[w][hh]);
-    const float m_use = mx == -INFINITY ? 0.f : mx;
-    float wt[4], den = 0.f;
-    for (int w = 0; w < 4; ++w) {
-      wt[w] = sM[w][hh] == -INFINITY ? 0.f : expf(sM[w][hh] - m_use);
-      den += wt[w] * sL[w][hh];
+  for (int i = tid; i < nh * D; i += WD_THREADS) {
+    const int h = i / D, c = i % D;
+    float sum_l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < WD_WARPS; ++w) {
+      sum_l += s_l[w * HB + h];
+      o += s_acc[(w * HB + h) * D + c];
     }
-    const size_t r = size_t(b) * a.Hq + h;
-    for (int c = tid; c < D; c += WTHREADS) {
-      float num = 0.f;
-      for (int w = 0; w < 4; ++w) num += wt[w] * sO[(w * WD_HEADS + hh) * D + c];
-      const float out = den > 0.f ? num / den : 0.f;
-      if (split_out) {
-        a.part_o[(size_t(split) * a.B * a.Hq + r) * D + c] = out;
-      } else {
-        store_as(a.o, r * D + c, dt, out);
-      }
+    const bool seen = sum_l > 0.f;
+    if (a.splits == 1) {
+      store_as(a.o, out_row * D + i, dt, seen ? o / sum_l : 0.f);
+      if (a.lse != nullptr && c == 0) a.lse[out_row + h] = seen ? mx[h] + logf(sum_l) : kMaskValue;
+    } else {
+      a.part_o[part_row * D + i] = seen ? o / sum_l : 0.f;
+      if (c == 0) a.part_lse[part_row + h] = seen ? mx[h] + logf(sum_l) : -INFINITY;
     }
-    if (tid == 0) {
-      if (split_out) {
-        a.part_lse[size_t(split) * a.B * a.Hq + r] = den > 0.f ? mx + logf(den) : -INFINITY;
-      } else if (a.lse != nullptr) {
-        a.lse[r] = den > 0.f ? mx + logf(den) : kMaskValue;
-      }
+  }
+  if (a.splits > 1) merge();
+}
+
+template <int KIND, int NB>
+int launch_wide_decode(const WideDecodeArgs& a) {
+  using L = WdLayout<KIND, NB>;
+  auto kernel = wide_decode_kernel<KIND, NB>;
+  // Bulk copies take a tile of stored rows that lies inside one page, and
+  // 16-byte aligned scales.
+  const int stored = KIND == kI4 ? a.page_size / 2 : a.page_size;
+  const bool aligned = !is_quantized(KIND) ||
+                       (reinterpret_cast<uintptr_t>(a.k_scales) % 16 == 0 &&
+                        reinterpret_cast<uintptr_t>(a.v_scales) % 16 == 0);
+  const int bulk = stored % L::TILE == 0 && aligned;
+  // the merge's weights, (splits + 1) x 2 floats, over the stages
+  if ((size_t(a.splits) + 1) * WD_HEADS * 4 > L::SC_OFF) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(L::BYTES));
+  if (err != cudaSuccess) return int(err);
+  const int G = a.Hq / a.Hkv;
+  dim3 grid(a.splits * ((G + WD_HEADS - 1) / WD_HEADS), a.Hkv, a.B);
+  kernel<<<grid, WD_THREADS, L::BYTES, a.stream>>>(a, bulk);
+  return int(cudaGetLastError());
+}
+
+// f(kind, 128-column blocks) (each an integral_constant) for the decode
+// instance of (kv_kind, D); 0 for a pair no instance takes (the C entry
+// refuses those first).
+template <typename F>
+int wide_decode_instance(int kv_kind, int D, F f) {
+  auto width = [&](auto kind) -> int {
+    switch (D) {
+      case 384: return f(kind, std::integral_constant<int, 3>{});
+      case 512: return f(kind, std::integral_constant<int, 4>{});
+      case 640: return f(kind, std::integral_constant<int, 5>{});
+      case 768: return f(kind, std::integral_constant<int, 6>{});
+      case 896: return f(kind, std::integral_constant<int, 7>{});
+      case 1024: return f(kind, std::integral_constant<int, 8>{});
+      default: return 0;
     }
+  };
+  switch (kv_kind) {
+    case kF32: return width(std::integral_constant<int, kF32>{});
+    case kBF16: return width(std::integral_constant<int, kBF16>{});
+    case kF16: return width(std::integral_constant<int, kF16>{});
+    case kI8: return width(std::integral_constant<int, kI8>{});
+    case kI4: return width(std::integral_constant<int, kI4>{});
+    case kE4M3: return width(std::integral_constant<int, kE4M3>{});
+    case kE5M2: return width(std::integral_constant<int, kE5M2>{});
+    default: return 0;
   }
 }
 
-template <int KIND>
-int launch_wide_decode(const WideDecodeArgs& a) {
-  const int G = a.Hq / a.Hkv;
-  dim3 grid(a.splits, a.Hkv * ((G + WD_HEADS - 1) / WD_HEADS), a.B);
-  const size_t smem = size_t(4) * WD_HEADS * a.D * sizeof(float);
-  wide_decode_kernel<KIND><<<grid, WTHREADS, smem, a.stream>>>(a);
-  int err = int(cudaGetLastError());
-  if (err || a.splits == 1) return err;
-  return launch_combine(a.part_o, a.part_lse, a.o, a.q_dtype, a.lse, a.B * a.Hq, a.splits,
-                        a.D, a.stream);
+// Dynamic shared memory of the decode instance for (kv_kind, D), in
+// bytes; 0 for a pair no instance takes.
+inline int wide_decode_smem(int kv_kind, int D) {
+  return wide_decode_instance(kv_kind, D, [](auto kind, auto nb) {
+    return int(WdLayout<decltype(kind)::value, decltype(nb)::value>::BYTES);
+  });
 }
+
 
 // Launches the fp32 forward or verify over `grid`.
 template <bool PAGED>

@@ -263,6 +263,85 @@ def wide_bwd_smem_bytes(head_dim: int, segments: bool = False, dkv: bool = True)
     return _wide_bwd_bytes(head_dim, wide_bwd_stages(head_dim, dkv), segments, dkv)
 
 
+# The wide decode kernel (csrc/wide.cuh wide_decode_kernel): 8 warps, two q
+# heads of a kv head a CTA, the first WIDE_DECODE_PIDS page ids of its key
+# split staged in shared memory.  Pool kinds by their code (csrc/paged.cuh
+# PoolKind, ops/decode.py POOL_KINDS), with the bytes of a stored element.
+WIDE_DECODE_THREADS = 256
+WIDE_DECODE_PIDS = 512
+POOL_KIND_NAMES = ("fp32", "bf16", "fp16", "int8", "int4", "e4m3", "e5m2")
+_POOL_KIND_BYTES = (4, 2, 2, 1, 1, 1, 1)
+# An H100 SM's shared memory (228 KB), of which each resident CTA also
+# takes 1 KB for the system beside its own (static and dynamic) bytes.
+SMEM_PER_SM = 233472
+SMEM_RESERVED_PER_CTA = 1024
+
+
+def _pool_kind(kind) -> int:
+    code = POOL_KIND_NAMES.index(kind) if isinstance(kind, str) else kind
+    if code not in range(len(POOL_KIND_NAMES)):
+        raise ValueError(f"pool kind {kind!r} is not one of {POOL_KIND_NAMES}")
+    return code
+
+
+def wide_decode_ctas_per_sm(head_dim: int) -> int:
+    """CTAs of the wide decode kernel an SM holds by design
+    (``csrc/wide.cuh`` ``WdLayout::CTAS``, its ``__launch_bounds__``): two
+    up to 512 columns (registers and shared memory sized for it), else
+    one."""
+    if not is_wide(head_dim):
+        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+    return 2 if head_dim <= 512 else 1
+
+
+def wide_decode_tile(kind) -> int:
+    """Stored rows of a wide decode stage (``WdLayout::TILE``) for a pool
+    kind: 32 bytes a column of K and of V (8 rows fp32, 16 of a 16-bit
+    pool, 32 of int8 or int4), but 8 rows of fp8, whose float dots of more
+    than one row a warp would not fit 128 registers at d 512."""
+    code = _pool_kind(kind)
+    eb = _POOL_KIND_BYTES[code]
+    return 8 if code in (5, 6) else 32 // eb
+
+
+def wide_decode_stages(head_dim: int, kind) -> int:
+    """Stages of the wide decode kernel's ring (``WdLayout::STAGES``): as
+    many K and V tiles (:func:`wide_decode_tile` rows of head_dim stored
+    elements each) as fit 96 KB where two CTAs share an SM, 192 KB where
+    one fills it, at most 8."""
+    budget = (96 if wide_decode_ctas_per_sm(head_dim) == 2 else 192) * 1024
+    stage = 2 * wide_decode_tile(kind) * head_dim * _POOL_KIND_BYTES[_pool_kind(kind)]
+    return min(8, budget // stage)
+
+
+def wide_decode_smem_bytes(head_dim: int, kind) -> int:
+    """Shared memory of one CTA of the wide decode kernel (``csrc/wide.cuh``
+    ``WdLayout::BYTES``; ``kind`` a name of :data:`POOL_KIND_NAMES` or its
+    code): :func:`wide_decode_stages` stages of K and V tiles of
+    :func:`wide_decode_tile` rows, each stage's K and V scales for quantized
+    pools (two tokens a row for int4), WIDE_DECODE_PIDS page ids, q of the
+    CTA's two heads in fp32, the 8 warps' running maxima and row sums for
+    two heads, 8-byte aligned, and a full and an empty barrier a stage."""
+    return _wide_decode_bytes(head_dim, kind, wide_decode_stages(head_dim, kind))
+
+
+def _wide_decode_bytes(head_dim: int, kind, stages: int) -> int:
+    code = _pool_kind(kind)
+    tile = wide_decode_tile(code)
+    scales = 2 * (2 if code == 4 else 1) * tile * 4 if code >= 3 else 0
+    warps = WIDE_DECODE_THREADS // 32
+    head = (2 * stages * tile * head_dim * _POOL_KIND_BYTES[code] + stages * scales
+            + 4 * WIDE_DECODE_PIDS + 2 * head_dim * 4 + 2 * warps * 2 * 4)
+    return -(-head // 8) * 8 + 16 * stages
+
+
+def fits_ctas_per_sm(nbytes: int, ctas: int, static_bytes: int = 128) -> bool:
+    """Whether ``ctas`` CTAs of ``nbytes`` of dynamic shared memory (and up
+    to ``static_bytes`` of static, 128-byte aligned) fit on one SM
+    together."""
+    return ctas * (nbytes + static_bytes + SMEM_RESERVED_PER_CTA) <= SMEM_PER_SM
+
+
 def default_block_kv(head_dim: int) -> int:
     """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
     ``key_tile``): 128, 64 at d 256, and in the wide builds 32

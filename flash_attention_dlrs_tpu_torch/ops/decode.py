@@ -96,10 +96,9 @@ VERIFY_D64_KERNEL = CudaKernel("paged_verify_d64.cu", "paged_verify_d64", _VERIF
 VERIFY_D256_KERNEL = CudaKernel("paged_verify_d256.cu", "paged_verify_d256", _VERIFY_ARGS)
 VERIFY_D256_F16_KERNEL = CudaKernel("paged_verify_d256_f16.cu", "paged_verify_d256_f16",
                                     _VERIFY_ARGS)
-# Every pool head dim above 256 (csrc/wide.cuh): decode on the CUDA cores
-# (the counters argument unused: its splits merge in a second kernel of the
-# same C entry), verify on warpgroup products (bf16 / fp16 q) or
-# column-chunked (fp32 q).
+# Every pool head dim above 256 (csrc/wide.cuh): decode on asynchronous page
+# copies (its splits merged inside the launch, as at d <= 256), verify on
+# warpgroup products (bf16 / fp16 q) or column-chunked (fp32 q).
 DECODE_WIDE_KERNEL = CudaKernel("paged_decode_wide.cu", "paged_decode_wide", _DECODE_ARGS)
 VERIFY_WIDE_KERNEL = CudaKernel("paged_verify_wide.cu", "paged_verify_wide", _VERIFY_ARGS)
 
@@ -168,6 +167,14 @@ def decode_splits(batch: int, num_kv_heads: int, pages_per_seq: int,
     want = -(-2 * num_sms // (batch * num_kv_heads))
     per = max(-(-pages_per_seq // want), -(-SPLIT_MIN_TOKENS // page_size))
     return -(-pages_per_seq // min(per, pages_per_seq))
+
+
+def decode_groups(batch: int, num_q_heads: int, num_kv_heads: int) -> int:
+    """The counters a split decode call needs, at every pool head dim: one
+    for each (sequence, kv head, pair of that kv head's q heads), the group
+    of CTAs whose splits cover the same rows, whose last CTA merges them
+    inside the launch (``csrc/paged.cuh`` ``last_of_group``)."""
+    return batch * num_kv_heads * -(-(num_q_heads // num_kv_heads) // 2)
 
 
 def key_splits(pages_per_seq: int, pages_per_block: int, max_splits: int = 0) -> int:
@@ -451,9 +458,9 @@ def paged_decode_attention(
     a sequence's length reaches is a valid pool page.  CPU tensors take the
     plain versions (split and merged as the kernel would when
     ``pages_per_block`` is given); CUDA tensors launch
-    ``csrc/paged_decode.cuh`` (its key splits merged inside the launch), at
-    a wide pool head dim ``csrc/wide.cuh``'s decode (its splits merged by a
-    second kernel of the same C entry), or raise."""
+    ``csrc/paged_decode.cuh``, at a wide pool head dim ``csrc/wide.cuh``'s
+    decode (either with its key splits merged inside the launch), or
+    raise."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, d_true = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
@@ -480,8 +487,7 @@ def paged_decode_attention(
         num_kv_heads = pools.k.shape[0]
         splits = chosen or decode_splits(batch, num_kv_heads, pages_per_seq, pools.page_size,
                                          _num_sms(q.device.index or 0))
-        groups = 0 if is_wide(head_dim) else (
-            batch * num_kv_heads * -(-(num_q_heads // num_kv_heads) // 2))
+        groups = decode_groups(batch, num_q_heads, num_kv_heads)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, counters = _split_scratch(
             splits, batch * num_q_heads, head_dim, groups, q.device, stream)

@@ -11,6 +11,7 @@ at a few training steps.
 
 import importlib.util
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -103,9 +104,22 @@ def _script():
     return module
 
 
+@pytest.fixture
+def one_thread():
+    """PyTorch's CPU ops on one thread for the test, as in the script's
+    process below: the tiny model's ops gain nothing from a pool, and a
+    pool of every core, beside the suite's other workers, takes ten times
+    as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_script_markov_mode_on_the_cpu(tmp_path):
     """The script as a user runs it, in a process of its own (which loads
-    no JAX: in this one, JAX's thread pool slows the training tenfold)."""
+    no JAX: in this one, JAX's thread pool slows the training tenfold), on
+    one CPU thread (``one_thread`` says why)."""
     out = tmp_path / "ppl.json"
     code = ("import runpy, sys; sys.argv = sys.argv[1:]; "
             "runpy.run_path(sys.argv[0], run_name='__main__')")
@@ -113,7 +127,8 @@ def test_script_markov_mode_on_the_cpu(tmp_path):
         [sys.executable, "-c", code + "; assert 'jax' not in sys.modules",
          str(REPO / "scripts" / "eval_ppl_torch.py"), "--device", "cpu",
          "--train-steps", "30", "--seq", "32", "--out", str(out)],
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert run.returncode == 0, run.stderr[-2000:]
     results = json.loads(out.read_text())
     assert results["pass"] and results["device"] == "cpu"
@@ -125,7 +140,7 @@ def test_script_markov_mode_on_the_cpu(tmp_path):
     assert json.loads(run.stdout.strip().splitlines()[-1]) == results
 
 
-def test_script_checkpoint_mode_on_the_cpu(tmp_path):
+def test_script_checkpoint_mode_on_the_cpu(tmp_path, one_thread):
     """A run directory as the trainer writes it, over a val.bin."""
     from flash_attention_dlrs_tpu_torch.models import init_params_numpy
     from flash_attention_dlrs_tpu_torch.utils import checkpoint as ckpt

@@ -18,8 +18,9 @@ inputs on both sides:
 - the route functions at 384, 512 and 640 (the wide routes, the wide
   builds) and a refusal past 1024 that names queue 2; the shared-memory
   models of the wide_wgmma forward and of both 16-bit sweeps in every mode
-  at every wide head dim, and verify's split planner for its CTAs (no
-  JAX);
+  at every wide head dim, decode's for every pool kind (two CTAs an SM up
+  to 512 columns), the counters a split decode call gets at d 512 as at
+  d 256, and verify's split planner for its CTAs (no JAX);
 - a 2-layer model at head_dim 320: ``DecodeEngine`` greedy tokens equal to
   the JAX engine's, and one AdamW train step against JAX's.
 
@@ -333,6 +334,68 @@ def test_verify_split_planner_wide_cta_shape(d, tokens, page_size, pps):
                                   page_size, 66)
         assert splits == tdec.split_pages(pps, min(want, tdec.VERIFY_MAX_SPLITS))[1]
     assert tdec.verify_splits("fp32", b, hq, hkv, tokens, d, pps, page_size, 132) == 1
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_decode_layout_fits_every_kind(d):
+    """The wide decode kernel's shared memory (geometry's byte model of
+    csrc/wide.cuh WdLayout) fits the 232,448 bytes an H100 CTA may opt into
+    for every pool kind at every wide head dim, and two CTAs share an SM up
+    to 512 columns, as the design promises for 16-bit and 1-byte pools (and
+    fp32 too); a tile holds 32 bytes a column of K and of V (8 for fp8),
+    quantized pools add two fp32 scales a token, the ring has 2-8 stages,
+    as many as a budget of 96 KB (two CTAs) or 192 KB (one) takes; the 8
+    warps' O of both heads fits over the stages at the end."""
+    optin = geo.current_geometry("cpu").smem_per_block_optin
+    ctas = geo.wide_decode_ctas_per_sm(d)
+    assert ctas == (2 if d <= 512 else 1)
+    elem = {"fp32": 4, "bf16": 2, "fp16": 2, "int8": 1, "int4": 1, "e4m3": 1, "e5m2": 1}
+    for code, kind in enumerate(geo.POOL_KIND_NAMES):
+        n = geo.wide_decode_smem_bytes(d, kind)
+        assert n == geo.wide_decode_smem_bytes(d, code) <= optin, (kind, n)
+        assert geo.fits_ctas_per_sm(n, ctas), (kind, n, ctas)
+        rows, stages = geo.wide_decode_tile(kind), geo.wide_decode_stages(d, kind)
+        assert rows * elem[kind] == (8 if kind in ("e4m3", "e5m2") else 32)
+        assert 2 <= stages <= 8 and rows % 8 == 0  # whole rows for each of 8 warps
+        tokens = {"int8": 1, "e4m3": 1, "e5m2": 1, "int4": 2}.get(kind, 0)
+        assert n - geo._wide_decode_bytes(d, "bf16", stages) == (
+            2 * stages * (rows * elem[kind] - 32) * d + stages * 2 * tokens * rows * 4)
+        # stages to the budget: 96 KB each of two CTAs, 192 KB for one
+        stage = 2 * rows * elem[kind] * d
+        assert stages == 8 or (stages + 1) * stage > 2 ** 10 * 192 // ctas, (kind, stages)
+        assert 8 * 2 * d * 4 <= 2 * stages * rows * elem[kind] * d
+    with pytest.raises(ValueError):
+        geo.wide_decode_smem_bytes(d, "int2")
+
+
+@pytest.mark.parametrize("d", [256, 512])
+def test_wide_decode_gets_counter_groups(d, monkeypatch):
+    """Decode merges its key splits inside the launch at every pool head dim:
+    the wrapper of a split call (here on meta tensors, its launch cut short
+    where it asks for scratch) gets one counter for each (sequence, kv
+    head, pair of q heads) at d 512 as at d 256, from decode_groups."""
+    b, hq, hkv, ps, pps = 3, 6, 2, 16, 4
+    assert tdec.decode_groups(b, hq, hkv) == b * hkv * 2  # GQA 3: a pair, a lone head
+    assert tdec.decode_groups(8, 4, 2) == 16  # serving-d512: one pair a kv head
+    assert tdec.decode_groups(8, 16, 8) == 64 and tdec.decode_groups(2, 4, 4) == 8
+    asked = []
+
+    def scratch(splits, rows, head_dim, groups, device, stream):
+        asked.append((splits, rows, head_dim, groups))
+        raise InterruptedError
+
+    monkeypatch.setattr(tdec, "_split_scratch", scratch)
+    monkeypatch.setattr(tdec, "_check_cuda", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0})())
+    meta = dict(device="meta")
+    q = torch.empty(b, hq, d, dtype=torch.bfloat16, **meta)
+    pool = torch.empty(hkv, b * pps, ps, d, dtype=torch.bfloat16, **meta)
+    lengths = torch.empty(b, dtype=torch.int32, **meta)
+    table = torch.empty(b, pps, dtype=torch.int32, **meta)
+    with pytest.raises(InterruptedError):
+        tdec.paged_decode_attention(q, pool, pool, lengths, table, pages_per_block=1)
+    assert asked == [(pps, b * hq, d, tdec.decode_groups(b, hq, hkv))]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Where the time of the 16-bit wide kernels goes, on one NVIDIA card.
 
-Builds copies of ``csrc/attn_fwd_wide.cu`` and ``csrc/attn_bwd_wide.cu``
-with one piece of the kernels of ``csrc/wide.cuh`` cut out at a time, as
+Builds copies of ``csrc/attn_fwd_wide.cu``, ``csrc/attn_bwd_wide.cu`` and
+``csrc/paged_decode_wide.cu`` with one piece of the kernels of
+``csrc/wide.cuh`` cut out at a time, as
 ``chip_smoke.py`` builds its mutants, and times each in one process beside
 the kernels as built: device ms by CUDA events behind a spin kernel
 (``chip_smoke.device_ms``).  A cut copy computes wrong values; only its
@@ -18,11 +19,17 @@ time is read.
   in both) without the exchange of partial S and dP, the element loop, the
   score products (partial S and dP) or the update products, each sweep
   timed alone at the training-bench-d512 attention.
+- ``decode``: ``wide_decode_kernel`` without the scores (the partial dots
+  and their warp sums), without P V, without the merge of the key splits
+  inside the launch, and with the page copies only (all three cut), from
+  bf16 and int8 pools at the serving-d512 heads (B8 Hq4 Hkv2, 2048 tokens
+  each), each call after an L2 flush as ``chip_smoke.time_paged`` reads it;
+  the cut copies build the d 512 instances only.
 
 Each variant is timed twice, the kernels as built first and last (the
 spread).  Prints one JSON record, then the card's name and power limit:
 
-    python3 wide_breakdown_torch.py [forward] [sweeps]   # default: both
+    python3 wide_breakdown_torch.py [forward] [sweeps] [decode]   # default: all
 """
 
 import sys
@@ -56,7 +63,23 @@ SWEEP_CUTS = {
         ("      issue_update<T, C>(dv, pa, own_cols(do_tile(st)));  // dV += (P o M)^T dO\n", ""),
         ("      issue_update<T, C>(dk, da, own_cols(q_tile(st)));   // dK += dS^T Q\n", "")],
 }
+_NO_SCORES = [("      const Dot dot = spread_sum<N>(part, lane);\n",
+                "      const Dot dot = Dot(0);\n")]
+_NO_PV = [("      if (sc[i][0][0] == -INFINITY) continue;\n", "      if (i >= 0) continue;\n")]
+_NO_MERGE = [("      merge();\n    } else {\n", "    } else {\n"),
+             ("  if (a.splits > 1) merge();\n}\n", "}\n")]
+DECODE_CUTS = {
+    "no_scores": _NO_SCORES,
+    "no_pv": _NO_PV,
+    "no_merge": _NO_MERGE,
+    "copies_only": _NO_SCORES + _NO_PV + _NO_MERGE,
+}
+# the cut copies of decode build its d 512 instances alone
+_DECODE_ONLY_512 = [
+    (f"      case {d}: return f(kind, std::integral_constant<int, {d // 128}>{{}});",
+     f"      case {d}: return int(cudaErrorInvalidValue);") for d in (384, 640, 768, 896, 1024)]
 SHAPES = {"train_d512": (8, 8, 2), "serve_prefill_d512": (1, 4, 2)}
+DECODE = (8, [2048] * 8, (4, 2, 512))  # B, lengths, (Hq, Hkv, d) of the serving-d512 decode
 TRAIN = (8, 8, 2, 2048, 512)  # B, Hq, Hkv, N, d of the training-bench-d512 attention
 
 
@@ -79,6 +102,29 @@ def sweep_device_ms(gen, dev):
     return out
 
 
+def decode_device_ms(gen, dev):
+    """Device ms of one decode call (bf16 q) from bf16 and int8 pools at
+    DECODE, each call after an L2 flush, and the call's byte bound."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops.decode import paged_decode_attention
+
+    b, lengths, (hq, hkv, d) = DECODE
+    out = {}
+    for kind in ("bf16", "int8"):
+        q, kp, vp, lens, table = cs._paged_inputs(
+            gen, dev, torch.bfloat16, kind, b, hq, hkv, d, cs.SERVE_PAGE, cs.SERVE_PPS, lengths,
+            num_pages=b * cs.SERVE_PPS + 8)
+        bound_ms, _ = cs.bound(*cs.paged_work(kind, b, hq, hkv, d, lengths, 0),
+                               cs.PEAK_BF16_FLOPS)
+        ms = cs.device_ms(lambda: paged_decode_attention(q, kp, vp, lens, table,
+                                                         sm_scale=d ** -0.5),
+                          between=cs.l2_flush(dev))
+        out[kind] = {"device_ms": ms, "bound_ms": bound_ms}
+        del q, kp, vp
+        torch.cuda.empty_cache()
+    return out
+
+
 def breakdown(source, cuts, slots, timer, instance):
     """Builds ``source`` and its cut copies, then times each with ``timer``
     (its kernels swapped into ``slots``: [(module, attribute)]); the
@@ -87,7 +133,9 @@ def breakdown(source, cuts, slots, timer, instance):
     from flash_attention_dlrs_tpu_torch import _cuda
 
     built = _cuda.build([source])
-    builds = cs.start_mutant_builds({n: (source, "wide.cuh", e) for n, e in cuts.items()})
+    only = _DECODE_ONLY_512 if source == "paged_decode_wide.cu" else []
+    builds = cs.start_mutant_builds({n: (source, "wide.cuh", e + only)
+                                     for n, e in cuts.items()})
     cs.wait_mutant_builds(builds)
     log = built[source]["log"] if built else ""
     logs = {"as_built": log, **{n: (lib.parent / "nvcc.log").read_text()
@@ -115,12 +163,13 @@ def breakdown(source, cuts, slots, timer, instance):
 def main() -> int:
     import torch
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
     from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
 
     if not torch.cuda.is_available():
         print("wide_breakdown_torch: no CUDA device is available", file=sys.stderr)
         return 2
-    parts = sys.argv[1:] or ["forward", "sweeps"]
+    parts = sys.argv[1:] or ["forward", "sweeps", "decode"]
     rec = {"phase": "wide_breakdown"}
     if "forward" in parts:
         rec["forward"] = breakdown(
@@ -134,6 +183,11 @@ def main() -> int:
             sweep_device_ms,
             lambda log: {k: v for k, v in cs.wide_bwd_instances(log).items()
                          if k.endswith("bf16_d512")})
+    if "decode" in parts:
+        rec["decode"] = breakdown(
+            "paged_decode_wide.cu", DECODE_CUTS, [(dm, "DECODE_WIDE_KERNEL")], decode_device_ms,
+            lambda log: {k: v for k, v in cs.paged_instances(log, "paged_decode_wide.cu").items()
+                         if k in ("decode_wide_bf16_d512", "decode_wide_int8_d512")})
     rec["card"] = cs.card_line()
     cs.emit(rec)
     print(cs.card_line(), flush=True)
