@@ -390,9 +390,10 @@ def fwd_work(b, hq, hkv, nq, nkv, d, causal, itemsize, pairs=None, v_itemsize=No
 WGMMA_ENTRY = re.compile(r"attn_fwd_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)E"
                          r"Lb([01])ELb([01])ELb([01])ELb([01])E")
 WGMMA_FLAGS = ("alibi", "dropout", "seg", "fp8v")
-# the backward sweeps' wgmma instances (csrc/attn_bwd_sm90.cuh)
-BWD_WGMMA_ENTRY = re.compile(r"attn_bwd_(dkv|dq)_wgmma_kernelI\d+(__nv_bfloat16|__half)Li(\d+)E"
-                             r"Lb([01])ELb([01])ELb([01])E")
+# the backward sweeps' wgmma instances (csrc/attn_bwd_sm90.cuh; the d 256
+# dK/dV sweep is attn_bwd_dkv_split_wgmma_kernel)
+BWD_WGMMA_ENTRY = re.compile(r"attn_bwd_(dkv|dq)(?:_split)?_wgmma_kernelI\d+(__nv_bfloat16|__half)"
+                             r"Li(\d+)ELb([01])ELb([01])ELb([01])E")
 BWD_WGMMA_FLAGS = ("alibi", "dropout", "seg")
 LAUNCH_REGS = 168  # csrc/sm90.cuh LAUNCH_REGS: 384 threads x 168 at launch
 
@@ -441,8 +442,10 @@ BWD_SM90 = "attn_bwd_sm90.cuh"
 # the dK/dV step's stage released to the producer as soon as its score
 # products are read, before the element loop and the update products
 STAGE_RELEASED_AFTER_SCORES = (
-    "      if constexpr (decltype(with_ds)::value) fence_regs(dp);\n",
-    "      if constexpr (decltype(with_ds)::value) fence_regs(dp);\n      release(empty(st));\n")
+    "      fence_regs(dp);\n      if (softcap > 0.f) {\n"
+    "        if (masked) grads(m0, st, slope, stream, yes, yes);",
+    "      fence_regs(dp);\n      release(empty(st));\n      if (softcap > 0.f) {\n"
+    "        if (masked) grads(m0, st, slope, stream, yes, yes);")
 BWD_MUTANTS = {
     # the causal diagonal's and the window's tiles run the unmasked loop
     "dkv_diagonal_tile_unmasked": ("attn_bwd.cu", BWD_SM90, [(
@@ -452,29 +455,36 @@ BWD_MUTANTS = {
     # as the score products are done, before dK's product has read Q
     "dkv_stage_released_before_dk": ("attn_bwd.cu", BWD_SM90, [
         STAGE_RELEASED_AFTER_SCORES,
-        ("        }\n        release(empty(st));  // dK's product has read Q, dV's dO",
-         "        } else {\n          release(empty(st));\n        }"),
+        ("      }\n      release(empty(st));  // dK's product has read Q, dV's dO",
+         "      } else {\n        release(empty(st));\n      }"),
     ]),
-    # d 256: each pass's stage released as soon as its score products are
-    # done, before the pass's update product (dV from dO, dK from Q) reads it
-    "d256_dkv_stage_released_before_update": ("attn_bwd_d256.cu", BWD_SM90, [
-        STAGE_RELEASED_AFTER_SCORES,
-        ("          }\n          release(empty(st));  // this pass's product has read its stage",
-         "          } else {\n            release(empty(st));\n          }"),
+    # d 256 (the one-pass split sweep): each step's Q / dO stage (and its
+    # lse, D rows) released as soon as its score products are done, before
+    # the element loop reads the rows and both warpgroups' update products
+    # read Q and dO
+    "d256_dkv_stage_released_before_updates": ("attn_bwd_d256.cu", BWD_SM90, [
+        ("      fence_regs(dp);\n      if (softcap > 0.f) {\n"
+         "        if (masked) grads(m0, st, slope, yes, yes);",
+         "      fence_regs(dp);\n      release(empty(st));\n      if (softcap > 0.f) {\n"
+         "        if (masked) grads(m0, st, slope, yes, yes);"),
+        ("      release(tiles_empty);\n      release(empty(st));  // both updates have read Q and dO\n",
+         "      release(tiles_empty);\n"),
     ]),
-    # d 256 with dropout: the second (dK) pass builds dS from dP without the
-    # keep mask, while the first (dV) pass still drops P
-    "d256_dkv_pass2_skips_keep_mask": ("attn_bwd_d256.cu", BWD_SM90, [(
-        "const float dpv = DROP ? dp[4 * j + e] * keep : dp[4 * j + e];",
-        "const float dpv = dp[4 * j + e];")]),
+    # d 256 with dropout: dS built from dP without the keep mask, while
+    # P o M (dV's operand) still drops
+    "d256_dkv_ds_skips_keep_mask": ("attn_bwd_d256.cu", BWD_SM90, [(
+        "const float dpv = DROP ? dp[e] * keep : dp[e];",
+        "const float dpv = dp[e];")]),
 }
 
 
-def start_mutant_builds(mutants):
+def start_mutant_builds(mutants, csrc=None, every=False):
     """Writes each mutant's csrc/ copy (``mutants``: {name: (source,
     edited file, [(old, new)])}) and starts its nvcc on the source:
     {name: (process, library path, source)}, each nvcc (and the compilers
-    it runs) at the lowest CPU priority."""
+    it runs) at the lowest CPU priority.  ``csrc``: the sources to copy
+    (another tree's; this one's by default); ``every``: an edit replaces
+    every occurrence of its target (at least one), not exactly one."""
     import os
     import shutil
     from flash_attention_dlrs_tpu_torch import _cuda
@@ -484,11 +494,11 @@ def start_mutant_builds(mutants):
         root = _cuda.BUILD_DIR / "mutants" / name
         if root.exists():
             shutil.rmtree(root)
-        shutil.copytree(_cuda.CSRC_DIR, root / "csrc")
+        shutil.copytree(csrc or _cuda.CSRC_DIR, root / "csrc")
         path = root / "csrc" / edited
         text = path.read_text()
         for old, new in edits:
-            if text.count(old) != 1:
+            if text.count(old) != 1 and not (every and text.count(old)):
                 raise AssertionError(f"mutant {name}: edit target found "
                                      f"{text.count(old)} times: {old!r}")
             text = text.replace(old, new)
@@ -772,8 +782,18 @@ def phase_build(mutants=False):
         # 2 sweeps x 2 dtypes x 3 head dims x 2^3 modes
         bwd_warnings = _check_instances(rec, built, bwd_sources, BWD_WGMMA_ENTRY,
                                         BWD_WGMMA_FLAGS, "_wgmma_kernel", 96, "bwd_wgmma")
+    d256_wrong = {}
     if all(src in built for src in D256_SOURCES):
         rec["d256_shared_bytes"] = d256_shared_bytes()
+        # the sweeps' layouts against geometry.py's model, to the byte
+        from flash_attention_dlrs_tpu_torch import geometry as geo
+        for seg in ("", "_seg"):
+            for sweep, dkv in (("dkv", True), ("dq", False)):
+                key = f"attn_bwd_d256{seg}_{sweep}_wgmma"
+                want = geo.attention_bwd_smem_bytes(geo.default_block_kv_bwd(256), 256,
+                                                    bool(seg), dkv)
+                if rec["d256_shared_bytes"][key] != want:
+                    d256_wrong[key] = [rec["d256_shared_bytes"][key], want]
     tiles_wrong = check_tile_builds(rec, built)
     paged = {}
     for src in [f"paged_{k}{d}.cu" for k in ("decode", "verify") for d in ("_d64", "", "_d256")
@@ -794,6 +814,11 @@ def phase_build(mutants=False):
         raise AssertionError(f"forward wgmma instances with serialized wgmmas: {fwd_warnings}")
     if bwd_warnings:
         raise AssertionError(f"backward wgmma instances with serialized wgmmas: {bwd_warnings}")
+    if d256_wrong:
+        raise AssertionError(f"d 256 sweep layouts against geometry.py [C, Python]: {d256_wrong}")
+    d256_spilling = {k: v for k, v in rec.get("bwd_wgmma_spilling", {}).items() if "_d256" in k}
+    if d256_spilling:
+        raise AssertionError(f"d 256 sweep instances that spill: {d256_spilling}")
     if serialized:
         raise AssertionError(f"verify wgmma instances with serialized wgmmas: {serialized}")
     # the wide builds (csrc/wide.cuh): every instance's ptxas lines, none
@@ -1314,6 +1339,13 @@ BWD_CASES = [
     ("d256_fp16_window100_softcap_n300_scale", F16, 1, 8, 4, 300, 300, 256, True, 100,
      50.0, 0.05, {}),
     ("d256_bf16_n32", BF16, 1, 8, 4, 32, 32, 256, True, 0, 0.0, None, {}),
+    # near the cap: an sm_scale of 1.125 (18x the default 1/16) puts
+    # |S sm_scale| at up to ~100, twice the cap of 50, where the tanh is
+    # near saturation and the fast tanh's error shows most
+    ("d256_bf16_nearcap_softcap50_N2048", BF16, 1, 8, 4, 2048, 2048, 256, True, 0, 50.0,
+     1.125, {}),
+    ("d256_fp16_nearcap_softcap50_window300_n1000", F16, 1, 8, 4, 1000, 1000, 256, True, 300,
+     50.0, 1.125, {}),
     ("d256_fp16_n65_scale", F16, 1, 8, 4, 65, 65, 256, True, 0, 0.0, 0.1, {}),
     ("d256_fp32_causal_softcap", F32, 1, 8, 4, 256, 256, 256, True, 0, 50.0, None, {}),
     ("d256_fp32_window_softcap_cross", F32, 1, 8, 4, 200, 500, 256, True, 100, 50.0, None,
@@ -6207,7 +6239,7 @@ TILE_MUTANTS = {
     "dq_tiles_skip_last_key_tile": ("attn_bwd_tiles.cu", "attn_bwd_sm90.cuh", [(
         "  const TileRange tiles = kv_tiles<BR, BS>(m0, Nq, Nkv, causal, window);\n",
         "  TileRange tiles = kv_tiles<BR, BS>(m0, Nq, Nkv, causal, window);\n"
-        "  if (ST != stream_tile(D) && tiles.hi - tiles.lo > 1) --tiles.hi;\n")]),
+        "  if (ST != stream_tile(D, false) && tiles.hi - tiles.lo > 1) --tiles.hi;\n")]),
 }
 # The C entry each tile mutant replaces (ops module, attribute, symbol).
 TILE_MUTANT_TARGETS = {"fwd_tiles_skip_last_key_tile": ("fwd_kernel", "FWD_TILES_KERNEL",
@@ -6299,7 +6331,8 @@ def shared_bytes_check():
                     fwd(1, int(v8)), geo.attention_fwd_smem_bytes(
                         bkv, d, geo.fwd_stages(bkv, d, seg, v8), seg, v8)]
             for dkv in (True, False):
-                out[f"{'dkv' if dkv else 'dq'}_d{d}_kv{bs}{'_seg' if seg else ''}"] = [
+                rows = geo.bwd_stream_rows(d, bs, dkv)
+                out[f"{'dkv' if dkv else 'dq'}_d{d}_kv{rows}{'_seg' if seg else ''}"] = [
                     bwd(int(dkv), 1), geo.attention_bwd_smem_bytes(bs, d, seg, dkv)]
     fwd_tiles, bwd_tiles = entry("attn_fwd_tiles.cu", 2), entry("attn_bwd_tiles.cu", 3)
     for d in (64, 128):

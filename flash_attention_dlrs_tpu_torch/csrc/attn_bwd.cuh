@@ -459,15 +459,18 @@ int launch(Kernel kernel, size_t smem, dim3 grid, int threads, cudaStream_t stre
 constexpr int kRouteF32 = 0, kRouteWgmma = 1;
 
 // Rows streamed a stage by the "wgmma" route's builds of a head dim (q rows
-// in dK/dV, keys in dQ), each with every mode: 64, and 32 at d 256.
-// attn_bwd_tiles.cu builds 32-row stages at d 64 and 128 too, mode-free
-// (ops/bwd_kernel.py BWD_TILES).
-__host__ __device__ constexpr int stream_tile(int D) { return D == 256 ? 32 : 64; }
+// in dK/dV, keys in dQ; `dkv` names the sweep), each with every mode: 64,
+// and 32 in the d 256 dQ sweep.  attn_bwd_tiles.cu builds 32-row stages at
+// d 64 and 128 too, mode-free, for both sweeps (ops/bwd_kernel.py
+// BWD_TILES).
+__host__ __device__ constexpr int stream_tile(int D, bool dkv) {
+  return D == 256 && !dkv ? 32 : 64;
+}
 
 // The "wgmma" route streaming ST rows a stage, defined in attn_bwd_sm90.cuh.
-template <bool SEG, typename T, int D, int ST = stream_tile(D)>
+template <bool SEG, typename T, int D, int ST = stream_tile(D, true)>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv);
-template <bool SEG, typename T, int D, int ST = stream_tile(D)>
+template <bool SEG, typename T, int D, int ST = stream_tile(D, false)>
 int launch_dq_wgmma(const Args& a, void* dq);
 
 template <bool SEG, int D>
@@ -519,11 +522,12 @@ bool valid(int B, int Hq, int Hkv, int Nq, int Nkv, float rate) {
 // another route.  Each returns cudaGetLastError() after its launch (0 on
 // success).
 
-// ST: the wgmma route's rows streamed a stage; a size other than the head
-// dim's own (attn_bwd_tiles.cu) takes only the wgmma route and no mode.
+// ST: the wgmma route's rows streamed a stage; a size other than the
+// sweep's own at the head dim (attn_bwd_tiles.cu) takes only the wgmma route
+// and no mode.
 
 // dK, dV [B, Hkv, Nkv, d] from q, k, v, dout, lse and delta.
-template <bool SEG, int DIM, int ST = stream_tile(DIM)>
+template <bool SEG, int DIM, int ST = stream_tile(DIM, true)>
 int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dk, void* dv,
                        const int* q_seg, const int* kv_seg, int dtype, int B, int Hq,
@@ -534,7 +538,7 @@ int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* 
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if constexpr (ST == stream_tile(DIM)) {
+  if constexpr (ST == stream_tile(DIM, true)) {
     if (route == kRouteF32 && dtype == 0) return launch_dkv_f32<SEG, DIM>(a, dk, dv);
   }
   if (route == kRouteWgmma && dtype == 1)
@@ -545,7 +549,7 @@ int attn_bwd_dkv_entry(const void* q, const void* k, const void* v, const void* 
 }
 
 // dQ [B, Hq, Nq, d] from q, k, v, dout, lse and delta.
-template <bool SEG, int DIM, int ST = stream_tile(DIM)>
+template <bool SEG, int DIM, int ST = stream_tile(DIM, false)>
 int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* dout,
                       const float* lse, const float* delta, void* dq, const int* q_seg,
                       const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq,
@@ -556,7 +560,7 @@ int attn_bwd_dq_entry(const void* q, const void* k, const void* v, const void* d
   const Args a{q, k, v, dout, lse, delta, B, Hq, Hkv, Nq, Nkv, sm_scale, causal, window,
                softcap, Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                static_cast<cudaStream_t>(stream)};
-  if constexpr (ST == stream_tile(DIM)) {
+  if constexpr (ST == stream_tile(DIM, false)) {
     if (route == kRouteF32 && dtype == 0) return launch_dq_f32<SEG, DIM>(a, dq);
   }
   if (route == kRouteWgmma && dtype == 1)

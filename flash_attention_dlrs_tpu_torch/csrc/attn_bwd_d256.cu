@@ -3,8 +3,10 @@
 // instantiated at d 256 with SEG = false, ALiBi and dropout as flags.  One of
 // six backward sources (a head dim and a segment-id flag each), which compile
 // side by side.  attn_bwd_sm90.cuh says how the d 256 sweeps differ from the
-// others: two passes over the q steps in dK/dV (dV, then dK) and 32-row stages
-// in both sweeps; attn_bwd.cuh, how the fp32 ones do: 32-row steps.
+// others: dK/dV in one pass on 64-key CTAs (scores split by keys between the
+// consumer warpgroups, P o M and dS exchanged through shared memory, the
+// updates split by columns) streaming 64 q rows a stage, dQ pipelined on
+// 32-key stages; attn_bwd.cuh, how the fp32 ones do: 32-row steps.
 
 #include "attn_bwd.cuh"
 #include "attn_bwd_sm90.cuh"

@@ -75,20 +75,35 @@
 //    the q heads of its GQA group and then their q steps in order; a dQ CTA
 //    owns its 128 rows and walks its key tiles in order; no atomics.
 //  * Head dim 256 (Gemma; built in attn_bwd_d256.cu and, with segment ids,
-//    attn_bwd_d256_seg.cu, every mode a flag as at d 64 and 128) keeps the
-//    CTA shape and changes two things.  Registers:
-//    a dK/dV warpgroup cannot hold dK and dV for its 64 keys (2 x 128 fp32 a
-//    thread past the consumers' 232), so the sweep runs twice over the same
-//    q steps, dV in the first pass (S recomputed) and dK in the second (S
-//    and dP recomputed): 10 d operations a visible pair in place of 8, the
-//    products and the order of every sum otherwise as at d 128; the dQ
-//    accumulator (128 registers) fits as the forward's O does.  Shared
-//    memory: the two resident tiles take 128 KB, so the streamed stages
-//    carry 32 rows (16 KB a tile) in 3 stages, 96 KB, 224 KB in all (with
-//    segment ids the dK/dV stages' three row arrays bring it to 231,608 of
-//    the 232,448 bytes a CTA may opt into).  With dropout both dK/dV passes
-//    regenerate the keep mask at the same (seed, b, h, row, key): the first
-//    builds P o M for dV, the second dS = P o (M o dP - D) for dK.
+//    attn_bwd_d256_seg.cu, every mode a flag as at d 64 and 128) has sweeps
+//    of its own shape, since a warpgroup of 64 keys cannot hold dK and dV
+//    (2 x 128 fp32 a thread) and two resident 128-row tiles leave room for
+//    32-row stages only.  dK/dV (attn_bwd_dkv_split_wgmma_kernel, layout
+//    DkvD256Layout) makes one pass, 8 d operations a visible pair: a CTA
+//    owns 64 keys (K and V resident, 64 KB) and streams 64-row Q / dO
+//    stages, 2 deep.  The scores are split by keys: each consumer
+//    warpgroup computes S = Q K^T and dP = dO V^T for the stage's 64 q
+//    rows (the wgmma's M, not transposed) against its own 32 keys, over all
+//    256 columns, and runs the element loop once on them (lse and D per
+//    row, the dropout hash's key half per column).  It writes P o M and dS,
+//    rounded to T, into a shared 64 x 64 tile each; after an mbarrier that
+//    both warpgroups arrive on, the updates are split by columns: each
+//    warpgroup adds dV[:, its 128 columns] += (P o M)^T dO and dK[:, its
+//    128] += dS^T Q, A the P / dS tile and B the stage, both read MN-major
+//    (64 + 64 fp32 accumulators a thread).  A step runs in order (scores,
+//    element loop, exchange, updates) and its stage is released once both
+//    updates are done; the tiles are rewritten once both warpgroups'
+//    updates from them are done (a second mbarrier).  dQ keeps the CTA of
+//    two 64-row owners of all 256 columns (Q and dO resident, 128 KB) and
+//    32-key stages, 3 deep, and is pipelined: tile i's S and dP are issued
+//    beside tile i - 1's dQ += dS K (wait_group 1), and tile i's element
+//    loop runs while that update finishes; a K / V stage is released once
+//    its update is done.  Both sweeps take the softcap's tanh and
+//    1 - tanh^2 from one ex2 and one rcp (softcap_tanh: no divide or tanhf
+//    a score), the forward's P within a few 2^-24 of the logit's cap.
+//    Shared memory: dK/dV 215,096 bytes (215,608 with segment ids), dQ
+//    230,456 (230,840).  With dropout the one pass regenerates the keep
+//    mask once a pair, for P o M and dS alike.
 // The host builds the four tensor maps (3-D: d, N, B * H; zero fill past a
 // head's tail) on every call and passes them as __grid_constant__
 // parameters; the launch allocates nothing and does not synchronise.
@@ -108,11 +123,12 @@ constexpr int WG_ROWS = 64;  // resident rows of one consumer warpgroup
 // stage's row data (dK/dV: lse, D and with segment ids the q ids; dQ: with
 // segment ids the key ids), then the barriers (resident full; per stage
 // full and empty).
-template <int D, bool SEG, bool DKV, int ST = stream_tile(D)>
+template <int D, bool SEG, bool DKV, int ST = stream_tile(D, DKV)>
 struct BwdLayout {
   // streamed rows per stage (q rows in dK/dV, keys in dQ) and stages: 64 x 4,
-  // and 32 x 3 at d 256; attn_bwd_tiles.cu's 32-row stages at d 64 and 128
-  // keep 4
+  // and 32 x 3 in the d 256 dQ sweep (the d 256 dK/dV sweep has a layout of
+  // its own, DkvD256Layout); attn_bwd_tiles.cu's 32-row stages at d 64 and
+  // 128 keep 4
   static constexpr int BS = ST;
   static constexpr int STAGES = D == 256 ? 3 : 4;
   static constexpr uint32_t RES_BYTES = BR * D * 2;   // one resident tile
@@ -124,7 +140,49 @@ struct BwdLayout {
   static constexpr uint32_t BAR_OFF = ROWS_OFF + STAGES * ROW_ARRAYS * BS * 4;
   static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;  // + alignment
   static_assert(BYTES <= 232448, "a CTA has 227 KB of shared memory");
+  static_assert(!(DKV && D == 256), "the d 256 dK/dV sweep is laid out by DkvD256Layout");
 };
+
+// Shared memory of the d 256 dK/dV sweep's CTA, in bytes from a 1024-byte
+// aligned base: K and V for its 64 keys, the Q and dO stages of 64 q rows,
+// the P o M and dS tiles (64 q rows x 64 keys, one 128-byte swizzled row a
+// q row), each stage's lse (base 2), D and with segment ids q ids, then the
+// barriers (resident full; per stage full and empty; the tiles' full and
+// empty).
+template <bool SEG>
+struct DkvD256Layout {
+  static constexpr int D = 256;
+  static constexpr int BN = 64;      // keys a CTA
+  static constexpr int BS = 64;      // q rows a stage
+  static constexpr int STAGES = 2;
+  static constexpr uint32_t RES_BYTES = BN * D * 2;   // K or V
+  static constexpr uint32_t STEP_BYTES = BS * D * 2;  // Q or dO of a stage
+  static constexpr uint32_t TILE_BYTES = BS * BN * 2; // P o M or dS
+  static constexpr uint32_t U_OFF = 2 * RES_BYTES;
+  static constexpr uint32_t W_OFF = U_OFF + STAGES * STEP_BYTES;
+  static constexpr uint32_t P_OFF = W_OFF + STAGES * STEP_BYTES;
+  static constexpr uint32_t DS_OFF = P_OFF + TILE_BYTES;
+  static constexpr int ROW_ARRAYS = 2 + (SEG ? 1 : 0);
+  static constexpr uint32_t ROWS_OFF = DS_OFF + TILE_BYTES;
+  static constexpr uint32_t BAR_OFF = ROWS_OFF + STAGES * ROW_ARRAYS * BS * 4;
+  static constexpr size_t BYTES = BAR_OFF + 8 * (1 + 2 * STAGES + 2) + 1024;  // + alignment
+  static_assert(BYTES <= 232448, "a CTA has 227 KB of shared memory");
+};
+
+// S = A B^T over d, issued (not committed): A 64 rows at `a_rows` and B N
+// rows at `b_rows`, both K-major in 64-column chunks A_CHUNK and B_CHUNK
+// bytes apart (the d 256 dK/dV sweep's scores: a stage's q rows against a
+// warpgroup's keys of the resident K or V).
+template <typename T, int D, int N, uint32_t A_CHUNK, uint32_t B_CHUNK>
+__device__ __forceinline__ void issue_scores_to(float (&acc)[N / 2], uint32_t a_rows,
+                                                uint32_t b_rows) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const uint32_t in_chunk = (ks % 4) * 32;
+    WgmmaSS<N, T>::run(acc, smem_desc(a_rows + (ks / 4) * A_CHUNK + in_chunk, 16, 1024),
+                       smem_desc(b_rows + (ks / 4) * B_CHUNK + in_chunk, 16, 1024), ks > 0);
+  }
+}
 
 // S = A B^T of one warpgroup over d, issued (not committed): A the
 // warpgroup's 64 rows of a resident tile at `a_rows`, B the streamed tile of
@@ -133,14 +191,7 @@ struct BwdLayout {
 template <typename T, int D, int HALF>
 __device__ __forceinline__ void issue_scores(float (&acc)[HALF], uint32_t a_rows,
                                              uint32_t b_tile) {
-  constexpr int BS = 2 * HALF;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const uint32_t in_chunk = (ks % 4) * 32;
-    WgmmaSS<BS, T>::run(acc, smem_desc(a_rows + (ks / 4) * (BR * 128) + in_chunk, 16, 1024),
-                        smem_desc(b_tile + (ks / 4) * (BS * 128) + in_chunk, 16, 1024),
-                        ks > 0);
-  }
+  issue_scores_to<T, D, 2 * HALF, BR * 128, 2 * HALF * 128>(acc, a_rows, b_tile);
 }
 
 // acc += A B over the BS = 16 KS streamed rows, issued: A from registers
@@ -167,8 +218,9 @@ __device__ __forceinline__ void pack_frags(const float (&acc)[HALF], uint32_t (&
   }
 }
 
-// One arrival per warp on an empty barrier (count 8: both consumer
-// warpgroups), after every lane's reads of the stage.
+// One arrival per warp on a barrier of both consumer warpgroups' warps
+// (count 8), after every lane's part: its reads of a stage (an empty
+// barrier), or its writes of the d 256 dK/dV sweep's P o M and dS tiles.
 __device__ __forceinline__ void release(uint32_t bar) {
   __syncwarp();
   if (threadIdx.x % 32 == 0) mbar_arrive(bar);
@@ -199,8 +251,6 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   constexpr int STAGES = L::STAGES;
   constexpr int BS = L::BS;
   constexpr int CHUNKS = D / CHUNK;
-  // sweeps over the q steps: 1 (dK and dV together), 2 at d 256 (dV, then dK)
-  constexpr int PASSES = D == 256 ? 2 : 1;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atom
@@ -222,7 +272,6 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   const TileRange steps = q_tiles<BS, BR>(n0, Nq, Nkv, causal, window);
   const int per_head = steps.hi - steps.lo;
   const int n_steps = group * per_head;  // q heads of the group, then their steps
-  // every pass streams the same steps through the ring, one after another
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -254,8 +303,8 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
           tma_load_3d(sV + c * (BR * 128), &tm_v, bar_kv, c * CHUNK, n0, blockIdx.y);
         }
       }
-      for (int i = 0; i < PASSES * n_steps; ++i) {
-        const int s = i % STAGES, step = i % n_steps;
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % STAGES, step = i;
         // the stage's previous step released (passes at once on the first lap)
         mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
         const int bh = b * Hq + kvh * group + step / per_head;
@@ -302,11 +351,10 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_rows = sK + cw * (WG_ROWS * 128), v_rows = sV + cw * (WG_ROWS * 128);
     const size_t out = (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
 
-    // P^T o M and (with_ds) dS^T of q step m0 (stage st) in place of S^T and
-    // dP^T, in base-2 units; the softcap and the mask are compiled out of
-    // the loop when the call or the tile needs neither.
-    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked,
-                     auto with_ds) {
+    // P^T o M and dS^T of q step m0 (stage st) in place of S^T and dP^T, in
+    // base-2 units; the softcap and the mask are compiled out of the loop
+    // when the call or the tile needs neither.
+    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked) {
       const float* lse2 = rows_of(st, 0);
       const float* dlt = rows_of(st, 1);
       const int* qseg = reinterpret_cast<const int*>(rows_of(st, 2));
@@ -352,24 +400,21 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             keep = (bits & 0xFFFFFFu) >= keep_min ? md.keep_scale : 0.f;
           }
           s[4 * j + e] = DROP ? p * keep : p;
-          if constexpr (decltype(with_ds)::value) {
-            const float dpv = DROP ? dp[4 * j + e] * keep : dp[4 * j + e];
-            dp[4 * j + e] = p * (dpv - (c ? d2.y : d2.x)) * dcap;
-          }
+          const float dpv = DROP ? dp[4 * j + e] * keep : dp[4 * j + e];
+          dp[4 * j + e] = p * (dpv - (c ? d2.y : d2.x)) * dcap;
         }
       }
     };
 
-    // Ring index i's q step in the stage st: S^T (and with_ds dP^T), then
-    // P^T o M (and dS^T) in their place; false, and nothing run, when the
-    // warpgroup's keys see no row of the step.
-    auto step_grads = [&](int i, int st, auto with_ds) -> bool {
-      const int step = i % n_steps;
+    // q step `step` in the stage st: S^T and dP^T, then P^T o M and dS^T in
+    // their place; false, and nothing run, when the warpgroup's keys see no
+    // row of the step.
+    auto step_grads = [&](int step, int st) -> bool {
       const int m0 = (steps.lo + step % per_head) * BS;
       if (tile_hidden<BS, WG_ROWS>(m0, nw, Nq, Nkv, causal, window)) return false;
       wgmma_fence();
       issue_scores<T, D>(s, k_rows, q_tile(st));
-      if constexpr (decltype(with_ds)::value) issue_scores<T, D>(dp, v_rows, do_tile(st));
+      issue_scores<T, D>(dp, v_rows, do_tile(st));
       wgmma_commit();
       const int h = kvh * group + step / per_head;  // the q head: slope, dropout stream
       const float slope = ALIBI ? md.slopes[h] : 0.f;
@@ -380,13 +425,13 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       const std::false_type no{};
       wgmma_wait_all();
       fence_regs(s);
-      if constexpr (decltype(with_ds)::value) fence_regs(dp);
+      fence_regs(dp);
       if (softcap > 0.f) {
-        if (masked) grads(m0, st, slope, stream, yes, yes, with_ds);
-        else grads(m0, st, slope, stream, yes, no, with_ds);
+        if (masked) grads(m0, st, slope, stream, yes, yes);
+        else grads(m0, st, slope, stream, yes, no);
       } else {
-        if (masked) grads(m0, st, slope, stream, no, yes, with_ds);
-        else grads(m0, st, slope, stream, no, no, with_ds);
+        if (masked) grads(m0, st, slope, stream, no, yes);
+        else grads(m0, st, slope, stream, no, no);
       }
       return true;
     };
@@ -406,57 +451,320 @@ attn_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     };
 
     mbar_wait(bar_kv, 0);
-    if constexpr (PASSES == 1) {
-      float dk_acc[D / 2], dv_acc[D / 2];
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-      for (int i = 0; i < n_steps; ++i) {
-        const int st = i % STAGES;
-        mbar_wait(full(st), (i / STAGES) & 1);
-        if (step_grads(i, st, std::true_type{})) {
-          pack_frags<T>(s, pa);
-          wgmma_fence();
-          issue_update<T, D>(dv_acc, pa, do_tile(st));
-          wgmma_commit();
-          pack_frags<T>(dp, da);
-          wgmma_fence();
-          issue_update<T, D>(dk_acc, da, q_tile(st));
-          wgmma_commit();
-          wgmma_wait_all();
-          fence_regs(dv_acc);
-          fence_regs(dk_acc);
-        }
-        release(empty(st));  // dK's product has read Q, dV's dO
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i % STAGES;
+      mbar_wait(full(st), (i / STAGES) & 1);
+      if (step_grads(i, st)) {
+        pack_frags<T>(s, pa);
+        wgmma_fence();
+        issue_update<T, D>(dv_acc, pa, do_tile(st));
+        wgmma_commit();
+        pack_frags<T>(dp, da);
+        wgmma_fence();
+        issue_update<T, D>(dk_acc, da, q_tile(st));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
       }
-      store(dk, dk_acc, sm_scale);
-      store(dv, dv_acc, 1.f);
-    } else {
-      // d 256: dV += (P o M)^T dO over every step, then dK += dS^T Q over
-      // the same steps streamed again (ring indices n_steps .. 2 n_steps).
-      auto pass = [&](auto dk_pass) {
-        constexpr bool DK = decltype(dk_pass)::value;
-        float acc[D / 2];
+      release(empty(st));  // dK's product has read Q, dV's dO
+    }
+    store(dk, dk_acc, sm_scale);
+    store(dv, dv_acc, 1.f);
+  }
+}
+
+// The d 256 dK/dV sweep in T = bf16 / fp16, one pass (8 d operations a
+// visible pair): one CTA per (64-key tile, batch x kv head), laid out by
+// DkvD256Layout.  Consumer warpgroup cw computes S and dP for a stage's 64
+// q rows against its keys [n0 + 32 cw, + 32), builds P o M and dS there and
+// writes them, rounded to T, into the shared tiles; both warpgroups then
+// add dV[:, 128 cw + (0..128)] += (P o M)^T dO and dK[:, ...] += dS^T Q over
+// all 64 keys.
+template <typename T, int D, bool ALIBI, bool DROP, bool SEG>
+__global__ void __launch_bounds__(THREADS, 1)
+attn_bwd_dkv_split_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv, int Hq, int Hkv, int Nq,
+                                int Nkv, float sm_scale, int causal, int window, float softcap,
+                                Mods md) {
+  static_assert(D == 256, "the split dK/dV sweep is the d 256 build's");
+  using L = DkvD256Layout<SEG>;
+  constexpr int STAGES = L::STAGES, BS = L::BS, BN = L::BN;
+  constexpr int CHUNKS = D / CHUNK;
+  constexpr int HALF = BN / 2;  // keys of a warpgroup's scores
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atom
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));  // generic view
+  const uint32_t sK = base, sV = base + L::RES_BYTES;
+  auto q_tile = [&](int s) { return base + L::U_OFF + s * L::STEP_BYTES; };
+  auto do_tile = [&](int s) { return base + L::W_OFF + s * L::STEP_BYTES; };
+  // the stage's rows: 0 lse (base 2), 1 D, 2 q segment ids
+  auto rows_of = [&](int s, int a) {
+    return reinterpret_cast<float*>(smem + L::ROWS_OFF) + (s * L::ROW_ARRAYS + a) * BS;
+  };
+  const uint32_t bar_kv = base + L::BAR_OFF;
+  auto full = [&](int s) { return bar_kv + 8u * (1 + s); };
+  auto empty = [&](int s) { return bar_kv + 8u * (1 + STAGES + s); };
+  const uint32_t tiles_full = bar_kv + 8u * (1 + 2 * STAGES);  // P o M and dS written
+  const uint32_t tiles_empty = tiles_full + 8u;                 // both updates read them
+
+  const int n0 = blockIdx.x * BN;  // causal: the first key tiles see the most q rows
+  const int b = blockIdx.y / Hkv, kvh = blockIdx.y % Hkv;
+  const int group = Hq / Hkv;
+  const TileRange steps = q_tiles<BS, BN>(n0, Nq, Nkv, causal, window);
+  const int per_head = steps.hi - steps.lo;
+  const int n_steps = group * per_head;  // q heads of the group, then their steps
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
+    }
+    mbar_init(tiles_full, 8);
+    mbar_init(tiles_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  constexpr int PRODUCER_REGS = 32, CONSUMER_REGS = 232;
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= THREADS * LAUNCH_REGS,
+                "the register split exceeds the CTA's registers");
+  if (threadIdx.x < 128) {
+    // Producer warpgroup: thread 0 issues every copy, its warp stages each
+    // step's lse, D and q ids; the other warps leave.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(bar_kv, 2 * L::RES_BYTES);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-        for (int i = DK ? n_steps : 0; i < (DK ? 2 : 1) * n_steps; ++i) {
-          const int st = i % STAGES;
-          mbar_wait(full(st), (i / STAGES) & 1);
-          if (step_grads(i, st, dk_pass)) {
-            if constexpr (DK) pack_frags<T>(dp, da);
-            else pack_frags<T>(s, pa);
-            wgmma_fence();
-            if constexpr (DK) issue_update<T, D>(acc, da, q_tile(st));
-            else issue_update<T, D>(acc, pa, do_tile(st));
-            wgmma_commit();
-            wgmma_wait_all();
-            fence_regs(acc);
-          }
-          release(empty(st));  // this pass's product has read its stage
+        for (int c = 0; c < CHUNKS; ++c) {
+          tma_load_3d(sK + c * (BN * 128), &tm_k, bar_kv, c * CHUNK, n0, blockIdx.y);
+          tma_load_3d(sV + c * (BN * 128), &tm_v, bar_kv, c * CHUNK, n0, blockIdx.y);
         }
-        store(DK ? dk : dv, acc, DK ? sm_scale : 1.f);
-      };
-      pass(std::false_type{});
-      pass(std::true_type{});
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % STAGES;
+        // the stage's previous step released (passes at once on the first lap)
+        mbar_wait(empty(s), ((i / STAGES) & 1) ^ 1);
+        const int bh = b * Hq + kvh * group + i / per_head;
+        const int m0 = (steps.lo + i % per_head) * BS;
+        for (int x = lane; x < BS; x += 32) {
+          const int row = m0 + x;
+          const bool in = row < Nq;
+          rows_of(s, 0)[x] = in ? lse[size_t(bh) * Nq + row] * kLog2e : 0.f;
+          rows_of(s, 1)[x] = in ? delta[size_t(bh) * Nq + row] : 0.f;
+          if (SEG) reinterpret_cast<int*>(rows_of(s, 2))[x] = seg_id(md.q_seg, b, Nq, row);
+        }
+        __syncwarp();  // the rows are written before the full barrier completes
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * L::STEP_BYTES);
+#pragma unroll
+          for (int c = 0; c < CHUNKS; ++c) {
+            tma_load_3d(q_tile(s) + c * (BS * 128), &tm_q, full(s), c * CHUNK, m0, bh);
+            tma_load_3d(do_tile(s) + c * (BS * 128), &tm_do, full(s), c * CHUNK, m0, bh);
+          }
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroups 0 and 1: scores against keys [n0 + 32 cw, + 32),
+    // updates of columns [128 cw, + 128).
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;  // accumulator row group / column pair
+    const int nw = n0 + HALF * cw;
+    const int r0 = 16 * warp + g;  // this thread's rows of a step: r0, r0 + 8
+    const int q_off = Nkv - Nq;
+    const float scale_log2 = sm_scale * kLog2e;
+    // the softcap folded once: tanh's argument in ex2 units, the cap in log2
+    const float cap_k2 = softcap > 0.f ? 2.f * kLog2e * sm_scale / softcap : 0.f;
+    const float cap_log2 = softcap * kLog2e;
+    const uint32_t keep_min = DROP ? uint32_t(ceilf(md.rate * 16777216.f)) : 0u;
+    // segment ids of this thread's score columns, key nw + 8 j + 2 t + c at
+    // index 2 j + c (SEG)
+    int kseg[HALF / 4];
+#pragma unroll
+    for (int x = 0; x < HALF / 4; ++x)
+      kseg[x] = SEG ? seg_id(md.kv_seg, b, Nkv, nw + 8 * (x / 2) + 2 * t + x % 2) : 0;
+    uint32_t inner[HALF / 4];  // the dropout hash's key half, for the q head `inner_h`
+    int inner_h = -1;
+
+    // S, then P o M; dP, then dS: element e of n-tile j is q row
+    // m0 + r0 + 8 (e >> 1), key nw + 8 j + 2 t + (e & 1).
+    float s[HALF / 2], dp[HALF / 2], dk_acc[64], dv_acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    const uint32_t k_keys = sK + cw * (HALF * 128), v_keys = sV + cw * (HALF * 128);
+    const uint32_t p_tile = base + L::P_OFF, ds_tile = base + L::DS_OFF;
+
+    // P o M and dS of q step m0 (stage st) in place of S and dP, in base-2
+    // units; the softcap and the mask compiled out where the call or the
+    // tile needs neither.
+    auto grads = [&](int m0, int st, float slope, auto cap, auto masked) {
+      const float* lse2 = rows_of(st, 0);
+      const float* dlt = rows_of(st, 1);
+      const int* qseg = reinterpret_cast<const int*>(rows_of(st, 2));
+      const float slope_log2 = slope * kLog2e;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + r0 + 8 * r;
+        const float l2 = lse2[r0 + 8 * r], d2 = dlt[r0 + 8 * r];
+        const int qs = SEG ? qseg[r0 + 8 * r] : 0;
+        // the ALiBi distance q_pos - key, exact in fp32
+        const float dist0 = float(row + q_off - nw - 2 * t);
+#pragma unroll
+        for (int j = 0; j < HALF / 8; ++j) {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 4 * j + 2 * r + c;
+            const int key = nw + 8 * j + 2 * t + c;
+            const float dist = dist0 - float(8 * j + c);
+            float x, dcap = 1.f;
+            if constexpr (decltype(cap)::value) {
+              const float th = softcap_tanh(s[e], cap_k2);
+              dcap = fmaf(-th, th, 1.f);
+              x = th * cap_log2 - l2;
+            } else {
+              x = s[e] * scale_log2 - l2;
+            }
+            if (ALIBI) x -= slope_log2 * dist;
+            float p = exp2_ftz(x);
+            if constexpr (decltype(masked)::value) {
+              if (!visible(row, key, Nq, Nkv, causal, window) || (SEG && kseg[2 * j + c] != qs))
+                p = 0.f;
+            }
+            float keep = 1.f;
+            if (DROP) {
+              const uint32_t bits = lowbias32(uint32_t(row) ^ inner[2 * j + c]);
+              keep = (bits & 0xFFFFFFu) >= keep_min ? md.keep_scale : 0.f;
+            }
+            s[e] = DROP ? p * keep : p;
+            const float dpv = DROP ? dp[e] * keep : dp[e];
+            dp[e] = p * (dpv - d2) * dcap;
+          }
+        }
+      }
+    };
+
+    // P o M and dS, rounded to T, into the tiles: q row r0 + 8 r is a
+    // 128-byte row, its 16-byte unit u (keys 8 u ..) stored at u ^ (row % 8)
+    // (the 128-byte swizzle the updates' descriptors read).
+    auto write_tiles = [&]() {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+#pragma unroll
+        for (int j = 0; j < HALF / 8; ++j) {
+          const uint32_t at =
+              row * 128 + ((((HALF / 8) * cw + j) ^ (row & 7)) << 4) + 4 * t;
+          *reinterpret_cast<uint32_t*>(smem + L::P_OFF + at) =
+              Mma<T>::pack(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(smem + L::DS_OFF + at) =
+              Mma<T>::pack(dp[4 * j + 2 * r], dp[4 * j + 2 * r + 1]);
+        }
+      }
+    };
+
+    // The update products of the stage st from the tiles, issued: 4
+    // k-steps of 16 q rows each, A (64 keys) and B (the warpgroup's 128
+    // columns, two 64-column chunks BS * 128 bytes apart) read MN-major.
+    auto issue_updates = [&](int st) {
+      const uint32_t cols = cw * 2 * (BS * 128);
+#pragma unroll
+      for (int kk = 0; kk < BS / 16; ++kk)
+        WgmmaSSt<T>::run(dv_acc, smem_desc(p_tile + kk * 2048, BS * 128, 1024),
+                         smem_desc(do_tile(st) + cols + kk * 2048, BS * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BS / 16; ++kk)
+        WgmmaSSt<T>::run(dk_acc, smem_desc(ds_tile + kk * 2048, BS * 128, 1024),
+                         smem_desc(q_tile(st) + cols + kk * 2048, BS * 128, 1024));
+    };
+
+    // Each step in order: the scores, the element loop, the tiles
+    // exchanged, the updates; the stage is released once both updates are
+    // done (2 stages: the next but one step's copies then have a whole
+    // step to land).  A warpgroup whose keys see no row of a step still
+    // runs it, masked (P = 0): every wgmma is issued and waited on one
+    // path, which keeps ptxas from serializing them.
+    mbar_wait(bar_kv, 0);
+    int x = 0;  // tiles exchanged so far
+    for (int i = 0; i < n_steps; ++i) {
+      const int st = i % STAGES;
+      const int m0 = (steps.lo + i % per_head) * BS;
+      mbar_wait(full(st), (i / STAGES) & 1);
+      if (tile_hidden<BS, BN>(m0, n0, Nq, Nkv, causal, window)) {  // both warpgroups alike
+        release(empty(st));
+        continue;
+      }
+      const int h = kvh * group + i / per_head;  // the q head: slope, dropout stream
+      const float slope = ALIBI ? md.slopes[h] : 0.f;
+      if (DROP && h != inner_h) {
+        const uint32_t stream = dropout_stream(md.seed, b, h);
+#pragma unroll
+        for (int y = 0; y < HALF / 4; ++y)
+          inner[y] = lowbias32(uint32_t(nw + 8 * (y / 2) + 2 * t + y % 2) + stream);
+        inner_h = h;
+      }
+      const bool masked = SEG || !tile_unmasked<BS, HALF>(m0, nw, Nq, Nkv, causal, window);
+      const std::true_type yes{};
+      const std::false_type no{};
+      wgmma_fence();
+      issue_scores_to<T, D, HALF, BS * 128, BN * 128>(s, q_tile(st), k_keys);
+      issue_scores_to<T, D, HALF, BS * 128, BN * 128>(dp, do_tile(st), v_keys);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+      fence_regs(dp);
+      if (softcap > 0.f) {
+        if (masked) grads(m0, st, slope, yes, yes);
+        else grads(m0, st, slope, yes, no);
+      } else {
+        if (masked) grads(m0, st, slope, no, yes);
+        else grads(m0, st, slope, no, no);
+      }
+      // both warpgroups' updates from the tiles' last contents done
+      if (x > 0) mbar_wait(tiles_empty, (x - 1) & 1);
+      write_tiles();
+      fence_proxy_async();  // the tiles' stores before the updates' reads
+      release(tiles_full);
+      mbar_wait(tiles_full, x & 1);
+      wgmma_fence();
+      issue_updates(st);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dk_acc);
+      fence_regs(dv_acc);
+      release(tiles_empty);
+      release(empty(st));  // both updates have read Q and dO
+      ++x;
+    }
+
+    // this thread's rows (keys n0 + r0, + 8) of dK (times sm_scale) and dV,
+    // columns 128 cw + 8 j + 2 t
+    const size_t out = (size_t(b) * Hkv + kvh) * size_t(Nkv) * D;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = n0 + r0 + 8 * r;
+      if (key >= Nkv) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const size_t at = out + size_t(key) * D + 128 * cw + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + at) = Mma<T>::pack(
+            dk_acc[4 * j + 2 * r] * sm_scale, dk_acc[4 * j + 2 * r + 1] * sm_scale);
+        *reinterpret_cast<uint32_t*>(dv + at) =
+            Mma<T>::pack(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
@@ -555,6 +863,9 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     const float scale_log2 = sm_scale * kLog2e;
     const float slope = ALIBI ? md.slopes[h] : 0.f;
     const float slope_log2 = slope * kLog2e;
+    // d 256: the softcap folded once (softcap_tanh's argument, the cap in log2)
+    const float cap_k2 = softcap > 0.f ? 2.f * kLog2e * sm_scale / softcap : 0.f;
+    const float cap_log2 = softcap * kLog2e;
     const uint32_t stream = DROP ? dropout_stream(md.seed, b, h) : 0u;
     const uint32_t keep_min = DROP ? uint32_t(ceilf(md.rate * 16777216.f)) : 0u;
     // this thread's rows' lse (base 2), D and segment ids; 0 past Nq
@@ -593,7 +904,12 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
             const int e = 2 * r + c;
             const float dist = dist0[r] - float(8 * j + c);
             float x, dcap = 1.f;
-            if constexpr (decltype(cap)::value) {
+            if constexpr (decltype(cap)::value && D == 256) {
+              const float th = softcap_tanh(s[4 * j + e], cap_k2);
+              dcap = fmaf(-th, th, 1.f);
+              x = th * cap_log2 - lse2[r];
+              if (ALIBI) x -= slope_log2 * dist;
+            } else if constexpr (decltype(cap)::value) {
               const float th = tanhf(s[4 * j + e] * sm_scale / softcap);
               x = softcap * th;
               dcap = 1.f - th * th;
@@ -620,38 +936,90 @@ attn_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     };
 
+    // dS of the tile at n0 (stage st) in place of dP, S and dP read: the
+    // softcap and the mask compiled out where the call or the tile needs
+    // neither.
+    auto elements = [&](int n0, int st) {
+      const bool masked = SEG || !tile_unmasked<WG_ROWS, BS>(mw, n0, Nq, Nkv, causal, window);
+      const std::true_type yes{};
+      const std::false_type no{};
+      if (softcap > 0.f) {
+        if (masked) grads(n0, st, yes, yes);
+        else grads(n0, st, yes, no);
+      } else {
+        if (masked) grads(n0, st, no, yes);
+        else grads(n0, st, no, no);
+      }
+    };
+
     mbar_wait(bar_q, 0);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % STAGES;
-      const int n0 = (tiles.lo + i) * BS;
-      mbar_wait(full(st), (i / STAGES) & 1);
-      if (!tile_hidden<WG_ROWS, BS>(mw, n0, Nq, Nkv, causal, window)) {
+    if constexpr (D == 256) {
+      // Pipelined: tile i's S and dP are issued beside dQ's update from
+      // tile i - 1, and tile i's element loop runs while that update
+      // finishes; stage i - 1 is released once it is done.  Every tile of
+      // the CTA's range runs, a warpgroup's hidden ones masked (P = 0), so
+      // that every wgmma is issued and waited on one path.
+      if (n_tiles > 0) {
+        mbar_wait(full(0), 0);
         wgmma_fence();
-        issue_scores<T, D>(s, q_rows, k_tile(st));
-        issue_scores<T, D>(dp, do_rows, v_tile(st));
+        issue_scores<T, D>(s, q_rows, k_tile(0));
+        issue_scores<T, D>(dp, do_rows, v_tile(0));
         wgmma_commit();
-        const bool masked =
-            SEG || !tile_unmasked<WG_ROWS, BS>(mw, n0, Nq, Nkv, causal, window);
-        const std::true_type yes{};
-        const std::false_type no{};
         wgmma_wait_all();
         fence_regs(s);
         fence_regs(dp);
-        if (softcap > 0.f) {
-          if (masked) grads(n0, st, yes, yes);
-          else grads(n0, st, yes, no);
-        } else {
-          if (masked) grads(n0, st, no, yes);
-          else grads(n0, st, no, no);
-        }
+        elements(tiles.lo * BS, 0);
         pack_frags<T>(dp, da);
+        for (int i = 1; i < n_tiles; ++i) {
+          const int st = i % STAGES, prev = (i - 1) % STAGES;
+          const int n0 = (tiles.lo + i) * BS;
+          mbar_wait(full(st), (i / STAGES) & 1);
+          wgmma_fence();
+          issue_scores<T, D>(s, q_rows, k_tile(st));
+          issue_scores<T, D>(dp, do_rows, v_tile(st));
+          wgmma_commit();
+          issue_update<T, D>(acc, da, k_tile(prev));  // dQ: tile i - 1
+          wgmma_commit();
+          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          fence_regs(s);
+          fence_regs(dp);
+          elements(n0, st);
+          wgmma_wait_all();
+          fence_regs(acc);
+          release(empty(prev));
+          pack_frags<T>(dp, da);
+        }
+        const int last = (n_tiles - 1) % STAGES;
         wgmma_fence();
-        issue_update<T, D>(acc, da, k_tile(st));
+        issue_update<T, D>(acc, da, k_tile(last));  // dQ: the last tile
         wgmma_commit();
         wgmma_wait_all();
         fence_regs(acc);
+        release(empty(last));
       }
-      release(empty(st));  // dQ's product has read K
+    } else {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % STAGES;
+        const int n0 = (tiles.lo + i) * BS;
+        mbar_wait(full(st), (i / STAGES) & 1);
+        if (!tile_hidden<WG_ROWS, BS>(mw, n0, Nq, Nkv, causal, window)) {
+          wgmma_fence();
+          issue_scores<T, D>(s, q_rows, k_tile(st));
+          issue_scores<T, D>(dp, do_rows, v_tile(st));
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(s);
+          fence_regs(dp);
+          elements(n0, st);
+          pack_frags<T>(dp, da);
+          wgmma_fence();
+          issue_update<T, D>(acc, da, k_tile(st));
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(acc);
+        }
+        release(empty(st));  // dQ's product has read K
+      }
     }
 
     T* dqb = dq + size_t(bh) * Nq * D;
@@ -686,11 +1054,12 @@ bool encode_sweep_maps(const Args& a, int q_rows, int kv_rows, CUtensorMap* tm_q
 }
 
 // Calls fn(alibi, drop) with the call's modes as std::integral_constants:
-// every mode on the head dim's own streamed tile (stream_tile), none on
-// another (attn_bwd_tiles.cu builds those mode-free, and refuses a mode).
-template <bool SEG, int D, int ST, typename Fn>
+// every mode on the sweep's own streamed tile at the head dim (stream_tile),
+// none on another (attn_bwd_tiles.cu builds those mode-free, and refuses a
+// mode).
+template <bool SEG, int D, int ST, bool DKV, typename Fn>
 int dispatch_sweep_mods(const Mods& md, Fn&& fn) {
-  if constexpr (ST != stream_tile(D)) {
+  if constexpr (ST != stream_tile(D, DKV)) {
     static_assert(!SEG, "another streamed tile is built without segment ids");
     if (md.q_seg != nullptr || md.slopes != nullptr || md.rate > 0.f)
       return int(cudaErrorInvalidValue);
@@ -705,29 +1074,47 @@ int dispatch_sweep_mods(const Mods& md, Fn&& fn) {
 template <bool SEG, typename T, int D, int ST>
 int launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  using L = sm90::BwdLayout<D, SEG, true, ST>;
-  if (!encode_sweep_maps<T, D>(a, L::BS, sm90::BR, &tm_q, &tm_k, &tm_v, &tm_do))
-    return int(cudaErrorInvalidValue);
-  return dispatch_sweep_mods<SEG, D, ST>(a.md, [&](auto alibi, auto drop) {
-    return launch(sm90::attn_bwd_dkv_wgmma_kernel<T, D, decltype(alibi)::value,
-                                                  decltype(drop)::value, SEG, ST>,
-                  L::BYTES,
-                  dim3((a.Nkv + sm90::BR - 1) / sm90::BR, a.B * a.Hkv), sm90::THREADS,
-                  a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dk),
-                  static_cast<T*>(dv), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal,
-                  a.window, a.softcap, a.md);
-  });
+  if constexpr (D == 256) {
+    using L = sm90::DkvD256Layout<SEG>;
+    static_assert(ST == L::BS, "the d 256 dK/dV sweep streams its layout's q rows");
+    if (!encode_sweep_maps<T, D>(a, L::BS, L::BN, &tm_q, &tm_k, &tm_v, &tm_do))
+      return int(cudaErrorInvalidValue);
+    return dispatch_sweep_mods<SEG, D, ST, true>(a.md, [&](auto alibi, auto drop) {
+      return launch(sm90::attn_bwd_dkv_split_wgmma_kernel<T, D, decltype(alibi)::value,
+                                                          decltype(drop)::value, SEG>,
+                    L::BYTES, dim3((a.Nkv + L::BN - 1) / L::BN, a.B * a.Hkv), sm90::THREADS,
+                    a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dk),
+                    static_cast<T*>(dv), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal,
+                    a.window, a.softcap, a.md);
+    });
+  } else {
+    using L = sm90::BwdLayout<D, SEG, true, ST>;
+    if (!encode_sweep_maps<T, D>(a, L::BS, sm90::BR, &tm_q, &tm_k, &tm_v, &tm_do))
+      return int(cudaErrorInvalidValue);
+    return dispatch_sweep_mods<SEG, D, ST, true>(a.md, [&](auto alibi, auto drop) {
+      return launch(sm90::attn_bwd_dkv_wgmma_kernel<T, D, decltype(alibi)::value,
+                                                    decltype(drop)::value, SEG, ST>,
+                    L::BYTES,
+                    dim3((a.Nkv + sm90::BR - 1) / sm90::BR, a.B * a.Hkv), sm90::THREADS,
+                    a.stream, tm_q, tm_k, tm_v, tm_do, a.lse, a.delta, static_cast<T*>(dk),
+                    static_cast<T*>(dv), a.Hq, a.Hkv, a.Nq, a.Nkv, a.sm_scale, a.causal,
+                    a.window, a.softcap, a.md);
+    });
+  }
 }
 
-// Dynamic shared memory of a sweep of the build at head dim D streaming ST
-// rows a stage (dkv 1: the dK/dV sweep, 0: dQ) on a route (kRouteF32 or
-// kRouteWgmma), in bytes.  The fp32 route has one step of its own.
-template <bool SEG, int D, int ST = stream_tile(D)>
+// Dynamic shared memory of a sweep of the build at head dim D (dkv 1: the
+// dK/dV sweep, streaming DKV_ST q rows a stage; 0: dQ, DQ_ST keys) on a
+// route (kRouteF32 or kRouteWgmma), in bytes.  The fp32 route has one step
+// of its own.
+template <bool SEG, int D, int DKV_ST = stream_tile(D, true),
+          int DQ_ST = stream_tile(D, false)>
 int bwd_shared_bytes(int dkv, int route) {
   if (route == kRouteF32)
     return dkv ? int(dkv_f32_smem_bytes<D, SEG>()) : int(dq_f32_smem_bytes<D, SEG>());
-  return dkv ? int(sm90::BwdLayout<D, SEG, true, ST>::BYTES)
-             : int(sm90::BwdLayout<D, SEG, false, ST>::BYTES);
+  if (!dkv) return int(sm90::BwdLayout<D, SEG, false, DQ_ST>::BYTES);
+  if constexpr (D == 256) return int(sm90::DkvD256Layout<SEG>::BYTES);
+  else return int(sm90::BwdLayout<D, SEG, true, DKV_ST>::BYTES);
 }
 
 // Declared in attn_bwd.cuh: the "wgmma" route of the dQ entry, streaming ST
@@ -738,7 +1125,7 @@ int launch_dq_wgmma(const Args& a, void* dq) {
   using L = sm90::BwdLayout<D, SEG, false, ST>;
   if (!encode_sweep_maps<T, D>(a, sm90::BR, L::BS, &tm_q, &tm_k, &tm_v, &tm_do))
     return int(cudaErrorInvalidValue);
-  return dispatch_sweep_mods<SEG, D, ST>(a.md, [&](auto alibi, auto drop) {
+  return dispatch_sweep_mods<SEG, D, ST, false>(a.md, [&](auto alibi, auto drop) {
     return launch(sm90::attn_bwd_dq_wgmma_kernel<T, D, decltype(alibi)::value,
                                                  decltype(drop)::value, SEG, ST>,
                   L::BYTES,

@@ -55,8 +55,8 @@ extern "C" int attn_bwd_dq_tiles(const void* q, const void* k, const void* v,
 // with.
 extern "C" int attn_bwd_tiles_shared_bytes(int dkv, int D, int tile) {
   if (tile != 32) return -1;
-  if (D == 64) return bwd_shared_bytes<false, 64, 32>(dkv, kRouteWgmma);
-  if (D == 128) return bwd_shared_bytes<false, 128, 32>(dkv, kRouteWgmma);
+  if (D == 64) return bwd_shared_bytes<false, 64, 32, 32>(dkv, kRouteWgmma);
+  if (D == 128) return bwd_shared_bytes<false, 128, 32, 32>(dkv, kRouteWgmma);
   return -1;
 }
 

@@ -4,7 +4,9 @@
 // copies of 3-D and 2-D tensor maps with the 128-byte swizzle, wgmma
 // shared-memory descriptors and the products (m64nNk16, fp32 accumulate, A
 // from shared memory (N 32, 64, 128) or from registers (N 64, 128, and 256
-// as two halves)), and the host's tensor-map encoding through the runtime's
+// as two halves), or both operands in shared memory read MN-major (N 128)),
+// the special-function unit's exp2, reciprocal and the softcap's tanh, and
+// the host's tensor-map encoding through the runtime's
 // driver entry point (no -lcuda).
 
 #pragma once
@@ -317,6 +319,44 @@ __device__ __forceinline__ void WgmmaSS<32, __half>::run(
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D += A B on one warpgroup, m64n128k16, fp32 accumulate, both operands in
+// shared memory read MN-major (the transpose bits): A [16][64] with its 64
+// rows contiguous, B [16][128] with its columns contiguous (the d 256 dK/dV
+// sweep's updates, A a P or dS tile of q rows x keys).
+template <typename T>
+struct WgmmaSSt {
+  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db);
+};
+
+#define FA_WGMMA_SST(TYPE, PTX)                                                            \
+  template <>                                                                             \
+  __device__ __forceinline__ void WgmmaSSt<TYPE>::run(float (&d)[64], uint64_t da,        \
+                                                      uint64_t db) {                      \
+    asm volatile(                                                                         \
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                                      \
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32." PTX "." PTX " {"                   \
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "          \
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"   \
+        "}, %64, %65, p, 1, 1, 1, 1;\n}\n"                                                \
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),         \
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),       \
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),   \
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),   \
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),   \
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),   \
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),   \
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),   \
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),   \
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),   \
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                              \
+        : "l"(da), "l"(db), "r"(1));                                                      \
+  }
+FA_WGMMA_SST(__nv_bfloat16, "bf16")
+FA_WGMMA_SST(__half, "f16")
+#undef FA_WGMMA_SST
+
 // m64n256k16 with A from registers (head_dim 256): two m64n128k16 products
 // over the two halves of B's columns (MN-major, so columns 128.. start two
 // leading byte offsets on) into the two halves of D (the accumulator holds
@@ -337,6 +377,22 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// 1 / x on the special-function unit (rcp.approx.ftz: 1 / inf = 0).
+__device__ __forceinline__ float rcp_ftz(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The softcap's tanh(s sm_scale / cap) from one ex2.approx and one
+// rcp.approx, tanh(y) = 1 - 2 / (e^{2y} + 1), with k2 = 2 log2(e) sm_scale /
+// cap folded once a call (no divide a score): exactly 1 where e^{2y}
+// overflows and -1 where it flushes to 0, and within a few 2^-24 of tanhf
+// elsewhere in absolute terms (a logit cap x that within ~1e-5 at cap 50).
+__device__ __forceinline__ float softcap_tanh(float s, float k2) {
+  return fmaf(-2.f, rcp_ftz(exp2_ftz(s * k2) + 1.f), 1.f);
 }
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

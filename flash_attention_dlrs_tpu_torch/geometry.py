@@ -126,10 +126,27 @@ def fwd_stages(block_kv: int, head_dim: int, segments: bool = False, fp8_v: bool
     return 0
 
 
-def bwd_stages(head_dim: int) -> int:
+# The d 256 dK/dV sweep's one layout (``csrc/attn_bwd_sm90.cuh``
+# ``DkvD256Layout``): a CTA owns 64 keys and streams 64 q rows a stage, 2
+# stages deep, whatever ``block_kv_bwd`` (which sets the dQ sweep's keys).
+D256_DKV_KEYS = 64
+D256_DKV_ROWS = 64
+
+
+def bwd_stream_rows(head_dim: int, block_kv_bwd: int, dkv: bool) -> int:
+    """Rows a sweep streams a stage (q rows in dK/dV, keys in dQ) for a
+    call's ``block_kv_bwd``: the d 256 dK/dV sweep always streams
+    :data:`D256_DKV_ROWS`; every other sweep ``block_kv_bwd``."""
+    return D256_DKV_ROWS if head_dim == 256 and dkv else block_kv_bwd
+
+
+def bwd_stages(head_dim: int, dkv: bool = True) -> int:
     """Stages of a backward sweep's ring (``csrc/attn_bwd_sm90.cuh``
-    ``BwdLayout::STAGES``): 3 at d 256, 4 below, whatever the tile."""
-    return 3 if head_dim == 256 else 4
+    ``BwdLayout::STAGES``, ``DkvD256Layout::STAGES``): at d 256 2 in dK/dV
+    and 3 in dQ, 4 below, whatever the tile."""
+    if head_dim == 256:
+        return 2 if dkv else 3
+    return 4
 
 
 def attention_bwd_smem_bytes(block_kv_bwd: int, head_dim: int, segments: bool = False,
@@ -138,9 +155,17 @@ def attention_bwd_smem_bytes(block_kv_bwd: int, head_dim: int, segments: bool = 
     ``BwdLayout::BYTES``): the two resident tiles (128 rows), the stages of
     the two streamed tiles of ``block_kv_bwd`` rows, each stage's row
     arrays (dK/dV: lse and D; with segment ids the streamed rows' ids), the
-    barriers (1 + 2 per stage) and 1024 bytes of alignment."""
-    stages = bwd_stages(head_dim)
+    barriers (1 + 2 per stage) and 1024 bytes of alignment.  The d 256
+    dK/dV sweep (``DkvD256Layout::BYTES``) holds 64 resident keys, stages
+    of :data:`D256_DKV_ROWS` q rows whatever ``block_kv_bwd``, the P o M and
+    dS tiles (64 x 64 in 16 bits each) and two more barriers."""
+    stages = bwd_stages(head_dim, dkv)
     row_arrays = (2 if dkv else 0) + (1 if segments else 0)
+    if head_dim == 256 and dkv:
+        rows = D256_DKV_ROWS
+        return (2 * D256_DKV_KEYS * head_dim * 2 + 2 * stages * rows * head_dim * 2
+                + 2 * rows * D256_DKV_KEYS * 2 + stages * row_arrays * rows * 4
+                + 8 * (1 + 2 * stages + 2) + 1024)
     return (2 * CTA_ROWS * head_dim * 2 + 2 * stages * block_kv_bwd * head_dim * 2
             + stages * row_arrays * block_kv_bwd * 4 + 8 * (1 + 2 * stages) + 1024)
 
@@ -352,9 +377,11 @@ def default_block_kv(head_dim: int) -> int:
 
 
 def default_block_kv_bwd(head_dim: int) -> int:
-    """Rows a sweep streams a stage in the head dim's builds
-    (``csrc/attn_bwd.cuh`` ``stream_tile``): 64, and 32 at d 256 and in the
-    wide builds (:data:`WIDE_BWD_ROWS`, the 16-bit wide sweeps' tile)."""
+    """The head dim's builds' ``block_kv_bwd``: the keys the dQ sweep
+    streams a stage (``csrc/attn_bwd.cuh`` ``stream_tile``), and the q rows
+    of the dK/dV sweep but at d 256 (:func:`bwd_stream_rows`): 64, and 32 at
+    d 256 and in the wide builds (:data:`WIDE_BWD_ROWS`, the 16-bit wide
+    sweeps' tile)."""
     if is_wide(head_dim):
         return WIDE_BWD_ROWS
     return 32 if head_dim == 256 else 64

@@ -46,7 +46,7 @@ import ctypes
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
-from ..geometry import default_block_kv_bwd, is_wide
+from ..geometry import bwd_stream_rows, default_block_kv_bwd, is_wide
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_WIDTHS,
@@ -109,9 +109,10 @@ DQ_WIDE_KERNEL = CudaKernel("attn_bwd_wide.cu", "attn_bwd_dq_wide", _DQ_ARGS)
 # to 0 by whoever reads them.
 BWD_ROUTE_LAUNCHES = {sweep: register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
                       for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
-# Each sweep's wgmma and wide_wgmma launches by head dim and streamed tile
-# ("d128_kv32", "d512_kv32"), over every build; set to 0 by whoever reads
-# them.
+# Each sweep's wgmma and wide_wgmma launches by head dim and the rows it
+# streamed a stage ("d128_kv32", "d512_kv32"; the d 256 dK/dV sweep
+# "d256_kv64", geometry.bwd_stream_rows), over every build; set to 0 by
+# whoever reads them.
 BWD_TILE_LAUNCHES = {sweep: register_launch_counts({})
                      for sweep in ("attn_bwd_dkv", "attn_bwd_dq")}
 
@@ -238,7 +239,7 @@ def sweep_kernel(sweep: str, head_dim: int, segments: bool, block_kv_bwd=None) -
 def _count(sweep, route, d, tile) -> None:
     BWD_ROUTE_LAUNCHES[sweep][route] += 1
     if route in ("wgmma", "wide_wgmma"):
-        key = f"d{d}_kv{tile}"
+        key = f"d{d}_kv{bwd_stream_rows(d, tile, sweep == 'attn_bwd_dkv')}"
         BWD_TILE_LAUNCHES[sweep][key] = BWD_TILE_LAUNCHES[sweep].get(key, 0) + 1
 
 
@@ -248,7 +249,8 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
     """(dK, dV) [B, Hkv, Nkv, d] in k's dtype: the dK/dV sweep kernel on the
     route of :func:`bwd_route` on a CUDA device (its segment build with
     ``q_seg`` / ``kv_seg``, streaming ``block_sizes.block_kv_bwd`` q rows a
-    stage: :func:`_stream_tile`), :func:`attn_bwd_dkv_plain` on the CPU."""
+    stage, 64 at d 256: :func:`_stream_tile`), :func:`attn_bwd_dkv_plain` on
+    the CPU."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg, block_sizes)
     if q.device.type == "cpu":

@@ -8,9 +8,11 @@ the candidates are the tiles the Hopper kernels are built with: the key
 tile of the forward (``block_kv``: 128 keys, and 64 from
 ``csrc/attn_fwd_tiles.cu``; 64 only at d 256) and the rows the backward
 sweeps stream a stage (``block_kv_bwd``: 64, and 32 from
-``csrc/attn_bwd_tiles.cu``; 32 only at d 256).  A CTA owns 128 q rows in
-the forward (two consumer warpgroups) and 128 resident rows in the sweeps,
-so ``block_q`` and ``block_q_bwd`` are 128.  The other tiles are built
+``csrc/attn_bwd_tiles.cu``; 32 only at d 256, where it sets the dQ sweep's
+keys and the dK/dV sweep streams 64 q rows of its one layout).  A CTA owns
+128 q rows in the forward (two consumer warpgroups) and 128 resident rows
+in the sweeps (64 keys in the d 256 dK/dV sweep), so ``block_q`` and
+``block_q_bwd`` are 128.  The other tiles are built
 without ALiBi, dropout, segment ids or fp8 V: a call with one of those has
 its build's own tile as its only candidate.  Candidates are pruned by
 :mod:`.geometry`'s byte-exact model of the kernels' shared memory, and the
@@ -35,7 +37,9 @@ from . import geometry as geo
 # The forward's key tiles and the sweeps' streamed tiles that some build
 # carries, by head dim (csrc/attn_fwd{,_d64,_d256}.cu and attn_fwd_tiles.cu;
 # csrc/attn_bwd{,_d64,_d256}.cu and attn_bwd_tiles.cu), each head dim's own
-# tile first.
+# tile first.  block_kv_bwd sets both sweeps' streamed rows at d 64 and 128
+# and the dQ sweep's keys at d 256, whose dK/dV sweep always streams
+# geometry.D256_DKV_ROWS q rows (geometry.bwd_stream_rows).
 BUILT_BLOCK_KV = {64: (128, 64), 128: (128, 64), 256: (64,)}
 BUILT_BLOCK_KV_BWD = {64: (64, 32), 128: (64, 32), 256: (32,)}
 # The wide builds' tiles (csrc/wide.cuh, every head dim above 256 that is a
@@ -52,7 +56,9 @@ class BlockSizes:
     sweeps), the JAX package's four fields on Hopper's tiles: ``block_q``
     and ``block_q_bwd`` are a CTA's 128 rows; ``block_kv`` is 64 or 128
     (64 at head dim 256, 32 at the wide head dims), ``block_kv_bwd`` 32 or
-    64 (32 at d 256 and at the wide head dims).  The head dim is checked
+    64 (32 at d 256 and at the wide head dims): the rows both sweeps stream
+    a stage, but at d 256 the dQ sweep's keys only (the dK/dV sweep streams
+    64 q rows there, :func:`..geometry.bwd_stream_rows`).  The head dim is checked
     when a call uses the tiles (:meth:`check`)."""
 
     block_q: int = CTA_ROWS

@@ -3,8 +3,9 @@ the JAX package.
 
 geometry.py's shared-memory model against the byte counts the card's
 builds reported (PERF.md §6: the d256 forward with fp8 V 230,488 B, with
-segment ids too 231,000 B; the d256 sweeps with segment ids 231,608 / 230,840
-B) and the other tiles' layouts; ``BlockSizes`` on Hopper's tiles by head dim
+segment ids too 231,000 B; the d256 dQ sweep with segment ids 230,840 B), the
+d256 dK/dV sweep's one-pass layout from its definition, and the other tiles'
+layouts; every d256 sweep layout within a CTA's 232,448 bytes; ``BlockSizes`` on Hopper's tiles by head dim
 and mode; the candidates (the built tiles, d256's 128-key tile pruned); the
 default tiles; ``_tune_cached`` with a stubbed timer beside JAX's; the op
 with tiles pinned and tuned against JAX's op (fp32, forward atol 1e-4,
@@ -58,13 +59,22 @@ def fresh_cache(tmp_path, monkeypatch):
 # The geometry model
 # ---------------------------------------------------------------------------
 
+# The d 256 dK/dV sweep's layout (csrc/attn_bwd_sm90.cuh DkvD256Layout): K
+# and V for 64 keys, 2 stages of Q and dO of 64 q rows, the P o M and dS
+# tiles (64 x 64), 2 stages of lse, D (and q ids) for 64 rows, 7 barriers,
+# 1024 bytes of alignment.
+D256_DKV_BYTES = (2 * 64 * 256 * 2 + 2 * 2 * 64 * 256 * 2 + 2 * 64 * 64 * 2 + 2 * 2 * 64 * 4
+                  + 8 * 7 + 1024)
+D256_DKV_SEG_BYTES = D256_DKV_BYTES + 2 * 64 * 4
+
 # (model call, bytes): the card's own counts (PERF.md §6, the builds'
-# *_shared_bytes entries) and csrc/attn_fwd_sm90.cuh's 165,032 for 64-key
-# tiles at d 128.
+# *_shared_bytes entries), the d 256 dK/dV layout's and
+# csrc/attn_fwd_sm90.cuh's 165,032 for 64-key tiles at d 128.
 CARD_BYTES = [
     (lambda: geo.attention_fwd_smem_bytes(64, 256, 2, segments=False, fp8_v=True), 230488),
     (lambda: geo.attention_fwd_smem_bytes(64, 256, 2, segments=True, fp8_v=True), 231000),
-    (lambda: geo.attention_bwd_smem_bytes(32, 256, segments=True, dkv=True), 231608),
+    (lambda: geo.attention_bwd_smem_bytes(32, 256, segments=True, dkv=True),
+     D256_DKV_SEG_BYTES),
     (lambda: geo.attention_bwd_smem_bytes(32, 256, segments=True, dkv=False), 230840),
     (lambda: geo.attention_fwd_smem_bytes(64, 128, geo.fwd_stages(64, 128)), 165032),
 ]
@@ -74,6 +84,22 @@ CARD_BYTES = [
 def test_geometry_model_matches_the_cards_byte_counts(case):
     model, want = CARD_BYTES[case]
     assert model() == want
+
+
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("dkv", [True, False])
+def test_d256_sweep_layouts_fit_a_cta(segments, dkv):
+    """Each d 256 sweep layout, with and without segment ids, fits the
+    232,448 bytes a CTA may opt into; dK/dV's is its one-pass layout
+    whatever block_kv_bwd, dQ's streams block_kv_bwd keys in 3 stages."""
+    nbytes = geo.attention_bwd_smem_bytes(geo.default_block_kv_bwd(256), 256, segments, dkv)
+    assert nbytes <= 232448
+    if dkv:
+        assert nbytes == (D256_DKV_SEG_BYTES if segments else D256_DKV_BYTES)
+        assert geo.attention_bwd_smem_bytes(64, 256, segments, dkv) == nbytes
+        assert geo.bwd_stream_rows(256, 32, True) == 64 and geo.bwd_stages(256, True) == 2
+    else:
+        assert geo.bwd_stream_rows(256, 32, False) == 32 and geo.bwd_stages(256, False) == 3
 
 
 def test_geometry_on_the_cpu_is_the_h100_table():

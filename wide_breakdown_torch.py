@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the 16-bit wide kernels goes, on one NVIDIA card.
+"""Where the time of the 16-bit wide and d 256 kernels goes, on one NVIDIA card.
 
 Builds copies of ``csrc/attn_fwd_wide.cu``, ``csrc/attn_bwd_wide.cu`` and
 ``csrc/paged_decode_wide.cu`` with one piece of the kernels of
@@ -25,13 +25,25 @@ time is read.
   bf16 and int8 pools at the serving-d512 heads (B8 Hq4 Hkv2, 2048 tokens
   each), each call after an L2 flush as ``chip_smoke.time_paged`` reads it;
   the cut copies build the d 512 instances only.
+- ``d256``: the d 256 backward sweeps (``csrc/attn_bwd_d256.cu`` over
+  ``csrc/attn_bwd_sm90.cuh``) at Gemma-2-2B's training attention (B2 Hq8
+  Hkv4 N8192, causal bf16; global and window 4096, each without and with
+  the softcap 50): each sweep alone and the family (``attn_bwd``: the
+  preprocess and both sweeps), as built, without the element loop and
+  without the softcap (the scores run the no-softcap loop), and without
+  the update products; with ``--parent DIR`` (an unpacked tree, e.g. the
+  parent commit's ``git archive``) the same cuts of that tree's sweeps
+  and its dK/dV sweep's first pass alone where it has two, built and timed
+  in the same process; SDPA's backward at the global shape beside them.
 
 Each variant is timed twice, the kernels as built first and last (the
 spread).  Prints one JSON record, then the card's name and power limit:
 
-    python3 wide_breakdown_torch.py [forward] [sweeps] [decode]   # default: all
+    python3 wide_breakdown_torch.py [forward] [sweeps] [decode] [d256] [--parent DIR]
+                                                                  # default: the first three
 """
 
+import pathlib
 import sys
 
 import chip_smoke as cs
@@ -78,6 +90,56 @@ DECODE_CUTS = {
 _DECODE_ONLY_512 = [
     (f"      case {d}: return f(kind, std::integral_constant<int, {d // 128}>{{}});",
      f"      case {d}: return int(cudaErrorInvalidValue);") for d in (384, 640, 768, 896, 1024)]
+# The d 256 sweeps' cuts (csrc/attn_bwd_sm90.cuh), every occurrence of each
+# target replaced; the parent's text where it differs.
+_D256_NO_LOOP = [("    auto grads = [&](int n0, int st, auto cap, auto masked) {\n",
+                  "    auto grads = [&](int n0, int st, auto cap, auto masked) {\n"
+                  "      if (n0 >= 0) return;\n")]
+D256_CUTS = {
+    "no_element_loop": _D256_NO_LOOP + [(
+        "    auto grads = [&](int m0, int st, float slope, auto cap, auto masked) {\n",
+        "    auto grads = [&](int m0, int st, float slope, auto cap, auto masked) {\n"
+        "      if (m0 >= 0) return;\n")],
+    "no_softcap": [("if (softcap > 0.f) {", "if (false) {")],
+    # the producer completes each stage's full barrier without copying it:
+    # the sweeps on stale Q / dO (K / V) stages, their compute alone
+    "no_stage_loads": [
+        (f"mbar_expect_tx(full(s), 2 * L::STEP_BYTES);\n#pragma unroll\n"
+         f"          for (int c = 0; c < CHUNKS; ++c) {{\n            tma_load_3d({t}(s)",
+         f"mbar_arrive(full(s));\n#pragma unroll\n"
+         f"          for (int c = 0; c < 0; ++c) {{\n            tma_load_3d({t}(s)")
+        for t in ("q_tile", "k_tile")],
+    "no_score_products": [
+        ("      issue_scores_to<T, D, HALF, BS * 128, BN * 128>(s, q_tile(st), k_keys);\n"
+         "      issue_scores_to<T, D, HALF, BS * 128, BN * 128>(dp, do_tile(st), v_keys);\n", ""),
+        ("issue_scores<T, D>(s, q_rows, k_tile(0));", ""),
+        ("issue_scores<T, D>(dp, do_rows, v_tile(0));", ""),
+        ("issue_scores<T, D>(s, q_rows, k_tile(st));", ""),
+        ("issue_scores<T, D>(dp, do_rows, v_tile(st));", "")],
+    # dK/dV: the updates read the tiles without waiting for the other
+    # warpgroup's half, and the tiles are rewritten without waiting for its
+    # updates
+    "no_exchange_waits": [("      mbar_wait(tiles_full, x & 1);\n", ""),
+                          ("      if (x > 0) mbar_wait(tiles_empty, (x - 1) & 1);\n", "")],
+    "no_update_products": [("      issue_updates(st);\n", ""),
+                           ("issue_update<T, D>(acc, da, k_tile(prev));  // dQ: tile i - 1", ""),
+                           ("issue_update<T, D>(acc, da, k_tile(last));  // dQ: the last tile", "")],
+}
+D256_PARENT_CUTS = {
+    "no_element_loop": _D256_NO_LOOP + [(
+        "    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked,\n"
+        "                     auto with_ds) {\n",
+        "    auto grads = [&](int m0, int st, float slope, uint32_t stream, auto cap, auto masked,\n"
+        "                     auto with_ds) {\n      if (m0 >= 0) return;\n")],
+    "no_softcap": [("if (softcap > 0.f) {", "if (false) {")],
+    # the dV pass alone: the producer streams the steps once
+    "first_pass_only": [("      pass(std::true_type{});\n", ""),
+                        ("for (int i = 0; i < PASSES * n_steps; ++i) {",
+                         "for (int i = 0; i < n_steps; ++i) {")],
+}
+D256 = (2, 8, 4, 8192, 256)  # B, Hq, Hkv, N, d of Gemma-2-2B's training attention
+D256_CASES = {"global": (0, 0.0), "global_softcap50": (0, 50.0),
+              "window4096": (4096, 0.0), "window4096_softcap50": (4096, 50.0)}
 SHAPES = {"train_d512": (8, 8, 2), "serve_prefill_d512": (1, 4, 2)}
 DECODE = (8, [2048] * 8, (4, 2, 512))  # B, lengths, (Hq, Hkv, d) of the serving-d512 decode
 TRAIN = (8, 8, 2, 2048, 512)  # B, Hq, Hkv, N, d of the training-bench-d512 attention
@@ -99,6 +161,105 @@ def sweep_device_ms(gen, dev):
            "attn_bwd_dq": cs.device_ms(lambda: bk.attn_bwd_dq(q, k, v, do, lse, delta, **kw))}
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
+    return out
+
+
+def d256_device_ms(gen, dev):
+    """Device ms of each 16-bit d 256 sweep alone and of the family
+    (``attn_bwd``) at D256 in each of D256_CASES, with their bounds."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+    from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import attn_fwd
+
+    b, hq, hkv, n, d = D256
+    q, do = (cs._rand(gen, (b, hq, n, d), torch.bfloat16, dev) for _ in range(2))
+    k, v = (cs._rand(gen, (b, hkv, n, d), torch.bfloat16, dev) for _ in range(2))
+    out = {}
+    for case, (window, cap) in D256_CASES.items():
+        kw = dict(causal=True, sm_scale=d ** -0.5, window=window, softcap=cap)
+        o, lse = attn_fwd(q, k, v, **kw)
+        delta = bk.attn_bwd_preprocess(o, do)
+        pairs = b * cs.window_pairs(n, window) if window else None
+        work = cs.bwd_work(b, hq, hkv, n, n, d, True, 2, pairs=pairs, segments=False)
+        out[case] = {
+            name: {"device_ms": cs.device_ms(fn),
+                   "bound_ms": cs.bound(*work[name], cs.PEAK_BF16_FLOPS)[0]}
+            for name, fn in (
+                ("attn_bwd_dkv", lambda: bk.attn_bwd_dkv(q, k, v, do, lse, delta, **kw)),
+                ("attn_bwd_dq", lambda: bk.attn_bwd_dq(q, k, v, do, lse, delta, **kw)),
+                ("attn_bwd", lambda: bk.attn_bwd(q, k, v, o, lse, do, **kw)))}
+        del o, lse, delta
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
+def sdpa_bwd_device_ms(gen, dev):
+    """Device ms of SDPA's backward (enable_gqa, torch.autograd.grad on a
+    kept graph) at D256, global causal: the yardstick of the no-softcap
+    family."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hq, hkv, n, d = D256
+    q = cs._rand(gen, (b, hq, n, d), torch.bfloat16, dev).requires_grad_(True)
+    k, v = (cs._rand(gen, (b, hkv, n, d), torch.bfloat16, dev).requires_grad_(True)
+            for _ in range(2))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    do = torch.randn_like(out)
+    ms = cs.device_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
+    backend = cs.sdpa_backend(q, k, v)
+    del q, k, v, out, do
+    torch.cuda.empty_cache()
+    return {"device_ms": ms, "backend": backend}
+
+
+def d256_breakdown(parent):
+    """The d 256 sweeps as built and cut (D256_CUTS), and with ``parent``
+    (a tree's root) that tree's sweeps as built and cut
+    (D256_PARENT_CUTS), timed by :func:`d256_device_ms` in the order
+    parent, tree, the cuts, tree, parent; each build's d 256 instances'
+    registers, spills and ptxas warnings."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import _cuda
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+
+    source, header = "attn_bwd_d256.cu", "attn_bwd_sm90.cuh"
+    edits = {"as_built": [], **D256_CUTS}
+    builds = {}
+    if parent is not None:
+        csrc = pathlib.Path(parent) / "flash_attention_dlrs_tpu_torch" / "csrc"
+        parent_edits = {"as_built": [], **D256_PARENT_CUTS}
+        builds = cs.start_mutant_builds(
+            {f"parent_{n}": (source, header, e) for n, e in parent_edits.items()},
+            csrc=csrc, every=True)
+        edits.update({f"parent_{n}": e for n, e in parent_edits.items()})
+    builds.update(cs.start_mutant_builds({n: (source, header, e) for n, e in edits.items()
+                                          if not n.startswith("parent_")}, every=True))
+    wait = cs.wait_mutant_builds(builds)
+    slots = [(bk, "DKV_D256_KERNEL"), (bk, "DQ_D256_KERNEL")]
+    real = [getattr(mod, attr) for mod, attr in slots]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = [n for n in ("parent_as_built", "as_built") if n in builds]
+    order += [n for n in builds if n not in order] + order[::-1]
+    out = {"build_wait_seconds": wait, "sdpa_bwd_global": sdpa_bwd_device_ms(gen, dev)}
+    try:
+        for name in order:
+            _, lib, src = builds[name]
+            for (mod, attr), kernel in zip(slots, real):
+                setattr(mod, attr, _cuda.CudaKernel(src, kernel.symbol, kernel.argtypes,
+                                                    library=lib))
+            instances, warnings = cs.wgmma_instances(
+                (lib.parent / "nvcc.log").read_text(errors="replace"), cs.BWD_WGMMA_ENTRY,
+                cs.BWD_WGMMA_FLAGS, "_wgmma_kernel")
+            rec = out.setdefault(name, {
+                "edits": edits[name], "device_ms": [], "ptxas_warnings": warnings,
+                "d256_instances": {k: v for k, v in instances.items() if k.endswith("_d256")}})
+            rec["device_ms"].append(d256_device_ms(gen, dev))
+    finally:
+        for (mod, attr), kernel in zip(slots, real):
+            setattr(mod, attr, kernel)
     return out
 
 
@@ -169,7 +330,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("wide_breakdown_torch: no CUDA device is available", file=sys.stderr)
         return 2
-    parts = sys.argv[1:] or ["forward", "sweeps", "decode"]
+    args = sys.argv[1:]
+    parent = None
+    if "--parent" in args:
+        at = args.index("--parent")
+        parent = args[at + 1]
+        del args[at:at + 2]
+    parts = args or ["forward", "sweeps", "decode"]
     rec = {"phase": "wide_breakdown"}
     if "forward" in parts:
         rec["forward"] = breakdown(
@@ -188,6 +355,8 @@ def main() -> int:
             "paged_decode_wide.cu", DECODE_CUTS, [(dm, "DECODE_WIDE_KERNEL")], decode_device_ms,
             lambda log: {k: v for k, v in cs.paged_instances(log, "paged_decode_wide.cu").items()
                          if k in ("decode_wide_bf16_d512", "decode_wide_int8_d512")})
+    if "d256" in parts:
+        rec["d256"] = d256_breakdown(parent)
     rec["card"] = cs.card_line()
     cs.emit(rec)
     print(cs.card_line(), flush=True)
