@@ -10,9 +10,11 @@ registers), and beside them four broken copies of the dK/dV sweep (two at
 head dim 256), two of the paged kernels (a decode merge that drops the
 last key split, a verify that leaves a horizon-crossing tile unmasked),
 two of the 16-bit wide forward (S summed without the last owner's
-partial score, or with an owner's own partial in place of its peers') and
+partial score, or with an owner's own partial in place of its peers'),
 two of the 16-bit wide sweeps (dP summed without the last owner's
-partial, or S with an owner's own partial in place of its peers');
+partial, or S with an owner's own partial in place of its peers') and one
+of the column-chunked forward (S summed without the head dim's last
+streamed slice);
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
 route of the forward, of the backward sweeps and of verify: wgmma, fp32,
 and the paged kernels at their key-split and tile edges) against its plain
@@ -139,9 +141,10 @@ Then drives every path of the port:
   launches per rank, dropout's kept fraction and bitwise replay
   (parallel_attention); context- and head-sharded paged decode at the
   serving-bench decode heads from bf16 and int8 pools (parallel_decode);
-  the training-bench model trained dp 2 x tp 2 against the single-process
-  step, and a 2-layer fp32 copy (train_mesh); the serving-bench model
-  served tp 2 from bf16 and int8 KV against the single-process engine,
+  the training-bench model (2 of its 8 layers) trained dp 2 x tp 2
+  against the single-process step, and a 2-layer fp32 copy (train_mesh);
+  the serving-bench model (4 of its 16 layers) served tp 2 from bf16 and
+  int8 KV against the single-process engine,
   tokens equal on both ranks, and a 2-layer fp32 copy (serve_mesh);
   parallel/dryrun.py (dryrun); examples 01, 03 and 04 --world 4 --backend
   gloo (examples);
@@ -157,7 +160,12 @@ Then drives every path of the port:
   model with 4 q / 2 kv heads of 512, served from bf16 KV eagerly and as
   graphed bursts of 8, from int8 KV and chunked with the prefix cache
   (serve_d512); training-bench-d512, the training-bench model with 8 q / 2
-  kv heads of 512, trained at B8 x N2048 (train_d512);
+  kv heads of 512, trained at B8 x N2048 (train_d512); above 1024 (the
+  column-chunked kernels, route wide_chunk, and decode's chunked build)
+  the same checks at 1152 in every mode and dtype, at 1408, 2048 and 8192,
+  the op at 1100 (padded to 1152), the chunked forward's mutant caught,
+  and the two models re-headed at 2048 (serve_d2048: 1 q / 1 kv head;
+  train_d2048: 2 q / 1 kv heads);
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -190,8 +198,8 @@ Usage: python3 chip_smoke.py   (no arguments; needs one CUDA card)
            serve_rolling, serve_streaming, native, eval_gate, encoder,
            tune, bench, golden, parallel_attention, parallel_decode,
            train_mesh, serve_mesh, dryrun, examples, wide_heads,
-           serve_d512 and train_d512 (development runs; prints no result
-           line).
+           serve_d512, train_d512, serve_d2048 and train_d2048
+           (development runs; prints no result line).
 """
 
 from __future__ import annotations
@@ -828,7 +836,8 @@ def phase_build(mutants=False):
     # within them), none with serialized wgmmas; the decode instances (7
     # pool kinds x 6 head dims) by name, none spilling, each with its
     # layout's shared bytes
-    wide = {src: info[src]["ptxas"] for src in built if src.endswith("_wide.cu")}
+    wide = {src: info[src]["ptxas"] for src in built
+            if src.endswith("_wide.cu") or src == "paged_decode_chunk.cu"}
     spilling = {src: [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
                 for src, lines in wide.items()}
     spilling = {src: lines for src, lines in spilling.items() if lines}
@@ -1749,9 +1758,13 @@ def paged_case(dev, gen, case):
         want = (dm.paged_verify_plain(q, kp, vp, lens, table, **kw), None)
         spread = dm.paged_verify_plain(q, *abs_v_pools(kp, vp), lens, table, **kw)
     else:
+        build = dm.paged_kernels(d)[0]
+        before = build.launches
         first = dm.paged_decode_attention(q, kp, vp, lens, table, return_lse=True, **kw)
         again = dm.paged_decode_attention(q, kp, vp, lens, table, return_lse=True, **kw)
-        splits, route = list(dm.DECODE_SPLITS), ["cuda"]
+        # decode has one route a build: the build of the pool's head dim
+        route = [build.symbol] if build.launches - before == 2 else ["not its build"]
+        splits = list(dm.DECODE_SPLITS)
         kw["splits"] = splits[0]
         want = dm.paged_decode_plain(q, kp, vp, lens, table, return_lse=True, **kw)
         spread = (None if torch.is_tensor(vp) else
@@ -1888,13 +1901,33 @@ def seeded_weights(cfg, seed=0):
     encoding, nor on how the q and kv widths split into heads): the phases
     that rebuild the serving-bench or training-bench model, or re-head it
     at 512, reuse the host copy instead of drawing 0.8 / 1.5 B numbers
-    again."""
-    from flash_attention_dlrs_tpu_torch.models import init_params_numpy
+    again.  A bench model cut in depth (the scale-out phases) takes the
+    bench tree's first layers, and one re-headed at another kv width (head
+    dim 2048) the bench tree with wk and wv drawn anew from (seed, kv
+    width) in init_params_numpy's scheme."""
+    from flash_attention_dlrs_tpu_torch.models import ModelConfig, init_params_numpy
 
     key = (cfg.vocab_size, cfg.d_model, cfg.n_layers, cfg.n_q_heads * cfg.head_dim,
            cfg.n_kv_heads * cfg.head_dim, cfg.d_ff, cfg.tie_embeddings, seed)
-    if key not in _WEIGHTS:
+    if key in _WEIGHTS:
+        return _WEIGHTS[key]
+    bench = next((b for b in (SERVE_CFG, TRAIN_CFG)
+                  if (key[:2] + key[3:4] + key[5:] == (
+                      b["vocab_size"], b["d_model"], b["n_q_heads"] * b["head_dim"], b["d_ff"],
+                      cfg.tie_embeddings, seed) and key[2] <= b["n_layers"])), None)
+    if bench is None or key[2:5:2] == (bench["n_layers"], bench["n_kv_heads"] * bench["head_dim"]):
         _WEIGHTS[key] = init_params_numpy(cfg, seed)
+        return _WEIGHTS[key]
+    tree = seeded_weights(ModelConfig(**bench, tie_embeddings=cfg.tie_embeddings), seed)
+    layers = tree["layers"][:cfg.n_layers]
+    if key[4] != bench["n_kv_heads"] * bench["head_dim"]:
+        rng = np.random.default_rng((seed, key[4]))
+        layers = [dict(layer) for layer in layers]
+        for layer in layers:
+            for name in ("wk", "wv"):
+                layer[name] = rng.standard_normal((cfg.d_model, key[4]), dtype=np.float32)
+                layer[name] *= np.float32(cfg.d_model ** -0.5)
+    _WEIGHTS[key] = {**tree, "layers": layers}
     return _WEIGHTS[key]
 
 
@@ -2787,7 +2820,7 @@ def _serve_kernels():
     return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL,
                          fk.FWD_WIDE_KERNEL),
             "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL,
-                             dm.DECODE_WIDE_KERNEL),
+                             dm.DECODE_WIDE_KERNEL, dm.DECODE_CHUNK_KERNEL),
             "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL,
                              dm.VERIFY_D256_F16_KERNEL, dm.VERIFY_WIDE_KERNEL)}
 
@@ -2804,10 +2837,13 @@ def _zero_launches():
 
 
 def _launches():
-    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROUTE_LAUNCHES
+    """The serving kernels' launches (_serve_kernels), decode's on its
+    column-chunked build apart, and the forward's and verify's by route."""
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
 
     return {**{name: sum(k.launches for k in builds) for name, builds in _serve_kernels().items()},
-            "fwd_routes": fwd_routes(), "verify_routes": dict(VERIFY_ROUTE_LAUNCHES)}
+            "paged_decode_chunk": dm.DECODE_CHUNK_KERNEL.launches,
+            "fwd_routes": fwd_routes(), "verify_routes": dict(dm.VERIFY_ROUTE_LAUNCHES)}
 
 
 def graphed_run(engine, prompts, burst, call="generate", new_tokens=SERVE_NEW_TOKENS, **kw):
@@ -7111,20 +7147,23 @@ PAR_FP32_N, PAR_COMBINE_NQ, PAR_DROPOUT = 2048, 16, 0.1
 PAR_DECODE = (8, 16, 8, 128, 128)  # B, Hq, Hkv, d, page: the serving-bench decode heads
 PAR_DECODE_TOKENS = 2048  # a rank's tokens of each sequence, context-sharded
 # train_mesh: the training-bench model (TRAIN_CFG, bf16, block remat) at dp 2
-# x tp 2, the global batch TRAIN_BATCH x TRAIN_SEQ, 2 steps; a 2-layer fp32
-# copy at B4 x 512 for one step.  The bf16 loss averages 16k tokens' cross
+# x tp 2, cut to TRAIN_MESH_LAYERS of its 8 layers (cut from 8 for the
+# script's time: gloo ranks on one card measure host transport, and every
+# layer runs the same exchanges), the global batch TRAIN_BATCH x TRAIN_SEQ,
+# TRAIN_MESH_STEPS steps; a 2-layer fp32 copy at B4 x 512 for one step.  The bf16 loss averages 16k tokens' cross
 # entropy: a bf16 reordering of the model's sums moves it far less than
 # TRAIN_MESH_LOSS_REL of itself.
-TRAIN_MESH_STEPS, TRAIN_MESH_LOSS_REL = 1, 5e-3
+TRAIN_MESH_STEPS, TRAIN_MESH_LOSS_REL, TRAIN_MESH_LAYERS = 1, 5e-3, 2
 TRAIN_MESH_FP32 = (4, 512)
 MESH_FP32_GAP = 1e-3  # x std: the fp32 copies' loss and weights
 # Adam's first update moves every weight by about lr·sign(g): where g sits at
 # the summation-order noise the two runs move it by up to 2 lr apart (3% of
 # a weight's std at lr 3e-4), so a handful of weights may pass the limit.
 MESH_FP32_LR, MESH_FP32_PAST = 3e-4, 1e-4
-# serve_mesh: tp 2, phase serve's 8 requests at 4 slots, 16 new tokens each
-# (cut from serve's 32 for the script's time)
-SERVE_MESH_TP, SERVE_MESH_NEW_TOKENS = 2, 8
+# serve_mesh: tp 2, phase serve's 8 requests at 4 slots, 8 new tokens each
+# (cut from serve's 32 for the script's time), the model cut to
+# SERVE_MESH_LAYERS of its 16 layers (cut for the same reason)
+SERVE_MESH_TP, SERVE_MESH_NEW_TOKENS, SERVE_MESH_LAYERS = 2, 8, 4
 PAR_EXAMPLES = (("01_attention_features_torch.py", []), ("03_serve_paged_torch.py", []),
                 ("04_multichip_mesh_torch.py", ["--world", "4", "--backend", "gloo"]))
 # kernels-line entries by kernel symbol (paged decode by its pool kind)
@@ -7336,9 +7375,9 @@ def phase_parallel_decode(dev):
 
 
 def phase_train_mesh(dev):
-    """The training-bench model at full width and depth (TRAIN_CFG: b7
-    widths, 8 layers, bf16, block remat) trained dp 2 x tp 2 over 4 gloo
-    ranks of the card, global batch 8 x 2048, TRAIN_MESH_STEPS steps: each step's loss
+    """The training-bench model at full width (TRAIN_CFG: b7 widths, bf16,
+    block remat; TRAIN_MESH_LAYERS of its 8 layers) trained dp 2 x tp 2
+    over 4 gloo ranks of the card, global batch 8 x 2048, TRAIN_MESH_STEPS steps: each step's loss
     held against the single-process steps on the same batch and weights
     (run on the same card by rank 0 after the mesh run, from the weights
     it drew), every rank's launches exact (2 forwards and one of each
@@ -7353,7 +7392,8 @@ def phase_train_mesh(dev):
 
     import tempfile
 
-    cfg = ModelConfig(**TRAIN_CFG, dtype=torch.bfloat16, remat=True)
+    cfg = ModelConfig(**{**TRAIN_CFG, "n_layers": TRAIN_MESH_LAYERS}, dtype=torch.bfloat16,
+                      remat=True)
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int64)
     b32, n32 = TRAIN_MESH_FP32
@@ -7409,8 +7449,8 @@ def phase_train_mesh(dev):
 
 
 def phase_serve_mesh(dev):
-    """The serving-bench model at full width and depth (SERVE_CFG: 16
-    layers, d_model 2048, 16 q / 8 kv heads) served tensor-parallel, tp 2
+    """The serving-bench model at full width (SERVE_CFG: d_model 2048, 16 q
+    / 8 kv heads; SERVE_MESH_LAYERS of its 16 layers) served tensor-parallel, tp 2
     over 2 gloo ranks of the card: phase serve's 8 requests at 4 slots
     (SERVE_MESH_NEW_TOKENS new tokens each) from bf16 and int8 KV, greedy tokens against the single-process engine on
     the same card (bf16 / int8 may part only at near-ties, divergences), the
@@ -7422,7 +7462,7 @@ def phase_serve_mesh(dev):
     import torch
     from flash_attention_dlrs_tpu_torch.parallel import workloads
 
-    model, cfg = serving_bench_model(dev)
+    model, cfg = serving_bench_model(dev, n_layers=SERVE_MESH_LAYERS)
     prompts = serve_prompts(cfg)
     kw = lambda kv: dict(num_pages=4 * SERVE_PPS + 1, page_size=SERVE_PAGE, num_slots=4,
                          pages_per_seq=SERVE_PPS, kv_dtype=kv_kind(kv),
@@ -7447,7 +7487,7 @@ def phase_serve_mesh(dev):
                          names=("model",), engine_kw=kw("fp32")))
         ranks, seconds = par_group(workloads.models_suite, SERVE_MESH_TP, [], runs)
     rec = par_record("serve_mesh", SERVE_MESH_TP, seconds, model="serving-bench",
-                     mesh={"model": SERVE_MESH_TP}, runs={})
+                     layers=cfg.n_layers, mesh={"model": SERVE_MESH_TP}, runs={})
     ok = True
     for run in runs:
         name = run["name"]
@@ -7538,6 +7578,7 @@ WIDE_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/wide.cuh"
 WIDE_BUILDS = {"attn_fwd": "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_wide.cu",
                "attn_bwd": "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_wide.cu",
                "paged_decode": "flash_attention_dlrs_tpu_torch/csrc/paged_decode_wide.cu",
+               "paged_decode_chunk": "flash_attention_dlrs_tpu_torch/csrc/paged_decode_chunk.cu",
                "paged_verify": "flash_attention_dlrs_tpu_torch/csrc/paged_verify_wide.cu"}
 # The bench models re-headed at head dim 512: every projection keeps its
 # bench shape (serving 16 q x 128 = 4 q x 512 and 8 kv x 128 = 2 kv x 512;
@@ -7545,8 +7586,15 @@ WIDE_BUILDS = {"attn_fwd": "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_wide.cu
 # and attention FLOPs stay the bench models'; only the head width changes.
 D512_SERVE_HEADS = dict(n_q_heads=4, n_kv_heads=2, head_dim=512)
 D512_TRAIN_HEADS = dict(n_q_heads=8, n_kv_heads=2, head_dim=512)
-SERVE_D512_NEW_TOKENS = 16
-TRAIN_D512_WARM, TRAIN_D512_TIMED = 1, 2
+SERVE_RE_HEADED_NEW_TOKENS = 16
+TRAIN_RE_HEADED_WARM, TRAIN_RE_HEADED_TIMED = 1, 2
+# The bench models re-headed at head dim 2048, above the wgmma cuts (every
+# 16-bit attention call on route "wide_chunk"): the q projections keep their
+# bench shapes (serving 16 x 128 = 1 x 2048, training 32 x 128 = 2 x 2048);
+# the kv projections cannot (one kv head of 2048 is twice serving's 8 x 128
+# and as wide as training's 8 x 128 x 2).
+D2048_SERVE_HEADS = dict(n_q_heads=1, n_kv_heads=1, head_dim=2048)
+D2048_TRAIN_HEADS = dict(n_q_heads=2, n_kv_heads=1, head_dim=2048)
 # The 16-bit wide forward (csrc/wide.cuh wide_wgmma_kernel) broken in its
 # exchange of partial scores, the class of fault the split of the head dim
 # among owners can bring: S summed without the last owner's partial, and S
@@ -7571,7 +7619,21 @@ _WIDE_BWD_MUTANT_ONLY_512_640 = [
     (f"    case {d}: return launch_bwd_cut<T, false, {cut}>(a, maps, grid);",
      f"    case {d}: return int(cudaErrorInvalidValue);")
     for d, cut in ((384, "3, 1, 2"), (768, "3, 1, 4"), (896, "7, 1, 2"), (1024, "4, 1, 4"))]
+# The column-chunked forward (csrc/wide.cuh wide_fwd_chunk_kernel) broken in
+# its score sum: S summed without the head dim's last streamed slice (32
+# columns in fp32, 64 in 16 bits).  fwd_check's cases at d 1152 must catch
+# it.  It builds the column-chunked instances alone (the wgmma cuts' launches
+# edited to refuse), so its compile is a few seconds.
+_WIDE_CHUNK_MUTANT_ONLY = [
+    (f"    case {d}: return launch_wgmma_cut<T, PAGED, {cut}>(a, tm_q, tm_k, tm_v, tma, grid);",
+     f"    case {d}: return int(cudaErrorInvalidValue);")
+    for d, cut in ((384, "1, 2, 3"), (512, "1, 2, 4"), (640, "5, 1, 2"), (768, "2, 2, 3"),
+                   (896, "7, 1, 2"), (1024, "2, 2, 4"))]
 WIDE_MUTANTS = {
+    "wide_chunk_drops_last_slice": ("attn_fwd_wide.cu", "wide.cuh", [(
+        "const int nc = cols / L::KC;  // the head dim's slices, every one summed",
+        "const int nc = (cols - 32) / L::KC;  // the head dim's slices, every one summed"),
+    ] + _WIDE_CHUNK_MUTANT_ONLY),
     "wide_fwd_drops_last_chunk": ("attn_fwd_wide.cu", "wide.cuh", [(
         "for (int p = 0; p < OWNERS; ++p) {  // every owner's partial, in owner order",
         "for (int p = 0; p < OWNERS - 1; ++p) {  // every owner's partial, in owner order"),
@@ -7590,48 +7652,54 @@ WIDE_MUTANTS = {
     ] + _WIDE_BWD_MUTANT_ONLY_512_640),
 }
 WIDE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
-WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cap, below
-WIDE_ALL = (384, 512, 640, 768, 896, 1024)  # every width of the wide builds
-# the op API and the nn adapter at head dims the op pads (320 -> 384) and
-# does not (640): (B, Hq, Hkv, Nq, Nkv, d)
-WIDE_OP_SHAPES = {320: (2, 4, 2, 300, 300, 320), 640: (2, 4, 2, 257, 257, 640)}
+WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cuts' widest, below
+WIDE_ALL = (384, 512, 640, 768, 896, 1024)  # every width of the wgmma cuts
+CHUNK_WIDTHS = (1152, 1408, 2048, 8192)  # column-chunked widths the checks reach
+# the op API and the nn adapter at head dims the op pads (320 -> 384, 1100 ->
+# 1152, column-chunked) and does not (640): (B, Hq, Hkv, Nq, Nkv, d)
+WIDE_OP_SHAPES = {320: (2, 4, 2, 300, 300, 320), 640: (2, 4, 2, 257, 257, 640),
+                  1100: (2, 4, 2, 300, 300, 1100)}
 
 
-def wide_fwd_cases():
-    """fwd_check cases of the wide forward at d 384, 512 and 640: every mode
+def _wide_fwd_modes(d):
+    """fwd_check cases of the wide forward at kernel width ``d``: every mode
     (GQA, tails, window, softcap, ALiBi, dropout, segment ids with rows that
-    see nothing, fp8 V) in bf16, fp16 and fp32, the bench models' shapes,
-    d 1024, the cap, and bf16 at 768 and 896, whose cuts of the head dim
-    (clusters of 2 and 7 CTAs) no other width takes."""
+    see nothing, fp8 V) in bf16, fp16 and fp32."""
     import torch
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     both = dict(alibi=True, rate=0.1, seed=-5)
-    cases = []
-    for d in WIDE_WIDTHS:
-        tag = f"d{d}"
-        cases += [
-            (f"{tag}_causal_gqa_bf16", bf16, 1, 8, 2, 300, 300, d, True, 0, 0.0, {}),
-            (f"{tag}_noncausal_tail_fp16", f16, 2, 4, 2, 130, 200, d, False, 0, 0.0, {}),
-            (f"{tag}_window_softcap_bf16", bf16, 1, 4, 1, 257, 257, d, True, 100, 30.0, {}),
-            (f"{tag}_alibi_dropout_fp16", f16, 2, 4, 2, 333, 333, d, True, 0, 0.0,
-             both),
-            (f"{tag}_seg_packed_bf16", bf16, 2, 4, 2, 300, 300, d, True, 0, 0.0,
-             dict(seg="packed")),
-            (f"{tag}_seg_cross_fp16", f16, 1, 4, 2, 300, 700, d, False, 0, 0.0,
-             dict(seg="cross")),
-            (f"{tag}_fp8v_e4m3_bf16", bf16, 1, 4, 2, 300, 300, d, True, 0, 0.0,
-             dict(v8="e4m3")),
-            (f"{tag}_fp8v_e5m2_fp16_window", f16, 1, 4, 2, 200, 300, d, True, 63, 0.0,
-             dict(v8="e5m2")),
-            (f"{tag}_empty_rows_bf16", bf16, 1, 4, 2, 300, 200, d, True, 0, 0.0, {}),
-            (f"{tag}_fp32_causal_gqa", f32, 1, 4, 2, 200, 200, d, True, 0, 0.0, {}),
-            (f"{tag}_fp32_window_softcap_alibi_dropout", f32, 1, 4, 2, 130, 161, d, True,
-             50, 25.0, both),
-            (f"{tag}_fp32_seg_cross_fp8v_e5m2", f32, 1, 2, 1, 200, 500, d, False, 0, 0.0,
-             dict(seg="cross", v8="e5m2")),
-        ]
-    return cases + [
+    tag = f"d{d}"
+    return [
+        (f"{tag}_causal_gqa_bf16", bf16, 1, 8, 2, 300, 300, d, True, 0, 0.0, {}),
+        (f"{tag}_noncausal_tail_fp16", f16, 2, 4, 2, 130, 200, d, False, 0, 0.0, {}),
+        (f"{tag}_window_softcap_bf16", bf16, 1, 4, 1, 257, 257, d, True, 100, 30.0, {}),
+        (f"{tag}_alibi_dropout_fp16", f16, 2, 4, 2, 333, 333, d, True, 0, 0.0, both),
+        (f"{tag}_seg_packed_bf16", bf16, 2, 4, 2, 300, 300, d, True, 0, 0.0,
+         dict(seg="packed")),
+        (f"{tag}_seg_cross_fp16", f16, 1, 4, 2, 300, 700, d, False, 0, 0.0, dict(seg="cross")),
+        (f"{tag}_fp8v_e4m3_bf16", bf16, 1, 4, 2, 300, 300, d, True, 0, 0.0, dict(v8="e4m3")),
+        (f"{tag}_fp8v_e5m2_fp16_window", f16, 1, 4, 2, 200, 300, d, True, 63, 0.0,
+         dict(v8="e5m2")),
+        (f"{tag}_empty_rows_bf16", bf16, 1, 4, 2, 300, 200, d, True, 0, 0.0, {}),
+        (f"{tag}_fp32_causal_gqa", f32, 1, 4, 2, 200, 200, d, True, 0, 0.0, {}),
+        (f"{tag}_fp32_window_softcap_alibi_dropout", f32, 1, 4, 2, 130, 161, d, True, 50, 25.0,
+         both),
+        (f"{tag}_fp32_seg_cross_fp8v_e5m2", f32, 1, 2, 1, 200, 500, d, False, 0, 0.0,
+         dict(seg="cross", v8="e5m2")),
+    ]
+
+
+def wide_fwd_cases():
+    """fwd_check cases of the wide forward at d 384, 512 and 640 in every
+    mode and dtype (:func:`_wide_fwd_modes`), the bench models' shapes, d
+    1024, the cuts' widest, and bf16 at 768 and 896, whose cuts of the head
+    dim (clusters of 2 and 7 CTAs) no other width takes."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    both = dict(alibi=True, rate=0.1, seed=-5)
+    return [c for d in WIDE_WIDTHS for c in _wide_fwd_modes(d)] + [
         ("d512_train_B8_H8_N2048", bf16, 8, 8, 2, 2048, 2048, 512, True, 0, 0.0, {}),
         ("d512_serve_prefill_2048", bf16, 1, 4, 2, 2048, 2048, 512, True, 0, 0.0, {}),
         ("d1024_causal_bf16", bf16, 1, 2, 1, 256, 256, 1024, True, 0, 0.0, {}),
@@ -7643,28 +7711,47 @@ def wide_fwd_cases():
     ]
 
 
+def chunk_fwd_cases():
+    """fwd_check cases of the column-chunked forward above 1024: every mode
+    and dtype at d 1152 (9 chunks), causal GQA at 1408 (11 chunks, a prime
+    count no cluster cut takes), the re-headed models' shapes at 2048 and a
+    tiny call at 8192."""
+    import torch
+
+    bf16 = torch.bfloat16
+    return _wide_fwd_modes(1152) + [
+        ("d1408_causal_gqa_bf16", bf16, 1, 4, 2, 300, 300, 1408, True, 0, 0.0, {}),
+        ("d2048_train_B8_H2_N2048", bf16, 8, 2, 1, 2048, 2048, 2048, True, 0, 0.0, {}),
+        ("d2048_serve_prefill_2048", bf16, 1, 1, 1, 2048, 2048, 2048, True, 0, 0.0, {}),
+        ("d8192_causal_bf16", bf16, 1, 2, 1, 130, 130, 8192, True, 0, 0.0, {}),
+    ]
+
+
+def _wide_bwd_modes(d):
+    """bwd_check cases of the wide sweeps at kernel width ``d``: every mode
+    but fp8 V, in bf16, fp16 and fp32."""
+    tag = f"d{d}"
+    return [
+        (f"{tag}_causal_gqa_bf16", BF16, 1, 4, 2, 300, 300, d, True, 0, 0.0, None, {}),
+        (f"{tag}_window_softcap_fp16", F16, 1, 4, 1, 257, 257, d, True, 100, 30.0, None, {}),
+        (f"{tag}_noncausal_cross_bf16", BF16, 2, 4, 2, 130, 300, d, False, 0, 0.0, None, {}),
+        (f"{tag}_alibi_dropout_seg_bf16", BF16, 2, 4, 2, 333, 333, d, True, 0, 0.0, None,
+         dict(_BOTH, seg="packed")),
+        (f"{tag}_empty_rows_fp16", F16, 1, 4, 2, 300, 200, d, True, 0, 0.0, None, {}),
+        (f"{tag}_fp32_causal", F32, 1, 2, 1, 200, 200, d, True, 0, 0.0, None, {}),
+        (f"{tag}_fp32_window_softcap_alibi_dropout", F32, 1, 4, 2, 300, 300, d, True, 100,
+         25.0, None, _BOTH),
+        (f"{tag}_fp32_seg_cross", F32, 1, 2, 1, 200, 500, d, True, 0, 0.0, None,
+         dict(seg="cross")),
+    ]
+
+
 def wide_bwd_cases():
     """bwd_check cases of the wide sweeps at d 384, 512, 640 and 1024 (the
-    cap): every mode but fp8 V, in bf16, fp16 and fp32, the training
-    model's attention, and bf16 at 768 and 896, whose cuts of the head dim
-    (clusters of 6 and 3 CTAs, of 7) no other width takes."""
-    cases = []
-    for d in WIDE_WIDTHS:
-        tag = f"d{d}"
-        cases += [
-            (f"{tag}_causal_gqa_bf16", BF16, 1, 4, 2, 300, 300, d, True, 0, 0.0, None, {}),
-            (f"{tag}_window_softcap_fp16", F16, 1, 4, 1, 257, 257, d, True, 100, 30.0, None, {}),
-            (f"{tag}_noncausal_cross_bf16", BF16, 2, 4, 2, 130, 300, d, False, 0, 0.0, None, {}),
-            (f"{tag}_alibi_dropout_seg_bf16", BF16, 2, 4, 2, 333, 333, d, True, 0, 0.0, None,
-             dict(_BOTH, seg="packed")),
-            (f"{tag}_empty_rows_fp16", F16, 1, 4, 2, 300, 200, d, True, 0, 0.0, None, {}),
-            (f"{tag}_fp32_causal", F32, 1, 2, 1, 200, 200, d, True, 0, 0.0, None, {}),
-            (f"{tag}_fp32_window_softcap_alibi_dropout", F32, 1, 4, 2, 300, 300, d, True, 100,
-             25.0, None, _BOTH),
-            (f"{tag}_fp32_seg_cross", F32, 1, 2, 1, 200, 500, d, True, 0, 0.0, None,
-             dict(seg="cross")),
-        ]
-    return cases + [
+    cuts' widest) in every mode and dtype (:func:`_wide_bwd_modes`), the
+    training model's attention, and bf16 at 768 and 896, whose cuts of the
+    head dim (clusters of 6 and 3 CTAs, of 7) no other width takes."""
+    return [c for d in WIDE_WIDTHS for c in _wide_bwd_modes(d)] + [
         ("d512_train_B2_H8_N2048", BF16, 2, 8, 2, 2048, 2048, 512, True, 0, 0.0, None, {}),
         ("d1024_alibi_dropout_seg_bf16", BF16, 1, 2, 1, 300, 300, 1024, True, 0, 0.0, None,
          dict(_BOTH, seg="packed")),
@@ -7675,62 +7762,83 @@ def wide_bwd_cases():
     ]
 
 
-def wide_paged_cases(num_sms):
-    """decode_check cases of the wide paged kernels at pool widths 384, 512,
-    640 and 1024 (the cap), at the serving-d512 model's heads: the key-split
-    edges from the planner at page sizes 16 and 128 (lengths 0, 1, on the
-    first split boundary, one past it and the full table), every pool kind,
-    softcap and ALiBi; verify at T = 1, 4, 64, 255 and 256 with row horizons
-    inside tiles; quantized pools from bf16 (or fp32) q, value pools of q's
-    dtype."""
-    import torch
+def chunk_bwd_cases():
+    """bwd_check cases of the column-chunked sweeps above 1024: every mode
+    and dtype at d 1152, causal GQA at 1408, the re-headed training model's
+    attention at 2048 (two of its rows) and a tiny call at 8192."""
+    return _wide_bwd_modes(1152) + [
+        ("d1408_causal_gqa_bf16", BF16, 1, 4, 2, 300, 300, 1408, True, 0, 0.0, None, {}),
+        ("d2048_train_B2_H2_N2048", BF16, 2, 2, 1, 2048, 2048, 2048, True, 0, 0.0, None, {}),
+        ("d8192_causal_bf16", BF16, 1, 2, 1, 130, 130, 8192, True, 0, 0.0, None, {}),
+    ]
+
+
+def _wide_split_edges(b, d, ps, num_sms, hkv=None):
+    """(pages_per_seq, lengths) of the key-split edges at page size ``ps``
+    over a table of 2176 tokens: lengths 0, 1, on the first split boundary
+    the planner gives, one past it and the full table (the first ``b``)."""
     from flash_attention_dlrs_tpu_torch.ops.decode import decode_splits, split_pages
+
+    hkv = hkv or D512_SERVE_HEADS["n_kv_heads"]
+    pps = 2176 // ps
+    per, _ = split_pages(pps, decode_splits(b, hkv, pps, ps, num_sms))
+    return pps, [0, 1, per * ps, per * ps + 1, pps * ps][:b]
+
+
+def _wide_paged_modes(d, num_sms):
+    """decode_check cases of the wide paged kernels at pool width ``d``, at
+    the serving-d512 model's heads: the key-split edges at page sizes 16 and
+    128, every pool kind, softcap and ALiBi; verify at T = 1, 4, 64, 255 and
+    256 with row horizons inside tiles; quantized pools from bf16 (or fp32)
+    q, value pools of q's dtype."""
+    import torch
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     hq, hkv, table = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"], 2176
-
-    def edges(b, ps):
-        pps = table // ps
-        per, _ = split_pages(pps, decode_splits(b, hkv, pps, ps, num_sms))
-        return pps, [0, 1, per * ps, per * ps + 1, pps * ps][:b]
-
-    cases = []
-    for d in WIDE_WIDTHS:
-        tag = f"d{d}"
-        pps, lengths = edges(5, 128)
-        cases += [(f"{tag}_edges_{kind}_page128_B5", bf16, kind,
-                   (5, hq, hkv, d, 128, pps, lengths), 0.0, 0, False)
-                  for kind in ("bf16", "int4")]
-        pps16, lengths16 = edges(5, 16)
-        cases.append((f"{tag}_edges_int8_page16_softcap_alibi_B5", bf16, "int8",
-                      (5, hq, hkv, d, 16, pps16, lengths16), 30.0, 0, True))
-        # int4 pages of 16 store 8 rows: decode's rows copied one by one
-        cases.append((f"{tag}_edges_int4_page16_B5", bf16, "int4",
-                      (5, hq, hkv, d, 16, pps16, lengths16), 0.0, 0, False))
-        serve = (8, hq, hkv, d, 128, 17, DECODE_B8_LENGTHS)
-        small = (3, 8, 2, d, 64, 8, [0, 300, 512])
-        cases += [(f"{tag}_decode_{kind}_B8", bf16, kind, serve, 0.0, 0, False)
-                  for kind in ("e4m3", "e5m2")]
-        cases += [
-            (f"{tag}_decode_fp16_softcap_alibi", f16, "fp16", small, 30.0, 0, True),
-            (f"{tag}_decode_fp32_int8_alibi", f32, "int8", small, 0.0, 0, True),
-            (f"{tag}_decode_fp32_values", f32, "fp32", small, 0.0, 0, False),
-        ]
-        horizons = (2, hq, hkv, d, 128, 17, [1000, 1717])
-        cases += [(f"{tag}_verify_T{t}_bf16", bf16, "bf16", horizons, 0.0, t, False)
-                  for t in (1, 4, 255, 256)]
-        cases += [(f"{tag}_verify_T64_{kind}_softcap_alibi", bf16, kind, horizons, 30.0, 64,
-                   True) for kind in QUANT_KINDS]
-        cases += [
-            (f"{tag}_verify_T4_fp16", f16, "fp16", horizons, 0.0, 4, False),
-            (f"{tag}_verify_T5_fp32_int4_alibi", f32, "int4", small, 0.0, 5, True),
-            (f"{tag}_verify_T32_fp32_values", f32, "fp32",
-             (2, hq, hkv, d, 128, 17, [40, 2100]), 0.0, 32, False),
-            (f"{tag}_verify_T256_bf16_page16_alibi", bf16, "bf16",
-             (2, hq, hkv, d, 16, table // 16, [1000, 1717]), 0.0, 256, True),
-        ]
-    pps, lengths = edges(5, 128)
+    tag = f"d{d}"
+    pps, lengths = _wide_split_edges(5, d, 128, num_sms)
+    cases = [(f"{tag}_edges_{kind}_page128_B5", bf16, kind, (5, hq, hkv, d, 128, pps, lengths),
+              0.0, 0, False) for kind in ("bf16", "int4")]
+    pps16, lengths16 = _wide_split_edges(5, d, 16, num_sms)
+    cases.append((f"{tag}_edges_int8_page16_softcap_alibi_B5", bf16, "int8",
+                  (5, hq, hkv, d, 16, pps16, lengths16), 30.0, 0, True))
+    # int4 pages of 16 store 8 rows: decode's rows copied one by one
+    cases.append((f"{tag}_edges_int4_page16_B5", bf16, "int4",
+                  (5, hq, hkv, d, 16, pps16, lengths16), 0.0, 0, False))
+    serve = (8, hq, hkv, d, 128, 17, DECODE_B8_LENGTHS)
+    small = (3, 8, 2, d, 64, 8, [0, 300, 512])
+    cases += [(f"{tag}_decode_{kind}_B8", bf16, kind, serve, 0.0, 0, False)
+              for kind in ("e4m3", "e5m2")]
+    cases += [
+        (f"{tag}_decode_fp16_softcap_alibi", f16, "fp16", small, 30.0, 0, True),
+        (f"{tag}_decode_fp32_int8_alibi", f32, "int8", small, 0.0, 0, True),
+        (f"{tag}_decode_fp32_values", f32, "fp32", small, 0.0, 0, False),
+    ]
+    horizons = (2, hq, hkv, d, 128, 17, [1000, 1717])
+    cases += [(f"{tag}_verify_T{t}_bf16", bf16, "bf16", horizons, 0.0, t, False)
+              for t in (1, 4, 255, 256)]
+    cases += [(f"{tag}_verify_T64_{kind}_softcap_alibi", bf16, kind, horizons, 30.0, 64, True)
+              for kind in QUANT_KINDS]
     return cases + [
+        (f"{tag}_verify_T4_fp16", f16, "fp16", horizons, 0.0, 4, False),
+        (f"{tag}_verify_T5_fp32_int4_alibi", f32, "int4", small, 0.0, 5, True),
+        (f"{tag}_verify_T32_fp32_values", f32, "fp32", (2, hq, hkv, d, 128, 17, [40, 2100]),
+         0.0, 32, False),
+        (f"{tag}_verify_T256_bf16_page16_alibi", bf16, "bf16",
+         (2, hq, hkv, d, 16, table // 16, [1000, 1717]), 0.0, 256, True),
+    ]
+
+
+def wide_paged_cases(num_sms):
+    """decode_check cases of the wide paged kernels at pool widths 384, 512
+    and 640 in every mode (:func:`_wide_paged_modes`) and at 1024, the cuts'
+    widest."""
+    import torch
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    hq, hkv = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"]
+    pps, lengths = _wide_split_edges(5, 1024, 128, num_sms)
+    return [c for d in WIDE_WIDTHS for c in _wide_paged_modes(d, num_sms)] + [
         ("d1024_edges_int8_page128_softcap_alibi_B5", bf16, "int8",
          (5, hq, hkv, 1024, 128, pps, lengths), 30.0, 0, True),
         ("d1024_decode_fp32_values", f32, "fp32", (3, 8, 2, 1024, 64, 8, [0, 300, 512]), 0.0,
@@ -7739,6 +7847,33 @@ def wide_paged_cases(num_sms):
          (2, hq, hkv, 1024, 128, 17, [1000, 1717]), 30.0, 64, True),
         ("d1024_verify_T5_fp32_values", f32, "fp32", (3, 8, 2, 1024, 64, 8, [0, 300, 512]),
          0.0, 5, False),
+    ]
+
+
+def chunk_paged_cases(num_sms):
+    """decode_check cases of the column-chunked paged kernels above 1024:
+    every mode, pool kind and q dtype at d 1152 (:func:`_wide_paged_modes`),
+    decode and verify from bf16 q at 1408, the re-headed serving model's
+    heads at 2048 (decode of 8 sequences from bf16 and int8 pools, a chunk
+    of 256 verified) and a tiny pair of calls at 8192."""
+    import torch
+
+    bf16 = torch.bfloat16
+    hq, hkv = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"]
+    s_hq, s_hkv = D2048_SERVE_HEADS["n_q_heads"], D2048_SERVE_HEADS["n_kv_heads"]
+    serve = (8, s_hq, s_hkv, 2048, 128, 17, DECODE_B8_LENGTHS)
+    tiny = (2, 2, 1, 8192, 64, 4, [130, 200])
+    return _wide_paged_modes(1152, num_sms) + [
+        ("d1408_decode_bf16_B8", bf16, "bf16", (8, hq, hkv, 1408, 128, 17, DECODE_B8_LENGTHS),
+         0.0, 0, False),
+        ("d1408_verify_T64_bf16", bf16, "bf16", (2, hq, hkv, 1408, 128, 17, [1000, 1717]),
+         0.0, 64, False),
+        ("d2048_decode_bf16_B8", bf16, "bf16", serve, 0.0, 0, False),
+        ("d2048_decode_int8_B8", bf16, "int8", serve, 0.0, 0, False),
+        ("d2048_verify_T256_bf16", bf16, "bf16", (1, s_hq, s_hkv, 2048, 128, 17, [2048]), 0.0,
+         256, False),
+        ("d8192_decode_bf16", bf16, "bf16", tiny, 0.0, 0, False),
+        ("d8192_verify_T4_bf16", bf16, "bf16", tiny, 0.0, 4, False),
     ]
 
 
@@ -7800,24 +7935,26 @@ def _op_wide(dev, gen, dt, shape, v8=None, seg=None, **kw):
     return rec, ok, launches
 
 
-def _paged_wide_op(dev, gen, kind, t_new):
+def _paged_wide_op(dev, gen, kind, t_new, d=320):
     """Paged decode (``t_new`` 0) or verify of ``t_new`` tokens through its
-    entry point from bf16 q of head dim 320 on ``kind`` pools of the
-    kernels' width 384 (an engine's pools for such a model, padded as the
-    JAX package pads them), with softcap and ALiBi, the wide kernel's
-    launches counted; against the plain version on the same inputs:
-    (record, ok, launches)."""
+    entry point from bf16 q of head dim ``d`` on ``kind`` pools of the
+    kernels' width (384 for 320, 1152 for 1100: an engine's pools for such a
+    model, padded as the JAX package pads them), with softcap and ALiBi, the
+    wide kernel's launches counted (decode's column-chunked build above
+    1024); against the plain version on the same inputs: (record, ok,
+    launches)."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops import decode as dm
 
     hq, hkv = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"]
+    width = -(-d // 128) * 128
     q, kp, vp, lens, table = _paged_inputs(
-        gen, dev, torch.bfloat16, kind, 2, hq, hkv, 384, 128, 17, [1000, 2100],
+        gen, dev, torch.bfloat16, kind, 2, hq, hkv, width, 128, 17, [1000, 2100],
         num_pages=2 * 17 + 8, t_new=t_new)
-    q = q[..., :320].contiguous()
-    kw = dict(sm_scale=320 ** -0.5, logit_softcap=30.0,
+    q = q[..., :d].contiguous()
+    kw = dict(sm_scale=d ** -0.5, logit_softcap=30.0,
               alibi_slopes=mods(hq, True)["alibi_slopes"])
-    wide = dm.VERIFY_WIDE_KERNEL if t_new else dm.DECODE_WIDE_KERNEL
+    wide = dm.VERIFY_WIDE_KERNEL if t_new else dm.paged_kernels(width)[0]
     attend, plain = ((dm.paged_verify_attention, dm.paged_verify_plain) if t_new
                      else (dm.paged_decode_attention, dm.paged_decode_plain))
     dm.DECODE_SPLITS.clear()
@@ -7838,11 +7975,12 @@ def _paged_wide_op(dev, gen, kind, t_new):
 
 def wide_op_checks(dev, gen):
     """The entry points a user calls, at head dims 320 (which the op pads
-    to 384 and slices back) and 640: flash_attention forward and backward
-    in bf16, fp16 and fp32 with causal GQA, window, softcap, ALiBi,
-    dropout and SegmentIds, fp8 V forward only; nn.dot_product_attention
-    on padded batches, causal and with a window; paged decode and verify
-    from q of 320 on pools of 384.  Each call's launches counted exactly
+    to 384 and slices back), 640 and 1100 (padded to 1152, column-chunked):
+    flash_attention forward and backward in bf16, fp16 and fp32 with causal
+    GQA, window, softcap, ALiBi, dropout and SegmentIds, fp8 V forward
+    only; nn.dot_product_attention on padded batches, causal and with a
+    window; paged decode and verify from q of 320 on pools of 384 and of
+    1100 on pools of 1152.  Each call's launches counted exactly
     (one wide forward, and with a backward the preprocess and each wide
     sweep once, on the route of its types) and held against the same call
     on the plain versions: (records, checks)."""
@@ -7881,8 +8019,9 @@ def wide_op_checks(dev, gen):
             rec, ok, launches, _ = _nn_packed(dev, gen, lengths, window, shape=(b, hq, hkv, n, d))
             record(f"nn_d{d}_padded_{name}", rec, ok, launches,
                    on_route(bf16, True, d=width, **WIDE_CALL))
-    record("paged_decode_d320_int8", *_paged_wide_op(dev, gen, "int8", 0), 1)
-    record("paged_verify_d320_T64_bf16", *_paged_wide_op(dev, gen, "bf16", 64), 1)
+    for d in (320, 1100):
+        record(f"paged_decode_d{d}_int8", *_paged_wide_op(dev, gen, "int8", 0, d), 1)
+        record(f"paged_verify_d{d}_T64_bf16", *_paged_wide_op(dev, gen, "bf16", 64, d), 1)
     torch.cuda.empty_cache()
     return calls, checks
 
@@ -8023,6 +8162,48 @@ def wide_timings(dev, gen):
     return t
 
 
+def chunk_timings(dev, gen):
+    """The column-chunked kernels at the d 2048 re-headed bench models'
+    shapes, as :func:`wide_timings` times the wgmma ones at d 512: the
+    forward at the training shape (B8 Hq2 Hkv1 N2048) and the serving
+    prefill (B1 Hq1 Hkv1 N2048), the sweeps at the training shape, decode
+    from bf16 and int8 KV at 8 sequences of 2048 and verify of a 256-token
+    chunk at 2048 (the serving heads Hq1 Hkv1).  The library time is the
+    faster of SDPA with enable_gqa on the backend it picks and SDPA's
+    memory-efficient backend on expanded K/V, where either runs."""
+    import torch
+
+    heads = (D2048_SERVE_HEADS["n_q_heads"], D2048_SERVE_HEADS["n_kv_heads"], 2048)
+    train, serve = (8, 2, 1), (1, 1, 1)
+    t = {"fwd_train_d2048": time_fwd(gen, dev, *train, 2048, 2048, {}),
+         "fwd_serve_prefill_d2048": time_fwd(gen, dev, *serve, 2048, 2048, {}),
+         "bwd_train_d2048": time_bwd(dev, gen, *train, 2048, 2048)}
+    for key, shape in (("fwd_train_d2048", train), ("fwd_serve_prefill_d2048", serve)):
+        t[key]["device_ms"] = fwd_device_ms(gen, dev, *shape, 2048, 2048, t[key]["bound_ms"])
+    expanded = {"fwd_train_d2048": sdpa_expanded_ms(gen, dev, *train, 2048, 2048),
+                "fwd_serve_prefill_d2048": sdpa_expanded_ms(gen, dev, *serve, 2048, 2048),
+                "bwd_train_d2048": sdpa_expanded_ms(gen, dev, *train, 2048, 2048, True)}
+    t["sdpa_expanded_efficient_ms"] = expanded
+    for kind in ("bf16", "int8"):
+        t[f"decode_d2048_{kind}_B8_ctx2048"] = time_paged(gen, dev, kind, 8, [2048] * 8, 0,
+                                                          heads=heads)
+        t[f"verify_d2048_{kind}_T256_ctx2048"] = time_paged(gen, dev, kind, 1, [2048], 256,
+                                                            heads=heads)
+    q = _rand(gen, (8, 2, 2048, 2048), torch.bfloat16, dev)
+    k = _rand(gen, (8, 1, 2048, 2048), torch.bfloat16, dev)
+    t["sdpa_backend_d2048"] = sdpa_backend(q, k, k)
+    del q, k
+    torch.cuda.empty_cache()
+    for key in ("fwd_train_d2048", "fwd_serve_prefill_d2048"):
+        _faster_library(t[key], expanded[key], t["sdpa_backend_d2048"])
+    _faster_library(t["bwd_train_d2048"]["attn_bwd"], expanded["bwd_train_d2048"],
+                    t["sdpa_backend_d2048"])
+    family = t["bwd_train_d2048"]["attn_bwd"]
+    t["bwd_train_d2048"]["family_vs_sdpa"] = (family["ms"] / family["library_ms"]
+                                              if family["library_ms"] else None)
+    return t
+
+
 def wide_fwd_repeats(dev, gen):
     """The 16-bit wide forward twice on the same inputs, O and lse bit for
     bit (its owners sum their partial scores in a fixed order; no atomics),
@@ -8052,8 +8233,9 @@ def wide_fwd_repeats(dev, gen):
 def wide_mutants_caught(dev, builds):
     """Each broken copy of WIDE_MUTANTS in place of its build's kernels:
     the forward's (FWD_WIDE_KERNEL) on the wide forward cases at d 512 and
-    640, the sweeps' (DKV_WIDE_KERNEL and DQ_WIDE_KERNEL) on the 16-bit wide
-    bwd_check cases there: each must fail at least one."""
+    640 (the column-chunked one's on those at d 1152), the sweeps'
+    (DKV_WIDE_KERNEL and DQ_WIDE_KERNEL) on the 16-bit wide bwd_check cases
+    at d 512 and 640: each must fail at least one."""
     import torch
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
@@ -8061,6 +8243,7 @@ def wide_mutants_caught(dev, builds):
 
     wait = wait_mutant_builds(builds)
     fwd_cases = [c for c in wide_fwd_cases() if c[7] in (512, 640) and c[2] * c[5] <= 2048]
+    chunk_cases = [c for c in chunk_fwd_cases() if c[7] == 1152]
     bwd_cases = [c for c in wide_bwd_cases() if c[7] in (512, 640) and c[1] != F32
                  and c[2] * c[5] <= 2048]
     caught = {}
@@ -8075,7 +8258,8 @@ def wide_mutants_caught(dev, builds):
             for (mod, attr), kernel in zip(slots, real):
                 setattr(mod, attr, _cuda.CudaKernel(source, kernel.symbol, kernel.argtypes,
                                                     library=lib))
-            for case in bwd_cases if sweeps else fwd_cases:
+            for case in (bwd_cases if sweeps else chunk_cases if name.startswith("wide_chunk")
+                         else fwd_cases):
                 ok = (bwd_case(dev, gen, case)[1] if sweeps
                       else fwd_case(dev, gen, case, phase="wide_mutants")["ok"])
                 if not ok:
@@ -8092,8 +8276,9 @@ def wide_shared_bytes():
     ``*_shared_bytes`` entry, against geometry.py's model: the wide_wgmma
     forward by dtype, head dim and modes (segment ids, fp8 V), its verify by
     dtype and head dim, the 16-bit sweeps by sweep, dtype, head dim and
-    segment ids, the fp32 kernels' one layout, decode by pool kind and
-    head dim: {layout: [C, Python]}."""
+    segment ids, the column-chunked kernels' one layout a dtype (the 16-bit
+    ones at the chunked widths), decode by pool kind and head dim and its
+    column-chunked layout: {layout: [C, Python]}."""
     import ctypes
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch import geometry as geo
@@ -8104,11 +8289,27 @@ def wide_shared_bytes():
         fn.argtypes, fn.restype = [ctypes.c_int] * nargs, ctypes.c_int
         return fn
 
+    import torch
+
     fwd, verify = entry("attn_fwd_wide.cu", 3), entry("paged_verify_wide.cu", 2)
     bwd, decode = entry("attn_bwd_wide.cu", 3), entry("paged_decode_wide.cu", 2)
-    out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), geo.wide_smem_bytes()],
-           "paged_verify_wide_fp32": [verify(0, 512), geo.wide_smem_bytes()],
-           "attn_bwd_wide_fp32": [bwd(0, 512, 0), geo.wide_smem_bytes()]}
+    chunk_decode = entry("paged_decode_chunk.cu", 0)
+    f32 = geo.wide_chunk_smem_bytes(torch.float32)
+    out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), f32],
+           "paged_verify_wide_fp32": [verify(0, 512), f32],
+           "attn_bwd_wide_fp32": [bwd(0, 512, 0), f32],
+           "paged_decode_chunk": [chunk_decode(), geo.wide_chunk_decode_smem_bytes()]}
+    for dtype, name, dt in ((1, "bf16", torch.bfloat16), (2, "fp16", torch.float16)):
+        for d in CHUNK_WIDTHS:
+            for seg in (False, True):
+                out[f"attn_fwd_chunk_{name}_d{d}{'_seg' if seg else ''}"] = [
+                    fwd(dtype, d, int(seg)), geo.wide_chunk_smem_bytes(dt, segments=seg)]
+                for sweep, dkv in (("dkv", True), ("dq", False)):
+                    out[f"attn_bwd_{sweep}_chunk_{name}_d{d}{'_seg' if seg else ''}"] = [
+                        bwd(dtype, d, int(seg) | 2 * int(dkv)),
+                        geo.wide_chunk_smem_bytes(dt, segments=seg)]
+            out[f"paged_verify_chunk_{name}_d{d}"] = [verify(dtype, d),
+                                                      geo.wide_chunk_smem_bytes(dt, paged=True)]
     for dtype, name in ((1, "bf16"), (2, "fp16")):
         for d in WIDE_ALL:
             for seg, v8 in ((False, False), (True, False), (False, True), (True, True)):
@@ -8147,28 +8348,33 @@ def wide_decode_ctas():
 def phase_wide_heads(dev):
     """The wide kernels (csrc/wide.cuh) against their plain versions at
     kernel widths 384, 512, 640 and 1024 in every mode and dtype (the
-    forward also at 768 and 896): the forward once (fwd_case), the sweeps
-    twice, bit for bit (bwd_case), the paged kernels twice, bit for bit, at
-    their key-split edges (paged_case); each call on the route its route
-    function names (the 16-bit forward, verify and sweeps on wide_wgmma).
-    Then the entry points at head dims 320 and 640 (wide_op_checks), each
-    mutant of WIDE_MUTANTS caught (the forward's by fwd_check, the sweeps'
-    by bwd_check, at d 512 and 640), every instance's
+    forward also at 768 and 896), and column-chunked at 1152 in every mode
+    and dtype, at 1408, at the d 2048 models' shapes and at 8192: the
+    forward once (fwd_case), the sweeps twice, bit for bit (bwd_case), the
+    paged kernels twice, bit for bit, at their key-split edges
+    (paged_case); each call on the route its route function names (the
+    16-bit forward, verify and sweeps on wide_wgmma to 1024, wide_chunk
+    above; decode on its head dim's build).  Then the entry points at head
+    dims 320, 640 and 1100 (wide_op_checks), each mutant of WIDE_MUTANTS
+    caught (the forward's by fwd_check, the sweeps' by bwd_check, at d 512
+    and 640; the column-chunked forward's at 1152), every instance's
     shared memory against geometry.py's model (wide_shared_bytes), decode's
-    CTAs an SM as designed (wide_decode_ctas), and the
-    kernels timed at the re-headed bench models' shapes."""
+    CTAs an SM as designed (wide_decode_ctas), and the kernels timed at the
+    re-headed bench models' shapes (d 512 and 2048)."""
     import torch
 
     global WIDE_MUTANT_BUILDS
     builds = WIDE_MUTANT_BUILDS or start_mutant_builds(WIDE_MUTANTS)
     gen = torch.Generator(device=dev).manual_seed(5)
-    fwd = {c[0]: fwd_case(dev, gen, c, phase="wide_fwd_check") for c in wide_fwd_cases()}
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fwd = {c[0]: fwd_case(dev, gen, c, phase="wide_fwd_check")
+           for c in wide_fwd_cases() + chunk_fwd_cases()}
     bwd = {}
-    for case in wide_bwd_cases():
+    for case in wide_bwd_cases() + chunk_bwd_cases():
         bwd[case[0]], _ = bwd_case(dev, gen, case)
         emit({"phase": "wide_bwd_check", **bwd[case[0]]})
     paged = {}
-    for case in wide_paged_cases(torch.cuda.get_device_properties(dev).multi_processor_count):
+    for case in wide_paged_cases(num_sms) + chunk_paged_cases(num_sms):
         name, dt, kind, shape, cap, t_new, alibi = case
         paged[name] = paged_case(dev, gen, case)
         emit({"phase": "wide_paged_check", "case": name,
@@ -8182,7 +8388,9 @@ def phase_wide_heads(dev):
     caught, wait = wide_mutants_caught(dev, builds)
     shared = wide_shared_bytes()
     decode_ctas = wide_decode_ctas()
-    timings = wide_timings(dev, gen)
+    timings = {**wide_timings(dev, gen), **chunk_timings(dev, gen)}
+    chunk = {w: [n for n in (*fwd, *bwd, *paged) if n.startswith(f"d{w}_")]
+             for w in CHUNK_WIDTHS}
     checks = {
         "fwd_every_case_kernel_vs_plain_on_its_route": all(r["ok"] for r in fwd.values()),
         "fwd_wide_wgmma_bitwise_repeatable": all(repeats.values()),
@@ -8190,12 +8398,14 @@ def phase_wide_heads(dev):
             all(r["ok"] for r in bwd.values()),
         "paged_every_case_kernel_vs_plain_bitwise": all(r["ok"] for r in paged.values()),
         **op_checks,
+        "column_chunked_widths_checked": all(chunk.values()),
         "mutants_fail_their_check": all(bool(f) for f in caught.values()),
         "shared_bytes_match_geometry": all(c == p for c, p in shared.values()),
         "decode_ctas_per_sm_as_designed": all(c == p for c, p in decode_ctas.values()),
     }
     rec = {"phase": "wide_heads", "cases": {"fwd": len(fwd), "bwd": len(bwd),
-                                            "paged": len(paged), "entry_points": len(op_calls)},
+                                            "paged": len(paged), "entry_points": len(op_calls),
+                                            "column_chunked": {w: len(n) for w, n in chunk.items()}},
            "failed": {"fwd": [n for n, r in fwd.items() if not r["ok"]],
                       "bwd": [n for n, r in bwd.items() if not r["ok"]],
                       "paged": [n for n, r in paged.items() if not r["ok"]]},
@@ -8215,27 +8425,45 @@ def phase_wide_heads(dev):
 def phase_serve_d512(dev):
     """serving-bench-d512: the serving-bench model re-headed at head dim 512
     (scripts/bench_serving.py:28-34 with 4 q / 2 kv heads of 512; bf16,
-    pages of 128, weights from seed 0) served through DecodeEngine at full
-    width and depth on the wide kernels: the serve phase's 8 requests at 8
-    slots from bf16 KV eagerly, then as graphed bursts of 8 (tokens equal,
-    or apart at near-ties only), from int8 KV at 8 slots, and chunked
-    (prefill_chunk=256, the prefix cache: the wide verify) from bf16 and
-    int8 KV.  Launch counts zeroed just before each run and read just
-    after; every layer of a decode step checked against the plain version
-    on the engine's own pools; the prefill check (every layer's attention
-    at the kernel's tolerances, the bf16 logits, the model in fp32); 2-layer
-    fp32 copies of decode and of chunked admission within FP32_LOGIT_LIMIT x
-    std."""
+    pages of 128, weights from seed 0) served on the wide kernels (route
+    wide_wgmma): :func:`serve_reheaded`."""
+    return serve_reheaded(dev, "serve_d512", D512_SERVE_HEADS, "wide_wgmma")
+
+
+def phase_serve_d2048(dev):
+    """serving-bench-d2048: the serving-bench model re-headed at head dim
+    2048 (scripts/bench_serving.py:28-34 with 1 q / 1 kv head of 2048; bf16,
+    pages of 128, weights from seed 0) served on the column-chunked kernels
+    (route wide_chunk, decode on paged_decode_chunk.cu):
+    :func:`serve_reheaded`."""
+    return serve_reheaded(dev, "serve_d2048", D2048_SERVE_HEADS, "wide_chunk")
+
+
+def serve_reheaded(dev, phase, heads, route):
+    """The serving-bench model with the head fields ``heads`` served through
+    DecodeEngine at full width and depth on the wide kernels: the serve
+    phase's 8 requests at 8 slots from bf16 KV eagerly, then as graphed
+    bursts of 8 (tokens equal, or apart at near-ties only), from int8 KV at
+    8 slots, and chunked (prefill_chunk=256, the prefix cache: the wide
+    verify) from bf16 and int8 KV; every forward and verify on ``route``,
+    above 1024 every decode on the column-chunked build.  Launch counts
+    zeroed just before each run and read just after; every layer of a
+    decode step checked against the plain version on the engine's own
+    pools; the prefill check (every layer's attention at the kernel's
+    tolerances, the bf16 logits, the model in fp32); 2-layer fp32 copies of
+    decode and of chunked admission within FP32_LOGIT_LIMIT x std."""
     import torch
+    from flash_attention_dlrs_tpu_torch import geometry as geo
     from flash_attention_dlrs_tpu_torch.models import ModelConfig, params_from_jax
 
-    cfg = ModelConfig(**{**SERVE_CFG, **D512_SERVE_HEADS}, dtype=torch.bfloat16)
+    cfg = ModelConfig(**{**SERVE_CFG, **heads}, dtype=torch.bfloat16)
+    chunked = geo.chunked(cfg.head_dim)
     t0 = time.perf_counter()
     model = params_from_jax(seeded_weights(cfg), cfg, device=dev)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    prompts, new, n = serve_prompts(cfg), SERVE_D512_NEW_TOKENS, cfg.n_layers
+    prompts, new, n = serve_prompts(cfg), SERVE_RE_HEADED_NEW_TOKENS, cfg.n_layers
     slots = len(prompts)
     engine = serve_engine(model, cfg, dev, slots=slots)
     engine.generate([[1] * 128], max_new_tokens=2)  # warm-up
@@ -8253,9 +8481,9 @@ def phase_serve_d512(dev):
     del engine, q8
     torch.cuda.empty_cache()
     prefill = check_prefill(model, cfg, dev, prompts[0])
-    fp32 = check_decode_fp32(dev, prompts[0], ("fp32", "int8"), **D512_SERVE_HEADS)
-    chunked, dense_fwd = phase_serve_chunked(dev, model, cfg, phase="serve_d512_chunked",
-                                             route="wide_wgmma", **D512_SERVE_HEADS)
+    fp32 = check_decode_fp32(dev, prompts[0], ("fp32", "int8"), **heads)
+    chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg, phase=f"{phase}_chunked",
+                                                  route=route, **heads)
     del model
     torch.cuda.empty_cache()
 
@@ -8263,9 +8491,11 @@ def phase_serve_d512(dev):
         out = {
             f"{tag}_every_request_{new}_tokens": all(len(o) == new for o in r["outs"]),
             f"{tag}_fwd_launches_{n}_per_prefill": r["launches"]["attn_fwd"] == n * slots,
-            f"{tag}_fwd_launches_all_wide_wgmma":
-                all_on(fwd_routes_, "wide_wgmma", r["launches"]["attn_fwd"]),
+            f"{tag}_fwd_launches_all_{route}":
+                all_on(fwd_routes_, route, r["launches"]["attn_fwd"]),
             f"{tag}_decode_launches_{n}_per_step": r["launches"]["paged_decode"] == decode > 0,
+            f"{tag}_decode_launches_{'all' if chunked else 'none'}_column_chunked":
+                r["launches"]["paged_decode_chunk"] == (decode if chunked else 0),
         }
         if layers is not None:
             out[f"{tag}_every_layer_decode_kernel_vs_plain"] = (
@@ -8302,13 +8532,13 @@ def phase_serve_d512(dev):
         "attn_fwd": eager["launches"]["attn_fwd"] + graph["launches"]["attn_fwd"]
         + int8["launches"]["attn_fwd"] + dense_fwd,
         "paged_decode_bf16": eager["launches"]["paged_decode"]
-        + graph["launches"]["paged_decode"] + chunked["bf16"]["launches"]["paged_decode"],
+        + graph["launches"]["paged_decode"] + chunked_runs["bf16"]["launches"]["paged_decode"],
         "paged_decode_int8": int8["launches"]["paged_decode"]
-        + chunked["int8"]["launches"]["paged_decode"],
-        "paged_verify_bf16": chunked["bf16"]["launches"]["paged_verify"],
-        "paged_verify_int8": chunked["int8"]["launches"]["paged_verify"],
+        + chunked_runs["int8"]["launches"]["paged_decode"],
+        "paged_verify_bf16": chunked_runs["bf16"]["launches"]["paged_verify"],
+        "paged_verify_int8": chunked_runs["int8"]["launches"]["paged_verify"],
     }
-    rec = {"phase": "serve_d512", "config": {**SERVE_CFG, **D512_SERVE_HEADS},
+    rec = {"phase": phase, "config": {**SERVE_CFG, **heads},
            "dtype": "bfloat16", "params": n_params, "weights_setup_s": setup_s, "slots": slots,
            "prompt_lengths": list(SERVE_PROMPTS), "new_tokens": new, "burst": BURST,
            "page_size": SERVE_PAGE, "pages_per_seq": SERVE_PPS, "runs": runs,
@@ -8319,13 +8549,13 @@ def phase_serve_d512(dev):
                                               "admit_ms_dense_median",
                                               "decode_ms_per_step_median", "tokens_per_s",
                                               "chunks", "prefix_hits", "launches")}
-                       for k, r in chunked.items()},
+                       for k, r in chunked_runs.items()},
            **prefill, "fp32_2layer_decode_diff_over_std": fp32, "launches": launches,
            "card": card_line(), "checks": checks}
     emit(rec)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"serve_d512 checks failed: {failed}")
+        raise AssertionError(f"{phase} checks failed: {failed}")
     return rec
 
 
@@ -8345,42 +8575,67 @@ def phase_train_d512(dev):
                "attn_bwd_dkv": bwd_kernel.DKV_WIDE_KERNEL,
                "attn_bwd_dq": bwd_kernel.DQ_WIDE_KERNEL}
     return phase_train(dev, "train_d512", kernels=kernels, route="wide_wgmma",
-                       bwd_route="wide_wgmma", warm=TRAIN_D512_WARM, timed=TRAIN_D512_TIMED,
+                       bwd_route="wide_wgmma", warm=TRAIN_RE_HEADED_WARM, timed=TRAIN_RE_HEADED_TIMED,
                        **D512_TRAIN_HEADS)
+
+
+def phase_train_d2048(dev):
+    """training-bench-d2048: the training-bench model re-headed at head dim
+    2048 (scripts/bench_train.py:68-74 with 2 q / 1 kv heads of 2048; 8
+    layers, bf16, block remat) trained at B8 x N2048 on the column-chunked
+    kernels, as train_d512 is on the wgmma cuts (1 warm and 2 timed steps,
+    exact launches, every forward and sweep on wide_chunk, every layer's
+    attention against the plain versions, a 2-layer fp32 copy)."""
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel, fwd_kernel
+
+    kernels = {"attn_fwd": fwd_kernel.FWD_WIDE_KERNEL,
+               "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
+               "attn_bwd_dkv": bwd_kernel.DKV_WIDE_KERNEL,
+               "attn_bwd_dq": bwd_kernel.DQ_WIDE_KERNEL}
+    return phase_train(dev, "train_d2048", kernels=kernels, route="wide_chunk",
+                       bwd_route="wide_chunk", warm=TRAIN_RE_HEADED_WARM, timed=TRAIN_RE_HEADED_TIMED,
+                       **D2048_TRAIN_HEADS)
 
 
 def wide_entries(entry, later):
     """The kernels line's entries of the wide kernels (``entry`` is
-    emit_kernels' maker): launches from serve_d512's and train_d512's runs,
-    times at the shapes of wide_timings, each built from its own source
-    (the kernel body wide.cuh)."""
+    emit_kernels' maker): launches from serve_d512's and train_d512's runs
+    (the wgmma cuts) and from serve_d2048's and train_d2048's (the
+    column-chunked kernels), times at the shapes of wide_timings and
+    chunk_timings, each built from its own source (the kernel body
+    wide.cuh)."""
     t = later["wide_heads"]["timings"]
-    serve, train = later["serve_d512"]["launches"], later["train_d512"]["launches"]
-    fwd = entry("attn_fwd[wide,d512]", WIDE_SOURCE, FWD_REPLACES,
-                serve["attn_fwd"] + train["attn_fwd"], t["fwd_train_d512"],
-                built_from=WIDE_BUILDS["attn_fwd"])
-    fwd["device_ms"] = t["fwd_train_d512"]["device_ms"]
-    fwd["serving_prefill"] = {k: t["fwd_serve_prefill_d512"][k]
-                              for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
-    fwd["library"] = t["fwd_train_d512"]["library"]
-    fwd["serving_prefill"]["library"] = t["fwd_serve_prefill_d512"]["library"]
-    out = [fwd]
-    for name in ("attn_bwd_dkv", "attn_bwd_dq"):
-        out.append(entry(f"{name}[wide,d512]", WIDE_SOURCE, BWD_REPLACES[name], train[name],
-                         t["bwd_train_d512"][name], built_from=WIDE_BUILDS["attn_bwd"]))
-    for kind in ("bf16", "int8"):
-        out.append(entry(f"paged_decode[wide,d512,{kind}]", WIDE_SOURCE, DECODE_REPLACES,
-                         serve[f"paged_decode_{kind}"], t[f"decode_d512_{kind}_B8_ctx2048"],
-                         built_from=WIDE_BUILDS["paged_decode"]))
-        out.append(entry(f"paged_verify[wide,d512,{kind}]", WIDE_SOURCE, VERIFY_REPLACES,
-                         serve[f"paged_verify_{kind}"], t[f"verify_d512_{kind}_T256_ctx2048"],
-                         built_from=WIDE_BUILDS["paged_verify"]))
+    out = []
+    for d, tag, decode_build in ((512, "wide,d512", "paged_decode"),
+                                 (2048, "wide_chunk,d2048", "paged_decode_chunk")):
+        serve, train = later[f"serve_d{d}"]["launches"], later[f"train_d{d}"]["launches"]
+        fwd = entry(f"attn_fwd[{tag}]", WIDE_SOURCE, FWD_REPLACES,
+                    serve["attn_fwd"] + train["attn_fwd"], t[f"fwd_train_d{d}"],
+                    built_from=WIDE_BUILDS["attn_fwd"])
+        fwd["device_ms"] = t[f"fwd_train_d{d}"]["device_ms"]
+        prefill = t[f"fwd_serve_prefill_d{d}"]
+        fwd["serving_prefill"] = {k: prefill[k] for k in ("ms", "device_ms", "plain_ms",
+                                                          "bound_ms", "library_ms", "library")}
+        fwd["library"] = t[f"fwd_train_d{d}"]["library"]
+        out.append(fwd)
+        for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+            out.append(entry(f"{name}[{tag}]", WIDE_SOURCE, BWD_REPLACES[name], train[name],
+                             t[f"bwd_train_d{d}"][name], built_from=WIDE_BUILDS["attn_bwd"]))
+        for kind in ("bf16", "int8"):
+            out.append(entry(f"paged_decode[{tag},{kind}]", WIDE_SOURCE, DECODE_REPLACES,
+                             serve[f"paged_decode_{kind}"], t[f"decode_d{d}_{kind}_B8_ctx2048"],
+                             built_from=WIDE_BUILDS[decode_build]))
+            out.append(entry(f"paged_verify[{tag},{kind}]", WIDE_SOURCE, VERIFY_REPLACES,
+                             serve[f"paged_verify_{kind}"],
+                             t[f"verify_d{d}_{kind}_T256_ctx2048"],
+                             built_from=WIDE_BUILDS["paged_verify"]))
     return out
 
 
 LATER_PHASES = ("serve_rolling", "serve_streaming", "native", "eval_gate", "encoder", "tune",
                 "bench", "golden", "parallel_attention", "parallel_decode", "train_mesh",
-                "serve_mesh", "dryrun", "examples", "wide_heads", "serve_d512", "train_d512")
+                "serve_mesh", "dryrun", "examples", "wide_heads", "serve_d512", "train_d512",
+                "serve_d2048", "train_d2048")
 
 
 def later_phases(dev, only=None):

@@ -1,4 +1,5 @@
-// Paged decode at pool head dims above 256 (multiples of 128 up to 1024):
+// Paged decode at pool head dims above 256, up to 1024 (above it
+// paged_decode_chunk.cu):
 // wide.cuh's split-KV kernel on asynchronous page copies, one instance a
 // pool kind and width, its key splits merged inside the launch by the last
 // CTA of each group.  wide.cuh says what it replaces and how it is built;
@@ -8,9 +9,9 @@
 #include "wide.cuh"
 
 // The C entry, with the arguments of paged_decode.cu's; D a multiple of 128
-// in (256, 1024].  Above one split, counters [B, Hkv, ceil(Hq / Hkv / 2)]
-// uint32, zero before the call and zero after it (no two calls may share
-// them at once).  Returns cudaGetLastError() after the launch.
+// in (256, 1024] (above it, paged_decode_chunk.cu).  Above one split,
+// counters [B, Hkv, ceil(Hq / Hkv / 2)] uint32, zero before the call and
+// zero after it (no two calls may share them at once).  Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode_wide(const void* q, int q_dtype, const void* k_pages,
     const void* v_pages, int kv_kind, const float* k_scales, const float* v_scales,
     const int* lengths, const int* page_table, void* o, float* lse, float* part_o,
@@ -18,7 +19,7 @@ extern "C" int paged_decode_wide(const void* q, int q_dtype, const void* k_pages
     int pages_per_seq, int D, int splits, float sm_scale, float softcap,
     const float* slopes, void* stream) {
   if (B <= 0 || Hq <= 0) return 0;
-  if (!wide_head_dim(D) || Hkv <= 0 || Hq % Hkv != 0 || q_dtype < 0 || q_dtype > 2 ||
+  if (!wide_cut_head_dim(D) || Hkv <= 0 || Hq % Hkv != 0 || q_dtype < 0 || q_dtype > 2 ||
       page_size <= 0 || (kv_kind == kI4 && page_size % 2) || pages_per_seq <= 0 ||
       splits <= 0 || splits > pages_per_seq ||
       (splits > 1 && (part_o == nullptr || part_lse == nullptr || counters == nullptr)) ||

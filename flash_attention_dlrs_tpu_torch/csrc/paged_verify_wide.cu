@@ -1,16 +1,18 @@
-// Paged multi-token verify at pool head dims above 256 (multiples of 128
-// up to 1024): wide.cuh's forward kernels over the T x G rows of a kv head,
-// keys gathered through the page table and converted exactly to q's dtype
+// Paged multi-token verify at pool head dims above 256 (every multiple of
+// 128): wide.cuh's forward kernels over the T x G rows of a kv head, keys
+// gathered through the page table and converted exactly to q's dtype
 // (payloads unscaled; K scales on S, V scales on P), q pre-scaled in its
-// dtype, on the routes "wide_wgmma" (bf16 / fp16 q, value pools of q's
-// dtype or quantized pools: warpgroup products, scores once a key tile)
-// and "wide_fp32" (fp32 q, any pool, column-chunked); its key splits merged
-// by wide_combine_kernel in the same C entry.
+// dtype, on the routes "wide_wgmma" (bf16 / fp16 q up to 1024, value pools
+// of q's dtype or quantized pools: warpgroup products, scores once a key
+// tile), "wide_chunk" (the same q and pools above 1024, column-chunked on
+// mma.sync) and "wide_fp32" (fp32 q, any pool, column-chunked); its key
+// splits merged by wide_combine_kernel in the same C entry.
 
 #include "wide.cuh"
 
 // The C entry, with the arguments of paged_verify.cu's; D a multiple of 128
-// in (256, 1024].  Returns cudaGetLastError() after the launches.
+// above 256 (at most 1024 on kRouteWideWgmma, above it on kRouteWideChunk).
+// Returns cudaGetLastError() after the launches.
 extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages,
     const void* v_pages, int kv_kind, const float* k_scales, const float* v_scales,
     const int* lengths, const int* page_table, void* o, float* part_o, float* part_lse,
@@ -23,7 +25,9 @@ extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages
       pages_per_seq <= 0 || splits <= 0 || splits > pages_per_seq ||
       (splits > 1 && (part_o == nullptr || part_lse == nullptr)) ||
       (!value_pool && (k_scales == nullptr || v_scales == nullptr)) ||
-      (route == kRouteWideWgmma && value_pool && kv_kind != q_dtype))
+      (route != kRouteWideF32 && value_pool && kv_kind != q_dtype) ||
+      (route == kRouteWideWgmma && !wide_cut_head_dim(D)) ||
+      (route == kRouteWideChunk && !chunked_head_dim(D)))
     return int(cudaErrorInvalidValue);
   WideArgs a{};
   a.q = q; a.k = k_pages; a.v = v_pages; a.o = o;
@@ -38,9 +42,12 @@ extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages
   a.stream = static_cast<cudaStream_t>(stream);
   const int G = Hq / Hkv;
   int err;
+  const dim3 chunks((T * G + WROWS - 1) / WROWS, (D / WCOLS) * splits, B * Hkv);
   if (route == kRouteWideF32 && q_dtype == 0) {
-    err = launch_wide_f32<true>(
-        a, dim3((T * G + WROWS - 1) / WROWS, (D / WCOLS) * splits, B * Hkv));
+    err = launch_wide_chunk<float, true>(a, chunks);
+  } else if (route == kRouteWideChunk && (q_dtype == 1 || q_dtype == 2)) {
+    err = q_dtype == 1 ? launch_wide_chunk<__nv_bfloat16, true>(a, chunks)
+                       : launch_wide_chunk<__half, true>(a, chunks);
   } else if (route == kRouteWideWgmma && (q_dtype == 1 || q_dtype == 2)) {
     // Value pools whose pages hold whole tiles are read by TMA boxes of a
     // 2-D map over the pool viewed as [Hkv * P * page_size, D].
@@ -68,10 +75,13 @@ extern "C" int paged_verify_wide(const void* q, int q_dtype, const void* k_pages
 }
 
 // Dynamic shared memory of the kernel for a q dtype code (0 fp32: the
-// column-chunked kernel; else the wide_wgmma kernel at pool head dim D), in
-// bytes; 0 for a head dim no kernel takes.
+// column-chunked kernel; else at pool head dim D the wide_wgmma kernel, or
+// above 1024 the 16-bit column-chunked one), in bytes; 0 for a head dim no
+// kernel takes.
 extern "C" int paged_verify_wide_shared_bytes(int dtype, int D) {
-  if (dtype == 0) return int(WideLayout::BYTES);
+  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  if (chunked_head_dim(D))
+    return int(dtype == 1 ? WideLayout<__nv_bfloat16>::BYTES : WideLayout<__half>::BYTES);
   return wide_wgmma_smem(D, false, true);
 }
 

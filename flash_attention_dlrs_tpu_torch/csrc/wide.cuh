@@ -31,8 +31,10 @@
 // whole head row of a tile in shared memory or registers.  At d 512 a
 // 128-row bf16 Q tile alone is 128 KB of the 227 KB, and a 64 x 512 fp32
 // O accumulator 256 registers a thread of a warpgroup; at d 1024 a 64-row
-// O is all 256 KB of an SM's registers.  So D is a runtime width here (a
-// multiple of 128, at most 1024) and the work is cut by columns.
+// O is all 256 KB of an SM's registers.  So D is a runtime width here (any
+// multiple of 128) and the work is cut by columns: among the owners of a
+// CTA or cluster to 1024 (the wgmma kernels), or one 128-column chunk of
+// the output a CTA (the column-chunked kernels, any width).
 //
 // The 16-bit forward and verify ("wide_wgmma").  Bound on this card by
 // operations: at the bench models' d 512 shapes 4 d flops per visible
@@ -116,11 +118,18 @@
 //    every owner repeats on the whole tile; the products are the smaller
 //    part (PERF.md).
 //
-// The fp32 forward, verify and sweeps ("wide_fp32"):
+// The column-chunked forward, verify and sweeps: fp32 at every wide width
+// ("wide_fp32"), bf16 / fp16 above 1024 ("wide_chunk"), where the cluster
+// cuts end (a dK/dV owner of 128 columns a CTA, 8 CTAs at 1024, and every
+// CTA holds every owner's partials: no cut reaches 1152).  No width cap:
 //  * Products over the head dim (S = Q K^T, dP = dO V^T and their
 //    transposes) stream both operands through shared memory in chunks of
-//    128 bytes a row (32 columns), double-buffered by cp.async, into a
-//    warp's 16 x 64 block of scores, in true fp32 on the CUDA cores.
+//    128 bytes a row (32 fp32 or 64 16-bit columns), double-buffered by
+//    cp.async, into a warp's 16 x 64 block of scores: in true fp32 on the
+//    CUDA cores, or on mma.sync m16n8k16 with fp32 accumulation (P and dS
+//    rounded to T for the update products, as the wgmma kernels round
+//    them).  Every CTA sums the chunks in column order, so every CTA that
+//    recomputes a tile's scores gets the same bits.
 //  * Each CTA owns 64 rows and one 128-column chunk of its output (O, dQ,
 //    dK or dV): the update product multiplies the 64-key tile of
 //    probabilities (or dS) into that chunk only.  Scores are recomputed
@@ -184,34 +193,51 @@ constexpr int WROWS = 64;       // rows a CTA owns (q rows; keys in the dK/dV sw
 constexpr int WKEYS = 64;       // rows of a streamed tile (keys; q rows in the dK/dV sweep)
 constexpr int WCOLS = 128;      // output columns a CTA owns
 constexpr int WTHREADS = 128;   // 4 warps of 16 rows
-constexpr int WIDE_MAX_D = 1024;
+// The widest head dim the cluster cuts of the 16-bit wgmma kernels and the
+// register-sized decode take; above it the column-chunked kernels carry
+// every dtype (route "wide_chunk" for bf16 / fp16).
+constexpr int WIDE_CUT_MAX_D = 1024;
 
 // Route codes of the wide C entries (ops/fwd_kernel.py ROUTE_CODES,
-// ops/decode.py VERIFY_ROUTE_CODES): fp32 on the CUDA cores, and the
-// 16-bit forward, verify and sweeps on wgmma.
-constexpr int kRouteWideF32 = 2, kRouteWideWgmma = 4;
+// ops/decode.py VERIFY_ROUTE_CODES): fp32 column-chunked on the CUDA cores,
+// the 16-bit forward, verify and sweeps on wgmma (to 1024), and the 16-bit
+// ones column-chunked on mma.sync (above 1024).
+constexpr int kRouteWideF32 = 2, kRouteWideWgmma = 4, kRouteWideChunk = 5;
 
-// Whether D is a head dim of these kernels.
+// Whether D is a head dim of these kernels: any multiple of 128 above 256.
 __host__ __device__ constexpr bool wide_head_dim(int D) {
-  return D > 256 && D <= WIDE_MAX_D && D % WCOLS == 0;
+  return D > 256 && D % WCOLS == 0;
 }
 
-// Shared memory of the column-chunked fp32 kernels, in bytes from an
-// aligned base: two stages of each streamed operand (64 rows x 128 bytes,
-// padded), the update tile (64 rows x 128 columns), P of each warp (the
-// update reads it back), six vectors of 64 (segment ids, scales, lse, D)
-// and the paged tile's stored-row offsets.
+// Whether D is a head dim of the wgmma cuts and the register-sized decode.
+__host__ __device__ constexpr bool wide_cut_head_dim(int D) {
+  return wide_head_dim(D) && D <= WIDE_CUT_MAX_D;
+}
+
+// Whether D is above them: every kernel column-chunked ("wide_chunk").
+__host__ __device__ constexpr bool chunked_head_dim(int D) {
+  return wide_head_dim(D) && D > WIDE_CUT_MAX_D;
+}
+
+// Shared memory of the column-chunked kernels, in bytes from an aligned
+// base, whatever the head dim: two stages of each streamed operand (64 rows
+// x 128 bytes, padded), the update tile (64 rows x 128 columns), fp32 P of
+// each warp (the fp32 update reads it back; the 16-bit one keeps P in
+// registers), six vectors of 64 (segment ids, scales, lse, D) and the paged
+// tile's stored-row offsets (geometry.py wide_chunk_smem_bytes).
+template <typename T>
 struct WideLayout {
-  static constexpr int KC = 32;         // columns of a streamed chunk
-  static constexpr int SA = KC + 4;     // its row stride
-  static constexpr int ST = WCOLS + 4;  // the update tile's row stride
-  static constexpr int PS = WKEYS + 4;  // P's row stride
-  static constexpr size_t CHUNK = size_t(WROWS) * SA * 4;
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int KC = 128 / int(sizeof(T));          // columns of a streamed chunk
+  static constexpr int SA = KC + 16 / int(sizeof(T));      // its row stride
+  static constexpr int ST = WCOLS + 16 / int(sizeof(T));   // the update tile's row stride
+  static constexpr int PS = WKEYS + 4;                     // fp32 P's row stride
+  static constexpr size_t CHUNK = size_t(WROWS) * SA * sizeof(T);
   static constexpr size_t A_OFF = 0;
   static constexpr size_t B_OFF = 2 * CHUNK;
   static constexpr size_t T_OFF = 4 * CHUNK;
-  static constexpr size_t P_OFF = T_OFF + size_t(WKEYS) * ST * 4;
-  static constexpr size_t VEC_OFF = P_OFF + size_t(4) * 16 * PS * 4;
+  static constexpr size_t P_OFF = T_OFF + size_t(WKEYS) * ST * sizeof(T);
+  static constexpr size_t VEC_OFF = P_OFF + (F32 ? size_t(4) * 16 * PS * 4 : 0);
   static constexpr size_t ROW_OFF = VEC_OFF + 6 * 64 * 4;
   static constexpr size_t BYTES = ROW_OFF + 64 * 8 + 64 * 4;
 };
@@ -225,27 +251,40 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Rows [0, 64) x columns [c0, c0 + W) of an fp32 row source into a shared
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
+
+// Rows [0, 64) x columns [c0, c0 + W) of a row source of T into a shared
 // tile of row stride S, 16 bytes a cp.async; `row(r)` is the row's first
 // element, or null for a row of zeros.  `any` is a valid address the
 // zero-filled copies name.
-template <int W, int S, typename RowFn>
-__device__ __forceinline__ void stage_async(float* dst, RowFn row, int c0, const void* any) {
-  constexpr int PER_ROW = W / 4;
+template <typename T, int W, int S, typename RowFn>
+__device__ __forceinline__ void stage_async(T* dst, RowFn row, int c0, const void* any) {
+  constexpr int EPP = 16 / int(sizeof(T));
+  constexpr int PER_ROW = W / EPP;
   for (int i = threadIdx.x; i < WROWS * PER_ROW; i += WTHREADS) {
     const int r = i / PER_ROW, p = i % PER_ROW;
-    const float* src = row(r);
-    cp_async16(sm90::smem_u32(dst + r * S + p * 4), src ? src + c0 + p * 4 : any, src ? 16 : 0);
+    const T* src = row(r);
+    cp_async16(sm90::smem_u32(dst + r * S + p * EPP), src ? src + c0 + p * EPP : any,
+               src ? 16 : 0);
   }
 }
 
-// The same into an fp32 tile from rows of any stored kind (paged.cuh
-// PoolKind; fp8 V of the forward as kE4M3 / kE5M2), converted exactly,
-// payloads unscaled: row r starts at element `off[r]` of `base` (-1:
-// zeros), int4 rows read their high nibbles where `hi[r]`.  Synchronous: a
-// __syncthreads() makes the tile visible.
-template <int W, int S>
-__device__ __forceinline__ void stage_convert(float* dst, const void* base, int kind,
+// The same from rows of any stored kind (paged.cuh PoolKind; fp8 V of the
+// forward as kE4M3 / kE5M2), converted exactly to T, payloads unscaled:
+// row r starts at element `off[r]` of `base` (-1: zeros), int4 rows read
+// their high nibbles where `hi[r]`.  Synchronous: a __syncthreads() makes
+// the tile visible.
+template <typename T, int W, int S>
+__device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind,
                                               const long long* off, const int* hi, int c0) {
   const int eb = stored_bytes(kind);
   const int epp = 16 / eb;
@@ -253,7 +292,7 @@ __device__ __forceinline__ void stage_convert(float* dst, const void* base, int 
   const uint8_t* bytes = static_cast<const uint8_t*>(base);
   for (int i = threadIdx.x; i < WROWS * per_row; i += WTHREADS) {
     const int r = i / per_row, p = i % per_row;
-    float* out = dst + r * S + p * epp;
+    T* out = dst + r * S + p * epp;
     float f[16];
     if (off[r] < 0) {
 #pragma unroll
@@ -263,71 +302,97 @@ __device__ __forceinline__ void stage_convert(float* dst, const void* base, int 
           bytes + size_t(off[r] + c0 + p * epp) * eb);
       chunk_values(kind, raw, hi[r], f);
     }
-    for (int e = 0; e < epp; ++e) out[e] = f[e];
+    for (int e = 0; e < epp; ++e) out[e] = from_float<T>(f[e]);
   }
 }
 
-// Rows of fp32 q times `scale` (the paged kernels pre-scale q in its own
-// dtype, as the TPU kernel does); null rows give zeros.
-template <int W, int S, typename RowFn>
-__device__ __forceinline__ void stage_scaled(float* dst, RowFn row, int c0, float scale) {
-  constexpr int PER_ROW = W / 4;
+// Rows of T times `scale`, rounded to T (the paged kernels pre-scale q in
+// its own dtype, as the TPU kernel does); null rows give zeros.
+template <typename T, int W, int S, typename RowFn>
+__device__ __forceinline__ void stage_scaled(T* dst, RowFn row, int c0, float scale) {
+  constexpr int EPP = 16 / int(sizeof(T));
+  constexpr int PER_ROW = W / EPP;
   for (int i = threadIdx.x; i < WROWS * PER_ROW; i += WTHREADS) {
     const int r = i / PER_ROW, p = i % PER_ROW;
-    const float* src = row(r);
-    const float4 v = src == nullptr ? make_float4(0.f, 0.f, 0.f, 0.f)
-                                    : *reinterpret_cast<const float4*>(src + c0 + p * 4);
-    *reinterpret_cast<float4*>(dst + r * S + p * 4) =
-        make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+    const T* src = row(r);
+    T* out = dst + r * S + p * EPP;
+    if (src == nullptr) {
+#pragma unroll
+      for (int e = 0; e < EPP; ++e) out[e] = from_float<T>(0.f);
+      continue;
+    }
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + c0 + p * EPP);
+    const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int e = 0; e < EPP; ++e) out[e] = from_float<T>(to_float(v[e]) * scale);
   }
 }
 
 // A warp's 16 x 64 block of scores from one staged chunk: rows
 // [16 warp, 16 warp + 16) of sA against the 64 rows of sB, over the chunk's
-// KC columns, in true fp32, added to s.  Element (j, e) of s is row lane/4
-// (+8 for e >= 2) and column 8 j + 2 (lane % 4) + (e & 1) of the block
-// (the mma.sync accumulator layout).
-__device__ __forceinline__ void score_chunk(float (&s)[8][4], const float* sA, const float* sB,
+// KC columns, added to s.  Element (j, e) of s is row lane/4 (+8 for e >= 2)
+// and column 8 j + 2 (lane % 4) + (e & 1) of the block: the mma.sync
+// accumulator layout (16-bit, fp32 accumulate), which fp32 keeps in true
+// fp32 on the CUDA cores.
+template <typename T>
+__device__ __forceinline__ void score_chunk(float (&s)[8][4], const T* sA, const T* sB,
                                             int warp, int lane) {
-  using L = WideLayout;
-  const float* a0 = sA + (warp * 16 + lane / 4) * L::SA;
-  const float* a1 = a0 + 8 * L::SA;
-  const int cb = 2 * (lane % 4);
+  using L = WideLayout<T>;
+  if constexpr (L::F32) {
+    const float* a0 = sA + (warp * 16 + lane / 4) * L::SA;
+    const float* a1 = a0 + 8 * L::SA;
+    const int cb = 2 * (lane % 4);
 #pragma unroll 2
-  for (int k = 0; k < L::KC; k += 4) {
-    const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
-    const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
+    for (int k = 0; k < L::KC; k += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
+      const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float4 y = *reinterpret_cast<const float4*>(sB + (8 * j + cb + e) * L::SA + k);
-        float t0 = s[j][e], t1 = s[j][2 + e];
-        t0 = fmaf(x0.x, y.x, t0); t0 = fmaf(x0.y, y.y, t0);
-        t0 = fmaf(x0.z, y.z, t0); t0 = fmaf(x0.w, y.w, t0);
-        t1 = fmaf(x1.x, y.x, t1); t1 = fmaf(x1.y, y.y, t1);
-        t1 = fmaf(x1.z, y.z, t1); t1 = fmaf(x1.w, y.w, t1);
-        s[j][e] = t0;
-        s[j][2 + e] = t1;
+        for (int e = 0; e < 2; ++e) {
+          const float4 y = *reinterpret_cast<const float4*>(sB + (8 * j + cb + e) * L::SA + k);
+          float t0 = s[j][e], t1 = s[j][2 + e];
+          t0 = fmaf(x0.x, y.x, t0); t0 = fmaf(x0.y, y.y, t0);
+          t0 = fmaf(x0.z, y.z, t0); t0 = fmaf(x0.w, y.w, t0);
+          t1 = fmaf(x1.x, y.x, t1); t1 = fmaf(x1.y, y.y, t1);
+          t1 = fmaf(x1.z, y.z, t1); t1 = fmaf(x1.w, y.w, t1);
+          s[j][e] = t0;
+          s[j][2 + e] = t1;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < L::KC / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, a_frag<L::SA>(sA, warp * 16, kk * 16, lane));
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t b[4];
+        ldsm_x4(b, b_frag<L::SA>(sB, jj * 16, kk * 16, lane));
+        Mma<T>::run(s[2 * jj], a, b[0], b[1]);
+        Mma<T>::run(s[2 * jj + 1], a, b[2], b[3]);
       }
     }
   }
 }
 
 // s = the warp's 16 x 64 block of A B^T over `cols` columns of the head dim,
-// streamed in chunks through two stages: `load_a(dst, c0)` / `load_b(dst,
-// c0)` stage a chunk (cp.async ones are committed here; synchronous ones
-// are made visible by the barrier).  Every thread of the CTA calls it.
-template <typename LoadA, typename LoadB>
-__device__ __forceinline__ void scores(float (&s)[8][4], float* sA, float* sB, LoadA load_a,
+// streamed in chunks through two stages, always in column order, so every
+// CTA that recomputes a tile's scores gets the same bits: `load_a(dst, c0)`
+// / `load_b(dst, c0)` stage a chunk (cp.async ones are committed here;
+// synchronous ones are made visible by the barrier).  Every thread of the
+// CTA calls it.
+template <typename T, typename LoadA, typename LoadB>
+__device__ __forceinline__ void scores(float (&s)[8][4], T* sA, T* sB, LoadA load_a,
                                        LoadB load_b, int cols, int warp, int lane) {
-  using L = WideLayout;
+  using L = WideLayout<T>;
   constexpr int STAGE = WROWS * L::SA;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  const int nc = cols / L::KC;
+  const int nc = cols / L::KC;  // the head dim's slices, every one summed
   if (nc <= 0) return;
   load_a(sA, 0);
   load_b(sB, 0);
@@ -349,34 +414,62 @@ __device__ __forceinline__ void scores(float (&s)[8][4], float* sA, float* sB, L
   }
 }
 
-// o (the warp's 16 rows x 128 columns) += p (its 16 x 64 block) times the
-// staged 64 x 128 tile, in fp32 through the warp's rows of sP (row stride
-// PS).
+// o (the warp's 16 rows x 128 columns) += p (its 16 x 64 block, fp32) times
+// the staged 64 x 128 tile: in 16 bits p rounded to T on the tensor cores;
+// in fp32 through the warp's rows of sP (row stride PS).
+template <typename T>
 __device__ __forceinline__ void update_product(float (&o)[16][4], const float (&p)[8][4],
-                                               const float* sT, float* sPw, int lane) {
-  using L = WideLayout;
-  const int r = lane / 4, cb = 2 * (lane % 4);
+                                               const T* sT, float* sPw, int lane) {
+  using L = WideLayout<T>;
+  if constexpr (L::F32) {
+    const int r = lane / 4, cb = 2 * (lane % 4);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    sPw[r * L::PS + 8 * j + cb] = p[j][0];
-    sPw[r * L::PS + 8 * j + cb + 1] = p[j][1];
-    sPw[(r + 8) * L::PS + 8 * j + cb] = p[j][2];
-    sPw[(r + 8) * L::PS + 8 * j + cb + 1] = p[j][3];
-  }
-  __syncwarp();
+    for (int j = 0; j < 8; ++j) {
+      sPw[r * L::PS + 8 * j + cb] = p[j][0];
+      sPw[r * L::PS + 8 * j + cb + 1] = p[j][1];
+      sPw[(r + 8) * L::PS + 8 * j + cb] = p[j][2];
+      sPw[(r + 8) * L::PS + 8 * j + cb + 1] = p[j][3];
+    }
+    __syncwarp();
 #pragma unroll 2
-  for (int k = 0; k < WKEYS; ++k) {
-    const float p0 = sPw[r * L::PS + k], p1 = sPw[(r + 8) * L::PS + k];
+    for (int k = 0; k < WKEYS; ++k) {
+      const float p0 = sPw[r * L::PS + k], p1 = sPw[(r + 8) * L::PS + k];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const float2 v = *reinterpret_cast<const float2*>(sT + k * L::ST + 8 * j + cb);
-      o[j][0] = fmaf(p0, v.x, o[j][0]);
-      o[j][1] = fmaf(p0, v.y, o[j][1]);
-      o[j][2] = fmaf(p1, v.x, o[j][2]);
-      o[j][3] = fmaf(p1, v.y, o[j][3]);
+      for (int j = 0; j < 16; ++j) {
+        const float2 v = *reinterpret_cast<const float2*>(sT + k * L::ST + 8 * j + cb);
+        o[j][0] = fmaf(p0, v.x, o[j][0]);
+        o[j][1] = fmaf(p0, v.y, o[j][1]);
+        o[j][2] = fmaf(p1, v.x, o[j][2]);
+        o[j][3] = fmaf(p1, v.y, o[j][3]);
+      }
+    }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < WKEYS / 16; ++kk) {
+      const uint32_t a[4] = {Mma<T>::pack(p[2 * kk][0], p[2 * kk][1]),
+                             Mma<T>::pack(p[2 * kk][2], p[2 * kk][3]),
+                             Mma<T>::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                             Mma<T>::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int jj = 0; jj < WCOLS / 16; ++jj) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, bt_frag<L::ST>(sT, kk * 16, jj * 16, lane));
+        Mma<T>::run(o[2 * jj], a, b[0], b[1]);
+        Mma<T>::run(o[2 * jj + 1], a, b[2], b[3]);
+      }
     }
   }
-  __syncwarp();
+}
+
+// A pair of fp32 values stored as T at `p` (two consecutive elements).
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float x, float y) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float2*>(p) = make_float2(x, y);
+  } else {
+    *reinterpret_cast<uint32_t*>(p) = Mma<T>::pack(x, y);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -402,15 +495,16 @@ struct WideArgs {
   cudaStream_t stream;
 };
 
-// The fp32 forward (PAGED false) and paged verify (PAGED true), one CTA per
-// (64-row tile, output column chunk [and key split], batch x head).  The
-// forward's rows are one q head's; verify's are the T x G (token, q head)
-// rows of a kv head, row r = t * G + g, as the TPU kernel folds them.
-template <bool PAGED>
+// The column-chunked forward (PAGED false) and paged verify (PAGED true),
+// one CTA per (64-row tile, output column chunk [and key split], batch x
+// head): fp32 ("wide_fp32") at every wide head dim, bf16 / fp16
+// ("wide_chunk") above the wgmma cuts.  The forward's rows are one q head's;
+// verify's are the T x G (token, q head) rows of a kv head, row r = t * G +
+// g, as the TPU kernel folds them.
+template <typename T, bool PAGED>
 __global__ void __launch_bounds__(WTHREADS)
-wide_fwd_f32_kernel(const WideArgs a) {
-  using T = float;
-  using L = WideLayout;
+wide_fwd_chunk_kernel(const WideArgs a) {
+  using L = WideLayout<T>;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
   T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
@@ -534,24 +628,26 @@ wide_fwd_f32_kernel(const WideArgs a) {
       return n0 + r < a.Nkv ? kT + kv_base + size_t(n0 + r) * D : nullptr;
     };
     if (!PAGED && !v8) {
-      stage_async<WCOLS, L::ST>(
+      stage_async<T, WCOLS, L::ST>(
           sT, [&](int r) { return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr; },
           c0, a.v);
     }
     float s[8][4];
     if constexpr (PAGED) {
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_scaled<L::KC, L::SA>(dst, q_row, c, a.sm_scale); },
-             [&](T* dst, int c) { stage_convert<L::KC, L::SA>(dst, a.k, a.kind, sOff, sHi, c); },
+             [&](T* dst, int c) { stage_scaled<T, L::KC, L::SA>(dst, q_row, c, a.sm_scale); },
+             [&](T* dst, int c) {
+               stage_convert<T, L::KC, L::SA>(dst, a.k, a.kind, sOff, sHi, c);
+             },
              score_cols, warp, lane);
-      stage_convert<WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
+      stage_convert<T, WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
     } else {
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); },
-             [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); },
+             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
+             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
              score_cols, warp, lane);
-      if (v8) stage_convert<WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
-                                             sOff, sHi, c0);
+      if (v8) stage_convert<T, WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
+                                                sOff, sHi, c0);
     }
 
     // Scores as the plain versions make them; masked -inf.
@@ -647,8 +743,7 @@ wide_fwd_f32_kernel(const WideArgs a) {
     } else {
       T* po = static_cast<T*>(a.o) + out_row * D + cb;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<float2*>(po + 8 * j) = make_float2(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+      for (int j = 0; j < 16; ++j) store_pair(po + 8 * j, o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
       if (!PAGED && cc == 0 && lane % 4 == 0)
         a.lse[out_row] = l > 0.f ? m_i[i] + logf(l) : kMaskValue;
     }
@@ -1453,16 +1548,17 @@ struct WideBwdArgs {
   cudaStream_t stream;
 };
 
-// The fp32 dK/dV sweep ("wide_fp32"): one CTA per (64-key tile, output
-// column chunk and pass, batch x kv head).  Pass 0 keeps dV += (P o M)^T
+// The column-chunked dK/dV sweep (fp32 "wide_fp32", bf16 / fp16
+// "wide_chunk"): one CTA per (64-key tile, output column chunk and pass,
+// batch x kv head).  Pass 0 keeps dV += (P o M)^T
 // dO, pass 1 dK += dS^T Q (times sm_scale at the end), each for its 128
 // columns, over the q heads of the GQA group and, in order, the q tiles
 // that see the keys.  The warp's rows are keys: S^T = K Q^T and dP^T =
 // V dO^T.
+template <typename T>
 __global__ void __launch_bounds__(WTHREADS)
-wide_bwd_dkv_f32_kernel(const WideBwdArgs a) {
-  using T = float;
-  using L = WideLayout;
+wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
+  using L = WideLayout<T>;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
   T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
@@ -1534,18 +1630,19 @@ wide_bwd_dkv_f32_kernel(const WideBwdArgs a) {
         return m0 + r < a.Nq ? dT + (q_base + m0 + r) * D : nullptr;
       };
       if (pass_dk) {
-        stage_async<WCOLS, L::ST>(sT, q_row, c0, a.q);
+        stage_async<T, WCOLS, L::ST>(sT, q_row, c0, a.q);
       } else {
-        stage_async<WCOLS, L::ST>(sT, do_row, c0, a.q);
+        stage_async<T, WCOLS, L::ST>(sT, do_row, c0, a.q);
       }
       float s[8][4], dp[8][4];
-      scores(s, sA, sB, [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); },
-             [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); }, D, warp,
+      scores(s, sA, sB,
+             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
+             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); }, D, warp,
              lane);
       if (pass_dk) {
         scores(dp, sA, sB,
-               [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, v_row, c, a.v); },
-               [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, do_row, c, a.q); }, D,
+               [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, v_row, c, a.v); },
+               [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, do_row, c, a.q); }, D,
                warp, lane);
       }
 #pragma unroll
@@ -1587,18 +1684,17 @@ wide_bwd_dkv_f32_kernel(const WideBwdArgs a) {
     T* po = out + kv_base + size_t(key[i]) * D + c0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<float2*>(po + 8 * j) =
-          make_float2(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+      store_pair(po + 8 * j, acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
   }
 }
 
-// The fp32 dQ sweep ("wide_fp32"): one CTA per (64-row q tile, output
+// The column-chunked dQ sweep ("wide_fp32", "wide_chunk"): one CTA per (64-row q tile, output
 // column chunk, batch x q head), walking the key tiles it sees in order;
 // dQ += dS K for its 128 columns, times sm_scale at the end.
+template <typename T>
 __global__ void __launch_bounds__(WTHREADS)
-wide_bwd_dq_f32_kernel(const WideBwdArgs a) {
-  using T = float;
-  using L = WideLayout;
+wide_bwd_dq_chunk_kernel(const WideBwdArgs a) {
+  using L = WideLayout<T>;
   extern __shared__ __align__(128) unsigned char wsmem[];
   T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
   T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
@@ -1658,13 +1754,15 @@ wide_bwd_dq_f32_kernel(const WideBwdArgs a) {
     auto v_row = [&](int r) -> const T* {
       return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr;
     };
-    stage_async<WCOLS, L::ST>(sT, k_row, c0, a.k);
+    stage_async<T, WCOLS, L::ST>(sT, k_row, c0, a.k);
     float s[8][4], dp[8][4];
-    scores(s, sA, sB, [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); },
-           [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); }, D, warp,
+    scores(s, sA, sB,
+           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
+           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); }, D, warp,
            lane);
-    scores(dp, sA, sB, [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, do_row, c, a.q); },
-           [&](T* dst, int c) { stage_async<L::KC, L::SA>(dst, v_row, c, a.v); }, D, warp,
+    scores(dp, sA, sB,
+           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, do_row, c, a.q); },
+           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, v_row, c, a.v); }, D, warp,
            lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1698,26 +1796,21 @@ wide_bwd_dq_f32_kernel(const WideBwdArgs a) {
     T* po = static_cast<T*>(a.dq) + (q_base + row[i]) * D + c0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<float2*>(po + 8 * j) =
-          make_float2(acc[j][2 * i] * a.sm_scale, acc[j][2 * i + 1] * a.sm_scale);
+      store_pair(po + 8 * j, acc[j][2 * i] * a.sm_scale, acc[j][2 * i + 1] * a.sm_scale);
   }
 }
 
-inline int launch_wide_bwd_f32(const WideBwdArgs& a, bool dkv) {
-  constexpr size_t smem = WideLayout::BYTES;
-  if (dkv) {
-    cudaError_t err = cudaFuncSetAttribute(wide_bwd_dkv_f32_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    dim3 grid((a.Nkv + WROWS - 1) / WROWS, 2 * (a.D / WCOLS), a.B * a.Hkv);
-    wide_bwd_dkv_f32_kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(wide_bwd_dq_f32_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    dim3 grid((a.Nq + WROWS - 1) / WROWS, a.D / WCOLS, a.B * a.Hq);
-    wide_bwd_dq_f32_kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
-  }
+// Launches a column-chunked sweep (`dkv`: dK/dV, else dQ).
+template <typename T>
+int launch_wide_bwd_chunk(const WideBwdArgs& a, bool dkv) {
+  constexpr size_t smem = WideLayout<T>::BYTES;
+  const auto kernel = dkv ? wide_bwd_dkv_chunk_kernel<T> : wide_bwd_dq_chunk_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid = dkv ? dim3((a.Nkv + WROWS - 1) / WROWS, 2 * (a.D / WCOLS), a.B * a.Hkv)
+                        : dim3((a.Nq + WROWS - 1) / WROWS, a.D / WCOLS, a.B * a.Hq);
+  kernel<<<grid, WTHREADS, smem, a.stream>>>(a);
   return int(cudaGetLastError());
 }
 
@@ -2628,7 +2721,7 @@ struct WdLayout {
   static constexpr uint32_t L_OFF = M_OFF + WD_WARPS * WD_HEADS * 4;
   static constexpr uint32_t BAR_OFF = (L_OFF + WD_WARPS * WD_HEADS * 4 + 7) & ~7u;
   static constexpr size_t BYTES = BAR_OFF + 16 * STAGES;
-  static_assert(NB >= 3 && NB <= WIDE_MAX_D / WCOLS, "a wide head dim");
+  static_assert(NB >= 3 && NB <= WIDE_CUT_MAX_D / WCOLS, "a wide head dim");
   static_assert(R >= 1 && TILE % WD_WARPS == 0 && LB % CB == 0 && (EB > 1 || VEC % 4 == 0),
                 "a lane's share of a row is whole reads");
   static_assert(STAGES >= 2, "a ring of at least two stages");
@@ -3121,11 +3214,11 @@ inline int wide_decode_smem(int kv_kind, int D) {
 }
 
 
-// Launches the fp32 forward or verify over `grid`.
-template <bool PAGED>
-int launch_wide_f32(const WideArgs& a, dim3 grid) {
-  auto kernel = wide_fwd_f32_kernel<PAGED>;
-  constexpr size_t smem = WideLayout::BYTES;
+// Launches the column-chunked forward or verify over `grid`.
+template <typename T, bool PAGED>
+int launch_wide_chunk(const WideArgs& a, dim3 grid) {
+  auto kernel = wide_fwd_chunk_kernel<T, PAGED>;
+  constexpr size_t smem = WideLayout<T>::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -3193,6 +3286,375 @@ int launch_wide_wgmma(const WideArgs& a, const CUtensorMap& tm_q, const CUtensor
     case 1024: return launch_wgmma_cut<T, PAGED, 2, 2, 4>(a, tm_q, tm_k, tm_v, tma, grid);
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Paged decode above the cuts ("wide_chunk")
+// ---------------------------------------------------------------------------
+
+// wide_decode_kernel keeps a lane's columns of q and of O in registers,
+// sized by its 128-column blocks, to 1024 columns.  Above that this kernel
+// takes every width with the same arithmetic (paged_decode.cuh's: value
+// pools in fp32 with P unrounded; quantized pools q pre-scaled in its dtype,
+// int8 / int4 integer scores by __dp4a against per-row int8 q, fp8 an fp32
+// dot, K scales on S, V scales on P rounded to q's dtype), so that one plain
+// version holds it at every width, and reads each live K and V row once:
+//  * One CTA of 8 warps per (key split, kv head x pair of its q heads,
+//    sequence) walks its keys in tiles of 64.  Scores: q of both heads is
+//    staged in shared memory 1024 columns at a time (pre-scaled, or as int8
+//    words), each warp takes 8 keys of the tile and its lanes 4 columns of
+//    each 128, reading K rows coalesced from device memory; one shuffle
+//    tree a (key, head) then makes the score.
+//  * Softmax: one warp a head updates the running max and sum over the
+//    tile and writes P (times the V scale, rounded, where quantized).
+//  * O: the split's fp32 partial row in device memory (the call's split
+//    scratch) is the accumulator: each thread owns 4 columns of each 1024,
+//    rescales them once a tile and adds the tile's 64 V rows, read
+//    coalesced.  That costs 8 bytes of (mostly L2) traffic a column a tile
+//    against the tile's 64 rows of K and V, and no width outgrows it.
+//  * Splits merge in wide_combine_kernel, a second launch (one split: the
+//    last pass writes O and lse itself).
+constexpr int WDC_THREADS = 256;  // 8 warps
+constexpr int WDC_KEYS = 64;      // keys a tile
+constexpr int WDC_QCOLS = 1024;   // columns of q staged at once
+
+// Dynamic shared memory of the chunked decode, in bytes from an aligned
+// base, whatever the head dim or pool kind (geometry.py
+// wide_chunk_decode_smem_bytes): q of two heads over WDC_QCOLS columns
+// (fp32, or int8 words in the first quarter), the tile's scores and P of
+// two heads, its keys' stored-row offsets, int4 halves and K / V scales,
+// and each head's running max, row sum and rescale factor.
+struct WdcLayout {
+  static constexpr size_t Q_OFF = 0;
+  static constexpr size_t S_OFF = Q_OFF + size_t(WD_HEADS) * WDC_QCOLS * 4;
+  static constexpr size_t P_OFF = S_OFF + WD_HEADS * WDC_KEYS * 4;
+  static constexpr size_t ROW_OFF = P_OFF + WD_HEADS * WDC_KEYS * 4;
+  static constexpr size_t HI_OFF = ROW_OFF + WDC_KEYS * 8;
+  static constexpr size_t KS_OFF = HI_OFF + WDC_KEYS * 4;
+  static constexpr size_t VS_OFF = KS_OFF + WDC_KEYS * 4;
+  static constexpr size_t ST_OFF = VS_OFF + WDC_KEYS * 4;
+  static constexpr size_t BYTES = ST_OFF + 3 * WD_HEADS * 4;
+};
+
+// Four elements (columns c .. c + 3) of a stored row of KIND at element `at`
+// of `base`, as fp32 (exact).
+template <int KIND>
+__device__ __forceinline__ void values4(const void* base, size_t at, int hi, float (&f)[4]) {
+  if constexpr (KIND == kF32) {
+    const float4 x = *reinterpret_cast<const float4*>(static_cast<const float*>(base) + at);
+    f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+  } else if constexpr (KIND == kBF16 || KIND == kF16) {
+    const uint2 x = *reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(base) + at);
+    const uint32_t w[2] = {x.x, x.y};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint16_t u = uint16_t(w[c / 2] >> (16 * (c % 2)));
+      f[c] = KIND == kBF16 ? __bfloat162float(__ushort_as_bfloat16(u))
+                           : __half2float(__ushort_as_half(u));
+    }
+  } else {
+    word_values(KIND, *reinterpret_cast<const uint32_t*>(static_cast<const uint8_t*>(base) + at),
+                hi, f);
+  }
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(WDC_THREADS)
+wide_decode_chunk_kernel(const WideDecodeArgs a, const int D) {
+  constexpr bool QUANT = is_quantized(KIND);
+  constexpr bool INT = KIND == kI8 || KIND == kI4;
+  constexpr int WARPS = WDC_THREADS / 32;
+  using L = WdcLayout;
+  extern __shared__ __align__(16) unsigned char wdc_smem[];
+  float* sQ = reinterpret_cast<float*>(wdc_smem + L::Q_OFF);  // [WD_HEADS][WDC_QCOLS]
+  uint32_t* sQ8 = reinterpret_cast<uint32_t*>(sQ);              // [WD_HEADS][WDC_QCOLS / 4]
+  float* sS = reinterpret_cast<float*>(wdc_smem + L::S_OFF);  // [WD_HEADS][WDC_KEYS]
+  float* sP = reinterpret_cast<float*>(wdc_smem + L::P_OFF);
+  long long* sRow = reinterpret_cast<long long*>(wdc_smem + L::ROW_OFF);
+  int* sHi = reinterpret_cast<int*>(wdc_smem + L::HI_OFF);
+  float* sKs = reinterpret_cast<float*>(wdc_smem + L::KS_OFF);
+  float* sVs = reinterpret_cast<float*>(wdc_smem + L::VS_OFF);
+  float* sM = reinterpret_cast<float*>(wdc_smem + L::ST_OFF);
+  float* sL = sM + WD_HEADS;
+  float* sAlpha = sL + WD_HEADS;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.Hq / a.Hkv, ngroups = (G + WD_HEADS - 1) / WD_HEADS;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int kvh = blockIdx.y / ngroups, hg = blockIdx.y % ngroups;
+  const int nh = min(WD_HEADS, G - WD_HEADS * hg);
+  const int h0 = kvh * G + WD_HEADS * hg;
+  const int len = a.lengths[b];
+  const int max_len = a.pages_per_seq * a.page_size;
+  const int alen = min(max(len, 0), max_len);
+  const int lo = split * a.pages_per_split * a.page_size;
+  const int hi_pos = min(lo + a.pages_per_split * a.page_size, alen);
+  const int dt = a.q_dtype;
+  const size_t rows = size_t(a.B) * a.Hq;
+
+  // q element c of head hh as the score route takes it: pre-scaled in q's
+  // dtype where the pool is quantized.
+  auto q_at = [&](int hh, int c) {
+    const float x = load_as_float(a.q, (size_t(b) * a.Hq + h0 + hh) * D + c, dt);
+    return QUANT ? round_to(x * a.sm_scale, dt) : x;
+  };
+  // int8 / int4: each head's q row quantized as round(q 127 / max|q|).
+  float inv[WD_HEADS] = {0.f, 0.f}, qscale[WD_HEADS] = {1.f, 1.f};
+  if constexpr (INT) {
+    float qa[WD_HEADS] = {0.f, 0.f};
+    for (int c = tid; c < D; c += WDC_THREADS)
+#pragma unroll
+      for (int hh = 0; hh < WD_HEADS; ++hh)
+        if (hh < nh) qa[hh] = fmaxf(qa[hh], fabsf(q_at(hh, c)));
+#pragma unroll
+    for (int hh = 0; hh < WD_HEADS; ++hh) {
+#pragma unroll
+      for (int o2 = 16; o2 > 0; o2 >>= 1)
+        qa[hh] = fmaxf(qa[hh], __shfl_xor_sync(0xffffffffu, qa[hh], o2));
+      if (lane == 0) sS[hh * WDC_KEYS + warp] = qa[hh];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int hh = 0; hh < WD_HEADS; ++hh) {
+      float m = 0.f;
+      for (int w = 0; w < WARPS; ++w) m = fmaxf(m, sS[hh * WDC_KEYS + w]);
+      inv[hh] = m > 0.f ? 127.f / m : 0.f;
+      qscale[hh] = m * (1.f / 127.f);
+    }
+  }
+  float m_run = -INFINITY, l_run = 0.f;  // warp hh's, for head hh
+  float slope = 0.f;
+  if (warp < nh && a.slopes != nullptr) slope = a.slopes[h0 + warp];
+  // The accumulator of head hh: the split's fp32 partial row.
+  auto acc_row = [&](int hh) {
+    return a.part_o + (size_t(split) * rows + size_t(b) * a.Hq + h0 + hh) * D;
+  };
+
+  for (int n0 = lo; n0 < hi_pos; n0 += WDC_KEYS) {
+    const int cnt = min(WDC_KEYS, hi_pos - n0);
+    __syncthreads();  // the previous tile is done with every buffer
+    if (tid < cnt) {
+      const int pos = n0 + tid;
+      const int page = a.page_table[size_t(b) * a.pages_per_seq + pos / a.page_size];
+      const int off = pos % a.page_size;
+      const TokenAddr ta = token_addr(KIND, kvh, page, off, a.P, a.page_size, D);
+      sRow[tid] = (long long)ta.row;
+      sHi[tid] = ta.hi;
+      if constexpr (QUANT) {
+        const size_t si = scale_index(kvh, page, off, a.P, a.page_size);
+        sKs[tid] = a.k_scales[si];
+        sVs[tid] = a.v_scales[si];
+      }
+    }
+    // Scores: each warp's keys warp + 8 kk, summed over the head dim a
+    // staged slice of q at a time, in column order.
+    float fdot[WDC_KEYS / WARPS][WD_HEADS];
+    int idot[WDC_KEYS / WARPS][WD_HEADS];
+#pragma unroll
+    for (int kk = 0; kk < WDC_KEYS / WARPS; ++kk)
+#pragma unroll
+      for (int hh = 0; hh < WD_HEADS; ++hh) {
+        fdot[kk][hh] = 0.f;
+        idot[kk][hh] = 0;
+      }
+    for (int c0 = 0; c0 < D; c0 += WDC_QCOLS) {
+      const int qc = min(WDC_QCOLS, D - c0);
+      __syncthreads();  // the previous slice of q is read (and the rows are staged)
+      if constexpr (INT) {
+        for (int i = tid; i < WD_HEADS * (qc / 4); i += WDC_THREADS) {
+          const int hh = i / (qc / 4), w4 = i % (qc / 4);
+          uint32_t w = 0;
+          if (hh < nh) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              w |= (uint32_t(int(rintf(q_at(hh, c0 + 4 * w4 + c) * inv[hh]))) & 0xFFu) << (8 * c);
+          }
+          sQ8[hh * (WDC_QCOLS / 4) + w4] = w;
+        }
+      } else {
+        for (int i = tid; i < WD_HEADS * qc; i += WDC_THREADS) {
+          const int hh = i / qc, c = i % qc;
+          sQ[hh * WDC_QCOLS + c] = hh < nh ? q_at(hh, c0 + c) : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < WDC_KEYS / WARPS; ++kk) {
+        const int k = warp + WARPS * kk;
+        if (k >= cnt) continue;
+        const size_t row = size_t(sRow[k]);
+        const int hi = sHi[k];
+#pragma unroll 4
+        for (int cb = 4 * lane; cb < qc; cb += 128) {
+          if constexpr (INT) {
+            const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                static_cast<const uint8_t*>(a.k_pages) + row + c0 + cb);
+            const int k8 = int(s8x4(KIND, w, hi));
+#pragma unroll
+            for (int hh = 0; hh < WD_HEADS; ++hh)
+              idot[kk][hh] = __dp4a(int(sQ8[hh * (WDC_QCOLS / 4) + cb / 4]), k8, idot[kk][hh]);
+          } else {
+            float kf[4];
+            values4<KIND>(a.k_pages, row + c0 + cb, hi, kf);
+#pragma unroll
+            for (int hh = 0; hh < WD_HEADS; ++hh) {
+              const float4 qv = *reinterpret_cast<const float4*>(sQ + hh * WDC_QCOLS + cb);
+              float d = fdot[kk][hh];
+              d = fmaf(qv.x, kf[0], d);
+              d = fmaf(qv.y, kf[1], d);
+              d = fmaf(qv.z, kf[2], d);
+              d = fmaf(qv.w, kf[3], d);
+              fdot[kk][hh] = d;
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < WDC_KEYS / WARPS; ++kk) {
+      const int k = warp + WARPS * kk;
+#pragma unroll
+      for (int hh = 0; hh < WD_HEADS; ++hh) {
+        float x;
+        if constexpr (INT) {
+          int dot = idot[kk][hh];
+#pragma unroll
+          for (int o2 = 16; o2 > 0; o2 >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o2);
+          x = float(dot) * qscale[hh];
+        } else {
+          float dot = fdot[kk][hh];
+#pragma unroll
+          for (int o2 = 16; o2 > 0; o2 >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o2);
+          x = QUANT ? dot : dot * a.sm_scale;
+        }
+        if (lane == 0 && k < cnt) {
+          if (QUANT) x *= sKs[k];
+          if (a.softcap > 0.f)
+            x = QUANT ? a.softcap * tanhf(x * (1.f / a.softcap)) : a.softcap * tanhf(x / a.softcap);
+          sS[hh * WDC_KEYS + k] = x;  // ALiBi below, by the head's warp
+        }
+      }
+    }
+    __syncthreads();
+    // Softmax over the tile: warp hh for head hh (every key of the split is
+    // visible), P times the V scale rounded to q's dtype where quantized.
+    if (warp < nh) {
+      const int hh = warp;
+      float x[2], mx = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = lane + 32 * i;
+        x[i] = -INFINITY;
+        if (k < cnt) {
+          x[i] = sS[hh * WDC_KEYS + k];
+          if (a.slopes != nullptr) x[i] -= slope * float(alen - 1 - (n0 + k));
+        }
+        mx = fmaxf(mx, x[i]);
+      }
+#pragma unroll
+      for (int o2 = 16; o2 > 0; o2 >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      const float m_new = fmaxf(m_run, mx);
+      const float alpha = expf(m_run - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int k = lane + 32 * i;
+        const float p = k < cnt ? expf(x[i] - m_new) : 0.f;
+        sum += p;
+        sP[hh * WDC_KEYS + k] = QUANT ? round_to(p * (k < cnt ? sVs[k] : 0.f), dt) : p;
+      }
+#pragma unroll
+      for (int o2 = 16; o2 > 0; o2 >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o2);
+      l_run = l_run * alpha + sum;
+      m_run = m_new;
+      if (lane == 0) sAlpha[hh] = alpha;
+    }
+    __syncthreads();
+    // O += P V over the tile, 4 columns of each 1024 a thread.
+    const bool first = n0 == lo;
+    for (int c = 4 * tid; c < D; c += 4 * WDC_THREADS) {
+      float acc[WD_HEADS][4];
+#pragma unroll
+      for (int hh = 0; hh < WD_HEADS; ++hh) {
+        float4 o4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (!first && hh < nh) o4 = *reinterpret_cast<const float4*>(acc_row(hh) + c);
+        const float al = sAlpha[hh];
+        acc[hh][0] = o4.x * al; acc[hh][1] = o4.y * al;
+        acc[hh][2] = o4.z * al; acc[hh][3] = o4.w * al;
+      }
+#pragma unroll 4
+      for (int k = 0; k < cnt; ++k) {
+        float vf[4];
+        values4<KIND>(a.v_pages, size_t(sRow[k]) + c, sHi[k], vf);
+#pragma unroll
+        for (int hh = 0; hh < WD_HEADS; ++hh) {
+          const float p = sP[hh * WDC_KEYS + k];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[hh][e] = fmaf(p, vf[e], acc[hh][e]);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < WD_HEADS; ++hh)
+        if (hh < nh)
+          *reinterpret_cast<float4*>(acc_row(hh) + c) =
+              make_float4(acc[hh][0], acc[hh][1], acc[hh][2], acc[hh][3]);
+    }
+  }
+
+  // O / l: into the partial (its lse -inf where the split saw no key), or
+  // with one split straight into O and lse.
+  if (warp < nh && lane == 0) {
+    sM[warp] = m_run;
+    sL[warp] = l_run;
+  }
+  __syncthreads();
+  const bool split_out = a.splits > 1;
+  for (int hh = 0; hh < nh; ++hh) {
+    const float l = sL[hh], m = sM[hh];
+    const float inv_l = l > 0.f ? 1.f / l : 0.f;
+    const size_t r = size_t(b) * a.Hq + h0 + hh;
+    float* acc = acc_row(hh);
+    for (int c = 4 * tid; c < D; c += 4 * WDC_THREADS) {
+      float4 o4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (l > 0.f) {
+        o4 = *reinterpret_cast<const float4*>(acc + c);
+        o4 = make_float4(o4.x * inv_l, o4.y * inv_l, o4.z * inv_l, o4.w * inv_l);
+      }
+      if (split_out) {
+        *reinterpret_cast<float4*>(acc + c) = o4;
+      } else {
+        store_as(a.o, r * D + c, dt, o4.x);
+        store_as(a.o, r * D + c + 1, dt, o4.y);
+        store_as(a.o, r * D + c + 2, dt, o4.z);
+        store_as(a.o, r * D + c + 3, dt, o4.w);
+      }
+    }
+    if (tid == 0) {
+      if (split_out) {
+        a.part_lse[size_t(split) * rows + r] = l > 0.f ? m + logf(l) : -INFINITY;
+      } else if (a.lse != nullptr) {
+        a.lse[r] = l > 0.f ? m + logf(l) : kMaskValue;
+      }
+    }
+  }
+}
+
+// The chunked decode of `kind` at head dim D over its grid, then (above one
+// split) the merge; part_o / part_lse hold [splits, B Hq] partials (the
+// accumulators even at one split).
+template <int KIND>
+int launch_wide_decode_chunk(const WideDecodeArgs& a, int D) {
+  auto kernel = wide_decode_chunk_kernel<KIND>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         int(WdcLayout::BYTES));
+  if (err != cudaSuccess) return int(err);
+  const int G = a.Hq / a.Hkv;
+  const dim3 grid(a.splits, a.Hkv * ((G + WD_HEADS - 1) / WD_HEADS), a.B);
+  kernel<<<grid, WDC_THREADS, WdcLayout::BYTES, a.stream>>>(a, D);
+  const int e = int(cudaGetLastError());
+  if (e || a.splits == 1) return e;
+  return launch_combine(a.part_o, a.part_lse, a.o, a.q_dtype, a.lse, a.B * a.Hq, a.splits, D,
+                        a.stream);
 }
 
 }  // namespace

@@ -29,15 +29,17 @@ from ._cuda import resolve_device
 # of a backward sweep's CTA (csrc/attn_fwd_sm90.cuh BM, attn_bwd_sm90.cuh BR)
 CTA_ROWS = 128
 
-# The wide builds (csrc/wide.cuh): head dims above 256 that are multiples of
-# 128, at most WIDE_MAX_HEAD_DIM.  A CTA owns WIDE_ROWS rows.  The 16-bit
-# forward and verify (route "wide_wgmma") stream key tiles of WIDE_FWD_KEYS
-# and cut the head dim among owners and CTAs (:func:`wide_cut`); the 16-bit
-# sweeps (also "wide_wgmma") stream tiles of WIDE_BWD_ROWS rows (keys in dQ,
-# q rows in dK/dV) and cut it their own way (:func:`wide_bwd_cut`); the fp32
-# kernels own one 128-column chunk of their output a CTA and stream tiles of
-# WIDE_KEYS rows.
-WIDE_MAX_HEAD_DIM = 1024
+# The wide builds (csrc/wide.cuh): every head dim above 256 that is a
+# multiple of 128.  A CTA owns WIDE_ROWS rows.  Up to WIDE_CUT_MAX_HEAD_DIM
+# the 16-bit forward and verify (route "wide_wgmma") stream key tiles of
+# WIDE_FWD_KEYS and cut the head dim among owners and CTAs (:func:`wide_cut`),
+# and the 16-bit sweeps (also "wide_wgmma") stream tiles of WIDE_BWD_ROWS
+# rows (keys in dQ, q rows in dK/dV) and cut it their own way
+# (:func:`wide_bwd_cut`).  The column-chunked kernels (fp32 "wide_fp32" at
+# every wide head dim; bf16 / fp16 "wide_chunk" above the cuts,
+# :func:`chunked`) own one 128-column chunk of their output a CTA and stream
+# tiles of WIDE_KEYS rows: no width cap.
+WIDE_CUT_MAX_HEAD_DIM = 1024
 WIDE_ROWS = 64
 WIDE_KEYS = 64
 WIDE_FWD_KEYS = 32
@@ -177,33 +179,65 @@ def fits_smem(nbytes: int, geom: Optional[HopperGeometry] = None) -> bool:
 
 def is_wide(head_dim: int) -> bool:
     """Whether ``head_dim`` is a width of the wide builds (``csrc/wide.cuh``
-    ``wide_head_dim``): a multiple of 128 above 256, at most
-    :data:`WIDE_MAX_HEAD_DIM`."""
-    return 256 < head_dim <= WIDE_MAX_HEAD_DIM and head_dim % 128 == 0
+    ``wide_head_dim``): any multiple of 128 above 256."""
+    return head_dim > 256 and head_dim % 128 == 0
 
 
-def wide_smem_bytes() -> int:
-    """Shared memory of one CTA of the wide builds' fp32 kernels
-    (``csrc/wide.cuh`` ``WideLayout::BYTES``): two stages of each streamed
-    operand (64 rows of 128 bytes, each padded by 16), the update tile (64
-    rows of 128 fp32 columns, padded by 16 bytes), each warp's 16 x 68
-    probabilities, six vectors of 64 and 64 row offsets and flags."""
+def chunked(head_dim: int) -> bool:
+    """Whether ``head_dim`` is a wide width the cluster cuts of the 16-bit
+    kernels do not reach (above :data:`WIDE_CUT_MAX_HEAD_DIM`): every kernel
+    runs column-chunked there (bf16 / fp16 on route ``"wide_chunk"``,
+    decode on ``csrc/paged_decode_chunk.cu``)."""
+    return is_wide(head_dim) and head_dim > WIDE_CUT_MAX_HEAD_DIM
+
+
+def _refuse_cut(head_dim: int) -> None:
+    if chunked(head_dim):
+        raise ValueError(
+            f"head_dim {head_dim} is above the cluster cuts' {WIDE_CUT_MAX_HEAD_DIM}: it runs "
+            "column-chunked (route \"wide_chunk\", geometry.wide_chunk_smem_bytes)")
+    if not is_wide(head_dim):
+        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+
+
+def wide_chunk_smem_bytes(dtype=torch.float32, paged: bool = False,
+                          segments: bool = False) -> int:
+    """Shared memory of one CTA of the column-chunked kernels (``csrc/wide.cuh``
+    ``WideLayout<T>::BYTES``), forward, verify (``paged``) and both sweeps,
+    with or without segment ids, at every head dim alike: two stages of each
+    streamed operand (64 rows of 128 bytes, each padded by 16), the update
+    tile (64 rows of 128 columns of ``dtype``, padded by 16 bytes), in fp32
+    each warp's 16 x 68 probabilities (16-bit keeps them in registers), six
+    vectors of 64 and 64 row offsets and flags."""
+    del paged, segments  # one layout for every mode
+    itemsize = torch.empty((), dtype=dtype).element_size()
     chunk = WIDE_ROWS * (128 + 16)
-    tile = WIDE_KEYS * (128 * 4 + 16)
-    probs = 4 * 16 * (WIDE_KEYS + 4) * 4
+    tile = WIDE_KEYS * (128 * itemsize + 16)
+    probs = 4 * 16 * (WIDE_KEYS + 4) * 4 if itemsize == 4 else 0
     return 4 * chunk + tile + probs + 6 * 64 * 4 + 64 * 8 + 64 * 4
 
 
+def wide_chunk_decode_smem_bytes() -> int:
+    """Shared memory of one CTA of the column-chunked decode
+    (``csrc/wide.cuh`` ``WdcLayout::BYTES``), every pool kind and head dim:
+    q of two heads over 1024 columns in fp32, the 64-key tile's scores and P
+    of two heads, its keys' stored-row offsets (8 bytes), int4 halves and K /
+    V scales, and three floats a head (running max, row sum, rescale)."""
+    keys = 64
+    return 2 * 1024 * 4 + 2 * 2 * keys * 4 + keys * (8 + 4 + 4 + 4) + 3 * 2 * 4
+
+
 def wide_cut(head_dim: int) -> tuple:
-    """How the wide_wgmma kernel cuts a wide head dim (``csrc/wide.cuh``
-    ``wide_cut``): (CTAs a cluster, owners a CTA, 64-column chunks an
-    owner).  An owner (a consumer warpgroup) holds at most 256 columns of
-    O; a CTA at most 512 columns; d 640 and 896 take clusters of 5 and 7
-    CTAs of one 128-column owner."""
+    """How the wide_wgmma kernel cuts a wide head dim up to
+    :data:`WIDE_CUT_MAX_HEAD_DIM` (``csrc/wide.cuh`` ``wide_cut``): (CTAs a
+    cluster, owners a CTA, 64-column chunks an owner).  An owner (a consumer
+    warpgroup) holds at most 256 columns of O; a CTA at most 512 columns;
+    d 640 and 896 take clusters of 5 and 7 CTAs of one 128-column owner.
+    Wider heads raise, naming the column-chunked route."""
     cuts = {384: (1, 2, 3), 512: (1, 2, 4), 640: (5, 1, 2), 768: (2, 2, 3),
             896: (7, 1, 2), 1024: (2, 2, 4)}
     if head_dim not in cuts:
-        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+        _refuse_cut(head_dim)
     return cuts[head_dim]
 
 
@@ -248,9 +282,10 @@ def wide_bwd_cut(head_dim: int, dkv: bool = True) -> tuple:
     owner of its cluster.  A dK/dV owner holds dK and dV for 128 columns (2
     x 64 fp32 registers a thread): two a CTA at d 512, one elsewhere.  A dQ
     owner takes 256 columns where the head dim is a multiple of 256, else
-    128, one a CTA."""
-    if not is_wide(head_dim):
-        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+    128, one a CTA.  Above :data:`WIDE_CUT_MAX_HEAD_DIM` raises, naming the
+    column-chunked route."""
+    if not is_wide(head_dim) or chunked(head_dim):
+        _refuse_cut(head_dim)
     if dkv:
         return (2, 2, 2) if head_dim == 512 else (head_dim // 128, 1, 2)
     return (head_dim // 256, 1, 4) if head_dim % 256 == 0 else (head_dim // 128, 1, 2)
@@ -313,9 +348,10 @@ def wide_decode_ctas_per_sm(head_dim: int) -> int:
     """CTAs of the wide decode kernel an SM holds by design
     (``csrc/wide.cuh`` ``WdLayout::CTAS``, its ``__launch_bounds__``): two
     up to 512 columns (registers and shared memory sized for it), else
-    one."""
-    if not is_wide(head_dim):
-        raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
+    one; above :data:`WIDE_CUT_MAX_HEAD_DIM` decode is column-chunked
+    (:func:`wide_chunk_decode_smem_bytes`) and this raises."""
+    if not is_wide(head_dim) or chunked(head_dim):
+        _refuse_cut(head_dim)
     return 2 if head_dim <= 512 else 1
 
 
@@ -370,7 +406,10 @@ def fits_ctas_per_sm(nbytes: int, ctas: int, static_bytes: int = 128) -> bool:
 def default_block_kv(head_dim: int) -> int:
     """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
     ``key_tile``): 128, 64 at d 256, and in the wide builds 32
-    (:data:`WIDE_FWD_KEYS`, the wide_wgmma kernel's tile)."""
+    (:data:`WIDE_FWD_KEYS`, the wide_wgmma kernel's tile), or above the cuts
+    64 (:data:`WIDE_KEYS`, the column-chunked kernels')."""
+    if chunked(head_dim):
+        return WIDE_KEYS
     if is_wide(head_dim):
         return WIDE_FWD_KEYS
     return 64 if head_dim == 256 else 128
@@ -381,7 +420,10 @@ def default_block_kv_bwd(head_dim: int) -> int:
     streams a stage (``csrc/attn_bwd.cuh`` ``stream_tile``), and the q rows
     of the dK/dV sweep but at d 256 (:func:`bwd_stream_rows`): 64, and 32 at
     d 256 and in the wide builds (:data:`WIDE_BWD_ROWS`, the 16-bit wide
-    sweeps' tile)."""
+    sweeps' tile), 64 again above the cuts (:data:`WIDE_KEYS`, the
+    column-chunked sweeps')."""
+    if chunked(head_dim):
+        return WIDE_KEYS
     if is_wide(head_dim):
         return WIDE_BWD_ROWS
     return 32 if head_dim == 256 else 64

@@ -14,14 +14,15 @@ launch count; a seventh, ``csrc/attn_bwd_tiles.cu`` (``attn_bwd_dkv_tiles``,
 caller may pin or the tuner pick (``block_sizes``, :mod:`..tuning`),
 mode-free; an eighth, ``csrc/attn_bwd_wide.cu`` (``attn_bwd_dkv_wide``,
 ``attn_bwd_dq_wide``: the sweeps of ``csrc/wide.cuh``),
-every head dim above 256 that is a multiple of 128, up to 1024, with every
-mode.  Each sweep call takes one of four routes, fixed by :func:`bwd_route`
+every head dim above 256 that is a multiple of 128, with every mode.
+Each sweep call takes one of five routes, fixed by :func:`bwd_route`
 from the call's types and width alone and counted per sweep in
 :data:`BWD_ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernels: warpgroup
 products, TMA, a producer warpgroup; every bf16/fp16 call at d 64, 128 and
 256), ``"fp32"`` (CUDA cores, true fp32), and at the wide head dims
-``"wide_wgmma"`` (bf16/fp16: owners of 128 or 256 columns computing S and
-dP once a tile, a cluster of CTAs; the forward's route code) and
+``"wide_wgmma"`` (bf16/fp16 to 1024: owners of 128 or 256 columns computing
+S and dP once a tile, a cluster of CTAs; the forward's route code),
+``"wide_chunk"`` (bf16/fp16 above 1024: column-chunked on ``mma.sync``) and
 ``"wide_fp32"``.
 The C entries refuse a route that cannot carry a call; nothing switches
 routes at run time.  Together they replace the six backward TPU kernels of
@@ -46,7 +47,7 @@ import ctypes
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
-from ..geometry import bwd_stream_rows, default_block_kv_bwd, is_wide
+from ..geometry import bwd_stream_rows, chunked, default_block_kv_bwd, is_wide
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_WIDTHS,
@@ -62,7 +63,7 @@ from .fwd_kernel import (
 
 # The head dims the backward kernels are built for (the forward's), each
 # with every mode; 256 in builds of its own, and the wide head dims (above
-# 256, multiples of 128 up to 1024) in attn_bwd_wide.cu.
+# 256, every multiple of 128) in attn_bwd_wide.cu.
 BWD_HEAD_DIMS = KERNEL_WIDTHS
 
 PREPROCESS_KERNEL = CudaKernel(
@@ -128,14 +129,17 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
                segment ids)
     wgmma      bf16 / fp16 q, with or without segment ids
     wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
-    wide_wgmma as wgmma, at a wide head dim (``csrc/wide.cuh``
+    wide_wgmma as wgmma, at a wide head dim up to 1024 (``csrc/wide.cuh``
                ``wide_bwd_dkv_kernel`` / ``wide_bwd_dq_kernel``)
+    wide_chunk as wgmma, at a wide head dim above 1024 (``csrc/wide.cuh``
+               ``wide_bwd_dkv_chunk_kernel`` / ``wide_bwd_dq_chunk_kernel``,
+               column-chunked on mma.sync)
     =========  =========================================================
 
     Segment ids, ALiBi and dropout are modes of every route at every head
     dim and change none (the mode arguments are kept so that a caller can
-    name what it runs).  d must be 64, 128, 256 or a multiple of 128 in
-    (256, 1024]; anything else raises."""
+    name what it runs).  d must be 64, 128, 256 or a multiple of 128 above
+    256; anything else raises."""
     del segments, alibi, dropout
     check_kernel_head_dim(head_dim, "attn_bwd kernels", BWD_HEAD_DIMS)
     wide = is_wide(head_dim)
@@ -143,6 +147,8 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
         return "wide_fp32" if wide else "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
+    if chunked(head_dim):
+        return "wide_chunk"
     return "wide_wgmma" if wide else "wgmma"
 
 
@@ -212,7 +218,7 @@ def _stream_tile(q, route, *, alibi_slopes, dropout_rate, q_seg, block_sizes, **
     tiles otherwise), the head dim's own tile without ``block_sizes`` or on
     the fp32 route (its own fixed steps)."""
     d = q.shape[-1]
-    if route not in ("wgmma", "wide_wgmma") or block_sizes is None:
+    if route not in ("wgmma", "wide_wgmma", "wide_chunk") or block_sizes is None:
         return default_block_kv_bwd(d)
     block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                       segments=q_seg is not None)
@@ -301,7 +307,7 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
     :func:`bwd_route`, streaming ``block_sizes.block_kv_bwd`` rows a stage:
     a tile no build carries for the call raises ``ValueError`` before any
     launch), which take contiguous fp32/bf16/fp16 inputs with d in {64,
-    128, 256} or a multiple of 128 in (256, 1024], or raise."""
+    128, 256} or a multiple of 128 above 256, or raise."""
     kw = _kw(causal, sm_scale, window, softcap, alibi_slopes, dropout_rate,
              dropout_seed, q_seg, kv_seg, block_sizes)
     if q.device.type == "cpu":

@@ -14,8 +14,9 @@ multi-token verify mode (:func:`paged_verify_attention`, on the route of
 (:func:`paged_kernels`: ``paged_decode.cu`` and ``paged_verify.cu`` at 128,
 ``*_d64.cu`` and ``*_d256.cu``, verify from fp16 q at 256 in
 ``paged_verify_d256_f16.cu``; every pool head dim above 256 that is a
-multiple of 128, up to 1024, in ``paged_decode_wide.cu`` and
-``paged_verify_wide.cu``, the kernels of ``csrc/wide.cuh``).  Both may cut
+multiple of 128 in ``paged_verify_wide.cu`` and, up to 1024,
+``paged_decode_wide.cu``, above it ``paged_decode_chunk.cu``: the kernels of
+``csrc/wide.cuh``).  Both may cut
 each page table into key splits of whole pages (:func:`decode_splits`, from
 static shapes only, unless the caller sets ``pages_per_block``, the pages of
 one split: :func:`key_splits`; :func:`tuned_pages_per_block` times the
@@ -36,7 +37,7 @@ at the kernels' width, :func:`.fwd_kernel.kernel_width`, as the JAX package
 pads them to 128 lanes): q is zero-padded to the pool's head dim on every
 device, ``sm_scale`` defaults to q's own head_dim**-0.5, and O is sliced
 back.  The kernels take pool head dims 64, 128 and 256 and the wide ones
-(multiples of 128 in (256, 1024]), each with every mode.
+(every multiple of 128 above 256), each with every mode.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
 from .flash_attention import _normalize_alibi
-from ..geometry import WIDE_ROWS, is_wide, wide_cut
+from ..geometry import WIDE_ROWS, chunked, is_wide, wide_cut
 from .fwd_kernel import (
     DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, check_kernel_head_dim, pad_head_dim,
 )
@@ -97,9 +98,13 @@ VERIFY_D256_KERNEL = CudaKernel("paged_verify_d256.cu", "paged_verify_d256", _VE
 VERIFY_D256_F16_KERNEL = CudaKernel("paged_verify_d256_f16.cu", "paged_verify_d256_f16",
                                     _VERIFY_ARGS)
 # Every pool head dim above 256 (csrc/wide.cuh): decode on asynchronous page
-# copies (its splits merged inside the launch, as at d <= 256), verify on
-# warpgroup products (bf16 / fp16 q) or column-chunked (fp32 q).
+# copies to 1024 (its splits merged inside the launch, as at d <= 256), and
+# above it column-chunked on the CUDA cores (DECODE_CHUNK_KERNEL, the split
+# scratch its accumulator, splits merged by a second kernel); verify on
+# warpgroup products (bf16 / fp16 q to 1024), column-chunked on mma.sync
+# (bf16 / fp16 q above 1024) or column-chunked in fp32 (fp32 q).
 DECODE_WIDE_KERNEL = CudaKernel("paged_decode_wide.cu", "paged_decode_wide", _DECODE_ARGS)
+DECODE_CHUNK_KERNEL = CudaKernel("paged_decode_chunk.cu", "paged_decode_chunk", _DECODE_ARGS)
 VERIFY_WIDE_KERNEL = CudaKernel("paged_verify_wide.cu", "paged_verify_wide", _VERIFY_ARGS)
 
 
@@ -107,10 +112,12 @@ def paged_kernels(head_dim: int, q_dtype=None):
     """(decode build, verify build) of a pool head dim: the module attributes
     ``DECODE[_D<d>]_KERNEL`` / ``VERIFY[_D<d>]_KERNEL`` (no suffix at d
     128; verify from fp16 ``q_dtype`` at d 256: ``VERIFY_D256_F16_KERNEL``;
-    ``DECODE_WIDE_KERNEL`` / ``VERIFY_WIDE_KERNEL`` at a wide head dim),
-    looked up at call time so that a check may swap a build."""
+    ``DECODE_WIDE_KERNEL`` / ``VERIFY_WIDE_KERNEL`` at a wide head dim,
+    ``DECODE_CHUNK_KERNEL`` for decode above 1024), looked up at call time
+    so that a check may swap a build."""
     if is_wide(head_dim):
-        return globals()["DECODE_WIDE_KERNEL"], globals()["VERIFY_WIDE_KERNEL"]
+        decode = "DECODE_CHUNK_KERNEL" if chunked(head_dim) else "DECODE_WIDE_KERNEL"
+        return globals()[decode], globals()["VERIFY_WIDE_KERNEL"]
     dim = "" if head_dim == 128 else f"_D{head_dim}"
     f16 = "_F16" if head_dim == 256 and q_dtype == torch.float16 else ""
     return globals()[f"DECODE{dim}_KERNEL"], globals()[f"VERIFY{dim}{f16}_KERNEL"]
@@ -123,9 +130,9 @@ DECODE_SPLITS: dict = register_launch_counts({})
 VERIFY_SPLITS: dict = register_launch_counts({})
 
 # The verify C entries' route codes (csrc/paged_verify.cuh kRouteF32 /
-# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma) and the
-# launches of each route.
-VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4}
+# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma /
+# kRouteWideChunk) and the launches of each route.
+VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_chunk": 5}
 VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES, 0))
 
 # Tokens of one stored-row tile of csrc/paged_decode.cuh: the least a split
@@ -228,12 +235,15 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
     wgmma      bf16 / fp16 q with a pool of q's own dtype or a quantized
                pool (int8, int4, e4m3, e5m2): the tensor cores
     wide_fp32  as fp32, at a wide pool head dim (``csrc/wide.cuh``)
-    wide_wgmma as wgmma, at a wide pool head dim (``csrc/wide.cuh``)
+    wide_wgmma as wgmma, at a wide pool head dim up to 1024
+               (``csrc/wide.cuh``)
+    wide_chunk as wgmma, at a wide pool head dim above 1024
+               (``csrc/wide.cuh``, column-chunked on mma.sync)
     =========  =========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
     Every route takes every page size (int4: even) at d 64, 128 or 256, or
-    (the wide routes) a multiple of 128 in (256, 1024], with or without
+    (the wide routes) any multiple of 128 above 256, with or without
     ``alibi`` (kept so that a caller can name what it runs).  What no route
     takes raises."""
     del alibi
@@ -252,6 +262,8 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
         raise ValueError(
             f"paged verify kernel takes {q_dtype} q with quantized pools or "
             f"{q_dtype} pools, not {pool_kind}")
+    if chunked(head_dim):
+        return "wide_chunk"
     return "wide_wgmma" if wide else "wgmma"
 
 
@@ -260,13 +272,14 @@ def verify_ctas_per_split(route: str, rows: int, head_dim: int) -> int:
     its ``rows`` = T · G rows: blocks of :data:`VERIFY_ROW_TILE` rows on the
     ``"wgmma"`` route; on ``"wide_wgmma"`` blocks of 64 rows, each a
     cluster of the CTAs that split the head dim (:func:`..geometry.wide_cut`);
-    on ``"wide_fp32"`` blocks of 64 rows times the 128-column chunks of
-    the head dim; on ``"fp32"`` (which does not split) blocks of 64 rows."""
+    on ``"wide_fp32"`` and ``"wide_chunk"`` blocks of 64 rows times the
+    128-column chunks of the head dim; on ``"fp32"`` (which does not split)
+    blocks of 64 rows."""
     if route == "wgmma":
         return -(-rows // VERIFY_ROW_TILE)
     if route == "wide_wgmma":
         return -(-rows // WIDE_ROWS) * wide_cut(head_dim)[0]
-    if route == "wide_fp32":
+    if route in ("wide_fp32", "wide_chunk"):
         return -(-rows // WIDE_ROWS) * (head_dim // 128)
     return -(-rows // WIDE_ROWS)
 
@@ -300,11 +313,13 @@ def _num_sms(index: int) -> int:
 _SCRATCH: dict = {}
 
 
-def _split_scratch(splits: int, rows: int, head_dim: int, groups: int, device, stream: int):
+def _split_scratch(splits: int, rows: int, head_dim: int, groups: int, device, stream: int,
+                   always: bool = False):
     """Addresses of the partial O [splits, rows, d] and lse [splits, rows]
     and of ``groups`` counters of a split call on ``stream``; 0s without
-    a split (and for the counters, without groups)."""
-    if splits == 1:
+    a split (and for the counters, without groups), unless ``always`` (the
+    chunked decode accumulates O in the partials at every split count)."""
+    if splits == 1 and not always:
         return 0, 0, 0
     need = splits * rows * (head_dim + 1)
     key = (device.index, stream)
@@ -459,8 +474,9 @@ def paged_decode_attention(
     plain versions (split and merged as the kernel would when
     ``pages_per_block`` is given); CUDA tensors launch
     ``csrc/paged_decode.cuh``, at a wide pool head dim ``csrc/wide.cuh``'s
-    decode (either with its key splits merged inside the launch), or
-    raise."""
+    decode (either with its key splits merged inside the launch; above
+    1024 the column-chunked decode, its splits merged by a second kernel),
+    or raise."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, d_true = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
@@ -487,10 +503,12 @@ def paged_decode_attention(
         num_kv_heads = pools.k.shape[0]
         splits = chosen or decode_splits(batch, num_kv_heads, pages_per_seq, pools.page_size,
                                          _num_sms(q.device.index or 0))
-        groups = decode_groups(batch, num_q_heads, num_kv_heads)
+        wide_chunk = chunked(head_dim)
+        groups = 0 if wide_chunk else decode_groups(batch, num_q_heads, num_kv_heads)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         part_o, part_lse, counters = _split_scratch(
-            splits, batch * num_q_heads, head_dim, groups, q.device, stream)
+            splits, batch * num_q_heads, head_dim, groups, q.device, stream,
+            always=wide_chunk)
         paged_kernels(head_dim)[0].launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),

@@ -38,9 +38,8 @@ on every device, as the JAX package pads to 128 lanes), takes ``sm_scale``
 from the true head_dim and slices O (and dQ, dK, dV) back.  The padding is
 exact: zero columns add nothing to a score, and zero V columns are sliced
 off.  A head_dim above 256 is padded to a multiple of 128, as the JAX
-package pads it, and runs on the card on the wide builds (``csrc/wide.cuh``:
-column-chunked forward and sweeps, every mode) up to 1024; wider ones run
-on the plain versions only (CPU tensors).
+package pads it, and runs on the card on the wide builds (``csrc/wide.cuh``,
+every mode, every width; above 1024 on the column-chunked kernels).
 """
 
 from __future__ import annotations

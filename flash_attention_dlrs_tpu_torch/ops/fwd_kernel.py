@@ -11,16 +11,18 @@ its own launch count: ``csrc/attn_fwd.cu`` (head dim 128,
 tiles at d 64 and 128 that a caller may pin or the tuner pick
 (``block_sizes``, :mod:`..tuning`), mode-free; an eighth,
 ``csrc/attn_fwd_wide.cu`` (:data:`FWD_WIDE_KERNEL`, the kernels of
-``csrc/wide.cuh``), every head dim above 256 that is a multiple of 128, up
-to 1024, with every mode.  Each call takes one of four routes,
+``csrc/wide.cuh``), every head dim above 256 that is a multiple of 128,
+with every mode.  Each call takes one of five routes,
 fixed by :func:`fwd_route` from the call's types and width alone and
 counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel of
 ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp specialisation;
 every bf16/fp16 call at d 64, 128 and 256), ``"fp32"`` (CUDA cores, true
 fp32), and at the wide head dims ``"wide_wgmma"`` (bf16/fp16: the same
 Hopper machinery with the head dim split among warpgroups and, above 512,
-the CTAs of a cluster, scores computed once a key tile) and
-``"wide_fp32"``.  The C entry refuses a route that
+the CTAs of a cluster, scores computed once a key tile; to 1024),
+``"wide_chunk"`` (bf16/fp16 above 1024: column-chunked on ``mma.sync``,
+each CTA one 128-column chunk of O, no width cap) and ``"wide_fp32"``.
+The C entry refuses a route that
 cannot carry a call; nothing switches routes at run time.  It replaces
 the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
 ``ops/fwd_mid.py::_mid_kernel``, ``ops/fwd_mid.py::_mid_strip_kernel`` and
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
-from ..geometry import WIDE_MAX_HEAD_DIM, default_block_kv, is_wide
+from ..geometry import chunked, default_block_kv, is_wide
 
 # Finite sentinel for masked scores and the lse of a row that sees no key.
 DEFAULT_MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -56,7 +58,7 @@ LN2 = 0.6931471805599453
 # head_dim up to 256 is zero-padded to the next of them (:func:`kernel_width`),
 # as the JAX package pads to 128 lanes.  Wider heads are padded to a multiple
 # of 128, as in the JAX package, and run on the wide builds
-# (``csrc/wide.cuh``) up to 1024 (:func:`check_kernel_head_dim`).
+# (``csrc/wide.cuh``), at every width (:func:`check_kernel_head_dim`).
 KERNEL_WIDTHS = (64, 128, 256)
 FWD_HEAD_DIMS = KERNEL_WIDTHS
 
@@ -93,11 +95,12 @@ FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
 FWD_WIDE_KERNEL = CudaKernel("attn_fwd_wide.cu", "attn_fwd_wide", _FWD_ARGS)
 
 # The C entries' route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma,
-# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma) and the launches of each
-# route, over every build; set to 0 by whoever reads them.  The backward
-# sweeps share the codes (ops/bwd_kernel.py): "wide_wgmma" names the 16-bit
-# wide forward and both wide sweeps.
-ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4}
+# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma / kRouteWideChunk; 3 was a
+# retired route's) and the launches of each route, over every build; set to
+# 0 by whoever reads them.  The backward sweeps share the codes
+# (ops/bwd_kernel.py): "wide_wgmma" names the 16-bit wide forward and both
+# wide sweeps to 1024, "wide_chunk" those above.
+ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_chunk": 5}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 # The wgmma and wide_wgmma routes' launches by head dim and key tile
 # ("d128_kv64", "d512_kv32"), over every build; set to 0 by whoever reads
@@ -108,7 +111,7 @@ TILE_LAUNCHES = register_launch_counts({})
 def kernel_width(head_dim: int) -> int:
     """The head dim that ``head_dim`` is zero-padded to: the least of
     :data:`KERNEL_WIDTHS` that holds it, and above 256 the next multiple of
-    128 (the JAX package's lanes), the wide builds' widths up to 1024.
+    128 (the JAX package's lanes), the wide builds' widths.
     Zero columns add nothing to a score and zero V columns are sliced off,
     so the padding is exact."""
     for width in KERNEL_WIDTHS:
@@ -119,18 +122,13 @@ def kernel_width(head_dim: int) -> int:
 
 def check_kernel_head_dim(head_dim: int, what: str, widths=KERNEL_WIDTHS) -> None:
     """Raise unless ``what`` (a kernel) is built for ``head_dim``: one of
-    ``widths``, or a wide head dim (a multiple of 128 above 256, at most
-    1024: :func:`..geometry.is_wide`); above 1024 the message names the
-    queue that would widen the kernels."""
+    ``widths``, or a wide head dim (any multiple of 128 above 256:
+    :func:`..geometry.is_wide`); every other head dim is padded to one by
+    the entry points (:func:`kernel_width`)."""
     if head_dim in widths or is_wide(head_dim):
         return
-    msg = (f"{what}: head_dim must be one of {widths} or a multiple of 128 in "
-           f"(256, {WIDE_MAX_HEAD_DIM}], got {head_dim}")
-    if head_dim > WIDE_MAX_HEAD_DIM:
-        msg += (f": head dims above {WIDE_MAX_HEAD_DIM} run on the plain versions only "
-                "(CPU tensors); the wide kernels' cap is lifted in queue 2 of the "
-                "PyTorch port (ROADMAP.md)")
-    raise ValueError(msg)
+    raise ValueError(f"{what}: head_dim must be one of {widths} or a multiple of 128 "
+                     f"above 256, got {head_dim}")
 
 
 def pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
@@ -156,13 +154,15 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
     wgmma      bf16 / fp16 q, with or without segment ids, V of q's dtype
                or fp8
     wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
-    wide_wgmma as wgmma, at a wide head dim (``csrc/wide.cuh``)
+    wide_wgmma as wgmma, at a wide head dim up to 1024 (``csrc/wide.cuh``)
+    wide_chunk as wgmma, at a wide head dim above 1024 (``csrc/wide.cuh``,
+               column-chunked on mma.sync)
     =========  =========================================================
 
     Segment ids, fp8 V, ALiBi and dropout are modes of every route at every
     head dim and change none (the mode arguments are kept so that a caller
     can name what it runs).  d must be 64, 128, 256 or a multiple of 128
-    in (256, 1024] (:func:`check_kernel_head_dim`); anything else raises."""
+    above 256 (:func:`check_kernel_head_dim`); anything else raises."""
     del segments, fp8_v, alibi, dropout
     check_kernel_head_dim(head_dim, "attn_fwd kernel", FWD_HEAD_DIMS)
     wide = "wide_" if is_wide(head_dim) else ""
@@ -170,7 +170,7 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
         return wide + "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {dtype}")
-    return wide + "wgmma"
+    return "wide_chunk" if chunked(head_dim) else wide + "wgmma"
 
 
 def fwd_kernel(head_dim: int, segments: bool, block_kv=None) -> CudaKernel:
@@ -295,7 +295,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     tensors take :func:`attn_fwd_plain`; CUDA tensors launch the kernel on
     the route of :func:`fwd_route` (in the build of :func:`fwd_kernel`),
     which takes contiguous inputs with d in {64, 128, 256} or a multiple of
-    128 in (256, 1024], or raise."""
+    128 above 256, or raise."""
     kw = dict(causal=causal, sm_scale=sm_scale, window=window, softcap=softcap,
               alibi_slopes=alibi_slopes, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed, q_seg=q_seg, kv_seg=kv_seg,
@@ -319,7 +319,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS,
                       alibi_slopes is not None, bool(dropout_rate))
     block_kv = default_block_kv(d)
-    if route in ("wgmma", "wide_wgmma") and block_sizes is not None:
+    if route in ("wgmma", "wide_wgmma", "wide_chunk") and block_sizes is not None:
         block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                           segments=q_seg is not None, fp8_v=v.dtype in V_KINDS)
         block_kv = block_sizes.block_kv

@@ -92,11 +92,13 @@ def test_route_refuses_what_no_kernel_takes(dtype, d):
 
 
 def test_route_refuses_head_dims_above_256_naming_queue_2():
-    """Head dims above 256 run on the wide builds up to 1024; past that the
-    refusal names queue 2."""
+    """Head dims above 256 run on the wide builds: on the wgmma cuts up to
+    1024, column-chunked above; no multiple of 128 is refused, a head dim
+    that is no kernel width is."""
     assert tbwd.bwd_route(torch.bfloat16, 384) == "wide_wgmma"
-    with pytest.raises(ValueError, match="queue 2"):
-        tbwd.bwd_route(torch.bfloat16, 1152)
+    assert tbwd.bwd_route(torch.bfloat16, 1152) == "wide_chunk"
+    with pytest.raises(ValueError, match="multiple of 128 above 256"):
+        tbwd.bwd_route(torch.bfloat16, 1100)
 
 
 def test_cpu_calls_count_no_route():

@@ -149,18 +149,20 @@ def test_library_names_follow_the_source_hash():
     # one source for each kernel, head dim (d 128 unsuffixed) and, for the
     # attention kernels, segment-id flag; one for the other tiles of the
     # forward and of the sweeps; verify at d 256 in two, by q dtype; one
-    # wide build of each kernel for the head dims above 256
+    # wide build of each kernel for the head dims above 256, and decode's
+    # column-chunked build above 1024
     want = sorted([f"{kernel}{d}{seg}.cu" for kernel, segs in (
         ("attn_fwd", ("", "_seg")), ("attn_bwd", ("", "_seg")),
         ("paged_decode", ("",)), ("paged_verify", ("",)))
         for d in ("", "_d64", "_d256") for seg in segs]
         + ["attn_fwd_tiles.cu", "attn_bwd_tiles.cu", "paged_verify_d256_f16.cu"]
         + [f"{kernel}_wide.cu" for kernel in ("attn_fwd", "attn_bwd", "paged_decode",
-                                             "paged_verify")])
-    assert _cuda.all_sources() == want and len(want) == 25
+                                             "paged_verify")]
+        + ["paged_decode_chunk.cu"])
+    assert _cuda.all_sources() == want and len(want) == 26
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 25
+    assert len({p.name for p in paths}) == 26
 
 
 def test_every_kernel_entry_is_defined_in_its_source():

@@ -16,13 +16,15 @@ inputs on both sides:
 - ``paged_decode_attention`` (O, lse) and ``paged_verify_attention`` at
   pool widths 384 (bf16, int4 pools) and 512 (int8, e4m3 pools);
 - the route functions at 384, 512 and 640 (the wide routes, the wide
-  builds) and a refusal past 1024 that names queue 2; the shared-memory
+  builds), the column-chunked route at 1152 and a refusal of a head dim
+  that is no kernel width; the shared-memory
   models of the wide_wgmma forward and of both 16-bit sweeps in every mode
   at every wide head dim, decode's for every pool kind (two CTAs an SM up
   to 512 columns), the counters a split decode call gets at d 512 as at
   d 256, and verify's split planner for its CTAs (no JAX);
-- a 2-layer model at head_dim 320: ``DecodeEngine`` greedy tokens equal to
-  the JAX engine's, and one AdamW train step against JAX's.
+- a 2-layer model at head_dim 320 and at 1100 (above the wgmma cuts; the
+  ``jax_model`` fixture takes the head dim): ``DecodeEngine`` greedy tokens
+  equal to the JAX engine's, and one AdamW train step against JAX's.
 
 Tolerances: forward atol 1e-4 / rtol 1e-5 (tests/test_forward.py:21);
 gradients dQ 9e-4 / dK 7e-4 / dV 7e-5, rtol 1e-5 (tests/test_backward.py:25);
@@ -111,11 +113,14 @@ def _case(name):
     do = rng.standard_normal((b, hq, nq, d), dtype=np.float32)
     ids = _packed(rng, b, nq) if seg else None
     jkw = dict(kw, segment_ids=None if ids is None else jnp.asarray(ids))
-    op = functools.partial(fa.flash_attention, **jkw)
-    grads = jax.jit(lambda a, b_, c, g: jax.vjp(op, a, b_, c)[1](g))(
-        *map(jnp.asarray, (q, k, v, do)))
-    o, lse = jax.jit(functools.partial(fa.flash_attention_forward, **jkw))(
-        *map(jnp.asarray, (q, k, v)))
+
+    @jax.jit  # one compile for the forward and the gradients
+    def run(q_, k_, v_, do_):
+        o, lse = fa.flash_attention_forward(q_, k_, v_, **jkw)
+        grads = jax.vjp(functools.partial(fa.flash_attention, **jkw), q_, k_, v_)[1](do_)
+        return o, lse, grads
+
+    o, lse, grads = run(*map(jnp.asarray, (q, k, v, do)))
     return (q, k, v, do), ids, (np.asarray(o), np.asarray(lse)), [np.asarray(g) for g in grads]
 
 
@@ -243,8 +248,9 @@ def test_routes_take_the_wide_builds(d):
     q = torch.zeros(1, 2, 8, d)
     tfwd.attn_fwd(q, q, q, causal=True, sm_scale=0.1)
     assert (dict(tfwd.ROUTE_LAUNCHES), tfwd.FWD_WIDE_KERNEL.launches) == before
-    with pytest.raises(ValueError, match="queue 2"):
-        tfwd.fwd_route(torch.bfloat16, 1152)
+    assert tfwd.fwd_route(torch.bfloat16, 1152) == "wide_chunk"
+    with pytest.raises(ValueError, match="multiple of 128 above 256"):
+        tfwd.fwd_route(torch.bfloat16, 1100)
     # the wide build's own tile is its only one, in every mode
     tuning.BlockSizes(block_kv=32, block_kv_bwd=32).check(d, alibi=True, segments=True)
     with pytest.raises(ValueError, match="wide build"):
@@ -380,8 +386,8 @@ def test_wide_decode_gets_counter_groups(d, monkeypatch):
     assert tdec.decode_groups(8, 16, 8) == 64 and tdec.decode_groups(2, 4, 4) == 8
     asked = []
 
-    def scratch(splits, rows, head_dim, groups, device, stream):
-        asked.append((splits, rows, head_dim, groups))
+    def scratch(splits, rows, head_dim, groups, device, stream, always=False):
+        asked.append((splits, rows, head_dim, groups, always))
         raise InterruptedError
 
     monkeypatch.setattr(tdec, "_split_scratch", scratch)
@@ -395,15 +401,17 @@ def test_wide_decode_gets_counter_groups(d, monkeypatch):
     table = torch.empty(b, pps, dtype=torch.int32, **meta)
     with pytest.raises(InterruptedError):
         tdec.paged_decode_attention(q, pool, pool, lengths, table, pages_per_block=1)
-    assert asked == [(pps, b * hq, d, tdec.decode_groups(b, hq, hkv))]
+    assert asked == [(pps, b * hq, d, tdec.decode_groups(b, hq, hkv), False)]
 
 
 # ---------------------------------------------------------------------------
-# A 2-layer model at head_dim 320: serving and one train step
+# A 2-layer model at head_dim 320 and 1100 (padded to 1152, column-chunked
+# on the card): serving and one train step
 # ---------------------------------------------------------------------------
 
 MODEL = dict(vocab_size=256, d_model=64, n_layers=2, n_q_heads=2, n_kv_heads=1,
              head_dim=320, d_ff=128)
+MODEL_HEAD_DIMS = (320, 1100)
 PROMPTS = [[5, 7, 11, 13, 17, 19], [3, 1, 4, 1, 5, 9]]
 ENGINE = dict(num_slots=2, num_pages=6, page_size=16, pages_per_seq=2)
 NEW_TOKENS = 3
@@ -415,29 +423,31 @@ def _tokens(seed, b=2, n=17):
         np.int32)
 
 
-@pytest.fixture(scope="module")
-def jax_model():
-    """Seeded numpy weights, the JAX engine's greedy tokens on them and one
-    JAX AdamW step (its loss and the weights after it)."""
-    jcfg = JConfig(**MODEL, dtype=jnp.float32, remat=False)
-    tree = init_params_numpy(TConfig(**MODEL, dtype=torch.float32), seed=3)
+@pytest.fixture(scope="module", params=MODEL_HEAD_DIMS)
+def jax_model(request):
+    """At each head dim of MODEL_HEAD_DIMS: the model's fields, seeded numpy
+    weights, the JAX engine's greedy tokens on them and one JAX AdamW step
+    (its loss and the weights after it)."""
+    fields = dict(MODEL, head_dim=request.param)
+    jcfg = JConfig(**fields, dtype=jnp.float32, remat=False)
+    tree = init_params_numpy(TConfig(**fields, dtype=torch.float32), seed=3)
     jparams = jax.tree.map(jnp.asarray, tree)
     greedy = JEngine(jparams, jcfg, kv_dtype=jnp.float32, **ENGINE).generate(
         PROMPTS, max_new_tokens=NEW_TOKENS)
     opt = optax.adamw(LR, weight_decay=0.01)
     params, state, loss = jstep(jcfg, opt)(jparams, opt.init(jparams), jnp.asarray(_tokens(1)))
-    return dict(tree=tree, greedy=greedy, loss=float(loss), params=params)
+    return dict(fields=fields, tree=tree, greedy=greedy, loss=float(loss), params=params)
 
 
 def test_head_dim_320_engine_tokens_match_jax(jax_model):
-    tcfg = TConfig(**MODEL, dtype=torch.float32, remat=False)
+    tcfg = TConfig(**jax_model["fields"], dtype=torch.float32, remat=False)
     model = params_from_jax(jax_model["tree"], tcfg, device="cpu")
     engine = TEngine(model, tcfg, kv_dtype=torch.float32, device="cpu", **ENGINE)
     assert engine.generate(PROMPTS, max_new_tokens=NEW_TOKENS) == jax_model["greedy"]
 
 
 def test_head_dim_320_train_step_matches_jax(jax_model):
-    tcfg = TConfig(**MODEL, dtype=torch.float32, remat=True)
+    tcfg = TConfig(**jax_model["fields"], dtype=torch.float32, remat=True)
     model, opt_state, optimizer = make_train_state(tcfg, params=jax_model["tree"],
                                                    device="cpu")
     loss = make_train_step(tcfg, optimizer)(model, opt_state, torch.from_numpy(_tokens(1)))
