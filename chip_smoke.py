@@ -12,9 +12,11 @@ last key split, a verify that leaves a horizon-crossing tile unmasked),
 two of the 16-bit wide forward (S summed without the last owner's
 partial score, or with an owner's own partial in place of its peers'),
 two of the 16-bit wide sweeps (dP summed without the last owner's
-partial, or S with an owner's own partial in place of its peers') and one
-of the column-chunked forward (S summed without the head dim's last
-streamed slice);
+partial, or S with an owner's own partial in place of its peers'), one
+of the column-chunked fp32 forward (S summed without the head dim's last
+streamed slice) and two of route wide_scores' forward (a score pass that
+drops the head dim's last slice, a product pass that drops the last key
+tile);
 holds each kernel (and each ALiBi / dropout / segment-id / fp8-V mode, each
 route of the forward, of the backward sweeps and of verify: wgmma, fp32,
 and the paged kernels at their key-split and tile edges) against its plain
@@ -161,11 +163,14 @@ Then drives every path of the port:
   graphed bursts of 8, from int8 KV and chunked with the prefix cache
   (serve_d512); training-bench-d512, the training-bench model with 8 q / 2
   kv heads of 512, trained at B8 x N2048 (train_d512); above 1024 (the
-  column-chunked kernels, route wide_chunk, and decode's chunked build)
-  the same checks at 1152 in every mode and dtype, at 1408, 2048 and 8192,
-  the op at 1100 (padded to 1152), the chunked forward's mutant caught,
-  and the two models re-headed at 2048 (serve_d2048: 1 q / 1 kv head;
-  train_d2048: 2 q / 1 kv heads);
+  bf16 / fp16 forward and sweeps as score and product passes, route
+  wide_scores; verify and fp32 column-chunked, route wide_chunk /
+  wide_fp32; decode's chunked build) the same checks at 1152 in every mode
+  and dtype, at 1408, 2048 and 8192, the forward bit for bit on repeat,
+  each pass against its plain version on the same inputs, a call in
+  several waves of scratch bit for bit the call in one, the op at 1100
+  (padded to 1152), the mutants caught, and the two models re-headed at
+  2048 (serve_d2048: 1 q / 1 kv head; train_d2048: 2 q / 1 kv heads);
 
 checks that each path went through its kernels (launch counts, counted
 through CUDA graph replays for the bursts and rounds, and the
@@ -665,6 +670,52 @@ def wide_wgmma_instances(log, source):
     return out
 
 
+SCORES_ENTRY = re.compile(r"ws_(fwd_scores|bwd_scores|product)_kernelI\d+(__nv_bfloat16|__half)"
+                          r"(?:Li(\d)E)?E")
+SCORES_PRODUCTS = ("o", "dq", "dkv")  # csrc/wide_scores.cuh kProductO / Dq / Dkv
+
+
+def _scores_name(match):
+    """"<pass>_<dtype>" of a SCORES_ENTRY match."""
+    kind = match.group(1)
+    if match.group(3) is not None:
+        kind = f"product_{SCORES_PRODUCTS[int(match.group(3))]}"
+    return f"{kind}_{'bf16' if 'bfloat16' in match.group(2) else 'fp16'}"
+
+
+def scores_instances(log, source):
+    """Registers, spills and ptxas performance warnings of every instance of
+    route wide_scores' passes (csrc/wide_scores.cuh) in a source's nvcc
+    log, by "<pass>_<dtype>" (fwd_scores, bwd_scores, product_o / _dq /
+    _dkv)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = SCORES_ENTRY.search(m.group(1))
+            cur = _scores_name(k) if k else None
+            if cur:
+                out[cur] = {"source": source, "ptxas_warnings": []}
+            continue
+        if "Performance Loss" in line or "serialized" in line:
+            # ptxas names the function in the warning, before its own entry
+            k = SCORES_ENTRY.search(line)
+            # a warning of no instance by name still fails the build check
+            name = _scores_name(k) if k else "unattributed"
+            out.setdefault(name, {"source": source, "ptxas_warnings": []})
+            out[name]["ptxas_warnings"].append(line.strip())
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
+
+
 def wide_bwd_instances(log):
     """Registers, spills and ptxas performance warnings of every 16-bit
     wide sweep instance (csrc/wide.cuh wide_bwd_dkv_kernel /
@@ -837,7 +888,7 @@ def phase_build(mutants=False):
     # pool kinds x 6 head dims) by name, none spilling, each with its
     # layout's shared bytes
     wide = {src: info[src]["ptxas"] for src in built
-            if src.endswith("_wide.cu") or src == "paged_decode_chunk.cu"}
+            if src.endswith(("_wide.cu", "_scores.cu")) or src == "paged_decode_chunk.cu"}
     spilling = {src: [l for l in lines if re.search(r"[1-9]\d* bytes spill", l)]
                 for src, lines in wide.items()}
     spilling = {src: lines for src, lines in spilling.items() if lines}
@@ -851,9 +902,22 @@ def phase_build(mutants=False):
              if v["ptxas_warnings"] or (v["owners_a_cta"] == 2 and v.get("registers") != LAUNCH_REGS)}
     decode = paged_instances(built["paged_decode_wide.cu"]["log"], "paged_decode_wide.cu") if (
         "paged_decode_wide.cu" in built) else {}
+    # route wide_scores: 2 dtypes x (the forward's score and product
+    # passes, the backward's score pass and two products), each at the
+    # launch's 168 registers, none spilling or with serialized wgmmas
+    scores = {}
+    for src in SCORES_BUILDS.values():
+        src = src.rsplit("/", 1)[1]
+        if src in built:
+            scores.update(scores_instances(built[src]["log"], src))
+    scores_wrong = {k: v for k, v in scores.items()
+                    if v["ptxas_warnings"] or v.get("registers") != LAUNCH_REGS
+                    or v.get("spill_stores") or v.get("spill_loads")}
     emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling,
           "wide_wgmma_instances": wgmma, "wide_bwd_instances": sweeps,
-          "wide_decode_instances": decode})
+          "wide_decode_instances": decode, "wide_scores_instances": scores})
+    if scores and (len(scores) != 10 or scores_wrong):
+        raise AssertionError(f"wide_scores instances off ({len(scores)} of 10): {scores_wrong}")
     if spilling:
         raise AssertionError(f"wide instances spill: {spilling}")
     if decode and (len(decode) != 42 or any(v.get("spill_stores") or v.get("spill_loads")
@@ -1127,11 +1191,11 @@ def phase_fwd(dev):
     return results
 
 
-def fwd_case(dev, gen, case, phase="fwd_check"):
+def fwd_case(dev, gen, case, phase="fwd_check", repeat=False):
     """One forward check case (name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal,
     window, softcap, mods): the kernel once on the route fwd_route names
-    and its plain version on the same inputs; emits and returns the
-    record."""
+    (with ``repeat`` twice, O and lse bit for bit) and its plain version on
+    the same inputs; emits and returns the record."""
     import torch
     from flash_attention_dlrs_tpu_torch.ops.fwd_kernel import (
         DEFAULT_MASK_VALUE, attn_fwd, attn_fwd_plain, fwd_route,
@@ -1155,6 +1219,10 @@ def fwd_case(dev, gen, case, phase="fwd_check"):
     rec["route"] = route
     rec["on_its_route"] = all_on(routes, route, 1)
     ok &= rec["on_its_route"]
+    if repeat:
+        rec["bitwise_repeatable"] = all(torch.equal(x, y)
+                                        for x, y in zip(got, attn_fwd(q, k, v, **kw)))
+        ok &= rec["bitwise_repeatable"]
     rec["ok"] = ok
     if "q_seg" in kw:
         rec["empty_rows"] = int((want[1] == DEFAULT_MASK_VALUE).sum())
@@ -2528,18 +2596,21 @@ def check_chunked_fp32(dev, prompts, **variant):
     return {"miss": gaps[0], "hit": gaps[1], "hits": hits}
 
 
-def phase_serve_chunked(dev, model, cfg, phase="serve_chunked", route="wgmma", **variant):
+def phase_serve_chunked(dev, model, cfg, phase="serve_chunked", route="wgmma",
+                        verify_route=None, **variant):
     """Chunked admission with the prefix cache from bf16 and int8 KV: the
     first request prefills 2048 tokens in 8 chunks and registers its pages;
     the next seven hit the cache for the 8 pages of the system prompt and
     prefill 4 chunks each.  Launch counts zeroed just before each run and
-    read just after (every forward and verify on ``route``); the last
+    read just after (every forward on ``route``, every verify on
+    ``verify_route``, by default ``route``); the last
     chunk's every layer checked kernel against plain; admission ms dense /
     chunked / chunked with a hit; a 2-layer fp32 copy (with the config
     fields ``variant``) chunked logits against its dense prefill."""
     import torch
     from flash_attention_dlrs_tpu_torch.runtime import DecodeEngine
 
+    verify_route = verify_route or route
     rng = np.random.default_rng(2)
     system = rng.integers(0, cfg.vocab_size, SYSTEM_TOKENS).tolist()
     prompts = [system + rng.integers(0, cfg.vocab_size, UNIQUE_TOKENS).tolist()
@@ -2602,8 +2673,8 @@ def phase_serve_chunked(dev, model, cfg, phase="serve_chunked", route="wgmma", *
             f"{kind}_{want_chunks}_chunks": chunks == want_chunks,
             f"{kind}_verify_launches_16_per_chunk":
                 launches["paged_verify"] == cfg.n_layers * want_chunks,
-            f"{kind}_verify_launches_all_{route}":
-                all_on(r["verify_routes"], route, launches["paged_verify"]),
+            f"{kind}_verify_launches_all_{verify_route}":
+                all_on(r["verify_routes"], verify_route, launches["paged_verify"]),
             f"{kind}_decode_launches_16_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
             f"{kind}_no_dense_prefill": (launches["attn_fwd"] == 0
@@ -2813,12 +2884,16 @@ def pages_back(*engines):
 
 def _serve_kernels():
     """The serving path's kernels by name, each over its builds (one for
-    each head dim, and the wide one; the forward's without segment ids)."""
+    each head dim, and the wide ones; the forward's without segment ids,
+    its score pass above 1024 under "attn_fwd", its product pass apart)."""
     from flash_attention_dlrs_tpu_torch.ops import decode as dm
     from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
 
+    # above 1024 a bf16 forward is the score pass and the product pass
     return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL,
-                         fk.FWD_WIDE_KERNEL),
+                         fk.FWD_WIDE_KERNEL, ws.FWD_SCORES_KERNEL),
+            "attn_fwd_product": (ws.FWD_PRODUCT_KERNEL,),
             "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL,
                              dm.DECODE_WIDE_KERNEL, dm.DECODE_CHUNK_KERNEL),
             "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL,
@@ -4003,8 +4078,10 @@ def phase_train(dev, name="train", kernels=None, route="wgmma", warm=TRAIN_WARM_
 
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (ms_per_step / 1e3)
     fpt = model_flops_per_token(cfg, TRAIN_SEQ)
-    expected = {"attn_fwd": 2 * cfg.n_layers * timed,
-                **{kname: cfg.n_layers * timed for kname in kernels if kname != "attn_fwd"}}
+    # block remat: two forwards a layer and step (each with its product pass
+    # on route wide_scores), one of each backward kernel
+    expected = {kname: (2 if kname.startswith("attn_fwd") else 1) * cfg.n_layers * timed
+                for kname in kernels}
     checks = {
         "loss_finite": all(np.isfinite(losses)),
         "loss_falls": losses[-1] < losses[0],
@@ -4584,7 +4661,18 @@ def _all_attention_kernels():
             "attn_bwd_dq_d256_seg": bwd_kernel.DQ_D256_SEG_KERNEL,
             "attn_fwd_wide": fwd_kernel.FWD_WIDE_KERNEL,
             "attn_bwd_dkv_wide": bwd_kernel.DKV_WIDE_KERNEL,
-            "attn_bwd_dq_wide": bwd_kernel.DQ_WIDE_KERNEL}
+            "attn_bwd_dq_wide": bwd_kernel.DQ_WIDE_KERNEL,
+            **_scores_kernels()}
+
+
+def _scores_kernels():
+    """Route wide_scores' passes (ops/wide_scores.py), by name."""
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    return {"attn_fwd_scores": ws.FWD_SCORES_KERNEL, "attn_fwd_product": ws.FWD_PRODUCT_KERNEL,
+            "attn_bwd_scores": ws.BWD_SCORES_KERNEL,
+            "attn_bwd_product_dkv": ws.DKV_PRODUCT_KERNEL,
+            "attn_bwd_product_dq": ws.DQ_PRODUCT_KERNEL}
 
 
 def counted(fn):
@@ -7580,6 +7668,11 @@ WIDE_BUILDS = {"attn_fwd": "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_wide.cu
                "paged_decode": "flash_attention_dlrs_tpu_torch/csrc/paged_decode_wide.cu",
                "paged_decode_chunk": "flash_attention_dlrs_tpu_torch/csrc/paged_decode_chunk.cu",
                "paged_verify": "flash_attention_dlrs_tpu_torch/csrc/paged_verify_wide.cu"}
+# route wide_scores (bf16 / fp16 forward and sweeps above 1024): the passes'
+# body and the two sources it is built as
+SCORES_SOURCE = "flash_attention_dlrs_tpu_torch/csrc/wide_scores.cuh"
+SCORES_BUILDS = {"fwd": "flash_attention_dlrs_tpu_torch/csrc/attn_fwd_scores.cu",
+                 "bwd": "flash_attention_dlrs_tpu_torch/csrc/attn_bwd_scores.cu"}
 # The bench models re-headed at head dim 512: every projection keeps its
 # bench shape (serving 16 q x 128 = 4 q x 512 and 8 kv x 128 = 2 kv x 512;
 # training 32 x 128 = 8 x 512 and 8 x 128 = 2 x 512), so parameters, GEMMs
@@ -7589,7 +7682,8 @@ D512_TRAIN_HEADS = dict(n_q_heads=8, n_kv_heads=2, head_dim=512)
 SERVE_RE_HEADED_NEW_TOKENS = 16
 TRAIN_RE_HEADED_WARM, TRAIN_RE_HEADED_TIMED = 1, 2
 # The bench models re-headed at head dim 2048, above the wgmma cuts (every
-# 16-bit attention call on route "wide_chunk"): the q projections keep their
+# 16-bit forward and backward on route "wide_scores", every verify on
+# "wide_chunk"): the q projections keep their
 # bench shapes (serving 16 x 128 = 1 x 2048, training 32 x 128 = 2 x 2048);
 # the kv projections cannot (one kv head of 2048 is twice serving's 8 x 128
 # and as wide as training's 8 x 128 x 2).
@@ -7619,11 +7713,12 @@ _WIDE_BWD_MUTANT_ONLY_512_640 = [
     (f"    case {d}: return launch_bwd_cut<T, false, {cut}>(a, maps, grid);",
      f"    case {d}: return int(cudaErrorInvalidValue);")
     for d, cut in ((384, "3, 1, 2"), (768, "3, 1, 4"), (896, "7, 1, 2"), (1024, "4, 1, 4"))]
-# The column-chunked forward (csrc/wide.cuh wide_fwd_chunk_kernel) broken in
-# its score sum: S summed without the head dim's last streamed slice (32
-# columns in fp32, 64 in 16 bits).  fwd_check's cases at d 1152 must catch
-# it.  It builds the column-chunked instances alone (the wgmma cuts' launches
-# edited to refuse), so its compile is a few seconds.
+# The column-chunked forward (csrc/wide.cuh wide_fwd_chunk_kernel, fp32 and
+# verify since route wide_scores took the 16-bit forward above 1024) broken
+# in its score sum: S summed without the head dim's last streamed slice (32
+# columns in fp32).  fwd_check's fp32 cases at d 1152 must catch it.  It
+# builds the column-chunked instances alone (the wgmma cuts' launches edited
+# to refuse), so its compile is a few seconds.
 _WIDE_CHUNK_MUTANT_ONLY = [
     (f"    case {d}: return launch_wgmma_cut<T, PAGED, {cut}>(a, tm_q, tm_k, tm_v, tma, grid);",
      f"    case {d}: return int(cudaErrorInvalidValue);")
@@ -7650,6 +7745,16 @@ WIDE_MUTANTS = {
         "const int src_s = p;  // the owner whose S partial is added",
         "const int src_s = p == 0 ? p : me;  // the owner whose S partial is added"),
     ] + _WIDE_BWD_MUTANT_ONLY_512_640),
+    # route wide_scores' forward (csrc/wide_scores.cuh): its score pass
+    # summing S without the head dim's last 64-column slice, and its product
+    # pass leaving out the last key tile a q tile sees; fwd_check's 16-bit
+    # cases at d 1152 must catch each
+    "scores_drops_last_slice": ("attn_fwd_scores.cu", "wide_scores.cuh", [(
+        "return D / SLICE;  // every slice of the head dim, summed in order",
+        "return D / SLICE - 1;  // every slice of the head dim, summed in order")]),
+    "product_drops_last_key_tile": ("attn_fwd_scores.cu", "wide_scores.cuh", [(
+        "for (int kt = tr.lo; kt < tr.hi; ++kt) {  // every key tile the q tile sees, in order",
+        "for (int kt = tr.lo; kt < tr.hi - 1; ++kt) {  // every key tile the q tile sees, in order")]),
 }
 WIDE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
 WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cuts' widest, below
@@ -7880,6 +7985,24 @@ def chunk_paged_cases(num_sms):
 # one op call and its backward on the wide kernels
 WIDE_CALL = dict(attn_fwd_wide=1, attn_bwd_preprocess=1, attn_bwd_dkv_wide=1,
                  attn_bwd_dq_wide=1)
+# the same on route wide_scores (bf16 / fp16 above 1024), one wave: a score
+# pass and a product pass forward, the preprocess, one backward score pass
+# and the two products
+SCORES_FWD_CALL = dict(attn_fwd_scores=1, attn_fwd_product=1)
+SCORES_CALL = dict(SCORES_FWD_CALL, attn_bwd_preprocess=1, attn_bwd_scores=1,
+                   attn_bwd_product_dkv=1, attn_bwd_product_dq=1)
+
+
+def wide_call(dtype, width, forward_only=False):
+    """The launches of one op call (and its backward) at kernel width
+    ``width`` in ``dtype``: the wide builds', or route wide_scores' passes
+    for bf16 / fp16 above 1024."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import geometry as geo
+
+    if geo.chunked(width) and dtype != torch.float32:
+        return SCORES_FWD_CALL if forward_only else SCORES_CALL
+    return {"attn_fwd_wide": 1} if forward_only else WIDE_CALL
 
 
 def _op_wide(dev, gen, dt, shape, v8=None, seg=None, **kw):
@@ -7982,8 +8105,9 @@ def wide_op_checks(dev, gen):
     window; paged decode and verify from q of 320 on pools of 384 and of
     1100 on pools of 1152.  Each call's launches counted exactly
     (one wide forward, and with a backward the preprocess and each wide
-    sweep once, on the route of its types) and held against the same call
-    on the plain versions: (records, checks)."""
+    sweep once, on the route of its types; bf16 / fp16 at 1100 each pass
+    of route wide_scores once) and held against the same call on the plain
+    versions: (records, checks)."""
     import torch
 
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
@@ -8010,7 +8134,7 @@ def wide_op_checks(dev, gen):
                 ("fp32_window_softcap_alibi_dropout", f32, None, None,
                  dict(causal=True, window=64, logit_softcap=25.0, **both)),
                 ("fp8v_e4m3_bf16_forward", bf16, "e4m3", None, dict(causal=True))):
-            want = {"attn_fwd_wide": 1} if v8 else WIDE_CALL
+            want = wide_call(dt, width, forward_only=bool(v8))
             record(f"op_d{d}_{name}", *_op_wide(dev, gen, dt, shape, v8, seg, **kw),
                    on_route(dt, seg is not None, bool(v8), d=width, **want))
         b, hq, hkv, n = shape[:4]
@@ -8018,7 +8142,7 @@ def wide_op_checks(dev, gen):
         for name, window in (("causal", None), ("causal_window", (63, 0))):
             rec, ok, launches, _ = _nn_packed(dev, gen, lengths, window, shape=(b, hq, hkv, n, d))
             record(f"nn_d{d}_padded_{name}", rec, ok, launches,
-                   on_route(bf16, True, d=width, **WIDE_CALL))
+                   on_route(bf16, True, d=width, **wide_call(bf16, width)))
     for d in (320, 1100):
         record(f"paged_decode_d{d}_int8", *_paged_wide_op(dev, gen, "int8", 0, d), 1)
         record(f"paged_verify_d{d}_T64_bf16", *_paged_wide_op(dev, gen, "bf16", 64, d), 1)
@@ -8163,12 +8287,14 @@ def wide_timings(dev, gen):
 
 
 def chunk_timings(dev, gen):
-    """The column-chunked kernels at the d 2048 re-headed bench models'
+    """The kernels above 1024 at the d 2048 re-headed bench models'
     shapes, as :func:`wide_timings` times the wgmma ones at d 512: the
-    forward at the training shape (B8 Hq2 Hkv1 N2048) and the serving
-    prefill (B1 Hq1 Hkv1 N2048), the sweeps at the training shape, decode
-    from bf16 and int8 KV at 8 sequences of 2048 and verify of a 256-token
-    chunk at 2048 (the serving heads Hq1 Hkv1).  The library time is the
+    forward (route wide_scores) at the training shape (B8 Hq2 Hkv1 N2048)
+    and the serving prefill (B1 Hq1 Hkv1 N2048), the sweeps at the
+    training shape, each of the route's passes alone at both
+    (:func:`scores_pass_timings`), decode from bf16 and int8 KV at 8
+    sequences of 2048 and verify of a 256-token chunk at 2048 (the serving
+    heads Hq1 Hkv1, column-chunked).  The library time is the
     faster of SDPA with enable_gqa on the backend it picks and SDPA's
     memory-efficient backend on expanded K/V, where either runs."""
     import torch
@@ -8201,7 +8327,220 @@ def chunk_timings(dev, gen):
     family = t["bwd_train_d2048"]["attn_bwd"]
     t["bwd_train_d2048"]["family_vs_sdpa"] = (family["ms"] / family["library_ms"]
                                               if family["library_ms"] else None)
+    t["passes_train_d2048"] = scores_pass_timings(dev, gen, *train, 2048, 2048)
+    t["passes_serve_prefill_d2048"] = scores_pass_timings(dev, gen, *serve, 2048, 2048,
+                                                          backward=False)
     return t
+
+
+# Route wide_scores' passes held one by one against their plain versions on
+# the same inputs (each product on the kernel score pass's own scratch):
+# the d 2048 training model's attention, every mode at 1152, fp8 V at 1408.
+SCORES_PASS_CASES = [
+    # name, dtype, B, Hq, Hkv, Nq, Nkv, d, causal, window, softcap, mods
+    ("d2048_train_B8_H2_N2048", "bfloat16", 8, 2, 1, 2048, 2048, 2048, True, 0, 0.0, {}),
+    ("d1152_window_softcap_alibi_dropout_seg_fp16", "float16", 2, 4, 2, 333, 333, 1152, True,
+     100, 30.0, dict(alibi=True, rate=0.1, seed=-5, seg="packed")),
+    ("d1408_noncausal_tail_fp8v_e4m3", "bfloat16", 1, 4, 2, 130, 300, 1408, False, 0, 0.0,
+     dict(v8="e4m3")),
+]
+# a call long enough that the default scratch cap runs it in waves: B1 Hq2
+# Hkv1 N16384 d1152 causal (5 forward and 4 backward waves)
+SCORES_WAVE_SHAPE = (1, 2, 1, 16384, 1152)
+
+
+def _near(got, want, mask, eps):
+    """Max error of ``got`` against ``want`` where ``mask`` holds (equal
+    infinities count as 0), and whether every element is within eps x
+    |want| + 1e-3 x max |want| (a 16-bit rounding of an fp32 value summed
+    in another order)."""
+    import torch
+
+    g, w = got.float()[mask], want.float()[mask]
+    same_inf = torch.isinf(g) & torch.isinf(w) & (torch.sign(g) == torch.sign(w))
+    err = torch.where(same_inf, 0.0, (g - w).abs())
+    finite_w = torch.where(torch.isinf(w), 0.0, w)
+    limit = eps * finite_w.abs() + 1e-3 * float(finite_w.abs().max())
+    return float(err.max()), bool((err <= limit).all())
+
+
+def scores_pass_case(dev, gen, case):
+    """One SCORES_PASS_CASES case: each pass of route wide_scores (one wave)
+    against its plain version on the same inputs: S and each tile's row max
+    and sum, O and lse from the kernel's own S, P o M and dS, dQ and dK / dV
+    from the kernel's own P o M and dS (no backward with fp8 V).  Returns
+    {pass: {"max_abs_err", "ok"}}."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    name, dt, b, hq, hkv, nq, nkv, d, causal, window, cap, mod = case
+    dt = getattr(torch, dt)
+    eps = torch.finfo(dt).eps
+    q, k, v, do = (_rand(gen, (b, h, n, d), dt, dev)
+                   for h, n in ((hq, nq), (hkv, nkv), (hkv, nkv), (hq, nq)))
+    if mod.get("v8"):
+        v = v.to(getattr(torch, FP8_V[mod["v8"]]))
+    kw = dict(causal=causal, sm_scale=d ** -0.5, window=window, softcap=cap,
+              **case_kwargs(hq, b, nq, nkv, dev, mod))
+    plan = ws.waves(q, k, False)
+    assert len(plan) == 1, plan
+    wave = plan[0]
+    mask = ws.scratch_mask(q, k, wave, causal, window)
+    out = {}
+    s_k, st_k = ws.fwd_scores(q, k, wave, **kw)
+    s_p, st_p = ws.fwd_scores_plain(q, k, wave, **kw)
+    err_s, ok_s = _near(s_k, s_p, mask, 1e-4)
+    tiles = mask.view(mask.shape[0], -1, ws.TILE).any(dim=-1)
+    err_m, ok_m = _near(st_k[..., 0], st_p[..., 0], tiles, 1e-4)
+    err_l, ok_l = _near(st_k[..., 1], st_p[..., 1], tiles, 1e-4)
+    out["fwd_scores"] = {"max_abs_err": max(err_s, err_m, err_l), "ok": ok_s and ok_m and ok_l}
+    got = torch.empty_like(q), torch.empty(q.shape[:3], dtype=torch.float32, device=dev)
+    want = torch.empty_like(q), torch.empty_like(got[1])
+    ws.fwd_product(s_k, st_k, v, *got, wave, **kw)
+    ws.fwd_product_plain(s_k, st_k, v, *want, wave, **kw)
+    rec, ok = fwd_errors(got, want, dt)
+    out["fwd_product"] = {"max_abs_err": rec["max_abs_err_o"],
+                          "max_abs_err_lse": rec["max_abs_err_lse"], "ok": ok}
+    if not mod.get("v8"):
+        o, lse = fk.attn_fwd(q, k, v, **kw)
+        delta = bk.attn_bwd_preprocess(o, do)
+        bwave = ws.waves(q, k, True)[0]
+        p_k, ds_k = ws.bwd_scores(q, k, v, do, lse, delta, bwave, **kw)
+        p_p, ds_p = ws.bwd_scores_plain(q, k, v, do, lse, delta, bwave, **kw)
+        err_p, ok_p = _near(p_k, p_p, mask, eps)
+        err_ds, ok_ds = _near(ds_k, ds_p, mask, eps)
+        out["bwd_scores"] = {"max_abs_err": max(err_p, err_ds), "ok": ok_p and ok_ds}
+        dq_k, dq_p = torch.empty_like(q), torch.empty_like(q)
+        ws.dq_product(ds_k, q, k, dq_k, bwave, **kw)
+        ws.dq_product_plain(ds_k, q, k, dq_p, bwave, **kw)
+        full = torch.ones_like(dq_k, dtype=torch.bool)
+        out["dq_product"] = dict(zip(("max_abs_err", "ok"), _near(dq_k, dq_p, full, eps)))
+        dkv_k = torch.empty_like(k), torch.empty_like(v)
+        dkv_p = torch.empty_like(k), torch.empty_like(v)
+        ws.dkv_product(p_k, ds_k, q, k, do, *dkv_k, (None, None), bwave, **kw)
+        ws.dkv_product_plain(p_k, ds_k, q, k, do, *dkv_p, (None, None), bwave, **kw)
+        full = torch.ones_like(dkv_k[0], dtype=torch.bool)
+        errs = [_near(a, w, full, eps) for a, w in zip(dkv_k, dkv_p)]
+        out["dkv_product"] = {"max_abs_err": max(e for e, _ in errs),
+                              "ok": all(o_ for _, o_ in errs)}
+    torch.cuda.synchronize()
+    emit({"phase": "wide_scores_pass_check", "case": name, "dtype": str(dt),
+          "shape": [b, hq, hkv, nq, nkv, d], "causal": causal, "window": window,
+          "softcap": cap, "mods": mod, "passes": out})
+    return out
+
+
+def scores_wave_check(dev, gen):
+    """A call of route wide_scores that the default scratch cap runs in
+    waves (SCORES_WAVE_SHAPE), forward and backward, bit for bit the same
+    call in one wave (a cap it fits), and the forward and backward held to
+    attn_fwd_plain / attn_bwd_plain: a record with its checks."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import geometry as geo
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    b, hq, hkv, n, d = SCORES_WAVE_SHAPE
+    q, do = (_rand(gen, (b, hq, n, d), torch.bfloat16, dev) for _ in range(2))
+    k, v = (_rand(gen, (b, hkv, n, d), torch.bfloat16, dev) for _ in range(2))
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    fwd_waves, bwd_waves = len(ws.waves(q, k, False)), len(ws.waves(q, k, True))
+    many = ws.attn_fwd_scores(q, k, v, **kw)
+    delta = bk.attn_bwd_preprocess(many[0], do)
+    g_many = ws.attn_bwd_scores(q, k, v, do, many[1], delta, **kw)
+    cap = geo.WIDE_SCORES_SCRATCH_BYTES
+    try:
+        geo.WIDE_SCORES_SCRATCH_BYTES = 1 << 40  # a cap the whole call fits: one wave
+        single = ws.attn_fwd_scores(q, k, v, **kw)
+        g_single = ws.attn_bwd_scores(q, k, v, do, many[1], delta, **kw)
+    finally:
+        geo.WIDE_SCORES_SCRATCH_BYTES = cap
+    torch.cuda.synchronize()
+    fwd_rec, fwd_ok = fwd_errors(many, fk.attn_fwd_plain(q, k, v, **kw), torch.bfloat16)
+    grads = tuple(g_many[x] for x in ("dq", "dk", "dv"))
+    bwd_rec, bwd_ok = bwd_errors(grads, bk.attn_bwd_plain(q, k, v, many[0], many[1], do, **kw),
+                                 torch.bfloat16)
+    checks = {
+        "waves_forward_and_backward_several": fwd_waves > 1 and bwd_waves > 1,
+        "forward_waves_bitwise_one_wave": all(torch.equal(x, y) for x, y in zip(many, single)),
+        "backward_waves_bitwise_one_wave": all(torch.equal(g_many[x], g_single[x])
+                                               for x in g_many),
+        "forward_vs_plain": fwd_ok, "backward_vs_plain": bwd_ok}
+    rec = {"phase": "wide_scores_waves", "shape": list(SCORES_WAVE_SHAPE),
+           "scratch_cap_bytes": geo.WIDE_SCORES_SCRATCH_BYTES,
+           "waves": {"forward": fwd_waves, "backward": bwd_waves}, "fwd": fwd_rec,
+           "bwd": bwd_rec, "checks": checks}
+    emit(rec)
+    del q, k, v, do, many, single, g_many, g_single
+    torch.cuda.empty_cache()
+    return rec
+
+
+def scores_pass_work(b, hq, hkv, n, d):
+    """Operations and bytes of each pass of route wide_scores at one causal
+    bf16 shape (p visible pairs a head): each input read once, each output
+    written once (the scratch at 4 bytes a pair forward, 2 + 2 backward)."""
+    pairs = b * hq * n * (n + 1) / 2
+    q_bytes, kv_bytes, rows = 2 * b * hq * n * d, 2 * b * hkv * n * d, 4 * b * hq * n
+    return {"fwd_scores": (2 * pairs * d, q_bytes + kv_bytes + 4 * pairs),
+            "fwd_product": (2 * pairs * d, 4 * pairs + kv_bytes + q_bytes + rows),
+            "bwd_scores": (4 * pairs * d, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 4 * pairs),
+            "dkv_product": (4 * pairs * d, 4 * pairs + 2 * q_bytes + 2 * kv_bytes),
+            "dq_product": (2 * pairs * d, 2 * pairs + kv_bytes + q_bytes)}
+
+
+def scores_pass_timings(dev, gen, b, hq, hkv, n, d, backward=True):
+    """Each pass of route wide_scores at one causal bf16 shape (one wave):
+    ms (warm, host time in it), device ms, its plain version's ms on the
+    same inputs, its bound; no PyTorch call computes a pass alone (each
+    reads or writes the route's scratch of visible tiles), so library_ms is
+    null and the call's SDPA time stands beside the whole call."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+    from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    q, do = (_rand(gen, (b, hq, n, d), torch.bfloat16, dev) for _ in range(2))
+    k, v = (_rand(gen, (b, hkv, n, d), torch.bfloat16, dev) for _ in range(2))
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    wave = (0, b * hq * ws.n_tiles(n))
+    o, lse = fk.attn_fwd(q, k, v, **kw)
+    s, st = ws.fwd_scores(q, k, wave, **kw)
+    o2, lse2 = torch.empty_like(o), torch.empty_like(lse)
+    calls = {"fwd_scores": (lambda: ws.fwd_scores(q, k, wave, **kw),
+                            lambda: ws.fwd_scores_plain(q, k, wave, **kw)),
+             "fwd_product": (lambda: ws.fwd_product(s, st, v, o2, lse2, wave, **kw),
+                             lambda: ws.fwd_product_plain(s, st, v, o2, lse2, wave, **kw))}
+    if backward:
+        delta = bk.attn_bwd_preprocess(o, do)
+        p, ds = ws.bwd_scores(q, k, v, do, lse, delta, wave, **kw)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        calls.update({
+            "bwd_scores": (lambda: ws.bwd_scores(q, k, v, do, lse, delta, wave, **kw),
+                           lambda: ws.bwd_scores_plain(q, k, v, do, lse, delta, wave, **kw)),
+            "dkv_product": (lambda: ws.dkv_product(p, ds, q, k, do, dk, dv, (None, None), wave,
+                                                   **kw),
+                            lambda: ws.dkv_product_plain(p, ds, q, k, do, dk, dv, (None, None),
+                                                         wave, **kw)),
+            "dq_product": (lambda: ws.dq_product(ds, q, k, dq, wave, **kw),
+                           lambda: ws.dq_product_plain(ds, q, k, dq, wave, **kw))})
+    work = scores_pass_work(b, hq, hkv, n, d)
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = work[name]
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        ms = median_ms(kernel)
+        rows[name] = {"ms": ms, "device_ms": device_ms(kernel, floor_ms=bound_ms),
+                      "plain_ms": median_ms(plain, warmup=1, reps=1),
+                      "bound_ms": bound_ms, "bound_by": bound_by, "tflops": flops / ms / 1e9,
+                      "library_ms": None,
+                      "library": "none: no PyTorch call computes one pass of the route alone"}
+    del q, k, v, do, o, lse, s, st
+    torch.cuda.empty_cache()
+    return rows
 
 
 def wide_fwd_repeats(dev, gen):
@@ -8233,24 +8572,30 @@ def wide_fwd_repeats(dev, gen):
 def wide_mutants_caught(dev, builds):
     """Each broken copy of WIDE_MUTANTS in place of its build's kernels:
     the forward's (FWD_WIDE_KERNEL) on the wide forward cases at d 512 and
-    640 (the column-chunked one's on those at d 1152), the sweeps'
+    640 (the column-chunked one's on the fp32 ones at d 1152), the sweeps'
     (DKV_WIDE_KERNEL and DQ_WIDE_KERNEL) on the 16-bit wide bwd_check cases
-    at d 512 and 640: each must fail at least one."""
+    at d 512 and 640, route wide_scores' forward passes (FWD_SCORES_KERNEL
+    and FWD_PRODUCT_KERNEL) on the 16-bit cases at d 1152: each must fail
+    at least one."""
     import torch
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
     from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
 
     wait = wait_mutant_builds(builds)
     fwd_cases = [c for c in wide_fwd_cases() if c[7] in (512, 640) and c[2] * c[5] <= 2048]
-    chunk_cases = [c for c in chunk_fwd_cases() if c[7] == 1152]
+    chunk_cases = [c for c in chunk_fwd_cases() if c[7] == 1152 and c[1] == torch.float32]
+    score_cases = [c for c in chunk_fwd_cases() if c[7] == 1152 and c[1] != torch.float32]
     bwd_cases = [c for c in wide_bwd_cases() if c[7] in (512, 640) and c[1] != F32
                  and c[2] * c[5] <= 2048]
     caught = {}
     for name, (_, lib, source) in builds.items():
         sweeps = source == "attn_bwd_wide.cu"
+        scores = source == "attn_fwd_scores.cu"
         slots = ((bk, "DKV_WIDE_KERNEL"), (bk, "DQ_WIDE_KERNEL")) if sweeps else (
-            (fk, "FWD_WIDE_KERNEL"),)
+            ((ws, "FWD_SCORES_KERNEL"), (ws, "FWD_PRODUCT_KERNEL")) if scores
+            else ((fk, "FWD_WIDE_KERNEL"),))
         real = [getattr(mod, attr) for mod, attr in slots]
         failed = []
         gen = torch.Generator(device=dev).manual_seed(9)
@@ -8258,8 +8603,8 @@ def wide_mutants_caught(dev, builds):
             for (mod, attr), kernel in zip(slots, real):
                 setattr(mod, attr, _cuda.CudaKernel(source, kernel.symbol, kernel.argtypes,
                                                     library=lib))
-            for case in (bwd_cases if sweeps else chunk_cases if name.startswith("wide_chunk")
-                         else fwd_cases):
+            for case in (bwd_cases if sweeps else score_cases if scores
+                         else chunk_cases if name.startswith("wide_chunk") else fwd_cases):
                 ok = (bwd_case(dev, gen, case)[1] if sweeps
                       else fwd_case(dev, gen, case, phase="wide_mutants")["ok"])
                 if not ok:
@@ -8276,9 +8621,10 @@ def wide_shared_bytes():
     ``*_shared_bytes`` entry, against geometry.py's model: the wide_wgmma
     forward by dtype, head dim and modes (segment ids, fp8 V), its verify by
     dtype and head dim, the 16-bit sweeps by sweep, dtype, head dim and
-    segment ids, the column-chunked kernels' one layout a dtype (the 16-bit
-    ones at the chunked widths), decode by pool kind and head dim and its
-    column-chunked layout: {layout: [C, Python]}."""
+    segment ids, the column-chunked kernels' one layout a dtype (fp32, and
+    the 16-bit verify at the chunked widths), each pass of route
+    wide_scores (one layout a pass), decode by pool kind and head dim and
+    its column-chunked layout: {layout: [C, Python]}."""
     import ctypes
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch import geometry as geo
@@ -8301,15 +8647,14 @@ def wide_shared_bytes():
            "paged_decode_chunk": [chunk_decode(), geo.wide_chunk_decode_smem_bytes()]}
     for dtype, name, dt in ((1, "bf16", torch.bfloat16), (2, "fp16", torch.float16)):
         for d in CHUNK_WIDTHS:
-            for seg in (False, True):
-                out[f"attn_fwd_chunk_{name}_d{d}{'_seg' if seg else ''}"] = [
-                    fwd(dtype, d, int(seg)), geo.wide_chunk_smem_bytes(dt, segments=seg)]
-                for sweep, dkv in (("dkv", True), ("dq", False)):
-                    out[f"attn_bwd_{sweep}_chunk_{name}_d{d}{'_seg' if seg else ''}"] = [
-                        bwd(dtype, d, int(seg) | 2 * int(dkv)),
-                        geo.wide_chunk_smem_bytes(dt, segments=seg)]
             out[f"paged_verify_chunk_{name}_d{d}"] = [verify(dtype, d),
                                                       geo.wide_chunk_smem_bytes(dt, paged=True)]
+    scores = {"attn_fwd_scores.cu": ("fwd_scores", "fwd_product"),
+              "attn_bwd_scores.cu": ("bwd_scores", "dq_product", "dkv_product")}
+    for source, kinds in scores.items():
+        fn = entry(source, 1)
+        for code, kind in enumerate(kinds):
+            out[f"wide_scores_{kind}"] = [fn(code), geo.wide_scores_smem_bytes(kind)]
     for dtype, name in ((1, "bf16"), (2, "fp16")):
         for d in WIDE_ALL:
             for seg, v8 in ((False, False), (True, False), (False, True), (True, True)):
@@ -8346,28 +8691,35 @@ def wide_decode_ctas():
 
 
 def phase_wide_heads(dev):
-    """The wide kernels (csrc/wide.cuh) against their plain versions at
-    kernel widths 384, 512, 640 and 1024 in every mode and dtype (the
-    forward also at 768 and 896), and column-chunked at 1152 in every mode
-    and dtype, at 1408, at the d 2048 models' shapes and at 8192: the
-    forward once (fwd_case), the sweeps twice, bit for bit (bwd_case), the
-    paged kernels twice, bit for bit, at their key-split edges
-    (paged_case); each call on the route its route function names (the
-    16-bit forward, verify and sweeps on wide_wgmma to 1024, wide_chunk
-    above; decode on its head dim's build).  Then the entry points at head
+    """The wide kernels (csrc/wide.cuh, csrc/wide_scores.cuh) against their
+    plain versions at kernel widths 384, 512, 640 and 1024 in every mode and
+    dtype (the forward also at 768 and 896), and above 1024 at 1152 in
+    every mode and dtype, at 1408, at the d 2048 models' shapes and at
+    8192: the forward once (fwd_case; route wide_scores' twice, bit for
+    bit), the sweeps twice, bit for bit (bwd_case), the paged kernels
+    twice, bit for bit, at their key-split edges (paged_case); each call on
+    the route its route function names (the 16-bit forward, verify and
+    sweeps on wide_wgmma to 1024; above, the 16-bit forward and sweeps on
+    wide_scores, verify on wide_chunk; decode on its head dim's build).
+    Then each pass of route wide_scores against its plain version on the
+    same inputs (scores_pass_case), a call in several waves of scratch bit
+    for bit the call in one (scores_wave_check), the entry points at head
     dims 320, 640 and 1100 (wide_op_checks), each mutant of WIDE_MUTANTS
     caught (the forward's by fwd_check, the sweeps' by bwd_check, at d 512
-    and 640; the column-chunked forward's at 1152), every instance's
-    shared memory against geometry.py's model (wide_shared_bytes), decode's
-    CTAs an SM as designed (wide_decode_ctas), and the kernels timed at the
-    re-headed bench models' shapes (d 512 and 2048)."""
+    and 640; the column-chunked fp32 forward's and route wide_scores' at
+    1152), every instance's shared memory against geometry.py's model
+    (wide_shared_bytes), decode's CTAs an SM as designed
+    (wide_decode_ctas), and the kernels timed at the re-headed bench
+    models' shapes (d 512 and 2048)."""
     import torch
 
     global WIDE_MUTANT_BUILDS
     builds = WIDE_MUTANT_BUILDS or start_mutant_builds(WIDE_MUTANTS)
     gen = torch.Generator(device=dev).manual_seed(5)
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    fwd = {c[0]: fwd_case(dev, gen, c, phase="wide_fwd_check")
+    # route wide_scores' forward (16-bit above 1024) also bit for bit on repeat
+    fwd = {c[0]: fwd_case(dev, gen, c, phase="wide_fwd_check",
+                          repeat=c[7] > 1024 and c[1] != torch.float32)
            for c in wide_fwd_cases() + chunk_fwd_cases()}
     bwd = {}
     for case in wide_bwd_cases() + chunk_bwd_cases():
@@ -8384,6 +8736,8 @@ def phase_wide_heads(dev):
               **paged[name]})
     torch.cuda.empty_cache()
     repeats = wide_fwd_repeats(dev, gen)
+    passes = {c[0]: scores_pass_case(dev, gen, c) for c in SCORES_PASS_CASES}
+    waves = scores_wave_check(dev, gen)
     op_calls, op_checks = wide_op_checks(dev, gen)
     caught, wait = wide_mutants_caught(dev, builds)
     shared = wide_shared_bytes()
@@ -8394,6 +8748,9 @@ def phase_wide_heads(dev):
     checks = {
         "fwd_every_case_kernel_vs_plain_on_its_route": all(r["ok"] for r in fwd.values()),
         "fwd_wide_wgmma_bitwise_repeatable": all(repeats.values()),
+        "wide_scores_every_pass_kernel_vs_plain": all(
+            r["ok"] for c in passes.values() for r in c.values()),
+        **{f"wide_scores_{k}": ok for k, ok in waves["checks"].items()},
         "bwd_every_case_kernel_vs_plain_bitwise_on_its_route":
             all(r["ok"] for r in bwd.values()),
         "paged_every_case_kernel_vs_plain_bitwise": all(r["ok"] for r in paged.values()),
@@ -8409,7 +8766,8 @@ def phase_wide_heads(dev):
            "failed": {"fwd": [n for n, r in fwd.items() if not r["ok"]],
                       "bwd": [n for n, r in bwd.items() if not r["ok"]],
                       "paged": [n for n, r in paged.items() if not r["ok"]]},
-           "fwd_repeats": repeats,
+           "fwd_repeats": repeats, "wide_scores_passes": passes,
+           "wide_scores_waves": {k: waves[k] for k in ("waves", "checks")},
            "mutants": {"edits": {n: m[2] for n, m in WIDE_MUTANTS.items()},
                        "failed_cases": caught, "build_wait_seconds": wait},
            "shared_bytes": shared, "decode_ctas_per_sm": decode_ctas, "timings": timings,
@@ -8419,7 +8777,7 @@ def phase_wide_heads(dev):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"wide_heads checks failed: {failed}")
-    return {"timings": timings, "fwd": fwd, "paged": paged}
+    return {"timings": timings, "fwd": fwd, "paged": paged, "scores_passes": passes}
 
 
 def phase_serve_d512(dev):
@@ -8433,20 +8791,23 @@ def phase_serve_d512(dev):
 def phase_serve_d2048(dev):
     """serving-bench-d2048: the serving-bench model re-headed at head dim
     2048 (scripts/bench_serving.py:28-34 with 1 q / 1 kv head of 2048; bf16,
-    pages of 128, weights from seed 0) served on the column-chunked kernels
-    (route wide_chunk, decode on paged_decode_chunk.cu):
-    :func:`serve_reheaded`."""
-    return serve_reheaded(dev, "serve_d2048", D2048_SERVE_HEADS, "wide_chunk")
+    pages of 128, weights from seed 0) served above the wgmma cuts: every
+    prefill on route wide_scores (its score and product passes), every
+    verify column-chunked (route wide_chunk), decode on
+    paged_decode_chunk.cu: :func:`serve_reheaded`."""
+    return serve_reheaded(dev, "serve_d2048", D2048_SERVE_HEADS, "wide_scores", "wide_chunk")
 
 
-def serve_reheaded(dev, phase, heads, route):
+def serve_reheaded(dev, phase, heads, route, verify_route=None):
     """The serving-bench model with the head fields ``heads`` served through
     DecodeEngine at full width and depth on the wide kernels: the serve
     phase's 8 requests at 8 slots from bf16 KV eagerly, then as graphed
     bursts of 8 (tokens equal, or apart at near-ties only), from int8 KV at
     8 slots, and chunked (prefill_chunk=256, the prefix cache: the wide
-    verify) from bf16 and int8 KV; every forward and verify on ``route``,
-    above 1024 every decode on the column-chunked build.  Launch counts
+    verify) from bf16 and int8 KV; every forward on ``route`` (on route
+    wide_scores each score pass with its product pass), every verify on
+    ``verify_route`` (by default ``route``), above 1024 every decode on the
+    column-chunked build.  Launch counts
     zeroed just before each run and read just after; every layer of a
     decode step checked against the plain version on the engine's own
     pools; the prefill check (every layer's attention at the kernel's
@@ -8483,7 +8844,8 @@ def serve_reheaded(dev, phase, heads, route):
     prefill = check_prefill(model, cfg, dev, prompts[0])
     fp32 = check_decode_fp32(dev, prompts[0], ("fp32", "int8"), **heads)
     chunked_runs, dense_fwd = phase_serve_chunked(dev, model, cfg, phase=f"{phase}_chunked",
-                                                  route=route, **heads)
+                                                  route=route, verify_route=verify_route,
+                                                  **heads)
     del model
     torch.cuda.empty_cache()
 
@@ -8493,6 +8855,9 @@ def serve_reheaded(dev, phase, heads, route):
             f"{tag}_fwd_launches_{n}_per_prefill": r["launches"]["attn_fwd"] == n * slots,
             f"{tag}_fwd_launches_all_{route}":
                 all_on(fwd_routes_, route, r["launches"]["attn_fwd"]),
+            f"{tag}_fwd_product_launches_{'one_a_forward' if route == 'wide_scores' else 'none'}":
+                r["launches"]["attn_fwd_product"] == (
+                    r["launches"]["attn_fwd"] if route == "wide_scores" else 0),
             f"{tag}_decode_launches_{n}_per_step": r["launches"]["paged_decode"] == decode > 0,
             f"{tag}_decode_launches_{'all' if chunked else 'none'}_column_chunked":
                 r["launches"]["paged_decode_chunk"] == (decode if chunked else 0),
@@ -8531,6 +8896,9 @@ def serve_reheaded(dev, phase, heads, route):
     launches = {
         "attn_fwd": eager["launches"]["attn_fwd"] + graph["launches"]["attn_fwd"]
         + int8["launches"]["attn_fwd"] + dense_fwd,
+        "attn_fwd_product": eager["launches"]["attn_fwd_product"]
+        + graph["launches"]["attn_fwd_product"] + int8["launches"]["attn_fwd_product"]
+        + (dense_fwd if route == "wide_scores" else 0),
         "paged_decode_bf16": eager["launches"]["paged_decode"]
         + graph["launches"]["paged_decode"] + chunked_runs["bf16"]["launches"]["paged_decode"],
         "paged_decode_int8": int8["launches"]["paged_decode"]
@@ -8582,45 +8950,86 @@ def phase_train_d512(dev):
 def phase_train_d2048(dev):
     """training-bench-d2048: the training-bench model re-headed at head dim
     2048 (scripts/bench_train.py:68-74 with 2 q / 1 kv heads of 2048; 8
-    layers, bf16, block remat) trained at B8 x N2048 on the column-chunked
-    kernels, as train_d512 is on the wgmma cuts (1 warm and 2 timed steps,
-    exact launches, every forward and sweep on wide_chunk, every layer's
+    layers, bf16, block remat) trained at B8 x N2048 on route wide_scores,
+    as train_d512 is on the wgmma cuts (1 warm and 2 timed steps, exact
+    launches of every pass: a score pass and a product pass a forward, the
+    preprocess, one backward score pass and the dK / dV and dQ products a
+    backward; every forward and sweep on wide_scores, every layer's
     attention against the plain versions, a 2-layer fp32 copy)."""
-    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel, fwd_kernel
+    from flash_attention_dlrs_tpu_torch.ops import bwd_kernel
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
 
-    kernels = {"attn_fwd": fwd_kernel.FWD_WIDE_KERNEL,
+    kernels = {"attn_fwd": ws.FWD_SCORES_KERNEL, "attn_fwd_product": ws.FWD_PRODUCT_KERNEL,
                "attn_bwd_preprocess": bwd_kernel.PREPROCESS_KERNEL,
-               "attn_bwd_dkv": bwd_kernel.DKV_WIDE_KERNEL,
-               "attn_bwd_dq": bwd_kernel.DQ_WIDE_KERNEL}
-    return phase_train(dev, "train_d2048", kernels=kernels, route="wide_chunk",
-                       bwd_route="wide_chunk", warm=TRAIN_RE_HEADED_WARM, timed=TRAIN_RE_HEADED_TIMED,
-                       **D2048_TRAIN_HEADS)
+               "attn_bwd_scores": ws.BWD_SCORES_KERNEL,
+               "attn_bwd_dkv": ws.DKV_PRODUCT_KERNEL,
+               "attn_bwd_dq": ws.DQ_PRODUCT_KERNEL}
+    return phase_train(dev, "train_d2048", kernels=kernels, route="wide_scores",
+                       bwd_route="wide_scores", warm=TRAIN_RE_HEADED_WARM,
+                       timed=TRAIN_RE_HEADED_TIMED, **D2048_TRAIN_HEADS)
 
 
 def wide_entries(entry, later):
     """The kernels line's entries of the wide kernels (``entry`` is
     emit_kernels' maker): launches from serve_d512's and train_d512's runs
-    (the wgmma cuts) and from serve_d2048's and train_d2048's (the
-    column-chunked kernels), times at the shapes of wide_timings and
-    chunk_timings, each built from its own source (the kernel body
-    wide.cuh)."""
+    (the wgmma cuts) and from serve_d2048's and train_d2048's (route
+    wide_scores' passes; verify column-chunked), times at the shapes of
+    wide_timings and chunk_timings, each built from its own source (the
+    kernel bodies wide.cuh and wide_scores.cuh); each pass's error from
+    wide_heads' pass check at the d 2048 training shape, and the whole
+    forward and backward calls beside SDPA on the first pass of each."""
     t = later["wide_heads"]["timings"]
     out = []
+    serve, train = later["serve_d512"]["launches"], later["train_d512"]["launches"]
+    fwd = entry("attn_fwd[wide,d512]", WIDE_SOURCE, FWD_REPLACES,
+                serve["attn_fwd"] + train["attn_fwd"], t["fwd_train_d512"],
+                built_from=WIDE_BUILDS["attn_fwd"])
+    fwd["device_ms"] = t["fwd_train_d512"]["device_ms"]
+    prefill = t["fwd_serve_prefill_d512"]
+    fwd["serving_prefill"] = {k: prefill[k] for k in ("ms", "device_ms", "plain_ms",
+                                                      "bound_ms", "library_ms", "library")}
+    fwd["library"] = t["fwd_train_d512"]["library"]
+    out.append(fwd)
+    for name in ("attn_bwd_dkv", "attn_bwd_dq"):
+        out.append(entry(f"{name}[wide,d512]", WIDE_SOURCE, BWD_REPLACES[name], train[name],
+                         t["bwd_train_d512"][name], built_from=WIDE_BUILDS["attn_bwd"]))
+    serve, train = later["serve_d2048"]["launches"], later["train_d2048"]["launches"]
+    errs = later["wide_heads"]["scores_passes"]["d2048_train_B8_H2_N2048"]
+    rows, prefill = t["passes_train_d2048"], t["passes_serve_prefill_d2048"]
+    for name, key, replaces, launches, build in (
+            ("attn_fwd_scores", "fwd_scores", FWD_REPLACES,
+             serve["attn_fwd"] + train["attn_fwd"], "fwd"),
+            ("attn_fwd_product", "fwd_product", FWD_REPLACES,
+             serve["attn_fwd_product"] + train["attn_fwd_product"], "fwd"),
+            ("attn_bwd_scores", "bwd_scores",
+             f"{BWD_REPLACES['attn_bwd_dkv']}; {BWD_REPLACES['attn_bwd_dq']}",
+             train["attn_bwd_scores"], "bwd"),
+            ("attn_bwd_dkv", "dkv_product", BWD_REPLACES["attn_bwd_dkv"], train["attn_bwd_dkv"],
+             "bwd"),
+            ("attn_bwd_dq", "dq_product", BWD_REPLACES["attn_bwd_dq"], train["attn_bwd_dq"],
+             "bwd")):
+        rec = entry(f"{name}[wide_scores,d2048]", SCORES_SOURCE, replaces, launches,
+                    {**rows[key], "route": "wide_scores"}, err=errs[key]["max_abs_err"],
+                    built_from=SCORES_BUILDS[build])
+        rec.update(device_ms=rows[key]["device_ms"], library=rows[key]["library"])
+        if key in prefill:
+            rec["serving_prefill"] = {k: prefill[key][k]
+                                      for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+        out.append(rec)
+    fwd_call, bwd_call = t["fwd_train_d2048"], t["bwd_train_d2048"]
+    out[-5]["call"] = {  # the whole forward: both passes, one wave
+        **{k: fwd_call[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                    "library", "max_abs_err")},
+        "serving_prefill": {k: t["fwd_serve_prefill_d2048"][k]
+                            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                      "library")}}
+    out[-3]["call"] = {  # the whole backward: preprocess, score pass, two products
+        **{k: bwd_call["attn_bwd"][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                                "library", "max_abs_err")},
+        "family_vs_sdpa": bwd_call["family_vs_sdpa"]}
     for d, tag, decode_build in ((512, "wide,d512", "paged_decode"),
                                  (2048, "wide_chunk,d2048", "paged_decode_chunk")):
-        serve, train = later[f"serve_d{d}"]["launches"], later[f"train_d{d}"]["launches"]
-        fwd = entry(f"attn_fwd[{tag}]", WIDE_SOURCE, FWD_REPLACES,
-                    serve["attn_fwd"] + train["attn_fwd"], t[f"fwd_train_d{d}"],
-                    built_from=WIDE_BUILDS["attn_fwd"])
-        fwd["device_ms"] = t[f"fwd_train_d{d}"]["device_ms"]
-        prefill = t[f"fwd_serve_prefill_d{d}"]
-        fwd["serving_prefill"] = {k: prefill[k] for k in ("ms", "device_ms", "plain_ms",
-                                                          "bound_ms", "library_ms", "library")}
-        fwd["library"] = t[f"fwd_train_d{d}"]["library"]
-        out.append(fwd)
-        for name in ("attn_bwd_dkv", "attn_bwd_dq"):
-            out.append(entry(f"{name}[{tag}]", WIDE_SOURCE, BWD_REPLACES[name], train[name],
-                             t[f"bwd_train_d{d}"][name], built_from=WIDE_BUILDS["attn_bwd"]))
+        serve = later[f"serve_d{d}"]["launches"]
         for kind in ("bf16", "int8"):
             out.append(entry(f"paged_decode[{tag},{kind}]", WIDE_SOURCE, DECODE_REPLACES,
                              serve[f"paged_decode_{kind}"], t[f"decode_d{d}_{kind}_B8_ctx2048"],

@@ -3,11 +3,11 @@
 // and how they are cut, on three routes (ops/bwd_kernel.py bwd_route):
 // "wide_wgmma" (bf16 / fp16 up to 1024: wide_bwd_dkv_kernel and
 // wide_bwd_dq_kernel, warpgroup products, TMA, S and dP once a tile, a
-// cluster of CTAs; one instance a sweep, dtype and head dim), "wide_chunk"
-// (bf16 / fp16 above 1024: column-chunked on mma.sync) and "wide_fp32"
-// (true fp32 on the CUDA cores, column-chunked), every mode a runtime
-// flag.  D = rowsum(dO o
-// O) is attn_bwd.cu's attn_bwd_preprocess, which takes any head dim.
+// cluster of CTAs; one instance a sweep, dtype and head dim) and
+// "wide_fp32" (true fp32 on the CUDA cores, column-chunked), every mode a
+// runtime flag.  bf16 / fp16 above 1024 take route "wide_scores"
+// (attn_bwd_scores.cu).  D = rowsum(dO o O) is attn_bwd.cu's
+// attn_bwd_preprocess, which takes any head dim.
 
 #include "wide.cuh"
 
@@ -28,11 +28,7 @@ int bwd_wide_entry(bool dkv, const void* q, const void* k, const void* v, const 
                 Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                 static_cast<cudaStream_t>(stream)};
   if (route == kRouteWideF32 && dtype == 0) return launch_wide_bwd_chunk<float>(a, dkv);
-  if (chunked_head_dim(D)) {
-    if (route == kRouteWideChunk && dtype == 1) return launch_wide_bwd_chunk<__nv_bfloat16>(a, dkv);
-    if (route == kRouteWideChunk && dtype == 2) return launch_wide_bwd_chunk<__half>(a, dkv);
-    return int(cudaErrorInvalidValue);
-  }
+  if (chunked_head_dim(D)) return int(cudaErrorInvalidValue);
   if (route == kRouteWideWgmma && dtype == 1) return launch_wide_bwd_wgmma<__nv_bfloat16>(a, dkv);
   if (route == kRouteWideWgmma && dtype == 2) return launch_wide_bwd_wgmma<__half>(a, dkv);
   return int(cudaErrorInvalidValue);
@@ -41,9 +37,8 @@ int bwd_wide_entry(bool dkv, const void* q, const void* k, const void* v, const 
 }  // namespace
 
 // The C entries, with the arguments of attn_bwd.cu's sweeps; D a multiple of
-// 128 above 256, route kRouteWideF32 (dtype 0), kRouteWideWgmma (dtype 1 or
-// 2, D at most 1024) or kRouteWideChunk (dtype 1 or 2, D above 1024), any
-// other call refused with cudaErrorInvalidValue.
+// 128 above 256, route kRouteWideF32 (dtype 0) or kRouteWideWgmma (dtype 1
+// or 2, D at most 1024), any other call refused with cudaErrorInvalidValue.
 extern "C" int attn_bwd_dkv_wide(const void* q, const void* k, const void* v,
     const void* dout, const float* lse, const float* delta, void* dk, void* dv,
     const int* q_seg, const int* kv_seg, int dtype, int B, int Hq, int Hkv, int Nq, int Nkv,
@@ -65,14 +60,11 @@ extern "C" int attn_bwd_dq_wide(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory of a sweep, in bytes, for a dtype code (0 fp32: the
-// column-chunked kernels, one layout; else at head dim D the wgmma sweeps,
-// or above 1024 the 16-bit column-chunked ones, one layout a dtype) and
-// flags (1: segment ids, 2: the dK/dV sweep, else dQ); 0 for a head dim no
-// kernel takes.
+// column-chunked kernels, one layout; else at head dim D to 1024 the wgmma
+// sweeps) and flags (1: segment ids, 2: the dK/dV sweep, else dQ); 0 for a
+// head dim no kernel of this build takes.
 extern "C" int attn_bwd_wide_shared_bytes(int dtype, int D, int flags) {
   if (dtype == 0) return int(WideLayout<float>::BYTES);
-  if (chunked_head_dim(D))
-    return int(dtype == 1 ? WideLayout<__nv_bfloat16>::BYTES : WideLayout<__half>::BYTES);
   return wide_bwd_smem(D, (flags & 1) != 0, (flags & 2) != 0);
 }
 

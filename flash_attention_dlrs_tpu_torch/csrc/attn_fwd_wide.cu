@@ -3,17 +3,16 @@
 // how they are cut, on three routes (ops/fwd_kernel.py fwd_route):
 // "wide_wgmma" (bf16 / fp16 up to 1024: warpgroup products, TMA, scores
 // once a key tile, a cluster above 512 columns; one instance a dtype and
-// head dim), "wide_chunk" (bf16 / fp16 above 1024: column-chunked on
-// mma.sync, D a runtime width) and "wide_fp32" (true fp32 on the CUDA
-// cores, column-chunked), every mode a runtime flag.
+// head dim) and "wide_fp32" (true fp32 on the CUDA cores, column-chunked, D
+// a runtime width), every mode a runtime flag.  bf16 / fp16 above 1024 take
+// route "wide_scores" (attn_fwd_scores.cu).
 
 #include "wide.cuh"
 
 // The C entry, with the arguments of attn_fwd.cu's (attn_fwd_entry says
 // what each is); D a multiple of 128 above 256; route kRouteWideF32
-// (dtype 0), kRouteWideWgmma (dtype 1 or 2, D at most 1024) or
-// kRouteWideChunk (dtype 1 or 2, D above 1024), any other call refused
-// with cudaErrorInvalidValue.  Returns the launch's error (cudaGetLastError()
+// (dtype 0) or kRouteWideWgmma (dtype 1 or 2, D at most 1024), any other
+// call refused with cudaErrorInvalidValue.  Returns the launch's error (cudaGetLastError()
 // after it), so a refused launch raises in the wrapper.
 extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* o,
     float* lse, const int* q_seg, const int* kv_seg, int dtype, int v_kind, int B, int Hq,
@@ -34,10 +33,6 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
   a.stream = static_cast<cudaStream_t>(stream);
   const dim3 chunks((Nq + WROWS - 1) / WROWS, D / WCOLS, B * Hq);
   if (route == kRouteWideF32 && dtype == 0) return launch_wide_chunk<float, false>(a, chunks);
-  if (route == kRouteWideChunk && chunked_head_dim(D) && dtype == 1)
-    return launch_wide_chunk<__nv_bfloat16, false>(a, chunks);
-  if (route == kRouteWideChunk && chunked_head_dim(D) && dtype == 2)
-    return launch_wide_chunk<__half, false>(a, chunks);
   if (route != kRouteWideWgmma || (dtype != 1 && dtype != 2) || !wide_cut_head_dim(D))
     return int(cudaErrorInvalidValue);
   // 3-D maps (d, N, heads): Q in boxes of 64 rows, K and V of a tile's 32
@@ -64,14 +59,11 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
 }
 
 // Dynamic shared memory of the kernel, in bytes, for a dtype code (0 fp32:
-// the column-chunked kernel, one layout; else at head dim D the wide_wgmma
-// kernel, or above 1024 the 16-bit column-chunked one, one layout a dtype)
-// and mode flags (1: segment ids, 2: fp8 V, 4: the layout of paged verify);
-// 0 for a head dim no kernel takes.
+// the column-chunked kernel, one layout; else at head dim D to 1024 the
+// wide_wgmma kernel) and mode flags (1: segment ids, 2: fp8 V, 4: the layout
+// of paged verify); 0 for a head dim no kernel of this build takes.
 extern "C" int attn_fwd_wide_shared_bytes(int dtype, int D, int flags) {
   if (dtype == 0) return int(WideLayout<float>::BYTES);
-  if (chunked_head_dim(D))
-    return int(dtype == 1 ? WideLayout<__nv_bfloat16>::BYTES : WideLayout<__half>::BYTES);
   return wide_wgmma_smem(D, (flags & 1) != 0, (flags & 4) != 0);
 }
 

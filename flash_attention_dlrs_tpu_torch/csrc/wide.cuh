@@ -119,9 +119,11 @@
 //    part (PERF.md).
 //
 // The column-chunked forward, verify and sweeps: fp32 at every wide width
-// ("wide_fp32"), bf16 / fp16 above 1024 ("wide_chunk"), where the cluster
-// cuts end (a dK/dV owner of 128 columns a CTA, 8 CTAs at 1024, and every
-// CTA holds every owner's partials: no cut reaches 1152).  No width cap:
+// ("wide_fp32"), and bf16 / fp16 paged verify above 1024 ("wide_chunk"),
+// where the cluster cuts end (a dK/dV owner of 128 columns a CTA, 8 CTAs
+// at 1024, and every CTA holds every owner's partials: no cut reaches
+// 1152); the bf16 / fp16 forward and sweeps above 1024 are wide_scores.cuh's
+// score and product passes ("wide_scores").  No width cap:
 //  * Products over the head dim (S = Q K^T, dP = dO V^T and their
 //    transposes) stream both operands through shared memory in chunks of
 //    128 bytes a row (32 fp32 or 64 16-bit columns), double-buffered by
@@ -195,13 +197,16 @@ constexpr int WCOLS = 128;      // output columns a CTA owns
 constexpr int WTHREADS = 128;   // 4 warps of 16 rows
 // The widest head dim the cluster cuts of the 16-bit wgmma kernels and the
 // register-sized decode take; above it the column-chunked kernels carry
-// every dtype (route "wide_chunk" for bf16 / fp16).
+// fp32 and verify (route "wide_chunk" for bf16 / fp16 verify), decode its
+// own column-chunked kernel, and the 16-bit forward and sweeps
+// wide_scores.cuh's passes.
 constexpr int WIDE_CUT_MAX_D = 1024;
 
 // Route codes of the wide C entries (ops/fwd_kernel.py ROUTE_CODES,
 // ops/decode.py VERIFY_ROUTE_CODES): fp32 column-chunked on the CUDA cores,
-// the 16-bit forward, verify and sweeps on wgmma (to 1024), and the 16-bit
-// ones column-chunked on mma.sync (above 1024).
+// the 16-bit forward, verify and sweeps on wgmma (to 1024), and 16-bit
+// verify column-chunked on mma.sync (above 1024; the forward and sweeps
+// there are wide_scores.cuh's, code 6).
 constexpr int kRouteWideF32 = 2, kRouteWideWgmma = 4, kRouteWideChunk = 5;
 
 // Whether D is a head dim of these kernels: any multiple of 128 above 256.
@@ -214,7 +219,7 @@ __host__ __device__ constexpr bool wide_cut_head_dim(int D) {
   return wide_head_dim(D) && D <= WIDE_CUT_MAX_D;
 }
 
-// Whether D is above them: every kernel column-chunked ("wide_chunk").
+// Whether D is above them: this header's kernels column-chunked.
 __host__ __device__ constexpr bool chunked_head_dim(int D) {
   return wide_head_dim(D) && D > WIDE_CUT_MAX_D;
 }
@@ -497,7 +502,7 @@ struct WideArgs {
 
 // The column-chunked forward (PAGED false) and paged verify (PAGED true),
 // one CTA per (64-row tile, output column chunk [and key split], batch x
-// head): fp32 ("wide_fp32") at every wide head dim, bf16 / fp16
+// head): fp32 ("wide_fp32") at every wide head dim, and bf16 / fp16 verify
 // ("wide_chunk") above the wgmma cuts.  The forward's rows are one q head's;
 // verify's are the T x G (token, q head) rows of a kv head, row r = t * G +
 // g, as the TPU kernel folds them.
@@ -1548,8 +1553,8 @@ struct WideBwdArgs {
   cudaStream_t stream;
 };
 
-// The column-chunked dK/dV sweep (fp32 "wide_fp32", bf16 / fp16
-// "wide_chunk"): one CTA per (64-key tile, output column chunk and pass,
+// The column-chunked dK/dV sweep (fp32, "wide_fp32"; instantiated for fp32
+// only): one CTA per (64-key tile, output column chunk and pass,
 // batch x kv head).  Pass 0 keeps dV += (P o M)^T
 // dO, pass 1 dK += dS^T Q (times sm_scale at the end), each for its 128
 // columns, over the q heads of the GQA group and, in order, the q tiles
@@ -1688,7 +1693,7 @@ wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
   }
 }
 
-// The column-chunked dQ sweep ("wide_fp32", "wide_chunk"): one CTA per (64-row q tile, output
+// The column-chunked dQ sweep ("wide_fp32"): one CTA per (64-row q tile, output
 // column chunk, batch x q head), walking the key tiles it sees in order;
 // dQ += dS K for its 128 columns, times sm_scale at the end.
 template <typename T>

@@ -38,12 +38,21 @@ CTA_ROWS = 128
 # (:func:`wide_bwd_cut`).  The column-chunked kernels (fp32 "wide_fp32" at
 # every wide head dim; bf16 / fp16 "wide_chunk" above the cuts,
 # :func:`chunked`) own one 128-column chunk of their output a CTA and stream
-# tiles of WIDE_KEYS rows: no width cap.
+# tiles of WIDE_KEYS rows: no width cap.  Above the cuts the 16-bit forward
+# and sweeps take route "wide_scores" instead (csrc/wide_scores.cuh): a
+# score pass of WIDE_SCORES_TILE x WIDE_SCORES_TILE tiles and a product
+# pass streaming WIDE_SCORES_ROWS rows a stage into WIDE_SCORES_COLS output
+# columns a CTA, through scratch of at most WIDE_SCORES_SCRATCH_BYTES a wave
+# (:func:`wide_scores_waves`); only paged verify stays column-chunked there.
 WIDE_CUT_MAX_HEAD_DIM = 1024
 WIDE_ROWS = 64
 WIDE_KEYS = 64
 WIDE_FWD_KEYS = 32
 WIDE_BWD_ROWS = 32
+WIDE_SCORES_TILE = 128
+WIDE_SCORES_ROWS = 64
+WIDE_SCORES_COLS = 256
+WIDE_SCORES_SCRATCH_BYTES = 1 << 29
 
 # The H100 SXM5 (80 GB HBM3) as torch.cuda.get_device_properties reports it;
 # current_geometry gives it for the CPU, where no card can be asked.
@@ -185,17 +194,68 @@ def is_wide(head_dim: int) -> bool:
 
 def chunked(head_dim: int) -> bool:
     """Whether ``head_dim`` is a wide width the cluster cuts of the 16-bit
-    kernels do not reach (above :data:`WIDE_CUT_MAX_HEAD_DIM`): every kernel
-    runs column-chunked there (bf16 / fp16 on route ``"wide_chunk"``,
-    decode on ``csrc/paged_decode_chunk.cu``)."""
+    kernels do not reach (above :data:`WIDE_CUT_MAX_HEAD_DIM`): the bf16 /
+    fp16 forward and sweeps run their score and product passes there
+    (route ``"wide_scores"``), verify (``"wide_chunk"``) and the fp32
+    kernels run column-chunked, decode on ``csrc/paged_decode_chunk.cu``."""
     return is_wide(head_dim) and head_dim > WIDE_CUT_MAX_HEAD_DIM
+
+
+# The passes of route "wide_scores" (csrc/wide_scores.cuh ScoreLayout,
+# ProductLayout): {kind: (stages, bytes of a stage)}.  A score pass's stage
+# holds 128 rows x 64 columns of Q and K (and dO, V in the backward), a
+# product's the scratch tile and 64 rows x 256 columns of its operand.
+_WIDE_SCORES_STAGES = {
+    "fwd_scores": (4, 2 * 128 * 128),
+    "bwd_scores": (3, 4 * 128 * 128),
+    "fwd_product": (3, 128 * 64 * 4 + 64 * 256 * 2),
+    "dq_product": (4, 128 * 64 * 2 + 64 * 256 * 2),
+    "dkv_product": (4, 128 * 64 * 2 + 64 * 256 * 2),
+}
+WIDE_SCORES_KINDS = tuple(_WIDE_SCORES_STAGES)
+
+
+def wide_scores_smem_bytes(kind: str) -> int:
+    """Shared memory of one CTA of a pass of route ``"wide_scores"``
+    (``csrc/wide_scores.cuh`` ``ScoreLayout<BWD>::BYTES`` /
+    ``ProductLayout<KIND>::BYTES``), one layout a pass at every head dim
+    and mode: the stages of :data:`_WIDE_SCORES_STAGES`, a score pass's
+    128 kv segment ids, a full and an empty barrier a stage and 1024 bytes
+    of alignment."""
+    stages, stage = _WIDE_SCORES_STAGES[kind]
+    ids = WIDE_SCORES_TILE * 4 if kind.endswith("_scores") else 0
+    return stages * stage + ids + 8 * 2 * stages + 1024
+
+
+def wide_scores_tile_bytes(n_kv: int, backward: bool) -> int:
+    """Scratch bytes of one q tile of a ``"wide_scores"`` call: its 128 rows
+    against every key padded to a whole tile, S in fp32 and each row's (max,
+    sum) of each key tile in the forward; P o M and dS in 16 bits in the
+    backward."""
+    n_kt = -(-n_kv // WIDE_SCORES_TILE)
+    pairs = WIDE_SCORES_TILE * n_kt * WIDE_SCORES_TILE
+    return 4 * pairs if backward else 4 * pairs + 8 * WIDE_SCORES_TILE * n_kt
+
+
+def wide_scores_waves(batch: int, q_heads: int, n_q: int, n_kv: int, backward: bool,
+                      scratch_bytes: Optional[int] = None) -> list:
+    """The waves of a ``"wide_scores"`` call: ranges [f0, f1) of its tiles f
+    = (b q_heads + h) ceil(n_q / 128) + q tile, consecutive, each as many
+    tiles as :func:`wide_scores_tile_bytes` fits in ``scratch_bytes``
+    (:data:`WIDE_SCORES_SCRATCH_BYTES` by default), at least one.  Static
+    arithmetic on the shapes: the same call always runs the same waves."""
+    cap = WIDE_SCORES_SCRATCH_BYTES if scratch_bytes is None else int(scratch_bytes)
+    tiles = batch * q_heads * -(-n_q // WIDE_SCORES_TILE)
+    per = max(1, cap // wide_scores_tile_bytes(n_kv, backward))
+    return [(f, min(f + per, tiles)) for f in range(0, tiles, per)]
 
 
 def _refuse_cut(head_dim: int) -> None:
     if chunked(head_dim):
         raise ValueError(
-            f"head_dim {head_dim} is above the cluster cuts' {WIDE_CUT_MAX_HEAD_DIM}: it runs "
-            "column-chunked (route \"wide_chunk\", geometry.wide_chunk_smem_bytes)")
+            f"head_dim {head_dim} is above the cluster cuts' {WIDE_CUT_MAX_HEAD_DIM}: its 16-bit "
+            "forward and sweeps run score and product passes (route \"wide_scores\", "
+            "geometry.wide_scores_smem_bytes), verify and fp32 column-chunked")
     if not is_wide(head_dim):
         raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
 
@@ -203,8 +263,9 @@ def _refuse_cut(head_dim: int) -> None:
 def wide_chunk_smem_bytes(dtype=torch.float32, paged: bool = False,
                           segments: bool = False) -> int:
     """Shared memory of one CTA of the column-chunked kernels (``csrc/wide.cuh``
-    ``WideLayout<T>::BYTES``), forward, verify (``paged``) and both sweeps,
-    with or without segment ids, at every head dim alike: two stages of each
+    ``WideLayout<T>::BYTES``): the fp32 forward and sweeps, and verify
+    (``paged``) in every dtype, with or without segment ids, at every head
+    dim alike: two stages of each
     streamed operand (64 rows of 128 bytes, each padded by 16), the update
     tile (64 rows of 128 columns of ``dtype``, padded by 16 bytes), in fp32
     each warp's 16 x 68 probabilities (16-bit keeps them in registers), six
@@ -407,9 +468,10 @@ def default_block_kv(head_dim: int) -> int:
     """Keys a forward tile of the head dim's builds (``csrc/attn_fwd.cuh``
     ``key_tile``): 128, 64 at d 256, and in the wide builds 32
     (:data:`WIDE_FWD_KEYS`, the wide_wgmma kernel's tile), or above the cuts
-    64 (:data:`WIDE_KEYS`, the column-chunked kernels')."""
+    128 (:data:`WIDE_SCORES_TILE`, the score tiles of route
+    ``"wide_scores"``)."""
     if chunked(head_dim):
-        return WIDE_KEYS
+        return WIDE_SCORES_TILE
     if is_wide(head_dim):
         return WIDE_FWD_KEYS
     return 64 if head_dim == 256 else 128
@@ -420,10 +482,10 @@ def default_block_kv_bwd(head_dim: int) -> int:
     streams a stage (``csrc/attn_bwd.cuh`` ``stream_tile``), and the q rows
     of the dK/dV sweep but at d 256 (:func:`bwd_stream_rows`): 64, and 32 at
     d 256 and in the wide builds (:data:`WIDE_BWD_ROWS`, the 16-bit wide
-    sweeps' tile), 64 again above the cuts (:data:`WIDE_KEYS`, the
-    column-chunked sweeps')."""
+    sweeps' tile), 64 again above the cuts (:data:`WIDE_SCORES_ROWS`, the
+    rows a product pass of route ``"wide_scores"`` streams a stage)."""
     if chunked(head_dim):
-        return WIDE_KEYS
+        return WIDE_SCORES_ROWS
     if is_wide(head_dim):
         return WIDE_BWD_ROWS
     return 32 if head_dim == 256 else 64

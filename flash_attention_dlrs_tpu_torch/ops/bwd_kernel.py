@@ -14,16 +14,20 @@ launch count; a seventh, ``csrc/attn_bwd_tiles.cu`` (``attn_bwd_dkv_tiles``,
 caller may pin or the tuner pick (``block_sizes``, :mod:`..tuning`),
 mode-free; an eighth, ``csrc/attn_bwd_wide.cu`` (``attn_bwd_dkv_wide``,
 ``attn_bwd_dq_wide``: the sweeps of ``csrc/wide.cuh``),
-every head dim above 256 that is a multiple of 128, with every mode.
-Each sweep call takes one of five routes, fixed by :func:`bwd_route`
-from the call's types and width alone and counted per sweep in
+every head dim above 256 that is a multiple of 128, with every mode, but
+the bf16 / fp16 ones above 1024, which take the score pass and the product
+passes of ``csrc/wide_scores.cuh`` (:mod:`.wide_scores`, built as
+``csrc/attn_bwd_scores.cu``).  Each sweep call takes one of six routes,
+fixed by :func:`bwd_route` from the call's types and width alone and
+counted per sweep in
 :data:`BWD_ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernels: warpgroup
 products, TMA, a producer warpgroup; every bf16/fp16 call at d 64, 128 and
 256), ``"fp32"`` (CUDA cores, true fp32), and at the wide head dims
 ``"wide_wgmma"`` (bf16/fp16 to 1024: owners of 128 or 256 columns computing
 S and dP once a tile, a cluster of CTAs; the forward's route code),
-``"wide_chunk"`` (bf16/fp16 above 1024: column-chunked on ``mma.sync``) and
-``"wide_fp32"``.
+``"wide_scores"`` (bf16/fp16 above 1024: one score pass computes S and dP
+once a tile and stores P∘M and dS, then a dK / dV and a dQ product pass)
+and ``"wide_fp32"``.
 The C entries refuse a route that cannot carry a call; nothing switches
 routes at run time.  Together they replace the six backward TPU kernels of
 the JAX package — ``ops/fwd_small.py::_small_bwd_kernel``,
@@ -48,6 +52,7 @@ import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts, stream_handle
 from ..geometry import bwd_stream_rows, chunked, default_block_kv_bwd, is_wide
+from . import wide_scores
 from .fwd_kernel import (
     _PLAIN_CHUNK_ELEMS,
     KERNEL_WIDTHS,
@@ -131,9 +136,9 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
     wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
     wide_wgmma as wgmma, at a wide head dim up to 1024 (``csrc/wide.cuh``
                ``wide_bwd_dkv_kernel`` / ``wide_bwd_dq_kernel``)
-    wide_chunk as wgmma, at a wide head dim above 1024 (``csrc/wide.cuh``
-               ``wide_bwd_dkv_chunk_kernel`` / ``wide_bwd_dq_chunk_kernel``,
-               column-chunked on mma.sync)
+    wide_scores as wgmma, at a wide head dim above 1024
+               (``csrc/wide_scores.cuh``: the backward score pass, then the
+               dK / dV or dQ product pass, :mod:`.wide_scores`)
     =========  =========================================================
 
     Segment ids, ALiBi and dropout are modes of every route at every head
@@ -148,7 +153,7 @@ def bwd_route(dtype, head_dim: int, segments: bool = False, alibi: bool = False,
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_bwd kernels take fp32/bf16/fp16, not {dtype}")
     if chunked(head_dim):
-        return "wide_chunk"
+        return "wide_scores"
     return "wide_wgmma" if wide else "wgmma"
 
 
@@ -218,7 +223,7 @@ def _stream_tile(q, route, *, alibi_slopes, dropout_rate, q_seg, block_sizes, **
     tiles otherwise), the head dim's own tile without ``block_sizes`` or on
     the fp32 route (its own fixed steps)."""
     d = q.shape[-1]
-    if route not in ("wgmma", "wide_wgmma", "wide_chunk") or block_sizes is None:
+    if route not in ("wgmma", "wide_wgmma", "wide_scores") or block_sizes is None:
         return default_block_kv_bwd(d)
     block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                       segments=q_seg is not None)
@@ -229,7 +234,8 @@ def sweep_kernel(sweep: str, head_dim: int, segments: bool, block_kv_bwd=None) -
     """The build of ``sweep`` ("attn_bwd_dkv" or "attn_bwd_dq") that takes a
     call, by head dim and by whether it has segment ids: the module
     attribute ``DKV[_D<d>][_SEG]_KERNEL`` / ``DQ...`` (no suffix at d 128),
-    ``DKV_WIDE_KERNEL`` / ``DQ_WIDE_KERNEL`` at a wide head dim, or
+    ``DKV_WIDE_KERNEL`` / ``DQ_WIDE_KERNEL`` at a wide head dim (above 1024
+    the fp32 route's; bf16 / fp16 there take :mod:`.wide_scores`' passes), or
     ``DKV_TILES_KERNEL`` / ``DQ_TILES_KERNEL`` for a ``block_kv_bwd``
     other than the head dim's own, looked up at call time so that a check
     may swap a build."""
@@ -263,6 +269,11 @@ def attn_bwd_dkv(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
         return attn_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
     route = _route(q, **kw)
     tile = _stream_tile(q, route, **kw)
+    if route == "wide_scores":
+        del kw["block_sizes"]
+        out = wide_scores.attn_bwd_scores(q, k, v, do, lse, delta, sweeps=("dkv",), **kw)
+        _count("attn_bwd_dkv", route, q.shape[-1], tile)
+        return out["dk"], out["dv"]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     kernel = sweep_kernel("attn_bwd_dkv", q.shape[-1], q_seg is not None, tile)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
@@ -284,6 +295,11 @@ def attn_bwd_dq(q, k, v, do, lse, delta, *, causal, sm_scale, window=0,
         return attn_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     route = _route(q, **kw)
     tile = _stream_tile(q, route, **kw)
+    if route == "wide_scores":
+        del kw["block_sizes"]
+        out = wide_scores.attn_bwd_scores(q, k, v, do, lse, delta, sweeps=("dq",), **kw)
+        _count("attn_bwd_dq", route, q.shape[-1], tile)
+        return out["dq"]
     dq = torch.empty_like(q)
     kernel = sweep_kernel("attn_bwd_dq", q.shape[-1], q_seg is not None, tile)
     kernel.launch(ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(delta),
@@ -303,7 +319,9 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
 
     Arguments are validated by the caller (ops/flash_attention.py).  CPU
     tensors take :func:`attn_bwd_plain`; CUDA tensors launch the three
-    kernels (preprocess, dK/dV sweep, dQ sweep; the sweeps on the route of
+    kernels (preprocess, dK/dV sweep, dQ sweep; on route ``"wide_scores"``
+    the preprocess, one score pass and the two product passes a wave,
+    :func:`.wide_scores.attn_bwd_scores`; the sweeps on the route of
     :func:`bwd_route`, streaming ``block_sizes.block_kv_bwd`` rows a stage:
     a tile no build carries for the call raises ``ValueError`` before any
     launch), which take contiguous fp32/bf16/fp16 inputs with d in {64,
@@ -316,10 +334,17 @@ def attn_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float,
         raise ValueError(f"attn_bwd runs on cpu or cuda, not {q.device}")
     _check_cuda(q, k, v, o, lse, do)
     check_segments(q, k, q_seg, kv_seg)
-    _stream_tile(q, _route(q, **kw), **kw)  # a tile no build carries raises first
+    route = _route(q, **kw)
+    tile = _stream_tile(q, route, **kw)  # a tile no build carries raises first
     if q.numel() == 0 or k.numel() == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     delta = attn_bwd_preprocess(o, do)
+    if route == "wide_scores":  # one score pass for both products
+        del kw["block_sizes"]
+        out = wide_scores.attn_bwd_scores(q, k, v, do, lse, delta, **kw)
+        _count("attn_bwd_dkv", route, q.shape[-1], tile)
+        _count("attn_bwd_dq", route, q.shape[-1], tile)
+        return out["dq"], out["dk"], out["dv"]
     dk, dv = attn_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return attn_bwd_dq(q, k, v, do, lse, delta, **kw), dk, dv
 

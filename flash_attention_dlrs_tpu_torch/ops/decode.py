@@ -238,7 +238,9 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
     wide_wgmma as wgmma, at a wide pool head dim up to 1024
                (``csrc/wide.cuh``)
     wide_chunk as wgmma, at a wide pool head dim above 1024
-               (``csrc/wide.cuh``, column-chunked on mma.sync)
+               (``csrc/wide.cuh``, column-chunked on mma.sync; above
+               1024 only verify takes this route: the forward and the
+               sweeps take ``"wide_scores"``)
     =========  =========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).

@@ -12,7 +12,9 @@ tiles at d 64 and 128 that a caller may pin or the tuner pick
 (``block_sizes``, :mod:`..tuning`), mode-free; an eighth,
 ``csrc/attn_fwd_wide.cu`` (:data:`FWD_WIDE_KERNEL`, the kernels of
 ``csrc/wide.cuh``), every head dim above 256 that is a multiple of 128,
-with every mode.  Each call takes one of five routes,
+with every mode, but the bf16 / fp16 ones above 1024, which take the score
+and product passes of ``csrc/wide_scores.cuh`` (:mod:`.wide_scores`, built
+as ``csrc/attn_fwd_scores.cu``).  Each call takes one of six routes,
 fixed by :func:`fwd_route` from the call's types and width alone and
 counted in :data:`ROUTE_LAUNCHES`: ``"wgmma"`` (the Hopper kernel of
 ``csrc/attn_fwd_sm90.cuh``: warpgroup products, TMA, warp specialisation;
@@ -20,8 +22,11 @@ every bf16/fp16 call at d 64, 128 and 256), ``"fp32"`` (CUDA cores, true
 fp32), and at the wide head dims ``"wide_wgmma"`` (bf16/fp16: the same
 Hopper machinery with the head dim split among warpgroups and, above 512,
 the CTAs of a cluster, scores computed once a key tile; to 1024),
-``"wide_chunk"`` (bf16/fp16 above 1024: column-chunked on ``mma.sync``,
-each CTA one 128-column chunk of O, no width cap) and ``"wide_fp32"``.
+``"wide_scores"`` (bf16/fp16 above 1024: a score pass computes S once a
+tile over the whole head dim, a product pass O = P V a column chunk at a
+time, both on wgmma; no width cap) and ``"wide_fp32"``; ``"wide_chunk"``
+(column-chunked on ``mma.sync``) is only paged verify's above 1024
+(``ops/decode.py``).
 The C entry refuses a route that
 cannot carry a call; nothing switches routes at run time.  It replaces
 the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
@@ -95,12 +100,15 @@ FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
 FWD_WIDE_KERNEL = CudaKernel("attn_fwd_wide.cu", "attn_fwd_wide", _FWD_ARGS)
 
 # The C entries' route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma,
-# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma / kRouteWideChunk; 3 was a
-# retired route's) and the launches of each route, over every build; set to
-# 0 by whoever reads them.  The backward sweeps share the codes
-# (ops/bwd_kernel.py): "wide_wgmma" names the 16-bit wide forward and both
-# wide sweeps to 1024, "wide_chunk" those above.
-ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_chunk": 5}
+# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma / kRouteWideChunk,
+# csrc/wide_scores.cuh kRouteWideScores; 3 was a retired route's) and the
+# launches of each route, over every build; set to 0 by whoever reads them.
+# The backward sweeps share the codes (ops/bwd_kernel.py): "wide_wgmma"
+# names the 16-bit wide forward and both wide sweeps to 1024,
+# "wide_scores" those above; "wide_chunk" is paged verify's above 1024
+# (ops/decode.py), whose codes these are too.
+ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_chunk": 5,
+               "wide_scores": 6}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 # The wgmma and wide_wgmma routes' launches by head dim and key tile
 # ("d128_kv64", "d512_kv32"), over every build; set to 0 by whoever reads
@@ -155,8 +163,9 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
                or fp8
     wide_fp32  as fp32, at a wide head dim (``csrc/wide.cuh``)
     wide_wgmma as wgmma, at a wide head dim up to 1024 (``csrc/wide.cuh``)
-    wide_chunk as wgmma, at a wide head dim above 1024 (``csrc/wide.cuh``,
-               column-chunked on mma.sync)
+    wide_scores as wgmma, at a wide head dim above 1024
+               (``csrc/wide_scores.cuh``: a score pass, then a product
+               pass, :mod:`.wide_scores`)
     =========  =========================================================
 
     Segment ids, fp8 V, ALiBi and dropout are modes of every route at every
@@ -170,13 +179,14 @@ def fwd_route(dtype, head_dim: int, segments: bool = False, fp8_v: bool = False,
         return wide + "fp32"
     if dtype not in (torch.bfloat16, torch.float16):
         raise ValueError(f"attn_fwd kernel takes fp32/bf16/fp16, not {dtype}")
-    return "wide_chunk" if chunked(head_dim) else wide + "wgmma"
+    return "wide_scores" if chunked(head_dim) else wide + "wgmma"
 
 
 def fwd_kernel(head_dim: int, segments: bool, block_kv=None) -> CudaKernel:
     """The build of the forward that takes a call, by head dim and by
     whether it has segment ids: the module attribute ``FWD[_D<d>][_SEG]_KERNEL``
-    (no suffix at d 128), ``FWD_WIDE_KERNEL`` at a wide head dim, or
+    (no suffix at d 128), ``FWD_WIDE_KERNEL`` at a wide head dim (above 1024
+    the fp32 route's; bf16 / fp16 there take :mod:`.wide_scores`' passes), or
     ``FWD_TILES_KERNEL`` for a ``block_kv`` other than the head dim's own,
     looked up at call time so that a check may swap a build."""
     if is_wide(head_dim):
@@ -319,7 +329,7 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     route = fwd_route(q.dtype, d, q_seg is not None, v.dtype in V_KINDS,
                       alibi_slopes is not None, bool(dropout_rate))
     block_kv = default_block_kv(d)
-    if route in ("wgmma", "wide_wgmma", "wide_chunk") and block_sizes is not None:
+    if route in ("wgmma", "wide_wgmma", "wide_scores") and block_sizes is not None:
         block_sizes.check(d, alibi=alibi_slopes is not None, dropout=bool(dropout_rate),
                           segments=q_seg is not None, fp8_v=v.dtype in V_KINDS)
         block_kv = block_sizes.block_kv
@@ -327,6 +337,13 @@ def attn_fwd(q, k, v, *, causal: bool, sm_scale: float, window: int = 0,
     lse = torch.empty((b, hq, n_q), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         lse.fill_(DEFAULT_MASK_VALUE)
+        return o, lse
+    if route == "wide_scores":
+        from . import wide_scores
+
+        del kw["block_sizes"]
+        o, lse = wide_scores.attn_fwd_scores(q, k, v, **kw)
+        ROUTE_LAUNCHES[route] += 1
         return o, lse
     tile = [] if block_kv == default_block_kv(d) else [block_kv]
     fwd_kernel(d, q_seg is not None, block_kv).launch(

@@ -44,12 +44,13 @@ BUILT_BLOCK_KV = {64: (128, 64), 128: (128, 64), 256: (64,)}
 BUILT_BLOCK_KV_BWD = {64: (64, 32), 128: (64, 32), 256: (32,)}
 # The wide builds' tiles (csrc/wide.cuh, every head dim above 256 that is a
 # multiple of 128): to 1024 32 keys a forward tile and 32 rows a sweep's
-# stream (the 16-bit kernels on wide_wgmma); above it the column-chunked
-# kernels' one tile, 64 keys and 64 streamed rows (geometry.chunked).
+# stream (the 16-bit kernels on wide_wgmma); above it (geometry.chunked)
+# the one tile of route wide_scores' passes, in every mode: score tiles of
+# 128 keys and product passes streaming 64 rows a stage.
 WIDE_BLOCK_KV = (geo.WIDE_FWD_KEYS,)
 WIDE_BLOCK_KV_BWD = (geo.WIDE_BWD_ROWS,)
-CHUNK_BLOCK_KV = (geo.WIDE_KEYS,)
-CHUNK_BLOCK_KV_BWD = (geo.WIDE_KEYS,)
+CHUNK_BLOCK_KV = (geo.WIDE_SCORES_TILE,)
+CHUNK_BLOCK_KV_BWD = (geo.WIDE_SCORES_ROWS,)
 CTA_ROWS = geo.CTA_ROWS
 
 
@@ -58,9 +59,10 @@ class BlockSizes:
     """Tiles of the attention kernels (the forward and both backward
     sweeps), the JAX package's four fields on Hopper's tiles: ``block_q``
     and ``block_q_bwd`` are a CTA's 128 rows; ``block_kv`` is 64 or 128
-    (64 at head dim 256, 32 at the wide head dims to 1024, 64 above),
-    ``block_kv_bwd`` 32 or 64 (32 at d 256 and at the wide head dims to
-    1024, 64 above): the rows both sweeps stream
+    (64 at head dim 256, 32 at the wide head dims to 1024, above them 128,
+    the score tiles' keys of route ``"wide_scores"``), ``block_kv_bwd`` 32
+    or 64 (32 at d 256 and at the wide head dims to 1024, 64 above: the
+    rows a product pass streams): the rows both sweeps stream
     a stage, but at d 256 the dQ sweep's keys only (the dK/dV sweep streams
     64 q rows there, :func:`..geometry.bwd_stream_rows`).  The head dim is checked
     when a call uses the tiles (:meth:`check`)."""
@@ -86,16 +88,16 @@ class BlockSizes:
         """Raise ``ValueError`` unless some build carries these tiles at
         ``head_dim`` (the kernels' width: 64, 128, 256 or a wide width, whose
         one build carries block_kv 32 and block_kv_bwd 32 in every mode and
-        cuts its own 64-row CTAs, or above 1024 the column-chunked kernels'
-        64 and 64) with the call's modes; the message names the built
-        tiles."""
+        cuts its own 64-row CTAs, or above 1024 the passes of route
+        "wide_scores", 128 and 64) with the call's modes; the message names
+        the built tiles."""
         modes = alibi or dropout or segments or fp8_v
         fwd = built_fwd_tiles(head_dim, modes)
         bwd = built_bwd_tiles(head_dim, modes)
         if self.block_kv not in fwd or self.block_kv_bwd not in bwd:
             what = " with ALiBi, dropout, segment ids or fp8 V" if modes else ""
             if geo.chunked(head_dim):
-                what = " (the column-chunked kernels of csrc/wide.cuh)"
+                what = " (the score and product passes of csrc/wide_scores.cuh)"
             elif geo.is_wide(head_dim):
                 what = " (the wide build, csrc/wide.cuh)"
             raise ValueError(
@@ -107,7 +109,7 @@ def built_fwd_tiles(head_dim: int, modes: bool = False) -> tuple:
     """The forward's key tiles built at ``head_dim``: the build's own only
     with a mode (ALiBi, dropout, segment ids, fp8 V).  The wide head dims
     (:func:`..geometry.is_wide`) have the wide build's one tile (above 1024
-    the column-chunked kernels', :func:`..geometry.chunked`); other head
+    the passes' of route "wide_scores", :func:`..geometry.chunked`); other head
     dims (the plain versions only) take the d 128 tiles."""
     if geo.chunked(head_dim):
         return CHUNK_BLOCK_KV
@@ -171,7 +173,7 @@ def candidate_bwd_configs(head_dim: int, *, segments: bool = False, alibi: bool 
 def default_block_sizes(head_dim: int) -> BlockSizes:
     """The tiles every call takes unless told otherwise: each head dim's own
     builds', (128, 128, 128, 64), (128, 64, 128, 32) at d 256, (128, 32,
-    128, 32) in the wide builds to 1024 and (128, 64, 128, 64) above."""
+    128, 32) in the wide builds to 1024 and (128, 128, 128, 64) above."""
     width = head_dim if head_dim in BUILT_BLOCK_KV or geo.is_wide(head_dim) else 128
     return BlockSizes(block_kv=geo.default_block_kv(width),
                       block_kv_bwd=geo.default_block_kv_bwd(width))

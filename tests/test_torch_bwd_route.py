@@ -93,10 +93,10 @@ def test_route_refuses_what_no_kernel_takes(dtype, d):
 
 def test_route_refuses_head_dims_above_256_naming_queue_2():
     """Head dims above 256 run on the wide builds: on the wgmma cuts up to
-    1024, column-chunked above; no multiple of 128 is refused, a head dim
-    that is no kernel width is."""
+    1024, on the score and product passes above; no multiple of 128 is
+    refused, a head dim that is no kernel width is."""
     assert tbwd.bwd_route(torch.bfloat16, 384) == "wide_wgmma"
-    assert tbwd.bwd_route(torch.bfloat16, 1152) == "wide_chunk"
+    assert tbwd.bwd_route(torch.bfloat16, 1152) == "wide_scores"
     with pytest.raises(ValueError, match="multiple of 128 above 256"):
         tbwd.bwd_route(torch.bfloat16, 1100)
 

@@ -73,14 +73,14 @@ def test_route_refuses_what_no_kernel_takes(dtype, d):
 def test_route_table_d256(dtype):
     """d 256 takes its dtype's route with or without segment ids, fp8 V,
     ALiBi or dropout, as d 64 and 128 do; d 512 takes its dtype's wide
-    route, and past the wide cuts' 1024 the column-chunked one (fp32 stays
-    on wide_fp32); a head dim that is no kernel width raises."""
+    route, and past the wide cuts' 1024 the score and product passes
+    (fp32 stays on wide_fp32); a head dim that is no kernel width raises."""
     route = "fp32" if dtype == torch.float32 else "wgmma"
     assert tfwd.fwd_route(dtype, 256) == route
     for kw in (dict(segments=True), dict(fp8_v=True), dict(alibi=True), dict(dropout=True)):
         assert tfwd.fwd_route(dtype, 256, **kw) == route
     assert tfwd.fwd_route(dtype, 512) == "wide_" + ("fp32" if route == "fp32" else "wgmma")
-    assert tfwd.fwd_route(dtype, 1152) == ("wide_fp32" if route == "fp32" else "wide_chunk")
+    assert tfwd.fwd_route(dtype, 1152) == ("wide_fp32" if route == "fp32" else "wide_scores")
     with pytest.raises(ValueError):
         tfwd.fwd_route(dtype, 1100)
 

@@ -149,8 +149,9 @@ def test_library_names_follow_the_source_hash():
     # one source for each kernel, head dim (d 128 unsuffixed) and, for the
     # attention kernels, segment-id flag; one for the other tiles of the
     # forward and of the sweeps; verify at d 256 in two, by q dtype; one
-    # wide build of each kernel for the head dims above 256, and decode's
-    # column-chunked build above 1024
+    # wide build of each kernel for the head dims above 256, decode's
+    # column-chunked build above 1024, and the forward's and the backward's
+    # score and product passes above 1024 (route wide_scores)
     want = sorted([f"{kernel}{d}{seg}.cu" for kernel, segs in (
         ("attn_fwd", ("", "_seg")), ("attn_bwd", ("", "_seg")),
         ("paged_decode", ("",)), ("paged_verify", ("",)))
@@ -158,11 +159,11 @@ def test_library_names_follow_the_source_hash():
         + ["attn_fwd_tiles.cu", "attn_bwd_tiles.cu", "paged_verify_d256_f16.cu"]
         + [f"{kernel}_wide.cu" for kernel in ("attn_fwd", "attn_bwd", "paged_decode",
                                              "paged_verify")]
-        + ["paged_decode_chunk.cu"])
-    assert _cuda.all_sources() == want and len(want) == 26
+        + ["paged_decode_chunk.cu", "attn_fwd_scores.cu", "attn_bwd_scores.cu"])
+    assert _cuda.all_sources() == want and len(want) == 28
     paths = [_cuda.library_path(s) for s in _cuda.all_sources()]
     assert all(p.parent == _cuda.BUILD_DIR and p.suffix == ".so" for p in paths)
-    assert len({p.name for p in paths}) == 26
+    assert len({p.name for p in paths}) == 28
 
 
 def test_every_kernel_entry_is_defined_in_its_source():

@@ -248,7 +248,7 @@ def test_routes_take_the_wide_builds(d):
     q = torch.zeros(1, 2, 8, d)
     tfwd.attn_fwd(q, q, q, causal=True, sm_scale=0.1)
     assert (dict(tfwd.ROUTE_LAUNCHES), tfwd.FWD_WIDE_KERNEL.launches) == before
-    assert tfwd.fwd_route(torch.bfloat16, 1152) == "wide_chunk"
+    assert tfwd.fwd_route(torch.bfloat16, 1152) == "wide_scores"
     with pytest.raises(ValueError, match="multiple of 128 above 256"):
         tfwd.fwd_route(torch.bfloat16, 1100)
     # the wide build's own tile is its only one, in every mode

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of the 16-bit wide and d 256 kernels goes, on one NVIDIA card.
 
-Builds copies of ``csrc/attn_fwd_wide.cu``, ``csrc/attn_bwd_wide.cu`` and
-``csrc/paged_decode_wide.cu`` with one piece of the kernels of
-``csrc/wide.cuh`` cut out at a time, as
+Builds copies of ``csrc/attn_fwd_wide.cu``, ``csrc/attn_bwd_wide.cu``,
+``csrc/paged_decode_wide.cu`` (the kernels of ``csrc/wide.cuh``) and
+``csrc/attn_fwd_scores.cu``, ``csrc/attn_bwd_scores.cu`` (those of
+``csrc/wide_scores.cuh``) with one piece of a kernel cut out at a time, as
 ``chip_smoke.py`` builds its mutants, and times each in one process beside
 the kernels as built: device ms by CUDA events behind a spin kernel
 (``chip_smoke.device_ms``).  A cut copy computes wrong values; only its
@@ -25,6 +26,13 @@ time is read.
   bf16 and int8 pools at the serving-d512 heads (B8 Hq4 Hkv2, 2048 tokens
   each), each call after an L2 flush as ``chip_smoke.time_paged`` reads it;
   the cut copies build the d 512 instances only.
+- ``scores``: route wide_scores above 1024 at the d 2048 re-headed bench
+  models' attention (training B8 Hq2 Hkv1 N2048, causal bf16; the forward
+  also at the serving prefill B1 Hq1 Hkv1): each pass alone (the
+  forward's score and product passes, the backward's score pass and its
+  dQ and dK / dV products), as built and with the product passes' wgmma
+  products cut (P is still formed from the stored S in the forward), which
+  leaves their scratch and operand traffic; the passes' bounds beside.
 - ``d256``: the d 256 backward sweeps (``csrc/attn_bwd_d256.cu`` over
   ``csrc/attn_bwd_sm90.cuh``) at Gemma-2-2B's training attention (B2 Hq8
   Hkv4 N8192, causal bf16; global and window 4096, each without and with
@@ -39,7 +47,7 @@ time is read.
 Each variant is timed twice, the kernels as built first and last (the
 spread).  Prints one JSON record, then the card's name and power limit:
 
-    python3 wide_breakdown_torch.py [forward] [sweeps] [decode] [d256] [--parent DIR]
+    python3 wide_breakdown_torch.py [forward] [sweeps] [decode] [scores] [d256] [--parent DIR]
                                                                   # default: the first three
 """
 
@@ -137,6 +145,20 @@ D256_PARENT_CUTS = {
                         ("for (int i = 0; i < PASSES * n_steps; ++i) {",
                          "for (int i = 0; i < n_steps; ++i) {")],
 }
+# Route wide_scores' product passes without their wgmma products (csrc/
+# wide_scores.cuh): the forward's P still formed (a bit of it kept live),
+# the stages still loaded and released.
+SCORES_CUTS = {
+    "no_products": [
+        ("          WgmmaRS<128, T>::run(*reinterpret_cast<float(*)[64]>(acc + 64 * hh), pa[kk],\n"
+         "                               smem_desc(sb + hh * 2 * 8192 + kk * 2048, 8192, 1024));\n",
+         "          acc[hh] += __uint_as_float(pa[kk][hh] & 1u);\n"),
+        ("          WsSS<T, DKV ? 1 : 0>::run(acc + 64 * hh, da,\n"
+         "                                    smem_desc(sb + hh * 2 * 8192 + kk * 2048, 8192, 1024));\n",
+         "          acc[hh] += float(da & 1u);\n")],
+}
+SCORES_TRAIN = (8, 2, 1, 2048, 2048)  # B, Hq, Hkv, N, d of the training-bench-d2048 attention
+SCORES_SERVE = (1, 1, 1, 2048, 2048)  # the serving-bench-d2048 prefill
 D256 = (2, 8, 4, 8192, 256)  # B, Hq, Hkv, N, d of Gemma-2-2B's training attention
 D256_CASES = {"global": (0, 0.0), "global_softcap50": (0, 50.0),
               "window4096": (4096, 0.0), "window4096_softcap50": (4096, 50.0)}
@@ -263,6 +285,50 @@ def d256_breakdown(parent):
     return out
 
 
+def scores_device_ms(backward):
+    """A timer of route wide_scores' passes: device ms of each pass alone
+    (one wave, causal bf16) at SCORES_TRAIN, and with ``backward`` false
+    the forward's at SCORES_SERVE too, with their bounds."""
+
+    def timer(gen, dev):
+        import torch
+        from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
+        from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
+        from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+        out = {}
+        for shape_name, (b, hq, hkv, n, d) in (("train_d2048", SCORES_TRAIN),
+                                              ("serve_prefill_d2048", SCORES_SERVE)):
+            if backward and shape_name != "train_d2048":
+                continue
+            q, do = (cs._rand(gen, (b, hq, n, d), torch.bfloat16, dev) for _ in range(2))
+            k, v = (cs._rand(gen, (b, hkv, n, d), torch.bfloat16, dev) for _ in range(2))
+            kw = dict(causal=True, sm_scale=d ** -0.5)
+            wave = (0, b * hq * ws.n_tiles(n))
+            work = cs.scores_pass_work(b, hq, hkv, n, d)
+            o, lse = fk.attn_fwd_plain(q, k, v, **kw)  # the plain forward: nothing cut in it
+            if backward:
+                delta = bk.attn_bwd_preprocess(o, do)
+                p, ds = ws.bwd_scores(q, k, v, do, lse, delta, wave, **kw)
+                dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+                calls = {"bwd_scores": lambda: ws.bwd_scores(q, k, v, do, lse, delta, wave, **kw),
+                         "dq_product": lambda: ws.dq_product(ds, q, k, dq, wave, **kw),
+                         "dkv_product": lambda: ws.dkv_product(p, ds, q, k, do, dk, dv,
+                                                               (None, None), wave, **kw)}
+            else:
+                s, st = ws.fwd_scores(q, k, wave, **kw)
+                calls = {"fwd_scores": lambda: ws.fwd_scores(q, k, wave, **kw),
+                         "fwd_product": lambda: ws.fwd_product(s, st, v, o, lse, wave, **kw)}
+            out[shape_name] = {name: {"device_ms": cs.device_ms(fn),
+                                      "bound_ms": cs.bound(*work[name], cs.PEAK_BF16_FLOPS)[0]}
+                               for name, fn in calls.items()}
+            del q, k, v, do, o, lse
+            torch.cuda.empty_cache()
+        return out
+
+    return timer
+
+
 def decode_device_ms(gen, dev):
     """Device ms of one decode call (bf16 q) from bf16 and int8 pools at
     DECODE, each call after an L2 flush, and the call's byte bound."""
@@ -286,17 +352,18 @@ def decode_device_ms(gen, dev):
     return out
 
 
-def breakdown(source, cuts, slots, timer, instance):
-    """Builds ``source`` and its cut copies, then times each with ``timer``
-    (its kernels swapped into ``slots``: [(module, attribute)]); the
-    variants' records by name, each with ``instance(log)`` of its build."""
+def breakdown(source, cuts, slots, timer, instance, header="wide.cuh"):
+    """Builds ``source`` and its cut copies (edits of ``header``), then
+    times each with ``timer`` (its kernels swapped into ``slots``:
+    [(module, attribute)]); the variants' records by name, each with
+    ``instance(log)`` of its build."""
     import torch
     from flash_attention_dlrs_tpu_torch import _cuda
 
     built = _cuda.build([source])
     only = _DECODE_ONLY_512 if source == "paged_decode_wide.cu" else []
-    builds = cs.start_mutant_builds({n: (source, "wide.cuh", e + only)
-                                     for n, e in cuts.items()})
+    builds = cs.start_mutant_builds({n: (source, header, e + only)
+                                     for n, e in cuts.items()}, every=header != "wide.cuh")
     cs.wait_mutant_builds(builds)
     log = built[source]["log"] if built else ""
     logs = {"as_built": log, **{n: (lib.parent / "nvcc.log").read_text()
@@ -313,7 +380,7 @@ def breakdown(source, cuts, slots, timer, instance):
             for (mod, attr), kernel in zip(slots, kernels[name]):
                 setattr(mod, attr, kernel)
             rec = out.setdefault(name, {"edits": cuts.get(name, []), "device_ms": [],
-                                        "d512_instances": instance(logs[name])})
+                                        "instances": instance(logs[name])})
             rec["device_ms"].append(timer(gen, dev))
     finally:
         for (mod, attr), kernel in zip(slots, real):
@@ -355,6 +422,19 @@ def main() -> int:
             "paged_decode_wide.cu", DECODE_CUTS, [(dm, "DECODE_WIDE_KERNEL")], decode_device_ms,
             lambda log: {k: v for k, v in cs.paged_instances(log, "paged_decode_wide.cu").items()
                          if k in ("decode_wide_bf16_d512", "decode_wide_int8_d512")})
+    if "scores" in parts:
+        from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+        for half, source, slots in (
+                ("forward", "attn_fwd_scores.cu",
+                 [(ws, "FWD_SCORES_KERNEL"), (ws, "FWD_PRODUCT_KERNEL")]),
+                ("backward", "attn_bwd_scores.cu",
+                 [(ws, "BWD_SCORES_KERNEL"), (ws, "DQ_PRODUCT_KERNEL"),
+                  (ws, "DKV_PRODUCT_KERNEL")])):
+            rec[f"scores_{half}"] = breakdown(
+                source, SCORES_CUTS, slots, scores_device_ms(half == "backward"),
+                lambda log, source=source: cs.scores_instances(log, source),
+                header="wide_scores.cuh")
     if "d256" in parts:
         rec["d256"] = d256_breakdown(parent)
     rec["card"] = cs.card_line()
