@@ -163,12 +163,13 @@ Then drives every path of the port:
   graphed bursts of 8, from int8 KV and chunked with the prefix cache
   (serve_d512); training-bench-d512, the training-bench model with 8 q / 2
   kv heads of 512, trained at B8 x N2048 (train_d512); above 1024 (the
-  bf16 / fp16 forward and sweeps as score and product passes, route
-  wide_scores; verify and fp32 column-chunked, route wide_chunk /
-  wide_fp32; decode's chunked build) the same checks at 1152 in every mode
-  and dtype, at 1408, 2048 and 8192, the forward bit for bit on repeat,
-  each pass against its plain version on the same inputs, a call in
-  several waves of scratch bit for bit the call in one, the op at 1100
+  bf16 / fp16 forward, sweeps and paged verify as score and product
+  passes, route wide_scores; fp32 column-chunked, route wide_fp32;
+  decode's chunked build) the same checks at 1152 in every mode and
+  dtype, at 1408, 2048 and 8192, the forward and verify bit for bit on
+  repeat, each pass against its plain version on the same inputs, a call
+  in several waves of scratch bit for bit the call in one, a verify call
+  replayed from a CUDA graph bit for bit its eager call, the op at 1100
   (padded to 1152), the mutants caught, and the two models re-headed at
   2048 (serve_d2048: 1 q / 1 kv head; train_d2048: 2 q / 1 kv heads);
 
@@ -638,40 +639,57 @@ def paged_instances(log, source):
     return out
 
 
+WGMMA_ENTRY_WIDE = re.compile(r"wide_wgmma_kernelI(\w+?)Lb(\d)ELi(\d)ELi(\d)ELi(\d)E")
+
+
+def _wide_wgmma_name(match):
+    """"<dtype>_<fwd|verify>_d<head dim>" of a WGMMA_ENTRY_WIDE match (the
+    head dim from its cut: CTAs a cluster x owners a CTA x 64-column chunks
+    an owner), with its owners a CTA and CTAs a cluster."""
+    nc, nw, c = (int(x) for x in match.groups()[2:])
+    return (f"{'bf16' if 'bfloat16' in match.group(1) else 'fp16'}_"
+            f"{'verify' if match.group(2) == '1' else 'fwd'}_d{64 * nc * nw * c}"), nw, nc
+
+
 def wide_wgmma_instances(log, source):
     """Registers, spills and ptxas performance warnings of every
     wide_wgmma_kernel instance of a wide source (csrc/wide.cuh), from nvcc's
-    ``--ptxas-options=-v`` log, by "<dtype>_<fwd|verify>_d<head dim>" (the
-    head dim from its cut: CTAs a cluster x owners a CTA x 64-column chunks
-    an owner)."""
+    ``--ptxas-options=-v`` log, by :func:`_wide_wgmma_name`.  ptxas prints a
+    serialization warning (C7518 / C7520 ...) before the entries' own lines,
+    naming its function: it is counted for the instance it names."""
     out, cur = {}, None
+
+    def rec(match):
+        name, nw, nc = _wide_wgmma_name(match)
+        return out.setdefault(name, {"source": source, "owners_a_cta": nw, "cluster": nc,
+                                     "ptxas_warnings": []})
+
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"wide_wgmma_kernelI(\w+?)Lb(\d)ELi(\d)ELi(\d)ELi(\d)E", m.group(1))
-            cur = None
+            k = WGMMA_ENTRY_WIDE.search(m.group(1))
+            cur = rec(k) if k else None
+            continue
+        if "Performance Loss" in line or "serialized" in line:
+            k = WGMMA_ENTRY_WIDE.search(line) if "in the function '" in line else None
             if k:
-                nc, nw, c = (int(x) for x in k.groups()[2:])
-                cur = (f"{'bf16' if 'bfloat16' in k.group(1) else 'fp16'}_"
-                       f"{'verify' if k.group(2) == '1' else 'fwd'}_d{64 * nc * nw * c}")
-                out[cur] = {"source": source, "owners_a_cta": nw, "cluster": nc,
-                            "ptxas_warnings": []}
+                rec(k)["ptxas_warnings"].append(line.strip())
+            elif cur is not None:
+                cur["ptxas_warnings"].append(line.strip())
             continue
         if cur is None:
             continue
-        if "Performance Loss" in line or "serialized" in line:
-            out[cur]["ptxas_warnings"].append(line.strip())
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            out[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            cur.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[cur]["registers"] = int(m.group(1))
+            cur["registers"] = int(m.group(1))
     return out
 
 
-SCORES_ENTRY = re.compile(r"ws_(fwd_scores|bwd_scores|product)_kernelI\d+(__nv_bfloat16|__half)"
-                          r"(?:Li(\d)E)?E")
+SCORES_ENTRY = re.compile(r"ws_(fwd_scores|bwd_scores|product|verify_scores|verify_product)"
+                          r"_kernelI\d+(__nv_bfloat16|__half)(?:Li(\d)E)?E")
 SCORES_PRODUCTS = ("o", "dq", "dkv")  # csrc/wide_scores.cuh kProductO / Dq / Dkv
 
 
@@ -687,7 +705,7 @@ def scores_instances(log, source):
     """Registers, spills and ptxas performance warnings of every instance of
     route wide_scores' passes (csrc/wide_scores.cuh) in a source's nvcc
     log, by "<pass>_<dtype>" (fwd_scores, bwd_scores, product_o / _dq /
-    _dkv)."""
+    _dkv, verify_scores, verify_product)."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -700,6 +718,8 @@ def scores_instances(log, source):
         if "Performance Loss" in line or "serialized" in line:
             # ptxas names the function in the warning, before its own entry
             k = SCORES_ENTRY.search(line)
+            if k is None and "in the function '" in line:
+                continue  # another kernel's (wide_wgmma_instances counts those)
             # a warning of no instance by name still fails the build check
             name = _scores_name(k) if k else "unattributed"
             out.setdefault(name, {"source": source, "ptxas_warnings": []})
@@ -805,6 +825,25 @@ def d256_shared_bytes():
     return out
 
 
+# The wide_wgmma instances (PR 17, both dtypes) whose wgmmas ptxas
+# serializes: C7518 (WG.DP) or C7520 (WG.AR) "in divergent path", in the
+# verify instances at every width to 1024 (the paged producer's branches)
+# and the forward's at 640 and 896 (one owner a CTA).  Recorded by
+# build_wide and left to repair (ROADMAP.md queue 2); any other warning, on
+# these or on any other instance, fails the build.
+WGMMA_SERIALIZED_KNOWN = ({f"{t}_verify_d{d}" for t in ("bf16", "fp16")
+                           for d in (384, 512, 640, 768, 896, 1024)}
+                          | {f"{t}_fwd_d{d}" for t in ("bf16", "fp16") for d in (640, 896)})
+
+
+def _unknown_warnings(name, warnings):
+    """The ptxas warnings of a wide_wgmma instance that
+    WGMMA_SERIALIZED_KNOWN does not list."""
+    known = name in WGMMA_SERIALIZED_KNOWN
+    return [w for w in warnings
+            if not (known and re.search(r"\(C75(18|20)\) .* in divergent path", w))]
+
+
 def phase_build(mutants=False):
     """Builds every source and, with ``mutants``, then starts the backward
     and paged mutant builds and returns them: they compile at the lowest CPU
@@ -899,14 +938,16 @@ def phase_build(mutants=False):
     sweeps = wide_bwd_instances(built["attn_bwd_wide.cu"]["log"]) if (
         "attn_bwd_wide.cu" in built) else {}
     wrong = {k: v for k, v in {**wgmma, **sweeps}.items()
-             if v["ptxas_warnings"] or (v["owners_a_cta"] == 2 and v.get("registers") != LAUNCH_REGS)}
+             if _unknown_warnings(k, v["ptxas_warnings"])
+             or (v["owners_a_cta"] == 2 and v.get("registers") != LAUNCH_REGS)}
     decode = paged_instances(built["paged_decode_wide.cu"]["log"], "paged_decode_wide.cu") if (
         "paged_decode_wide.cu" in built) else {}
     # route wide_scores: 2 dtypes x (the forward's score and product
-    # passes, the backward's score pass and two products), each at the
-    # launch's 168 registers, none spilling or with serialized wgmmas
+    # passes, the backward's score pass and two products, verify's score and
+    # product passes), each at the launch's 168 registers, none spilling or
+    # with serialized wgmmas
     scores = {}
-    for src in SCORES_BUILDS.values():
+    for src in (*SCORES_BUILDS.values(), WIDE_BUILDS["paged_verify"]):
         src = src.rsplit("/", 1)[1]
         if src in built:
             scores.update(scores_instances(built[src]["log"], src))
@@ -916,8 +957,8 @@ def phase_build(mutants=False):
     emit({"phase": "build_wide", "ptxas": wide, "spilling": spilling,
           "wide_wgmma_instances": wgmma, "wide_bwd_instances": sweeps,
           "wide_decode_instances": decode, "wide_scores_instances": scores})
-    if scores and (len(scores) != 10 or scores_wrong):
-        raise AssertionError(f"wide_scores instances off ({len(scores)} of 10): {scores_wrong}")
+    if scores and (len(scores) != 14 or scores_wrong):
+        raise AssertionError(f"wide_scores instances off ({len(scores)} of 14): {scores_wrong}")
     if spilling:
         raise AssertionError(f"wide instances spill: {spilling}")
     if decode and (len(decode) != 42 or any(v.get("spill_stores") or v.get("spill_loads")
@@ -2418,8 +2459,9 @@ def _serve_run(engine, prompts, new_tokens, record):
         wall = time.perf_counter() - t
         launches = _launches()
         routes, verify_routes = launches.pop("fwd_routes"), launches.pop("verify_routes")
+        split_verifies = launches.pop("split_verifies")
     return {"outs": outs, "launches": launches, "fwd_routes": routes,
-            "verify_routes": verify_routes,
+            "verify_routes": verify_routes, "split_verifies": split_verifies,
             "wall": wall, "admit_ms": admit_ms,
             "decode_ms": decode_ms, "chunks": len(chunks), "calls": rec.calls,
             "steps": engine.scheduler.stats.steps - steps_before}
@@ -2675,6 +2717,14 @@ def phase_serve_chunked(dev, model, cfg, phase="serve_chunked", route="wgmma",
                 launches["paged_verify"] == cfg.n_layers * want_chunks,
             f"{kind}_verify_launches_all_{verify_route}":
                 all_on(r["verify_routes"], verify_route, launches["paged_verify"]),
+            f"{kind}_verify_product_launches_"
+            f"{'one_a_verify' if verify_route == 'wide_scores' else 'none'}":
+                launches["paged_verify_product"] == (
+                    launches["paged_verify"] if verify_route == "wide_scores" else 0),
+            f"{kind}_verify_combine_launches_"
+            f"{'one_a_split_verify' if verify_route == 'wide_scores' else 'none'}":
+                launches["paged_verify_combine"] == (
+                    r["split_verifies"] if verify_route == "wide_scores" else 0),
             f"{kind}_decode_launches_16_per_step":
                 launches["paged_decode"] == cfg.n_layers * steps > 0,
             f"{kind}_no_dense_prefill": (launches["attn_fwd"] == 0
@@ -2890,18 +2940,22 @@ def _serve_kernels():
     from flash_attention_dlrs_tpu_torch.ops import fwd_kernel as fk
     from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
 
-    # above 1024 a bf16 forward is the score pass and the product pass
+    # above 1024 a bf16 forward is the score pass and the product pass, a
+    # bf16 verify its score pass ("paged_verify"), product pass and merge
     return {"attn_fwd": (fk.FWD_D64_KERNEL, fk.FWD_KERNEL, fk.FWD_D256_KERNEL,
                          fk.FWD_WIDE_KERNEL, ws.FWD_SCORES_KERNEL),
             "attn_fwd_product": (ws.FWD_PRODUCT_KERNEL,),
             "paged_decode": (dm.DECODE_D64_KERNEL, dm.DECODE_KERNEL, dm.DECODE_D256_KERNEL,
                              dm.DECODE_WIDE_KERNEL, dm.DECODE_CHUNK_KERNEL),
             "paged_verify": (dm.VERIFY_D64_KERNEL, dm.VERIFY_KERNEL, dm.VERIFY_D256_KERNEL,
-                             dm.VERIFY_D256_F16_KERNEL, dm.VERIFY_WIDE_KERNEL)}
+                             dm.VERIFY_D256_F16_KERNEL, dm.VERIFY_WIDE_KERNEL,
+                             ws.VERIFY_SCORES_KERNEL),
+            "paged_verify_product": (ws.VERIFY_PRODUCT_KERNEL,),
+            "paged_verify_combine": (ws.VERIFY_COMBINE_KERNEL,)}
 
 
 def _zero_launches():
-    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROUTE_LAUNCHES
+    from flash_attention_dlrs_tpu_torch.ops.decode import VERIFY_ROUTE_LAUNCHES, VERIFY_SPLITS
 
     for builds in _serve_kernels().values():
         for kern in builds:
@@ -2909,16 +2963,19 @@ def _zero_launches():
     fwd_routes(zero=True)
     for r in VERIFY_ROUTE_LAUNCHES:
         VERIFY_ROUTE_LAUNCHES[r] = 0
+    VERIFY_SPLITS.clear()
 
 
 def _launches():
     """The serving kernels' launches (_serve_kernels), decode's on its
-    column-chunked build apart, and the forward's and verify's by route."""
+    column-chunked build apart, the forward's and verify's by route, and the
+    verify calls cut into more than one key split."""
     from flash_attention_dlrs_tpu_torch.ops import decode as dm
 
     return {**{name: sum(k.launches for k in builds) for name, builds in _serve_kernels().items()},
             "paged_decode_chunk": dm.DECODE_CHUNK_KERNEL.launches,
-            "fwd_routes": fwd_routes(), "verify_routes": dict(dm.VERIFY_ROUTE_LAUNCHES)}
+            "fwd_routes": fwd_routes(), "verify_routes": dict(dm.VERIFY_ROUTE_LAUNCHES),
+            "split_verifies": sum(n for k, n in dm.VERIFY_SPLITS.items() if k > 1)}
 
 
 def graphed_run(engine, prompts, burst, call="generate", new_tokens=SERVE_NEW_TOKENS, **kw):
@@ -7755,6 +7812,13 @@ WIDE_MUTANTS = {
     "product_drops_last_key_tile": ("attn_fwd_scores.cu", "wide_scores.cuh", [(
         "for (int kt = tr.lo; kt < tr.hi; ++kt) {  // every key tile the q tile sees, in order",
         "for (int kt = tr.lo; kt < tr.hi - 1; ++kt) {  // every key tile the q tile sees, in order")]),
+    # route wide_scores' paged verify: its product pass leaving out the last
+    # key tile of each key split; the 16-bit verify cases at d 1152 must
+    # catch it (paged_verify_wide.cu whole: ~25 s of nvcc alone)
+    "verify_product_drops_last_key_tile": ("paged_verify_wide.cu", "wide_scores.cuh", [(
+        "for (int kt = kt_lo; kt < kt_hi; ++kt) {  // every key tile of the split, in order",
+        "for (int kt = kt_lo; kt < kt_hi - 1; ++kt) {  // every key tile of the split, in order"),
+    ]),
 }
 WIDE_MUTANT_BUILDS = None  # started by phase_build(mutants=True)
 WIDE_WIDTHS = (384, 512, 640)  # the kernel widths of the checks; 1024, the cuts' widest, below
@@ -7956,7 +8020,8 @@ def wide_paged_cases(num_sms):
 
 
 def chunk_paged_cases(num_sms):
-    """decode_check cases of the column-chunked paged kernels above 1024:
+    """decode_check cases of the paged kernels above 1024 (decode
+    column-chunked, bf16 / fp16 verify on route wide_scores' passes):
     every mode, pool kind and q dtype at d 1152 (:func:`_wide_paged_modes`),
     decode and verify from bf16 q at 1408, the re-headed serving model's
     heads at 2048 (decode of 8 sequences from bf16 and int8 pools, a chunk
@@ -8064,10 +8129,13 @@ def _paged_wide_op(dev, gen, kind, t_new, d=320):
     kernels' width (384 for 320, 1152 for 1100: an engine's pools for such a
     model, padded as the JAX package pads them), with softcap and ALiBi, the
     wide kernel's launches counted (decode's column-chunked build above
-    1024); against the plain version on the same inputs: (record, ok,
+    1024; verify's passes there, {pass: launches}, the merge's one a split
+    call); against the plain version on the same inputs: (record, ok,
     launches)."""
     import torch
+    from flash_attention_dlrs_tpu_torch import geometry as geo
     from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
 
     hq, hkv = D512_SERVE_HEADS["n_q_heads"], D512_SERVE_HEADS["n_kv_heads"]
     width = -(-d // 128) * 128
@@ -8078,13 +8146,21 @@ def _paged_wide_op(dev, gen, kind, t_new, d=320):
     kw = dict(sm_scale=d ** -0.5, logit_softcap=30.0,
               alibi_slopes=mods(hq, True)["alibi_slopes"])
     wide = dm.VERIFY_WIDE_KERNEL if t_new else dm.paged_kernels(width)[0]
+    passes = {"paged_verify_scores": ws.VERIFY_SCORES_KERNEL,
+              "paged_verify_product": ws.VERIFY_PRODUCT_KERNEL,
+              "paged_verify_combine": ws.VERIFY_COMBINE_KERNEL}
     attend, plain = ((dm.paged_verify_attention, dm.paged_verify_plain) if t_new
                      else (dm.paged_decode_attention, dm.paged_decode_plain))
     dm.DECODE_SPLITS.clear()
-    wide.launches = 0
+    dm.VERIFY_SPLITS.clear()
+    for kern in (wide, *passes.values()):
+        kern.launches = 0
     got = attend(q, kp, vp, lens, table, **kw)
     torch.cuda.synchronize()
     launches = wide.launches
+    if t_new and geo.chunked(width):  # route wide_scores' passes and the wide build's
+        launches = {name: kern.launches for name, kern in passes.items()}
+        launches[wide.symbol] = wide.launches
     if dm.DECODE_SPLITS:  # the kernel's split count (none recorded off the card)
         kw["splits"] = next(iter(dm.DECODE_SPLITS))
     want = plain(q, kp, vp, lens, table, **kw)
@@ -8145,7 +8221,11 @@ def wide_op_checks(dev, gen):
                    on_route(bf16, True, d=width, **wide_call(bf16, width)))
     for d in (320, 1100):
         record(f"paged_decode_d{d}_int8", *_paged_wide_op(dev, gen, "int8", 0, d), 1)
-        record(f"paged_verify_d{d}_T64_bf16", *_paged_wide_op(dev, gen, "bf16", 64, d), 1)
+        # above 1024 each pass of route wide_scores once (the call at these
+        # shapes cuts its keys: the merge too), none of the wide build
+        record(f"paged_verify_d{d}_T64_bf16", *_paged_wide_op(dev, gen, "bf16", 64, d),
+               dict(paged_verify_scores=1, paged_verify_product=1, paged_verify_combine=1)
+               if d > 1024 else 1)
     torch.cuda.empty_cache()
     return calls, checks
 
@@ -8294,9 +8374,10 @@ def chunk_timings(dev, gen):
     training shape, each of the route's passes alone at both
     (:func:`scores_pass_timings`), decode from bf16 and int8 KV at 8
     sequences of 2048 and verify of a 256-token chunk at 2048 (the serving
-    heads Hq1 Hkv1, column-chunked).  The library time is the
-    faster of SDPA with enable_gqa on the backend it picks and SDPA's
-    memory-efficient backend on expanded K/V, where either runs."""
+    heads Hq1 Hkv1; its passes alone too, :func:`verify_pass_timings`).
+    The library time is the faster of SDPA with enable_gqa on the backend
+    it picks and SDPA's memory-efficient backend on expanded K/V, where
+    either runs."""
     import torch
 
     heads = (D2048_SERVE_HEADS["n_q_heads"], D2048_SERVE_HEADS["n_kv_heads"], 2048)
@@ -8330,6 +8411,8 @@ def chunk_timings(dev, gen):
     t["passes_train_d2048"] = scores_pass_timings(dev, gen, *train, 2048, 2048)
     t["passes_serve_prefill_d2048"] = scores_pass_timings(dev, gen, *serve, 2048, 2048,
                                                           backward=False)
+    for kind in ("bf16", "int8"):
+        t[f"passes_verify_d2048_{kind}"] = verify_pass_timings(dev, gen, kind)
     return t
 
 
@@ -8479,6 +8562,252 @@ def scores_wave_check(dev, gen):
     return rec
 
 
+# Paged verify above 1024 (route wide_scores: csrc/wide_scores.cuh's paged
+# score and product passes, built as paged_verify_wide.cu): each pass held
+# against its plain version on the same inputs (the product on the kernel
+# score pass's own S, at one split and at three, the merge on the kernel
+# product's own partials): the serving-d2048 chunk, int8 pools of 16-token
+# pages at 1152 with GQA 2:1, softcap and ALiBi, fp16 value pools at 1408.
+VERIFY_PASS_CASES = [
+    # name, q dtype, pool kind, (B, Hq, Hkv, d, page, pps, lengths), softcap, T, ALiBi
+    ("d2048_serve_T256_bf16", "bfloat16", "bf16", (1, 1, 1, 2048, 128, 17, [2048]), 0.0,
+     256, False),
+    ("d1152_int8_page16_softcap_alibi_gqa", "bfloat16", "int8",
+     (2, 4, 2, 1152, 16, 136, [1000, 1717]), 30.0, 64, True),
+    ("d1408_fp16_page128_alibi", "float16", "fp16", (1, 4, 2, 1408, 128, 17, [1500]), 0.0, 100,
+     True),
+]
+# a verify call that a lowered scratch cap runs in waves (B2 Hq4 Hkv2 T256
+# at d 1152 from int8 pools, 16 tiles, three a wave), and the serving-d2048
+# chunk replayed from a CUDA graph
+VERIFY_WAVE_CASE = ("d1152_int8_B2_T256_waves", "bfloat16", "int8",
+                    (2, 4, 2, 1152, 128, 17, [2048, 1500]), 30.0, 256, True)
+VERIFY_WAVE_TILES = 3
+VERIFY_GRAPH_CASE = ("d2048_serve_T256_bf16_graph", "bfloat16", "bf16",
+                     (1, 1, 1, 2048, 128, 17, [2048]), 0.0, 256, False)
+
+
+def _verify_setup(dev, gen, case):
+    """Inputs of a paged verify case (chunk_paged_cases' layout) and what
+    its passes take: (q, pools (k, v), lengths, table, keyword arguments of
+    paged_verify_attention, the passes' keyword arguments, the folded rows,
+    its one wave)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    name, dt, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case
+    dt = getattr(torch, dt)
+    q, kp, vp, lens, table = _paged_inputs(gen, dev, dt, kind, b, hq, hkv, d, ps, pps, lengths,
+                                           num_pages=b * pps + 8, t_new=t_new)
+    slopes = mods(hq, alibi)["alibi_slopes"]
+    kw = dict(logit_softcap=cap, sm_scale=d ** -0.5, alibi_slopes=slopes)
+    slopes = dm._normalize_alibi(slopes, hq, causal=True)
+    passes = dict(num_q_heads=hq, tokens=t_new)
+    qs = ws.verify_rows(q, hkv, dm._scale_in(d ** -0.5, dt))
+    wave = (0, b * hkv * ws.n_tiles(t_new * (hq // hkv)))
+    return q, (kp, vp), lens, table, kw, dict(passes, softcap=cap, alibi_slopes=slopes), qs, wave
+
+
+def verify_pass_case(dev, gen, case):
+    """One VERIFY_PASS_CASES case: verify's score pass against its plain
+    version (S and each key tile's row max and sum where the passes write
+    them), the product pass on the kernel's own S at one split (O) and at
+    three (each split's partial and lse where the split shows the row a
+    key), and the merge on the kernel's own partials.  Returns {pass:
+    {"max_abs_err", "ok"}}."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    name, _, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = case
+    q, (kp, vp), lens, table, _, kw, qs, wave = _verify_setup(dev, gen, case)
+    pools = dm._Pools(kp, vp)
+    eps = torch.finfo(q.dtype).eps
+    rows, n_keys = t_new * (hq // hkv), pps * ps
+    out = {}
+    s_k, st_k = ws.verify_scores(qs, pools, lens, table, wave, **kw)
+    s_p, st_p = ws.verify_scores_plain(qs, pools, lens, table, wave, **kw)
+    key_hi = ws.verify_key_hi(lengths, t_new, rows, hq // hkv, n_keys)
+    mask = ws.verify_scratch_mask(wave, key_hi, hkv, rows, n_keys, dev)
+    err_s, ok_s = _near(s_k, s_p, mask, 1e-4)
+    tiles = mask.view(mask.shape[0], -1, ws.TILE).any(dim=-1)
+    err_m, ok_m = _near(st_k[..., 0], st_p[..., 0], tiles, 1e-4)
+    err_l, ok_l = _near(st_k[..., 1], st_p[..., 1], tiles, 1e-4)
+    out["verify_scores"] = {"max_abs_err": max(err_s, err_m, err_l), "ok": ok_s and ok_m and ok_l}
+    pk = dict(num_q_heads=hq, tokens=t_new, dtype=q.dtype)
+    o_k, o_p = torch.empty_like(q), torch.empty_like(q)
+    ws.verify_product(s_k, st_k, pools, lens, table, wave, o_k, **pk)
+    ws.verify_product_plain(s_k, st_k, pools, lens, table, wave, o_p, **pk)
+    full = torch.ones_like(o_k, dtype=torch.bool)
+    err_o, ok_o = _near(o_k, o_p, full, eps)
+    splits, n = 3, b * hq * t_new
+    parts = [(torch.zeros((splits, n, d), device=dev), torch.zeros((splits, n), device=dev))
+             for _ in range(2)]
+    ws.verify_product(s_k, st_k, pools, lens, table, wave, parts[0], splits=splits, **pk)
+    ws.verify_product_plain(s_k, st_k, pools, lens, table, wave, parts[1], splits=splits, **pk)
+    shown = torch.isfinite(parts[1][1])
+    err_po, ok_po = _near(parts[0][0], parts[1][0], shown[..., None].expand_as(parts[1][0]), eps)
+    err_pl, ok_pl = _near(parts[0][1], parts[1][1], torch.ones_like(shown), 1e-5)
+    out["verify_product"] = {"max_abs_err": max(err_o, err_po), "max_abs_err_lse": err_pl,
+                             "ok": ok_o and ok_po and ok_pl
+                             and torch.equal(shown, torch.isfinite(parts[0][1]))}
+    c_k, c_p = torch.empty_like(q), torch.empty_like(q)
+    ws.verify_combine(*parts[0], c_k)
+    merged, _ = dm.combine_partials(*parts[0])
+    c_p.view(-1, d)[:] = merged.to(q.dtype)
+    out["verify_combine"] = dict(zip(("max_abs_err", "ok"), _near(c_k, c_p, full, eps)))
+    torch.cuda.synchronize()
+    emit({"phase": "verify_pass_check", "case": name, "kv": kind, "q_dtype": str(q.dtype),
+          "shape": [b, hq, hkv, d, ps, pps], "lengths": lengths, "tokens": t_new,
+          "softcap": cap, "alibi": alibi, "passes": out})
+    del q, kp, vp, s_k, s_p, st_k, st_p, parts
+    return out
+
+
+def verify_wave_check(dev, gen):
+    """VERIFY_WAVE_CASE through paged_verify_attention with the scratch cap
+    lowered to VERIFY_WAVE_TILES tiles a wave, bit for bit the same call in
+    one wave, and held to paged_verify_plain: a record with its checks."""
+    import torch
+    from flash_attention_dlrs_tpu_torch import geometry as geo
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    name, _, kind, (b, hq, hkv, d, ps, pps, lengths), cap, t_new, alibi = VERIFY_WAVE_CASE
+    q, (kp, vp), lens, table, kw, _, _, wave = _verify_setup(dev, gen, VERIFY_WAVE_CASE)
+    one = dm.paged_verify_attention(q, kp, vp, lens, table, **kw)
+    limit = geo.WIDE_SCORES_SCRATCH_BYTES
+    try:
+        geo.WIDE_SCORES_SCRATCH_BYTES = VERIFY_WAVE_TILES * geo.wide_scores_tile_bytes(
+            pps * ps, False)
+        n_waves = len(ws.verify_waves(b, hkv, t_new * (hq // hkv), pps * ps))
+        many = dm.paged_verify_attention(q, kp, vp, lens, table, **kw)
+    finally:
+        geo.WIDE_SCORES_SCRATCH_BYTES = limit
+    want = dm.paged_verify_plain(q, kp, vp, lens, table, **kw)
+    spread = dm.paged_verify_plain(q, *abs_v_pools(kp, vp), lens, table, **kw)
+    torch.cuda.synchronize()
+    rec = paged_errors((many, None), (want, None), q.dtype, spread)
+    checks = {"verify_waves_several": n_waves > 1,
+              "verify_waves_bitwise_one_wave": torch.equal(one, many),
+              "verify_waves_vs_plain": rec.pop("ok")}
+    rec = {"phase": "verify_waves", "case": name, "waves": n_waves, "tiles": wave[1],
+           **rec, "checks": checks}
+    emit(rec)
+    return rec
+
+
+def verify_graph_check(dev, gen):
+    """VERIFY_GRAPH_CASE through paged_verify_attention eagerly (warm, on a
+    side stream, as a capture needs) and replayed from a CUDA graph that
+    captured the same call: the replay's O bit for bit the eager one's."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+
+    q, (kp, vp), lens, table, kw, _, _, _ = _verify_setup(dev, gen, VERIFY_GRAPH_CASE)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        eager = dm.paged_verify_attention(q, kp, vp, lens, table, **kw)
+        dm.paged_verify_attention(q, kp, vp, lens, table, **kw)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dm.paged_verify_attention(q, kp, vp, lens, table, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    rec = {"phase": "verify_graph", "case": VERIFY_GRAPH_CASE[0],
+           "checks": {"verify_graph_replay_bitwise_eager": torch.equal(out, eager)}}
+    emit(rec)
+    del graph, out, eager
+    torch.cuda.empty_cache()
+    return rec
+
+
+def verify_pass_work(kind, rows, key_hi, pairs, d, splits, itemsize=2):
+    """Operations and bytes of each pass of a paged verify call on route
+    wide_scores (one sequence and kv head, ``pairs`` visible (row, key)
+    pairs, ``key_hi`` live keys): each input read once, each output written
+    once (S at 4 bytes a pair; O in q's dtype, or the splits' fp32 partials
+    and lse, which the merge reads back)."""
+    kv, q_bytes = key_hi * d * KV_BYTES[kind] + (4 * key_hi if kind in QUANT_KINDS else 0), \
+        rows * d * itemsize
+    parts = splits * rows * (d + 1) * 4 if splits > 1 else 0
+    return {"verify_scores": (2 * pairs * d, q_bytes + kv + 4 * pairs),
+            "verify_product": (2 * pairs * d, 4 * pairs + kv + (parts or q_bytes)),
+            "verify_combine": (0, parts + q_bytes)}
+
+
+def verify_pass_timings(dev, gen, kind):
+    """Each pass of route wide_scores' paged verify at the serving-d2048
+    chunk (B1 Hq1 Hkv1, T 256 at a length of 2048, pages of 128, 17 a
+    sequence) from bf16 q and ``kind`` pools, with the call's own splits:
+    ms (warm, host time in it), device ms (after an L2 flush, as the call's
+    own), its plain version's ms on the same inputs and its error against
+    it (the scores where the passes write them), its bound, its CTAs; no
+    PyTorch call computes a pass alone, so library_ms is null."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    case = ("timing", "bfloat16", kind, (1, 1, 1, 2048, SERVE_PAGE, SERVE_PPS, [2048]), 0.0,
+            256, False)
+    q, (kp, vp), lens, table, _, kw, qs, wave = _verify_setup(dev, gen, case)
+    pools = dm._Pools(kp, vp)
+    splits = dm.verify_splits("wide_scores", 1, 1, 1, 256, 2048, SERVE_PPS, SERVE_PAGE,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
+    s, st = ws.verify_scores(qs, pools, lens, table, wave, **kw)
+    pk = dict(num_q_heads=1, tokens=256, dtype=q.dtype)
+    parts = tuple(x.zero_() for x in (torch.empty((splits, 256, 2048), device=dev),
+                                      torch.empty((splits, 256), device=dev)))
+    ws.verify_product(s, st, pools, lens, table, wave, parts, splits=splits, **pk)
+    o = torch.empty_like(q)
+
+    def plain_product(out):
+        ws.verify_product_plain(s, st, pools, lens, table, wave, out, splits=splits, **pk)
+        return out
+
+    calls = {"verify_scores": (lambda: ws.verify_scores(qs, pools, lens, table, wave, **kw),
+                               lambda: ws.verify_scores_plain(qs, pools, lens, table, wave, **kw)),
+             "verify_product": (
+                 lambda: ws.verify_product(s, st, pools, lens, table, wave, parts, splits=splits,
+                                           **pk),
+                 lambda: plain_product(tuple(torch.zeros_like(x) for x in parts))),
+             "verify_combine": (lambda: ws.verify_combine(*parts, o),
+                                lambda: dm.combine_partials(*parts))}
+    pairs = sum(2048 - 255 + t for t in range(256))
+    work = verify_pass_work(kind, 256, 2048, pairs, 2048, splits)
+    key_hi = ws.verify_key_hi([2048], 256, 256, 1, SERVE_PPS * SERVE_PAGE)
+    mask = ws.verify_scratch_mask(wave, key_hi, 1, 256, SERVE_PPS * SERVE_PAGE, dev)
+    full = torch.ones_like(q, dtype=torch.bool)
+    errors = {  # each pass's output against its plain version's, on its own inputs
+        "verify_scores": lambda got, want: _near(got[0], want[0], mask, 1e-4)[0],
+        "verify_product": lambda got, want: _near(parts[0], want[0], torch.isfinite(
+            want[1])[..., None].expand_as(want[0]), 1e-2)[0],
+        "verify_combine": lambda got, want: _near(o, want[0].to(o.dtype).view_as(o), full,
+                                                  1e-2)[0]}
+    ctas = {"verify_scores": sum(-(-h // ws.TILE) for h in key_hi[0]),
+            "verify_product": ws.n_tiles(256) * 8 * splits,
+            "verify_combine": 256 * 4}  # a CTA a row and 512 columns (wide.cuh WCOMBINE_COLS)
+    rows = {}
+    for name, (kernel, plain) in calls.items():
+        flops, nbytes = work[name]
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        rows[name] = {"ms": median_ms(kernel),
+                      "device_ms": device_ms(kernel, between=l2_flush(dev), floor_ms=bound_ms),
+                      "plain_ms": median_ms(plain, warmup=0, reps=1), "bound_ms": bound_ms,
+                      "bound_by": bound_by, "flops": flops, "bytes": nbytes, "splits": splits,
+                      "route": "wide_scores", "ctas": ctas[name], "library_ms": None,
+                      "library": "none: no PyTorch call computes one pass of the route alone "
+                                 "(nor attends through a page table)"}
+        got = kernel()
+        rows[name]["max_abs_err"] = errors[name](got, plain())
+    del q, kp, vp, s, st, parts, o
+    torch.cuda.empty_cache()
+    return rows
+
+
 def scores_pass_work(b, hq, hkv, n, d):
     """Operations and bytes of each pass of route wide_scores at one causal
     bf16 shape (p visible pairs a head): each input read once, each output
@@ -8575,8 +8904,9 @@ def wide_mutants_caught(dev, builds):
     640 (the column-chunked one's on the fp32 ones at d 1152), the sweeps'
     (DKV_WIDE_KERNEL and DQ_WIDE_KERNEL) on the 16-bit wide bwd_check cases
     at d 512 and 640, route wide_scores' forward passes (FWD_SCORES_KERNEL
-    and FWD_PRODUCT_KERNEL) on the 16-bit cases at d 1152: each must fail
-    at least one."""
+    and FWD_PRODUCT_KERNEL) on the 16-bit cases at d 1152, its verify passes
+    (VERIFY_SCORES_KERNEL, VERIFY_PRODUCT_KERNEL, VERIFY_COMBINE_KERNEL) on
+    the 16-bit verify cases at d 1152: each must fail at least one."""
     import torch
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch.ops import bwd_kernel as bk
@@ -8589,12 +8919,18 @@ def wide_mutants_caught(dev, builds):
     score_cases = [c for c in chunk_fwd_cases() if c[7] == 1152 and c[1] != torch.float32]
     bwd_cases = [c for c in wide_bwd_cases() if c[7] in (512, 640) and c[1] != F32
                  and c[2] * c[5] <= 2048]
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    verify_cases = [c for c in chunk_paged_cases(num_sms)  # three suffice: it drops keys of
+                    if c[3][3] == 1152 and c[5] and c[1] != torch.float32][:3]  # every split
     caught = {}
     for name, (_, lib, source) in builds.items():
         sweeps = source == "attn_bwd_wide.cu"
         scores = source == "attn_fwd_scores.cu"
+        verify = source == "paged_verify_wide.cu"
         slots = ((bk, "DKV_WIDE_KERNEL"), (bk, "DQ_WIDE_KERNEL")) if sweeps else (
             ((ws, "FWD_SCORES_KERNEL"), (ws, "FWD_PRODUCT_KERNEL")) if scores
+            else ((ws, "VERIFY_SCORES_KERNEL"), (ws, "VERIFY_PRODUCT_KERNEL"),
+                  (ws, "VERIFY_COMBINE_KERNEL")) if verify
             else ((fk, "FWD_WIDE_KERNEL"),))
         real = [getattr(mod, attr) for mod, attr in slots]
         failed = []
@@ -8603,9 +8939,11 @@ def wide_mutants_caught(dev, builds):
             for (mod, attr), kernel in zip(slots, real):
                 setattr(mod, attr, _cuda.CudaKernel(source, kernel.symbol, kernel.argtypes,
                                                     library=lib))
-            for case in (bwd_cases if sweeps else score_cases if scores
-                         else chunk_cases if name.startswith("wide_chunk") else fwd_cases):
+            for case in (bwd_cases if sweeps else score_cases if scores else verify_cases
+                         if verify else chunk_cases if name.startswith("wide_chunk")
+                         else fwd_cases):
                 ok = (bwd_case(dev, gen, case)[1] if sweeps
+                      else paged_case(dev, gen, case)["ok"] if verify
                       else fwd_case(dev, gen, case, phase="wide_mutants")["ok"])
                 if not ok:
                     failed.append(case[0])
@@ -8621,10 +8959,10 @@ def wide_shared_bytes():
     ``*_shared_bytes`` entry, against geometry.py's model: the wide_wgmma
     forward by dtype, head dim and modes (segment ids, fp8 V), its verify by
     dtype and head dim, the 16-bit sweeps by sweep, dtype, head dim and
-    segment ids, the column-chunked kernels' one layout a dtype (fp32, and
-    the 16-bit verify at the chunked widths), each pass of route
-    wide_scores (one layout a pass), decode by pool kind and head dim and
-    its column-chunked layout: {layout: [C, Python]}."""
+    segment ids, the column-chunked kernels' one layout (fp32), each pass
+    of route wide_scores (one layout a pass, verify's too), decode by pool
+    kind and head dim and its column-chunked layout: {layout: [C,
+    Python]}."""
     import ctypes
     from flash_attention_dlrs_tpu_torch import _cuda
     from flash_attention_dlrs_tpu_torch import geometry as geo
@@ -8640,17 +8978,18 @@ def wide_shared_bytes():
     fwd, verify = entry("attn_fwd_wide.cu", 3), entry("paged_verify_wide.cu", 2)
     bwd, decode = entry("attn_bwd_wide.cu", 3), entry("paged_decode_wide.cu", 2)
     chunk_decode = entry("paged_decode_chunk.cu", 0)
-    f32 = geo.wide_chunk_smem_bytes(torch.float32)
+    f32 = geo.wide_chunk_smem_bytes()
     out = {"attn_fwd_wide_fp32": [fwd(0, 512, 0), f32],
            "paged_verify_wide_fp32": [verify(0, 512), f32],
            "attn_bwd_wide_fp32": [bwd(0, 512, 0), f32],
            "paged_decode_chunk": [chunk_decode(), geo.wide_chunk_decode_smem_bytes()]}
-    for dtype, name, dt in ((1, "bf16", torch.bfloat16), (2, "fp16", torch.float16)):
-        for d in CHUNK_WIDTHS:
-            out[f"paged_verify_chunk_{name}_d{d}"] = [verify(dtype, d),
-                                                      geo.wide_chunk_smem_bytes(dt, paged=True)]
     scores = {"attn_fwd_scores.cu": ("fwd_scores", "fwd_product"),
               "attn_bwd_scores.cu": ("bwd_scores", "dq_product", "dkv_product")}
+    passes = ctypes.CDLL(str(_cuda.library_path("paged_verify_wide.cu"))
+                         ).paged_verify_scores_shared_bytes
+    passes.argtypes, passes.restype = [ctypes.c_int], ctypes.c_int
+    for code, kind in enumerate(("verify_scores", "verify_product")):
+        out[f"wide_scores_{kind}"] = [passes(code), geo.wide_scores_smem_bytes(kind)]
     for source, kinds in scores.items():
         fn = entry(source, 1)
         for code, kind in enumerate(kinds):
@@ -8699,11 +9038,12 @@ def phase_wide_heads(dev):
     bit), the sweeps twice, bit for bit (bwd_case), the paged kernels
     twice, bit for bit, at their key-split edges (paged_case); each call on
     the route its route function names (the 16-bit forward, verify and
-    sweeps on wide_wgmma to 1024; above, the 16-bit forward and sweeps on
-    wide_scores, verify on wide_chunk; decode on its head dim's build).
-    Then each pass of route wide_scores against its plain version on the
-    same inputs (scores_pass_case), a call in several waves of scratch bit
-    for bit the call in one (scores_wave_check), the entry points at head
+    sweeps on wide_wgmma to 1024; above, on wide_scores; decode on its head
+    dim's build).  Then each pass of route wide_scores against its plain
+    version on the same inputs (scores_pass_case, verify_pass_case), a call
+    in several waves of scratch bit for bit the call in one
+    (scores_wave_check, verify_wave_check), a verify call replayed from a
+    CUDA graph bit for bit its eager call (verify_graph_check), the entry points at head
     dims 320, 640 and 1100 (wide_op_checks), each mutant of WIDE_MUTANTS
     caught (the forward's by fwd_check, the sweeps' by bwd_check, at d 512
     and 640; the column-chunked fp32 forward's and route wide_scores' at
@@ -8738,6 +9078,8 @@ def phase_wide_heads(dev):
     repeats = wide_fwd_repeats(dev, gen)
     passes = {c[0]: scores_pass_case(dev, gen, c) for c in SCORES_PASS_CASES}
     waves = scores_wave_check(dev, gen)
+    vpasses = {c[0]: verify_pass_case(dev, gen, c) for c in VERIFY_PASS_CASES}
+    vwaves, vgraph = verify_wave_check(dev, gen), verify_graph_check(dev, gen)
     op_calls, op_checks = wide_op_checks(dev, gen)
     caught, wait = wide_mutants_caught(dev, builds)
     shared = wide_shared_bytes()
@@ -8751,6 +9093,9 @@ def phase_wide_heads(dev):
         "wide_scores_every_pass_kernel_vs_plain": all(
             r["ok"] for c in passes.values() for r in c.values()),
         **{f"wide_scores_{k}": ok for k, ok in waves["checks"].items()},
+        "wide_scores_every_verify_pass_kernel_vs_plain": all(
+            r["ok"] for c in vpasses.values() for r in c.values()),
+        **{f"wide_scores_{k}": ok for k, ok in {**vwaves["checks"], **vgraph["checks"]}.items()},
         "bwd_every_case_kernel_vs_plain_bitwise_on_its_route":
             all(r["ok"] for r in bwd.values()),
         "paged_every_case_kernel_vs_plain_bitwise": all(r["ok"] for r in paged.values()),
@@ -8768,6 +9113,8 @@ def phase_wide_heads(dev):
                       "paged": [n for n, r in paged.items() if not r["ok"]]},
            "fwd_repeats": repeats, "wide_scores_passes": passes,
            "wide_scores_waves": {k: waves[k] for k in ("waves", "checks")},
+           "wide_scores_verify_passes": vpasses,
+           "wide_scores_verify_waves": {k: vwaves[k] for k in ("waves", "checks")},
            "mutants": {"edits": {n: m[2] for n, m in WIDE_MUTANTS.items()},
                        "failed_cases": caught, "build_wait_seconds": wait},
            "shared_bytes": shared, "decode_ctas_per_sm": decode_ctas, "timings": timings,
@@ -8777,7 +9124,8 @@ def phase_wide_heads(dev):
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"wide_heads checks failed: {failed}")
-    return {"timings": timings, "fwd": fwd, "paged": paged, "scores_passes": passes}
+    return {"timings": timings, "fwd": fwd, "paged": paged, "scores_passes": passes,
+            "verify_passes": vpasses}
 
 
 def phase_serve_d512(dev):
@@ -8792,10 +9140,10 @@ def phase_serve_d2048(dev):
     """serving-bench-d2048: the serving-bench model re-headed at head dim
     2048 (scripts/bench_serving.py:28-34 with 1 q / 1 kv head of 2048; bf16,
     pages of 128, weights from seed 0) served above the wgmma cuts: every
-    prefill on route wide_scores (its score and product passes), every
-    verify column-chunked (route wide_chunk), decode on
+    prefill and every verify of its chunked admission on route wide_scores
+    (their score and product passes; verify's key splits merged), decode on
     paged_decode_chunk.cu: :func:`serve_reheaded`."""
-    return serve_reheaded(dev, "serve_d2048", D2048_SERVE_HEADS, "wide_scores", "wide_chunk")
+    return serve_reheaded(dev, "serve_d2048", D2048_SERVE_HEADS, "wide_scores", "wide_scores")
 
 
 def serve_reheaded(dev, phase, heads, route, verify_route=None):
@@ -8905,6 +9253,8 @@ def serve_reheaded(dev, phase, heads, route, verify_route=None):
         + chunked_runs["int8"]["launches"]["paged_decode"],
         "paged_verify_bf16": chunked_runs["bf16"]["launches"]["paged_verify"],
         "paged_verify_int8": chunked_runs["int8"]["launches"]["paged_verify"],
+        **{f"paged_verify_{p}_{kind}": chunked_runs[kind]["launches"][f"paged_verify_{p}"]
+           for p in ("product", "combine") for kind in ("bf16", "int8")},
     }
     rec = {"phase": phase, "config": {**SERVE_CFG, **heads},
            "dtype": "bfloat16", "params": n_params, "weights_setup_s": setup_s, "slots": slots,
@@ -8973,7 +9323,7 @@ def wide_entries(entry, later):
     """The kernels line's entries of the wide kernels (``entry`` is
     emit_kernels' maker): launches from serve_d512's and train_d512's runs
     (the wgmma cuts) and from serve_d2048's and train_d2048's (route
-    wide_scores' passes; verify column-chunked), times at the shapes of
+    wide_scores' passes, verify's too), times at the shapes of
     wide_timings and chunk_timings, each built from its own source (the
     kernel bodies wide.cuh and wide_scores.cuh); each pass's error from
     wide_heads' pass check at the d 2048 training shape, and the whole
@@ -9034,10 +9384,30 @@ def wide_entries(entry, later):
             out.append(entry(f"paged_decode[{tag},{kind}]", WIDE_SOURCE, DECODE_REPLACES,
                              serve[f"paged_decode_{kind}"], t[f"decode_d{d}_{kind}_B8_ctx2048"],
                              built_from=WIDE_BUILDS[decode_build]))
-            out.append(entry(f"paged_verify[{tag},{kind}]", WIDE_SOURCE, VERIFY_REPLACES,
-                             serve[f"paged_verify_{kind}"],
-                             t[f"verify_d{d}_{kind}_T256_ctx2048"],
-                             built_from=WIDE_BUILDS["paged_verify"]))
+            if d == 512:
+                out.append(entry(f"paged_verify[{tag},{kind}]", WIDE_SOURCE, VERIFY_REPLACES,
+                                 serve[f"paged_verify_{kind}"],
+                                 t[f"verify_d{d}_{kind}_T256_ctx2048"],
+                                 built_from=WIDE_BUILDS["paged_verify"]))
+                continue
+            # route wide_scores' verify: its score pass (launches counted as
+            # the call's), product pass and merge of the key splits, each
+            # timed alone; the whole call beside the score pass's entry
+            rows = t[f"passes_verify_d2048_{kind}"]
+            for p, launched in (("scores", serve[f"paged_verify_{kind}"]),
+                                ("product", serve[f"paged_verify_product_{kind}"]),
+                                ("combine", serve[f"paged_verify_combine_{kind}"])):
+                rec = entry(f"paged_verify_{p}[wide_scores,d2048,{kind}]",
+                            WIDE_SOURCE if p == "combine" else SCORES_SOURCE, VERIFY_REPLACES,
+                            launched, rows[f"verify_{p}"],
+                            built_from=WIDE_BUILDS["paged_verify"])
+                rec["library"] = rows[f"verify_{p}"]["library"]
+                if p == "scores":
+                    call = t[f"verify_d2048_{kind}_T256_ctx2048"]
+                    rec["call"] = {k: call[k] for k in (
+                        "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                        "splits", "ctas")}
+                out.append(rec)
     return out
 
 

@@ -27,7 +27,7 @@ int bwd_wide_entry(bool dkv, const void* q, const void* k, const void* v, const 
                 causal, window, softcap,
                 Mods{slopes, rate, keep_scale, uint32_t(seed), q_seg, kv_seg},
                 static_cast<cudaStream_t>(stream)};
-  if (route == kRouteWideF32 && dtype == 0) return launch_wide_bwd_chunk<float>(a, dkv);
+  if (route == kRouteWideF32 && dtype == 0) return launch_wide_bwd_chunk(a, dkv);
   if (chunked_head_dim(D)) return int(cudaErrorInvalidValue);
   if (route == kRouteWideWgmma && dtype == 1) return launch_wide_bwd_wgmma<__nv_bfloat16>(a, dkv);
   if (route == kRouteWideWgmma && dtype == 2) return launch_wide_bwd_wgmma<__half>(a, dkv);
@@ -64,7 +64,7 @@ extern "C" int attn_bwd_dq_wide(const void* q, const void* k, const void* v,
 // sweeps) and flags (1: segment ids, 2: the dK/dV sweep, else dQ); 0 for a
 // head dim no kernel of this build takes.
 extern "C" int attn_bwd_wide_shared_bytes(int dtype, int D, int flags) {
-  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  if (dtype == 0) return int(WideLayout::BYTES);
   return wide_bwd_smem(D, (flags & 1) != 0, (flags & 2) != 0);
 }
 

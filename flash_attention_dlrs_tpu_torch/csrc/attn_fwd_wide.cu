@@ -32,7 +32,7 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
   a.T = 1; a.splits = 1;
   a.stream = static_cast<cudaStream_t>(stream);
   const dim3 chunks((Nq + WROWS - 1) / WROWS, D / WCOLS, B * Hq);
-  if (route == kRouteWideF32 && dtype == 0) return launch_wide_chunk<float, false>(a, chunks);
+  if (route == kRouteWideF32 && dtype == 0) return launch_wide_chunk<false>(a, chunks);
   if (route != kRouteWideWgmma || (dtype != 1 && dtype != 2) || !wide_cut_head_dim(D))
     return int(cudaErrorInvalidValue);
   // 3-D maps (d, N, heads): Q in boxes of 64 rows, K and V of a tile's 32
@@ -63,7 +63,7 @@ extern "C" int attn_fwd_wide(const void* q, const void* k, const void* v, void* 
 // wide_wgmma kernel) and mode flags (1: segment ids, 2: fp8 V, 4: the layout
 // of paged verify); 0 for a head dim no kernel of this build takes.
 extern "C" int attn_fwd_wide_shared_bytes(int dtype, int D, int flags) {
-  if (dtype == 0) return int(WideLayout<float>::BYTES);
+  if (dtype == 0) return int(WideLayout::BYTES);
   return wide_wgmma_smem(D, (flags & 1) != 0, (flags & 4) != 0);
 }
 

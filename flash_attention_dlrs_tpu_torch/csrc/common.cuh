@@ -4,9 +4,8 @@
 // The masking rule of the JAX package (bottom-right causal alignment,
 // sliding window on the causal band, ragged KV tail), the ALiBi,
 // attention-dropout and segment-id arguments and the dropout mask, the
-// tensor-core fragment helpers (mma.sync.m16n8k16 with fp32 accumulate,
-// ldmatrix; the pack to a 16-bit pair the wgmma kernels share) and the
-// fp8-V conversions.  Each source that includes this file is its own
+// pack of two fp32 values to a 16-bit pair the wgmma kernels share, and
+// the fp8-V conversions.  Each source that includes this file is its own
 // library (_cuda.py hashes the headers with it).
 
 #pragma once
@@ -158,17 +157,11 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
+// A pair of fp32 values rounded to T (bf16 / fp16) and packed in 32 bits,
+// the element order of the tensor cores' 16-bit fragments.
 template <typename T> struct Mma;
 
 template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
@@ -176,58 +169,11 @@ template <> struct Mma<__nv_bfloat16> {
 };
 
 template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
   static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
 };
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// Fragment addresses for a warp's 16 x 16 A operand at rows [r0, r0 + 16),
-// columns [c0, c0 + 16) of a [.][S] shared tile (row-major A).
-template <int S, typename T>
-__device__ __forceinline__ const T* a_frag(const T* tile, int r0, int c0, int lane) {
-  return tile + (r0 + lane % 16) * S + c0 + (lane / 16) * 8;
-}
-
-// B operands of two n-tiles (n rows [n0, n0 + 16) of the tile), k columns
-// [c0, c0 + 16): the tile holds B transposed (rows = n), as K does in Q K^T.
-template <int S, typename T>
-__device__ __forceinline__ const T* b_frag(const T* tile, int n0, int c0, int lane) {
-  return tile + (n0 + lane % 8 + (lane / 16) * 8) * S + c0 + ((lane / 8) % 2) * 8;
-}
-
-// B operands of two n-tiles from a tile holding B as stored (rows = k, the
-// k rows [k0, k0 + 16), n columns [n0, n0 + 16)), loaded transposed, as V
-// is in P V.
-template <int S, typename T>
-__device__ __forceinline__ const T* bt_frag(const T* tile, int k0, int n0, int lane) {
-  return tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * S + n0 + (lane / 16) * 8;
-}
 
 // V of the forward kernel in fp8 (ops/fwd_kernel.py V_KINDS): 0 = V has
 // q's type, 1 = float8_e4m3fn, 2 = float8_e5m2.  Both fp8 formats convert

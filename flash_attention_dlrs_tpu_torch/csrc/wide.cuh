@@ -119,18 +119,16 @@
 //    part (PERF.md).
 //
 // The column-chunked forward, verify and sweeps: fp32 at every wide width
-// ("wide_fp32"), and bf16 / fp16 paged verify above 1024 ("wide_chunk"),
-// where the cluster cuts end (a dK/dV owner of 128 columns a CTA, 8 CTAs
-// at 1024, and every CTA holds every owner's partials: no cut reaches
-// 1152); the bf16 / fp16 forward and sweeps above 1024 are wide_scores.cuh's
-// score and product passes ("wide_scores").  No width cap:
+// ("wide_fp32"); the cluster cuts end at 1024 (a dK/dV owner of 128
+// columns a CTA, 8 CTAs at 1024, and every CTA holds every owner's
+// partials: no cut reaches 1152), and the bf16 / fp16 forward, sweeps and
+// paged verify above 1024 are wide_scores.cuh's score and product passes
+// ("wide_scores").  No width cap:
 //  * Products over the head dim (S = Q K^T, dP = dO V^T and their
 //    transposes) stream both operands through shared memory in chunks of
-//    128 bytes a row (32 fp32 or 64 16-bit columns), double-buffered by
-//    cp.async, into a warp's 16 x 64 block of scores: in true fp32 on the
-//    CUDA cores, or on mma.sync m16n8k16 with fp32 accumulation (P and dS
-//    rounded to T for the update products, as the wgmma kernels round
-//    them).  Every CTA sums the chunks in column order, so every CTA that
+//    128 bytes a row (32 fp32 columns), double-buffered by cp.async, into
+//    a warp's 16 x 64 block of scores in true fp32 on the CUDA cores.
+//    Every CTA sums the chunks in column order, so every CTA that
 //    recomputes a tile's scores gets the same bits.
 //  * Each CTA owns 64 rows and one 128-column chunk of its output (O, dQ,
 //    dK or dV): the update product multiplies the 64-key tile of
@@ -197,17 +195,15 @@ constexpr int WCOLS = 128;      // output columns a CTA owns
 constexpr int WTHREADS = 128;   // 4 warps of 16 rows
 // The widest head dim the cluster cuts of the 16-bit wgmma kernels and the
 // register-sized decode take; above it the column-chunked kernels carry
-// fp32 and verify (route "wide_chunk" for bf16 / fp16 verify), decode its
-// own column-chunked kernel, and the 16-bit forward and sweeps
-// wide_scores.cuh's passes.
+// fp32, decode its own column-chunked kernel, and the 16-bit forward,
+// sweeps and verify wide_scores.cuh's passes.
 constexpr int WIDE_CUT_MAX_D = 1024;
 
 // Route codes of the wide C entries (ops/fwd_kernel.py ROUTE_CODES,
 // ops/decode.py VERIFY_ROUTE_CODES): fp32 column-chunked on the CUDA cores,
-// the 16-bit forward, verify and sweeps on wgmma (to 1024), and 16-bit
-// verify column-chunked on mma.sync (above 1024; the forward and sweeps
-// there are wide_scores.cuh's, code 6).
-constexpr int kRouteWideF32 = 2, kRouteWideWgmma = 4, kRouteWideChunk = 5;
+// and the 16-bit forward, verify and sweeps on wgmma (to 1024; above it
+// wide_scores.cuh's passes, code 6).
+constexpr int kRouteWideF32 = 2, kRouteWideWgmma = 4;
 
 // Whether D is a head dim of these kernels: any multiple of 128 above 256.
 __host__ __device__ constexpr bool wide_head_dim(int D) {
@@ -224,25 +220,22 @@ __host__ __device__ constexpr bool chunked_head_dim(int D) {
   return wide_head_dim(D) && D > WIDE_CUT_MAX_D;
 }
 
-// Shared memory of the column-chunked kernels, in bytes from an aligned
-// base, whatever the head dim: two stages of each streamed operand (64 rows
-// x 128 bytes, padded), the update tile (64 rows x 128 columns), fp32 P of
-// each warp (the fp32 update reads it back; the 16-bit one keeps P in
-// registers), six vectors of 64 (segment ids, scales, lse, D) and the paged
-// tile's stored-row offsets (geometry.py wide_chunk_smem_bytes).
-template <typename T>
+// Shared memory of the column-chunked kernels (fp32), in bytes from an
+// aligned base, whatever the head dim: two stages of each streamed operand
+// (64 rows x 128 bytes, padded), the update tile (64 rows x 128 columns),
+// P of each warp, six vectors of 64 (segment ids, scales, lse, D) and the
+// paged tile's stored-row offsets (geometry.py wide_chunk_smem_bytes).
 struct WideLayout {
-  static constexpr bool F32 = std::is_same<T, float>::value;
-  static constexpr int KC = 128 / int(sizeof(T));          // columns of a streamed chunk
-  static constexpr int SA = KC + 16 / int(sizeof(T));      // its row stride
-  static constexpr int ST = WCOLS + 16 / int(sizeof(T));   // the update tile's row stride
-  static constexpr int PS = WKEYS + 4;                     // fp32 P's row stride
-  static constexpr size_t CHUNK = size_t(WROWS) * SA * sizeof(T);
+  static constexpr int KC = 32;          // columns of a streamed chunk
+  static constexpr int SA = KC + 4;      // its row stride
+  static constexpr int ST = WCOLS + 4;   // the update tile's row stride
+  static constexpr int PS = WKEYS + 4;   // P's row stride
+  static constexpr size_t CHUNK = size_t(WROWS) * SA * 4;
   static constexpr size_t A_OFF = 0;
   static constexpr size_t B_OFF = 2 * CHUNK;
   static constexpr size_t T_OFF = 4 * CHUNK;
-  static constexpr size_t P_OFF = T_OFF + size_t(WKEYS) * ST * sizeof(T);
-  static constexpr size_t VEC_OFF = P_OFF + (F32 ? size_t(4) * 16 * PS * 4 : 0);
+  static constexpr size_t P_OFF = T_OFF + size_t(WKEYS) * ST * 4;
+  static constexpr size_t VEC_OFF = P_OFF + size_t(4) * 16 * PS * 4;
   static constexpr size_t ROW_OFF = VEC_OFF + 6 * 64 * 4;
   static constexpr size_t BYTES = ROW_OFF + 64 * 8 + 64 * 4;
 };
@@ -256,40 +249,29 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) { return __float2half_rn(x); }
-
-// Rows [0, 64) x columns [c0, c0 + W) of a row source of T into a shared
+// Rows [0, 64) x columns [c0, c0 + W) of a row source of fp32 into a shared
 // tile of row stride S, 16 bytes a cp.async; `row(r)` is the row's first
 // element, or null for a row of zeros.  `any` is a valid address the
 // zero-filled copies name.
-template <typename T, int W, int S, typename RowFn>
-__device__ __forceinline__ void stage_async(T* dst, RowFn row, int c0, const void* any) {
-  constexpr int EPP = 16 / int(sizeof(T));
+template <int W, int S, typename RowFn>
+__device__ __forceinline__ void stage_async(float* dst, RowFn row, int c0, const void* any) {
+  constexpr int EPP = 4;
   constexpr int PER_ROW = W / EPP;
   for (int i = threadIdx.x; i < WROWS * PER_ROW; i += WTHREADS) {
     const int r = i / PER_ROW, p = i % PER_ROW;
-    const T* src = row(r);
+    const float* src = row(r);
     cp_async16(sm90::smem_u32(dst + r * S + p * EPP), src ? src + c0 + p * EPP : any,
                src ? 16 : 0);
   }
 }
 
 // The same from rows of any stored kind (paged.cuh PoolKind; fp8 V of the
-// forward as kE4M3 / kE5M2), converted exactly to T, payloads unscaled:
+// forward as kE4M3 / kE5M2), converted exactly to fp32, payloads unscaled:
 // row r starts at element `off[r]` of `base` (-1: zeros), int4 rows read
 // their high nibbles where `hi[r]`.  Synchronous: a __syncthreads() makes
 // the tile visible.
-template <typename T, int W, int S>
-__device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind,
+template <int W, int S>
+__device__ __forceinline__ void stage_convert(float* dst, const void* base, int kind,
                                               const long long* off, const int* hi, int c0) {
   const int eb = stored_bytes(kind);
   const int epp = 16 / eb;
@@ -297,7 +279,7 @@ __device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind
   const uint8_t* bytes = static_cast<const uint8_t*>(base);
   for (int i = threadIdx.x; i < WROWS * per_row; i += WTHREADS) {
     const int r = i / per_row, p = i % per_row;
-    T* out = dst + r * S + p * epp;
+    float* out = dst + r * S + p * epp;
     float f[16];
     if (off[r] < 0) {
 #pragma unroll
@@ -307,76 +289,60 @@ __device__ __forceinline__ void stage_convert(T* dst, const void* base, int kind
           bytes + size_t(off[r] + c0 + p * epp) * eb);
       chunk_values(kind, raw, hi[r], f);
     }
-    for (int e = 0; e < epp; ++e) out[e] = from_float<T>(f[e]);
+    for (int e = 0; e < epp; ++e) out[e] = f[e];
   }
 }
 
-// Rows of T times `scale`, rounded to T (the paged kernels pre-scale q in
-// its own dtype, as the TPU kernel does); null rows give zeros.
-template <typename T, int W, int S, typename RowFn>
-__device__ __forceinline__ void stage_scaled(T* dst, RowFn row, int c0, float scale) {
-  constexpr int EPP = 16 / int(sizeof(T));
+// Rows of fp32 times `scale` (the paged kernels pre-scale q in its own
+// dtype, as the TPU kernel does); null rows give zeros.
+template <int W, int S, typename RowFn>
+__device__ __forceinline__ void stage_scaled(float* dst, RowFn row, int c0, float scale) {
+  constexpr int EPP = 4;
   constexpr int PER_ROW = W / EPP;
   for (int i = threadIdx.x; i < WROWS * PER_ROW; i += WTHREADS) {
     const int r = i / PER_ROW, p = i % PER_ROW;
-    const T* src = row(r);
-    T* out = dst + r * S + p * EPP;
+    const float* src = row(r);
+    float* out = dst + r * S + p * EPP;
     if (src == nullptr) {
 #pragma unroll
-      for (int e = 0; e < EPP; ++e) out[e] = from_float<T>(0.f);
+      for (int e = 0; e < EPP; ++e) out[e] = 0.f;
       continue;
     }
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + c0 + p * EPP);
-    const T* v = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int e = 0; e < EPP; ++e) out[e] = from_float<T>(to_float(v[e]) * scale);
+    const float4 v = *reinterpret_cast<const float4*>(src + c0 + p * EPP);
+    out[0] = v.x * scale;
+    out[1] = v.y * scale;
+    out[2] = v.z * scale;
+    out[3] = v.w * scale;
   }
 }
 
 // A warp's 16 x 64 block of scores from one staged chunk: rows
 // [16 warp, 16 warp + 16) of sA against the 64 rows of sB, over the chunk's
-// KC columns, added to s.  Element (j, e) of s is row lane/4 (+8 for e >= 2)
-// and column 8 j + 2 (lane % 4) + (e & 1) of the block: the mma.sync
-// accumulator layout (16-bit, fp32 accumulate), which fp32 keeps in true
-// fp32 on the CUDA cores.
-template <typename T>
-__device__ __forceinline__ void score_chunk(float (&s)[8][4], const T* sA, const T* sB,
+// KC columns, added to s, in true fp32 on the CUDA cores.  Element (j, e)
+// of s is row lane/4 (+8 for e >= 2) and column 8 j + 2 (lane % 4) + (e & 1)
+// of the block (the mma.sync accumulator layout).
+__device__ __forceinline__ void score_chunk(float (&s)[8][4], const float* sA, const float* sB,
                                             int warp, int lane) {
-  using L = WideLayout<T>;
-  if constexpr (L::F32) {
-    const float* a0 = sA + (warp * 16 + lane / 4) * L::SA;
-    const float* a1 = a0 + 8 * L::SA;
-    const int cb = 2 * (lane % 4);
+  using L = WideLayout;
+  const float* a0 = sA + (warp * 16 + lane / 4) * L::SA;
+  const float* a1 = a0 + 8 * L::SA;
+  const int cb = 2 * (lane % 4);
 #pragma unroll 2
-    for (int k = 0; k < L::KC; k += 4) {
-      const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
-      const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
+  for (int k = 0; k < L::KC; k += 4) {
+    const float4 x0 = *reinterpret_cast<const float4*>(a0 + k);
+    const float4 x1 = *reinterpret_cast<const float4*>(a1 + k);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float4 y = *reinterpret_cast<const float4*>(sB + (8 * j + cb + e) * L::SA + k);
-          float t0 = s[j][e], t1 = s[j][2 + e];
-          t0 = fmaf(x0.x, y.x, t0); t0 = fmaf(x0.y, y.y, t0);
-          t0 = fmaf(x0.z, y.z, t0); t0 = fmaf(x0.w, y.w, t0);
-          t1 = fmaf(x1.x, y.x, t1); t1 = fmaf(x1.y, y.y, t1);
-          t1 = fmaf(x1.z, y.z, t1); t1 = fmaf(x1.w, y.w, t1);
-          s[j][e] = t0;
-          s[j][2 + e] = t1;
-        }
-      }
-    }
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < L::KC / 16; ++kk) {
-      uint32_t a[4];
-      ldsm_x4(a, a_frag<L::SA>(sA, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        uint32_t b[4];
-        ldsm_x4(b, b_frag<L::SA>(sB, jj * 16, kk * 16, lane));
-        Mma<T>::run(s[2 * jj], a, b[0], b[1]);
-        Mma<T>::run(s[2 * jj + 1], a, b[2], b[3]);
+      for (int e = 0; e < 2; ++e) {
+        const float4 y = *reinterpret_cast<const float4*>(sB + (8 * j + cb + e) * L::SA + k);
+        float t0 = s[j][e], t1 = s[j][2 + e];
+        t0 = fmaf(x0.x, y.x, t0); t0 = fmaf(x0.y, y.y, t0);
+        t0 = fmaf(x0.z, y.z, t0); t0 = fmaf(x0.w, y.w, t0);
+        t1 = fmaf(x1.x, y.x, t1); t1 = fmaf(x1.y, y.y, t1);
+        t1 = fmaf(x1.z, y.z, t1); t1 = fmaf(x1.w, y.w, t1);
+        s[j][e] = t0;
+        s[j][2 + e] = t1;
       }
     }
   }
@@ -388,10 +354,10 @@ __device__ __forceinline__ void score_chunk(float (&s)[8][4], const T* sA, const
 // / `load_b(dst, c0)` stage a chunk (cp.async ones are committed here;
 // synchronous ones are made visible by the barrier).  Every thread of the
 // CTA calls it.
-template <typename T, typename LoadA, typename LoadB>
-__device__ __forceinline__ void scores(float (&s)[8][4], T* sA, T* sB, LoadA load_a,
+template <typename LoadA, typename LoadB>
+__device__ __forceinline__ void scores(float (&s)[8][4], float* sA, float* sB, LoadA load_a,
                                        LoadB load_b, int cols, int warp, int lane) {
-  using L = WideLayout<T>;
+  using L = WideLayout;
   constexpr int STAGE = WROWS * L::SA;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
@@ -419,62 +385,39 @@ __device__ __forceinline__ void scores(float (&s)[8][4], T* sA, T* sB, LoadA loa
   }
 }
 
-// o (the warp's 16 rows x 128 columns) += p (its 16 x 64 block, fp32) times
-// the staged 64 x 128 tile: in 16 bits p rounded to T on the tensor cores;
-// in fp32 through the warp's rows of sP (row stride PS).
-template <typename T>
+// o (the warp's 16 rows x 128 columns) += p (its 16 x 64 block) times the
+// staged 64 x 128 tile, in fp32 through the warp's rows of sP (row stride
+// PS).
 __device__ __forceinline__ void update_product(float (&o)[16][4], const float (&p)[8][4],
-                                               const T* sT, float* sPw, int lane) {
-  using L = WideLayout<T>;
-  if constexpr (L::F32) {
-    const int r = lane / 4, cb = 2 * (lane % 4);
+                                               const float* sT, float* sPw, int lane) {
+  using L = WideLayout;
+  const int r = lane / 4, cb = 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sPw[r * L::PS + 8 * j + cb] = p[j][0];
-      sPw[r * L::PS + 8 * j + cb + 1] = p[j][1];
-      sPw[(r + 8) * L::PS + 8 * j + cb] = p[j][2];
-      sPw[(r + 8) * L::PS + 8 * j + cb + 1] = p[j][3];
-    }
-    __syncwarp();
+  for (int j = 0; j < 8; ++j) {
+    sPw[r * L::PS + 8 * j + cb] = p[j][0];
+    sPw[r * L::PS + 8 * j + cb + 1] = p[j][1];
+    sPw[(r + 8) * L::PS + 8 * j + cb] = p[j][2];
+    sPw[(r + 8) * L::PS + 8 * j + cb + 1] = p[j][3];
+  }
+  __syncwarp();
 #pragma unroll 2
-    for (int k = 0; k < WKEYS; ++k) {
-      const float p0 = sPw[r * L::PS + k], p1 = sPw[(r + 8) * L::PS + k];
+  for (int k = 0; k < WKEYS; ++k) {
+    const float p0 = sPw[r * L::PS + k], p1 = sPw[(r + 8) * L::PS + k];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const float2 v = *reinterpret_cast<const float2*>(sT + k * L::ST + 8 * j + cb);
-        o[j][0] = fmaf(p0, v.x, o[j][0]);
-        o[j][1] = fmaf(p0, v.y, o[j][1]);
-        o[j][2] = fmaf(p1, v.x, o[j][2]);
-        o[j][3] = fmaf(p1, v.y, o[j][3]);
-      }
-    }
-    __syncwarp();
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < WKEYS / 16; ++kk) {
-      const uint32_t a[4] = {Mma<T>::pack(p[2 * kk][0], p[2 * kk][1]),
-                             Mma<T>::pack(p[2 * kk][2], p[2 * kk][3]),
-                             Mma<T>::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                             Mma<T>::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-      for (int jj = 0; jj < WCOLS / 16; ++jj) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, bt_frag<L::ST>(sT, kk * 16, jj * 16, lane));
-        Mma<T>::run(o[2 * jj], a, b[0], b[1]);
-        Mma<T>::run(o[2 * jj + 1], a, b[2], b[3]);
-      }
+    for (int j = 0; j < 16; ++j) {
+      const float2 v = *reinterpret_cast<const float2*>(sT + k * L::ST + 8 * j + cb);
+      o[j][0] = fmaf(p0, v.x, o[j][0]);
+      o[j][1] = fmaf(p0, v.y, o[j][1]);
+      o[j][2] = fmaf(p1, v.x, o[j][2]);
+      o[j][3] = fmaf(p1, v.y, o[j][3]);
     }
   }
+  __syncwarp();
 }
 
-// A pair of fp32 values stored as T at `p` (two consecutive elements).
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float x, float y) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float2*>(p) = make_float2(x, y);
-  } else {
-    *reinterpret_cast<uint32_t*>(p) = Mma<T>::pack(x, y);
-  }
+// A pair of fp32 values stored at `p` (two consecutive elements).
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
 // ---------------------------------------------------------------------------
@@ -502,18 +445,17 @@ struct WideArgs {
 
 // The column-chunked forward (PAGED false) and paged verify (PAGED true),
 // one CTA per (64-row tile, output column chunk [and key split], batch x
-// head): fp32 ("wide_fp32") at every wide head dim, and bf16 / fp16 verify
-// ("wide_chunk") above the wgmma cuts.  The forward's rows are one q head's;
-// verify's are the T x G (token, q head) rows of a kv head, row r = t * G +
-// g, as the TPU kernel folds them.
-template <typename T, bool PAGED>
+// head): fp32 ("wide_fp32") at every wide head dim.  The forward's rows
+// are one q head's; verify's are the T x G (token, q head) rows of a kv
+// head, row r = t * G + g, as the TPU kernel folds them.
+template <bool PAGED>
 __global__ void __launch_bounds__(WTHREADS)
 wide_fwd_chunk_kernel(const WideArgs a) {
-  using L = WideLayout<T>;
+  using L = WideLayout;
   extern __shared__ __align__(128) unsigned char wsmem[];
-  T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
-  T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
-  T* sT = reinterpret_cast<T*>(wsmem + L::T_OFF);
+  float* sA = reinterpret_cast<float*>(wsmem + L::A_OFF);
+  float* sB = reinterpret_cast<float*>(wsmem + L::B_OFF);
+  float* sT = reinterpret_cast<float*>(wsmem + L::T_OFF);
   float* sP = reinterpret_cast<float*>(wsmem + L::P_OFF);
   float* vec = reinterpret_cast<float*>(wsmem + L::VEC_OFF);
   int* sColSeg = reinterpret_cast<int*>(vec);
@@ -579,10 +521,10 @@ wide_fwd_chunk_kernel(const WideArgs a) {
   const bool quant = PAGED && is_quantized(a.kind);
   const bool v8 = !PAGED && a.v_kind != kVSame;
 
-  const T* qT = static_cast<const T*>(a.q);
-  const T* kT = static_cast<const T*>(a.k);
-  const T* vT = static_cast<const T*>(a.v);
-  auto q_row = [&](int r) -> const T* {
+  const float* qT = static_cast<const float*>(a.q);
+  const float* kT = static_cast<const float*>(a.k);
+  const float* vT = static_cast<const float*>(a.v);
+  auto q_row = [&](int r) -> const float* {
     const int i = m0 + r;
     if (i >= rows) return nullptr;
     if constexpr (PAGED) {
@@ -629,29 +571,29 @@ wide_fwd_chunk_kernel(const WideArgs a) {
       }
     }
     __syncthreads();
-    auto k_row = [&](int r) -> const T* {
+    auto k_row = [&](int r) -> const float* {
       return n0 + r < a.Nkv ? kT + kv_base + size_t(n0 + r) * D : nullptr;
     };
     if (!PAGED && !v8) {
-      stage_async<T, WCOLS, L::ST>(
+      stage_async<WCOLS, L::ST>(
           sT, [&](int r) { return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr; },
           c0, a.v);
     }
     float s[8][4];
     if constexpr (PAGED) {
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_scaled<T, L::KC, L::SA>(dst, q_row, c, a.sm_scale); },
-             [&](T* dst, int c) {
-               stage_convert<T, L::KC, L::SA>(dst, a.k, a.kind, sOff, sHi, c);
+             [&](float* dst, int c) { stage_scaled<L::KC, L::SA>(dst, q_row, c, a.sm_scale); },
+             [&](float* dst, int c) {
+               stage_convert<L::KC, L::SA>(dst, a.k, a.kind, sOff, sHi, c);
              },
              score_cols, warp, lane);
-      stage_convert<T, WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
+      stage_convert<WCOLS, L::ST>(sT, a.v, a.kind, sOff, sHi, c0);
     } else {
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
+             [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); },
+             [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); },
              score_cols, warp, lane);
-      if (v8) stage_convert<T, WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
+      if (v8) stage_convert<WCOLS, L::ST>(sT, a.v, a.v_kind == kVE4M3 ? kE4M3 : kE5M2,
                                                 sOff, sHi, c0);
     }
 
@@ -746,7 +688,7 @@ wide_fwd_chunk_kernel(const WideArgs a) {
         a.part_lse[size_t(split) * a.B * a.Hq * a.T + out_row] =
             l > 0.f ? m_i[i] + logf(l) : -INFINITY;
     } else {
-      T* po = static_cast<T*>(a.o) + out_row * D + cb;
+      float* po = static_cast<float*>(a.o) + out_row * D + cb;
 #pragma unroll
       for (int j = 0; j < 16; ++j) store_pair(po + 8 * j, o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
       if (!PAGED && cc == 0 && lane % 4 == 0)
@@ -1553,21 +1495,18 @@ struct WideBwdArgs {
   cudaStream_t stream;
 };
 
-// The column-chunked dK/dV sweep (fp32, "wide_fp32"; instantiated for fp32
-// only): one CTA per (64-key tile, output column chunk and pass,
-// batch x kv head).  Pass 0 keeps dV += (P o M)^T
-// dO, pass 1 dK += dS^T Q (times sm_scale at the end), each for its 128
-// columns, over the q heads of the GQA group and, in order, the q tiles
-// that see the keys.  The warp's rows are keys: S^T = K Q^T and dP^T =
-// V dO^T.
-template <typename T>
-__global__ void __launch_bounds__(WTHREADS)
-wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
-  using L = WideLayout<T>;
+// The column-chunked dK/dV sweep (fp32, "wide_fp32"): one CTA per (64-key
+// tile, output column chunk and pass, batch x kv head).  Pass 0 keeps dV +=
+// (P o M)^T dO, pass 1 dK += dS^T Q (times sm_scale at the end), each for
+// its 128 columns, over the q heads of the GQA group and, in order, the q
+// tiles that see the keys.  The warp's rows are keys: S^T = K Q^T and dP^T
+// = V dO^T.
+__device__ __forceinline__ void wide_bwd_dkv_chunk(const WideBwdArgs a) {
+  using L = WideLayout;
   extern __shared__ __align__(128) unsigned char wsmem[];
-  T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
-  T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
-  T* sT = reinterpret_cast<T*>(wsmem + L::T_OFF);
+  float* sA = reinterpret_cast<float*>(wsmem + L::A_OFF);
+  float* sB = reinterpret_cast<float*>(wsmem + L::B_OFF);
+  float* sT = reinterpret_cast<float*>(wsmem + L::T_OFF);
   float* sP = reinterpret_cast<float*>(wsmem + L::P_OFF);
   float* vec = reinterpret_cast<float*>(wsmem + L::VEC_OFF);
   int* sQseg = reinterpret_cast<int*>(vec);
@@ -1597,15 +1536,15 @@ wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
     if (a.window > 0) r_hi = min(a.Nq, n0 + WROWS - 1 + a.window - q_off);
   }
 
-  const T* qT = static_cast<const T*>(a.q);
-  const T* kT = static_cast<const T*>(a.k);
-  const T* vT = static_cast<const T*>(a.v);
-  const T* dT = static_cast<const T*>(a.dout);
+  const float* qT = static_cast<const float*>(a.q);
+  const float* kT = static_cast<const float*>(a.k);
+  const float* vT = static_cast<const float*>(a.v);
+  const float* dT = static_cast<const float*>(a.dout);
   const size_t kv_base = (size_t(b) * a.Hkv + kvh) * size_t(a.Nkv) * D;
-  auto k_row = [&](int r) -> const T* {
+  auto k_row = [&](int r) -> const float* {
     return n0 + r < a.Nkv ? kT + kv_base + size_t(n0 + r) * D : nullptr;
   };
-  auto v_row = [&](int r) -> const T* {
+  auto v_row = [&](int r) -> const float* {
     return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr;
   };
 
@@ -1628,26 +1567,26 @@ wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
         sDelta[tid] = r < a.Nq ? a.delta[q_base + r] : 0.f;
         if (seg) sQseg[tid] = seg_id(a.md.q_seg, b, a.Nq, r);
       }
-      auto q_row = [&](int r) -> const T* {
+      auto q_row = [&](int r) -> const float* {
         return m0 + r < a.Nq ? qT + (q_base + m0 + r) * D : nullptr;
       };
-      auto do_row = [&](int r) -> const T* {
+      auto do_row = [&](int r) -> const float* {
         return m0 + r < a.Nq ? dT + (q_base + m0 + r) * D : nullptr;
       };
       if (pass_dk) {
-        stage_async<T, WCOLS, L::ST>(sT, q_row, c0, a.q);
+        stage_async<WCOLS, L::ST>(sT, q_row, c0, a.q);
       } else {
-        stage_async<T, WCOLS, L::ST>(sT, do_row, c0, a.q);
+        stage_async<WCOLS, L::ST>(sT, do_row, c0, a.q);
       }
       float s[8][4], dp[8][4];
       scores(s, sA, sB,
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); },
-             [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); }, D, warp,
+             [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); },
+             [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); }, D, warp,
              lane);
       if (pass_dk) {
         scores(dp, sA, sB,
-               [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, v_row, c, a.v); },
-               [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, do_row, c, a.q); }, D,
+               [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, v_row, c, a.v); },
+               [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, do_row, c, a.q); }, D,
                warp, lane);
       }
 #pragma unroll
@@ -1682,11 +1621,11 @@ wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
   }
 
   const float scale = pass_dk ? a.sm_scale : 1.f;
-  T* out = static_cast<T*>(pass_dk ? a.dk : a.dv);
+  float* out = static_cast<float*>(pass_dk ? a.dk : a.dv);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (key[i] >= a.Nkv) continue;
-    T* po = out + kv_base + size_t(key[i]) * D + c0 + 2 * (lane % 4);
+    float* po = out + kv_base + size_t(key[i]) * D + c0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
       store_pair(po + 8 * j, acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
@@ -1696,14 +1635,12 @@ wide_bwd_dkv_chunk_kernel(const WideBwdArgs a) {
 // The column-chunked dQ sweep ("wide_fp32"): one CTA per (64-row q tile, output
 // column chunk, batch x q head), walking the key tiles it sees in order;
 // dQ += dS K for its 128 columns, times sm_scale at the end.
-template <typename T>
-__global__ void __launch_bounds__(WTHREADS)
-wide_bwd_dq_chunk_kernel(const WideBwdArgs a) {
-  using L = WideLayout<T>;
+__device__ __forceinline__ void wide_bwd_dq_chunk(const WideBwdArgs a) {
+  using L = WideLayout;
   extern __shared__ __align__(128) unsigned char wsmem[];
-  T* sA = reinterpret_cast<T*>(wsmem + L::A_OFF);
-  T* sB = reinterpret_cast<T*>(wsmem + L::B_OFF);
-  T* sT = reinterpret_cast<T*>(wsmem + L::T_OFF);
+  float* sA = reinterpret_cast<float*>(wsmem + L::A_OFF);
+  float* sB = reinterpret_cast<float*>(wsmem + L::B_OFF);
+  float* sT = reinterpret_cast<float*>(wsmem + L::T_OFF);
   float* sP = reinterpret_cast<float*>(wsmem + L::P_OFF);
   int* sColSeg = reinterpret_cast<int*>(wsmem + L::VEC_OFF);
 
@@ -1731,15 +1668,15 @@ wide_bwd_dq_chunk_kernel(const WideBwdArgs a) {
     if (seg) qseg[i] = seg_id(a.md.q_seg, b, a.Nq, row[i]);
   }
 
-  const T* qT = static_cast<const T*>(a.q);
-  const T* kT = static_cast<const T*>(a.k);
-  const T* vT = static_cast<const T*>(a.v);
-  const T* dT = static_cast<const T*>(a.dout);
+  const float* qT = static_cast<const float*>(a.q);
+  const float* kT = static_cast<const float*>(a.k);
+  const float* vT = static_cast<const float*>(a.v);
+  const float* dT = static_cast<const float*>(a.dout);
   const size_t kv_base = (size_t(b) * a.Hkv + kvh) * size_t(a.Nkv) * D;
-  auto q_row = [&](int r) -> const T* {
+  auto q_row = [&](int r) -> const float* {
     return m0 + r < a.Nq ? qT + (q_base + m0 + r) * D : nullptr;
   };
-  auto do_row = [&](int r) -> const T* {
+  auto do_row = [&](int r) -> const float* {
     return m0 + r < a.Nq ? dT + (q_base + m0 + r) * D : nullptr;
   };
 
@@ -1753,21 +1690,21 @@ wide_bwd_dq_chunk_kernel(const WideBwdArgs a) {
   for (int n0 = tr.lo * WKEYS; n0 < min(tr.hi * WKEYS, a.Nkv); n0 += WKEYS) {
     __syncthreads();  // the previous tile is done with every buffer
     if (seg && tid < WKEYS) sColSeg[tid] = seg_id(a.md.kv_seg, b, a.Nkv, n0 + tid);
-    auto k_row = [&](int r) -> const T* {
+    auto k_row = [&](int r) -> const float* {
       return n0 + r < a.Nkv ? kT + kv_base + size_t(n0 + r) * D : nullptr;
     };
-    auto v_row = [&](int r) -> const T* {
+    auto v_row = [&](int r) -> const float* {
       return n0 + r < a.Nkv ? vT + kv_base + size_t(n0 + r) * D : nullptr;
     };
-    stage_async<T, WCOLS, L::ST>(sT, k_row, c0, a.k);
+    stage_async<WCOLS, L::ST>(sT, k_row, c0, a.k);
     float s[8][4], dp[8][4];
     scores(s, sA, sB,
-           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, q_row, c, a.q); },
-           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, k_row, c, a.k); }, D, warp,
+           [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, q_row, c, a.q); },
+           [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, k_row, c, a.k); }, D, warp,
            lane);
     scores(dp, sA, sB,
-           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, do_row, c, a.q); },
-           [&](T* dst, int c) { stage_async<T, L::KC, L::SA>(dst, v_row, c, a.v); }, D, warp,
+           [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, do_row, c, a.q); },
+           [&](float* dst, int c) { stage_async<L::KC, L::SA>(dst, v_row, c, a.v); }, D, warp,
            lane);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -1798,18 +1735,28 @@ wide_bwd_dq_chunk_kernel(const WideBwdArgs a) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= a.Nq) continue;
-    T* po = static_cast<T*>(a.dq) + (q_base + row[i]) * D + c0 + 2 * (lane % 4);
+    float* po = static_cast<float*>(a.dq) + (q_base + row[i]) * D + c0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
       store_pair(po + 8 * j, acc[j][2 * i] * a.sm_scale, acc[j][2 * i + 1] * a.sm_scale);
   }
 }
 
+// The column-chunked sweeps' kernel (`DKV`: dK/dV, else dQ), built where a
+// source launches it (attn_bwd_wide.cu).
+template <bool DKV>
+__global__ void __launch_bounds__(WTHREADS) wide_bwd_chunk_kernel(const WideBwdArgs a) {
+  if constexpr (DKV) {
+    wide_bwd_dkv_chunk(a);
+  } else {
+    wide_bwd_dq_chunk(a);
+  }
+}
+
 // Launches a column-chunked sweep (`dkv`: dK/dV, else dQ).
-template <typename T>
-int launch_wide_bwd_chunk(const WideBwdArgs& a, bool dkv) {
-  constexpr size_t smem = WideLayout<T>::BYTES;
-  const auto kernel = dkv ? wide_bwd_dkv_chunk_kernel<T> : wide_bwd_dq_chunk_kernel<T>;
+inline int launch_wide_bwd_chunk(const WideBwdArgs& a, bool dkv) {
+  constexpr size_t smem = WideLayout::BYTES;
+  const auto kernel = dkv ? wide_bwd_chunk_kernel<true> : wide_bwd_chunk_kernel<false>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -2626,10 +2573,16 @@ int launch_wide_bwd_wgmma(const WideBwdArgs& a, bool dkv) {
 // Merging key splits (decode and verify)
 // ---------------------------------------------------------------------------
 
-// One CTA a row of `rows`: O = sum_s w_s O_s / sum_s w_s with w_s =
-// exp(lse_s - max lse) in split order (ops/decode.py combine_partials); a
-// partial of lse -inf weighs 0; a row no split saw gets O = 0 and lse
-// kMaskValue.  O in `dtype` (paged.cuh store_as), lse when not null.
+// Columns of a row one CTA of the merge takes: 4 a thread.
+constexpr int WCOMBINE_COLS = 4 * WTHREADS;
+
+// One CTA a row of `rows` and WCOMBINE_COLS of its columns: O = sum_s w_s
+// O_s / sum_s w_s with w_s = exp(lse_s - max lse) in split order
+// (ops/decode.py combine_partials); a partial of lse -inf weighs 0 (its O
+// is never read); a row no split saw gets O = 0 and lse kMaskValue.  O in
+// `dtype` (paged.cuh store_as), lse when not null.  A thread sums 4
+// adjacent columns (D is a multiple of 128), its loads of the splits
+// independent of one another so that several are in flight at once.
 __global__ void __launch_bounds__(WTHREADS)
 wide_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ part_lse,
                     void* o, int dtype, float* lse, int rows, int splits, int D) {
@@ -2643,20 +2596,34 @@ wide_combine_kernel(const float* __restrict__ part_o, const float* __restrict__ 
     w_sum += ls == -INFINITY ? 0.f : expf(ls - m_use);
   }
   const bool seen = w_sum > 0.f;
-  for (int c = threadIdx.x; c < D; c += WTHREADS) {
-    float acc = 0.f;
+  const int c = blockIdx.y * WCOMBINE_COLS + 4 * threadIdx.x;
+  if (c < D) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
     for (int s = 0; s < splits; ++s) {
       const float ls = part_lse[size_t(s) * rows + r];
-      if (ls != -INFINITY) acc += expf(ls - m_use) * part_o[(size_t(s) * rows + r) * D + c];
+      if (ls == -INFINITY) continue;
+      const float w = expf(ls - m_use);
+      const float4 x = *reinterpret_cast<const float4*>(part_o + (size_t(s) * rows + r) * D + c);
+      acc.x += w * x.x;
+      acc.y += w * x.y;
+      acc.z += w * x.z;
+      acc.w += w * x.w;
     }
-    store_as(o, size_t(r) * D + c, dtype, seen ? acc / w_sum : 0.f);
+    const size_t at = size_t(r) * D + c;
+    store_as(o, at, dtype, seen ? acc.x / w_sum : 0.f);
+    store_as(o, at + 1, dtype, seen ? acc.y / w_sum : 0.f);
+    store_as(o, at + 2, dtype, seen ? acc.z / w_sum : 0.f);
+    store_as(o, at + 3, dtype, seen ? acc.w / w_sum : 0.f);
   }
-  if (lse != nullptr && threadIdx.x == 0) lse[r] = seen ? m + logf(w_sum) : kMaskValue;
+  if (lse != nullptr && blockIdx.y == 0 && threadIdx.x == 0)
+    lse[r] = seen ? m + logf(w_sum) : kMaskValue;
 }
 
 inline int launch_combine(const float* part_o, const float* part_lse, void* o, int dtype,
                           float* lse, int rows, int splits, int D, cudaStream_t stream) {
-  wide_combine_kernel<<<rows, WTHREADS, 0, stream>>>(part_o, part_lse, o, dtype, lse, rows,
+  const dim3 grid(rows, (D + WCOMBINE_COLS - 1) / WCOMBINE_COLS);
+  wide_combine_kernel<<<grid, WTHREADS, 0, stream>>>(part_o, part_lse, o, dtype, lse, rows,
                                                      splits, D);
   return int(cudaGetLastError());
 }
@@ -3220,10 +3187,10 @@ inline int wide_decode_smem(int kv_kind, int D) {
 
 
 // Launches the column-chunked forward or verify over `grid`.
-template <typename T, bool PAGED>
+template <bool PAGED>
 int launch_wide_chunk(const WideArgs& a, dim3 grid) {
-  auto kernel = wide_fwd_chunk_kernel<T, PAGED>;
-  constexpr size_t smem = WideLayout<T>::BYTES;
+  auto kernel = wide_fwd_chunk_kernel<PAGED>;
+  constexpr size_t smem = WideLayout::BYTES;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);

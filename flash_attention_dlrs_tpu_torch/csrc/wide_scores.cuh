@@ -1,8 +1,9 @@
 // Attention above head dim 1024 in bf16 / fp16 on Hopper (route
-// "wide_scores"): the forward and both backward sweeps, each as a score
-// pass and a product pass, sm_90a.  Included by attn_fwd_scores.cu (the
-// forward's passes) and attn_bwd_scores.cu (the backward's), which compile
-// side by side.
+// "wide_scores"): the forward, both backward sweeps and paged multi-token
+// verify, each as a score pass and a product pass, sm_90a.  Included by
+// attn_fwd_scores.cu (the forward's passes), attn_bwd_scores.cu (the
+// backward's) and paged_verify_wide.cu (verify's), which compile side by
+// side.
 //
 // Replaces, above 1024 (every multiple of 128 the JAX package pads to):
 //   flash_attention_dlrs_tpu/ops/fwd_kernel.py:197  _fwd_kernel       (the forward; with it
@@ -14,15 +15,17 @@
 //   flash_attention_dlrs_tpu/ops/fwd_small.py:239   _small_bwd_kernel  fwd_small, bwd_fused
 //   flash_attention_dlrs_tpu/ops/bwd_fused.py:45    _bwd_fused_kernel  and bwd_mid)
 //   flash_attention_dlrs_tpu/ops/bwd_mid.py:76      _bwd_mid_kernel
+//   flash_attention_dlrs_tpu/ops/decode.py:44       _decode_kernel     (its multi-token
+//                                                                      verify mode)
 // with their contracts and modes: causal bottom-right, GQA, ragged lengths,
 // window, softcap, ALiBi (the true bias), attention dropout (common.cuh's
 // mask, bit for bit), segment ids, and fp8 V in the forward.  D =
 // rowsum(dO o O) is attn_bwd.cu's preprocess.
 //
 // Bound on this card by operations: 4 D flops a visible (row, key) pair in
-// the forward, 10 D in the backward (S, dP, dV, dK, dQ), on the tensor
-// cores' 989 TFLOP/s.  The column-chunked mma.sync kernels these replace
-// ran at ~1% of that: each CTA owned one 128-column chunk of its output and
+// the forward and verify, 10 D in the backward (S, dP, dV, dK, dQ), on the
+// tensor cores' 989 TFLOP/s.  The column-chunked mma.sync kernels these
+// replace ran at ~1% of that (verify at 0.3%): each CTA owned one 128-column chunk of its output and
 // recomputed S (and dP) over the whole head dim for it, D / 128 times the
 // score work, through two cp.async stages and a CTA barrier a slice.  No
 // cluster cut of the head dim reaches past 1024 (every CTA holds every
@@ -61,9 +64,25 @@
 //    tiles), and nothing uses atomics: a repeat is bitwise the same.
 // Neither kernel's shared memory grows with D, so one build serves every
 // multiple of 128 above 1024 (a 128-column odd chunk reads zeros past D).
+//
+// Paged verify runs the forward's two passes over the T x G (token, q
+// head) rows of each (sequence, kv head), row r = t G + g as the TPU kernel
+// folds them, q scaled by sm_scale in its own dtype (the wrapper folds and
+// scales it, as the JAX wrapper does), keys gathered through the page
+// table: value pools of q's dtype by TMA boxes of a page where a stage's
+// keys all hold data, else row by row with zeros past them; quantized pools
+// (int8, int4, e4m3, e5m2) converted exactly and unscaled to q's dtype by
+// the producer warpgroup, the K scales applied to S, the V scales to P
+// before it is rounded.  The score pass applies paged_verify_plain's
+// softcap, ALiBi bias -m (q_pos - col) and each row's horizon; key tiles
+// past every row's horizon are never computed, stored or read.  The keys
+// may be cut statically into splits of whole key tiles, each product CTA
+// writing its split's fp32 partial normalized over the split's keys with
+// their lse, merged in split order by wide.cuh's wide_combine_kernel.
 
 #pragma once
 
+#include "paged.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -792,6 +811,548 @@ ws_product_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// Paged multi-token verify
+// ---------------------------------------------------------------------------
+
+// setmaxnreg of the verify passes, whose producers convert quantized pools
+// with loads in flight: the score pass's keeps two slices of payloads (its
+// consumers hold a 64 x 128 tile of S, 64 registers), the product's a
+// batch of four chunks of a stage (its consumers 128 of O).
+constexpr int VERIFY_SCORES_PRODUCER_REGS = 96, VERIFY_SCORES_CONSUMER_REGS = 200;
+constexpr int VERIFY_PRODUCT_PRODUCER_REGS = 56, VERIFY_PRODUCT_CONSUMER_REGS = 224;
+static_assert(128 * VERIFY_SCORES_PRODUCER_REGS + 256 * VERIFY_SCORES_CONSUMER_REGS <=
+                      WS_THREADS * LAUNCH_REGS &&
+                  128 * VERIFY_PRODUCT_PRODUCER_REGS + 256 * VERIFY_PRODUCT_CONSUMER_REGS <=
+                      WS_THREADS * LAUNCH_REGS,
+              "a register split exceeds the CTA's registers");
+
+struct WsVerifyArgs {
+  const void* q;  // the folded rows [B Hkv][T G][D] of q scaled in its dtype
+  const void *k, *v;  // pools [Hkv, P, stored rows, D] of `kind` (paged.cuh)
+  int kind;
+  const float *k_scales, *v_scales;  // quantized pools: [Hkv, P, page_size]
+  const int *lengths, *page_table;
+  float* s;        // scratch: S, [tiles x 128][key tiles x 128] fp32
+  float2* stats;   // each row's (max, sum of exp2) of each key tile
+  void* o;         // [B, Hq, T, D] in q's dtype (one split)
+  float *part_o, *part_lse;  // [splits, B Hq T, D] and [splits, B Hq T] (splits > 1)
+  int B, Hq, Hkv, T, P, page_size, pages_per_seq, D, splits;
+  float softcap;
+  const float* slopes;  // ALiBi: one a q head, or null
+  int tma;  // value pools read by TMA boxes of tm_k / tm_v where a stage's keys hold data
+  int box;  // rows of those boxes (a page, or the stage's keys where a page holds more)
+  int f0, f1;  // the wave: tiles f = (b Hkv + kv head) ceil(T G / 128) + row tile in [f0, f1)
+  cudaStream_t stream;
+};
+
+// Tile f of a verify call: its sequence, kv head and first row, the
+// sequence's length (and clamped to the table), the keys any of its rows
+// sees ([0, key_hi), all of them holding data) and every one of them sees
+// ([0, open): its first row's horizon).
+struct VerifyTile {
+  int b, kvh, m0, rows, len, alen, key_hi, open;
+};
+
+__device__ __forceinline__ VerifyTile verify_tile(const WsVerifyArgs& a, int f) {
+  const int G = a.Hq / a.Hkv, rows = a.T * G, n_rt = cdiv(rows, BM);
+  const int max_len = a.pages_per_seq * a.page_size;
+  VerifyTile v;
+  v.b = f / n_rt / a.Hkv;
+  v.kvh = f / n_rt % a.Hkv;
+  v.m0 = f % n_rt * BM;
+  v.rows = rows;
+  v.len = a.lengths[v.b];
+  v.alen = min(max(v.len, 0), max_len);
+  const int t_hi = (min(v.m0 + BM, rows) - 1) / G;
+  v.key_hi = max(0, min(v.len - a.T + 1 + t_hi, max_len));
+  v.open = max(0, min(v.len - a.T + 1 + v.m0 / G, max_len));
+  return v;
+}
+
+// The pool row (kv head, page, offset) of key `key` of the tile's sequence,
+// as a row of the pool viewed as [Hkv P page_size, D].
+__device__ __forceinline__ size_t pool_row(const WsVerifyArgs& a, const int* table, int kvh,
+                                           int key) {
+  return (size_t(kvh) * a.P + table[key / a.page_size]) * a.page_size + key % a.page_size;
+}
+
+// One stored 16-byte chunk c16 (16 one-byte elements of `kind`) of row r
+// of a swizzled tile of 64-column chunks `rows` rows deep, converted
+// exactly and unscaled to T.
+template <typename T>
+__device__ __forceinline__ void store_converted_rows(unsigned char* tile, int rows, int r, int c16,
+                                                     const uint4& raw, int hi, int kind) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t p[8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float f[4];
+    word_values(kind, w[j], hi, f);
+    p[2 * j] = Mma<T>::pack(f[0], f[1]);
+    p[2 * j + 1] = Mma<T>::pack(f[2], f[3]);
+  }
+  const int u = 2 * (c16 % 4);
+  unsigned char* row = tile + (c16 / 4) * (rows * 128) + r * 128;
+  *reinterpret_cast<uint4*>(row + ((u ^ (r & 7)) << 4)) = make_uint4(p[0], p[1], p[2], p[3]);
+  *reinterpret_cast<uint4*>(row + (((u + 1) ^ (r & 7)) << 4)) = make_uint4(p[4], p[5], p[6], p[7]);
+}
+
+// `n` rows of keys [n0, n0 + n) of the tile's sequence in a value pool
+// (K or V), `chunks` 64-column chunks from column c0, into a swizzled tile
+// at shared address `dst` `rows` rows deep, by cp.async from the producer
+// warpgroup's thread tid; rows past `live` zero.  The caller arrives on the
+// stage's barrier once they land (cp_async_arrive).
+template <typename T>
+__device__ __forceinline__ void gather_value_rows(const WsVerifyArgs& a, const T* pool,
+                                                  const int* table, int kvh, int n0, int live,
+                                                  int n, int c0, int chunks, uint32_t dst,
+                                                  int rows, int tid) {
+  const int per_row = chunks * 8;  // 16-byte units
+#pragma unroll 1
+  for (int idx = tid; idx < n * per_row; idx += 128) {
+    const int r = idx / per_row, u16 = idx % per_row, c = u16 / 8, u = u16 % 8;
+    const bool ok = r < live;
+    const size_t off = ok ? pool_row(a, table, kvh, n0 + r) * a.D + c0 + u16 * 8 : 0;
+    cp_async16(dst + c * (rows * 128) + r * 128 + ((u ^ (r & 7)) << 4), pool + off, ok ? 16 : 0);
+  }
+}
+
+// A product stage's 64 rows of a quantized V pool (keys [n0, n0 + 64),
+// `loaded` 64-column chunks from column c0) converted into the stage's
+// swizzled B chunks by producer thread tid: rows tid / 16 + 8 j, stored
+// chunk tid % 16 of each, in two batches of four rows whose loads are all
+// issued before the batch converts; rows past `live` zero.
+template <typename T>
+__device__ __forceinline__ void gather_quant_stage(const WsVerifyArgs& a, const int* table,
+                                                   int kvh, int n0, int live, int c0, int loaded,
+                                                   unsigned char* tile, int tid) {
+  constexpr int PER = ROWS * 16 / 128;
+  const unsigned char* pool = static_cast<const unsigned char*>(a.v);
+  const int c16 = tid % 16;
+  if (c16 / 4 >= loaded) return;  // a chunk past D (zeroed once)
+#pragma unroll 1
+  for (int j0 = 0; j0 < PER; j0 += 4) {
+    uint4 raw[4];
+    int hi = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = tid / 16 + 8 * (j0 + j), key = n0 + r;
+      raw[j] = make_uint4(0, 0, 0, 0);
+      if (r < live) {
+        const TokenAddr ta = token_addr(a.kind, kvh, table[key / a.page_size],
+                                        key % a.page_size, a.P, a.page_size, a.D);
+        raw[j] = *reinterpret_cast<const uint4*>(pool + ta.row + c0 + c16 * 16);
+        hi |= ta.hi << j;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      store_converted_rows<T>(tile, ROWS, tid / 16 + 8 * (j0 + j), c16, raw[j], (hi >> j) & 1,
+                              a.kind);
+  }
+}
+
+// Verify's score pass: one CTA per (tile f of the wave, key tile kt).  S of
+// the tile's 128 rows against its 128 keys over the whole head dim, then
+// the K scale, the softcap, the ALiBi bias and each row's horizon
+// (paged_verify_plain's order) into base-2 units; stores S and each row's
+// (max, sum of exp2) of the tile.  A key tile past every row's horizon
+// returns at once: it is never computed, stored or read.
+template <typename T>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+ws_verify_scores_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k, const WsVerifyArgs a) {
+  using L = ScoreLayout<false>;
+  const int f = a.f0 + blockIdx.x, kt = blockIdx.y, n0 = kt * BN;
+  const VerifyTile vt = verify_tile(a, f);
+  if (n0 >= vt.key_hi) return;
+  const int max_len = a.pages_per_seq * a.page_size, n_kt = cdiv(max_len, BN);
+  const int live = min(BN, vt.key_hi - n0);  // the tile's keys that hold data
+  const bool quant = is_quantized(a.kind);
+  const bool by_tma = !quant && a.tma && live == BN;
+  const int* table = a.page_table + size_t(vt.b) * a.pages_per_seq;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle atom
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));
+  float* const ksc = reinterpret_cast<float*>(smem + L::IDS_OFF);  // the keys' K scales
+  const uint32_t bars = base + L::BAR_OFF;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (L::STAGES + s); };
+  const int n = head_slices(a.D);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full(s), 129);  // every producer thread, and thread 0's Q (and K) bytes
+      mbar_init(empty(s), 8);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < BN; i += blockDim.x)
+    ksc[i] = quant && i < live
+                 ? a.k_scales[scale_index(vt.kvh, table[(n0 + i) / a.page_size],
+                                          (n0 + i) % a.page_size, a.P, a.page_size)]
+                 : 1.f;
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(VERIFY_SCORES_PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    // Stage i % STAGES of slice i: Q by TMA (thread 0), then K.
+    auto stage_q = [&](int i, uint32_t k_bytes) {
+      const int s = i % L::STAGES;
+      mbar_wait(empty(s), ((i / L::STAGES) & 1) ^ 1);  // passes at once on the first lap
+      if (tid == 0) {
+        mbar_expect_tx(full(s), L::TILE + k_bytes);
+        tma_load_3d(base + s * L::STAGE, &tm_q, full(s), i * SLICE, vt.m0,
+                    vt.b * a.Hkv + vt.kvh);
+      }
+      return s;
+    };
+    if (quant) {
+      // The thread's rows tid / 4 + 32 j of the tile and stored chunk tid %
+      // 4 of each slice: their offsets found once, the next slice's
+      // payloads loaded while this slice's convert.
+      const unsigned char* kb = static_cast<const unsigned char*>(a.k);
+      size_t off[4];
+      int hi = 0, ok = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = tid / 4 + 32 * j, key = n0 + r;
+        off[j] = 0;
+        if (r < live) {
+          const TokenAddr ta = token_addr(a.kind, vt.kvh, table[key / a.page_size],
+                                          key % a.page_size, a.P, a.page_size, a.D);
+          off[j] = ta.row + (tid % 4) * 16;
+          hi |= ta.hi << j;
+          ok |= 1 << j;
+        }
+      }
+      auto load = [&](uint4 (&raw)[4], int i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          raw[j] = (ok >> j) & 1 ? *reinterpret_cast<const uint4*>(kb + off[j] + i * SLICE)
+                                 : make_uint4(0, 0, 0, 0);
+      };
+      auto put = [&](const uint4 (&raw)[4], int i) {
+        const int s = stage_q(i, 0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          store_converted_rows<T>(smem + s * L::STAGE + L::TILE, BN, tid / 4 + 32 * j, tid % 4,
+                                  raw[j], (hi >> j) & 1, a.kind);
+        fence_proxy_async();  // the stage is read by wgmma
+        mbar_arrive(full(s));
+      };
+      uint4 cur[4], nxt[4];
+      load(cur, 0);
+      for (int i = 0; i < n; i += 2) {  // n is even: D is a multiple of 128
+        load(nxt, i + 1);
+        put(cur, i);
+        if (i + 2 < n) load(cur, i + 2);
+        put(nxt, i + 1);
+      }
+      return;
+    }
+    for (int i = 0; i < n; ++i) {
+      const int s = stage_q(i, by_tma ? L::TILE : 0);
+      const uint32_t sk = base + s * L::STAGE + L::TILE;
+      if (by_tma) {
+        if (tid == 0)
+          for (int r = 0; r < BN; r += a.box)
+            tma_load_2d(sk + r * 128, &tm_k, full(s), i * SLICE,
+                        int(pool_row(a, table, vt.kvh, n0 + r)));
+        mbar_arrive(full(s));
+      } else {
+        gather_value_rows<T>(a, static_cast<const T*>(a.k), table, vt.kvh, n0, live, BN,
+                             i * SLICE, 1, sk, BN, tid);
+        cp_async_arrive(full(s));
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(VERIFY_SCORES_CONSUMER_REGS));
+  const int w = threadIdx.x / 128 - 1, wt = threadIdx.x % 128;
+  const int warp = wt / 32, lane = wt % 32, g = lane / 4, t = lane % 4;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % L::STAGES;
+    mbar_wait(full(s), (i / L::STAGES) & 1);
+    fence_proxy_async();  // rows written by cp.async, read by wgmma
+    const uint32_t st = base + s * L::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < SLICE / 16; ++ks)
+      WgmmaSS<BN, T>::run(acc, smem_desc(st + w * 8192 + ks * 32, 16, 1024),
+                          smem_desc(st + L::TILE + ks * 32, 16, 1024), 1);
+    wgmma_commit();
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (i > 0) release(empty((i - 1) % L::STAGES));  // the previous slice's products are done
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+
+  // Each row's horizon (keys below it visible), ALiBi position and slope.
+  const int G = a.Hq / a.Hkv;
+  const int lr0 = 64 * w + 16 * warp + g;  // the thread's tile rows lr0, lr0 + 8
+  int lim[2], qpos[2];
+  float slope[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = vt.m0 + lr0 + 8 * r, tt = row / G;
+    lim[r] = row < vt.rows ? min(vt.len - a.T + 1 + tt, max_len) : 0;
+    qpos[r] = vt.alen - a.T + tt;
+    slope[r] = a.slopes != nullptr && row < vt.rows ? a.slopes[vt.kvh * G + row % G] : 0.f;
+  }
+  const bool masked = n0 + BN > vt.open || vt.m0 + BM > vt.rows;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, kc = 8 * j + 2 * t + (e & 1), col = n0 + kc;
+      float x = acc[4 * j + e] * ksc[kc];
+      if (a.softcap > 0.f) x = a.softcap * tanhf(x * (1.f / a.softcap));
+      if (a.slopes != nullptr) x -= slope[r] * float(qpos[r] - col);
+      x *= kLog2e;
+      if (masked && col >= lim[r]) x = -INFINITY;
+      acc[4 * j + e] = x;
+    }
+  }
+  const size_t nkv_pad = size_t(n_kt) * BN;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_use = mx == -INFINITY ? 0.f : mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      sum += exp2_ftz(acc[4 * j + 2 * r] - m_use) + exp2_ftz(acc[4 * j + 2 * r + 1] - m_use);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const size_t lrow = size_t(f - a.f0) * BM + lr0 + 8 * r;
+    if (t == 0) a.stats[lrow * n_kt + kt] = make_float2(mx, sum);
+    float* dst = a.s + lrow * nkv_pad + n0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+}
+
+// Verify's product pass's stages: the forward product's (fp32 S of 128 rows
+// x 64 keys, then 64 rows x 256 columns of V), then each stage's 64 V
+// scales, the barriers and 1024 bytes of alignment.
+struct VerifyProductLayout {
+  static constexpr uint32_t A_BYTES = ProductLayout<kProductO>::A_BYTES;
+  static constexpr uint32_t STAGE = ProductLayout<kProductO>::STAGE;
+  static constexpr int STAGES = ProductLayout<kProductO>::STAGES;
+  static constexpr uint32_t SC_OFF = STAGES * STAGE;
+  static constexpr uint32_t BAR_OFF = SC_OFF + STAGES * ROWS * 4;
+  static constexpr size_t BYTES = size_t(BAR_OFF) + 8 * 2 * STAGES + 1024;
+  static_assert(BYTES <= 232448, "a CTA has 227 KB of shared memory");
+};
+
+// Calls fn(i, n0) for each 64-key stage of split `sp` of a verify product:
+// both halves of every key tile of the split that a row of the tile sees,
+// in key order, up to the last key a row sees.
+template <typename F>
+__device__ __forceinline__ void for_split_stages(int kt_lo, int kt_hi, int key_hi, F&& fn) {
+  int i = 0;
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {  // every key tile of the split, in order
+    for (int n0 = kt * BN; n0 < min(kt * BN + BN, key_hi); n0 += ROWS) fn(i++, n0);
+  }
+}
+
+// Verify's product pass: one CTA per (tile f of the wave, 256-column chunk,
+// key split).  O = P V / l over the split's key tiles, P = exp2(S - m)
+// times the V scale, rounded to T, with the row's max m and sum l over
+// those tiles merged from their (max, sum) in key-tile order: P rounded
+// against the row's max, as paged_verify_plain and the TPU kernel round it
+// (not the forward product's exp2(S - lse)); one split writes O in T
+// (zeros where a row sees no key), several their fp32 partials and lse
+// (-inf where the split shows the row no key) for wide_combine_kernel.
+template <typename T>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+ws_verify_product_kernel(const __grid_constant__ CUtensorMap tm_s,
+                         const __grid_constant__ CUtensorMap tm_v, const WsVerifyArgs a) {
+  using L = VerifyProductLayout;
+  const int f = a.f0 + blockIdx.x, cc = blockIdx.y, sp = blockIdx.z;
+  const VerifyTile vt = verify_tile(a, f);
+  const int max_len = a.pages_per_seq * a.page_size, n_kt = cdiv(max_len, BN);
+  const int per = cdiv(n_kt, a.splits), kt_lo = sp * per;
+  const int kt_hi = min(min(kt_lo + per, n_kt), cdiv(vt.key_hi, BN));
+  const int c0 = cc * CW;
+  const int loaded = min(CW, a.D - c0) / 64;  // B chunks inside the head dim
+  const bool quant = is_quantized(a.kind);
+  const int* table = a.page_table + size_t(vt.b) * a.pages_per_seq;
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const smem = smem_raw + (base - smem_u32(smem_raw));
+  float* const vsc = reinterpret_cast<float*>(smem + L::SC_OFF);  // [stage][64 keys]
+  const uint32_t bars = base + L::BAR_OFF;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (L::STAGES + s); };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full(s), 129);  // every producer thread, and thread 0's S (and V) bytes
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!quant)  // value pools: every V scale 1
+    for (int i = threadIdx.x; i < L::STAGES * ROWS; i += blockDim.x) vsc[i] = 1.f;
+  if (loaded < CW / 64) zero_odd_chunks<L>(smem, loaded);
+  __syncthreads();
+
+  auto walk = [&](auto&& fn) { for_split_stages(kt_lo, kt_hi, vt.key_hi, fn); };
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(VERIFY_PRODUCT_PRODUCER_REGS));
+    const int tid = threadIdx.x;
+    const int arow = (f - a.f0) * BM;  // the tile's first scratch row
+    walk([&](int i, int n0) {
+      const int s = i % L::STAGES;
+      mbar_wait(empty(s), ((i / L::STAGES) & 1) ^ 1);
+      const uint32_t st = base + s * L::STAGE, sb = st + L::A_BYTES;
+      const int live = min(ROWS, vt.key_hi - n0);
+      const bool by_tma = !quant && a.tma && live == ROWS;
+      if (tid == 0) {
+        mbar_expect_tx(full(s), L::A_BYTES + (by_tma ? loaded * 8192 : 0));
+        tma_load_2d(st, &tm_s, full(s), n0, arow);
+        tma_load_2d(st + 16384, &tm_s, full(s), n0 + 32, arow);
+        if (by_tma)
+          for (int c = 0; c < loaded; ++c)
+            for (int r = 0; r < ROWS; r += a.box)
+              tma_load_2d(sb + c * 8192 + r * 128, &tm_v, full(s), c0 + 64 * c,
+                          int(pool_row(a, table, vt.kvh, n0 + r)));
+      }
+      if (by_tma) {
+        mbar_arrive(full(s));
+      } else if (!quant) {
+        gather_value_rows<T>(a, static_cast<const T*>(a.v), table, vt.kvh, n0, live, ROWS, c0,
+                             loaded, sb, ROWS, tid);
+        cp_async_arrive(full(s));
+      } else {
+        if (tid < ROWS)
+          vsc[s * ROWS + tid] =
+              tid < live ? a.v_scales[scale_index(vt.kvh, table[(n0 + tid) / a.page_size],
+                                                  (n0 + tid) % a.page_size, a.P, a.page_size)]
+                         : 0.f;
+        gather_quant_stage<T>(a, table, vt.kvh, n0, live, c0, loaded,
+                              smem + s * L::STAGE + L::A_BYTES, tid);
+        fence_proxy_async();  // the stage is read by wgmma
+        mbar_arrive(full(s));
+      }
+    });
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(VERIFY_PRODUCT_CONSUMER_REGS));
+  const int w = threadIdx.x / 128 - 1, wt = threadIdx.x % 128;
+  const int warp = wt / 32, lane = wt % 32, g = lane / 4, t = lane % 4;
+  const int lr0 = 64 * w + 16 * warp + g;  // the thread's rows lr0, lr0 + 8 of the CTA's 128
+  float acc[CW / 2];
+#pragma unroll
+  for (int i = 0; i < CW / 2; ++i) acc[i] = 0.f;
+  fence_regs(acc);
+
+  // The rows' max (base 2) and sum over the split's key tiles, merged from
+  // the tiles' (max, sum) in key-tile order.
+  float m2[2], lsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float2* st = a.stats + (size_t(f - a.f0) * BM + lr0 + 8 * r) * n_kt;
+    float mx = -INFINITY;
+    for (int k2 = kt_lo; k2 < kt_hi; ++k2) mx = fmaxf(mx, st[k2].x);
+    m2[r] = mx == -INFINITY ? 0.f : mx;
+    float l = 0.f;
+    for (int k2 = kt_lo; k2 < kt_hi; ++k2) l += st[k2].y * exp2_ftz(st[k2].x - m2[r]);
+    lsum[r] = l;
+  }
+
+  walk([&](int i, int n0) {
+    const int s = i % L::STAGES;
+    mbar_wait(full(s), (i / L::STAGES) & 1);
+    fence_proxy_async();  // rows written by cp.async, read by wgmma
+    const uint32_t sb = base + s * L::STAGE + L::A_BYTES;
+    // P of the stage's 64 keys as the A fragments of 4 k-steps: S from its
+    // two swizzled 32-key boxes, exp2(S - m) times the V scale, rounded.
+    const unsigned char* sa = smem + s * L::STAGE;
+    const float* vs = vsc + s * ROWS;
+    uint32_t pa[ROWS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int lr = lr0 + 8 * (x & 1), kc = 16 * kk + 8 * (x >> 1) + 2 * t;
+        const int e = kc % 32;
+        const float2 sv = *reinterpret_cast<const float2*>(
+            sa + (kc / 32) * 16384 + lr * 128 + (((e / 4) ^ (lr & 7)) << 4) + (e % 4) * 4);
+        pa[kk][x] = Mma<T>::pack(exp2_ftz(sv.x - m2[x & 1]) * vs[kc],
+                                 exp2_ftz(sv.y - m2[x & 1]) * vs[kc + 1]);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        WgmmaRS<128, T>::run(*reinterpret_cast<float(*)[64]>(acc + 64 * hh), pa[kk],
+                             smem_desc(sb + hh * 2 * 8192 + kk * 2048, 8192, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    release(empty(s));
+  });
+  wgmma_wait_all();
+  fence_regs(acc);
+
+  // The owner's rows, O = acc / l: in T (one split), or the split's fp32
+  // partial and its lse; columns inside the head dim.
+  const int G = a.Hq / a.Hkv;
+  const size_t all_rows = size_t(a.B) * a.Hq * a.T;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = vt.m0 + lr0 + 8 * r;
+    if (row >= vt.rows) continue;
+    const size_t orow = (size_t(vt.b) * a.Hq + vt.kvh * G + row % G) * a.T + row / G;
+    const float inv = lsum[r] > 0.f ? 1.f / lsum[r] : 0.f;
+    if (a.splits > 1) {
+      const size_t at = (size_t(sp) * all_rows + orow) * a.D + c0 + 2 * t;
+      if (cc == 0 && t == 0)
+        a.part_lse[size_t(sp) * all_rows + orow] =
+            lsum[r] > 0.f ? (m2[r] + log2f(lsum[r])) * kLn2 : -INFINITY;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        if (c0 + 128 * hh >= a.D) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<float2*>(a.part_o + at + 128 * hh + 8 * j) = make_float2(
+              acc[64 * hh + 4 * j + 2 * r] * inv, acc[64 * hh + 4 * j + 2 * r + 1] * inv);
+      }
+      continue;
+    }
+    T* out = static_cast<T*>(a.o) + orow * a.D + c0 + 2 * t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (c0 + 128 * hh >= a.D) continue;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(out + 128 * hh + 8 * j) =
+            Mma<T>::pack(acc[64 * hh + 4 * j + 2 * r] * inv, acc[64 * hh + 4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -830,8 +1391,8 @@ inline bool valid_call(const WsArgs& a) {
          2 * cdiv(a.D, CW) <= 65535;
 }
 
-template <typename K, typename... Maps>
-int launch_ws(K kernel, size_t smem, dim3 grid, const WsArgs& a, const Maps&... maps) {
+template <typename K, typename A, typename... Maps>
+int launch_ws(K kernel, size_t smem, dim3 grid, const A& a, const Maps&... maps) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -892,6 +1453,59 @@ int launch_product(const WsArgs& a) {
   if (!ok) return int(cudaErrorInvalidValue);
   return launch_ws(ws_product_kernel<T, KIND>, ProductLayout<KIND>::BYTES, grid, a, ma, ma2, mb,
                    mb2);
+}
+
+
+// Whether a verify call is one this route takes: a pool kind, q dtype and
+// head dim it carries, its wave inside the call's tiles, its splits whole
+// key tiles and every grid axis inside its limit.
+inline bool valid_verify(const WsVerifyArgs& a, int q_dtype) {
+  if ((q_dtype != 1 && q_dtype != 2) || !scores_head_dim(a.D) || a.B <= 0 || a.T <= 0 ||
+      a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.P <= 0 || a.page_size <= 0 ||
+      a.pages_per_seq <= 0 || a.kind < kBF16 || a.kind > kE5M2 ||
+      (a.kind <= kF16 && a.kind != q_dtype) || (a.kind == kI4 && a.page_size % 2))
+    return false;
+  const int n_kt = cdiv(a.pages_per_seq * a.page_size, BN);
+  const long long tiles = (long long)a.B * a.Hkv * cdiv(a.T * (a.Hq / a.Hkv), BM);
+  return a.f0 >= 0 && a.f0 < a.f1 && a.f1 <= tiles && n_kt <= 65535 && a.splits >= 1 &&
+         a.splits <= n_kt;
+}
+
+// Rows of the TMA boxes of a pool whose pages are read whole a stage of
+// `keys` keys (a page, or `keys` where a page holds more), or 0 where its
+// pages do not tile the stage in rows of whole 1024-byte swizzle atoms.
+inline int pool_box(int page_size, int keys) {
+  if (page_size % 8 != 0 || (page_size % keys != 0 && keys % page_size != 0)) return 0;
+  return page_size < keys ? page_size : keys;
+}
+
+// Verify's score pass over the wave's tiles.
+template <typename T>
+int launch_verify_scores(WsVerifyArgs a) {
+  const int rows = a.T * (a.Hq / a.Hkv);
+  CUtensorMap tm_q, tm_k{};
+  a.box = is_quantized(a.kind) ? 0 : pool_box(a.page_size, BN);
+  a.tma = a.box > 0;
+  if (!encode_map<T>(&tm_q, a.q, a.D, rows, a.B * a.Hkv, BM) ||
+      (a.tma && !encode_map_2d<T>(&tm_k, a.k, a.D, size_t(a.Hkv) * a.P * a.page_size, a.box)))
+    return int(cudaErrorInvalidValue);
+  return launch_ws(ws_verify_scores_kernel<T>, ScoreLayout<false>::BYTES,
+                   dim3(a.f1 - a.f0, cdiv(a.pages_per_seq * a.page_size, BN)), a, tm_q, tm_k);
+}
+
+// Verify's product pass over the wave's tiles, every split.
+template <typename T>
+int launch_verify_product(WsVerifyArgs a) {
+  const size_t rows = size_t(a.f1 - a.f0) * BM;
+  const size_t nkv_pad = size_t(cdiv(a.pages_per_seq * a.page_size, BN)) * BN;
+  CUtensorMap tm_s, tm_v{};
+  a.box = is_quantized(a.kind) ? 0 : pool_box(a.page_size, ROWS);
+  a.tma = a.box > 0;
+  if (!encode_scratch(&tm_s, a.s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, nkv_pad, rows, BM) ||
+      (a.tma && !encode_map_2d<T>(&tm_v, a.v, a.D, size_t(a.Hkv) * a.P * a.page_size, a.box)))
+    return int(cudaErrorInvalidValue);
+  return launch_ws(ws_verify_product_kernel<T>, VerifyProductLayout::BYTES,
+                   dim3(a.f1 - a.f0, cdiv(a.D, CW), a.splits), a, tm_s, tm_v);
 }
 
 }  // namespace ws

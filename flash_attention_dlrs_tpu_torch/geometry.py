@@ -36,14 +36,13 @@ CTA_ROWS = 128
 # and the 16-bit sweeps (also "wide_wgmma") stream tiles of WIDE_BWD_ROWS
 # rows (keys in dQ, q rows in dK/dV) and cut it their own way
 # (:func:`wide_bwd_cut`).  The column-chunked kernels (fp32 "wide_fp32" at
-# every wide head dim; bf16 / fp16 "wide_chunk" above the cuts,
-# :func:`chunked`) own one 128-column chunk of their output a CTA and stream
-# tiles of WIDE_KEYS rows: no width cap.  Above the cuts the 16-bit forward
-# and sweeps take route "wide_scores" instead (csrc/wide_scores.cuh): a
-# score pass of WIDE_SCORES_TILE x WIDE_SCORES_TILE tiles and a product
-# pass streaming WIDE_SCORES_ROWS rows a stage into WIDE_SCORES_COLS output
-# columns a CTA, through scratch of at most WIDE_SCORES_SCRATCH_BYTES a wave
-# (:func:`wide_scores_waves`); only paged verify stays column-chunked there.
+# every wide head dim) own one 128-column chunk of their output a CTA and
+# stream tiles of WIDE_KEYS rows: no width cap.  Above the cuts
+# (:func:`chunked`) the 16-bit forward, sweeps and paged verify take route
+# "wide_scores" (csrc/wide_scores.cuh): a score pass of WIDE_SCORES_TILE x
+# WIDE_SCORES_TILE tiles and a product pass streaming WIDE_SCORES_ROWS rows
+# a stage into WIDE_SCORES_COLS output columns a CTA, through scratch of at
+# most WIDE_SCORES_SCRATCH_BYTES a wave (:func:`wide_scores_waves`).
 WIDE_CUT_MAX_HEAD_DIM = 1024
 WIDE_ROWS = 64
 WIDE_KEYS = 64
@@ -195,22 +194,25 @@ def is_wide(head_dim: int) -> bool:
 def chunked(head_dim: int) -> bool:
     """Whether ``head_dim`` is a wide width the cluster cuts of the 16-bit
     kernels do not reach (above :data:`WIDE_CUT_MAX_HEAD_DIM`): the bf16 /
-    fp16 forward and sweeps run their score and product passes there
-    (route ``"wide_scores"``), verify (``"wide_chunk"``) and the fp32
-    kernels run column-chunked, decode on ``csrc/paged_decode_chunk.cu``."""
+    fp16 forward, sweeps and paged verify run their score and product passes
+    there (route ``"wide_scores"``), the fp32 kernels run column-chunked,
+    decode on ``csrc/paged_decode_chunk.cu``."""
     return is_wide(head_dim) and head_dim > WIDE_CUT_MAX_HEAD_DIM
 
 
 # The passes of route "wide_scores" (csrc/wide_scores.cuh ScoreLayout,
-# ProductLayout): {kind: (stages, bytes of a stage)}.  A score pass's stage
-# holds 128 rows x 64 columns of Q and K (and dO, V in the backward), a
-# product's the scratch tile and 64 rows x 256 columns of its operand.
+# ProductLayout, VerifyProductLayout): {kind: (stages, bytes of a stage)}.
+# A score pass's stage holds 128 rows x 64 columns of Q and K (and dO, V in
+# the backward), a product's the scratch tile and 64 rows x 256 columns of
+# its operand; paged verify's passes are the forward's over paged rows.
 _WIDE_SCORES_STAGES = {
     "fwd_scores": (4, 2 * 128 * 128),
     "bwd_scores": (3, 4 * 128 * 128),
     "fwd_product": (3, 128 * 64 * 4 + 64 * 256 * 2),
     "dq_product": (4, 128 * 64 * 2 + 64 * 256 * 2),
     "dkv_product": (4, 128 * 64 * 2 + 64 * 256 * 2),
+    "verify_scores": (4, 2 * 128 * 128),
+    "verify_product": (3, 128 * 64 * 4 + 64 * 256 * 2),
 }
 WIDE_SCORES_KINDS = tuple(_WIDE_SCORES_STAGES)
 
@@ -218,13 +220,15 @@ WIDE_SCORES_KINDS = tuple(_WIDE_SCORES_STAGES)
 def wide_scores_smem_bytes(kind: str) -> int:
     """Shared memory of one CTA of a pass of route ``"wide_scores"``
     (``csrc/wide_scores.cuh`` ``ScoreLayout<BWD>::BYTES`` /
-    ``ProductLayout<KIND>::BYTES``), one layout a pass at every head dim
-    and mode: the stages of :data:`_WIDE_SCORES_STAGES`, a score pass's
-    128 kv segment ids, a full and an empty barrier a stage and 1024 bytes
-    of alignment."""
+    ``ProductLayout<KIND>::BYTES``, ``VerifyProductLayout::BYTES``), one
+    layout a pass at every head dim, mode and pool kind: the stages of
+    :data:`_WIDE_SCORES_STAGES`, a score pass's 128 kv segment ids (verify:
+    its keys' K scales), verify's product each stage's 64 V scales, a full
+    and an empty barrier a stage and 1024 bytes of alignment."""
     stages, stage = _WIDE_SCORES_STAGES[kind]
-    ids = WIDE_SCORES_TILE * 4 if kind.endswith("_scores") else 0
-    return stages * stage + ids + 8 * 2 * stages + 1024
+    extra = (WIDE_SCORES_TILE * 4 if kind.endswith("_scores")
+             else stages * WIDE_SCORES_ROWS * 4 if kind == "verify_product" else 0)
+    return stages * stage + extra + 8 * 2 * stages + 1024
 
 
 def wide_scores_tile_bytes(n_kv: int, backward: bool) -> int:
@@ -260,21 +264,17 @@ def _refuse_cut(head_dim: int) -> None:
         raise ValueError(f"head_dim {head_dim} is not a width of the wide builds")
 
 
-def wide_chunk_smem_bytes(dtype=torch.float32, paged: bool = False,
-                          segments: bool = False) -> int:
-    """Shared memory of one CTA of the column-chunked kernels (``csrc/wide.cuh``
-    ``WideLayout<T>::BYTES``): the fp32 forward and sweeps, and verify
-    (``paged``) in every dtype, with or without segment ids, at every head
-    dim alike: two stages of each
-    streamed operand (64 rows of 128 bytes, each padded by 16), the update
-    tile (64 rows of 128 columns of ``dtype``, padded by 16 bytes), in fp32
-    each warp's 16 x 68 probabilities (16-bit keeps them in registers), six
-    vectors of 64 and 64 row offsets and flags."""
-    del paged, segments  # one layout for every mode
-    itemsize = torch.empty((), dtype=dtype).element_size()
+def wide_chunk_smem_bytes() -> int:
+    """Shared memory of one CTA of the column-chunked kernels (fp32,
+    ``csrc/wide.cuh`` ``WideLayout::BYTES``): the forward, the sweeps and
+    verify, with or without segment ids, at every head dim alike: two
+    stages of each streamed operand (64 rows of 128 bytes, each padded by
+    16), the update tile (64 rows of 128 fp32 columns, padded by 16 bytes),
+    each warp's 16 x 68 probabilities, six vectors of 64 and 64 row offsets
+    and flags."""
     chunk = WIDE_ROWS * (128 + 16)
-    tile = WIDE_KEYS * (128 * itemsize + 16)
-    probs = 4 * 16 * (WIDE_KEYS + 4) * 4 if itemsize == 4 else 0
+    tile = WIDE_KEYS * (128 * 4 + 16)
+    probs = 4 * 16 * (WIDE_KEYS + 4) * 4
     return 4 * chunk + tile + probs + 6 * 64 * 4 + 64 * 8 + 64 * 4
 
 

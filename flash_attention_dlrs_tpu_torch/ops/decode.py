@@ -16,7 +16,8 @@ multi-token verify mode (:func:`paged_verify_attention`, on the route of
 ``paged_verify_d256_f16.cu``; every pool head dim above 256 that is a
 multiple of 128 in ``paged_verify_wide.cu`` and, up to 1024,
 ``paged_decode_wide.cu``, above it ``paged_decode_chunk.cu``: the kernels of
-``csrc/wide.cuh``).  Both may cut
+``csrc/wide.cuh``, and above 1024 verify from bf16 / fp16 q as the score
+and product passes of ``csrc/wide_scores.cuh``, :mod:`.wide_scores`).  Both may cut
 each page table into key splits of whole pages (:func:`decode_splits`, from
 static shapes only, unless the caller sets ``pages_per_block``, the pages of
 one split: :func:`key_splits`; :func:`tuned_pages_per_block` times the
@@ -48,8 +49,9 @@ import functools
 import torch
 
 from .._cuda import DTYPE_CODES, CudaKernel, ptr, register_launch_counts
+from . import wide_scores
 from .flash_attention import _normalize_alibi
-from ..geometry import WIDE_ROWS, chunked, is_wide, wide_cut
+from ..geometry import WIDE_ROWS, WIDE_SCORES_COLS, chunked, is_wide, wide_cut
 from .fwd_kernel import (
     DEFAULT_MASK_VALUE, KERNEL_WIDTHS, _slopes_on, check_kernel_head_dim, pad_head_dim,
 )
@@ -101,8 +103,11 @@ VERIFY_D256_F16_KERNEL = CudaKernel("paged_verify_d256_f16.cu", "paged_verify_d2
 # copies to 1024 (its splits merged inside the launch, as at d <= 256), and
 # above it column-chunked on the CUDA cores (DECODE_CHUNK_KERNEL, the split
 # scratch its accumulator, splits merged by a second kernel); verify on
-# warpgroup products (bf16 / fp16 q to 1024), column-chunked on mma.sync
-# (bf16 / fp16 q above 1024) or column-chunked in fp32 (fp32 q).
+# warpgroup products (bf16 / fp16 q to 1024) or column-chunked in fp32
+# (fp32 q); above 1024 verify from bf16 / fp16 q runs the score and product
+# passes of route "wide_scores" (wide_scores.VERIFY_SCORES_KERNEL,
+# VERIFY_PRODUCT_KERNEL and VERIFY_COMBINE_KERNEL, built from the same
+# paged_verify_wide.cu).
 DECODE_WIDE_KERNEL = CudaKernel("paged_decode_wide.cu", "paged_decode_wide", _DECODE_ARGS)
 DECODE_CHUNK_KERNEL = CudaKernel("paged_decode_chunk.cu", "paged_decode_chunk", _DECODE_ARGS)
 VERIFY_WIDE_KERNEL = CudaKernel("paged_verify_wide.cu", "paged_verify_wide", _VERIFY_ARGS)
@@ -130,9 +135,10 @@ DECODE_SPLITS: dict = register_launch_counts({})
 VERIFY_SPLITS: dict = register_launch_counts({})
 
 # The verify C entries' route codes (csrc/paged_verify.cuh kRouteF32 /
-# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma /
-# kRouteWideChunk) and the launches of each route.
-VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_chunk": 5}
+# kRouteWgmma, csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma,
+# csrc/wide_scores.cuh kRouteWideScores: ops/fwd_kernel.py's codes; 5 was a
+# retired route's) and the calls of each route.
+VERIFY_ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_scores": 6}
 VERIFY_ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(VERIFY_ROUTE_CODES, 0))
 
 # Tokens of one stored-row tile of csrc/paged_decode.cuh: the least a split
@@ -237,10 +243,10 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
     wide_fp32  as fp32, at a wide pool head dim (``csrc/wide.cuh``)
     wide_wgmma as wgmma, at a wide pool head dim up to 1024
                (``csrc/wide.cuh``)
-    wide_chunk as wgmma, at a wide pool head dim above 1024
-               (``csrc/wide.cuh``, column-chunked on mma.sync; above
-               1024 only verify takes this route: the forward and the
-               sweeps take ``"wide_scores"``)
+    wide_scores as wgmma, at a wide pool head dim above 1024: a score
+               pass and a product pass over paged rows
+               (``csrc/wide_scores.cuh``, :mod:`.wide_scores`; the
+               forward's and the sweeps' route there too)
     =========  =========================================================
 
     ``pool_kind`` is a key of :data:`POOL_KINDS` (a dtype, or ``"int4"``).
@@ -265,7 +271,7 @@ def verify_route(q_dtype, pool_kind, page_size: int, head_dim: int,
             f"paged verify kernel takes {q_dtype} q with quantized pools or "
             f"{q_dtype} pools, not {pool_kind}")
     if chunked(head_dim):
-        return "wide_chunk"
+        return "wide_scores"
     return "wide_wgmma" if wide else "wgmma"
 
 
@@ -274,15 +280,18 @@ def verify_ctas_per_split(route: str, rows: int, head_dim: int) -> int:
     its ``rows`` = T · G rows: blocks of :data:`VERIFY_ROW_TILE` rows on the
     ``"wgmma"`` route; on ``"wide_wgmma"`` blocks of 64 rows, each a
     cluster of the CTAs that split the head dim (:func:`..geometry.wide_cut`);
-    on ``"wide_fp32"`` and ``"wide_chunk"`` blocks of 64 rows times the
-    128-column chunks of the head dim; on ``"fp32"`` (which does not split)
-    blocks of 64 rows."""
+    on ``"wide_fp32"`` blocks of 64 rows times the 128-column chunks of the
+    head dim; on ``"wide_scores"`` the product pass's row tiles of
+    :data:`VERIFY_ROW_TILE` times its 256-column chunks; on ``"fp32"``
+    (which does not split) blocks of 64 rows."""
     if route == "wgmma":
         return -(-rows // VERIFY_ROW_TILE)
     if route == "wide_wgmma":
         return -(-rows // WIDE_ROWS) * wide_cut(head_dim)[0]
-    if route in ("wide_fp32", "wide_chunk"):
+    if route == "wide_fp32":
         return -(-rows // WIDE_ROWS) * (head_dim // 128)
+    if route == "wide_scores":
+        return -(-rows // VERIFY_ROW_TILE) * -(-head_dim // WIDE_SCORES_COLS)
     return -(-rows // WIDE_ROWS)
 
 
@@ -293,14 +302,27 @@ def verify_splits(route: str, batch: int, num_q_heads: int, num_kv_heads: int,
     static shapes: one CTA fills an SM, so :func:`decode_splits` asked for
     its two an SM of half the SMs, counting each (sequence, kv head)'s CTAs
     of a split (:func:`verify_ctas_per_split`) as its batch; at most
-    :data:`VERIFY_MAX_SPLITS`, cut to whole pages (:func:`split_pages`).
-    The fp32 route takes 1."""
+    :data:`VERIFY_MAX_SPLITS`, cut to whole pages (:func:`split_pages`), on
+    ``"wide_scores"`` to whole 128-key tiles (:func:`scores_splits`).  The
+    fp32 route takes 1."""
     if route == "fp32":
         return 1
     ctas = verify_ctas_per_split(route, num_tokens * (num_q_heads // num_kv_heads), head_dim)
+    if route == "wide_scores":  # the key tiles as pages of 128 keys
+        n_kt = wide_scores.n_tiles(pages_per_seq * page_size)
+        return scores_splits(pages_per_seq * page_size, decode_splits(
+            batch * ctas, num_kv_heads, n_kt, wide_scores.TILE, max(1, num_sms // 2)))
     splits = decode_splits(batch * ctas, num_kv_heads, pages_per_seq, page_size,
                            max(1, num_sms // 2))
     return split_pages(pages_per_seq, min(splits, VERIFY_MAX_SPLITS))[1]
+
+
+def scores_splits(n_keys: int, splits: int) -> int:
+    """The key splits of a verify call on route ``"wide_scores"`` over a
+    table of ``n_keys`` keys asked for ``splits``: at most
+    :data:`VERIFY_MAX_SPLITS`, cut to whole 128-key tiles as
+    :func:`split_pages` cuts pages (ceil(key tiles / splits) tiles each)."""
+    return split_pages(wide_scores.n_tiles(n_keys), min(splits, VERIFY_MAX_SPLITS))[1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -334,6 +356,18 @@ def _split_scratch(splits: int, rows: int, head_dim: int, groups: int, device, s
     base = buf.data_ptr()
     return (base, base + 4 * splits * rows * head_dim,
             counters.data_ptr() if groups else 0)
+
+
+def _split_parts(splits: int, rows: int, head_dim: int, device, stream: int):
+    """The partial O [splits, rows, d] and lse [splits, rows] of a split
+    call on ``stream`` as views of :func:`_split_scratch`'s buffer, or None
+    without a split."""
+    if splits == 1:
+        return None
+    _split_scratch(splits, rows, head_dim, 0, device, stream)
+    buf = _SCRATCH[(device.index, stream)][0]
+    n = splits * rows * head_dim
+    return buf[:n].view(splits, rows, head_dim), buf[n:n + splits * rows].view(splits, rows)
 
 
 def split_scratch_on(device, stream: int):
@@ -599,8 +633,10 @@ def paged_verify_attention(
     :func:`decode_splits` does, for its blocks of :data:`VERIFY_ROW_TILE`
     rows, or into ``pages_per_block`` pages a split, at most
     :data:`VERIFY_MAX_SPLITS`; the wide routes likewise for their CTAs,
-    :func:`verify_splits`; the fp32 route does not split) or raise.
-    ``alibi_slopes``: see the module docstring."""
+    :func:`verify_splits`, ``"wide_scores"`` in whole 128-key tiles,
+    :func:`scores_splits`, its passes from :mod:`.wide_scores`; the fp32
+    route does not split) or raise.  ``alibi_slopes``: see the module
+    docstring."""
     pools = _Pools(k_pages, v_pages)
     batch, num_q_heads, num_tokens, d_true = q.shape
     _check_call(q, pools, lengths, page_indices, num_q_heads, d_true,
@@ -629,8 +665,18 @@ def paged_verify_attention(
                                    head_dim, pages_per_seq, pools.page_size,
                                    _num_sms(q.device.index or 0))
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        part_o, part_lse, _ = _split_scratch(
-            splits, batch * num_q_heads * num_tokens, head_dim, 0, q.device, stream)
+        rows = batch * num_q_heads * num_tokens
+        if route == "wide_scores":
+            if chosen:
+                splits = scores_splits(pages_per_seq * pools.page_size, chosen)
+            o = wide_scores.verify_call(
+                q, pools, lengths, page_indices, scale=_scale_in(sm_scale, q.dtype),
+                splits=splits, softcap=float(logit_softcap), alibi_slopes=slopes,
+                parts=_split_parts(splits, rows, head_dim, q.device, stream))
+            VERIFY_ROUTE_LAUNCHES[route] += 1
+            VERIFY_SPLITS[splits] = VERIFY_SPLITS.get(splits, 0) + 1
+            return o[..., :d_true]
+        part_o, part_lse, _ = _split_scratch(splits, rows, head_dim, 0, q.device, stream)
         paged_kernels(head_dim, q.dtype)[1].launch(
             ptr(q), DTYPE_CODES[q.dtype], ptr(pools.k), ptr(pools.v),
             pools.kind, ptr(pools.k_sc), ptr(pools.v_sc), ptr(lengths),

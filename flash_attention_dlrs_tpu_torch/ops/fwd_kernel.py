@@ -24,9 +24,8 @@ Hopper machinery with the head dim split among warpgroups and, above 512,
 the CTAs of a cluster, scores computed once a key tile; to 1024),
 ``"wide_scores"`` (bf16/fp16 above 1024: a score pass computes S once a
 tile over the whole head dim, a product pass O = P V a column chunk at a
-time, both on wgmma; no width cap) and ``"wide_fp32"``; ``"wide_chunk"``
-(column-chunked on ``mma.sync``) is only paged verify's above 1024
-(``ops/decode.py``).
+time, both on wgmma; no width cap; paged verify's too, ``ops/decode.py``) and
+``"wide_fp32"``.
 The C entry refuses a route that
 cannot carry a call; nothing switches routes at run time.  It replaces
 the forward of the TPU kernels ``ops/fwd_kernel.py::_fwd_kernel``,
@@ -100,15 +99,13 @@ FWD_TILES_KERNEL = CudaKernel("attn_fwd_tiles.cu", "attn_fwd_tiles",
 FWD_WIDE_KERNEL = CudaKernel("attn_fwd_wide.cu", "attn_fwd_wide", _FWD_ARGS)
 
 # The C entries' route codes (csrc/attn_fwd.cuh kRouteF32 / kRouteWgmma,
-# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma / kRouteWideChunk,
-# csrc/wide_scores.cuh kRouteWideScores; 3 was a retired route's) and the
-# launches of each route, over every build; set to 0 by whoever reads them.
-# The backward sweeps share the codes (ops/bwd_kernel.py): "wide_wgmma"
-# names the 16-bit wide forward and both wide sweeps to 1024,
-# "wide_scores" those above; "wide_chunk" is paged verify's above 1024
-# (ops/decode.py), whose codes these are too.
-ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_chunk": 5,
-               "wide_scores": 6}
+# csrc/wide.cuh kRouteWideF32 / kRouteWideWgmma, csrc/wide_scores.cuh
+# kRouteWideScores; 3 and 5 were retired routes') and the launches of each
+# route, over every build; set to 0 by whoever reads them.  The backward
+# sweeps share the codes (ops/bwd_kernel.py): "wide_wgmma" names the 16-bit
+# wide forward and both wide sweeps to 1024, "wide_scores" those above;
+# paged verify's codes (ops/decode.py VERIFY_ROUTE_CODES) are these too.
+ROUTE_CODES = {"fp32": 0, "wgmma": 1, "wide_fp32": 2, "wide_wgmma": 4, "wide_scores": 6}
 ROUTE_LAUNCHES = register_launch_counts(dict.fromkeys(ROUTE_CODES, 0))
 # The wgmma and wide_wgmma routes' launches by head dim and key tile
 # ("d128_kv64", "d512_kv32"), over every build; set to 0 by whoever reads

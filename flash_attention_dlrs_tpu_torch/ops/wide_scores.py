@@ -1,12 +1,15 @@
 """Attention above head dim 1024 in bf16 / fp16: route ``"wide_scores"``.
 
 The kernels are ``csrc/wide_scores.cuh``, built as ``csrc/attn_fwd_scores.cu``
-(the forward's score and product passes) and ``csrc/attn_bwd_scores.cu``
-(the backward's score pass and its dQ and dK / dV product passes), each
-entry with its own launch count.  They replace, above 1024, the forward
-and the two backward sweeps of the JAX package's TPU kernels
-(``ops/fwd_kernel.py::_fwd_kernel``, ``ops/bwd_kernel.py::_bwd_dkv_kernel``
-and ``_bwd_dq_kernel``, and the routes they carry) with every mode:
+(the forward's score and product passes), ``csrc/attn_bwd_scores.cu`` (the
+backward's score pass and its dQ and dK / dV product passes) and
+``csrc/paged_verify_wide.cu`` (paged verify's score and product passes and
+the merge of its key splits), each entry with its own launch count.  They
+replace, above 1024, the forward and the two backward sweeps of the JAX
+package's TPU kernels (``ops/fwd_kernel.py::_fwd_kernel``,
+``ops/bwd_kernel.py::_bwd_dkv_kernel`` and ``_bwd_dq_kernel``, and the
+routes they carry) and the multi-token verify mode of
+``ops/decode.py::_decode_kernel``, with every mode:
 
 - the forward's **score pass** (:func:`fwd_scores`) computes S = Q Kᵀ once
   for each (128 q rows, 128 keys) tile the mask lets through, summed over
@@ -20,7 +23,17 @@ and ``_bwd_dq_kernel``, and the routes they carry) with every mode:
   derivative) in 16 bits; its **products** give dQ = scale · dS K
   (:func:`dq_product`) and dV = (P∘M)ᵀ dO, dK = scale · dSᵀ Q
   (:func:`dkv_product`), each output element with one owner, every sum in a
-  fixed order, no atomics.
+  fixed order, no atomics;
+- paged verify (:func:`verify_call`, called by ``ops/decode.py
+  paged_verify_attention``) runs the forward's two passes over the T · G
+  (token, q head) rows of each (sequence, kv head), row t · G + g, on q
+  folded and scaled in its dtype (:func:`verify_rows`, the JAX wrapper's
+  ``qg``), keys gathered through the page table: the **score pass**
+  (:func:`verify_scores`) applies the K scale, the softcap, the ALiBi bias
+  and each row's horizon; the **product pass** (:func:`verify_product`)
+  forms P = exp2(S − m) times the V scale (rounded against the row's max,
+  as the TPU kernel rounds it) and P V / l over each static key split of
+  whole key tiles; :func:`verify_combine` merges the splits in split order.
 
 The passes meet in scratch that the caller allocates here, from PyTorch's
 allocator on the current stream (so graph captures and
@@ -510,3 +523,325 @@ def attn_bwd_scores(q, k, v, do, lse, delta, *, causal, sm_scale, window=0, soft
         if "dq" in sweeps:
             dq_product(ds, q, k, out["dq"], wave, **kw)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Paged multi-token verify
+# ---------------------------------------------------------------------------
+
+_VERIFY_DIMS = [ctypes.c_int] * 8  # B, Hq, Hkv, T, P, page_size, pages_per_seq, D
+# qs, q dtype, K pool, pool kind, K scales, lengths, table, s, stats; softcap,
+# ALiBi slopes
+VERIFY_SCORES_KERNEL = CudaKernel(
+    "paged_verify_wide.cu", "paged_verify_scores",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+    + _VERIFY_DIMS + [ctypes.c_float, ctypes.c_void_p] + _WAVE)
+# s, stats, V pool; q dtype, pool kind; V scales, lengths, table, o, part_o,
+# part_lse; splits
+VERIFY_PRODUCT_KERNEL = CudaKernel(
+    "paged_verify_wide.cu", "paged_verify_product",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + _VERIFY_DIMS
+    + [ctypes.c_int] + _WAVE)
+# part_o, part_lse, o; q dtype, rows, splits, D; stream
+VERIFY_COMBINE_KERNEL = CudaKernel(
+    "paged_verify_wide.cu", "paged_verify_combine",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def verify_rows(q, num_kv_heads: int, scale: float):
+    """q [B, Hq, T, d] folded into the rows of each (sequence, kv head),
+    row t · G + g, and multiplied by ``scale`` (sm_scale already rounded to
+    q's dtype) in q's dtype: [B · Hkv, T · G, d], one rounding a value (the
+    JAX wrapper's ``qg``)."""
+    b, hq, t, d = q.shape
+    g = hq // num_kv_heads
+    out = torch.empty((b, num_kv_heads, t, g, d), dtype=q.dtype, device=q.device)
+    torch.mul(q.reshape(b, num_kv_heads, g, t, d).transpose(2, 3), scale, out=out)
+    return out.view(b * num_kv_heads, t * g, d)
+
+
+def verify_waves(batch: int, num_kv_heads: int, rows: int, n_keys: int) -> list:
+    """The waves of a verify call of ``rows`` = T · G rows a (sequence, kv
+    head) over a table of ``n_keys`` keys: :func:`..geometry.wide_scores_waves`
+    over its tiles f = (b · Hkv + kv head) · ceil(rows / 128) + row tile,
+    at the cap :data:`..geometry.WIDE_SCORES_SCRATCH_BYTES` holds when
+    called."""
+    return geo.wide_scores_waves(batch, num_kv_heads, rows, n_keys, False)
+
+
+def verify_key_hi(lengths, tokens: int, rows: int, g: int, max_len: int):
+    """Per tile of one (sequence, kv head): the keys [0, key_hi) that some
+    row of row tile i sees, ``lengths`` a host list of the sequences'
+    lengths: [[key_hi of each row tile] for each sequence]."""
+    out = []
+    for n in lengths:
+        out.append([max(0, min(n - tokens + 1 + (min(r0 + TILE, rows) - 1) // g, max_len))
+                    for r0 in range(0, rows, TILE)])
+    return out
+
+
+def _pool_rows(payload, int4: bool, kvh: int, table_row, n_keys: int, page_size: int, dtype):
+    """Keys [0, n_keys) of one sequence's table from one kv head of a pool
+    (values, or payloads unscaled) in ``dtype`` as fp32: [n_keys, d]."""
+    pages = table_row[: -(-n_keys // page_size)].long()
+    g = payload[kvh, pages]  # [pages, stored rows, d]
+    if int4:
+        from .quantization import unpack_int4_rows
+
+        g = unpack_int4_rows(g)
+    return g.reshape(-1, g.shape[-1])[:n_keys].to(dtype).float()
+
+
+def _scale_rows(scales, kvh: int, table_row, n_keys: int, page_size: int):
+    """The fp32 scales of keys [0, n_keys) of one sequence: [n_keys]."""
+    pages = table_row[: -(-n_keys // page_size)].long()
+    return scales[kvh, pages].reshape(-1)[:n_keys]
+
+
+def verify_scratch(wave, n_keys: int, device):
+    """A verify wave's scratch, as :func:`fwd_scratch` lays it out: S
+    [(f1 − f0) 128, key tiles · 128] fp32 and each row's (max, sum) of each
+    key tile [(f1 − f0) 128, key tiles, 2], uninitialised (only the key
+    tiles some row of a tile sees are written)."""
+    rows, n_kt = (wave[1] - wave[0]) * TILE, n_tiles(n_keys)
+    return (torch.empty((rows, n_kt * TILE), dtype=torch.float32, device=device),
+            torch.empty((rows, n_kt, 2), dtype=torch.float32, device=device))
+
+
+def verify_scratch_mask(wave, key_hi, num_kv_heads: int, rows: int, n_keys: int, device):
+    """Where a verify wave's scratch holds a pair the passes write and read:
+    [(f1 − f0) 128, key tiles · 128] bool, True on each tile's rows inside
+    T · G and keys below its ``key_hi`` (:func:`verify_key_hi`)."""
+    n_rt = n_tiles(rows)
+    mask = torch.zeros(((wave[1] - wave[0]) * TILE, n_tiles(n_keys) * TILE), dtype=torch.bool,
+                       device=device)
+    for f in range(*wave):
+        bk, rt = divmod(f, n_rt)
+        lr = (f - wave[0]) * TILE
+        mask[lr:lr + min(TILE, rows - rt * TILE), :key_hi[bk // num_kv_heads][rt]] = True
+    return mask
+
+
+def _verify_check(qs, what: str) -> None:
+    if qs.dtype not in (torch.bfloat16, torch.float16):
+        raise ValueError(f"{what}: route {ROUTE} takes bf16 / fp16 q, not {qs.dtype}")
+    if not geo.chunked(qs.shape[-1]):
+        raise ValueError(f"{what}: route {ROUTE} takes pool head dims above "
+                         f"{geo.WIDE_CUT_MAX_HEAD_DIM} that are a multiple of 128, "
+                         f"not {qs.shape[-1]}")
+
+
+def _verify_dims(pools, num_q_heads, tokens, table, d):
+    hkv, num_pages = pools.k.shape[:2]
+    return (table.shape[0], num_q_heads, hkv, tokens, num_pages, pools.page_size,
+            table.shape[1], d)
+
+
+def _verify_tail(wave, device):
+    return int(wave[0]), int(wave[1]), ROUTE_CODES[ROUTE], stream_handle(device)
+
+
+def verify_scores(qs, pools, lengths, table, wave, *, num_q_heads, tokens, softcap=0.0,
+                  alibi_slopes=None):
+    """Verify's score pass over the wave's tiles from the folded rows ``qs``
+    (:func:`verify_rows`) and the K pool of ``pools`` (``ops/decode.py``
+    ``_Pools``): (S, stats) as :func:`verify_scratch` lays them out, S in
+    base-2 units (masked −inf).  The kernel on a CUDA device,
+    :func:`verify_scores_plain` on the CPU."""
+    kw = dict(num_q_heads=num_q_heads, tokens=tokens, softcap=softcap,
+              alibi_slopes=alibi_slopes)
+    if qs.device.type == "cpu":
+        return verify_scores_plain(qs, pools, lengths, table, wave, **kw)
+    _verify_check(qs, "verify_scores")
+    n_keys = table.shape[1] * pools.page_size
+    s, stats = verify_scratch(wave, n_keys, qs.device)
+    slopes = mod_args(alibi_slopes, 0.0, 0, qs.device)[0]
+    _kernel("VERIFY_SCORES_KERNEL").launch(
+        ptr(qs), DTYPE_CODES[qs.dtype], ptr(pools.k), pools.kind, ptr(pools.k_sc), ptr(lengths),
+        ptr(table), ptr(s), ptr(stats), *_verify_dims(pools, num_q_heads, tokens, table,
+                                                      qs.shape[-1]),
+        float(softcap), slopes, *_verify_tail(wave, qs.device))
+    return s, stats
+
+
+def _verify_tiles(wave, pools, lengths, table, num_q_heads, tokens):
+    """Each tile f of the wave: (f, sequence, kv head, rows [r0, r1), the
+    sequence's length and its length clamped to the table, key_hi)."""
+    hkv = pools.k.shape[0]
+    g, max_len = num_q_heads // hkv, table.shape[1] * pools.page_size
+    rows = tokens * g
+    lens = [int(n) for n in lengths.tolist()]
+    hi = verify_key_hi(lens, tokens, rows, g, max_len)
+    n_rt = n_tiles(rows)
+    for f in range(*wave):
+        bk, rt = divmod(f, n_rt)
+        bi, kvh = divmod(bk, hkv)
+        r0 = rt * TILE
+        yield f, bi, kvh, r0, min(r0 + TILE, rows), lens[bi], min(max(lens[bi], 0), max_len), \
+            hi[bi][rt]
+
+
+def verify_scores_plain(qs, pools, lengths, table, wave, *, num_q_heads, tokens, softcap=0.0,
+                        alibi_slopes=None):
+    """Plain version of verify's score pass, in fp32 on the inputs' device,
+    one tile at a time (``paged_verify_plain``'s arithmetic: payloads cast to
+    q's dtype unscaled, the K scale on S, the softcap, the ALiBi bias −m ·
+    (q_pos − col) with q_pos = length − T + t, each row's horizon; key tiles
+    no row of a tile sees: S −inf, stats (−inf, 0))."""
+    hkv = pools.k.shape[0]
+    g, ps = num_q_heads // hkv, pools.page_size
+    max_len = table.shape[1] * ps
+    s, stats = verify_scratch(wave, max_len, qs.device)
+    s.fill_(float("-inf"))
+    stats[..., 0] = float("-inf")
+    stats[..., 1] = 0.0
+    for f, bi, kvh, r0, r1, n, alen, key_hi in _verify_tiles(wave, pools, lengths, table,
+                                                             num_q_heads, tokens):
+        if key_hi == 0:
+            continue
+        k = _pool_rows(pools.k, pools.int4, kvh, table[bi], key_hi, ps, qs.dtype)
+        x = torch.matmul(qs[bi * hkv + kvh, r0:r1].float(), k.T)
+        if pools.quantized:
+            x = x * _scale_rows(pools.k_sc, kvh, table[bi], key_hi, ps)
+        if softcap:
+            x = softcap * torch.tanh(x * (1.0 / softcap))
+        r = torch.arange(r0, r1, device=qs.device)
+        t = r // g
+        cols = torch.arange(key_hi, device=qs.device)
+        if alibi_slopes is not None:
+            m = torch.tensor(alibi_slopes, dtype=torch.float32, device=qs.device)[kvh * g + r % g]
+            x = x - m[:, None] * ((alen - tokens + t)[:, None] - cols).float()
+        x = x * LOG2E
+        x = x.masked_fill(cols >= (n - tokens + 1 + t).clamp(max=max_len)[:, None],
+                          float("-inf"))
+        hi = n_tiles(key_hi)
+        full = torch.full((r1 - r0, hi * TILE), float("-inf"), device=qs.device)
+        full[:, :key_hi] = x
+        lr = (f - wave[0]) * TILE
+        s[lr:lr + r1 - r0, :hi * TILE] = full
+        full = full.view(r1 - r0, hi, TILE)
+        mx = full.amax(dim=-1)
+        m_use = torch.where(torch.isneginf(mx), 0.0, mx)
+        stats[lr:lr + r1 - r0, :hi, 0] = mx
+        stats[lr:lr + r1 - r0, :hi, 1] = torch.exp2(full - m_use[..., None]).sum(dim=-1)
+    return s, stats
+
+
+def verify_split_tiles(n_keys: int, splits: int):
+    """Key tiles a split of a verify call on this route: ceil(key tiles /
+    splits), the last split shorter."""
+    return -(-n_tiles(n_keys) // splits)
+
+
+def verify_product(s, stats, pools, lengths, table, wave, out, *, num_q_heads, tokens,
+                   splits=1, dtype=None):
+    """Verify's product pass over the wave's tiles and every key split:
+    with one split ``out`` is O [B, Hq, T, d] in q's dtype, written in
+    place; with several it is (part_o [splits, B · Hq · T, d], part_lse
+    [splits, B · Hq · T]) fp32, each split's partial normalized over its own
+    keys and its lse (−inf where it shows a row no key), for
+    :func:`verify_combine`.  ``dtype`` is q's (that of O).  The kernel on a
+    CUDA device, :func:`verify_product_plain` on the CPU."""
+    kw = dict(num_q_heads=num_q_heads, tokens=tokens, splits=splits, dtype=dtype)
+    if s.device.type == "cpu":
+        return verify_product_plain(s, stats, pools, lengths, table, wave, out, **kw)
+    o, parts = (out, (None, None)) if splits == 1 else (None, out)
+    d = pools.v.shape[-1]
+    _kernel("VERIFY_PRODUCT_KERNEL").launch(
+        ptr(s), ptr(stats), ptr(pools.v), DTYPE_CODES[dtype], pools.kind, ptr(pools.v_sc),
+        ptr(lengths), ptr(table), ptr(o), ptr(parts[0]), ptr(parts[1]),
+        *_verify_dims(pools, num_q_heads, tokens, table, d), int(splits),
+        *_verify_tail(wave, s.device))
+
+
+def verify_product_plain(s, stats, pools, lengths, table, wave, out, *, num_q_heads, tokens,
+                         splits=1, dtype=None):
+    """Plain version of verify's product pass, in fp32 on the inputs' device,
+    one tile and split at a time: the row's max m and sum l over the split's
+    key tiles merged from their (max, sum) in key-tile order, P = exp2(S −
+    m) times the V scale rounded to q's dtype (against the row's max, as
+    ``paged_verify_plain`` rounds it), O = P V / l over the split's keys a
+    row sees."""
+    hkv = pools.k.shape[0]
+    g, ps = num_q_heads // hkv, pools.page_size
+    max_len = table.shape[1] * ps
+    per = verify_split_tiles(max_len, splits)
+    n_kt = n_tiles(max_len)
+    for f, bi, kvh, r0, r1, _, _, key_hi in _verify_tiles(wave, pools, lengths, table,
+                                                          num_q_heads, tokens):
+        lr = (f - wave[0]) * TILE
+        rows = slice(lr, lr + r1 - r0)
+        r = torch.arange(r0, r1, device=s.device)
+        orow = (bi * num_q_heads + kvh * g + r % g) * tokens + r // g
+        v = _pool_rows(pools.v, pools.int4, kvh, table[bi], key_hi, ps, dtype)
+        vsc = (_scale_rows(pools.v_sc, kvh, table[bi], key_hi, ps) if pools.quantized
+               else None)
+        for sp in range(splits):
+            lo, hi = sp * per, min(sp * per + per, n_kt, n_tiles(key_hi))
+            k0, k1 = lo * TILE, min(hi * TILE, key_hi)
+            if lo < hi:
+                st = stats[rows, lo:hi]
+                m = st[..., 0].amax(dim=-1)
+                m_use = torch.where(torch.isneginf(m), 0.0, m)
+                l = (st[..., 1] * torch.exp2(st[..., 0] - m_use[:, None])).sum(dim=-1)
+                seen = l > 0
+                lse2 = torch.where(seen, m_use + torch.log2(torch.where(seen, l, 1.0)), 0.0)
+                p = torch.exp2(s[rows, k0:k1] - m_use[:, None])
+                if vsc is not None:
+                    p = p * vsc[k0:k1]
+                o = torch.matmul(p.to(dtype).float(), v[k0:k1])
+                o = o * torch.where(seen, 1.0 / torch.where(seen, l, 1.0), 0.0)[:, None]
+            else:
+                seen = torch.zeros(r1 - r0, dtype=torch.bool, device=s.device)
+                lse2 = torch.zeros(r1 - r0, device=s.device)
+                o = torch.zeros((r1 - r0, v.shape[-1]), device=s.device)
+            if splits == 1:
+                out.view(-1, out.shape[-1])[orow] = o.to(out.dtype)
+            else:
+                out[0][sp, orow] = o
+                out[1][sp, orow] = torch.where(seen, lse2 * LN2, float("-inf"))
+
+
+def verify_combine(part_o, part_lse, o):
+    """The key splits of a verify call merged in split order into O [B, Hq,
+    T, d] (q's dtype), written in place: ``csrc/wide.cuh``'s
+    ``wide_combine_kernel`` on a CUDA device, ``ops/decode.py``
+    ``combine_partials`` on the CPU."""
+    if o.device.type == "cpu":
+        from .decode import combine_partials
+
+        merged, _ = combine_partials(part_o, part_lse)
+        o.view(-1, o.shape[-1])[:] = merged.to(o.dtype)
+        return
+    _kernel("VERIFY_COMBINE_KERNEL").launch(
+        ptr(part_o), ptr(part_lse), ptr(o), DTYPE_CODES[o.dtype], part_o.shape[1],
+        part_o.shape[0], part_o.shape[2], stream_handle(o.device))
+
+
+def verify_call(q, pools, lengths, table, *, scale, splits=1, softcap=0.0, alibi_slopes=None,
+                parts=None):
+    """O [B, Hq, T, d] (q's dtype) of paged verify on route ``"wide_scores"``
+    (q at the pools' head dim, ``scale`` sm_scale rounded to q's dtype):
+    q folded and scaled (:func:`verify_rows`), each wave's score pass, then
+    its product pass over ``splits`` key splits of whole key tiles, and the
+    splits merged (:func:`verify_combine`); their plain versions on CPU
+    tensors.  ``parts`` is the (part_o, part_lse) scratch of a split call
+    (fresh tensors if None)."""
+    b, hq, tokens, d = q.shape
+    hkv = pools.k.shape[0]
+    n_keys = table.shape[1] * pools.page_size
+    o = torch.empty_like(q)
+    if splits > 1 and parts is None:
+        rows = b * hq * tokens
+        parts = (torch.empty((splits, rows, d), dtype=torch.float32, device=q.device),
+                 torch.empty((splits, rows), dtype=torch.float32, device=q.device))
+    qs = verify_rows(q, hkv, scale)
+    kw = dict(num_q_heads=hq, tokens=tokens)
+    for wave in verify_waves(b, hkv, tokens * (hq // hkv), n_keys):
+        s, stats = verify_scores(qs, pools, lengths, table, wave, softcap=softcap,
+                                 alibi_slopes=alibi_slopes, **kw)
+        verify_product(s, stats, pools, lengths, table, wave, o if splits == 1 else parts,
+                       splits=splits, dtype=q.dtype, **kw)
+    if splits > 1:
+        verify_combine(*parts, o)
+    return o

@@ -18,6 +18,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 from flash_attention_dlrs_tpu.bench.suite import attention_flops as jax_flops
 from flash_attention_dlrs_tpu.utils.config import dump_config as jax_dump

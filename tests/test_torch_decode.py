@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 from flash_attention_dlrs_tpu.ops import decode as jdec
 from flash_attention_dlrs_tpu_torch.ops import decode as tdec

@@ -19,6 +19,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 import flash_attention_dlrs_tpu as fa
 import flash_attention_dlrs_tpu_torch as tp

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -11,6 +11,7 @@ import sys
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "flash_attention_dlrs_tpu_torch"

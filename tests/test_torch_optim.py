@@ -29,6 +29,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 from flash_attention_dlrs_tpu.models import ModelConfig as JConfig
 from flash_attention_dlrs_tpu.models import make_train_state as jmake_state

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from jax.sharding import Mesh as JMesh
 
 from flash_attention_dlrs_tpu.parallel import sharded_attention as jsharded

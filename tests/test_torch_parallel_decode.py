@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from jax.sharding import Mesh as JMesh
 
 from flash_attention_dlrs_tpu.ops.decode import quantize_kv_pages as jquant

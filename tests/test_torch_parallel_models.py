@@ -39,6 +39,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from jax.sharding import Mesh as JMesh
 
 from flash_attention_dlrs_tpu.models import ModelConfig as JConfig

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 from flash_attention_dlrs_tpu.models import ModelConfig as JConfig
 from flash_attention_dlrs_tpu.models import decoding as jdecoding

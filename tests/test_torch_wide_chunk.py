@@ -2,10 +2,11 @@
 
 The JAX package pads any head dim to a multiple of 128 lanes and runs all
 its kernels there; the port pads alike (``kernel_width``: 1100 to 1152) and
-on the card runs the bf16 / fp16 forward and sweeps as score and product
-passes (route ``wide_scores``, ``csrc/wide_scores.cuh``, :mod:`.wide_scores`),
-verify on the column-chunked kernels of ``csrc/wide.cuh`` (``wide_chunk``),
-fp32 on ``wide_fp32`` and decode on ``csrc/paged_decode_chunk.cu``.  Here,
+on the card runs the bf16 / fp16 forward, sweeps and paged verify as score
+and product passes (route ``wide_scores``, ``csrc/wide_scores.cuh``,
+:mod:`.wide_scores`; verify's passes in ``tests/test_torch_verify_scores.py``),
+fp32 on the column-chunked kernels of ``csrc/wide.cuh`` (``wide_fp32``) and
+decode on ``csrc/paged_decode_chunk.cu``.  Here,
 on CPU tensors, the port runs their plain versions; the JAX side runs its
 Pallas routes in interpret mode, as its own CPU tests do.  Same seeded numpy
 inputs on both sides:
@@ -33,6 +34,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 
 import flash_attention_dlrs_tpu as fa
 import flash_attention_dlrs_tpu_torch as tp
@@ -104,16 +106,15 @@ CHUNK_DIMS = (1152, 2048, 8192)
 
 @pytest.mark.parametrize("d", CHUNK_DIMS)
 def test_routes_take_the_column_chunked_kernels(d):
-    """Above 1024 the bf16 / fp16 forward and sweeps name route
-    ``wide_scores`` (code 6) with every mode, verify keeps the
-    column-chunked ``wide_chunk`` (code 5, its only user there) and fp32
-    stays on ``wide_fp32``; the builds the wrappers look up are the wide
-    ones for fp32, decode's its column-chunked build; the only tile is the
-    passes' (128-key score tiles, 64 streamed rows); 1024 stays on the
-    wgmma cuts."""
+    """Above 1024 the bf16 / fp16 forward, sweeps and verify name route
+    ``wide_scores`` (code 6) with every mode and pool kind (``wide_chunk``,
+    code 5, is retired) and fp32 stays on ``wide_fp32``; the builds the
+    wrappers look up are the wide ones for fp32, decode's its
+    column-chunked build; the only tile is the passes' (128-key score
+    tiles, 64 streamed rows); 1024 stays on the wgmma cuts."""
     for dtype, route, verify in ((torch.float32, "wide_fp32", "wide_fp32"),
-                                 (torch.bfloat16, "wide_scores", "wide_chunk"),
-                                 (torch.float16, "wide_scores", "wide_chunk")):
+                                 (torch.bfloat16, "wide_scores", "wide_scores"),
+                                 (torch.float16, "wide_scores", "wide_scores")):
         tfwd.check_kernel_head_dim(d, "chunk")
         for kw in ({}, dict(segments=True), dict(alibi=True, dropout=True)):
             assert tbwd.bwd_route(dtype, d, **kw) == route
@@ -123,8 +124,9 @@ def test_routes_take_the_column_chunked_kernels(d):
         assert tfwd.ROUTE_CODES[verify] == tdec.VERIFY_ROUTE_CODES[verify]
         assert tfwd.fwd_route(dtype, 1024) == ("wide_fp32" if route == "wide_fp32"
                                                else "wide_wgmma")
-    assert tfwd.ROUTE_CODES["wide_scores"] == 6 and "wide_scores" not in tdec.VERIFY_ROUTE_CODES
-    assert tfwd.ROUTE_CODES["wide_chunk"] == 5 and 3 not in tfwd.ROUTE_CODES.values()
+    assert tfwd.ROUTE_CODES["wide_scores"] == tdec.VERIFY_ROUTE_CODES["wide_scores"] == 6
+    assert "wide_chunk" not in tfwd.ROUTE_CODES and "wide_chunk" not in tdec.VERIFY_ROUTE_CODES
+    assert 3 not in tfwd.ROUTE_CODES.values() and 5 not in tfwd.ROUTE_CODES.values()
     assert all("wide_scores" in counts for counts in tbwd.BWD_ROUTE_LAUNCHES.values())
     assert geo.chunked(d) and not geo.chunked(1024) and geo.is_wide(d)
     assert tfwd.fwd_kernel(d, True) is tfwd.FWD_WIDE_KERNEL
@@ -148,8 +150,11 @@ def test_routes_take_the_column_chunked_kernels(d):
             tuning.BlockSizes(block_kv=bkv, block_kv_bwd=bkv_bwd).check(d)
     assert tuning.candidate_fwd_configs(d, segments=True) == [(128, 128)]
     assert tuning.candidate_bwd_configs(d, dropout=True) == [(128, 64)]
-    # verify's CTAs: 64-row blocks times the 128-column chunks, as wide_fp32
-    assert tdec.verify_ctas_per_split("wide_chunk", 130, d) == 3 * (d // 128)
+    # verify's CTAs a split: 64-row blocks times the 128-column chunks on
+    # wide_fp32; the product pass's 128-row tiles times its 256-column
+    # chunks on wide_scores
+    assert tdec.verify_ctas_per_split("wide_fp32", 130, d) == 3 * (d // 128)
+    assert tdec.verify_ctas_per_split("wide_scores", 130, d) == 2 * -(-d // 256)
 
 
 def test_no_multiple_of_128_above_256_is_refused():
@@ -164,26 +169,17 @@ def test_no_multiple_of_128_above_256_is_refused():
             tfwd.fwd_route(torch.bfloat16, d)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
-def test_chunk_layout_fits_every_mode(dtype):
+def test_chunk_layout_fits_every_mode():
     """The column-chunked kernels' shared memory (geometry's byte model of
-    csrc/wide.cuh WideLayout<T>) is one layout a dtype, whatever the head
-    dim or mode (forward, verify, sweeps, segment ids), and fits the 232,448
-    bytes an H100 CTA may opt into, four CTAs an SM in 16 bits; the chunked
-    decode's (WdcLayout) fits too."""
+    csrc/wide.cuh WideLayout, fp32) is one layout whatever the head dim or
+    mode (forward, verify, sweeps, segment ids), and fits the 232,448 bytes
+    an H100 CTA may opt into; the chunked decode's (WdcLayout) fits too."""
     optin = geo.current_geometry("cpu").smem_per_block_optin
-    sizes = {geo.wide_chunk_smem_bytes(dtype, paged=p, segments=s)
-             for p in (False, True) for s in (False, True)}
-    assert len(sizes) == 1
-    n = sizes.pop()
+    n = geo.wide_chunk_smem_bytes()
     assert n <= optin and optin == 232448
     # two stages of each streamed operand (64 rows x 144 bytes), the update
-    # tile (64 x 128 columns of dtype, rows padded by 16 bytes), fp32's P
-    item = torch.empty((), dtype=dtype).element_size()
-    assert n == (4 * 64 * 144 + 64 * (128 * item + 16) + (17408 if item == 4 else 0)
-                 + 6 * 64 * 4 + 64 * 12)
-    if item == 2:
-        assert geo.fits_ctas_per_sm(n, 4)
+    # tile (64 x 128 fp32 columns, rows padded by 16 bytes), each warp's P
+    assert n == 4 * 64 * 144 + 64 * (128 * 4 + 16) + 17408 + 6 * 64 * 4 + 64 * 12
     assert geo.wide_chunk_decode_smem_bytes() <= optin
 
 
@@ -285,12 +281,14 @@ def test_waves_are_bitwise_one_wave(name, monkeypatch):
 def test_wide_scores_layouts_and_waves():
     """Each pass of route ``wide_scores`` has one layout at every head dim
     and mode (geometry's byte model of csrc/wide_scores.cuh ScoreLayout /
-    ProductLayout), inside the 232,448 bytes an H100 CTA may opt into; the
+    ProductLayout / VerifyProductLayout; verify's passes every pool kind
+    too), inside the 232,448 bytes an H100 CTA may opt into; the
     waves cover a call's tiles in order, each within the cap unless one
     tile is past it, and the d 2048 training shape runs in one wave."""
     optin = geo.current_geometry("cpu").smem_per_block_optin
     want = {"fwd_scores": 132672, "bwd_scores": 198192, "fwd_product": 197680,
-            "dq_product": 197696, "dkv_product": 197696}
+            "dq_product": 197696, "dkv_product": 197696, "verify_scores": 132672,
+            "verify_product": 198448}
     assert {kind: geo.wide_scores_smem_bytes(kind) for kind in geo.WIDE_SCORES_KINDS} == want
     assert max(want.values()) <= optin
     for b, hq, n_q, n_kv, cap in ((8, 2, 2048, 2048, None), (1, 2, 300, 16384, 1 << 24),

@@ -3,8 +3,9 @@
 
 Builds copies of ``csrc/attn_fwd_wide.cu``, ``csrc/attn_bwd_wide.cu``,
 ``csrc/paged_decode_wide.cu`` (the kernels of ``csrc/wide.cuh``) and
-``csrc/attn_fwd_scores.cu``, ``csrc/attn_bwd_scores.cu`` (those of
-``csrc/wide_scores.cuh``) with one piece of a kernel cut out at a time, as
+``csrc/attn_fwd_scores.cu``, ``csrc/attn_bwd_scores.cu``,
+``csrc/paged_verify_wide.cu`` (those of ``csrc/wide_scores.cuh``) with one
+piece of a kernel cut out at a time, as
 ``chip_smoke.py`` builds its mutants, and times each in one process beside
 the kernels as built: device ms by CUDA events behind a spin kernel
 (``chip_smoke.device_ms``).  A cut copy computes wrong values; only its
@@ -33,6 +34,20 @@ time is read.
   dQ and dK / dV products), as built and with the product passes' wgmma
   products cut (P is still formed from the stored S in the forward), which
   leaves their scratch and operand traffic; the passes' bounds beside.
+- ``verify``: route wide_scores' paged verify above 1024 at the
+  serving-d2048 chunk (B1 Hq1 Hkv1, T 256 at a length of 2048, pages of
+  128, 17 a sequence; bf16 q from bf16 and int8 pools): its score pass, its
+  product pass (the call's key splits) and the merge of the splits, each
+  alone, and the whole call, each call after an L2 flush as
+  ``chip_smoke.time_paged`` reads it; as built, with the product's wgmma
+  products cut, and with the score pass's quantized payloads neither
+  loaded nor converted (its K stages stale: the int8 score pass's cost of
+  its K traffic); the bounds beside.
+- ``verify_splits``: the whole verify call above 1024 (no cut copy) at
+  the serving-d2048 chunk, the same chunk at a context of 8192 and a
+  speculative round of 8 sequences of T 8, from bf16 and int8 pools, at
+  every key split count whole pages give, beside the count
+  ``decode.verify_splits`` picks.
 - ``d256``: the d 256 backward sweeps (``csrc/attn_bwd_d256.cu`` over
   ``csrc/attn_bwd_sm90.cuh``) at Gemma-2-2B's training attention (B2 Hq8
   Hkv4 N8192, causal bf16; global and window 4096, each without and with
@@ -47,7 +62,8 @@ time is read.
 Each variant is timed twice, the kernels as built first and last (the
 spread).  Prints one JSON record, then the card's name and power limit:
 
-    python3 wide_breakdown_torch.py [forward] [sweeps] [decode] [scores] [d256] [--parent DIR]
+    python3 wide_breakdown_torch.py [forward] [sweeps] [decode] [scores] [verify]
+                                    [verify_splits] [d256] [--parent DIR]
                                                                   # default: the first three
 """
 
@@ -157,6 +173,19 @@ SCORES_CUTS = {
          "                                    smem_desc(sb + hh * 2 * 8192 + kk * 2048, 8192, 1024));\n",
          "          acc[hh] += float(da & 1u);\n")],
 }
+# Route wide_scores' paged verify (csrc/wide_scores.cuh): its product without
+# the wgmma products (as SCORES_CUTS), its score pass's producer without the
+# quantized payloads (the loads, dead, go with the conversions).
+VERIFY_CUTS = {
+    "no_products": [
+        ("        WgmmaRS<128, T>::run(*reinterpret_cast<float(*)[64]>(acc + 64 * hh), pa[kk],\n"
+         "                             smem_desc(sb + hh * 2 * 8192 + kk * 2048, 8192, 1024));\n",
+         "        acc[hh] += __uint_as_float(pa[kk][hh] & 1u);\n")],
+    "no_quantized_payloads": [(
+        "          store_converted_rows<T>(smem + s * L::STAGE + L::TILE, BN, tid / 4 + 32 * j, "
+        "tid % 4,\n                                  raw[j], (hi >> j) & 1, a.kind);\n", "")],
+}
+VERIFY_SERVE = (256, 2048, (1, 1, 2048))  # T, length, (Hq, Hkv, d) of the serving-d2048 chunk
 SCORES_TRAIN = (8, 2, 1, 2048, 2048)  # B, Hq, Hkv, N, d of the training-bench-d2048 attention
 SCORES_SERVE = (1, 1, 1, 2048, 2048)  # the serving-bench-d2048 prefill
 D256 = (2, 8, 4, 8192, 256)  # B, Hq, Hkv, N, d of Gemma-2-2B's training attention
@@ -329,6 +358,87 @@ def scores_device_ms(backward):
     return timer
 
 
+def verify_device_ms(gen, dev):
+    """Device ms of route wide_scores' paged verify at VERIFY_SERVE from
+    bf16 and int8 pools, each call after an L2 flush: each pass alone (the
+    score pass, the product pass over the call's key splits, the merge of
+    the splits) and the whole call, with their bounds
+    (``chip_smoke.verify_pass_work``, ``chip_smoke.paged_work``)."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+    from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+    t_new, length, (hq, hkv, d) = VERIFY_SERVE
+    out = {}
+    for kind in ("bf16", "int8"):
+        case = ("breakdown", "bfloat16", kind, (1, hq, hkv, d, cs.SERVE_PAGE, cs.SERVE_PPS,
+                                                [length]), 0.0, t_new, False)
+        q, (kp, vp), lens, table, call_kw, kw, qs, wave = cs._verify_setup(dev, gen, case)
+        pools = dm._Pools(kp, vp)
+        splits = dm.verify_splits("wide_scores", 1, hq, hkv, t_new, d, cs.SERVE_PPS,
+                                  cs.SERVE_PAGE,
+                                  torch.cuda.get_device_properties(dev).multi_processor_count)
+        s, st = ws.verify_scores(qs, pools, lens, table, wave, **kw)
+        rows = t_new * hq
+        parts = (torch.zeros((splits, rows, d), device=dev), torch.zeros((splits, rows), device=dev))
+        o = torch.empty_like(q)
+        pk = dict(num_q_heads=hq, tokens=t_new, dtype=q.dtype)
+        pairs = sum(length - (t_new - 1) + t for t in range(t_new))
+        work = cs.verify_pass_work(kind, rows, length, pairs, d, splits)
+        calls = {"verify_scores": lambda: ws.verify_scores(qs, pools, lens, table, wave, **kw),
+                 "verify_product": lambda: ws.verify_product(s, st, pools, lens, table, wave,
+                                                             parts, splits=splits, **pk),
+                 "verify_combine": lambda: ws.verify_combine(*parts, o),
+                 "call": lambda: dm.paged_verify_attention(q, kp, vp, lens, table, **call_kw)}
+        work["call"] = cs.paged_work(kind, 1, hq, hkv, d, [length], t_new)
+        out[kind] = {name: {"device_ms": cs.device_ms(fn, between=cs.l2_flush(dev)),
+                            "bound_ms": cs.bound(*work[name], cs.PEAK_BF16_FLOPS)[0]}
+                     for name, fn in calls.items()}
+        out[kind]["splits"] = splits
+        del q, kp, vp, s, st, parts, o
+        torch.cuda.empty_cache()
+    return out
+
+
+# Verify calls above 1024 whose key splits verify_split_sweep times: the
+# serving-d2048 chunk, the same chunk at a context of 8192, and a
+# speculative round of 8 sequences (T 8) at 2048; (B, T, length, pages a
+# sequence), Hq1 Hkv1 d2048, pages of 128.
+VERIFY_SPLIT_SHAPES = {"serve_chunk_T256_ctx2048": (1, 256, 2048, 17),
+                       "serve_chunk_T256_ctx8192": (1, 256, 8192, 65),
+                       "spec_B8_T8_ctx2048": (8, 8, 2048, 17)}
+
+
+def verify_split_sweep(gen, dev):
+    """Device ms of the whole verify call on route wide_scores (score pass,
+    product pass, merge), each call after an L2 flush, from bf16 and int8
+    pools at VERIFY_SPLIT_SHAPES, at every key split count that whole pages
+    give (paged_verify_attention's pages_per_block), beside the count that
+    decode.verify_splits picks from the shapes."""
+    import torch
+    from flash_attention_dlrs_tpu_torch.ops import decode as dm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for name, (b, t_new, length, pps) in VERIFY_SPLIT_SHAPES.items():
+        for kind in ("bf16", "int8"):
+            case = ("sweep", "bfloat16", kind, (b, 1, 1, 2048, cs.SERVE_PAGE, pps, [length] * b),
+                    0.0, t_new, False)
+            q, (kp, vp), lens, table, call_kw, _, _, _ = cs._verify_setup(dev, gen, case)
+            rule = dm.verify_splits("wide_scores", b, 1, 1, t_new, 2048, pps, cs.SERVE_PAGE, sms)
+            by = {}
+            for ppb in sorted({-(-pps // n) for n in range(1, pps + 1)}, reverse=True):
+                splits = dm.scores_splits(pps * cs.SERVE_PAGE, dm.key_splits(pps, ppb, 64))
+                by[splits] = cs.device_ms(
+                    lambda: dm.paged_verify_attention(q, kp, vp, lens, table,
+                                                      pages_per_block=ppb, **call_kw),
+                    between=cs.l2_flush(dev))
+            out[f"{name}_{kind}"] = {"rule": rule, "device_ms_by_splits": by}
+            del q, kp, vp
+            torch.cuda.empty_cache()
+    return out
+
+
 def decode_device_ms(gen, dev):
     """Device ms of one decode call (bf16 q) from bf16 and int8 pools at
     DECODE, each call after an L2 flush, and the call's byte bound."""
@@ -435,6 +545,20 @@ def main() -> int:
                 source, SCORES_CUTS, slots, scores_device_ms(half == "backward"),
                 lambda log, source=source: cs.scores_instances(log, source),
                 header="wide_scores.cuh")
+    if "verify" in parts:
+        from flash_attention_dlrs_tpu_torch.ops import wide_scores as ws
+
+        rec["verify"] = breakdown(
+            "paged_verify_wide.cu", VERIFY_CUTS,
+            [(ws, "VERIFY_SCORES_KERNEL"), (ws, "VERIFY_PRODUCT_KERNEL"),
+             (ws, "VERIFY_COMBINE_KERNEL")], verify_device_ms,
+            lambda log: {k: v for k, v in cs.scores_instances(log, "paged_verify_wide.cu").items()
+                         if k.startswith("verify_")},
+            header="wide_scores.cuh")
+    if "verify_splits" in parts:
+        dev = torch.device("cuda", 0)
+        rec["verify_splits"] = verify_split_sweep(torch.Generator(device=dev).manual_seed(0),
+                                                  dev)
     if "d256" in parts:
         rec["d256"] = d256_breakdown(parent)
     rec["card"] = cs.card_line()
